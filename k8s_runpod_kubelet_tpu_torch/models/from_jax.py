@@ -1,0 +1,68 @@
+"""Bridge from the JAX package's parameter tree to the port's.
+
+``params_from_jax`` takes the nested dict that the JAX ``init_params``
+returns, with every leaf already converted to a numpy array (stacked
+``layers/*`` leaves of shape (L, ...)), and returns the port's parameters
+on ``device``: matmul weights, embedding and LM head in ``cfg.dtype``,
+norm weights in f32 — the values the JAX model computes with once it
+casts its f32 params at use. Both packages then compute the same thing,
+which is what the parity tests need. This module imports no jax.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from .llama import LlamaConfig, Params, is_norm, param_shapes
+
+# JAX config fields that select code paths this port does not have yet;
+# a config that sets any of them away from the dense default is refused
+_UNSUPPORTED = {
+    "sliding_window": None, "attn_logit_softcap": None,
+    "query_pre_attn_scalar": None, "post_norms": False, "qk_norm": False,
+    "rope_local_theta": None, "mlp_activation": "silu",
+    "embed_scale": False, "logit_softcap": None,
+    "norm_zero_centered": False, "qkv_bias": False, "n_experts": 0,
+    "mla_latent_dim": None, "n_dense_prefix": 0, "sliding_window_pattern": 1,
+}
+
+
+def config_from_jax(jcfg, dtype: torch.dtype) -> LlamaConfig:
+    """The port's config for a JAX ``LlamaConfig`` (read by attribute, so
+    no jax import), with ``dtype`` as the compute dtype. Raises on any
+    field that needs a branch the port does not have."""
+    bad = [f for f, dense in _UNSUPPORTED.items()
+           if getattr(jcfg, f, dense) != dense]
+    if bad:
+        raise ValueError(f"config {jcfg.name!r} needs {bad}, which this "
+                         "port does not serve yet")
+    fields = ("name", "vocab_size", "embed_dim", "n_layers", "n_heads",
+              "n_kv_heads", "head_dim", "mlp_dim", "max_seq_len",
+              "rope_theta", "rope_scaling", "norm_eps", "tie_embeddings")
+    return LlamaConfig(**{f: getattr(jcfg, f) for f in fields}, dtype=dtype)
+
+
+def params_from_jax(tree: dict, cfg: LlamaConfig, device=None) -> Params:
+    """JAX parameter tree (numpy leaves) -> the port's parameters."""
+    dev = resolve_device(device)
+    shapes = param_shapes(cfg)
+    extra = set(tree) - set(shapes) | (set(tree.get("layers", {}))
+                                       - set(shapes["layers"]))
+    if extra:
+        raise ValueError(f"parameters {sorted(extra)} belong to branches "
+                         "this port does not serve")
+
+    def convert(name: str, leaf, shape) -> torch.Tensor:
+        arr = np.array(leaf, dtype=np.float32)  # a writable copy
+        if arr.shape != tuple(shape):
+            raise ValueError(f"{name}: shape {arr.shape}, expected {shape}")
+        dtype = torch.float32 if is_norm(name) else cfg.dtype
+        return torch.from_numpy(arr).to(device=dev, dtype=dtype)
+
+    out: Params = {name: convert(name, tree[name], s)
+                   for name, s in shapes.items() if name != "layers"}
+    out["layers"] = {name: convert(name, tree["layers"][name], s)
+                     for name, s in shapes["layers"].items()}
+    return out
