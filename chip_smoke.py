@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch/CUDA port: builds its kernels, holds each
-against its plain PyTorch version on the card, then serves llama3-8b
-(full width and depth, random bf16 weights from a seed) through the
-paged engine and its HTTP front.
+against its plain PyTorch version on the card, serves llama3-8b (full
+width and depth, random bf16 weights from a seed) through the paged
+engine and its HTTP front, then trains Llama-3-8B widths at 4 layers.
 
 Run from the repository root on a machine with one NVIDIA card:
 
@@ -12,13 +12,17 @@ Phases (any failed check raises: the script exits nonzero and does not
 print the final ``ok`` line):
 
 1. card: name and power limit (nvidia-smi), printed before any number;
-2. build: ``csrc/paged_attention_multi.cu`` with nvcc for sm_90a, and
-   the Triton RMSNorm kernel, with their seconds;
+2. build: ``csrc/paged_attention_multi.cu`` and ``csrc/flash_attention.cu``
+   with nvcc for sm_90a (one nvcc each, started together), and the Triton
+   RMSNorm kernel, with their seconds and ptxas register/spill lines;
 3. kernels vs plain on the card, at the shapes the 8B main path gives
    them: ``paged_attention_multi`` (decode K=1 B=8 with ragged lengths up
    to 2048, K=4 B=8, a 1024-token prefill chunk behind a 100-token
    prefix; tables carry stale ids of garbage pages past ceil(len/T)) and
-   ``rms_norm`` (8 and 1024 rows of 4096). Each case prints the max abs
+   ``rms_norm`` (8 and 1024 rows of 4096 for serving; x (8, 2048, 4096)
+   needing gradients with an f32 weight for training, where y, dx and dw
+   are each held against autograd of the plain version). Each case prints
+   the max abs
    error and its share of the tolerance (each element within 1e-4 +
    1e-2 |plain|, 1.3 bf16 ulps; attention cases also score two broken
    variants against it: p.v accumulated in bf16, and a page lost from
@@ -40,22 +44,71 @@ print the final ``ok`` line):
    kernel twice per layer plus once;
 5. repeat: one prompt served twice more gives the same tokens both times;
 6. HTTP: the front on a free port answers one POST /generate with 200;
-7. drain: the engine drains and the pool holds zero leaked pages.
+7. drain: the engine drains and the pool holds zero leaked pages;
+   before it, the independent check: the engine path's last-token logits
+   for one measured prompt against a plain f32 forward of the same bf16
+   weights (no paging, no kernels: ``_attention_plain`` and
+   ``_rms_norm_plain``, one layer upcast at a time), within a relative L2
+   limit that the same forward with one layer skipped must exceed;
+8. flash kernels vs plain on the card: ``flash_fwd``, ``flash_dq`` and
+   ``flash_dkv`` at the training shape (B 8, Hq 32, Hkv 8, S 2048, D 128,
+   causal), a ragged S=1000, D=64, D=256, GQA group 1, a window, a soft
+   cap and non-causal. Each kernel is held per element against its plain
+   version on the same inputs (the backward kernels take the forward
+   kernel's lse and delta), with the tolerance of phase 3 (lse: 1e-4 +
+   1e-5 |plain|, f32); the whole autograd path against autograd through
+   ``_attention_plain`` in f32 (gradients within 1% of each tensor's
+   largest magnitude: delta comes from the bf16 o, as in the JAX
+   package); two broken controls scored with the same check (p.v
+   accumulated in bf16 over 64-key tiles; dK/dV with one q head of each
+   group dropped; each must read above 1x); times of each kernel, its
+   plain version and SDPA forward / autograd backward (no SDPA for a soft
+   cap; the backward computes dq, dk and dv together, so it is the library
+   time of both backward kernels), and its bound (operations over the
+   bf16 tensor peak, or bytes);
+9. train: ``Trainer`` on llama3-8b widths at 4 layers (f32 master
+   params, bf16 compute, remat "full"), batch 8 x seq 2048, 6 steps with
+   warmup_steps=1 on one seeded synthetic batch repeated (fresh random
+   batches can teach the model nothing past the uniform unigram, so their
+   loss need not fall in 6 steps; one batch repeated must, though the
+   embedding and head alone could memorise it, so a falling loss does not
+   show the gradients right): every loss finite and the last below the
+   first. Before the run, the gradients of step 1 (same params, same
+   batch) through ``loss_and_grads`` against autograd of the plain f32
+   forward (``_attention_plain``, ``_rms_norm_plain``, one row at a time):
+   each leaf's relative L2 error and the global norm's relative error
+   within their limits, step 1's reported grad_norm too, and a control
+   with the dK/dV kernel's output zeroed that must exceed the leaf limit;
+   per
+   step the launches are checked exactly (flash_fwd 2L, flash_dq L,
+   flash_dkv L, rms_norm 4L+1: each layer's forward and its recompute);
+   step wall, tokens/s and peak memory;
+10. train_main: the CLI on ``--model tiny`` with a checkpoint directory,
+   twice; the second life must log ``resumed from checkpoint step 2``.
 
-The next-to-last line is the kernels JSON record, the last line
+The next-to-last line is the kernels JSON record (each kernel's
+``launches`` counted on its own main path: the engine burst for the
+serving kernels, the training run for the flash kernels), the last line
 ``{"ok": true, "device": {...}}``. ``--out PATH`` also writes every
-number (engine phase included) to PATH as JSON.
+number (engine and training phases included) to PATH as JSON.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import gc
+import itertools
 import json
+import logging
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 import urllib.request
 
@@ -69,6 +122,24 @@ SEED = 20261016
 # to each element against the plain version's |y|.
 BF16_ATOL, BF16_RTOL = 1e-4, 1e-2
 TOLERANCE = f"atol {BF16_ATOL} + rtol {BF16_RTOL}"
+# the f32 lse of the flash forward: f32 sums in another order
+F32_ATOL, F32_RTOL = 1e-4, 1e-5
+# the flash gradients through autograd against autograd through the plain
+# attention in f32: delta = rowsum(dO o) comes from the bf16 o in both the
+# port and the JAX package, which moves dS by ~2^-8 |o| |dO| sqrt(D) per
+# row; the gradients then sit within 1% of each tensor's largest magnitude
+E2E_SCALE_RTOL = 1e-2
+# the engine's last-token logits against the plain f32 forward of the same
+# weights: relative L2 norm of the difference (the bf16 engine rounds at
+# every layer of 32; see PERF.md for the readings this limit was set from)
+ENGINE_REL_L2_LIMIT = 0.1
+# the training gradients (bf16 compute through the kernels) against autograd
+# of the plain f32 forward of the same f32 master params: relative L2 error
+# of each leaf, and relative error of the global norm (see PERF.md for the
+# readings these limits were set from: every leaf 0.025-0.034, the norm
+# 2.6e-5; with dK/dV zeroed, wk and wv read 1.0 and the norm 0.27)
+TRAIN_GRAD_REL_L2_LIMIT = 0.1
+TRAIN_NORM_REL_LIMIT = 1e-3
 
 
 def log(msg: str) -> None:
@@ -83,6 +154,25 @@ def card_line() -> str:
     if not out:
         raise RuntimeError("nvidia-smi printed no card")
     return out.splitlines()[0]
+
+
+def ptxas_summary(text: str) -> list[str]:
+    """One line per compiled kernel of an ``nvcc -Xptxas -v`` log: its
+    name with template arguments, registers and spill bytes."""
+    out, name, spill = [], "?", ""
+    for line in text.splitlines():
+        m = re.search(r"(?<=\d)([A-Za-z_]+_kernel)I((?:Li\d+E)+)", line)
+        if m:
+            targs = re.findall(r"Li(\d+)E", m.group(2))
+            name = f"{m.group(1)}<{','.join(targs)}>"
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = f"spill stores {m.group(1)} B, loads {m.group(2)} B"
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.append(f"{name}: {m.group(1)} registers, {spill}")
+    return out
 
 
 def time_ms(torch, fn, reps: int, flush) -> float:
@@ -112,12 +202,13 @@ def bound(nbytes: float, ops: float, op_rate: float) -> tuple[float, str]:
 
 # -- phase 3: kernels against their plain versions ----------------------------------
 
-def tolerance_check(out, ref) -> tuple[float, float]:
+def tolerance_check(out, ref, atol=BF16_ATOL,
+                    rtol=BF16_RTOL) -> tuple[float, float]:
     """(max abs error, largest share of the tolerance) of out against ref;
     a share above 1 fails the check."""
     ref = ref.float()
     diff = (out.float() - ref).abs()
-    share = (diff / (BF16_ATOL + BF16_RTOL * ref.abs())).max().item()
+    share = (diff / (atol + rtol * ref.abs())).max().item()
     err = diff.max().item()
     return err, (share if math.isfinite(err) else math.inf)
 
@@ -260,43 +351,486 @@ def attention_case(torch, F, dev, flush, name, b, kq, lengths):
     return rec
 
 
-def rms_case(torch, F, dev, flush, rows):
+def rms_case(torch, F, dev, flush, shape, grad=False):
+    """``rms_norm`` on x of ``shape`` (last axis 4096) against its plain
+    version. With ``grad`` x and the f32 weight need gradients, as on the
+    training path: the call goes through the autograd Function, and y, dx
+    and dw are each held against autograd of the plain version."""
     from k8s_runpod_kubelet_tpu_torch.ops import rms_norm
     from k8s_runpod_kubelet_tpu_torch.ops.rmsnorm import _rms_norm_plain
 
-    e, eps = 4096, 1e-5
+    e, eps = shape[-1], 1e-5
+    rows = math.prod(shape[:-1])
     gen = torch.Generator().manual_seed(SEED + rows)
-    x = torch.randn((rows, e), generator=gen).mul_(3).to(dev, torch.bfloat16)
+    x = torch.randn(shape, generator=gen).mul_(3).to(dev, torch.bfloat16)
     w = (1 + 0.1 * torch.randn((e,), generator=gen)).to(dev)
     w_bf16 = w.to(torch.bfloat16)   # the library call takes one dtype
+    name = f"rows={rows}" + (" (train, with gradients)" if grad else "")
+    x.requires_grad_(grad)
+    w.requires_grad_(grad)
 
     before = rms_norm.launches
     out = rms_norm(x, w, eps)
     torch.cuda.synchronize()
     if rms_norm.launches != before + 1:
         raise RuntimeError("rms_norm did not launch its kernel")
-    err, share = tolerance_check(out, _rms_norm_plain(x, w, eps))
-    if share > 1:
-        raise RuntimeError(f"rms_norm rows={rows}: max abs err {err}, "
-                           f"{share:.2f}x the tolerance {TOLERANCE}")
+    px, pw = (t.detach().clone().requires_grad_(grad) for t in (x, w))
+    ref = _rms_norm_plain(px, pw, eps)
+    checks = {"y": tolerance_check(out, ref)}
+    if grad:
+        g = torch.randn(shape, generator=gen).to(dev, torch.bfloat16)
+        dx, dw = torch.autograd.grad(out, (x, w), g)
+        pdx, pdw = torch.autograd.grad(ref, (px, pw), g)
+        if dx.dtype != x.dtype or dw.dtype != torch.float32:
+            raise RuntimeError(f"rms_norm gradients came as {dx.dtype}, "
+                               f"{dw.dtype}")
+        checks.update(dx=tolerance_check(dx, pdx), dw=tolerance_check(dw, pdw))
+        del g, dx, dw, pdx, pdw
+    del px, pw, ref
+    for what, (err, share) in checks.items():
+        if share > 1:
+            raise RuntimeError(f"rms_norm {name} {what}: max abs err {err}, "
+                               f"{share:.2f}x the tolerance {TOLERANCE}")
+    err = max(e_ for e_, _ in checks.values())
+    share = max(s_ for _, s_ in checks.values())
     ms = time_ms(torch, lambda: rms_norm(x, w, eps), 100, flush)
-    plain_ms = time_ms(torch, lambda: _rms_norm_plain(x, w, eps), 50, flush)
-    library_ms = time_ms(torch, lambda: F.rms_norm(x, (e,), w_bf16, eps),
-                         100, flush)
+    with torch.no_grad():
+        plain_ms = time_ms(torch, lambda: _rms_norm_plain(x, w, eps), 50,
+                           flush)
+        library_ms = time_ms(torch, lambda: F.rms_norm(x, (e,), w_bf16,
+                                                       eps), 100, flush)
     nbytes = 2 * x.numel() * 2 + w.numel() * 4
     ops = 4 * x.numel()   # square, sum, scale, weight: f32 elementwise
     bound_ms, bound_by = bound(nbytes, ops, F32_FLOPS)
-    rec = {"case": f"rows={rows}", "rows": rows, "E": e,
+    rec = {"case": name, "rows": rows, "E": e, "grad": grad,
            "max_abs_err": err, "tolerance": TOLERANCE,
            "tolerance_share": share,
+           "checks": {k: {"max_abs_err": v[0], "tolerance_share": v[1]}
+                      for k, v in checks.items()},
            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
            "ops": ops}
-    log(f"  rms_norm rows={rows}: max_abs_err {err:.3e} ({share:.2f} of "
-        f"{TOLERANCE}) kernel {ms:.4f} ms, bound {bound_ms:.5f} ms "
+    shares = ", ".join(f"{k} {v[1]:.2f}" for k, v in checks.items())
+    log(f"  rms_norm {name}: max_abs_err {err:.3e} (of {TOLERANCE}: "
+        f"{shares}) kernel {ms:.4f} ms, bound {bound_ms:.5f} ms "
         f"({bound_by}), plain {plain_ms:.4f} ms, library (F.rms_norm) "
         f"{library_ms:.4f} ms")
     return rec
+
+
+# -- phase 8: the flash attention kernels -------------------------------------------
+
+FLASH_CASES = [
+    # name, B, Hq, Hkv, S, D, causal, window, soft cap
+    ("train B=8 S=2048 D=128", 8, 32, 8, 2048, 128, True, None, None),
+    ("ragged S=1000", 2, 32, 8, 1000, 128, True, None, None),
+    ("D=64", 4, 16, 4, 1024, 64, True, None, None),
+    ("D=256", 2, 8, 4, 1024, 256, True, None, None),
+    ("GQA group 1", 2, 16, 16, 1024, 128, True, None, None),
+    ("window 512", 2, 32, 8, 2048, 128, True, 512, None),
+    ("soft cap 5", 2, 32, 8, 1024, 128, True, None, 5.0),
+    ("non-causal", 2, 32, 8, 1024, 128, False, None, None),
+]
+
+
+def visible_pairs(s: int, causal: bool, window) -> int:
+    """(query, key) pairs the mask keeps for one head."""
+    if not causal:
+        return s * s
+    if window is None:
+        return s * (s + 1) // 2
+    return sum(min(i + 1, window) for i in range(s))
+
+
+def flash_controls(torch, q, k, v, do, args, o_ref, dk_ref, dv_ref,
+                   lse, delta) -> dict:
+    """Two broken variants scored by the same check: p.v accumulated in
+    bf16 over 64-key tiles (against o), and dK/dV with the last q head of
+    each GQA group dropped (against dk, dv)."""
+    from k8s_runpod_kubelet_tpu_torch.ops.attention import (
+        _flash_dkv_plain, _flash_mask, _grouped)
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
+    qg = _grouped(q.float(), hkv) * args["sm_scale"]
+    sc = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float())
+    if args["logit_soft_cap"] is not None:
+        cap = args["logit_soft_cap"]
+        sc = torch.tanh(sc / cap) * cap
+    mask = _flash_mask(s, s, args["causal"], args["sliding_window"],
+                       q.device)
+    if mask is not None:
+        sc.masked_fill_(~mask, -math.inf)
+    p = torch.softmax(sc, dim=-1)
+    del sc
+    acc = torch.zeros((b, hkv, hq // hkv, s, d), dtype=torch.bfloat16,
+                      device=q.device)
+    vf = v.float()[:, :, None]
+    for t0 in range(0, s, 64):
+        acc = (acc.float() + p[..., t0:t0 + 64] @ vf[..., t0:t0 + 64, :]
+               ).bfloat16()
+    del p
+    out = {}
+    err, share = tolerance_check(acc.reshape(b, hq, s, d), o_ref)
+    out["bf16_accumulation"] = {"max_abs_err": err, "tolerance_share": share}
+    dropped = _grouped(do.float(), hkv).clone()
+    dropped[:, :, -1] = 0
+    dk_c, dv_c = _flash_dkv_plain(q.float(), k.float(), v.float(),
+                                  dropped.reshape(b, hq, s, d), lse, delta,
+                                  **args)
+    checks = [tolerance_check(dk_c.bfloat16(), dk_ref),
+              tolerance_check(dv_c.bfloat16(), dv_ref)]
+    out["dropped_q_head"] = {"max_abs_err": max(e for e, _ in checks),
+                             "tolerance_share": max(s for _, s in checks)}
+    return out
+
+
+def flash_case(torch, F, dev, flush, name, b, hq, hkv, s, d, causal, window,
+               cap) -> dict:
+    from k8s_runpod_kubelet_tpu_torch.ops import (flash_attention, flash_dkv,
+                                                  flash_dq, flash_fwd)
+    from k8s_runpod_kubelet_tpu_torch.ops.attention import (
+        _attention_plain, _flash_dkv_plain, _flash_dq_plain,
+        _flash_fwd_plain)
+
+    gen = torch.Generator().manual_seed(SEED + s + d + hkv)
+    q, do = (torch.randn((b, hq, s, d), generator=gen) for _ in range(2))
+    k, v = (torch.randn((b, hkv, s, d), generator=gen) for _ in range(2))
+    q, k, v, do = (t.to(dev, torch.bfloat16) for t in (q, k, v, do))
+    args = dict(causal=causal, sm_scale=d ** -0.5, sliding_window=window,
+                logit_soft_cap=cap)
+    kernels = (flash_fwd, flash_dq, flash_dkv)
+    before = [f.launches for f in kernels]
+    o, lse = flash_fwd(q, k, v, **args)
+    delta = (do.float() * o.float()).sum(-1)
+    dq = flash_dq(q, k, v, do, lse, delta, **args)
+    dk, dv = flash_dkv(q, k, v, do, lse, delta, **args)
+    torch.cuda.synchronize()
+    if [f.launches for f in kernels] != [n + 1 for n in before]:
+        raise RuntimeError(f"flash {name}: a kernel did not launch")
+
+    # each kernel against its plain version on the same inputs, in f32
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    o_ref, lse_ref = _flash_fwd_plain(qf, kf, vf, **args)
+    dq_ref = _flash_dq_plain(qf, kf, vf, dof, lse, delta, **args)
+    dk_ref, dv_ref = _flash_dkv_plain(qf, kf, vf, dof, lse, delta, **args)
+    checks = {"flash_fwd": [tolerance_check(o, o_ref),
+                            tolerance_check(lse, lse_ref, F32_ATOL,
+                                            F32_RTOL)],
+              "flash_dq": [tolerance_check(dq, dq_ref)],
+              "flash_dkv": [tolerance_check(dk, dk_ref),
+                            tolerance_check(dv, dv_ref)]}
+    controls = flash_controls(torch, q, k, v, do, args, o_ref, dk_ref,
+                              dv_ref, lse, delta)
+    del qf, kf, vf, dof, dq_ref, dk_ref, dv_ref
+    for kname, results in checks.items():
+        for err, share in results:
+            if share > 1:
+                raise RuntimeError(f"{kname} {name}: max abs err {err}, "
+                                   f"{share:.2f}x the tolerance")
+    for control, c in controls.items():
+        if not c["tolerance_share"] > 1:
+            raise RuntimeError(f"flash {name}: the {control} control passed "
+                               "the check")
+
+    # the whole autograd path against autograd through the plain attention
+    tq, tk, tv = (t.clone().requires_grad_() for t in (q, k, v))
+    flash_attention(tq, tk, tv, **args).backward(do)
+    pq, pk, pv = (t.float().requires_grad_() for t in (q, k, v))
+    _attention_plain(pq, pk, pv, **args).backward(do.float())
+    e2e = {}
+    for gname, got, want in (("dq", tq.grad, pq.grad), ("dk", tk.grad,
+                                                         pk.grad),
+                             ("dv", tv.grad, pv.grad)):
+        err = (got.float() - want).abs().max().item()
+        e2e[gname] = err / (E2E_SCALE_RTOL * want.abs().max().item())
+        if not e2e[gname] <= 1:
+            raise RuntimeError(f"flash {name}: autograd d{gname} differs "
+                               f"from the plain attention's by {err}")
+    del tq, tk, tv, pq, pk, pv
+
+    # times: kernels, plain versions, SDPA (forward and autograd backward)
+    reps = 5 if b * hq * s * s > 2 ** 31 else 10
+    fwd_ms = time_ms(torch, lambda: flash_fwd(q, k, v, **args), reps, flush)
+    dq_ms = time_ms(torch, lambda: flash_dq(q, k, v, do, lse, delta, **args),
+                    reps, flush)
+    dkv_ms = time_ms(torch, lambda: flash_dkv(q, k, v, do, lse, delta,
+                                              **args), reps, flush)
+    plain = {"flash_fwd": time_ms(torch, lambda: _flash_fwd_plain(
+                 q, k, v, **args), 3, flush),
+             "flash_dq": time_ms(torch, lambda: _flash_dq_plain(
+                 q, k, v, do, lse, delta, **args), 3, flush),
+             "flash_dkv": time_ms(torch, lambda: _flash_dkv_plain(
+                 q, k, v, do, lse, delta, **args), 3, flush)}
+    lib_fwd = lib_bwd = None
+    if cap is None:
+        ks, vs = (t.repeat_interleave(hq // hkv, dim=1) for t in (k, v))
+        mask = None
+        if window is not None:
+            from k8s_runpod_kubelet_tpu_torch.ops.attention import \
+                _flash_mask
+            mask = _flash_mask(s, s, True, window, dev)
+        sdpa = dict(attn_mask=mask, is_causal=causal and mask is None,
+                    scale=args["sm_scale"])
+        lib_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, ks, vs, **sdpa), reps, flush)
+        lq, lk, lv = (t.clone().requires_grad_() for t in (q, ks, vs))
+        lo = F.scaled_dot_product_attention(lq, lk, lv, **sdpa)
+        lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
+            lo, (lq, lk, lv), do, retain_graph=True), reps, flush)
+        del ks, vs, lq, lk, lv, lo
+
+    pairs = b * hq * visible_pairs(s, causal, window)
+    qb, kb = q.numel() * 2, k.numel() * 2
+    rows = b * hq * s * 4                      # one f32 per row (lse, delta)
+    work = {"flash_fwd": (4 * pairs * d, 2 * qb + 2 * kb + rows, fwd_ms,
+                          lib_fwd),
+            "flash_dq": (6 * pairs * d, 3 * qb + 2 * kb + 2 * rows, dq_ms,
+                         lib_bwd),
+            "flash_dkv": (8 * pairs * d, 2 * qb + 4 * kb + 2 * rows, dkv_ms,
+                          lib_bwd)}
+    rec = {"case": name, "B": b, "Hq": hq, "Hkv": hkv, "S": s, "D": d,
+           "causal": causal, "window": window, "soft_cap": cap,
+           "controls": controls, "autograd_vs_plain_share": e2e,
+           "tolerance": TOLERANCE, "kernels": {}}
+    for kname, (ops, nbytes, ms, lib) in work.items():
+        bound_ms, bound_by = bound(nbytes, ops, BF16_TENSOR_FLOPS)
+        rec["kernels"][kname] = {
+            "max_abs_err": max(e for e, _ in checks[kname]),
+            "tolerance_share": max(sh for _, sh in checks[kname]),
+            "ms": ms, "plain_ms": plain[kname], "library_ms": lib,
+            "bound_ms": bound_ms, "bound_by": bound_by, "ops": ops,
+            "bytes": nbytes, "tflops": ops / ms / 1e9}
+    lib_txt = ("none (soft cap)" if lib_fwd is None else
+               f"fwd {lib_fwd:.3f} ms, autograd bwd {lib_bwd:.3f} ms")
+    log(f"  flash {name}: SDPA {lib_txt}; controls: bf16 accumulation "
+        f"{controls['bf16_accumulation']['tolerance_share']:.2f}, dropped q "
+        f"head {controls['dropped_q_head']['tolerance_share']:.0f}; "
+        f"autograd vs plain (share of 1% of scale) dq {e2e['dq']:.2f} dk "
+        f"{e2e['dk']:.2f} dv {e2e['dv']:.2f}")
+    for kname, r in rec["kernels"].items():
+        log(f"    {kname}: max_abs_err {r['max_abs_err']:.3e} "
+            f"({r['tolerance_share']:.2f} of {TOLERANCE}) kernel "
+            f"{r['ms']:.3f} ms ({r['tflops']:.1f} TFLOP/s), bound "
+            f"{r['bound_ms']:.3f} ms ({r['bound_by']}), plain "
+            f"{r['plain_ms']:.3f} ms")
+    return rec
+
+
+# -- phases 9-10: training ----------------------------------------------------------
+
+def leaf_names(tree: dict, prefix: str = "") -> list[str]:
+    """Names of a parameter tree's leaves in ``_leaves`` order."""
+    out = []
+    for name in sorted(tree):
+        leaf = tree[name]
+        out.extend(leaf_names(leaf, f"{prefix}{name}/")
+                   if isinstance(leaf, dict) else [prefix + name])
+    return out
+
+
+def train_grad_check(torch, dev, cfg, batch) -> dict:
+    """Step 1's gradients as the training path computes them
+    (``loss_and_grads``: bf16 compute through the kernels, remat) against
+    autograd of ``plain_logits`` in f32 on the same f32 master params and
+    the same batch, one row at a time. Each leaf's relative L2 error and
+    the global norm's relative error must stay within their limits; the
+    same path with the dK/dV kernel's output zeroed (the control) must
+    exceed the leaf limit."""
+    from k8s_runpod_kubelet_tpu_torch.models import LlamaModel, init_params
+    from k8s_runpod_kubelet_tpu_torch.ops import attention
+    from k8s_runpod_kubelet_tpu_torch.workloads.train import (
+        _ce_and_zloss, _leaves, global_norm, loss_and_grads)
+
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                         dev, master=True)
+    leaves = [p.requires_grad_() for p in _leaves(params)]
+    names = leaf_names(params)
+    rows = batch.shape[0]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ref = [torch.zeros_like(p) for p in leaves]
+    ref_loss = 0.0
+    for r in range(rows):
+        mb = batch[r:r + 1]
+        logits = plain_logits(torch, cfg, params, mb[:, :-1])
+        ce, _ = _ce_and_zloss(logits, mb[:, 1:], 0.0)
+        del logits
+        for acc, g in zip(ref, torch.autograd.grad(ce / rows, leaves)):
+            acc.add_(g)
+        ref_loss += ce.item() / rows
+        del ce
+    ref_norm = global_norm(ref).item()
+    ref_s = time.perf_counter() - t0
+    model = LlamaModel(cfg, dev)
+
+    def against_ref() -> dict:
+        loss, grads = loss_and_grads(model, params, batch)
+        errs = {n: ((g.float() - r).norm() / r.norm()).item()
+                for n, g, r in zip(names, grads, ref)}
+        norm = global_norm(grads).item()
+        del grads
+        worst = max(errs, key=errs.get)
+        return {"loss": loss.item(), "grad_norm": norm,
+                "norm_rel_err": abs(norm - ref_norm) / ref_norm,
+                "leaf_rel_l2": errs, "worst_leaf": worst,
+                "worst_leaf_rel_l2": errs[worst]}
+
+    port = against_ref()
+    real_dkv = attention.flash_dkv
+    attention.flash_dkv = lambda q, k, v, *a, **kw: (torch.zeros_like(k),
+                                                     torch.zeros_like(v))
+    try:
+        control = against_ref()
+    finally:
+        attention.flash_dkv = real_dkv
+    peak = torch.cuda.max_memory_allocated()
+    del params, leaves, ref, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"rows": rows, "ref_loss": ref_loss, "ref_grad_norm": ref_norm,
+           "ref_s": ref_s, "peak_bytes": peak, "port": port,
+           "control_zero_dkv": control,
+           "limit_leaf_rel_l2": TRAIN_GRAD_REL_L2_LIMIT,
+           "limit_norm_rel": TRAIN_NORM_REL_LIMIT}
+    log(f"  gradients vs autograd of the plain f32 forward (batch "
+        f"{rows} x {batch.shape[1] - 1}, {ref_s:.1f} s, peak "
+        f"{peak / 2**30:.2f} GiB): loss "
+        f"{port['loss']:.5f} vs {ref_loss:.5f}; grad_norm "
+        f"{port['grad_norm']:.5f} vs {ref_norm:.5f} (rel "
+        f"{port['norm_rel_err']:.2e}, limit {TRAIN_NORM_REL_LIMIT}); worst "
+        f"leaf {port['worst_leaf']} rel L2 {port['worst_leaf_rel_l2']:.2e} "
+        f"(limit {TRAIN_GRAD_REL_L2_LIMIT})")
+    log("    leaf rel L2: " + ", ".join(
+        f"{n} {e:.2e}" for n, e in port["leaf_rel_l2"].items()))
+    log(f"    control (dK/dV zeroed): worst leaf {control['worst_leaf']} rel "
+        f"L2 {control['worst_leaf_rel_l2']:.3f}, grad_norm rel "
+        f"{control['norm_rel_err']:.2e}")
+    if not (port["worst_leaf_rel_l2"] <= TRAIN_GRAD_REL_L2_LIMIT
+            and port["norm_rel_err"] <= TRAIN_NORM_REL_LIMIT):
+        raise RuntimeError(f"training gradients off the plain forward's: "
+                           f"{port}")
+    if not control["worst_leaf_rel_l2"] > TRAIN_GRAD_REL_L2_LIMIT:
+        raise RuntimeError(f"the zeroed-dK/dV control passed: {control}")
+    return out
+
+
+def train_phase(torch, dev, card: str) -> dict:
+    from k8s_runpod_kubelet_tpu_torch.models import llama3_8b
+    from k8s_runpod_kubelet_tpu_torch.ops import (flash_dkv, flash_dq,
+                                                  flash_fwd, rms_norm)
+    from k8s_runpod_kubelet_tpu_torch.workloads.train import (
+        TrainConfig, Trainer, _leaves, synthetic_batches)
+
+    cfg = dataclasses.replace(llama3_8b(), n_layers=4)
+    n_layers = cfg.n_layers
+    tc = TrainConfig(batch_size=8, seq_len=2048, steps=6, warmup_steps=1)
+    batch = next(synthetic_batches(cfg, tc, seed=SEED, device=dev))
+    grad_check = train_grad_check(torch, dev, cfg, batch)
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, tc, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in _leaves(trainer.params))
+    log(f"  llama3-8b widths, {n_layers} layers: {n_params / 1e9:.3f} B "
+        f"params (f32 master), init {init_s:.1f} s; batch {tc.batch_size} x "
+        f"seq {tc.seq_len}, remat {cfg.remat_policy}, lr {tc.learning_rate}")
+    batches = itertools.repeat(batch)
+    kernels = (flash_fwd, flash_dq, flash_dkv, rms_norm)
+    per_step = {"flash_fwd": 2 * n_layers, "flash_dq": n_layers,
+                "flash_dkv": n_layers, "rms_norm": 2 * (2 * n_layers) + 1}
+    torch.cuda.reset_peak_memory_stats()
+    # the main path: counts set to 0 just before the run, read just after
+    for k in kernels:
+        k.launches = 0
+    losses, norms, walls = [], [], []
+    for step in range(tc.steps):
+        before = {k.__name__: k.launches for k in kernels}
+        out = trainer.run(steps=1, batches=batches)
+        got = {k.__name__: k.launches - before[k.__name__] for k in kernels}
+        if got != per_step:
+            raise RuntimeError(f"train step {step + 1} launched {got}, not "
+                               f"{per_step}")
+        losses.append(out["final_loss"])
+        norms.append(out["grad_norm"])
+        walls.append(out["wall_s"])
+        log(f"  step {trainer.step}: loss {out['final_loss']:.4f}, "
+            f"grad_norm {out['grad_norm']:.4f}, wall {out['wall_s']:.3f} s")
+    launches = {k.__name__: k.launches for k in kernels}
+    peak = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(x) for x in losses + norms):
+        raise RuntimeError(f"non-finite loss or grad norm: {losses} {norms}")
+    if not losses[-1] < losses[0]:
+        raise RuntimeError(f"loss did not fall: {losses}")
+    # step 1 ran on the params and batch of the gradient check
+    step1_rel = (abs(norms[0] - grad_check["ref_grad_norm"])
+                 / grad_check["ref_grad_norm"])
+    log(f"  step 1 grad_norm {norms[0]:.5f} vs the plain f32 forward's "
+        f"{grad_check['ref_grad_norm']:.5f}: rel {step1_rel:.2e} (limit "
+        f"{TRAIN_NORM_REL_LIMIT})")
+    if not step1_rel <= TRAIN_NORM_REL_LIMIT:
+        raise RuntimeError(f"step 1's grad_norm {norms[0]} is off the plain "
+                           f"forward's {grad_check['ref_grad_norm']}")
+    step_s = statistics.median(walls[1:])
+    tok_s = tc.batch_size * tc.seq_len / step_s
+    log(f"  [{card}] step wall {step_s:.3f} s (median of steps 2-"
+        f"{tc.steps}; first {walls[0]:.3f} s), {tok_s:.0f} tokens/s, peak "
+        f"{peak / 2**30:.2f} GiB allocated")
+    log(f"  launches over {tc.steps} steps: {launches} ({per_step} per step)")
+    del trainer, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"layers": n_layers, "params": n_params, "batch": tc.batch_size,
+            "seq_len": tc.seq_len, "steps": tc.steps, "losses": losses,
+            "grad_norms": norms, "step_walls_s": walls,
+            "step_s_median": step_s, "tokens_per_s": tok_s,
+            "peak_bytes": peak, "launches": launches,
+            "launches_per_step": per_step, "init_s": init_s,
+            "grad_check": grad_check, "step1_norm_rel_err": step1_rel}
+
+
+class _Capture(logging.Handler):
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.lines: list[str] = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
+def train_main_phase(torch) -> dict:
+    import contextlib
+    import io
+
+    from k8s_runpod_kubelet_tpu_torch.workloads import train_main
+
+    cap = _Capture()
+    train_log = logging.getLogger("k8s_runpod_kubelet_tpu_torch.workloads")
+    train_log.addHandler(cap)
+    train_log.setLevel(logging.INFO)
+    outs = []
+    try:
+        with tempfile.TemporaryDirectory() as ckpt:
+            for _ in range(2):
+                buf = io.StringIO()
+                with contextlib.redirect_stdout(buf):
+                    rc = train_main.main(["--model", "tiny", "--steps", "2",
+                                          "--checkpoint-dir", ckpt])
+                if rc != 0:
+                    raise RuntimeError(f"train_main exited {rc}")
+                outs.append(json.loads(buf.getvalue().strip()
+                                       .splitlines()[-1]))
+    finally:
+        train_log.removeHandler(cap)
+    if "resumed from checkpoint step 2" not in cap.lines:
+        raise RuntimeError(f"the second life did not resume: {cap.lines}")
+    for out in outs:
+        if not (out["workload"] == "pretrain" and out["steps"] == 2
+                and math.isfinite(out["final_loss"])):
+            raise RuntimeError(f"train_main printed {out}")
+    log(f"  train_main --model tiny --steps 2, twice: losses "
+        f"{outs[0]['final_loss']:.4f} then {outs[1]['final_loss']:.4f}; "
+        f"logged {[x for x in cap.lines if 'checkpoint' in x]}")
+    return {"summaries": outs, "log": cap.lines}
 
 
 # -- phases 4-7: the engine ------------------------------------------------------------
@@ -347,13 +881,95 @@ def prefix_path_check(torch, model, params, prompt: list[int]) -> dict:
         torch.tensor([n - half], dtype=torch.int32, device=dev))
     a, b, c = la[0], lb[0], lc[0]
     top2 = a.topk(2).values
-    return {"prompt_tokens": n, "cached_tokens": cached * t,
+    return a, {"prompt_tokens": n, "cached_tokens": cached * t,
             "max_abs_diff": (a - b).abs().max().item(),
             "cache_vs_uncached_max_abs_diff": (b - c).abs().max().item(),
             "two_chunk_max_abs_diff": (a - c).abs().max().item(),
             "logit_std": a.std().item(),
             "top1_margin": (top2[0] - top2[1]).item(),
             "argmax_agree": bool(a.argmax() == b.argmax())}
+
+
+def plain_logits(torch, cfg, params, tokens, skip_layer=None,
+                 last_only=False):
+    """Logits (B, S, V) of tokens (B, S), or with ``last_only`` the last
+    position's (B, V), from a plain f32 forward of the same weights: no
+    paging and no kernels (``_attention_plain``, ``_rms_norm_plain``),
+    each layer's weights upcast only while it runs (a no-op on f32 master
+    weights, through which autograd then reaches the parameters).
+    ``skip_layer`` leaves one layer out (a control)."""
+    import torch.nn.functional as F
+
+    from k8s_runpod_kubelet_tpu_torch.ops.attention import _attention_plain
+    from k8s_runpod_kubelet_tpu_torch.ops.rmsnorm import _rms_norm_plain
+    from k8s_runpod_kubelet_tpu_torch.ops.rope import (apply_rope,
+                                                       rope_frequencies)
+
+    dev = params["tok_embed"].device
+    (b, n), hd = tokens.shape, cfg.head_dim_
+    cos, sin = rope_frequencies(hd, cfg.max_seq_len, cfg.rope_theta,
+                                cfg.rope_scaling, device=dev)
+    x = params["tok_embed"][tokens.long()].float()
+    for layer in range(cfg.n_layers):
+        if layer == skip_layer:
+            continue
+        lp = {k: w[layer].float() for k, w in params["layers"].items()}
+        h = _rms_norm_plain(x, lp["attn_norm"], cfg.norm_eps)
+        q = apply_rope((h @ lp["wq"]).view(b, n, cfg.n_heads, hd), cos, sin)
+        k = apply_rope((h @ lp["wk"]).view(b, n, cfg.n_kv_heads, hd), cos,
+                       sin)
+        v = (h @ lp["wv"]).view(b, n, cfg.n_kv_heads, hd)
+        o = _attention_plain(q.transpose(1, 2), k.transpose(1, 2),
+                             v.transpose(1, 2), causal=True,
+                             sm_scale=cfg.sm_scale)
+        x = x + o.transpose(1, 2).reshape(b, n, -1) @ lp["wo"]
+        h = _rms_norm_plain(x, lp["mlp_norm"], cfg.norm_eps)
+        x = x + (F.silu(h @ lp["w_gate"]) * (h @ lp["w_up"])) @ lp["w_down"]
+        del lp
+    if last_only:
+        x = x[:, -1]
+    x = _rms_norm_plain(x, params["final_norm"], cfg.norm_eps)
+    head = (params["tok_embed"].t() if cfg.tie_embeddings
+            else params["lm_head"])
+    return x @ head.float()
+
+
+def reference_logits(torch, cfg, params, prompt: list[int],
+                     skip_layer=None):
+    """Last-token logits (V,) of ``prompt`` from ``plain_logits``."""
+    toks = torch.tensor(prompt, device=params["tok_embed"].device)[None]
+    return plain_logits(torch, cfg, params, toks, skip_layer,
+                        last_only=True)[0]
+
+
+def engine_reference_check(torch, cfg, params, prompt, engine_logits):
+    """The engine path's logits against the plain f32 forward, within
+    ENGINE_REL_L2_LIMIT; the forward with its middle layer skipped must
+    land outside it."""
+    ref = reference_logits(torch, cfg, params, prompt)
+    ctrl = reference_logits(torch, cfg, params, prompt,
+                            skip_layer=cfg.n_layers // 2)
+
+    def rel_l2(a):
+        return ((a - ref).norm() / ref.norm()).item()
+
+    out = {"prompt_tokens": len(prompt), "rel_l2": rel_l2(engine_logits),
+           "max_abs_diff": (engine_logits - ref).abs().max().item(),
+           "ref_logit_std": ref.std().item(),
+           "argmax_agree": bool(engine_logits.argmax() == ref.argmax()),
+           "control_skip_layer_rel_l2": rel_l2(ctrl),
+           "limit_rel_l2": ENGINE_REL_L2_LIMIT}
+    log(f"  independent check: engine vs plain f32 forward, last-token "
+        f"logits of a {len(prompt)}-token prompt: relative L2 "
+        f"{out['rel_l2']:.4f} (limit {ENGINE_REL_L2_LIMIT}), max abs "
+        f"{out['max_abs_diff']:.4f} (logit std {out['ref_logit_std']:.4f}), "
+        f"argmax agree {out['argmax_agree']}; control (layer "
+        f"{cfg.n_layers // 2} skipped) {out['control_skip_layer_rel_l2']:.4f}")
+    if not out["rel_l2"] <= ENGINE_REL_L2_LIMIT:
+        raise RuntimeError(f"engine logits off the plain forward: {out}")
+    if not out["control_skip_layer_rel_l2"] > ENGINE_REL_L2_LIMIT:
+        raise RuntimeError(f"the skipped-layer control passed: {out}")
+    return out
 
 
 def engine_phase(torch, dev, card: str) -> dict:
@@ -485,8 +1101,10 @@ def engine_phase(torch, dev, card: str) -> dict:
         log(f"  repeat: identical twice; {same_as_first}/32 tokens equal "
             f"to the first run (which prefilled without a prefix hit)")
         with engine._prefix_lock:   # the engine is idle; keep it so
-            prefix = prefix_path_check(torch, engine.model, engine.params,
-                                       prompts[2])
+            one_chunk, prefix = prefix_path_check(torch, engine.model,
+                                                  engine.params, prompts[2])
+            reference = engine_reference_check(torch, cfg, engine.params,
+                                               prompts[2], one_chunk)
         log(f"  prefix path (last-token logits, max abs diff): one chunk vs "
             f"cached prefix + tail {prefix['max_abs_diff']:.4f}; cached vs "
             f"uncached prefix, same tail chunk "
@@ -527,7 +1145,8 @@ def engine_phase(torch, dev, card: str) -> dict:
                 "output_tok_s": out_tok_s, "wall_s": wall,
                 "prompt_lengths": [len(p) for p in prompts],
                 "prefix_hits": hits, "repeat_same_as_first": same_as_first,
-                "prefix_path": prefix, "init_s": init_s}
+                "prefix_path": prefix, "reference": reference,
+                "init_s": init_s}
     finally:
         if httpd is not None:
             httpd.shutdown()
@@ -559,20 +1178,35 @@ def main(argv=None) -> int:
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
     log("phase build")
-    t0 = time.perf_counter()
-    _cuda.load("paged_attention_multi")
-    nvcc_s = time.perf_counter() - t0
-    for name, text in sorted(_cuda.build_logs.items()):
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+    sources = ("paged_attention_multi", "flash_attention")
+    nvcc_s, errors = {}, []
+
+    def build(name):
+        t = time.perf_counter()
+        try:
+            _cuda.load(name)
+        except Exception as e:   # re-raised below, after the join
+            errors.append(e)
+        nvcc_s[name] = time.perf_counter() - t
+
+    threads = [threading.Thread(target=build, args=(n,)) for n in sources]
+    for t in threads:
+        t.start()
     t0 = time.perf_counter()
     rms_norm(torch.ones((1, 64), dtype=torch.bfloat16, device=dev),
              torch.ones(64, device=dev))
     torch.cuda.synchronize()
     triton_s = time.perf_counter() - t0
-    log(f"  nvcc (csrc/paged_attention_multi.cu, sm_90a) {nvcc_s:.1f} s; "
-        f"Triton rms_norm {triton_s:.1f} s")
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    for name, text in sorted(_cuda.build_logs.items()):
+        for line in ptxas_summary(text):
+            log(f"  ptxas {name}: {line}")
+    log("  nvcc (sm_90a, in parallel) " + ", ".join(
+        f"csrc/{n}.cu {nvcc_s[n]:.1f} s" for n in sources)
+        + f"; Triton rms_norm {triton_s:.1f} s")
 
     log("phase kernels (bf16 on the card, compared in f32)")
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
@@ -584,29 +1218,70 @@ def main(argv=None) -> int:
         attention_case(torch, F, dev, flush, "prefill K=1024 B=1", 1, 1024,
                        [100 + 1024]),
     ]
-    rms = [rms_case(torch, F, dev, flush, rows) for rows in (8, 1024)]
+    rms = [rms_case(torch, F, dev, flush, (rows, 4096)) for rows in (8, 1024)]
+    # the training path's shape: x (8, 2048, 4096) needing gradients
+    rms.append(rms_case(torch, F, dev, flush, (8, 2048, 4096), grad=True))
+
+    log("phase flash kernels (bf16 on the card, compared in f32)")
+    flash = [flash_case(torch, F, dev, flush, *case) for case in FLASH_CASES]
     del flush
+    gc.collect()
+    torch.cuda.empty_cache()
 
     log("phase engine (llama3-8b, 8 slots, cache_len 2048)")
     eng = engine_phase(torch, dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    def record(name, route, source, replaces, cases):
+    log("phase train (llama3-8b widths, 4 layers, batch 8 x seq 2048)")
+    train = train_phase(torch, dev, card)
+
+    log("phase train_main (--model tiny, checkpoint and resume)")
+    train_cli = train_main_phase(torch)
+
+    def record(name, route, source, replaces, cases, launches, by_path,
+               library_call):
         head = cases[0]
         return {"name": name, "route": route, "source": source,
-                "replaces": replaces, "launches": eng["launches"][name],
+                "replaces": replaces, "launches": launches,
+                "launches_by_path": by_path,
                 "max_abs_err": max(c["max_abs_err"] for c in cases),
                 "ms": head["ms"], "plain_ms": head["plain_ms"],
                 "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-                "library_ms": head["library_ms"], "case": head["case"],
+                "library_ms": head["library_ms"],
+                "library_call": library_call, "case": head["case"],
                 "cases": cases}
 
+    def flash_cases(kname):
+        return [{"case": c["case"], **c["kernels"][kname]} for c in flash]
+
+    serve_launches = eng["launches"]
     kernels = [
         record("paged_attention_multi", "cuda",
                "k8s_runpod_kubelet_tpu_torch/csrc/paged_attention_multi.cu",
-               "k8s_runpod_kubelet_tpu/ops/attention.py:1524", attn),
+               "k8s_runpod_kubelet_tpu/ops/attention.py:1524", attn,
+               serve_launches["paged_attention_multi"],
+               {"serve": serve_launches["paged_attention_multi"]},
+               "SDPA over the gathered K/V, same mask"),
         record("rms_norm", "triton",
                "k8s_runpod_kubelet_tpu_torch/ops/rmsnorm.py",
-               "k8s_runpod_kubelet_tpu/ops/rmsnorm.py:80", rms),
+               "k8s_runpod_kubelet_tpu/ops/rmsnorm.py:80", rms,
+               serve_launches["rms_norm"],
+               {"serve": serve_launches["rms_norm"],
+                "train": train["launches"]["rms_norm"]},
+               "F.rms_norm, bf16 weight"),
+    ] + [
+        record(kname, "cuda",
+               "k8s_runpod_kubelet_tpu_torch/csrc/flash_attention.cu",
+               replaces, flash_cases(kname), train["launches"][kname],
+               {"train": train["launches"][kname]}, library_call)
+        for kname, replaces, library_call in (
+            ("flash_fwd", "k8s_runpod_kubelet_tpu/ops/attention.py:199",
+             "SDPA forward"),
+            ("flash_dq", "k8s_runpod_kubelet_tpu/ops/attention.py:360",
+             "SDPA autograd backward: dq, dk and dv together"),
+            ("flash_dkv", "k8s_runpod_kubelet_tpu/ops/attention.py:397",
+             "SDPA autograd backward: dq, dk and dv together"))
     ]
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
@@ -615,8 +1290,9 @@ def main(argv=None) -> int:
                     exist_ok=True)
         with open(args.out, "w") as f:
             json.dump({"card": card, "device": device, "kernels": kernels,
-                       "engine": eng, "build_s": {"nvcc": nvcc_s,
-                                                  "triton": triton_s}},
+                       "flash": flash, "engine": eng, "train": train,
+                       "train_main": train_cli,
+                       "build_s": {**nvcc_s, "triton": triton_s}},
                       f, indent=1)
     log(f"card: {card}")
     log(json.dumps({"kernels": kernels}))

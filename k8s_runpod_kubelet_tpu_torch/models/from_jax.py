@@ -3,10 +3,12 @@
 ``params_from_jax`` takes the nested dict that the JAX ``init_params``
 returns, with every leaf already converted to a numpy array (stacked
 ``layers/*`` leaves of shape (L, ...)), and returns the port's parameters
-on ``device``: matmul weights, embedding and LM head in ``cfg.dtype``,
-norm weights in f32 — the values the JAX model computes with once it
-casts its f32 params at use. Both packages then compute the same thing,
-which is what the parity tests need. This module imports no jax.
+on ``device``: for serving, matmul weights, embedding and LM head in
+``cfg.dtype`` and norm weights in f32 — the values the JAX model computes
+with once it casts its f32 params at use; for training (``master=True``),
+every leaf in ``cfg.param_dtype`` (f32), the JAX model's master tree as it
+is. Both packages then compute the same thing, which is what the parity
+tests need. This module imports no jax.
 """
 
 from __future__ import annotations
@@ -31,21 +33,30 @@ _UNSUPPORTED = {
 
 def config_from_jax(jcfg, dtype: torch.dtype) -> LlamaConfig:
     """The port's config for a JAX ``LlamaConfig`` (read by attribute, so
-    no jax import), with ``dtype`` as the compute dtype. Raises on any
-    field that needs a branch the port does not have."""
+    no jax import), with ``dtype`` as the compute dtype; ``param_dtype``
+    follows the JAX config's by name. Raises on any field that needs a
+    branch the port does not have."""
     bad = [f for f, dense in _UNSUPPORTED.items()
            if getattr(jcfg, f, dense) != dense]
+    if getattr(jcfg, "remat_policy", "full") not in ("full", "none"):
+        bad.append("remat_policy")
     if bad:
         raise ValueError(f"config {jcfg.name!r} needs {bad}, which this "
                          "port does not serve yet")
     fields = ("name", "vocab_size", "embed_dim", "n_layers", "n_heads",
               "n_kv_heads", "head_dim", "mlp_dim", "max_seq_len",
-              "rope_theta", "rope_scaling", "norm_eps", "tie_embeddings")
-    return LlamaConfig(**{f: getattr(jcfg, f) for f in fields}, dtype=dtype)
+              "rope_theta", "rope_scaling", "norm_eps", "tie_embeddings",
+              "remat", "remat_policy")
+    param_dtype = getattr(torch, np.dtype(jcfg.param_dtype).name)
+    return LlamaConfig(**{f: getattr(jcfg, f) for f in fields}, dtype=dtype,
+                       param_dtype=param_dtype)
 
 
-def params_from_jax(tree: dict, cfg: LlamaConfig, device=None) -> Params:
-    """JAX parameter tree (numpy leaves) -> the port's parameters."""
+def params_from_jax(tree: dict, cfg: LlamaConfig, device=None,
+                    master: bool = False) -> Params:
+    """JAX parameter tree (numpy leaves) -> the port's parameters: serving
+    weights, or with ``master=True`` the f32 master weights training
+    updates."""
     dev = resolve_device(device)
     shapes = param_shapes(cfg)
     extra = set(tree) - set(shapes) | (set(tree.get("layers", {}))
@@ -58,7 +69,10 @@ def params_from_jax(tree: dict, cfg: LlamaConfig, device=None) -> Params:
         arr = np.array(leaf, dtype=np.float32)  # a writable copy
         if arr.shape != tuple(shape):
             raise ValueError(f"{name}: shape {arr.shape}, expected {shape}")
-        dtype = torch.float32 if is_norm(name) else cfg.dtype
+        if master:
+            dtype = cfg.param_dtype
+        else:
+            dtype = torch.float32 if is_norm(name) else cfg.dtype
         return torch.from_numpy(arr).to(device=dev, dtype=dtype)
 
     out: Params = {name: convert(name, tree[name], s)

@@ -1,12 +1,15 @@
-"""Llama-3-family dense decoder over a paged KV arena (port of the serving
-half of the JAX package's ``models/llama.py``).
+"""Llama-3-family dense decoder (port of the JAX package's
+``models/llama.py``): the contiguous ``forward`` that training runs, and
+the paged serving steps over a KV arena.
 
 Parameters are a plain dict in the JAX package's tree layout, stacked over
 layers: ``tok_embed`` (V, E), ``final_norm`` (E,), ``lm_head`` (E, V) and
-``layers/*`` with a leading (L, ...) axis. Matmul weights, the embedding
-and the LM head are stored in the compute dtype (the JAX model keeps f32
-params and casts them to ``cfg.dtype`` at every use, which gives the same
-values); norm weights stay f32, because RMSNorm applies them in f32.
+``layers/*`` with a leading (L, ...) axis. Serving stores matmul weights,
+the embedding and the LM head in the compute dtype (the JAX model keeps
+f32 params and casts them to ``cfg.dtype`` at every use, which gives the
+same values); training keeps f32 master weights (``cfg.param_dtype``) and
+casts them at every use, as the JAX model does. Norm weights stay f32,
+because RMSNorm applies them in f32.
 
 The arena is ``{"k", "v"}`` of shape (L, P + 1, T, Hkv, D) and is updated
 IN PLACE (the JAX model donated it instead). Page P is a sink no page
@@ -22,19 +25,20 @@ from typing import Any, Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from ..device import resolve_device
-from ..ops import apply_rope, paged_attention_multi, rms_norm, \
-    rope_frequencies
+from ..ops import apply_rope, flash_attention, paged_attention_multi, \
+    rms_norm, rope_frequencies
 
 Params = dict[str, Any]
 
 
 @dataclasses.dataclass(frozen=True)
 class LlamaConfig:
-    """The dense fields of the JAX ``LlamaConfig`` this port serves, with
+    """The dense fields of the JAX ``LlamaConfig`` this port runs, with
     the same defaults. MoE, LoRA, int8/int4, MLA, ring attention, meshes,
-    sliding windows and soft caps are later slices."""
+    sliding windows, soft caps and remat "dots" are later slices."""
     name: str = "tiny"
     vocab_size: int = 32000
     embed_dim: int = 256
@@ -49,6 +53,11 @@ class LlamaConfig:
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
     dtype: torch.dtype = torch.bfloat16  # activation/compute/weight dtype
+    param_dtype: torch.dtype = torch.float32  # training's master weights
+    remat: bool = True
+    # "full": recompute each layer in backward (one more forward of
+    # flops, least memory); "none": keep every activation
+    remat_policy: str = "full"
 
     @property
     def head_dim_(self) -> int:
@@ -107,15 +116,19 @@ def is_norm(name: str) -> bool:
 
 
 def init_params(cfg: LlamaConfig, generator: torch.Generator,
-                device=None) -> Params:
+                device=None, master: bool = False) -> Params:
     """Random init from ``generator`` (normal * 0.02, norms at 1), built
     directly on ``device`` (default ``cuda``) one layer at a time, so the
     f32 draw never holds more than one layer's leaf. ``generator`` must
-    live on that device."""
+    live on that device. Weights are in ``cfg.dtype`` (serving), or in
+    ``cfg.param_dtype`` with ``master=True`` (training); the same generator
+    draws the same values, so the serving weights are the master weights
+    rounded."""
     dev = resolve_device(device)
+    dtype = cfg.param_dtype if master else cfg.dtype
 
     def draw(shape) -> torch.Tensor:
-        out = torch.empty(shape, dtype=cfg.dtype, device=dev)
+        out = torch.empty(shape, dtype=dtype, device=dev)
         rows = out.reshape(shape[0], -1) if len(shape) > 2 else out[None]
         for r in rows:
             r.copy_(torch.randn(r.shape, generator=generator, device=dev,
@@ -136,8 +149,9 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
 
 
 class LlamaModel:
-    """Paged serving steps over a per-model arena. ``device`` defaults to
-    ``cuda`` and raises without a card."""
+    """The contiguous forward (training) and the paged serving steps over a
+    per-model arena. ``device`` defaults to ``cuda`` and raises without a
+    card."""
 
     def __init__(self, cfg: LlamaConfig, device=None):
         self.cfg = cfg
@@ -145,6 +159,62 @@ class LlamaModel:
         self.cos, self.sin = rope_frequencies(
             cfg.head_dim_, cfg.max_seq_len, cfg.rope_theta, cfg.rope_scaling,
             device=self.device)
+
+    def forward(self, params: Params, tokens: torch.Tensor,
+                positions: Optional[torch.Tensor] = None,
+                return_hidden: bool = False) -> torch.Tensor:
+        """tokens (B, S) -> logits (B, S, V) in ``cfg.dtype``, or with
+        ``return_hidden`` the final-norm hidden states (B, S, E). Every
+        layer is causal flash attention and a SwiGLU MLP, each behind an
+        RMSNorm; weights are cast to ``cfg.dtype`` at each use. Under remat
+        "full" each layer is a ``torch.utils.checkpoint`` (the counterpart
+        of ``jax.checkpoint`` over the JAX model's scan body), so backward
+        runs its forward once more. ``positions`` (B, S) overrides arange
+        for RoPE."""
+        cfg = self.cfg
+        if cfg.remat and cfg.remat_policy not in ("full", "none"):
+            raise ValueError(f"remat_policy {cfg.remat_policy!r} is not "
+                             "ported (full or none)")
+        x = params["tok_embed"][tokens.long()].to(cfg.dtype)
+        # one unbind per stacked leaf: its backward stacks the L layer
+        # gradients once
+        layers = {name: leaf.unbind(0)
+                  for name, leaf in params["layers"].items()}
+        remat = cfg.remat and cfg.remat_policy == "full"
+        for i in range(cfg.n_layers):
+            lp = {name: leaves[i] for name, leaves in layers.items()}
+            if remat:
+                x = torch.utils.checkpoint.checkpoint(
+                    self._layer, x, lp, positions, use_reentrant=False)
+            else:
+                x = self._layer(x, lp, positions)
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        if return_hidden:
+            return x
+        head = (params["tok_embed"].t() if cfg.tie_embeddings
+                else params["lm_head"])
+        return x @ head.to(cfg.dtype)
+
+    def _layer(self, x: torch.Tensor, lp: Params,
+               positions: Optional[torch.Tensor]) -> torch.Tensor:
+        """One decoder layer of ``forward``: the JAX model's dense
+        ``_attention_block`` then ``_mlp_block``."""
+        cfg = self.cfg
+        b, s, _ = x.shape
+        hd, dt = cfg.head_dim_, cfg.dtype
+        h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+        q = (h @ lp["wq"].to(dt)).reshape(b, s, cfg.n_heads, hd)
+        k = (h @ lp["wk"].to(dt)).reshape(b, s, cfg.n_kv_heads, hd)
+        v = (h @ lp["wv"].to(dt)).reshape(b, s, cfg.n_kv_heads, hd)
+        q = apply_rope(q, self.cos, self.sin, positions)
+        k = apply_rope(k, self.cos, self.sin, positions)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        o = flash_attention(qt, kt, vt, causal=True, sm_scale=cfg.sm_scale)
+        o = o.transpose(1, 2).reshape(b, s, cfg.n_heads * hd)
+        x = x + o @ lp["wo"].to(dt)
+        h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
+        act = F.silu(h @ lp["w_gate"].to(dt)) * (h @ lp["w_up"].to(dt))
+        return x + act @ lp["w_down"].to(dt)
 
     def init_paged_arena(self, n_pages: int, page_tokens: int) -> Params:
         """{"k", "v"} of shape (L, n_pages + 1, T, Hkv, D): page-major

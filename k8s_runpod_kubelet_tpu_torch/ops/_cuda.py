@@ -23,8 +23,9 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_lock = threading.Lock()
-_libs: dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()                    # guards _locks
+_locks: dict[str, threading.Lock] = {}      # one per source: builds of
+_libs: dict[str, ctypes.CDLL] = {}          # different sources overlap
 # ptxas register/spill report of each build, by source name
 build_logs: dict[str, str] = {}
 
@@ -50,8 +51,10 @@ def _target(name: str) -> Path:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, building it first if
-    needed."""
+    needed. Sources build concurrently when loaded from several threads."""
     with _lock:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         lib = _libs.get(name)
         if lib is None:
             out = _target(name)

@@ -1,4 +1,4 @@
-"""Paged multi-token attention: the CUDA kernel and its plain version.
+"""Attention: the CUDA kernels and their plain versions.
 
 ``paged_attention_multi`` is the port of the JAX package's
 ``ops/attention.py:paged_attention_multi``: K query tokens per sequence
@@ -7,6 +7,14 @@ an optional soft cap and an optional sliding window. On a CUDA tensor it
 launches ``csrc/paged_attention_multi.cu`` (or raises); on a CPU tensor
 it runs ``_paged_attention_multi_plain``, the gather-then-mask reference
 of ``_paged_attention_multi_xla``.
+
+``flash_attention`` is the port of ``ops/attention.py:flash_attention``,
+contiguous attention with gradients. On a CUDA tensor it is a
+``torch.autograd.Function`` over the three kernels of
+``csrc/flash_attention.cu`` (``flash_fwd``, ``flash_dq``, ``flash_dkv``,
+each a wrapper with its own launch count); on a CPU tensor it runs
+``_attention_plain``, the port of ``_attention_xla``, and autograd
+differentiates that.
 """
 
 from __future__ import annotations
@@ -151,3 +159,306 @@ def paged_attention_multi(q: torch.Tensor, k_pages: torch.Tensor,
 
 # kernel launches made through the wrapper (the plain path never counts)
 paged_attention_multi.launches = 0
+
+
+# -- flash attention (contiguous, with gradients) ---------------------------------
+
+def _check_flash_shapes(q, k, v, causal: bool, sliding_window,
+                        logit_soft_cap) -> None:
+    """The JAX ``flash_attention``'s argument checks, plus the shapes its
+    layout implies."""
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v "
+                         f"{tuple(v.shape)}: expected q (B, Hq, Sq, D) and "
+                         "k, v (B, Hkv, Sk, D)")
+    b, hq, _, d = q.shape
+    if k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} "
+                         "disagree on batch or head_dim")
+    if hq % k.shape[1] != 0:
+        raise ValueError(f"Hq={hq} not a multiple of Hkv={k.shape[1]}")
+    if sliding_window is not None:
+        if not causal:
+            raise ValueError("sliding_window requires causal attention")
+        if sliding_window <= 0:
+            raise ValueError(f"sliding_window must be positive, "
+                             f"got {sliding_window}")
+    if logit_soft_cap is not None and logit_soft_cap <= 0:
+        raise ValueError(f"logit_soft_cap must be positive, "
+                         f"got {logit_soft_cap}")
+
+
+def _flash_mask(sq: int, sk: int, causal: bool, window: Optional[int],
+                device) -> Optional[torch.Tensor]:
+    """(Sq, Sk) mask of the keys each query sees, or None for all."""
+    if not causal:
+        return None
+    q_pos = torch.arange(sq, device=device)[:, None]
+    k_pos = torch.arange(sk, device=device)[None, :]
+    mask = q_pos >= k_pos
+    if window is not None:
+        mask &= (q_pos - k_pos) < window
+    return mask
+
+
+def _attention_plain(q, k, v, *, causal: bool, sm_scale: float,
+                     sliding_window: Optional[int] = None,
+                     logit_soft_cap: Optional[float] = None) -> torch.Tensor:
+    """Port of ``_attention_xla``: q scaled in its own dtype, scores and
+    softmax in f32, p cast to q's dtype before p.v, f32 accumulation. A row
+    that sees no key gives 0 (the kernels' choice; the XLA path would give
+    the mean of v). Differentiable by autograd."""
+    b, hq, sq, d = q.shape
+    _, hkv, sk, _ = k.shape
+    group = hq // hkv
+    qg = (q * torch.as_tensor(sm_scale, dtype=q.dtype)).reshape(
+        b, hkv, group, sq, d)
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qg.float(), k.float())
+    if logit_soft_cap is not None:
+        s = torch.tanh(s / logit_soft_cap) * logit_soft_cap
+    mask = _flash_mask(sq, sk, causal, sliding_window, q.device)
+    if mask is not None:
+        s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    if mask is not None:
+        p = torch.where(mask.any(-1, keepdim=True), p, torch.zeros_like(p))
+    o = torch.einsum("bhgqk,bhkd->bhgqd", p.to(q.dtype).float(), v.float())
+    return o.reshape(b, hq, sq, d).to(q.dtype)
+
+
+def _flash_probs(q, k, lse, causal, scale, window, soft_cap):
+    """The kernels' recomputation in f32: scores of q (B, Hkv, G, Sq, D)
+    against k, their soft-cap tanh (or None), and P = exp(s - lse) with
+    masked entries zeroed (so a row that sees no key has P = 0)."""
+    s = torch.einsum("bhgqd,bhkd->bhgqk", q.float() * scale, k.float())
+    th = None
+    if soft_cap is not None:
+        th = torch.tanh(s / soft_cap)
+        s = th * soft_cap
+    mask = _flash_mask(q.shape[3], k.shape[2], causal, window, q.device)
+    if lse is None:
+        m = s if mask is None else torch.where(mask, s,
+                                               torch.full_like(s, NEG_INF))
+        m = m.amax(-1, keepdim=True)
+        e = torch.exp(s - m)
+        if mask is not None:
+            e = torch.where(mask, e, torch.zeros_like(e))
+        lse = m + torch.log(e.sum(-1, keepdim=True).clamp_min(1e-30))
+    else:
+        lse = lse[..., None]
+    p = torch.exp(s - lse)
+    if mask is not None:
+        p = torch.where(mask, p, torch.zeros_like(p))
+    return p, th, lse[..., 0]
+
+
+def _grouped(t: torch.Tensor, hkv: int) -> torch.Tensor:
+    b, hq, s, d = t.shape
+    return t.reshape(b, hkv, hq // hkv, s, d)
+
+
+def _flash_fwd_plain(q, k, v, *, causal, sm_scale, sliding_window=None,
+                     logit_soft_cap=None):
+    """What ``flash_fwd``'s kernel computes, in f32: (o in q's dtype, lse
+    (B, Hq, Sq) f32)."""
+    b, hq, sq, d = q.shape
+    hkv = k.shape[1]
+    p, _, lse = _flash_probs(_grouped(q, hkv), k, None, causal, sm_scale,
+                             sliding_window, logit_soft_cap)
+    o = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
+    return o.reshape(b, hq, sq, d).to(q.dtype), lse.reshape(b, hq, sq)
+
+
+def _flash_ds(q, k, v, do, lse, delta, causal, scale, window, soft_cap):
+    hkv = k.shape[1]
+    qg, dog = _grouped(q, hkv), _grouped(do, hkv)
+    p, th, _ = _flash_probs(qg, k, _grouped(lse[..., None], hkv)[..., 0],
+                            causal, scale, window, soft_cap)
+    dp = torch.einsum("bhgqd,bhkd->bhgqk", dog.float(), v.float())
+    ds = p * (dp - _grouped(delta[..., None], hkv))
+    if th is not None:
+        ds = ds * (1.0 - th * th)
+    return p, ds, qg, dog
+
+
+def _flash_dq_plain(q, k, v, do, lse, delta, *, causal, sm_scale,
+                    sliding_window=None, logit_soft_cap=None):
+    """What ``flash_dq``'s kernel computes, in f32: dq = scale * dS k."""
+    _, ds, _, _ = _flash_ds(q, k, v, do, lse, delta, causal, sm_scale,
+                            sliding_window, logit_soft_cap)
+    dq = torch.einsum("bhgqk,bhkd->bhgqd", ds, k.float()) * sm_scale
+    return dq.reshape(q.shape).to(q.dtype)
+
+
+def _flash_dkv_plain(q, k, v, do, lse, delta, *, causal, sm_scale,
+                     sliding_window=None, logit_soft_cap=None):
+    """What ``flash_dkv``'s kernel computes, in f32: dv = P^T dO and
+    dk = scale * dS^T q, summed over each GQA group."""
+    p, ds, qg, dog = _flash_ds(q, k, v, do, lse, delta, causal, sm_scale,
+                               sliding_window, logit_soft_cap)
+    dv = torch.einsum("bhgqk,bhgqd->bhkd", p, dog.float())
+    dk = torch.einsum("bhgqk,bhgqd->bhkd", ds, qg.float()) * sm_scale
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+@functools.cache
+def _flash_launchers():
+    lib = _cuda.load("flash_attention")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    dims = [i, i, i, i, i, i, f, f, i, i, p]   # b hq hkv sq sk d scale cap
+    fwd, dq, dkv = lib.flash_fwd_bf16, lib.flash_dq_bf16, lib.flash_dkv_bf16
+    fwd.argtypes = [p] * 5 + dims              # causal window stream
+    dq.argtypes = [p] * 7 + dims
+    dkv.argtypes = [p] * 8 + dims
+    for fn in (fwd, dq, dkv):
+        fn.restype = i
+    return fwd, dq, dkv
+
+
+def _check_flash_cuda(**tensors) -> None:
+    """What the kernels take: tensors on one card, contiguous, 16-byte
+    aligned, bf16 (f32 for lse and delta), D in {64, 128, 256}."""
+    dev = tensors["q"].device
+    for name, t in tensors.items():
+        want = torch.float32 if name in ("lse", "delta") else torch.bfloat16
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, q on {dev}")
+        if t.dtype != want:
+            raise TypeError(f"the CUDA kernel takes {want} {name}, got "
+                            f"{t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    d = tensors["q"].shape[3]
+    if d not in _HEAD_DIMS:
+        raise ValueError(f"head_dim {d} not supported by the CUDA kernel "
+                         f"(one of {_HEAD_DIMS})")
+
+
+def _flash_dims(q, k, causal, sm_scale, sliding_window, logit_soft_cap,
+                stream) -> tuple:
+    b, hq, sq, d = q.shape
+    return (b, hq, k.shape[1], sq, k.shape[2], d, float(sm_scale),
+            float(logit_soft_cap or 0.0), int(causal),
+            int(sliding_window or 0), stream)
+
+
+def flash_fwd(q, k, v, *, causal: bool, sm_scale: float,
+              sliding_window: Optional[int] = None,
+              logit_soft_cap: Optional[float] = None
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The forward kernel: (o (B, Hq, Sq, D) in q's dtype, lse (B, Hq, Sq)
+    f32). A CUDA tensor launches it or raises; a CPU tensor takes the plain
+    version."""
+    args = dict(causal=causal, sm_scale=sm_scale,
+                sliding_window=sliding_window, logit_soft_cap=logit_soft_cap)
+    if q.device.type == "cpu":
+        return _flash_fwd_plain(q, k, v, **args)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    _check_flash_cuda(q=q, k=k, v=v)
+    o = torch.empty_like(q)
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    code = _flash_launchers()[0](
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), *_flash_dims(q, k, stream=stream, **args))
+    _cuda.check(code, "flash_fwd")
+    flash_fwd.launches += 1
+    return o, lse
+
+
+def flash_dq(q, k, v, do, lse, delta, *, causal: bool, sm_scale: float,
+             sliding_window: Optional[int] = None,
+             logit_soft_cap: Optional[float] = None) -> torch.Tensor:
+    """The dQ kernel: dq (B, Hq, Sq, D) in q's dtype, from the forward's
+    lse and delta = rowsum(dO o) (B, Hq, Sq) f32. A CUDA tensor launches it
+    or raises; a CPU tensor takes the plain version."""
+    args = dict(causal=causal, sm_scale=sm_scale,
+                sliding_window=sliding_window, logit_soft_cap=logit_soft_cap)
+    if q.device.type == "cpu":
+        return _flash_dq_plain(q, k, v, do, lse, delta, **args)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    _check_flash_cuda(q=q, k=k, v=v, do=do, lse=lse, delta=delta)
+    dq = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    code = _flash_launchers()[1](
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        *_flash_dims(q, k, stream=stream, **args))
+    _cuda.check(code, "flash_dq")
+    flash_dq.launches += 1
+    return dq
+
+
+def flash_dkv(q, k, v, do, lse, delta, *, causal: bool, sm_scale: float,
+              sliding_window: Optional[int] = None,
+              logit_soft_cap: Optional[float] = None
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The dK/dV kernel: (dk, dv) (B, Hkv, Sk, D) in k's dtype, summed over
+    each GQA group. A CUDA tensor launches it or raises; a CPU tensor takes
+    the plain version."""
+    args = dict(causal=causal, sm_scale=sm_scale,
+                sliding_window=sliding_window, logit_soft_cap=logit_soft_cap)
+    if q.device.type == "cpu":
+        return _flash_dkv_plain(q, k, v, do, lse, delta, **args)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    _check_flash_cuda(q=q, k=k, v=v, do=do, lse=lse, delta=delta)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    code = _flash_launchers()[2](
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        *_flash_dims(q, k, stream=stream, **args))
+    _cuda.check(code, "flash_dkv")
+    flash_dkv.launches += 1
+    return dk, dv
+
+
+# kernel launches made through each wrapper (the plain path never counts)
+flash_fwd.launches = 0
+flash_dq.launches = 0
+flash_dkv.launches = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Replaces the JAX package's ``_flash_diff`` custom_vjp: the forward
+    kernel saves (q, k, v, o, lse); the backward computes delta =
+    rowsum(dO o) in f32 torch, then launches the dQ and dK/dV kernels."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, args: dict):
+        o, lse = flash_fwd(q, k, v, **args)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.args = args
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        do = do.contiguous()
+        delta = (do.float() * o.float()).sum(-1)
+        dq = flash_dq(q, k, v, do, lse, delta, **ctx.args)
+        dk, dv = flash_dkv(q, k, v, do, lse, delta, **ctx.args)
+        return dq, dk, dv, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, sm_scale: Optional[float] = None,
+                    sliding_window: Optional[int] = None,
+                    logit_soft_cap: Optional[float] = None) -> torch.Tensor:
+    """Multi-head attention with GQA and gradients. q (B, Hq, Sq, D), k/v
+    (B, Hkv, Sk, D); returns (B, Hq, Sq, D) in q's dtype.
+    ``sliding_window`` keeps each query to the last W positions (needs
+    ``causal``); ``logit_soft_cap`` passes scores through cap*tanh(s/cap)
+    before the mask. A CUDA tensor runs the kernels for any Sq, Sk >= 1
+    (bf16, D in {64, 128, 256}, contiguous) or raises; a CPU tensor runs
+    the same autograd Function over the kernels' plain versions."""
+    _check_flash_shapes(q, k, v, causal, sliding_window, logit_soft_cap)
+    scale = sm_scale if sm_scale is not None else q.shape[3] ** -0.5
+    args = dict(causal=causal, sm_scale=scale, sliding_window=sliding_window,
+                logit_soft_cap=logit_soft_cap)
+    return _FlashAttention.apply(q, k, v, args)

@@ -60,18 +60,50 @@ def _triton_kernel():
     return triton, triton.jit(_rms_kernel)
 
 
+class _RmsNorm(torch.autograd.Function):
+    """The forward is the Triton kernel on the card and the plain version
+    on the CPU; the backward is the vjp of
+    ``_rms_norm_plain`` in plain torch (dx in x's dtype, dw in the weight's
+    f32), as the JAX package takes the XLA vjp of its plain math: there is
+    no backward kernel there either."""
+
+    @staticmethod
+    def forward(ctx, x, weight, eps):
+        ctx.save_for_backward(x, weight)
+        ctx.eps = eps
+        if x.device.type == "cpu":
+            return _rms_norm_plain(x, weight, eps)
+        if x.device.type != "cuda":
+            raise ValueError(f"unsupported device {x.device}")
+        return _rms_launch(x, weight, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight = ctx.saved_tensors
+        with torch.enable_grad():
+            xd = x.detach().requires_grad_()
+            wd = weight.detach().requires_grad_()
+            y = _rms_norm_plain(xd, wd, ctx.eps)
+            dx, dw = torch.autograd.grad(y, (xd, wd), g)
+        return dx, dw, None
+
+
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
-    """y = x * rsqrt(mean(x^2) + eps) * weight over the last axis. A CUDA
-    tensor launches the Triton kernel (bf16 x, f32 weight) or raises; a
-    CPU tensor takes the plain version."""
+    """y = x * rsqrt(mean(x^2) + eps) * weight over the last axis, with
+    gradients. A CUDA tensor launches the Triton kernel (bf16 x, f32
+    weight) or raises; a CPU tensor takes the plain version. Either way
+    the backward is ``_RmsNorm``'s (autograd records no node when no input
+    needs a gradient, as on the serving path)."""
     if weight.shape != x.shape[-1:]:
         raise ValueError(f"weight {tuple(weight.shape)} does not match "
                          f"x's last axis {x.shape[-1]}")
-    if x.device.type == "cpu":
-        return _rms_norm_plain(x, weight, eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
+    return _RmsNorm.apply(x, weight, eps)
+
+
+def _rms_launch(x: torch.Tensor, weight: torch.Tensor,
+                eps: float) -> torch.Tensor:
+    """One launch of the Triton kernel, counted on ``rms_norm.launches``."""
     if weight.device != x.device:
         raise ValueError(f"weight is on {weight.device}, x on {x.device}")
     if x.dtype != torch.bfloat16 or weight.dtype != torch.float32:

@@ -1,6 +1,7 @@
-"""Where a paged step's time goes on the card: one decode step (8 slots)
-and one 1024-token prefill chunk of a model, profiled with
-``torch.profiler``, device time summed by kernel family.
+"""Where a step's time goes on the card: one paged decode step (8 slots),
+one 1024-token prefill chunk, and one training step of the model's widths
+at 4 layers (batch 8 x seq 2048, remat "full", f32 master weights),
+profiled with ``torch.profiler``, device time summed by kernel family.
 
 Run on a machine with one NVIDIA card:
 
@@ -9,16 +10,19 @@ Run on a machine with one NVIDIA card:
 
 Prints one JSON object (also written to ``--out`` if given): per phase
 the wall time of a step (host clock around work that ends in a
-synchronize), the device time by family (the paged attention kernel, the
+synchronize), the device time by family (the attention kernels, the
 RMSNorm kernel, GEMMs, the arena scatter, everything else), the device's
 busy share of the wall time, and the card's name and power limit.
-Weights are random from a fixed seed; the arena holds random K/V. Device
-times the profiler cannot see read "not measured".
+Weights are random from a fixed seed; the arena holds random K/V; the
+training step sees one seeded batch. Device times the profiler cannot see
+read "not measured".
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import itertools
 import json
 import os
 import subprocess
@@ -36,8 +40,14 @@ STEPS = 10                                # profiled decode steps
 # of the 200-900-token prompts the chip smoke serves
 DECODE_LENGTHS = (402, 475, 468, 252, 411, 789, 881, 571)
 
+TRAIN_LAYERS = 4                          # the widths at the depth one card holds
+TRAIN_BATCH, TRAIN_SEQ = 8, 2048          # train_main's defaults
+
 FAMILIES = (
     ("paged_attention_multi", ("paged_attention_multi_kernel",)),
+    ("flash_fwd", ("flash_fwd_kernel",)),
+    ("flash_dq", ("flash_dq_kernel",)),
+    ("flash_dkv", ("flash_dkv_kernel",)),
     ("rms_norm", ("_rms_kernel",)),
     ("gemm", ("gemm", "gemv", "cutlass", "sm90_xmma", "nvjet", "cublas")),
     ("arena_scatter", ("index_put", "indexing_backward", "scatter")),
@@ -88,6 +98,23 @@ def _profile(fn, steps: int) -> dict:
             "top_kernels_ms": dict(top)}
 
 
+def _train_profile(cfg, dev) -> dict:
+    from .train import TrainConfig, Trainer, synthetic_batches
+
+    cfg = dataclasses.replace(cfg, n_layers=TRAIN_LAYERS)
+    tc = TrainConfig(batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                     warmup_steps=1)
+    trainer = Trainer(cfg, tc, seed=SEED, device=dev)
+    batches = itertools.repeat(next(synthetic_batches(cfg, tc, seed=SEED,
+                                                      device=dev)))
+    torch.cuda.reset_peak_memory_stats()
+    prof = _profile(lambda: trainer.run(steps=1, batches=batches), 3)
+    return dict(prof, layers=TRAIN_LAYERS, batch=TRAIN_BATCH,
+                seq_len=TRAIN_SEQ,
+                tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / prof["wall_ms"] * 1e3,
+                peak_bytes=torch.cuda.max_memory_allocated())
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--model", default="llama3-8b",
@@ -135,6 +162,9 @@ def main(argv=None) -> int:
                           lengths=lengths.tolist()),
            "prefill": dict(_profile(prefill, STEPS // 3),
                            chunk=CHUNK)}
+    del params, arena
+    torch.cuda.empty_cache()
+    out["train"] = _train_profile(cfg, dev)
     text = json.dumps(out)
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)

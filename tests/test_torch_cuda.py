@@ -14,9 +14,12 @@ rounding, 1 ulp = 2^-8 relative, plus f32 sums taken in another order).
 import pytest
 import torch
 
-from k8s_runpod_kubelet_tpu_torch.ops import paged_attention_multi, rms_norm
-from k8s_runpod_kubelet_tpu_torch.ops.attention import \
-    _paged_attention_multi_plain
+from k8s_runpod_kubelet_tpu_torch.ops import (flash_attention, flash_dkv,
+                                              flash_dq, flash_fwd,
+                                              paged_attention_multi, rms_norm)
+from k8s_runpod_kubelet_tpu_torch.ops.attention import (
+    _attention_plain, _flash_dkv_plain, _flash_dq_plain, _flash_fwd_plain,
+    _paged_attention_multi_plain)
 from k8s_runpod_kubelet_tpu_torch.ops.rmsnorm import _rms_norm_plain
 
 pytestmark = pytest.mark.cuda
@@ -122,3 +125,111 @@ def test_paged_attention_multi_kernel_rejects_what_it_does_not_take(cuda):
     assert not strided.is_contiguous()
     with pytest.raises(ValueError, match="contiguous"):
         paged_attention_multi(strided, k, v, table, lens)
+
+
+def test_rms_norm_gradients_on_the_card_match_plain(cuda):
+    gen = torch.Generator().manual_seed(5)
+    x = (3 * torch.randn((6, 256), generator=gen)).to(cuda, torch.bfloat16)
+    w = (1 + 0.1 * torch.randn((256,), generator=gen)).to(cuda)
+    g = torch.randn((6, 256), generator=gen).to(cuda, torch.bfloat16)
+    xk, wk = x.clone().requires_grad_(), w.clone().requires_grad_()
+    before = rms_norm.launches
+    (rms_norm(xk, wk, 1e-5).float() * g.float()).sum().backward()
+    assert rms_norm.launches == before + 1
+    xp, wp = x.clone().requires_grad_(), w.clone().requires_grad_()
+    (_rms_norm_plain(xp, wp, 1e-5).float() * g.float()).sum().backward()
+    assert xk.grad.dtype == torch.bfloat16 and wk.grad.dtype == torch.float32
+    torch.testing.assert_close(xk.grad, xp.grad, atol=0, rtol=0)
+    torch.testing.assert_close(wk.grad, wp.grad, atol=1e-5, rtol=1e-5)
+
+
+FLASH_CASES = {
+    # name: (B, Hq, Hkv, Sq, Sk, D, causal, window, soft cap)
+    "s1": (1, 2, 2, 1, 1, 128, True, None, None),
+    "ragged_gqa": (2, 8, 2, 133, 133, 128, True, None, None),
+    "d64_softcap": (2, 4, 4, 77, 77, 64, True, None, 8.0),
+    "d256_window": (1, 4, 1, 130, 130, 256, True, 40, None),
+    "noncausal": (2, 8, 2, 65, 65, 128, False, None, None),
+    "sq_gt_sk_window": (1, 2, 1, 50, 20, 64, True, 8, None),
+    "sk_gt_sq": (1, 4, 2, 20, 70, 128, False, None, None),
+}
+
+
+def _flash_case(dev, name, seed=0):
+    b, hq, hkv, sq, sk, d = FLASH_CASES[name][:6]
+    gen = torch.Generator().manual_seed(seed)
+    q, do = (torch.randn((b, hq, sq, d), generator=gen) for _ in range(2))
+    k, v = (torch.randn((b, hkv, sk, d), generator=gen) for _ in range(2))
+    return tuple(t.to(dev, torch.bfloat16) for t in (q, k, v, do))
+
+
+def _close_bf16(out, ref):
+    """Per element within 1e-4 + 1e-2 |ref|: the kernel rounds its f32
+    result once to bf16 (half an ulp, <= 2^-8 |ref|)."""
+    ref = ref.float()
+    err = (out.float() - ref).abs()
+    assert torch.all(err <= 1e-4 + 1e-2 * ref.abs()), float(err.max())
+
+
+@pytest.mark.parametrize("name", sorted(FLASH_CASES))
+def test_flash_kernels_match_plain(cuda, name):
+    causal, window, cap = FLASH_CASES[name][6:]
+    q, k, v, do = _flash_case(cuda, name)
+    d = q.shape[3]
+    args = dict(causal=causal, sm_scale=d ** -0.5, sliding_window=window,
+                logit_soft_cap=cap)
+    counts = [f.launches for f in (flash_fwd, flash_dq, flash_dkv)]
+    o, lse = flash_fwd(q, k, v, **args)
+    delta = (do.float() * o.float()).sum(-1)
+    dq = flash_dq(q, k, v, do, lse, delta, **args)
+    dk, dv = flash_dkv(q, k, v, do, lse, delta, **args)
+    torch.cuda.synchronize()
+    assert [f.launches for f in (flash_fwd, flash_dq, flash_dkv)] == \
+        [n + 1 for n in counts]
+    assert o.dtype == dq.dtype == dk.dtype == dv.dtype == torch.bfloat16
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    o_ref, lse_ref = _flash_fwd_plain(qf, kf, vf, **args)
+    _close_bf16(o, o_ref)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=1e-5)
+    _close_bf16(dq, _flash_dq_plain(qf, kf, vf, dof, lse, delta, **args))
+    dk_ref, dv_ref = _flash_dkv_plain(qf, kf, vf, dof, lse, delta, **args)
+    _close_bf16(dk, dk_ref)
+    _close_bf16(dv, dv_ref)
+    for t in (o, dq, dk, dv):
+        assert torch.isfinite(t).all()
+
+
+def test_flash_attention_autograd_on_the_card(cuda):
+    q, k, v, do = _flash_case(cuda, "ragged_gqa", seed=1)
+    tq, tk, tv = (t.clone().requires_grad_() for t in (q, k, v))
+    o = flash_attention(tq, tk, tv, causal=True)
+    o.backward(do)
+    pq, pk, pv = (t.float().requires_grad_() for t in (q, k, v))
+    ref = _attention_plain(pq, pk, pv, causal=True,
+                           sm_scale=q.shape[3] ** -0.5)
+    ref.backward(do.float())
+    _close_bf16(o, ref)
+    # delta comes from the bf16 o (as the JAX package computes it), so the
+    # gradients sit within 1% of each tensor's scale, not per element
+    for got, want in ((tq.grad, pq.grad), (tk.grad, pk.grad),
+                      (tv.grad, pv.grad)):
+        err = (got.float() - want).abs()
+        assert float(err.max()) <= 1e-2 * float(want.abs().max())
+
+
+def test_flash_kernels_reject_what_they_do_not_take(cuda):
+    q, k, v, do = _flash_case(cuda, "noncausal")
+    with pytest.raises(TypeError):
+        flash_attention(q.float(), k.float(), v.float())
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(q.transpose(2, 3), k.transpose(2, 3),
+                        v.transpose(2, 3))
+    q96 = torch.zeros((1, 2, 8, 96), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention(q96, q96, q96)
+    o, lse = flash_fwd(q, k, v, causal=False, sm_scale=0.1)
+    with pytest.raises(TypeError):
+        flash_dq(q, k, v, do, lse.bfloat16(), lse, causal=False,
+                 sm_scale=0.1)
+    with pytest.raises(ValueError, match="is on"):
+        flash_dkv(q, k, v, do, lse.cpu(), lse, causal=False, sm_scale=0.1)
