@@ -2,7 +2,8 @@
 """Chip smoke of the PyTorch/CUDA port: builds its kernels, holds each
 against its plain PyTorch version on the card, serves llama3-8b (full
 width and depth, random bf16 weights from a seed) through the paged
-engine and its HTTP front, then trains Llama-3-8B widths at 4 layers.
+engine and its HTTP front, in bf16 and then with int4 weights and an int8
+KV arena, then trains Llama-3-8B widths at 4 layers.
 
 Run from the repository root on a machine with one NVIDIA card:
 
@@ -12,36 +13,48 @@ Phases (any failed check raises: the script exits nonzero and does not
 print the final ``ok`` line):
 
 1. card: name and power limit (nvidia-smi), printed before any number;
-2. build: ``csrc/paged_attention_multi.cu`` and ``csrc/flash_attention.cu``
-   with nvcc for sm_90a (one nvcc each, started together), and the Triton
-   RMSNorm kernel, with their seconds and ptxas register/spill lines;
+2. build: ``csrc/paged_attention_multi.cu``,
+   ``csrc/paged_attention_multi_quant.cu``, ``csrc/int4_matmul.cu`` and
+   ``csrc/flash_attention.cu`` with nvcc for sm_90a (one nvcc each, started
+   together), and the Triton RMSNorm kernel, with their seconds and ptxas
+   register/spill lines;
 3. kernels vs plain on the card, at the shapes the 8B main path gives
    them: ``paged_attention_multi`` (decode K=1 B=8 with ragged lengths up
    to 2048, K=4 B=8, a 1024-token prefill chunk behind a 100-token
-   prefix; tables carry stale ids of garbage pages past ceil(len/T)) and
+   prefix; tables carry stale ids of garbage pages past ceil(len/T)),
+   ``paged_attention_multi_quant`` (decode and the prefill chunk, over
+   int8 pages the model's ``_kv_quant`` made from the same K/V), the
+   single-token forms ``paged_attention`` and ``paged_attention_quant`` at
+   the decode shape, ``int4_matmul`` at each distinct projection shape of
+   the 8B model at 8 and 1024 rows, and
    ``rms_norm`` (8 and 1024 rows of 4096 for serving; x (8, 2048, 4096)
    needing gradients with an f32 weight for training, where y, dx and dw
    are each held against autograd of the plain version). Each case prints
    the max abs
    error and its share of the tolerance (each element within 1e-4 +
-   1e-2 |plain|, 1.3 bf16 ulps; attention cases also score two broken
-   variants against it: p.v accumulated in bf16, and a page lost from
-   the long contexts), the kernel's median time (CUDA events,
+   1e-2 |plain|, 1.3 bf16 ulps; broken variants are scored against it
+   and must read above 1x: for attention p.v accumulated in bf16 and a
+   page lost from the long contexts, for int8 pages also the scales
+   ignored, for int4 the two nibbles of each byte swapped and each group
+   given its neighbour's scale), the kernel's median time (CUDA events,
    L2 flushed before every launch), its bound (bytes over 3.35 TB/s or
    operations over the peak for their type, whichever is larger), the
    plain version's time, and one PyTorch library call's time for the
    same function (SDPA over the gathered K/V with the same mask,
-   ``F.rms_norm``), which the port itself never calls;
+   ``F.rms_norm``) or, where none takes the kernel's inputs, a labelled
+   yardstick (SDPA over the dequantized K/V; ``torch.matmul`` by the
+   dequantized bf16 weight), which the port itself never calls;
 4. engine: ``ServingEngine`` for llama3-8b, 8 slots, cache_len 2048,
    16-token pages; 8 greedy requests of 200-900 prompt tokens (two share
-   a 96-token prefix), 32 new tokens each. Both kernels' launch counters
-   are set to 0 just before and read just after; all 8 must finish, the
-   prefix hit must register, both counters must have risen. Launches are
+   a 96-token prefix), 32 new tokens each. The launch counters are set to
+   0 just before and read just after; all 8 must finish, the prefix hit
+   must register, both kernels' counters must have risen. Launches are
    also read per path, each against the engine's own step counters: the
    decode-only stretch after the burst's last prefill, and a prefill-only
    stretch (a 1500-token prompt, two chunks, one new token); every step
    or chunk must launch the attention kernel once per layer and the norm
-   kernel twice per layer plus once;
+   kernel twice per layer plus once. The single-token forms, on no model
+   path, are counted in the same way and must stay at 0, here and in 7b;
 5. repeat: one prompt served twice more gives the same tokens both times;
 6. HTTP: the front on a free port answers one POST /generate with 200;
 7. drain: the engine drains and the pool holds zero leaked pages;
@@ -50,6 +63,17 @@ print the final ``ok`` line):
    weights (no paging, no kernels: ``_attention_plain`` and
    ``_rms_norm_plain``, one layer upcast at a time), within a relative L2
    limit that the same forward with one layer skipped must exceed;
+7b. quantized engine: the bf16 engine freed, the engine the serve CLI
+   builds from ``--int4 --kv-int8`` (8 slots, cache_len 2048) over the same
+   seeded bf16 params, which it quantizes on the card; the same burst,
+   stretches and repeat, each step or chunk launching exactly 32
+   ``paged_attention_multi_quant``, 225 ``int4_matmul`` (7 a layer and the
+   head), 65 ``rms_norm`` and no ``paged_attention_multi``,
+   ``paged_attention`` or ``paged_attention_quant``; the weight and
+   arena bytes and peak memory; the independent check against a plain
+   f32 forward of the dequantized weights over unquantized K/V (its own
+   limit, the same skipped-layer control), the gap to the bf16 engine's
+   logits (information only), HTTP, drain with zero leaked pages;
 8. flash kernels vs plain on the card: ``flash_fwd``, ``flash_dq`` and
    ``flash_dkv`` at the training shape (B 8, Hq 32, Hkv 8, S 2048, D 128,
    causal), a ragged S=1000, D=64, D=256, GQA group 1, a window, a soft
@@ -87,8 +111,11 @@ print the final ``ok`` line):
    twice; the second life must log ``resumed from checkpoint step 2``.
 
 The next-to-last line is the kernels JSON record (each kernel's
-``launches`` counted on its own main path: the engine burst for the
-serving kernels, the training run for the flash kernels), the last line
+``launches`` counted on its own main path: the bf16 engine's burst for
+``paged_attention_multi`` and ``rms_norm``, the quantized engine's burst
+for ``paged_attention_multi_quant`` and ``int4_matmul``, the training run
+for the flash kernels; the single-token forms lie on no model path, in
+this port as in the JAX package, and count 0), the last line
 ``{"ok": true, "device": {...}}``. ``--out PATH`` also writes every
 number (engine and training phases included) to PATH as JSON.
 """
@@ -133,6 +160,12 @@ E2E_SCALE_RTOL = 1e-2
 # weights: relative L2 norm of the difference (the bf16 engine rounds at
 # every layer of 32; see PERF.md for the readings this limit was set from)
 ENGINE_REL_L2_LIMIT = 0.1
+# the --int4 --kv-int8 engine's last-token logits against the plain f32
+# forward of the same dequantized weights over unquantized K/V: the bf16
+# activations of the bf16 engine (0.0588 there) plus the int8 rounding of
+# every K/V row (half a step of amax/127, ~0.7% of a row's RMS). Set before
+# the first run at 0.15: the skipped-layer control read 0.34 on bf16 weights
+QUANT_ENGINE_REL_L2_LIMIT = 0.15
 # the training gradients (bf16 compute through the kernels) against autograd
 # of the plain f32 forward of the same f32 master params: relative L2 error
 # of each leaf, and relative error of the global norm (see PERF.md for the
@@ -156,15 +189,35 @@ def card_line() -> str:
     return out.splitlines()[0]
 
 
+def kernel_name(line: str):
+    """The kernel named in a ptxas line by its mangled name (a length
+    prefix, the identifier, then ``I...E`` integer template arguments), as
+    ``name<args>``; None if no ``*_kernel`` is named."""
+    for i, ch in enumerate(line):
+        if not ch.isdigit():
+            continue
+        for j in range(i + 1, min(i + 4, len(line)) + 1):
+            if not line[i:j].isdigit():
+                break
+            n = int(line[i:j])
+            ident = line[j:j + n]
+            if len(ident) == n and ident.endswith("_kernel") \
+                    and (ident[0].isalpha() or ident[0] == "_"):
+                targs = re.match(r"I((?:Li\d+E)+)", line[j + n:])
+                if targs:
+                    ident += "<" + ",".join(re.findall(
+                        r"Li(\d+)E", targs.group(1))) + ">"
+                return ident
+    return None
+
+
 def ptxas_summary(text: str) -> list[str]:
     """One line per compiled kernel of an ``nvcc -Xptxas -v`` log: its
     name with template arguments, registers and spill bytes."""
     out, name, spill = [], "?", ""
     for line in text.splitlines():
-        m = re.search(r"(?<=\d)([A-Za-z_]+_kernel)I((?:Li\d+E)+)", line)
-        if m:
-            targs = re.findall(r"Li(\d+)E", m.group(2))
-            name = f"{m.group(1)}<{','.join(targs)}>"
+        if "entry function" in line or "Function properties" in line:
+            name = kernel_name(line) or name
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m:
@@ -290,36 +343,72 @@ def attention_controls(torch, qs, kc, vc, mask, scale, t, ref) -> dict:
     return out
 
 
-def attention_case(torch, F, dev, flush, name, b, kq, lengths):
-    from k8s_runpod_kubelet_tpu_torch.ops import paged_attention_multi
-    from k8s_runpod_kubelet_tpu_torch.ops.attention import \
-        _paged_attention_multi_plain
+# the four paged entry points: (wrapper name, plain name, single-token
+# (q (B, Hq, D)), int8 pages)
+PAGED_KINDS = {
+    "paged_attention_multi": ("_paged_attention_multi_plain", False, False),
+    "paged_attention_multi_quant": ("_paged_attention_multi_quant_plain",
+                                    False, True),
+    "paged_attention": ("_paged_attention_plain", True, False),
+    "paged_attention_quant": ("_paged_attention_quant_plain", True, True),
+}
 
+
+def attention_case(torch, F, dev, flush, kind, name, b, kq, lengths):
+    """One paged entry point against its plain version at llama3-8b's
+    shapes. The int8 kinds take pages that the model's own ``_kv_quant``
+    made from the bf16 ones (the garbage pages stay large). Controls: p.v
+    accumulated in bf16 and a page lost (both kinds), the scales ignored
+    (int8 pages); each must read above 1x the tolerance."""
+    from k8s_runpod_kubelet_tpu_torch.models.llama import _kv_quant
+    from k8s_runpod_kubelet_tpu_torch.ops import attention
+
+    wrapper = getattr(attention, kind)
+    plain_name, single, quant = PAGED_KINDS[kind]
+    plain_fn = getattr(attention, plain_name)
     q, k, v, table, lens, live = attention_inputs(torch, dev, b, kq, lengths)
     hq, d = q.shape[2], q.shape[3]
     t, hkv = k.shape[1], k.shape[2]
     scale = d ** -0.5
+    if quant:
+        (kp, ks), (vp, vs) = _kv_quant(k), _kv_quant(v)
+        pages = (kp, vp, ks, vs)
+        k = kp.float() * ks[..., None]   # what the pages stand for
+        v = vp.float() * vs[..., None]
+    else:
+        pages = (k, v)
+    qa = q[:, 0].contiguous() if single else q
 
     def kernel():
-        return paged_attention_multi(q, k, v, table, lens, sm_scale=scale)
+        return wrapper(qa, *pages, table, lens, sm_scale=scale)
 
-    def plain():
-        return _paged_attention_multi_plain(q, k, v, table, lens,
-                                            sm_scale=scale)
+    def plain(*pg):
+        return plain_fn(qa, *(pg or pages), table, lens, sm_scale=scale)
 
-    before = paged_attention_multi.launches
+    before = wrapper.launches
     out = kernel()
     torch.cuda.synchronize()
-    if paged_attention_multi.launches != before + 1:
-        raise RuntimeError("paged_attention_multi did not launch its kernel")
+    if wrapper.launches != before + 1:
+        raise RuntimeError(f"{kind} did not launch its kernel")
     ref = plain()
     err, share = tolerance_check(out, ref)
     if share > 1:
-        raise RuntimeError(f"paged_attention_multi {name}: max abs err "
-                           f"{err}, {share:.2f}x the tolerance {TOLERANCE}")
+        raise RuntimeError(f"{kind} {name}: max abs err {err}, {share:.2f}x "
+                           f"the tolerance {TOLERANCE}")
+    ref4 = ref[:, None] if single else ref
     # the library yardstick: SDPA over contiguous K/V gathered once
     qs, kc, vc, mask = gathered(torch, q, k, v, table, lens)
-    controls = attention_controls(torch, qs, kc, vc, mask, scale, t, ref)
+    controls = attention_controls(torch, qs, kc, vc, mask, scale, t, ref4)
+    if quant:
+        ones = torch.ones_like(ks)
+        err_s, share_s = tolerance_check(plain(kp, vp, ones, ones), ref)
+        controls["scales_ignored"] = {"max_abs_err": err_s,
+                                      "tolerance_share": share_s}
+    for control, c in controls.items():
+        if not c["tolerance_share"] > 1:
+            raise RuntimeError(f"{kind} {name}: the {control} control "
+                               "passed the check")
+    kc, vc = kc.to(q.dtype), vc.to(q.dtype)
 
     def library():
         return F.scaled_dot_product_attention(qs, kc, vc, attn_mask=mask,
@@ -328,7 +417,8 @@ def attention_case(torch, F, dev, flush, name, b, kq, lengths):
     ms = time_ms(torch, kernel, 50, flush)
     plain_ms = time_ms(torch, plain, 10, flush)
     library_ms = time_ms(torch, library, 20, flush)
-    page_bytes = t * hkv * d * 2
+    page_bytes = t * hkv * d * pages[0].element_size() \
+        + (t * hkv * 4 if quant else 0)
     nbytes = (2 * sum(live) * page_bytes + 2 * q.numel() * 2
               + table.numel() * 4 + lens.numel() * 4)
     visible = sum(n - kq + j + 1 for n in lengths for j in range(kq))
@@ -340,14 +430,102 @@ def attention_case(torch, F, dev, flush, name, b, kq, lengths):
            "plain_ms": plain_ms, "library_ms": library_ms,
            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
            "ops": ops}
-    log(f"  paged_attention_multi {name}: max_abs_err {err:.3e} "
-        f"({share:.2f} of {TOLERANCE}; controls: bf16 accumulation "
-        f"{controls['bf16_accumulation']['max_abs_err']:.3e} "
-        f"({controls['bf16_accumulation']['tolerance_share']:.2f}), lost "
-        f"page {controls['lost_page']['max_abs_err']:.3e} "
-        f"({controls['lost_page']['tolerance_share']:.2f})) kernel "
-        f"{ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), plain "
-        f"{plain_ms:.4f} ms, library (SDPA) {library_ms:.4f} ms")
+    ctl = ", ".join(f"{c} {v['max_abs_err']:.3e} ({v['tolerance_share']:.2f})"
+                    for c, v in controls.items())
+    log(f"  {kind} {name}: max_abs_err {err:.3e} ({share:.2f} of "
+        f"{TOLERANCE}; controls: {ctl}) kernel {ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}), plain {plain_ms:.4f} ms, library "
+        f"(SDPA) {library_ms:.4f} ms")
+    return rec
+
+
+# the distinct projection shapes of llama3-8b: (in, out, leaves)
+INT4_SHAPES = [(4096, 4096, "wq, wo"), (4096, 1024, "wk, wv"),
+               (4096, 14336, "w_gate, w_up"), (14336, 4096, "w_down"),
+               (4096, 128256, "lm_head")]
+
+
+def int4_plain_rows(torch, h, q4, scale):
+    """``_int4_matmul_plain`` applied to row blocks whose (rows, groups,
+    out) f32 partials stay under 1 GiB (rows are independent; the plain
+    version materializes that tensor: 16 GiB at 1024 rows of the head)."""
+    from k8s_runpod_kubelet_tpu_torch.ops.int4_matmul import \
+        _int4_matmul_plain
+
+    per_row = scale.shape[0] * q4.shape[1] * 4
+    step = max(1, 2**30 // per_row)
+    return torch.cat([_int4_matmul_plain(h[r:r + step], q4, scale)
+                      for r in range(0, h.shape[0], step)])
+
+
+def int4_case(torch, dev, flush, rows, kin, out, leaves):
+    """``int4_matmul`` at one projection shape against its plain version:
+    random weights (normal * 0.02) quantized by the port's quantizer on the
+    card, bf16 activations. Controls, scored by the same check: the two
+    nibbles of every byte swapped, and each group given its neighbour's
+    scale. Times: the kernel, the plain version (row blocks, see
+    ``int4_plain_rows``) and, as a yardstick the port never calls,
+    ``torch.matmul`` of h by the dequantized bf16 weight (cuBLAS, 4x the
+    weight bytes)."""
+    from k8s_runpod_kubelet_tpu_torch.models.quant import (
+        _quantize_leaf_int4, dequantize)
+    from k8s_runpod_kubelet_tpu_torch.ops import int4_matmul
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + kin + out)
+    w = torch.randn((kin, out), generator=gen, device=dev) * 0.02
+    leaf = _quantize_leaf_int4(w)
+    del w
+    q4, scale = leaf["q4"], leaf["scale"]
+    h = torch.randn((rows, kin), generator=gen, device=dev).bfloat16()
+    name = f"{rows} x ({kin} -> {out}) [{leaves}]"
+    before = int4_matmul.launches
+    y = int4_matmul(h, q4, scale)
+    torch.cuda.synchronize()
+    if int4_matmul.launches != before + 1:
+        raise RuntimeError("int4_matmul did not launch its kernel")
+    hf = h.float()
+    ref = int4_plain_rows(torch, hf, q4, scale)   # f32, before its cast
+    err, share = tolerance_check(y, ref)
+    if share > 1:
+        raise RuntimeError(f"int4_matmul {name}: max abs err {err}, "
+                           f"{share:.2f}x the tolerance {TOLERANCE}")
+    swapped = (q4 >> 4) | (q4 << 4)
+    controls = {}
+    for control, args in (("nibbles_swapped", (swapped, scale)),
+                          ("neighbour_group_scale",
+                           (q4, torch.roll(scale, 1, dims=0)))):
+        e, sh = tolerance_check(int4_plain_rows(torch, hf, *args), ref)
+        controls[control] = {"max_abs_err": e, "tolerance_share": sh}
+        if not sh > 1:
+            raise RuntimeError(f"int4_matmul {name}: the {control} control "
+                               "passed the check")
+    del ref, swapped, hf
+    w_bf16 = dequantize(leaf).bfloat16()
+    big = rows * kin * out > 2**34
+    ms = time_ms(torch, lambda: int4_matmul(h, q4, scale), 5 if big else 30,
+                 flush)
+    plain_ms = time_ms(torch, lambda: int4_plain_rows(torch, h, q4, scale),
+                       2 if big else 5, flush)
+    library_ms = time_ms(torch, lambda: torch.matmul(h, w_bf16), 20, flush)
+    nbytes = q4.numel() + scale.numel() * 4 + h.numel() * 2 + rows * out * 2
+    ops = 2 * rows * kin * out
+    bound_ms, bound_by = bound(nbytes, ops, BF16_TENSOR_FLOPS)
+    rec = {"case": name, "rows": rows, "in": kin, "out": out,
+           "max_abs_err": err, "tolerance": TOLERANCE,
+           "tolerance_share": share, "controls": controls, "ms": ms,
+           "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+           "ops": ops, "tflops": ops / ms / 1e9,
+           "gb_per_s": nbytes / ms / 1e6}
+    log(f"  int4_matmul {name}: max_abs_err {err:.3e} ({share:.2f} of "
+        f"{TOLERANCE}; controls: nibbles swapped "
+        f"{controls['nibbles_swapped']['tolerance_share']:.0f}, neighbour "
+        f"group's scale "
+        f"{controls['neighbour_group_scale']['tolerance_share']:.0f}) kernel "
+        f"{ms:.4f} ms ({rec['tflops']:.1f} TFLOP/s, {rec['gb_per_s']:.0f} "
+        f"GB/s), bound {bound_ms:.4f} ms ({bound_by}), plain {plain_ms:.3f} "
+        f"ms, library (matmul by the dequantized bf16 weight) "
+        f"{library_ms:.4f} ms")
     return rec
 
 
@@ -890,14 +1068,26 @@ def prefix_path_check(torch, model, params, prompt: list[int]) -> dict:
             "argmax_agree": bool(a.argmax() == b.argmax())}
 
 
+def layer_f32(w, layer=None):
+    """A weight leaf (of one layer) in f32: a raw weight upcast, a
+    quantized leaf dequantized."""
+    from k8s_runpod_kubelet_tpu_torch.models.quant import dequantize
+
+    if isinstance(w, dict):
+        return dequantize({k: (v if layer is None else v[layer])
+                           for k, v in w.items()})
+    return (w if layer is None else w[layer]).float()
+
+
 def plain_logits(torch, cfg, params, tokens, skip_layer=None,
                  last_only=False):
     """Logits (B, S, V) of tokens (B, S), or with ``last_only`` the last
     position's (B, V), from a plain f32 forward of the same weights: no
-    paging and no kernels (``_attention_plain``, ``_rms_norm_plain``),
-    each layer's weights upcast only while it runs (a no-op on f32 master
-    weights, through which autograd then reaches the parameters).
-    ``skip_layer`` leaves one layer out (a control)."""
+    paging, no KV quantization and no kernels (``_attention_plain``,
+    ``_rms_norm_plain``), each layer's weights upcast (or dequantized) only
+    while it runs (an upcast is a no-op on f32 master weights, through
+    which autograd then reaches the parameters). ``skip_layer`` leaves one
+    layer out (a control)."""
     import torch.nn.functional as F
 
     from k8s_runpod_kubelet_tpu_torch.ops.attention import _attention_plain
@@ -913,7 +1103,7 @@ def plain_logits(torch, cfg, params, tokens, skip_layer=None,
     for layer in range(cfg.n_layers):
         if layer == skip_layer:
             continue
-        lp = {k: w[layer].float() for k, w in params["layers"].items()}
+        lp = {k: layer_f32(w, layer) for k, w in params["layers"].items()}
         h = _rms_norm_plain(x, lp["attn_norm"], cfg.norm_eps)
         q = apply_rope((h @ lp["wq"]).view(b, n, cfg.n_heads, hd), cos, sin)
         k = apply_rope((h @ lp["wk"]).view(b, n, cfg.n_kv_heads, hd), cos,
@@ -929,9 +1119,9 @@ def plain_logits(torch, cfg, params, tokens, skip_layer=None,
     if last_only:
         x = x[:, -1]
     x = _rms_norm_plain(x, params["final_norm"], cfg.norm_eps)
-    head = (params["tok_embed"].t() if cfg.tie_embeddings
-            else params["lm_head"])
-    return x @ head.float()
+    if cfg.tie_embeddings:
+        return x @ params["tok_embed"].t().float()
+    return x @ layer_f32(params["lm_head"])
 
 
 def reference_logits(torch, cfg, params, prompt: list[int],
@@ -942,10 +1132,11 @@ def reference_logits(torch, cfg, params, prompt: list[int],
                         last_only=True)[0]
 
 
-def engine_reference_check(torch, cfg, params, prompt, engine_logits):
-    """The engine path's logits against the plain f32 forward, within
-    ENGINE_REL_L2_LIMIT; the forward with its middle layer skipped must
-    land outside it."""
+def engine_reference_check(torch, cfg, params, prompt, engine_logits,
+                           limit=ENGINE_REL_L2_LIMIT, what="engine"):
+    """The engine path's logits against the plain f32 forward of the same
+    (dequantized) weights, within ``limit``; the forward with its middle
+    layer skipped must land outside it."""
     ref = reference_logits(torch, cfg, params, prompt)
     ctrl = reference_logits(torch, cfg, params, prompt,
                             skip_layer=cfg.n_layers // 2)
@@ -958,148 +1149,203 @@ def engine_reference_check(torch, cfg, params, prompt, engine_logits):
            "ref_logit_std": ref.std().item(),
            "argmax_agree": bool(engine_logits.argmax() == ref.argmax()),
            "control_skip_layer_rel_l2": rel_l2(ctrl),
-           "limit_rel_l2": ENGINE_REL_L2_LIMIT}
-    log(f"  independent check: engine vs plain f32 forward, last-token "
+           "limit_rel_l2": limit}
+    log(f"  independent check: {what} vs plain f32 forward, last-token "
         f"logits of a {len(prompt)}-token prompt: relative L2 "
-        f"{out['rel_l2']:.4f} (limit {ENGINE_REL_L2_LIMIT}), max abs "
+        f"{out['rel_l2']:.4f} (limit {limit}), max abs "
         f"{out['max_abs_diff']:.4f} (logit std {out['ref_logit_std']:.4f}), "
         f"argmax agree {out['argmax_agree']}; control (layer "
         f"{cfg.n_layers // 2} skipped) {out['control_skip_layer_rel_l2']:.4f}")
-    if not out["rel_l2"] <= ENGINE_REL_L2_LIMIT:
-        raise RuntimeError(f"engine logits off the plain forward: {out}")
-    if not out["control_skip_layer_rel_l2"] > ENGINE_REL_L2_LIMIT:
+    if not out["rel_l2"] <= limit:
+        raise RuntimeError(f"{what} logits off the plain forward: {out}")
+    if not out["control_skip_layer_rel_l2"] > limit:
         raise RuntimeError(f"the skipped-layer control passed: {out}")
     return out
 
 
-def engine_phase(torch, dev, card: str) -> dict:
+def burst_prompts(cfg) -> tuple[list, list, "np.random.Generator"]:
+    """The seeded traffic both engines serve: a warm-up prompt no measured
+    request shares, 8 prompts of 200-900 tokens (two sharing a 96-token
+    prefix), and the generator for the later prompts."""
     import numpy as np
 
-    from k8s_runpod_kubelet_tpu_torch.models import init_params, llama3_8b
-    from k8s_runpod_kubelet_tpu_torch.ops import (paged_attention_multi,
-                                                  rms_norm)
+    rng = np.random.default_rng(SEED)
+
+    def prompt(n: int) -> list[int]:
+        return [int(x) for x in rng.integers(0, cfg.vocab_size, n)]
+
+    warm = prompt(64)
+    prompts = [prompt(int(n)) for n in rng.integers(200, 901, 8)]
+    prompts[1] = prompts[0][:96] + prompts[1][96:]
+    return warm, prompts, prompt
+
+
+def serve_burst(torch, engine, cfg, card: str, kernels, per_step) -> dict:
+    """The engine's main path, read per path: the 8-request burst (counts
+    set to 0 just before it, read just after), its decode-only stretch
+    after the last prefill, a prefill-only stretch (a 1500-token prompt in
+    two chunks, one new token), and a repeat. ``per_step`` maps each
+    kernel to its launches per decode step or prefill chunk (0: must not
+    launch)."""
+    warm, prompts, prompt = burst_prompts(cfg)
+    # warm-up: cuBLAS handles and first-call allocations stay out of the
+    # measured phase
+    engine.submit(warm, max_new_tokens=4).result(timeout=900)
+    hits0 = engine.counters["prefix_cache_hits"]
+
+    def snap() -> dict:
+        # steps and chunks count under the arena lock with their launches,
+        # so a snapshot taken holding it is consistent
+        with engine._prefix_lock:
+            return {"prefill_chunks": engine.counters["prefill_chunks"],
+                    "decode_steps": engine.counters["decode_steps"],
+                    **{k.__name__: k.launches for k in kernels}}
+
+    def stretch(a: dict, b: dict, path: str) -> dict:
+        d = {k: b[k] - a[k] for k in a}
+        steps = d["prefill_chunks"] + d["decode_steps"]
+        for name, n in per_step.items():
+            if d[name] != n * steps or (n and d[name] < 1):
+                raise RuntimeError(
+                    f"{path}: {name} launched {d[name]} times in "
+                    f"{d['prefill_chunks']} prefill chunks and "
+                    f"{d['decode_steps']} decode steps, not {n} per step")
+        return d
+
+    with engine._prefix_lock:
+        for k in kernels:
+            k.launches = 0
+    s0 = snap()
+    t_start = time.perf_counter()
+    futs = [engine.submit(p) for p in prompts]
+    deadline = time.monotonic() + 900
+    while engine.counters["prefill_chunks"] - s0["prefill_chunks"] < 8:
+        if time.monotonic() > deadline:
+            raise RuntimeError("the burst's 8 prefills did not finish")
+        time.sleep(0.001)
+    s1 = snap()
+    results = [f.result(timeout=900) for f in futs]
+    wall = time.perf_counter() - t_start
+    s2 = snap()
+    launches = {k.__name__: k.launches for k in kernels}
+
+    if len(results) != 8 or any(len(r["tokens"]) != 32 for r in results):
+        raise RuntimeError("not all 8 requests finished with 32 tokens")
+    hits = engine.counters["prefix_cache_hits"] - hits0
+    if hits < 1:
+        raise RuntimeError("the shared 96-token prefix did not hit")
+    burst = stretch(s0, s2, "burst")
+    decode = stretch(s1, s2, "decode-only stretch")
+    if decode["prefill_chunks"] or burst["prefill_chunks"] != 8:
+        raise RuntimeError(f"burst counted {burst['prefill_chunks']} "
+                           f"prefill chunks, {decode['prefill_chunks']} "
+                           f"of them after the eighth")
+    ttft = [r["ttft_s"] for r in results]
+    per_stream = [(len(r["tokens"]) - 1) / (r["latency_s"] - r["ttft_s"])
+                  for r in results]
+    out_tok_s = sum(len(r["tokens"]) for r in results) / wall
+    log(f"  8/8 requests ({sum(len(p) for p in prompts)} prompt tokens, "
+        f"lengths {[len(p) for p in prompts]}) in {wall:.2f} s; prefix "
+        f"hits {hits}")
+    log(f"  [{card}] TTFT median {statistics.median(ttft) * 1e3:.1f} ms, "
+        f"max {max(ttft) * 1e3:.1f} ms")
+    log(f"  [{card}] decode {statistics.median(per_stream):.1f} tokens/s "
+        f"per stream (median), {out_tok_s:.1f} output tokens/s over the "
+        f"phase")
+    # prefill only: a 1500-token prompt (two chunks) asking for one token
+    # completes at admission, with no decode step
+    s3 = snap()
+    engine.submit(prompt(1500), max_new_tokens=1).result(timeout=900)
+    prefill = stretch(s3, snap(), "prefill-only stretch")
+    if prefill["decode_steps"] or prefill["prefill_chunks"] != 2:
+        raise RuntimeError(f"prefill-only stretch counted {prefill}")
+    by_path = {"burst": burst, "decode_only": decode,
+               "prefill_only": prefill}
+    for path, d in by_path.items():
+        counts = ", ".join(f"{k.__name__} {d[k.__name__]}" for k in kernels)
+        log(f"  launches, {path}: {d['prefill_chunks']} prefill chunks, "
+            f"{d['decode_steps']} decode steps; {counts}")
+
+    # repeat: the same prompt twice more, both through the prefix-hit path,
+    # must give the same tokens
+    rep = [engine.submit(prompts[2]).result(timeout=900)["tokens"]
+           for _ in range(2)]
+    if rep[0] != rep[1]:
+        raise RuntimeError(f"repeat differs: {rep[0]} vs {rep[1]}")
+    same_as_first = sum(a == b for a, b in zip(rep[0], results[2]["tokens"]))
+    log(f"  repeat: identical twice; {same_as_first}/32 tokens equal to the "
+        f"first run (which prefilled without a prefix hit)")
+    return {"launches": launches, "launches_by_path": by_path,
+            "launches_per_step": per_step,
+            "ttft_ms": [x * 1e3 for x in ttft],
+            "decode_tok_s_per_stream": per_stream,
+            "output_tok_s": out_tok_s, "wall_s": wall,
+            "prompt_lengths": [len(p) for p in prompts],
+            "prefix_hits": hits, "repeat_same_as_first": same_as_first,
+            "tokens": [r["tokens"] for r in results],
+            "prompts": prompts, "prompt": prompt}
+
+
+def http_and_drain(engine, prompt) -> dict:
+    """One request through the HTTP front, then drain: the pool must hold
+    zero leaked pages."""
     from k8s_runpod_kubelet_tpu_torch.workloads.serve_main import serve
+
+    httpd = serve(engine, port=0, host="127.0.0.1")
+    try:
+        status, body = http_generate(httpd.server_address[1],
+                                     {"tokens": prompt(100),
+                                      "max_new_tokens": 8})
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    if status != 200 or len(body.get("tokens", [])) != 8:
+        raise RuntimeError(f"/generate answered {status}: {body}")
+    log(f"  HTTP: POST /generate -> {status}, {len(body['tokens'])} tokens")
+    engine.drain()
+    deadline = time.monotonic() + 120
+    while not engine.drained:
+        if time.monotonic() > deadline:
+            raise RuntimeError("engine did not drain")
+        time.sleep(0.05)
+    stats = engine.prefix_cache_stats()
+    store = engine._kv_store
+    nodes = list(store.trie._nodes.values())
+    leaked = (store.pool.n_pages - store.pool.free_count - len(nodes)
+              + sum(store.pool.refcount(n.page) - 1 for n in nodes))
+    if leaked:
+        raise RuntimeError(f"{leaked} pages leaked after drain: {stats}")
+    log(f"  drained: {stats['pages_free']} free + {stats['nodes']} cached = "
+        f"{stats['pages_total']} pages, 0 leaked")
+    return {"http_status": status, "pool": stats, "leaked_pages": 0}
+
+
+def engine_phase(torch, dev, card: str, cfg, params) -> dict:
+    """The bf16 engine: burst, prefix path, independent check, HTTP,
+    drain. Returns its record and the one-chunk last-token logits of the
+    checked prompt (on the host) for the quantized engine to compare."""
+    from k8s_runpod_kubelet_tpu_torch.ops import (paged_attention,
+                                                  paged_attention_multi,
+                                                  paged_attention_quant,
+                                                  rms_norm)
     from k8s_runpod_kubelet_tpu_torch.workloads.serving import (
         ServingConfig, ServingEngine)
 
-    cfg = llama3_8b()
-    t0 = time.perf_counter()
-    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
-                         dev)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
     sc = ServingConfig(slots=8, cache_len=2048, max_prefill_len=1024,
                        kv_page_tokens=16, max_new_tokens=32)
     engine = ServingEngine(cfg, params, sc, device=dev).start()
-    httpd = None
     try:
-        log(f"  llama3-8b: {cfg.n_layers} layers, E={cfg.embed_dim}, "
-            f"random bf16 init in {init_s:.1f} s; arena "
-            f"{engine._kv_store.pool.n_pages} pages of 16 tokens, "
+        log(f"  {cfg.name}: {cfg.n_layers} layers, E={cfg.embed_dim}, bf16; "
+            f"arena {engine._kv_store.pool.n_pages} pages of 16 tokens, "
             f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
-        rng = np.random.default_rng(SEED)
-
-        def prompt(n: int) -> list[int]:
-            return [int(x) for x in rng.integers(0, cfg.vocab_size, n)]
-
-        # warm-up: cuBLAS handles and first-call allocations stay out of
-        # the measured phase (a prompt no measured request shares)
-        engine.submit(prompt(64), max_new_tokens=4).result(timeout=600)
-        prompts = [prompt(int(n)) for n in rng.integers(200, 901, 8)]
-        prompts[1] = prompts[0][:96] + prompts[1][96:]
-        hits0 = engine.counters["prefix_cache_hits"]
-
-        kernels = (paged_attention_multi, rms_norm)
+        # the single-token forms lie on no model path: held at 0
         per_step = {"paged_attention_multi": cfg.n_layers,
-                    "rms_norm": 2 * cfg.n_layers + 1}
-
-        def snap() -> dict:
-            # steps and chunks count under the arena lock with their
-            # launches, so a snapshot taken holding it is consistent
-            with engine._prefix_lock:
-                return {"prefill_chunks": engine.counters["prefill_chunks"],
-                        "decode_steps": engine.counters["decode_steps"],
-                        **{k.__name__: k.launches for k in kernels}}
-
-        def stretch(a: dict, b: dict, path: str) -> dict:
-            d = {k: b[k] - a[k] for k in a}
-            steps = d["prefill_chunks"] + d["decode_steps"]
-            for name, n in per_step.items():
-                if d[name] < 1 or d[name] != n * steps:
-                    raise RuntimeError(
-                        f"{path}: {name} launched {d[name]} times in "
-                        f"{d['prefill_chunks']} prefill chunks and "
-                        f"{d['decode_steps']} decode steps, not {n} per "
-                        f"step")
-            return d
-
-        # the main path: counts set to 0 just before the burst, read just
-        # after; within it, the stretch after the last prefill is decode
-        # only
-        with engine._prefix_lock:
-            for k in kernels:
-                k.launches = 0
-        s0 = snap()
-        t_start = time.perf_counter()
-        futs = [engine.submit(p) for p in prompts]
-        deadline = time.monotonic() + 600
-        while engine.counters["prefill_chunks"] - s0["prefill_chunks"] < 8:
-            if time.monotonic() > deadline:
-                raise RuntimeError("the burst's 8 prefills did not finish")
-            time.sleep(0.001)
-        s1 = snap()
-        results = [f.result(timeout=900) for f in futs]
-        wall = time.perf_counter() - t_start
-        s2 = snap()
-        launches = {k.__name__: k.launches for k in kernels}
-
-        if len(results) != 8 or any(len(r["tokens"]) != 32 for r in results):
-            raise RuntimeError("not all 8 requests finished with 32 tokens")
-        hits = engine.counters["prefix_cache_hits"] - hits0
-        if hits < 1:
-            raise RuntimeError("the shared 96-token prefix did not hit")
-        burst = stretch(s0, s2, "burst")
-        decode = stretch(s1, s2, "decode-only stretch")
-        if decode["prefill_chunks"] or burst["prefill_chunks"] != 8:
-            raise RuntimeError(f"burst counted {burst['prefill_chunks']} "
-                               f"prefill chunks, {decode['prefill_chunks']} "
-                               f"of them after the eighth")
-        ttft = [r["ttft_s"] for r in results]
-        per_stream = [(len(r["tokens"]) - 1) / (r["latency_s"] - r["ttft_s"])
-                      for r in results]
-        out_tok_s = sum(len(r["tokens"]) for r in results) / wall
-        log(f"  8/8 requests ({sum(len(p) for p in prompts)} prompt tokens, "
-            f"lengths {[len(p) for p in prompts]}) in {wall:.2f} s; prefix "
-            f"hits {hits}")
-        log(f"  [{card}] TTFT median {statistics.median(ttft) * 1e3:.1f} ms, "
-            f"max {max(ttft) * 1e3:.1f} ms")
-        log(f"  [{card}] decode {statistics.median(per_stream):.1f} tokens/s "
-            f"per stream (median), {out_tok_s:.1f} output tokens/s over the "
-            f"phase")
-        # prefill only: a 1500-token prompt (two chunks) asking for one
-        # token completes at admission, with no decode step
-        s3 = snap()
-        engine.submit(prompt(1500), max_new_tokens=1).result(timeout=600)
-        prefill = stretch(s3, snap(), "prefill-only stretch")
-        if prefill["decode_steps"] or prefill["prefill_chunks"] != 2:
-            raise RuntimeError(f"prefill-only stretch counted {prefill}")
-        by_path = {"burst": burst, "decode_only": decode,
-                   "prefill_only": prefill}
-        for path, d in by_path.items():
-            log(f"  launches, {path}: {d['prefill_chunks']} prefill chunks, "
-                f"{d['decode_steps']} decode steps; paged_attention_multi "
-                f"{d['paged_attention_multi']}, rms_norm {d['rms_norm']}")
-
-        # repeat: the same prompt twice more, both through the prefix-hit
-        # path, must give the same tokens
-        rep = [engine.submit(prompts[2]).result(timeout=600)["tokens"]
-               for _ in range(2)]
-        if rep[0] != rep[1]:
-            raise RuntimeError(f"repeat differs: {rep[0]} vs {rep[1]}")
-        same_as_first = sum(a == b for a, b in zip(rep[0],
-                                                   results[2]["tokens"]))
-        log(f"  repeat: identical twice; {same_as_first}/32 tokens equal "
-            f"to the first run (which prefilled without a prefix hit)")
+                    "rms_norm": 2 * cfg.n_layers + 1,
+                    "paged_attention": 0, "paged_attention_quant": 0}
+        rec = serve_burst(torch, engine, cfg, card,
+                          (paged_attention_multi, rms_norm, paged_attention,
+                           paged_attention_quant), per_step)
+        prompts = rec.pop("prompts")
         with engine._prefix_lock:   # the engine is idle; keep it so
             one_chunk, prefix = prefix_path_check(torch, engine.model,
                                                   engine.params, prompts[2])
@@ -1110,47 +1356,135 @@ def engine_phase(torch, dev, card: str) -> dict:
             f"uncached prefix, same tail chunk "
             f"{prefix['cache_vs_uncached_max_abs_diff']:.4f}; one chunk vs "
             f"two uncached chunks {prefix['two_chunk_max_abs_diff']:.4f} "
-            f"(logit std "
-            f"{prefix['logit_std']:.4f}, top-1 margin "
+            f"(logit std {prefix['logit_std']:.4f}, top-1 margin "
             f"{prefix['top1_margin']:.4f}, argmax agree "
             f"{prefix['argmax_agree']})")
-
-        httpd = serve(engine, port=0, host="127.0.0.1")
-        status, body = http_generate(httpd.server_address[1],
-                                     {"tokens": prompt(100),
-                                      "max_new_tokens": 8})
-        if status != 200 or len(body.get("tokens", [])) != 8:
-            raise RuntimeError(f"/generate answered {status}: {body}")
-        log(f"  HTTP: POST /generate -> {status}, {len(body['tokens'])} "
-            "tokens")
-
-        engine.drain()
-        deadline = time.monotonic() + 120
-        while not engine.drained:
-            if time.monotonic() > deadline:
-                raise RuntimeError("engine did not drain")
-            time.sleep(0.05)
-        stats = engine.prefix_cache_stats()
-        store = engine._kv_store
-        nodes = list(store.trie._nodes.values())
-        leaked = (store.pool.n_pages - store.pool.free_count - len(nodes)
-                  + sum(store.pool.refcount(n.page) - 1 for n in nodes))
-        if leaked:
-            raise RuntimeError(f"{leaked} pages leaked after drain: {stats}")
-        log(f"  drained: {stats['pages_free']} free + {stats['nodes']} "
-            f"cached = {stats['pages_total']} pages, 0 leaked")
-        return {"launches": launches, "launches_by_path": by_path,
-                "ttft_ms": [x * 1e3 for x in ttft],
-                "decode_tok_s_per_stream": per_stream,
-                "output_tok_s": out_tok_s, "wall_s": wall,
-                "prompt_lengths": [len(p) for p in prompts],
-                "prefix_hits": hits, "repeat_same_as_first": same_as_first,
-                "prefix_path": prefix, "reference": reference,
-                "init_s": init_s}
+        rec.update(http_and_drain(engine, rec.pop("prompt")),
+                   prefix_path=prefix, reference=reference)
+        return rec, one_chunk.cpu()
     finally:
-        if httpd is not None:
-            httpd.shutdown()
-            httpd.server_close()
+        engine.stop()
+
+
+def quant_logits(torch, model, params, prompt) -> "torch.Tensor":
+    """Last-token logits of ``prompt`` prefilled in one chunk through the
+    quantized engine's model and params, over a fresh int8 arena."""
+    dev, t, n = model.device, 16, len(prompt)
+    n_pages = -(-n // t)
+    arena = model.init_paged_arena(n_pages, t, quantize=True)
+    table = torch.zeros((1, 128), dtype=torch.int32, device=dev)
+    table[0, :n_pages] = torch.arange(n_pages, device=dev)
+    logits, _, _ = model.paged_prefill_chunk_step(
+        params, torch.tensor([prompt], dtype=torch.int32, device=dev), arena,
+        table, torch.zeros(1, dtype=torch.int32, device=dev),
+        torch.tensor([n], dtype=torch.int32, device=dev))
+    return logits[0]
+
+
+def tensor_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(tensor_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+def quant_engine_phase(torch, dev, card: str, cfg, params: list,
+                       bf16: dict, bf16_logits) -> dict:
+    """The memory-lean deployment: the engine built through the serve
+    CLI's own arguments (``--int4 --kv-int8``, 8 slots, cache_len 2048)
+    from the bf16 phase's seeded params, which it quantizes on the card;
+    the caller's bf16 params are then dropped. The burst with exact
+    launches per step (no bf16 paged kernel), memory, the independent check
+    against a plain f32 forward of the dequantized weights over
+    unquantized K/V, the gap to the bf16 engine's logits (information
+    only), HTTP, drain. ``params`` is a one-element list holding the bf16
+    tree, emptied once the engine holds its quantized copy."""
+    from k8s_runpod_kubelet_tpu_torch.ops import (int4_matmul,
+                                                  paged_attention,
+                                                  paged_attention_multi,
+                                                  paged_attention_multi_quant,
+                                                  paged_attention_quant,
+                                                  rms_norm)
+    from k8s_runpod_kubelet_tpu_torch.workloads import serve_main
+
+    args = serve_main.parse_args(
+        ["--model", cfg.name, "--device", dev.type, "--slots", "8",
+         "--cache-len", "2048", "--max-new-tokens", "32", "--int4",
+         "--kv-int8"])
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    engine, _ = serve_main.build_engine(args, params[0])
+    params.clear()   # the caller's bf16 tree goes; the engine holds int4
+    gc.collect()
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    try:
+        sc = engine.sc
+        if not (sc.quantize_int4 and sc.quantize_kv_int8 and sc.slots == 8
+                and sc.cache_len == 2048 and sc.max_prefill_len == 1024):
+            raise RuntimeError(f"--int4 --kv-int8 built {sc}")
+        p = engine.params
+        weights = {
+            "q4": sum(w["q4"].numel() for w in p["layers"].values()
+                      if isinstance(w, dict)),
+            "scales": sum(w["scale"].numel() * 4 for w in p["layers"].values()
+                          if isinstance(w, dict)),
+            "lm_head": tensor_bytes(p["lm_head"]),
+            "tok_embed": tensor_bytes(p["tok_embed"]),
+            "norms": tensor_bytes(p["final_norm"]) + sum(
+                tensor_bytes(w) for n, w in p["layers"].items()
+                if n.endswith("norm"))}
+        arena = tensor_bytes(engine._kv_store.arena)
+        snap = engine.debug_snapshot()
+        log(f"  --int4 --kv-int8: weights {snap['weights']}, kv {snap['kv']}, "
+            f"quantized on the card in {quant_s:.1f} s; weight bytes "
+            + ", ".join(f"{k} {v / 1e9:.3f} GB" for k, v in weights.items())
+            + f" ({sum(weights.values()) / 1e9:.3f} GB); arena "
+            f"{engine._kv_store.pool.n_pages} pages of "
+            f"{snap['prefix_cache']['page_bytes']} bytes, {arena / 1e9:.3f} "
+            f"GB; [{card}] allocated {torch.cuda.memory_allocated() / 2**30:.2f}"
+            f" GiB (bf16 params freed), peak while quantizing "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (from "
+            f"{before / 2**30:.2f} GiB)")
+        torch.cuda.reset_peak_memory_stats()
+        per_step = {"paged_attention_multi_quant": cfg.n_layers,
+                    "int4_matmul": 7 * cfg.n_layers + 1,
+                    "rms_norm": 2 * cfg.n_layers + 1,
+                    "paged_attention_multi": 0, "paged_attention": 0,
+                    "paged_attention_quant": 0}
+        rec = serve_burst(torch, engine, cfg, card,
+                          (paged_attention_multi_quant, int4_matmul,
+                           rms_norm, paged_attention_multi, paged_attention,
+                           paged_attention_quant), per_step)
+        serve_peak = torch.cuda.max_memory_allocated()
+        log(f"  [{card}] peak allocated while serving "
+            f"{serve_peak / 2**30:.2f} GiB")
+        prompts = rec.pop("prompts")
+        with engine._prefix_lock:   # the engine is idle; keep it so
+            logits = quant_logits(torch, engine.model, engine.params,
+                                  prompts[2])
+            reference = engine_reference_check(
+                torch, cfg, engine.params, prompts[2], logits,
+                limit=QUANT_ENGINE_REL_L2_LIMIT, what="int4/int8 engine")
+        ref_bf16 = bf16_logits.to(logits.device)
+        gap = {"rel_l2": ((logits - ref_bf16).norm()
+                          / ref_bf16.norm()).item(),
+               "argmax_agree": bool(logits.argmax() == ref_bf16.argmax()),
+               "same_tokens": sum(a == b for x, y in zip(rec["tokens"],
+                                                         bf16["tokens"])
+                                  for a, b in zip(x, y))}
+        log(f"  gap to the bf16 engine (information only): last-token "
+            f"logits relative L2 {gap['rel_l2']:.4f}, argmax agree "
+            f"{gap['argmax_agree']}; {gap['same_tokens']}/256 burst tokens "
+            f"equal")
+        rec.update(http_and_drain(engine, rec.pop("prompt")),
+                   reference=reference, gap_to_bf16=gap,
+                   weight_bytes=weights, arena_bytes=arena,
+                   page_bytes=snap["prefix_cache"]["page_bytes"],
+                   quantize_s=quant_s, serve_peak_bytes=serve_peak,
+                   allocated_bytes=torch.cuda.memory_allocated())
+        return rec
+    finally:
         engine.stop()
 
 
@@ -1178,7 +1512,8 @@ def main(argv=None) -> int:
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
     log("phase build")
-    sources = ("paged_attention_multi", "flash_attention")
+    sources = ("paged_attention_multi", "paged_attention_multi_quant",
+               "int4_matmul", "flash_attention")
     nvcc_s, errors = {}, []
 
     def build(name):
@@ -1210,14 +1545,25 @@ def main(argv=None) -> int:
 
     log("phase kernels (bf16 on the card, compared in f32)")
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
-    attn = [
-        attention_case(torch, F, dev, flush, "decode K=1 B=8", 8, 1,
-                       [1, 17, 300, 511, 1024, 1500, 1999, 2048]),
-        attention_case(torch, F, dev, flush, "K=4 B=8", 8, 4,
-                       [4, 40, 333, 700, 1029, 1600, 1999, 2048]),
-        attention_case(torch, F, dev, flush, "prefill K=1024 B=1", 1, 1024,
-                       [100 + 1024]),
-    ]
+    decode_lengths = [1, 17, 300, 511, 1024, 1500, 1999, 2048]
+    attn = {kind: [] for kind in PAGED_KINDS}
+    for kind, single, _ in ((k, v[1], v[2]) for k, v in PAGED_KINDS.items()):
+        attn[kind].append(attention_case(torch, F, dev, flush, kind,
+                                         "decode K=1 B=8", 8, 1,
+                                         decode_lengths))
+        if single:
+            continue
+        if kind == "paged_attention_multi":
+            attn[kind].append(attention_case(
+                torch, F, dev, flush, kind, "K=4 B=8", 8, 4,
+                [4, 40, 333, 700, 1029, 1600, 1999, 2048]))
+        attn[kind].append(attention_case(torch, F, dev, flush, kind,
+                                         "prefill K=1024 B=1", 1, 1024,
+                                         [100 + 1024]))
+    int4 = [int4_case(torch, dev, flush, rows, kin, out, leaves)
+            for rows in (8, 1024) for kin, out, leaves in INT4_SHAPES]
+    gc.collect()
+    torch.cuda.empty_cache()
     rms = [rms_case(torch, F, dev, flush, (rows, 4096)) for rows in (8, 1024)]
     # the training path's shape: x (8, 2048, 4096) needing gradients
     rms.append(rms_case(torch, F, dev, flush, (8, 2048, 4096), grad=True))
@@ -1229,7 +1575,26 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     log("phase engine (llama3-8b, 8 slots, cache_len 2048)")
-    eng = engine_phase(torch, dev, card)
+    from k8s_runpod_kubelet_tpu_torch.models import init_params, llama3_8b
+
+    cfg = llama3_8b()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                         dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    log(f"  random bf16 init in {init_s:.1f} s")
+    eng, bf16_logits = engine_phase(torch, dev, card, cfg, params)
+    eng["init_s"] = init_s
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log("phase quantized engine (llama3-8b --int4 --kv-int8, 8 slots, "
+        "cache_len 2048)")
+    box = [params]
+    del params
+    qeng = quant_engine_phase(torch, dev, card, cfg, box, eng, bf16_logits)
+    del box, bf16_logits
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1255,33 +1620,62 @@ def main(argv=None) -> int:
     def flash_cases(kname):
         return [{"case": c["case"], **c["kernels"][kname]} for c in flash]
 
-    serve_launches = eng["launches"]
+    serve_launches, quant_launches = eng["launches"], qeng["launches"]
+    csrc = "k8s_runpod_kubelet_tpu_torch/csrc/"
+    jax_attn = "k8s_runpod_kubelet_tpu/ops/attention.py:"
+    sdpa = "SDPA over the gathered (dequantized) K/V, same mask"
     kernels = [
         record("paged_attention_multi", "cuda",
-               "k8s_runpod_kubelet_tpu_torch/csrc/paged_attention_multi.cu",
-               "k8s_runpod_kubelet_tpu/ops/attention.py:1524", attn,
+               csrc + "paged_attention_multi.cu", jax_attn + "1524",
+               attn["paged_attention_multi"],
                serve_launches["paged_attention_multi"],
-               {"serve": serve_launches["paged_attention_multi"]},
-               "SDPA over the gathered K/V, same mask"),
+               {"serve": serve_launches["paged_attention_multi"],
+                "serve_int4_kv_int8":
+                    quant_launches["paged_attention_multi"]}, sdpa),
         record("rms_norm", "triton",
                "k8s_runpod_kubelet_tpu_torch/ops/rmsnorm.py",
                "k8s_runpod_kubelet_tpu/ops/rmsnorm.py:80", rms,
                serve_launches["rms_norm"],
                {"serve": serve_launches["rms_norm"],
+                "serve_int4_kv_int8": quant_launches["rms_norm"],
                 "train": train["launches"]["rms_norm"]},
                "F.rms_norm, bf16 weight"),
     ] + [
-        record(kname, "cuda",
-               "k8s_runpod_kubelet_tpu_torch/csrc/flash_attention.cu",
+        record(kname, "cuda", csrc + "flash_attention.cu",
                replaces, flash_cases(kname), train["launches"][kname],
                {"train": train["launches"][kname]}, library_call)
         for kname, replaces, library_call in (
-            ("flash_fwd", "k8s_runpod_kubelet_tpu/ops/attention.py:199",
-             "SDPA forward"),
-            ("flash_dq", "k8s_runpod_kubelet_tpu/ops/attention.py:360",
+            ("flash_fwd", jax_attn + "199", "SDPA forward"),
+            ("flash_dq", jax_attn + "360",
              "SDPA autograd backward: dq, dk and dv together"),
-            ("flash_dkv", "k8s_runpod_kubelet_tpu/ops/attention.py:397",
+            ("flash_dkv", jax_attn + "397",
              "SDPA autograd backward: dq, dk and dv together"))
+    ] + [
+        record("paged_attention_multi_quant", "cuda",
+               csrc + "paged_attention_multi_quant.cu", jax_attn + "1741",
+               attn["paged_attention_multi_quant"],
+               quant_launches["paged_attention_multi_quant"],
+               {"serve_int4_kv_int8":
+                    quant_launches["paged_attention_multi_quant"]},
+               sdpa + " (a yardstick: no PyTorch call reads int8 pages)"),
+        record("int4_matmul", "cuda", csrc + "int4_matmul.cu",
+               "k8s_runpod_kubelet_tpu/ops/int4_matmul.py:64", int4,
+               quant_launches["int4_matmul"],
+               {"serve_int4_kv_int8": quant_launches["int4_matmul"]},
+               "torch.matmul by the dequantized bf16 weight (a yardstick: "
+               "no PyTorch call takes int4 weights)"),
+    ] + [
+        # the single-token forms: no model path calls them in either
+        # package (decode runs the multi-token kernels at K = 1); their
+        # counts are read from both bursts, which hold them at 0
+        record(kname, "cuda", csrc + source, jax_attn + line, attn[kname],
+               serve_launches[kname] + quant_launches[kname],
+               {"serve": serve_launches[kname],
+                "serve_int4_kv_int8": quant_launches[kname]}, library_call)
+        for kname, source, line, library_call in (
+            ("paged_attention", "paged_attention_multi.cu", "608", sdpa),
+            ("paged_attention_quant", "paged_attention_multi_quant.cu",
+             "884", sdpa + " (a yardstick)"))
     ]
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
@@ -1290,7 +1684,8 @@ def main(argv=None) -> int:
                     exist_ok=True)
         with open(args.out, "w") as f:
             json.dump({"card": card, "device": device, "kernels": kernels,
-                       "flash": flash, "engine": eng, "train": train,
+                       "flash": flash, "engine": eng,
+                       "quant_engine": qeng, "train": train,
                        "train_main": train_cli,
                        "build_s": {**nvcc_s, "triton": triton_s}},
                       f, indent=1)

@@ -8,7 +8,9 @@ on ``device``: for serving, matmul weights, embedding and LM head in
 with once it casts its f32 params at use; for training (``master=True``),
 every leaf in ``cfg.param_dtype`` (f32), the JAX model's master tree as it
 is. Both packages then compute the same thing, which is what the parity
-tests need. This module imports no jax.
+tests need. A tree the JAX quantizer made (``{"q4", "scale"}`` or
+``{"q8", "scale"}`` leaves) carries over as it is: the integers keep
+their type, the scales stay f32. This module imports no jax.
 """
 
 from __future__ import annotations
@@ -65,7 +67,9 @@ def params_from_jax(tree: dict, cfg: LlamaConfig, device=None,
         raise ValueError(f"parameters {sorted(extra)} belong to branches "
                          "this port does not serve")
 
-    def convert(name: str, leaf, shape) -> torch.Tensor:
+    def convert(name: str, leaf, shape):
+        if isinstance(leaf, dict):
+            return convert_quantized(name, leaf, shape)
         arr = np.array(leaf, dtype=np.float32)  # a writable copy
         if arr.shape != tuple(shape):
             raise ValueError(f"{name}: shape {arr.shape}, expected {shape}")
@@ -74,6 +78,29 @@ def params_from_jax(tree: dict, cfg: LlamaConfig, device=None,
         else:
             dtype = torch.float32 if is_norm(name) else cfg.dtype
         return torch.from_numpy(arr).to(device=dev, dtype=dtype)
+
+    def convert_quantized(name: str, leaf: dict, shape) -> dict:
+        """A leaf the JAX quantizer made, carried as it is: the integers
+        keep their type and the scale stays f32."""
+        kind = "q4" if "q4" in leaf else "q8"
+        if master or set(leaf) != {kind, "scale"}:
+            raise ValueError(f"{name}: quantized leaf {sorted(leaf)} is not "
+                             "a serving weight this port takes")
+        q = np.array(leaf[kind])
+        scale = np.array(leaf["scale"], dtype=np.float32)
+        *lead, kin, out = shape
+        want = (tuple(lead) + (kin // 2, out), np.uint8) if kind == "q4" \
+            else (tuple(shape), np.int8)
+        groups = scale.shape[-3] if kind == "q4" and scale.ndim >= 3 else 1
+        want_scale = tuple(lead) + ((groups,) if kind == "q4" else ()) \
+            + (1, out)
+        if (q.shape, q.dtype) != want or scale.shape != want_scale \
+                or (kin // 2) % groups:
+            raise ValueError(f"{name}: {kind} {q.shape} {q.dtype} with "
+                             f"scale {scale.shape} does not quantize "
+                             f"{tuple(shape)}")
+        return {kind: torch.from_numpy(q).to(dev),
+                "scale": torch.from_numpy(scale).to(dev)}
 
     out: Params = {name: convert(name, tree[name], s)
                    for name, s in shapes.items() if name != "layers"}

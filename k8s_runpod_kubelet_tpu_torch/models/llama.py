@@ -11,11 +11,17 @@ same values); training keeps f32 master weights (``cfg.param_dtype``) and
 casts them at every use, as the JAX model does. Norm weights stay f32,
 because RMSNorm applies them in f32.
 
+Serving may also hold quantized matmul weights (``models/quant.py``):
+``{"q8", "scale"}`` and ``{"q4", "scale"}`` dict leaves, which ``_mm``
+multiplies by (int4 through the ``int4_matmul`` kernel).
+
 The arena is ``{"k", "v"}`` of shape (L, P + 1, T, Hkv, D) and is updated
-IN PLACE (the JAX model donated it instead). Page P is a sink no page
+IN PLACE (the JAX model donated it instead); an int8 arena adds
+``k_scale``/``v_scale`` (L, P + 1, T, Hkv) f32. Page P is a sink no page
 table names: rows that must not be written (past ``n_tokens``, inactive
 slots, whose stale table rows may alias another slot's live tail page)
-scatter there, where the JAX model used page id P with ``mode="drop"``.
+scatter there, in every section, where the JAX model used page id P with
+``mode="drop"``.
 """
 
 from __future__ import annotations
@@ -28,8 +34,9 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from ..device import resolve_device
-from ..ops import apply_rope, flash_attention, paged_attention_multi, \
-    rms_norm, rope_frequencies
+from ..ops import (apply_rope, flash_attention, int4_matmul,
+                   paged_attention_multi, paged_attention_multi_quant,
+                   rms_norm, rope_frequencies)
 
 Params = dict[str, Any]
 
@@ -37,8 +44,9 @@ Params = dict[str, Any]
 @dataclasses.dataclass(frozen=True)
 class LlamaConfig:
     """The dense fields of the JAX ``LlamaConfig`` this port runs, with
-    the same defaults. MoE, LoRA, int8/int4, MLA, ring attention, meshes,
-    sliding windows, soft caps and remat "dots" are later slices."""
+    the same defaults (weight and KV quantization are serving options,
+    ``ServingConfig``). MoE, LoRA, MLA, ring attention, meshes, sliding
+    windows, soft caps and remat "dots" are later slices."""
     name: str = "tiny"
     vocab_size: int = 32000
     embed_dim: int = 256
@@ -113,6 +121,38 @@ def param_shapes(cfg: LlamaConfig) -> Params:
 
 def is_norm(name: str) -> bool:
     return name.endswith("norm")
+
+
+def _mm(h: torch.Tensor, w, dtype: torch.dtype) -> torch.Tensor:
+    """h @ w for a raw weight, an int8 ``{"q8", "scale"}`` leaf (the
+    dequant multiply after the matmul) or an int4 ``{"q4", "scale"}`` leaf
+    (the ``int4_matmul`` kernel)."""
+    if isinstance(w, dict):
+        if "q4" in w:
+            return int4_matmul(h.to(dtype), w["q4"], w["scale"])
+        return (h @ w["q8"].to(dtype)) * w["scale"].to(dtype)
+    return h @ w if w.dtype == dtype else h @ w.to(dtype)
+
+
+def _at(w, layer: int):
+    """Layer ``layer`` of a stacked leaf, raw or quantized."""
+    if isinstance(w, dict):
+        return {k: v[layer] for k, v in w.items()}
+    return w[layer]
+
+
+def _kv_quant(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 rows over the last (head_dim) axis: (..., d) ->
+    (int8 (..., d), f32 scale (...,))."""
+    xf = x.float()
+    scale = torch.clamp_min(xf.abs().amax(dim=-1), 1e-8) / 127.0
+    q = torch.round(xf / scale[..., None])
+    return torch.clamp(q, -127, 127).to(torch.int8), scale
+
+
+def _kv_dequant(q: torch.Tensor, scale: torch.Tensor,
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    return q.to(dtype) * scale[..., None].to(dtype)
 
 
 def init_params(cfg: LlamaConfig, generator: torch.Generator,
@@ -216,15 +256,24 @@ class LlamaModel:
         act = F.silu(h @ lp["w_gate"].to(dt)) * (h @ lp["w_up"].to(dt))
         return x + act @ lp["w_down"].to(dt)
 
-    def init_paged_arena(self, n_pages: int, page_tokens: int) -> Params:
+    def init_paged_arena(self, n_pages: int, page_tokens: int,
+                         quantize: bool = False) -> Params:
         """{"k", "v"} of shape (L, n_pages + 1, T, Hkv, D): page-major
         (page p's T positions are one contiguous tile), plus the sink page
-        at index ``n_pages`` that absorbs dropped writes."""
+        at index ``n_pages`` that absorbs dropped writes. ``quantize``:
+        int8 k/v with per-(position, kv head) f32 scale sections
+        ``k_scale``/``v_scale`` (L, n_pages + 1, T, Hkv)."""
         cfg = self.cfg
         shape = (cfg.n_layers, n_pages + 1, page_tokens, cfg.n_kv_heads,
                  cfg.head_dim_)
-        return {"k": torch.zeros(shape, dtype=cfg.dtype, device=self.device),
-                "v": torch.zeros(shape, dtype=cfg.dtype, device=self.device)}
+        dt = torch.int8 if quantize else cfg.dtype
+        arena = {"k": torch.zeros(shape, dtype=dt, device=self.device),
+                 "v": torch.zeros(shape, dtype=dt, device=self.device)}
+        if quantize:
+            for name in ("k_scale", "v_scale"):
+                arena[name] = torch.zeros(shape[:-1], dtype=torch.float32,
+                                          device=self.device)
+        return arena
 
     def paged_decode_step(self, params: Params, token: torch.Tensor,
                           arena: Params, page_tables: torch.Tensor,
@@ -286,9 +335,9 @@ class LlamaModel:
     def _head_logits(self, params: Params, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-        head = (params["tok_embed"].t() if cfg.tie_embeddings
-                else params["lm_head"])
-        return (x @ head).float()
+        if cfg.tie_embeddings:
+            return (x @ params["tok_embed"].t()).float()
+        return _mm(x, params["lm_head"], cfg.dtype).float()
 
     def _paged_layers(self, params, tokens, arena, page_tables, lengths,
                       active, n_tokens) -> torch.Tensor:
@@ -317,23 +366,46 @@ class LlamaModel:
         offs = positions % t
         rope_pos = positions.clamp(max=cfg.max_seq_len - 1)
         att_len = (lengths + kk).to(torch.int32)
-        hd = cfg.head_dim_
-        x = params["tok_embed"][tokens.long()]                    # (B,K,E)
+        hd, dt = cfg.head_dim_, cfg.dtype
+        quant = "k_scale" in arena
+        x = params["tok_embed"][tokens.long()].to(dt)             # (B,K,E)
         lp = params["layers"]
         for layer in range(cfg.n_layers):
+            # each leaf indexed where it is used: this loop is the decode
+            # step's host cost
             h = rms_norm(x, lp["attn_norm"][layer], cfg.norm_eps)
-            q = (h @ lp["wq"][layer]).reshape(b, kk, cfg.n_heads, hd)
-            k = (h @ lp["wk"][layer]).reshape(b, kk, cfg.n_kv_heads, hd)
-            v = (h @ lp["wv"][layer]).reshape(b, kk, cfg.n_kv_heads, hd)
+            q = _mm(h, _at(lp["wq"], layer), dt).reshape(b, kk, cfg.n_heads,
+                                                         hd)
+            k = _mm(h, _at(lp["wk"], layer), dt).reshape(b, kk,
+                                                         cfg.n_kv_heads, hd)
+            v = _mm(h, _at(lp["wv"], layer), dt).reshape(b, kk,
+                                                         cfg.n_kv_heads, hd)
             q = apply_rope(q, self.cos, self.sin, rope_pos)
             k = apply_rope(k, self.cos, self.sin, rope_pos)
             kp, vp = arena["k"][layer], arena["v"][layer]
-            kp[pages_bk, offs] = k
-            vp[pages_bk, offs] = v
-            o = paged_attention_multi(q, kp, vp, page_tables, att_len,
-                                      sm_scale=cfg.sm_scale)
-            x = x + o.reshape(b, kk, cfg.n_heads * hd) @ lp["wo"][layer]
+            if quant:
+                # the JAX model's per-row int8 scheme (_kv_quant); rows and
+                # their scales scatter through the same pages, so dropped
+                # rows land on the sink page in every section
+                ks, vs = arena["k_scale"][layer], arena["v_scale"][layer]
+                k_w, k_s = _kv_quant(k)             # (B,K,h,d), (B,K,h)
+                v_w, v_s = _kv_quant(v)
+                kp[pages_bk, offs] = k_w
+                ks[pages_bk, offs] = k_s
+                vp[pages_bk, offs] = v_w
+                vs[pages_bk, offs] = v_s
+                o = paged_attention_multi_quant(
+                    q, kp, vp, ks, vs, page_tables, att_len,
+                    sm_scale=cfg.sm_scale)
+            else:
+                kp[pages_bk, offs] = k
+                vp[pages_bk, offs] = v
+                o = paged_attention_multi(q, kp, vp, page_tables, att_len,
+                                          sm_scale=cfg.sm_scale)
+            x = x + _mm(o.reshape(b, kk, cfg.n_heads * hd),
+                        _at(lp["wo"], layer), dt)
             h = rms_norm(x, lp["mlp_norm"][layer], cfg.norm_eps)
-            act = F.silu(h @ lp["w_gate"][layer]) * (h @ lp["w_up"][layer])
-            x = x + act @ lp["w_down"][layer]
+            act = (F.silu(_mm(h, _at(lp["w_gate"], layer), dt))
+                   * _mm(h, _at(lp["w_up"], layer), dt))
+            x = x + _mm(act, _at(lp["w_down"], layer), dt)
         return x

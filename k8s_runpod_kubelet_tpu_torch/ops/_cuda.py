@@ -4,7 +4,8 @@ Each source compiles with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface, loaded through ``ctypes``: no PyTorch headers,
 so a build takes seconds. Libraries land in ``_build/`` beside the
 package (listed in ``.gitignore``), named by a hash of the source and the
-flags, so an edited source rebuilds and an unchanged one is reused.
+flags (and of the shared ``csrc/*.cuh`` headers), so an edited source
+rebuilds and an unchanged one is reused.
 Nothing here runs at import: a kernel's first launch builds its source.
 """
 
@@ -44,7 +45,9 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the source and every shared header it may include
+    src = b"".join(p.read_bytes() for p in
+                   [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 

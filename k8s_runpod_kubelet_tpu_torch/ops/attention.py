@@ -6,7 +6,12 @@ attend page-table-indexed K/V with a causal mask inside the block, GQA,
 an optional soft cap and an optional sliding window. On a CUDA tensor it
 launches ``csrc/paged_attention_multi.cu`` (or raises); on a CPU tensor
 it runs ``_paged_attention_multi_plain``, the gather-then-mask reference
-of ``_paged_attention_multi_xla``.
+of ``_paged_attention_multi_xla``. ``paged_attention_multi_quant`` is the
+same over an int8 arena with per-(position, kv head) f32 scales
+(``csrc/paged_attention_multi_quant.cu``). The single-token forms
+``paged_attention`` and ``paged_attention_quant`` (q (B, Hq, D)) compute
+the multi-token function at K = 1 and launch the same two kernels at
+K = 1, each entry point with its own launch count.
 
 ``flash_attention`` is the port of ``ops/attention.py:flash_attention``,
 contiguous attention with gradients. On a CUDA tensor it is a
@@ -46,6 +51,36 @@ def _paged_valid_multi(n_tokens: int, lengths: torch.Tensor, kq: int,
     return valid
 
 
+def _gathered(pages, scales, page_table) -> torch.Tensor:
+    """The working set ``page_table`` (B, N) names, as contiguous f32
+    (B, N * T, Hkv, D); int8 pages are dequantized after the gather, the
+    JAX reference's memory order."""
+    b, n = page_table.shape
+    _, t, hkv, d = pages.shape
+    idx = page_table.long()
+    x = pages[idx].float()
+    if scales is not None:
+        x = x * scales[idx][..., None]
+    return x.reshape(b, n * t, hkv, d)
+
+
+def _paged_multi_core(q, k, v, lengths, sm_scale, logit_soft_cap,
+                      sliding_window) -> torch.Tensor:
+    """Masked multi-query attention of q (B, K, Hq, D) over contiguous f32
+    k, v (B, S, Hkv, D); the output has q's dtype."""
+    b, kq, hq, d = q.shape
+    s_len, hkv = k.shape[1], k.shape[2]
+    qg = (q.float() * sm_scale).reshape(b, kq, hkv, hq // hkv, d)
+    s = torch.einsum("bkhgd,bLhd->bkhgL", qg, k)
+    if logit_soft_cap is not None:
+        s = torch.tanh(s / logit_soft_cap) * logit_soft_cap
+    valid = _paged_valid_multi(s_len, lengths, kq, sliding_window)
+    s = torch.where(valid[:, :, None, None], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkhgL,bLhd->bkhgd", p, v)
+    return o.reshape(b, kq, hq, d).to(q.dtype)
+
+
 def _paged_attention_multi_plain(q, k_pages, v_pages, page_table, lengths, *,
                                  sm_scale: float,
                                  logit_soft_cap: Optional[float] = None,
@@ -53,58 +88,162 @@ def _paged_attention_multi_plain(q, k_pages, v_pages, page_table, lengths, *,
                                  ) -> torch.Tensor:
     """Gather the page table back into a contiguous view and run masked
     multi-query attention in f32; the output has q's dtype."""
-    b, kq, hq, d = q.shape
-    _, t, hkv, _ = k_pages.shape
-    n = page_table.shape[1]
-    group = hq // hkv
-    idx = page_table.long()
-    k = k_pages[idx].reshape(b, n * t, hkv, d).float()
-    v = v_pages[idx].reshape(b, n * t, hkv, d).float()
-    qg = (q.float() * sm_scale).reshape(b, kq, hkv, group, d)
-    s = torch.einsum("bkhgd,bLhd->bkhgL", qg, k)
-    if logit_soft_cap is not None:
-        s = torch.tanh(s / logit_soft_cap) * logit_soft_cap
-    valid = _paged_valid_multi(n * t, lengths, kq, sliding_window)
-    s = torch.where(valid[:, :, None, None], s, torch.full_like(s, NEG_INF))
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkhgL,bLhd->bkhgd", p, v)
-    return o.reshape(b, kq, hq, d).to(q.dtype)
+    return _paged_multi_core(q, _gathered(k_pages, None, page_table),
+                             _gathered(v_pages, None, page_table), lengths,
+                             sm_scale, logit_soft_cap, sliding_window)
+
+
+def _paged_attention_multi_quant_plain(q, k_pages, v_pages, k_scale,
+                                       v_scale, page_table, lengths, *,
+                                       sm_scale: float,
+                                       logit_soft_cap: Optional[float] = None,
+                                       sliding_window: Optional[int] = None
+                                       ) -> torch.Tensor:
+    """Port of ``_paged_attention_multi_quant_xla``: gather the table's
+    working set, dequantize only that, then the plain multi-token
+    attention in f32."""
+    return _paged_multi_core(q, _gathered(k_pages, k_scale, page_table),
+                             _gathered(v_pages, v_scale, page_table),
+                             lengths, sm_scale, logit_soft_cap,
+                             sliding_window)
+
+
+def _single(plain):
+    """The single-token form of a multi-token plain: q (B, Hq, D) as K = 1.
+    Its mask (positions below ``lengths``, under a window the last
+    ``window`` of them) is the multi-token mask at K = 1."""
+    def single(q, *args, **kw):
+        return plain(q[:, None], *args, **kw)[:, 0]
+    return single
+
+
+# ports of ``_paged_attention_xla`` and ``_paged_attention_quant_xla``
+_paged_attention_plain = _single(_paged_attention_multi_plain)
+_paged_attention_quant_plain = _single(_paged_attention_multi_quant_plain)
 
 
 @functools.cache
-def _launcher():
-    fn = _cuda.load("paged_attention_multi").paged_attention_multi_bf16
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i,
-                   ctypes.c_float, ctypes.c_float, i, p]
-    fn.restype = i
-    return fn
+def _launchers():
+    """The C entries of the bf16 and the int8-page kernels."""
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    bf16 = _cuda.load("paged_attention_multi").paged_attention_multi_bf16
+    bf16.argtypes = [p] * 6 + [i] * 7 + [f, f, i, p]
+    int8 = _cuda.load("paged_attention_multi_quant").paged_attention_multi_int8
+    int8.argtypes = [p] * 8 + [i] * 7 + [f, f, i, p]
+    for fn in (bf16, int8):
+        fn.restype = i
+    return bf16, int8
 
 
-def _check_cuda_args(q, k_pages, v_pages, page_table, lengths) -> None:
+def _check_paged_shapes(q4, k_pages, v_pages, page_table, lengths,
+                        k_scale, v_scale, logit_soft_cap,
+                        sliding_window) -> None:
+    """The JAX entry points' argument checks, q as (B, K, Hq, D)."""
+    b, _, hq, d = q4.shape
+    hkv = k_pages.shape[2]
+    if hq % hkv != 0:
+        raise ValueError(f"Hq={hq} not a multiple of Hkv={hkv}")
+    if v_pages.shape != k_pages.shape:
+        raise ValueError(f"k_pages {tuple(k_pages.shape)} != v_pages "
+                         f"{tuple(v_pages.shape)}")
+    if k_pages.shape[3] != d or page_table.shape[0] != b \
+            or lengths.shape != (b,):
+        raise ValueError("q/pages/page_table/lengths shapes disagree")
+    if k_scale is not None and (k_scale.shape != k_pages.shape[:3]
+                                or v_scale.shape != v_pages.shape[:3]):
+        raise ValueError(f"scale shapes {tuple(k_scale.shape)}/"
+                         f"{tuple(v_scale.shape)} must be the pages' "
+                         f"(P, T, Hkv) = {tuple(k_pages.shape[:3])}")
+    if logit_soft_cap is not None and logit_soft_cap <= 0:
+        raise ValueError(f"logit_soft_cap must be positive, got "
+                         f"{logit_soft_cap}")
+    if sliding_window is not None and sliding_window <= 0:
+        raise ValueError(f"sliding_window must be positive, got "
+                         f"{sliding_window}")
+
+
+def _check_cuda_args(q, k_pages, v_pages, page_table, lengths,
+                     k_scale=None, v_scale=None) -> None:
+    """What the kernels take: one card, contiguous, bf16 q, bf16 pages
+    (int8 pages with f32 scales), int32 tables, D in {64, 128, 256}, T a
+    multiple of 8 with a T x D page tile of at most 16 KB."""
     dev = q.device
-    for name, t in (("k_pages", k_pages), ("v_pages", v_pages),
-                    ("page_table", page_table), ("lengths", lengths)):
+    kv = torch.int8 if k_scale is not None else torch.bfloat16
+    tensors = [("q", q, torch.bfloat16), ("k_pages", k_pages, kv),
+               ("v_pages", v_pages, kv), ("page_table", page_table,
+                                          torch.int32),
+               ("lengths", lengths, torch.int32)]
+    if k_scale is not None:
+        tensors += [("k_scale", k_scale, torch.float32),
+                    ("v_scale", v_scale, torch.float32)]
+    for name, t, dtype in tensors:
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, q on {dev}")
-    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"the CUDA kernel takes bf16 {name}, got "
+        if t.dtype != dtype:
+            raise TypeError(f"the CUDA kernel takes {dtype} {name}, got "
                             f"{t.dtype}")
-    for name, t in (("page_table", page_table), ("lengths", lengths)):
-        if t.dtype != torch.int32:
-            raise TypeError(f"{name} must be int32, got {t.dtype}")
-    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
-                    ("page_table", page_table), ("lengths", lengths)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    d, t = q.shape[3], k_pages.shape[1]
+    d, t = q.shape[-1], k_pages.shape[1]
     if d not in _HEAD_DIMS:
         raise ValueError(f"head_dim {d} not supported by the CUDA kernel "
                          f"(one of {_HEAD_DIMS})")
-    if t % 8 or t * d > 8192:
-        raise ValueError(f"page_tokens {t} must be a multiple of 8 with "
-                         f"page_tokens * head_dim <= 8192")
+    tile = t * d * k_pages.element_size()
+    if t % 8 or tile > 16384:
+        raise ValueError(f"page_tokens {t} must be a multiple of 8 with a "
+                         f"page tile of at most 16384 bytes (got {tile})")
+
+
+def _launch_paged(q4, k_pages, v_pages, page_table, lengths, k_scale,
+                  v_scale, scale, logit_soft_cap, sliding_window, what: str
+                  ) -> torch.Tensor:
+    """One launch of the bf16 (``k_scale`` None) or the int8-page kernel
+    on q (B, K, Hq, D); the caller counts it."""
+    _check_cuda_args(q4, k_pages, v_pages, page_table, lengths, k_scale,
+                     v_scale)
+    b, kq, hq, d = q4.shape
+    _, t, hkv, _ = k_pages.shape
+    out = torch.empty_like(q4)
+    stream = torch.cuda.current_stream(q4.device).cuda_stream
+    pages = [k_pages.data_ptr(), v_pages.data_ptr()]
+    if k_scale is None:
+        fn = _launchers()[0]
+    else:
+        fn = _launchers()[1]
+        pages += [k_scale.data_ptr(), v_scale.data_ptr()]
+    code = fn(q4.data_ptr(), *pages, page_table.data_ptr(),
+              lengths.data_ptr(), out.data_ptr(), b, kq, hq, hkv, d, t,
+              page_table.shape[1], float(scale), float(logit_soft_cap or 0.0),
+              int(sliding_window or 0), stream)
+    _cuda.check(code, what)
+    return out
+
+
+def _paged_entry(q, k_pages, v_pages, page_table, lengths, k_scale, v_scale,
+                 sm_scale, logit_soft_cap, sliding_window, wrapper
+                 ) -> torch.Tensor:
+    """The four paged entry points: q (B, K, Hq, D), or (B, Hq, D) for the
+    single-token forms, run as K = 1. A CPU tensor runs the multi-token
+    plain version (bf16 or int8 pages); a CUDA tensor launches the kernel,
+    counted on ``wrapper``, or raises."""
+    single = q.dim() == 3
+    q4 = q[:, None] if single else q
+    _check_paged_shapes(q4, k_pages, v_pages, page_table, lengths, k_scale,
+                        v_scale, logit_soft_cap, sliding_window)
+    scale = sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
+    if q.device.type == "cpu":
+        out = _paged_multi_core(
+            q4, _gathered(k_pages, k_scale, page_table),
+            _gathered(v_pages, v_scale, page_table), lengths, scale,
+            logit_soft_cap, sliding_window)
+    elif q.device.type == "cuda":
+        out = _launch_paged(q4, k_pages, v_pages, page_table, lengths,
+                            k_scale, v_scale, scale, logit_soft_cap,
+                            sliding_window, wrapper.__name__)
+        wrapper.launches += 1
+    else:
+        raise ValueError(f"unsupported device {q.device}")
+    return out[:, 0] if single else out
 
 
 def paged_attention_multi(q: torch.Tensor, k_pages: torch.Tensor,
@@ -121,44 +260,66 @@ def paged_attention_multi(q: torch.Tensor, k_pages: torch.Tensor,
     valid page ids. Returns (B, K, Hq, D) in q's dtype. A CUDA tensor
     launches the kernel (bf16 only) or raises; a CPU tensor takes the
     plain version."""
-    b, kq, hq, d = q.shape
-    _, t, hkv, _ = k_pages.shape
-    if hq % hkv != 0:
-        raise ValueError(f"Hq={hq} not a multiple of Hkv={hkv}")
-    if v_pages.shape != k_pages.shape:
-        raise ValueError(f"k_pages {tuple(k_pages.shape)} != v_pages "
-                         f"{tuple(v_pages.shape)}")
-    if k_pages.shape[3] != d or page_table.shape[0] != b \
-            or lengths.shape != (b,):
-        raise ValueError("q/pages/page_table/lengths shapes disagree")
-    if logit_soft_cap is not None and logit_soft_cap <= 0:
-        raise ValueError(f"logit_soft_cap must be positive, got "
-                         f"{logit_soft_cap}")
-    if sliding_window is not None and sliding_window <= 0:
-        raise ValueError(f"sliding_window must be positive, got "
-                         f"{sliding_window}")
-    scale = sm_scale if sm_scale is not None else d ** -0.5
-    if q.device.type == "cpu":
-        return _paged_attention_multi_plain(
-            q, k_pages, v_pages, page_table, lengths, sm_scale=scale,
-            logit_soft_cap=logit_soft_cap, sliding_window=sliding_window)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
-    _check_cuda_args(q, k_pages, v_pages, page_table, lengths)
-    out = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    code = _launcher()(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        b, kq, hq, hkv, d, t, page_table.shape[1], float(scale),
-        float(logit_soft_cap or 0.0), int(sliding_window or 0), stream)
-    _cuda.check(code, "paged_attention_multi")
-    paged_attention_multi.launches += 1
-    return out
+    return _paged_entry(q, k_pages, v_pages, page_table, lengths, None, None,
+                        sm_scale, logit_soft_cap, sliding_window,
+                        paged_attention_multi)
 
 
-# kernel launches made through the wrapper (the plain path never counts)
+def paged_attention_multi_quant(q: torch.Tensor, k_pages: torch.Tensor,
+                                v_pages: torch.Tensor, k_scale: torch.Tensor,
+                                v_scale: torch.Tensor,
+                                page_table: torch.Tensor,
+                                lengths: torch.Tensor, *,
+                                sm_scale: Optional[float] = None,
+                                logit_soft_cap: Optional[float] = None,
+                                sliding_window: Optional[int] = None
+                                ) -> torch.Tensor:
+    """``paged_attention_multi`` over an int8 KV arena: pages int8
+    (P, T, Hkv, D) with per-(position, kv head) f32 scales (P, T, Hkv),
+    dequantized in the kernel after the load. A CUDA tensor launches
+    ``csrc/paged_attention_multi_quant.cu`` (bf16 q) or raises; a CPU
+    tensor takes the plain version."""
+    return _paged_entry(q, k_pages, v_pages, page_table, lengths, k_scale,
+                        v_scale, sm_scale, logit_soft_cap, sliding_window,
+                        paged_attention_multi_quant)
+
+
+def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                    v_pages: torch.Tensor, page_table: torch.Tensor,
+                    lengths: torch.Tensor, *,
+                    sm_scale: Optional[float] = None,
+                    logit_soft_cap: Optional[float] = None,
+                    sliding_window: Optional[int] = None) -> torch.Tensor:
+    """Single-token decode: q (B, Hq, D), ``lengths`` (B,) counting the
+    query's own token (it sits at lengths - 1). Returns (B, Hq, D). The
+    multi-token function at K = 1: a CUDA tensor launches the bf16 kernel
+    at K = 1 (counted here, not on ``paged_attention_multi``)."""
+    return _paged_entry(q, k_pages, v_pages, page_table, lengths, None, None,
+                        sm_scale, logit_soft_cap, sliding_window,
+                        paged_attention)
+
+
+def paged_attention_quant(q: torch.Tensor, k_pages: torch.Tensor,
+                          v_pages: torch.Tensor, k_scale: torch.Tensor,
+                          v_scale: torch.Tensor, page_table: torch.Tensor,
+                          lengths: torch.Tensor, *,
+                          sm_scale: Optional[float] = None,
+                          logit_soft_cap: Optional[float] = None,
+                          sliding_window: Optional[int] = None
+                          ) -> torch.Tensor:
+    """``paged_attention`` over an int8 KV arena (scales as in
+    ``paged_attention_multi_quant``): a CUDA tensor launches the int8-page
+    kernel at K = 1 (counted here)."""
+    return _paged_entry(q, k_pages, v_pages, page_table, lengths, k_scale,
+                        v_scale, sm_scale, logit_soft_cap, sliding_window,
+                        paged_attention_quant)
+
+
+# kernel launches made through each wrapper (the plain path never counts)
 paged_attention_multi.launches = 0
+paged_attention_multi_quant.launches = 0
+paged_attention.launches = 0
+paged_attention_quant.launches = 0
 
 
 # -- flash attention (contiguous, with gradients) ---------------------------------

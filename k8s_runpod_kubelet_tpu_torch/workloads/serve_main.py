@@ -18,7 +18,8 @@ Endpoints:
   GET  /debug/engine  the engine's debug snapshot
 
 Run: python -m k8s_runpod_kubelet_tpu_torch.workloads.serve_main \
-        --model llama3-8b --slots 8 --cache-len 2048 --port 8000
+        --model llama3-8b --slots 8 --cache-len 2048 --port 8000 \
+        [--int4 | --int8] [--kv-int8]
 """
 
 from __future__ import annotations
@@ -165,8 +166,8 @@ def serve(engine: ServingEngine, port: int = 8000, tokenizer=None,
     return httpd
 
 
-def main(argv=None) -> int:
-    from ..models import MODEL_CONFIGS, init_params
+def parse_args(argv=None) -> argparse.Namespace:
+    from ..models import MODEL_CONFIGS
 
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--model", default="llama3-8b", choices=list(MODEL_CONFIGS))
@@ -180,22 +181,59 @@ def main(argv=None) -> int:
                    help='"bytes": UTF-8 byte ids, enables {"text": ...}')
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the random weights")
-    args = p.parse_args(argv)
-    logging.basicConfig(level=logging.INFO)
-    device = resolve_device(args.device)
-    cfg = MODEL_CONFIGS[args.model]()
+    p.add_argument("--int8", action="store_true",
+                   help="weight-only int8 quantization (halves the weight "
+                        "bytes a decode step reads)")
+    p.add_argument("--int4", action="store_true",
+                   help="weight-only int4 quantization (group-wise scales, "
+                        "two weights per byte, the int4_matmul kernel): a "
+                        "quarter of bf16's weight bytes; costs more "
+                        "accuracy than --int8")
+    p.add_argument("--kv-int8", action="store_true",
+                   help="int8 KV arena with per-(position, kv head) scales "
+                        "(half the arena's bytes)")
+    return p.parse_args(argv)
+
+
+def build_engine(args: argparse.Namespace, params=None):
+    """(started engine, tokenizer or None) for the CLI's arguments; random
+    weights from ``--seed`` unless ``params`` (of the model's config, on
+    the device) are given. Raises ValueError for --int8 with --int4."""
+    from ..models import MODEL_CONFIGS, init_params
+
+    if args.int8 and args.int4:
+        raise ValueError("--int8 and --int4 are mutually exclusive — pick "
+                         "one weight precision")
     tokenizer = ByteTokenizer() if args.tokenizer == "bytes" else None
-    gen = torch.Generator(device=device).manual_seed(args.seed)
-    params = init_params(cfg, gen, device)
-    engine = ServingEngine(cfg, params, ServingConfig(
+    sc = ServingConfig(
         slots=args.slots, cache_len=args.cache_len,
         max_new_tokens=args.max_new_tokens,
         max_prefill_len=args.cache_len // 2,
-        eos_token=tokenizer.eos_id if tokenizer is not None else -1),
-        device=device).start()
+        eos_token=tokenizer.eos_id if tokenizer is not None else -1,
+        quantize_int8=args.int8, quantize_int4=args.int4,
+        quantize_kv_int8=args.kv_int8)
+    device = resolve_device(args.device)
+    cfg = MODEL_CONFIGS[args.model]()
+    if params is None:
+        gen = torch.Generator(device=device).manual_seed(args.seed)
+        params = init_params(cfg, gen, device)
+    # a quantizing engine keeps only its quantized copy of params
+    return ServingEngine(cfg, params, sc, device=device).start(), tokenizer
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
+    logging.basicConfig(level=logging.INFO)
+    try:
+        engine, tokenizer = build_engine(args)
+    except ValueError as e:
+        log.error("%s", e)
+        return 1
     httpd = serve(engine, args.port, tokenizer=tokenizer)
-    log.info("serving %s on :%d (%s)", cfg.name, httpd.server_address[1],
-             device)
+    snap = engine.debug_snapshot()
+    log.info("serving %s on :%d (%s, weights %s, kv %s)", snap["model"],
+             httpd.server_address[1], snap["device"], snap["weights"],
+             snap["kv"])
     try:
         threading.Event().wait()
     except KeyboardInterrupt:

@@ -37,6 +37,7 @@ import torch
 
 from ...device import resolve_device
 from ...models.llama import LlamaConfig, LlamaModel, Params
+from ...models.quant import quantize_params
 from .kv_manager import PagedKVStore, PoolExhausted
 from .sampler import _apply_penalties, _bias_row, _penalized, _sample
 from .scheduler import (EngineDraining, EngineOverloaded, Request,
@@ -69,7 +70,9 @@ class ServingEngine:
         self.device = resolve_device(device)
         self.cfg = cfg
         self.sc = sc
-        self.params = params
+        if sc.quantize_int8 and sc.quantize_int4:
+            raise ValueError("quantize_int8 and quantize_int4 are mutually "
+                             "exclusive — pick one weight precision")
         if sc.slots < 1 or sc.max_prefill_len < 1:
             raise ValueError("slots and max_prefill_len must be >= 1")
         t = sc.kv_page_tokens
@@ -83,9 +86,15 @@ class ServingEngine:
         # one decode cache's worth for the slots plus as much again for
         # the shared prefix pool (the JAX engine's auto sizing)
         n_pages = 2 * sc.slots * slot_pages
+        if sc.quantize_int8 or sc.quantize_int4:
+            # on the params' device, one layer slice at a time
+            params = quantize_params(cfg, params,
+                                     bits=4 if sc.quantize_int4 else 8)
+        self.params = params
         self.model = LlamaModel(cfg, self.device)
         self._make_store = lambda: PagedKVStore(
-            n_pages, t, self.model.init_paged_arena(n_pages, t))
+            n_pages, t, self.model.init_paged_arena(
+                n_pages, t, quantize=sc.quantize_kv_int8))
         self._kv_store = self._make_store()
         self._slot_pages_max = slot_pages
         # per-slot page tables, host side; entries past a slot's run stay
@@ -216,7 +225,12 @@ class ServingEngine:
                           "pages": len(s.pages)})
         with self._count_lock:
             counters = dict(self.counters)
+        sc, dtype = self.sc, str(self.cfg.dtype).removeprefix("torch.")
+        weights = ("int4" if sc.quantize_int4 else
+                   "int8" if sc.quantize_int8 else dtype)
         return {"schema_version": 1, "model": self.cfg.name,
+                "weights": weights,
+                "kv": "int8" if sc.quantize_kv_int8 else dtype,
                 "device": str(self.device), "alive": self.alive,
                 "draining": self.draining, "drained": self.drained,
                 "slots": slots, "active_slots": self.active_slots,

@@ -19,6 +19,16 @@ class ServingConfig:
     eos_token: int = -1          # -1 = never stop on a token
     # tokens per KV page (the pool's allocation and prefix-match granule)
     kv_page_tokens: int = 16
+    # weight-only int8 (models/quant.py): per-output-channel scales, the
+    # dequant multiply after each matmul
+    quantize_int8: bool = False
+    # weight-only int4: two weights a byte, group-wise scales, the
+    # int4_matmul kernel; a quarter of bf16's weight bytes. Mutually
+    # exclusive with quantize_int8
+    quantize_int4: bool = False
+    # int8 KV arena with per-(position, kv head) f32 scales: half the
+    # arena's bytes, read through paged_attention_multi_quant
+    quantize_kv_int8: bool = False
 
 
 class EngineOverloaded(RuntimeError):

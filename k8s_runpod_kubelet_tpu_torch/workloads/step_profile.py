@@ -6,7 +6,12 @@ profiled with ``torch.profiler``, device time summed by kernel family.
 Run on a machine with one NVIDIA card:
 
     python -m k8s_runpod_kubelet_tpu_torch.workloads.step_profile \
-        --model llama3-8b
+        --model llama3-8b [--int4] [--kv-int8]
+
+With ``--int4`` and ``--kv-int8`` the serving steps run the memory-lean
+deployment (the weights quantized on the card as ``ServingEngine`` does,
+the arena int8 with its scale sections) and the training step, which
+never sees quantized weights, is left out.
 
 Prints one JSON object (also written to ``--out`` if given): per phase
 the wall time of a step (host clock around work that ends in a
@@ -32,6 +37,7 @@ import torch
 
 from ..device import resolve_device
 from ..models import MODEL_CONFIGS, LlamaModel, init_params
+from ..models.quant import quantize_params
 
 SEED = 0
 CHUNK = 1024                              # the engine's max_prefill_len
@@ -44,6 +50,8 @@ TRAIN_LAYERS = 4                          # the widths at the depth one card hol
 TRAIN_BATCH, TRAIN_SEQ = 8, 2048          # train_main's defaults
 
 FAMILIES = (
+    ("quant attention", ("paged_attention_multi_quant_kernel",)),
+    ("int4 GEMM", ("int4_matmul",)),
     ("paged_attention_multi", ("paged_attention_multi_kernel",)),
     ("flash_fwd", ("flash_fwd_kernel",)),
     ("flash_dq", ("flash_dq_kernel",)),
@@ -121,6 +129,10 @@ def main(argv=None) -> int:
                    choices=list(MODEL_CONFIGS))
     p.add_argument("--out", default="",
                    help="also write the JSON object to this file")
+    p.add_argument("--int4", action="store_true",
+                   help="int4 weights (serving steps only)")
+    p.add_argument("--kv-int8", action="store_true",
+                   help="an int8 arena (serving steps only)")
     args = p.parse_args(argv)
     dev = resolve_device("cuda")   # raises without a card
     card = subprocess.run(
@@ -130,12 +142,21 @@ def main(argv=None) -> int:
     cfg = MODEL_CONFIGS[args.model]()
     gen = torch.Generator(device=dev).manual_seed(SEED)
     params = init_params(cfg, gen, dev)
+    if args.int4:
+        params = quantize_params(cfg, params, bits=4)
     model = LlamaModel(cfg, dev)
     t, cols = 16, 128                     # 16-token pages, cache_len 2048
     b = len(DECODE_LENGTHS)
-    arena = model.init_paged_arena(b * cols + cols, t)
-    for a in arena.values():
-        a.normal_(generator=gen)
+    arena = model.init_paged_arena(b * cols + cols, t,
+                                   quantize=args.kv_int8)
+    for name, a in arena.items():
+        if a.dtype == torch.int8:
+            a.copy_(torch.randint(-127, 128, a.shape, generator=gen,
+                                  device=dev, dtype=torch.int8))
+        elif name.endswith("scale"):
+            a.uniform_(0.005, 0.02, generator=gen)
+        else:
+            a.normal_(generator=gen)
     tables = torch.arange(b * cols, dtype=torch.int32,
                           device=dev).reshape(b, cols)
     lengths = torch.tensor(DECODE_LENGTHS, dtype=torch.int32, device=dev)
@@ -158,13 +179,16 @@ def main(argv=None) -> int:
                                        chunk_table, zero, true_len)
 
     out = {"card": card, "model": cfg.name, "torch": torch.__version__,
+           "weights": "int4" if args.int4 else "bf16",
+           "kv": "int8" if args.kv_int8 else "bf16",
            "decode": dict(_profile(decode, STEPS), slots=b,
                           lengths=lengths.tolist()),
            "prefill": dict(_profile(prefill, STEPS // 3),
                            chunk=CHUNK)}
     del params, arena
     torch.cuda.empty_cache()
-    out["train"] = _train_profile(cfg, dev)
+    if not (args.int4 or args.kv_int8):
+        out["train"] = _train_profile(cfg, dev)
     text = json.dumps(out)
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)

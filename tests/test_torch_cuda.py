@@ -14,12 +14,18 @@ rounding, 1 ulp = 2^-8 relative, plus f32 sums taken in another order).
 import pytest
 import torch
 
-from k8s_runpod_kubelet_tpu_torch.ops import (flash_attention, flash_dkv,
-                                              flash_dq, flash_fwd,
-                                              paged_attention_multi, rms_norm)
+from k8s_runpod_kubelet_tpu_torch.models.quant import _quantize_leaf_int4
+from k8s_runpod_kubelet_tpu_torch.ops import (
+    flash_attention, flash_dkv, flash_dq, flash_fwd, int4_matmul,
+    paged_attention, paged_attention_multi, paged_attention_multi_quant,
+    paged_attention_quant, rms_norm)
 from k8s_runpod_kubelet_tpu_torch.ops.attention import (
     _attention_plain, _flash_dkv_plain, _flash_dq_plain, _flash_fwd_plain,
-    _paged_attention_multi_plain)
+    _paged_attention_multi_plain, _paged_attention_multi_quant_plain,
+    _paged_attention_plain, _paged_attention_quant_plain)
+from k8s_runpod_kubelet_tpu_torch.ops.int4_matmul import _int4_matmul_plain
+from k8s_runpod_kubelet_tpu_torch.ops.int4_matmul import \
+    _launchers as int4_matmul_launchers
 from k8s_runpod_kubelet_tpu_torch.ops.rmsnorm import _rms_norm_plain
 
 pytestmark = pytest.mark.cuda
@@ -233,3 +239,102 @@ def test_flash_kernels_reject_what_they_do_not_take(cuda):
                  sm_scale=0.1)
     with pytest.raises(ValueError, match="is on"):
         flash_dkv(q, k, v, do, lse.cpu(), lse, causal=False, sm_scale=0.1)
+
+
+# -- int8 pages, the single-token forms, int4 -----------------------------------------
+
+def _int8_pages(k, v):
+    """int8 pages and per-(position, kv head) scales standing for k, v."""
+    out = []
+    for x in (k, v):
+        s = x.float().abs().amax(-1).clamp_min(1e-8) / 127
+        out += [torch.round(x.float() / s[..., None]).clamp(-127, 127)
+                .to(torch.int8), s.contiguous()]
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_paged_attention_multi_quant_kernel_matches_plain(cuda, name):
+    b, kq, hq, hkv, d, t, cols, lengths, cap, window = CASES[name]
+    q, k, v, table, lens = _case(cuda, b, kq, hq, hkv, d, t, cols, lengths)
+    kp, ks, vp, vs = _int8_pages(k, v)
+    args = dict(logit_soft_cap=cap, sliding_window=window)
+    before = paged_attention_multi_quant.launches
+    out = paged_attention_multi_quant(q, kp, vp, ks, vs, table, lens, **args)
+    torch.cuda.synchronize()
+    assert paged_attention_multi_quant.launches == before + 1
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    _close_bf16(out, _paged_attention_multi_quant_plain(
+        q, kp, vp, ks, vs, table, lens, sm_scale=d ** -0.5, **args))
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_single_token_forms_launch_at_k1_and_match_plain(cuda, quant):
+    b, _, hq, hkv, d, t, cols, lengths, _, _ = CASES["8b_decode"]
+    q, k, v, table, lens = _case(cuda, b, 1, hq, hkv, d, t, cols, lengths)
+    q = q[:, 0].contiguous()
+    if quant:
+        kp, ks, vp, vs = _int8_pages(k, v)
+        pages, fn, plain = (kp, vp, ks, vs), paged_attention_quant, \
+            _paged_attention_quant_plain
+    else:
+        pages, fn, plain = (k, v), paged_attention, _paged_attention_plain
+    counts = [f.launches for f in (fn, paged_attention_multi,
+                                   paged_attention_multi_quant)]
+    out = fn(q, *pages, table, lens)
+    torch.cuda.synchronize()
+    after = [f.launches for f in (fn, paged_attention_multi,
+                                  paged_attention_multi_quant)]
+    assert after == [counts[0] + 1] + counts[1:]   # its own count only
+    assert out.shape == q.shape and out.dtype == torch.bfloat16
+    _close_bf16(out, plain(q, *pages, table, lens, sm_scale=d ** -0.5))
+
+
+INT4_CASES = [(1, 256, 128), (8, 4096, 1024), (13, 688, 256),
+              (16, 4096, 4096), (17, 512, 384), (300, 1024, 512)]
+
+
+@pytest.mark.parametrize("rows,kin,out", INT4_CASES)
+def test_int4_matmul_kernel_matches_plain(cuda, rows, kin, out):
+    gen = torch.Generator().manual_seed(rows + kin)
+    leaf = _quantize_leaf_int4(0.02 * torch.randn((kin, out), generator=gen))
+    q4, scale = leaf["q4"].to(cuda), leaf["scale"].to(cuda)
+    h = torch.randn((rows, kin), generator=gen).to(cuda, torch.bfloat16)
+    before = int4_matmul.launches
+    y = int4_matmul(h, q4, scale)
+    torch.cuda.synchronize()
+    assert int4_matmul.launches == before + 1
+    assert y.dtype == torch.bfloat16 and y.shape == (rows, out)
+    # against the plain version's f32 result before its cast: the kernel
+    # rounds its own f32 sum once
+    _close_bf16(y, _int4_matmul_plain(h.float(), q4, scale))
+
+
+def test_int4_matmul_splits_leave_no_slice_empty(cuda):
+    """The C entry's split choice, which the wrapper sizes its scratch by:
+    between 1 and the group count, every slice of groups non-empty (the
+    reduce adds every slice's partials), split only when blocks are few."""
+    splits_of = int4_matmul_launchers()[1]
+    for rows in (1, 8, 13, 16, 17, 300, 1024):
+        for out in (128, 1024, 4096, 14336, 128256):
+            for g in (1, 2, 5, 32, 112):
+                s = splits_of(rows, out, g)
+                per = -(-g // s)               # the kernel's groups a slice
+                assert 1 <= s <= g and (s - 1) * per < g, (rows, out, g, s)
+    assert splits_of(8, 1024, 32) > 1 and splits_of(1024, 14336, 32) == 1
+
+
+def test_int4_matmul_rejects_what_it_does_not_take(cuda):
+    leaf = _quantize_leaf_int4(torch.randn((256, 128)))
+    q4, scale = leaf["q4"].to(cuda), leaf["scale"].to(cuda)
+    h = torch.zeros((2, 256), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(TypeError):
+        int4_matmul(h.float(), q4, scale)
+    with pytest.raises(ValueError, match="is on"):
+        int4_matmul(h, q4.cpu(), scale)
+    with pytest.raises(ValueError, match="contiguous"):
+        int4_matmul(torch.zeros((256, 2), dtype=torch.bfloat16,
+                                device=cuda).t(), q4, scale)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        int4_matmul(h, q4[:, :126].contiguous(), scale[..., :126]
+                    .contiguous())

@@ -74,7 +74,9 @@ def test_no_file_imports_jax_or_the_jax_package(path):
 def test_cuda_sources_carry_their_note_and_build_for_sm90a():
     from k8s_runpod_kubelet_tpu_torch.ops import _cuda
     sources = sorted((PKG / "csrc").glob("*.cu"))
-    assert sources
+    assert {"paged_attention_multi.cu", "paged_attention_multi_quant.cu",
+            "int4_matmul.cu", "flash_attention.cu"} <= {s.name
+                                                        for s in sources}
     for src in sources:
         head = src.read_text()[:4000]
         assert "Replaces:" in head and "k8s_runpod_kubelet_tpu/" in head
