@@ -3,7 +3,9 @@
 against its plain PyTorch version on the card, serves llama3-8b (full
 width and depth, random bf16 weights from a seed) through the paged
 engine and its HTTP front, in bf16 and then with int4 weights and an int8
-KV arena, then trains Llama-3-8B widths at 4 layers.
+KV arena, serves mla-8b (the same, with Multi-head Latent Attention) over
+a bf16 and then an int8 latent arena, then trains Llama-3-8B widths at 4
+layers.
 
 Run from the repository root on a machine with one NVIDIA card:
 
@@ -14,7 +16,9 @@ print the final ``ok`` line):
 
 1. card: name and power limit (nvidia-smi), printed before any number;
 2. build: ``csrc/paged_attention_multi.cu``,
-   ``csrc/paged_attention_multi_quant.cu``, ``csrc/int4_matmul.cu`` and
+   ``csrc/paged_attention_multi_quant.cu``,
+   ``csrc/paged_attention_multi_mla.cu``,
+   ``csrc/paged_attention_multi_mla_quant.cu``, ``csrc/int4_matmul.cu`` and
    ``csrc/flash_attention.cu`` with nvcc for sm_90a (one nvcc each, started
    together), and the Triton RMSNorm kernel, with their seconds and ptxas
    register/spill lines;
@@ -44,6 +48,17 @@ print the final ``ok`` line):
    ``F.rms_norm``) or, where none takes the kernel's inputs, a labelled
    yardstick (SDPA over the dequantized K/V; ``torch.matmul`` by the
    dequantized bf16 weight), which the port itself never calls;
+3b. MLA kernels vs plain at mla-8b's shapes (32 heads, latent 512, rope
+   64, 16-token pages, f32 absorbed queries): ``paged_attention_multi_mla``
+   and ``paged_attention_multi_mla_quant`` (int8 latents that the model's
+   ``_kv_quant`` made) at decode K=1 B=8 over the burst's contexts
+   (252-881) and at a 1024-token prefill chunk behind a 100-token prefix,
+   and the single-token ``paged_attention_mla`` and
+   ``paged_attention_mla_quant`` at the decode shape; the tolerance of
+   phase 3, controls (the rope term dropped, a page lost, the causal floor
+   off at K > 1, the scales ignored for int8) that must read above 1x, the
+   kernel's, the plain version's and a labelled SDPA yardstick's times
+   (q = [q_lat, q_rope], k = [c, kr], v = c, one kv head), and the bound;
 4. engine: ``ServingEngine`` for llama3-8b, 8 slots, cache_len 2048,
    16-token pages; 8 greedy requests of 200-900 prompt tokens (two share
    a 96-token prefix), 32 new tokens each. The launch counters are set to
@@ -74,6 +89,22 @@ print the final ``ok`` line):
    f32 forward of the dequantized weights over unquantized K/V (its own
    limit, the same skipped-layer control), the gap to the bf16 engine's
    logits (information only), HTTP, drain with zero leaked pages;
+7c. MLA engine: the engine the serve CLI builds from ``--model mla-8b``
+   (8 slots, cache_len 2048, 16-token pages) over random bf16 weights from
+   the same seed; its arena must be 2048 + 1 latent pages of 589,824 B;
+   the same burst, stretches and repeat, each step or chunk launching
+   exactly 32 ``paged_attention_multi_mla`` and 97 ``rms_norm`` (attn,
+   c and mlp norms a layer and the final one) and no other attention
+   kernel (the dense paged kernels, the int8 latent kernel and the
+   single-token forms, all read from the counters); the independent check
+   against a plain f32 forward in MLA's direct form (per-head K = [c w_uk,
+   kr], V = c w_uv, ``_attention_plain`` at head_dim + rope_dim, no
+   paging, no absorption, no kernels), limit 0.1, with the skipped-layer
+   control; HTTP, drain with zero leaked pages;
+7d. the same from ``--model mla-8b --kv-int8`` (int8 latents, pages of
+   299,008 B), through ``paged_attention_multi_mla_quant``, the
+   independent check at limit 0.15, and the gap to 7c's logits
+   (information only); then the MLA weights are freed before training;
 8. flash kernels vs plain on the card: ``flash_fwd``, ``flash_dq`` and
    ``flash_dkv`` at the training shape (B 8, Hq 32, Hkv 8, S 2048, D 128,
    causal), a ragged S=1000, D=64, D=256, GQA group 1, a window, a soft
@@ -113,9 +144,11 @@ print the final ``ok`` line):
 The next-to-last line is the kernels JSON record (each kernel's
 ``launches`` counted on its own main path: the bf16 engine's burst for
 ``paged_attention_multi`` and ``rms_norm``, the quantized engine's burst
-for ``paged_attention_multi_quant`` and ``int4_matmul``, the training run
-for the flash kernels; the single-token forms lie on no model path, in
-this port as in the JAX package, and count 0), the last line
+for ``paged_attention_multi_quant`` and ``int4_matmul``, the MLA engines'
+bursts for ``paged_attention_multi_mla`` and
+``paged_attention_multi_mla_quant``, the training run for the flash
+kernels; the single-token forms lie on no model path, in this port as in
+the JAX package, and count 0), the last line
 ``{"ok": true, "device": {...}}``. ``--out PATH`` also writes every
 number (engine and training phases included) to PATH as JSON.
 """
@@ -166,6 +199,14 @@ ENGINE_REL_L2_LIMIT = 0.1
 # every K/V row (half a step of amax/127, ~0.7% of a row's RMS). Set before
 # the first run at 0.15: the skipped-layer control read 0.34 on bf16 weights
 QUANT_ENGINE_REL_L2_LIMIT = 0.15
+# the mla-8b engine's last-token logits against a plain f32 forward of the
+# same weights in MLA's direct form (K and V materialised per head, no
+# paging, no absorption): bf16 latents are held to the bf16 engine's limit;
+# int8 latents add the int8 rounding of every c and kr row (half a step of
+# amax/127), as the int8 arena did, and get the int8 arena's limit. Both set
+# before the first run.
+MLA_ENGINE_REL_L2_LIMIT = 0.1
+MLA_INT8_ENGINE_REL_L2_LIMIT = 0.15
 # the training gradients (bf16 compute through the kernels) against autograd
 # of the plain f32 forward of the same f32 master params: relative L2 error
 # of each leaf, and relative error of the global norm (see PERF.md for the
@@ -436,6 +477,183 @@ def attention_case(torch, F, dev, flush, kind, name, b, kq, lengths):
         f"{TOLERANCE}; controls: {ctl}) kernel {ms:.4f} ms, bound "
         f"{bound_ms:.4f} ms ({bound_by}), plain {plain_ms:.4f} ms, library "
         f"(SDPA) {library_ms:.4f} ms")
+    return rec
+
+
+# -- phase 3b: the MLA latent kernels ---------------------------------------------
+
+# the four MLA entry points: (wrapper name, plain name, single-token
+# (q (B, Hq, .)), int8 latents)
+MLA_KINDS = {
+    "paged_attention_multi_mla": ("_paged_attention_multi_mla_plain", False,
+                                  False),
+    "paged_attention_multi_mla_quant": (
+        "_paged_attention_multi_mla_quant_plain", False, True),
+    "paged_attention_mla": ("_paged_attention_mla_plain", True, False),
+    "paged_attention_mla_quant": ("_paged_attention_mla_quant_plain", True,
+                                  True),
+}
+# one decode context per slot: those of the burst's 200-900-token prompts,
+# as step_profile's decode step holds them
+MLA_DECODE_LENGTHS = [402, 475, 468, 252, 411, 789, 881, 571]
+
+
+def mla_inputs(torch, dev, b, kq, lengths, t=16, cols=128):
+    """mla-8b shapes (32 heads, latent 512, rope 64) at cache_len 2048: f32
+    absorbed queries, bf16 latent pages in random order, and table entries
+    past ceil(len/T) naming pages of large finite garbage."""
+    hq, r, dr = 32, 512, 64
+    gen = torch.Generator().manual_seed(SEED + 7 * kq)
+    live = [-(-n // t) for n in lengths]
+    n_garbage = 64
+    n_pages = sum(live) + n_garbage
+    perm = torch.randperm(n_pages, generator=gen)
+    table = torch.zeros((b, cols), dtype=torch.int32)
+    used = 0
+    for i in range(b):
+        table[i, :live[i]] = perm[used:used + live[i]]
+        used += live[i]
+    garbage = perm[used:]
+    for i in range(b):
+        table[i, live[i]:] = garbage[torch.arange(cols - live[i]) % n_garbage]
+    c = torch.randn((n_pages, t, r), generator=gen)
+    kr = torch.randn((n_pages, t, dr), generator=gen)
+    c[garbage] = 3e4
+    kr[garbage] = -3e4
+    q_lat = torch.randn((b, kq, hq, r), generator=gen)
+    q_rope = torch.randn((b, kq, hq, dr), generator=gen)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    return (q_lat.to(dev), q_rope.to(dev), c.to(dev, torch.bfloat16),
+            kr.to(dev, torch.bfloat16), table.to(dev), lens, live)
+
+
+def mla_variant(torch, q_lat, q_rope, c, kr, lens, scale, drop_rope=False,
+                lost_page=False, causal=True):
+    """The absorbed attention written out over gathered f32 latents c
+    (B, S, R) and kr (B, S, Dr), with one fault switched on for a control:
+    the rope term dropped, the second page (positions 16-31) lost, or the
+    causal floor off (every query sees the whole context)."""
+    kq, s_len = q_lat.shape[1], c.shape[1]
+    s = torch.einsum("bkhr,bLr->bkhL", q_lat * scale, c)
+    if not drop_rope:
+        s = s + torch.einsum("bkhd,bLd->bkhL", q_rope * scale, kr)
+    pos = torch.arange(s_len, device=c.device)
+    if causal:
+        qpos = (lens.long()[:, None] - kq
+                + torch.arange(kq, device=c.device)[None, :])
+        valid = pos[None, None, :] <= qpos[:, :, None]          # (B, K, S)
+    else:
+        valid = (pos[None, :] < lens.long()[:, None])[:, None, :] \
+            .expand(-1, kq, -1)
+    if lost_page:
+        valid = valid & ((pos < 16) | (pos >= 32))
+    p = torch.softmax(s.masked_fill(~valid[:, :, None], -math.inf), dim=-1)
+    return torch.einsum("bkhL,bLr->bkhr", p, c)
+
+
+def mla_case(torch, F, dev, flush, kind, name, b, kq, lengths):
+    """One MLA entry point against its plain version at mla-8b's shapes. The
+    int8 kinds take latents that the model's own ``_kv_quant`` made from the
+    bf16 ones (the garbage pages stay large). Controls, each scored by the
+    same check and each required above 1x: the rope term dropped, a page
+    lost, the causal floor off (K > 1), the scales ignored (int8)."""
+    from k8s_runpod_kubelet_tpu_torch.models.llama import _kv_quant
+    from k8s_runpod_kubelet_tpu_torch.ops import attention
+
+    wrapper = getattr(attention, kind)
+    plain_name, single, quant = MLA_KINDS[kind]
+    plain_fn = getattr(attention, plain_name)
+    q_lat, q_rope, c, kr, table, lens, live = mla_inputs(torch, dev, b, kq,
+                                                         lengths)
+    hq, r = q_lat.shape[2], q_lat.shape[3]
+    t, dr = kr.shape[1], kr.shape[2]
+    scale = (128 + dr) ** -0.5           # mla-8b: (head_dim + rope)^-0.5
+    if quant:
+        (cp, cs), (krp, krs) = _kv_quant(c), _kv_quant(kr)
+        pages = (cp, krp, cs, krs)
+        c = cp.float() * cs[..., None]   # what the pages stand for
+        kr = krp.float() * krs[..., None]
+    else:
+        pages = (c, kr)
+    qa = (q_lat[:, 0].contiguous(), q_rope[:, 0].contiguous()) if single \
+        else (q_lat, q_rope)
+
+    def kernel():
+        return wrapper(*qa, *pages, table, lens, sm_scale=scale)
+
+    def plain(*pg):
+        return plain_fn(*qa, *(pg or pages), table, lens, sm_scale=scale)
+
+    before = wrapper.launches
+    out = kernel()
+    torch.cuda.synchronize()
+    if wrapper.launches != before + 1:
+        raise RuntimeError(f"{kind} did not launch its kernel")
+    ref = plain()
+    err, share = tolerance_check(out, ref)
+    if share > 1:
+        raise RuntimeError(f"{kind} {name}: max abs err {err}, {share:.2f}x "
+                           f"the tolerance {TOLERANCE}")
+    ref4 = ref[:, None] if single else ref
+    idx = table.long()
+    cg = c[idx].float().reshape(b, -1, r)
+    krg = kr[idx].float().reshape(b, -1, dr)
+    variants = {"rope_dropped": dict(drop_rope=True),
+                "lost_page": dict(lost_page=True)}
+    if kq > 1:
+        variants["causal_floor_off"] = dict(causal=False)
+    controls = {}
+    for control, kw in variants.items():
+        o = mla_variant(torch, q_lat, q_rope, cg, krg, lens, scale, **kw)
+        e, sh = tolerance_check(o, ref4)
+        controls[control] = {"max_abs_err": e, "tolerance_share": sh}
+        del o
+    if quant:
+        ones = torch.ones_like(pages[2])
+        e, sh = tolerance_check(plain(pages[0], pages[1], ones, ones), ref)
+        controls["scales_ignored"] = {"max_abs_err": e, "tolerance_share": sh}
+    for control, ctl in controls.items():
+        if not ctl["tolerance_share"] > 1:
+            raise RuntimeError(f"{kind} {name}: the {control} control "
+                               "passed the check")
+    # the library yardstick: SDPA over the gathered (dequantized) latents in
+    # bf16, q = [q_lat, q_rope], k = [c, kr] and v = c as one kv head
+    s_len = cg.shape[1]
+    qs = torch.cat([q_lat, q_rope], -1).transpose(1, 2).bfloat16()
+    ks = torch.cat([cg, krg], -1)[:, None].bfloat16()
+    vs = cg[:, None].bfloat16()
+    qpos = (lens.long()[:, None] - kq
+            + torch.arange(kq, device=dev)[None, :])[:, None, :, None]
+    mask = torch.arange(s_len, device=dev)[None, None, None, :] <= qpos
+    del cg, krg
+
+    def library():
+        return F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                              scale=scale, enable_gqa=True)
+
+    ms = time_ms(torch, kernel, 50, flush)
+    plain_ms = time_ms(torch, plain, 10, flush)
+    library_ms = time_ms(torch, library, 20, flush)
+    page_bytes = t * (r + dr) * pages[0].element_size() \
+        + (2 * t * 4 if quant else 0)
+    nbytes = (sum(live) * page_bytes + q_lat.numel() * 4
+              + q_rope.numel() * 4 + q_lat.numel() * 4 + table.numel() * 4
+              + lens.numel() * 4)
+    visible = sum(n - kq + j + 1 for n in lengths for j in range(kq))
+    ops = visible * hq * (2 * (r + dr) + 2 * r)   # scores and p.c
+    bound_ms, bound_by = bound(nbytes, ops, BF16_TENSOR_FLOPS)
+    rec = {"case": name, "B": b, "K": kq, "lengths": lengths,
+           "max_abs_err": err, "tolerance": TOLERANCE,
+           "tolerance_share": share, "controls": controls, "ms": ms,
+           "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+           "ops": ops}
+    ctl = ", ".join(f"{c_} {v['tolerance_share']:.1f}"
+                    for c_, v in controls.items())
+    log(f"  {kind} {name}: max_abs_err {err:.3e} ({share:.2f} of "
+        f"{TOLERANCE}; controls: {ctl}) kernel {ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}), plain {plain_ms:.4f} ms, library "
+        f"(SDPA yardstick) {library_ms:.4f} ms")
     return rec
 
 
@@ -1086,8 +1304,9 @@ def plain_logits(torch, cfg, params, tokens, skip_layer=None,
     paging, no KV quantization and no kernels (``_attention_plain``,
     ``_rms_norm_plain``), each layer's weights upcast (or dequantized) only
     while it runs (an upcast is a no-op on f32 master weights, through
-    which autograd then reaches the parameters). ``skip_layer`` leaves one
-    layer out (a control)."""
+    which autograd then reaches the parameters); an MLA model's attention in
+    the direct form (``mla_direct_qkv``). ``skip_layer`` leaves one layer
+    out (a control)."""
     import torch.nn.functional as F
 
     from k8s_runpod_kubelet_tpu_torch.ops.attention import _attention_plain
@@ -1097,7 +1316,8 @@ def plain_logits(torch, cfg, params, tokens, skip_layer=None,
 
     dev = params["tok_embed"].device
     (b, n), hd = tokens.shape, cfg.head_dim_
-    cos, sin = rope_frequencies(hd, cfg.max_seq_len, cfg.rope_theta,
+    cos, sin = rope_frequencies(cfg.mla_rope_dim if cfg.is_mla else hd,
+                                cfg.max_seq_len, cfg.rope_theta,
                                 cfg.rope_scaling, device=dev)
     x = params["tok_embed"][tokens.long()].float()
     for layer in range(cfg.n_layers):
@@ -1105,13 +1325,17 @@ def plain_logits(torch, cfg, params, tokens, skip_layer=None,
             continue
         lp = {k: layer_f32(w, layer) for k, w in params["layers"].items()}
         h = _rms_norm_plain(x, lp["attn_norm"], cfg.norm_eps)
-        q = apply_rope((h @ lp["wq"]).view(b, n, cfg.n_heads, hd), cos, sin)
-        k = apply_rope((h @ lp["wk"]).view(b, n, cfg.n_kv_heads, hd), cos,
-                       sin)
-        v = (h @ lp["wv"]).view(b, n, cfg.n_kv_heads, hd)
+        if cfg.is_mla:
+            q, k, v = mla_direct_qkv(torch, cfg, lp, h, cos, sin)
+        else:
+            q = apply_rope((h @ lp["wq"]).view(b, n, cfg.n_heads, hd), cos,
+                           sin)
+            k = apply_rope((h @ lp["wk"]).view(b, n, cfg.n_kv_heads, hd),
+                           cos, sin)
+            v = (h @ lp["wv"]).view(b, n, cfg.n_kv_heads, hd)
         o = _attention_plain(q.transpose(1, 2), k.transpose(1, 2),
                              v.transpose(1, 2), causal=True,
-                             sm_scale=cfg.sm_scale)
+                             sm_scale=cfg.sm_scale)[..., :hd]
         x = x + o.transpose(1, 2).reshape(b, n, -1) @ lp["wo"]
         h = _rms_norm_plain(x, lp["mlp_norm"], cfg.norm_eps)
         x = x + (F.silu(h @ lp["w_gate"]) * (h @ lp["w_up"])) @ lp["w_down"]
@@ -1122,6 +1346,36 @@ def plain_logits(torch, cfg, params, tokens, skip_layer=None,
     if cfg.tie_embeddings:
         return x @ params["tok_embed"].t().float()
     return x @ layer_f32(params["lm_head"])
+
+
+def mla_direct_qkv(torch, cfg, lp, h, cos, sin):
+    """The direct (non-absorbed) form of MLA attention, as the JAX
+    package's ``_mla_attention_block`` computes it, in f32 from one layer's
+    f32 weights: per-head K = [c w_uk, kr] and V = c w_uv zero-padded to
+    head_dim + rope_dim, so one plain attention at that width computes
+    q_nope . k_nope + q_rope . kr and the weighted V (its padded tail is
+    sliced off after). No paging, no absorption, no kernels."""
+    from k8s_runpod_kubelet_tpu_torch.ops.rmsnorm import _rms_norm_plain
+    from k8s_runpod_kubelet_tpu_torch.ops.rope import apply_rope
+
+    b, n, _ = h.shape
+    hn, hd, dr, r = (cfg.n_heads, cfg.head_dim_, cfg.mla_rope_dim,
+                     cfg.mla_latent_dim)
+    if cfg.mla_q_lora_rank is not None:
+        q = _rms_norm_plain(h @ lp["w_qa"], lp["q_a_norm"], cfg.norm_eps) \
+            @ lp["w_qb"]
+    else:
+        q = h @ lp["wq"]
+    q = q.view(b, n, hn, hd + dr)
+    ckr = h @ lp["w_dkv"]
+    c = _rms_norm_plain(ckr[..., :r], lp["c_norm"], cfg.norm_eps)
+    kr = apply_rope(ckr[..., None, r:], cos, sin)              # (B,S,1,dr)
+    q = torch.cat([q[..., :hd], apply_rope(q[..., hd:], cos, sin)], -1)
+    k = torch.cat([(c @ lp["w_uk"]).view(b, n, hn, hd),
+                   kr.expand(b, n, hn, dr)], -1)
+    v = torch.cat([(c @ lp["w_uv"]).view(b, n, hn, hd),
+                   torch.zeros((b, n, hn, dr), device=h.device)], -1)
+    return q, k, v
 
 
 def reference_logits(torch, cfg, params, prompt: list[int],
@@ -1488,6 +1742,110 @@ def quant_engine_phase(torch, dev, card: str, cfg, params: list,
         engine.stop()
 
 
+def mla_engine_phase(torch, dev, card: str, cfg, params: list,
+                     kv_int8: bool, bf16_logits=None):
+    """mla-8b served through the latent arena: the engine the serve CLI
+    builds from ``--model mla-8b`` (``--kv-int8``: int8 latents), 8 slots,
+    cache_len 2048, 16-token pages, over the seeded bf16 params in
+    ``params`` (a one-element list, emptied by the int8 phase, the last one
+    to use them). The arena's shape, the burst with exact launches per step
+    (32 latent-kernel launches and 3 norms a layer plus one; no dense paged
+    or single-token launch), the independent check against a plain f32
+    direct-form forward, HTTP, drain. Returns its record and the one-chunk
+    last-token logits of the checked prompt (on the host)."""
+    from k8s_runpod_kubelet_tpu_torch.ops import (
+        paged_attention, paged_attention_mla, paged_attention_mla_quant,
+        paged_attention_multi, paged_attention_multi_mla,
+        paged_attention_multi_mla_quant, paged_attention_multi_quant,
+        paged_attention_quant, rms_norm)
+    from k8s_runpod_kubelet_tpu_torch.workloads import serve_main
+
+    args = serve_main.parse_args(
+        ["--model", cfg.name, "--device", dev.type, "--slots", "8",
+         "--cache-len", "2048", "--max-new-tokens", "32"]
+        + (["--kv-int8"] if kv_int8 else []))
+    engine, _ = serve_main.build_engine(args, params[0])
+    if kv_int8:
+        params.clear()   # the engine holds the last reference
+    what = f"{cfg.name}{' --kv-int8' if kv_int8 else ''} engine"
+    try:
+        sc, store = engine.sc, engine._kv_store
+        if not (sc.slots == 8 and sc.cache_len == 2048
+                and sc.max_prefill_len == 1024 and sc.kv_page_tokens == 16
+                and sc.quantize_kv_int8 == kv_int8):
+            raise RuntimeError(f"{what}: the CLI built {sc}")
+        r, dr, t = cfg.mla_latent_dim, cfg.mla_rope_dim, 16
+        width = torch.empty(0, dtype=cfg.dtype).element_size()
+        per_position = r + dr + 8 if kv_int8 else width * (r + dr)
+        want = cfg.n_layers * t * per_position
+        c = store.arena["c"]
+        snap = engine.debug_snapshot()
+        if store.pool.n_pages != 2048 or c.shape[1] != 2049 \
+                or store.page_bytes != want or snap["kv_layout"] != "latent":
+            raise RuntimeError(f"{what}: arena {store.pool.n_pages} + 1 "
+                               f"pages of {store.page_bytes} B "
+                               f"({snap['kv_layout']}), not 2048 + 1 of "
+                               f"{want} (latent)")
+        arena_bytes = tensor_bytes(store.arena)
+        log(f"  {what}: {cfg.n_layers} layers, E={cfg.embed_dim}, latent "
+            f"{r} + rope {dr}, kv {snap['kv']} ({snap['kv_layout']}); arena "
+            f"2048 + 1 pages of {store.page_bytes} B, "
+            f"{arena_bytes / 1e9:.3f} GB; [{card}] "
+            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+        main = paged_attention_multi_mla_quant if kv_int8 \
+            else paged_attention_multi_mla
+        held = [k for k in (paged_attention_multi_mla,
+                            paged_attention_multi_mla_quant,
+                            paged_attention_mla, paged_attention_mla_quant,
+                            paged_attention_multi,
+                            paged_attention_multi_quant, paged_attention,
+                            paged_attention_quant) if k is not main]
+        per_step = {main.__name__: cfg.n_layers,
+                    "rms_norm": 3 * cfg.n_layers + 1,
+                    **{k.__name__: 0 for k in held}}
+        torch.cuda.reset_peak_memory_stats()
+        rec = serve_burst(torch, engine, cfg, card, (main, rms_norm, *held),
+                          per_step)
+        serve_peak = torch.cuda.max_memory_allocated()
+        prompts = rec.pop("prompts")
+        prefix = None
+        with engine._prefix_lock:   # the engine is idle; keep it so
+            if kv_int8:
+                logits = quant_logits(torch, engine.model, engine.params,
+                                      prompts[2])
+            else:
+                logits, prefix = prefix_path_check(
+                    torch, engine.model, engine.params, prompts[2])
+            reference = engine_reference_check(
+                torch, cfg, engine.params, prompts[2], logits,
+                limit=(MLA_INT8_ENGINE_REL_L2_LIMIT if kv_int8
+                       else MLA_ENGINE_REL_L2_LIMIT), what=what)
+        if prefix is not None:
+            log(f"  prefix path (last-token logits, max abs diff): one chunk "
+                f"vs cached prefix + tail {prefix['max_abs_diff']:.4f}; "
+                f"cached vs uncached prefix, same tail chunk "
+                f"{prefix['cache_vs_uncached_max_abs_diff']:.4f} (logit std "
+                f"{prefix['logit_std']:.4f})")
+        gap = None
+        if bf16_logits is not None:
+            ref = bf16_logits.to(logits.device)
+            gap = {"rel_l2": ((logits - ref).norm() / ref.norm()).item(),
+                   "argmax_agree": bool(logits.argmax() == ref.argmax())}
+            log(f"  gap to the bf16-latent engine (information only): "
+                f"last-token logits relative L2 {gap['rel_l2']:.4f}, argmax "
+                f"agree {gap['argmax_agree']}")
+        log(f"  [{card}] peak allocated while serving "
+            f"{serve_peak / 2**30:.2f} GiB")
+        rec.update(http_and_drain(engine, rec.pop("prompt")),
+                   reference=reference, prefix_path=prefix, gap_to_bf16=gap,
+                   page_bytes=store.page_bytes, arena_bytes=arena_bytes,
+                   serve_peak_bytes=serve_peak,
+                   allocated_bytes=torch.cuda.memory_allocated())
+        return rec, logits.cpu()
+    finally:
+        engine.stop()
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description="chip smoke of the PyTorch "
                                 "port (see the module docstring)")
@@ -1513,6 +1871,7 @@ def main(argv=None) -> int:
 
     log("phase build")
     sources = ("paged_attention_multi", "paged_attention_multi_quant",
+               "paged_attention_multi_mla", "paged_attention_multi_mla_quant",
                "int4_matmul", "flash_attention")
     nvcc_s, errors = {}, []
 
@@ -1560,6 +1919,16 @@ def main(argv=None) -> int:
         attn[kind].append(attention_case(torch, F, dev, flush, kind,
                                          "prefill K=1024 B=1", 1, 1024,
                                          [100 + 1024]))
+    mla = {kind: [] for kind in MLA_KINDS}
+    for kind, (_, single, _) in MLA_KINDS.items():
+        mla[kind].append(mla_case(torch, F, dev, flush, kind,
+                                  "decode K=1 B=8", 8, 1, MLA_DECODE_LENGTHS))
+        if not single:
+            mla[kind].append(mla_case(torch, F, dev, flush, kind,
+                                      "prefill K=1024 B=1", 1, 1024,
+                                      [100 + 1024]))
+    gc.collect()
+    torch.cuda.empty_cache()
     int4 = [int4_case(torch, dev, flush, rows, kin, out, leaves)
             for rows in (8, 1024) for kin, out, leaves in INT4_SHAPES]
     gc.collect()
@@ -1598,6 +1967,29 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    log("phase MLA engine (mla-8b, bf16 latents, 8 slots, cache_len 2048)")
+    from k8s_runpod_kubelet_tpu_torch.models import mla_8b
+
+    mcfg = mla_8b()
+    t0 = time.perf_counter()
+    box = [init_params(mcfg, torch.Generator(device=dev).manual_seed(SEED),
+                       dev)]
+    torch.cuda.synchronize()
+    mla_init_s = time.perf_counter() - t0
+    log(f"  random bf16 init in {mla_init_s:.1f} s")
+    mla_eng, mla_logits = mla_engine_phase(torch, dev, card, mcfg, box,
+                                           kv_int8=False)
+    mla_eng["init_s"] = mla_init_s
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("phase MLA engine (mla-8b --kv-int8: int8 latents, 8 slots, "
+        "cache_len 2048)")
+    mla_q, _ = mla_engine_phase(torch, dev, card, mcfg, box, kv_int8=True,
+                                bf16_logits=mla_logits)
+    del box, mla_logits
+    gc.collect()
+    torch.cuda.empty_cache()
+
     log("phase train (llama3-8b widths, 4 layers, batch 8 x seq 2048)")
     train = train_phase(torch, dev, card)
 
@@ -1621,6 +2013,7 @@ def main(argv=None) -> int:
         return [{"case": c["case"], **c["kernels"][kname]} for c in flash]
 
     serve_launches, quant_launches = eng["launches"], qeng["launches"]
+    mla_launches, mla_q_launches = mla_eng["launches"], mla_q["launches"]
     csrc = "k8s_runpod_kubelet_tpu_torch/csrc/"
     jax_attn = "k8s_runpod_kubelet_tpu/ops/attention.py:"
     sdpa = "SDPA over the gathered (dequantized) K/V, same mask"
@@ -1638,6 +2031,8 @@ def main(argv=None) -> int:
                serve_launches["rms_norm"],
                {"serve": serve_launches["rms_norm"],
                 "serve_int4_kv_int8": quant_launches["rms_norm"],
+                "serve_mla": mla_launches["rms_norm"],
+                "serve_mla_kv_int8": mla_q_launches["rms_norm"],
                 "train": train["launches"]["rms_norm"]},
                "F.rms_norm, bf16 weight"),
     ] + [
@@ -1677,6 +2072,40 @@ def main(argv=None) -> int:
             ("paged_attention_quant", "paged_attention_multi_quant.cu",
              "884", sdpa + " (a yardstick)"))
     ]
+    mla_sdpa = ("SDPA over the gathered latents in bf16, q = [q_lat, "
+                "q_rope], k = [c, kr], v = c, one kv head (enable_gqa), "
+                "same mask")
+    kernels += [
+        record("paged_attention_multi_mla", "cuda",
+               csrc + "paged_attention_multi_mla.cu", jax_attn + "1932",
+               mla["paged_attention_multi_mla"],
+               mla_launches["paged_attention_multi_mla"],
+               {"serve_mla": mla_launches["paged_attention_multi_mla"],
+                "serve_mla_kv_int8":
+                    mla_q_launches["paged_attention_multi_mla"]}, mla_sdpa),
+        record("paged_attention_multi_mla_quant", "cuda",
+               csrc + "paged_attention_multi_mla_quant.cu", jax_attn + "2105",
+               mla["paged_attention_multi_mla_quant"],
+               mla_q_launches["paged_attention_multi_mla_quant"],
+               {"serve_mla": mla_launches["paged_attention_multi_mla_quant"],
+                "serve_mla_kv_int8":
+                    mla_q_launches["paged_attention_multi_mla_quant"]},
+               mla_sdpa + " over the dequantized latents (a yardstick: no "
+               "PyTorch call reads int8 latents)"),
+    ] + [
+        # the single-token MLA forms: no model path calls them (decode runs
+        # the multi-token kernels at K = 1); counted in both MLA bursts,
+        # which hold them at 0
+        record(kname, "cuda", csrc + source, jax_attn + line, mla[kname],
+               mla_launches[kname] + mla_q_launches[kname],
+               {"serve_mla": mla_launches[kname],
+                "serve_mla_kv_int8": mla_q_launches[kname]}, library_call)
+        for kname, source, line, library_call in (
+            ("paged_attention_mla", "paged_attention_multi_mla.cu", "1078",
+             mla_sdpa),
+            ("paged_attention_mla_quant", "paged_attention_multi_mla_quant.cu",
+             "1269", mla_sdpa + " (a yardstick)"))
+    ]
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
     if args.out:
@@ -1685,7 +2114,8 @@ def main(argv=None) -> int:
         with open(args.out, "w") as f:
             json.dump({"card": card, "device": device, "kernels": kernels,
                        "flash": flash, "engine": eng,
-                       "quant_engine": qeng, "train": train,
+                       "quant_engine": qeng, "mla_engine": mla_eng,
+                       "mla_kv_int8_engine": mla_q, "train": train,
                        "train_main": train_cli,
                        "build_s": {**nvcc_s, "triton": triton_s}},
                       f, indent=1)

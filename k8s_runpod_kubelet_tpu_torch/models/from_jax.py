@@ -29,7 +29,7 @@ _UNSUPPORTED = {
     "rope_local_theta": None, "mlp_activation": "silu",
     "embed_scale": False, "logit_softcap": None,
     "norm_zero_centered": False, "qkv_bias": False, "n_experts": 0,
-    "mla_latent_dim": None, "n_dense_prefix": 0, "sliding_window_pattern": 1,
+    "n_dense_prefix": 0, "sliding_window_pattern": 1,
 }
 
 
@@ -48,7 +48,8 @@ def config_from_jax(jcfg, dtype: torch.dtype) -> LlamaConfig:
     fields = ("name", "vocab_size", "embed_dim", "n_layers", "n_heads",
               "n_kv_heads", "head_dim", "mlp_dim", "max_seq_len",
               "rope_theta", "rope_scaling", "norm_eps", "tie_embeddings",
-              "remat", "remat_policy")
+              "remat", "remat_policy", "mla_latent_dim", "mla_rope_dim",
+              "mla_q_lora_rank")
     param_dtype = getattr(torch, np.dtype(jcfg.param_dtype).name)
     return LlamaConfig(**{f: getattr(jcfg, f) for f in fields}, dtype=dtype,
                        param_dtype=param_dtype)

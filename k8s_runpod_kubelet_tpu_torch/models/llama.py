@@ -1,6 +1,7 @@
-"""Llama-3-family dense decoder (port of the JAX package's
-``models/llama.py``): the contiguous ``forward`` that training runs, and
-the paged serving steps over a KV arena.
+"""Llama-3-family decoder (port of the JAX package's ``models/llama.py``):
+the contiguous ``forward`` that training runs, and the paged serving
+steps over a KV arena, for dense attention and for Multi-head Latent
+Attention (MLA, DeepSeek-V2), which serves from a latent arena.
 
 Parameters are a plain dict in the JAX package's tree layout, stacked over
 layers: ``tok_embed`` (V, E), ``final_norm`` (E,), ``lm_head`` (E, V) and
@@ -17,16 +18,20 @@ multiplies by (int4 through the ``int4_matmul`` kernel).
 
 The arena is ``{"k", "v"}`` of shape (L, P + 1, T, Hkv, D) and is updated
 IN PLACE (the JAX model donated it instead); an int8 arena adds
-``k_scale``/``v_scale`` (L, P + 1, T, Hkv) f32. Page P is a sink no page
-table names: rows that must not be written (past ``n_tokens``, inactive
-slots, whose stale table rows may alias another slot's live tail page)
-scatter there, in every section, where the JAX model used page id P with
-``mode="drop"``.
+``k_scale``/``v_scale`` (L, P + 1, T, Hkv) f32. An MLA model's arena is
+headless: ``{"c", "kr"}`` of shape (L, P + 1, T, r) and (L, P + 1, T, dr),
+the normed latent and the shared rotated rope key of each position, plus
+``c_scale``/``kr_scale`` (L, P + 1, T) f32 when int8. Page P is a sink no
+page table names: rows that must not be written (past ``n_tokens``,
+inactive slots, whose stale table rows may alias another slot's live tail
+page) scatter there, in every section, where the JAX model used page id P
+with ``mode="drop"``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Optional
 
 import torch
@@ -35,18 +40,20 @@ import torch.utils.checkpoint
 
 from ..device import resolve_device
 from ..ops import (apply_rope, flash_attention, int4_matmul,
-                   paged_attention_multi, paged_attention_multi_quant,
-                   rms_norm, rope_frequencies)
+                   paged_attention_multi, paged_attention_multi_mla,
+                   paged_attention_multi_mla_quant,
+                   paged_attention_multi_quant, rms_norm, rope_frequencies)
 
 Params = dict[str, Any]
 
 
 @dataclasses.dataclass(frozen=True)
 class LlamaConfig:
-    """The dense fields of the JAX ``LlamaConfig`` this port runs, with
-    the same defaults (weight and KV quantization are serving options,
-    ``ServingConfig``). MoE, LoRA, MLA, ring attention, meshes, sliding
-    windows, soft caps and remat "dots" are later slices."""
+    """The fields of the JAX ``LlamaConfig`` this port runs, with the same
+    defaults (weight and KV quantization are serving options,
+    ``ServingConfig``). MoE and DeepSeek's dense prefix, LoRA, ring
+    attention, meshes, sliding windows, soft caps and remat "dots" are
+    later slices."""
     name: str = "tiny"
     vocab_size: int = 32000
     embed_dim: int = 256
@@ -66,14 +73,57 @@ class LlamaConfig:
     # "full": recompute each layer in backward (one more forward of
     # flops, least memory); "none": keep every activation
     remat_policy: str = "full"
+    # Multi-head Latent Attention (DeepSeek-V2): a shared latent c = h @
+    # w_dkv of rank mla_latent_dim replaces the K/V projections; the arena
+    # caches c (normed) and one rotated rope key of mla_rope_dim per
+    # position, and serving runs the absorbed form (w_uk folded into q,
+    # w_uv into the output). n_kv_heads is ignored.
+    mla_latent_dim: Optional[int] = None
+    mla_rope_dim: int = 64
+    # DeepSeek's q_lora_rank: q = q_a_norm(h @ w_qa) @ w_qb; None is the
+    # full-rank wq (V2-Lite)
+    mla_q_lora_rank: Optional[int] = None
 
     @property
     def head_dim_(self) -> int:
         return self.head_dim or self.embed_dim // self.n_heads
 
     @property
+    def is_mla(self) -> bool:
+        return self.mla_latent_dim is not None
+
+    @property
     def sm_scale(self) -> float:
+        """The softmax scale: head_dim^-0.5, or for MLA (head_dim +
+        rope_dim)^-0.5 times YaRN's mscale^2."""
+        if self.is_mla:
+            return ((self.head_dim_ + self.mla_rope_dim) ** -0.5
+                    * yarn_mscale_sq(self))
         return self.head_dim_ ** -0.5
+
+    def validate_mla(self) -> None:
+        """The JAX config's MLA check that applies to the fields this port
+        has (the fields MLA excludes, windows, soft caps, qk norms and
+        biases, are not in it): q_lora_rank needs MLA."""
+        if self.mla_q_lora_rank is not None and not self.is_mla:
+            raise ValueError("mla_q_lora_rank requires MLA (set "
+                             "mla_latent_dim); on a plain-attention config "
+                             "the field would silently do nothing")
+
+
+def yarn_mscale_sq(cfg: LlamaConfig) -> float:
+    """YaRN's other half: with ``mscale_all_dim`` in a yarn
+    ``rope_scaling``, the softmax scale multiplies by
+    (0.1 * mscale_all_dim * ln(factor) + 1)^2, as DeepSeek's own code and
+    the JAX package apply it; 1.0 otherwise."""
+    sc = cfg.rope_scaling or {}
+    rt = sc.get("rope_type", sc.get("type"))
+    ms_all = sc.get("mscale_all_dim")
+    f = float(sc.get("factor", 1.0))
+    if rt != "yarn" or not ms_all or f <= 1:
+        return 1.0
+    m = 0.1 * float(ms_all) * math.log(f) + 1.0
+    return m * m
 
 
 def llama3_8b() -> LlamaConfig:
@@ -97,13 +147,48 @@ def tiny_llama(**kw) -> LlamaConfig:
     return dataclasses.replace(LlamaConfig(), **kw)
 
 
+def mla_8b() -> LlamaConfig:
+    """The MLA geometry the JAX package serves on one chip: Llama-3-8B's
+    body (32 layers, E 4096, MLP 14336, vocab 128256) under DeepSeek-V2-Lite
+    attention (32 heads of 128, latent 512, rope 64, full-rank q); 8.25 B
+    parameters."""
+    return LlamaConfig(name="mla-8b", vocab_size=128256, embed_dim=4096,
+                       n_layers=32, n_heads=32, n_kv_heads=32,
+                       head_dim=128, mla_latent_dim=512, mla_rope_dim=64,
+                       mlp_dim=14336, max_seq_len=8192,
+                       rope_theta=500_000.0)
+
+
+def tiny_mla(**kw) -> LlamaConfig:
+    """Tiny MLA config for tests and CPU runs: a dense MLP under latent
+    attention."""
+    kw.setdefault("name", "tiny-mla")
+    kw.setdefault("n_heads", 4)
+    kw.setdefault("n_kv_heads", 4)
+    kw.setdefault("head_dim", 32)
+    kw.setdefault("mla_latent_dim", 64)
+    kw.setdefault("mla_rope_dim", 16)
+    return dataclasses.replace(LlamaConfig(), **kw)
+
+
 def _layer_shapes(cfg: LlamaConfig) -> dict:
-    e, hd, n = cfg.embed_dim, cfg.head_dim_, cfg.n_layers
+    e, hd, n, hn = cfg.embed_dim, cfg.head_dim_, cfg.n_layers, cfg.n_heads
+    if cfg.is_mla:
+        r, dr, qr = cfg.mla_latent_dim, cfg.mla_rope_dim, cfg.mla_q_lora_rank
+        if qr is not None:
+            attn = {"w_qa": (n, e, qr), "q_a_norm": (n, qr),
+                    "w_qb": (n, qr, hn * (hd + dr))}
+        else:
+            attn = {"wq": (n, e, hn * (hd + dr))}
+        attn.update({"w_dkv": (n, e, r + dr), "c_norm": (n, r),
+                     "w_uk": (n, r, hn * hd), "w_uv": (n, r, hn * hd)})
+    else:
+        attn = {"wq": (n, e, hn * hd),
+                "wk": (n, e, cfg.n_kv_heads * hd),
+                "wv": (n, e, cfg.n_kv_heads * hd)}
     return {"attn_norm": (n, e),
-            "wq": (n, e, cfg.n_heads * hd),
-            "wk": (n, e, cfg.n_kv_heads * hd),
-            "wv": (n, e, cfg.n_kv_heads * hd),
-            "wo": (n, cfg.n_heads * hd, e),
+            **attn,
+            "wo": (n, hn * hd, e),
             "mlp_norm": (n, e),
             "w_gate": (n, e, cfg.mlp_dim),
             "w_up": (n, e, cfg.mlp_dim),
@@ -164,6 +249,7 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
     ``cfg.param_dtype`` with ``master=True`` (training); the same generator
     draws the same values, so the serving weights are the master weights
     rounded."""
+    cfg.validate_mla()
     dev = resolve_device(device)
     dtype = cfg.param_dtype if master else cfg.dtype
 
@@ -194,10 +280,13 @@ class LlamaModel:
     card."""
 
     def __init__(self, cfg: LlamaConfig, device=None):
+        cfg.validate_mla()
         self.cfg = cfg
         self.device = resolve_device(device)
+        # MLA rotates only the decoupled rope part of q and its shared key
+        rope_dim = cfg.mla_rope_dim if cfg.is_mla else cfg.head_dim_
         self.cos, self.sin = rope_frequencies(
-            cfg.head_dim_, cfg.max_seq_len, cfg.rope_theta, cfg.rope_scaling,
+            rope_dim, cfg.max_seq_len, cfg.rope_theta, cfg.rope_scaling,
             device=self.device)
 
     def forward(self, params: Params, tokens: torch.Tensor,
@@ -210,8 +299,13 @@ class LlamaModel:
         "full" each layer is a ``torch.utils.checkpoint`` (the counterpart
         of ``jax.checkpoint`` over the JAX model's scan body), so backward
         runs its forward once more. ``positions`` (B, S) overrides arange
-        for RoPE."""
+        for RoPE. MLA configs raise: their contiguous (direct) form needs
+        the flash kernels at head_dim + rope_dim, a later slice."""
         cfg = self.cfg
+        if cfg.is_mla:
+            raise ValueError(f"{cfg.name}: the contiguous forward of an MLA "
+                             "model is not ported (MLA serves through the "
+                             "paged steps only)")
         if cfg.remat and cfg.remat_policy not in ("full", "none"):
             raise ValueError(f"remat_policy {cfg.remat_policy!r} is not "
                              "ported (full or none)")
@@ -262,11 +356,28 @@ class LlamaModel:
         (page p's T positions are one contiguous tile), plus the sink page
         at index ``n_pages`` that absorbs dropped writes. ``quantize``:
         int8 k/v with per-(position, kv head) f32 scale sections
-        ``k_scale``/``v_scale`` (L, n_pages + 1, T, Hkv)."""
+        ``k_scale``/``v_scale`` (L, n_pages + 1, T, Hkv).
+
+        An MLA config gets the headless latent layout: {"c", "kr"} of
+        shape (L, n_pages + 1, T, r) and (L, n_pages + 1, T, dr), the
+        normed latent and the rotated rope key every head reads, in the
+        compute dtype, or with ``quantize`` int8 plus per-position f32
+        scale sections ``c_scale``/``kr_scale`` (L, n_pages + 1, T)."""
         cfg = self.cfg
+        dt = torch.int8 if quantize else cfg.dtype
+        if cfg.is_mla:
+            lead = (cfg.n_layers, n_pages + 1, page_tokens)
+            arena = {"c": torch.zeros(lead + (cfg.mla_latent_dim,), dtype=dt,
+                                      device=self.device),
+                     "kr": torch.zeros(lead + (cfg.mla_rope_dim,), dtype=dt,
+                                       device=self.device)}
+            if quantize:
+                for name in ("c_scale", "kr_scale"):
+                    arena[name] = torch.zeros(lead, dtype=torch.float32,
+                                              device=self.device)
+            return arena
         shape = (cfg.n_layers, n_pages + 1, page_tokens, cfg.n_kv_heads,
                  cfg.head_dim_)
-        dt = torch.int8 if quantize else cfg.dtype
         arena = {"k": torch.zeros(shape, dtype=dt, device=self.device),
                  "v": torch.zeros(shape, dtype=dt, device=self.device)}
         if quantize:
@@ -351,8 +462,9 @@ class LlamaModel:
         n_tokens = n_tokens.to(torch.int32)
         lengths = lengths.to(torch.int32)
         page_tables = page_tables.to(torch.int32).contiguous()
-        t = arena["k"].shape[2]
-        sink = arena["k"].shape[1] - 1
+        first = arena["c" if cfg.is_mla else "k"]
+        t = first.shape[2]
+        sink = first.shape[1] - 1
         n_cols = page_tables.shape[1]
         steps = torch.arange(kk, device=dev)
         positions = lengths.long()[:, None] + steps[None, :]        # (B,K)
@@ -366,9 +478,12 @@ class LlamaModel:
         offs = positions % t
         rope_pos = positions.clamp(max=cfg.max_seq_len - 1)
         att_len = (lengths + kk).to(torch.int32)
+        x = params["tok_embed"][tokens.long()].to(cfg.dtype)      # (B,K,E)
+        if cfg.is_mla:
+            return self._paged_layers_mla(params, x, arena, page_tables,
+                                          pages_bk, offs, rope_pos, att_len)
         hd, dt = cfg.head_dim_, cfg.dtype
         quant = "k_scale" in arena
-        x = params["tok_embed"][tokens.long()].to(dt)             # (B,K,E)
         lp = params["layers"]
         for layer in range(cfg.n_layers):
             # each leaf indexed where it is used: this loop is the decode
@@ -404,8 +519,85 @@ class LlamaModel:
                                           sm_scale=cfg.sm_scale)
             x = x + _mm(o.reshape(b, kk, cfg.n_heads * hd),
                         _at(lp["wo"], layer), dt)
-            h = rms_norm(x, lp["mlp_norm"][layer], cfg.norm_eps)
-            act = (F.silu(_mm(h, _at(lp["w_gate"], layer), dt))
-                   * _mm(h, _at(lp["w_up"], layer), dt))
-            x = x + _mm(act, _at(lp["w_down"], layer), dt)
+            x = self._paged_mlp(x, lp, layer)
+        return x
+
+    def _paged_mlp(self, x, lp, layer: int) -> torch.Tensor:
+        """The SwiGLU MLP of one layer of the paged steps, with its
+        residual."""
+        cfg, dt = self.cfg, self.cfg.dtype
+        h = rms_norm(x, lp["mlp_norm"][layer], cfg.norm_eps)
+        act = (F.silu(_mm(h, _at(lp["w_gate"], layer), dt))
+               * _mm(h, _at(lp["w_up"], layer), dt))
+        return x + _mm(act, _at(lp["w_down"], layer), dt)
+
+    def _mla_project(self, h, lp, layer: int, positions):
+        """Port of the JAX ``_mla_project``: q_nope (B,K,H,hd), q_rope
+        (B,K,H,dr) rotated, the latent c (B,K,r) normed by ``c_norm``, and
+        the shared rope key kr (B,K,dr) rotated. q is full rank through
+        ``wq``, or with ``mla_q_lora_rank`` ``w_qa`` -> ``q_a_norm`` ->
+        ``w_qb``. RoPE math runs in f32 and rounds to the compute dtype,
+        as in JAX."""
+        cfg = self.cfg
+        b, kk, _ = h.shape
+        hd, dr, r, dt = (cfg.head_dim_, cfg.mla_rope_dim, cfg.mla_latent_dim,
+                         cfg.dtype)
+        if cfg.mla_q_lora_rank is not None:
+            qa = rms_norm(_mm(h, _at(lp["w_qa"], layer), dt),
+                          lp["q_a_norm"][layer], cfg.norm_eps)
+            q = _mm(qa, _at(lp["w_qb"], layer), dt)
+        else:
+            q = _mm(h, _at(lp["wq"], layer), dt)
+        q = q.reshape(b, kk, cfg.n_heads, hd + dr)
+        ckr = _mm(h, _at(lp["w_dkv"], layer), dt)
+        # the RMSNorm kernel takes unit-stride rows: c is a slice of ckr
+        c = rms_norm(ckr[..., :r].contiguous(), lp["c_norm"][layer],
+                     cfg.norm_eps)
+        q_rope = apply_rope(q[..., hd:], self.cos, self.sin, positions)
+        kr = apply_rope(ckr[..., None, r:], self.cos, self.sin,
+                        positions)[:, :, 0]
+        return q[..., :hd], q_rope, c, kr
+
+    def _paged_layers_mla(self, params, x, arena, page_tables, pages_bk,
+                          offs, rope_pos, att_len) -> torch.Tensor:
+        """The layers of ``_paged_layers`` for an MLA model: the port of
+        the JAX ``_paged_verify_step_mla``. Per layer, each row's latent
+        and rope key scatter at (page, offset) (int8 with their
+        ``_kv_quant`` scales in an int8 arena; dropped rows to the sink);
+        the query is absorbed through ``w_uk`` in f32, the latent kernel
+        attends the pages, and its weighted latent is up-projected through
+        ``w_uv`` in f32, then ``wo`` and the MLP."""
+        cfg = self.cfg
+        b, kk, _ = x.shape
+        hd, r, hn, dt = cfg.head_dim_, cfg.mla_latent_dim, cfg.n_heads, \
+            cfg.dtype
+        quant = "c_scale" in arena
+        lp = params["layers"]
+        for layer in range(cfg.n_layers):
+            h = rms_norm(x, lp["attn_norm"][layer], cfg.norm_eps)
+            q_nope, q_rope, c, kr = self._mla_project(h, lp, layer, rope_pos)
+            cp, krp = arena["c"][layer], arena["kr"][layer]
+            if quant:
+                cs, krs = arena["c_scale"][layer], arena["kr_scale"][layer]
+                c, c_s = _kv_quant(c)                   # (B,K,r), (B,K)
+                kr, kr_s = _kv_quant(kr)
+                cs[pages_bk, offs] = c_s
+                krs[pages_bk, offs] = kr_s
+            cp[pages_bk, offs] = c
+            krp[pages_bk, offs] = kr
+            q_lat = torch.einsum("bkhd,rhd->bkhr", q_nope.float(),
+                                 lp["w_uk"][layer].float().view(r, hn, hd))
+            if quant:
+                o_lat = paged_attention_multi_mla_quant(
+                    q_lat, q_rope.float(), cp, krp, cs, krs, page_tables,
+                    att_len, sm_scale=cfg.sm_scale)
+            else:
+                o_lat = paged_attention_multi_mla(
+                    q_lat, q_rope.float(), cp, krp, page_tables, att_len,
+                    sm_scale=cfg.sm_scale)
+            o = torch.einsum("bkhr,rhd->bkhd", o_lat,
+                             lp["w_uv"][layer].float().view(r, hn, hd))
+            x = x + _mm(o.reshape(b, kk, hn * hd).to(dt),
+                        _at(lp["wo"], layer), dt)
+            x = self._paged_mlp(x, lp, layer)
         return x

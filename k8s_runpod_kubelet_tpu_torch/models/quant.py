@@ -27,8 +27,11 @@ from .llama import LlamaConfig, Params
 
 __all__ = ["INT4_GROUP", "dequantize", "is_quantized", "quantize_params"]
 
-# stacked-layer projection weights of the dense decoder, plus the LM head
-_LAYER_WEIGHTS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+# stacked-layer projection weights, plus the LM head. MLA: w_dkv and the
+# low-rank q pair quantize as the JAX quantizer's do; w_uk/w_uv stay in
+# full precision (the absorbed step folds them in f32, not through _mm)
+_LAYER_WEIGHTS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
+                  "w_dkv", "w_qa", "w_qb")
 
 INT4_GROUP = 128  # contraction-axis group size of the int4 scales
 

@@ -13,6 +13,18 @@ same over an int8 arena with per-(position, kv head) f32 scales
 the multi-token function at K = 1 and launch the same two kernels at
 K = 1, each entry point with its own launch count.
 
+``paged_attention_multi_mla`` is the port of the JAX
+``paged_attention_multi_mla``: Multi-head Latent Attention in the absorbed
+form over headless latent pages, c (P, T, R) and kr (P, T, Dr), every head
+reading the same rows; the output is the softmax-weighted latent. A CUDA
+tensor launches ``csrc/paged_attention_multi_mla.cu``, a CPU tensor runs
+``_paged_attention_multi_mla_plain``. ``paged_attention_multi_mla_quant``
+is the same over int8 latents with per-position f32 scales
+(``csrc/paged_attention_multi_mla_quant.cu``). The single-token forms
+``paged_attention_mla`` and ``paged_attention_mla_quant`` compute the
+multi-token function at K = 1 and launch the same two kernels at K = 1,
+each counted on its own wrapper.
+
 ``flash_attention`` is the port of ``ops/attention.py:flash_attention``,
 contiguous attention with gradients. On a CUDA tensor it is a
 ``torch.autograd.Function`` over the three kernels of
@@ -320,6 +332,265 @@ paged_attention_multi.launches = 0
 paged_attention_multi_quant.launches = 0
 paged_attention.launches = 0
 paged_attention_quant.launches = 0
+
+
+# -- MLA: absorbed latent attention over headless pages ---------------------------
+
+def _latent_gathered(pages, scales, page_table) -> torch.Tensor:
+    """The latent working set ``page_table`` (B, N) names, as contiguous
+    f32 (B, N * T, W); int8 pages are dequantized per position after the
+    gather, the JAX reference's memory order."""
+    b, n = page_table.shape
+    idx = page_table.long()
+    x = pages[idx].float()
+    if scales is not None:
+        x = x * scales[idx][..., None]
+    return x.reshape(b, n * pages.shape[1], pages.shape[2])
+
+
+def _paged_mla_core(q_lat, q_rope, c, kr, lengths, sm_scale) -> torch.Tensor:
+    """Absorbed MLA of q_lat (B, K, Hq, R) and q_rope (B, K, Hq, Dr) over
+    contiguous f32 latents c (B, S, R) and rope keys kr (B, S, Dr), with the
+    per-query causal mask; the weighted latent in q_lat's dtype."""
+    kq = q_lat.shape[1]
+    s = (torch.einsum("bkhr,bLr->bkhL", q_lat.float() * sm_scale, c)
+         + torch.einsum("bkhd,bLd->bkhL", q_rope.float() * sm_scale, kr))
+    valid = _paged_valid_multi(c.shape[1], lengths, kq, None)
+    s = torch.where(valid[:, :, None], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bkhL,bLr->bkhr", p, c).to(q_lat.dtype)
+
+
+def _paged_attention_multi_mla_plain(q_lat, q_rope, c_pages, kr_pages,
+                                     page_table, lengths, *,
+                                     sm_scale: float) -> torch.Tensor:
+    """Port of ``_paged_attention_multi_mla_xla``: gather the latent pages
+    into a contiguous view, then the absorbed attention in f32."""
+    return _paged_mla_core(q_lat, q_rope,
+                           _latent_gathered(c_pages, None, page_table),
+                           _latent_gathered(kr_pages, None, page_table),
+                           lengths, sm_scale)
+
+
+def _paged_attention_multi_mla_quant_plain(q_lat, q_rope, c_pages, kr_pages,
+                                           c_scale, kr_scale, page_table,
+                                           lengths, *,
+                                           sm_scale: float) -> torch.Tensor:
+    """Port of ``_paged_attention_multi_mla_quant_xla``: gather the
+    working set, dequantize it per position, then the absorbed attention."""
+    return _paged_mla_core(q_lat, q_rope,
+                           _latent_gathered(c_pages, c_scale, page_table),
+                           _latent_gathered(kr_pages, kr_scale, page_table),
+                           lengths, sm_scale)
+
+
+def _single_mla(plain):
+    """The single-token form of a multi-token MLA plain: q_lat (B, Hq, R)
+    and q_rope (B, Hq, Dr) as K = 1 (the single-token mask, positions below
+    ``lengths``, is the multi-token one at K = 1)."""
+    def single(q_lat, q_rope, *args, **kw):
+        return plain(q_lat[:, None], q_rope[:, None], *args, **kw)[:, 0]
+    return single
+
+
+# ports of ``_paged_attention_mla_xla`` and ``_paged_attention_mla_quant_xla``
+_paged_attention_mla_plain = _single_mla(_paged_attention_multi_mla_plain)
+_paged_attention_mla_quant_plain = _single_mla(
+    _paged_attention_multi_mla_quant_plain)
+
+_MLA_LATENT_DIMS = (512,)   # the widths the kernels are instantiated at
+_MLA_ROPE_DIMS = (64,)
+
+
+@functools.cache
+def _mla_launchers():
+    """The C entries of the bf16 and the int8 latent kernels."""
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    bf16 = _cuda.load("paged_attention_multi_mla") \
+        .paged_attention_multi_mla_bf16
+    bf16.argtypes = [p] * 7 + [i] * 7 + [f, p]
+    int8 = _cuda.load("paged_attention_multi_mla_quant") \
+        .paged_attention_multi_mla_int8
+    int8.argtypes = [p] * 9 + [i] * 7 + [f, p]
+    for fn in (bf16, int8):
+        fn.restype = i
+    return bf16, int8
+
+
+def _check_mla_shapes(q_lat, q_rope, c_pages, kr_pages, c_scale, kr_scale,
+                      page_table, lengths) -> None:
+    """The JAX entry points' argument checks, q as (B, K, Hq, .)."""
+    b, kq, hq, _ = q_lat.shape
+    dr = kr_pages.shape[2]
+    if q_rope.shape != (b, kq, hq, dr):
+        raise ValueError(f"q_rope {tuple(q_rope.shape)} != (B, K, Hq, Dr) = "
+                         f"{(b, kq, hq, dr)}")
+    if c_pages.shape[:2] != kr_pages.shape[:2]:
+        raise ValueError(f"c_pages {tuple(c_pages.shape)} / kr_pages "
+                         f"{tuple(kr_pages.shape)} disagree on (P, T)")
+    if c_pages.shape[2] != q_lat.shape[3] or page_table.shape[0] != b \
+            or lengths.shape != (b,):
+        raise ValueError("q_lat/pages/page_table/lengths shapes disagree")
+    if c_scale is not None and (c_scale.shape != c_pages.shape[:2]
+                                or kr_scale.shape != kr_pages.shape[:2]):
+        raise ValueError(f"scale shapes {tuple(c_scale.shape)}/"
+                         f"{tuple(kr_scale.shape)} must be the pages' (P, T) "
+                         f"= {tuple(c_pages.shape[:2])}")
+
+
+def _check_mla_cuda(**tensors) -> None:
+    """What the kernels take: one card, contiguous, 16-byte aligned; f32
+    q_lat and q_rope (other dtypes are refused), bf16 latent pages (int8
+    with f32 scales), int32 tables; R 512, Dr 64 (every MLA config's), T a
+    multiple of 8 whose page, in f32 and as stored (the tile computed on
+    and the next one in flight), fits a block's shared memory."""
+    quant = tensors["c_scale"] is not None
+    want = {"q_lat": torch.float32, "q_rope": torch.float32,
+            "c_pages": torch.int8 if quant else torch.bfloat16,
+            "kr_pages": torch.int8 if quant else torch.bfloat16,
+            "c_scale": torch.float32, "kr_scale": torch.float32,
+            "page_table": torch.int32, "lengths": torch.int32}
+    dev = tensors["q_lat"].device
+    for name, t in tensors.items():
+        if t is None:
+            continue
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, q_lat on {dev}")
+        if t.dtype != want[name]:
+            raise TypeError(f"the CUDA kernel takes {want[name]} {name}, got "
+                            f"{t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    _, t, r = tensors["c_pages"].shape
+    dr = tensors["kr_pages"].shape[2]
+    if r not in _MLA_LATENT_DIMS or dr not in _MLA_ROPE_DIMS:
+        raise ValueError(f"latent {r} / rope {dr} not supported by the CUDA "
+                         f"kernel (latent one of {_MLA_LATENT_DIMS}, rope "
+                         f"one of {_MLA_ROPE_DIMS})")
+    elem = tensors["c_pages"].element_size()
+    smem = t * (r + dr) * (4 + elem) + (8 * t if quant else 0)
+    if t % 8 or smem > 232448:
+        raise ValueError(f"page_tokens {t} must be a multiple of 8 whose "
+                         f"page tiles take at most 232448 bytes of shared "
+                         f"memory (got {smem})")
+
+
+def _mla_entry(q_lat, q_rope, c_pages, kr_pages, c_scale, kr_scale,
+               page_table, lengths, sm_scale, wrapper) -> torch.Tensor:
+    """The four MLA entry points: q_lat (B, K, Hq, R) and q_rope
+    (B, K, Hq, Dr), or (B, Hq, .) for the single-token forms, run as
+    K = 1. A CPU tensor runs the multi-token plain version (bf16 or int8
+    latents); a CUDA tensor launches the kernel, counted on ``wrapper``,
+    or raises."""
+    single = q_lat.dim() == 3
+    ql = q_lat[:, None] if single else q_lat
+    qr = q_rope[:, None] if single else q_rope
+    _check_mla_shapes(ql, qr, c_pages, kr_pages, c_scale, kr_scale,
+                      page_table, lengths)
+    scale = sm_scale if sm_scale is not None else \
+        (c_pages.shape[2] + kr_pages.shape[2]) ** -0.5
+    if q_lat.device.type == "cpu":
+        out = _paged_mla_core(ql, qr,
+                              _latent_gathered(c_pages, c_scale, page_table),
+                              _latent_gathered(kr_pages, kr_scale,
+                                               page_table), lengths, scale)
+    elif q_lat.device.type == "cuda":
+        ql, qr = ql.contiguous(), qr.contiguous()
+        _check_mla_cuda(q_lat=ql, q_rope=qr, c_pages=c_pages,
+                        kr_pages=kr_pages, c_scale=c_scale,
+                        kr_scale=kr_scale, page_table=page_table,
+                        lengths=lengths)
+        b, kq, hq, r = ql.shape
+        _, t, dr = kr_pages.shape
+        out = torch.empty_like(ql)
+        stream = torch.cuda.current_stream(ql.device).cuda_stream
+        if c_scale is None:
+            fn, pages = _mla_launchers()[0], [c_pages, kr_pages]
+        else:
+            fn = _mla_launchers()[1]
+            pages = [c_pages, kr_pages, c_scale, kr_scale]
+        code = fn(ql.data_ptr(), qr.data_ptr(),
+                  *(x.data_ptr() for x in pages), page_table.data_ptr(),
+                  lengths.data_ptr(), out.data_ptr(), b, kq, hq, r, dr, t,
+                  page_table.shape[1], float(scale), stream)
+        _cuda.check(code, wrapper.__name__)
+        wrapper.launches += 1
+    else:
+        raise ValueError(f"unsupported device {q_lat.device}")
+    return out[:, 0] if single else out
+
+
+def paged_attention_multi_mla(q_lat: torch.Tensor, q_rope: torch.Tensor,
+                              c_pages: torch.Tensor, kr_pages: torch.Tensor,
+                              page_table: torch.Tensor, lengths: torch.Tensor,
+                              *, sm_scale: Optional[float] = None
+                              ) -> torch.Tensor:
+    """Absorbed MLA over K query tokens: q_lat (B, K, Hq, R) (the query
+    folded through w_uk) and q_rope (B, K, Hq, Dr) attend the latent pages
+    c (P, T, R) and kr (P, T, Dr) through ``page_table`` (B, N);
+    ``lengths`` includes the K tokens (query j sits at lengths - K + j).
+    Scores are sm_scale * (q_lat . c + q_rope . kr), sm_scale defaulting
+    to (R + Dr)^-0.5. Returns the weighted latent (B, K, Hq, R) in q_lat's
+    dtype. A CUDA tensor launches the kernel (f32 q, bf16 pages) or raises;
+    a CPU tensor takes the plain version."""
+    return _mla_entry(q_lat, q_rope, c_pages, kr_pages, None, None,
+                      page_table, lengths, sm_scale,
+                      paged_attention_multi_mla)
+
+
+def paged_attention_multi_mla_quant(q_lat: torch.Tensor,
+                                    q_rope: torch.Tensor,
+                                    c_pages: torch.Tensor,
+                                    kr_pages: torch.Tensor,
+                                    c_scale: torch.Tensor,
+                                    kr_scale: torch.Tensor,
+                                    page_table: torch.Tensor,
+                                    lengths: torch.Tensor, *,
+                                    sm_scale: Optional[float] = None
+                                    ) -> torch.Tensor:
+    """``paged_attention_multi_mla`` over int8 latent pages with
+    per-position f32 scales c_scale/kr_scale (P, T). A CUDA tensor launches
+    ``csrc/paged_attention_multi_mla_quant.cu`` or raises; a CPU tensor
+    takes the plain version."""
+    return _mla_entry(q_lat, q_rope, c_pages, kr_pages, c_scale, kr_scale,
+                      page_table, lengths, sm_scale,
+                      paged_attention_multi_mla_quant)
+
+
+def paged_attention_mla(q_lat: torch.Tensor, q_rope: torch.Tensor,
+                        c_pages: torch.Tensor, kr_pages: torch.Tensor,
+                        page_table: torch.Tensor, lengths: torch.Tensor, *,
+                        sm_scale: Optional[float] = None) -> torch.Tensor:
+    """Single-token MLA decode: q_lat (B, Hq, R), q_rope (B, Hq, Dr),
+    ``lengths`` counting the query's own token. Returns (B, Hq, R). The
+    multi-token function at K = 1: a CUDA tensor launches the bf16 latent
+    kernel at K = 1 (counted here, not on ``paged_attention_multi_mla``)."""
+    return _mla_entry(q_lat, q_rope, c_pages, kr_pages, None, None,
+                      page_table, lengths, sm_scale, paged_attention_mla)
+
+
+def paged_attention_mla_quant(q_lat: torch.Tensor, q_rope: torch.Tensor,
+                              c_pages: torch.Tensor, kr_pages: torch.Tensor,
+                              c_scale: torch.Tensor, kr_scale: torch.Tensor,
+                              page_table: torch.Tensor,
+                              lengths: torch.Tensor, *,
+                              sm_scale: Optional[float] = None
+                              ) -> torch.Tensor:
+    """``paged_attention_mla`` over int8 latent pages (scales as in
+    ``paged_attention_multi_mla_quant``): a CUDA tensor launches the int8
+    latent kernel at K = 1 (counted here)."""
+    return _mla_entry(q_lat, q_rope, c_pages, kr_pages, c_scale, kr_scale,
+                      page_table, lengths, sm_scale,
+                      paged_attention_mla_quant)
+
+
+# kernel launches made through each wrapper (the plain path never counts)
+paged_attention_multi_mla.launches = 0
+paged_attention_multi_mla_quant.launches = 0
+paged_attention_mla.launches = 0
+paged_attention_mla_quant.launches = 0
 
 
 # -- flash attention (contiguous, with gradients) ---------------------------------

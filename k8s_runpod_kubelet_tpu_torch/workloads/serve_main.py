@@ -20,6 +20,8 @@ Endpoints:
 Run: python -m k8s_runpod_kubelet_tpu_torch.workloads.serve_main \
         --model llama3-8b --slots 8 --cache-len 2048 --port 8000 \
         [--int4 | --int8] [--kv-int8]
+(``--model mla-8b`` serves Multi-head Latent Attention from a latent
+arena; ``--kv-int8`` then makes the latents int8.)
 """
 
 from __future__ import annotations
@@ -190,7 +192,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "quarter of bf16's weight bytes; costs more "
                         "accuracy than --int8")
     p.add_argument("--kv-int8", action="store_true",
-                   help="int8 KV arena with per-(position, kv head) scales "
+                   help="int8 KV arena with per-(position, kv head) scales, "
+                        "or for MLA int8 latents with per-position scales "
                         "(half the arena's bytes)")
     return p.parse_args(argv)
 

@@ -231,6 +231,8 @@ class ServingEngine:
         return {"schema_version": 1, "model": self.cfg.name,
                 "weights": weights,
                 "kv": "int8" if sc.quantize_kv_int8 else dtype,
+                # MLA caches one headless latent row a position
+                "kv_layout": "latent" if self.cfg.is_mla else "heads",
                 "device": str(self.device), "alive": self.alive,
                 "draining": self.draining, "drained": self.drained,
                 "slots": slots, "active_slots": self.active_slots,

@@ -209,11 +209,15 @@ class PrefixTrie:
 
 class PagedKVStore:
     """The device arena behind PagePool/PrefixTrie. ``arena`` is the dict
-    ``LlamaModel.init_paged_arena`` builds: (L, n_pages + 1, T, Hkv, D)
-    per section, the last page being the model's write sink. The arena is
-    updated in place by the model steps (the JAX store's arena was donated
-    through each jitted step instead); every launch that touches it runs
-    under the engine's prefix lock."""
+    ``LlamaModel.init_paged_arena`` builds, every section paged as
+    (L, n_pages + 1, T, ...), the last page being the model's write sink:
+    (L, n_pages + 1, T, Hkv, D) K/V sections (with (L, n_pages + 1, T, Hkv)
+    scales when int8) for dense attention, or for MLA the headless latent
+    sections c (L, n_pages + 1, T, r) and kr (L, n_pages + 1, T, dr) (with
+    (L, n_pages + 1, T) scales when int8). Only axes 1 and 2 are checked,
+    so any layout pages. The arena is updated in place by the model steps
+    (the JAX store's arena was donated through each jitted step instead);
+    every launch that touches it runs under the engine's prefix lock."""
 
     def __init__(self, n_pages: int, page_tokens: int, arena: dict):
         for name, a in arena.items():

@@ -7,11 +7,15 @@ Run on a machine with one NVIDIA card:
 
     python -m k8s_runpod_kubelet_tpu_torch.workloads.step_profile \
         --model llama3-8b [--int4] [--kv-int8]
+    python -m k8s_runpod_kubelet_tpu_torch.workloads.step_profile \
+        --model mla-8b [--kv-int8]
 
 With ``--int4`` and ``--kv-int8`` the serving steps run the memory-lean
 deployment (the weights quantized on the card as ``ServingEngine`` does,
 the arena int8 with its scale sections) and the training step, which
-never sees quantized weights, is left out.
+never sees quantized weights, is left out. ``--model mla-8b`` profiles
+the serving steps over the latent arena (int8 latents with
+``--kv-int8``); an MLA model has no training step in this port.
 
 Prints one JSON object (also written to ``--out`` if given): per phase
 the wall time of a step (host clock around work that ends in a
@@ -50,6 +54,8 @@ TRAIN_LAYERS = 4                          # the widths at the depth one card hol
 TRAIN_BATCH, TRAIN_SEQ = 8, 2048          # train_main's defaults
 
 FAMILIES = (
+    ("MLA quant attention", ("paged_attention_multi_mla_quant_kernel",)),
+    ("MLA attention", ("paged_attention_multi_mla_kernel",)),
     ("quant attention", ("paged_attention_multi_quant_kernel",)),
     ("int4 GEMM", ("int4_matmul",)),
     ("paged_attention_multi", ("paged_attention_multi_kernel",)),
@@ -187,7 +193,7 @@ def main(argv=None) -> int:
                            chunk=CHUNK)}
     del params, arena
     torch.cuda.empty_cache()
-    if not (args.int4 or args.kv_int8):
+    if not (args.int4 or args.kv_int8 or cfg.is_mla):
         out["train"] = _train_profile(cfg, dev)
     text = json.dumps(out)
     if args.out:

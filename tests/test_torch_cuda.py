@@ -15,12 +15,17 @@ import pytest
 import torch
 
 from k8s_runpod_kubelet_tpu_torch.models.quant import _quantize_leaf_int4
+from k8s_runpod_kubelet_tpu_torch.models.llama import _kv_quant
 from k8s_runpod_kubelet_tpu_torch.ops import (
     flash_attention, flash_dkv, flash_dq, flash_fwd, int4_matmul,
-    paged_attention, paged_attention_multi, paged_attention_multi_quant,
+    paged_attention, paged_attention_mla, paged_attention_mla_quant,
+    paged_attention_multi, paged_attention_multi_mla,
+    paged_attention_multi_mla_quant, paged_attention_multi_quant,
     paged_attention_quant, rms_norm)
 from k8s_runpod_kubelet_tpu_torch.ops.attention import (
     _attention_plain, _flash_dkv_plain, _flash_dq_plain, _flash_fwd_plain,
+    _paged_attention_mla_plain, _paged_attention_mla_quant_plain,
+    _paged_attention_multi_mla_plain, _paged_attention_multi_mla_quant_plain,
     _paged_attention_multi_plain, _paged_attention_multi_quant_plain,
     _paged_attention_plain, _paged_attention_quant_plain)
 from k8s_runpod_kubelet_tpu_torch.ops.int4_matmul import _int4_matmul_plain
@@ -338,3 +343,113 @@ def test_int4_matmul_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="multiple of 4"):
         int4_matmul(h, q4[:, :126].contiguous(), scale[..., :126]
                     .contiguous())
+
+
+# -- MLA latent attention ------------------------------------------------------------
+
+MLA_CASES = {
+    # name: (B, K, Hq, R, Dr, T, table cols, lengths)
+    "mla8b_decode": (8, 1, 32, 512, 64, 16, 128,
+                     [252, 402, 475, 468, 411, 789, 881, 571]),
+    "mla8b_k4": (4, 4, 32, 512, 64, 16, 64, [4, 17, 333, 1000]),
+    "mla8b_chunk": (1, 300, 32, 512, 64, 16, 64, [300 + 37]),
+    "t8_ragged_rows": (3, 5, 6, 512, 64, 8, 12, [5, 41, 96]),
+    "t32_large_tile": (2, 3, 16, 512, 64, 32, 8, [3, 200]),
+}
+
+
+def _mla_case(dev, b, kq, hq, r, dr, t, cols, lengths, seed=0):
+    """f32 queries, bf16 latent pages in random order; entries past
+    ceil(len/T) name pages of large finite garbage."""
+    gen = torch.Generator().manual_seed(seed)
+    live = [-(-n // t) for n in lengths]
+    n_pages = sum(live) + 8
+    perm = torch.randperm(n_pages, generator=gen)
+    table = torch.zeros((b, cols), dtype=torch.int32)
+    used = 0
+    for i in range(b):
+        table[i, :live[i]] = perm[used:used + live[i]]
+        used += live[i]
+    garbage = perm[used:]
+    for i in range(b):
+        table[i, live[i]:] = garbage[torch.arange(cols - live[i]) % 8]
+    c = torch.randn((n_pages, t, r), generator=gen)
+    kr = torch.randn((n_pages, t, dr), generator=gen)
+    c[garbage], kr[garbage] = 3e4, -3e4
+    q_lat = torch.randn((b, kq, hq, r), generator=gen)
+    q_rope = torch.randn((b, kq, hq, dr), generator=gen)
+    return (q_lat.to(dev), q_rope.to(dev), c.to(dev, torch.bfloat16),
+            kr.to(dev, torch.bfloat16), table.to(dev),
+            torch.tensor(lengths, dtype=torch.int32, device=dev))
+
+
+def _close_f32(out, ref):
+    """The kernel and the plain version both compute in f32 from the same
+    inputs; they differ by sum order only."""
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-3)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("name", sorted(MLA_CASES))
+def test_paged_attention_multi_mla_kernels_match_plain(cuda, name, quant):
+    b, kq, hq, r, dr, t, cols, lengths = MLA_CASES[name]
+    q_lat, q_rope, c, kr, table, lens = _mla_case(cuda, b, kq, hq, r, dr, t,
+                                                  cols, lengths)
+    if quant:
+        (c, cs), (kr, ks) = _kv_quant(c), _kv_quant(kr)
+        pages, fn, plain = (c, kr, cs, ks), paged_attention_multi_mla_quant, \
+            _paged_attention_multi_mla_quant_plain
+    else:
+        pages, fn, plain = (c, kr), paged_attention_multi_mla, \
+            _paged_attention_multi_mla_plain
+    scale = (128 + dr) ** -0.5
+    before = fn.launches
+    out = fn(q_lat, q_rope, *pages, table, lens, sm_scale=scale)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert out.dtype == torch.float32 and out.shape == q_lat.shape
+    _close_f32(out, plain(q_lat, q_rope, *pages, table, lens,
+                          sm_scale=scale))
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+def test_single_token_mla_forms_launch_at_k1_and_match_plain(cuda, quant):
+    b, _, hq, r, dr, t, cols, lengths = MLA_CASES["mla8b_decode"]
+    q_lat, q_rope, c, kr, table, lens = _mla_case(cuda, b, 1, hq, r, dr, t,
+                                                  cols, lengths, seed=1)
+    q_lat, q_rope = q_lat[:, 0].contiguous(), q_rope[:, 0].contiguous()
+    if quant:
+        (c, cs), (kr, ks) = _kv_quant(c), _kv_quant(kr)
+        pages, fn, plain = (c, kr, cs, ks), paged_attention_mla_quant, \
+            _paged_attention_mla_quant_plain
+    else:
+        pages, fn, plain = (c, kr), paged_attention_mla, \
+            _paged_attention_mla_plain
+    others = (paged_attention_multi_mla, paged_attention_multi_mla_quant)
+    counts = [f.launches for f in (fn, *others)]
+    out = fn(q_lat, q_rope, *pages, table, lens)
+    torch.cuda.synchronize()
+    after = [f.launches for f in (fn, *others)]
+    assert after == [counts[0] + 1] + counts[1:]   # its own count only
+    assert out.shape == q_lat.shape and out.dtype == torch.float32
+    _close_f32(out, plain(q_lat, q_rope, *pages, table, lens,
+                          sm_scale=(r + dr) ** -0.5))
+
+
+def test_mla_kernels_reject_what_they_do_not_take(cuda):
+    q_lat, q_rope, c, kr, table, lens = _mla_case(cuda, 1, 1, 4, 384, 64, 16,
+                                                  2, [5])
+    with pytest.raises(ValueError, match="latent"):
+        paged_attention_multi_mla(q_lat, q_rope, c, kr, table, lens)
+    q_lat, q_rope, c, kr, table, lens = _mla_case(cuda, 1, 2, 4, 512, 64, 16,
+                                                  2, [5])
+    with pytest.raises(TypeError):
+        paged_attention_multi_mla(q_lat.bfloat16(), q_rope, c, kr, table,
+                                  lens)
+    with pytest.raises(TypeError):
+        paged_attention_multi_mla(q_lat, q_rope, c.float(), kr, table, lens)
+    with pytest.raises(TypeError):
+        paged_attention_multi_mla(q_lat, q_rope, c, kr, table.long(), lens)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        paged_attention_multi_mla(q_lat, q_rope, c[:, :12].contiguous(),
+                                  kr[:, :12].contiguous(), table, lens)

@@ -216,13 +216,17 @@ def test_configs_match_the_jax_package():
     for ours, theirs in ((llama3_8b(), jllama.llama3_8b()),
                          (llama31_8b(), jllama.llama31_8b())):
         assert config_from_jax(theirs, torch.bfloat16) == ours
-    assert set(MODEL_CONFIGS) == {"llama3-8b", "llama31-8b", "tiny"}
+    assert set(MODEL_CONFIGS) == {"llama3-8b", "llama31-8b", "mla-8b",
+                                  "tiny", "tiny-mla"}
     assert tiny_llama().embed_dim == jllama.tiny_llama().embed_dim
 
 
+# MLA itself is served now (tests/test_torch_mla.py); an MLA model over a
+# MoE body, as every DeepSeek checkpoint has, still is not
 @pytest.mark.parametrize("jcfg", [
     jllama.mistral_7b(), jllama.gemma2_9b(), jllama.mixtral_8x7b(),
-    jllama.tiny_mla(), jllama.qwen2_7b()], ids=lambda c: c.name)
+    jllama.tiny_mla(n_experts=4, n_experts_per_tok=2), jllama.qwen2_7b()],
+    ids=lambda c: c.name)
 def test_configs_with_branches_the_port_lacks_are_refused(jcfg):
     with pytest.raises(ValueError, match="does not serve"):
         config_from_jax(jcfg, torch.bfloat16)

@@ -181,8 +181,14 @@ def test_rope_matches_jax(scaling):
 
 
 def test_rope_refuses_yarn():
+    """YaRN is ported now (held against JAX in tests/test_torch_mla.py): a
+    yarn dict builds its tables, and what stays refused is a type neither
+    package has, whose error names yarn among the supported types."""
+    cos, _ = rope_frequencies(64, 16, 10_000.0, {"rope_type": "yarn",
+                                                 "factor": 4.0})
+    assert cos.shape == (16, 32)
     with pytest.raises(ValueError, match="yarn"):
-        rope_frequencies(64, 16, 10_000.0, {"rope_type": "yarn",
+        rope_frequencies(64, 16, 10_000.0, {"rope_type": "dynamic",
                                             "factor": 4.0})
 
 
