@@ -21,7 +21,10 @@ print the final ``ok`` line):
    ``csrc/paged_attention_multi_mla_quant.cu``, ``csrc/int4_matmul.cu`` and
    ``csrc/flash_attention.cu`` with nvcc for sm_90a (one nvcc each, started
    together), and the Triton RMSNorm kernel, with their seconds and ptxas
-   register/spill lines;
+   register/spill lines; where the toolkit has ``cuobjdump``, the HGMMA
+   (wgmma) and HMMA counts of every kernel of the two tensor-core sources
+   (an instantiation of the bf16 ``paged_attention_multi`` or of
+   ``flash_fwd`` without HGMMA fails the phase);
 3. kernels vs plain on the card, at the shapes the 8B main path gives
    them: ``paged_attention_multi`` (decode K=1 B=8 with ragged lengths up
    to 2048, K=4 B=8, a 1024-token prefill chunk behind a 100-token
@@ -37,8 +40,9 @@ print the final ``ok`` line):
    the max abs
    error and its share of the tolerance (each element within 1e-4 +
    1e-2 |plain|, 1.3 bf16 ulps; broken variants are scored against it
-   and must read above 1x: for attention p.v accumulated in bf16 and a
-   page lost from the long contexts, for int8 pages also the scales
+   and must read above 1x: for attention p.v accumulated in bf16, P
+   rounded to bf16 before P.V and a page lost from the long contexts,
+   for int8 pages also the scales
    ignored, for int4 the two nibbles of each byte swapped and each group
    given its neighbour's scale), the kernel's median time (CUDA events,
    L2 flushed before every launch), its bound (bytes over 3.35 TB/s or
@@ -114,9 +118,10 @@ print the final ``ok`` line):
    1e-5 |plain|, f32); the whole autograd path against autograd through
    ``_attention_plain`` in f32 (gradients within 1% of each tensor's
    largest magnitude: delta comes from the bf16 o, as in the JAX
-   package); two broken controls scored with the same check (p.v
-   accumulated in bf16 over 64-key tiles; dK/dV with one q head of each
-   group dropped; each must read above 1x); times of each kernel, its
+   package); three broken controls scored with the same check (p.v
+   accumulated in bf16 over 64-key tiles; P rounded to bf16 before P.V;
+   dK/dV with one q head of each group dropped; each must read above
+   1x); times of each kernel, its
    plain version and SDPA forward / autograd backward (no SDPA for a soft
    cap; the backward computes dq, dk and dv together, so it is the library
    time of both backward kernels), and its bound (operations over the
@@ -176,6 +181,11 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM, data sheet
 BF16_TENSOR_FLOPS = 989e12         # dense bf16 tensor-core peak
 F32_FLOPS = 67e12                  # f32 outside the tensor cores
 SEED = 20261016
+# the kernels on the tensor cores, by source: every instantiation named so
+# must hold wgmma instructions
+TENSOR_CORE_KERNELS = {
+    "paged_attention_multi": "paged_attention_multi_kernel",
+    "flash_attention": "flash_fwd_kernel"}
 # Kernel and plain version both compute in f32 and round once to bf16, so
 # they differ by at most one bf16 ulp of the output, which is <= 2^-7 |y|;
 # RTOL is 1.3 ulps, ATOL covers f32 sum-order noise near zero. Both apply
@@ -232,8 +242,8 @@ def card_line() -> str:
 
 def kernel_name(line: str):
     """The kernel named in a ptxas line by its mangled name (a length
-    prefix, the identifier, then ``I...E`` integer template arguments), as
-    ``name<args>``; None if no ``*_kernel`` is named."""
+    prefix, the identifier, then ``I...E`` integer or bool template
+    arguments), as ``name<args>``; None if no ``*_kernel`` is named."""
     for i, ch in enumerate(line):
         if not ch.isdigit():
             continue
@@ -244,10 +254,10 @@ def kernel_name(line: str):
             ident = line[j:j + n]
             if len(ident) == n and ident.endswith("_kernel") \
                     and (ident[0].isalpha() or ident[0] == "_"):
-                targs = re.match(r"I((?:Li\d+E)+)", line[j + n:])
+                targs = re.match(r"I((?:L[ib]\d+E)+)", line[j + n:])
                 if targs:
                     ident += "<" + ",".join(re.findall(
-                        r"Li(\d+)E", targs.group(1))) + ">"
+                        r"L[ib](\d+)E", targs.group(1))) + ">"
                 return ident
     return None
 
@@ -266,6 +276,31 @@ def ptxas_summary(text: str) -> list[str]:
         m = re.search(r"Used (\d+) registers", line)
         if m:
             out.append(f"{name}: {m.group(1)} registers, {spill}")
+    return out
+
+
+def sass_counts(lib_path: str) -> dict:
+    """Tensor-core instructions of each kernel in a built library, from
+    ``cuobjdump -sass``: {kernel name: {"HGMMA": n, "HMMA": n}} (wgmma
+    lowers to HGMMA, mma.sync to HMMA); {} where the toolkit that holds
+    nvcc has no cuobjdump."""
+    from k8s_runpod_kubelet_tpu_torch.ops import _cuda
+
+    tool = os.path.join(os.path.dirname(_cuda._nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return {}
+    text = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    out, name = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            name = kernel_name(line.split("Function :", 1)[1].strip())
+            if name is not None:
+                out.setdefault(name, {"HGMMA": 0, "HMMA": 0})
+        elif name is not None:
+            for op in ("HGMMA", "HMMA"):
+                if re.search(rf"\b{op}\.", line):
+                    out[name][op] += 1
     return out
 
 
@@ -354,15 +389,27 @@ def gathered(torch, q, k, v, table, lens):
     return qs, kc, vc, mask
 
 
+def bf16_p_output(torch, s, v):
+    """The textbook tensor-core kernel's P.V: unnormalised probabilities
+    exp(s - rowmax) of masked scores s (-inf where masked) rounded to bf16
+    before the product with v, the row sum kept in f32."""
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    return (e.bfloat16().float() @ v.float()) / e.sum(-1, keepdim=True)
+
+
 def attention_controls(torch, qs, kc, vc, mask, scale, t, ref) -> dict:
-    """The tolerance check applied to two broken variants of the same
-    attention: p.v accumulated page by page in bf16, and the second page
-    lost from every context of 1024 positions or more (rows with shorter
-    contexts are left right, so the long rows alone are scored). A share
-    of the tolerance above 1 means the check catches the fault."""
+    """The tolerance check applied to three broken variants of the same
+    attention: p.v accumulated page by page in bf16, P rounded to bf16
+    before P.V (the rounding the kernels' split of P into bf16 hi and lo
+    halves avoids), and the second page lost from every context of 1024
+    positions or more (rows with shorter contexts are left right, so the
+    long rows alone are scored). A share of the tolerance above 1 means
+    the check catches the fault."""
     b, h, kq, s_len = mask.shape[0], qs.shape[1], qs.shape[2], kc.shape[2]
     cols, d = s_len // t, qs.shape[3]
     s = (qs.float() @ kc.float().transpose(-1, -2)) * scale
+    o_bf16_p = bf16_p_output(torch, s.masked_fill(~mask, -math.inf), vc) \
+        .bfloat16().transpose(1, 2)
     p = torch.softmax(s.masked_fill(~mask, -math.inf), dim=-1)
     part = torch.einsum("bhkct,bhctd->bhkcd", p.view(b, h, kq, cols, t),
                         vc.float().view(b, h, cols, t, d))
@@ -378,7 +425,7 @@ def attention_controls(torch, qs, kc, vc, mask, scale, t, ref) -> dict:
     o_lost = torch.where(long_rows, o_lost, ref)
     out = {}
     for name, o in (("bf16_accumulation", acc.transpose(1, 2)),
-                    ("lost_page", o_lost)):
+                    ("bf16_p", o_bf16_p), ("lost_page", o_lost)):
         err, share = tolerance_check(o, ref)
         out[name] = {"max_abs_err": err, "tolerance_share": share}
     return out
@@ -840,9 +887,10 @@ def visible_pairs(s: int, causal: bool, window) -> int:
 
 def flash_controls(torch, q, k, v, do, args, o_ref, dk_ref, dv_ref,
                    lse, delta) -> dict:
-    """Two broken variants scored by the same check: p.v accumulated in
-    bf16 over 64-key tiles (against o), and dK/dV with the last q head of
-    each GQA group dropped (against dk, dv)."""
+    """Three broken variants scored by the same check: p.v accumulated in
+    bf16 over 64-key tiles and P rounded to bf16 before P.V (against o),
+    and dK/dV with the last q head of each GQA group dropped (against dk,
+    dv)."""
     from k8s_runpod_kubelet_tpu_torch.ops.attention import (
         _flash_dkv_plain, _flash_mask, _grouped)
     b, hq, s, d = q.shape
@@ -856,6 +904,9 @@ def flash_controls(torch, q, k, v, do, args, o_ref, dk_ref, dv_ref,
                        q.device)
     if mask is not None:
         sc.masked_fill_(~mask, -math.inf)
+    o_bf16_p = bf16_p_output(torch, sc, v[:, :, None]).reshape(b, hq, s, d)
+    err, share = tolerance_check(o_bf16_p.bfloat16(), o_ref)
+    del o_bf16_p
     p = torch.softmax(sc, dim=-1)
     del sc
     acc = torch.zeros((b, hkv, hq // hkv, s, d), dtype=torch.bfloat16,
@@ -865,7 +916,7 @@ def flash_controls(torch, q, k, v, do, args, o_ref, dk_ref, dv_ref,
         acc = (acc.float() + p[..., t0:t0 + 64] @ vf[..., t0:t0 + 64, :]
                ).bfloat16()
     del p
-    out = {}
+    out = {"bf16_p": {"max_abs_err": err, "tolerance_share": share}}
     err, share = tolerance_check(acc.reshape(b, hq, s, d), o_ref)
     out["bf16_accumulation"] = {"max_abs_err": err, "tolerance_share": share}
     dropped = _grouped(do.float(), hkv).clone()
@@ -999,7 +1050,8 @@ def flash_case(torch, F, dev, flush, name, b, hq, hkv, s, d, causal, window,
     lib_txt = ("none (soft cap)" if lib_fwd is None else
                f"fwd {lib_fwd:.3f} ms, autograd bwd {lib_bwd:.3f} ms")
     log(f"  flash {name}: SDPA {lib_txt}; controls: bf16 accumulation "
-        f"{controls['bf16_accumulation']['tolerance_share']:.2f}, dropped q "
+        f"{controls['bf16_accumulation']['tolerance_share']:.2f}, bf16 P "
+        f"{controls['bf16_p']['tolerance_share']:.2f}, dropped q "
         f"head {controls['dropped_q_head']['tolerance_share']:.0f}; "
         f"autograd vs plain (share of 1% of scale) dq {e2e['dq']:.2f} dk "
         f"{e2e['dk']:.2f} dv {e2e['dv']:.2f}")
@@ -1898,6 +1950,18 @@ def main(argv=None) -> int:
     for name, text in sorted(_cuda.build_logs.items()):
         for line in ptxas_summary(text):
             log(f"  ptxas {name}: {line}")
+    # the tensor-core kernels: each must hold wgmma (HGMMA in the SASS)
+    sass = {name: sass_counts(_cuda.load(name)._name)
+            for name in TENSOR_CORE_KERNELS}
+    for name, counts in sass.items():
+        if not counts:
+            log(f"  sass {name}: no cuobjdump in the toolkit, not counted")
+        for kernel, c in sorted(counts.items()):
+            log(f"  sass {name}: {kernel}: {c['HGMMA']} HGMMA, "
+                f"{c['HMMA']} HMMA")
+            if kernel.startswith(TENSOR_CORE_KERNELS[name]) \
+                    and c["HGMMA"] == 0:
+                raise RuntimeError(f"{kernel} holds no HGMMA instruction")
     log("  nvcc (sm_90a, in parallel) " + ", ".join(
         f"csrc/{n}.cu {nvcc_s[n]:.1f} s" for n in sources)
         + f"; Triton rms_norm {triton_s:.1f} s")
@@ -2117,7 +2181,8 @@ def main(argv=None) -> int:
                        "quant_engine": qeng, "mla_engine": mla_eng,
                        "mla_kv_int8_engine": mla_q, "train": train,
                        "train_main": train_cli,
-                       "build_s": {**nvcc_s, "triton": triton_s}},
+                       "build_s": {**nvcc_s, "triton": triton_s},
+                       "sass": sass},
                       f, indent=1)
     log(f"card: {card}")
     log(json.dumps({"kernels": kernels}))

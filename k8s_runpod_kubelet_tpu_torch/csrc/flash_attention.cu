@@ -23,33 +23,37 @@
 // What bounds it on an H100: operations. At the training shape (B 8, Hq 32,
 // S 2048, D 128, causal) the forward does 4*B*Hq*S^2*D/2 = 0.275 TFLOP over
 // 0.34 GB of inputs and outputs, some 800 flops a byte; dQ and dK/dV 1.5x and
-// 2x those flops. On the bf16 tensor cores that is under a millisecond; this
-// first version runs the flops on the CUDA cores in f32 (67 TFLOP/s peak), so
-// it is bounded by the f32 FMA rate and by the shared-memory loads that feed
-// it.
+// 2x those flops.
 //
 // Design: the TPU kernels carry the online-softmax state, or the dQ/dK/dV
 // sums, in VMEM across a sequential ("arbitrary") grid axis; Hopper runs
 // blocks in no order, so that axis becomes a loop inside the block.
-//   - forward and dQ: one block per (b, q head, tile of BM query rows); the
-//     block walks only the k tiles of its causal (and window) band.
+//   - forward: on the tensor cores, the tile body of attention_tile_sm90.cuh
+//     (wgmma Q K^T, f32 online softmax on the accumulator fragments, P V as
+//     two bf16 products of P's hi and lo halves, cp.async double-buffered
+//     K/V tiles). One block per (b, q head, tile of 128 query rows: two
+//     warpgroups sharing each staged K/V tile); the block walks only the k
+//     tiles of its causal (and window) band, the longest bands first.
+//   - dQ: one block per (b, q head, tile of BM query rows) over the same
+//     band.
 //   - dK/dV: one block per (b, kv head, tile of BN key rows); the block walks
 //     the group's q heads x the q tiles that can see its keys, so the GQA sum
 //     stays in registers and no atomics are needed (the same choice the TPU
 //     kernel makes by gridding over kv heads).
-// Each block stages its tiles in shared memory as f32 (rows padded to an odd
-// stride, so column walks hit distinct banks). 256 threads form a 16 x 16
-// grid; thread (ty, tx) owns score rows ty + 16 i and columns tx + 16 j, and
-// output rows ty + 16 i, columns tx + 16 j of the D-wide accumulators: a
-// register-tiled product on the CUDA cores. Softmax row statistics reduce
-// over the 16 lanes of a half warp with shuffles. D is a template parameter
-// (64, 128, 256); D = 256 uses 32-row tiles to stay inside shared memory and
-// registers. wgmma/mma.sync tensor-core tiles, TMA loads and split work are
-// left to later work: this version is the simple, exact one.
+// The dQ and dK/dV blocks stage their tiles in shared memory as f32 (rows
+// padded to an odd stride, so column walks hit distinct banks). 256 threads
+// form a 16 x 16 grid; thread (ty, tx) owns rows ty + 16 i and columns
+// tx + 16 j of each tile: a register-tiled product on the CUDA cores in f32
+// (67 TFLOP/s peak), which bounds those two kernels. D is a template
+// parameter (64, 128, 256); D = 256 uses 32-row tiles there to stay inside
+// shared memory and registers. Tensor-core tiles for the backward are left
+// to later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "attention_tile_sm90.cuh"
 
 namespace {
 
@@ -66,19 +70,6 @@ __device__ __forceinline__ bool keep(const Problem& p, int qp, int kp) {
   if (kp >= p.sk) return false;
   if (!p.causal) return true;
   return kp <= qp && (p.window <= 0 || qp - kp < p.window);
-}
-
-__device__ __forceinline__ float half_warp_max(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float half_warp_sum(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
 }
 
 // rows [r0, r0 + R) of a (n_rows, D) bf16 slab into f32 shared memory with
@@ -225,90 +216,70 @@ struct Tiles {
 
 // ---------------------------------------------------------------- forward --
 
-template <int D, int RM, int CN>
-__global__ void __launch_bounds__(kThreads)
+// On the tensor cores (attention_tile_sm90.cuh): a block of WG warpgroups
+// owns 64 WG query rows of one (b, q head) and walks the key tiles of its
+// causal (and window) band, BN keys a tile (32 at D = 256, whose m64n256
+// output fragment takes 128 registers a thread).
+template <int D>
+struct FwdPick {
+  static constexpr int BN = D == 256 ? 32 : 64;
+  static constexpr int WG = 2;
+};
+
+template <int D, int BN, int WG>
+__global__ void __launch_bounds__(WG * tile90::kWarpgroup, 1)
 flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v,
                  __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                  Problem p) {
-  using T = Tiles<D, RM, CN>;
-  extern __shared__ __align__(16) float smem[];
-  float* q_s = smem;                       // BM x LD, times scale
-  float* k_s = q_s + T::BM * T::LD;        // BN x LD
-  float* v_s = k_s + T::BN * T::LD;        // BN x LD
-  float* p_s = v_s + T::BN * T::LD;        // BM x LS
-
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * T::BM;
+  constexpr int BM = tile90::kRows * WG;
+  extern __shared__ __align__(1024) unsigned char smem_tc[];
+  const int b = blockIdx.z, h = blockIdx.y;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BM;  // longest bands first
   const int hk = h / (p.hq / p.hkv);
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   const size_t qh = size_t(b) * p.hq + h, kh = size_t(b) * p.hkv + hk;
-  const __nv_bfloat16* k_slab = k + kh * p.sk * D;
-  const __nv_bfloat16* v_slab = v + kh * p.sk * D;
 
-  load_tile<T::BM, D, T::LD>(q_s, q + qh * p.sq * D, q0, p.sq, p.scale);
-
-  float m[RM], l[RM], acc[RM][T::DC];
+  tile90::Rows<D> st;
+  st.init();
+  const int wg_row0 = q0 + (threadIdx.x / tile90::kWarpgroup) * tile90::kRows;
 #pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < T::DC; ++j) acc[i][j] = 0.f;
+  for (int i = 0; i < 2; ++i) {
+    const int qp = wg_row0 + tile90::Rows<D>::row(i);
+    st.lo[i] = p.causal && p.window > 0 ? qp - p.window + 1 : 0;
+    st.hi[i] = qp >= p.sq ? -1 : p.causal ? min(qp, p.sk - 1) : p.sk - 1;
   }
-
   int kt0, kt1;
-  k_range(p, q0, T::BM, T::BN, &kt0, &kt1);
-  for (int kt = kt0; kt < kt1; ++kt) {
-    const int k0 = kt * T::BN;
-    __syncthreads();  // the previous tile's readers are done
-    load_tile<T::BN, D, T::LD>(k_s, k_slab, k0, p.sk, 1.f);
-    load_tile<T::BN, D, T::LD>(v_s, v_slab, k0, p.sk, 1.f);
-    __syncthreads();
-
-    float s[RM][CN];
-    mm_abt<RM, CN, D, T::LD>(s, q_s, k_s, ty, tx);
-#pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      const int qp = q0 + ty + 16 * i;
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < CN; ++j) {
-        float th;
-        const float sc = capped(p, s[i][j], &th);
-        s[i][j] = keep(p, qp, k0 + tx + 16 * j) ? sc : kNegInf;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      mx = fmaxf(m[i], half_warp_max(mx));
-      const float corr = expf(m[i] - mx);
-      float ps = 0.f;
-#pragma unroll
-      for (int j = 0; j < CN; ++j) {
-        const float pv =
-            keep(p, qp, k0 + tx + 16 * j) ? expf(s[i][j] - mx) : 0.f;
-        p_s[(ty + 16 * i) * T::LS + tx + 16 * j] = pv;
-        ps += pv;
-      }
-      l[i] = l[i] * corr + half_warp_sum(ps);
-      m[i] = mx;
-#pragma unroll
-      for (int j = 0; j < T::DC; ++j) acc[i][j] *= corr;
-    }
-    __syncthreads();  // P complete
-    mm_ab<RM, T::DC, T::BN, T::LS, T::LD>(acc, p_s, v_s, ty, tx);
-  }
+  k_range(p, q0, BM, BN, &kt0, &kt1);
+  const int sq = p.sq, sk = p.sk;
+  tile90::attend<D, BN, WG>(
+      st, smem_tc, q + qh * sq * D,
+      [=](int r) -> long long {
+        return q0 + r < sq ? static_cast<long long>(q0 + r) * D : -1;
+      },
+      k + kh * sk * D, v + kh * sk * D,
+      [=](int key) -> long long {
+        return key < sk ? static_cast<long long>(key) * D : -1;
+      },
+      kt0 * BN, kt1 - kt0, p.scale, p.soft_cap);
 
 #pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    const int r = q0 + ty + 16 * i;
-    if (r >= p.sq) continue;
-    const float lv = fmaxf(l[i], 1e-30f);
-    const float inv = 1.f / lv;
-    __nv_bfloat16* orow = o + (qh * p.sq + r) * D;
+  for (int i = 0; i < 2; ++i) {
+    const int qp = wg_row0 + tile90::Rows<D>::row(i);
+    const float l = tile90::quad_sum(st.l[i]);
+    if (qp >= p.sq) continue;
+    const float inv = 1.f / fmaxf(l, 1e-30f);
+    __nv_bfloat16* orow = o + (qh * p.sq + qp) * D;
 #pragma unroll
-    for (int j = 0; j < T::DC; ++j)
-      orow[tx + 16 * j] = __float2bfloat16(acc[i][j] * inv);
-    if (tx == 0) lse[qh * p.sq + r] = m[i] + logf(lv);
+    for (int n8 = 0; n8 < D / 8; ++n8)
+      *reinterpret_cast<__nv_bfloat162*>(orow +
+                                         tile90::Rows<D>::col(n8, 0)) =
+          __floats2bfloat162_rn(st.o[n8 * 4 + i * 2] * inv,
+                                st.o[n8 * 4 + i * 2 + 1] * inv);
+    // natural-log lse from the log2-unit max; -1e30 for a row with no key
+    if (threadIdx.x % 4 == 0)
+      lse[qh * p.sq + qp] =
+          l > 0.f ? st.m[i] * tile90::kLn2 + logf(l) : kNegInf;
   }
 }
 
@@ -508,15 +479,14 @@ int allow_smem(Kernel kernel, size_t smem) {
 template <int D>
 int fwd(const void* q, const void* k, const void* v, void* o, void* lse,
         int batch, const Problem& p, cudaStream_t stream) {
-  constexpr int RM = Pick<D>::RM, CN = Pick<D>::CN;
-  using T = Tiles<D, RM, CN>;
-  const size_t smem =
-      sizeof(float) * (T::BM * T::LD + 2 * T::BN * T::LD + T::BM * T::LS);
-  auto kernel = flash_fwd_kernel<D, RM, CN>;
-  const dim3 grid((p.sq + T::BM - 1) / T::BM, p.hq, batch);
+  constexpr int BN = FwdPick<D>::BN, WG = FwdPick<D>::WG;
+  constexpr int BM = tile90::kRows * WG;
+  const size_t smem = tile90::smem_bytes<D, BN, WG>();
+  auto kernel = flash_fwd_kernel<D, BN, WG>;
+  const dim3 grid((p.sq + BM - 1) / BM, p.hq, batch);
   const int err = allow_smem(kernel, smem);
   if (err) return err;
-  kernel<<<grid, kThreads, smem, stream>>>(
+  kernel<<<grid, WG * tile90::kWarpgroup, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
       static_cast<float*>(lse), p);

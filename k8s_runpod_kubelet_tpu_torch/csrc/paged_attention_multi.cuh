@@ -1,8 +1,9 @@
-// The paged multi-token attention kernel body shared by
-// paged_attention_multi.cu (bf16 K/V pages) and
-// paged_attention_multi_quant.cu (int8 K/V pages with f32 scales): each of
-// those sources states the TPU kernel it replaces and instantiates this
-// template for its page type behind its own __global__ kernel and C entry.
+// The paged multi-token attention kernel body of
+// paged_attention_multi_quant.cu (int8 K/V pages with f32 scales), which
+// states the TPU kernel it replaces and instantiates this template behind
+// its own __global__ kernel and C entry. (The bf16 kernel,
+// paged_attention_multi.cu, runs on the tensor cores on the tile body of
+// attention_tile_sm90.cuh instead; this body is f32 on the CUDA cores.)
 //
 // Function: q (B, K, Hq, D) attends the K/V pages (P, T, Hkv, D) its
 // page_table row (B, N) names. lengths (B,) counts valid tokens INCLUDING

@@ -136,15 +136,78 @@ _paged_attention_quant_plain = _single(_paged_attention_multi_quant_plain)
 
 @functools.cache
 def _launchers():
-    """The C entries of the bf16 and the int8-page kernels."""
+    """The C entries of the bf16 kernel (one pass, and split-KV with its
+    merge) and of the int8-page kernel."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    bf16 = _cuda.load("paged_attention_multi").paged_attention_multi_bf16
+    lib = _cuda.load("paged_attention_multi")
+    bf16, split = lib.paged_attention_multi_bf16, \
+        lib.paged_attention_multi_bf16_split
     bf16.argtypes = [p] * 6 + [i] * 7 + [f, f, i, p]
+    split.argtypes = [p] * 8 + [i] * 7 + [f, f, i, i, i, p]
     int8 = _cuda.load("paged_attention_multi_quant").paged_attention_multi_int8
     int8.argtypes = [p] * 8 + [i] * 7 + [f, f, i, p]
-    for fn in (bf16, int8):
+    for fn in (bf16, split, int8):
         fn.restype = i
-    return bf16, int8
+    return bf16, split, int8
+
+
+# the bf16 kernel's row tiles: 64 query rows a warpgroup, one warpgroup a
+# block when a sequence's rows fit in 64, else two
+_TILE_ROWS = 64
+# split-KV: a grid of fewer than _SPLIT_BELOW warpgroups an SM is split to
+# about _SPLIT_TARGET warpgroups an SM
+_SPLIT_BELOW, _SPLIT_TARGET = 2, 4
+
+
+def _warpgroups(n_rows: int) -> int:
+    return 1 if n_rows <= _TILE_ROWS else 2
+
+
+def _split_plan(batch: int, n_q: int, group: int, hkv: int,
+                table_width: int, sms: int) -> tuple[int, int]:
+    """(splits, pages per split) of the bf16 kernel's split-KV. A grid of
+    (row tiles x kv heads x sequences) blocks that holds fewer than
+    ``_SPLIT_BELOW`` warpgroups an SM (decode: 8 x 8 = 64 one-warpgroup
+    blocks on 132 SMs) cuts the table's columns into contiguous ranges of
+    ``pages per split`` so that about ``_SPLIT_TARGET`` warpgroups an SM
+    run; a fuller grid gets one split over every column. Computed from
+    shapes alone (the lengths stay on the card): each block then takes its
+    own range of the pages its rows see (``_split_ranges``) and skips the
+    work of a split past them."""
+    wg = _warpgroups(n_q * group)
+    tiles = -(-n_q * group // (_TILE_ROWS * wg))
+    blocks = batch * hkv * tiles * wg
+    if blocks >= _SPLIT_BELOW * sms or table_width <= 1:
+        return 1, max(table_width, 1)
+    want = min(-(-_SPLIT_TARGET * sms // blocks), table_width)
+    per = -(-table_width // want)
+    return -(-table_width // per), per
+
+
+def _split_ranges(length: int, first_row: int, last_row: int, n_q: int,
+                  group: int, page_tokens: int, window: Optional[int],
+                  pages_per_split: int) -> list[tuple[int, int]]:
+    """The page ranges [begin, end) the kernel's splits of one block read:
+    a block of rows first_row..last_row of a sequence of ``length`` tokens
+    (K = n_q new) sees the pages up to its newest query's, none at or past
+    ceil(length / T) and, under a window, none wholly behind its oldest
+    query's window; split s takes the s-th run of ``pages_per_split`` of
+    them. Empty splits are left out (the kernel's blocks for them write
+    max -1e30 and sum 0, which the merge weighs as nothing)."""
+    oldest = length - n_q + first_row // group
+    newest = length - n_q + last_row // group
+    live = -(-length // page_tokens)
+    end = 0 if newest < 0 else min(live, newest // page_tokens + 1)
+    begin = 0
+    if window is not None and oldest - window + 1 > 0:
+        begin = (oldest - window + 1) // page_tokens
+    return [(s, min(end, s + pages_per_split))
+            for s in range(begin, end, pages_per_split)]
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check_paged_shapes(q4, k_pages, v_pages, page_table, lengths,
@@ -217,16 +280,32 @@ def _launch_paged(q4, k_pages, v_pages, page_table, lengths, k_scale,
     _, t, hkv, _ = k_pages.shape
     out = torch.empty_like(q4)
     stream = torch.cuda.current_stream(q4.device).cuda_stream
-    pages = [k_pages.data_ptr(), v_pages.data_ptr()]
-    if k_scale is None:
-        fn = _launchers()[0]
+    cols = page_table.shape[1]
+    opts = (float(scale), float(logit_soft_cap or 0.0),
+            int(sliding_window or 0))
+    head = (q4.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr())
+    tail = (page_table.data_ptr(), lengths.data_ptr(), out.data_ptr())
+    if k_scale is not None:
+        code = _launchers()[2](*head, k_scale.data_ptr(), v_scale.data_ptr(),
+                               *tail, b, kq, hq, hkv, d, t, cols, *opts,
+                               stream)
+        _cuda.check(code, what)
+        return out
+    splits, per = _split_plan(b, kq, hq // hkv, hkv, cols,
+                              _sm_count(q4.device.index))
+    if splits == 1:
+        code = _launchers()[0](*head, *tail, b, kq, hq, hkv, d, t, cols,
+                               *opts, stream)
     else:
-        fn = _launchers()[1]
-        pages += [k_scale.data_ptr(), v_scale.data_ptr()]
-    code = fn(q4.data_ptr(), *pages, page_table.data_ptr(),
-              lengths.data_ptr(), out.data_ptr(), b, kq, hq, hkv, d, t,
-              page_table.shape[1], float(scale), float(logit_soft_cap or 0.0),
-              int(sliding_window or 0), stream)
+        # scratch of the splits: the unnormalised f32 accumulator and the
+        # (max, sum) of every output row, merged on the card
+        part_o = torch.empty((b, splits, kq, hq, d), dtype=torch.float32,
+                             device=q4.device)
+        part_ml = torch.empty((b, splits, kq, hq, 2), dtype=torch.float32,
+                              device=q4.device)
+        code = _launchers()[1](*head, *tail, part_o.data_ptr(),
+                               part_ml.data_ptr(), b, kq, hq, hkv, d, t,
+                               cols, *opts, splits, per, stream)
     _cuda.check(code, what)
     return out
 

@@ -1,0 +1,151 @@
+"""Time this tree's bf16 attention kernels against another tree's, in turns
+on one card: ``flash_fwd`` at every case of ``chip_smoke.py``'s phase 8,
+and ``paged_attention_multi`` (decode K=1 B=8, K=4 B=8, a 1024-token
+prefill chunk) and ``paged_attention`` (decode B=8) at phase 3's shapes and
+inputs.
+
+Run from the repository root on a machine with one NVIDIA card, with the
+other tree unpacked somewhere (for example ``git archive <commit> | tar -x
+-C .archive/parent``):
+
+    python -m k8s_runpod_kubelet_tpu_torch.workloads.kernel_ab \
+        --other .archive/parent [--out ab.json]
+
+The other tree's package is imported under another name and builds its
+own kernels into its own ``_build``. Each shape is timed other, this,
+this, other (``chip_smoke.time_ms``: median of CUDA-event times, the L2
+flushed before each launch), and the two outputs' largest difference is
+printed beside the times. Prints one JSON object (also written to
+``--out``) with the card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib
+import importlib.util
+import json
+import os
+import sys
+import threading
+from pathlib import Path
+
+import torch
+
+PKG = "k8s_runpod_kubelet_tpu_torch"
+
+
+def _other_attention(root: str):
+    """The other tree's ``ops.attention``, its package imported as
+    ``ab_other_<pkg>``."""
+    pkg_dir = Path(root).resolve() / PKG
+    alias = f"ab_other_{PKG}"
+    spec = importlib.util.spec_from_file_location(
+        alias, pkg_dir / "__init__.py",
+        submodule_search_locations=[str(pkg_dir)])
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[alias] = module
+    spec.loader.exec_module(module)
+    return (importlib.import_module(f"{alias}.ops.attention"),
+            importlib.import_module(f"{alias}.ops._cuda"))
+
+
+def _build_all(cudas) -> None:
+    """Both trees' attention sources, one nvcc each, all at once."""
+    errors = []
+
+    def build(cuda, name):
+        try:
+            cuda.load(name)
+        except Exception as e:   # re-raised after the join
+            errors.append(e)
+
+    threads = [threading.Thread(target=build, args=(c, n)) for c in cudas
+               for n in ("paged_attention_multi", "flash_attention")]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--other", required=True,
+                   help="root of the tree to compare against")
+    p.add_argument("--out", default="")
+    args = p.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("kernel_ab: needs an NVIDIA card", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.getcwd())
+    import chip_smoke as cs
+
+    from ..ops import _cuda
+    from ..ops import attention as this
+
+    other, other_cuda = _other_attention(args.other)
+    _build_all([_cuda, other_cuda])
+    dev = torch.device("cuda")
+    card = cs.card_line()
+    cs.log(f"card: {card}")
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    rows = []
+
+    def turns(kernel, case, call):
+        outs = [call(m) for m in (other, this)]
+        torch.cuda.synchronize()
+        diff = max((a.float() - b.float()).abs().max().item()
+                   for a, b in zip(*[o if isinstance(o, tuple) else (o,)
+                                     for o in outs]))
+        times = [cs.time_ms(torch, lambda m=m: call(m), reps, flush)
+                 for m in (other, this, this, other)]
+        rec = {"kernel": kernel, "case": case,
+               "other_ms": [times[0], times[3]], "this_ms": times[1:3],
+               "max_abs_diff": diff}
+        rows.append(rec)
+        cs.log(f"  {kernel} {case}: other {times[0]:.4f}, this "
+               f"{times[1]:.4f}, this {times[2]:.4f}, other {times[3]:.4f} "
+               f"ms; outputs differ by at most {diff:.3e}")
+
+    decode = [1, 17, 300, 511, 1024, 1500, 1999, 2048]
+    for case, b, kq, lengths in (
+            ("decode K=1 B=8", 8, 1, decode),
+            ("K=4 B=8", 8, 4, [4, 40, 333, 700, 1029, 1600, 1999, 2048]),
+            ("prefill K=1024 B=1", 1, 1024, [100 + 1024])):
+        q, k, v, table, lens, _ = cs.attention_inputs(torch, dev, b, kq,
+                                                      lengths)
+        scale = q.shape[3] ** -0.5
+        reps = 50
+        turns("paged_attention_multi", case,
+              lambda m: m.paged_attention_multi(q, k, v, table, lens,
+                                                sm_scale=scale))
+        if kq == 1:
+            q1 = q[:, 0].contiguous()
+            turns("paged_attention", case.replace("K=1 ", ""),
+                  lambda m: m.paged_attention(q1, k, v, table, lens,
+                                              sm_scale=scale))
+    for name, b, hq, hkv, s, d, causal, window, cap in cs.FLASH_CASES:
+        gen = torch.Generator().manual_seed(cs.SEED + s + d + hkv)
+        q = torch.randn((b, hq, s, d), generator=gen)
+        torch.randn((b, hq, s, d), generator=gen)    # chip_smoke's dO
+        k, v = (torch.randn((b, hkv, s, d), generator=gen) for _ in range(2))
+        q, k, v = (t.to(dev, torch.bfloat16) for t in (q, k, v))
+        fa = dict(causal=causal, sm_scale=d ** -0.5, sliding_window=window,
+                  logit_soft_cap=cap)
+        reps = 5 if b * hq * s * s > 2 ** 31 else 10
+        turns("flash_fwd", name, lambda m: m.flash_fwd(q, k, v, **fa))
+    result = {"card": card, "device": torch.cuda.get_device_name(0),
+              "other": args.other, "ab": rows}
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)),
+                    exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(result, f, indent=1)
+    print(json.dumps(result))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -58,7 +58,8 @@ FAMILIES = (
     ("MLA attention", ("paged_attention_multi_mla_kernel",)),
     ("quant attention", ("paged_attention_multi_quant_kernel",)),
     ("int4 GEMM", ("int4_matmul",)),
-    ("paged_attention_multi", ("paged_attention_multi_kernel",)),
+    ("paged_attention_multi", ("paged_attention_multi_kernel",
+                               "paged_attention_merge_kernel")),
     ("flash_fwd", ("flash_fwd_kernel",)),
     ("flash_dq", ("flash_dq_kernel",)),
     ("flash_dkv", ("flash_dkv_kernel",)),

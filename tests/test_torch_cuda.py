@@ -246,6 +246,87 @@ def test_flash_kernels_reject_what_they_do_not_take(cuda):
         flash_dkv(q, k, v, do, lse.cpu(), lse, causal=False, sm_scale=0.1)
 
 
+# -- the tensor-core tile's edges (csrc/attention_tile_sm90.cuh) ---------------------
+
+TILE_FLASH_CASES = {
+    # name: (B, Hq, Hkv, Sq, Sk, D, causal, window, soft cap)
+    "s129_d64": (1, 4, 2, 129, 129, 64, True, None, None),
+    "s191_d256_window": (1, 2, 1, 191, 191, 256, True, 50, None),
+    "s200_sk70_window_blind_rows": (1, 4, 2, 200, 70, 128, True, 16, None),
+    "s65_sk300_noncausal_cap": (2, 4, 4, 65, 300, 128, False, None, 10.0),
+}
+
+
+@pytest.mark.parametrize("name", sorted(TILE_FLASH_CASES))
+def test_flash_fwd_tile_edges_match_plain(cuda, name):
+    """S off the 64-row and 64-key tiles, D = 64 and 256, and rows that see
+    no key (o = 0, lse = -1e30), per element at the chip check's
+    tolerance."""
+    b, hq, hkv, sq, sk, d, causal, window, cap = TILE_FLASH_CASES[name]
+    gen = torch.Generator().manual_seed(7)
+    q = torch.randn((b, hq, sq, d), generator=gen).to(cuda, torch.bfloat16)
+    k, v = (torch.randn((b, hkv, sk, d), generator=gen)
+            .to(cuda, torch.bfloat16) for _ in range(2))
+    args = dict(causal=causal, sm_scale=d ** -0.5, sliding_window=window,
+                logit_soft_cap=cap)
+    o, lse = flash_fwd(q, k, v, **args)
+    o_ref, lse_ref = _flash_fwd_plain(q.float(), k.float(), v.float(),
+                                      **args)
+    _close_bf16(o, o_ref)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=1e-5)
+    if sq > sk and window is not None:
+        blind = torch.arange(sq, device=cuda) - window + 1 >= sk
+        assert bool(blind.any())
+        assert torch.all(o[:, :, blind] == 0)
+        assert torch.all(lse[:, :, blind] == -1e30)
+
+
+TILE_PAGED_CASES = {
+    # name: (B, K, Hq, Hkv, D, T, cols, lengths, soft cap, window)
+    # decode splits of 15 pages (240 positions): boundaries mid-tile and
+    # mid-sequence, and sequences shorter than one split
+    "decode_split_edges": (8, 1, 32, 8, 128, 16, 128,
+                           [239, 240, 241, 481, 1023, 1024, 1025, 2047],
+                           None, None),
+    "k4_split_d64_window": (8, 4, 16, 4, 64, 16, 64,
+                            [4, 63, 64, 65, 500, 700, 900, 1024], None, 100),
+    "decode_split_d256_softcap": (4, 1, 8, 4, 256, 8, 64, [1, 100, 257, 512],
+                                  5.0, None),
+    "rows_65_two_warpgroups": (2, 13, 10, 2, 128, 16, 32, [13, 300], None,
+                               None),
+    "rows_129_two_blocks_window": (1, 43, 6, 2, 128, 16, 16, [43 + 150],
+                                   None, 60),
+    # 40 sequences fill the card: one pass, one warpgroup a block
+    "decode_b40_one_pass": (40, 1, 32, 8, 128, 16, 32,
+                            [1 + 13 * i for i in range(40)], None, None),
+}
+
+
+@pytest.mark.parametrize("name", sorted(TILE_PAGED_CASES))
+def test_paged_attention_multi_tile_edges_match_plain(cuda, name):
+    """Split-KV boundaries inside a sequence and inside a 64-key tile, D =
+    64 and 256, row tiles of 65 and 129 rows, a window and a soft cap, per
+    element at the chip check's tolerance against the f32 plain."""
+    from k8s_runpod_kubelet_tpu_torch.ops.attention import _split_plan
+    b, kq, hq, hkv, d, t, cols, lengths, cap, window = TILE_PAGED_CASES[name]
+    q, k, v, table, lens = _case(cuda, b, kq, hq, hkv, d, t, cols, lengths)
+    splits = _split_plan(b, kq, hq // hkv, hkv, cols,
+                         torch.cuda.get_device_properties(cuda)
+                         .multi_processor_count)[0]
+    if name.startswith(("decode_split", "k4_split")):
+        assert splits > 1
+    if name.endswith("one_pass"):
+        assert splits == 1
+    args = dict(logit_soft_cap=cap, sliding_window=window)
+    before = paged_attention_multi.launches
+    out = paged_attention_multi(q, k, v, table, lens, **args)
+    torch.cuda.synchronize()
+    assert paged_attention_multi.launches == before + 1
+    ref = _paged_attention_multi_plain(q.float(), k, v, table, lens,
+                                       sm_scale=d ** -0.5, **args)
+    _close_bf16(out, ref)
+
+
 # -- int8 pages, the single-token forms, int4 -----------------------------------------
 
 def _int8_pages(k, v):
