@@ -23,8 +23,8 @@ print the final ``ok`` line):
    together), and the Triton RMSNorm kernel, with their seconds and ptxas
    register/spill lines; where the toolkit has ``cuobjdump``, the HGMMA
    (wgmma) and HMMA counts of every kernel of the two tensor-core sources
-   (an instantiation of the bf16 ``paged_attention_multi`` or of
-   ``flash_fwd`` without HGMMA fails the phase);
+   (an instantiation of the bf16 ``paged_attention_multi``, ``flash_fwd``,
+   ``flash_dq`` or ``flash_dkv`` without HGMMA fails the phase);
 3. kernels vs plain on the card, at the shapes the 8B main path gives
    them: ``paged_attention_multi`` (decode K=1 B=8 with ragged lengths up
    to 2048, K=4 B=8, a 1024-token prefill chunk behind a 100-token
@@ -49,9 +49,12 @@ print the final ``ok`` line):
    operations over the peak for their type, whichever is larger), the
    plain version's time, and one PyTorch library call's time for the
    same function (SDPA over the gathered K/V with the same mask,
-   ``F.rms_norm``) or, where none takes the kernel's inputs, a labelled
-   yardstick (SDPA over the dequantized K/V; ``torch.matmul`` by the
-   dequantized bf16 weight), which the port itself never calls;
+   ``F.rms_norm``, ``torch.ops.aten._weight_int4pack_mm`` on the same
+   nibbles and bf16 group scales, held to the plain version by relative
+   L2, beside ``torch.matmul`` by the dequantized bf16 weight as a
+   yardstick) or, where no single call takes the kernel's inputs (int8
+   pages), a labelled yardstick (SDPA over the dequantized K/V), which the
+   port itself never calls;
 3b. MLA kernels vs plain at mla-8b's shapes (32 heads, latent 512, rope
    64, 16-token pages, f32 absorbed queries): ``paged_attention_multi_mla``
    and ``paged_attention_multi_mla_quant`` (int8 latents that the model's
@@ -118,10 +121,12 @@ print the final ``ok`` line):
    1e-5 |plain|, f32); the whole autograd path against autograd through
    ``_attention_plain`` in f32 (gradients within 1% of each tensor's
    largest magnitude: delta comes from the bf16 o, as in the JAX
-   package); three broken controls scored with the same check (p.v
+   package); four broken controls scored with the same check (p.v
    accumulated in bf16 over 64-key tiles; P rounded to bf16 before P.V;
-   dK/dV with one q head of each group dropped; each must read above
-   1x); times of each kernel, its
+   dK/dV with one q head of each group dropped; dS and P rounded to bf16
+   before the products that accumulate dq, dk and dv, each of the three
+   scored and the least share kept; each must read above 1x); times of
+   each kernel, its
    plain version and SDPA forward / autograd backward (no SDPA for a soft
    cap; the backward computes dq, dk and dv together, so it is the library
    time of both backward kernels), and its bound (operations over the
@@ -184,8 +189,9 @@ SEED = 20261016
 # the kernels on the tensor cores, by source: every instantiation named so
 # must hold wgmma instructions
 TENSOR_CORE_KERNELS = {
-    "paged_attention_multi": "paged_attention_multi_kernel",
-    "flash_attention": "flash_fwd_kernel"}
+    "paged_attention_multi": ("paged_attention_multi_kernel",),
+    "flash_attention": ("flash_fwd_kernel", "flash_dq_kernel",
+                        "flash_dkv_kernel")}
 # Kernel and plain version both compute in f32 and round once to bf16, so
 # they differ by at most one bf16 ulp of the output, which is <= 2^-7 |y|;
 # RTOL is 1.3 ulps, ATOL covers f32 sum-order noise near zero. Both apply
@@ -723,15 +729,41 @@ def int4_plain_rows(torch, h, q4, scale):
                       for r in range(0, h.shape[0], step)])
 
 
+# the library's int4 GEMM against the plain version: it takes the scales in
+# bf16 (2^-9 relative) and dequantizes each weight to bf16 before its f32
+# sums, so it is held by the relative L2 norm of its difference, not per
+# element
+INT4PACK_REL_L2_LIMIT = 1e-2
+
+
+def int4pack_call(torch, h, q4, scale):
+    """``torch.ops.aten._weight_int4pack_mm`` set up for the port's packed
+    weight: the same nibbles (q - 8 with q stored + 8), repacked to the
+    library's (out, in/2) bytes with the even in-element in the high nibble
+    and tiled by ``_convert_weight_to_int4pack``, the group scales in bf16
+    beside zero points of 0. Returns the call."""
+    kin2, out = q4.shape
+    group = 2 * kin2 // scale.shape[0]
+    nib = ((q4 & 0xF) << 4) | (q4 >> 4)
+    packed = torch.ops.aten._convert_weight_to_int4pack(
+        nib.t().contiguous(), 8)
+    sz = torch.stack([scale[:, 0, :], torch.zeros_like(scale[:, 0, :])],
+                     dim=-1).bfloat16().contiguous()
+    return lambda: torch.ops.aten._weight_int4pack_mm(h, packed, group, sz)
+
+
 def int4_case(torch, dev, flush, rows, kin, out, leaves):
     """``int4_matmul`` at one projection shape against its plain version:
     random weights (normal * 0.02) quantized by the port's quantizer on the
     card, bf16 activations. Controls, scored by the same check: the two
     nibbles of every byte swapped, and each group given its neighbour's
     scale. Times: the kernel, the plain version (row blocks, see
-    ``int4_plain_rows``) and, as a yardstick the port never calls,
-    ``torch.matmul`` of h by the dequantized bf16 weight (cuBLAS, 4x the
-    weight bytes)."""
+    ``int4_plain_rows``), the library's int4 GEMM
+    ``_weight_int4pack_mm`` on the same nibbles and group scales (the same
+    function up to the scales' bf16 rounding; its output is held against
+    the plain version by relative L2, ``INT4PACK_REL_L2_LIMIT``) and, as a
+    yardstick the port never calls, ``torch.matmul`` of h by the
+    dequantized bf16 weight (cuBLAS, 4x the weight bytes)."""
     from k8s_runpod_kubelet_tpu_torch.models.quant import (
         _quantize_leaf_int4, dequantize)
     from k8s_runpod_kubelet_tpu_torch.ops import int4_matmul
@@ -764,14 +796,24 @@ def int4_case(torch, dev, flush, rows, kin, out, leaves):
         if not sh > 1:
             raise RuntimeError(f"int4_matmul {name}: the {control} control "
                                "passed the check")
-    del ref, swapped, hf
+    int4pack = int4pack_call(torch, h, q4, scale)
+    lib_y = int4pack()
+    lib_err, lib_share = tolerance_check(lib_y, ref)
+    rel = ((lib_y.float() - ref).norm() / ref.norm()).item()
+    int4pack_check = {"max_abs_err": lib_err, "tolerance_share": lib_share,
+                      "rel_l2": rel, "limit": INT4PACK_REL_L2_LIMIT}
+    if not rel <= INT4PACK_REL_L2_LIMIT:
+        raise RuntimeError(f"_weight_int4pack_mm {name}: relative L2 {rel} "
+                           "from the plain version")
+    del ref, swapped, hf, lib_y
     w_bf16 = dequantize(leaf).bfloat16()
     big = rows * kin * out > 2**34
     ms = time_ms(torch, lambda: int4_matmul(h, q4, scale), 5 if big else 30,
                  flush)
     plain_ms = time_ms(torch, lambda: int4_plain_rows(torch, h, q4, scale),
                        2 if big else 5, flush)
-    library_ms = time_ms(torch, lambda: torch.matmul(h, w_bf16), 20, flush)
+    library_ms = time_ms(torch, int4pack, 20, flush)
+    yardstick_ms = time_ms(torch, lambda: torch.matmul(h, w_bf16), 20, flush)
     nbytes = q4.numel() + scale.numel() * 4 + h.numel() * 2 + rows * out * 2
     ops = 2 * rows * kin * out
     bound_ms, bound_by = bound(nbytes, ops, BF16_TENSOR_FLOPS)
@@ -779,6 +821,7 @@ def int4_case(torch, dev, flush, rows, kin, out, leaves):
            "max_abs_err": err, "tolerance": TOLERANCE,
            "tolerance_share": share, "controls": controls, "ms": ms,
            "plain_ms": plain_ms, "library_ms": library_ms,
+           "int4pack_check": int4pack_check, "yardstick_ms": yardstick_ms,
            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
            "ops": ops, "tflops": ops / ms / 1e9,
            "gb_per_s": nbytes / ms / 1e6}
@@ -789,8 +832,10 @@ def int4_case(torch, dev, flush, rows, kin, out, leaves):
         f"{controls['neighbour_group_scale']['tolerance_share']:.0f}) kernel "
         f"{ms:.4f} ms ({rec['tflops']:.1f} TFLOP/s, {rec['gb_per_s']:.0f} "
         f"GB/s), bound {bound_ms:.4f} ms ({bound_by}), plain {plain_ms:.3f} "
-        f"ms, library (matmul by the dequantized bf16 weight) "
-        f"{library_ms:.4f} ms")
+        f"ms, library (_weight_int4pack_mm) {library_ms:.4f} ms (relative L2 "
+        f"{rel:.2e}, per element {lib_share:.2f} of the tolerance), "
+        f"yardstick (matmul by the dequantized bf16 weight) "
+        f"{yardstick_ms:.4f} ms")
     return rec
 
 
@@ -928,7 +973,38 @@ def flash_controls(torch, q, k, v, do, args, o_ref, dk_ref, dv_ref,
               tolerance_check(dv_c.bfloat16(), dv_ref)]
     out["dropped_q_head"] = {"max_abs_err": max(e for e, _ in checks),
                              "tolerance_share": max(s for _, s in checks)}
+    del dk_c, dv_c, dropped
     return out
+
+
+def bf16_ds_control(torch, q, k, v, do, args, lse, delta, refs) -> dict:
+    """The backward kernels' control: dS (and P) rounded to bf16 alone
+    before the products that accumulate dq = scale dS k, dk = scale dS^T q
+    and dv = P^T dO, scored against the plain versions' (dq, dk, dv) by the
+    same check; the least of the three shares is the control's (every one
+    must miss the check)."""
+    from k8s_runpod_kubelet_tpu_torch.ops.attention import _flash_ds
+    b, hq, s, d = q.shape
+    scale = args["sm_scale"]
+    p, ds, qg, dog = _flash_ds(q.float(), k.float(), v.float(), do.float(),
+                               lse, delta, args["causal"], scale,
+                               args["sliding_window"],
+                               args["logit_soft_cap"])
+    p, ds = p.bfloat16().float(), ds.bfloat16().float()
+    kf = k.float()
+    dq = torch.einsum("bhgqk,bhkd->bhgqd", ds, kf).reshape(b, hq, s, d)
+    dk = torch.einsum("bhgqk,bhgqd->bhkd", ds, qg.float()) * scale
+    dv = torch.einsum("bhgqk,bhgqd->bhkd", p, dog.float())
+    del p, ds
+    shares = {}
+    for name, got, ref in (("dq", dq * scale, refs[0]), ("dk", dk, refs[1]),
+                           ("dv", dv, refs[2])):
+        err, share = tolerance_check(got.bfloat16(), ref)
+        shares[name] = {"max_abs_err": err, "tolerance_share": share}
+    return {"max_abs_err": max(c["max_abs_err"] for c in shares.values()),
+            "tolerance_share": min(c["tolerance_share"]
+                                   for c in shares.values()),
+            "by_gradient": shares}
 
 
 def flash_case(torch, F, dev, flush, name, b, hq, hkv, s, d, causal, window,
@@ -968,6 +1044,8 @@ def flash_case(torch, F, dev, flush, name, b, hq, hkv, s, d, causal, window,
                             tolerance_check(dv, dv_ref)]}
     controls = flash_controls(torch, q, k, v, do, args, o_ref, dk_ref,
                               dv_ref, lse, delta)
+    controls["bf16_ds"] = bf16_ds_control(torch, q, k, v, do, args, lse,
+                                          delta, (dq_ref, dk_ref, dv_ref))
     del qf, kf, vf, dof, dq_ref, dk_ref, dv_ref
     for kname, results in checks.items():
         for err, share in results:
@@ -1052,7 +1130,10 @@ def flash_case(torch, F, dev, flush, name, b, hq, hkv, s, d, causal, window,
     log(f"  flash {name}: SDPA {lib_txt}; controls: bf16 accumulation "
         f"{controls['bf16_accumulation']['tolerance_share']:.2f}, bf16 P "
         f"{controls['bf16_p']['tolerance_share']:.2f}, dropped q "
-        f"head {controls['dropped_q_head']['tolerance_share']:.0f}; "
+        f"head {controls['dropped_q_head']['tolerance_share']:.0f}, bf16 dS "
+        + "/".join(f"{c['tolerance_share']:.2f}" for c in
+                   controls["bf16_ds"]["by_gradient"].values())
+        + " (dq/dk/dv); "
         f"autograd vs plain (share of 1% of scale) dq {e2e['dq']:.2f} dk "
         f"{e2e['dk']:.2f} dv {e2e['dv']:.2f}")
     for kname, r in rec["kernels"].items():
@@ -2116,13 +2197,15 @@ def main(argv=None) -> int:
                quant_launches["paged_attention_multi_quant"],
                {"serve_int4_kv_int8":
                     quant_launches["paged_attention_multi_quant"]},
-               sdpa + " (a yardstick: no PyTorch call reads int8 pages)"),
+               sdpa + " (a yardstick: no single PyTorch call reads int8 "
+               "pages)"),
         record("int4_matmul", "cuda", csrc + "int4_matmul.cu",
                "k8s_runpod_kubelet_tpu/ops/int4_matmul.py:64", int4,
                quant_launches["int4_matmul"],
                {"serve_int4_kv_int8": quant_launches["int4_matmul"]},
-               "torch.matmul by the dequantized bf16 weight (a yardstick: "
-               "no PyTorch call takes int4 weights)"),
+               "torch.ops.aten._weight_int4pack_mm on the same nibbles and "
+               "bf16 group scales (yardstick_ms: torch.matmul by the "
+               "dequantized bf16 weight)"),
     ] + [
         # the single-token forms: no model path calls them in either
         # package (decode runs the multi-token kernels at K = 1); their
@@ -2134,7 +2217,8 @@ def main(argv=None) -> int:
         for kname, source, line, library_call in (
             ("paged_attention", "paged_attention_multi.cu", "608", sdpa),
             ("paged_attention_quant", "paged_attention_multi_quant.cu",
-             "884", sdpa + " (a yardstick)"))
+             "884", sdpa + " (a yardstick: no single PyTorch call reads "
+             "int8 pages)"))
     ]
     mla_sdpa = ("SDPA over the gathered latents in bf16, q = [q_lat, "
                 "q_rope], k = [c, kr], v = c, one kv head (enable_gqa), "
@@ -2155,7 +2239,7 @@ def main(argv=None) -> int:
                 "serve_mla_kv_int8":
                     mla_q_launches["paged_attention_multi_mla_quant"]},
                mla_sdpa + " over the dequantized latents (a yardstick: no "
-               "PyTorch call reads int8 latents)"),
+               "single PyTorch call reads int8 latents)"),
     ] + [
         # the single-token MLA forms: no model path calls them (decode runs
         # the multi-token kernels at K = 1); counted in both MLA bursts,
@@ -2168,7 +2252,8 @@ def main(argv=None) -> int:
             ("paged_attention_mla", "paged_attention_multi_mla.cu", "1078",
              mla_sdpa),
             ("paged_attention_mla_quant", "paged_attention_multi_mla_quant.cu",
-             "1269", mla_sdpa + " (a yardstick)"))
+             "1269", mla_sdpa + " over the dequantized latents (a "
+             "yardstick: no single PyTorch call reads int8 latents)"))
     ]
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}

@@ -3,7 +3,10 @@
 // paged multi-token attention (paged_attention_multi.cu). Each of those
 // sources states the TPU kernel it replaces and gives this body its rows
 // (which query rows a block owns, and the key range each row sees) and its
-// key rows (contiguous for flash, gathered page by page for paged).
+// key rows (contiguous for flash, gathered page by page for paged). The
+// flash backward kernels (flash_attention.cu) build on its primitives:
+// start_scores for S = Q K^T-shaped products, split_p for any f32 operand
+// (P, dS) and start_rs for the products that take it.
 //
 // The tile: a warpgroup (4 warps, 128 threads) owns 64 query rows; a block
 // of WG warpgroups shares each staged K/V tile of BN keys.
@@ -312,6 +315,22 @@ __device__ __forceinline__ void start_scores(float (&s)[BN / 2], uint32_t q_s,
         desc(k_s + (kk / 4) * BN * 128 + (kk % 4) * 32, 16, 1024), kk > 0);
 }
 
+// acc += A B over one staged tile of BN rows: A (64 x BN, f32) as its bf16
+// hi and lo fragments, B the tile's BN rows x N columns read MN-major (its
+// rows are the reduced dimension): started and not waited for.
+template <int N, int BN>
+__device__ __forceinline__ void start_rs(float (&acc)[N / 2],
+                                         const uint32_t (&ah)[BN / 16][4],
+                                         const uint32_t (&al)[BN / 16][4],
+                                         uint32_t b_s) {
+#pragma unroll
+  for (int kk = 0; kk < BN / 16; ++kk) {
+    const uint64_t db = desc(b_s + kk * 16 * 128, BN * 128, 1024);
+    MmaRS<N>::run(acc, ah[kk], db);
+    MmaRS<N>::run(acc, al[kk], db);
+  }
+}
+
 // O += P V of one staged V tile, P as its bf16 hi and lo A fragments:
 // started and not waited for.
 template <int D, int BN>
@@ -319,12 +338,7 @@ __device__ __forceinline__ void start_pv(Rows<D>& st,
                                          const uint32_t (&ph)[BN / 16][4],
                                          const uint32_t (&pl)[BN / 16][4],
                                          uint32_t v_s) {
-#pragma unroll
-  for (int kk = 0; kk < BN / 16; ++kk) {
-    const uint64_t dv = desc(v_s + kk * 16 * 128, BN * 128, 1024);
-    MmaRS<D>::run(st.o, ph[kk], dv);
-    MmaRS<D>::run(st.o, pl[kk], dv);
-  }
+  start_rs<D, BN>(st.o, ph, pl, v_s);
 }
 
 // The tile's scores s (keys key0 ..) to probabilities in place: scale, soft

@@ -27,27 +27,38 @@
 //
 // Design: the TPU kernels carry the online-softmax state, or the dQ/dK/dV
 // sums, in VMEM across a sequential ("arbitrary") grid axis; Hopper runs
-// blocks in no order, so that axis becomes a loop inside the block.
-//   - forward: on the tensor cores, the tile body of attention_tile_sm90.cuh
-//     (wgmma Q K^T, f32 online softmax on the accumulator fragments, P V as
-//     two bf16 products of P's hi and lo halves, cp.async double-buffered
-//     K/V tiles). One block per (b, q head, tile of 128 query rows: two
+// blocks in no order, so that axis becomes a loop inside the block. All
+// three run on the tensor cores through the tile primitives of
+// attention_tile_sm90.cuh: wgmma with hand-built descriptors over
+// 128-byte-swizzled shared tiles, cp.async double buffering, f32
+// accumulators in registers. Every product of two bf16 operands is exact in
+// f32; every product with an f32 operand (P, dS) takes it as bf16 hi + lo
+// register fragments (split_p), two wgmmas into one f32 accumulator.
+//   - forward: the tile body's attend (online softmax on the accumulator
+//     fragments, P V split). One block per (b, q head, 128 query rows: two
 //     warpgroups sharing each staged K/V tile); the block walks only the k
 //     tiles of its causal (and window) band, the longest bands first.
-//   - dQ: one block per (b, q head, tile of BM query rows) over the same
-//     band.
-//   - dK/dV: one block per (b, kv head, tile of BN key rows); the block walks
-//     the group's q heads x the q tiles that can see its keys, so the GQA sum
-//     stays in registers and no atomics are needed (the same choice the TPU
-//     kernel makes by gridding over kv heads).
-// The dQ and dK/dV blocks stage their tiles in shared memory as f32 (rows
-// padded to an odd stride, so column walks hit distinct banks). 256 threads
-// form a 16 x 16 grid; thread (ty, tx) owns rows ty + 16 i and columns
-// tx + 16 j of each tile: a register-tiled product on the CUDA cores in f32
-// (67 TFLOP/s peak), which bounds those two kernels. D is a template
-// parameter (64, 128, 256); D = 256 uses 32-row tiles there to stay inside
-// shared memory and registers. Tensor-core tiles for the backward are left
-// to later work.
+//   - dQ: one block per (b, q head, 128 query rows, two warpgroups). Q, dO,
+//     lse and delta are staged once; the block walks the K/V tiles of its
+//     band (BN keys), the longest bands of the whole grid first. Per tile:
+//     S = Q K^T and dP = dO V^T (both operands K-major), P = exp2(S scale
+//     log2 e - lse log2 e) with masked entries exactly 0, dS = P (dP -
+//     delta), dQ += dS K with K read MN-major from the same swizzled bytes
+//     (the forward's read of V). Step t starts S(t) and dP(t) with dQ +=
+//     dS(t-1) K(t-1), and computes dS(t) while that product runs: three K
+//     stages, two V stages.
+//   - dK/dV: one block per (b, kv head, 64 key rows, one warpgroup; two
+//     blocks an SM, so one block's elementwise work runs under the other's
+//     products). K and V are staged once; the block walks the group's q
+//     heads x the q tiles (BN rows) that can see its keys, so the GQA sum
+//     stays in registers and no atomics are needed. The transposed forms
+//     keep every f32 operand a register A fragment: S^T = K Q^T and dP^T =
+//     V dO^T (shared x shared), dV += P^T dO and dK += dS^T Q with dO and Q
+//     read MN-major. At D = 256 the two 64 x 256 f32 accumulators would
+//     take 256 registers a thread: the block runs two passes over its band
+//     instead, dV (S^T only) then dK, in one accumulator.
+// BN is 64, or 32 at D = 256, whose m64n256 accumulator takes 128 registers
+// a thread.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -57,7 +68,7 @@
 
 namespace {
 
-constexpr int kThreads = 256;        // a 16 x 16 thread grid
+using bf16 = __nv_bfloat16;
 constexpr float kNegInf = -1e30f;    // the reference's NEG_INF
 
 struct Problem {
@@ -65,107 +76,6 @@ struct Problem {
   float scale, soft_cap;             // soft_cap <= 0: none
   int causal, window;                // window <= 0: none (needs causal)
 };
-
-__device__ __forceinline__ bool keep(const Problem& p, int qp, int kp) {
-  if (kp >= p.sk) return false;
-  if (!p.causal) return true;
-  return kp <= qp && (p.window <= 0 || qp - kp < p.window);
-}
-
-// rows [r0, r0 + R) of a (n_rows, D) bf16 slab into f32 shared memory with
-// row stride LD, times mul; rows past n_rows read as zero
-template <int R, int D, int LD>
-__device__ __forceinline__ void load_tile(float* dst,
-                                          const __nv_bfloat16* __restrict__ src,
-                                          int r0, int n_rows, float mul) {
-  constexpr int V = D / 8;  // 16-byte vectors per row
-  for (int idx = threadIdx.x; idx < R * V; idx += kThreads) {
-    const int r = idx / V;
-    const int c = (idx % V) * 8;
-    float* d = dst + r * LD + c;
-    if (r0 + r < n_rows) {
-      const uint4 raw =
-          *reinterpret_cast<const uint4*>(src + size_t(r0 + r) * D + c);
-      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float2 f = __bfloat1622float2(h[i]);
-        d[2 * i] = f.x * mul;
-        d[2 * i + 1] = f.y * mul;
-      }
-    } else {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) d[i] = 0.f;
-    }
-  }
-}
-
-// rows [r0, r0 + R) of a (n_rows,) f32 vector; past the end reads as zero
-template <int R>
-__device__ __forceinline__ void load_rows(float* dst,
-                                          const float* __restrict__ src,
-                                          int r0, int n_rows) {
-  for (int r = threadIdx.x; r < R; r += kThreads)
-    dst[r] = r0 + r < n_rows ? src[r0 + r] : 0.f;
-}
-
-// acc[i][j] = sum_d A[ty + 16 i][d] * B[tx + 16 j][d]
-template <int RM, int CN, int D, int LD>
-__device__ __forceinline__ void mm_abt(float (&acc)[RM][CN], const float* A,
-                                       const float* B, int ty, int tx) {
-#pragma unroll
-  for (int i = 0; i < RM; ++i)
-#pragma unroll
-    for (int j = 0; j < CN; ++j) acc[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < D; ++d) {
-    float a[RM], b[CN];
-#pragma unroll
-    for (int i = 0; i < RM; ++i) a[i] = A[(ty + 16 * i) * LD + d];
-#pragma unroll
-    for (int j = 0; j < CN; ++j) b[j] = B[(tx + 16 * j) * LD + d];
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int j = 0; j < CN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-  }
-}
-
-// acc[i][j] += sum_k P[ty + 16 i][k] * B[k][tx + 16 j], k < K
-template <int RM, int DC, int K, int LDP, int LDB>
-__device__ __forceinline__ void mm_ab(float (&acc)[RM][DC], const float* P,
-                                      const float* B, int ty, int tx) {
-#pragma unroll 4
-  for (int k = 0; k < K; ++k) {
-    float a[RM], b[DC];
-#pragma unroll
-    for (int i = 0; i < RM; ++i) a[i] = P[(ty + 16 * i) * LDP + k];
-#pragma unroll
-    for (int j = 0; j < DC; ++j) b[j] = B[k * LDB + tx + 16 * j];
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int j = 0; j < DC; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-  }
-}
-
-// acc[i][j] += sum_r P[r][ty + 16 i] * B[r][tx + 16 j], r < R
-template <int RK, int DC, int R, int LDP, int LDB>
-__device__ __forceinline__ void mm_atb(float (&acc)[RK][DC], const float* P,
-                                       const float* B, int ty, int tx) {
-#pragma unroll 4
-  for (int r = 0; r < R; ++r) {
-    float a[RK], b[DC];
-#pragma unroll
-    for (int i = 0; i < RK; ++i) a[i] = P[r * LDP + ty + 16 * i];
-#pragma unroll
-    for (int j = 0; j < DC; ++j) b[j] = B[r * LDB + tx + 16 * j];
-#pragma unroll
-    for (int i = 0; i < RK; ++i)
-#pragma unroll
-      for (int j = 0; j < DC; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-  }
-}
 
 // the k tiles [begin, end) a q tile [q0, q0 + bm) can see
 __device__ __forceinline__ void k_range(const Problem& p, int q0, int bm,
@@ -196,23 +106,19 @@ __device__ __forceinline__ void q_range(const Problem& p, int k0, int bn,
   }
 }
 
-__device__ __forceinline__ float capped(const Problem& p, float s, float* th) {
-  if (p.soft_cap > 0.f) {
-    *th = tanhf(s / p.soft_cap);
-    return *th * p.soft_cap;
-  }
-  *th = 0.f;
-  return s;
+// 4 bytes global -> shared; `valid` false writes zeros and reads nothing
+__device__ __forceinline__ void cp4(uint32_t dst, const void* src,
+                                    bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
 }
 
-template <int D, int RM, int CN>
-struct Tiles {
-  static constexpr int BM = 16 * RM;   // rows of a q tile
-  static constexpr int BN = 16 * CN;   // rows of a k tile
-  static constexpr int DC = D / 16;    // accumulator columns a thread owns
-  static constexpr int LD = D + 1;     // padded row stride of D-wide tiles
-  static constexpr int LS = BN + 1;    // padded row stride of score tiles
-};
+// the generic pointer of a shared-memory address inside the block's buffer
+__device__ __forceinline__ float* smem_ptr(unsigned char* base,
+                                           uint32_t addr) {
+  return reinterpret_cast<float*>(base + (addr - tile90::smem_addr(base)));
+}
 
 // ---------------------------------------------------------------- forward --
 
@@ -283,191 +189,381 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-// --------------------------------------------------------------------- dQ --
+// --------------------------------------------------------------- backward --
 
-template <int D, int RM, int CN>
-__global__ void __launch_bounds__(kThreads)
-flash_dq_kernel(const __nv_bfloat16* __restrict__ q,
-                const __nv_bfloat16* __restrict__ k,
-                const __nv_bfloat16* __restrict__ v,
-                const __nv_bfloat16* __restrict__ d_o,
-                const float* __restrict__ lse, const float* __restrict__ delta,
-                __nv_bfloat16* __restrict__ dq, Problem p) {
-  using T = Tiles<D, RM, CN>;
-  extern __shared__ __align__(16) float smem[];
-  float* q_s = smem;                       // BM x LD, times scale
-  float* do_s = q_s + T::BM * T::LD;       // BM x LD
-  float* k_s = do_s + T::BM * T::LD;       // BN x LD
-  float* v_s = k_s + T::BN * T::LD;        // BN x LD
-  float* ds_s = v_s + T::BN * T::LD;       // BM x LS
-  float* lse_s = ds_s + T::BM * T::LS;     // BM
-  float* delta_s = lse_s + T::BM;          // BM
+// The backward's tiles: a warpgroup owns 64 rows (query rows in dQ, key rows
+// in dK/dV); the streamed tile (keys in dQ, queries in dK/dV) has BN rows.
+template <int D>
+struct BwdPick {
+  static constexpr int BN = D == 256 ? 32 : 64;
+  static constexpr int DQ_WG = 2;    // dQ: two warpgroups share a K/V tile
+  static constexpr int DKV_WG = 1;   // dK/dV: one warpgroup, two blocks an SM
+};
 
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * T::BM;
-  const int hk = h / (p.hq / p.hkv);
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const size_t qh = size_t(b) * p.hq + h, kh = size_t(b) * p.hkv + hk;
-  const __nv_bfloat16* k_slab = k + kh * p.sk * D;
-  const __nv_bfloat16* v_slab = v + kh * p.sk * D;
+// One thread's accumulator pair (i, j) of 8-column block n8: element index.
+__device__ __forceinline__ int frag(int n8, int i, int j) {
+  return n8 * 4 + i * 2 + j;
+}
 
-  load_tile<T::BM, D, T::LD>(q_s, q + qh * p.sq * D, q0, p.sq, p.scale);
-  load_tile<T::BM, D, T::LD>(do_s, d_o + qh * p.sq * D, q0, p.sq, 1.f);
-  load_rows<T::BM>(lse_s, lse + qh * p.sq, q0, p.sq);
-  load_rows<T::BM>(delta_s, delta + qh * p.sq, q0, p.sq);
-
-  float acc[RM][T::DC];
+// This thread's two rows of a warpgroup's 64, row0 + row(i), written to the
+// (n_rows, D) bf16 slab at base from the f32 accumulator fragment times
+// mul; rows at or past n_rows are skipped.
+template <int D>
+__device__ __forceinline__ void store_rows(bf16* base, const float (&acc)[D / 2],
+                                           int row0, int n_rows, float mul) {
 #pragma unroll
-  for (int i = 0; i < RM; ++i)
+  for (int i = 0; i < 2; ++i) {
+    const int r = row0 + tile90::Rows<D>::row(i);
+    if (r >= n_rows) continue;
+    bf16* row = base + static_cast<size_t>(r) * D;
 #pragma unroll
-    for (int j = 0; j < T::DC; ++j) acc[i][j] = 0.f;
-
-  int kt0, kt1;
-  k_range(p, q0, T::BM, T::BN, &kt0, &kt1);
-  for (int kt = kt0; kt < kt1; ++kt) {
-    const int k0 = kt * T::BN;
-    __syncthreads();
-    load_tile<T::BN, D, T::LD>(k_s, k_slab, k0, p.sk, 1.f);
-    load_tile<T::BN, D, T::LD>(v_s, v_slab, k0, p.sk, 1.f);
-    __syncthreads();
-
-    float s[RM][CN], dp[RM][CN];
-    mm_abt<RM, CN, D, T::LD>(s, q_s, k_s, ty, tx);
-    mm_abt<RM, CN, D, T::LD>(dp, do_s, v_s, ty, tx);
-#pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      const int row = ty + 16 * i;
-      const float lv = lse_s[row], dl = delta_s[row];
-#pragma unroll
-      for (int j = 0; j < CN; ++j) {
-        float th;
-        const float sc = capped(p, s[i][j], &th);
-        const float pv =
-            keep(p, q0 + row, k0 + tx + 16 * j) ? expf(sc - lv) : 0.f;
-        float ds = pv * (dp[i][j] - dl);
-        if (p.soft_cap > 0.f) ds *= 1.f - th * th;
-        ds_s[row * T::LS + tx + 16 * j] = ds;
-      }
-    }
-    __syncthreads();  // dS complete
-    mm_ab<RM, T::DC, T::BN, T::LS, T::LD>(acc, ds_s, k_s, ty, tx);
-  }
-
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    const int r = q0 + ty + 16 * i;
-    if (r >= p.sq) continue;
-    __nv_bfloat16* row = dq + (qh * p.sq + r) * D;
-#pragma unroll
-    for (int j = 0; j < T::DC; ++j)
-      row[tx + 16 * j] = __float2bfloat16(acc[i][j] * p.scale);
+    for (int n8 = 0; n8 < D / 8; ++n8)
+      *reinterpret_cast<__nv_bfloat162*>(row + tile90::Rows<D>::col(n8, 0)) =
+          __floats2bfloat162_rn(acc[frag(n8, i, 0)] * mul,
+                                acc[frag(n8, i, 1)] * mul);
   }
 }
 
-// ------------------------------------------------------------------ dK/dV --
+// dQ: a block of WG warpgroups owns BM = 64 WG query rows of one (b, q
+// head). Blocks are numbered (row tile, (b, head)) with the row tile
+// slowest and the longest causal bands first over the whole grid.
+template <int D, int BN, int WG>
+__global__ void __launch_bounds__(WG * tile90::kWarpgroup, 1)
+flash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                const bf16* __restrict__ v, const bf16* __restrict__ d_o,
+                const float* __restrict__ lse,
+                const float* __restrict__ delta, bf16* __restrict__ dq,
+                Problem p) {
+  using namespace tile90;
+  constexpr int BM = kRows * WG, THREADS = kWarpgroup * WG;
+  constexpr uint32_t kTile = BN * D * 2;  // bytes of one K or V tile
+  extern __shared__ __align__(1024) unsigned char smem_tc[];
+  const int n_qt = (p.sq + BM - 1) / BM;
+  const int pairs = gridDim.x / n_qt;
+  const int pair = blockIdx.x % pairs;
+  const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.x) / pairs) * BM;
+  const int b = pair / p.hq, h = pair % p.hq;
+  const int hk = h / (p.hq / p.hkv);
+  const size_t qh = size_t(b) * p.hq + h, kh = size_t(b) * p.hkv + hk;
+  const int sq = p.sq, sk = p.sk;
 
-template <int D, int RM, int CN>
-__global__ void __launch_bounds__(kThreads)
-flash_dkv_kernel(const __nv_bfloat16* __restrict__ q,
-                 const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v,
-                 const __nv_bfloat16* __restrict__ d_o,
-                 const float* __restrict__ lse,
-                 const float* __restrict__ delta,
-                 __nv_bfloat16* __restrict__ dk,
-                 __nv_bfloat16* __restrict__ dv, Problem p) {
-  using T = Tiles<D, RM, CN>;
-  extern __shared__ __align__(16) float smem[];
-  float* k_s = smem;                       // BN x LD
-  float* v_s = k_s + T::BN * T::LD;        // BN x LD
-  float* q_s = v_s + T::BN * T::LD;        // BM x LD, times scale
-  float* do_s = q_s + T::BM * T::LD;       // BM x LD
-  float* p_s = do_s + T::BM * T::LD;       // BM x LS
-  float* ds_s = p_s + T::BM * T::LS;       // BM x LS
-  float* lse_s = ds_s + T::BM * T::LS;     // BM
-  float* delta_s = lse_s + T::BM;          // BM
-
-  const int b = blockIdx.z, hk = blockIdx.y, k0 = blockIdx.x * T::BN;
-  const int group = p.hq / p.hkv;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const size_t kh = size_t(b) * p.hkv + hk;
-
-  load_tile<T::BN, D, T::LD>(k_s, k + kh * p.sk * D, k0, p.sk, 1.f);
-  load_tile<T::BN, D, T::LD>(v_s, v + kh * p.sk * D, k0, p.sk, 1.f);
-
-  // this thread's rows of the key tile are ty + 16 i, i < CN
-  float dk_acc[CN][T::DC], dv_acc[CN][T::DC];
+  // this thread's two rows: the keys each sees (lo <= key <= hi, hi < 0:
+  // none), lse in log2 units and delta
+  const int wg_row0 = q0 + (threadIdx.x / kWarpgroup) * kRows;
+  int lo[2], hi[2];
+  float lse2[2], dlt[2];
 #pragma unroll
-  for (int i = 0; i < CN; ++i)
+  for (int i = 0; i < 2; ++i) {
+    const int qp = wg_row0 + Rows<D>::row(i);
+    lo[i] = p.causal && p.window > 0 ? qp - p.window + 1 : 0;
+    hi[i] = qp >= sq ? -1 : p.causal ? min(qp, sk - 1) : sk - 1;
+    lse2[i] = qp < sq ? lse[qh * sq + qp] * kLog2e : 0.f;
+    dlt[i] = qp < sq ? delta[qh * sq + qp] : 0.f;
+  }
+  float acc[D / 2];
 #pragma unroll
-    for (int j = 0; j < T::DC; ++j) {
-      dk_acc[i][j] = 0.f;
-      dv_acc[i][j] = 0.f;
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  int kt0, kt1;
+  k_range(p, q0, BM, BN, &kt0, &kt1);
+  const int key_begin = kt0 * BN, n_tiles = kt1 - kt0;
+  if (n_tiles > 0) {
+    const uint32_t q_s = (smem_addr(smem_tc) + 1023u) & ~1023u;
+    const uint32_t do_s = q_s + BM * D * 2;
+    const uint32_t k_s = do_s + BM * D * 2;  // K stages t % 3
+    const uint32_t v_s = k_s + 3 * kTile;    // V stages t % 2
+    const auto q_src = [=](int r) -> long long {
+      return q0 + r < sq ? static_cast<long long>(q0 + r) * D : -1;
+    };
+    load_rows<BM, D, THREADS>(q_s, q + qh * sq * D, q_src);
+    load_rows<BM, D, THREADS>(do_s, d_o + qh * sq * D, q_src);
+    const bf16* kb = k + kh * sk * D;
+    const bf16* vb = v + kh * sk * D;
+    const auto tile_src = [=](int key0) {
+      return [=](int r) -> long long {
+        return key0 + r < sk ? static_cast<long long>(key0 + r) * D : -1;
+      };
+    };
+    load_kv<BN, D, THREADS>(k_s, v_s, kb, vb, tile_src(key_begin));
+    cp_commit();
+
+    const bool capped = p.soft_cap > 0.f;
+    const float mul = capped ? p.scale / p.soft_cap : p.scale * kLog2e;
+    const float post = p.soft_cap * kLog2e;
+    const uint32_t wg_off = (threadIdx.x / kWarpgroup) * kRows * 128;
+    float s[BN / 2], dp[BN / 2];
+    uint32_t dh[BN / 16][4], dl[BN / 16][4];
+    for (int t = 0; t < n_tiles; ++t) {
+      cp_wait_all();       // tile t landed
+      fence_async_smem();  // ... and is visible to wgmma
+      __syncthreads();     // every warpgroup is past step t - 1
+      if (t + 1 < n_tiles)
+        load_kv<BN, D, THREADS>(k_s + ((t + 1) % 3) * kTile,
+                                v_s + ((t + 1) & 1) * kTile, kb, vb,
+                                tile_src(key_begin + (t + 1) * BN));
+      cp_commit();
+
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) s[i] = dp[i] = 0.f;
+      reg_fence(s);
+      reg_fence(dp);
+      reg_fence(acc);
+      wg_fence();
+      start_scores<D, BN>(s, q_s + wg_off, BM, k_s + (t % 3) * kTile);
+      start_scores<D, BN>(dp, do_s + wg_off, BM, v_s + (t & 1) * kTile);
+      wg_commit();
+      if (t > 0) {
+        start_rs<D, BN>(acc, dh, dl, k_s + ((t - 1) % 3) * kTile);
+        wg_commit();
+        wg_wait<1>();  // S and dP; dQ += dS(t-1) K(t-1) may still run
+      } else {
+        wg_wait<0>();
+      }
+      reg_fence(s);
+      reg_fence(dp);
+
+      // dS = P (dP - delta) [* (1 - tanh^2)] in place of dP
+      const int key0 = key_begin + t * BN;
+      const bool whole = key0 >= lo[0] && key0 >= lo[1] &&
+                         key0 + BN - 1 <= hi[0] && key0 + BN - 1 <= hi[1];
+#pragma unroll
+      for (int n8 = 0; n8 < BN / 8; ++n8)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const int e = frag(n8, i, j);
+            float x = s[e] * mul, th = 0.f;
+            if (capped) {
+              th = tanhf(x);
+              x = post * th;
+            }
+            float pr = exp2_ftz(x - lse2[i]);
+            if (!whole) {
+              const int key = key0 + Rows<D>::col(n8, j);
+              if (key < lo[i] || key > hi[i]) pr = 0.f;
+            }
+            float ds = pr * (dp[e] - dlt[i]);
+            if (capped) ds *= 1.f - th * th;
+            dp[e] = ds;
+          }
+      wg_wait<0>();  // the fragments of dS(t-1) are free again
+      reg_fence(acc);
+      split_p<BN>(dp, dh, dl);
     }
+    reg_fence(acc);
+    wg_fence();
+    start_rs<D, BN>(acc, dh, dl, k_s + ((n_tiles - 1) % 3) * kTile);
+    wg_commit();
+    wg_wait<0>();
+    reg_fence(acc);
+  }
+  store_rows<D>(dq + qh * sq * D, acc, wg_row0, sq, p.scale);
+}
 
-  int qt0, qt1;
-  q_range(p, k0, T::BN, T::BM, &qt0, &qt1);
-  for (int g = 0; g < group; ++g) {
-    const size_t qh = size_t(b) * p.hq + size_t(hk) * group + g;
-    for (int qt = qt0; qt < qt1; ++qt) {
-      const int q0 = qt * T::BM;
-      __syncthreads();  // the previous tile's readers are done
-      load_tile<T::BM, D, T::LD>(q_s, q + qh * p.sq * D, q0, p.sq, p.scale);
-      load_tile<T::BM, D, T::LD>(do_s, d_o + qh * p.sq * D, q0, p.sq, 1.f);
-      load_rows<T::BM>(lse_s, lse + qh * p.sq, q0, p.sq);
-      load_rows<T::BM>(delta_s, delta + qh * p.sq, q0, p.sq);
-      __syncthreads();
+// One pass of a dK/dV block over the q tiles of its band: kDV accumulates
+// dV += P^T dO into dv, kDK dK += dS^T Q into dk (both in one pass, or one
+// each in two passes sharing an accumulator). The stream stages, two of
+// each: Q tiles, dO tiles (BN x D), then lse and delta (BN f32 each).
+template <int D, int BN, int WG, bool kDV, bool kDK>
+__device__ __forceinline__ void dkv_pass(
+    float (&dv)[D / 2], float (&dk)[D / 2], unsigned char* smem,
+    uint32_t k_wg, uint32_t v_wg, uint32_t stream_s, const Problem& p,
+    const bf16* q, const bf16* d_o, const float* lse, const float* delta,
+    size_t qh0, int kp0, int qt0, int nq, int n_tiles) {
+  using namespace tile90;
+  constexpr int BMK = kRows * WG, THREADS = kWarpgroup * WG;
+  constexpr uint32_t kTile = BN * D * 2;
+  const uint32_t qs = stream_s, dos = stream_s + 2 * kTile;
+  const uint32_t ls = stream_s + 4 * kTile;  // stage: lse[BN], delta[BN]
+  const int sq = p.sq, sk = p.sk;
+  const auto load = [&](int t) {
+    const int st = t & 1;
+    const size_t qh = qh0 + t / nq;
+    const int q0 = (qt0 + t % nq) * BN;
+    load_kv<BN, D, THREADS>(
+        qs + st * kTile, dos + st * kTile, q + qh * sq * D,
+        d_o + qh * sq * D, [=](int r) -> long long {
+          return q0 + r < sq ? static_cast<long long>(q0 + r) * D : -1;
+        });
+    for (int r = threadIdx.x; r < 2 * BN; r += THREADS) {
+      const int row = q0 + r % BN;
+      const float* src = (r < BN ? lse : delta) + qh * sq + (row < sq ? row : 0);
+      cp4(ls + (st * 2 * BN + r) * 4, src, row < sq);
+    }
+  };
+  load(0);
+  cp_commit();
 
-      float s[RM][CN], dp[RM][CN];
-      mm_abt<RM, CN, D, T::LD>(s, q_s, k_s, ty, tx);
-      mm_abt<RM, CN, D, T::LD>(dp, do_s, v_s, ty, tx);
+  const bool capped = p.soft_cap > 0.f;
+  const float mul = capped ? p.scale / p.soft_cap : p.scale * kLog2e;
+  const float post = p.soft_cap * kLog2e;
+  int kp[2];
 #pragma unroll
-      for (int i = 0; i < RM; ++i) {
-        const int row = ty + 16 * i;
-        const int qp = q0 + row;
-        const float lv = lse_s[row], dl = delta_s[row];
+  for (int i = 0; i < 2; ++i) kp[i] = kp0 + Rows<D>::row(i);
+  float s[BN / 2], dp[BN / 2];
+  uint32_t fh[BN / 16][4], fl[BN / 16][4];  // P^T, then dS^T, hi and lo
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_wait_all();
+    fence_async_smem();
+    __syncthreads();  // tile t landed; every thread is past step t - 1
+    if (t + 1 < n_tiles) load(t + 1);
+    cp_commit();
+    const int st = t & 1;
+    const int q0 = (qt0 + t % nq) * BN;
+
 #pragma unroll
-        for (int j = 0; j < CN; ++j) {
-          float th;
-          const float sc = capped(p, s[i][j], &th);
-          // rows past Sq were loaded as zeros; keep() drops them too
-          const bool kp = qp < p.sq && keep(p, qp, k0 + tx + 16 * j);
-          const float pv = kp ? expf(sc - lv) : 0.f;
-          float ds = pv * (dp[i][j] - dl);
-          if (p.soft_cap > 0.f) ds *= 1.f - th * th;
-          p_s[row * T::LS + tx + 16 * j] = pv;
-          ds_s[row * T::LS + tx + 16 * j] = ds;
+    for (int i = 0; i < BN / 2; ++i) s[i] = dp[i] = 0.f;
+    reg_fence(s);
+    reg_fence(dp);
+    wg_fence();
+    start_scores<D, BN>(s, k_wg, BMK, qs + st * kTile);
+    if constexpr (kDK) start_scores<D, BN>(dp, v_wg, BMK, dos + st * kTile);
+    wg_commit();
+    wg_wait<0>();
+    reg_fence(s);
+    reg_fence(dp);
+
+    // P^T in place of S^T, dS^T in place of dP^T; rows are this thread's
+    // keys, columns the tile's queries
+    const float* lse_c = smem_ptr(smem, ls + st * 2 * BN * 4);
+    const float* del_c = lse_c + BN;
+    const bool whole =
+        q0 + BN - 1 < sq && kp[1] < sk &&
+        (!p.causal || (kp[1] <= q0 &&
+                       (p.window <= 0 || q0 + BN - 1 - kp[0] < p.window)));
+#pragma unroll
+    for (int n8 = 0; n8 < BN / 8; ++n8)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int c = Rows<D>::col(n8, j), qp = q0 + c;
+        const float l2 = lse_c[c] * kLog2e;
+        const float dc = del_c[c];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int e = frag(n8, i, j);
+          float x = s[e] * mul, th = 0.f;
+          if (capped) {
+            th = tanhf(x);
+            x = post * th;
+          }
+          float pr = exp2_ftz(x - l2);
+          if (!whole) {
+            const bool seen =
+                qp < sq && kp[i] < sk &&
+                (!p.causal || (kp[i] <= qp &&
+                               (p.window <= 0 || qp - kp[i] < p.window)));
+            if (!seen) pr = 0.f;
+          }
+          s[e] = pr;
+          if constexpr (kDK) {
+            float ds = pr * (dp[e] - dc);
+            if (capped) ds *= 1.f - th * th;
+            dp[e] = ds;
+          }
         }
       }
-      __syncthreads();  // P and dS complete
-      mm_atb<CN, T::DC, T::BM, T::LS, T::LD>(dv_acc, p_s, do_s, ty, tx);
-      mm_atb<CN, T::DC, T::BM, T::LS, T::LD>(dk_acc, ds_s, q_s, ty, tx);
+    // one pair of fragment registers, P^T's then dS^T's: the dV product
+    // completes before dS^T is split (two fragment pairs beside both
+    // accumulators would pass the 255 registers a thread has at D = 128)
+    if constexpr (kDV) {
+      split_p<BN>(s, fh, fl);
+      reg_fence(dv);
+      wg_fence();
+      start_rs<D, BN>(dv, fh, fl, dos + st * kTile);
+      wg_commit();
+      wg_wait<0>();
+      reg_fence(dv);
+    }
+    if constexpr (kDK) {
+      split_p<BN>(dp, fh, fl);
+      reg_fence(dk);
+      wg_fence();
+      start_rs<D, BN>(dk, fh, fl, qs + st * kTile);
+      wg_commit();
+      wg_wait<0>();
+      reg_fence(dk);
     }
   }
+}
 
-  // q_s held q * scale, so dk_acc is already scale * sum dS^T q
+// dK/dV: a block of WG warpgroups owns BMK = 64 WG key rows of one (b, kv
+// head). Blocks are numbered (key tile, (b, kv head)) with the key tile
+// slowest: under a causal mask the first key tiles see the most queries.
+// Two blocks share an SM, except at D = 256, whose tiles take 130 KB of
+// shared memory.
+template <int D, int BN, int WG>
+__global__ void __launch_bounds__(WG * tile90::kWarpgroup, D == 256 ? 1 : 2)
+flash_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, const bf16* __restrict__ d_o,
+                 const float* __restrict__ lse,
+                 const float* __restrict__ delta, bf16* __restrict__ dk,
+                 bf16* __restrict__ dv, Problem p) {
+  using namespace tile90;
+  constexpr int BMK = kRows * WG, THREADS = kWarpgroup * WG;
+  extern __shared__ __align__(1024) unsigned char smem_tc[];
+  const int n_kt = (p.sk + BMK - 1) / BMK;
+  const int pairs = gridDim.x / n_kt;
+  const int pair = blockIdx.x % pairs;
+  const int k0 = static_cast<int>(blockIdx.x) / pairs * BMK;
+  const int b = pair / p.hkv, hk = pair % p.hkv;
+  const int group = p.hq / p.hkv;
+  const size_t kh = size_t(b) * p.hkv + hk;
+  const size_t qh0 = size_t(b) * p.hq + size_t(hk) * group;
+  const int sk = p.sk;
+  const int wg_row0 = k0 + (threadIdx.x / kWarpgroup) * kRows;
+
+  int qt0, qt1;
+  q_range(p, k0, BMK, BN, &qt0, &qt1);
+  const int nq = max(qt1 - qt0, 0), n_tiles = group * nq;
+  const uint32_t k_s = (smem_addr(smem_tc) + 1023u) & ~1023u;
+  const uint32_t v_s = k_s + BMK * D * 2;
+  const uint32_t stream_s = v_s + BMK * D * 2;
+  const uint32_t wg_off = (threadIdx.x / kWarpgroup) * kRows * 128;
+  if (n_tiles > 0)
+    load_kv<BMK, D, THREADS>(k_s, v_s, k + kh * sk * D, v + kh * sk * D,
+                             [=](int r) -> long long {
+                               return k0 + r < sk
+                                          ? static_cast<long long>(k0 + r) * D
+                                          : -1;
+                             });
+  bf16* dk_rows = dk + kh * sk * D;
+  bf16* dv_rows = dv + kh * sk * D;
+  if constexpr (D == 256) {
+    float acc[D / 2];
 #pragma unroll
-  for (int i = 0; i < CN; ++i) {
-    const int r = k0 + ty + 16 * i;
-    if (r >= p.sk) continue;
-    __nv_bfloat16* dk_row = dk + (kh * p.sk + r) * D;
-    __nv_bfloat16* dv_row = dv + (kh * p.sk + r) * D;
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    if (n_tiles > 0)
+      dkv_pass<D, BN, WG, true, false>(acc, acc, smem_tc, k_s + wg_off,
+                                       v_s + wg_off, stream_s, p, q, d_o,
+                                       lse, delta, qh0, wg_row0, qt0, nq,
+                                       n_tiles);
+    store_rows<D>(dv_rows, acc, wg_row0, sk, 1.f);
 #pragma unroll
-    for (int j = 0; j < T::DC; ++j) {
-      dk_row[tx + 16 * j] = __float2bfloat16(dk_acc[i][j]);
-      dv_row[tx + 16 * j] = __float2bfloat16(dv_acc[i][j]);
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    if (n_tiles > 0) {
+      __syncthreads();  // every thread is done with the first pass's stages
+      dkv_pass<D, BN, WG, false, true>(acc, acc, smem_tc, k_s + wg_off,
+                                       v_s + wg_off, stream_s, p, q, d_o,
+                                       lse, delta, qh0, wg_row0, qt0, nq,
+                                       n_tiles);
     }
+    store_rows<D>(dk_rows, acc, wg_row0, sk, p.scale);
+  } else {
+    float acc_v[D / 2], acc_k[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc_v[i] = acc_k[i] = 0.f;
+    if (n_tiles > 0)
+      dkv_pass<D, BN, WG, true, true>(acc_v, acc_k, smem_tc, k_s + wg_off,
+                                      v_s + wg_off, stream_s, p, q, d_o,
+                                      lse, delta, qh0, wg_row0, qt0, nq,
+                                      n_tiles);
+    store_rows<D>(dv_rows, acc_v, wg_row0, sk, 1.f);
+    store_rows<D>(dk_rows, acc_k, wg_row0, sk, p.scale);
   }
 }
 
 // ------------------------------------------------------------- launchers --
-
-// 64 x 64 tiles, except D = 256, whose f32 tiles and accumulators need
-// 32 x 32 to fit shared memory and registers
-template <int D>
-struct Pick {
-  static constexpr int RM = D == 256 ? 2 : 4;
-  static constexpr int CN = D == 256 ? 2 : 4;
-};
 
 // every kernel here takes more than the default 48 KB of dynamic shared memory
 template <typename Kernel>
@@ -493,23 +589,30 @@ int fwd(const void* q, const void* k, const void* v, void* o, void* lse,
   return static_cast<int>(cudaGetLastError());
 }
 
+// a one-dimensional grid of row tiles x pairs, or 0 past its limit
+inline unsigned grid_1d(int rows, int tile, long long pairs) {
+  const long long n = static_cast<long long>((rows + tile - 1) / tile) * pairs;
+  return n > 0x7fffffffLL ? 0u : static_cast<unsigned>(n);
+}
+
 template <int D>
 int dq(const void* q, const void* k, const void* v, const void* d_o,
        const void* lse, const void* delta, void* out, int batch,
        const Problem& p, cudaStream_t stream) {
-  constexpr int RM = Pick<D>::RM, CN = Pick<D>::CN;
-  using T = Tiles<D, RM, CN>;
-  const size_t smem = sizeof(float) * (2 * T::BM * T::LD + 2 * T::BN * T::LD +
-                                       T::BM * T::LS + 2 * T::BM);
-  auto kernel = flash_dq_kernel<D, RM, CN>;
-  const dim3 grid((p.sq + T::BM - 1) / T::BM, p.hq, batch);
+  constexpr int BN = BwdPick<D>::BN, WG = BwdPick<D>::DQ_WG;
+  constexpr int BM = tile90::kRows * WG;
+  // Q and dO, three K and two V stages, 1 KB to align the base
+  const size_t smem = 1024 + 2 * size_t(BM) * D * 2 + 5 * size_t(BN) * D * 2;
+  auto kernel = flash_dq_kernel<D, BN, WG>;
+  const unsigned grid = grid_1d(p.sq, BM, static_cast<long long>(p.hq) * batch);
+  if (grid == 0) return static_cast<int>(cudaErrorInvalidValue);
   const int err = allow_smem(kernel, smem);
   if (err) return err;
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v),
-      static_cast<const __nv_bfloat16*>(d_o), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(out), p);
+  kernel<<<grid, WG * tile90::kWarpgroup, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(d_o),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<bf16*>(out), p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -517,20 +620,22 @@ template <int D>
 int dkv(const void* q, const void* k, const void* v, const void* d_o,
         const void* lse, const void* delta, void* dk, void* dv, int batch,
         const Problem& p, cudaStream_t stream) {
-  constexpr int RM = Pick<D>::RM, CN = Pick<D>::CN;
-  using T = Tiles<D, RM, CN>;
-  const size_t smem = sizeof(float) * (2 * T::BN * T::LD + 2 * T::BM * T::LD +
-                                       2 * T::BM * T::LS + 2 * T::BM);
-  auto kernel = flash_dkv_kernel<D, RM, CN>;
-  const dim3 grid((p.sk + T::BN - 1) / T::BN, p.hkv, batch);
+  constexpr int BN = BwdPick<D>::BN, WG = BwdPick<D>::DKV_WG;
+  constexpr int BMK = tile90::kRows * WG;
+  // K and V, two stages of Q, dO, lse and delta, 1 KB to align the base
+  const size_t smem = 1024 + 2 * size_t(BMK) * D * 2 +
+                      4 * size_t(BN) * D * 2 + 4 * size_t(BN) * 4;
+  auto kernel = flash_dkv_kernel<D, BN, WG>;
+  const unsigned grid =
+      grid_1d(p.sk, BMK, static_cast<long long>(p.hkv) * batch);
+  if (grid == 0) return static_cast<int>(cudaErrorInvalidValue);
   const int err = allow_smem(kernel, smem);
   if (err) return err;
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v),
-      static_cast<const __nv_bfloat16*>(d_o), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), p);
+  kernel<<<grid, WG * tile90::kWarpgroup, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(d_o),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), p);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -202,12 +202,15 @@ __device__ __forceinline__ void attend(
   }
 
   // pages this block reads: up to the page of its newest query, never at or
-  // past ceil(len / T)
+  // past ceil(len / T) nor past the table's width (positions beyond its
+  // columns are absent, as in the reference); clamped before the first
+  // fetch
   const int last_row = min(row0 + tile, n_rows) - 1;
   const int newest = len - n_q + last_row / hq;
   const int live_pages = (len + page_tokens - 1) / page_tokens;
   const int page_end =
-      newest < 0 ? 0 : min(live_pages, newest / page_tokens + 1);
+      newest < 0 ? 0
+                 : min(min(live_pages, newest / page_tokens + 1), table_width);
 
   // start the copy of table entry pi's raw tiles into the raw buffer
   auto fetch = [&](int pi) {

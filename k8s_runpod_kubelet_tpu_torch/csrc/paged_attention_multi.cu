@@ -86,12 +86,14 @@ paged_attention_multi_kernel(const bf16* __restrict__ q,
   }
 
   // pages this block reads: up to the page of its newest query, never at or
-  // past ceil(len / T); with a window, none wholly behind its oldest
-  // query's; then this split's range of them
+  // past ceil(len / T) nor past the table's width (positions beyond its
+  // columns are absent, as in the reference); with a window, none wholly
+  // behind its oldest query's; then this split's range of them
   const int newest = first_q + (min(row0 + BM, n_rows) - 1) / group;
   const int oldest = first_q + row0 / group;
   const int live = (len + T - 1) / T;
-  const int page_end = newest < 0 ? 0 : min(live, newest / T + 1);
+  const int page_end =
+      newest < 0 ? 0 : min(min(live, newest / T + 1), p.table_width);
   int page_begin = 0;
   if (p.window > 0 && oldest - p.window + 1 > 0)
     page_begin = (oldest - p.window + 1) / T;

@@ -140,12 +140,15 @@ __device__ __forceinline__ void attend(
   }
 
   // pages this block reads: up to the page of its newest query, never at or
-  // past ceil(len / T); with a window, none wholly behind its oldest query's
+  // past ceil(len / T) nor past the table's width (positions beyond its
+  // columns are absent, as in the reference); with a window, none wholly
+  // behind its oldest query's
   const int last_row = min(row0 + tile, n_rows) - 1;
   const int newest = len - n_q + last_row / group;
   const int live_pages = (len + page_tokens - 1) / page_tokens;
   const int page_end =
-      newest < 0 ? 0 : min(live_pages, newest / page_tokens + 1);
+      newest < 0 ? 0
+                 : min(min(live_pages, newest / page_tokens + 1), table_width);
   int page_begin = 0;
   if (window > 0) {
     const int floor_pos = len - n_q + row0 / group - window + 1;

@@ -186,18 +186,22 @@ def _split_plan(batch: int, n_q: int, group: int, hkv: int,
 
 def _split_ranges(length: int, first_row: int, last_row: int, n_q: int,
                   group: int, page_tokens: int, window: Optional[int],
-                  pages_per_split: int) -> list[tuple[int, int]]:
+                  pages_per_split: int, table_width: int
+                  ) -> list[tuple[int, int]]:
     """The page ranges [begin, end) the kernel's splits of one block read:
     a block of rows first_row..last_row of a sequence of ``length`` tokens
     (K = n_q new) sees the pages up to its newest query's, none at or past
-    ceil(length / T) and, under a window, none wholly behind its oldest
-    query's window; split s takes the s-th run of ``pages_per_split`` of
-    them. Empty splits are left out (the kernel's blocks for them write
-    max -1e30 and sum 0, which the merge weighs as nothing)."""
+    ceil(length / T) or the table's ``table_width`` columns (positions
+    past them are absent, as in the reference) and, under a window, none
+    wholly behind its oldest query's window; split s takes the s-th run of
+    ``pages_per_split`` of them. Empty splits are left out (the kernel's
+    blocks for them write max -1e30 and sum 0, which the merge weighs as
+    nothing)."""
     oldest = length - n_q + first_row // group
     newest = length - n_q + last_row // group
     live = -(-length // page_tokens)
-    end = 0 if newest < 0 else min(live, newest // page_tokens + 1)
+    end = 0 if newest < 0 else min(live, newest // page_tokens + 1,
+                                   table_width)
     begin = 0
     if window is not None and oldest - window + 1 > 0:
         begin = (oldest - window + 1) // page_tokens

@@ -22,6 +22,21 @@ def rope_frequencies(head_dim: int, max_seq_len: int,
                      scaling: Optional[dict] = None,
                      device=None) -> tuple[torch.Tensor, torch.Tensor]:
     """(cos, sin) tables of shape (max_seq_len, head_dim // 2), f32."""
+    inv_freq, af = inv_frequencies(head_dim, max_seq_len, theta, scaling,
+                                   device)
+    t = torch.arange(max_seq_len, dtype=torch.float32, device=device)
+    freqs = torch.outer(t, inv_freq)
+    if af != 1.0:
+        return torch.cos(freqs) * af, torch.sin(freqs) * af
+    return torch.cos(freqs), torch.sin(freqs)
+
+
+def inv_frequencies(head_dim: int, max_seq_len: int,
+                    theta: float = 500_000.0,
+                    scaling: Optional[dict] = None,
+                    device=None) -> tuple[torch.Tensor, float]:
+    """The f32 rotation frequencies (head_dim // 2,) after ``scaling``, and
+    the factor the tables carry (YaRN's attention factor, else 1)."""
     af = 1.0   # YaRN's attention factor, folded into the tables
     inv_freq = 1.0 / (theta ** (torch.arange(0, head_dim, 2,
                                              dtype=torch.float32,
@@ -53,11 +68,7 @@ def rope_frequencies(head_dim: int, max_seq_len: int,
             wavelen > low_wl, inv_freq / factor,
             torch.where(wavelen < high_wl, inv_freq,
                         (1 - smooth) * inv_freq / factor + smooth * inv_freq))
-    t = torch.arange(max_seq_len, dtype=torch.float32, device=device)
-    freqs = torch.outer(t, inv_freq)
-    if af != 1.0:
-        return torch.cos(freqs) * af, torch.sin(freqs) * af
-    return torch.cos(freqs), torch.sin(freqs)
+    return inv_freq, af
 
 
 def _yarn_mscale(scale: float, mscale: float = 1.0) -> float:

@@ -1,5 +1,7 @@
 """Time this tree's bf16 attention kernels against another tree's, in turns
-on one card: ``flash_fwd`` at every case of ``chip_smoke.py``'s phase 8,
+on one card: ``flash_fwd``, ``flash_dq`` and ``flash_dkv`` at every case of
+``chip_smoke.py``'s phase 8 (its inputs; the backward kernels of both trees
+take the lse of this tree's forward and delta = rowsum(dO o) of its o),
 and ``paged_attention_multi`` (decode K=1 B=8, K=4 B=8, a 1024-token
 prefill chunk) and ``paged_attention`` (decode B=8) at phase 3's shapes and
 inputs.
@@ -128,14 +130,20 @@ def main(argv=None) -> int:
                                               sm_scale=scale))
     for name, b, hq, hkv, s, d, causal, window, cap in cs.FLASH_CASES:
         gen = torch.Generator().manual_seed(cs.SEED + s + d + hkv)
-        q = torch.randn((b, hq, s, d), generator=gen)
-        torch.randn((b, hq, s, d), generator=gen)    # chip_smoke's dO
+        q, do = (torch.randn((b, hq, s, d), generator=gen) for _ in range(2))
         k, v = (torch.randn((b, hkv, s, d), generator=gen) for _ in range(2))
-        q, k, v = (t.to(dev, torch.bfloat16) for t in (q, k, v))
+        q, k, v, do = (t.to(dev, torch.bfloat16) for t in (q, k, v, do))
         fa = dict(causal=causal, sm_scale=d ** -0.5, sliding_window=window,
                   logit_soft_cap=cap)
         reps = 5 if b * hq * s * s > 2 ** 31 else 10
         turns("flash_fwd", name, lambda m: m.flash_fwd(q, k, v, **fa))
+        o, lse = this.flash_fwd(q, k, v, **fa)
+        delta = (do.float() * o.float()).sum(-1)
+        del o
+        turns("flash_dq", name,
+              lambda m: m.flash_dq(q, k, v, do, lse, delta, **fa))
+        turns("flash_dkv", name,
+              lambda m: m.flash_dkv(q, k, v, do, lse, delta, **fa))
     result = {"card": card, "device": torch.cuda.get_device_name(0),
               "other": args.other, "ab": rows}
     if args.out:

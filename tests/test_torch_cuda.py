@@ -281,6 +281,52 @@ def test_flash_fwd_tile_edges_match_plain(cuda, name):
         assert torch.all(lse[:, :, blind] == -1e30)
 
 
+TILE_BWD_CASES = {
+    # name: (B, Hq, Hkv, Sq, Sk, D, causal, window, soft cap)
+    "s37_d64_below_one_tile": (1, 4, 2, 37, 37, 64, True, None, None),
+    "s129_ragged_gqa4": (2, 8, 2, 129, 129, 128, True, None, None),
+    "s191_d256_window": (1, 4, 2, 191, 191, 256, True, 50, None),
+    "s200_sk70_window_blind_rows": (1, 4, 2, 200, 70, 128, True, 16, None),
+    "s65_sk300_noncausal_cap": (2, 4, 4, 65, 300, 128, False, None, 10.0),
+    "s100_d256_noncausal_cap": (1, 2, 1, 100, 100, 256, False, None, 5.0),
+    "s300_d64_window_cap": (1, 8, 2, 300, 300, 64, True, 70, 8.0),
+}
+
+
+@pytest.mark.parametrize("name", sorted(TILE_BWD_CASES))
+def test_flash_backward_tile_edges_match_plain(cuda, name):
+    """flash_dq and flash_dkv at S off the 64-row tiles and below one, D =
+    64 and 256 (dK/dV in two passes), a window, a soft cap, non-causal,
+    Sq != Sk and rows that see no key (no gradient), per element at the
+    chip check's tolerance against the plain versions fed the kernel's lse
+    and delta."""
+    b, hq, hkv, sq, sk, d, causal, window, cap = TILE_BWD_CASES[name]
+    gen = torch.Generator().manual_seed(11)
+    q, do = (torch.randn((b, hq, sq, d), generator=gen)
+             .to(cuda, torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn((b, hkv, sk, d), generator=gen)
+            .to(cuda, torch.bfloat16) for _ in range(2))
+    args = dict(causal=causal, sm_scale=d ** -0.5, sliding_window=window,
+                logit_soft_cap=cap)
+    o, lse = flash_fwd(q, k, v, **args)
+    delta = (do.float() * o.float()).sum(-1)
+    counts = [f.launches for f in (flash_dq, flash_dkv)]
+    dq = flash_dq(q, k, v, do, lse, delta, **args)
+    dk, dv = flash_dkv(q, k, v, do, lse, delta, **args)
+    torch.cuda.synchronize()
+    assert [f.launches for f in (flash_dq, flash_dkv)] == \
+        [n + 1 for n in counts]
+    f32 = [t.float() for t in (q, k, v, do)]
+    _close_bf16(dq, _flash_dq_plain(*f32, lse, delta, **args))
+    dk_ref, dv_ref = _flash_dkv_plain(*f32, lse, delta, **args)
+    _close_bf16(dk, dk_ref)
+    _close_bf16(dv, dv_ref)
+    if sq > sk and window is not None:
+        blind = torch.arange(sq, device=cuda) - window + 1 >= sk
+        assert bool(blind.any())
+        assert torch.all(dq[:, :, blind] == 0)
+
+
 TILE_PAGED_CASES = {
     # name: (B, K, Hq, Hkv, D, T, cols, lengths, soft cap, window)
     # decode splits of 15 pages (240 positions): boundaries mid-tile and
@@ -534,3 +580,79 @@ def test_mla_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="multiple of 8"):
         paged_attention_multi_mla(q_lat, q_rope, c[:, :12].contiguous(),
                                   kr[:, :12].contiguous(), table, lens)
+
+
+# -- the page walk stays inside the table --------------------------------------------
+
+def test_paged_kernels_never_read_past_the_table(cuda):
+    """Every paged wrapper (bf16 and int8 pages, bf16 and int8 latents,
+    multi-token and single-token forms) with lengths past the table's cols
+    x T positions: the kernels must read the table's columns and no
+    further. The table is a view of the first B rows of a (B + 1, cols)
+    tensor whose extra row names a page of NaN (NaN scales for int8), so a
+    read past a sequence's row lands on the next sequence's first page or,
+    for the last sequence, on the NaN page; each result is held against the
+    plain version, whose gathered view holds only the table's positions."""
+    b, t, cols = 3, 16, 4
+    lengths = [cols * t + 5, cols * t + 40, 3 * cols * t]
+    gen = torch.Generator().manual_seed(21)
+    n_pages = b * cols + 1
+    nan_page = n_pages - 1
+    full = torch.empty((b + 1, cols), dtype=torch.int32)
+    full[:b] = torch.randperm(b * cols, generator=gen).reshape(b, cols)
+    full[b] = nan_page
+    table = full.to(cuda)[:b]
+    assert table.is_contiguous()
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+
+    hq, hkv, d, kq = 8, 2, 128, 4
+    k, v = (torch.randn((n_pages, t, hkv, d), generator=gen)
+            for _ in range(2))
+    k[nan_page], v[nan_page] = float("nan"), float("nan")
+    k, v = (x.to(cuda, torch.bfloat16) for x in (k, v))
+    kp, ks, vp, vs = _int8_pages(k, v)
+    ks[nan_page], vs[nan_page] = float("nan"), float("nan")
+    q = torch.randn((b, kq, hq, d), generator=gen).to(cuda, torch.bfloat16)
+    dense = [
+        (paged_attention_multi, _paged_attention_multi_plain, q, (k, v)),
+        (paged_attention_multi_quant, _paged_attention_multi_quant_plain, q,
+         (kp, vp, ks, vs)),
+        (paged_attention, _paged_attention_plain, q[:, 0].contiguous(),
+         (k, v)),
+        (paged_attention_quant, _paged_attention_quant_plain,
+         q[:, 0].contiguous(), (kp, vp, ks, vs))]
+    for fn, plain, qx, pages in dense:
+        before = fn.launches
+        out = fn(qx, *pages, table, lens)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        assert torch.isfinite(out.float()).all(), fn.__name__
+        _close_bf16(out, plain(qx, *pages, table, lens, sm_scale=d ** -0.5))
+
+    hq, r, dr = 4, 512, 64
+    c = torch.randn((n_pages, t, r), generator=gen)
+    kr = torch.randn((n_pages, t, dr), generator=gen)
+    c[nan_page], kr[nan_page] = float("nan"), float("nan")
+    c, kr = c.to(cuda, torch.bfloat16), kr.to(cuda, torch.bfloat16)
+    (cq, cs), (krq, krs) = _kv_quant(c), _kv_quant(kr)
+    cs[nan_page], krs[nan_page] = float("nan"), float("nan")
+    q_lat = torch.randn((b, kq, hq, r), generator=gen).to(cuda)
+    q_rope = torch.randn((b, kq, hq, dr), generator=gen).to(cuda)
+    single = (q_lat[:, 0].contiguous(), q_rope[:, 0].contiguous())
+    latent = [
+        (paged_attention_multi_mla, _paged_attention_multi_mla_plain,
+         (q_lat, q_rope), (c, kr)),
+        (paged_attention_multi_mla_quant,
+         _paged_attention_multi_mla_quant_plain, (q_lat, q_rope),
+         (cq, krq, cs, krs)),
+        (paged_attention_mla, _paged_attention_mla_plain, single, (c, kr)),
+        (paged_attention_mla_quant, _paged_attention_mla_quant_plain, single,
+         (cq, krq, cs, krs))]
+    scale = (r + dr) ** -0.5
+    for fn, plain, qs, pages in latent:
+        before = fn.launches
+        out = fn(*qs, *pages, table, lens, sm_scale=scale)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        assert torch.isfinite(out).all(), fn.__name__
+        _close_f32(out, plain(*qs, *pages, table, lens, sm_scale=scale))

@@ -1,8 +1,15 @@
 """The port's MLA serving path against the JAX package's, on the CPU.
 
-- ``rope_frequencies``'s YaRN branch against JAX (atol 1e-6): the
+- ``rope_frequencies``'s YaRN branch and JAX's, each against an f64
+  evaluation of the same f32 frequencies (the port's), for the
   ``deepseek_v2_lite`` scaling, an attention factor folded into the
-  tables, and an untruncated ramp; ``yarn_mscale_sq`` exactly equal;
+  tables, and an untruncated ramp: table values below 1 within atol 1e-6,
+  values of 1 and more within 4 ulps (both libraries' f32 cos/sin read at
+  most 1.01 ulps there, at angles up to 255 rad, and 8.3e-8 below 1);
+  ``apply_rope`` of both sides through the same f32 tables within 4 ulps
+  of the rotation's term magnitude |x1 c| + |x2 s| of its f64 evaluation
+  (atol 1e-6 where that is below 1; both read at most 1.61 ulps, and
+  2.1e-7 below 1); ``yarn_mscale_sq`` exactly equal;
 - the four MLA plains (``_paged_attention_multi_mla{,_quant}_plain`` and
   the single-token ``_paged_attention_mla{,_quant}_plain``) against the
   JAX references (``use_pallas=False``) and, at one tiny shape each,
@@ -58,6 +65,7 @@ from k8s_runpod_kubelet_tpu_torch.ops import (apply_rope, paged_attention_mla,
                                               paged_attention_multi_mla,
                                               paged_attention_multi_mla_quant,
                                               rope_frequencies)
+from k8s_runpod_kubelet_tpu_torch.ops.rope import inv_frequencies
 from k8s_runpod_kubelet_tpu_torch.ops.attention import (
     _paged_attention_mla_plain, _paged_attention_mla_quant_plain,
     _paged_attention_multi_mla_plain, _paged_attention_multi_mla_quant_plain)
@@ -77,23 +85,58 @@ YARN = {
 
 # -- rope: YaRN ---------------------------------------------------------------------
 
+# f32 results against an f64 evaluation: ulps of the compared magnitude
+# where it is 1 or more, atol 1e-6 below 1 (see the module docstring for
+# the errors measured)
+YARN_ULPS, YARN_ATOL = 4, 1e-6
+
+
+def _within_f64(got, ref, mag, what):
+    """|got - ref| <= YARN_ULPS ulps of the f32 magnitude ``mag`` where it
+    is >= 1, else <= YARN_ATOL; ref and mag in f64."""
+    err = np.abs(np.asarray(got, np.float64) - ref)
+    ulp = np.spacing(mag.astype(np.float32)).astype(np.float64)
+    tol = np.where(mag >= 1, YARN_ULPS * ulp, YARN_ATOL)
+    worst = float((err / tol).max())
+    assert worst <= 1, f"{what}: {worst:.2f}x the tolerance"
+
+
 @pytest.mark.parametrize("name", sorted(YARN))
 def test_yarn_tables_match_jax(name):
+    """The port's tables and JAX's, each against cos and sin in f64 of the
+    same f32 angles t * f (f the port's f32 frequencies; an f32 product
+    rounds the same in both libraries) times the attention factor: the
+    two implement one function, each within its f32 cos/sin error, which
+    a direct comparison of the two would double."""
     sc = YARN[name]
     for dim, theta in ((64, 10_000.0), (16, 500_000.0)):
+        f, af = inv_frequencies(dim, 256, theta, sc)
+        ang = np.outer(np.arange(256, dtype=np.float32), f.numpy())
+        assert ang.dtype == np.float32
+        cos64 = np.cos(ang.astype(np.float64)) * af
+        sin64 = np.sin(ang.astype(np.float64)) * af
         cos_j, sin_j = jax_rope_frequencies(dim, 256, theta, sc)
         cos_t, sin_t = rope_frequencies(dim, 256, theta, sc)
-        np.testing.assert_allclose(cos_t.numpy(), np.asarray(cos_j),
-                                   atol=1e-6, rtol=0)
-        np.testing.assert_allclose(sin_t.numpy(), np.asarray(sin_j),
-                                   atol=1e-6, rtol=0)
+        for side, c, s in (("port", cos_t.numpy(), sin_t.numpy()),
+                           ("jax", cos_j, sin_j)):
+            _within_f64(c, cos64, np.abs(cos64), f"{side} cos, D={dim}")
+            _within_f64(s, sin64, np.abs(sin64), f"{side} sin, D={dim}")
+    # the rotation, both sides through the same f32 tables (the port's),
+    # against it in f64
     rng = np.random.default_rng(3)
     x = rng.normal(size=(2, 5, 3, 16)).astype(np.float32)
     pos = rng.integers(0, 256, size=(2, 5)).astype(np.int32)
-    ref = jax_apply_rope(jnp.asarray(x), cos_j, sin_j, jnp.asarray(pos))
+    c = cos_t.numpy().astype(np.float64)[pos][:, :, None]
+    s = sin_t.numpy().astype(np.float64)[pos][:, :, None]
+    x1, x2 = x[..., :8].astype(np.float64), x[..., 8:].astype(np.float64)
+    ref = np.concatenate([x1 * c - x2 * s, x2 * c + x1 * s], -1)
+    mag = np.concatenate([np.abs(x1 * c) + np.abs(x2 * s)] * 2, -1)
+    jax_out = jax_apply_rope(jnp.asarray(x), jnp.asarray(cos_t.numpy()),
+                             jnp.asarray(sin_t.numpy()), jnp.asarray(pos))
     out = apply_rope(torch.from_numpy(x), cos_t, sin_t,
                      torch.from_numpy(pos).long())
-    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-6)
+    _within_f64(out.numpy(), ref, mag, "port apply_rope")
+    _within_f64(jax_out, ref, mag, "jax apply_rope")
 
 
 def test_yarn_attention_factor_is_folded_into_the_tables():
