@@ -22,9 +22,12 @@ print the final ``ok`` line):
    ``csrc/flash_attention.cu`` with nvcc for sm_90a (one nvcc each, started
    together), and the Triton RMSNorm kernel, with their seconds and ptxas
    register/spill lines; where the toolkit has ``cuobjdump``, the HGMMA
-   (wgmma) and HMMA counts of every kernel of the two tensor-core sources
+   (wgmma) and HMMA counts of every kernel of the five tensor-core sources
    (an instantiation of the bf16 ``paged_attention_multi``, ``flash_fwd``,
-   ``flash_dq`` or ``flash_dkv`` without HGMMA fails the phase);
+   ``flash_dq``, ``flash_dkv``, either MLA latent kernel or a prefill-regime
+   ``int4_matmul`` without HGMMA, or a decode-regime ``int4_matmul`` with
+   neither HGMMA nor HMMA, fails the phase, as does a kernel missing from
+   its library);
 3. kernels vs plain on the card, at the shapes the 8B main path gives
    them: ``paged_attention_multi`` (decode K=1 B=8 with ragged lengths up
    to 2048, K=4 B=8, a 1024-token prefill chunk behind a 100-token
@@ -43,8 +46,9 @@ print the final ``ok`` line):
    and must read above 1x: for attention p.v accumulated in bf16, P
    rounded to bf16 before P.V and a page lost from the long contexts,
    for int8 pages also the scales
-   ignored, for int4 the two nibbles of each byte swapped and each group
-   given its neighbour's scale), the kernel's median time (CUDA events,
+   ignored, for int4 the two nibbles of each byte swapped, each group
+   given its neighbour's scale and each weight multiplied by its scale in
+   bf16 before the product), the kernel's median time (CUDA events,
    L2 flushed before every launch), its bound (bytes over 3.35 TB/s or
    operations over the peak for their type, whichever is larger), the
    plain version's time, and one PyTorch library call's time for the
@@ -63,7 +67,8 @@ print the final ``ok`` line):
    and the single-token ``paged_attention_mla`` and
    ``paged_attention_mla_quant`` at the decode shape; the tolerance of
    phase 3, controls (the rope term dropped, a page lost, the causal floor
-   off at K > 1, the scales ignored for int8) that must read above 1x, the
+   off at K > 1, q in bf16 alone, the scales ignored for int8) that must
+   read above 1x, the
    kernel's, the plain version's and a labelled SDPA yardstick's times
    (q = [q_lat, q_rope], k = [c, kr], v = c, one kv head), and the bound;
 4. engine: ``ServingEngine`` for llama3-8b, 8 slots, cache_len 2048,
@@ -187,11 +192,18 @@ BF16_TENSOR_FLOPS = 989e12         # dense bf16 tensor-core peak
 F32_FLOPS = 67e12                  # f32 outside the tensor cores
 SEED = 20261016
 # the kernels on the tensor cores, by source: every instantiation named so
-# must hold wgmma instructions
+# must hold wgmma instructions (HGMMA), except int4_matmul's decode regime
+# (a tile of at most INT4_DECODE_ROWS rows), which may hold mma.sync (HMMA)
+# instead; each name must be found in its library
 TENSOR_CORE_KERNELS = {
     "paged_attention_multi": ("paged_attention_multi_kernel",),
     "flash_attention": ("flash_fwd_kernel", "flash_dq_kernel",
-                        "flash_dkv_kernel")}
+                        "flash_dkv_kernel"),
+    "paged_attention_multi_mla": ("paged_attention_multi_mla_kernel",),
+    "paged_attention_multi_mla_quant": (
+        "paged_attention_multi_mla_quant_kernel",),
+    "int4_matmul": ("int4_matmul_kernel",)}
+INT4_DECODE_ROWS = 16
 # Kernel and plain version both compute in f32 and round once to bf16, so
 # they differ by at most one bf16 ulp of the output, which is <= 2^-7 |y|;
 # RTOL is 1.3 ulps, ATOL covers f32 sum-order noise near zero. Both apply
@@ -308,6 +320,16 @@ def sass_counts(lib_path: str) -> dict:
                 if re.search(rf"\b{op}\.", line):
                     out[name][op] += 1
     return out
+
+
+def tensor_core_ok(kernel: str, counts: dict) -> bool:
+    """Whether a tensor-core kernel's SASS holds what its regime needs:
+    HGMMA, or for an ``int4_matmul_kernel<NR, ...>`` with NR <=
+    INT4_DECODE_ROWS, HGMMA or HMMA."""
+    m = re.match(r"int4_matmul_kernel<(\d+),", kernel)
+    if m and int(m.group(1)) <= INT4_DECODE_ROWS:
+        return counts["HGMMA"] + counts["HMMA"] > 0
+    return counts["HGMMA"] > 0
 
 
 def time_ms(torch, fn, reps: int, flush) -> float:
@@ -581,15 +603,20 @@ def mla_inputs(torch, dev, b, kq, lengths, t=16, cols=128):
 
 
 def mla_variant(torch, q_lat, q_rope, c, kr, lens, scale, drop_rope=False,
-                lost_page=False, causal=True):
+                lost_page=False, causal=True, q_bf16=False):
     """The absorbed attention written out over gathered f32 latents c
     (B, S, R) and kr (B, S, Dr), with one fault switched on for a control:
-    the rope term dropped, the second page (positions 16-31) lost, or the
-    causal floor off (every query sees the whole context)."""
+    the rope term dropped, the second page (positions 16-31) lost, the
+    causal floor off (every query sees the whole context), or the scaled
+    queries rounded to bf16 alone (a tensor-core product without the lo
+    term of the kernels' hi + lo split)."""
     kq, s_len = q_lat.shape[1], c.shape[1]
-    s = torch.einsum("bkhr,bLr->bkhL", q_lat * scale, c)
+    ql, qr = q_lat * scale, q_rope * scale
+    if q_bf16:
+        ql, qr = ql.bfloat16().float(), qr.bfloat16().float()
+    s = torch.einsum("bkhr,bLr->bkhL", ql, c)
     if not drop_rope:
-        s = s + torch.einsum("bkhd,bLd->bkhL", q_rope * scale, kr)
+        s = s + torch.einsum("bkhd,bLd->bkhL", qr, kr)
     pos = torch.arange(s_len, device=c.device)
     if causal:
         qpos = (lens.long()[:, None] - kq
@@ -609,7 +636,8 @@ def mla_case(torch, F, dev, flush, kind, name, b, kq, lengths):
     int8 kinds take latents that the model's own ``_kv_quant`` made from the
     bf16 ones (the garbage pages stay large). Controls, each scored by the
     same check and each required above 1x: the rope term dropped, a page
-    lost, the causal floor off (K > 1), the scales ignored (int8)."""
+    lost, the causal floor off (K > 1), q in bf16 alone (no lo term), the
+    scales ignored (int8)."""
     from k8s_runpod_kubelet_tpu_torch.models.llama import _kv_quant
     from k8s_runpod_kubelet_tpu_torch.ops import attention
 
@@ -652,7 +680,8 @@ def mla_case(torch, F, dev, flush, kind, name, b, kq, lengths):
     cg = c[idx].float().reshape(b, -1, r)
     krg = kr[idx].float().reshape(b, -1, dr)
     variants = {"rope_dropped": dict(drop_rope=True),
-                "lost_page": dict(lost_page=True)}
+                "lost_page": dict(lost_page=True),
+                "q_bf16": dict(q_bf16=True)}
     if kq > 1:
         variants["causal_floor_off"] = dict(causal=False)
     controls = {}
@@ -756,9 +785,11 @@ def int4_case(torch, dev, flush, rows, kin, out, leaves):
     """``int4_matmul`` at one projection shape against its plain version:
     random weights (normal * 0.02) quantized by the port's quantizer on the
     card, bf16 activations. Controls, scored by the same check: the two
-    nibbles of every byte swapped, and each group given its neighbour's
-    scale. Times: the kernel, the plain version (row blocks, see
-    ``int4_plain_rows``), the library's int4 GEMM
+    nibbles of every byte swapped, each group given its neighbour's scale,
+    and the scale folded into bf16 weights before the product (the
+    dequantized bf16 weight in an f32 product). Times: the kernel, the
+    plain version (row blocks, see ``int4_plain_rows``), the library's int4
+    GEMM
     ``_weight_int4pack_mm`` on the same nibbles and group scales (the same
     function up to the scales' bf16 rounding; its output is held against
     the plain version by relative L2, ``INT4PACK_REL_L2_LIMIT``) and, as a
@@ -787,11 +818,17 @@ def int4_case(torch, dev, flush, rows, kin, out, leaves):
         raise RuntimeError(f"int4_matmul {name}: max abs err {err}, "
                            f"{share:.2f}x the tolerance {TOLERANCE}")
     swapped = (q4 >> 4) | (q4 << 4)
+    w_bf16 = dequantize(leaf).bfloat16()
     controls = {}
-    for control, args in (("nibbles_swapped", (swapped, scale)),
-                          ("neighbour_group_scale",
-                           (q4, torch.roll(scale, 1, dims=0)))):
-        e, sh = tolerance_check(int4_plain_rows(torch, hf, *args), ref)
+    for control, fn in (
+            ("nibbles_swapped",
+             lambda: int4_plain_rows(torch, hf, swapped, scale)),
+            ("neighbour_group_scale",
+             lambda: int4_plain_rows(torch, hf, q4,
+                                     torch.roll(scale, 1, dims=0))),
+            # the scale folded into bf16 weights before an f32 product
+            ("scale_folded_bf16", lambda: hf @ w_bf16.float())):
+        e, sh = tolerance_check(fn(), ref)
         controls[control] = {"max_abs_err": e, "tolerance_share": sh}
         if not sh > 1:
             raise RuntimeError(f"int4_matmul {name}: the {control} control "
@@ -806,7 +843,6 @@ def int4_case(torch, dev, flush, rows, kin, out, leaves):
         raise RuntimeError(f"_weight_int4pack_mm {name}: relative L2 {rel} "
                            "from the plain version")
     del ref, swapped, hf, lib_y
-    w_bf16 = dequantize(leaf).bfloat16()
     big = rows * kin * out > 2**34
     ms = time_ms(torch, lambda: int4_matmul(h, q4, scale), 5 if big else 30,
                  flush)
@@ -829,7 +865,9 @@ def int4_case(torch, dev, flush, rows, kin, out, leaves):
         f"{TOLERANCE}; controls: nibbles swapped "
         f"{controls['nibbles_swapped']['tolerance_share']:.0f}, neighbour "
         f"group's scale "
-        f"{controls['neighbour_group_scale']['tolerance_share']:.0f}) kernel "
+        f"{controls['neighbour_group_scale']['tolerance_share']:.0f}, scale "
+        f"folded into bf16 weights "
+        f"{controls['scale_folded_bf16']['tolerance_share']:.1f}) kernel "
         f"{ms:.4f} ms ({rec['tflops']:.1f} TFLOP/s, {rec['gb_per_s']:.0f} "
         f"GB/s), bound {bound_ms:.4f} ms ({bound_by}), plain {plain_ms:.3f} "
         f"ms, library (_weight_int4pack_mm) {library_ms:.4f} ms (relative L2 "
@@ -2037,12 +2075,17 @@ def main(argv=None) -> int:
     for name, counts in sass.items():
         if not counts:
             log(f"  sass {name}: no cuobjdump in the toolkit, not counted")
+            continue
         for kernel, c in sorted(counts.items()):
             log(f"  sass {name}: {kernel}: {c['HGMMA']} HGMMA, "
                 f"{c['HMMA']} HMMA")
             if kernel.startswith(TENSOR_CORE_KERNELS[name]) \
-                    and c["HGMMA"] == 0:
-                raise RuntimeError(f"{kernel} holds no HGMMA instruction")
+                    and not tensor_core_ok(kernel, c):
+                raise RuntimeError(f"{kernel} holds no tensor-core "
+                                   "instruction its regime needs")
+        for prefix in TENSOR_CORE_KERNELS[name]:
+            if not any(k.startswith(prefix) for k in counts):
+                raise RuntimeError(f"no {prefix} in the SASS of {name}")
     log("  nvcc (sm_90a, in parallel) " + ", ".join(
         f"csrc/{n}.cu {nvcc_s[n]:.1f} s" for n in sources)
         + f"; Triton rms_norm {triton_s:.1f} s")

@@ -4,9 +4,11 @@
 // sources states the TPU kernel it replaces and gives this body its rows
 // (which query rows a block owns, and the key range each row sees) and its
 // key rows (contiguous for flash, gathered page by page for paged). The
-// flash backward kernels (flash_attention.cu) build on its primitives:
+// flash backward kernels (flash_attention.cu), the paged MLA latent kernels
+// (paged_attention_mla.cuh) and int4_matmul.cu build on its primitives:
 // start_scores for S = Q K^T-shaped products, split_p for any f32 operand
-// (P, dS) and start_rs for the products that take it.
+// (P, dS) and start_rs for the products that take it, the MmaSS/MmaRS
+// wgmma shapes, the swizzled layout and the cp.async helpers.
 //
 // The tile: a warpgroup (4 warps, 128 threads) owns 64 query rows; a block
 // of WG warpgroups shares each staged K/V tile of BN keys.
@@ -85,6 +87,11 @@ __device__ __forceinline__ void cp_commit() {
 __device__ __forceinline__ void cp_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
+// until at most N committed groups of this thread's copies are in flight
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 // this thread's shared-memory writes made visible to wgmma (async proxy)
 __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -137,12 +144,16 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// wgmma.mma_async m64nNk16, bf16 x bf16 -> f32. MmaSS: A and B from shared
-// memory, both K-major (scores). MmaRS: A from registers, B from shared
-// memory MN-major (P V), always accumulating.
+// wgmma.mma_async m64nNk16, bf16 x bf16 -> f32, d += A B (d = A B where
+// accumulate is 0). MmaSS: A and B from shared memory, both K-major
+// (scores). MmaRS: A from registers (the m64k16 fragment: register (half * 2
+// + i) holds the pair of row i in 8-column block half, as split_p lays it
+// out); TB is B's layout: 1 MN-major (a row of the B tile is the reduced
+// dimension: V in P V), 0 K-major (a row is an N index, its columns the
+// reduced dimension: h in int4_matmul, the rope keys of the MLA body).
 template <int N>
 struct MmaSS;
-template <int N>
+template <int N, int TB = 1>
 struct MmaRS;
 
 template <>
@@ -181,32 +192,68 @@ struct MmaSS<64> {
   }
 };
 
-template <>
-struct MmaRS<64> {
+template <int TB>
+struct MmaRS<16, TB> {
+  static __device__ __forceinline__ void run(float (&d)[8],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b, int accumulate = 1) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "{%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate),
+          "n"(TB));
+  }
+};
+
+template <int TB>
+struct MmaRS<32, TB> {
+  static __device__ __forceinline__ void run(float (&d)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b, int accumulate = 1) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate),
+          "n"(TB));
+  }
+};
+
+template <int TB>
+struct MmaRS<64, TB> {
   static __device__ __forceinline__ void run(float (&d)[32],
                                              const uint32_t (&a)[4],
-                                             uint64_t b) {
+                                             uint64_t b, int accumulate = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
         "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
         "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
           "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
           "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate),
+          "n"(TB));
   }
 };
 
-template <>
-struct MmaRS<128> {
+template <int TB>
+struct MmaRS<128, TB> {
   static __device__ __forceinline__ void run(float (&d)[64],
                                              const uint32_t (&a)[4],
-                                             uint64_t b) {
+                                             uint64_t b, int accumulate = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
@@ -214,7 +261,7 @@ struct MmaRS<128> {
         "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
         "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
         "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-        "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -226,15 +273,16 @@ struct MmaRS<128> {
           "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
           "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate),
+          "n"(TB));
   }
 };
 
-template <>
-struct MmaRS<256> {
+template <int TB>
+struct MmaRS<256, TB> {
   static __device__ __forceinline__ void run(float (&d)[128],
                                              const uint32_t (&a)[4],
-                                             uint64_t b) {
+                                             uint64_t b, int accumulate = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
@@ -246,7 +294,7 @@ struct MmaRS<256> {
         "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
         "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
         "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
-        "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+        "{%128, %129, %130, %131}, %132, p, 1, 1, %134;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -269,7 +317,8 @@ struct MmaRS<256> {
           "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
           "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
           "+f"(d[126]), "+f"(d[127])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate),
+          "n"(TB));
   }
 };
 

@@ -3,7 +3,8 @@
 // and paged_attention_multi_mla_quant.cu (int8 latent pages with
 // per-position f32 scales): each of those sources states the TPU kernel it
 // replaces and instantiates this template for its page type behind its own
-// __global__ kernel and C entry.
+// __global__ kernel and C entries. It runs on Hopper's tensor cores
+// (sm_90a) on the primitives of attention_tile_sm90.cuh.
 //
 // Function (the absorbed form of Multi-head Latent Attention): query row
 // (b, j, h) holds q_lat (R, the query folded through w_uk) and q_rope (DR,
@@ -15,339 +16,495 @@
 // lengths - K + j and sees positions <= that (causal inside the block); the
 // output is the softmax-weighted latent sum_p p * c (R, f32), which the
 // caller up-projects through w_uv. Table entries at or after
-// ceil(lengths / T) are never read, so the sink page never is.
+// ceil(lengths / T) are never read, nor columns past the table's width, so
+// the sink page never is.
 //
-// Design: the TPU kernels walk pages as a sequential grid axis with the
-// online-softmax state in VMEM scratch. Here the page walk is a loop inside
-// the block: one block per (sequence, tile of query rows), rows ordered
-// query-major (row = j * Hq + h, as _paged_multi_mla_q stacks them), each
-// of 4 warps owning RPW rows whose state (max, sum, R-wide f32 accumulator)
-// stays in registers. Per page the block stages the page's c (T x R) and kr
-// (T x DR) tiles ONCE in shared memory as f32, for all its rows: bf16 pages
-// convert there, int8 pages dequantize there (int8 * the position's scale,
-// the reference's order of operations), so the inner loops read f32 only.
-// The page walk is software-pipelined: cp.async copies page p + 1's raw
-// tiles (and int8 scales) into a second shared buffer while the warps
-// compute on page p, so a block that owns few rows (decode) does not wait
-// out a global-memory round trip per page.
-// A lane holds the row elements k * 128 + 4 * lane + {0..3} (float4 chunks)
-// of q_lat and the accumulator, and k * 64 + 2 * lane + {0, 1} of q_rope,
-// so a warp's shared-memory reads of a staged row are contiguous and free
-// of bank conflicts; a score is a lane partial dot plus a warp butterfly
-// sum. The row tile is chosen per launch: few rows (decode) put one row on
-// a warp, 4 rows a block, so a decode batch spreads over tens of blocks
-// that each re-read their sequence's pages (from L2 after the first); many
-// rows (prefill chunks, K * Hq = 32768 at a 1024-token chunk) put four on a
-// warp so each staged element feeds 4 FMAs per shared-memory read.
-// Split-KV, wgmma and TMA are left to later work; this is the simple, exact
-// version.
+// Design: a block owns 64 query rows of one sequence, query-major (row =
+// j * Hq + h, as _paged_multi_mla_q stacks them: at Hq = 32 two query
+// positions x 32 heads), and every row reads the same staged keys, so the
+// latent tile is the shared B operand of wgmma for all heads. Tiles of 32
+// keys [c | kr] (576 bf16 columns, gathered page by page by 16-byte
+// cp.async into the swizzled layout) are walked with an online softmax:
+//   S = q [c | kr]^T   wgmma m64n32k16, q from shared memory (K-major);
+//   O += P c           wgmma m64n256k16, P from registers, c read MN-major
+//                      from the same staged bytes.
+// One warpgroup cannot hold a 64 x 512 f32 accumulator (256 registers a
+// thread), so two warpgroups split R into halves of 256: each computes its
+// half of q_lat . c^T and half of the rope term (32 of the 64 rope columns),
+// the two partial S meet in shared memory and each adds the other's (f32
+// addition commutes, so both hold the same S bit for bit), both run the
+// same online softmax, and each runs P c for its half of O.
+//
+// Every f32 operand enters the tensor cores as bf16 hi + lo (products of
+// bf16 values are exact in f32): q = q_lat * scale (the reference scales q
+// in f32) as two shared-memory tiles, the rope query as two register
+// fragment sets, P as split_p's two fragment sets. q in bf16 alone would
+// move every score by ~2^-9 relative, outside the 1.3-ulp tolerance of the
+// card check; the pages are bf16 (or int8) and exact as they are.
+// Shared memory (of the 232,448 bytes a block may take): q hi + lo for 64
+// rows x 512 columns, 131,072 B (q_rope in registers: that saves 16 KB);
+// bf16 pages: two key stages of 36,864 B (the tile t + 1 lands while t
+// computes); the two partial-S slots, 16,384 B; 222,208 B in all. int8
+// pages: the int8 values are staged raw by cp.async (two stages of 18,688
+// B with their scales) and widened to bf16 integers (exact) into one key
+// stage, 222,976 B in all. The scores of an int8 tile are S_c * c_scale +
+// S_r * kr_scale per key, the scales applied after the products; P is
+// multiplied by c_scale before P c, so the output differs from the
+// reference's (int8 * scale) . c by f32 rounding only, and the int8 arena
+// keeps its bytes.
+//
+// Decode (few row tiles) splits each sequence's pages into contiguous
+// ranges planned from shapes alone (the wrapper's _mla_split_plan): each
+// split writes its rows' unnormalised f32 accumulator, max and sum to
+// scratch, and mla_merge_kernel combines them. Row tiles run longest causal
+// band first.
 
 #pragma once
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
 #include <type_traits>
+
+#include "attention_tile_sm90.cuh"
 
 namespace mla {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr float kNegInf = -1e30f;  // the reference's NEG_INF
+using bf16 = __nv_bfloat16;
+using tile90::kWarpgroup;
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+constexpr int kR = 512, kDR = 64;    // latent, rope widths of every MLA config
+constexpr int kW = kR + kDR;         // columns of a key row [c | kr]
+constexpr int kRows = 64;            // query rows a block owns
+constexpr int kBN = 32;              // keys a tile
+constexpr int kThreads = 2 * kWarpgroup;
+constexpr uint32_t kQTile = kRows * kR * 2;        // q hi (or lo), bf16
+constexpr uint32_t kKTile = kBN * kW * 2;          // a bf16 key tile
+constexpr uint32_t kSlot = kRows * kBN * 4;        // a warpgroup's partial S
+constexpr uint32_t kRaw = kBN * kW + 2 * kBN * 4;  // an int8 tile + scales
+
+template <bool kQuant>
+constexpr size_t smem_bytes() {
+  return 1024 + 2 * size_t(kQTile) +
+         (kQuant ? kKTile + 2 * kRaw + 2 * kBN * 4 : 2 * kKTile) + 2 * kSlot;
 }
 
-// cp.async of 16 bytes from global to shared memory (sm_80+), its group
-// commit, and the wait for every group this thread committed
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
-               "l"(gmem));
+struct Params {
+  int n_q, hq, page_tokens, table_width;
+  float scale;
+  int n_splits, pages_per_split;
+};
+
+// 4 bytes global -> shared; `valid` false writes zeros and reads nothing
+__device__ __forceinline__ void cp4(uint32_t dst, const void* src,
+                                    bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+// f32 pair -> its bf16 hi and lo words
+__device__ __forceinline__ void split2(float a, float b, uint32_t& hi,
+                                       uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  hi = tile90::bf16x2_bits(h);
+  lo = tile90::bf16x2_bits(__floats2bfloat162_rn(a - hf.x, b - hf.y));
 }
 
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+// bytes k and k + 1 of w (int8) as a bf16 pair, exact
+__device__ __forceinline__ uint32_t i8_bf16(uint32_t w, int k) {
+  return tile90::bf16x2_bits(__floats2bfloat162_rn(
+      float(static_cast<int8_t>(w >> (8 * k))),
+      float(static_cast<int8_t>(w >> (8 * k + 8)))));
 }
 
-// One 16-byte vector of a page row into f32 shared memory: 8 bf16 values
-__device__ __forceinline__ void stage_vec(const __nv_bfloat16* src, float,
-                                          float* dst) {
-  const uint4 v = *reinterpret_cast<const uint4*>(src);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-  const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
-  const float2 c = __bfloat1622float2(h[2]), d = __bfloat1622float2(h[3]);
-  float4* out = reinterpret_cast<float4*>(dst);
-  out[0] = make_float4(a.x, a.y, b.x, b.y);
-  out[1] = make_float4(c.x, c.y, d.x, d.y);
-}
-
-// ... or 16 int8 values times their position's scale
-__device__ __forceinline__ void stage_vec(const int8_t* src, float scale,
-                                          float* dst) {
-  const uint4 v = *reinterpret_cast<const uint4*>(src);
-  const char4* c = reinterpret_cast<const char4*>(&v);
-  float4* out = reinterpret_cast<float4*>(dst);
-#pragma unroll
-  for (int k = 0; k < 4; ++k)
-    out[k] = make_float4(static_cast<float>(c[k].x) * scale,
-                         static_cast<float>(c[k].y) * scale,
-                         static_cast<float>(c[k].z) * scale,
-                         static_cast<float>(c[k].w) * scale);
-}
-
-// Start the copy of n contiguous bytes (a multiple of 16) into shared memory.
-__device__ __forceinline__ void prefetch(const void* src, void* dst, int n) {
-  for (int i = threadIdx.x; i < n / 16; i += kThreads)
-    cp_async16(static_cast<char*>(dst) + 16 * i,
-               static_cast<const char*>(src) + 16 * i);
-}
-
-// Convert one raw section in shared memory (T rows of W elements) to f32,
-// int8 rows times their position's scale.
-template <typename KV, int W>
-__device__ __forceinline__ void widen(const KV* raw, const float* scale,
-                                     float* dst, int page_tokens) {
-  constexpr int kVec = 16 / sizeof(KV);  // elements per 16-byte vector
-  constexpr int kPerRow = W / kVec;
-  for (int idx = threadIdx.x; idx < page_tokens * kPerRow; idx += kThreads) {
-    float s = 1.f;
-    if constexpr (std::is_same<KV, int8_t>::value) s = scale[idx / kPerRow];
-    stage_vec(raw + idx * kVec, s, dst + idx * kVec);
-  }
-}
-
-// Shared memory of one block: the page's c and kr tiles in f32, then the
-// raw tiles of the page in flight (and, int8, its two scale rows).
-inline size_t smem_bytes(int page_tokens, int latent, int rope,
-                         size_t elem_bytes) {
-  const size_t t = page_tokens;
-  return t * (latent + rope) * (sizeof(float) + elem_bytes) +
-         (elem_bytes == 1 ? 2 * t * sizeof(float) : 0);
-}
-
-template <typename KV, int R, int DR, int RPW>
+template <typename KV>
 __device__ __forceinline__ void attend(
     const float* __restrict__ q_lat, const float* __restrict__ q_rope,
     const KV* __restrict__ c_pages, const KV* __restrict__ kr_pages,
     const float* __restrict__ c_scale, const float* __restrict__ kr_scale,
     const int32_t* __restrict__ page_table,
-    const int32_t* __restrict__ lengths, float* __restrict__ out, int n_q,
-    int hq, int page_tokens, int table_width, float scale, float* smem) {
-  static_assert(R % 128 == 0 && DR % 64 == 0, "R % 128, DR % 64");
-  constexpr int RC = R / 128;    // float4 chunks of a row per lane
-  constexpr int DC = DR / 64;    // float2 chunks of the rope part per lane
-  constexpr int G = RPW == 1 ? 8 : 4;  // positions per softmax update
+    const int32_t* __restrict__ lengths, float* __restrict__ out,
+    float* __restrict__ part_o, float* __restrict__ part_ml, const Params& p,
+    unsigned char* smem) {
+  using namespace tile90;
   constexpr bool kQuant = std::is_same<KV, int8_t>::value;
-  float* c_s = smem;
-  float* kr_s = c_s + page_tokens * R;
-  KV* c_raw = reinterpret_cast<KV*>(kr_s + page_tokens * DR);
-  KV* kr_raw = c_raw + page_tokens * R;
-  float* cs_raw = reinterpret_cast<float*>(kr_raw + page_tokens * DR);
-  float* krs_raw = cs_raw + page_tokens;
+  const uint32_t raw_addr = smem_addr(smem);
+  const uint32_t base = (raw_addr + 1023u) & ~1023u;
+  unsigned char* gsm = smem + (base - raw_addr);  // the same, generic
+  const uint32_t qh_s = base, ql_s = base + kQTile;
+  const uint32_t key_s = base + 2 * kQTile;       // bf16 stage(s)
+  const uint32_t raw_s = key_s + kKTile;          // int8: raw stages
+  const uint32_t slot_s = key_s + (kQuant ? kKTile + 2 * kRaw : 2 * kKTile);
+  const uint32_t scl_s = slot_s + 2 * kSlot;      // int8: the tile's scales
+  float* slot = reinterpret_cast<float*>(gsm + (slot_s - base));
+  const float* scl = reinterpret_cast<const float*>(gsm + (scl_s - base));
 
-  const int b = blockIdx.y;
-  const int n_rows = n_q * hq;
-  const int tile = kWarps * RPW;
-  const int row0 = blockIdx.x * tile;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
+  const int n_rows = p.n_q * p.hq;
+  const int row0 = (gridDim.x - 1 - blockIdx.x) * kRows;  // longest first
+  const int split = blockIdx.y, b = blockIdx.z;
+  const int T = p.page_tokens;
   const int len = lengths[b];
-
-  float4 ql[RPW][RC];
-  float2 qr[RPW][DC];
-  float4 acc[RPW][RC];
-  float m[RPW];
-  float l[RPW];
-  int qpos[RPW];
+  const int first_q = len - p.n_q;  // position of query 0
+  const int wg = threadIdx.x / kWarpgroup;
+  const int tw = threadIdx.x % kWarpgroup;
+  const int t4 = tw % 4;
+  int row[2], hi[2];
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
 #pragma unroll
-  for (int i = 0; i < RPW; ++i) {
-    const int r = row0 + warp * RPW + i;
-    m[i] = kNegInf;
-    l[i] = 0.f;
-    // a row past the last sees nothing: its probabilities stay 0
-    qpos[i] = r < n_rows ? len - n_q + r / hq : -1;
-#pragma unroll
-    for (int k = 0; k < RC; ++k) {
-      acc[i][k] = make_float4(0.f, 0.f, 0.f, 0.f);
-      ql[i][k] = acc[i][k];
-    }
-#pragma unroll
-    for (int k = 0; k < DC; ++k) qr[i][k] = make_float2(0.f, 0.f);
-    if (r < n_rows) {
-      // (B, K, Hq, .) rows: row r of sequence b is (b * n_q * hq + r)
-      const size_t row = size_t(b) * n_rows + r;
-#pragma unroll
-      for (int k = 0; k < RC; ++k) {
-        const float4 v = reinterpret_cast<const float4*>(
-            q_lat + row * R + k * 128)[lane];
-        ql[i][k] = make_float4(v.x * scale, v.y * scale, v.z * scale,
-                               v.w * scale);
-      }
-#pragma unroll
-      for (int k = 0; k < DC; ++k) {
-        const float2 v = reinterpret_cast<const float2*>(
-            q_rope + row * DR + k * 64)[lane];
-        qr[i][k] = make_float2(v.x * scale, v.y * scale);
-      }
-    }
+  for (int i = 0; i < 2; ++i) {
+    row[i] = row0 + (tw / 32) * 16 + (tw % 32) / 4 + 8 * i;
+    hi[i] = row[i] < n_rows ? first_q + row[i] / p.hq : -1;
   }
 
   // pages this block reads: up to the page of its newest query, never at or
   // past ceil(len / T) nor past the table's width (positions beyond its
-  // columns are absent, as in the reference); clamped before the first
-  // fetch
-  const int last_row = min(row0 + tile, n_rows) - 1;
-  const int newest = len - n_q + last_row / hq;
-  const int live_pages = (len + page_tokens - 1) / page_tokens;
+  // columns are absent, as in the reference); then this split's range
+  const int newest = first_q + (min(row0 + kRows, n_rows) - 1) / p.hq;
+  const int live = (len + T - 1) / T;
   const int page_end =
-      newest < 0 ? 0
-                 : min(min(live_pages, newest / page_tokens + 1), table_width);
+      newest < 0 ? 0 : min(min(live, newest / T + 1), p.table_width);
+  const int sp0 = split * p.pages_per_split;
+  const int sp1 = min(page_end, sp0 + p.pages_per_split);
+  const int key_begin = sp0 * T;
+  const int key_end = min(sp1 * T, newest + 1);
+  const int n_tiles =
+      key_end > key_begin ? (key_end - key_begin + kBN - 1) / kBN : 0;
+  // the zero-filled keys past the split's end are not the rows' to see
+#pragma unroll
+  for (int i = 0; i < 2; ++i) hi[i] = min(hi[i], key_end - 1);
 
-  // start the copy of table entry pi's raw tiles into the raw buffer
-  auto fetch = [&](int pi) {
-    const size_t page = size_t(page_table[size_t(b) * table_width + pi]);
-    prefetch(c_pages + page * page_tokens * R, c_raw,
-             page_tokens * R * int(sizeof(KV)));
-    prefetch(kr_pages + page * page_tokens * DR, kr_raw,
-             page_tokens * DR * int(sizeof(KV)));
-    if constexpr (kQuant) {
-      prefetch(c_scale + page * page_tokens, cs_raw, page_tokens * 4);
-      prefetch(kr_scale + page * page_tokens, krs_raw, page_tokens * 4);
+  const int32_t* table = page_table + size_t(b) * p.table_width;
+  auto page_row = [&](int pos) -> long long {
+    return (long long)table[pos / T] * T + pos % T;
+  };
+  // the bf16 tile of keys key0 .. key0 + 31 into dst (zeros past key_end)
+  auto load_bf16 = [&](uint32_t dst, int key0) {
+#pragma unroll 3
+    for (int idx = threadIdx.x; idx < kBN * (kW / 8); idx += kThreads) {
+      const int r = idx / (kW / 8), ch = idx % (kW / 8);
+      const bool ok = key0 + r < key_end;
+      const long long pr = ok ? page_row(key0 + r) : 0;
+      const KV* src = ch < kR / 8 ? c_pages + pr * kR + ch * 8
+                                  : kr_pages + pr * kDR + (ch - kR / 8) * 8;
+      cp16(dst + swz(kBN, r, ch), src, ok);
     }
-    cp_async_commit();
+  };
+  // the raw int8 tile and its scales: c rows (512 B), kr rows (64 B), then
+  // the c and kr scales of the 32 keys
+  auto load_int8 = [&](uint32_t dst, int key0) {
+    for (int idx = threadIdx.x; idx < kBN * (kW / 16); idx += kThreads) {
+      const int r = idx / (kW / 16), ch = idx % (kW / 16);
+      const bool ok = key0 + r < key_end;
+      const long long pr = ok ? page_row(key0 + r) : 0;
+      if (ch < kR / 16)
+        cp16(dst + r * kR + ch * 16, c_pages + pr * kR + ch * 16, ok);
+      else
+        cp16(dst + kBN * kR + r * kDR + (ch - kR / 16) * 16,
+             kr_pages + pr * kDR + (ch - kR / 16) * 16, ok);
+    }
+    if (threadIdx.x < 2 * kBN) {
+      const int which = threadIdx.x / kBN, r = threadIdx.x % kBN;
+      const bool ok = key0 + r < key_end;
+      const long long pr = ok ? page_row(key0 + r) : 0;
+      cp4(dst + kBN * kW + threadIdx.x * 4,
+          (which ? kr_scale : c_scale) + pr, ok);
+    }
+  };
+  // int8 raw stage -> the bf16 key stage (integers, exact) and the scales
+  auto widen = [&](uint32_t src) {
+    const unsigned char* rs = gsm + (src - base);
+    for (int idx = threadIdx.x; idx < kBN * (kW / 16); idx += kThreads) {
+      const int r = idx / (kW / 16), ch = idx % (kW / 16);
+      const uint4 v = *reinterpret_cast<const uint4*>(
+          rs + (ch < kR / 16 ? r * kR + ch * 16
+                             : kBN * kR + r * kDR + (ch - kR / 16) * 16));
+      const int oc = 2 * ch;  // bf16 chunks 2 ch, 2 ch + 1 of the row
+      *reinterpret_cast<uint4*>(gsm + (key_s - base) + swz(kBN, r, oc)) =
+          make_uint4(i8_bf16(v.x, 0), i8_bf16(v.x, 2), i8_bf16(v.y, 0),
+                     i8_bf16(v.y, 2));
+      *reinterpret_cast<uint4*>(gsm + (key_s - base) + swz(kBN, r, oc + 1)) =
+          make_uint4(i8_bf16(v.z, 0), i8_bf16(v.z, 2), i8_bf16(v.w, 0),
+                     i8_bf16(v.w, 2));
+    }
+    if (threadIdx.x < 2 * kBN)
+      reinterpret_cast<float*>(gsm + (scl_s - base))[threadIdx.x] =
+          reinterpret_cast<const float*>(rs + kBN * kW)[threadIdx.x];
   };
 
-  if (page_end > 0) fetch(0);
-  for (int pi = 0; pi < page_end; ++pi) {
-    cp_async_wait_all();
-    // page pi's raw tiles have landed (every thread's copies); every warp
-    // is done with page pi - 1's f32 tiles
-    __syncthreads();
-    widen<KV, R>(c_raw, cs_raw, c_s, page_tokens);
-    widen<KV, DR>(kr_raw, krs_raw, kr_s, page_tokens);
-    __syncthreads();  // the f32 tiles are ready; the raw buffer is free
-    if (pi + 1 < page_end) fetch(pi + 1);  // lands while this page computes
+  float o[kR / 4];                      // this warpgroup's m64n256 O
+#pragma unroll
+  for (int i = 0; i < kR / 4; ++i) o[i] = 0.f;
+  uint32_t qrh[2][4], qrl[2][4];        // its 32 rope columns, hi and lo
+  if (n_tiles > 0) {
+    if constexpr (kQuant) {
+      load_int8(raw_s, key_begin);
+      cp_commit();
+      if (n_tiles > 1) load_int8(raw_s + kRaw, key_begin + kBN);
+      cp_commit();
+    } else {
+      load_bf16(key_s, key_begin);
+      cp_commit();
+    }
+    // q_lat * scale as bf16 hi and lo tiles (zero rows past the last)
+    for (int idx = threadIdx.x; idx < kRows * (kR / 8); idx += kThreads) {
+      const int r = idx / (kR / 8), ch = idx % (kR / 8);
+      uint4 vh = make_uint4(0, 0, 0, 0), vl = vh;
+      if (row0 + r < n_rows) {
+        const float4* src = reinterpret_cast<const float4*>(
+            q_lat + (size_t(b) * n_rows + row0 + r) * kR + ch * 8);
+        const float4 a = __ldg(src), c = __ldg(src + 1);
+        const float s = p.scale;
+        split2(a.x * s, a.y * s, vh.x, vl.x);
+        split2(a.z * s, a.w * s, vh.y, vl.y);
+        split2(c.x * s, c.y * s, vh.z, vl.z);
+        split2(c.z * s, c.w * s, vh.w, vl.w);
+      }
+      *reinterpret_cast<uint4*>(gsm + swz(kRows, r, ch)) = vh;
+      *reinterpret_cast<uint4*>(gsm + kQTile + swz(kRows, r, ch)) = vl;
+    }
+    // the rope fragments: k16 slice kk of columns 32 wg + 16 kk
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          float2 v = make_float2(0.f, 0.f);
+          if (row[i] < n_rows)
+            v = __ldg(reinterpret_cast<const float2*>(
+                q_rope + (size_t(b) * n_rows + row[i]) * kDR + 32 * wg +
+                16 * kk + 8 * half + 2 * t4));
+          split2(v.x * p.scale, v.y * p.scale, qrh[kk][half * 2 + i],
+                 qrl[kk][half * 2 + i]);
+        }
+  }
 
-    for (int t0 = 0; t0 < page_tokens; t0 += G) {
-      float s[RPW][G];
+  float s[kBN / 2];
 #pragma unroll
-      for (int u = 0; u < G; ++u) {
-        float4 cv[RC];
-        float2 kv[DC];
+  for (int i = 0; i < kBN / 2; ++i) s[i] = 0.f;
+  [[maybe_unused]] float sr[kBN / 2];  // int8: the rope part of S
+  uint32_t ph[kBN / 16][4], pl[kBN / 16][4];
+  for (int t = 0; t < n_tiles; ++t) {
+    const int key0 = key_begin + t * kBN;
+    uint32_t kt = key_s;  // this tile's bf16 keys
+    if constexpr (kQuant) {
+      cp_wait<1>();     // tile t's raw copies (t + 1's may be in flight)
+      __syncthreads();  // every thread's; both warpgroups past tile t - 1
+      widen(raw_s + (t & 1) * kRaw);
+      fence_async_smem();  // the key tile (and q) visible to wgmma
+      __syncthreads();     // ... for every thread; raw stage t & 1 free
+      if (t + 2 < n_tiles) load_int8(raw_s + (t & 1) * kRaw, key0 + 2 * kBN);
+      cp_commit();
+    } else {
+      cp_wait_all();       // tile t's copies landed
+      fence_async_smem();  // ... and are visible to wgmma (q too)
+      __syncthreads();     // every thread's; both warpgroups past t - 1
+      if (t + 1 < n_tiles)
+        load_bf16(key_s + ((t + 1) & 1) * kKTile, key0 + kBN);
+      cp_commit();
+      kt = key_s + (t & 1) * kKTile;
+    }
+
+    // this warpgroup's part of S: q hi and lo against its 256 latent
+    // columns, and the rope query against its 32 rope columns
+    reg_fence(s);
+    if constexpr (kQuant) reg_fence(sr);
+    wg_fence();
 #pragma unroll
-        for (int k = 0; k < RC; ++k)
-          cv[k] = reinterpret_cast<const float4*>(c_s + (t0 + u) * R +
-                                                  k * 128)[lane];
+    for (int kk = 0; kk < kR / 2 / 16; ++kk) {
+      const uint32_t cb = 4 * wg + kk / 4, k32 = (kk % 4) * 32;
+      const uint64_t bd = desc(kt + cb * kBN * 128 + k32, 16, 1024);
+      MmaSS<kBN>::run(s, desc(qh_s + cb * kRows * 128 + k32, 16, 1024), bd,
+                      kk > 0);
+      MmaSS<kBN>::run(s, desc(ql_s + cb * kRows * 128 + k32, 16, 1024), bd,
+                      1);
+    }
 #pragma unroll
-        for (int k = 0; k < DC; ++k)
-          kv[k] = reinterpret_cast<const float2*>(kr_s + (t0 + u) * DR +
-                                                  k * 64)[lane];
-#pragma unroll
-        for (int i = 0; i < RPW; ++i) {
-          float part = 0.f;
-#pragma unroll
-          for (int k = 0; k < RC; ++k) {
-            part = fmaf(ql[i][k].x, cv[k].x, part);
-            part = fmaf(ql[i][k].y, cv[k].y, part);
-            part = fmaf(ql[i][k].z, cv[k].z, part);
-            part = fmaf(ql[i][k].w, cv[k].w, part);
-          }
-#pragma unroll
-          for (int k = 0; k < DC; ++k) {
-            part = fmaf(qr[i][k].x, kv[k].x, part);
-            part = fmaf(qr[i][k].y, kv[k].y, part);
-          }
-          s[i][u] = part;
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < RPW; ++i) {
-        float mx = m[i];
-#pragma unroll
-        for (int u = 0; u < G; ++u) {
-          // keep is uniform across the warp (one row per warp at a time)
-          const bool keep = pi * page_tokens + t0 + u <= qpos[i];
-          s[i][u] = keep ? warp_sum(s[i][u]) : kNegInf;
-          mx = fmaxf(mx, s[i][u]);
-        }
-        const float corr = expf(m[i] - mx);
-        float psum = 0.f;
-#pragma unroll
-        for (int u = 0; u < G; ++u) {
-          const bool keep = pi * page_tokens + t0 + u <= qpos[i];
-          s[i][u] = keep ? expf(s[i][u] - mx) : 0.f;  // now p
-          psum += s[i][u];
-        }
-        l[i] = l[i] * corr + psum;
-        m[i] = mx;
-#pragma unroll
-        for (int k = 0; k < RC; ++k) {
-          acc[i][k].x *= corr;
-          acc[i][k].y *= corr;
-          acc[i][k].z *= corr;
-          acc[i][k].w *= corr;
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < G; ++u) {
-        float4 cv[RC];
-#pragma unroll
-        for (int k = 0; k < RC; ++k)
-          cv[k] = reinterpret_cast<const float4*>(c_s + (t0 + u) * R +
-                                                  k * 128)[lane];
-#pragma unroll
-        for (int i = 0; i < RPW; ++i) {
-#pragma unroll
-          for (int k = 0; k < RC; ++k) {
-            acc[i][k].x = fmaf(s[i][u], cv[k].x, acc[i][k].x);
-            acc[i][k].y = fmaf(s[i][u], cv[k].y, acc[i][k].y);
-            acc[i][k].z = fmaf(s[i][u], cv[k].z, acc[i][k].z);
-            acc[i][k].w = fmaf(s[i][u], cv[k].w, acc[i][k].w);
-          }
-        }
+    for (int kk = 0; kk < 2; ++kk) {
+      const uint64_t bd =
+          desc(kt + (kR / 64) * kBN * 128 + (2 * wg + kk) * 32, 16, 1024);
+      if constexpr (kQuant) {
+        MmaRS<kBN, 0>::run(sr, qrh[kk], bd, kk > 0);
+        MmaRS<kBN, 0>::run(sr, qrl[kk], bd, 1);
+      } else {
+        MmaRS<kBN, 0>::run(s, qrh[kk], bd, 1);
+        MmaRS<kBN, 0>::run(s, qrl[kk], bd, 1);
       }
     }
+    wg_commit();
+    wg_wait<0>();
+    reg_fence(s);
+    if constexpr (kQuant) {
+      reg_fence(sr);
+#pragma unroll
+      for (int n8 = 0; n8 < kBN / 8; ++n8)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int col = n8 * 8 + 2 * t4 + j;
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int e = n8 * 4 + i * 2 + j;
+            s[e] = s[e] * scl[col] + sr[e] * scl[kBN + col];
+          }
+        }
+    }
+    // the two halves' S: each adds the other's (the same sum in both)
+#pragma unroll
+    for (int e = 0; e < kBN / 2; ++e)
+      slot[(wg * (kBN / 2) + e) * kWarpgroup + tw] = s[e];
+    __syncthreads();
+#pragma unroll
+    for (int e = 0; e < kBN / 2; ++e)
+      s[e] += slot[((1 - wg) * (kBN / 2) + e) * kWarpgroup + tw];
+
+    // online softmax in log2 units; a key past a row's position is -inf
+    float mx[2] = {m[0], m[1]}, corr[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int n8 = 0; n8 < kBN / 8; ++n8)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int e = n8 * 4 + i * 2 + j;
+          const float x = key0 + n8 * 8 + 2 * t4 + j <= hi[i]
+                              ? s[e] * kLog2e
+                              : kMinusInf;
+          s[e] = x;
+          mx[i] = fmaxf(mx[i], x);
+        }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = quad_max(mx[i]);
+      corr[i] = exp2_ftz(m[i] - mx[i]);
+      m[i] = mx[i];
+    }
+#pragma unroll
+    for (int n8 = 0; n8 < kBN / 8; ++n8)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int e = n8 * 4 + i * 2 + j;
+          const float pr = exp2_ftz(s[e] - m[i]);
+          sum[i] += pr;
+          // int8: p * c_scale meets the integer latents in P c
+          s[e] = kQuant ? pr * scl[n8 * 8 + 2 * t4 + j] : pr;
+        }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l[i] = l[i] * corr[i] + sum[i];
+    reg_fence(o);
+#pragma unroll
+    for (int n8 = 0; n8 < kR / 2 / 8; ++n8)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        o[n8 * 4 + i * 2] *= corr[i];
+        o[n8 * 4 + i * 2 + 1] *= corr[i];
+      }
+    split_p<kBN>(s, ph, pl);
+    wg_fence();
+    start_rs<kR / 2, kBN>(o, ph, pl, kt + 4 * wg * kBN * 128);
+    wg_commit();
+    wg_wait<0>();
+    reg_fence(o);
   }
 
 #pragma unroll
-  for (int i = 0; i < RPW; ++i) {
-    const int r = row0 + warp * RPW + i;
-    if (r >= n_rows) continue;
-    const float inv = 1.f / fmaxf(l[i], 1e-30f);
-    float* o = out + (size_t(b) * n_rows + r) * R;
+  for (int i = 0; i < 2; ++i) {
+    const float lsum = quad_sum(l[i]);
+    if (row[i] >= n_rows) continue;
+    if (p.n_splits == 1) {
+      const float inv = 1.f / fmaxf(lsum, 1e-30f);
+      float* dst = out + (size_t(b) * n_rows + row[i]) * kR + 256 * wg;
 #pragma unroll
-    for (int k = 0; k < RC; ++k)
-      reinterpret_cast<float4*>(o + k * 128)[lane] =
-          make_float4(acc[i][k].x * inv, acc[i][k].y * inv,
-                      acc[i][k].z * inv, acc[i][k].w * inv);
+      for (int n8 = 0; n8 < kR / 2 / 8; ++n8)
+        *reinterpret_cast<float2*>(dst + n8 * 8 + 2 * t4) = make_float2(
+            o[n8 * 4 + i * 2] * inv, o[n8 * 4 + i * 2 + 1] * inv);
+    } else {
+      // scratch (B, splits, K * Hq, .): a split that saw no key of this row
+      // writes only its sum 0, which the merge skips
+      const size_t prow =
+          (size_t(b) * p.n_splits + split) * n_rows + row[i];
+      if (lsum > 0.f) {
+        float* dst = part_o + prow * kR + 256 * wg;
+#pragma unroll
+        for (int n8 = 0; n8 < kR / 2 / 8; ++n8)
+          *reinterpret_cast<float2*>(dst + n8 * 8 + 2 * t4) =
+              make_float2(o[n8 * 4 + i * 2], o[n8 * 4 + i * 2 + 1]);
+      }
+      if (wg == 0 && t4 == 0)
+        *reinterpret_cast<float2*>(part_ml + prow * 2) =
+            make_float2(m[i], lsum);
+    }
   }
+}
+
+// One warp per output row (b, j, head): the splits that saw a key,
+// weighted by exp2(max_s - max), divided by the weighted sum.
+__global__ void __launch_bounds__(128)
+mla_merge_kernel(const float* __restrict__ part_o,
+                 const float* __restrict__ part_ml, float* __restrict__ out,
+                 int rows, int rows_per_seq, int n_splits) {
+  const int row = blockIdx.x * 4 + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= rows) return;
+  const int b = row / rows_per_seq;
+  const size_t first =
+      size_t(b) * n_splits * rows_per_seq + row % rows_per_seq;
+  float mx = tile90::kNegInf;
+  for (int s = 0; s < n_splits; ++s) {
+    const float2 ml = *reinterpret_cast<const float2*>(
+        part_ml + (first + size_t(s) * rows_per_seq) * 2);
+    if (ml.y > 0.f) mx = fmaxf(mx, ml.x);
+  }
+  float4 acc[kR / 128] = {};
+  float l = 0.f;
+  for (int s = 0; s < n_splits; ++s) {
+    const size_t prow = first + size_t(s) * rows_per_seq;
+    const float2 ml = *reinterpret_cast<const float2*>(part_ml + prow * 2);
+    if (!(ml.y > 0.f)) continue;
+    const float w = exp2f(ml.x - mx);
+    l += w * ml.y;
+#pragma unroll
+    for (int e = 0; e < kR / 128; ++e) {
+      const float4 v = reinterpret_cast<const float4*>(
+          part_o + prow * kR + 128 * e)[lane];
+      acc[e].x += w * v.x;
+      acc[e].y += w * v.y;
+      acc[e].z += w * v.z;
+      acc[e].w += w * v.w;
+    }
+  }
+  const float inv = 1.f / fmaxf(l, 1e-30f);
+#pragma unroll
+  for (int e = 0; e < kR / 128; ++e)
+    reinterpret_cast<float4*>(out + size_t(row) * kR + 128 * e)[lane] =
+        make_float4(acc[e].x * inv, acc[e].y * inv, acc[e].z * inv,
+                    acc[e].w * inv);
 }
 
 // Whether the kernel takes these shapes (the Python wrappers check first).
-inline bool shapes_ok(int latent, int rope, int page_tokens,
-                      size_t elem_bytes) {
-  return latent == 512 && rope == 64 && page_tokens > 0 &&
-         page_tokens % 8 == 0 &&
-         smem_bytes(page_tokens, latent, rope, elem_bytes) <= 232448;
+inline bool shapes_ok(int latent, int rope, int page_tokens) {
+  return latent == kR && rope == kDR && page_tokens > 0 &&
+         page_tokens % 8 == 0;
 }
 
-// Row tiling: few rows (decode) put one row on a warp, spreading them over
-// more blocks; many rows (prefill chunks) put four on a warp.
-inline bool one_row_per_warp(int n_q, int hq) { return n_q * hq <= 64; }
-
-template <int RPW>
-inline dim3 grid_of(int batch, int n_q, int hq) {
-  const int tile = kWarps * RPW;
-  return dim3((n_q * hq + tile - 1) / tile, batch);
+// One launch of kernel (a __global__ wrapper of attend) and, when the pages
+// are split, the merge.
+template <typename Kernel, typename... Args>
+int launch(Kernel kernel, size_t smem, int batch, const Params& p,
+           float* out, const float* part_o, const float* part_ml,
+           cudaStream_t stream, Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_rows = p.n_q * p.hq;
+  const dim3 grid((n_rows + kRows - 1) / kRows, p.n_splits, batch);
+  kernel<<<grid, kThreads, smem, stream>>>(args..., p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || p.n_splits == 1) return static_cast<int>(err);
+  const int rows = batch * n_rows;
+  mla_merge_kernel<<<(rows + 3) / 4, 128, 0, stream>>>(
+      part_o, part_ml, out, rows, n_rows, p.n_splits);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace mla

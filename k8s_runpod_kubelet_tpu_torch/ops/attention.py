@@ -487,17 +487,42 @@ _MLA_ROPE_DIMS = (64,)
 
 @functools.cache
 def _mla_launchers():
-    """The C entries of the bf16 and the int8 latent kernels."""
+    """The C entries of the bf16 and the int8 latent kernels: (one pass,
+    split-KV with its merge) each."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    bf16 = _cuda.load("paged_attention_multi_mla") \
-        .paged_attention_multi_mla_bf16
-    bf16.argtypes = [p] * 7 + [i] * 7 + [f, p]
-    int8 = _cuda.load("paged_attention_multi_mla_quant") \
-        .paged_attention_multi_mla_int8
-    int8.argtypes = [p] * 9 + [i] * 7 + [f, p]
-    for fn in (bf16, int8):
+    bf16 = _cuda.load("paged_attention_multi_mla")
+    int8 = _cuda.load("paged_attention_multi_mla_quant")
+    fns = (bf16.paged_attention_multi_mla_bf16,
+           bf16.paged_attention_multi_mla_bf16_split,
+           int8.paged_attention_multi_mla_int8,
+           int8.paged_attention_multi_mla_int8_split)
+    for fn, n_ptr, split in zip(fns, (7, 9, 9, 11), (False, True) * 2):
+        fn.argtypes = [p] * n_ptr + [i] * 7 + [f] + [i, i] * split + [p]
         fn.restype = i
-    return bf16, int8
+    return fns
+
+
+# the MLA kernels' row tile: 64 query rows a block (two warpgroups that
+# split the latent width), one block an SM (222 KB of shared memory)
+_MLA_TILE_ROWS = 64
+
+
+def _mla_split_plan(batch: int, n_q: int, hq: int, table_width: int,
+                    sms: int) -> tuple[int, int]:
+    """(splits, pages per split) of the MLA kernels' split-KV. A grid of
+    (row tiles x sequences) blocks that leaves SMs idle (decode: 8
+    one-tile sequences on 132 SMs) cuts the table's columns into
+    contiguous ranges so that about one block an SM runs; a fuller grid
+    gets one split over every column. Computed from shapes alone (the
+    lengths stay on the card): each block takes its own range of the pages
+    its rows see (``_split_ranges`` at group = Hq, no window) and skips
+    the work of a split past them."""
+    blocks = batch * -(-n_q * hq // _MLA_TILE_ROWS)
+    if blocks >= sms or table_width <= 1:
+        return 1, max(table_width, 1)
+    want = min(-(-sms // blocks), table_width)
+    per = -(-table_width // want)
+    return -(-table_width // per), per
 
 
 def _check_mla_shapes(q_lat, q_rope, c_pages, kr_pages, c_scale, kr_scale,
@@ -525,8 +550,7 @@ def _check_mla_cuda(**tensors) -> None:
     """What the kernels take: one card, contiguous, 16-byte aligned; f32
     q_lat and q_rope (other dtypes are refused), bf16 latent pages (int8
     with f32 scales), int32 tables; R 512, Dr 64 (every MLA config's), T a
-    multiple of 8 whose page, in f32 and as stored (the tile computed on
-    and the next one in flight), fits a block's shared memory."""
+    multiple of 8."""
     quant = tensors["c_scale"] is not None
     want = {"q_lat": torch.float32, "q_rope": torch.float32,
             "c_pages": torch.int8 if quant else torch.bfloat16,
@@ -552,12 +576,8 @@ def _check_mla_cuda(**tensors) -> None:
         raise ValueError(f"latent {r} / rope {dr} not supported by the CUDA "
                          f"kernel (latent one of {_MLA_LATENT_DIMS}, rope "
                          f"one of {_MLA_ROPE_DIMS})")
-    elem = tensors["c_pages"].element_size()
-    smem = t * (r + dr) * (4 + elem) + (8 * t if quant else 0)
-    if t % 8 or smem > 232448:
-        raise ValueError(f"page_tokens {t} must be a multiple of 8 whose "
-                         f"page tiles take at most 232448 bytes of shared "
-                         f"memory (got {smem})")
+    if t % 8:
+        raise ValueError(f"page_tokens {t} must be a multiple of 8")
 
 
 def _mla_entry(q_lat, q_rope, c_pages, kr_pages, c_scale, kr_scale,
@@ -587,17 +607,29 @@ def _mla_entry(q_lat, q_rope, c_pages, kr_pages, c_scale, kr_scale,
                         lengths=lengths)
         b, kq, hq, r = ql.shape
         _, t, dr = kr_pages.shape
+        cols = page_table.shape[1]
         out = torch.empty_like(ql)
         stream = torch.cuda.current_stream(ql.device).cuda_stream
-        if c_scale is None:
-            fn, pages = _mla_launchers()[0], [c_pages, kr_pages]
+        pages = [c_pages, kr_pages]
+        if c_scale is not None:
+            pages += [c_scale, kr_scale]
+        head = (ql.data_ptr(), qr.data_ptr(), *(x.data_ptr() for x in pages),
+                page_table.data_ptr(), lengths.data_ptr(), out.data_ptr())
+        dims = (b, kq, hq, r, dr, t, cols, float(scale))
+        one, split = _mla_launchers()[2 * (c_scale is not None):][:2]
+        splits, per = _mla_split_plan(b, kq, hq, cols,
+                                      _sm_count(ql.device.index))
+        if splits == 1:
+            code = one(*head, *dims, stream)
         else:
-            fn = _mla_launchers()[1]
-            pages = [c_pages, kr_pages, c_scale, kr_scale]
-        code = fn(ql.data_ptr(), qr.data_ptr(),
-                  *(x.data_ptr() for x in pages), page_table.data_ptr(),
-                  lengths.data_ptr(), out.data_ptr(), b, kq, hq, r, dr, t,
-                  page_table.shape[1], float(scale), stream)
+            # scratch of the splits: the unnormalised f32 accumulator and
+            # the (max, sum) of every output row, merged on the card
+            part_o = torch.empty((b, splits, kq, hq, r), dtype=torch.float32,
+                                 device=ql.device)
+            part_ml = torch.empty((b, splits, kq, hq, 2),
+                                  dtype=torch.float32, device=ql.device)
+            code = split(*head, part_o.data_ptr(), part_ml.data_ptr(), *dims,
+                         splits, per, stream)
         _cuda.check(code, wrapper.__name__)
         wrapper.launches += 1
     else:

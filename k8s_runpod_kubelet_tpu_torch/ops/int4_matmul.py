@@ -9,7 +9,9 @@ group's scale; the sum over groups is cast to h's dtype once.
 
 ``int4_matmul`` launches ``csrc/int4_matmul.cu`` on a CUDA tensor (or
 raises) and runs ``_int4_matmul_plain``, the port of ``_fallback_2d``, on a
-CPU tensor. Forward only: training never sees int4 weights.
+CPU tensor. The kernel takes the quantizer's bytes as they are (out a
+multiple of 16, groups of a multiple of 16 in-elements, every tensor
+16-byte aligned). Forward only: training never sees int4 weights.
 """
 
 from __future__ import annotations
@@ -65,10 +67,14 @@ def _check_cuda_args(h2, q4, scale) -> None:
                             f"{t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-        if name != "h" and t.data_ptr() % 16:   # 4- and 16-byte loads
+        if t.data_ptr() % 16:                   # 16-byte cp.async copies
             raise ValueError(f"{name} must be 16-byte aligned")
-    if q4.shape[1] % 4:
-        raise ValueError(f"out {q4.shape[1]} must be a multiple of 4")
+    if q4.shape[1] % 16:
+        raise ValueError(f"out {q4.shape[1]} must be a multiple of 16")
+    group = 2 * q4.shape[0] // scale.shape[0]
+    if group % 16:
+        raise ValueError(f"a group of {group} in-elements is not a multiple "
+                         f"of 16 (the kernel's k16 steps)")
 
 
 def int4_matmul(h: torch.Tensor, q4: torch.Tensor,

@@ -56,6 +56,7 @@ TRAIN_BATCH, TRAIN_SEQ = 8, 2048          # train_main's defaults
 FAMILIES = (
     ("MLA quant attention", ("paged_attention_multi_mla_quant_kernel",)),
     ("MLA attention", ("paged_attention_multi_mla_kernel",)),
+    ("MLA split merge", ("mla_merge_kernel",)),
     ("quant attention", ("paged_attention_multi_quant_kernel",)),
     ("int4 GEMM", ("int4_matmul",)),
     ("paged_attention_multi", ("paged_attention_multi_kernel",

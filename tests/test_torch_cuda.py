@@ -444,15 +444,17 @@ def test_int4_matmul_kernel_matches_plain(cuda, rows, kin, out):
 
 def test_int4_matmul_splits_leave_no_slice_empty(cuda):
     """The C entry's split choice, which the wrapper sizes its scratch by:
-    between 1 and the group count, every slice of groups non-empty (the
-    reduce adds every slice's partials), split only when blocks are few."""
+    between 1 and the group count and at most 8, every slice of groups
+    non-empty (the reduce adds every slice's partials), split only when
+    blocks are few."""
     splits_of = int4_matmul_launchers()[1]
     for rows in (1, 8, 13, 16, 17, 300, 1024):
         for out in (128, 1024, 4096, 14336, 128256):
             for g in (1, 2, 5, 32, 112):
                 s = splits_of(rows, out, g)
                 per = -(-g // s)               # the kernel's groups a slice
-                assert 1 <= s <= g and (s - 1) * per < g, (rows, out, g, s)
+                assert 1 <= s <= min(g, 8) and (s - 1) * per < g, \
+                    (rows, out, g, s)
     assert splits_of(8, 1024, 32) > 1 and splits_of(1024, 14336, 32) == 1
 
 
@@ -467,9 +469,51 @@ def test_int4_matmul_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         int4_matmul(torch.zeros((256, 2), dtype=torch.bfloat16,
                                 device=cuda).t(), q4, scale)
-    with pytest.raises(ValueError, match="multiple of 4"):
+    with pytest.raises(ValueError, match="multiple of 16"):
         int4_matmul(h, q4[:, :126].contiguous(), scale[..., :126]
                     .contiguous())
+    leaf = _quantize_leaf_int4(torch.randn((40, 128)))   # one group of 40
+    with pytest.raises(ValueError, match="multiple of 16"):
+        int4_matmul(torch.zeros((2, 40), dtype=torch.bfloat16, device=cuda),
+                    leaf["q4"].to(cuda), leaf["scale"].to(cuda))
+    shifted = torch.zeros(2 * 256 + 1, dtype=torch.bfloat16,
+                          device=cuda)[1:].view(2, 256)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        int4_matmul(shifted, q4, scale)
+
+
+# the tile edges of both regimes: rows around the decode limit (16) and the
+# 64-row warpgroup and 128-row block; out widths of the 8B model and one
+# (400) that is not a multiple of the block's 128 columns; one group (in
+# 128) and 112 groups (in 14336, the w_down contraction)
+INT4_EDGE_ROWS = [1, 8, 16, 17, 63, 64, 65, 300, 1024]
+INT4_EDGE_OUTS = [128, 400, 1024, 4096, 14336]
+
+
+def _int4_plain_rows(h, q4, scale):
+    """The plain version in row blocks whose (rows, groups, out) f32
+    partials stay under 1 GiB."""
+    step = max(1, 2**30 // (scale.shape[0] * q4.shape[1] * 4))
+    return torch.cat([_int4_matmul_plain(h[r:r + step], q4, scale)
+                      for r in range(0, h.shape[0], step)])
+
+
+@pytest.mark.parametrize("kin", [128, 14336], ids=["groups1", "groups112"])
+@pytest.mark.parametrize("out", INT4_EDGE_OUTS)
+@pytest.mark.parametrize("rows", INT4_EDGE_ROWS)
+def test_int4_matmul_tile_edges_match_plain(cuda, rows, out, kin):
+    gen = torch.Generator(device=cuda).manual_seed(rows + out + kin)
+    leaf = _quantize_leaf_int4(
+        0.02 * torch.randn((kin, out), generator=gen, device=cuda))
+    q4, scale = leaf["q4"], leaf["scale"]
+    assert scale.shape[0] == kin // 128
+    h = torch.randn((rows, kin), generator=gen, device=cuda).bfloat16()
+    before = int4_matmul.launches
+    y = int4_matmul(h, q4, scale)
+    torch.cuda.synchronize()
+    assert int4_matmul.launches == before + 1
+    assert y.dtype == torch.bfloat16 and y.shape == (rows, out)
+    _close_bf16(y, _int4_plain_rows(h.float(), q4, scale))
 
 
 # -- MLA latent attention ------------------------------------------------------------
@@ -580,6 +624,49 @@ def test_mla_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="multiple of 8"):
         paged_attention_multi_mla(q_lat, q_rope, c[:, :12].contiguous(),
                                   kr[:, :12].contiguous(), table, lens)
+
+
+# the MLA tile edges: K = 1 decode over ragged lengths with split-KV (8 and 5
+# one-tile sequences), and row counts (K x Hq) that are not a multiple of the
+# 64-row tile
+MLA_EDGES = {
+    # name: (B, K, Hq, T, table cols, lengths)
+    "decode_split_hq32": (8, 1, 32, 16, 128,
+                          [1, 16, 17, 252, 881, 1000, 2047, 2048]),
+    "decode_split_hq16": (5, 1, 16, 16, 64, [3, 100, 511, 512, 1024]),
+    "rows96": (2, 3, 32, 16, 16, [3, 200]),
+    "rows30_t8": (1, 5, 6, 8, 24, [100]),
+    "rows70_t32": (3, 7, 10, 32, 20, [7, 50, 320]),
+    "rows64": (4, 2, 32, 16, 64, [2, 33, 600, 1024]),
+}
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("name", sorted(MLA_EDGES))
+def test_mla_kernel_tile_edges_match_plain(cuda, name, quant):
+    from k8s_runpod_kubelet_tpu_torch.ops.attention import (_mla_split_plan,
+                                                            _sm_count)
+
+    b, kq, hq, t, cols, lengths = MLA_EDGES[name]
+    q_lat, q_rope, c, kr, table, lens = _mla_case(cuda, b, kq, hq, 512, 64,
+                                                  t, cols, lengths, seed=3)
+    if name.startswith("decode_split"):
+        assert _mla_split_plan(b, kq, hq, cols, _sm_count(0))[0] > 1
+    if quant:
+        (c, cs), (kr, ks) = _kv_quant(c), _kv_quant(kr)
+        pages, fn, plain = (c, kr, cs, ks), paged_attention_multi_mla_quant, \
+            _paged_attention_multi_mla_quant_plain
+    else:
+        pages, fn, plain = (c, kr), paged_attention_multi_mla, \
+            _paged_attention_multi_mla_plain
+    scale = (128 + 64) ** -0.5
+    before = fn.launches
+    out = fn(q_lat, q_rope, *pages, table, lens, sm_scale=scale)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert torch.isfinite(out).all()
+    _close_f32(out, plain(q_lat, q_rope, *pages, table, lens,
+                          sm_scale=scale))
 
 
 # -- the page walk stays inside the table --------------------------------------------
