@@ -22,8 +22,9 @@ print the final ``ok`` line):
    ``csrc/flash_attention.cu`` with nvcc for sm_90a (one nvcc each, started
    together), and the Triton RMSNorm kernel, with their seconds and ptxas
    register/spill lines; where the toolkit has ``cuobjdump``, the HGMMA
-   (wgmma) and HMMA counts of every kernel of the five tensor-core sources
-   (an instantiation of the bf16 ``paged_attention_multi``, ``flash_fwd``,
+   (wgmma) and HMMA counts of every kernel of the six tensor-core sources
+   (an instantiation of either paged kernel, ``paged_attention_multi`` or
+   the int8-page ``paged_attention_multi_quant``, ``flash_fwd``,
    ``flash_dq``, ``flash_dkv``, either MLA latent kernel or a prefill-regime
    ``int4_matmul`` without HGMMA, or a decode-regime ``int4_matmul`` with
    neither HGMMA nor HMMA, fails the phase, as does a kernel missing from
@@ -32,8 +33,8 @@ print the final ``ok`` line):
    them: ``paged_attention_multi`` (decode K=1 B=8 with ragged lengths up
    to 2048, K=4 B=8, a 1024-token prefill chunk behind a 100-token
    prefix; tables carry stale ids of garbage pages past ceil(len/T)),
-   ``paged_attention_multi_quant`` (decode and the prefill chunk, over
-   int8 pages the model's ``_kv_quant`` made from the same K/V), the
+   ``paged_attention_multi_quant`` (the same three cases, over int8 pages
+   the model's ``_kv_quant`` made from the same K/V), the
    single-token forms ``paged_attention`` and ``paged_attention_quant`` at
    the decode shape, ``int4_matmul`` at each distinct projection shape of
    the 8B model at 8 and 1024 rows, and
@@ -46,7 +47,8 @@ print the final ``ok`` line):
    and must read above 1x: for attention p.v accumulated in bf16, P
    rounded to bf16 before P.V and a page lost from the long contexts,
    for int8 pages also the scales
-   ignored, for int4 the two nibbles of each byte swapped, each group
+   ignored and each key's scales taken from the neighbouring kv head, for
+   int4 the two nibbles of each byte swapped, each group
    given its neighbour's scale and each weight multiplied by its scale in
    bf16 before the product), the kernel's median time (CUDA events,
    L2 flushed before every launch), its bound (bytes over 3.35 TB/s or
@@ -197,6 +199,7 @@ SEED = 20261016
 # instead; each name must be found in its library
 TENSOR_CORE_KERNELS = {
     "paged_attention_multi": ("paged_attention_multi_kernel",),
+    "paged_attention_multi_quant": ("paged_attention_multi_quant_kernel",),
     "flash_attention": ("flash_fwd_kernel", "flash_dq_kernel",
                         "flash_dkv_kernel"),
     "paged_attention_multi_mla": ("paged_attention_multi_mla_kernel",),
@@ -474,8 +477,9 @@ def attention_case(torch, F, dev, flush, kind, name, b, kq, lengths):
     """One paged entry point against its plain version at llama3-8b's
     shapes. The int8 kinds take pages that the model's own ``_kv_quant``
     made from the bf16 ones (the garbage pages stay large). Controls: p.v
-    accumulated in bf16 and a page lost (both kinds), the scales ignored
-    (int8 pages); each must read above 1x the tolerance."""
+    accumulated in bf16, P rounded to bf16 and a page lost (both kinds),
+    the scales ignored and the neighbouring kv head's scales (int8 pages);
+    each must read above 1x the tolerance."""
     from k8s_runpod_kubelet_tpu_torch.models.llama import _kv_quant
     from k8s_runpod_kubelet_tpu_torch.ops import attention
 
@@ -520,6 +524,13 @@ def attention_case(torch, F, dev, flush, kind, name, b, kq, lengths):
         err_s, share_s = tolerance_check(plain(kp, vp, ones, ones), ref)
         controls["scales_ignored"] = {"max_abs_err": err_s,
                                       "tolerance_share": share_s}
+        # each key's scales from the neighbouring kv head: the stride-Hkv
+        # indexing of the kernel's scale staging, one head off
+        err_h, share_h = tolerance_check(
+            plain(kp, vp, ks.roll(1, dims=2).contiguous(),
+                  vs.roll(1, dims=2).contiguous()), ref)
+        controls["wrong_head_scales"] = {"max_abs_err": err_h,
+                                         "tolerance_share": share_h}
     for control, c in controls.items():
         if not c["tolerance_share"] > 1:
             raise RuntimeError(f"{kind} {name}: the {control} control "
@@ -2100,10 +2111,9 @@ def main(argv=None) -> int:
                                          decode_lengths))
         if single:
             continue
-        if kind == "paged_attention_multi":
-            attn[kind].append(attention_case(
-                torch, F, dev, flush, kind, "K=4 B=8", 8, 4,
-                [4, 40, 333, 700, 1029, 1600, 1999, 2048]))
+        attn[kind].append(attention_case(
+            torch, F, dev, flush, kind, "K=4 B=8", 8, 4,
+            [4, 40, 333, 700, 1029, 1600, 1999, 2048]))
         attn[kind].append(attention_case(torch, F, dev, flush, kind,
                                          "prefill K=1024 B=1", 1, 1024,
                                          [100 + 1024]))

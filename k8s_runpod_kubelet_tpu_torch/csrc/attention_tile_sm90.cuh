@@ -4,7 +4,8 @@
 // sources states the TPU kernel it replaces and gives this body its rows
 // (which query rows a block owns, and the key range each row sees) and its
 // key rows (contiguous for flash, gathered page by page for paged). The
-// flash backward kernels (flash_attention.cu), the paged MLA latent kernels
+// flash backward kernels (flash_attention.cu), the int8-page paged kernel
+// (paged_attention_multi_quant.cu), the paged MLA latent kernels
 // (paged_attention_mla.cuh) and int4_matmul.cu build on its primitives:
 // start_scores for S = Q K^T-shaped products, split_p for any f32 operand
 // (P, dS) and start_rs for the products that take it, the MmaSS/MmaRS
@@ -79,6 +80,13 @@ __device__ __forceinline__ void cp16(uint32_t dst, const void* src,
                                      bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
                "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+// 4 bytes global -> shared; `valid` false writes zeros and reads nothing
+__device__ __forceinline__ void cp4(uint32_t dst, const void* src,
+                                    bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 4 : 0)
                : "memory");
 }
 __device__ __forceinline__ void cp_commit() {

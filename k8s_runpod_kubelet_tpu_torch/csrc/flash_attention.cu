@@ -106,14 +106,6 @@ __device__ __forceinline__ void q_range(const Problem& p, int k0, int bn,
   }
 }
 
-// 4 bytes global -> shared; `valid` false writes zeros and reads nothing
-__device__ __forceinline__ void cp4(uint32_t dst, const void* src,
-                                    bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 4 : 0)
-               : "memory");
-}
-
 // the generic pointer of a shared-memory address inside the block's buffer
 __device__ __forceinline__ float* smem_ptr(unsigned char* base,
                                            uint32_t addr) {

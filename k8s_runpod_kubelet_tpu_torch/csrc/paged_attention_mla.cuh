@@ -92,14 +92,6 @@ struct Params {
   int n_splits, pages_per_split;
 };
 
-// 4 bytes global -> shared; `valid` false writes zeros and reads nothing
-__device__ __forceinline__ void cp4(uint32_t dst, const void* src,
-                                    bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 4 : 0)
-               : "memory");
-}
-
 // f32 pair -> its bf16 hi and lo words
 __device__ __forceinline__ void split2(float a, float b, uint32_t& hi,
                                        uint32_t& lo) {

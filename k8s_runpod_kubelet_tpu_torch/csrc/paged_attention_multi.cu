@@ -31,26 +31,17 @@
 // the swizzled layout (a head's T rows of a page sit at stride Hkv * D),
 // positions past the block's newest query zero-filled. Decode gives few
 // blocks (8 sequences x 8 kv heads = 64 on 132 SMs), so the wrapper may
-// split each sequence's pages into contiguous ranges (split-KV): each split
-// writes its rows' unnormalised f32 accumulator, max and sum to scratch the
-// wrapper allocated, and paged_attention_merge_kernel combines the splits by
-// their maxima and casts to bf16 (a split that saw no key carries max -1e30
-// and sum 0 and weighs nothing).
+// split each sequence's pages into contiguous ranges (split-KV,
+// paged_attention_split.cuh), merged by paged_attention_merge_kernel.
 
-#include "attention_tile_sm90.cuh"
+#include "paged_attention_split.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
+using paged::bf16;
+using paged::Paged;
 using tile90::kRows;
 using tile90::kWarpgroup;
-
-struct Paged {
-  int n_q, hq, hkv, page_tokens, table_width;
-  float scale, soft_cap;  // soft_cap <= 0: none
-  int window;             // <= 0: none
-  int n_splits, pages_per_split;
-};
 
 template <int D, int BN, int WG, bool kSplit>
 __global__ void __launch_bounds__(WG * kWarpgroup, 1)
@@ -158,123 +149,25 @@ paged_attention_multi_kernel(const bf16* __restrict__ q,
   }
 }
 
-// One warp per output row (b, j, head): the splits' accumulators weighted by
-// exp2(max_s - max), divided by the weighted sum, cast to bf16. A row that
-// saw no key in any split has every sum 0 and gets 0.
-template <int D>
-__global__ void __launch_bounds__(128)
-paged_attention_merge_kernel(const float* __restrict__ part_o,
-                             const float* __restrict__ part_ml,
-                             bf16* __restrict__ out, int rows,
-                             int rows_per_seq, int n_splits) {
-  constexpr int E = D / 32;  // elements of the row each lane owns
-  const int row = blockIdx.x * 4 + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= rows) return;
-  const int b = row / rows_per_seq;
-  const size_t first =
-      size_t(b) * n_splits * rows_per_seq + row % rows_per_seq;
-  float mx = tile90::kNegInf;
-  for (int s = 0; s < n_splits; ++s)
-    mx = fmaxf(mx, part_ml[(first + size_t(s) * rows_per_seq) * 2]);
-  float acc[E] = {};
-  float l = 0.f;
-  for (int s = 0; s < n_splits; ++s) {
-    const size_t prow = first + size_t(s) * rows_per_seq;
-    const float w = exp2f(part_ml[prow * 2] - mx);
-    l += w * part_ml[prow * 2 + 1];
-#pragma unroll
-    for (int e = 0; e < E; ++e) acc[e] += w * part_o[prow * D + lane + 32 * e];
-  }
-  const float inv = 1.f / fmaxf(l, 1e-30f);
-#pragma unroll
-  for (int e = 0; e < E; ++e)
-    out[size_t(row) * D + lane + 32 * e] = __float2bfloat16(acc[e] * inv);
-}
+struct Args {
+  const void *q, *k, *v, *pt, *lens;
+  void *out, *part_o, *part_ml;
+  int batch;
+};
 
 template <int D, int WG, bool kSplit>
-int launch(const void* q, const void* k, const void* v, const void* pt,
-           const void* lens, void* out, void* part_o, void* part_ml,
-           int batch, const Paged& p, cudaStream_t stream) {
-  constexpr int BN = D == 256 ? 32 : 64;
-  constexpr int BM = kRows * WG;
-  const size_t smem = tile90::smem_bytes<D, BN, WG>();
-  auto kernel = paged_attention_multi_kernel<D, BN, WG, kSplit>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int n_rows = p.n_q * (p.hq / p.hkv);
-  const dim3 grid((n_rows + BM - 1) / BM, p.hkv, batch * p.n_splits);
-  kernel<<<grid, WG * kWarpgroup, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const int32_t*>(pt),
-      static_cast<const int32_t*>(lens), static_cast<bf16*>(out),
-      static_cast<float*>(part_o), static_cast<float*>(part_ml), p);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || !kSplit) return static_cast<int>(err);
-  const int rows = batch * p.n_q * p.hq;
-  paged_attention_merge_kernel<D><<<(rows + 3) / 4, 128, 0, stream>>>(
-      static_cast<const float*>(part_o), static_cast<const float*>(part_ml),
-      static_cast<bf16*>(out), rows, p.n_q * p.hq, p.n_splits);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// one warpgroup a block when a sequence's rows fit in 64 (decode, short
-// speculative blocks), two when they do not (prefill chunks share each
-// staged tile between 128 rows)
-template <int D, bool kSplit>
-int launch_d(const void* q, const void* k, const void* v, const void* pt,
-             const void* lens, void* out, void* part_o, void* part_ml,
-             int batch, const Paged& p, cudaStream_t stream) {
-  if (p.n_q * (p.hq / p.hkv) <= kRows)
-    return launch<D, 1, kSplit>(q, k, v, pt, lens, out, part_o, part_ml,
-                                batch, p, stream);
-  return launch<D, 2, kSplit>(q, k, v, pt, lens, out, part_o, part_ml, batch,
-                              p, stream);
-}
-
-template <bool kSplit>
-int dispatch(const void* q, const void* k, const void* v, const void* pt,
-             const void* lens, void* out, void* part_o, void* part_ml,
-             int batch, int head_dim, const Paged& p, cudaStream_t stream) {
-  switch (head_dim) {
-    case 64:
-      return launch_d<64, kSplit>(q, k, v, pt, lens, out, part_o, part_ml,
-                                  batch, p, stream);
-    case 128:
-      return launch_d<128, kSplit>(q, k, v, pt, lens, out, part_o, part_ml,
-                                   batch, p, stream);
-    case 256:
-      return launch_d<256, kSplit>(q, k, v, pt, lens, out, part_o, part_ml,
-                                   batch, p, stream);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+struct Launch {
+  static int run(const Args& a, const Paged& p, cudaStream_t stream) {
+    constexpr int BN = D == 256 ? 32 : 64;
+    return paged::launch<D, WG, kSplit>(
+        paged_attention_multi_kernel<D, BN, WG, kSplit>,
+        tile90::smem_bytes<D, BN, WG>(), a.batch, p, a.out, a.part_o,
+        a.part_ml, stream, static_cast<const bf16*>(a.q),
+        static_cast<const bf16*>(a.k), static_cast<const bf16*>(a.v),
+        static_cast<const int32_t*>(a.pt),
+        static_cast<const int32_t*>(a.lens));
   }
-}
-
-// the shapes the wrapper admits: GQA, T a multiple of 8 with a page tile
-// of at most 16 KB
-bool shapes_ok(int hq, int hkv, int head_dim, int page_tokens) {
-  return hkv > 0 && hq % hkv == 0 && page_tokens % 8 == 0 &&
-         page_tokens * head_dim * 2 <= 16384;
-}
-
-Paged paged(int n_q, int hq, int hkv, int page_tokens, int table_width,
-            float scale, float soft_cap, int window, int n_splits,
-            int pages_per_split) {
-  Paged p;
-  p.n_q = n_q;
-  p.hq = hq;
-  p.hkv = hkv;
-  p.page_tokens = page_tokens;
-  p.table_width = table_width;
-  p.scale = scale;
-  p.soft_cap = soft_cap;
-  p.window = window;
-  p.n_splits = n_splits;
-  p.pages_per_split = pages_per_split;
-  return p;
-}
+};
 
 }  // namespace
 
@@ -288,15 +181,13 @@ extern "C" int paged_attention_multi_bf16(
     const void* page_table, const void* lengths, void* out, int batch,
     int n_q, int hq, int hkv, int head_dim, int page_tokens, int table_width,
     float scale, float soft_cap, int window, void* stream) {
-  if (batch == 0 || n_q == 0) return 0;
-  if (!shapes_ok(hq, hkv, head_dim, page_tokens))
-    return static_cast<int>(cudaErrorInvalidValue);
-  return dispatch<false>(
-      q, k_pages, v_pages, page_table, lengths, out, nullptr, nullptr, batch,
-      head_dim,
-      paged(n_q, hq, hkv, page_tokens, table_width, scale, soft_cap, window,
-            1, table_width),
-      static_cast<cudaStream_t>(stream));
+  return paged::run<Launch, false>(
+      Args{q, k_pages, v_pages, page_table, lengths, out, nullptr, nullptr,
+           batch},
+      batch, head_dim, 2,
+      Paged{n_q, hq, hkv, page_tokens, table_width, scale, soft_cap, window,
+            1, table_width > 0 ? table_width : 1},
+      stream);
 }
 
 // Split-KV: each sequence's pages in ranges of pages_per_split, n_splits
@@ -309,14 +200,11 @@ extern "C" int paged_attention_multi_bf16_split(
     void* part_ml, int batch, int n_q, int hq, int hkv, int head_dim,
     int page_tokens, int table_width, float scale, float soft_cap,
     int window, int n_splits, int pages_per_split, void* stream) {
-  if (batch == 0 || n_q == 0) return 0;
-  if (!shapes_ok(hq, hkv, head_dim, page_tokens) || n_splits < 1 ||
-      pages_per_split < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  return dispatch<true>(
-      q, k_pages, v_pages, page_table, lengths, out, part_o, part_ml, batch,
-      head_dim,
-      paged(n_q, hq, hkv, page_tokens, table_width, scale, soft_cap, window,
-            n_splits, pages_per_split),
-      static_cast<cudaStream_t>(stream));
+  return paged::run<Launch, true>(
+      Args{q, k_pages, v_pages, page_table, lengths, out, part_o, part_ml,
+           batch},
+      batch, head_dim, 2,
+      Paged{n_q, hq, hkv, page_tokens, table_width, scale, soft_cap, window,
+            n_splits, pages_per_split},
+      stream);
 }

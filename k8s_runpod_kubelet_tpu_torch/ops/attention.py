@@ -136,22 +136,22 @@ _paged_attention_quant_plain = _single(_paged_attention_multi_quant_plain)
 
 @functools.cache
 def _launchers():
-    """The C entries of the bf16 kernel (one pass, and split-KV with its
-    merge) and of the int8-page kernel."""
+    """The C entries of the bf16 and the int8-page kernel: (one pass,
+    split-KV with its merge) each."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib = _cuda.load("paged_attention_multi")
-    bf16, split = lib.paged_attention_multi_bf16, \
-        lib.paged_attention_multi_bf16_split
-    bf16.argtypes = [p] * 6 + [i] * 7 + [f, f, i, p]
-    split.argtypes = [p] * 8 + [i] * 7 + [f, f, i, i, i, p]
-    int8 = _cuda.load("paged_attention_multi_quant").paged_attention_multi_int8
-    int8.argtypes = [p] * 8 + [i] * 7 + [f, f, i, p]
-    for fn in (bf16, split, int8):
+    bf16 = _cuda.load("paged_attention_multi")
+    int8 = _cuda.load("paged_attention_multi_quant")
+    fns = (bf16.paged_attention_multi_bf16,
+           bf16.paged_attention_multi_bf16_split,
+           int8.paged_attention_multi_int8,
+           int8.paged_attention_multi_int8_split)
+    for fn, n_ptr, split in zip(fns, (6, 8, 8, 10), (False, True) * 2):
+        fn.argtypes = [p] * n_ptr + [i] * 7 + [f, f, i] + [i, i] * split + [p]
         fn.restype = i
-    return bf16, split, int8
+    return fns
 
 
-# the bf16 kernel's row tiles: 64 query rows a warpgroup, one warpgroup a
+# the paged kernels' row tiles: 64 query rows a warpgroup, one warpgroup a
 # block when a sequence's rows fit in 64, else two
 _TILE_ROWS = 64
 # split-KV: a grid of fewer than _SPLIT_BELOW warpgroups an SM is split to
@@ -165,7 +165,7 @@ def _warpgroups(n_rows: int) -> int:
 
 def _split_plan(batch: int, n_q: int, group: int, hkv: int,
                 table_width: int, sms: int) -> tuple[int, int]:
-    """(splits, pages per split) of the bf16 kernel's split-KV. A grid of
+    """(splits, pages per split) of the paged kernels' split-KV. A grid of
     (row tiles x kv heads x sequences) blocks that holds fewer than
     ``_SPLIT_BELOW`` warpgroups an SM (decode: 8 x 8 = 64 one-warpgroup
     blocks on 132 SMs) cuts the table's columns into contiguous ranges of
@@ -277,7 +277,8 @@ def _launch_paged(q4, k_pages, v_pages, page_table, lengths, k_scale,
                   v_scale, scale, logit_soft_cap, sliding_window, what: str
                   ) -> torch.Tensor:
     """One launch of the bf16 (``k_scale`` None) or the int8-page kernel
-    on q (B, K, Hq, D); the caller counts it."""
+    on q (B, K, Hq, D), split-KV where ``_split_plan`` says; the caller
+    counts it."""
     _check_cuda_args(q4, k_pages, v_pages, page_table, lengths, k_scale,
                      v_scale)
     b, kq, hq, d = q4.shape
@@ -285,21 +286,17 @@ def _launch_paged(q4, k_pages, v_pages, page_table, lengths, k_scale,
     out = torch.empty_like(q4)
     stream = torch.cuda.current_stream(q4.device).cuda_stream
     cols = page_table.shape[1]
-    opts = (float(scale), float(logit_soft_cap or 0.0),
-            int(sliding_window or 0))
-    head = (q4.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr())
-    tail = (page_table.data_ptr(), lengths.data_ptr(), out.data_ptr())
+    inputs = [q4, k_pages, v_pages]
     if k_scale is not None:
-        code = _launchers()[2](*head, k_scale.data_ptr(), v_scale.data_ptr(),
-                               *tail, b, kq, hq, hkv, d, t, cols, *opts,
-                               stream)
-        _cuda.check(code, what)
-        return out
+        inputs += [k_scale, v_scale]
+    head = [x.data_ptr() for x in (*inputs, page_table, lengths, out)]
+    dims = (b, kq, hq, hkv, d, t, cols, float(scale),
+            float(logit_soft_cap or 0.0), int(sliding_window or 0))
+    one, split = _launchers()[2 * (k_scale is not None):][:2]
     splits, per = _split_plan(b, kq, hq // hkv, hkv, cols,
                               _sm_count(q4.device.index))
     if splits == 1:
-        code = _launchers()[0](*head, *tail, b, kq, hq, hkv, d, t, cols,
-                               *opts, stream)
+        code = one(*head, *dims, stream)
     else:
         # scratch of the splits: the unnormalised f32 accumulator and the
         # (max, sum) of every output row, merged on the card
@@ -307,9 +304,8 @@ def _launch_paged(q4, k_pages, v_pages, page_table, lengths, k_scale,
                              device=q4.device)
         part_ml = torch.empty((b, splits, kq, hq, 2), dtype=torch.float32,
                               device=q4.device)
-        code = _launchers()[1](*head, *tail, part_o.data_ptr(),
-                               part_ml.data_ptr(), b, kq, hq, hkv, d, t,
-                               cols, *opts, splits, per, stream)
+        code = split(*head, part_o.data_ptr(), part_ml.data_ptr(), *dims,
+                     splits, per, stream)
     _cuda.check(code, what)
     return out
 
@@ -371,7 +367,7 @@ def paged_attention_multi_quant(q: torch.Tensor, k_pages: torch.Tensor,
                                 ) -> torch.Tensor:
     """``paged_attention_multi`` over an int8 KV arena: pages int8
     (P, T, Hkv, D) with per-(position, kv head) f32 scales (P, T, Hkv),
-    dequantized in the kernel after the load. A CUDA tensor launches
+    each position standing for int8 * scale. A CUDA tensor launches
     ``csrc/paged_attention_multi_quant.cu`` (bf16 q) or raises; a CPU
     tensor takes the plain version."""
     return _paged_entry(q, k_pages, v_pages, page_table, lengths, k_scale,

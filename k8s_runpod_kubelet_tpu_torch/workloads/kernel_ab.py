@@ -2,10 +2,12 @@
 ``flash_fwd``, ``flash_dq`` and ``flash_dkv`` at every case of
 ``chip_smoke.py``'s phase 8 (its inputs; the backward kernels of both trees
 take the lse of this tree's forward and delta = rowsum(dO o) of its o);
-``paged_attention_multi`` (decode K=1 B=8, K=4 B=8, a 1024-token prefill
-chunk) and ``paged_attention`` (decode B=8) at phase 3's shapes and
-inputs; ``int4_matmul`` at phase 3's projection shapes (``INT4_SHAPES``) at
-8 and 1024 rows; and the four MLA entries at phase 3b's shapes
+``paged_attention_multi`` and ``paged_attention_multi_quant`` (decode K=1
+B=8, K=4 B=8, a 1024-token prefill chunk) and ``paged_attention`` and
+``paged_attention_quant`` (decode B=8) at phase 3's shapes and inputs (the
+int8 pages that the model's ``_kv_quant`` makes from the bf16 ones);
+``int4_matmul`` at phase 3's projection shapes (``INT4_SHAPES``) at 8 and
+1024 rows; and the four MLA entries at phase 3b's shapes
 (``paged_attention_multi_mla`` and ``paged_attention_multi_mla_quant`` at
 decode K=1 B=8 and a 1024-token chunk, the single-token forms at decode).
 
@@ -42,7 +44,7 @@ PKG = "k8s_runpod_kubelet_tpu_torch"
 
 
 KINDS = ("paged", "flash", "int4", "mla")
-SOURCES = {"paged": ("paged_attention_multi",),
+SOURCES = {"paged": ("paged_attention_multi", "paged_attention_multi_quant"),
            "flash": ("flash_attention",), "int4": ("int4_matmul",),
            "mla": ("paged_attention_multi_mla",
                    "paged_attention_multi_mla_quant")}
@@ -139,16 +141,18 @@ def main(argv=None) -> int:
             ("prefill K=1024 B=1", 1, 1024, [100 + 1024])):
         q, k, v, table, lens, _ = cs.attention_inputs(torch, dev, b, kq,
                                                       lengths)
+        (kp, ks), (vp, vs) = _kv_quant(k), _kv_quant(v)
         scale = q.shape[3] ** -0.5
+        q1 = q[:, 0].contiguous()
         reps = 50
-        turns("paged_attention_multi", case,
-              lambda m: m.paged_attention_multi(q, k, v, table, lens,
-                                                sm_scale=scale))
-        if kq == 1:
-            q1 = q[:, 0].contiguous()
-            turns("paged_attention", case.replace("K=1 ", ""),
-                  lambda m: m.paged_attention(q1, k, v, table, lens,
-                                              sm_scale=scale))
+        for kind, pages in (("", (k, v)), ("_quant", (kp, vp, ks, vs))):
+            turns(f"paged_attention_multi{kind}", case,
+                  lambda m: getattr(m, f"paged_attention_multi{kind}")(
+                      q, *pages, table, lens, sm_scale=scale))
+            if kq == 1:
+                turns(f"paged_attention{kind}", case.replace("K=1 ", ""),
+                      lambda m: getattr(m, f"paged_attention{kind}")(
+                          q1, *pages, table, lens, sm_scale=scale))
     for name, b, hq, hkv, s, d, causal, window, cap in (
             cs.FLASH_CASES if "flash" in args.kernels else ()):
         gen = torch.Generator().manual_seed(cs.SEED + s + d + hkv)

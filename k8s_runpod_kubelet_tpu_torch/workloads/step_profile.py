@@ -21,7 +21,9 @@ Prints one JSON object (also written to ``--out`` if given): per phase
 the wall time of a step (host clock around work that ends in a
 synchronize), the device time by family (the attention kernels, the
 RMSNorm kernel, GEMMs, the arena scatter, everything else), the device's
-busy share of the wall time, and the card's name and power limit.
+busy share of the wall time, ``rms_norm`` alone at the chunk's shape
+(mean device time beside its byte bound), and the card's name and power
+limit.
 Weights are random from a fixed seed; the arena holds random K/V; the
 training step sees one seeded batch. Device times the profiler cannot see
 read "not measured".
@@ -58,9 +60,9 @@ FAMILIES = (
     ("MLA attention", ("paged_attention_multi_mla_kernel",)),
     ("MLA split merge", ("mla_merge_kernel",)),
     ("quant attention", ("paged_attention_multi_quant_kernel",)),
+    ("paged split merge", ("paged_attention_merge_kernel",)),
     ("int4 GEMM", ("int4_matmul",)),
-    ("paged_attention_multi", ("paged_attention_multi_kernel",
-                               "paged_attention_merge_kernel")),
+    ("paged_attention_multi", ("paged_attention_multi_kernel",)),
     ("flash_fwd", ("flash_fwd_kernel",)),
     ("flash_dq", ("flash_dq_kernel",)),
     ("flash_dkv", ("flash_dkv_kernel",)),
@@ -112,6 +114,37 @@ def _profile(fn, steps: int) -> dict:
                                   else "not measured"),
             "device_ms_by_family": by_family or "not measured",
             "top_kernels_ms": dict(top)}
+
+
+def _norm_profile(cfg, dev, gen) -> dict:
+    """``rms_norm`` alone at a chunk's shape (CHUNK x E bf16, an f32
+    weight): the kernel's mean device time over 20 launches, the L2
+    flushed before each, beside its byte bound (x read and y written once,
+    the weight once, at the H100's 3.35 TB/s)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ..ops import rms_norm
+
+    x = torch.randn((CHUNK, cfg.embed_dim), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    w = torch.ones(cfg.embed_dim, device=dev)
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    for _ in range(3):
+        rms_norm(x, w, cfg.norm_eps)
+    torch.cuda.synchronize()
+    launches = 20
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(launches):
+            flush.zero_()
+            rms_norm(x, w, cfg.norm_eps)
+        torch.cuda.synchronize()
+    us = sum(ev.self_device_time_total for ev in prof.key_averages()
+             if ev.device_type == torch.autograd.DeviceType.CUDA
+             and _family(ev.key) == "rms_norm")
+    nbytes = 2 * x.numel() * 2 + w.numel() * 4
+    return {"rows": CHUNK, "width": cfg.embed_dim,
+            "device_ms": us / 1e3 / launches if us else "not measured",
+            "bound_ms": nbytes / 3.35e12 * 1e3, "launches": launches}
 
 
 def _train_profile(cfg, dev) -> dict:
@@ -192,7 +225,8 @@ def main(argv=None) -> int:
            "decode": dict(_profile(decode, STEPS), slots=b,
                           lengths=lengths.tolist()),
            "prefill": dict(_profile(prefill, STEPS // 3),
-                           chunk=CHUNK)}
+                           chunk=CHUNK),
+           "rms_norm": _norm_profile(cfg, dev, gen)}
     del params, arena
     torch.cuda.empty_cache()
     if not (args.int4 or args.kv_int8 or cfg.is_mla):

@@ -400,6 +400,51 @@ def test_paged_attention_multi_quant_kernel_matches_plain(cuda, name):
         q, kp, vp, ks, vs, table, lens, sm_scale=d ** -0.5, **args))
 
 
+@pytest.mark.parametrize("name", sorted(TILE_PAGED_CASES))
+def test_paged_attention_multi_quant_tile_edges_match_plain(cuda, name):
+    """The int8-page kernel over the bf16 kernel's tile edges: split-KV
+    boundaries inside a sequence and a 64-key tile, D = 64 and 256, row
+    tiles of 65 and 129 rows, a window, a soft cap, the one-pass grid."""
+    from k8s_runpod_kubelet_tpu_torch.ops.attention import _split_plan
+    b, kq, hq, hkv, d, t, cols, lengths, cap, window = TILE_PAGED_CASES[name]
+    q, k, v, table, lens = _case(cuda, b, kq, hq, hkv, d, t, cols, lengths)
+    kp, ks, vp, vs = _int8_pages(k, v)
+    splits = _split_plan(b, kq, hq // hkv, hkv, cols,
+                         torch.cuda.get_device_properties(cuda)
+                         .multi_processor_count)[0]
+    if name.startswith(("decode_split", "k4_split")):
+        assert splits > 1
+    if name.endswith("one_pass"):
+        assert splits == 1
+    args = dict(logit_soft_cap=cap, sliding_window=window)
+    before = paged_attention_multi_quant.launches
+    out = paged_attention_multi_quant(q, kp, vp, ks, vs, table, lens, **args)
+    torch.cuda.synchronize()
+    assert paged_attention_multi_quant.launches == before + 1
+    _close_bf16(out, _paged_attention_multi_quant_plain(
+        q, kp, vp, ks, vs, table, lens, sm_scale=d ** -0.5, **args))
+
+
+def test_paged_attention_multi_quant_wrong_head_scales_miss(cuda):
+    """At the 8B decode shape (split-KV): the kernel matches the plain
+    version, and the plain version with each key's scales taken from the
+    neighbouring kv head (the stride-Hkv indexing of the kernel's scale
+    staging, one head off) does not."""
+    b, kq, hq, hkv, d, t, cols, lengths, _, _ = CASES["8b_decode"]
+    q, k, v, table, lens = _case(cuda, b, kq, hq, hkv, d, t, cols, lengths)
+    kp, ks, vp, vs = _int8_pages(k, v)
+    out = paged_attention_multi_quant(q, kp, vp, ks, vs, table, lens)
+    ref = _paged_attention_multi_quant_plain(q, kp, vp, ks, vs, table, lens,
+                                             sm_scale=d ** -0.5)
+    _close_bf16(out, ref)
+    wrong = _paged_attention_multi_quant_plain(
+        q, kp, vp, ks.roll(1, dims=2).contiguous(),
+        vs.roll(1, dims=2).contiguous(), table, lens, sm_scale=d ** -0.5)
+    share = ((wrong.float() - ref.float()).abs()
+             / (1e-4 + 1e-2 * ref.float().abs())).max().item()
+    assert share > 1, share
+
+
 @pytest.mark.parametrize("quant", [False, True])
 def test_single_token_forms_launch_at_k1_and_match_plain(cuda, quant):
     b, _, hq, hkv, d, t, cols, lengths, _, _ = CASES["8b_decode"]
