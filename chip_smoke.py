@@ -31,9 +31,10 @@ print the final ``ok`` line):
    its library);
 3. kernels vs plain on the card, at the shapes the 8B main path gives
    them: ``paged_attention_multi`` (decode K=1 B=8 with ragged lengths up
-   to 2048, K=4 B=8, a 1024-token prefill chunk behind a 100-token
+   to 2048, K=4 B=8, K=5 B=8, a 1024-token prefill chunk behind a 100-token
    prefix; tables carry stale ids of garbage pages past ceil(len/T)),
-   ``paged_attention_multi_quant`` (the same three cases, over int8 pages
+   ``paged_attention_multi_quant`` (the same three cases and K=5 B=8, the
+   verify width of ``--speculate 4``, over int8 pages
    the model's ``_kv_quant`` made from the same K/V), the
    single-token forms ``paged_attention`` and ``paged_attention_quant`` at
    the decode shape, ``int4_matmul`` at each distinct projection shape of
@@ -92,6 +93,36 @@ print the final ``ok`` line):
    weights (no paging, no kernels: ``_attention_plain`` and
    ``_rms_norm_plain``, one layer upcast at a time), within a relative L2
    limit that the same forward with one layer skipped must exceed;
+7s. speculative engine, on the bf16 params of phase 4: (a)
+   ``paged_verify_step`` at K=5, B=8 over a table whose first four slots
+   share a 96-token prefix's pages, each of the 5 rows within phase 7's
+   limit of a plain f32 forward of the slot's whole sequence; then five
+   engine runs (8 slots, cache_len 2048, 64 new tokens each): speculate_k
+   4 with 256-token chunks and the same without speculation, in turns
+   (speculative, plain, plain, speculative), then speculate_k 4 with
+   serving_chunk_tokens 0, each over the same traffic: 4 greedy
+   repetitive prompts of 400-800 tokens (random weights do not copy from
+   their context, so two repeat a seeded 24-token phrase, where drafts
+   are rejected, and two repeat one token that the model maps to itself:
+   a one-token context gives every position the same hidden state, so a
+   sweep of the vocab without attention finds such tokens, and their
+   streams repeat them, drafts accepted), the first 4
+   prompts of phase 4 (drafts rejected), a sampled request (temperature
+   0.8, seeded) and, once the 9 are prefilled, a greedy 1500-token prompt
+   beside the streams still decoding. Held: (b) greedy tokens of the speculative
+   engine equal the plain one's up to any first divergence, where the
+   plain f32 forward's top-2 margin must be under SPEC_TIE_MARGIN of the
+   logits' RMS; (c) accepted drafts, rollback pages and interleaved steps
+   all above 0; (d) every verify step, plain step and chunk launching 32
+   ``paged_attention_multi`` and 65 ``rms_norm``, no other attention
+   kernel; (e) HTTP and drain with zero leaked pages. Reported: per-stream
+   decode tokens/s of each engine, the acceptance rate, the largest token
+   gap of the streams decoding through the 1500-token prefill (with
+   interleave and without), the divergences and their margins;
+7h. HF load: llama3-8b widths at 2 layers (phase 4's first two layers)
+   exported by ``to_hf_state_dict``, written as two safetensors shards and
+   an index by a writer in this script, loaded onto the card by
+   ``load_hf``: every leaf bit-identical to the source; bytes and seconds;
 7b. quantized engine: the bf16 engine freed, the engine the serve CLI
    builds from ``--int4 --kv-int8`` (8 slots, cache_len 2048) over the same
    seeded bf16 params, which it quantizes on the card; the same burst,
@@ -160,7 +191,8 @@ print the final ``ok`` line):
 
 The next-to-last line is the kernels JSON record (each kernel's
 ``launches`` counted on its own main path: the bf16 engine's burst for
-``paged_attention_multi`` and ``rms_norm``, the quantized engine's burst
+``paged_attention_multi`` and ``rms_norm``, beside the speculative
+engine's run as ``serve_spec``, the quantized engine's burst
 for ``paged_attention_multi_quant`` and ``int4_matmul``, the MLA engines'
 bursts for ``paged_attention_multi_mla`` and
 ``paged_attention_multi_mla_quant``, the training run for the flash
@@ -245,6 +277,19 @@ MLA_INT8_ENGINE_REL_L2_LIMIT = 0.15
 # 2.6e-5; with dK/dV zeroed, wk and wv read 1.0 and the norm 0.27)
 TRAIN_GRAD_REL_L2_LIMIT = 0.1
 TRAIN_NORM_REL_LIMIT = 1e-3
+# the speculative phase: 4 drafts a step (a K = 5 verify), 256-token
+# prefill chunks
+SPEC_K, SPEC_CHUNK = 4, 256
+# (b): where the speculative and plain bf16 engines' greedy tokens first
+# differ, the plain f32 forward's top-2 margin must be below this share of
+# its logits' RMS. Grounds, set before the first run: each bf16 engine's
+# last-token logits sit 0.0588-0.0598 relative L2 off the f32 forward
+# (PERF.md), so a top-2 margin moves by about sqrt(2) x 0.06 = 0.085 RMS
+# in either engine; a flip needs the margin below that move, and 0.35 is
+# four of its standard deviations. A divergence above it is not rounding.
+SPEC_TIE_MARGIN = 0.35
+# the HF phase: llama3-8b widths at this depth, written and loaded back
+HF_LAYERS = 2
 
 
 def log(msg: str) -> None:
@@ -1802,6 +1847,457 @@ def engine_phase(torch, dev, card: str, cfg, params) -> dict:
         engine.stop()
 
 
+# -- phases 7s-7h: speculative decoding and chunk interleave, HF loading --------------
+
+def self_mapped_tokens(torch, cfg, params, chunk: int = 8192) -> list:
+    """Tokens t whose context t^N the model continues with t itself, best
+    margin first: [(t, f32 margin of t over the runner-up)]. In a context
+    of one token repeated every position sees N identical K/V rows, so
+    attention returns that token's V row whatever its weights, every
+    position's hidden state is the one-token context's, and the greedy
+    next token f(t) is the same for every N. This sweeps f over the vocab
+    without attention (o = V of the token, each kv head read by its q
+    group), in bf16 like the engine, ``chunk`` tokens at a time."""
+    import torch.nn.functional as F
+
+    from k8s_runpod_kubelet_tpu_torch.ops import rms_norm
+
+    lp, eps, dt = params["layers"], cfg.norm_eps, cfg.dtype
+    hkv, hd = cfg.n_kv_heads, cfg.head_dim_
+    group = cfg.n_heads // hkv
+    head = (params["tok_embed"].t() if cfg.tie_embeddings
+            else params["lm_head"])
+    found = []
+    for start in range(0, cfg.vocab_size, chunk):
+        ids = torch.arange(start, min(start + chunk, cfg.vocab_size),
+                           device=params["tok_embed"].device)
+        x = params["tok_embed"][ids].to(dt)
+        n = x.shape[0]
+        for layer in range(cfg.n_layers):
+            h = rms_norm(x, lp["attn_norm"][layer], eps)
+            v = (h @ lp["wv"][layer].to(dt)).view(n, hkv, 1, hd)
+            o = v.expand(n, hkv, group, hd).reshape(n, -1)
+            x = x + o @ lp["wo"][layer].to(dt)
+            h = rms_norm(x, lp["mlp_norm"][layer], eps)
+            x = x + (F.silu(h @ lp["w_gate"][layer].to(dt))
+                     * (h @ lp["w_up"][layer].to(dt))) @ lp["w_down"][layer] \
+                .to(dt)
+        logits = (rms_norm(x, params["final_norm"], eps) @ head.to(dt)) \
+            .float()
+        top2 = logits.topk(2, dim=-1)
+        hit = top2.indices[:, 0] == ids
+        for i in hit.nonzero().flatten().tolist():
+            found.append((int(ids[i]), float(top2.values[i, 0]
+                                             - top2.values[i, 1])))
+        del logits, top2
+    return sorted(found, key=lambda tm: -tm[1])
+
+
+class TokenClock(threading.Thread):
+    """Host times at which each request's generated-token count rose,
+    sampled from the engine's slots every millisecond; and the time the
+    engine's prefilled-token counter first reached ``prefill_target``."""
+
+    def __init__(self, engine):
+        super().__init__(name="token-clock", daemon=True)
+        self.engine = engine
+        self.times: dict = {}
+        self.counts: dict = {}
+        self.prefill_target = None
+        self.prefill_done_at = None
+        self.halt = threading.Event()
+
+    def run(self):
+        eng = self.engine
+        while not self.halt.is_set():
+            now = time.perf_counter()
+            for slot in eng._slots:
+                r = slot.request
+                n = len(slot.generated)
+                if r is not None and n > self.counts.get(r.rid, 0):
+                    self.counts[r.rid] = n
+                    self.times.setdefault(r.rid, []).append(now)
+            if (self.prefill_target is not None
+                    and self.prefill_done_at is None
+                    and eng.counters["paged_prefill_tokens"]
+                    >= self.prefill_target):
+                self.prefill_done_at = now
+            time.sleep(0.001)
+
+    def largest_gaps(self, start: float, end: float) -> dict:
+        """Per request decoding through [start, end]: the largest interval
+        between two consecutive token arrivals that overlaps it, in ms."""
+        out = {}
+        for rid, ts in self.times.items():
+            if ts[0] >= start or ts[-1] <= end:
+                continue
+            gaps = [b - a for a, b in zip(ts, ts[1:]) if b > start and a < end]
+            out[rid] = max(gaps) * 1e3
+        return out
+
+
+def spec_traffic(cfg, params, torch) -> dict:
+    """The speculative phase's seeded traffic: 4 repetitive prompts of
+    400-800 tokens, the first 4 of ``burst_prompts`` (drafts get rejected
+    there), one sampled request and one 1500-token prompt. Random weights
+    do not copy from their context, so a repeated 24-token phrase (two of
+    the four) gives the drafts almost nothing the model will write; the
+    other two repeat one token the model maps to itself
+    (``self_mapped_tokens``, best margin first; a seeded token where the
+    sweep finds fewer), whose continuation is that token again, so those
+    streams' drafts are accepted."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 1)
+    _, burst, _ = burst_prompts(cfg)
+    t0 = time.perf_counter()
+    fixed = self_mapped_tokens(torch, cfg, params)
+    sweep_s = time.perf_counter() - t0
+    tokens = [t for t, _ in fixed[:2]]
+    while len(tokens) < 2:
+        tokens.append(int(rng.integers(0, cfg.vocab_size)))
+    lengths = [int(n) for n in rng.integers(400, 801, 4)]
+    rep = [[t] * n for t, n in zip(tokens, lengths)]
+    for n in lengths[2:]:
+        phrase = [int(x) for x in rng.integers(0, cfg.vocab_size, 24)]
+        rep.append((phrase * (n // 24 + 1))[:n])
+    sampled = [int(x) for x in rng.integers(0, cfg.vocab_size, 300)]
+    long_prompt = [int(x) for x in rng.integers(0, cfg.vocab_size, 1500)]
+    return {"greedy": rep + burst[:4], "sampled": sampled,
+            "long": long_prompt, "self_mapped": fixed[:8],
+            "repeated_tokens": tokens, "sweep_s": sweep_s}
+
+
+def spec_run(torch, engine, traffic, kernels, per_step) -> dict:
+    """One engine over the traffic: the 8 greedy requests and the sampled
+    one (64 new tokens each; 9 requests on 8 slots), then, once all 9
+    prompts are prefilled, the 1500-token prompt beside the streams still
+    decoding. Launch counts are set to 0 just before and read just after,
+    each against the engine's own steps and chunks; the token clock reads
+    each stream's largest token gap while the long prompt prefills."""
+    snap_keys = ("decode_steps", "prefill_chunks", "paged_speculative_steps",
+                 "spec_proposed", "spec_accepted",
+                 "paged_speculative_rollback_pages",
+                 "chunk_interleaved_steps", "paged_prefill_tokens")
+
+    def snap() -> dict:
+        with engine._prefix_lock:
+            return {**{k: engine.counters[k] for k in snap_keys},
+                    **{k.__name__: k.launches for k in kernels}}
+
+    with engine._prefix_lock:
+        for k in kernels:
+            k.launches = 0
+    clock = TokenClock(engine)
+    clock.start()
+    try:
+        s0 = snap()
+        t0 = time.perf_counter()
+        futs = [engine.submit(p, max_new_tokens=64)
+                for p in traffic["greedy"]]
+        futs.append(engine.submit(traffic["sampled"], max_new_tokens=64,
+                                  temperature=0.8, seed=SEED))
+        deadline = time.monotonic() + 600
+        while True:
+            with engine._transit_lock:   # nothing queued or prefilling
+                prefilled = engine.queue_depth == 0 and engine._transit == 0
+            if prefilled and engine.active_slots:
+                break
+            if time.monotonic() > deadline:
+                raise RuntimeError("the 9 prompts did not prefill")
+            time.sleep(0.001)
+        clock.prefill_target = (engine.counters["paged_prefill_tokens"]
+                                + len(traffic["long"]))
+        t_long = time.perf_counter()
+        futs.append(engine.submit(traffic["long"], max_new_tokens=64))
+        results = [f.result(timeout=900) for f in futs]
+        wall = time.perf_counter() - t0
+        s1 = snap()
+    finally:
+        clock.halt.set()
+        clock.join(timeout=10)
+    if clock.prefill_done_at is None:
+        raise RuntimeError("the token clock missed the long prefill's end")
+    d = {k: s1[k] - s0[k] for k in s0}
+    steps = d["decode_steps"] + d["prefill_chunks"]
+    for name, n in per_step.items():
+        if d[name] != n * steps or (n and d[name] < 1):
+            raise RuntimeError(
+                f"{name} launched {d[name]} times in {d['prefill_chunks']} "
+                f"chunks and {d['decode_steps']} decode steps "
+                f"({d['paged_speculative_steps']} of them verify steps), "
+                f"not {n} per step")
+    if any(len(r["tokens"]) != 64 for r in results):
+        raise RuntimeError("not every request finished with 64 tokens")
+    gaps = clock.largest_gaps(t_long, clock.prefill_done_at)
+    per_stream = [63 / (r["latency_s"] - r["ttft_s"]) for r in results]
+    return {"tokens": [r["tokens"] for r in results], "counts": d,
+            "wall_s": wall, "decode_tok_s_per_stream": per_stream,
+            "ttft_ms": [r["ttft_s"] * 1e3 for r in results],
+            "long_prefill_ms": (clock.prefill_done_at - t_long) * 1e3,
+            "largest_gap_ms": sorted(gaps.values()),
+            "streams_in_window": len(gaps)}
+
+
+def verify_logits_check(torch, cfg, model, params) -> dict:
+    """(a) ``paged_verify_step`` at K = SPEC_K + 1, B = 8 over a table
+    whose slots 0-3 share a 96-token prefix's pages, against a plain f32
+    forward of each slot's whole sequence: each of the K rows within the
+    bf16 engine's relative L2 limit."""
+    import numpy as np
+
+    dev, t, cols, kk = model.device, 16, 2048 // 16, SPEC_K + 1
+    rng = np.random.default_rng(SEED + 2)
+
+    def toks(n):
+        return [int(x) for x in rng.integers(0, cfg.vocab_size, n)]
+
+    shared = toks(96)
+    seqs = [shared + toks(int(n)) for n in rng.integers(40, 400, 4)]
+    seqs += [toks(int(n)) for n in rng.integers(100, 700, 4)]
+    drafts = [toks(kk) for _ in seqs]
+    pages_of = [-(-(len(s) + kk) // t) for s in seqs]
+    n_pages = sum(pages_of)
+    arena = model.init_paged_arena(n_pages, t)
+    table = torch.zeros((8, cols), dtype=torch.int32)
+    prefix_pages = list(range(96 // t))
+    nxt = len(prefix_pages)
+    for i, s in enumerate(seqs):
+        own = pages_of[i] - (len(prefix_pages) if i < 4 else 0)
+        row = (prefix_pages if i < 4 else []) + list(range(nxt, nxt + own))
+        nxt += own
+        table[i, :len(row)] = torch.tensor(row)
+    table = table.to(dev)
+
+    def prefill(i, start, stop):
+        ids = torch.tensor([seqs[i][start:stop]], dtype=torch.int32,
+                           device=dev)
+        model.paged_prefill_chunk_step(
+            params, ids, arena, table[i:i + 1],
+            torch.tensor([start], dtype=torch.int32, device=dev),
+            torch.tensor([stop - start], dtype=torch.int32, device=dev))
+
+    prefill(0, 0, 96)                 # the shared pages, written once
+    for i, s in enumerate(seqs):
+        prefill(i, 96 if i < 4 else 0, len(s))
+    logits, _ = model.paged_verify_step(
+        params, torch.tensor(drafts, dtype=torch.int32, device=dev), arena,
+        table, torch.tensor([len(s) for s in seqs], dtype=torch.int32,
+                            device=dev),
+        n_tokens=torch.full((8,), kk, dtype=torch.int32, device=dev))
+    worst, rows = 0.0, []
+    for i, s in enumerate(seqs):
+        ids = torch.tensor([s + drafts[i]], device=dev)
+        ref = plain_logits(torch, cfg, params, ids)[0, -kk:]
+        rel = ((logits[i] - ref).norm(dim=-1) / ref.norm(dim=-1)).tolist()
+        rows.append(rel)
+        worst = max(worst, max(rel))
+    log(f"  (a) verify K={kk} B=8 (slots 0-3 share 6 prefix pages) vs plain "
+        f"f32 forward: worst row relative L2 {worst:.4f} (limit "
+        f"{ENGINE_REL_L2_LIMIT})")
+    if not worst <= ENGINE_REL_L2_LIMIT:
+        raise RuntimeError(f"verify rows off the plain forward: {rows}")
+    return {"rows_rel_l2": rows, "worst": worst,
+            "limit": ENGINE_REL_L2_LIMIT,
+            "lengths": [len(s) for s in seqs]}
+
+
+def divergence_check(torch, cfg, params, prompts, spec, plain) -> dict:
+    """(b) each greedy request's tokens, speculative against not: equal up
+    to the first divergence, and there the plain f32 forward's top-2
+    margin on the common context must be under SPEC_TIE_MARGIN of its
+    logits' RMS (a near-tie the two bf16 paths may break either way)."""
+    out = []
+    for prompt, a, b in zip(prompts, spec, plain):
+        n = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if n is None:
+            continue
+        ref = reference_logits(torch, cfg, params, prompt + b[:n])
+        top2 = ref.topk(2).values
+        margin = (top2[0] - top2[1]).item()
+        rms = ref.pow(2).mean().sqrt().item()
+        out.append({"prompt_tokens": len(prompt), "at": n,
+                    "margin": margin, "logit_rms": rms,
+                    "margin_share": margin / rms})
+        if not margin < SPEC_TIE_MARGIN * rms:
+            raise RuntimeError(
+                f"speculative tokens diverge at {n} of a {len(prompt)}-token "
+                f"prompt where the f32 top-2 margin is {margin:.4f}, "
+                f"{margin / rms:.3f} of the logits' RMS (tie margin "
+                f"{SPEC_TIE_MARGIN})")
+    return {"divergences": out, "count": len(out),
+            "tie_margin": SPEC_TIE_MARGIN}
+
+
+def spec_engine_phase(torch, dev, card: str, cfg, params) -> dict:
+    """Speculative decoding and chunk interleave on llama3-8b bf16 (the
+    engine phase's params): checks (a)-(e) and the reported rates."""
+    from k8s_runpod_kubelet_tpu_torch.models import LlamaModel
+    from k8s_runpod_kubelet_tpu_torch.ops import (paged_attention,
+                                                  paged_attention_multi,
+                                                  paged_attention_multi_quant,
+                                                  paged_attention_quant,
+                                                  rms_norm)
+    from k8s_runpod_kubelet_tpu_torch.workloads.serving import (
+        ServingConfig, ServingEngine)
+
+    model = LlamaModel(cfg, dev)
+    traffic = spec_traffic(cfg, params, torch)
+    log(f"  traffic: self-mapped tokens (token, f32 margin) "
+        f"{traffic['self_mapped']} in a {traffic['sweep_s']:.1f} s sweep of "
+        f"the vocab; 4 repetitive prompts "
+        f"{[len(p) for p in traffic['greedy'][:4]]} tokens (tokens "
+        f"{traffic['repeated_tokens']} repeated, then two 24-token phrases "
+        f"repeated), 4 burst prompts "
+        f"{[len(p) for p in traffic['greedy'][4:]]}, 1 sampled, 1 of 1500")
+    verify = verify_logits_check(torch, cfg, model, params)
+    kernels = (paged_attention_multi, rms_norm, paged_attention,
+               paged_attention_quant, paged_attention_multi_quant)
+    per_step = {"paged_attention_multi": cfg.n_layers,
+                "rms_norm": 2 * cfg.n_layers + 1, "paged_attention": 0,
+                "paged_attention_quant": 0, "paged_attention_multi_quant": 0}
+    runs = {}
+    # speculative and plain in turns (ABBA): walls move with the host
+    for name, k, chunk in (("speculative", SPEC_K, SPEC_CHUNK),
+                           ("plain", 0, SPEC_CHUNK),
+                           ("plain_2", 0, SPEC_CHUNK),
+                           ("speculative_2", SPEC_K, SPEC_CHUNK),
+                           ("speculative_no_interleave", SPEC_K, 0)):
+        sc = ServingConfig(slots=8, cache_len=2048, max_prefill_len=1024,
+                           kv_page_tokens=16, max_new_tokens=64,
+                           speculate_k=k, serving_chunk_tokens=chunk)
+        engine = ServingEngine(cfg, params, sc, device=dev).start()
+        try:
+            engine.submit(traffic["sampled"][:64],
+                          max_new_tokens=4).result(timeout=900)   # warm-up
+            rec = spec_run(torch, engine, traffic, kernels, per_step)
+            if name == "speculative":
+                rec["drain"] = http_and_drain(engine,
+                                              burst_prompts(cfg)[2])
+        finally:
+            engine.stop()
+        c = rec["counts"]
+        log(f"  [{card}] {name} (speculate_k {k}, serving_chunk_tokens "
+            f"{chunk}): {c['decode_steps']} decode steps "
+            f"({c['paged_speculative_steps']} verify), "
+            f"{c['prefill_chunks']} chunks, accepted {c['spec_accepted']} "
+            f"of {c['spec_proposed']} drafts, rollback pages "
+            f"{c['paged_speculative_rollback_pages']}, interleaved steps "
+            f"{c['chunk_interleaved_steps']}; decode "
+            f"{statistics.median(rec['decode_tok_s_per_stream']):.1f} "
+            f"tokens/s per stream (median), wall {rec['wall_s']:.2f} s; "
+            f"1500-token prefill {rec['long_prefill_ms']:.1f} ms, largest "
+            f"token gap of the {rec['streams_in_window']} streams decoding "
+            f"through it {max(rec['largest_gap_ms'], default=0):.1f} ms")
+        runs[name] = rec
+    spec, plain = runs["speculative"], runs["plain"]
+    c = spec["counts"]
+    for what, n in (("spec_accepted", c["spec_accepted"]),
+                    ("paged_speculative_rollback_pages",
+                     c["paged_speculative_rollback_pages"]),
+                    ("chunk_interleaved_steps",
+                     c["chunk_interleaved_steps"])):
+        if not n > 0:
+            raise RuntimeError(f"(c) {what} is {n}")
+    greedy = traffic["greedy"] + [traffic["long"]]
+    pick = list(range(8)) + [9]        # the sampled request is index 8
+    div = divergence_check(torch, cfg, params, greedy,
+                           [spec["tokens"][i] for i in pick],
+                           [plain["tokens"][i] for i in pick])
+    same_sampled = spec["tokens"][8] == plain["tokens"][8]
+    log(f"  (b) greedy tokens, speculative vs plain: {div['count']} of 9 "
+        f"requests diverge, each at a near-tie (f32 top-2 margin shares "
+        f"{[round(x['margin_share'], 4) for x in div['divergences']]}, "
+        f"limit {SPEC_TIE_MARGIN}); the sampled request "
+        f"{'equal' if same_sampled else 'differs'} (not gated)")
+    rate = c["spec_accepted"] / max(1, c["spec_proposed"])
+    log(f"  (c) acceptance {c['spec_accepted']}/{c['spec_proposed']} = "
+        f"{rate:.4f}; (d) launches exact per step and chunk; (e) drained "
+        f"with 0 leaked pages")
+    return {"self_mapped": traffic["self_mapped"],
+            "repeated_tokens": traffic["repeated_tokens"],
+            "verify_check": verify,
+            "divergence": div, "sampled_equal": same_sampled,
+            "acceptance_rate": rate, "runs": runs,
+            "launches_per_step": per_step}
+
+
+def write_safetensors(path: str, tensors: dict) -> int:
+    """A safetensors file (8-byte little-endian header length, the JSON
+    header with each tensor's dtype, shape and data_offsets, padded to 8
+    bytes, then the data); the machine with the card has no safetensors
+    package. Returns the bytes written."""
+    import torch
+
+    names = {torch.bfloat16: "BF16", torch.float16: "F16",
+             torch.float32: "F32", torch.int8: "I8"}
+    header, offset, blobs = {}, 0, []
+    for name, t in tensors.items():
+        t = t.detach().contiguous().cpu()
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": names[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + n]}
+        blobs.append(t)
+        offset += n
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(len(raw).to_bytes(8, "little"))
+        f.write(raw)
+        for t in blobs:
+            f.write(t.view(torch.uint8).reshape(-1).numpy())
+    return 8 + len(raw) + offset
+
+
+def hf_load_phase(torch, dev, cfg, params) -> dict:
+    """The llama3-8b widths at HF_LAYERS layers (the engine phase's first
+    layers), exported by the port's ``to_hf_state_dict``, written as a
+    2-shard safetensors directory with its index, loaded onto the card by
+    ``load_hf``: every leaf must be bit-identical to the source."""
+    from k8s_runpod_kubelet_tpu_torch.models import convert
+
+    small = dataclasses.replace(cfg, n_layers=HF_LAYERS)
+    src = {k: v for k, v in params.items() if k != "layers"}
+    src["layers"] = {k: v[:HF_LAYERS] for k, v in params["layers"].items()}
+    t0 = time.perf_counter()
+    sd = convert.to_hf_state_dict(small, src)
+    export_s = time.perf_counter() - t0
+    names = sorted(sd)
+    shards = {"model-00001-of-00002.safetensors": names[::2],
+              "model-00002-of-00002.safetensors": names[1::2]}
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        nbytes, weight_map = 0, {}
+        for fname, keys in shards.items():
+            nbytes += write_safetensors(os.path.join(d, fname),
+                                        {k: sd[k] for k in keys})
+            weight_map.update(dict.fromkeys(keys, fname))
+        with open(os.path.join(d, "model.safetensors.index.json"), "w") as f:
+            json.dump({"metadata": {}, "weight_map": weight_map}, f)
+        write_s = time.perf_counter() - t0
+        del sd
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loaded = convert.load_hf(small, d, device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    bad = [k for k in src if k != "layers"
+           if not (loaded[k].dtype == src[k].dtype
+                   and torch.equal(loaded[k], src[k]))]
+    bad += [f"layers/{k}" for k in src["layers"]
+            if not (loaded["layers"][k].dtype == src["layers"][k].dtype
+                    and torch.equal(loaded["layers"][k], src["layers"][k]))]
+    if bad:
+        raise RuntimeError(f"load_hf differs from the source in {bad}")
+    log(f"  {HF_LAYERS} layers at llama3-8b widths: to_hf_state_dict "
+        f"{export_s:.2f} s, 2 shards + index {nbytes / 2**30:.2f} GiB "
+        f"written in {write_s:.2f} s, load_hf onto the card {load_s:.2f} s "
+        f"({nbytes / load_s / 2**30:.2f} GiB/s); every leaf bit-identical")
+    del loaded
+    return {"layers": HF_LAYERS, "bytes": nbytes, "export_s": export_s,
+            "write_s": write_s, "load_s": load_s, "bit_identical": True}
+
+
 def quant_logits(torch, model, params, prompt) -> "torch.Tensor":
     """Last-token logits of ``prompt`` prefilled in one chunk through the
     quantized engine's model and params, over a fresh int8 arena."""
@@ -2114,6 +2610,10 @@ def main(argv=None) -> int:
         attn[kind].append(attention_case(
             torch, F, dev, flush, kind, "K=4 B=8", 8, 4,
             [4, 40, 333, 700, 1029, 1600, 1999, 2048]))
+        # the verify width of --speculate 4
+        attn[kind].append(attention_case(
+            torch, F, dev, flush, kind, "verify K=5 B=8", 8, 5,
+            [5, 41, 334, 705, 1029, 1605, 1999, 2048]))
         attn[kind].append(attention_case(torch, F, dev, flush, kind,
                                          "prefill K=1024 B=1", 1, 1024,
                                          [100 + 1024]))
@@ -2153,6 +2653,18 @@ def main(argv=None) -> int:
     log(f"  random bf16 init in {init_s:.1f} s")
     eng, bf16_logits = engine_phase(torch, dev, card, cfg, params)
     eng["init_s"] = init_s
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log("phase speculative engine (llama3-8b bf16, 8 slots, cache_len 2048, "
+        f"speculate_k {SPEC_K}, serving_chunk_tokens {SPEC_CHUNK})")
+    spec = spec_engine_phase(torch, dev, card, cfg, params)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log(f"phase hf load (llama3-8b widths, {HF_LAYERS} layers, 2 "
+        "safetensors shards)")
+    hf = hf_load_phase(torch, dev, cfg, params)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2211,6 +2723,7 @@ def main(argv=None) -> int:
         return [{"case": c["case"], **c["kernels"][kname]} for c in flash]
 
     serve_launches, quant_launches = eng["launches"], qeng["launches"]
+    spec_launches = spec["runs"]["speculative"]["counts"]
     mla_launches, mla_q_launches = mla_eng["launches"], mla_q["launches"]
     csrc = "k8s_runpod_kubelet_tpu_torch/csrc/"
     jax_attn = "k8s_runpod_kubelet_tpu/ops/attention.py:"
@@ -2221,6 +2734,7 @@ def main(argv=None) -> int:
                attn["paged_attention_multi"],
                serve_launches["paged_attention_multi"],
                {"serve": serve_launches["paged_attention_multi"],
+                "serve_spec": spec_launches["paged_attention_multi"],
                 "serve_int4_kv_int8":
                     quant_launches["paged_attention_multi"]}, sdpa),
         record("rms_norm", "triton",
@@ -2228,6 +2742,7 @@ def main(argv=None) -> int:
                "k8s_runpod_kubelet_tpu/ops/rmsnorm.py:80", rms,
                serve_launches["rms_norm"],
                {"serve": serve_launches["rms_norm"],
+                "serve_spec": spec_launches["rms_norm"],
                 "serve_int4_kv_int8": quant_launches["rms_norm"],
                 "serve_mla": mla_launches["rms_norm"],
                 "serve_mla_kv_int8": mla_q_launches["rms_norm"],
@@ -2316,6 +2831,7 @@ def main(argv=None) -> int:
         with open(args.out, "w") as f:
             json.dump({"card": card, "device": device, "kernels": kernels,
                        "flash": flash, "engine": eng,
+                       "spec_engine": spec, "hf_load": hf,
                        "quant_engine": qeng, "mla_engine": mla_eng,
                        "mla_kv_int8_engine": mla_q, "train": train,
                        "train_main": train_cli,

@@ -1,0 +1,379 @@
+"""Hugging Face checkpoint import and export (port of the JAX package's
+``models/convert.py``, cut to the layouts this port serves: the dense
+Llama family and MLA with a full-rank q).
+
+``load_hf(cfg, src, device)`` takes a HF model directory (``*.safetensors``,
+sharded through ``model.safetensors.index.json`` or not, or
+``pytorch_model*.bin``) or a state dict, and returns the port's parameters
+on ``device`` in the dtypes ``params_from_jax`` gives: matmul weights, the
+embedding and the LM head in ``cfg.dtype``, norms in f32, or every leaf in
+``cfg.param_dtype`` with ``master=True`` (training).
+
+Mapping (as in the JAX package): HF ``nn.Linear`` stores (out, in) and the
+port multiplies x @ W with (in, out), so every projection transposes;
+layer leaves stack on a leading (n_layers, ...) axis; RoPE is rotate-half
+on both sides for Llama. DeepSeek's MLA checkpoints rotate interleaved
+pairs, so the rope columns of ``q_proj`` and ``kv_a_proj_with_mqa`` are
+permuted to rotate-half (``_rope_deinterleave``), and ``kv_b_proj`` splits
+into ``w_uk`` and ``w_uv``.
+
+Checkpoints this port cannot serve (MoE experts, DeepSeek's dense-prefix
+layers, the low-rank q, biases, extra norms) are refused by their key
+names before any tensor is read. Safetensors files are read here, without
+the ``safetensors`` package: the 8-byte little-endian header length, the
+JSON header and each tensor's ``data_offsets``, the data viewed through
+``torch.frombuffer`` on a private memory map (BF16 needs no detour through
+numpy, which has no bf16). This module imports no jax.
+"""
+
+from __future__ import annotations
+
+import json
+import mmap
+import os
+import re
+import struct
+from typing import Any, Mapping, Optional, Union
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from .llama import LlamaConfig, Params, is_norm, param_shapes
+
+__all__ = ["from_hf_state_dict", "load_hf", "read_safetensors",
+           "to_hf_state_dict"]
+
+# safetensors dtype names this reader takes
+_ST_DTYPES = {"BF16": torch.bfloat16, "F16": torch.float16,
+              "F32": torch.float32, "I8": torch.int8}
+# keys a HF checkpoint may carry that hold no weight
+_IGNORED = re.compile(r"(^|\.)rotary_emb\.inv_freq$")
+# key fragments of layouts this port does not serve, with the reason
+_REFUSED = (
+    (".mlp.experts.", "MoE experts (DeepSeek-MoE)"),
+    (".mlp.shared_experts.", "MoE shared experts"),
+    (".block_sparse_moe.", "MoE experts (Mixtral)"),
+    (".mlp.gate.weight", "an MoE router"),
+    (".self_attn.q_a_proj.", "the low-rank q (q_lora_rank)"),
+)
+
+# per-layer (ours, HF name) pairs; projections transpose, norms do not
+_DENSE_ATTN = (("wq", "self_attn.q_proj.weight"),
+               ("wk", "self_attn.k_proj.weight"),
+               ("wv", "self_attn.v_proj.weight"),
+               ("wo", "self_attn.o_proj.weight"))
+_MLP = (("w_gate", "mlp.gate_proj.weight"), ("w_up", "mlp.up_proj.weight"),
+        ("w_down", "mlp.down_proj.weight"))
+_NORMS = (("attn_norm", "input_layernorm.weight"),
+          ("mlp_norm", "post_attention_layernorm.weight"))
+_MLA_ATTN = ("self_attn.q_proj.weight", "self_attn.kv_a_proj_with_mqa.weight",
+             "self_attn.kv_a_layernorm.weight", "self_attn.kv_b_proj.weight",
+             "self_attn.o_proj.weight")
+
+
+def _strip(name: str) -> str:
+    return name[len("model."):] if name.startswith("model.") else name
+
+
+def expected_keys(cfg: LlamaConfig) -> set:
+    """The HF names (without the ``model.`` prefix) a checkpoint of
+    ``cfg`` holds; ``lm_head.weight`` is optional either way (a tied
+    checkpoint may omit it, an untied config then materializes the tie)."""
+    _check_cfg(cfg)
+    per_layer = [theirs for _, theirs in _NORMS + _MLP]
+    per_layer += list(_MLA_ATTN) if cfg.is_mla else \
+        [theirs for _, theirs in _DENSE_ATTN]
+    keys = {"embed_tokens.weight", "norm.weight"}
+    keys.update(f"layers.{i}.{n}" for i in range(cfg.n_layers)
+                for n in per_layer)
+    return keys
+
+
+def _check_cfg(cfg: LlamaConfig) -> None:
+    if cfg.mla_q_lora_rank is not None:
+        raise NotImplementedError(
+            "HF import of the low-rank q (mla_q_lora_rank) is not ported; "
+            "only full-rank-q MLA checkpoints load")
+
+
+def check_keys(cfg: LlamaConfig, names) -> None:
+    """Key-name checks, run before any tensor is read: a layout the port
+    does not serve raises NotImplementedError naming it; any other key
+    the mapping would not read raises ValueError (a silently dropped bias
+    or norm would serve a different model); a missing one KeyError."""
+    names = {_strip(k) for k in names if not _IGNORED.search(k)}
+    for frag, what in _REFUSED:
+        hit = sorted(k for k in names if frag in "." + k)
+        if hit:
+            raise NotImplementedError(
+                f"checkpoint holds {what} ({hit[0]!r}, {len(hit)} keys); "
+                "this port serves dense Llama and full-rank-q MLA only")
+    want = expected_keys(cfg)
+    extra = sorted(names - want - {"lm_head.weight"})
+    if extra:
+        raise ValueError(f"checkpoint keys {extra[:4]} ({len(extra)} in "
+                         f"all) have no place in {cfg.name!r}")
+    missing = sorted(want - names)
+    if missing:
+        raise KeyError(f"HF checkpoint missing {missing[:4]} "
+                       f"({len(missing)} in all)")
+
+
+def _as_tensor(x) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        return x.detach()
+    arr = np.asarray(x)
+    if not (arr.flags.writeable and arr.flags.c_contiguous):
+        arr = np.array(arr)   # torch takes no read-only numpy memory
+    return torch.from_numpy(arr)
+
+
+def _rope_perm(dr: int, device) -> torch.Tensor:
+    """Column i of the rotate-half layout takes checkpoint column perm[i]:
+    DeepSeek's interleaved pairs (2i, 2i+1) become (i, dr/2 + i)."""
+    return torch.cat([torch.arange(0, dr, 2), torch.arange(1, dr, 2)]) \
+        .to(device)
+
+
+def _rope_deinterleave(w: torch.Tensor, dr: int) -> torch.Tensor:
+    """Permute the last ``dr`` columns of ``w`` from DeepSeek's
+    pair-interleaved RoPE layout to the port's rotate-half layout."""
+    out = w.clone()
+    out[..., -dr:] = w[..., -dr:][..., _rope_perm(dr, w.device)]
+    return out
+
+
+def _rope_reinterleave(w: torch.Tensor, dr: int) -> torch.Tensor:
+    """Inverse of ``_rope_deinterleave`` (export)."""
+    out = w.clone()
+    out[..., -dr:][..., _rope_perm(dr, w.device)] = w[..., -dr:]
+    return out
+
+
+def _mla_layer(cfg: LlamaConfig, get, i: int) -> dict:
+    """DeepSeek-V2 MLA attention of layer ``i`` (each tensor on the target
+    device, HF layout): q_proj (H(dh+dr), E) -> wq (E, H(dh+dr)) with each
+    head's rope tail de-interleaved; kv_a_proj_with_mqa (r+dr, E) ->
+    w_dkv (E, r+dr), rope tail de-interleaved; kv_a_layernorm -> c_norm;
+    kv_b_proj (H(dh+dv), r) -> w_uk (r, H dh) and w_uv (r, H dv), per head
+    [k_nope; v]; o_proj -> wo."""
+    hd, dr, r, hn = (cfg.head_dim_, cfg.mla_rope_dim, cfg.mla_latent_dim,
+                     cfg.n_heads)
+    p = f"layers.{i}.self_attn."
+    q = get(p + "q_proj.weight").t().reshape(-1, hn, hd + dr)
+    b = get(p + "kv_b_proj.weight").t().reshape(r, hn, -1)
+    if b.shape[-1] != 2 * hd:
+        raise NotImplementedError(
+            f"v_head_dim {b.shape[-1] - hd} != qk_nope_head_dim {hd}: this "
+            "family assumes square heads (true for V2-Lite)")
+    return {"wq": _rope_deinterleave(q, dr).reshape(q.shape[0], -1),
+            "w_dkv": _rope_deinterleave(
+                get(p + "kv_a_proj_with_mqa.weight").t(), dr),
+            "c_norm": get(p + "kv_a_layernorm.weight"),
+            "w_uk": b[:, :, :hd].reshape(r, hn * hd),
+            "w_uv": b[:, :, hd:].reshape(r, hn * hd),
+            "wo": get(p + "o_proj.weight").t()}
+
+
+def from_hf_state_dict(cfg: LlamaConfig, sd: Mapping[str, Any], device=None,
+                       master: bool = False) -> Params:
+    """A HF ``state_dict``-shaped mapping (``model.`` prefix or not;
+    torch tensors or numpy arrays) -> the port's parameters on
+    ``device``. Each tensor moves to the device in its own dtype and is
+    transposed, permuted and cast there, one layer at a time, into
+    preallocated stacked leaves."""
+    dev = resolve_device(device)
+    check_keys(cfg, sd.keys())
+    norm = {_strip(k): v for k, v in sd.items()}
+
+    def get(name: str) -> torch.Tensor:
+        return _as_tensor(norm[name]).to(dev)
+
+    def dtype_of(name: str) -> torch.dtype:
+        if master:
+            return cfg.param_dtype
+        return torch.float32 if is_norm(name) else cfg.dtype
+
+    shapes = param_shapes(cfg)
+
+    def put(name: str, t: torch.Tensor, shape) -> torch.Tensor:
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name}: HF tensor maps to {tuple(t.shape)}, "
+                             f"the config needs {tuple(shape)}")
+        return torch.empty(shape, dtype=dtype_of(name), device=dev).copy_(t)
+
+    out: Params = {
+        "tok_embed": put("tok_embed", get("embed_tokens.weight"),
+                         shapes["tok_embed"]),
+        "final_norm": put("final_norm", get("norm.weight"),
+                          shapes["final_norm"])}
+    if not cfg.tie_embeddings:
+        head = (get("lm_head.weight") if "lm_head.weight" in norm
+                else get("embed_tokens.weight"))   # the checkpoint ties
+        out["lm_head"] = put("lm_head", head.t(), shapes["lm_head"])
+    layers = {name: torch.empty(s, dtype=dtype_of(name), device=dev)
+              for name, s in shapes["layers"].items()}
+    for i in range(cfg.n_layers):
+        pre = f"layers.{i}."
+        if cfg.is_mla:
+            leaves = _mla_layer(cfg, get, i)
+        else:
+            leaves = {ours: get(pre + theirs).t()
+                      for ours, theirs in _DENSE_ATTN}
+        leaves.update({ours: get(pre + theirs).t() for ours, theirs in _MLP})
+        leaves.update({ours: get(pre + theirs) for ours, theirs in _NORMS})
+        for name, t in leaves.items():
+            if tuple(t.shape) != tuple(layers[name].shape[1:]):
+                raise ValueError(f"{pre}{name}: HF tensor maps to "
+                                 f"{tuple(t.shape)}, the config needs "
+                                 f"{tuple(layers[name].shape[1:])}")
+            layers[name][i].copy_(t)
+    out["layers"] = layers
+    return out
+
+
+def to_hf_state_dict(cfg: LlamaConfig, params: Params
+                     ) -> dict[str, torch.Tensor]:
+    """Inverse mapping (export): the port's parameters -> a HF-named state
+    dict of contiguous CPU tensors in the parameters' own dtypes (so bf16
+    weights round-trip bit for bit). Quantized leaves are refused."""
+    _check_cfg(cfg)
+
+    def host(t) -> torch.Tensor:
+        if isinstance(t, dict):
+            raise ValueError("quantized parameters have no HF layout; "
+                             "export the unquantized weights")
+        return t.detach().contiguous().cpu()
+
+    sd = {"model.embed_tokens.weight": host(params["tok_embed"]),
+          "model.norm.weight": host(params["final_norm"])}
+    if not cfg.tie_embeddings:
+        sd["lm_head.weight"] = host(params["lm_head"].t())
+    lp = params["layers"]
+    hd, dr, r, hn = (cfg.head_dim_, cfg.mla_rope_dim, cfg.mla_latent_dim,
+                     cfg.n_heads)
+    for i in range(cfg.n_layers):
+        pre = f"model.layers.{i}."
+        for ours, theirs in _NORMS:
+            sd[pre + theirs] = host(lp[ours][i])
+        for ours, theirs in _MLP:
+            sd[pre + theirs] = host(lp[ours][i].t())
+        if cfg.is_mla:
+            a = pre + "self_attn."
+            q = lp["wq"][i].reshape(-1, hn, hd + dr)
+            sd[a + "q_proj.weight"] = host(
+                _rope_reinterleave(q, dr).reshape(q.shape[0], -1).t())
+            sd[a + "kv_a_proj_with_mqa.weight"] = host(
+                _rope_reinterleave(lp["w_dkv"][i], dr).t())
+            sd[a + "kv_a_layernorm.weight"] = host(lp["c_norm"][i])
+            uk = lp["w_uk"][i].reshape(r, hn, hd)
+            uv = lp["w_uv"][i].reshape(r, hn, hd)
+            sd[a + "kv_b_proj.weight"] = host(
+                torch.cat([uk, uv], dim=-1).reshape(r, -1).t())
+            sd[a + "o_proj.weight"] = host(lp["wo"][i].t())
+        else:
+            for ours, theirs in _DENSE_ATTN:
+                sd[pre + theirs] = host(lp[ours][i].t())
+    return sd
+
+
+def _st_header(f) -> tuple[dict, int]:
+    """(header without ``__metadata__``, byte offset of the data) of an
+    open safetensors file."""
+    raw = f.read(8)
+    if len(raw) != 8:
+        raise ValueError(f"{f.name}: not a safetensors file")
+    (n,) = struct.unpack("<Q", raw)
+    header = json.loads(f.read(n))
+    header.pop("__metadata__", None)
+    return header, 8 + n
+
+
+def read_safetensors(path: str) -> dict[str, torch.Tensor]:
+    """Every tensor of one ``.safetensors`` file as a CPU tensor viewing a
+    private (copy-on-write) memory map of the file: nothing is read until
+    a tensor is used, and writing to one never reaches the file."""
+    with open(path, "rb") as f:
+        header, base = _st_header(f)
+        size = os.fstat(f.fileno()).st_size
+        buf = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_COPY)
+    out: dict[str, torch.Tensor] = {}
+    for name, info in header.items():
+        dtype = _ST_DTYPES.get(info["dtype"])
+        if dtype is None:
+            raise ValueError(f"{path}: {name} has dtype {info['dtype']}; "
+                             f"this reader takes {sorted(_ST_DTYPES)}")
+        start, end = info["data_offsets"]
+        shape = tuple(info["shape"])
+        item = torch.empty((), dtype=dtype).element_size()
+        if end - start != item * int(np.prod(shape, dtype=np.int64)) \
+                or base + end > size:
+            raise ValueError(f"{path}: {name} data_offsets {start}..{end} "
+                             f"do not hold {shape} {info['dtype']}")
+        if end == start:
+            out[name] = torch.empty(shape, dtype=dtype)
+            continue
+        out[name] = torch.frombuffer(buf, dtype=dtype,
+                                     count=(end - start) // item,
+                                     offset=base + start).reshape(shape)
+    return out
+
+
+def _st_files(path: str) -> list[str]:
+    """The safetensors files of a model directory: those the index names,
+    else every ``*.safetensors`` there."""
+    index = os.path.join(path, "model.safetensors.index.json")
+    if os.path.exists(index):
+        with open(index) as f:
+            return sorted(set(json.load(f)["weight_map"].values()))
+    return sorted(f for f in os.listdir(path) if f.endswith(".safetensors"))
+
+
+def _dir_key_names(path: str) -> Optional[list[str]]:
+    """Tensor names of a HF model directory from the safetensors headers
+    alone; None when it holds only ``.bin`` shards (``torch.load`` has no
+    header to read: those are checked after loading)."""
+    files = _st_files(path)
+    if not files:
+        return None
+    names: list[str] = []
+    for fname in files:
+        with open(os.path.join(path, fname), "rb") as f:
+            names.extend(_st_header(f)[0])
+    return names
+
+
+def _read_dir_state_dict(path: str) -> dict[str, torch.Tensor]:
+    """A HF model directory's state dict: ``*.safetensors`` (indexed or
+    not) or ``pytorch_model*.bin`` shards."""
+    files = _st_files(path)
+    if files:
+        sd: dict[str, torch.Tensor] = {}
+        for fname in files:
+            sd.update(read_safetensors(os.path.join(path, fname)))
+        return sd
+    bins = sorted(f for f in os.listdir(path)
+                  if re.match(r"pytorch_model.*\.bin$", f))
+    if not bins:
+        raise FileNotFoundError(
+            f"{path}: no *.safetensors or pytorch_model*.bin found")
+    sd = {}
+    for fname in bins:
+        sd.update(torch.load(os.path.join(path, fname), map_location="cpu",
+                             weights_only=True))
+    return sd
+
+
+def load_hf(cfg: LlamaConfig, src: Union[str, Mapping[str, Any]],
+            device=None, master: bool = False) -> Params:
+    """One-call import: ``src`` is a HF model directory or a state dict.
+    A directory's key names are checked from the safetensors headers
+    before any tensor data is touched."""
+    if isinstance(src, (str, os.PathLike)):
+        src = os.fspath(src)
+        names = _dir_key_names(src)
+        if names is not None:
+            check_keys(cfg, names)
+        src = _read_dir_state_dict(src)
+    return from_hf_state_dict(cfg, src, device=device, master=master)

@@ -11,6 +11,11 @@ Endpoints:
                       (+ "text" with a tokenizer). Fields this port does
                       not serve yet ("stream", "stop", "logprobs",
                       "adapter") answer 400 instead of being ignored.
+  POST /prefix        the /generate body's "tokens" or "text": prefill
+                      the prefix once and pin its full KV pages, so later
+                      prompts starting with it skip them -> {"registered":
+                      n}; 400 on an empty or too-long prefix or a full
+                      registry (--max-prefixes)
   GET  /healthz       liveness: 200 while the engine thread lives (body
                       "draining" while draining), 503 once it died
   GET  /readyz        routability: 503 while draining or dead
@@ -19,7 +24,8 @@ Endpoints:
 
 Run: python -m k8s_runpod_kubelet_tpu_torch.workloads.serve_main \
         --model llama3-8b --slots 8 --cache-len 2048 --port 8000 \
-        [--int4 | --int8] [--kv-int8]
+        [--int4 | --int8] [--kv-int8] [--speculate K]
+        [--serving-chunk-tokens N] [--max-prefixes N] [--hf-checkpoint DIR]
 (``--model mla-8b`` serves Multi-head Latent Attention from a latent
 arena; ``--kv-int8`` then makes the latents int8.)
 """
@@ -97,13 +103,22 @@ class _Handler(BaseHTTPRequestHandler):
             return self._send(200, {"draining": True,
                                     "queue_depth": self.engine.queue_depth,
                                     "active_slots": self.engine.active_slots})
-        if self.path != "/generate":
+        if self.path not in ("/generate", "/prefix"):
             return self._send(404, {"error": f"no route {self.path}"})
         try:
             req = self._read_json()
             tokens = self._request_tokens(req)
         except (json.JSONDecodeError, ValueError, TypeError) as e:
             return self._send(400, {"error": f"bad request: {e}"})
+        if self.path == "/prefix":
+            try:
+                self.engine.register_prefix(tokens)
+            except ValueError as e:
+                return self._send(400, {"error": str(e)})
+            except EngineOverloaded as e:
+                return self._send(429, {"error": str(e)},
+                                  extra_headers={"Retry-After": "1"})
+            return self._send(200, {"registered": len(tokens)})
         fut = self.engine.submit(
             tokens, req.get("max_new_tokens"), req.get("temperature"),
             top_k=_or(req.get("top_k"), 0), top_p=_or(req.get("top_p"), 1.0),
@@ -195,14 +210,31 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="int8 KV arena with per-(position, kv head) scales, "
                         "or for MLA int8 latents with per-position scales "
                         "(half the arena's bytes)")
+    p.add_argument("--speculate", type=int, default=0, metavar="K",
+                   help="prompt-lookup speculative decoding: verify K "
+                        "drafts a step in one K+1-wide pass (greedy "
+                        "requests; 0 = off)")
+    p.add_argument("--serving-chunk-tokens", type=int, default=0,
+                   metavar="N",
+                   help="prefill in N-token chunks, one decode step "
+                        "between chunks while streams decode (0 = chunks "
+                        "of cache_len / 2, back to back)")
+    p.add_argument("--max-prefixes", type=int, default=8,
+                   help="distinct prefixes POST /prefix may pin")
+    p.add_argument("--hf-checkpoint", default="", metavar="DIR",
+                   help="load the weights from a Hugging Face model "
+                        "directory (*.safetensors or pytorch_model*.bin) "
+                        "instead of random init from --seed")
     return p.parse_args(argv)
 
 
 def build_engine(args: argparse.Namespace, params=None):
-    """(started engine, tokenizer or None) for the CLI's arguments; random
-    weights from ``--seed`` unless ``params`` (of the model's config, on
-    the device) are given. Raises ValueError for --int8 with --int4."""
+    """(started engine, tokenizer or None) for the CLI's arguments; the
+    weights are ``params`` (of the model's config, on the device) when
+    given, else ``--hf-checkpoint``'s, else random from ``--seed``. Raises
+    ValueError for --int8 with --int4."""
     from ..models import MODEL_CONFIGS, init_params
+    from ..models.convert import load_hf
 
     if args.int8 and args.int4:
         raise ValueError("--int8 and --int4 are mutually exclusive — pick "
@@ -214,9 +246,13 @@ def build_engine(args: argparse.Namespace, params=None):
         max_prefill_len=args.cache_len // 2,
         eos_token=tokenizer.eos_id if tokenizer is not None else -1,
         quantize_int8=args.int8, quantize_int4=args.int4,
-        quantize_kv_int8=args.kv_int8)
+        quantize_kv_int8=args.kv_int8, speculate_k=args.speculate,
+        serving_chunk_tokens=args.serving_chunk_tokens,
+        max_prefixes=args.max_prefixes)
     device = resolve_device(args.device)
     cfg = MODEL_CONFIGS[args.model]()
+    if params is None and args.hf_checkpoint:
+        params = load_hf(cfg, args.hf_checkpoint, device=device)
     if params is None:
         gen = torch.Generator(device=device).manual_seed(args.seed)
         params = init_params(cfg, gen, device)

@@ -11,7 +11,17 @@ paged loop of the JAX package's ``workloads/serving/engine.py``).
 - **Engine thread**: binds ready runs to free slots (the run's pages become
   the slot's page-table row) and runs one ``paged_decode_step`` per step
   for every live slot, growing each slot's table by a private page when
-  its next write crosses a page boundary.
+  its next write crosses a page boundary. With ``speculate_k`` > 0 and a
+  greedy slot live, a step is instead one ``paged_verify_step`` over
+  [last token, k prompt-lookup drafts]: greedy slots commit the matched
+  drafts plus the corrected token, sampled slots ride along at one token,
+  and rejected rows roll back by dropping the table's pages past the
+  committed length.
+- **Chunk interleave**: with ``serving_chunk_tokens`` set, the prefill
+  thread waits for one decode step between a prompt's chunks whenever a
+  slot is decoding (``ChunkArbiter``).
+- **Registered prefixes**: ``register_prefix`` prefills a shared prefix
+  once and pins its full pages in the trie.
 
 Every launch that touches the arena, and every pool or trie call, runs
 under ``_prefix_lock``: the two threads issue onto PyTorch's one current
@@ -39,16 +49,19 @@ from ...device import resolve_device
 from ...models.llama import LlamaConfig, LlamaModel, Params
 from ...models.quant import quantize_params
 from .kv_manager import PagedKVStore, PoolExhausted
-from .sampler import _apply_penalties, _bias_row, _penalized, _sample
-from .scheduler import (EngineDraining, EngineOverloaded, Request,
-                        ServingConfig, _fail_future, _Slot)
+from .sampler import (_apply_penalties, _bias_row, _logit_modded,
+                      _penalized, _sample)
+from .scheduler import (ChunkArbiter, EngineDraining, EngineOverloaded,
+                        Request, ServingConfig, _fail_future, _Slot)
 
 log = logging.getLogger(__name__)
 
 COUNTERS = ("admitted", "decode_steps", "engine_errors", "prefill_errors",
             "prefix_cache_hits", "prefix_cache_misses", "paged_prefill_tokens",
             "prefill_chunks", "admission_rejected", "drain_rejected",
-            "cancelled")
+            "cancelled", "spec_proposed", "spec_accepted",
+            "paged_speculative_steps", "paged_speculative_rollback_pages",
+            "chunk_interleaved_steps", "prefix_hits")
 
 
 class _PagedRun:
@@ -75,6 +88,9 @@ class ServingEngine:
                              "exclusive — pick one weight precision")
         if sc.slots < 1 or sc.max_prefill_len < 1:
             raise ValueError("slots and max_prefill_len must be >= 1")
+        if min(sc.speculate_k, sc.serving_chunk_tokens, sc.max_prefixes) < 0:
+            raise ValueError("speculate_k, serving_chunk_tokens and "
+                             "max_prefixes must be >= 0")
         t = sc.kv_page_tokens
         if not 1 <= t < sc.cache_len:
             raise ValueError(f"kv_page_tokens must be in [1, cache_len), "
@@ -115,6 +131,11 @@ class ServingEngine:
         self._prefix_lock = threading.Lock()
         self._admit_lock = threading.Lock()
         self._draining = threading.Event()
+        self._chunk_tokens = min(sc.serving_chunk_tokens,
+                                 sc.max_prefill_len)
+        self._arbiter = ChunkArbiter()
+        # register_prefix() token lists, deduplicated, at most max_prefixes
+        self._registered: list[list[int]] = []
         # requests popped from a queue but not yet in a slot: ``drained``
         # reads queues and transit under this lock so no request is ever
         # in neither place
@@ -203,8 +224,61 @@ class ServingEngine:
         with self._prefix_lock:
             out = self._kv_store.stats()
             out["page_bytes"] = self._kv_store.page_bytes
+            out["registered"] = len(self._registered)
         out["page_tokens"] = self.sc.kv_page_tokens
         return out
+
+    def register_prefix(self, tokens: list[int]) -> None:
+        """Prefill a shared prompt prefix (a system prompt) once and PIN
+        its full pages in the trie: they are never evicted, so every later
+        prompt starting with it skips those pages' prefill. Idempotent for
+        the same tokens, and capped at ``max_prefixes`` distinct prefixes
+        (ValueError past it: each pins arena pages for the engine's life).
+        The prefix's tail past its last full page still prefills per
+        request. EngineOverloaded when the pool cannot hold it now."""
+        vocab = self.cfg.vocab_size
+        if not tokens:
+            raise ValueError("empty prefix")
+        if not all(_is_int(t) and 0 <= t < vocab for t in tokens):
+            raise ValueError(f"prefix tokens must be ints in [0, {vocab})")
+        if len(tokens) > self.sc.cache_len - 1:
+            raise ValueError(f"prefix length {len(tokens)} > cache budget "
+                             f"{self.sc.cache_len - 1}")
+        tokens = list(tokens)
+        with self._prefix_lock:
+            if tokens in self._registered:
+                return
+            self._check_registry_room()
+        out = self._prefill_paged_native(tokens)
+        if out is None:
+            raise EngineOverloaded(f"KV pool cannot hold the "
+                                   f"{len(tokens)}-token prefix; retry later")
+        run = out[1]
+        with self._prefix_lock:
+            try:
+                if tokens in self._registered:
+                    return   # raced with an identical registration
+                # re-check: a concurrent registration may have filled the
+                # registry while this one prefilled outside the lock
+                self._check_registry_room()
+                self._registered.append(tokens)
+                if run.store is self._kv_store:
+                    # the prefill adopted the pages unpinned; this second
+                    # walk pins them, then the run's own references drop
+                    run.store.insert_ready(0, tokens, run.pages, pin=True)
+            finally:
+                run.store.release(run.pages)
+
+    def _check_registry_room(self) -> None:
+        if len(self._registered) >= self.sc.max_prefixes:
+            raise ValueError(
+                f"prefix registry full ({self.sc.max_prefixes}); each entry "
+                "pins KV pages — raise max_prefixes or restart to clear")
+
+    def _covers_registered(self, tokens: list[int]) -> bool:
+        """Does this prompt start with a registered prefix?"""
+        return any(len(r) <= len(tokens) and tokens[:len(r)] == r
+                   for r in self._registered)
 
     def debug_snapshot(self) -> dict:
         """/debug/engine: per-slot state, queue depths, pool occupancy and
@@ -240,6 +314,8 @@ class ServingEngine:
                 "ready_queue": self._ready.qsize(),
                 "in_transit": self._transit, "cache_len": self.sc.cache_len,
                 "paged_decode": True, "paged_prefill": True,
+                "speculate_k": sc.speculate_k,
+                "serving_chunk_tokens": self._chunk_tokens,
                 "prefix_cache": self.prefix_cache_stats(),
                 "counters": counters,
                 "total_generated": self.total_generated,
@@ -371,8 +447,10 @@ class ServingEngine:
         """Prefill straight into the arena: allocate the prompt's page run
         up front (a prefix hit's matched pages join it in place), scatter
         each chunk's K/V into those pages, then insert the run's full pages
-        into the trie by reference. Returns (last logits (1, V), run), or
-        None when the pool cannot hold the run."""
+        into the trie by reference. Chunks are ``serving_chunk_tokens``
+        long when set, and then the thread yields one decode step between
+        them while a slot decodes; else ``max_prefill_len``. Returns (last
+        logits (1, V), run), or None when the pool cannot hold the run."""
         store = self._kv_store
         t = self.sc.kv_page_tokens
         n_pages = -(-len(tokens) // t)
@@ -387,13 +465,15 @@ class ServingEngine:
         covered = m.matched_tokens
         pages = list(m.pages) + tail
         self._count("prefix_cache_hits" if covered else "prefix_cache_misses")
+        if covered and self._covers_registered(tokens):
+            self._count("prefix_hits")
         row = np.zeros((1, self._slot_pages_max), np.int32)
         row[0, :len(pages)] = pages
         dev = self.device
         table = torch.tensor(row, device=dev)
         lengths = torch.tensor([covered], dtype=torch.int32, device=dev)
         rest = tokens[covered:]
-        step = self.sc.max_prefill_len
+        step = self._chunk_tokens or self.sc.max_prefill_len
         last_logits = None
         try:
             for start in range(0, len(rest), step):
@@ -408,6 +488,11 @@ class ServingEngine:
                             true_len)
                     self._count("prefill_chunks")
                 self._count("paged_prefill_tokens", len(chunk))
+                if self._chunk_tokens and start + step < len(rest):
+                    ran = self._arbiter.yield_for_decode(
+                        lambda: self.active_slots > 0)
+                    if ran:
+                        self._count("chunk_interleaved_steps", ran)
             with self._prefix_lock:
                 store.insert_ready(0, tokens, pages)
         except Exception:
@@ -427,6 +512,8 @@ class ServingEngine:
                         self._stop.wait(0.002)
                     continue
                 self._decode_once_paged()
+                # wake a chunked prefill waiting for its one-step turn
+                self._arbiter.decode_step_done()
             except Exception as exc:  # noqa: BLE001 — survive a bad step
                 log.exception("serving engine step failed; failing "
                               "in-flight requests and continuing")
@@ -488,6 +575,8 @@ class ServingEngine:
             return
         slot.pages = list(run.pages)
         slot.kv_len = run.kv_len
+        slot.bigram_index = {}
+        slot.indexed_upto = 0
         row = self._page_tables_np[slot_id]
         row[:] = 0
         row[:len(slot.pages)] = slot.pages
@@ -548,6 +637,8 @@ class ServingEngine:
         return True
 
     def _decode_once_paged(self):
+        if self.sc.speculate_k > 0 and self._decode_once_speculative_paged():
+            return
         for slot_id, slot in enumerate(self._slots):
             if slot.request is not None:
                 self._grow_slot_table(slot_id, slot, 1)
@@ -567,6 +658,147 @@ class ServingEngine:
                 lengths, active_t)
             self._count("decode_steps")
         self._commit_decode(logits)
+
+    def _propose(self, slot: _Slot, k: int) -> list[int]:
+        """Prompt-lookup drafting: the k tokens that followed the latest
+        earlier occurrence of the context's final bigram, padded with the
+        last token (a wrong draft costs only rows the verify pass already
+        pays for). The bigram index grows incrementally, amortized O(1) a
+        committed token; the latest occurrence wins, as in a backward scan
+        that stops at position len - 3."""
+        prompt = slot.request.prompt
+        np_ = len(prompt)
+        gen = slot.generated
+        n = np_ + len(gen)
+
+        def tok(p: int) -> int:
+            return prompt[p] if p < np_ else gen[p - np_]
+
+        idx = slot.bigram_index
+        while slot.indexed_upto <= n - 3:
+            i = slot.indexed_upto
+            idx[(tok(i), tok(i + 1))] = i
+            slot.indexed_upto += 1
+        draft: list[int] = []
+        if n >= 3:
+            i = idx.get((tok(n - 2), tok(n - 1)))
+            if i is not None:
+                draft = [tok(p) for p in range(i + 2, min(i + 2 + k, n))]
+        last = tok(n - 1)
+        while len(draft) < k:
+            draft.append(last)
+        return draft[:k]
+
+    def _decode_once_speculative_paged(self) -> bool:
+        """One ``paged_verify_step`` over [last token, k drafts] per slot.
+        Greedy slots commit the matched drafts plus the corrected token;
+        sampled, penalized and biased slots ride along at n_tokens = 1,
+        whose KV write and logits[:, 0] are the plain step's, and draw
+        with the plain step's draw index. Rejected rows roll back page-
+        natively: the committed length stops at the first mismatch and the
+        table's pages past ceil(kv_len / T) return to the pool. Returns
+        False, deferring to the plain step, when no live slot is greedy."""
+        k = self.sc.speculate_k
+        slots = self._slots
+        t = self.sc.kv_page_tokens
+
+        def greedy(slot: _Slot) -> bool:
+            r = slot.request
+            return (r is not None and r.temperature <= 0.0
+                    and not _logit_modded(r))
+
+        if not any(greedy(s) for s in slots):
+            return False
+        # table growth BEFORE the step: a greedy slot writes up to k + 1
+        # rows, never past its budget (the table is ceil(cache_len / T)
+        # pages wide), a sampled slot 1
+        widths = [0] * len(slots)
+        for i, slot in enumerate(slots):
+            if slot.request is not None:
+                widths[i] = min(k + 1, slot.remaining) if greedy(slot) else 1
+                self._grow_slot_table(i, slot, widths[i])
+        active = [s.request is not None for s in slots]   # growth may fail
+        if not any(active):
+            return True
+        is_greedy = [greedy(s) for s in slots]
+        toks_in = np.zeros((len(slots), k + 1), np.int32)
+        n_tokens = np.where(active, widths, 0).astype(np.int32)
+        for i, slot in enumerate(slots):
+            if active[i]:
+                toks_in[i] = slot.last_token   # drafts of non-greedy: unread
+                if is_greedy[i]:
+                    toks_in[i, 1:] = self._propose(slot, k)
+        dev = self.device
+        lengths = torch.tensor([s.kv_len for s in slots], dtype=torch.int32,
+                               device=dev)
+        with self._prefix_lock:
+            logits, _ = self.model.paged_verify_step(
+                self.params, torch.tensor(toks_in, device=dev),
+                self._kv_store.arena,
+                torch.tensor(self._page_tables_np, device=dev), lengths,
+                torch.tensor(active, device=dev),
+                torch.tensor(n_tokens, device=dev))
+            self._count("decode_steps")
+            self._count("paged_speculative_steps")
+        # one device -> host copy of every slot's K-wide argmax
+        greedy_np = logits.argmax(dim=-1).cpu().numpy()
+        reqs = [s.request for s in slots]
+        sampled = None
+        if not all(g for g, a in zip(is_greedy, active) if a):
+            l0 = self._maybe_penalize(logits[:, 0], reqs)
+            sampled = _sample(l0, self._slot_seed, self._slot_draws,
+                              [r.temperature if r else 0.0 for r in reqs],
+                              [r.top_k if r else 0 for r in reqs],
+                              [r.top_p if r else 1.0 for r in reqs])
+            if self._tok_counts is not None:
+                for i, r in enumerate(reqs):
+                    if _penalized(r):
+                        self._tok_counts[i, sampled[i]] += 1
+        self._slot_draws = [d + 1 for d in self._slot_draws]
+        self._count("spec_proposed", k * sum(is_greedy))
+        accepted = rolled_back = 0
+        for i, slot in enumerate(slots):
+            if not active[i]:
+                continue
+            if is_greedy[i]:
+                committed = []
+                for j in range(n_tokens[i]):
+                    g = int(greedy_np[i, j])
+                    committed.append(g)
+                    if j + 1 >= n_tokens[i] or g != toks_in[i, j + 1]:
+                        break   # a mismatch: g is the corrected token
+            else:
+                committed = [sampled[i]]
+            appended = 0
+            for tok in committed:
+                if slot.request is None:
+                    break   # finished mid-run (eos or budget)
+                # committing token j commits the step's row j at kv_len
+                slot.kv_len += 1
+                slot.generated.append(tok)
+                slot.last_token = tok
+                slot.remaining -= 1
+                appended += 1
+                self.total_generated += 1
+                if self._finished(slot):
+                    self._complete(i, slot)
+            if is_greedy[i] and appended > 1:
+                accepted += appended - 1   # drafts actually consumed
+            if slot.request is None:
+                continue   # _complete released every page
+            keep = -(-slot.kv_len // t)
+            if len(slot.pages) > keep:
+                # pages past the committed length hold only rejected rows,
+                # all private (shared prefix pages lie below kv_len)
+                dropped = slot.pages[keep:]
+                del slot.pages[keep:]
+                self._page_tables_np[i, keep:] = 0
+                with self._prefix_lock:
+                    self._kv_store.release(dropped)
+                rolled_back += len(dropped)
+        self._count("spec_accepted", accepted)
+        self._count("paged_speculative_rollback_pages", rolled_back)
+        return True
 
     def _commit_decode(self, logits: torch.Tensor):
         """Per-slot sampling, stop checks and slot bookkeeping."""

@@ -11,7 +11,8 @@ plain layout), cut to what the paged loop calls.
 - **PrefixTrie**: a radix trie over page-sized token chunks, one KV page
   per node, one root per adapter id. ``match`` returns shared pages with a
   reference held, so eviction can never free a page someone still reads;
-  eviction is LRU over leaves.
+  eviction is LRU over unpinned leaves (``register_prefix`` pins its
+  path).
 - **PagedKVStore**: the arena tensors behind both, from
   ``LlamaModel.init_paged_arena``.
 
@@ -93,6 +94,7 @@ class _Node:
     page: int
     parent: Optional["_Node"]
     children: dict = dataclasses.field(default_factory=dict)
+    pinned: bool = False      # on a register_prefix path: never evicted
     last_used: int = 0
 
 
@@ -145,13 +147,14 @@ class PrefixTrie:
         for p in pages:
             self.pool.unref(p)
 
-    def insert_ready(self, adapter_id: int, tokens: list,
-                     pages: list) -> int:
+    def insert_ready(self, adapter_id: int, tokens: list, pages: list,
+                     pin: bool = False) -> int:
         """Cache the full pages of ``tokens`` whose KV already sits in the
         arena pages the caller owns (``pages[i]`` backs chunk i). Each
         adopted node takes its own reference, so the caller's references
         stay the caller's to release. Chunks already present dedup through
-        the walk. Returns pages adopted."""
+        the walk. ``pin`` marks every node of the path, those already
+        there included, as never evicted. Returns pages adopted."""
         self._clock += 1
         want = min(len(pages), len(tokens) // self.page_tokens)
         node_map = self._roots.setdefault(adapter_id, {})
@@ -163,12 +166,14 @@ class PrefixTrie:
             if node is None:
                 break
             node.last_used = self._clock
+            if pin:
+                node.pinned = True
             parent, node_map, depth = node, node.children, depth + 1
         added = 0
         for i, chunk in enumerate(chunks[depth:]):
             page = pages[depth + i]
             self.pool.ref(page)
-            node = _Node(chunk=chunk, page=page, parent=parent,
+            node = _Node(chunk=chunk, page=page, parent=parent, pinned=pin,
                          last_used=self._clock)
             node_map[chunk] = node
             self._nodes[id(node)] = node
@@ -177,12 +182,12 @@ class PrefixTrie:
         return added
 
     def _evict_lru(self) -> int:
-        """Drop the least-recently-used LEAF (its children would orphan
-        otherwise). The pool frees the page only if no reader still holds
-        it. Returns 1, or 0 when the trie has no leaf."""
+        """Drop the least-recently-used unpinned LEAF (its children would
+        orphan otherwise). The pool frees the page only if no reader still
+        holds it. Returns 1, or 0 when the trie has no such leaf."""
         victim: Optional[_Node] = None
         for node in self._nodes.values():
-            if node.children:
+            if node.children or node.pinned:
                 continue
             if victim is None or node.last_used < victim.last_used:
                 victim = node
@@ -261,12 +266,14 @@ class PagedKVStore:
     def release(self, pages: list) -> None:
         self.trie.release(pages)
 
-    def insert_ready(self, adapter_id: int, tokens: list,
-                     pages: list) -> int:
-        return self.trie.insert_ready(adapter_id, tokens, pages)
+    def insert_ready(self, adapter_id: int, tokens: list, pages: list,
+                     pin: bool = False) -> int:
+        return self.trie.insert_ready(adapter_id, tokens, pages, pin=pin)
 
     def stats(self) -> dict:
         return {"pages_total": self.pool.n_pages,
                 "pages_free": self.pool.free_count,
                 "pages_shared": self.trie.shared_pages(),
-                "nodes": len(self.trie)}
+                "nodes": len(self.trie),
+                "pinned": sum(1 for n in self.trie._nodes.values()
+                              if n.pinned)}

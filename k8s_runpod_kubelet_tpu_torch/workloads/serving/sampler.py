@@ -21,6 +21,13 @@ def _penalized(r) -> bool:
                               or r.frequency_penalty != 0.0)
 
 
+def _logit_modded(r) -> bool:
+    """Penalties or logit_bias: the next token comes from MODIFIED logits,
+    so the speculative K-wide greedy commit, which compares raw argmaxes,
+    is not for these requests."""
+    return _penalized(r) or (r is not None and bool(r.logit_bias))
+
+
 def _bias_row(logit_bias: dict, vocab_size: int) -> np.ndarray:
     """Dense (V,) f32 additive row from an OpenAI logit_bias map."""
     row = np.zeros((vocab_size,), np.float32)

@@ -1,10 +1,11 @@
-"""Serving request/slot state and admission types (port of the JAX
-package's ``workloads/serving/scheduler.py``, restricted to the fields the
-paged loop of this port uses)."""
+"""Serving request/slot state, admission types and the chunk arbiter (port
+of the JAX package's ``workloads/serving/scheduler.py``, restricted to the
+fields the paged loop of this port uses)."""
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 from concurrent.futures import Future
 from typing import Optional
 
@@ -29,6 +30,24 @@ class ServingConfig:
     # int8 KV arena with per-(position, kv head) f32 scales: half the
     # arena's bytes, read through paged_attention_multi_quant
     quantize_kv_int8: bool = False
+    # speculative decoding by prompt lookup: draft this many tokens a step
+    # and verify them in ONE paged_verify_step at K = speculate_k + 1.
+    # Greedy slots commit every matched draft plus the corrected token;
+    # sampled (and penalized or biased) slots commit one token a step.
+    # Greedy output equals the non-speculative engine's where no two
+    # logits tie within the K-wide and 1-wide steps' rounding difference
+    # (exact on the f32 test models). 0 = off
+    speculate_k: int = 0
+    # chunked prefill: prompts prefill in chunks of this many tokens (at
+    # most max_prefill_len), and between chunks the prefill thread waits
+    # for one decode step when a slot is decoding (ChunkArbiter), so a long
+    # prompt no longer holds every stream's next token until it is done.
+    # Token-identical to monolithic prefill. 0 = chunks of
+    # max_prefill_len, back to back
+    serving_chunk_tokens: int = 0
+    # how many distinct prefixes register_prefix() pins in the trie (each
+    # pins its pages for the engine's life)
+    max_prefixes: int = 8
 
 
 class EngineOverloaded(RuntimeError):
@@ -73,6 +92,48 @@ class _Slot:
     # private); kv_len is the committed token count = next write position
     pages: list[int] = dataclasses.field(default_factory=list)
     kv_len: int = 0
+    # prompt-lookup drafting: bigram -> latest start position over
+    # prompt + generated, indexed lazily in _propose (amortized O(1) a
+    # token where a rescan would be O(context) a step)
+    bigram_index: dict = dataclasses.field(default_factory=dict)
+    indexed_upto: int = 0
+
+
+class ChunkArbiter:
+    """Chunk-vs-decode arbitration for chunked prefill.
+
+    The prefill thread calls ``yield_for_decode`` between chunks; when a
+    slot is decoding it blocks until the engine thread reports one
+    COMPLETED decode step (``decode_step_done`` after every step), so the
+    device order becomes chunk, decode step, chunk, ... With no live slot
+    the yield is free. The timeout is a liveness backstop only (the last
+    slot can complete between the check and the wait; the engine's crash
+    path fails slots without a step): correctness never depends on it.
+    Several prefilling threads (``register_prefix`` runs on HTTP handler
+    threads) share one arbiter; every step wakes them all."""
+
+    def __init__(self):
+        self._cond = threading.Condition()
+        self._steps = 0
+
+    def decode_step_done(self) -> None:
+        with self._cond:
+            self._steps += 1
+            self._cond.notify_all()
+
+    def yield_for_decode(self, active_fn, timeout_s: float = 0.5) -> int:
+        """Block until >= 1 decode step ran (returns how many), or return 0
+        at once when ``active_fn()`` says nothing is decoding. The timeout
+        must comfortably exceed one decode step: timing out while a step
+        runs would let chunks queue ahead of it again."""
+        with self._cond:
+            start = self._steps
+            if not active_fn():
+                return 0
+            self._cond.wait_for(
+                lambda: self._steps > start or not active_fn(),
+                timeout=timeout_s)
+            return self._steps - start
 
 
 def _fail_future(fut: Future, exc: BaseException) -> None:

@@ -10,6 +10,11 @@ Run on a machine with one NVIDIA card:
     python -m k8s_runpod_kubelet_tpu_torch.workloads.step_profile \
         --model mla-8b [--kv-int8]
 
+With ``--speculate K`` a speculative verify step is profiled too: one
+``paged_verify_step`` at K + 1 tokens over the same 8 slots and contexts,
+every row written (``n_tokens`` = K + 1), the step a ``--speculate K``
+engine runs when its slots are greedy.
+
 With ``--int4`` and ``--kv-int8`` the serving steps run the memory-lean
 deployment (the weights quantized on the card as ``ServingEngine`` does,
 the arena int8 with its scale sections) and the training step, which
@@ -174,6 +179,9 @@ def main(argv=None) -> int:
                    help="int4 weights (serving steps only)")
     p.add_argument("--kv-int8", action="store_true",
                    help="an int8 arena (serving steps only)")
+    p.add_argument("--speculate", type=int, default=0, metavar="K",
+                   help="also profile a verify step of K drafts (K + 1 "
+                        "rows a slot)")
     args = p.parse_args(argv)
     dev = resolve_device("cuda")   # raises without a card
     card = subprocess.run(
@@ -227,6 +235,18 @@ def main(argv=None) -> int:
            "prefill": dict(_profile(prefill, STEPS // 3),
                            chunk=CHUNK),
            "rms_norm": _norm_profile(cfg, dev, gen)}
+    if args.speculate > 0:
+        kk = args.speculate + 1
+        drafts = torch.randint(0, cfg.vocab_size, (b, kk), generator=gen,
+                               device=dev, dtype=torch.int32)
+        n_tokens = torch.full((b,), kk, dtype=torch.int32, device=dev)
+
+        def verify():
+            model.paged_verify_step(params, drafts, arena, tables, lengths,
+                                    n_tokens=n_tokens)
+
+        out["verify"] = dict(_profile(verify, STEPS), slots=b, k=kk,
+                             lengths=lengths.tolist())
     del params, arena
     torch.cuda.empty_cache()
     if not (args.int4 or args.kv_int8 or cfg.is_mla):

@@ -10,8 +10,10 @@ Run: python -m k8s_runpod_kubelet_tpu_torch.workloads.train_main \\
 The kubelet's preemption recovery works as for the JAX workload:
 ``TPU_CHECKPOINT_DIR`` stands in for ``--checkpoint-dir`` when that is not
 given, ``TPU_RESTART_ATTEMPT`` > 0 marks a relaunch, and ``restore`` logs
-``resumed from checkpoint step N``, the marker the kubelet parses. Meshes,
-LoRA, ``--data``, the profiler and telemetry are not ported yet.
+``resumed from checkpoint step N``, the marker the kubelet parses (a
+checkpoint wins over ``--hf-checkpoint DIR``, which starts from a Hugging
+Face model directory's weights instead of random init). Meshes, LoRA,
+``--data``, the profiler and telemetry are not ported yet.
 """
 
 from __future__ import annotations
@@ -42,6 +44,9 @@ def main(argv=None) -> int:
                    help="microbatches per optimizer step")
     p.add_argument("--eval-steps", type=int, default=0,
                    help="held-out eval batches at the end (0 = none)")
+    p.add_argument("--hf-checkpoint", default="", metavar="DIR",
+                   help="initial weights from a Hugging Face model "
+                        "directory (empty: random init)")
     p.add_argument("--checkpoint-dir", default="")
     p.add_argument("--checkpoint-every", type=int, default=500)
     p.add_argument("--device", default="cuda",
@@ -72,7 +77,13 @@ def main(argv=None) -> int:
                      z_loss_coef=args.z_loss, grad_accum_steps=accum,
                      checkpoint_dir=args.checkpoint_dir,
                      checkpoint_every=args.checkpoint_every)
-    trainer = Trainer(cfg, tc, device=device)
+    initial = None
+    if args.hf_checkpoint:
+        from ..models.convert import load_hf
+        initial = load_hf(cfg, args.hf_checkpoint, device=device,
+                          master=True)
+        log.info("initializing from HF checkpoint %s", args.hf_checkpoint)
+    trainer = Trainer(cfg, tc, initial_params=initial, device=device)
     log.info("model=%s layers=%d device=%s", cfg.name, cfg.n_layers, device)
     if args.checkpoint_dir:
         restored = trainer.restore()
