@@ -93,6 +93,26 @@ print the final ``ok`` line):
    weights (no paging, no kernels: ``_attention_plain`` and
    ``_rms_norm_plain``, one layer upcast at a time), within a relative L2
    limit that the same forward with one layer skipped must exceed;
+Step graphs (phases 4, 7s, 7b, 7c, 7d). Each engine captures its decode
+   step (and, with speculation, its K = 5 verify step) as a CUDA graph at
+   ``start()``; every stretch above holds graph replays equal to decode
+   steps, so no eager model step runs on the card's engine path, and the
+   launch counts per step are counted per replay. On each engine, idle
+   after its burst (the speculative run of 7s for K = 1 and K = 5): (g5)
+   one capture per graph and 0 recaptures in
+   ``debug_snapshot()["graphs"]``, replays equal to the engine's decode
+   steps; then over 8 slots of the burst's contexts in pages from the
+   engine's own pool, seeded random rows: (g1) two replays against the
+   eager ``paged_verify_step`` on a copy of the arena, the second with new
+   tokens, lengths + K and a page only its table names: logits max abs
+   difference (expected 0: the same kernels on the same inputs; else held
+   to the engine's limit) and every arena section; (g2) one replay traced
+   by torch.profiler, the paged-attention, ``rms_norm`` and
+   ``int4_matmul`` kernels counted by name equal to the launches the
+   capture recorded; (g3) the step wall eager (the five tensors built on
+   the host, as the engine did before) against graph, in turns; (g4)
+   allocated, max allocated and reserved device memory before and after
+   the capture;
 7s. speculative engine, on the bf16 params of phase 4: (a)
    ``paged_verify_step`` at K=5, B=8 over a table whose first four slots
    share a 96-token prefix's pages, each of the 5 rows within phase 7's
@@ -290,6 +310,11 @@ SPEC_K, SPEC_CHUNK = 4, 256
 SPEC_TIE_MARGIN = 0.35
 # the HF phase: llama3-8b widths at this depth, written and loaded back
 HF_LAYERS = 2
+# (g1)-(g3): the slots' contexts of the step graph checks (step_profile's
+# decode contexts; slot 0 is moved to cross a page between the two steps)
+GRAPH_LENGTHS = (402, 475, 468, 252, 411, 789, 881, 571)
+# (g3): steps timed in each of the four turns
+GRAPH_TIMED_STEPS = 10
 
 
 def log(msg: str) -> None:
@@ -1680,11 +1705,15 @@ def serve_burst(torch, engine, cfg, card: str, kernels, per_step) -> dict:
         with engine._prefix_lock:
             return {"prefill_chunks": engine.counters["prefill_chunks"],
                     "decode_steps": engine.counters["decode_steps"],
+                    "replays": sum(g.fn.replays for g in engine._graphs()),
                     **{k.__name__: k.launches for k in kernels}}
 
     def stretch(a: dict, b: dict, path: str) -> dict:
         d = {k: b[k] - a[k] for k in a}
         steps = d["prefill_chunks"] + d["decode_steps"]
+        if d["replays"] != d["decode_steps"]:
+            raise RuntimeError(f"{path}: {d['replays']} graph replays for "
+                               f"{d['decode_steps']} decode steps")
         for name, n in per_step.items():
             if d[name] != n * steps or (n and d[name] < 1):
                 raise RuntimeError(
@@ -1828,6 +1857,8 @@ def engine_phase(torch, dev, card: str, cfg, params) -> dict:
                            paged_attention_quant), per_step)
         prompts = rec.pop("prompts")
         with engine._prefix_lock:   # the engine is idle; keep it so
+            rec["graphs"] = graph_checks(torch, engine, card,
+                                         ENGINE_REL_L2_LIMIT, "bf16 engine")
             one_chunk, prefix = prefix_path_check(torch, engine.model,
                                                   engine.params, prompts[2])
             reference = engine_reference_check(torch, cfg, engine.params,
@@ -1845,6 +1876,180 @@ def engine_phase(torch, dev, card: str, cfg, params) -> dict:
         return rec, one_chunk.cpu()
     finally:
         engine.stop()
+
+
+# -- (g1)-(g5): the engine's step graphs ----------------------------------------------
+
+def graphs_used_check(engine, what: str) -> dict:
+    """(g5) every graph captured once and never again, and every decode
+    and verify step of the engine's life so far one replay: no eager model
+    step on the card's engine path."""
+    snap = engine.graphs_snapshot()
+    replays = sum(g["replays"] for g in snap.values())
+    steps = engine.counters["decode_steps"]
+    for name, g in snap.items():
+        if g["compiles"] != 1 or g["recompiles"] or g["warned"]:
+            raise RuntimeError(f"{what}: graph {name} captured "
+                               f"{g['compiles']} times: {g}")
+    if replays != steps:
+        raise RuntimeError(f"{what}: {replays} replays for {steps} decode "
+                           "steps (an eager step ran on the card)")
+    return {"graphs": snap, "replays": replays, "decode_steps": steps}
+
+
+def graph_checks(torch, engine, card: str, limit: float, what: str) -> dict:
+    """(g1)-(g5) on an idle engine, its arena lock held by the caller, for
+    each of its graphs (width 1; with speculation also K + 1): (g5) first,
+    then over 8 slots of the burst's contexts in pages taken from the
+    engine's own pool and filled with seeded random rows: (g1) two replays
+    against the eager ``paged_verify_step`` on a copy of the arena (the
+    second step with new tokens, lengths + K and a page that only its
+    table names): logits and every arena section; (g2) one more replay
+    traced by torch.profiler, kernels by name against the launches the
+    capture recorded; (g3) the step wall in turns, eager (five tensors
+    built from the host's values, as the engine did before its graphs),
+    graph, graph, eager; (g4) device memory around the capture. The
+    logits are expected to agree exactly (the same kernels on the same
+    inputs); where they do not, they are held to ``limit``, the engine's
+    own limit against the f32 forward."""
+    import numpy as np
+
+    from k8s_runpod_kubelet_tpu_torch.workloads.step_profile import \
+        kernel_counts
+
+    out = {"g5": graphs_used_check(engine, what)}
+    store, model, params = engine._kv_store, engine.model, engine.params
+    arena, dev = store.arena, engine.device
+    t, cols, b = (engine.sc.kv_page_tokens, engine._slot_pages_max,
+                  engine.sc.slots)
+    vocab = engine.cfg.vocab_size
+    rng = np.random.default_rng(SEED + 3)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    for tracked in engine._graphs():
+        g, w = tracked.fn, tracked.fn.width
+        lengths = np.array(GRAPH_LENGTHS[:b], np.int32)
+        lengths[0] = 16 * t - w
+        need = -(-(lengths + 2 * w) // t)
+        pages = store.alloc_run(int(need.sum()))
+        try:
+            table = np.zeros((b, cols), np.int32)
+            at = 0
+            for i in range(b):
+                table[i, :need[i]] = pages[at:at + need[i]]
+                at += need[i]
+            idx = torch.tensor(pages, device=dev)
+            for name, a in arena.items():
+                shape = (a.shape[0], len(pages)) + tuple(a.shape[2:])
+                if a.dtype == torch.int8:
+                    vals = torch.randint(-127, 128, shape, generator=gen,
+                                         device=dev, dtype=torch.int8)
+                elif name.endswith("scale"):
+                    vals = torch.empty(shape, device=dev).uniform_(
+                        0.005, 0.02, generator=gen)
+                else:
+                    vals = torch.randn(shape, generator=gen, device=dev)
+                a[:, idx] = vals.to(a.dtype)
+
+            def host(k):
+                lens = lengths + k * w
+                live = -(-(lens + w) // t)
+                tab = np.where(np.arange(cols)[None] < live[:, None], table,
+                               0).astype(np.int32)
+                return (rng.integers(0, vocab, (b, w)).astype(np.int32),
+                        lens, tab, np.ones(b, bool),
+                        np.full(b, w, np.int32))
+
+            def eager(arena_, h):
+                toks, lens, tab, act, n_tok = (
+                    torch.from_numpy(np.asarray(x)).to(dev) for x in h)
+                if w == 1:
+                    return model.paged_decode_step(
+                        params, toks[:, 0], arena_, tab, lens, act)[0]
+                return model.paged_verify_step(params, toks, arena_, tab,
+                                               lens, act, n_tok)[0]
+
+            copy = {k: v.clone() for k, v in arena.items()}
+            rows = []
+            for k in (0, 1):
+                h = host(k)
+                got = g.run(params, arena, *h).clone()
+                tok_t, lens_t, tab_t, act_t, n_t = (
+                    torch.from_numpy(np.asarray(x)).to(dev) for x in h)
+                want = model.paged_verify_step(params, tok_t, copy, tab_t,
+                                               lens_t, act_t, n_t)[0]
+                if w == 1:
+                    want = want[:, 0]
+                torch.cuda.synchronize()
+                diff = (got - want).abs().max().item()
+                rel = ((got - want).norm() / want.norm()).item()
+                # each section's largest difference over its largest
+                # magnitude, a layer at a time (0 where bit-identical)
+                sections = {name: 0.0 if torch.equal(arena[name], copy[name])
+                            else max(((a.float() - c.float()).abs().max()
+                                      / c.float().abs().max()).item()
+                                     for a, c in zip(arena[name],
+                                                     copy[name]))
+                            for name in arena}
+                rows.append({"step": k, "logits_max_abs_diff": diff,
+                             "logits_rel_l2": rel,
+                             "arena_rel_max_diff": sections,
+                             "exact": diff == 0 and not any(
+                                 sections.values())})
+                if not rows[-1]["exact"] and not (
+                        rel <= limit and max(sections.values()) <= limit):
+                    raise RuntimeError(f"{what}: graph {tracked.name} off "
+                                       f"the eager step: {rows[-1]}")
+            del copy
+            h = host(1)
+            counts = kernel_counts(lambda: g.run(params, arena, *h))
+            want = {k: g.launches_per_replay[k] for k in counts} \
+                if counts != "not measured" else None
+            if counts != want:
+                raise RuntimeError(f"{what}: one replay of {tracked.name} "
+                                   f"ran {counts}, the capture recorded "
+                                   f"{g.launches_per_replay}")
+
+            def timed(fn) -> float:
+                walls = []
+                for _ in range(GRAPH_TIMED_STEPS):
+                    t0 = time.perf_counter()
+                    fn()
+                    torch.cuda.synchronize()
+                    walls.append(time.perf_counter() - t0)
+                return statistics.median(walls) * 1e3
+
+            turns = [timed(lambda: eager(arena, h)),
+                     timed(lambda: g.run(params, arena, *h)),
+                     timed(lambda: g.run(params, arena, *h)),
+                     timed(lambda: eager(arena, h))]
+        finally:
+            store.release(pages)
+        out[tracked.name] = {
+            "width": w, "g1": rows, "g2_kernels_in_one_replay": counts,
+            "g3_wall_ms": {"eager": turns[0], "graph": turns[1],
+                           "graph_2": turns[2], "eager_2": turns[3]},
+            "g4_capture_memory": g.capture_memory}
+        mem = g.capture_memory
+        log(f"  (g1) {what} {tracked.name} (K={w}) replay vs eager "
+            f"paged_verify_step, two steps: logits max abs "
+            f"{[r['logits_max_abs_diff'] for r in rows]}, arena sections "
+            f"equal {[r['exact'] for r in rows]}; (g2) one replay, kernels "
+            f"by name {counts}")
+        log(f"  (g3) [{card}] step wall eager / graph / graph / eager: "
+            + " / ".join(f"{x:.2f}" for x in turns) + " ms; (g4) capture: "
+            f"allocated {mem['allocated_before'] / 2**30:.3f} -> "
+            f"{mem['allocated_after'] / 2**30:.3f} GiB, max allocated "
+            f"{mem['peak_before'] / 2**30:.3f} -> "
+            f"{mem['peak_after'] / 2**30:.3f} GiB, reserved "
+            f"{mem['reserved_before'] / 2**30:.3f} -> "
+            f"{mem['reserved_after'] / 2**30:.3f} GiB")
+    final = engine.graphs_snapshot()
+    if any(g["compiles"] != 1 for g in final.values()):
+        raise RuntimeError(f"{what}: the checks recaptured: {final}")
+    log(f"  (g5) {what}: graphs {sorted(final)} captured once each, 0 "
+        f"recaptures; {out['g5']['replays']} replays = "
+        f"{out['g5']['decode_steps']} decode steps")
+    return out
 
 
 # -- phases 7s-7h: speculative decoding and chunk interleave, HF loading --------------
@@ -1983,6 +2188,7 @@ def spec_run(torch, engine, traffic, kernels, per_step) -> dict:
     def snap() -> dict:
         with engine._prefix_lock:
             return {**{k: engine.counters[k] for k in snap_keys},
+                    "replays": sum(g.fn.replays for g in engine._graphs()),
                     **{k.__name__: k.launches for k in kernels}}
 
     with engine._prefix_lock:
@@ -2020,6 +2226,9 @@ def spec_run(torch, engine, traffic, kernels, per_step) -> dict:
         raise RuntimeError("the token clock missed the long prefill's end")
     d = {k: s1[k] - s0[k] for k in s0}
     steps = d["decode_steps"] + d["prefill_chunks"]
+    if d["replays"] != d["decode_steps"]:
+        raise RuntimeError(f"{d['replays']} graph replays for "
+                           f"{d['decode_steps']} decode steps")
     for name, n in per_step.items():
         if d[name] != n * steps or (n and d[name] < 1):
             raise RuntimeError(
@@ -2172,6 +2381,10 @@ def spec_engine_phase(torch, dev, card: str, cfg, params) -> dict:
                           max_new_tokens=4).result(timeout=900)   # warm-up
             rec = spec_run(torch, engine, traffic, kernels, per_step)
             if name == "speculative":
+                with engine._prefix_lock:   # idle: every request done
+                    rec["graphs"] = graph_checks(
+                        torch, engine, card, ENGINE_REL_L2_LIMIT,
+                        "speculative engine")
                 rec["drain"] = http_and_drain(engine,
                                               burst_prompts(cfg)[2])
         finally:
@@ -2393,6 +2606,9 @@ def quant_engine_phase(torch, dev, card: str, cfg, params: list,
             f"{serve_peak / 2**30:.2f} GiB")
         prompts = rec.pop("prompts")
         with engine._prefix_lock:   # the engine is idle; keep it so
+            rec["graphs"] = graph_checks(torch, engine, card,
+                                         QUANT_ENGINE_REL_L2_LIMIT,
+                                         "int4/int8 engine")
             logits = quant_logits(torch, engine.model, engine.params,
                                   prompts[2])
             reference = engine_reference_check(
@@ -2488,6 +2704,9 @@ def mla_engine_phase(torch, dev, card: str, cfg, params: list,
         prompts = rec.pop("prompts")
         prefix = None
         with engine._prefix_lock:   # the engine is idle; keep it so
+            rec["graphs"] = graph_checks(
+                torch, engine, card, MLA_INT8_ENGINE_REL_L2_LIMIT if kv_int8
+                else MLA_ENGINE_REL_L2_LIMIT, what)
             if kv_int8:
                 logits = quant_logits(torch, engine.model, engine.params,
                                       prompts[2])

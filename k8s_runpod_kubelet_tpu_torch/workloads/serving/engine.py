@@ -22,6 +22,14 @@ paged loop of the JAX package's ``workloads/serving/engine.py``).
   slot is decoding (``ChunkArbiter``).
 - **Registered prefixes**: ``register_prefix`` prefills a shared prefix
   once and pins its full pages in the trie.
+- **Step graphs**: the decode and verify steps run through
+  ``StepGraph`` (``step_graph.py``), the JAX engine's jitted
+  ``paged_step``/``paged_verify``: on a card each is captured as a CUDA
+  graph at ``start()`` and every step is one replay fed by one
+  host-to-card copy; on the CPU the same staged buffers feed the eager
+  step. ``CompileWatchdog`` (``recorder.py``) counts the captures;
+  ``debug_snapshot()["graphs"]`` reads them with the replays. Prefill
+  chunks stay eager.
 
 Every launch that touches the arena, and every pool or trie call, runs
 under ``_prefix_lock``: the two threads issue onto PyTorch's one current
@@ -49,10 +57,12 @@ from ...device import resolve_device
 from ...models.llama import LlamaConfig, LlamaModel, Params
 from ...models.quant import quantize_params
 from .kv_manager import PagedKVStore, PoolExhausted
+from .recorder import CompileWatchdog
 from .sampler import (_apply_penalties, _bias_row, _logit_modded,
                       _penalized, _sample)
 from .scheduler import (ChunkArbiter, EngineDraining, EngineOverloaded,
                         Request, ServingConfig, _fail_future, _Slot)
+from .step_graph import StepGraph
 
 log = logging.getLogger(__name__)
 
@@ -108,11 +118,19 @@ class ServingEngine:
                                      bits=4 if sc.quantize_int4 else 8)
         self.params = params
         self.model = LlamaModel(cfg, self.device)
-        self._make_store = lambda: PagedKVStore(
-            n_pages, t, self.model.init_paged_arena(
-                n_pages, t, quantize=sc.quantize_kv_int8))
-        self._kv_store = self._make_store()
+        self._kv_store = PagedKVStore(n_pages, t, self.model.init_paged_arena(
+            n_pages, t, quantize=sc.quantize_kv_int8))
         self._slot_pages_max = slot_pages
+        # the decode and verify steps as CUDA graphs over static slot
+        # buffers, captured at start() on a card (the JAX engine's jitted
+        # paged_step / paged_verify); the watchdog counts every capture
+        self.watchdog = CompileWatchdog()
+        self._paged_step = self.watchdog.wrap(
+            "paged_step", StepGraph(self.model, 1, sc.slots, slot_pages))
+        self._paged_verify = self.watchdog.wrap(
+            "paged_verify", StepGraph(self.model, sc.speculate_k + 1,
+                                      sc.slots, slot_pages)
+            if sc.speculate_k > 0 else None)
         # per-slot page tables, host side; entries past a slot's run stay
         # 0, a valid page id the kernel never reads (it stops at the run)
         self._page_tables_np = np.zeros((sc.slots, slot_pages), np.int32)
@@ -156,6 +174,13 @@ class ServingEngine:
     # -- public API ---------------------------------------------------------
 
     def start(self) -> "ServingEngine":
+        if self.device.type == "cuda":
+            # before the threads start: a capture is not safe against
+            # another thread's CUDA calls (the prefill thread builds its
+            # chunk tensors outside the arena lock)
+            pool = torch.cuda.graph_pool_handle()
+            for g in self._graphs():
+                g.capture(self.params, self._kv_store.arena, pool)
         self._thread.start()
         self._prefill_thread.start()
         return self
@@ -280,6 +305,19 @@ class ServingEngine:
         return any(len(r) <= len(tokens) and tokens[:len(r)] == r
                    for r in self._registered)
 
+    def _graphs(self) -> list:
+        return [g for g in (self._paged_step, self._paged_verify)
+                if g is not None]
+
+    def graphs_snapshot(self) -> dict:
+        """The watchdog's per-graph capture counts, with each graph's
+        width, replays and the device memory around its capture."""
+        out = self.watchdog.snapshot()
+        for g in self._graphs():
+            out[g.name].update(width=g.fn.width, replays=g.fn.replays,
+                               capture_memory=g.fn.capture_memory)
+        return out
+
     def debug_snapshot(self) -> dict:
         """/debug/engine: per-slot state, queue depths, pool occupancy and
         the counters. Fields are single reads; a snapshot may straddle a
@@ -318,6 +356,7 @@ class ServingEngine:
                 "serving_chunk_tokens": self._chunk_tokens,
                 "prefix_cache": self.prefix_cache_stats(),
                 "counters": counters,
+                "graphs": self.graphs_snapshot(),
                 "total_generated": self.total_generated,
                 "last_error": self.last_error}
 
@@ -520,9 +559,11 @@ class ServingEngine:
                 self._recover(exc)
 
     def _recover(self, exc: Exception):
-        """Fail everything in flight so no caller hangs, then rebuild the
-        arena and pool: the failed step may have left the arena half
-        written."""
+        """Fail everything in flight so no caller hangs, then zero the
+        arena and rebuild the pool and trie around it: the failed step may
+        have left the arena half written. The arena stays in place, since
+        the captured step graphs hold its pointers (a new one would make
+        them recapture)."""
         self.last_error = f"{type(exc).__name__}: {exc}"
         self._count("engine_errors")
         for slot in self._slots:
@@ -541,7 +582,11 @@ class ServingEngine:
                 _fail_future(req.future, exc)
         self._page_tables_np[:] = 0
         with self._prefix_lock:
-            self._kv_store = self._make_store()
+            arena = self._kv_store.arena
+            for section in arena.values():
+                section.zero_()
+            self._kv_store = PagedKVStore(self._kv_store.pool.n_pages,
+                                          self.sc.kv_page_tokens, arena)
 
     def _admit(self) -> bool:
         admitted = False
@@ -645,17 +690,12 @@ class ServingEngine:
         active = [s.request is not None for s in self._slots]
         if not any(active):
             return
-        dev = self.device
-        tokens = torch.tensor([s.last_token for s in self._slots],
-                              dtype=torch.int32, device=dev)
-        lengths = torch.tensor([s.kv_len for s in self._slots],
-                               dtype=torch.int32, device=dev)
-        page_tables = torch.tensor(self._page_tables_np, device=dev)
-        active_t = torch.tensor(active, device=dev)
         with self._prefix_lock:
-            logits, _, _ = self.model.paged_decode_step(
-                self.params, tokens, self._kv_store.arena, page_tables,
-                lengths, active_t)
+            logits = self._paged_step(
+                self.params, self._kv_store.arena,
+                [s.last_token for s in self._slots],
+                [s.kv_len for s in self._slots], self._page_tables_np,
+                active)
             self._count("decode_steps")
         self._commit_decode(logits)
 
@@ -728,16 +768,11 @@ class ServingEngine:
                 toks_in[i] = slot.last_token   # drafts of non-greedy: unread
                 if is_greedy[i]:
                     toks_in[i, 1:] = self._propose(slot, k)
-        dev = self.device
-        lengths = torch.tensor([s.kv_len for s in slots], dtype=torch.int32,
-                               device=dev)
         with self._prefix_lock:
-            logits, _ = self.model.paged_verify_step(
-                self.params, torch.tensor(toks_in, device=dev),
-                self._kv_store.arena,
-                torch.tensor(self._page_tables_np, device=dev), lengths,
-                torch.tensor(active, device=dev),
-                torch.tensor(n_tokens, device=dev))
+            logits = self._paged_verify(
+                self.params, self._kv_store.arena, toks_in,
+                [s.kv_len for s in slots], self._page_tables_np, active,
+                n_tokens)
             self._count("decode_steps")
             self._count("paged_speculative_steps")
         # one device -> host copy of every slot's K-wide argmax

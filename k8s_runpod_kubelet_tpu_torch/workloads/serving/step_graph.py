@@ -1,0 +1,227 @@
+"""One paged model step at a fixed width as one CUDA graph: the port's
+counterpart of the JAX engine's jitted ``paged_decode_step`` and
+``paged_verify_step`` (``workloads/serving/engine.py`` of the JAX package
+wraps each in ``jax.jit`` with the arena donated).
+
+A decode step eagerly is 32 layers of ~15 ops, each paged-attention and
+int4 call with its Python shape checks and ctypes launch: the card idles
+for most of the step's wall. A ``StepGraph`` captures the whole step once
+and replays it, fed by static device buffers that live as long as it:
+
+- tokens (B, K), lengths (B,), active (B,), n_tokens (B,) and the page
+  tables (B, cols), all int32 slices of ONE device buffer. ``run`` packs
+  the host's values into a host staging buffer of the same layout (pinned
+  on a card) and makes one host-to-card copy a step;
+- the logits, written by the replay into the graph's pool: (B, V) f32 at
+  K = 1 (``paged_decode_step``), (B, K, V) at K > 1
+  (``paged_verify_step``). They hold until the next replay of a graph of
+  the same pool.
+
+A graph bakes in the pointers of the params, the arena sections, the rope
+tables and the static buffers. ``run`` takes the params and the arena as
+jit takes its arguments: if any of their tensors moved, it captures again
+(the engine's ``CompileWatchdog`` counts and logs every capture after the
+first, ``recorder.py``). Split-KV plans and int4 split counts depend on
+shapes only, which is what lets one graph serve every length.
+
+On the CPU the same staged buffers feed the eager step: the dispatch is on
+the model's device, as in the kernel wrappers, and not a fallback. On a
+card nothing falls back: a failed capture or replay raises.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ...ops import (int4_matmul, paged_attention, paged_attention_mla,
+                    paged_attention_mla_quant, paged_attention_multi,
+                    paged_attention_multi_mla,
+                    paged_attention_multi_mla_quant,
+                    paged_attention_multi_quant, paged_attention_quant,
+                    rms_norm)
+
+# every kernel wrapper a paged step can reach: a capture records how many
+# times each launched into the graph, and each replay adds that to its count
+COUNTED = (paged_attention_multi, paged_attention_multi_quant,
+           paged_attention_multi_mla, paged_attention_multi_mla_quant,
+           paged_attention, paged_attention_quant, paged_attention_mla,
+           paged_attention_mla_quant, rms_norm, int4_matmul)
+
+# the kernel each multi-token wrapper launches once a call, by the name a
+# profiler reads (split-KV merges and int4 split reductions are other
+# kernels; the single-token forms launch the same kernels at K = 1)
+KERNEL_NAMES = {
+    "paged_attention_multi": "paged_attention_multi_kernel",
+    "paged_attention_multi_quant": "paged_attention_multi_quant_kernel",
+    "paged_attention_multi_mla": "paged_attention_multi_mla_kernel",
+    "paged_attention_multi_mla_quant":
+        "paged_attention_multi_mla_quant_kernel",
+    "rms_norm": "_rms_kernel",
+    "int4_matmul": "int4_matmul_kernel",
+}
+
+# eager steps before a capture: the first builds the nvcc libraries and
+# compiles the Triton kernel, the second runs warm
+WARMUP_STEPS = 2
+
+_SECTIONS = ("tokens", "lengths", "active", "n_tokens", "tables")
+
+
+def _leaves(tree, out: list) -> list:
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            _leaves(tree[k], out)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            _leaves(v, out)
+    elif isinstance(tree, torch.Tensor):
+        out.append(tree)
+    return out
+
+
+class StepGraph:
+    """``paged_decode_step`` (``width`` 1) or ``paged_verify_step``
+    (``width`` K) of ``model`` over ``slots`` slots and page tables of
+    ``table_cols`` columns, captured once and replayed."""
+
+    def __init__(self, model, width: int, slots: int, table_cols: int):
+        if width < 1 or slots < 1 or table_cols < 1:
+            raise ValueError("width, slots and table_cols must be >= 1")
+        self.model = model
+        self.width = width
+        self.slots = slots
+        self.table_cols = table_cols
+        dev = model.device
+        self._cuda = dev.type == "cuda"
+        shapes = {"tokens": (slots, width), "lengths": (slots,),
+                  "active": (slots,), "n_tokens": (slots,),
+                  "tables": (slots, table_cols)}
+        spans, n = {}, 0
+        for name in _SECTIONS:
+            size = int(np.prod(shapes[name]))
+            spans[name] = (n, size)
+            # each section starts on 16 bytes: the MLA kernels take
+            # 16-byte aligned tables
+            n += -(-size // 4) * 4
+        self._host = torch.zeros(n, dtype=torch.int32, pin_memory=self._cuda)
+        self._dev = torch.zeros(n, dtype=torch.int32, device=dev)
+        host = self._host.numpy()
+        self._staged = {k: host[o:o + s].reshape(shapes[k])
+                        for k, (o, s) in spans.items()}
+        self.static = {k: self._dev[o:o + s].view(shapes[k])
+                       for k, (o, s) in spans.items()}
+        self._copied = torch.cuda.Event() if self._cuda else None
+        self._graph: Optional[torch.cuda.CUDAGraph] = None
+        self._pool = None
+        self._key = None
+        self._params = self._arena = None
+        self.logits: Optional[torch.Tensor] = None
+        self.captures = 0
+        self.replays = 0
+        self.launches_per_replay: dict[str, int] = {}
+        self.capture_memory: dict[str, int] = {}
+
+    # -- what the watchdog reads ----------------------------------------------
+
+    def baked(self) -> dict:
+        """Every tensor the captured graph holds a pointer to."""
+        return {"params": self._params, "arena": self._arena,
+                "rope": {"cos": self.model.cos, "sin": self.model.sin},
+                "static": self.static}
+
+    @staticmethod
+    def _key_of(params, arena) -> tuple:
+        return tuple((t.data_ptr(), t.dtype, t.shape)
+                     for t in _leaves((params, arena), []))
+
+    # -- the step -------------------------------------------------------------
+
+    def _step(self, params, arena) -> torch.Tensor:
+        s = self.static
+        active = s["active"] != 0
+        if self.width == 1:
+            logits, _, _ = self.model.paged_decode_step(
+                params, s["tokens"][:, 0], arena, s["tables"], s["lengths"],
+                active)
+            return logits
+        logits, _ = self.model.paged_verify_step(
+            params, s["tokens"], arena, s["tables"], s["lengths"], active,
+            s["n_tokens"])
+        return logits
+
+    def capture(self, params, arena, pool=None) -> None:
+        """Warm up on a side stream, then capture the step (into ``pool``,
+        a ``torch.cuda.graph_pool_handle()`` graphs may share). Every slot
+        is inactive meanwhile (n_tokens 0), so each K/V row the warm-up
+        writes lands on the sink page and no live page is touched. The
+        engine's threads must not be running: a capture is not safe
+        against another thread's CUDA calls."""
+        if not self._cuda:
+            raise ValueError("a CUDA graph is captured on a card; on the "
+                             "CPU run() steps eagerly")
+        dev = self.model.device
+        self._copied.synchronize()
+        self._host.zero_()
+        self._dev.copy_(self._host)
+        torch.cuda.synchronize(dev)
+        mem = {"allocated_before": torch.cuda.memory_allocated(dev),
+               "peak_before": torch.cuda.max_memory_allocated(dev),
+               "reserved_before": torch.cuda.memory_reserved(dev)}
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            for _ in range(WARMUP_STEPS):
+                self._step(params, arena)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        before = [k.launches for k in COUNTED]
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=pool):
+            logits = self._step(params, arena)
+        # the capture ran nothing: its launches count at each replay
+        self.launches_per_replay = {k.__name__: k.launches - n
+                                    for k, n in zip(COUNTED, before)}
+        for k, n in zip(COUNTED, before):
+            k.launches = n
+        torch.cuda.synchronize(dev)
+        mem.update(allocated_after=torch.cuda.memory_allocated(dev),
+                   peak_after=torch.cuda.max_memory_allocated(dev),
+                   reserved_after=torch.cuda.memory_reserved(dev))
+        self.capture_memory = mem
+        self._graph, self._pool, self.logits = graph, pool, logits
+        self._params, self._arena = params, arena
+        self._key = self._key_of(params, arena)
+        self.captures += 1
+
+    def run(self, params, arena, tokens, lengths, tables, active,
+            n_tokens=None) -> torch.Tensor:
+        """One step over the host's values: tokens (B, K) (or (B,) at
+        K = 1), lengths (B,), tables (B, cols), active (B,), n_tokens (B,)
+        (default K for an active slot, 0 otherwise). Returns the logits:
+        on a card the graph's static output, after a replay (and a capture
+        first if params or the arena moved); on the CPU the eager step's."""
+        if self._cuda and self._key_of(params, arena) != self._key:
+            self.capture(params, arena, self._pool)
+        if self._cuda:
+            self._copied.synchronize()   # the last copy read the buffer
+        st = self._staged
+        active = np.asarray(active)
+        st["tokens"][:] = np.asarray(tokens).reshape(self.slots, self.width)
+        st["lengths"][:] = lengths
+        st["tables"][:] = tables
+        st["active"][:] = active
+        st["n_tokens"][:] = (active * self.width if n_tokens is None
+                             else n_tokens)
+        self._dev.copy_(self._host, non_blocking=True)
+        if not self._cuda:
+            return self._step(params, arena)
+        self._copied.record()
+        self._graph.replay()
+        for k in COUNTED:
+            k.launches += self.launches_per_replay[k.__name__]
+        self.replays += 1
+        return self.logits
+
+    __call__ = run

@@ -15,6 +15,13 @@ With ``--speculate K`` a speculative verify step is profiled too: one
 every row written (``n_tokens`` = K + 1), the step a ``--speculate K``
 engine runs when its slots are greedy.
 
+Each of those steps is also profiled as the serving engine runs it on a
+card, a replay of its ``StepGraph`` (one CUDA graph, fed by one
+host-to-card copy of the slots' values), beside the eager step in turns:
+eager, graph, graph, eager (``decode_graph`` and ``verify_graph``). One
+more replay is traced alone: the kernels the profiler counts by name must
+equal the launches the capture recorded for each kernel wrapper.
+
 With ``--int4`` and ``--kv-int8`` the serving steps run the memory-lean
 deployment (the weights quantized on the card as ``ServingEngine`` does,
 the arena int8 with its scale sections) and the training step, which
@@ -49,6 +56,7 @@ import torch
 from ..device import resolve_device
 from ..models import MODEL_CONFIGS, LlamaModel, init_params
 from ..models.quant import quantize_params
+from .serving.step_graph import KERNEL_NAMES, StepGraph
 
 SEED = 0
 CHUNK = 1024                              # the engine's max_prefill_len
@@ -119,6 +127,47 @@ def _profile(fn, steps: int) -> dict:
                                   else "not measured"),
             "device_ms_by_family": by_family or "not measured",
             "top_kernels_ms": dict(top)}
+
+
+def kernel_counts(fn) -> dict:
+    """Kernels of one call of ``fn``, counted by name (KERNEL_NAMES) in a
+    torch.profiler trace, or "not measured" if it shows no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    counts = dict.fromkeys(KERNEL_NAMES, 0)
+    seen = False
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        seen = True
+        for wrapper, kernel in KERNEL_NAMES.items():
+            if kernel in ev.key:
+                counts[wrapper] += ev.count
+    return counts if seen else "not measured"
+
+
+def _graph_turns(eager, graph: StepGraph, params, arena, host) -> dict:
+    """The eager step and its graph's replay in turns (eager, graph,
+    graph, eager), then one replay's kernels by name against the
+    launches the capture recorded."""
+    def replay():
+        graph.run(params, arena, *host)
+
+    out = {label: _profile(fn, STEPS) for label, fn in
+           (("eager", eager), ("graph", replay), ("graph_2", replay),
+            ("eager_2", eager))}
+    want = {w: graph.launches_per_replay[w] for w in KERNEL_NAMES}
+    counts = kernel_counts(replay)
+    if counts != "not measured" and counts != want:
+        raise RuntimeError(f"one replay launched {counts}, the capture "
+                           f"recorded {want}")
+    return dict(out, kernels_in_one_replay=counts,
+                launches_per_replay=want,
+                capture_memory=graph.capture_memory)
 
 
 def _norm_profile(cfg, dev, gen) -> dict:
@@ -227,16 +276,28 @@ def main(argv=None) -> int:
         model.paged_prefill_chunk_step(params, chunk_tokens, arena,
                                        chunk_table, zero, true_len)
 
+    # the engine's graphs over the same slots: one pool, captured before
+    # any profiled step, as an engine captures at start()
+    pool = torch.cuda.graph_pool_handle()
+    host = [x.cpu().numpy() for x in (tokens, lengths, tables)]
+    active = [True] * b
+    graphs = {1: StepGraph(model, 1, b, cols)}
+    if args.speculate > 0:
+        kk = args.speculate + 1
+        graphs[kk] = StepGraph(model, kk, b, cols)
+    for g in graphs.values():
+        g.capture(params, arena, pool)
     out = {"card": card, "model": cfg.name, "torch": torch.__version__,
            "weights": "int4" if args.int4 else "bf16",
            "kv": "int8" if args.kv_int8 else "bf16",
            "decode": dict(_profile(decode, STEPS), slots=b,
                           lengths=lengths.tolist()),
+           "decode_graph": _graph_turns(decode, graphs[1], params, arena,
+                                        (*host, active)),
            "prefill": dict(_profile(prefill, STEPS // 3),
                            chunk=CHUNK),
            "rms_norm": _norm_profile(cfg, dev, gen)}
     if args.speculate > 0:
-        kk = args.speculate + 1
         drafts = torch.randint(0, cfg.vocab_size, (b, kk), generator=gen,
                                device=dev, dtype=torch.int32)
         n_tokens = torch.full((b,), kk, dtype=torch.int32, device=dev)
@@ -247,7 +308,11 @@ def main(argv=None) -> int:
 
         out["verify"] = dict(_profile(verify, STEPS), slots=b, k=kk,
                              lengths=lengths.tolist())
-    del params, arena
+        out["verify_graph"] = _graph_turns(
+            verify, graphs[kk], params, arena,
+            (drafts.cpu().numpy(), *host[1:], active,
+             n_tokens.cpu().numpy()))
+    del params, arena, graphs, g
     torch.cuda.empty_cache()
     if not (args.int4 or args.kv_int8 or cfg.is_mla):
         out["train"] = _train_profile(cfg, dev)

@@ -922,3 +922,183 @@ def test_speculative_engine_matches_plain_on_the_card(cuda):
         top2 = logits.topk(2).values
         rms = logits.pow(2).mean().sqrt()
         assert top2[0] - top2[1] < 0.05 * rms, (prompt, n)
+
+
+# -- the engine's step graphs on the card ------------------------------------------
+
+def _graph_model(dev, kind):
+    """A tiny model of each arena and weight type the engines serve, bf16
+    on the card at widths the kernels take: (model, params, arena)."""
+    from k8s_runpod_kubelet_tpu_torch.models import (LlamaModel, init_params,
+                                                     tiny_mla)
+    from k8s_runpod_kubelet_tpu_torch.models.quant import quantize_params
+
+    if kind.startswith("mla"):
+        cfg = tiny_mla(vocab_size=128, embed_dim=256, n_layers=2, n_heads=4,
+                       head_dim=64, mla_latent_dim=512, mla_rope_dim=64,
+                       mlp_dim=256, max_seq_len=512)
+        params = init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+    else:
+        cfg, params = _tiny_bf16(dev)
+    if kind == "int4":
+        params = quantize_params(cfg, params, bits=4)
+    model = LlamaModel(cfg, dev)
+    arena = model.init_paged_arena(GRAPH_SLOTS * GRAPH_COLS + 4, 16,
+                                   quantize=kind in ("int8", "int4",
+                                                     "mla_int8"))
+    gen = torch.Generator().manual_seed(1)
+    for name, a in sorted(arena.items()):
+        if a.dtype == torch.int8:
+            a.copy_(torch.randint(-127, 128, a.shape, generator=gen,
+                                  dtype=torch.int8))
+        elif name.endswith("scale"):
+            a.copy_(torch.rand(a.shape, generator=gen) * 0.02 + 0.005)
+        else:
+            a.copy_(torch.randn(a.shape, generator=gen))
+    return model, params, arena
+
+
+GRAPH_SLOTS, GRAPH_COLS = 4, 8
+GRAPH_KINDS = ["bf16", "int8", "int4", "mla", "mla_int8"]
+
+
+def _graph_steps(width, vocab, seed=0):
+    """Two steps' host values (numpy): slot 1 crosses into a page only the
+    second step's table names, slot 2 is inactive."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    t = 16
+    lengths = np.array([3, 2 * t - width, 40, 70], np.int32)
+    active = np.array([True, True, False, True])
+    n_tokens = np.array([width, width, 0, 1], np.int32)
+    perm = rng.permutation(GRAPH_SLOTS * GRAPH_COLS).astype(np.int32) \
+        .reshape(GRAPH_SLOTS, GRAPH_COLS)
+    out = []
+    for _ in range(2):
+        live = -(-(lengths + n_tokens) // t)
+        tables = np.where(np.arange(GRAPH_COLS)[None] < live[:, None], perm,
+                          0).astype(np.int32)
+        out.append((rng.integers(0, vocab, (GRAPH_SLOTS, width))
+                    .astype(np.int32), lengths.copy(), tables, active,
+                    n_tokens))
+        lengths = lengths + n_tokens
+    return out
+
+
+def _eager_verify(model, params, arena, step):
+    dev = model.device
+    tokens, lengths, tables, active, n_tokens = (
+        torch.from_numpy(x).to(dev) for x in step)
+    logits, _ = model.paged_verify_step(params, tokens, arena, tables,
+                                        lengths, active, n_tokens)
+    return logits
+
+
+@pytest.mark.parametrize("kind", GRAPH_KINDS)
+def test_step_graph_replay_matches_eager(cuda, kind):
+    """The width-1 and width-4 graphs (one pool) against the eager
+    paged_verify_step on an arena copy, over two steps whose tokens,
+    lengths and one table page change: logits and every arena page but
+    the sink bit-identical (the same kernels on the same inputs), and
+    each replay counts the capture's launches."""
+    from k8s_runpod_kubelet_tpu_torch.workloads.serving.step_graph import \
+        StepGraph
+
+    model, params, arena = _graph_model(cuda, kind)
+    ref_arena = {k: v.clone() for k, v in arena.items()}
+    pool = torch.cuda.graph_pool_handle()
+    graphs = {w: StepGraph(model, w, GRAPH_SLOTS, GRAPH_COLS)
+              for w in (1, 4)}
+    for g in graphs.values():
+        g.capture(params, arena, pool)
+    for w, g in graphs.items():
+        for step in _graph_steps(w, model.cfg.vocab_size, seed=w):
+            before = rms_norm.launches
+            got = g.run(params, arena, *step).clone()
+            assert rms_norm.launches - before \
+                == g.launches_per_replay["rms_norm"] > 0
+            ref = _eager_verify(model, params, ref_arena, step)
+            torch.cuda.synchronize()
+            assert torch.equal(got, ref[:, 0] if w == 1 else ref), (kind, w)
+            # every page but the sink: the capture's warm-up wrote only
+            # there, and dropped rows of several slots land on one sink
+            # row in no set order
+            for name in arena:
+                assert torch.equal(arena[name][:, :-1],
+                                   ref_arena[name][:, :-1]), name
+        assert g.captures == 1 and g.replays == 2
+    per = graphs[1].launches_per_replay
+    n_layers = model.cfg.n_layers
+    main = {"bf16": "paged_attention_multi", "int8":
+            "paged_attention_multi_quant", "int4":
+            "paged_attention_multi_quant", "mla": "paged_attention_multi_mla",
+            "mla_int8": "paged_attention_multi_mla_quant"}[kind]
+    assert per[main] == n_layers
+    assert per["int4_matmul"] == (7 * n_layers + 1 if kind == "int4" else 0)
+    assert per["rms_norm"] == (3 if kind.startswith("mla") else 2) \
+        * n_layers + 1
+    assert sum(per.values()) == per[main] + per["int4_matmul"] \
+        + per["rms_norm"]
+
+
+@pytest.mark.parametrize("kind", GRAPH_KINDS)
+def test_step_graph_counts_match_the_profiler(cuda, kind):
+    """One replay traced by torch.profiler: the kernels counted by name
+    equal the launches the capture recorded for each wrapper."""
+    from k8s_runpod_kubelet_tpu_torch.workloads.serving.step_graph import (
+        KERNEL_NAMES, StepGraph)
+    from k8s_runpod_kubelet_tpu_torch.workloads.step_profile import \
+        kernel_counts
+
+    model, params, arena = _graph_model(cuda, kind)
+    g = StepGraph(model, 4, GRAPH_SLOTS, GRAPH_COLS)
+    g.capture(params, arena)
+    step = _graph_steps(4, model.cfg.vocab_size)[0]
+    g.run(params, arena, *step)
+    seen = kernel_counts(lambda: g.run(params, arena, *step))
+    want = {w: g.launches_per_replay[w] for w in KERNEL_NAMES}
+    assert seen == want, (seen, want)
+
+
+def test_engine_recovers_without_recapture(cuda):
+    """tiny_llama bf16 on the card: a step that fails fails its request,
+    the arena stays in place (zeroed), the engine serves the same greedy
+    tokens again, and neither graph was captured twice."""
+    from k8s_runpod_kubelet_tpu_torch.workloads.serving import (
+        ServingConfig, ServingEngine)
+
+    cfg, params = _tiny_bf16(cuda)
+    eng = ServingEngine(cfg, params, ServingConfig(
+        slots=4, max_prefill_len=64, cache_len=256, max_new_tokens=16,
+        kv_page_tokens=16, speculate_k=3), device=cuda).start()
+    prompts = [[5, 6, 7, 5, 6, 7, 5, 6, 7], [3, 1, 4, 1, 5, 9, 2, 6]]
+    try:
+        ref = [eng.submit(p).result(timeout=300)["tokens"] for p in prompts]
+        old = eng._kv_store
+        ptrs = {k: v.data_ptr() for k, v in old.arena.items()}
+        commit = eng._commit_decode
+
+        def boom(logits):
+            eng._commit_decode = commit
+            raise RuntimeError("injected step failure")
+
+        eng._commit_decode = boom
+        with pytest.raises(RuntimeError, match="injected"):
+            eng.submit([9, 9, 9], temperature=0.8, seed=1).result(timeout=300)
+        deadline = time.monotonic() + 60
+        while eng._kv_store is old and time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert eng._kv_store is not old
+        assert {k: v.data_ptr() for k, v in eng._kv_store.arena.items()} \
+            == ptrs
+        again = [eng.submit(p).result(timeout=300)["tokens"]
+                 for p in prompts]
+        graphs = eng.debug_snapshot()["graphs"]
+    finally:
+        eng.stop()
+    assert again == ref
+    assert eng.counters["engine_errors"] == 1
+    for name in ("paged_step", "paged_verify"):
+        assert graphs[name]["compiles"] == 1, graphs
+        assert graphs[name]["recompiles"] == 0 and graphs[name]["replays"]
