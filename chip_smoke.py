@@ -3,9 +3,9 @@
 against its plain PyTorch version on the card, serves llama3-8b (full
 width and depth, random bf16 weights from a seed) through the paged
 engine and its HTTP front, in bf16 and then with int4 weights and an int8
-KV arena, serves mla-8b (the same, with Multi-head Latent Attention) over
-a bf16 and then an int8 latent arena, then trains Llama-3-8B widths at 4
-layers.
+KV arena, and behind the OpenAI front on a full pool, serves mla-8b (the
+same, with Multi-head Latent Attention) over a bf16 and then an int8
+latent arena, then trains Llama-3-8B widths at 4 layers.
 
 Run from the repository root on a machine with one NVIDIA card:
 
@@ -139,6 +139,34 @@ Step graphs (phases 4, 7s, 7b, 7c, 7d). Each engine captures its decode
    decode tokens/s of each engine, the acceptance rate, the largest token
    gap of the streams decoding through the 1500-token prefill (with
    interleave and without), the divergences and their margins;
+(f) flight recorder: every burst (phase 4, 7b-7d) and each 7s run
+   prints the per-mode medians of its step records (wall, schedule,
+   kernel, sample, commit; the ring at most ``recorder_bytes``); after
+   phase 4, its burst four more times on fresh engines, the recorder off,
+   on, on, off (wall, per-stream tokens/s, TTFT);
+7o. OpenAI front, on phase 4's params: an engine of 2 slots, cache_len
+   2048 and ``kv_pool_pages`` at its minimum (256) with the byte
+   tokenizer. (a) two 2040-token prompts whose page runs hold the whole
+   pool, the engine thread held at the first one's first token until a
+   1500-token prompt has found no up-front run and prefilled through the
+   dense-scratch route (counted once); all three finish, none
+   EngineOverloaded; that route's last-token logits against the plain
+   f32 forward (limit 0.1, skipped-layer control); the TTFT of a
+   1500-token prompt through the native route (n = 1) and the dense one
+   (an n = 2 group), in turns from an empty trie. Behind the HTTP front:
+   (b) chat with n = 2 (two choices from one dense prefill, usage, each
+   greedy choice against the other and against /generate of the same
+   prompt up to a near-tie (SPEC_TIE_MARGIN, logit_bias added), a stop
+   string cutting the text, completions' logprobs finite and <= 0);
+   (c) streamed completions: SSE chunks concatenating to the
+   non-streamed text, ending in ``data: [DONE]``; (d) /v1/embeddings of
+   1000 tokens against the plain f32 forward's mean-pooled final-norm
+   state (limit 0.1), 1025 tokens -> 400; (e) every launch of the phase
+   accounted for: ``flash_fwd`` 32 per dense prefill head and per embed,
+   ``rms_norm`` 65 per each, per dense chunk, per decode step and per
+   paged chunk, ``paged_attention_multi`` 32 per step and paged chunk,
+   the other attention wrappers 0, replays equal to decode steps; then
+   (g1)-(g5) with 0 recaptures, HTTP and drain with zero leaked pages;
 7h. HF load: llama3-8b widths at 2 layers (phase 4's first two layers)
    exported by ``to_hf_state_dict``, written as two safetensors shards and
    an index by a writer in this script, loaded onto the card by
@@ -173,7 +201,8 @@ Step graphs (phases 4, 7s, 7b, 7c, 7d). Each engine captures its decode
 8. flash kernels vs plain on the card: ``flash_fwd``, ``flash_dq`` and
    ``flash_dkv`` at the training shape (B 8, Hq 32, Hkv 8, S 2048, D 128,
    causal), a ragged S=1000, D=64, D=256, GQA group 1, a window, a soft
-   cap and non-causal. Each kernel is held per element against its plain
+   cap, non-causal, and the serving shape of a dense prefill head or an
+   embed (B 1, Hq 32, Hkv 8, D 128, causal, S 1024 and 1000). Each kernel is held per element against its plain
    version on the same inputs (the backward kernels take the forward
    kernel's lse and delta), with the tolerance of phase 3 (lse: 1e-4 +
    1e-5 |plain|, f32); the whole autograd path against autograd through
@@ -212,7 +241,9 @@ Step graphs (phases 4, 7s, 7b, 7c, 7d). Each engine captures its decode
 The next-to-last line is the kernels JSON record (each kernel's
 ``launches`` counted on its own main path: the bf16 engine's burst for
 ``paged_attention_multi`` and ``rms_norm``, beside the speculative
-engine's run as ``serve_spec``, the quantized engine's burst
+engine's run as ``serve_spec`` and phase 7o as ``serve_openai`` (also
+``flash_fwd``'s, on the dense route and embeddings), the quantized
+engine's burst
 for ``paged_attention_multi_quant`` and ``int4_matmul``, the MLA engines'
 bursts for ``paged_attention_multi_mla`` and
 ``paged_attention_multi_mla_quant``, the training run for the flash
@@ -239,6 +270,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, data sheet
@@ -1037,6 +1069,10 @@ FLASH_CASES = [
     ("window 512", 2, 32, 8, 2048, 128, True, 512, None),
     ("soft cap 5", 2, 32, 8, 1024, 128, True, None, 5.0),
     ("non-causal", 2, 32, 8, 1024, 128, False, None, None),
+    # the serving shapes: a dense-route prefill head (max_prefill_len
+    # 1024) and an embed of a ragged length, one sequence each
+    ("serving B=1 S=1024", 1, 32, 8, 1024, 128, True, None, None),
+    ("serving B=1 S=1000", 1, 32, 8, 1000, 128, True, None, None),
 ]
 
 
@@ -1550,7 +1586,7 @@ def layer_f32(w, layer=None):
 
 
 def plain_logits(torch, cfg, params, tokens, skip_layer=None,
-                 last_only=False):
+                 last_only=False, hidden=False):
     """Logits (B, S, V) of tokens (B, S), or with ``last_only`` the last
     position's (B, V), from a plain f32 forward of the same weights: no
     paging, no KV quantization and no kernels (``_attention_plain``,
@@ -1558,7 +1594,8 @@ def plain_logits(torch, cfg, params, tokens, skip_layer=None,
     while it runs (an upcast is a no-op on f32 master weights, through
     which autograd then reaches the parameters); an MLA model's attention in
     the direct form (``mla_direct_qkv``). ``skip_layer`` leaves one layer
-    out (a control)."""
+    out (a control); ``hidden`` returns the final-norm hidden states
+    instead of logits."""
     import torch.nn.functional as F
 
     from k8s_runpod_kubelet_tpu_torch.ops.attention import _attention_plain
@@ -1595,6 +1632,8 @@ def plain_logits(torch, cfg, params, tokens, skip_layer=None,
     if last_only:
         x = x[:, -1]
     x = _rms_norm_plain(x, params["final_norm"], cfg.norm_eps)
+    if hidden:
+        return x
     if cfg.tie_embeddings:
         return x @ params["tok_embed"].t().float()
     return x @ layer_f32(params["lm_head"])
@@ -1686,6 +1725,38 @@ def burst_prompts(cfg) -> tuple[list, list, "np.random.Generator"]:
     return warm, prompts, prompt
 
 
+def last_seq(engine) -> int:
+    """The sequence number of the flight recorder's newest record."""
+    recs = engine.recorder.records(1) if engine.recorder is not None else []
+    return recs[0]["seq"] if recs else -1
+
+
+def recorder_stats(engine, after: int, what: str, card: str) -> dict:
+    """(f) The flight recorder's step records newer than ``after``, by
+    mode: the step wall's and each phase's median in ms. The ring must
+    hold at most ``recorder_bytes``."""
+    rec = engine.recorder
+    if rec.ring_bytes > rec.max_bytes:
+        raise RuntimeError(f"{what}: flight-recorder ring {rec.ring_bytes} B "
+                           f"over its bound {rec.max_bytes}")
+    steps = [r for r in rec.records() if "wall_s" in r and r["seq"] > after]
+    out = {"ring_bytes": rec.ring_bytes, "max_bytes": rec.max_bytes}
+    for mode in sorted({r["batch"]["mode"] for r in steps}):
+        rs = [r for r in steps if r["batch"]["mode"] == mode]
+        m = {"steps": len(rs), "wall_ms": statistics.median(
+            r["wall_s"] for r in rs) * 1e3}
+        for ph in ("schedule", "kernel", "sample", "commit"):
+            m[f"{ph}_ms"] = statistics.median(
+                r["phases"][f"{ph}_s"] for r in rs) * 1e3
+        out[mode] = m
+        log(f"  (f) [{card}] {what}, {mode} steps ({len(rs)}), medians: wall "
+            f"{m['wall_ms']:.3f} ms = schedule {m['schedule_ms']:.3f} + "
+            f"kernel {m['kernel_ms']:.3f} + sample {m['sample_ms']:.3f} + "
+            f"commit {m['commit_ms']:.3f} ms; ring {rec.ring_bytes} B of "
+            f"{rec.max_bytes}")
+    return out
+
+
 def serve_burst(torch, engine, cfg, card: str, kernels, per_step) -> dict:
     """The engine's main path, read per path: the 8-request burst (counts
     set to 0 just before it, read just after), its decode-only stretch
@@ -1726,6 +1797,7 @@ def serve_burst(torch, engine, cfg, card: str, kernels, per_step) -> dict:
         for k in kernels:
             k.launches = 0
     s0 = snap()
+    seq0 = last_seq(engine)
     t_start = time.perf_counter()
     futs = [engine.submit(p) for p in prompts]
     deadline = time.monotonic() + 900
@@ -1738,6 +1810,8 @@ def serve_burst(torch, engine, cfg, card: str, kernels, per_step) -> dict:
     wall = time.perf_counter() - t_start
     s2 = snap()
     launches = {k.__name__: k.launches for k in kernels}
+    recorder = (recorder_stats(engine, seq0, "burst", card)
+                if engine.recorder is not None else None)
 
     if len(results) != 8 or any(len(r["tokens"]) != 32 for r in results):
         raise RuntimeError("not all 8 requests finished with 32 tokens")
@@ -1786,7 +1860,7 @@ def serve_burst(torch, engine, cfg, card: str, kernels, per_step) -> dict:
     log(f"  repeat: identical twice; {same_as_first}/32 tokens equal to the "
         f"first run (which prefilled without a prefix hit)")
     return {"launches": launches, "launches_by_path": by_path,
-            "launches_per_step": per_step,
+            "launches_per_step": per_step, "recorder": recorder,
             "ttft_ms": [x * 1e3 for x in ttft],
             "decode_tok_s_per_stream": per_stream,
             "output_tok_s": out_tok_s, "wall_s": wall,
@@ -2173,7 +2247,7 @@ def spec_traffic(cfg, params, torch) -> dict:
             "repeated_tokens": tokens, "sweep_s": sweep_s}
 
 
-def spec_run(torch, engine, traffic, kernels, per_step) -> dict:
+def spec_run(torch, engine, traffic, kernels, per_step, card: str) -> dict:
     """One engine over the traffic: the 8 greedy requests and the sampled
     one (64 new tokens each; 9 requests on 8 slots), then, once all 9
     prompts are prefilled, the 1500-token prompt beside the streams still
@@ -2198,6 +2272,7 @@ def spec_run(torch, engine, traffic, kernels, per_step) -> dict:
     clock.start()
     try:
         s0 = snap()
+        seq0 = last_seq(engine)
         t0 = time.perf_counter()
         futs = [engine.submit(p, max_new_tokens=64)
                 for p in traffic["greedy"]]
@@ -2240,7 +2315,12 @@ def spec_run(torch, engine, traffic, kernels, per_step) -> dict:
         raise RuntimeError("not every request finished with 64 tokens")
     gaps = clock.largest_gaps(t_long, clock.prefill_done_at)
     per_stream = [63 / (r["latency_s"] - r["ttft_s"]) for r in results]
+    k = engine.sc.speculate_k
+    recorder = recorder_stats(
+        engine, seq0, f"7s run (speculate_k {k}, serving_chunk_tokens "
+        f"{engine.sc.serving_chunk_tokens})", card)
     return {"tokens": [r["tokens"] for r in results], "counts": d,
+            "recorder": recorder,
             "wall_s": wall, "decode_tok_s_per_stream": per_stream,
             "ttft_ms": [r["ttft_s"] * 1e3 for r in results],
             "long_prefill_ms": (clock.prefill_done_at - t_long) * 1e3,
@@ -2379,7 +2459,7 @@ def spec_engine_phase(torch, dev, card: str, cfg, params) -> dict:
         try:
             engine.submit(traffic["sampled"][:64],
                           max_new_tokens=4).result(timeout=900)   # warm-up
-            rec = spec_run(torch, engine, traffic, kernels, per_step)
+            rec = spec_run(torch, engine, traffic, kernels, per_step, card)
             if name == "speculative":
                 with engine._prefix_lock:   # idle: every request done
                     rec["graphs"] = graph_checks(
@@ -2433,6 +2513,390 @@ def spec_engine_phase(torch, dev, card: str, cfg, params) -> dict:
             "divergence": div, "sampled_equal": same_sampled,
             "acceptance_rate": rate, "runs": runs,
             "launches_per_step": per_step}
+
+
+def recorder_overhead_phase(torch, dev, card: str, cfg, params) -> dict:
+    """(f) Phase 4's burst four times more on fresh engines, the flight
+    recorder off, on, on, off (turns, since walls move with the host).
+    Reported: each burst's wall, per-stream decode tokens/s and TTFT
+    medians."""
+    from k8s_runpod_kubelet_tpu_torch.ops import (paged_attention,
+                                                  paged_attention_multi,
+                                                  paged_attention_quant,
+                                                  rms_norm)
+    from k8s_runpod_kubelet_tpu_torch.workloads.serving import (
+        ServingConfig, ServingEngine)
+
+    per_step = {"paged_attention_multi": cfg.n_layers,
+                "rms_norm": 2 * cfg.n_layers + 1,
+                "paged_attention": 0, "paged_attention_quant": 0}
+    out = {}
+    for name, on in (("recorder_off", False), ("recorder_on", True),
+                     ("recorder_on_2", True), ("recorder_off_2", False)):
+        sc = ServingConfig(slots=8, cache_len=2048, max_prefill_len=1024,
+                           kv_page_tokens=16, max_new_tokens=32,
+                           flight_recorder=on)
+        engine = ServingEngine(cfg, params, sc, device=dev).start()
+        try:
+            if (engine.recorder is None) == on:
+                raise RuntimeError(f"flight_recorder={on} engine has "
+                                   f"recorder {engine.recorder}")
+            rec = serve_burst(torch, engine, cfg, card,
+                              (paged_attention_multi, rms_norm,
+                               paged_attention, paged_attention_quant),
+                              per_step)
+        finally:
+            engine.stop()
+        out[name] = {k: rec[k] for k in ("wall_s", "decode_tok_s_per_stream",
+                                         "ttft_ms", "recorder")}
+        log(f"  (f) [{card}] burst with flight_recorder {on}: wall "
+            f"{rec['wall_s']:.3f} s, decode "
+            f"{statistics.median(rec['decode_tok_s_per_stream']):.1f} "
+            f"tokens/s per stream (median), TTFT median "
+            f"{statistics.median(rec['ttft_ms']):.1f} ms")
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+# -- phase 7o: the OpenAI front, the dense-scratch route and embeddings --------------
+
+# logit_bias +100 (OpenAI's largest) on these byte ids: a random-weight
+# model then writes ASCII text through the byte tokenizer
+OPENAI_BIAS_BYTES = b"aeiou st"
+
+
+def http_post(port: int, path: str, body: dict) -> tuple[int, bytes]:
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=json.dumps(body).encode(),
+        method="POST", headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def http_ok(port: int, path: str, body: dict) -> dict:
+    status, raw = http_post(port, path, body)
+    if status != 200:
+        raise RuntimeError(f"POST {path} answered {status}: {raw[:400]}")
+    return json.loads(raw)
+
+
+def wait_for(cond, what: str, timeout: float = 600) -> None:
+    deadline = time.monotonic() + timeout
+    while not cond():
+        if time.monotonic() > deadline:
+            raise RuntimeError(f"timed out waiting: {what}")
+        time.sleep(0.001)
+
+
+def clear_trie(engine) -> None:
+    """Evict every unpinned trie page, so the next prompt finds no cached
+    prefix (a route's TTFT is then measured from scratch)."""
+    with engine._prefix_lock:
+        while engine._kv_store.trie._evict_lru():
+            pass
+
+
+def biased_divergence(torch, cfg, params, prompt, a, b, bias) -> dict:
+    """Two greedy token lists of one prompt under one logit_bias: equal up
+    to any first divergence, where the plain f32 forward's top-2 margin
+    (bias added) must be under SPEC_TIE_MARGIN of its logits' RMS."""
+    n = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+    if n is None:
+        return {"diverge_at": None, "compared": min(len(a), len(b))}
+    ref = reference_logits(torch, cfg, params, prompt + a[:n])
+    rms = ref.pow(2).mean().sqrt().item()
+    biased = ref.clone()
+    for t, v in bias.items():
+        biased[int(t)] += v
+    top2 = biased.topk(2).values
+    margin = (top2[0] - top2[1]).item()
+    if not margin < SPEC_TIE_MARGIN * rms:
+        raise RuntimeError(f"greedy tokens diverge at {n} where the f32 "
+                           f"top-2 margin is {margin / rms:.3f} of the "
+                           f"logits' RMS (tie margin {SPEC_TIE_MARGIN})")
+    return {"diverge_at": n, "margin_share": margin / rms}
+
+
+def dense_route_forced(torch, engine, cfg, params, prompt) -> dict:
+    """(a) Two 2040-token prompts whose page runs hold the whole pool
+    (2 x 128 pages) and decode to their 2048-position budget; the engine
+    thread is held at the first one's first token (its on_token waits)
+    until the second is prefilled and a 1500-token prompt has found no
+    up-front run and prefilled through the dense route; then all three
+    run on, the third bound once a slot frees its pages."""
+    big = [prompt(2040), prompt(2040)]
+    third = prompt(1500)
+    entered, gate = threading.Event(), threading.Event()
+
+    def hold(_tok):
+        if not entered.is_set():
+            entered.set()
+            gate.wait(600)
+
+    dense0 = engine.counters["dense_prefills"]
+    f1 = engine.submit(big[0], max_new_tokens=8, on_token=hold)
+    try:
+        wait_for(entered.is_set, "the first 2040-token request's admission")
+        f2 = engine.submit(big[1], max_new_tokens=8)
+        wait_for(lambda: engine._ready.qsize() == 1,
+                 "the second 2040-token prefill")
+        free = engine._kv_store.pool.free_count
+        t0 = time.perf_counter()
+        f3 = engine.submit(third, max_new_tokens=8)
+        wait_for(lambda: engine._ready.qsize() == 2,
+                 "the 1500-token prefill")
+        prefill_s = time.perf_counter() - t0
+    finally:
+        gate.set()
+    results = [f.result(timeout=900) for f in (f1, f2, f3)]
+    dense = engine.counters["dense_prefills"] - dense0
+    if dense != 1 or any(len(r["tokens"]) != 8 for r in results):
+        raise RuntimeError(f"(a) dense route taken {dense} times; tokens "
+                           f"{[len(r['tokens']) for r in results]}")
+    # the route's first-token logits again, on the now idle engine: the
+    # same dense prefill (its pages were never cached: the pool was full)
+    logits, _, matched = engine._prefill_tokens(third, single_only=True)
+    if matched or int(logits[0].argmax()) != results[2]["tokens"][0]:
+        raise RuntimeError(f"(a) the dense prefill repeated differently "
+                           f"(matched {matched})")
+    with engine._prefix_lock:
+        check = engine_reference_check(torch, cfg, params, third,
+                                       logits[0].float(),
+                                       what="dense-route prefill")
+    log(f"  (a) pool full ({free} free pages of "
+        f"{engine._kv_store.pool.n_pages}): the 1500-token prompt took the "
+        f"dense route, prefilled in {prefill_s * 1e3:.1f} ms, bound when a "
+        f"slot freed (TTFT {results[2]['ttft_s'] * 1e3:.1f} ms); all 3 "
+        f"requests finished, none EngineOverloaded")
+    return {"free_pages_at_arrival": free, "dense_prefill_ms": prefill_s * 1e3,
+            "ttft_ms": [r["ttft_s"] * 1e3 for r in results],
+            "reference": check}
+
+
+def route_ttft(engine, prompt) -> dict:
+    """TTFT of one 1500-token prompt through the native route (n = 1) and
+    the dense route (an n = 2 group), in turns (native, dense, dense,
+    native), each from an empty trie, one new token each."""
+    out = {"native": [], "dense": []}
+    for route in ("native", "dense", "dense", "native"):
+        clear_trie(engine)
+        if route == "native":
+            r = engine.submit(prompt, max_new_tokens=1).result(timeout=900)
+        else:
+            r = [f.result(timeout=900)
+                 for f in engine.submit_group(prompt, 2, max_new_tokens=1)][0]
+        out[route].append(r["ttft_s"] * 1e3)
+    return out
+
+
+def openai_phase(torch, dev, card: str, cfg, params) -> dict:
+    """Phase 7o: llama3-8b bf16 (phase 4's params) behind the OpenAI
+    front, 2 slots, cache_len 2048, the pool at its minimum (2 x 128
+    pages), the byte tokenizer: (a) the dense route forced, (b) chat with
+    n = 2, a stop string, logprobs, (c) SSE, (d) embeddings, (e) every
+    kernel launch accounted for by the engine's own counters and (g1)-(g5)
+    on its graphs, then HTTP and drain with zero leaked pages."""
+    import numpy as np
+
+    from k8s_runpod_kubelet_tpu_torch.ops import (flash_fwd, paged_attention,
+                                                  paged_attention_multi,
+                                                  paged_attention_multi_quant,
+                                                  paged_attention_quant,
+                                                  rms_norm)
+    from k8s_runpod_kubelet_tpu_torch.workloads.serve_main import serve
+    from k8s_runpod_kubelet_tpu_torch.workloads.serving import (
+        ServingConfig, ServingEngine)
+    from k8s_runpod_kubelet_tpu_torch.workloads.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer()
+    sc = ServingConfig(slots=2, cache_len=2048, max_prefill_len=1024,
+                       kv_page_tokens=16, kv_pool_pages=256,
+                       max_new_tokens=16, eos_token=tok.eos_id)
+    engine = ServingEngine(cfg, params, sc, device=dev,
+                           decode_fn=tok.decode).start()
+    rng = np.random.default_rng(SEED + 4)
+
+    def prompt(n: int) -> list[int]:
+        return [int(x) for x in rng.integers(0, cfg.vocab_size, n)]
+
+    kernels = (flash_fwd, rms_norm, paged_attention_multi, paged_attention,
+               paged_attention_quant, paged_attention_multi_quant)
+    keys = ("decode_steps", "prefill_chunks", "dense_prefills",
+            "dense_prefill_heads", "dense_prefill_chunks", "embeds",
+            "admission_rejected")
+
+    def snap() -> dict:
+        with engine._prefix_lock:
+            return {**{k: engine.counters[k] for k in keys},
+                    "replays": sum(g.fn.replays for g in engine._graphs()),
+                    **{k.__name__: k.launches for k in kernels}}
+
+    bias = {str(b): 100 for b in OPENAI_BIAS_BYTES}
+    out = {}
+    try:
+        engine.submit(prompt(64), max_new_tokens=4).result(timeout=900)
+        with engine._prefix_lock:
+            for k in kernels:
+                k.launches = 0
+        s0 = snap()
+        out["a"] = dense_route_forced(torch, engine, cfg, params, prompt)
+        ttft = route_ttft(engine, prompt(1500))
+        out["ttft_1500_ms"] = ttft
+        log(f"  [{card}] TTFT of a 1500-token prompt, idle engine, empty "
+            f"trie: native route {ttft['native'][0]:.1f} / "
+            f"{ttft['native'][1]:.1f} ms, dense route (n = 2) "
+            f"{ttft['dense'][0]:.1f} / {ttft['dense'][1]:.1f} ms")
+
+        httpd = serve(engine, port=0, tokenizer=tok, host="127.0.0.1")
+        port = httpd.server_address[1]
+        try:
+            out["b"] = openai_chat_checks(torch, engine, cfg, params, port,
+                                          tok, bias)
+            out["c"] = openai_stream_check(port, bias)
+            out["d"] = embeddings_check(torch, engine, cfg, params, port,
+                                        prompt)
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+        s1 = snap()
+        d = {k: s1[k] - s0[k] for k in s0}
+        heads = d["dense_prefill_heads"] + d["embeds"]
+        steps = d["decode_steps"] + d["prefill_chunks"]
+        want = {"flash_fwd": cfg.n_layers * heads,
+                "rms_norm": (2 * cfg.n_layers + 1)
+                * (steps + heads + d["dense_prefill_chunks"]),
+                "paged_attention_multi": cfg.n_layers * steps,
+                "paged_attention": 0, "paged_attention_quant": 0,
+                "paged_attention_multi_quant": 0}
+        got = {k: d[k] for k in want}
+        if got != want or d["replays"] != d["decode_steps"] \
+                or d["admission_rejected"] or not d["dense_prefill_heads"]:
+            raise RuntimeError(f"(e) launches {got} against {want}; "
+                               f"counters {d}")
+        log(f"  (e) launches: {got} = {cfg.n_layers} flash_fwd per dense "
+            f"prefill head ({d['dense_prefill_heads']}) and embed "
+            f"({d['embeds']}), {2 * cfg.n_layers + 1} rms_norm per each, "
+            f"per dense chunk ({d['dense_prefill_chunks']}), decode step "
+            f"({d['decode_steps']} replays) and paged chunk "
+            f"({d['prefill_chunks']})")
+        out["launches"], out["counts"] = got, d
+        with engine._prefix_lock:   # idle: every request done
+            out["graphs"] = graph_checks(torch, engine, card,
+                                         ENGINE_REL_L2_LIMIT, "7o engine")
+        out["drain"] = http_and_drain(engine, prompt)
+    finally:
+        engine.stop()
+    return out
+
+
+def openai_chat_checks(torch, engine, cfg, params, port, tok, bias) -> dict:
+    """(b) POST /v1/chat/completions with n = 2 (one member a slot): two
+    choices from one prefill on the dense route, usage, a stop string
+    cutting the text; a greedy choice against /generate of the same
+    prompt; logprobs of /v1/completions finite and <= 0."""
+    messages = [{"role": "system", "content": "You answer in vowels."},
+                {"role": "user", "content": "Say a few vowels, please."}]
+    chat_tokens = tok.apply_chat(messages)
+    body = {"messages": messages, "n": 2, "max_tokens": 16,
+            "temperature": 0, "logit_bias": bias}
+    dense0 = engine.counters["dense_prefills"]
+    first = http_ok(port, "/v1/chat/completions", body)
+    texts = [c["message"]["content"] for c in first["choices"]]
+    usage = first["usage"]
+    if (engine.counters["dense_prefills"] != dense0 + 1 or len(texts) != 2
+            or usage != {"prompt_tokens": len(chat_tokens),
+                         "completion_tokens": 32,
+                         "total_tokens": len(chat_tokens) + 32}
+            or not all(len(t) == 16 for t in texts)):
+        raise RuntimeError(f"(b) chat n=2: {first}")
+    toks = [list(t.encode()) for t in texts]
+    same = biased_divergence(torch, cfg, params, chat_tokens, toks[0],
+                             toks[1], bias)
+    gen = http_ok(port, "/generate", {"tokens": chat_tokens,
+                                      "max_new_tokens": 16,
+                                      "temperature": 0, "logit_bias": bias})
+    vs_generate = biased_divergence(torch, cfg, params, chat_tokens, toks[0],
+                                    gen["tokens"], bias)
+    # the stop: the same request twice more (both gather the prompt's pages
+    # the first inserted, so both take one path), the second with a stop
+    again = http_ok(port, "/v1/chat/completions", body)
+    text = again["choices"][0]["message"]["content"]
+    stop = text[len(text) // 2]
+    cut = http_ok(port, "/v1/chat/completions", dict(body, stop=stop))
+    want = text[:text.index(stop)]
+    if any(c["message"]["content"] != want or c["finish_reason"] != "stop"
+           for c in cut["choices"]):
+        raise RuntimeError(f"(b) stop {stop!r} on {text!r}: {cut}")
+    comp = http_ok(port, "/v1/completions",
+                   {"prompt": "Vowels:", "max_tokens": 16, "temperature": 0,
+                    "logit_bias": bias, "logprobs": 1})
+    lps = comp["choices"][0]["logprobs"]["token_logprobs"]
+    if len(lps) != 16 or not all(math.isfinite(x) and x <= 0 for x in lps):
+        raise RuntimeError(f"(b) logprobs {lps}")
+    log(f"  (b) chat n=2 on the dense route: {texts[0]!r} / {texts[1]!r} "
+        f"(choices {'equal' if same['diverge_at'] is None else 'part at a near-tie'}), "
+        f"usage {usage}; vs /generate: "
+        f"{'equal' if vs_generate['diverge_at'] is None else vs_generate}; "
+        f"stop {stop!r} cut {text!r} to {want!r}; logprobs in "
+        f"[{min(lps):.3f}, {max(lps):.3f}]")
+    return {"texts": texts, "usage": usage, "choices_agree": same,
+            "vs_generate": vs_generate, "stop": stop, "cut": want,
+            "logprobs": lps}
+
+
+def openai_stream_check(port, bias) -> dict:
+    """(c) POST /v1/completions with stream: true: SSE chunks that
+    concatenate to the non-streamed text and end in data: [DONE] (a
+    one-token warm-up first caches the prompt's pages, so both measured
+    requests gather them and take one path)."""
+    base = {"prompt": "Stream some vowels and spaces, then stop:",
+            "max_tokens": 16, "temperature": 0, "logit_bias": bias}
+    http_ok(port, "/v1/completions", dict(base, max_tokens=1))
+    flat = http_ok(port, "/v1/completions", base)["choices"][0]
+    status, raw = http_post(port, "/v1/completions", dict(base, stream=True))
+    frames = raw.decode().split("\n\n")
+    if status != 200 or frames[-1] != "" or frames[-2] != "data: [DONE]" \
+            or not all(f.startswith("data: ") for f in frames[:-1]):
+        raise RuntimeError(f"(c) SSE framing: {status} {raw[:400]}")
+    chunks = [json.loads(f[len("data: "):]) for f in frames[:-2]]
+    text = "".join(c["choices"][0]["text"] for c in chunks)
+    reason = chunks[-1]["choices"][0]["finish_reason"]
+    if text != flat["text"] or reason != flat["finish_reason"]:
+        raise RuntimeError(f"(c) streamed {text!r} ({reason}) vs "
+                           f"{flat['text']!r} ({flat['finish_reason']})")
+    log(f"  (c) SSE: {len(chunks)} chunks, [DONE], text {text!r} equal to "
+        f"the non-streamed completion")
+    return {"chunks": len(chunks), "text": text}
+
+
+def embeddings_check(torch, engine, cfg, params, port, prompt) -> dict:
+    """(d) POST /v1/embeddings of a 1000-token input against the plain f32
+    forward's mean-pooled final-norm hidden state, within the engine's
+    limit; an input past max_prefill_len answers 400."""
+    toks = prompt(1000)
+    got = http_ok(port, "/v1/embeddings", {"input": toks})
+    vec = torch.tensor(got["data"][0]["embedding"], device=engine.device)
+    with engine._prefix_lock:
+        ref = plain_logits(torch, cfg, params,
+                           torch.tensor([toks], device=engine.device),
+                           hidden=True)[0].mean(dim=0)
+    rel = ((vec - ref).norm() / ref.norm()).item()
+    status, _ = http_post(port, "/v1/embeddings",
+                          {"input": prompt(engine.sc.max_prefill_len + 1)})
+    if not rel <= ENGINE_REL_L2_LIMIT or status != 400 \
+            or got["usage"]["prompt_tokens"] != 1000:
+        raise RuntimeError(f"(d) embeddings: rel L2 {rel}, over-long input "
+                           f"answered {status}, usage {got['usage']}")
+    log(f"  (d) /v1/embeddings, 1000 tokens: relative L2 {rel:.4f} from the "
+        f"plain f32 forward's pooled state (limit {ENGINE_REL_L2_LIMIT}); "
+        f"{engine.sc.max_prefill_len + 1} tokens -> 400")
+    return {"rel_l2": rel, "limit": ENGINE_REL_L2_LIMIT,
+            "over_long_status": status}
 
 
 def write_safetensors(path: str, tensors: dict) -> int:
@@ -2875,9 +3339,20 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    log("phase recorder overhead (phase 4's burst, flight recorder off, "
+        "on, on, off)")
+    eng["recorder_turns"] = recorder_overhead_phase(torch, dev, card, cfg,
+                                                    params)
+
     log("phase speculative engine (llama3-8b bf16, 8 slots, cache_len 2048, "
         f"speculate_k {SPEC_K}, serving_chunk_tokens {SPEC_CHUNK})")
     spec = spec_engine_phase(torch, dev, card, cfg, params)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log("phase OpenAI front (llama3-8b bf16, 2 slots, cache_len 2048, "
+        "kv_pool_pages 256, byte tokenizer)")
+    openai = openai_phase(torch, dev, card, cfg, params)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2954,6 +3429,7 @@ def main(argv=None) -> int:
                serve_launches["paged_attention_multi"],
                {"serve": serve_launches["paged_attention_multi"],
                 "serve_spec": spec_launches["paged_attention_multi"],
+                "serve_openai": openai["launches"]["paged_attention_multi"],
                 "serve_int4_kv_int8":
                     quant_launches["paged_attention_multi"]}, sdpa),
         record("rms_norm", "triton",
@@ -2965,12 +3441,15 @@ def main(argv=None) -> int:
                 "serve_int4_kv_int8": quant_launches["rms_norm"],
                 "serve_mla": mla_launches["rms_norm"],
                 "serve_mla_kv_int8": mla_q_launches["rms_norm"],
+                "serve_openai": openai["launches"]["rms_norm"],
                 "train": train["launches"]["rms_norm"]},
                "F.rms_norm, bf16 weight"),
     ] + [
         record(kname, "cuda", csrc + "flash_attention.cu",
                replaces, flash_cases(kname), train["launches"][kname],
-               {"train": train["launches"][kname]}, library_call)
+               {"train": train["launches"][kname],
+                **({"serve_openai": openai["launches"][kname]}
+                   if kname in openai["launches"] else {})}, library_call)
         for kname, replaces, library_call in (
             ("flash_fwd", jax_attn + "199", "SDPA forward"),
             ("flash_dq", jax_attn + "360",
@@ -3050,7 +3529,8 @@ def main(argv=None) -> int:
         with open(args.out, "w") as f:
             json.dump({"card": card, "device": device, "kernels": kernels,
                        "flash": flash, "engine": eng,
-                       "spec_engine": spec, "hf_load": hf,
+                       "spec_engine": spec, "openai": openai,
+                       "hf_load": hf,
                        "quant_engine": qeng, "mla_engine": mla_eng,
                        "mla_kv_int8_engine": mla_q, "train": train,
                        "train_main": train_cli,

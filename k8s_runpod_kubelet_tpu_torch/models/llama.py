@@ -1,7 +1,10 @@
 """Llama-3-family decoder (port of the JAX package's ``models/llama.py``):
-the contiguous ``forward`` that training runs, and the paged serving
-steps over a KV arena, for dense attention and for Multi-head Latent
-Attention (MLA, DeepSeek-V2), which serves from a latent arena.
+the contiguous ``forward`` that training and embeddings run, the
+contiguous serving steps over a single-request cache (``prefill``,
+``prefill_chunk_step``, ``verify_step``; dense attention only), and the
+paged serving steps over a KV arena, for dense attention and for
+Multi-head Latent Attention (MLA, DeepSeek-V2), which serves from a
+latent arena.
 
 Parameters are a plain dict in the JAX package's tree layout, stacked over
 layers: ``tok_embed`` (V, E), ``final_norm`` (E,), ``lm_head`` (E, V) and
@@ -311,8 +314,9 @@ class LlamaModel:
                              "ported (full or none)")
         x = params["tok_embed"][tokens.long()].to(cfg.dtype)
         # one unbind per stacked leaf: its backward stacks the L layer
-        # gradients once
-        layers = {name: leaf.unbind(0)
+        # gradients once (a quantized leaf is sliced per layer)
+        layers = {name: ([_at(leaf, i) for i in range(cfg.n_layers)]
+                         if isinstance(leaf, dict) else leaf.unbind(0))
                   for name, leaf in params["layers"].items()}
         remat = cfg.remat and cfg.remat_policy == "full"
         for i in range(cfg.n_layers):
@@ -325,30 +329,178 @@ class LlamaModel:
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         if return_hidden:
             return x
-        head = (params["tok_embed"].t() if cfg.tie_embeddings
-                else params["lm_head"])
-        return x @ head.to(cfg.dtype)
+        if cfg.tie_embeddings:
+            return x @ params["tok_embed"].t().to(cfg.dtype)
+        return _mm(x, params["lm_head"], cfg.dtype)
 
     def _layer(self, x: torch.Tensor, lp: Params,
-               positions: Optional[torch.Tensor]) -> torch.Tensor:
+               positions: Optional[torch.Tensor],
+               return_kv: bool = False):
         """One decoder layer of ``forward``: the JAX model's dense
-        ``_attention_block`` then ``_mlp_block``."""
+        ``_attention_block`` then ``_mlp_block``, the matmuls through
+        ``_mm`` (raw weights cast to ``cfg.dtype``, or quantized leaves).
+        ``return_kv`` also returns the layer's rotated k and v (B, S, Hkv,
+        D), the prefill cache content."""
         cfg = self.cfg
         b, s, _ = x.shape
         hd, dt = cfg.head_dim_, cfg.dtype
         h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-        q = (h @ lp["wq"].to(dt)).reshape(b, s, cfg.n_heads, hd)
-        k = (h @ lp["wk"].to(dt)).reshape(b, s, cfg.n_kv_heads, hd)
-        v = (h @ lp["wv"].to(dt)).reshape(b, s, cfg.n_kv_heads, hd)
+        q = _mm(h, lp["wq"], dt).reshape(b, s, cfg.n_heads, hd)
+        k = _mm(h, lp["wk"], dt).reshape(b, s, cfg.n_kv_heads, hd)
+        v = _mm(h, lp["wv"], dt).reshape(b, s, cfg.n_kv_heads, hd)
         q = apply_rope(q, self.cos, self.sin, positions)
         k = apply_rope(k, self.cos, self.sin, positions)
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         o = flash_attention(qt, kt, vt, causal=True, sm_scale=cfg.sm_scale)
         o = o.transpose(1, 2).reshape(b, s, cfg.n_heads * hd)
-        x = x + o @ lp["wo"].to(dt)
+        x = x + _mm(o, lp["wo"], dt)
         h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
-        act = F.silu(h @ lp["w_gate"].to(dt)) * (h @ lp["w_up"].to(dt))
-        return x + act @ lp["w_down"].to(dt)
+        act = F.silu(_mm(h, lp["w_gate"], dt)) * _mm(h, lp["w_up"], dt)
+        x = x + _mm(act, lp["w_down"], dt)
+        return (x, k, v) if return_kv else x
+
+    # -- contiguous serving steps -------------------------------------------
+
+    def _dense_only(self, what: str) -> None:
+        if self.cfg.is_mla:
+            raise ValueError(
+                f"{self.cfg.name}: the contiguous {what} of an MLA model is "
+                "not ported (ROADMAP Queue 2 (b): its direct form needs the "
+                "flash kernels at head_dim + rope_dim = 192)")
+
+    def init_cache(self, batch: int, max_len: Optional[int] = None,
+                   quantize: bool = False) -> Params:
+        """A contiguous KV cache with per-row write indices (the JAX
+        model's ``init_cache``/``_empty_cache`` dense layout): ``k``/``v``
+        (L, B, S, Hkv, D) in the compute dtype, or int8 with ``quantize``
+        plus ``k_scale``/``v_scale`` (L, B, S, Hkv) f32, and ``index`` (B,)
+        int32, the committed length of each row."""
+        self._dense_only("cache")
+        cfg = self.cfg
+        s = max_len or cfg.max_seq_len
+        shape = (cfg.n_layers, batch, s, cfg.n_kv_heads, cfg.head_dim_)
+        dt = torch.int8 if quantize else cfg.dtype
+        cache = {"k": torch.zeros(shape, dtype=dt, device=self.device),
+                 "v": torch.zeros(shape, dtype=dt, device=self.device),
+                 "index": torch.zeros((batch,), dtype=torch.int32,
+                                      device=self.device)}
+        if quantize:
+            for name in ("k_scale", "v_scale"):
+                cache[name] = torch.zeros(shape[:-1], dtype=torch.float32,
+                                          device=self.device)
+        return cache
+
+    def prefill(self, params: Params, tokens: torch.Tensor, cache: Params,
+                true_length: Optional[torch.Tensor] = None
+                ) -> tuple[torch.Tensor, Params]:
+        """A prompt through the contiguous layers into ``cache``, which it
+        fills in place from position 0: tokens (B, S) -> (logits of each
+        row's last real token (B, V) f32, cache with ``index`` =
+        ``true_length``). Attention is the causal flash kernel
+        (``flash_attention``), as in the JAX model; an int8 cache stores
+        each row through ``_kv_quant``, the paged steps' scheme, so pages
+        filled from it equal pages the paged chunk step writes. Padding
+        past ``true_length`` writes K/V that nothing attends."""
+        self._dense_only("prefill")
+        cfg = self.cfg
+        b, s = tokens.shape
+        if s > cache["k"].shape[2]:
+            raise ValueError(f"prompt length {s} exceeds cache length "
+                             f"{cache['k'].shape[2]}")
+        if true_length is None:
+            true_length = torch.full((b,), s, dtype=torch.int32,
+                                     device=tokens.device)
+        quant = "k_scale" in cache
+        x = params["tok_embed"][tokens.long()].to(cfg.dtype)
+        lp = params["layers"]
+        for layer in range(cfg.n_layers):
+            x, k, v = self._layer(x, {n: _at(w, layer) for n, w in lp.items()},
+                                  None, return_kv=True)
+            if quant:
+                k, k_s = _kv_quant(k)
+                v, v_s = _kv_quant(v)
+                cache["k_scale"][layer, :, :s] = k_s
+                cache["v_scale"][layer, :, :s] = v_s
+            cache["k"][layer, :, :s] = k
+            cache["v"][layer, :, :s] = v
+        cache["index"].copy_(true_length.to(torch.int32))
+        last = x[torch.arange(b, device=x.device),
+                 true_length.long() - 1][:, None]
+        return self._head_logits(params, last)[:, 0], cache
+
+    def prefill_chunk_step(self, params: Params, tokens: torch.Tensor,
+                           cache: Params, true_length: torch.Tensor
+                           ) -> tuple[torch.Tensor, Params]:
+        """One chunk of a prompt appended to a running single-request
+        cache through ``verify_step``: returns (the last real token's
+        logits (B, V) f32, cache with ``index`` advanced by
+        ``true_length``)."""
+        b = tokens.shape[0]
+        logits, cache = self.verify_step(params, tokens, cache)
+        tl = true_length.to(torch.int32)
+        cache["index"] += tl
+        return logits[torch.arange(b, device=logits.device),
+                      tl.long() - 1], cache
+
+    def verify_step(self, params: Params, tokens: torch.Tensor,
+                    cache: Params, active: Optional[torch.Tensor] = None
+                    ) -> tuple[torch.Tensor, Params]:
+        """K tokens per row of a contiguous cache in one pass (the JAX
+        model's dense ``verify_step``): row b's token j sits at position
+        index[b] + j and attends positions <= index[b] + j. Writes every
+        active row's K/V in place, does not advance ``index``, returns
+        (logits (B, K, V) f32, cache). Attention is plain f32 einsum over
+        the whole cache, as in the reference. Positions must lie inside
+        the cache."""
+        self._dense_only("verify step")
+        cfg = self.cfg
+        b, kk = tokens.shape
+        dev = tokens.device
+        if active is None:
+            active = torch.ones((b,), dtype=torch.bool, device=dev)
+        max_len = cache["k"].shape[2]
+        positions = (cache["index"].long()[:, None]
+                     + torch.arange(kk, device=dev)[None, :])      # (B,K)
+        if active.any() and int(positions[active].max()) >= max_len:
+            raise ValueError(f"verify positions run past the cache length "
+                             f"{max_len}")
+        valid = (torch.arange(max_len, device=dev)[None, None, :]
+                 <= positions[:, :, None])[:, None, None]     # (B,1,1,K,L)
+        rows = torch.arange(b, device=dev)[:, None].expand(b, kk)[active]
+        slots = positions[active]
+        quant = "k_scale" in cache
+        hd, dt, hkv = cfg.head_dim_, cfg.dtype, cfg.n_kv_heads
+        group = cfg.n_heads // hkv
+        x = params["tok_embed"][tokens.long()].to(dt)
+        lp = params["layers"]
+        for layer in range(cfg.n_layers):
+            h = rms_norm(x, lp["attn_norm"][layer], cfg.norm_eps)
+            q = _mm(h, _at(lp["wq"], layer), dt).reshape(b, kk, cfg.n_heads,
+                                                         hd)
+            k = _mm(h, _at(lp["wk"], layer), dt).reshape(b, kk, hkv, hd)
+            v = _mm(h, _at(lp["wv"], layer), dt).reshape(b, kk, hkv, hd)
+            q = apply_rope(q, self.cos, self.sin, positions)
+            k = apply_rope(k, self.cos, self.sin, positions)
+            kc, vc = cache["k"][layer], cache["v"][layer]
+            if quant:
+                ks, vs = cache["k_scale"][layer], cache["v_scale"][layer]
+                k, k_s = _kv_quant(k)
+                v, v_s = _kv_quant(v)
+                ks[rows, slots] = k_s[active]
+                vs[rows, slots] = v_s[active]
+            kc[rows, slots] = k[active]
+            vc[rows, slots] = v[active]
+            k_read = _kv_dequant(kc, ks) if quant else kc.float()
+            v_read = _kv_dequant(vc, vs) if quant else vc.float()
+            qg = (q.float() * cfg.sm_scale).reshape(b, kk, hkv, group, hd)
+            sc = torch.einsum("bqhgd,bLhd->bhgqL", qg, k_read)
+            sc = torch.where(valid, sc, torch.full_like(sc, -1e30))
+            p = torch.softmax(sc, dim=-1)
+            o = torch.einsum("bhgqL,bLhd->bqhgd", p, v_read)
+            o = o.reshape(b, kk, cfg.n_heads * hd).to(dt)
+            x = x + _mm(o, _at(lp["wo"], layer), dt)
+            x = self._paged_mlp(x, lp, layer)
+        return self._head_logits(params, x), cache
 
     def init_paged_arena(self, n_pages: int, page_tokens: int,
                          quantize: bool = False) -> Params:

@@ -1,31 +1,51 @@
-"""HTTP front over the port's ServingEngine (the ``/generate`` half of the
-JAX package's ``workloads/serve_main.py``).
+"""HTTP front over the port's ServingEngine (a port of the JAX package's
+``workloads/serve_main.py``, without the KV-handoff routes, ``/adapters``,
+tracing, tenants and ``/metrics``).
 
 Endpoints:
-  POST /generate      {"tokens": [...]} or {"text": "..."} (with
-                      ``--tokenizer bytes``), plus optional
-                      "max_new_tokens", "temperature", "top_k", "top_p",
-                      "presence_penalty", "frequency_penalty",
-                      "logit_bias", "seed"
-                      -> {"rid": ..., "tokens": [...], "latency_s": ...}
-                      (+ "text" with a tokenizer). Fields this port does
-                      not serve yet ("stream", "stop", "logprobs",
-                      "adapter") answer 400 instead of being ignored.
+  POST /generate      {"tokens": [...]} or {"text": "..."} (with a
+                      tokenizer), plus optional "max_new_tokens",
+                      "temperature", "top_k", "top_p", "presence_penalty",
+                      "frequency_penalty", "logit_bias", "seed", "stop"
+                      (token lists, or strings with a tokenizer),
+                      "logprobs" -> {"rid", "tokens", "latency_s"} (+
+                      "logprobs", + "text" with a tokenizer);
+                      with "stream": true, chunked NDJSON: one {"token": N}
+                      line per token, then the result object. "adapter"
+                      (multi-LoRA, not ported) answers 400
+  POST /v1/completions  OpenAI completions: prompt (string with a
+                      tokenizer, or token list), max_tokens, temperature,
+                      top_p, stop, logprobs, seed, n (one prefill fanned
+                      out to n slots), presence/frequency_penalty,
+                      logit_bias, stream (SSE), usage
+  POST /v1/chat/completions  OpenAI chat: messages through the
+                      tokenizer's chat template, the same options
+  POST /v1/embeddings OpenAI embeddings: the mean-pooled final-norm
+                      hidden state of each input (string, token list or
+                      lists of either); 400 past max_prefill_len tokens
   POST /prefix        the /generate body's "tokens" or "text": prefill
                       the prefix once and pin its full KV pages, so later
                       prompts starting with it skip them -> {"registered":
                       n}; 400 on an empty or too-long prefix or a full
                       registry (--max-prefixes)
+  GET  /v1/models     the served model
   GET  /healthz       liveness: 200 while the engine thread lives (body
                       "draining" while draining), 503 once it died
   GET  /readyz        routability: 503 while draining or dead
   POST /drain         stop admitting, finish in-flight work
   GET  /debug/engine  the engine's debug snapshot
+  GET  /debug/steps   ?n= the flight recorder's newest n step records and
+                      phase medians, and the step graphs' capture counts
+
+A submit past --max-queue-depth answers 429 (the OpenAI error shape on
+/v1/*) with Retry-After; a draining engine 503.
 
 Run: python -m k8s_runpod_kubelet_tpu_torch.workloads.serve_main \
         --model llama3-8b --slots 8 --cache-len 2048 --port 8000 \
-        [--int4 | --int8] [--kv-int8] [--speculate K]
-        [--serving-chunk-tokens N] [--max-prefixes N] [--hf-checkpoint DIR]
+        [--tokenizer bytes|DIR] [--int4 | --int8] [--kv-int8]
+        [--speculate K] [--serving-chunk-tokens N] [--max-prefixes N]
+        [--kv-pool-pages N] [--max-queue-depth N] [--flight-recorder off]
+        [--hf-checkpoint DIR]
 (``--model mla-8b`` serves Multi-head Latent Attention from a latent
 arena; ``--kv-int8`` then makes the latents int8.)
 """
@@ -33,9 +53,15 @@ arena; ``--kv-int8`` then makes the latents int8.)
 from __future__ import annotations
 
 import argparse
+import base64
+import itertools
 import json
 import logging
+import queue
+import struct
 import threading
+import time
+import urllib.parse
 from concurrent.futures import TimeoutError as FutureTimeout
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
@@ -44,12 +70,15 @@ import torch
 from ..device import resolve_device
 from .serving import (EngineDraining, EngineOverloaded, ServingConfig,
                       ServingEngine)
-from .tokenizer import ByteTokenizer
+from .tokenizer import get_tokenizer
 
 log = logging.getLogger("serve-main")
 
 # request fields the JAX front accepts that this port does not serve yet
-_UNSUPPORTED = ("stream", "stop", "logprobs", "adapter")
+_UNSUPPORTED = ("adapter",)
+
+# the request-id tail: unique even when the wall clock stands still
+_RID_SEQ = itertools.count()
 
 
 def _or(value, default):
@@ -61,6 +90,9 @@ class _Handler(BaseHTTPRequestHandler):
     engine: ServingEngine = None  # bound by serve()
     tokenizer = None              # None = token-ids-only API
     request_timeout_s = 120.0
+    # wall clock for OpenAI "created" stamps and ids, monotonic deadlines
+    clock = staticmethod(time.time)
+    mono = staticmethod(time.monotonic)
     protocol_version = "HTTP/1.1"
 
     def log_message(self, *a):
@@ -78,22 +110,42 @@ class _Handler(BaseHTTPRequestHandler):
         self.end_headers()
         self.wfile.write(body)
 
+    def _overloaded(self, e, openai: bool = False):
+        """429 + Retry-After for EngineOverloaded, 503 for
+        EngineDraining (retry another replica)."""
+        status = 503 if isinstance(e, EngineDraining) else 429
+        err = ({"error": {"message": str(e), "type": "overloaded_error"}}
+               if openai else {"error": str(e)})
+        return self._send(status, err, extra_headers={"Retry-After": "1"})
+
     def _read_json(self) -> dict:
         length = int(self.headers.get("Content-Length") or 0)
         return json.loads(self.rfile.read(length)) if length else {}
 
     def do_GET(self):
         eng = self.engine
-        if self.path in ("/healthz", "/readyz"):
+        url = urllib.parse.urlparse(self.path)
+        if url.path in ("/healthz", "/readyz"):
             if not eng.alive:
                 return self._send(503, b"engine thread dead", "text/plain")
             if eng.draining:
-                status = 200 if self.path == "/healthz" else 503
+                status = 200 if url.path == "/healthz" else 503
                 return self._send(status, b"draining", "text/plain")
-            return self._send(200, b"ok" if self.path == "/healthz"
+            return self._send(200, b"ok" if url.path == "/healthz"
                               else b"ready", "text/plain")
-        if self.path == "/debug/engine":
+        if url.path == "/v1/models":
+            return self._send(200, {"object": "list", "data": [
+                {"id": eng.cfg.name, "object": "model",
+                 "created": int(self.clock()), "owned_by": "base"}]})
+        if url.path == "/debug/engine":
             return self._send(200, eng.debug_snapshot())
+        if url.path == "/debug/steps":
+            q = urllib.parse.parse_qs(url.query)
+            try:
+                n = int((q.get("n") or ["64"])[0])
+            except ValueError:
+                return self._send(400, {"error": "n must be an integer"})
+            return self._send(200, eng.debug_steps(n))
         self._send(404, {"error": f"no route {self.path}"})
 
     def do_POST(self):
@@ -103,11 +155,17 @@ class _Handler(BaseHTTPRequestHandler):
             return self._send(200, {"draining": True,
                                     "queue_depth": self.engine.queue_depth,
                                     "active_slots": self.engine.active_slots})
+        if self.path == "/v1/completions":
+            return self._openai_completion(chat=False)
+        if self.path == "/v1/chat/completions":
+            return self._openai_completion(chat=True)
+        if self.path == "/v1/embeddings":
+            return self._openai_embeddings()
         if self.path not in ("/generate", "/prefix"):
             return self._send(404, {"error": f"no route {self.path}"})
         try:
             req = self._read_json()
-            tokens = self._request_tokens(req)
+            tokens = self._request_tokens(self.path, req)
         except (json.JSONDecodeError, ValueError, TypeError) as e:
             return self._send(400, {"error": f"bad request: {e}"})
         if self.path == "/prefix":
@@ -115,16 +173,23 @@ class _Handler(BaseHTTPRequestHandler):
                 self.engine.register_prefix(tokens)
             except ValueError as e:
                 return self._send(400, {"error": str(e)})
-            except EngineOverloaded as e:
-                return self._send(429, {"error": str(e)},
-                                  extra_headers={"Retry-After": "1"})
+            except EngineOverloaded as e:   # an MLA engine's full pool
+                return self._overloaded(e)
             return self._send(200, {"registered": len(tokens)})
+        if req.get("stream"):
+            return self._generate_stream(tokens, req)
+        try:
+            stop, stop_strs = self._parse_stop(req.get("stop"))
+        except ValueError as e:
+            return self._send(400, {"error": str(e)})
         fut = self.engine.submit(
             tokens, req.get("max_new_tokens"), req.get("temperature"),
             top_k=_or(req.get("top_k"), 0), top_p=_or(req.get("top_p"), 1.0),
             presence_penalty=_or(req.get("presence_penalty"), 0.0),
             frequency_penalty=_or(req.get("frequency_penalty"), 0.0),
-            logit_bias=req.get("logit_bias"), seed=req.get("seed"))
+            logit_bias=req.get("logit_bias"), seed=req.get("seed"),
+            stop=stop, stop_text=stop_strs,
+            logprobs=bool(req.get("logprobs")))
         try:
             out = fut.result(timeout=self.request_timeout_s)
         except FutureTimeout:
@@ -133,27 +198,100 @@ class _Handler(BaseHTTPRequestHandler):
         except ValueError as e:
             return self._send(400, {"error": str(e)})
         except (EngineOverloaded, EngineDraining) as e:
-            return self._send(503 if isinstance(e, EngineDraining) else 429,
-                              {"error": str(e)},
-                              extra_headers={"Retry-After": "1"})
+            return self._overloaded(e)
         except Exception as e:  # noqa: BLE001 — engine failure: JSON 500
             return self._send(500, {"error": str(e)})
-        body = {"rid": out["rid"], "tokens": out["tokens"],
-                "latency_s": out["latency_s"]}
+        body = {k: out[k] for k in ("rid", "tokens", "latency_s",
+                                    "logprobs") if k in out}
         if self.tokenizer is not None:
-            body["text"] = self.tokenizer.decode(out["tokens"])
+            text = self.tokenizer.decode(out["tokens"])
+            if stop_strs:  # a text stop: cut at its first occurrence
+                text, _ = self._cut_at_stop(text, stop_strs)
+            body["text"] = text
         self._send(200, body)
 
-    def _request_tokens(self, body) -> list:
+    def _parse_stop(self, raw) -> tuple[list, list]:
+        """OpenAI ``stop``: a string, a list of strings (needs the
+        tokenizer) or a list of token lists. Returns (token sequences,
+        stop strings): strings encode without special tokens; a BPE
+        tokenizer also matches them on the decoded text, so a stop
+        straddling a token boundary still stops (a byte tokenizer's token
+        match is already text-exact)."""
+        if raw is None:
+            return [], []
+        if isinstance(raw, str):
+            raw = [raw]
+        if not isinstance(raw, list):
+            raise ValueError("stop must be string(s) or token lists")
+        toks_out, strs_out = [], []
+        for q in raw:
+            if isinstance(q, str):
+                if self.tokenizer is None:
+                    raise ValueError("string stop sequences need "
+                                     "--tokenizer")
+                toks = self.tokenizer.encode_plain(q)
+                if toks:
+                    toks_out.append(toks)
+                if q and not getattr(self.tokenizer, "byte_exact", False):
+                    strs_out.append(q)
+            elif isinstance(q, list):
+                toks_out.append(q)
+            else:
+                raise ValueError("stop must be string(s) or token lists")
+        return toks_out, strs_out
+
+    @staticmethod
+    def _cut_at_stop(text: str, stop_strs: list) -> tuple[str, bool]:
+        """Truncate at the first occurrence of any stop string (the stop
+        text never reaches the client)."""
+        idxs = [i for i in (text.find(q) for q in stop_strs) if i >= 0]
+        if idxs:
+            return text[:min(idxs)], True
+        return text, False
+
+    def _request_tokens(self, path: str, body) -> list:
+        """A request body's prompt token ids, for every generation route
+        and /prefix."""
         if not isinstance(body, dict):
             raise ValueError("request must be an object")
+        if path == "/v1/chat/completions":
+            messages = body.get("messages")
+            if not (isinstance(messages, list) and messages and all(
+                    isinstance(m, dict) and isinstance(m.get("role"), str)
+                    and isinstance(m.get("content"), str)
+                    for m in messages)):
+                raise ValueError("messages must be a non-empty list of "
+                                 "{role, content} objects")
+            if self.tokenizer is None:
+                raise ValueError("chat completions need --tokenizer")
+            tokens = list(self.tokenizer.apply_chat(messages))
+            if not tokens:
+                raise ValueError("empty prompt")
+            return tokens
+        if path == "/v1/completions":
+            prompt = body.get("prompt", "")
+            if isinstance(prompt, list) and all(
+                    isinstance(t, int) for t in prompt):
+                tokens = prompt
+            elif isinstance(prompt, str):
+                if self.tokenizer is None:
+                    raise ValueError("string prompts need --tokenizer; "
+                                     "send a token list instead")
+                tokens = self.tokenizer.encode(prompt)
+            else:
+                raise ValueError("prompt must be a string or token list")
+            if not tokens:
+                raise ValueError("empty prompt")
+            return tokens
+        # /generate and /prefix share the tokens/text body
         bad = [f for f in _UNSUPPORTED if body.get(f)]
         if bad:
             raise ValueError(f"fields {bad} are not served by this port")
         if "text" in body and "tokens" not in body:
             if self.tokenizer is None:
                 raise ValueError('server has no tokenizer (start with '
-                                 '--tokenizer bytes) — send "tokens"')
+                                 '--tokenizer bytes or a tokenizer '
+                                 'directory) — send "tokens"')
             if not isinstance(body["text"], str):
                 raise ValueError("text must be a string")
             tokens = self.tokenizer.encode(body["text"])
@@ -166,16 +304,388 @@ class _Handler(BaseHTTPRequestHandler):
             raise ValueError("tokens must be a list of ints")
         return tokens
 
+    def _stream_pump(self, tokens: list, kw: dict, ctype: str, fmt: dict):
+        """Streamed generation (NDJSON /generate and SSE /v1/*): the engine
+        thread pushes tokens into a queue, this handler thread writes them
+        out as HTTP chunks. A broken pipe raises in the engine's next
+        ``on_token`` call, which cancels the request. ``request_timeout_s``
+        bounds the whole request. ``fmt`` callbacks each return a list of
+        body chunks: token(t), timeout(), error(msg), end(result), an
+        optional start() sent right after the headers, and badreq(msg) /
+        overloaded(msg) for a submit that fails at once."""
+        q: "queue.Queue" = queue.Queue()
+        dead = threading.Event()
+
+        def on_token(t):
+            if dead.is_set():  # the client is gone: cancels in the engine
+                raise ConnectionError("stream client disconnected")
+            q.put(("tok", t))
+
+        fut = self.engine.submit(tokens, on_token=on_token, **kw)
+        if fut.done() and fut.exception() is not None:
+            exc = fut.exception()
+            if isinstance(exc, (EngineOverloaded, EngineDraining)):
+                overloaded = fmt.get("overloaded", fmt["badreq"])
+                return self._send(
+                    503 if isinstance(exc, EngineDraining) else 429,
+                    overloaded(str(exc)), extra_headers={"Retry-After": "1"})
+            return self._send(400, fmt["badreq"](str(exc)))
+        fut.add_done_callback(lambda f: q.put(("end", f)))
+        self.send_response(200)
+        self.send_header("Content-Type", ctype)
+        self.send_header("Transfer-Encoding", "chunked")
+        self.end_headers()
+
+        def chunk(body: bytes):
+            self.wfile.write(f"{len(body):x}\r\n".encode() + body + b"\r\n")
+            self.wfile.flush()
+
+        deadline = self.mono() + self.request_timeout_s
+        try:
+            for body in fmt.get("start", lambda: [])():
+                chunk(body)
+            while True:
+                try:
+                    remaining = deadline - self.mono()
+                    if remaining <= 0:
+                        raise queue.Empty
+                    kind, val = q.get(timeout=remaining)
+                except queue.Empty:
+                    # past the deadline: tell the client and stop the
+                    # request (cancel() reaches one still queued)
+                    dead.set()
+                    fut.cancel()
+                    for body in fmt["timeout"]():
+                        chunk(body)
+                    break
+                if kind == "tok":
+                    for body in fmt["token"](val):
+                        chunk(body)
+                else:
+                    exc = val.exception()
+                    for body in (fmt["error"](str(exc)) if exc
+                                 else fmt["end"](val.result())):
+                        chunk(body)
+                    break
+            self.wfile.write(b"0\r\n\r\n")
+            self.wfile.flush()
+        except (BrokenPipeError, ConnectionError, OSError):
+            dead.set()  # the engine cancels at its next on_token call
+
+    def _openai_embeddings(self):
+        """OpenAI /v1/embeddings: ``input`` is a string, a token list, or
+        a list of either."""
+        try:
+            req = self._read_json()
+            name = self.engine.cfg.name
+            model_req = req.get("model")
+            if model_req and model_req != name:
+                return self._send(404, {"error": {
+                    "message": f"model {model_req!r} is not served by "
+                               f"/v1/embeddings (base model {name!r} only)",
+                    "type": "invalid_request_error"}})
+            enc = req.get("encoding_format", "float")
+            if enc not in ("float", "base64"):
+                raise ValueError(f"encoding_format must be 'float' or "
+                                 f"'base64', got {enc!r}")
+            dims = req.get("dimensions")
+            if dims is not None and dims != self.engine.cfg.embed_dim:
+                raise ValueError(
+                    f"dimensions={dims} is not supported (embeddings are "
+                    f"the model's hidden size, {self.engine.cfg.embed_dim})")
+            raw = req.get("input")
+            if raw is None:
+                raise ValueError("missing input")
+            if isinstance(raw, str) or (
+                    isinstance(raw, list) and raw
+                    and all(isinstance(t, int) for t in raw)):
+                raw = [raw]
+            if not isinstance(raw, list) or not raw:
+                raise ValueError("input must be a non-empty string/list")
+            data, total = [], 0
+            for i, item in enumerate(raw):
+                if isinstance(item, str):
+                    if self.tokenizer is None:
+                        raise ValueError("string input needs --tokenizer")
+                    toks = self.tokenizer.encode(item)
+                elif (isinstance(item, list) and item
+                      and all(isinstance(t, int) for t in item)):
+                    toks = item
+                else:
+                    raise ValueError(f"input[{i}] must be a string or a "
+                                     "non-empty token list")
+                total += len(toks)
+                vec = self.engine.embed(toks)
+                if enc == "base64":   # little-endian f32, as OpenAI's
+                    vec = base64.b64encode(struct.pack(
+                        f"<{len(vec)}f", *vec)).decode("ascii")
+                data.append({"object": "embedding", "index": i,
+                             "embedding": vec})
+        except (json.JSONDecodeError, ValueError, TypeError,
+                OverflowError) as e:
+            return self._send(400, {"error": {
+                "message": str(e), "type": "invalid_request_error"}})
+        return self._send(200, {
+            "object": "list", "data": data, "model": self.engine.cfg.name,
+            "usage": {"prompt_tokens": total, "total_tokens": total}})
+
+    def _openai_completion(self, chat: bool):
+        """OpenAI POST /v1/completions and /v1/chat/completions. A matched
+        stop sequence or EOS never reaches the returned text, streamed or
+        not: streaming holds back the longest tail that could still
+        become a stop."""
+        try:
+            req = self._read_json()
+            tokens = self._request_tokens(
+                "/v1/chat/completions" if chat else "/v1/completions", req)
+            stop, stop_strs = self._parse_stop(req.get("stop"))
+            n = _or(req.get("n"), 1)
+            if not isinstance(n, int) or isinstance(n, bool) \
+                    or not 1 <= n <= 16:
+                raise ValueError(f"n must be an int in [1, 16], got {n!r}")
+            if n > 1 and req.get("stream"):
+                raise ValueError("streaming supports n=1")
+            seed = req.get("seed")
+            if seed is not None and (not isinstance(seed, int)
+                                     or isinstance(seed, bool)):
+                raise ValueError(f"seed must be an int, got {seed!r}")
+            # logprobs: completions only, not streamed (SSE chunks do not
+            # carry them)
+            want_lp = (bool(req.get("logprobs")) and not chat
+                       and not req.get("stream"))
+            kw = dict(max_new_tokens=req.get("max_tokens"),
+                      temperature=_or(req.get("temperature"), 1.0),
+                      top_p=_or(req.get("top_p"), 1.0), stop=stop,
+                      stop_text=stop_strs,
+                      presence_penalty=_or(req.get("presence_penalty"), 0.0),
+                      frequency_penalty=_or(req.get("frequency_penalty"),
+                                            0.0),
+                      logit_bias=req.get("logit_bias"), logprobs=want_lp)
+        except (json.JSONDecodeError, ValueError, TypeError) as e:
+            return self._send(400, {"error": {
+                "message": str(e), "type": "invalid_request_error"}})
+        ns = int(self.clock() * 1e9) + next(_RID_SEQ)
+        rid = f"chatcmpl-{ns:x}" if chat else f"cmpl-{ns:x}"
+        created = int(self.clock())
+        model_name = req.get("model") or self.engine.cfg.name
+        eos = self.engine.sc.eos_token
+
+        def finish_reason(toks: list) -> tuple[str, list]:
+            """(reason, tokens with a matched stop or EOS tail cut)."""
+            for q in stop:
+                if len(q) <= len(toks) and toks[-len(q):] == q:
+                    return "stop", toks[:-len(q)]
+            if toks and toks[-1] == eos:
+                return "stop", toks[:-1]
+            return "length", toks
+
+        def decode(toks: list) -> str:
+            return (self.tokenizer.decode(toks) if self.tokenizer is not None
+                    else "")
+
+        def finish_text(all_toks: list) -> tuple[str, list, str]:
+            """(reason, cut tokens, final text): the token cut first, then
+            the text cut at the first stop string."""
+            reason, toks = finish_reason(all_toks)
+            text = decode(toks)
+            if stop_strs:
+                text, hit = self._cut_at_stop(text, stop_strs)
+                if hit:
+                    reason = "stop"
+            return reason, toks, text
+
+        first_chunk = [True]
+
+        def chunk_obj(text: str, reason=None) -> dict:
+            if chat:
+                delta: dict = {"content": text} if text else {}
+                if first_chunk[0]:
+                    delta = {"role": "assistant", **delta}
+                    first_chunk[0] = False
+                return {"id": rid, "object": "chat.completion.chunk",
+                        "created": created, "model": model_name,
+                        "choices": [{"delta": delta, "index": 0,
+                                     "finish_reason": reason}]}
+            return {"id": rid, "object": "text_completion",
+                    "created": created, "model": model_name,
+                    "choices": [{"text": text, "index": 0,
+                                 "finish_reason": reason}]}
+
+        def sse(payload) -> bytes:
+            data = payload if isinstance(payload, str) else json.dumps(payload)
+            return f"data: {data}\n\n".encode()
+
+        if req.get("stream"):
+            # hold back the longest tail that could still become a stop or
+            # EOS match
+            holdback = max([len(q) for q in stop] or [0])
+            if eos >= 0:
+                holdback = max(holdback, 1)
+            pending: list = []   # tokens inside the stop-tail window
+            released: list = []  # tokens cleared for emission
+            sent = [0]           # chars of decode(released) streamed
+            # text stops also hold back (longest stop - 1) chars: a partial
+            # stop at the text's tail may still complete
+            char_hold = max([len(q) for q in stop_strs] or [1]) - 1
+            text_hit = [False]
+
+            def text_delta(final: bool) -> str:
+                """Incremental decode by cumulative difference (a
+                multi-byte char or a BPE merge may straddle chunks); a
+                trailing U+FFFD may be an incomplete char mid-stream."""
+                text = decode(released)
+                if not final and text.endswith("�"):
+                    text = text[:-1]
+                if stop_strs:
+                    cut, hit = self._cut_at_stop(text, stop_strs)
+                    if hit:
+                        text_hit[0] = True
+                        text = cut
+                    elif not final and char_hold:
+                        text = text[:max(sent[0], len(text) - char_hold)]
+                delta = text[sent[0]:]
+                sent[0] += len(delta)
+                return delta
+
+            def fmt_token(t) -> list:
+                pending.append(t)
+                if len(pending) > holdback:
+                    released.extend(pending[:len(pending) - holdback])
+                    del pending[:len(pending) - holdback]
+                    delta = text_delta(final=False)
+                    if delta:
+                        return [sse(chunk_obj(delta))]
+                return []
+
+            def fmt_end(out) -> list:
+                reason, cut = finish_reason(out["tokens"])
+                n_cut = len(out["tokens"]) - len(cut)
+                released.extend(pending[:len(pending) - n_cut]
+                                if n_cut else pending)
+                bodies = []
+                delta = text_delta(final=True)
+                if text_hit[0]:
+                    reason = "stop"
+                if delta:
+                    bodies.append(sse(chunk_obj(delta)))
+                bodies.append(sse(chunk_obj("", reason)))
+                bodies.append(sse("[DONE]"))
+                return bodies
+
+            return self._stream_pump(
+                tokens, dict(kw, seed=seed), "text/event-stream",
+                {"token": fmt_token, "end": fmt_end,
+                 # chat leads with the role delta, as OpenAI's own stream
+                 "start": lambda: [sse(chunk_obj(""))] if chat else [],
+                 "timeout": lambda: [sse({"error": {
+                     "message": "generation timed out",
+                     "type": "timeout"}}), sse("[DONE]")],
+                 "error": lambda msg: [sse({"error": {
+                     "message": msg, "type": "server_error"}}),
+                     sse("[DONE]")],
+                 "badreq": lambda msg: {"error": {
+                     "message": msg, "type": "invalid_request_error"}},
+                 "overloaded": lambda msg: {"error": {
+                     "message": msg, "type": "overloaded_error"}}})
+
+        # n choices share one prefill; with a seed, member i samples with
+        # seed + i, so sampled choices differ
+        futs = self.engine.submit_group(tokens, n, seed=seed, **kw)
+        deadline = self.mono() + self.request_timeout_s  # shared by all n
+        try:
+            outs = [f.result(timeout=max(0.0, deadline - self.mono()))
+                    for f in futs]
+        except FutureTimeout:
+            for f in futs:
+                f.cancel()
+            return self._send(504, {"error": {
+                "message": "generation timed out", "type": "timeout"}})
+        except ValueError as e:
+            for f in futs:
+                f.cancel()
+            return self._send(400, {"error": {
+                "message": str(e), "type": "invalid_request_error"}})
+        except (EngineOverloaded, EngineDraining) as e:
+            for f in futs:
+                f.cancel()
+            return self._overloaded(e, openai=True)
+        except Exception as e:  # noqa: BLE001 — engine failure: JSON 500
+            for f in futs:
+                f.cancel()
+            return self._send(500, {"error": {"message": str(e),
+                                              "type": "server_error"}})
+        choices = []
+        for i, out in enumerate(outs):
+            reason, toks, text = finish_text(out["tokens"])
+            if chat:
+                choice: dict = {"index": i, "finish_reason": reason,
+                                "message": {"role": "assistant",
+                                            "content": text}}
+            else:
+                choice = {"text": text, "index": i, "logprobs": None,
+                          "finish_reason": reason}
+                if want_lp:
+                    choice["logprobs"] = {
+                        "token_logprobs": out["logprobs"][:len(toks)],
+                        "tokens": [decode([t]) for t in toks],
+                        "top_logprobs": None}
+            choices.append(choice)
+        gen = sum(len(o["tokens"]) for o in outs)
+        return self._send(200, {
+            "id": rid, "object": "chat.completion" if chat
+            else "text_completion", "created": created, "model": model_name,
+            "choices": choices,
+            "usage": {"prompt_tokens": len(tokens), "completion_tokens": gen,
+                      "total_tokens": len(tokens) + gen}})
+
+    def _generate_stream(self, tokens: list, req: dict):
+        """Chunked NDJSON: one {"token": N} line per token, then the
+        result object (or {"error": ...})."""
+        try:
+            stop, stop_strs = self._parse_stop(req.get("stop"))
+        except ValueError as e:
+            return self._send(400, {"error": str(e)})
+        kw = dict(max_new_tokens=req.get("max_new_tokens"),
+                  temperature=req.get("temperature"),
+                  top_k=_or(req.get("top_k"), 0),
+                  top_p=_or(req.get("top_p"), 1.0), stop=stop,
+                  stop_text=stop_strs,
+                  presence_penalty=_or(req.get("presence_penalty"), 0.0),
+                  frequency_penalty=_or(req.get("frequency_penalty"), 0.0),
+                  logit_bias=req.get("logit_bias"), seed=req.get("seed"),
+                  logprobs=bool(req.get("logprobs")))
+
+        def line(payload: dict) -> bytes:
+            return (json.dumps(payload) + "\n").encode()
+
+        def fmt_end(out) -> list:
+            if self.tokenizer is not None:
+                out = dict(out)
+                text = self.tokenizer.decode(out["tokens"])
+                if stop_strs:
+                    text, _ = self._cut_at_stop(text, stop_strs)
+                out["text"] = text
+            return [line(out)]
+
+        return self._stream_pump(
+            tokens, kw, "application/x-ndjson",
+            {"token": lambda t: [line({"token": t})], "end": fmt_end,
+             "timeout": lambda: [line({"error": "generation timed out"})],
+             "error": lambda msg: [line({"error": msg})],
+             "badreq": lambda msg: {"error": msg}})
+
 
 def serve(engine: ServingEngine, port: int = 8000, tokenizer=None,
-          request_timeout_s: float = 120.0,
-          host: str = "0.0.0.0") -> ThreadingHTTPServer:
+          request_timeout_s: float = 120.0, host: str = "0.0.0.0",
+          clock=time.time, mono=time.monotonic) -> ThreadingHTTPServer:
     """Start the HTTP front on a daemon thread; ``port`` 0 picks a free
     port (read ``httpd.server_address[1]``). Stop with
-    ``httpd.shutdown(); httpd.server_close()``."""
+    ``httpd.shutdown(); httpd.server_close()``. ``clock``/``mono`` are the
+    wall and monotonic clocks (injectable for tests)."""
     handler = type("BoundHandler", (_Handler,),
                    {"engine": engine, "tokenizer": tokenizer,
-                    "request_timeout_s": request_timeout_s})
+                    "request_timeout_s": request_timeout_s,
+                    "clock": staticmethod(clock), "mono": staticmethod(mono)})
     httpd = ThreadingHTTPServer((host, port), handler)
     httpd.daemon_threads = True
     threading.Thread(target=httpd.serve_forever, name="serve-http",
@@ -194,8 +704,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--port", type=int, default=8000)
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a card) or cpu")
-    p.add_argument("--tokenizer", default="", choices=["", "bytes"],
-                   help='"bytes": UTF-8 byte ids, enables {"text": ...}')
+    p.add_argument("--tokenizer", default="", metavar="bytes|DIR",
+                   help='"bytes" (UTF-8 byte ids, any vocab >= 257) or a '
+                        "Hugging Face tokenizer directory: enables text "
+                        "prompts, chat and string stops")
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the random weights")
     p.add_argument("--int8", action="store_true",
@@ -221,6 +733,14 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "of cache_len / 2, back to back)")
     p.add_argument("--max-prefixes", type=int, default=8,
                    help="distinct prefixes POST /prefix may pin")
+    p.add_argument("--kv-pool-pages", type=int, default=0,
+                   help="pages in the KV arena (0 = auto: twice the slots' "
+                        "residency; at least slots * cache_len / 16)")
+    p.add_argument("--max-queue-depth", type=int, default=0,
+                   help="requests queued past this get 429 + Retry-After "
+                        "(0 = unbounded)")
+    p.add_argument("--flight-recorder", default="on", choices=["on", "off"],
+                   help="the per-decode-step timeline at GET /debug/steps")
     p.add_argument("--hf-checkpoint", default="", metavar="DIR",
                    help="load the weights from a Hugging Face model "
                         "directory (*.safetensors or pytorch_model*.bin) "
@@ -239,7 +759,8 @@ def build_engine(args: argparse.Namespace, params=None):
     if args.int8 and args.int4:
         raise ValueError("--int8 and --int4 are mutually exclusive — pick "
                          "one weight precision")
-    tokenizer = ByteTokenizer() if args.tokenizer == "bytes" else None
+    # before the weights: a bad tokenizer directory fails fast
+    tokenizer = get_tokenizer(args.tokenizer)
     sc = ServingConfig(
         slots=args.slots, cache_len=args.cache_len,
         max_new_tokens=args.max_new_tokens,
@@ -248,7 +769,9 @@ def build_engine(args: argparse.Namespace, params=None):
         quantize_int8=args.int8, quantize_int4=args.int4,
         quantize_kv_int8=args.kv_int8, speculate_k=args.speculate,
         serving_chunk_tokens=args.serving_chunk_tokens,
-        max_prefixes=args.max_prefixes)
+        max_prefixes=args.max_prefixes, kv_pool_pages=args.kv_pool_pages,
+        max_queue_depth=args.max_queue_depth,
+        flight_recorder=args.flight_recorder == "on")
     device = resolve_device(args.device)
     cfg = MODEL_CONFIGS[args.model]()
     if params is None and args.hf_checkpoint:
@@ -257,7 +780,10 @@ def build_engine(args: argparse.Namespace, params=None):
         gen = torch.Generator(device=device).manual_seed(args.seed)
         params = init_params(cfg, gen, device)
     # a quantizing engine keeps only its quantized copy of params
-    return ServingEngine(cfg, params, sc, device=device).start(), tokenizer
+    return ServingEngine(
+        cfg, params, sc, device=device,
+        decode_fn=tokenizer.decode if tokenizer is not None else None
+    ).start(), tokenizer
 
 
 def main(argv=None) -> int:

@@ -8,6 +8,15 @@ paged loop of the JAX package's ``workloads/serving/engine.py``).
   prefix pages join the run in place; the finished run's full pages enter
   the trie by reference. It samples the first token and hands
   (request, page run, first token) to the engine thread.
+- **Dense-scratch route**: when the pool cannot hold a prompt's run up
+  front, and for an n > 1 group (``submit_group``: a run's partial tail
+  page can belong to one slot only), the prompt prefills into a dense
+  single-request cache instead (``LlamaModel.prefill``, the flash kernel,
+  for the head; ``prefill_chunk_step`` for the rest), after gathering any
+  cached prefix pages from the arena; its full pages enter the trie by
+  copy. Binding a slot then references the cached full pages and fills
+  private tail pages from the cache; only tail pages that cannot be had
+  fail the request (``EngineOverloaded``).
 - **Engine thread**: binds ready runs to free slots (the run's pages become
   the slot's page-table row) and runs one ``paged_decode_step`` per step
   for every live slot, growing each slot's table by a private page when
@@ -22,6 +31,15 @@ paged loop of the JAX package's ``workloads/serving/engine.py``).
   slot is decoding (``ChunkArbiter``).
 - **Registered prefixes**: ``register_prefix`` prefills a shared prefix
   once and pins its full pages in the trie.
+- **Streaming and stops**: ``on_token`` sees each token as it commits;
+  ``stop`` token sequences and ``stop_text`` strings (matched on the
+  decoded tail) end a request; ``logprobs`` returns log P of each token
+  under the distribution it was sampled from.
+- **Embeddings**: ``embed`` mean-pools the final-norm hidden states of an
+  exact-length ``forward`` (the flash kernel) on the caller's thread.
+- **Flight recorder**: with ``flight_recorder`` on, every decode step's
+  wall splits into schedule/kernel/sample/commit phases in a bounded ring
+  (``recorder.FlightRecorder``), read through ``debug_steps()``.
 - **Step graphs**: the decode and verify steps run through
   ``StepGraph`` (``step_graph.py``), the JAX engine's jitted
   ``paged_step``/``paged_verify``: on a card each is captured as a CUDA
@@ -48,7 +66,7 @@ import threading
 import time
 import uuid
 from concurrent.futures import Future
-from typing import Optional
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
@@ -57,7 +75,7 @@ from ...device import resolve_device
 from ...models.llama import LlamaConfig, LlamaModel, Params
 from ...models.quant import quantize_params
 from .kv_manager import PagedKVStore, PoolExhausted
-from .recorder import CompileWatchdog
+from .recorder import CompileWatchdog, FlightRecorder
 from .sampler import (_apply_penalties, _bias_row, _logit_modded,
                       _penalized, _sample)
 from .scheduler import (ChunkArbiter, EngineDraining, EngineOverloaded,
@@ -71,7 +89,9 @@ COUNTERS = ("admitted", "decode_steps", "engine_errors", "prefill_errors",
             "prefill_chunks", "admission_rejected", "drain_rejected",
             "cancelled", "spec_proposed", "spec_accepted",
             "paged_speculative_steps", "paged_speculative_rollback_pages",
-            "chunk_interleaved_steps", "prefix_hits")
+            "chunk_interleaved_steps", "prefix_hits", "dense_prefills",
+            "dense_prefill_heads", "dense_prefill_chunks", "embeds",
+            "stream_cancelled", "prefix_cache_evictions")
 
 
 class _PagedRun:
@@ -89,10 +109,14 @@ class _PagedRun:
 
 class ServingEngine:
     def __init__(self, cfg: LlamaConfig, params: Params, sc: ServingConfig,
-                 seed: int = 0, device=None):
+                 seed: int = 0, device=None,
+                 decode_fn: Optional[Callable[[list], str]] = None):
+        """``decode_fn`` (token ids -> text, a tokenizer's ``decode``)
+        enables ``stop_text``."""
         self.device = resolve_device(device)
         self.cfg = cfg
         self.sc = sc
+        self._decode_fn = decode_fn
         if sc.quantize_int8 and sc.quantize_int4:
             raise ValueError("quantize_int8 and quantize_int4 are mutually "
                              "exclusive — pick one weight precision")
@@ -109,9 +133,18 @@ class ServingEngine:
             raise ValueError(f"cache_len {sc.cache_len} exceeds the model's "
                              f"max_seq_len {cfg.max_seq_len}")
         slot_pages = -(-sc.cache_len // t)
-        # one decode cache's worth for the slots plus as much again for
-        # the shared prefix pool (the JAX engine's auto sizing)
-        n_pages = 2 * sc.slots * slot_pages
+        if sc.kv_pool_pages < 0 or sc.max_queue_depth < 0:
+            raise ValueError("kv_pool_pages (0 = auto) and max_queue_depth "
+                             "(0 = unbounded) must be >= 0")
+        if 0 < sc.kv_pool_pages < sc.slots * slot_pages:
+            # the decode slots live in the arena
+            raise ValueError(
+                f"kv_pool_pages must be 0 (auto) or >= slots * "
+                f"ceil(cache_len / kv_page_tokens) = {sc.slots * slot_pages}"
+                f", got {sc.kv_pool_pages}")
+        # auto: one decode cache's worth for the slots plus as much again
+        # for the shared prefix pool (the JAX engine's auto sizing)
+        n_pages = sc.kv_pool_pages or 2 * sc.slots * slot_pages
         if sc.quantize_int8 or sc.quantize_int4:
             # on the params' device, one layer slice at a time
             params = quantize_params(cfg, params,
@@ -125,6 +158,12 @@ class ServingEngine:
         # buffers, captured at start() on a card (the JAX engine's jitted
         # paged_step / paged_verify); the watchdog counts every capture
         self.watchdog = CompileWatchdog()
+        # the per-step timeline; None when off, so a mark site costs one
+        # ``is not None`` test
+        self.recorder: Optional[FlightRecorder] = (
+            FlightRecorder(max_steps=sc.recorder_steps,
+                           max_bytes=sc.recorder_bytes)
+            if sc.flight_recorder else None)
         self._paged_step = self.watchdog.wrap(
             "paged_step", StepGraph(self.model, 1, sc.slots, slot_pages))
         self._paged_verify = self.watchdog.wrap(
@@ -143,8 +182,14 @@ class ServingEngine:
         self._logit_bias: Optional[torch.Tensor] = None
         self._queue: "queue.Queue[Request]" = queue.Queue()
         self._queue_event = threading.Event()
-        # prefill thread -> engine thread, bounded to the slot count
-        self._ready: "queue.Queue[tuple[Request, _PagedRun, int]]" = \
+        # fanout members queued behind their group's head: an n-member
+        # group is one queue entry but n requests
+        self._queued_fanout = 0
+        self._fanout_lock = threading.Lock()
+        # prefill thread -> engine thread, bounded to the slot count:
+        # (request, _PagedRun or dense single cache, first token, its
+        # logprob or None)
+        self._ready: "queue.Queue[tuple[Request, Any, int, Any]]" = \
             queue.Queue(maxsize=sc.slots)
         self._prefix_lock = threading.Lock()
         self._admit_lock = threading.Lock()
@@ -195,23 +240,73 @@ class ServingEngine:
                top_p: float = 1.0, presence_penalty: float = 0.0,
                frequency_penalty: float = 0.0,
                logit_bias: Optional[dict] = None,
-               seed: Optional[int] = None) -> Future:
+               seed: Optional[int] = None, stop: Optional[list] = None,
+               stop_text: Optional[list] = None, logprobs: bool = False,
+               on_token: Optional[Callable[[int], Any]] = None) -> Future:
         """Enqueue a generation request; resolves to {rid, tokens,
-        latency_s, ttft_s}. Invalid arguments resolve to ValueError."""
+        latency_s, ttft_s} (+ "logprobs", one per token, with
+        ``logprobs``). ``stop``: token sequences that end the request when
+        the output's tail equals one; ``stop_text``: strings that end it
+        when the decoded output contains one (needs ``decode_fn``);
+        ``on_token(tok)`` sees each token from the engine thread, and a
+        raising callback cancels the request. Invalid arguments resolve
+        to ValueError; a queue at ``max_queue_depth`` to
+        EngineOverloaded."""
         try:
             req = self._build_request(prompt, max_new_tokens, temperature,
                                       top_k, top_p, presence_penalty,
-                                      frequency_penalty, logit_bias, seed)
+                                      frequency_penalty, logit_bias, seed,
+                                      stop, stop_text, logprobs, on_token)
         except ValueError as exc:
             return _failed(exc)
+        return self._enqueue(req, 1)[0]
+
+    def submit_group(self, prompt: list[int], n: int,
+                     seed: Optional[int] = None, **kw) -> list[Future]:
+        """n requests over the identical prompt (OpenAI n > 1): the prompt
+        prefills ONCE, through the dense-scratch route, and fans out to n
+        slots. Member i samples with ``seed + i`` (when a seed is given),
+        so sampled choices differ; ``kw`` are ``submit``'s."""
+        if not _is_int(n) or n < 1:
+            return [_failed(ValueError(f"n must be a positive int, got "
+                                       f"{n!r}"))]
+        reqs = []
+        try:
+            for i in range(n):
+                # member 0 carries the validation (a bad seed type fails
+                # before any arithmetic)
+                s_i = seed if seed is None or i == 0 else seed + i
+                reqs.append(self._build_request(prompt, seed=s_i, **kw))
+        except ValueError as exc:
+            return [_failed(exc) for _ in range(n)]
+        reqs[0].fanout = reqs[1:]
+        return self._enqueue(reqs[0], n)
+
+    def _enqueue(self, head: Request, n: int) -> list[Future]:
+        """Admit ``head`` (with its fanout members, n requests in all) or
+        fail all n at once: draining, or the queue at max_queue_depth."""
+        members = [head] + list(head.fanout or [])
         with self._admit_lock:  # atomic check + put against racing submits
             if self._draining.is_set():
                 self._count("drain_rejected")
-                return _failed(EngineDraining(
-                    "engine is draining; submit to another replica"))
-            self._queue.put(req)
+                exc: Exception = EngineDraining(
+                    "engine is draining; submit to another replica")
+                return [_failed(exc) for _ in members]
+            depth = self.queue_depth
+            if self.sc.max_queue_depth and (
+                    depth + n > self.sc.max_queue_depth):
+                # the bounded-latency contract: an immediate typed
+                # rejection, not an unbounded wait
+                self._count("admission_rejected")
+                exc = EngineOverloaded(
+                    f"queue depth {depth} + {n} exceeds max_queue_depth "
+                    f"{self.sc.max_queue_depth}; retry later")
+                return [_failed(exc) for _ in members]
+            with self._fanout_lock:
+                self._queued_fanout += n - 1
+            self._queue.put(head)
             self._queue_event.set()
-        return req.future
+        return [r.future for r in members]
 
     def drain(self):
         """Stop admitting (submits resolve to EngineDraining) and finish
@@ -239,7 +334,10 @@ class ServingEngine:
 
     @property
     def queue_depth(self) -> int:
-        return self._queue.qsize()
+        """Every pending request: an n-member group counts n."""
+        with self._fanout_lock:
+            fanout = self._queued_fanout
+        return self._queue.qsize() + fanout
 
     @property
     def active_slots(self) -> int:
@@ -260,7 +358,9 @@ class ServingEngine:
         the same tokens, and capped at ``max_prefixes`` distinct prefixes
         (ValueError past it: each pins arena pages for the engine's life).
         The prefix's tail past its last full page still prefills per
-        request. EngineOverloaded when the pool cannot hold it now."""
+        request. A pool too full for an up-front run prefills through the
+        dense-scratch route and pins the pages it can cache (an MLA
+        engine, which has no dense route yet, raises EngineOverloaded)."""
         vocab = self.cfg.vocab_size
         if not tokens:
             raise ValueError("empty prefix")
@@ -274,11 +374,8 @@ class ServingEngine:
             if tokens in self._registered:
                 return
             self._check_registry_room()
-        out = self._prefill_paged_native(tokens)
-        if out is None:
-            raise EngineOverloaded(f"KV pool cannot hold the "
-                                   f"{len(tokens)}-token prefix; retry later")
-        run = out[1]
+        _, single, _ = self._prefill_tokens(tokens)
+        run = single if isinstance(single, _PagedRun) else None
         with self._prefix_lock:
             try:
                 if tokens in self._registered:
@@ -287,12 +384,17 @@ class ServingEngine:
                 # registry while this one prefilled outside the lock
                 self._check_registry_room()
                 self._registered.append(tokens)
-                if run.store is self._kv_store:
+                if run is None:
+                    _, evicted = self._kv_store.insert(0, tokens, single,
+                                                       pin=True)
+                    self._count("prefix_cache_evictions", evicted)
+                elif run.store is self._kv_store:
                     # the prefill adopted the pages unpinned; this second
                     # walk pins them, then the run's own references drop
                     run.store.insert_ready(0, tokens, run.pages, pin=True)
             finally:
-                run.store.release(run.pages)
+                if run is not None:
+                    run.store.release(run.pages)
 
     def _check_registry_room(self) -> None:
         if len(self._registered) >= self.sc.max_prefixes:
@@ -317,6 +419,43 @@ class ServingEngine:
             out[g.name].update(width=g.fn.width, replays=g.fn.replays,
                                capture_memory=g.fn.capture_memory)
         return out
+
+    def debug_steps(self, n: int = 64) -> dict:
+        """The GET /debug/steps payload: the recorder's newest ``n`` step
+        records and its rollup (when on), and the watchdog's per-graph
+        capture counts (always)."""
+        out = ({"enabled": False} if self.recorder is None
+               else self.recorder.snapshot(n))
+        out["recompiles"] = self.watchdog.snapshot()
+        return out
+
+    def embed(self, tokens: list[int]) -> list[float]:
+        """Mean-pooled final-norm hidden state of ``tokens`` (the
+        /v1/embeddings backing): one exact-length ``forward`` (the flash
+        kernel; int4 weights through ``int4_matmul``), pooled in f32. Runs
+        on the caller's thread under the arena lock, which orders its
+        launches with the engine's steps and keeps them out of a
+        capture."""
+        if not tokens:
+            raise ValueError("empty input")
+        if len(tokens) > self.sc.max_prefill_len:
+            # rejecting beats truncating: usage must reflect what was
+            # embedded
+            raise ValueError(
+                f"input length {len(tokens)} exceeds this server's "
+                f"embedding context ({self.sc.max_prefill_len} tokens)")
+        if not all(_is_int(t) and 0 <= t < self.cfg.vocab_size
+                   for t in tokens):
+            raise ValueError("input token ids must be within the vocabulary")
+        toks = torch.tensor([tokens], dtype=torch.int32, device=self.device)
+        with self._prefix_lock, torch.no_grad():
+            hidden = self.model.forward(self.params, toks,
+                                        return_hidden=True)
+            # pool in f32: bf16 sums over hundreds of positions lose
+            # ~1e-2 relative
+            pooled = hidden[0].float().mean(dim=0)
+            self._count("embeds")
+        return pooled.tolist()
 
     def debug_snapshot(self) -> dict:
         """/debug/engine: per-slot state, queue depths, pool occupancy and
@@ -362,9 +501,13 @@ class ServingEngine:
 
     # -- submission -----------------------------------------------------------
 
-    def _build_request(self, prompt, max_new_tokens, temperature, top_k,
-                       top_p, presence_penalty, frequency_penalty,
-                       logit_bias, seed) -> Request:
+    def _build_request(self, prompt, max_new_tokens=None, temperature=None,
+                       top_k=0, top_p=1.0, presence_penalty=0.0,
+                       frequency_penalty=0.0, logit_bias=None, seed=None,
+                       stop=None, stop_text=None, logprobs=False,
+                       on_token=None) -> Request:
+        """``submit``'s arguments, validated, as a Request (ValueError
+        when one is invalid)."""
         sc, vocab = self.sc, self.cfg.vocab_size
         if not prompt:
             raise ValueError("empty prompt")
@@ -403,6 +546,18 @@ class ServingEngine:
                        for t, b in logit_bias.items()):
                 raise ValueError("logit_bias keys must be valid token ids "
                                  "and biases in [-100, 100]")
+        stop = stop or []
+        if not (isinstance(stop, list) and all(
+                isinstance(q, list) and q and all(_is_int(t) for t in q)
+                for q in stop)):
+            raise ValueError("stop must be a list of non-empty token lists")
+        stop_text = stop_text or []
+        if not (isinstance(stop_text, list)
+                and all(isinstance(q, str) and q for q in stop_text)):
+            raise ValueError("stop_text must be a list of non-empty strings")
+        if stop_text and self._decode_fn is None:
+            raise ValueError("stop_text needs an engine decode_fn "
+                             "(tokenizer)")
         if seed is None:
             with self._seed_lock:
                 seed = int(self._seed_rng.integers(0, 2 ** 32))
@@ -418,7 +573,9 @@ class ServingEngine:
                        presence_penalty=float(presence_penalty),
                        frequency_penalty=float(frequency_penalty),
                        logit_bias=logit_bias or None,
-                       seed=seed & 0xFFFFFFFF)
+                       seed=seed & 0xFFFFFFFF, stop=[list(q) for q in stop],
+                       stop_texts=list(stop_text), logprobs=bool(logprobs),
+                       on_token=on_token)
 
     def _count(self, name: str, n: int = 1) -> None:
         with self._count_lock:
@@ -446,50 +603,174 @@ class ServingEngine:
                     self._transit -= 1
 
     def _prefill_one(self, req: Request):
-        if req.future.cancelled():
-            self._count("cancelled")
+        """One dequeued request and its fanout members: one prefill, then
+        one ready entry per live member, each with its own first token
+        sampled from the shared last-position logits."""
+        members = [req] + list(req.fanout or [])
+        with self._fanout_lock:
+            self._queued_fanout -= len(members) - 1
+        live = [r for r in members if not r.future.cancelled()]
+        self._count("cancelled", len(members) - len(live))
+        if not live:
             return
-        run = None
+        single = None
+        entries = []
         try:
-            out = self._prefill_paged_native(req.prompt)
-            if out is None:
-                self._count("admission_rejected")
-                _fail_future(req.future, EngineOverloaded(
-                    f"KV pool cannot hold the {len(req.prompt)}-token "
-                    f"prompt of {req.rid}; retry later"))
-                return
-            last_logits, run = out
-            if req.logit_bias:
-                brow = torch.from_numpy(_bias_row(req.logit_bias,
-                                                  self.cfg.vocab_size))
-                last_logits = last_logits + brow.to(self.device)[None, :]
-            # penalties count generated tokens only: none apply to the first
-            first = _sample(last_logits, [req.seed], [0], [req.temperature],
-                            [req.top_k], [req.top_p])[0]
+            # a group needs one bindable cache per member, and a page
+            # run's partial tail page can belong to one slot only
+            last_logits, single, _ = self._prefill_tokens(
+                req.prompt, single_only=len(live) > 1)
+            for r in live:
+                row = last_logits
+                if r.logit_bias:
+                    brow = torch.from_numpy(_bias_row(r.logit_bias,
+                                                      self.cfg.vocab_size))
+                    row = row.float() + brow.to(self.device)[None, :]
+                # penalties count generated tokens only: none apply here
+                first = _sample(row, [r.seed], [0], [r.temperature],
+                                [r.top_k], [r.top_p])[0]
+                first_lp = None
+                if r.logprobs:
+                    # of the distribution sampled (biased, never penalized)
+                    first_lp = float(torch.log_softmax(row[0].float(),
+                                                       dim=-1)[first])
+                entries.append((r, single, first, first_lp))
+        except EngineOverloaded as exc:   # no route can hold the prompt
+            self._count("admission_rejected", len(live))
+            for r in live:
+                _fail_future(r.future, exc)
+            return
         except Exception as exc:  # noqa: BLE001 — one poisoned prompt only
             log.exception("prefill of %s failed", req.rid)
             self._count("prefill_errors")
-            if run is not None:
+            if isinstance(single, _PagedRun):
                 with self._prefix_lock:
-                    run.store.release(run.pages)
-            _fail_future(req.future, exc)
+                    single.store.release(single.pages)
+            for r in live:
+                _fail_future(r.future, exc)
             return
-        while not self._stop.is_set():
-            try:
-                self._ready.put((req, run, first), timeout=0.1)
-                return
-            except queue.Full:
-                continue
+        for entry in entries:
+            while not self._stop.is_set():
+                try:
+                    self._ready.put(entry, timeout=0.1)
+                    break
+                except queue.Full:
+                    continue
+
+    def _prefill_tokens(self, tokens: list[int], single_only: bool = False
+                        ) -> tuple[torch.Tensor, Any, int]:
+        """A whole prompt -> (last logits (1, V), a _PagedRun or a dense
+        single-request cache, tokens served from the prefix cache). The
+        native route scatters straight into an up-front page run; when the
+        pool cannot hold that run, or with ``single_only`` (fanout
+        groups), the prompt takes the dense-scratch route."""
+        if not single_only:
+            out = self._prefill_paged_native(tokens)
+            if out is not None:
+                return out
+            # pool too full for an up-front run: the dense route below
+            # needs pages only for what it caches, and at binding
+            if self.cfg.is_mla:
+                raise EngineOverloaded(
+                    f"KV pool cannot hold the {len(tokens)}-token prompt "
+                    "and the dense-scratch route of an MLA model is not "
+                    "ported (ROADMAP Queue 1 #9); retry later")
+        return self._prefill_paged_dense(tokens)
+
+    def _prefill_paged_dense(self, tokens: list[int]
+                             ) -> tuple[torch.Tensor, dict, int]:
+        """The dense-scratch route: the prompt's cached full pages gather
+        from the arena into a fresh single-request cache (at least the
+        last token recomputes, for its logits) and the rest appends
+        through ``prefill_chunk_step``, or with no hit the whole prompt
+        prefills through ``_prefill_raw``. Then the prompt's full pages
+        enter the trie by copy (evicting as they go; best effort)."""
+        store = self._kv_store
+        single = None
+        self._count("dense_prefills")
+        with self._prefix_lock:
+            m = store.match(0, tokens)
+            if m.pages:
+                try:
+                    single = store.gather(m.pages, self._fresh_cache())
+                finally:
+                    store.release(m.pages)
+        if single is not None:
+            self._count("prefix_cache_hits")
+            if self._covers_registered(tokens):
+                self._count("prefix_hits")
+            last_logits, single = self._append_chunks(
+                single, tokens[m.matched_tokens:], None)
+        else:
+            self._count("prefix_cache_misses")
+            last_logits, single = self._prefill_raw(tokens)
+        try:
+            with self._prefix_lock:
+                _, evicted = store.insert(0, tokens, single)
+            self._count("prefix_cache_evictions", evicted)
+        except Exception:  # noqa: BLE001 — caching is best-effort
+            log.exception("prefix-cache insert failed; serving uncached")
+        return last_logits, single, m.matched_tokens
+
+    def _fresh_cache(self) -> dict:
+        return self.model.init_cache(1, self.sc.cache_len,
+                                     quantize=self.sc.quantize_kv_int8)
+
+    def _prefill_raw(self, tokens: list[int]) -> tuple[torch.Tensor, dict]:
+        """Prefill into a fresh single-request cache, no prefix cache: the
+        head (a chunk's length) through ``prefill``, the flash kernel, the
+        rest through ``_append_chunks``."""
+        single = self._fresh_cache()
+        head = tokens[:self._chunk_tokens or self.sc.max_prefill_len]
+        toks = torch.tensor([head], dtype=torch.int32, device=self.device)
+        with self._prefix_lock:   # behind the engine thread's replays
+            last_logits, single = self.model.prefill(self.params, toks,
+                                                     single)
+            self._count("dense_prefill_heads")
+        if self._chunk_tokens and len(tokens) > len(head):
+            self._yield_between_chunks()
+        return self._append_chunks(single, tokens[len(head):], last_logits)
+
+    def _append_chunks(self, single: dict, toks: list[int], last_logits
+                       ) -> tuple[torch.Tensor, dict]:
+        """Append ``toks`` to a single-request cache chunk by chunk through
+        ``prefill_chunk_step``; chunks are ``serving_chunk_tokens`` long
+        when set (one decode step between them while a slot decodes), else
+        ``max_prefill_len``. Returns (last logits, cache)."""
+        step = self._chunk_tokens or self.sc.max_prefill_len
+        for start in range(0, len(toks), step):
+            chunk = toks[start:start + step]
+            ctoks = torch.tensor([chunk], dtype=torch.int32,
+                                 device=self.device)
+            true_len = torch.tensor([len(chunk)], dtype=torch.int32,
+                                    device=self.device)
+            with self._prefix_lock:
+                last_logits, single = self.model.prefill_chunk_step(
+                    self.params, ctoks, single, true_len)
+                self._count("dense_prefill_chunks")
+            if self._chunk_tokens and start + step < len(toks):
+                self._yield_between_chunks()
+        return last_logits, single
+
+    def _yield_between_chunks(self) -> None:
+        """Wait for one decode step while a slot decodes (ChunkArbiter)."""
+        ran = self._arbiter.yield_for_decode(lambda: self.active_slots > 0)
+        if ran:
+            self._count("chunk_interleaved_steps", ran)
+            if self.recorder is not None:
+                self.recorder.event("chunk_interleave", steps=ran)
 
     def _prefill_paged_native(self, tokens: list[int]
-                              ) -> Optional[tuple[torch.Tensor, _PagedRun]]:
+                              ) -> Optional[tuple[torch.Tensor, _PagedRun,
+                                                  int]]:
         """Prefill straight into the arena: allocate the prompt's page run
         up front (a prefix hit's matched pages join it in place), scatter
         each chunk's K/V into those pages, then insert the run's full pages
         into the trie by reference. Chunks are ``serving_chunk_tokens``
         long when set, and then the thread yields one decode step between
         them while a slot decodes; else ``max_prefill_len``. Returns (last
-        logits (1, V), run), or None when the pool cannot hold the run."""
+        logits (1, V), run, tokens matched), or None when the pool cannot
+        hold the run."""
         store = self._kv_store
         t = self.sc.kv_page_tokens
         n_pages = -(-len(tokens) // t)
@@ -528,17 +809,14 @@ class ServingEngine:
                     self._count("prefill_chunks")
                 self._count("paged_prefill_tokens", len(chunk))
                 if self._chunk_tokens and start + step < len(rest):
-                    ran = self._arbiter.yield_for_decode(
-                        lambda: self.active_slots > 0)
-                    if ran:
-                        self._count("chunk_interleaved_steps", ran)
+                    self._yield_between_chunks()
             with self._prefix_lock:
                 store.insert_ready(0, tokens, pages)
         except Exception:
             with self._prefix_lock:
                 store.release(pages)
             raise
-        return last_logits, _PagedRun(pages, len(tokens), store)
+        return last_logits, _PagedRun(pages, len(tokens), store), covered
 
     # -- engine thread --------------------------------------------------------
 
@@ -572,14 +850,24 @@ class ServingEngine:
                 _fail_future(req.future, exc)
             slot.pages = []
             slot.kv_len = 0
+        drained_fanout = 0
         for q in (self._queue, self._ready):
             while True:
                 try:
                     item = q.get_nowait()
                 except queue.Empty:
                     break
-                req = item if isinstance(item, Request) else item[0]
-                _fail_future(req.future, exc)
+                if isinstance(item, Request):
+                    members = [item] + list(item.fanout or [])
+                    drained_fanout += len(members) - 1
+                else:
+                    members = [item[0]]
+                for req in members:
+                    _fail_future(req.future, exc)
+        # only the groups drained here: a submit may have counted its
+        # group and not queued it yet
+        with self._fanout_lock:
+            self._queued_fanout -= drained_fanout
         self._page_tables_np[:] = 0
         with self._prefix_lock:
             arena = self._kv_store.arena
@@ -595,12 +883,13 @@ class ServingEngine:
                 continue
             with self._transit_lock:
                 try:
-                    req, run, first = self._ready.get_nowait()
+                    req, single, first, first_lp = self._ready.get_nowait()
                 except queue.Empty:
                     break
                 self._transit += 1
             try:
-                self._admit_into_slot(slot_id, slot, req, run, first)
+                self._admit_into_slot(slot_id, slot, req, single, first,
+                                      first_lp)
             finally:
                 with self._transit_lock:
                     self._transit -= 1
@@ -609,30 +898,70 @@ class ServingEngine:
                 self._complete(slot_id, slot)
         return admitted
 
-    def _admit_into_slot(self, slot_id: int, slot: _Slot, req: Request,
-                         run: _PagedRun, first: int):
-        """The run's pages, references and all, become the slot's table."""
-        if run.store is not self._kv_store:
-            _fail_future(req.future, RuntimeError(
-                f"engine recovered while {req.rid} was in flight; its "
-                "prefilled pages were discarded — retry"))
-            self._count("admission_rejected")
-            return
-        slot.pages = list(run.pages)
-        slot.kv_len = run.kv_len
-        slot.bigram_index = {}
-        slot.indexed_upto = 0
+    def _bind_paged_slot(self, slot_id: int, slot: _Slot, req: Request,
+                         single) -> bool:
+        """Build the slot's page-table row. A _PagedRun's pages, references
+        and all, become the slot's. A dense single cache references the
+        prompt's cached full pages read-only (the prefill inserted them)
+        and fills private pages for the rest from the cache. Returns False
+        (request failed, slot free) when the run belongs to an arena a
+        recovery replaced, or the pool cannot supply the tail pages. Only
+        the page-table row changes, so the step graphs never recapture."""
+        store = self._kv_store
+        if isinstance(single, _PagedRun):
+            if single.store is not store:
+                _fail_future(req.future, RuntimeError(
+                    f"engine recovered while {req.rid} was in flight; its "
+                    "prefilled pages were discarded — retry"))
+                self._count("admission_rejected")
+                return False
+            slot.pages = list(single.pages)
+            slot.kv_len = single.kv_len
+        else:
+            t = self.sc.kv_page_tokens
+            n_prompt = len(req.prompt)
+            with self._prefix_lock:
+                m = store.match_full(0, req.prompt)
+                covered = m.matched_tokens
+                n_tail = -(-(n_prompt - covered) // t)
+                try:
+                    tail = store.alloc_run(n_tail) if n_tail else []
+                except PoolExhausted as exc:
+                    store.release(m.pages)
+                    _fail_future(req.future, EngineOverloaded(
+                        f"KV pool exhausted admitting {req.rid}: {exc}; "
+                        "retry later or raise kv_pool_pages"))
+                    self._count("admission_rejected")
+                    return False
+                store.fill_pages(single, tail, covered)
+            slot.pages = list(m.pages) + tail
+            slot.kv_len = n_prompt
         row = self._page_tables_np[slot_id]
         row[:] = 0
         row[:len(slot.pages)] = slot.pages
+        return True
+
+    def _admit_into_slot(self, slot_id: int, slot: _Slot, req: Request,
+                         single, first: int, first_lp: Optional[float]):
+        """Bind the prefill's pages to a free slot and emit the first
+        token."""
+        if not self._bind_paged_slot(slot_id, slot, req, single):
+            return
+        slot.bigram_index = {}
+        slot.indexed_upto = 0
+        slot.stop_tail = []
+        slot.stop_tail_upto = 0
         self._slot_seed[slot_id] = req.seed
         self._slot_draws[slot_id] = 1  # draw 0 was the prefill's token
         self._set_slot_rows(slot_id, req, first)
         slot.request = req
         slot.generated = [first]
+        slot.logprobs = [first_lp] if first_lp is not None else []
         slot.remaining = req.max_new_tokens - 1
         slot.last_token = first
+        # the first token becomes caller-visible here
         req.first_token_at = time.perf_counter()
+        self._emit(slot, first)
         self._count("admitted")
 
     def _set_slot_rows(self, slot_id: int, req: Request, first: int):
@@ -682,14 +1011,22 @@ class ServingEngine:
         return True
 
     def _decode_once_paged(self):
+        """One decode step: slot-table growth, one replay of the decode
+        graph (the recorder's schedule and kernel phases), then
+        ``_commit_decode`` (sample and commit)."""
         if self.sc.speculate_k > 0 and self._decode_once_speculative_paged():
             return
+        rec = self.recorder
+        if rec is not None:
+            rec.step_begin()
         for slot_id, slot in enumerate(self._slots):
             if slot.request is not None:
                 self._grow_slot_table(slot_id, slot, 1)
         active = [s.request is not None for s in self._slots]
         if not any(active):
             return
+        if rec is not None:
+            rec.mark("schedule")
         with self._prefix_lock:
             logits = self._paged_step(
                 self.params, self._kv_store.arena,
@@ -697,6 +1034,8 @@ class ServingEngine:
                 [s.kv_len for s in self._slots], self._page_tables_np,
                 active)
             self._count("decode_steps")
+        if rec is not None:
+            rec.mark("kernel")
         self._commit_decode(logits)
 
     def _propose(self, slot: _Slot, k: int) -> list[int]:
@@ -749,6 +1088,9 @@ class ServingEngine:
 
         if not any(greedy(s) for s in slots):
             return False
+        rec = self.recorder
+        if rec is not None:
+            rec.step_begin()
         # table growth BEFORE the step: a greedy slot writes up to k + 1
         # rows, never past its budget (the table is ceil(cache_len / T)
         # pages wide), a sampled slot 1
@@ -768,6 +1110,8 @@ class ServingEngine:
                 toks_in[i] = slot.last_token   # drafts of non-greedy: unread
                 if is_greedy[i]:
                     toks_in[i, 1:] = self._propose(slot, k)
+        if rec is not None:
+            rec.mark("schedule")
         with self._prefix_lock:
             logits = self._paged_verify(
                 self.params, self._kv_store.arena, toks_in,
@@ -775,23 +1119,38 @@ class ServingEngine:
                 n_tokens)
             self._count("decode_steps")
             self._count("paged_speculative_steps")
-        # one device -> host copy of every slot's K-wide argmax
+        if rec is not None:
+            rec.mark("kernel")
+        # one device -> host copy of every slot's K-wide argmax; logprobs
+        # and sampled draws are read from the logits now, before the next
+        # replay overwrites the graph's output
         greedy_np = logits.argmax(dim=-1).cpu().numpy()
         reqs = [s.request for s in slots]
-        sampled = None
+        greedy_lp = None
+        if any(r is not None and r.logprobs and g
+               for r, g in zip(reqs, is_greedy)):
+            greedy_lp = (logits.max(dim=-1).values
+                         - torch.logsumexp(logits, dim=-1)).cpu().numpy()
+        sampled = sampled_lp = None
         if not all(g for g, a in zip(is_greedy, active) if a):
             l0 = self._maybe_penalize(logits[:, 0], reqs)
             sampled = _sample(l0, self._slot_seed, self._slot_draws,
                               [r.temperature if r else 0.0 for r in reqs],
                               [r.top_k if r else 0 for r in reqs],
                               [r.top_p if r else 1.0 for r in reqs])
+            if any(r is not None and r.logprobs and not g
+                   for r, g in zip(reqs, is_greedy)):
+                sampled_lp = _token_logprobs(l0, sampled)
             if self._tok_counts is not None:
                 for i, r in enumerate(reqs):
                     if _penalized(r):
                         self._tok_counts[i, sampled[i]] += 1
         self._slot_draws = [d + 1 for d in self._slot_draws]
-        self._count("spec_proposed", k * sum(is_greedy))
-        accepted = rolled_back = 0
+        proposed = k * sum(is_greedy)
+        self._count("spec_proposed", proposed)
+        if rec is not None:
+            rec.mark("sample")
+        accepted = rolled_back = committed_total = 0
         for i, slot in enumerate(slots):
             if not active[i]:
                 continue
@@ -805,18 +1164,23 @@ class ServingEngine:
             else:
                 committed = [sampled[i]]
             appended = 0
-            for tok in committed:
+            for j, tok in enumerate(committed):
                 if slot.request is None:
-                    break   # finished mid-run (eos or budget)
+                    break   # finished mid-run (eos, stop or budget)
                 # committing token j commits the step's row j at kv_len
                 slot.kv_len += 1
                 slot.generated.append(tok)
+                if slot.request.logprobs:
+                    slot.logprobs.append(float(
+                        greedy_lp[i, j] if is_greedy[i] else sampled_lp[i]))
                 slot.last_token = tok
                 slot.remaining -= 1
                 appended += 1
                 self.total_generated += 1
+                self._emit(slot, tok)
                 if self._finished(slot):
                     self._complete(i, slot)
+            committed_total += appended
             if is_greedy[i] and appended > 1:
                 accepted += appended - 1   # drafts actually consumed
             if slot.request is None:
@@ -833,10 +1197,20 @@ class ServingEngine:
                 rolled_back += len(dropped)
         self._count("spec_accepted", accepted)
         self._count("paged_speculative_rollback_pages", rolled_back)
+        if rec is not None:
+            rec.step_end(mode="spec_verify", active=sum(active),
+                         draining=self._draining.is_set(), paged=True,
+                         spec_k=k, tokens=committed_total,
+                         arena=self._arena_step_stats(),
+                         spec={"proposed": proposed, "accepted": accepted,
+                               "rolled_back_pages": rolled_back})
         return True
 
     def _commit_decode(self, logits: torch.Tensor):
-        """Per-slot sampling, stop checks and slot bookkeeping."""
+        """Per-slot sampling, logprobs, stream emission, stop checks and
+        slot bookkeeping (the recorder's sample and commit phases). The
+        tokens and logprobs are read from the logits here, before the next
+        replay overwrites the graph's output."""
         reqs = [s.request for s in self._slots]
         logits = self._maybe_penalize(logits, reqs)
         nxt = _sample(logits, self._slot_seed, self._slot_draws,
@@ -848,17 +1222,37 @@ class ServingEngine:
             for i, r in enumerate(reqs):
                 if _penalized(r):
                     self._tok_counts[i, nxt[i]] += 1
+        lps = None
+        if any(r is not None and r.logprobs for r in reqs):
+            lps = _token_logprobs(logits, nxt)
+        rec = self.recorder
+        if rec is not None:
+            rec.mark("sample")
+        n_active = 0
         for slot_id, slot in enumerate(self._slots):
             if slot.request is None:
                 continue
+            n_active += 1
             slot.kv_len += 1  # the step wrote the input token's KV
             tok = nxt[slot_id]
             slot.generated.append(tok)
+            if slot.request.logprobs:
+                slot.logprobs.append(lps[slot_id])
             slot.last_token = tok
             slot.remaining -= 1
             self.total_generated += 1
+            self._emit(slot, tok)
             if self._finished(slot):
                 self._complete(slot_id, slot)
+        if rec is not None:
+            rec.step_end(mode="decode", active=n_active,
+                         draining=self._draining.is_set(), paged=True,
+                         tokens=n_active, arena=self._arena_step_stats())
+
+    def _arena_step_stats(self) -> dict:
+        """O(1) arena occupancy for a step record."""
+        pool = self._kv_store.pool
+        return {"pages_total": pool.n_pages, "pages_free": pool.free_count}
 
     def _maybe_penalize(self, logits: torch.Tensor, reqs) -> torch.Tensor:
         if self._tok_counts is not None and any(_penalized(r) for r in reqs):
@@ -873,10 +1267,46 @@ class ServingEngine:
             logits = logits.float() + self._logit_bias
         return logits
 
+    def _emit(self, slot: _Slot, tok: int):
+        """Stream a token to the requester; a raising callback means the
+        client is gone: the request finishes now with what it has."""
+        req = slot.request
+        if req is None or req.on_token is None:
+            return
+        try:
+            req.on_token(tok)
+        except Exception:  # noqa: BLE001 — client callback, not engine state
+            log.info("stream callback failed for %s; cancelling", req.rid)
+            req.on_token = None
+            slot.remaining = 0
+            self._count("stream_cancelled")
+
     def _finished(self, slot: _Slot) -> bool:
-        if slot.request.future.cancelled():
+        req = slot.request
+        if req.future.cancelled():
             return True
-        return slot.remaining <= 0 or slot.last_token == self.sc.eos_token
+        if slot.remaining <= 0 or slot.last_token == self.sc.eos_token:
+            return True
+        gen = slot.generated
+        if any(len(q) <= len(gen) and gen[-len(q):] == q for q in req.stop):
+            return True
+        if req.stop_texts:
+            # BPE-exact: a stop string straddling a token boundary is in
+            # the decoded text, never in a token tail. A running tail of
+            # ids, trimmed from the front only while the rest still
+            # decodes to >= the longest stop + 8 chars, keeps each check
+            # O(stop length)
+            need = max(len(q) for q in req.stop_texts) + 8
+            tail = slot.stop_tail
+            tail.extend(gen[slot.stop_tail_upto:])
+            slot.stop_tail_upto = len(gen)
+            while len(tail) > 1 and (
+                    len(tail) > 4 * need   # zero-char specials: a hard cap
+                    or len(self._decode_fn(tail[1:])) >= need):
+                tail.pop(0)
+            text = self._decode_fn(tail)
+            return any(q in text for q in req.stop_texts)
+        return False
 
     def _complete(self, slot_id: int, slot: _Slot):
         req = slot.request
@@ -892,6 +1322,8 @@ class ServingEngine:
         out = {"rid": req.rid, "tokens": slot.generated,
                "latency_s": now - req.submitted_at,
                "ttft_s": req.first_token_at - req.submitted_at}
+        if req.logprobs:
+            out["logprobs"] = slot.logprobs
         try:
             # the atomic claim: False iff the client's cancel won
             if req.future.set_running_or_notify_cancel():
@@ -900,6 +1332,13 @@ class ServingEngine:
                 self._count("cancelled")
         except Exception:  # noqa: BLE001 — future already resolved
             pass
+
+
+def _token_logprobs(logits: torch.Tensor, tokens: list[int]) -> list:
+    """log P(tokens[b]) under row b's softmax of (B, V) logits, in f32."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    idx = torch.tensor(tokens, dtype=torch.long, device=logits.device)
+    return logp.gather(1, idx[:, None])[:, 0].tolist()
 
 
 def _failed(exc: BaseException) -> Future:

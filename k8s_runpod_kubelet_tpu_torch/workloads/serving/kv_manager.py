@@ -14,7 +14,11 @@ plain layout), cut to what the paged loop calls.
   eviction is LRU over unpinned leaves (``register_prefix`` pins its
   path).
 - **PagedKVStore**: the arena tensors behind both, from
-  ``LlamaModel.init_paged_arena``.
+  ``LlamaModel.init_paged_arena``, and the copies between the arena and a
+  dense single-request cache (``LlamaModel.init_cache``): ``gather``
+  (matched pages into a cache), ``insert`` (a cache's full pages into the
+  trie) and ``fill_pages`` (a slot's private tail). A page copy is an
+  ``index_copy_`` over the page axis.
 
 Thread-safety: nothing here locks. The engine serializes every call, and
 every launch that touches the arena, under its ``_prefix_lock``.
@@ -23,7 +27,9 @@ every launch that touches the arena, under its ``_prefix_lock``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Callable, Optional
+
+import torch
 
 
 class PoolExhausted(RuntimeError):
@@ -129,8 +135,19 @@ class PrefixTrie:
         least one prompt token remains to compute (its logits pick the
         first generated token). Every returned page carries one extra
         reference; the caller must ``release`` it."""
-        self._clock += 1
         max_chunks = max(0, (len(tokens) - 1) // self.page_tokens)
+        return self._match_chunks(adapter_id, tokens, max_chunks)
+
+    def match_full(self, adapter_id: int, tokens: list) -> MatchResult:
+        """Like ``match`` but without the one-token-remaining cap: every
+        full page of ``tokens`` the trie holds, reference held. A slot
+        bound from a dense cache references these pages read-only."""
+        return self._match_chunks(adapter_id, tokens,
+                                  len(tokens) // self.page_tokens)
+
+    def _match_chunks(self, adapter_id: int, tokens: list,
+                      max_chunks: int) -> MatchResult:
+        self._clock += 1
         node_map = self._roots.get(adapter_id, {})
         pages: list[int] = []
         for chunk in self._chunks(tokens, max_chunks):
@@ -146,6 +163,59 @@ class PrefixTrie:
     def release(self, pages: list) -> None:
         for p in pages:
             self.pool.unref(p)
+
+    def insert(self, adapter_id: int, tokens: list,
+               write_pages: Callable[[list, int], None],
+               pin: bool = False) -> tuple[int, int]:
+        """Cache every full page of ``tokens`` not already present.
+        ``write_pages(page_ids, start_chunk)`` copies the KV payload into
+        the arena before the nodes become matchable. Evicts LRU leaves
+        when the pool runs dry, never a node on the path being extended;
+        with nothing evictable it caches what it could. Returns (pages
+        added, pages evicted)."""
+        self._clock += 1
+        want = len(tokens) // self.page_tokens
+        node_map = self._roots.setdefault(adapter_id, {})
+        parent: Optional[_Node] = None
+        chunks = self._chunks(tokens, want)
+        depth = 0
+        path: list[_Node] = []
+        for chunk in chunks:
+            node = node_map.get(chunk)
+            if node is None:
+                break
+            node.last_used = self._clock
+            if pin:
+                node.pinned = True
+            parent, node_map, depth = node, node.children, depth + 1
+            path.append(node)
+        evicted = 0
+        new_nodes: list[_Node] = []
+        protect = set(id(n) for n in path)
+        for chunk in chunks[depth:]:
+            try:
+                page = self.pool.alloc()
+            except PoolExhausted:
+                evicted += self._evict_lru(protect)
+                try:
+                    page = self.pool.alloc()
+                except PoolExhausted:
+                    break  # nothing evictable: cache what we could
+            node = _Node(chunk=chunk, page=page, parent=parent, pinned=pin,
+                         last_used=self._clock)
+            new_nodes.append(node)
+            protect.add(id(node))
+            parent = node
+        if new_nodes:
+            # payload first, visibility second
+            write_pages([n.page for n in new_nodes], depth)
+            node_map = (self._roots[adapter_id] if not path
+                        else path[-1].children)
+            for node in new_nodes:
+                node_map[node.chunk] = node
+                self._nodes[id(node)] = node
+                node_map = node.children
+        return len(new_nodes), evicted
 
     def insert_ready(self, adapter_id: int, tokens: list, pages: list,
                      pin: bool = False) -> int:
@@ -181,13 +251,14 @@ class PrefixTrie:
             added += 1
         return added
 
-    def _evict_lru(self) -> int:
+    def _evict_lru(self, protect: frozenset = frozenset()) -> int:
         """Drop the least-recently-used unpinned LEAF (its children would
-        orphan otherwise). The pool frees the page only if no reader still
-        holds it. Returns 1, or 0 when the trie has no such leaf."""
+        orphan otherwise) whose id() is not in ``protect``. The pool frees
+        the page only if no reader still holds it. Returns 1, or 0 when
+        the trie has no such leaf."""
         victim: Optional[_Node] = None
         for node in self._nodes.values():
-            if node.children or node.pinned:
+            if node.children or node.pinned or id(node) in protect:
                 continue
             if victim is None or node.last_used < victim.last_used:
                 victim = node
@@ -244,6 +315,11 @@ class PagedKVStore:
     def match(self, adapter_id: int, tokens: list) -> MatchResult:
         return self.trie.match(adapter_id, tokens)
 
+    def match_full(self, adapter_id: int, tokens: list) -> MatchResult:
+        """Every cached full page of ``tokens``, no final-token cap: the
+        page-table source of a slot bound from a dense cache."""
+        return self.trie.match_full(adapter_id, tokens)
+
     def alloc_run(self, n: int) -> list[int]:
         """``n`` private pages (refcount 1 each), evicting LRU trie leaves
         as needed. All or nothing: on exhaustion the partial run is
@@ -265,6 +341,50 @@ class PagedKVStore:
 
     def release(self, pages: list) -> None:
         self.trie.release(pages)
+
+    def gather(self, pages: list, single: dict) -> dict:
+        """Matched pages -> the single-request cache ``single`` (a fresh
+        ``LlamaModel.init_cache(1, ...)``, filled in place and returned)
+        with positions 0 .. len(pages) * T and ``index`` set. The caller
+        still owns the match references."""
+        n, t = len(pages), self.page_tokens
+        ids = torch.tensor(pages, dtype=torch.long,
+                           device=single["index"].device)
+        for name, a in self.arena.items():
+            frag = a.index_select(1, ids)               # (L, n, T, ...)
+            single[name][:, 0, :n * t] = frag.reshape(
+                (a.shape[0], n * t) + tuple(a.shape[3:]))
+        single["index"].fill_(n * t)
+        return single
+
+    def fill_pages(self, single: dict, pages: list, start_tok: int) -> None:
+        """Copy positions start_tok .. start_tok + len(pages) * T of a
+        single-request cache into ``pages`` (the caller owns their
+        references); positions past the cache's length copy as zeros
+        (masked by attention, overwritten by decode writes), so the last
+        page never reads a clamped slice."""
+        n, t = len(pages), self.page_tokens
+        for name, a in self.arena.items():
+            ids = torch.tensor(pages, dtype=torch.long, device=a.device)
+            src = single[name][:, 0, start_tok:start_tok + n * t]
+            if src.shape[1] < n * t:
+                pad = src.new_zeros((src.shape[0], n * t - src.shape[1])
+                                    + tuple(src.shape[2:]))
+                src = torch.cat([src, pad], dim=1)
+            a.index_copy_(1, ids, src.reshape(
+                (a.shape[0], n, t) + tuple(a.shape[3:])))
+
+    def insert(self, adapter_id: int, tokens: list, single: dict,
+               pin: bool = False) -> tuple[int, int]:
+        """Cache ``tokens``' full pages from a prefilled single-request
+        cache (KV for positions 0 .. len(tokens) present). Returns (pages
+        added, pages evicted)."""
+        t = self.page_tokens
+        return self.trie.insert(
+            adapter_id, tokens,
+            lambda ids, start_chunk: self.fill_pages(single, ids,
+                                                     start_chunk * t),
+            pin=pin)
 
     def insert_ready(self, adapter_id: int, tokens: list, pages: list,
                      pin: bool = False) -> int:

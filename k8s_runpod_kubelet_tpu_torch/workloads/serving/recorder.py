@@ -1,30 +1,219 @@
-"""Capture watchdog of the engine's step graphs (port of the
-``CompileWatchdog`` and ``_TrackedJit`` of the JAX package's
-``workloads/serving/recorder.py``).
+"""Serving flight recorder and capture watchdog (port of the
+``FlightRecorder``, ``CompileWatchdog`` and ``_TrackedJit`` of the JAX
+package's ``workloads/serving/recorder.py``). Stdlib only.
 
-The JAX engine jits its hot-path steps and counts every compile past the
-first: a cache-key flap that recompiles the hot loop is the bug that
-hides until production traffic. The port's counterpart of a compile is a
-CUDA-graph capture (``step_graph.StepGraph``): the first capture is the
-contract, every later one a recapture, logged with the diff of what the
-graph bakes in, and one past ``budget`` warns once.
+- **FlightRecorder**: a bounded ring of per-decode-step records: batch
+  composition, the step wall split into contiguous
+  schedule/kernel/sample/commit phases (the marks telescope, so the
+  phases sum to the step wall by construction), arena page occupancy,
+  speculative accounting, and out-of-band events (chunk interleave).
+  Served at ``GET /debug/steps``. The phases keep the reference's
+  meaning: ``schedule`` is slot-table growth and the step's host inputs,
+  ``kernel`` closes when the step is launched, ``sample`` when the next
+  tokens are on the host, ``commit`` at the end of the bookkeeping. A
+  step graph's replay is asynchronous, as a jitted dispatch is, so
+  ``kernel`` is the host's launch time and the wait for the card lands in
+  ``sample``, at the sampler's first read of the logits on the host.
+  The reference also feeds metrics histograms and per-request span
+  attribution from here; those come with the port's ``metrics.py`` and
+  ``tracing.py``.
+- **CompileWatchdog**: the JAX engine jits its hot-path steps and counts
+  every compile past the first: a cache-key flap that recompiles the hot
+  loop is the bug that hides until production traffic. The port's
+  counterpart of a compile is a CUDA-graph capture
+  (``step_graph.StepGraph``): the first capture is the contract, every
+  later one a recapture, logged with the diff of what the graph bakes in,
+  and one past ``budget`` warns once.
 
-A wrapped object exposes two seams, read only by the watchdog:
+A wrapped graph exposes two seams, read only by the watchdog:
 ``captures``, its capture count (the counterpart of jax.jit's
 ``_cache_size()``), and ``baked()``, the tree of tensors its graph holds
 pointers to. The fingerprint is each tensor's dtype, shape, device and
 ``data_ptr``, so a recapture caused by a moved arena names the arena.
+The counts are read through ``snapshot()`` (the engine's
+``debug_snapshot()["graphs"]`` and ``debug_steps()["recompiles"]``).
 
-Metrics, spans and the FlightRecorder are not ported yet; the counts are
-read through ``snapshot()`` (the engine's ``debug_snapshot()["graphs"]``).
+Threading: phase marks (``step_begin``/``mark``/``step_end``) are
+engine-thread-only and lock-free; the ring is guarded by one lock so
+``snapshot()`` (HTTP threads) stays consistent. ``event()`` may be called
+from any thread. A disabled recorder is ``None`` on the engine: the hot
+path pays one ``is not None`` test per mark site.
 """
 
 from __future__ import annotations
 
+import json
 import logging
-from typing import Optional
+import threading
+import time
+from collections import deque
+from typing import Any, Callable, Optional
 
 log = logging.getLogger(__name__)
+
+
+# phase marks in hot-path order; step_end closes "commit"
+PHASES = ("schedule", "kernel", "sample", "commit")
+
+# decode steps live in the single-digit-millisecond to ~100 ms band; the
+# buckets of the reference's step histograms (metrics.py, a later slice)
+STEP_BUCKETS = (0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
+                0.25, 0.5, 1.0)
+
+
+class FlightRecorder:
+    """Bounded ring of per-decode-step records.
+
+    ``max_steps`` bounds the record count and ``max_bytes`` the ring's
+    serialized size (each record is JSON-sized once at append; the oldest
+    evict until both bounds hold). ``perf`` is the clock (perf_counter,
+    injectable), so tests drive the phase math from a fake clock."""
+
+    def __init__(self, max_steps: int = 512, max_bytes: int = 262144,
+                 perf: Callable[[], float] = time.perf_counter):
+        if max_steps < 1:
+            raise ValueError(f"max_steps must be >= 1, got {max_steps}")
+        if max_bytes < 1024:
+            raise ValueError(f"max_bytes must be >= 1024, got {max_bytes}")
+        self.max_steps = max_steps
+        self.max_bytes = max_bytes
+        self._perf = perf
+        self._lock = threading.Lock()
+        # ring of (record, serialized bytes)
+        self._ring: "deque[tuple[dict, int]]" = deque()
+        self._bytes = 0
+        self._seq = 0
+        self.dropped_records = 0
+        # engine-thread step state (no lock: marks never cross threads)
+        self._t0: Optional[float] = None
+        self._marks: list[tuple[str, float]] = []
+
+    # -- hot path (engine thread only) -----------------------------------------
+
+    def step_begin(self):
+        """Arm a step: t0 opens the schedule phase."""
+        self._t0 = self._perf()
+        self._marks = []
+
+    def mark(self, phase: str):
+        """Close the named phase at now; the next phase opens here."""
+        if self._t0 is None:
+            return
+        self._marks.append((phase, self._perf()))
+
+    def step_end(self, mode: str = "decode", active: int = 0,
+                 draining: bool = False, paged: bool = False,
+                 spec_k: int = 0, adapters: int = 0, tokens: int = 0,
+                 arena: Optional[dict] = None, spec: Optional[dict] = None,
+                 interleaved: bool = False):
+        """Close the step ("commit" ends now) and append its record."""
+        if self._t0 is None:
+            return
+        t_end = self._perf()
+        phases: dict[str, float] = {}
+        prev = self._t0
+        for name, t in self._marks:
+            phases[name] = phases.get(name, 0.0) + (t - prev)
+            prev = t
+        phases["commit"] = phases.get("commit", 0.0) + (t_end - prev)
+        wall = t_end - self._t0
+        self._t0 = None
+        self._marks = []
+        record = {
+            "seq": self._seq,
+            "t": round(t_end, 6),
+            "wall_s": wall,
+            "phases": {f"{p}_s": phases.get(p, 0.0) for p in PHASES},
+            "batch": {"mode": mode, "active": active,
+                      "draining": bool(draining), "paged": bool(paged),
+                      "spec_k": spec_k, "adapters": adapters,
+                      "interleaved": bool(interleaved)},
+            "tokens": tokens,
+        }
+        if arena:
+            record["arena"] = arena
+        if spec:
+            record["spec"] = spec
+        self._seq += 1
+        self._append(record)
+
+    def event(self, kind: str, **attrs):
+        """Out-of-band timeline entry (chunk-interleave yields); any
+        thread."""
+        record = {"seq": self._seq, "t": round(self._perf(), 6),
+                  "event": kind}
+        if attrs:
+            record.update(attrs)
+        self._seq += 1
+        self._append(record)
+
+    def _append(self, record: dict):
+        try:
+            # sized and stored compact, so the byte budget buys more records
+            nbytes = len(json.dumps(record, separators=(",", ":")))
+        except (TypeError, ValueError):
+            # a non-serializable attr must never kill the engine thread
+            with self._lock:
+                self.dropped_records += 1
+            return
+        with self._lock:
+            if nbytes > self.max_bytes:
+                self.dropped_records += 1
+                return
+            self._ring.append((record, nbytes))
+            self._bytes += nbytes
+            while (len(self._ring) > self.max_steps
+                   or self._bytes > self.max_bytes):
+                _, old = self._ring.popleft()
+                self._bytes -= old
+
+    # -- reads -----------------------------------------------------------------
+
+    @property
+    def ring_bytes(self) -> int:
+        with self._lock:
+            return self._bytes
+
+    def records(self, n: int = 0) -> list[dict]:
+        """The newest ``n`` records (0 = all), oldest first."""
+        with self._lock:
+            recs = [r for r, _ in self._ring]
+        return recs[-n:] if n else recs
+
+    def rollup(self) -> dict:
+        """Phase medians and batch composition over the current ring."""
+        with self._lock:
+            recs = [r for r, _ in self._ring]
+            nbytes = self._bytes
+            dropped = self.dropped_records
+        steps = [r for r in recs if "wall_s" in r]
+        out: dict[str, Any] = {
+            "records": len(recs), "steps": len(steps),
+            "events": len(recs) - len(steps), "bytes": nbytes,
+            "max_bytes": self.max_bytes, "dropped": dropped,
+        }
+        if not steps:
+            return out
+        out["wall_ms_p50"] = _median([r["wall_s"] for r in steps]) * 1e3
+        for p in PHASES:
+            out[f"{p}_ms_p50"] = _median(
+                [r["phases"].get(f"{p}_s", 0.0) for r in steps]) * 1e3
+        out["active_p50"] = _median(
+            [r["batch"]["active"] for r in steps])
+        out["tokens_total"] = sum(r.get("tokens", 0) for r in steps)
+        out["spec_steps"] = sum(
+            1 for r in steps if r["batch"]["mode"] == "spec_verify")
+        return out
+
+    def snapshot(self, n: int = 64) -> dict:
+        """The /debug/steps payload: the newest records and the rollup."""
+        return {"enabled": True, "steps": self.records(n),
+                "rollup": self.rollup()}
+
+
+def _median(vals: list) -> float:
+    s = sorted(vals)
+    return float(s[len(s) // 2]) if s else 0.0
 
 
 def _fingerprint(tree) -> list[str]:

@@ -1,13 +1,15 @@
 """Serving request/slot state, admission types and the chunk arbiter (port
 of the JAX package's ``workloads/serving/scheduler.py``, restricted to the
-fields the paged loop of this port uses)."""
+fields the paged loop of this port uses; ``prefix_cache_enabled``, which
+turns the paged loop off in the reference, waits for the contiguous
+decode loop)."""
 
 from __future__ import annotations
 
 import dataclasses
 import threading
 from concurrent.futures import Future
-from typing import Optional
+from typing import Any, Optional
 
 
 @dataclasses.dataclass
@@ -20,6 +22,14 @@ class ServingConfig:
     eos_token: int = -1          # -1 = never stop on a token
     # tokens per KV page (the pool's allocation and prefix-match granule)
     kv_page_tokens: int = 16
+    # pages in the arena. 0 = auto: twice the slots' residency (slots *
+    # ceil(cache_len / kv_page_tokens)), one share for the decode slots and
+    # one for the shared prefix pool. At least the slots' residency: the
+    # decode slots live in the arena
+    kv_pool_pages: int = 0
+    # admission bound: a submit that finds this many requests queued
+    # resolves to EngineOverloaded (HTTP 429). 0 = unbounded
+    max_queue_depth: int = 0
     # weight-only int8 (models/quant.py): per-output-channel scales, the
     # dequant multiply after each matmul
     quantize_int8: bool = False
@@ -48,11 +58,18 @@ class ServingConfig:
     # how many distinct prefixes register_prefix() pins in the trie (each
     # pins its pages for the engine's life)
     max_prefixes: int = 8
+    # per-decode-step timeline (recorder.FlightRecorder), served at GET
+    # /debug/steps: at most recorder_steps records and recorder_bytes of
+    # serialized payload (oldest evict first). Off: the engine holds no
+    # recorder at all
+    flight_recorder: bool = True
+    recorder_steps: int = 512
+    recorder_bytes: int = 262144
 
 
 class EngineOverloaded(RuntimeError):
-    """Request rejected at admission: the KV pool cannot hold its
-    prompt."""
+    """Request rejected at admission: the queue is at max_queue_depth, or
+    the KV pool cannot supply a dense-route prompt's tail pages."""
 
 
 class EngineDraining(RuntimeError):
@@ -78,6 +95,21 @@ class Request:
     # sampling seed: draw i of this request comes from (seed, i), whatever
     # slot it lands in and whatever shares the batch
     seed: int = 0
+    # stop token SEQUENCES: generation ends when the generated tail equals
+    # one (the matched sequence stays in the output; callers strip it)
+    stop: list = dataclasses.field(default_factory=list)
+    # stop STRINGS matched on the decoded text (needs the engine's
+    # decode_fn): exact for BPE vocabularies, where a stop string can
+    # straddle a token boundary
+    stop_texts: list = dataclasses.field(default_factory=list)
+    # return log P(token | prefix) of each generated token
+    logprobs: bool = False
+    # streaming: called with each generated token id from the engine
+    # thread; a raising callback cancels the request
+    on_token: Optional[Any] = None
+    # co-submitted requests over the IDENTICAL prompt (OpenAI n > 1): one
+    # prefill fans out to every member, each sampling its own first token
+    fanout: Optional[list] = None
     first_token_at: float = 0.0
 
 
@@ -97,6 +129,10 @@ class _Slot:
     # token where a rescan would be O(context) a step)
     bigram_index: dict = dataclasses.field(default_factory=dict)
     indexed_upto: int = 0
+    logprobs: list = dataclasses.field(default_factory=list)
+    # stop_texts: a running tail of token ids trimmed by decoded length
+    stop_tail: list = dataclasses.field(default_factory=list)
+    stop_tail_upto: int = 0
 
 
 class ChunkArbiter:

@@ -169,6 +169,9 @@ FLASH_CASES = {
     "noncausal": (2, 8, 2, 65, 65, 128, False, None, None),
     "sq_gt_sk_window": (1, 2, 1, 50, 20, 64, True, 8, None),
     "sk_gt_sq": (1, 4, 2, 20, 70, 128, False, None, None),
+    # the serving shape: a dense-route prefill head or an embed at 8B
+    # widths, one sequence of a ragged length
+    "serving_b1_s1000": (1, 32, 8, 1000, 1000, 128, True, None, None),
 }
 
 
@@ -1102,3 +1105,67 @@ def test_engine_recovers_without_recapture(cuda):
     for name in ("paged_step", "paged_verify"):
         assert graphs[name]["compiles"] == 1, graphs
         assert graphs[name]["recompiles"] == 0 and graphs[name]["replays"]
+
+
+# -- the dense-scratch route and embeddings on the card ------------------------------
+
+def test_dense_route_first_logits_match_eager_paged_prefill(cuda):
+    """tiny_llama bf16 on the card: the dense route's prefill (the flash
+    kernel, one launch a layer) gives the last-token logits of an eager
+    ``paged_prefill_chunk_step`` over the same prompt within 2% relative
+    L2 (the two bf16 paths round at other places), the same layer-0 K/V
+    rows bit for bit (both quantize nothing and compute them with the same
+    GEMMs), and an n = 2 greedy group from it decodes through the step
+    graph with no recapture; ``embed`` launches the flash kernel once a
+    layer and lands within 2% of a plain f32 forward's pooled state."""
+    from k8s_runpod_kubelet_tpu_torch.models import LlamaModel
+    from k8s_runpod_kubelet_tpu_torch.workloads.serving import (
+        ServingConfig, ServingEngine)
+
+    cfg, params = _tiny_bf16(cuda)
+    eng = ServingEngine(cfg, params, ServingConfig(
+        slots=2, max_prefill_len=128, cache_len=256, max_new_tokens=8,
+        kv_page_tokens=16), device=cuda).start()
+    gen = torch.Generator().manual_seed(3)
+    prompt = torch.randint(0, 128, (100,), generator=gen).tolist()
+    try:
+        f0, r0 = flash_fwd.launches, rms_norm.launches
+        logits, single, matched = eng._prefill_tokens(prompt,
+                                                      single_only=True)
+        torch.cuda.synchronize()
+        assert matched == 0 and isinstance(single, dict)
+        assert flash_fwd.launches - f0 == cfg.n_layers
+        assert rms_norm.launches - r0 == 2 * cfg.n_layers + 1
+        model = eng.model
+        arena = model.init_paged_arena(8, 16)
+        table = torch.zeros((1, 16), dtype=torch.int32, device=cuda)
+        table[0, :7] = torch.arange(7)
+        want, _, _ = model.paged_prefill_chunk_step(
+            params, torch.tensor([prompt], device=cuda), arena, table,
+            torch.zeros(1, dtype=torch.int32, device=cuda),
+            torch.tensor([100], dtype=torch.int32, device=cuda))
+        rel = ((logits - want).norm() / want.norm()).item()
+        assert rel <= 2e-2, rel
+        paged_k = arena["k"][0, :7].reshape(112, *arena["k"].shape[3:])
+        assert torch.equal(single["k"][0, 0, :100], paged_k[:100])
+        outs = [f.result(timeout=300)["tokens"]
+                for f in eng.submit_group(prompt, 2)]
+        assert outs[0] == outs[1] and len(outs[0]) == 8
+        f0 = flash_fwd.launches
+        vec = torch.tensor(eng.embed(prompt[:64]))
+        assert flash_fwd.launches - f0 == cfg.n_layers
+        # the plain f32 forward runs on the CPU (the kernels take bf16)
+        ref_model = LlamaModel(dataclasses.replace(cfg, dtype=torch.float32),
+                               "cpu")
+        ref = ref_model.forward(
+            {k: v.float().cpu() if not isinstance(v, dict) else
+             {n: x.float().cpu() for n, x in v.items()}
+             for k, v in params.items()},
+            torch.tensor([prompt[:64]]), return_hidden=True)[0].mean(dim=0)
+        assert torch.isfinite(vec).all()
+        assert ((vec - ref).norm() / ref.norm()).item() <= 2e-2
+        graphs = eng.graphs_snapshot()
+    finally:
+        eng.stop()
+    assert graphs["paged_step"]["compiles"] == 1
+    assert graphs["paged_step"]["recompiles"] == 0

@@ -212,7 +212,7 @@ def test_http_front():
         assert status == 200 and isinstance(json.loads(body)["text"], str)
         assert _http(port, "POST", "/generate", {"tokens": "x"})[0] == 400
         assert _http(port, "POST", "/generate",
-                     {"tokens": [1], "stream": True})[0] == 400
+                     {"tokens": [1], "adapter": "lora-a"})[0] == 400
         assert _http(port, "POST", "/generate",
                      {"tokens": [1], "top_p": 2.0})[0] == 400
         assert _http(port, "GET", "/nope")[0] == 404
