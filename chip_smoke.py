@@ -5,7 +5,9 @@ width and depth, random bf16 weights from a seed) through the paged
 engine and its HTTP front, in bf16 and then with int4 weights and an int8
 KV arena, and behind the OpenAI front on a full pool, serves mla-8b (the
 same, with Multi-head Latent Attention) over a bf16 and then an int8
-latent arena, then trains Llama-3-8B widths at 4 layers.
+latent arena, serves Mixtral-8x7B (full width and depth, int4 weights drawn
+and quantized a layer at a time) through its sparse-MoE layers, then
+trains Llama-3-8B widths at 4 layers.
 
 Run from the repository root on a machine with one NVIDIA card:
 
@@ -26,7 +28,8 @@ print the final ``ok`` line):
    (an instantiation of either paged kernel, ``paged_attention_multi`` or
    the int8-page ``paged_attention_multi_quant``, ``flash_fwd``,
    ``flash_dq``, ``flash_dkv``, either MLA latent kernel or a prefill-regime
-   ``int4_matmul`` without HGMMA, or a decode-regime ``int4_matmul`` with
+   ``int4_matmul`` or ``int4_expert_matmul`` (the second entry of
+   ``csrc/int4_matmul.cu``) without HGMMA, or a decode-regime one with
    neither HGMMA nor HMMA, fails the phase, as does a kernel missing from
    its library);
 3. kernels vs plain on the card, at the shapes the 8B main path gives
@@ -38,7 +41,16 @@ print the final ``ok`` line):
    the model's ``_kv_quant`` made from the same K/V), the
    single-token forms ``paged_attention`` and ``paged_attention_quant`` at
    the decode shape, ``int4_matmul`` at each distinct projection shape of
-   the 8B model at 8 and 1024 rows, and
+   the 8B model at 8 and 1024 rows, ``int4_expert_matmul`` at Mixtral's
+   expert projections (8 experts, gate/up 4096 -> 14336, down 14336 ->
+   4096) over buffers of 8, 40 and 1024 rows an expert (a decode step of 8
+   slots, a K = 5 verify step, a 1024-token chunk) filled up to the counts
+   of a seeded top-2 router (every row checked; rows past a count exactly
+   zero; the launch at full capacity must give the same bytes; controls:
+   nibbles swapped, each expert given its neighbour's weights, each group
+   its neighbour's scale; times with the counts and at full capacity,
+   beside ``torch.bmm`` by the dequantized bf16 experts as a yardstick),
+   and
    ``rms_norm`` (8 and 1024 rows of 4096 for serving; x (8, 2048, 4096)
    needing gradients with an f32 weight for training, where y, dx and dw
    are each held against autograd of the plain version). Each case prints
@@ -197,7 +209,22 @@ Step graphs (phases 4, 7s, 7b, 7c, 7d). Each engine captures its decode
 7d. the same from ``--model mla-8b --kv-int8`` (int8 latents, pages of
    299,008 B), through ``paged_attention_multi_mla_quant``, the
    independent check at limit 0.15, and the gap to 7c's logits
-   (information only); then the MLA weights are freed before training;
+   (information only); then the MLA weights are freed;
+7m. MoE engine: the engine the serve CLI builds from ``--model
+   mixtral-8x7b --int4`` (8 slots, cache_len 2048, 16-token pages, bf16
+   arena), its weights drawn from the seed and quantized a layer at a time
+   (``init_quantized_params``: the 93 GB bf16 tree never exists); weight
+   and arena bytes and peak memory, which must stay under 80 GB; the same
+   burst (prompt tokens below Mixtral's 32000), stretches and repeat, each
+   step or chunk launching exactly 96 ``int4_expert_matmul`` (gate, up
+   and down a layer), 129 ``int4_matmul`` (wq, wk, wv, wo a layer and the
+   head), 32 ``paged_attention_multi``, 65 ``rms_norm`` and no other
+   attention kernel; (g1)-(g5); the independent check against a plain f32
+   forward of the dequantized weights (f32 routing, each token's top-2
+   experts, no capacity buffer), one layer at a time, limit 0.15, with the
+   skipped-layer control and the count of (token, layer) pairs whose
+   router's 2nd and 3rd probabilities lie within 1e-3; HTTP, drain with
+   zero leaked pages; then the Mixtral weights are freed before training;
 8. flash kernels vs plain on the card: ``flash_fwd``, ``flash_dq`` and
    ``flash_dkv`` at the training shape (B 8, Hq 32, Hkv 8, S 2048, D 128,
    causal), a ragged S=1000, D=64, D=256, GQA group 1, a window, a soft
@@ -246,7 +273,8 @@ engine's run as ``serve_spec`` and phase 7o as ``serve_openai`` (also
 engine's burst
 for ``paged_attention_multi_quant`` and ``int4_matmul``, the MLA engines'
 bursts for ``paged_attention_multi_mla`` and
-``paged_attention_multi_mla_quant``, the training run for the flash
+``paged_attention_multi_mla_quant``, phase 7m's burst as ``serve_moe``
+for ``int4_expert_matmul``, the training run for the flash
 kernels; the single-token forms lie on no model path, in this port as in
 the JAX package, and count 0), the last line
 ``{"ok": true, "device": {...}}``. ``--out PATH`` also writes every
@@ -289,7 +317,7 @@ TENSOR_CORE_KERNELS = {
     "paged_attention_multi_mla": ("paged_attention_multi_mla_kernel",),
     "paged_attention_multi_mla_quant": (
         "paged_attention_multi_mla_quant_kernel",),
-    "int4_matmul": ("int4_matmul_kernel",)}
+    "int4_matmul": ("int4_matmul_kernel", "int4_expert_matmul_kernel")}
 INT4_DECODE_ROWS = 16
 # Kernel and plain version both compute in f32 and round once to bf16, so
 # they differ by at most one bf16 ulp of the output, which is <= 2^-7 |y|;
@@ -322,6 +350,34 @@ QUANT_ENGINE_REL_L2_LIMIT = 0.15
 # before the first run.
 MLA_ENGINE_REL_L2_LIMIT = 0.1
 MLA_INT8_ENGINE_REL_L2_LIMIT = 0.15
+# the mixtral-8x7b --int4 engine's last-token logits against a plain f32
+# forward of the same dequantized weights (f32 routing, each token's top-2
+# experts, no capacity buffer) over unquantized K/V. Set before the first
+# run: the bf16 activations cost the bf16 llama3-8b engine 0.0588; a token
+# whose router's 2nd and 3rd probabilities lie within bf16 noise may pick
+# another expert in one of 32 layers, which moves that token's MLP output by
+# a share of the expert outputs' difference, so the int4 engine's 0.15 is
+# kept rather than the bf16 engine's 0.1 (the phase prints how many (token,
+# layer) pairs of the forward are such near ties)
+MOE_ENGINE_REL_L2_LIMIT = 0.15
+# ... which the first run missed (PERF.md, PR 12): the engine read 0.4856
+# and its skipped-layer control 0.4797, so on random weights this check
+# cannot tell a right engine from a broken one. A near tie flips one
+# token's experts in layer 1; through attention the flips spread to 296 of
+# 468 tokens by layer 31, and the random model amplifies each. The check
+# is kept and reported; the gate is the layer check below, which holds
+# each layer against the plain f32 layer on the engine's own input, so no
+# flip carries from one layer to the next. Its limit: five times the bf16
+# rounding of one layer's output (~2^-8 relative per element, ~0.01 in
+# L2); its controls (the next layer's attention weights, each expert's
+# neighbour's weights) read near 1.4. A choice of experts that differs
+# from the f32 router's on the same input must lie within MOE_ROUTER_TIE
+# of a tie: the engine's router logits carry the bf16 rounding of its
+# input, which moved layer 0's probabilities by up to 0.0063.
+MOE_LAYER_REL_L2_LIMIT = 0.05
+MOE_ROUTER_TIE = 1e-2
+# phase 7m: the serving memory must fit the card
+CARD_BYTES = 80e9
 # the training gradients (bf16 compute through the kernels) against autograd
 # of the plain f32 forward of the same f32 master params: relative L2 error
 # of each leaf, and relative error of the global norm (see PERF.md for the
@@ -429,9 +485,10 @@ def sass_counts(lib_path: str) -> dict:
 
 def tensor_core_ok(kernel: str, counts: dict) -> bool:
     """Whether a tensor-core kernel's SASS holds what its regime needs:
-    HGMMA, or for an ``int4_matmul_kernel<NR, ...>`` with NR <=
-    INT4_DECODE_ROWS, HGMMA or HMMA."""
-    m = re.match(r"int4_matmul_kernel<(\d+),", kernel)
+    HGMMA, or for an ``int4_matmul_kernel<NR, ...>`` or
+    ``int4_expert_matmul_kernel<NR, ...>`` with NR <= INT4_DECODE_ROWS,
+    HGMMA or HMMA."""
+    m = re.match(r"int4_(?:expert_)?matmul_kernel<(\d+),", kernel)
     if m and int(m.group(1)) <= INT4_DECODE_ROWS:
         return counts["HGMMA"] + counts["HMMA"] > 0
     return counts["HGMMA"] > 0
@@ -986,6 +1043,141 @@ def int4_case(torch, dev, flush, rows, kin, out, leaves):
         f"ms, library (_weight_int4pack_mm) {library_ms:.4f} ms (relative L2 "
         f"{rel:.2e}, per element {lib_share:.2f} of the tolerance), "
         f"yardstick (matmul by the dequantized bf16 weight) "
+        f"{yardstick_ms:.4f} ms")
+    return rec
+
+
+# the expert projections of mixtral-8x7b: (in, out, leaves), 8 experts,
+# top-2; and the expert buffer's rows C at each path: a decode step of 8
+# slots, a K = 5 verify step of 8 slots, a 1024-token prefill chunk (the
+# serving capacity is every token: C = G)
+INT4_EXPERT_SHAPES = [(4096, 14336, "we_gate, we_up"),
+                      (14336, 4096, "we_down")]
+MOE_EXPERTS, MOE_TOP_K = 8, 2
+INT4_EXPERT_ROWS = ((8, "decode"), (40, "verify K=5"), (1024, "prefill"))
+
+
+def expert_counts(torch, dev, tokens: int) -> "torch.Tensor":
+    """Filled rows per expert when ``tokens`` tokens each pick their top 2
+    of 8 experts under a seeded router (f32 logits of seeded normal
+    hidden states through a seeded normal router): (8,) int32 on the
+    card."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + tokens)
+    h = torch.randn((tokens, 4096), generator=gen, device=dev)
+    router = torch.randn((4096, MOE_EXPERTS), generator=gen,
+                         device=dev) * 0.02
+    top = torch.topk(torch.softmax(h @ router, dim=-1), MOE_TOP_K).indices
+    return torch.bincount(top.flatten(), minlength=MOE_EXPERTS).to(
+        torch.int32)
+
+
+def int4_expert_case(torch, dev, flush, rows, path, kin, out, leaves):
+    """``int4_expert_matmul`` at one expert projection of mixtral-8x7b and
+    one path's buffer of ``rows`` rows an expert: 8 experts of random
+    weights (normal * 0.02) quantized by the port's quantizer on the card,
+    the buffer's first count rows of each expert filled with bf16 values
+    and the rest zero (as the MoE dispatch leaves them), the counts from a
+    seeded top-2 router over ``rows`` tokens. Checked against the plain
+    version per element on every row; rows past a count must be exactly
+    zero, and the launch at full capacity (no counts) must give the same
+    bytes. Controls, scored by the same check: the two nibbles of each
+    byte swapped, each expert given its neighbour's weights (an expert
+    stride off by one), each group given its neighbour's scale. Times: the
+    kernel with the counts and at full capacity, the plain version, and as
+    a yardstick the port never calls, ``torch.bmm`` by the dequantized
+    bf16 experts. The bound counts what these counts need: the weights of
+    the experts that hold a row, the filled rows' operations."""
+    from k8s_runpod_kubelet_tpu_torch.models.quant import (
+        _quantize_leaf_int4, dequantize)
+    from k8s_runpod_kubelet_tpu_torch.ops import int4_expert_matmul
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + kin + out)
+    leaves_q = []
+    for _ in range(MOE_EXPERTS):
+        w = torch.randn((kin, out), generator=gen, device=dev) * 0.02
+        leaves_q.append(_quantize_leaf_int4(w))
+        del w
+    q4 = torch.stack([lq["q4"] for lq in leaves_q])
+    scale = torch.stack([lq["scale"] for lq in leaves_q])
+    del leaves_q
+    counts = expert_counts(torch, dev, rows)
+    filled = (torch.arange(rows, device=dev)[None, :]
+              < counts[:, None].long())                      # (X, C)
+    h = (torch.randn((MOE_EXPERTS, rows, kin), generator=gen, device=dev)
+         * filled[..., None]).bfloat16()
+    name = f"{path}: 8 x {rows} x ({kin} -> {out}) [{leaves}]"
+    before = int4_expert_matmul.launches
+    y = int4_expert_matmul(h, q4, scale, counts)
+    y_full = int4_expert_matmul(h, q4, scale)
+    torch.cuda.synchronize()
+    if int4_expert_matmul.launches != before + 2:
+        raise RuntimeError("int4_expert_matmul did not launch its kernel")
+    def plain(q, sc):
+        return torch.stack([int4_plain_rows(torch, h[x].float(), q[x], sc[x])
+                            for x in range(MOE_EXPERTS)])
+
+    ref = plain(q4, scale)                       # f32, before its cast
+    err, share = tolerance_check(y, ref)
+    if share > 1:
+        raise RuntimeError(f"int4_expert_matmul {name}: max abs err {err}, "
+                           f"{share:.2f}x the tolerance {TOLERANCE}")
+    past = y[~filled]
+    if past.numel() and past.abs().max().item() != 0:
+        raise RuntimeError(f"int4_expert_matmul {name}: rows past a count "
+                           "are not zero")
+    if not torch.equal(y, y_full):
+        raise RuntimeError(f"int4_expert_matmul {name}: the launch with "
+                           "counts differs from the one at full capacity")
+    controls = {}
+    for control, fn in (
+            ("nibbles_swapped", lambda: plain((q4 >> 4) | (q4 << 4), scale)),
+            ("neighbour_expert", lambda: plain(torch.roll(q4, 1, dims=0),
+                                               torch.roll(scale, 1, dims=0))),
+            ("neighbour_group_scale",
+             lambda: plain(q4, torch.roll(scale, 1, dims=1)))):
+        e, sh = tolerance_check(fn(), ref)
+        controls[control] = {"max_abs_err": e, "tolerance_share": sh}
+        if not sh > 1:
+            raise RuntimeError(f"int4_expert_matmul {name}: the {control} "
+                               "control passed the check")
+    del ref
+    w_bf16 = dequantize({"q4": q4, "scale": scale}).bfloat16()
+    big = rows >= 1024
+    ms = time_ms(torch, lambda: int4_expert_matmul(h, q4, scale, counts),
+                 10 if big else 30, flush)
+    full_ms = time_ms(torch, lambda: int4_expert_matmul(h, q4, scale),
+                      10 if big else 30, flush)
+    plain_ms = time_ms(torch, lambda: plain(q4, scale), 2 if big else 5,
+                       flush)
+    yardstick_ms = time_ms(torch, lambda: torch.bmm(h, w_bf16), 10, flush)
+    del w_bf16
+    used = int((counts > 0).sum())
+    filled_rows = int(counts.sum())
+    per_expert = q4[0].numel() + scale[0].numel() * 4
+    nbytes = (used * per_expert + filled_rows * kin * 2
+              + MOE_EXPERTS * rows * out * 2)
+    ops = 2 * filled_rows * kin * out
+    bound_ms, bound_by = bound(nbytes, ops, BF16_TENSOR_FLOPS)
+    rec = {"case": name, "rows": rows, "in": kin, "out": out,
+           "counts": counts.tolist(), "experts_used": used,
+           "max_abs_err": err, "tolerance": TOLERANCE,
+           "tolerance_share": share, "controls": controls, "ms": ms,
+           "full_capacity_ms": full_ms, "plain_ms": plain_ms,
+           "library_ms": None, "yardstick_ms": yardstick_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+           "ops": ops, "tflops": ops / ms / 1e9,
+           "gb_per_s": nbytes / ms / 1e6}
+    log(f"  int4_expert_matmul {name}: counts {counts.tolist()}; max_abs_err "
+        f"{err:.3e} ({share:.2f} of {TOLERANCE}), rows past the counts "
+        f"exactly 0; controls: nibbles swapped "
+        f"{controls['nibbles_swapped']['tolerance_share']:.0f}, neighbour "
+        f"expert {controls['neighbour_expert']['tolerance_share']:.0f}, "
+        f"neighbour group's scale "
+        f"{controls['neighbour_group_scale']['tolerance_share']:.0f}; kernel "
+        f"{ms:.4f} ms with counts ({rec['tflops']:.1f} TFLOP/s, "
+        f"{rec['gb_per_s']:.0f} GB/s), {full_ms:.4f} ms at full capacity, "
+        f"bound {bound_ms:.4f} ms ({bound_by}), plain {plain_ms:.3f} ms, "
+        f"yardstick (torch.bmm by the dequantized bf16 experts) "
         f"{yardstick_ms:.4f} ms")
     return rec
 
@@ -1585,8 +1777,68 @@ def layer_f32(w, layer=None):
     return (w if layer is None else w[layer]).float()
 
 
+def plain_mlp(torch, F, cfg, lp, h, margins=None, chosen=None, picks=None):
+    """The MLP of one layer in f32 from its f32 weights: SwiGLU, or for an
+    MoE config each token's top-k experts by its f32 router (softmax, top
+    k, renormalized), each expert run on the tokens that chose it, with no
+    capacity buffer. ``margins`` (a list) gets the layer's count of tokens
+    whose 2nd and 3rd router probabilities lie within 1e-3, where bf16
+    noise in the engine's hidden state may pick another expert.
+    ``chosen`` (..., k) forces the experts (their weights the f32
+    probabilities there, renormalized); ``picks`` (a list) gets the
+    layer's choices."""
+    if not cfg.n_experts:
+        return (F.silu(h @ lp["w_gate"]) * (h @ lp["w_up"])) @ lp["w_down"]
+    probs = torch.softmax(h @ lp["router"], dim=-1)
+    top = torch.topk(probs, cfg.n_experts_per_tok + 1, dim=-1)
+    if margins is not None:
+        k = cfg.n_experts_per_tok
+        margins.append(int((top.values[..., k - 1] - top.values[..., k]
+                            < 1e-3).sum()))
+    if chosen is None:
+        chosen = top.indices[..., :-1]
+    if picks is not None:
+        picks.append(chosen)
+    weight = torch.gather(probs, -1, chosen)
+    weight = weight / weight.sum(dim=-1, keepdim=True)
+    y = torch.zeros_like(h)
+    for x in range(cfg.n_experts):
+        pick = chosen == x                                  # (..., k)
+        rows = pick.any(dim=-1)
+        if not rows.any():
+            continue
+        hx = h[rows]
+        yx = (F.silu(hx @ lp["we_gate"][x]) * (hx @ lp["we_up"][x])) \
+            @ lp["we_down"][x]
+        y[rows] += (weight * pick).sum(dim=-1)[rows][:, None] * yx
+    return y
+
+
+def plain_attention(torch, cfg, lp, x, cos, sin):
+    """The attention block of one layer in f32 from its f32 weights, on
+    the residual stream x (B, S, E): its output, before the residual add
+    (causal ``_attention_plain``; an MLA model in the direct form)."""
+    from k8s_runpod_kubelet_tpu_torch.ops.attention import _attention_plain
+    from k8s_runpod_kubelet_tpu_torch.ops.rmsnorm import _rms_norm_plain
+    from k8s_runpod_kubelet_tpu_torch.ops.rope import apply_rope
+
+    (b, n, _), hd = x.shape, cfg.head_dim_
+    h = _rms_norm_plain(x, lp["attn_norm"], cfg.norm_eps)
+    if cfg.is_mla:
+        q, k, v = mla_direct_qkv(torch, cfg, lp, h, cos, sin)
+    else:
+        q = apply_rope((h @ lp["wq"]).view(b, n, cfg.n_heads, hd), cos, sin)
+        k = apply_rope((h @ lp["wk"]).view(b, n, cfg.n_kv_heads, hd), cos,
+                       sin)
+        v = (h @ lp["wv"]).view(b, n, cfg.n_kv_heads, hd)
+    o = _attention_plain(q.transpose(1, 2), k.transpose(1, 2),
+                         v.transpose(1, 2), causal=True,
+                         sm_scale=cfg.sm_scale)[..., :hd]
+    return o.transpose(1, 2).reshape(b, n, -1) @ lp["wo"]
+
+
 def plain_logits(torch, cfg, params, tokens, skip_layer=None,
-                 last_only=False, hidden=False):
+                 last_only=False, hidden=False, margins=None, picks=None):
     """Logits (B, S, V) of tokens (B, S), or with ``last_only`` the last
     position's (B, V), from a plain f32 forward of the same weights: no
     paging, no KV quantization and no kernels (``_attention_plain``,
@@ -1595,16 +1847,15 @@ def plain_logits(torch, cfg, params, tokens, skip_layer=None,
     which autograd then reaches the parameters); an MLA model's attention in
     the direct form (``mla_direct_qkv``). ``skip_layer`` leaves one layer
     out (a control); ``hidden`` returns the final-norm hidden states
-    instead of logits."""
+    instead of logits; ``margins`` and ``picks`` collect ``plain_mlp``'s
+    near ties and choices of an MoE router, one entry a layer."""
     import torch.nn.functional as F
 
-    from k8s_runpod_kubelet_tpu_torch.ops.attention import _attention_plain
     from k8s_runpod_kubelet_tpu_torch.ops.rmsnorm import _rms_norm_plain
-    from k8s_runpod_kubelet_tpu_torch.ops.rope import (apply_rope,
-                                                       rope_frequencies)
+    from k8s_runpod_kubelet_tpu_torch.ops.rope import rope_frequencies
 
     dev = params["tok_embed"].device
-    (b, n), hd = tokens.shape, cfg.head_dim_
+    hd = cfg.head_dim_
     cos, sin = rope_frequencies(cfg.mla_rope_dim if cfg.is_mla else hd,
                                 cfg.max_seq_len, cfg.rope_theta,
                                 cfg.rope_scaling, device=dev)
@@ -1613,21 +1864,9 @@ def plain_logits(torch, cfg, params, tokens, skip_layer=None,
         if layer == skip_layer:
             continue
         lp = {k: layer_f32(w, layer) for k, w in params["layers"].items()}
-        h = _rms_norm_plain(x, lp["attn_norm"], cfg.norm_eps)
-        if cfg.is_mla:
-            q, k, v = mla_direct_qkv(torch, cfg, lp, h, cos, sin)
-        else:
-            q = apply_rope((h @ lp["wq"]).view(b, n, cfg.n_heads, hd), cos,
-                           sin)
-            k = apply_rope((h @ lp["wk"]).view(b, n, cfg.n_kv_heads, hd),
-                           cos, sin)
-            v = (h @ lp["wv"]).view(b, n, cfg.n_kv_heads, hd)
-        o = _attention_plain(q.transpose(1, 2), k.transpose(1, 2),
-                             v.transpose(1, 2), causal=True,
-                             sm_scale=cfg.sm_scale)[..., :hd]
-        x = x + o.transpose(1, 2).reshape(b, n, -1) @ lp["wo"]
+        x = x + plain_attention(torch, cfg, lp, x, cos, sin)
         h = _rms_norm_plain(x, lp["mlp_norm"], cfg.norm_eps)
-        x = x + (F.silu(h @ lp["w_gate"]) * (h @ lp["w_up"])) @ lp["w_down"]
+        x = x + plain_mlp(torch, F, cfg, lp, h, margins, picks=picks)
         del lp
     if last_only:
         x = x[:, -1]
@@ -1670,19 +1909,26 @@ def mla_direct_qkv(torch, cfg, lp, h, cos, sin):
 
 
 def reference_logits(torch, cfg, params, prompt: list[int],
-                     skip_layer=None):
+                     skip_layer=None, margins=None, picks=None):
     """Last-token logits (V,) of ``prompt`` from ``plain_logits``."""
     toks = torch.tensor(prompt, device=params["tok_embed"].device)[None]
     return plain_logits(torch, cfg, params, toks, skip_layer,
-                        last_only=True)[0]
+                        last_only=True, margins=margins, picks=picks)[0]
 
 
 def engine_reference_check(torch, cfg, params, prompt, engine_logits,
-                           limit=ENGINE_REL_L2_LIMIT, what="engine"):
+                           limit=ENGINE_REL_L2_LIMIT, what="engine",
+                           gate=True, picks=None):
     """The engine path's logits against the plain f32 forward of the same
     (dequantized) weights, within ``limit``; the forward with its middle
-    layer skipped must land outside it."""
-    ref = reference_logits(torch, cfg, params, prompt)
+    layer skipped must land outside it (with ``gate=False`` both are
+    reported, not required). For an MoE model it also counts the (token,
+    layer) pairs of the forward whose router's 2nd and 3rd probabilities
+    lie within 1e-3; ``picks`` (a list) gets the forward's choices of
+    experts, one (1, S, k) tensor a layer."""
+    margins: list = []
+    ref = reference_logits(torch, cfg, params, prompt, margins=margins,
+                           picks=picks)
     ctrl = reference_logits(torch, cfg, params, prompt,
                             skip_layer=cfg.n_layers // 2)
 
@@ -1695,17 +1941,149 @@ def engine_reference_check(torch, cfg, params, prompt, engine_logits,
            "argmax_agree": bool(engine_logits.argmax() == ref.argmax()),
            "control_skip_layer_rel_l2": rel_l2(ctrl),
            "limit_rel_l2": limit}
+    if cfg.n_experts:
+        out["router_near_ties"] = {"pairs": sum(margins),
+                                   "of": len(prompt) * cfg.n_layers,
+                                   "by_layer": margins}
+        log(f"  router near ties in the f32 forward (2nd - 3rd probability "
+            f"< 1e-3): {sum(margins)} of {len(prompt) * cfg.n_layers} "
+            f"(token, layer) pairs; by layer {margins}")
     log(f"  independent check: {what} vs plain f32 forward, last-token "
         f"logits of a {len(prompt)}-token prompt: relative L2 "
         f"{out['rel_l2']:.4f} (limit {limit}), max abs "
         f"{out['max_abs_diff']:.4f} (logit std {out['ref_logit_std']:.4f}), "
         f"argmax agree {out['argmax_agree']}; control (layer "
         f"{cfg.n_layers // 2} skipped) {out['control_skip_layer_rel_l2']:.4f}")
-    if not out["rel_l2"] <= limit:
+    if gate and not out["rel_l2"] <= limit:
         raise RuntimeError(f"{what} logits off the plain forward: {out}")
-    if not out["control_skip_layer_rel_l2"] > limit:
+    if gate and not out["control_skip_layer_rel_l2"] > limit:
         raise RuntimeError(f"the skipped-layer control passed: {out}")
     return out
+
+
+def moe_layer_check(torch, model, params, prompt, free_picks) -> dict:
+    """The MoE engine path held one layer at a time: the last-token
+    check's one-chunk prefill of ``prompt`` runs again with each layer's
+    MLP input and output recorded (the engine's bf16 residual stream), and
+    each layer's attention and MLP outputs are held against the plain f32
+    layer (``plain_attention``, ``plain_mlp``) on that same input, by the
+    relative L2 norm of the output. The MLP reference takes the experts the
+    engine chose (its router on its own input, ``route_top_k``), each
+    weighted by the f32 probabilities there; every token whose choice
+    differs from the f32 router's on the same input must be a near tie
+    (2nd and 3rd probabilities within ``MOE_ROUTER_TIE``). Controls, which
+    must read above the limit in every layer: the MLP reference with each
+    expert given its neighbour's weights; the attention reference with the
+    next layer's weights. Reported beside: in each layer, the tokens whose
+    engine choice differs from the choice of the free-running f32 forward
+    (``free_picks``, one (1, S, k) tensor a layer), which sees its own,
+    diverging, hidden states."""
+    import torch.nn.functional as F
+
+    from k8s_runpod_kubelet_tpu_torch.models.moe import route_top_k
+    from k8s_runpod_kubelet_tpu_torch.ops import rms_norm
+    from k8s_runpod_kubelet_tpu_torch.ops.rmsnorm import _rms_norm_plain
+    from k8s_runpod_kubelet_tpu_torch.ops.rope import rope_frequencies
+
+    cfg = model.cfg
+    seen = []
+    paged_mlp = model._paged_mlp
+
+    def record(x, lp, layer):
+        out = paged_mlp(x, lp, layer)
+        seen.append((x.clone(), out.clone()))
+        return out
+
+    model._paged_mlp = record
+    try:
+        quant_logits(torch, model, params, prompt, kv_int8=False)
+    finally:
+        del model._paged_mlp
+    if len(seen) != cfg.n_layers:
+        raise RuntimeError(f"recorded {len(seen)} MLP calls")
+    dev = params["tok_embed"].device
+    cos, sin = rope_frequencies(cfg.head_dim_, cfg.max_seq_len,
+                                cfg.rope_theta, cfg.rope_scaling, device=dev)
+    toks = torch.tensor([prompt], device=dev)
+
+    def rel(a, ref):
+        return ((a - ref).norm() / ref.norm()).item()
+
+    rows = []
+    x_in = params["tok_embed"][toks.long()].float()
+    for layer in range(cfg.n_layers):
+        lp = {k: layer_f32(w, layer) for k, w in params["layers"].items()}
+        mid, out = (t.float() for t in seen[layer])
+        attn = plain_attention(torch, cfg, lp, x_in, cos, sin)
+        attn_ctrl = plain_attention(
+            torch, cfg, {k: layer_f32(params["layers"][k],
+                                      (layer + 1) % cfg.n_layers)
+                         for k in ("attn_norm", "wq", "wk", "wv", "wo")},
+            x_in, cos, sin)
+        # the engine's choices: its router on its own (bf16-normed) input
+        h_eng = rms_norm(seen[layer][0], params["layers"]["mlp_norm"][layer],
+                         cfg.norm_eps)
+        _, chosen, _ = route_top_k(
+            h_eng.float() @ params["layers"]["router"][layer].float(),
+            cfg.n_experts_per_tok, cfg.router_norm_topk)
+        h = _rms_norm_plain(mid, lp["mlp_norm"], cfg.norm_eps)
+        chosen = chosen.view(h.shape[:-1] + (cfg.n_experts_per_tok,))
+        mlp = plain_mlp(torch, F, cfg, lp, h, chosen=chosen)
+        rolled = dict(lp, **{n: torch.roll(lp[n], 1, dims=0)
+                             for n in ("we_gate", "we_up", "we_down")})
+        mlp_ctrl = plain_mlp(torch, F, cfg, rolled, h, chosen=chosen)
+        probs = torch.softmax(h @ lp["router"], dim=-1)
+        top = torch.topk(probs, cfg.n_experts_per_tok + 1, dim=-1)
+        k = cfg.n_experts_per_tok
+        differs = (torch.sort(top.indices[..., :k], -1).values
+                   != torch.sort(chosen, -1).values).any(-1)
+        margin = top.values[..., k - 1] - top.values[..., k]
+        spread = (torch.sort(free_picks[layer], -1).values
+                  != torch.sort(chosen, -1).values).any(-1)
+        rows.append({
+            "layer": layer, "attn_rel_l2": rel(mid - x_in, attn),
+            "mlp_rel_l2": rel(out - mid, mlp),
+            "attn_control_rel_l2": rel(mid - x_in, attn_ctrl),
+            "mlp_control_rel_l2": rel(out - mid, mlp_ctrl),
+            "choices_differing": int(differs.sum()),
+            "differs_from_free_f32": int(spread.sum()),
+            "last_token_differs_from_free_f32": bool(spread[0, -1]),
+            "differing_margin_max": (margin[differs].max().item()
+                                     if differs.any() else 0.0)})
+        x_in = out
+        del lp, rolled
+    worst = {key: max(r[key] for r in rows)
+             for key in ("attn_rel_l2", "mlp_rel_l2", "differing_margin_max")}
+    ctrl = {key: min(r[key] for r in rows)
+            for key in ("attn_control_rel_l2", "mlp_control_rel_l2")}
+    differing = sum(r["choices_differing"] for r in rows)
+    spread = [r["differs_from_free_f32"] for r in rows]
+    res = {"limit_rel_l2": MOE_LAYER_REL_L2_LIMIT,
+           "tie_margin": MOE_ROUTER_TIE, "worst": worst,
+           "controls_least": ctrl, "choices_differing": differing,
+           "of": len(prompt) * cfg.n_layers, "layers": rows}
+    log(f"  layer check: each of {cfg.n_layers} layers against the plain f32 "
+        f"layer on the engine's own input ({len(prompt)} tokens): worst "
+        f"attention {worst['attn_rel_l2']:.4f}, worst MLP (the engine's "
+        f"experts) {worst['mlp_rel_l2']:.4f} relative L2 (limit "
+        f"{MOE_LAYER_REL_L2_LIMIT}); controls at least: next layer's "
+        f"attention {ctrl['attn_control_rel_l2']:.3f}, neighbour expert "
+        f"{ctrl['mlp_control_rel_l2']:.3f}; {differing} of {res['of']} "
+        f"(token, layer) choices differ from the f32 router's, all within "
+        f"{worst['differing_margin_max']:.2e} of a tie (bound "
+        f"{MOE_ROUTER_TIE})")
+    last = [r["layer"] for r in rows
+            if r["last_token_differs_from_free_f32"]]
+    log(f"  tokens whose engine choice differs from the free-running f32 "
+        f"forward's, by layer: {spread}; the last token's in layers {last}")
+    if not (worst["attn_rel_l2"] <= MOE_LAYER_REL_L2_LIMIT
+            and worst["mlp_rel_l2"] <= MOE_LAYER_REL_L2_LIMIT):
+        raise RuntimeError(f"a layer is off the plain f32 layer: {res}")
+    if not min(ctrl.values()) > MOE_LAYER_REL_L2_LIMIT:
+        raise RuntimeError(f"a layer check control passed: {res}")
+    if not worst["differing_margin_max"] < MOE_ROUTER_TIE:
+        raise RuntimeError(f"a routing choice differs away from a tie: {res}")
+    return res
 
 
 def burst_prompts(cfg) -> tuple[list, list, "np.random.Generator"]:
@@ -2975,12 +3353,14 @@ def hf_load_phase(torch, dev, cfg, params) -> dict:
             "write_s": write_s, "load_s": load_s, "bit_identical": True}
 
 
-def quant_logits(torch, model, params, prompt) -> "torch.Tensor":
+def quant_logits(torch, model, params, prompt,
+                 kv_int8=True) -> "torch.Tensor":
     """Last-token logits of ``prompt`` prefilled in one chunk through the
-    quantized engine's model and params, over a fresh int8 arena."""
+    quantized engine's model and params, over a fresh int8 (or with
+    ``kv_int8=False`` bf16) arena."""
     dev, t, n = model.device, 16, len(prompt)
     n_pages = -(-n // t)
-    arena = model.init_paged_arena(n_pages, t, quantize=True)
+    arena = model.init_paged_arena(n_pages, t, quantize=kv_int8)
     table = torch.zeros((1, 128), dtype=torch.int32, device=dev)
     table[0, :n_pages] = torch.arange(n_pages, device=dev)
     logits, _, _ = model.paged_prefill_chunk_step(
@@ -3098,6 +3478,129 @@ def quant_engine_phase(torch, dev, card: str, cfg, params: list,
         return rec
     finally:
         engine.stop()
+
+
+def moe_engine_phase(torch, dev, card: str) -> dict:
+    """Phase 7m: mixtral-8x7b at full width and depth, the engine the serve
+    CLI builds from ``--model mixtral-8x7b --int4`` (8 slots, cache_len
+    2048, 16-token pages, the bf16 arena, weights drawn from the seed and
+    quantized a layer at a time: the bf16 tree, 93 GB, never exists).
+    Weight and arena bytes and peak memory (under ``CARD_BYTES``); the
+    burst with exact launches per step and chunk (``int4_expert_matmul``
+    3 a layer, ``int4_matmul`` 4 a layer and the head, the bf16 paged
+    kernel once a layer, ``rms_norm`` twice a layer and once, no other
+    attention kernel); (g1)-(g5); the independent check against a plain
+    f32 forward of the dequantized weights, one layer at a time; HTTP and
+    drain. The engine and its weights are freed before it returns."""
+    from k8s_runpod_kubelet_tpu_torch.ops import (
+        int4_expert_matmul, int4_matmul, paged_attention,
+        paged_attention_mla, paged_attention_mla_quant,
+        paged_attention_multi, paged_attention_multi_mla,
+        paged_attention_multi_mla_quant, paged_attention_multi_quant,
+        paged_attention_quant, rms_norm)
+    from k8s_runpod_kubelet_tpu_torch.workloads import serve_main
+
+    args = serve_main.parse_args(
+        ["--model", "mixtral-8x7b", "--device", dev.type, "--slots", "8",
+         "--cache-len", "2048", "--max-new-tokens", "32", "--int4",
+         "--seed", str(SEED)])
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    engine, _ = serve_main.build_engine(args)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build_peak = torch.cuda.max_memory_allocated()
+    try:
+        cfg, sc = engine.cfg, engine.sc
+        if not (cfg.name == "mixtral-8x7b" and cfg.n_layers == 32
+                and sc.quantize_int4 and not sc.quantize_kv_int8
+                and sc.slots == 8 and sc.cache_len == 2048
+                and sc.max_prefill_len == 1024):
+            raise RuntimeError(f"--model mixtral-8x7b --int4 built {cfg}, "
+                               f"{sc}")
+        lp = engine.params["layers"]
+        experts = ("we_gate", "we_up", "we_down")
+        weights = {
+            "expert_q4": sum(lp[n]["q4"].numel() for n in experts),
+            "expert_scales": sum(lp[n]["scale"].numel() * 4
+                                 for n in experts),
+            "attention_q4_and_scales": sum(
+                tensor_bytes(lp[n]) for n in ("wq", "wk", "wv", "wo")),
+            "router": tensor_bytes(lp["router"]),
+            "lm_head": tensor_bytes(engine.params["lm_head"]),
+            "tok_embed": tensor_bytes(engine.params["tok_embed"]),
+            "norms": tensor_bytes(engine.params["final_norm"]) + sum(
+                tensor_bytes(w) for n, w in lp.items()
+                if n.endswith("norm"))}
+        arena = tensor_bytes(engine._kv_store.arena)
+        snap = engine.debug_snapshot()
+        log(f"  {cfg.name}: {cfg.n_layers} layers, E={cfg.embed_dim}, "
+            f"{cfg.n_experts} experts of {cfg.mlp_dim} top-"
+            f"{cfg.n_experts_per_tok}; weights {snap['weights']}, kv "
+            f"{snap['kv']}, drawn and quantized on the card in "
+            f"{build_s:.1f} s (graphs captured); weight bytes "
+            + ", ".join(f"{k} {v / 1e9:.3f} GB" for k, v in weights.items())
+            + f" ({sum(weights.values()) / 1e9:.3f} GB); arena "
+            f"{engine._kv_store.pool.n_pages} pages of "
+            f"{snap['prefix_cache']['page_bytes']} bytes, {arena / 1e9:.3f} "
+            f"GB; [{card}] allocated "
+            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB, peak while "
+            f"building {build_peak / 2**30:.2f} GiB (from "
+            f"{before / 2**30:.2f} GiB)")
+        if not build_peak < CARD_BYTES:
+            raise RuntimeError(f"peak {build_peak} B while building")
+        torch.cuda.reset_peak_memory_stats()
+        n = cfg.n_layers
+        per_step = {"int4_expert_matmul": 3 * n, "int4_matmul": 4 * n + 1,
+                    "paged_attention_multi": n, "rms_norm": 2 * n + 1,
+                    "paged_attention_multi_quant": 0,
+                    "paged_attention_multi_mla": 0,
+                    "paged_attention_multi_mla_quant": 0,
+                    "paged_attention": 0, "paged_attention_quant": 0,
+                    "paged_attention_mla": 0, "paged_attention_mla_quant": 0}
+        rec = serve_burst(torch, engine, cfg, card,
+                          (int4_expert_matmul, int4_matmul,
+                           paged_attention_multi, rms_norm,
+                           paged_attention_multi_quant,
+                           paged_attention_multi_mla,
+                           paged_attention_multi_mla_quant, paged_attention,
+                           paged_attention_quant, paged_attention_mla,
+                           paged_attention_mla_quant), per_step)
+        serve_peak = torch.cuda.max_memory_allocated()
+        log(f"  [{card}] peak allocated while serving "
+            f"{serve_peak / 2**30:.2f} GiB")
+        prompts = rec.pop("prompts")
+        with engine._prefix_lock:   # the engine is idle; keep it so
+            rec["graphs"] = graph_checks(torch, engine, card,
+                                         MOE_ENGINE_REL_L2_LIMIT,
+                                         "mixtral int4 engine")
+            logits = quant_logits(torch, engine.model, engine.params,
+                                  prompts[2], kv_int8=False)
+            picks: list = []
+            reference = engine_reference_check(
+                torch, cfg, engine.params, prompts[2], logits,
+                limit=MOE_ENGINE_REL_L2_LIMIT, what="mixtral int4 engine",
+                gate=False, picks=picks)
+            layers = moe_layer_check(torch, engine.model, engine.params,
+                                     prompts[2], picks)
+            del picks
+        check_peak = torch.cuda.max_memory_allocated()
+        if not max(serve_peak, check_peak) < CARD_BYTES:
+            raise RuntimeError(f"peak {max(serve_peak, check_peak)} B")
+        rec.update(http_and_drain(engine, rec.pop("prompt")),
+                   reference=reference, layer_check=layers,
+                   weight_bytes=weights, arena_bytes=arena,
+                   page_bytes=snap["prefix_cache"]["page_bytes"],
+                   build_s=build_s, build_peak_bytes=build_peak,
+                   serve_peak_bytes=serve_peak, check_peak_bytes=check_peak,
+                   allocated_bytes=torch.cuda.memory_allocated())
+        return rec
+    finally:
+        engine.stop()
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 def mla_engine_phase(torch, dev, card: str, cfg, params: list,
@@ -3314,6 +3817,12 @@ def main(argv=None) -> int:
             for rows in (8, 1024) for kin, out, leaves in INT4_SHAPES]
     gc.collect()
     torch.cuda.empty_cache()
+    int4_experts = [int4_expert_case(torch, dev, flush, rows, path, kin, out,
+                                     leaves)
+                    for rows, path in INT4_EXPERT_ROWS
+                    for kin, out, leaves in INT4_EXPERT_SHAPES]
+    gc.collect()
+    torch.cuda.empty_cache()
     rms = [rms_case(torch, F, dev, flush, (rows, 4096)) for rows in (8, 1024)]
     # the training path's shape: x (8, 2048, 4096) needing gradients
     rms.append(rms_case(torch, F, dev, flush, (8, 2048, 4096), grad=True))
@@ -3394,6 +3903,9 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    log("phase MoE engine (mixtral-8x7b --int4, 8 slots, cache_len 2048)")
+    moe = moe_engine_phase(torch, dev, card)
+
     log("phase train (llama3-8b widths, 4 layers, batch 8 x seq 2048)")
     train = train_phase(torch, dev, card)
 
@@ -3417,6 +3929,7 @@ def main(argv=None) -> int:
         return [{"case": c["case"], **c["kernels"][kname]} for c in flash]
 
     serve_launches, quant_launches = eng["launches"], qeng["launches"]
+    moe_launches = moe["launches"]
     spec_launches = spec["runs"]["speculative"]["counts"]
     mla_launches, mla_q_launches = mla_eng["launches"], mla_q["launches"]
     csrc = "k8s_runpod_kubelet_tpu_torch/csrc/"
@@ -3431,7 +3944,8 @@ def main(argv=None) -> int:
                 "serve_spec": spec_launches["paged_attention_multi"],
                 "serve_openai": openai["launches"]["paged_attention_multi"],
                 "serve_int4_kv_int8":
-                    quant_launches["paged_attention_multi"]}, sdpa),
+                    quant_launches["paged_attention_multi"],
+                "serve_moe": moe_launches["paged_attention_multi"]}, sdpa),
         record("rms_norm", "triton",
                "k8s_runpod_kubelet_tpu_torch/ops/rmsnorm.py",
                "k8s_runpod_kubelet_tpu/ops/rmsnorm.py:80", rms,
@@ -3442,6 +3956,7 @@ def main(argv=None) -> int:
                 "serve_mla": mla_launches["rms_norm"],
                 "serve_mla_kv_int8": mla_q_launches["rms_norm"],
                 "serve_openai": openai["launches"]["rms_norm"],
+                "serve_moe": moe_launches["rms_norm"],
                 "train": train["launches"]["rms_norm"]},
                "F.rms_norm, bf16 weight"),
     ] + [
@@ -3468,10 +3983,17 @@ def main(argv=None) -> int:
         record("int4_matmul", "cuda", csrc + "int4_matmul.cu",
                "k8s_runpod_kubelet_tpu/ops/int4_matmul.py:64", int4,
                quant_launches["int4_matmul"],
-               {"serve_int4_kv_int8": quant_launches["int4_matmul"]},
+               {"serve_int4_kv_int8": quant_launches["int4_matmul"],
+                "serve_moe": moe_launches["int4_matmul"]},
                "torch.ops.aten._weight_int4pack_mm on the same nibbles and "
                "bf16 group scales (yardstick_ms: torch.matmul by the "
                "dequantized bf16 weight)"),
+        record("int4_expert_matmul", "cuda", csrc + "int4_matmul.cu",
+               "k8s_runpod_kubelet_tpu/ops/int4_matmul.py:181",
+               int4_experts, moe_launches["int4_expert_matmul"],
+               {"serve_moe": moe_launches["int4_expert_matmul"]},
+               "none: no single PyTorch call reads int4 experts "
+               "(yardstick_ms: torch.bmm by the dequantized bf16 experts)"),
     ] + [
         # the single-token forms: no model path calls them in either
         # package (decode runs the multi-token kernels at K = 1); their
@@ -3532,7 +4054,8 @@ def main(argv=None) -> int:
                        "spec_engine": spec, "openai": openai,
                        "hf_load": hf,
                        "quant_engine": qeng, "mla_engine": mla_eng,
-                       "mla_kv_int8_engine": mla_q, "train": train,
+                       "mla_kv_int8_engine": mla_q, "moe_engine": moe,
+                       "train": train,
                        "train_main": train_cli,
                        "build_s": {**nvcc_s, "triton": triton_s},
                        "sass": sass},

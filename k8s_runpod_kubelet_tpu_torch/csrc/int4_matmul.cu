@@ -2,7 +2,8 @@
 // cores: bf16 activations in and out, f32 sums.
 //
 // Replaces: k8s_runpod_kubelet_tpu/ops/int4_matmul.py:_kernel (launched by
-// _matmul_2d). Same function:
+// _matmul_2d), and int4_expert_matmul (:181), which runs that kernel once
+// per expert through lax.map. Same function:
 //   y[r, o] = sum_g scale[g, o] * sum_i (h[r, 2i] * (lo - 8)
 //                                        + h[r, 2i + 1] * (hi - 8))
 //   over group g's packed rows i, where q4 (in/2, out) uint8 holds
@@ -50,6 +51,17 @@
 // each SM). When the blocks of a launch cannot fill the card (decode, and
 // prefill at out = 1024), the groups are split over more blocks, each
 // writing f32 partial sums that a second small kernel adds and casts.
+//
+// int4_expert_matmul_kernel runs the same tile (int4_tile, below) for a
+// stack of X experts in one launch: the expert is blockIdx.y / splits, and
+// the h, q4, scale, out and partial pointers move to its slice. An optional
+// device array of filled rows per expert (counts) makes a tile that starts
+// at or past its expert's count write zeros without reading the expert's
+// weights, and rows past the count inside a tile read zeros in place of h.
+// The grid stays static (no host read of the counts), so a CUDA graph can
+// hold the launch. What bounds it: at decode the bytes of the experts that
+// hold a row (Mixtral: 235 MB an expert and projection); at prefill the
+// filled rows' operations (2048 of 8 x 1024 rows at a 1024-token chunk).
 
 #include "attention_tile_sm90.cuh"
 
@@ -91,12 +103,17 @@ __device__ __forceinline__ uint32_t nibbles_bf16(uint32_t w) {
   return tile90::bf16x2_bits(r);
 }
 
+// One block's tile: NR rows from blockIdx.x, kBN columns from blockIdx.z,
+// the groups of slice `split` of `splits`. Rows at or past `live` read zeros
+// in place of h (a tile that starts there reads nothing and writes zeros);
+// every row below `rows` is written. Split partials are `split_stride` f32
+// apart.
 template <int NR, int STAGES>
-__global__ void __launch_bounds__(kThreads, NR <= kDecodeRows ? 2 : 1)
-int4_matmul_kernel(const bf16* __restrict__ h, const uint8_t* __restrict__ q4,
-                   const float* __restrict__ scale, bf16* __restrict__ y,
-                   float* __restrict__ partial, int rows, int kin, int out,
-                   int groups, int splits) {
+__device__ __forceinline__ void int4_tile(
+    const bf16* __restrict__ h, const uint8_t* __restrict__ q4,
+    const float* __restrict__ scale, bf16* __restrict__ y,
+    float* __restrict__ partial, size_t split_stride, int rows, int live,
+    int kin, int out, int groups, int splits, int split) {
   using namespace tile90;
   extern __shared__ __align__(1024) unsigned char smem[];
   const uint32_t raw = smem_addr(smem);
@@ -113,9 +130,10 @@ int4_matmul_kernel(const bf16* __restrict__ h, const uint8_t* __restrict__ q4,
   const int gs = kin / groups;                 // in-elements a group holds
   const int chunks = (gs + kKC - 1) / kKC;     // steps a group takes
   const int g_per = (groups + splits - 1) / splits;
-  const int g_begin = blockIdx.y * g_per;
+  const int g_begin = split * g_per;
   const int n_steps =
-      max(min(groups, g_begin + g_per) - g_begin, 0) * chunks;
+      row0 < live ? max(min(groups, g_begin + g_per) - g_begin, 0) * chunks
+                  : 0;
   const uint32_t scales_s = base + STAGES * stage_bytes<NR>();
 
   // start the copies of step s into stage s % STAGES
@@ -127,7 +145,7 @@ int4_matmul_kernel(const bf16* __restrict__ h, const uint8_t* __restrict__ q4,
 #pragma unroll
     for (int idx = tid; idx < NR * 16; idx += kThreads) {
       const int r = idx / 16, c = idx % 16;
-      const bool ok = row0 + r < rows && c * 8 < kv;
+      const bool ok = row0 + r < live && c * 8 < kv;
       cp16(st + swz(NR, r, c),
            h + (ok ? (long long)(row0 + r) * kin + e0 + c * 8 : 0), ok);
     }
@@ -232,13 +250,44 @@ int4_matmul_kernel(const bf16* __restrict__ h, const uint8_t* __restrict__ q4,
       if (r >= rows) continue;
       const float v0 = acc[n8 * 4 + j], v1 = acc[n8 * 4 + 2 + j];
       if (splits > 1)
-        *reinterpret_cast<float2*>(
-            partial + ((size_t)blockIdx.y * rows + r) * out + col) =
+        *reinterpret_cast<float2*>(partial + split * split_stride +
+                                   (size_t)r * out + col) =
             make_float2(v0, v1);
       else
         *reinterpret_cast<__nv_bfloat162*>(y + (size_t)r * out + col) =
             __floats2bfloat162_rn(v0, v1);
     }
+}
+
+template <int NR, int STAGES>
+__global__ void __launch_bounds__(kThreads, NR <= kDecodeRows ? 2 : 1)
+int4_matmul_kernel(const bf16* __restrict__ h, const uint8_t* __restrict__ q4,
+                   const float* __restrict__ scale, bf16* __restrict__ y,
+                   float* __restrict__ partial, int rows, int kin, int out,
+                   int groups, int splits) {
+  int4_tile<NR, STAGES>(h, q4, scale, y, partial, size_t(rows) * out, rows,
+                        rows, kin, out, groups, splits, blockIdx.y);
+}
+
+// X experts' products in one launch: h (X, rows, kin), q4 (X, kin/2, out),
+// scale (X, groups, 1, out), y (X, rows, out); counts (X,) or null.
+template <int NR, int STAGES>
+__global__ void __launch_bounds__(kThreads, NR <= kDecodeRows ? 2 : 1)
+int4_expert_matmul_kernel(const bf16* __restrict__ h,
+                          const uint8_t* __restrict__ q4,
+                          const float* __restrict__ scale,
+                          const int* __restrict__ counts,
+                          bf16* __restrict__ y, float* __restrict__ partial,
+                          int experts, int rows, int kin, int out, int groups,
+                          int splits) {
+  const int ex = blockIdx.y / splits;
+  const int live = counts == nullptr ? rows : min(rows, max(counts[ex], 0));
+  const size_t mat = size_t(rows) * out;
+  int4_tile<NR, STAGES>(h + size_t(ex) * rows * kin,
+                        q4 + size_t(ex) * (kin / 2) * out,
+                        scale + size_t(ex) * groups * out, y + ex * mat,
+                        partial + ex * mat, size_t(experts) * mat, rows, live,
+                        kin, out, groups, splits, blockIdx.y % splits);
 }
 
 // y = bf16(sum over splits of the f32 partials), four elements a thread
@@ -265,22 +314,46 @@ __global__ void int4_matmul_reduce_kernel(const float* __restrict__ partial,
   }
 }
 
+// Launches the dense kernel (experts == 0) or the expert kernel over
+// `experts` stacked problems; then, when the groups were split, the reduce.
 template <int NR, int STAGES>
-int launch(const void* h, const void* q4, const void* scale, void* y,
-           void* partial, int rows, int kin, int out, int groups, int splits,
-           cudaStream_t stream) {
-  auto kernel = int4_matmul_kernel<NR, STAGES>;
+int launch(const void* h, const void* q4, const void* scale,
+           const int* counts, void* y, void* partial, int experts, int rows,
+           int kin, int out, int groups, int splits, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<NR, STAGES>();
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  auto dense = int4_matmul_kernel<NR, STAGES>;
+  auto stacked = int4_expert_matmul_kernel<NR, STAGES>;
+  cudaError_t err =
+      experts == 0
+          ? cudaFuncSetAttribute(dense,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 int(smem))
+          : cudaFuncSetAttribute(stacked,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 int(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   // row tiles fastest: the blocks that share a column tile's weights run
   // together, so the weights come from device memory about once
-  const dim3 grid((rows + NR - 1) / NR, splits, (out + kBN - 1) / kBN);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const bf16*>(h), static_cast<const uint8_t*>(q4),
-      static_cast<const float*>(scale), static_cast<bf16*>(y),
-      static_cast<float*>(partial), rows, kin, out, groups, splits);
+  const dim3 grid((rows + NR - 1) / NR, (experts > 0 ? experts : 1) * splits,
+                  (out + kBN - 1) / kBN);
+  const bf16* hh = static_cast<const bf16*>(h);
+  const uint8_t* qq = static_cast<const uint8_t*>(q4);
+  const float* ss = static_cast<const float*>(scale);
+  bf16* yy = static_cast<bf16*>(y);
+  float* pp = static_cast<float*>(partial);
+  if (experts == 0)
+    dense<<<grid, kThreads, smem, stream>>>(hh, qq, ss, yy, pp, rows, kin,
+                                            out, groups, splits);
+  else
+    stacked<<<grid, kThreads, smem, stream>>>(hh, qq, ss, counts, yy, pp,
+                                              experts, rows, kin, out,
+                                              groups, splits);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  const size_t n = size_t(experts > 0 ? experts : 1) * rows * out;
+  const int blocks = static_cast<int>(
+      n / 1024 + 1 < 4096 ? n / 1024 + 1 : 4096);
+  int4_matmul_reduce_kernel<<<blocks, 256, 0, stream>>>(pp, yy, splits, n);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -292,23 +365,60 @@ constexpr int kDecodeBlocks = 2 * 132;
 constexpr int kPrefillBlocks = 132;
 constexpr int kMaxSplits = 8;
 
-}  // namespace
-
-// How many slices the groups are split into: as many as keep the blocks of
-// a launch within one wave of the card's resident blocks when the tiles
-// alone leave SMs idle (decode; prefill at out = 1024), at most kMaxSplits,
-// never a slice with no group. The wrapper sizes the f32 scratch from this,
-// and the entry splits by it.
-extern "C" int int4_matmul_splits(int rows, int out, int groups) {
+// How many slices the groups are split into, for `stacked` problems of
+// (rows, out): as many as keep the blocks of a launch within one wave of
+// the card's resident blocks when the tiles alone leave SMs idle (decode;
+// prefill at out = 1024), at most kMaxSplits, never a slice with no group.
+int choose_splits(int stacked, int rows, int out, int groups) {
   const bool decode = rows <= kDecodeRows;
   const int nr = decode ? kDecodeRows : 128;
-  const int blocks = ((rows + nr - 1) / nr) * ((out + kBN - 1) / kBN);
+  const int blocks =
+      stacked * ((rows + nr - 1) / nr) * ((out + kBN - 1) / kBN);
   int splits = (decode ? kDecodeBlocks : kPrefillBlocks) / blocks;
   splits = splits < kMaxSplits ? splits : kMaxSplits;
   splits = splits < groups ? splits : groups;
   splits = splits > 1 ? splits : 1;
   const int per = (groups + splits - 1) / splits;  // groups a slice walks
   return (groups + per - 1) / per;
+}
+
+// the shapes both entries take: a group a multiple of 16 in-elements (the
+// k16 steps), out a multiple of 16
+bool takes(int kin, int out, int groups) {
+  return kin > 0 && groups > 0 && kin % groups == 0 &&
+         (kin / groups) % 16 == 0 && out % 16 == 0;
+}
+
+int run(const void* h, const void* q4, const void* scale, const int* counts,
+        void* y, void* partial, int experts, int rows, int kin, int out,
+        int groups, void* stream) {
+  if (rows == 0 || out == 0) return 0;
+  if (!takes(kin, out, groups))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int splits =
+      choose_splits(experts > 0 ? experts : 1, rows, out, groups);
+  if ((experts > 0 ? experts : 1) * splits > 65535)  // gridDim.y
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return rows <= kDecodeRows
+             ? launch<kDecodeRows, 8>(h, q4, scale, counts, y, partial,
+                                      experts, rows, kin, out, groups,
+                                      splits, s)
+             : launch<128, 4>(h, q4, scale, counts, y, partial, experts,
+                              rows, kin, out, groups, splits, s);
+}
+
+}  // namespace
+
+// How many slices a launch splits the groups into. The wrapper sizes the
+// f32 scratch from this, and the entry splits by it.
+extern "C" int int4_matmul_splits(int rows, int out, int groups) {
+  return choose_splits(1, rows, out, groups);
+}
+
+extern "C" int int4_expert_matmul_splits(int experts, int rows, int out,
+                                         int groups) {
+  return choose_splits(experts, rows, out, groups);
 }
 
 // C entry point bound by ops/int4_matmul.py through ctypes. h (rows, kin)
@@ -323,23 +433,22 @@ extern "C" int int4_matmul_bf16(const void* h, const void* q4,
                                 const void* scale, void* y, void* partial,
                                 int rows, int kin, int out, int groups,
                                 void* stream) {
-  if (rows == 0 || out == 0) return 0;
-  if (kin <= 0 || groups <= 0 || kin % groups || (kin / groups) % 16 ||
-      out % 16)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int splits = int4_matmul_splits(rows, out, groups);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int code =
-      rows <= kDecodeRows
-          ? launch<kDecodeRows, 8>(h, q4, scale, y, partial, rows, kin, out,
-                                   groups, splits, s)
-          : launch<128, 4>(h, q4, scale, y, partial, rows, kin, out, groups,
-                           splits, s);
-  if (code != 0 || splits == 1) return code;
-  const size_t n = size_t(rows) * out;
-  const int blocks = static_cast<int>(
-      n / 1024 + 1 < 4096 ? n / 1024 + 1 : 4096);
-  int4_matmul_reduce_kernel<<<blocks, 256, 0, s>>>(
-      static_cast<const float*>(partial), static_cast<bf16*>(y), splits, n);
-  return static_cast<int>(cudaGetLastError());
+  return run(h, q4, scale, nullptr, y, partial, 0, rows, kin, out, groups,
+             stream);
+}
+
+// The expert entry: h (experts, rows, kin) bf16, q4 (experts, kin/2, out)
+// uint8, scale (experts, groups, 1, out) f32, y (experts, rows, out) bf16;
+// counts, a device int32 (experts,) of each expert's filled rows, or null
+// for all rows; partial an f32 (splits, experts, rows, out) scratch when
+// int4_expert_matmul_splits is above 1. Rows at or past an expert's count
+// come back as zeros. Returns 0 or a cudaError_t code.
+extern "C" int int4_expert_matmul_bf16(const void* h, const void* q4,
+                                       const void* scale, const void* counts,
+                                       void* y, void* partial, int experts,
+                                       int rows, int kin, int out, int groups,
+                                       void* stream) {
+  if (experts <= 0) return experts == 0 ? 0 : int(cudaErrorInvalidValue);
+  return run(h, q4, scale, static_cast<const int*>(counts), y, partial,
+             experts, rows, kin, out, groups, stream);
 }

@@ -1,6 +1,6 @@
 """Hugging Face checkpoint import and export (port of the JAX package's
 ``models/convert.py``, cut to the layouts this port serves: the dense
-Llama family and MLA with a full-rank q).
+Llama family, Mixtral's sparse MoE and MLA with a full-rank q).
 
 ``load_hf(cfg, src, device)`` takes a HF model directory (``*.safetensors``,
 sharded through ``model.safetensors.index.json`` or not, or
@@ -15,15 +15,18 @@ layer leaves stack on a leading (n_layers, ...) axis; RoPE is rotate-half
 on both sides for Llama. DeepSeek's MLA checkpoints rotate interleaved
 pairs, so the rope columns of ``q_proj`` and ``kv_a_proj_with_mqa`` are
 permuted to rotate-half (``_rope_deinterleave``), and ``kv_b_proj`` splits
-into ``w_uk`` and ``w_uv``.
+into ``w_uk`` and ``w_uv``. Mixtral's ``block_sparse_moe.gate`` is the
+router and its ``experts.{e}.w1``/``w3``/``w2`` are ``we_gate``/``we_up``/
+``we_down``, stacked over experts inside each layer.
 
-Checkpoints this port cannot serve (MoE experts, DeepSeek's dense-prefix
-layers, the low-rank q, biases, extra norms) are refused by their key
-names before any tensor is read. Safetensors files are read here, without
-the ``safetensors`` package: the 8-byte little-endian header length, the
-JSON header and each tensor's ``data_offsets``, the data viewed through
-``torch.frombuffer`` on a private memory map (BF16 needs no detour through
-numpy, which has no bf16). This module imports no jax.
+Checkpoints this port cannot serve (DeepSeek-MoE's experts, shared experts
+and router, DeepSeek's dense-prefix layers, the low-rank q, biases, extra
+norms) are refused by their key names before any tensor is read.
+Safetensors files are read here, without the ``safetensors`` package: the
+8-byte little-endian header length, the JSON header and each tensor's
+``data_offsets``, the data viewed through ``torch.frombuffer`` on a
+private memory map (BF16 needs no detour through numpy, which has no
+bf16). This module imports no jax.
 """
 
 from __future__ import annotations
@@ -39,7 +42,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from .llama import LlamaConfig, Params, is_norm, param_shapes
+from .llama import LlamaConfig, Params, keeps_f32, param_shapes
 
 __all__ = ["from_hf_state_dict", "load_hf", "read_safetensors",
            "to_hf_state_dict"]
@@ -53,8 +56,7 @@ _IGNORED = re.compile(r"(^|\.)rotary_emb\.inv_freq$")
 _REFUSED = (
     (".mlp.experts.", "MoE experts (DeepSeek-MoE)"),
     (".mlp.shared_experts.", "MoE shared experts"),
-    (".block_sparse_moe.", "MoE experts (Mixtral)"),
-    (".mlp.gate.weight", "an MoE router"),
+    (".mlp.gate.weight", "a DeepSeek-MoE router"),
     (".self_attn.q_a_proj.", "the low-rank q (q_lora_rank)"),
 )
 
@@ -65,6 +67,23 @@ _DENSE_ATTN = (("wq", "self_attn.q_proj.weight"),
                ("wo", "self_attn.o_proj.weight"))
 _MLP = (("w_gate", "mlp.gate_proj.weight"), ("w_up", "mlp.up_proj.weight"),
         ("w_down", "mlp.down_proj.weight"))
+# Mixtral: the router, and each expert's (ours, HF name) projections
+_MOE_ROUTER = "block_sparse_moe.gate.weight"
+_EXPERTS = (("we_gate", "w1"), ("we_up", "w3"), ("we_down", "w2"))
+
+
+def _expert_key(e: int, theirs: str) -> str:
+    return f"block_sparse_moe.experts.{e}.{theirs}.weight"
+
+
+def _mlp_keys(cfg: LlamaConfig) -> list[str]:
+    """The per-layer HF names of the MLP: the dense three, or Mixtral's
+    router and every expert's three."""
+    if not cfg.n_experts:
+        return [theirs for _, theirs in _MLP]
+    return [_MOE_ROUTER] + [_expert_key(e, theirs)
+                            for e in range(cfg.n_experts)
+                            for _, theirs in _EXPERTS]
 _NORMS = (("attn_norm", "input_layernorm.weight"),
           ("mlp_norm", "post_attention_layernorm.weight"))
 _MLA_ATTN = ("self_attn.q_proj.weight", "self_attn.kv_a_proj_with_mqa.weight",
@@ -81,7 +100,7 @@ def expected_keys(cfg: LlamaConfig) -> set:
     ``cfg`` holds; ``lm_head.weight`` is optional either way (a tied
     checkpoint may omit it, an untied config then materializes the tie)."""
     _check_cfg(cfg)
-    per_layer = [theirs for _, theirs in _NORMS + _MLP]
+    per_layer = [theirs for _, theirs in _NORMS] + _mlp_keys(cfg)
     per_layer += list(_MLA_ATTN) if cfg.is_mla else \
         [theirs for _, theirs in _DENSE_ATTN]
     keys = {"embed_tokens.weight", "norm.weight"}
@@ -108,7 +127,15 @@ def check_keys(cfg: LlamaConfig, names) -> None:
         if hit:
             raise NotImplementedError(
                 f"checkpoint holds {what} ({hit[0]!r}, {len(hit)} keys); "
-                "this port serves dense Llama and full-rank-q MLA only")
+                "this port serves dense Llama, Mixtral and full-rank-q MLA "
+                "only")
+    if not cfg.n_experts:
+        hit = sorted(k for k in names if ".block_sparse_moe." in "." + k)
+        if hit:
+            raise ValueError(
+                f"checkpoint holds Mixtral's sparse-MoE layers ({hit[0]!r}, "
+                f"{len(hit)} keys); {cfg.name!r} has a dense MLP (load it "
+                "with an MoE config such as mixtral-8x7b)")
     want = expected_keys(cfg)
     extra = sorted(names - want - {"lm_head.weight"})
     if extra:
@@ -193,7 +220,7 @@ def from_hf_state_dict(cfg: LlamaConfig, sd: Mapping[str, Any], device=None,
     def dtype_of(name: str) -> torch.dtype:
         if master:
             return cfg.param_dtype
-        return torch.float32 if is_norm(name) else cfg.dtype
+        return torch.float32 if keeps_f32(name) else cfg.dtype
 
     shapes = param_shapes(cfg)
 
@@ -221,7 +248,15 @@ def from_hf_state_dict(cfg: LlamaConfig, sd: Mapping[str, Any], device=None,
         else:
             leaves = {ours: get(pre + theirs).t()
                       for ours, theirs in _DENSE_ATTN}
-        leaves.update({ours: get(pre + theirs).t() for ours, theirs in _MLP})
+        if cfg.n_experts:
+            leaves["router"] = get(pre + _MOE_ROUTER).t()
+            leaves.update({ours: torch.stack(
+                [get(pre + _expert_key(e, theirs)).t()
+                 for e in range(cfg.n_experts)])
+                for ours, theirs in _EXPERTS})
+        else:
+            leaves.update({ours: get(pre + theirs).t()
+                           for ours, theirs in _MLP})
         leaves.update({ours: get(pre + theirs) for ours, theirs in _NORMS})
         for name, t in leaves.items():
             if tuple(t.shape) != tuple(layers[name].shape[1:]):
@@ -257,8 +292,15 @@ def to_hf_state_dict(cfg: LlamaConfig, params: Params
         pre = f"model.layers.{i}."
         for ours, theirs in _NORMS:
             sd[pre + theirs] = host(lp[ours][i])
-        for ours, theirs in _MLP:
-            sd[pre + theirs] = host(lp[ours][i].t())
+        if cfg.n_experts:
+            sd[pre + _MOE_ROUTER] = host(lp["router"][i].t())
+            for ours, theirs in _EXPERTS:
+                for e in range(cfg.n_experts):
+                    sd[pre + _expert_key(e, theirs)] = host(
+                        lp[ours][i, e].t())
+        else:
+            for ours, theirs in _MLP:
+                sd[pre + theirs] = host(lp[ours][i].t())
         if cfg.is_mla:
             a = pre + "self_attn."
             q = lp["wq"][i].reshape(-1, hn, hd + dr)

@@ -4,8 +4,9 @@
 returns, with every leaf already converted to a numpy array (stacked
 ``layers/*`` leaves of shape (L, ...)), and returns the port's parameters
 on ``device``: for serving, matmul weights, embedding and LM head in
-``cfg.dtype`` and norm weights in f32 — the values the JAX model computes
-with once it casts its f32 params at use; for training (``master=True``),
+``cfg.dtype`` and norm weights and the MoE router in f32 — the values the
+JAX model computes with once it casts its f32 params at use (it routes in
+f32); for training (``master=True``),
 every leaf in ``cfg.param_dtype`` (f32), the JAX model's master tree as it
 is. Both packages then compute the same thing, which is what the parity
 tests need. A tree the JAX quantizer made (``{"q4", "scale"}`` or
@@ -19,16 +20,18 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from .llama import LlamaConfig, Params, is_norm, param_shapes
+from .llama import LlamaConfig, Params, keeps_f32, param_shapes
 
 # JAX config fields that select code paths this port does not have yet;
 # a config that sets any of them away from the dense default is refused
+# (DeepSeek-MoE's shared experts, sigmoid routing and dense prefix by name)
 _UNSUPPORTED = {
     "sliding_window": None, "attn_logit_softcap": None,
     "query_pre_attn_scalar": None, "post_norms": False, "qk_norm": False,
     "rope_local_theta": None, "mlp_activation": "silu",
     "embed_scale": False, "logit_softcap": None,
-    "norm_zero_centered": False, "qkv_bias": False, "n_experts": 0,
+    "norm_zero_centered": False, "qkv_bias": False,
+    "n_shared_experts": 0, "router_sigmoid_bias": False,
     "n_dense_prefix": 0, "sliding_window_pattern": 1,
 }
 
@@ -42,6 +45,10 @@ def config_from_jax(jcfg, dtype: torch.dtype) -> LlamaConfig:
            if getattr(jcfg, f, dense) != dense]
     if getattr(jcfg, "remat_policy", "full") not in ("full", "none"):
         bad.append("remat_policy")
+    if getattr(jcfg, "n_experts", 0) and \
+            getattr(jcfg, "mla_latent_dim", None) is not None:
+        # every MLA-over-MoE checkpoint is DeepSeek-MoE
+        bad.append("n_experts with MLA (DeepSeek-MoE)")
     if bad:
         raise ValueError(f"config {jcfg.name!r} needs {bad}, which this "
                          "port does not serve yet")
@@ -49,7 +56,9 @@ def config_from_jax(jcfg, dtype: torch.dtype) -> LlamaConfig:
               "n_kv_heads", "head_dim", "mlp_dim", "max_seq_len",
               "rope_theta", "rope_scaling", "norm_eps", "tie_embeddings",
               "remat", "remat_policy", "mla_latent_dim", "mla_rope_dim",
-              "mla_q_lora_rank")
+              "mla_q_lora_rank", "n_experts", "n_experts_per_tok",
+              "capacity_factor", "router_norm_topk", "router_aux_coef",
+              "router_z_coef")
     param_dtype = getattr(torch, np.dtype(jcfg.param_dtype).name)
     return LlamaConfig(**{f: getattr(jcfg, f) for f in fields}, dtype=dtype,
                        param_dtype=param_dtype)
@@ -77,7 +86,7 @@ def params_from_jax(tree: dict, cfg: LlamaConfig, device=None,
         if master:
             dtype = cfg.param_dtype
         else:
-            dtype = torch.float32 if is_norm(name) else cfg.dtype
+            dtype = torch.float32 if keeps_f32(name) else cfg.dtype
         return torch.from_numpy(arr).to(device=dev, dtype=dtype)
 
     def convert_quantized(name: str, leaf: dict, shape) -> dict:

@@ -19,6 +19,12 @@ Serving may also hold quantized matmul weights (``models/quant.py``):
 ``{"q8", "scale"}`` and ``{"q4", "scale"}`` dict leaves, which ``_mm``
 multiplies by (int4 through the ``int4_matmul`` kernel).
 
+A sparse-MoE config (``n_experts`` > 0, Mixtral) holds ``router`` (L, E, X)
+in f32, as the JAX model routes in f32, and ``we_gate``/``we_up`` (L, X, E,
+M) and ``we_down`` (L, X, M, E) in place of the dense MLP's three leaves;
+the MLP of every layer is then ``models/moe.py``'s ``moe_mlp`` (int4
+experts through the ``int4_expert_matmul`` kernel).
+
 The arena is ``{"k", "v"}`` of shape (L, P + 1, T, Hkv, D) and is updated
 IN PLACE (the JAX model donated it instead); an int8 arena adds
 ``k_scale``/``v_scale`` (L, P + 1, T, Hkv) f32. An MLA model's arena is
@@ -46,6 +52,7 @@ from ..ops import (apply_rope, flash_attention, int4_matmul,
                    paged_attention_multi, paged_attention_multi_mla,
                    paged_attention_multi_mla_quant,
                    paged_attention_multi_quant, rms_norm, rope_frequencies)
+from .moe import moe_mlp
 
 Params = dict[str, Any]
 
@@ -54,9 +61,9 @@ Params = dict[str, Any]
 class LlamaConfig:
     """The fields of the JAX ``LlamaConfig`` this port runs, with the same
     defaults (weight and KV quantization are serving options,
-    ``ServingConfig``). MoE and DeepSeek's dense prefix, LoRA, ring
-    attention, meshes, sliding windows, soft caps and remat "dots" are
-    later slices."""
+    ``ServingConfig``). DeepSeek-MoE (shared experts, sigmoid routing) and
+    its dense prefix, LoRA, ring attention, meshes, sliding windows, soft
+    caps and remat "dots" are later slices."""
     name: str = "tiny"
     vocab_size: int = 32000
     embed_dim: int = 256
@@ -86,6 +93,16 @@ class LlamaConfig:
     # DeepSeek's q_lora_rank: q = q_a_norm(h @ w_qa) @ w_qb; None is the
     # full-rank wq (V2-Lite)
     mla_q_lora_rank: Optional[int] = None
+    # sparse MoE (Mixtral): n_experts = 0 is the dense MLP. Training routes
+    # with capacity_factor (assignments past it drop); serving with
+    # n_experts / n_experts_per_tok, which drops nothing. router_norm_topk
+    # renormalizes the chosen experts' probabilities to sum to 1
+    n_experts: int = 0
+    n_experts_per_tok: int = 2
+    capacity_factor: float = 1.25
+    router_norm_topk: bool = True
+    router_aux_coef: float = 0.02       # load-balance loss coefficient
+    router_z_coef: float = 1e-3         # router z-loss coefficient
 
     @property
     def head_dim_(self) -> int:
@@ -150,6 +167,24 @@ def tiny_llama(**kw) -> LlamaConfig:
     return dataclasses.replace(LlamaConfig(), **kw)
 
 
+def mixtral_8x7b() -> LlamaConfig:
+    """Mixtral-8x7B: Mistral-7B's body (32 layers, E 4096, GQA 32/8, vocab
+    32000, rope theta 1e6) with an 8-expert top-2 sparse MLP of width
+    14336 in every layer; 46.70 B parameters."""
+    return LlamaConfig(name="mixtral-8x7b", vocab_size=32000, embed_dim=4096,
+                       n_layers=32, n_heads=32, n_kv_heads=8, mlp_dim=14336,
+                       max_seq_len=32768, rope_theta=1_000_000.0,
+                       n_experts=8, n_experts_per_tok=2)
+
+
+def tiny_moe(**kw) -> LlamaConfig:
+    """Tiny MoE config for tests and CPU runs: 4 experts, top-2."""
+    kw.setdefault("name", "tiny-moe")
+    kw.setdefault("n_experts", 4)
+    kw.setdefault("n_experts_per_tok", 2)
+    return dataclasses.replace(LlamaConfig(), **kw)
+
+
 def mla_8b() -> LlamaConfig:
     """The MLA geometry the JAX package serves on one chip: Llama-3-8B's
     body (32 layers, E 4096, MLP 14336, vocab 128256) under DeepSeek-V2-Lite
@@ -189,13 +224,17 @@ def _layer_shapes(cfg: LlamaConfig) -> dict:
         attn = {"wq": (n, e, hn * hd),
                 "wk": (n, e, cfg.n_kv_heads * hd),
                 "wv": (n, e, cfg.n_kv_heads * hd)}
+    m, x = cfg.mlp_dim, cfg.n_experts
+    if x:
+        mlp = {"router": (n, e, x), "we_gate": (n, x, e, m),
+               "we_up": (n, x, e, m), "we_down": (n, x, m, e)}
+    else:
+        mlp = {"w_gate": (n, e, m), "w_up": (n, e, m), "w_down": (n, m, e)}
     return {"attn_norm": (n, e),
             **attn,
             "wo": (n, hn * hd, e),
             "mlp_norm": (n, e),
-            "w_gate": (n, e, cfg.mlp_dim),
-            "w_up": (n, e, cfg.mlp_dim),
-            "w_down": (n, cfg.mlp_dim, e)}
+            **mlp}
 
 
 def param_shapes(cfg: LlamaConfig) -> Params:
@@ -209,6 +248,12 @@ def param_shapes(cfg: LlamaConfig) -> Params:
 
 def is_norm(name: str) -> bool:
     return name.endswith("norm")
+
+
+def keeps_f32(name: str) -> bool:
+    """Leaves a serving tree keeps in f32: the norms, which RMSNorm applies
+    in f32, and the MoE router, which routes in f32."""
+    return is_norm(name) or name == "router"
 
 
 def _mm(h: torch.Tensor, w, dtype: torch.dtype) -> torch.Tensor:
@@ -251,23 +296,19 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
     live on that device. Weights are in ``cfg.dtype`` (serving), or in
     ``cfg.param_dtype`` with ``master=True`` (training); the same generator
     draws the same values, so the serving weights are the master weights
-    rounded."""
+    rounded (the router stays f32 in both)."""
     cfg.validate_mla()
     dev = resolve_device(device)
     dtype = cfg.param_dtype if master else cfg.dtype
 
-    def draw(shape) -> torch.Tensor:
-        out = torch.empty(shape, dtype=dtype, device=dev)
-        rows = out.reshape(shape[0], -1) if len(shape) > 2 else out[None]
-        for r in rows:
-            r.copy_(torch.randn(r.shape, generator=generator, device=dev,
-                                dtype=torch.float32) * 0.02)
-        return out
-
     def make(name: str, shape) -> torch.Tensor:
         if is_norm(name):
             return torch.ones(shape, dtype=torch.float32, device=dev)
-        return draw(shape)
+        out = torch.empty(shape, dtype=torch.float32 if keeps_f32(name)
+                          else dtype, device=dev)
+        for at, row in draw_rows(shape, generator, dev):
+            out[at] = row
+        return out
 
     shapes = param_shapes(cfg)
     params: Params = {name: make(name, s) for name, s in shapes.items()
@@ -275,6 +316,21 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
     params["layers"] = {name: make(name, s)
                         for name, s in shapes["layers"].items()}
     return params
+
+
+def draw_rows(shape, generator: torch.Generator, device):
+    """The draws of one non-norm leaf, as ``init_params`` makes them: a
+    stacked (L, ...) leaf of more than two axes one row a layer, any other
+    leaf one row; each row drawn flat, f32 normal * 0.02. Yields (index of
+    the row in the leaf, the row in its shape there)."""
+    stacked = len(shape) > 2
+    part = tuple(shape[1:]) if stacked else tuple(shape)
+    for i in range(shape[0] if stacked else 1):
+        # in place and held by no local: the caller frees a row before the
+        # next is drawn
+        yield ((i,) if stacked else ()), torch.randn(
+            (math.prod(part),), generator=generator, device=device,
+            dtype=torch.float32).mul_(0.02).view(part)
 
 
 class LlamaModel:
@@ -294,11 +350,14 @@ class LlamaModel:
 
     def forward(self, params: Params, tokens: torch.Tensor,
                 positions: Optional[torch.Tensor] = None,
-                return_hidden: bool = False) -> torch.Tensor:
+                return_hidden: bool = False,
+                train: bool = True) -> torch.Tensor:
         """tokens (B, S) -> logits (B, S, V) in ``cfg.dtype``, or with
         ``return_hidden`` the final-norm hidden states (B, S, E). Every
-        layer is causal flash attention and a SwiGLU MLP, each behind an
-        RMSNorm; weights are cast to ``cfg.dtype`` at each use. Under remat
+        layer is causal flash attention and a SwiGLU MLP (or the sparse MoE
+        MLP, routed at ``cfg.capacity_factor``, or with ``train=False`` at
+        the serving capacity that drops nothing), each behind an RMSNorm;
+        weights are cast to ``cfg.dtype`` at each use. Under remat
         "full" each layer is a ``torch.utils.checkpoint`` (the counterpart
         of ``jax.checkpoint`` over the JAX model's scan body), so backward
         runs its forward once more. ``positions`` (B, S) overrides arange
@@ -323,9 +382,10 @@ class LlamaModel:
             lp = {name: leaves[i] for name, leaves in layers.items()}
             if remat:
                 x = torch.utils.checkpoint.checkpoint(
-                    self._layer, x, lp, positions, use_reentrant=False)
+                    self._layer, x, lp, positions, train=train,
+                    use_reentrant=False)
             else:
-                x = self._layer(x, lp, positions)
+                x = self._layer(x, lp, positions, train=train)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         if return_hidden:
             return x
@@ -335,7 +395,7 @@ class LlamaModel:
 
     def _layer(self, x: torch.Tensor, lp: Params,
                positions: Optional[torch.Tensor],
-               return_kv: bool = False):
+               return_kv: bool = False, train: bool = True):
         """One decoder layer of ``forward``: the JAX model's dense
         ``_attention_block`` then ``_mlp_block``, the matmuls through
         ``_mm`` (raw weights cast to ``cfg.dtype``, or quantized leaves).
@@ -353,10 +413,7 @@ class LlamaModel:
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         o = flash_attention(qt, kt, vt, causal=True, sm_scale=cfg.sm_scale)
         o = o.transpose(1, 2).reshape(b, s, cfg.n_heads * hd)
-        x = x + _mm(o, lp["wo"], dt)
-        h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
-        act = F.silu(_mm(h, lp["w_gate"], dt)) * _mm(h, lp["w_up"], dt)
-        x = x + _mm(act, lp["w_down"], dt)
+        x = self._mlp(x + _mm(o, lp["wo"], dt), lp, train)
         return (x, k, v) if return_kv else x
 
     # -- contiguous serving steps -------------------------------------------
@@ -415,7 +472,7 @@ class LlamaModel:
         lp = params["layers"]
         for layer in range(cfg.n_layers):
             x, k, v = self._layer(x, {n: _at(w, layer) for n, w in lp.items()},
-                                  None, return_kv=True)
+                                  None, return_kv=True, train=False)
             if quant:
                 k, k_s = _kv_quant(k)
                 v, v_s = _kv_quant(v)
@@ -675,13 +732,33 @@ class LlamaModel:
         return x
 
     def _paged_mlp(self, x, lp, layer: int) -> torch.Tensor:
-        """The SwiGLU MLP of one layer of the paged steps, with its
-        residual."""
+        """``_mlp`` of layer ``layer`` of the stacked leaves ``lp``, at the
+        serving capacity."""
+        names = (("mlp_norm", "router", "we_gate", "we_up", "we_down")
+                 if self.cfg.n_experts else
+                 ("mlp_norm", "w_gate", "w_up", "w_down"))
+        return self._mlp(x, {n: _at(lp[n], layer) for n in names}, False)
+
+    def _mlp(self, x: torch.Tensor, lp: Params, train: bool) -> torch.Tensor:
+        """The JAX model's ``_mlp_block`` with its residual, on one layer's
+        leaves: the SwiGLU MLP, or for an MoE config ``moe_mlp``. ``train``
+        routes at ``cfg.capacity_factor``; serving (``train=False``) at
+        n_experts / n_experts_per_tok, so the capacity is every token and
+        nothing drops, as in the JAX model. The router's aux losses are not
+        computed (training an MoE model is not ported)."""
         cfg, dt = self.cfg, self.cfg.dtype
-        h = rms_norm(x, lp["mlp_norm"][layer], cfg.norm_eps)
-        act = (F.silu(_mm(h, _at(lp["w_gate"], layer), dt))
-               * _mm(h, _at(lp["w_up"], layer), dt))
-        return x + _mm(act, _at(lp["w_down"], layer), dt)
+        h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
+        if not cfg.n_experts:
+            act = F.silu(_mm(h, lp["w_gate"], dt)) * _mm(h, lp["w_up"], dt)
+            return x + _mm(act, lp["w_down"], dt)
+        factor = (cfg.capacity_factor if train
+                  else cfg.n_experts / cfg.n_experts_per_tok)
+        y, _, _ = moe_mlp(h, lp["router"], lp["we_gate"], lp["we_up"],
+                          lp["we_down"],
+                          n_experts_per_tok=cfg.n_experts_per_tok,
+                          capacity_factor=factor, dtype=dt,
+                          norm_topk=cfg.router_norm_topk, with_losses=False)
+        return x + y
 
     def _mla_project(self, h, lp, layer: int, positions):
         """Port of the JAX ``_mla_project``: q_nope (B,K,H,hd), q_rope

@@ -1,0 +1,134 @@
+"""Sparse Mixture-of-Experts MLP, Mixtral-style top-k routing (port of the
+JAX package's ``models/moe.py``).
+
+Every token picks its top-k experts from an f32 router; its copies scatter
+into a fixed (X, capacity, E) buffer at their running position within
+their expert (an assignment past the capacity is dropped: it lands in a
+sink row past the buffer's end and contributes nothing), each projection
+runs once for all experts, and the results gather back weighted by the
+routing probabilities. Every shape is static and nothing is read back to
+the host, so a step that runs this can be captured as a CUDA graph.
+
+Expert leaves are raw (X, in, out) arrays, int8 ``{"q8", "scale"}`` with
+the scale applied after the product, or int4 ``{"q4", "scale"}``, which go
+through the ``int4_expert_matmul`` kernel with each expert's filled-row
+count, so row tiles past it read no weights. DeepSeek's sigmoid routing,
+shared experts and expert parallelism are not ported.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..ops import int4_expert_matmul
+
+__all__ = ["load_balance_loss", "moe_capacity", "moe_mlp", "route_top_k",
+           "router_z_loss"]
+
+
+def moe_capacity(n_tokens: int, n_experts: int, k: int,
+                 capacity_factor: float) -> int:
+    """Per-expert token capacity: ceil(k·G/X · factor), floor 4."""
+    return max(4, int(math.ceil(k * n_tokens / n_experts * capacity_factor)))
+
+
+def route_top_k(router_logits: torch.Tensor, k: int, norm_topk: bool = True
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(G, X) f32 logits -> (weights (G, k), expert ids (G, k), probs
+    (G, X)): softmax over all experts, then the top k; ``norm_topk``
+    renormalizes the k weights to sum to 1 (Mixtral), else they stay the
+    raw probabilities."""
+    probs = torch.softmax(router_logits, dim=-1)
+    top_p, top_idx = torch.topk(probs, k, dim=-1)
+    if norm_topk:
+        top_p = top_p / top_p.sum(dim=-1, keepdim=True)
+    return top_p, top_idx, probs
+
+
+def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """int64 one-hot over a new last axis, by comparison (no host check of
+    the ids, so a capture can hold it)."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).long()
+
+
+def load_balance_loss(probs: torch.Tensor, top_idx: torch.Tensor,
+                      n_experts: int, k: int) -> torch.Tensor:
+    """Switch-style aux loss over top-k: X · Σ_x f_x · p_x, f_x the share
+    of (token, slot) assignments routed to x divided by k (a uniform router
+    scores 1), p_x the mean router probability."""
+    f = _one_hot(top_idx, n_experts).float().sum(dim=1).mean(dim=0) / k
+    return n_experts * torch.sum(f * probs.mean(dim=0))
+
+
+def router_z_loss(router_logits: torch.Tensor) -> torch.Tensor:
+    """Mean squared logsumexp of the router logits."""
+    return torch.logsumexp(router_logits, dim=-1).pow(2).mean()
+
+
+def _expert_matmul(x: torch.Tensor, w, dtype: torch.dtype,
+                   counts: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x (X, C, in) @ w (X, in, out) -> (X, C, out) for a raw leaf, an
+    int8 ``{"q8", "scale"}`` leaf (scale (X, 1, out) after the product) or
+    an int4 ``{"q4", "scale"}`` leaf (the ``int4_expert_matmul`` kernel,
+    told each expert's filled rows by ``counts``)."""
+    if isinstance(w, dict):
+        if "q4" in w:
+            return int4_expert_matmul(x.to(dtype), w["q4"], w["scale"],
+                                      counts)
+        return torch.bmm(x, w["q8"].to(dtype)) * w["scale"].to(dtype)
+    return torch.bmm(x, w if w.dtype == dtype else w.to(dtype))
+
+
+def moe_mlp(h: torch.Tensor, router_w: torch.Tensor, we_gate, we_up,
+            we_down, *, n_experts_per_tok: int, capacity_factor: float,
+            dtype: torch.dtype, norm_topk: bool = True,
+            with_losses: bool = True
+            ) -> tuple[torch.Tensor, Optional[torch.Tensor],
+                       Optional[torch.Tensor]]:
+    """The SwiGLU expert MLP on normed activations h (..., E): router_w
+    (E, X), we_gate/we_up (X, E, M) and we_down (X, M, E) leaves. Returns
+    (y (..., E) in h's dtype, the load-balance aux loss, the router z-loss),
+    both unscaled; with ``with_losses=False`` (serving) they are None and
+    not computed."""
+    e = h.shape[-1]
+    x_experts = router_w.shape[-1]
+    k = n_experts_per_tok
+    ht = h.reshape(-1, e)
+    g = ht.shape[0]
+    cap = moe_capacity(g, x_experts, k, capacity_factor)
+    router_logits = ht.float() @ router_w.float()
+    top_p, top_idx, probs = route_top_k(router_logits, k, norm_topk)
+
+    # each (token, slot) assignment's position in its expert's buffer: the
+    # running count of earlier assignments to the same expert
+    flat = _one_hot(top_idx, x_experts).reshape(g * k, x_experts)
+    pos = ((torch.cumsum(flat, dim=0) - flat) * flat).sum(dim=-1)
+    keep = pos < cap
+    slot = torch.where(keep, top_idx.reshape(g * k) * cap + pos,
+                       x_experts * cap)     # dropped: the sink row
+    buf = torch.zeros((x_experts * cap + 1, e), dtype=h.dtype,
+                      device=h.device)
+    buf[slot] = ht[:, None].expand(g, k, e).reshape(g * k, e)
+    buf = buf[:-1].view(x_experts, cap, e)
+    # filled rows per expert: its assignments, at most cap
+    counts = flat.sum(dim=0).clamp(max=cap).to(torch.int32)
+
+    gate = _expert_matmul(buf, we_gate, dtype, counts)
+    up = _expert_matmul(buf, we_up, dtype, counts)
+    out = _expert_matmul(F.silu(gate) * up, we_down, dtype, counts)
+
+    gathered = out.reshape(x_experts * cap, e)[
+        slot.clamp(max=x_experts * cap - 1)]
+    gathered = torch.where(keep[:, None], gathered,
+                           torch.zeros((), dtype=gathered.dtype,
+                                       device=h.device))
+    y = (gathered.view(g, k, e) * top_p.view(g, k, 1).to(h.dtype)).sum(dim=1)
+    y = y.reshape(h.shape)
+    if not with_losses:
+        return y, None, None
+    return (y, load_balance_loss(probs, top_idx, x_experts, k),
+            router_z_loss(router_logits))

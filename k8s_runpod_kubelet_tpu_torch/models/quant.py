@@ -6,8 +6,16 @@ f32 (..., 1, out)}`` (per output channel, absmax / 127) or ``{"q4": uint8
 (..., in/2, out), "scale": f32 (..., g, 1, out)}`` (groups of
 ``INT4_GROUP`` contraction elements, absmax / 7; in-element 2i in the low
 nibble, 2i+1 in the high, each stored offset by 8). ``llama._mm`` takes
-either form. The embedding is stored in the compute dtype, norms stay
-f32, the LM head is quantized.
+either form. The embedding is stored in the compute dtype, norms and the
+MoE router stay f32, the LM head is quantized. Expert leaves (``we_gate``,
+``we_up``, ``we_down``, (L, X, in, out)) quantize at both widths one
+(layer, expert) slice at a time: q8 (L, X, in, out) with scale (L, X, 1,
+out), or q4 (L, X, in/2, out) with scale (L, X, g, 1, out).
+
+``init_quantized_params`` draws a model's random weights and quantizes
+each layer's slice as soon as it is drawn, so a model too large for the
+card in bf16 (Mixtral-8x7B, 93 GB) is never whole in bf16; it gives
+exactly ``quantize_params(cfg, init_params(cfg, generator), bits)``.
 
 The JAX package quantizes on the host in numpy. This port quantizes in
 torch on the parameters' device, one layer slice at a time, so an 8B
@@ -19,19 +27,27 @@ quantizer's.
 
 from __future__ import annotations
 
+import itertools
 from typing import Any
 
 import torch
 
-from .llama import LlamaConfig, Params
+from ..device import resolve_device
+from .llama import (LlamaConfig, Params, draw_rows, is_norm, keeps_f32,
+                    param_shapes)
 
-__all__ = ["INT4_GROUP", "dequantize", "is_quantized", "quantize_params"]
+__all__ = ["INT4_GROUP", "dequantize", "init_quantized_params",
+           "is_quantized", "quantize_params"]
 
 # stacked-layer projection weights, plus the LM head. MLA: w_dkv and the
 # low-rank q pair quantize as the JAX quantizer's do; w_uk/w_uv stay in
 # full precision (the absorbed step folds them in f32, not through _mm)
 _LAYER_WEIGHTS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
                   "w_dkv", "w_qa", "w_qb")
+# sparse-MoE expert weights, (L, X, in, out): the int4 leaves go through
+# int4_expert_matmul, the int8 ones through a batched product
+_EXPERT_WEIGHTS = ("we_gate", "we_up", "we_down")
+_QUANTIZED = frozenset(_LAYER_WEIGHTS + _EXPERT_WEIGHTS + ("lm_head",))
 
 INT4_GROUP = 128  # contraction-axis group size of the int4 scales
 
@@ -66,20 +82,24 @@ def _quantize_leaf_int4(w: torch.Tensor,
     return {"q4": packed, "scale": scale}
 
 
+def _quantize_into(out: dict, lead: tuple, at: tuple, w: torch.Tensor,
+                   quant) -> None:
+    """Quantize ``w`` (..., in, out) one (in, out) slice at a time into the
+    quantized leaf ``out`` of lead shape ``lead``, at index ``at``; its
+    tensors are allocated at the first slice."""
+    for idx in itertools.product(*map(range, w.shape[:-2])):
+        for k, v in quant(w[idx]).items():
+            if k not in out:
+                out[k] = torch.empty(lead + v.shape, dtype=v.dtype,
+                                     device=v.device)
+            out[k][at + idx] = v
+
+
 def _quantize_stacked(w: torch.Tensor, quant) -> dict[str, torch.Tensor]:
-    """Quantize a (L, in, out) leaf one layer slice at a time into
-    preallocated outputs (a 2-D leaf is one slice)."""
-    if w.dim() == 2:
-        return quant(w)
-    first = quant(w[0])
-    out = {k: torch.empty((w.shape[0],) + v.shape, dtype=v.dtype,
-                          device=v.device) for k, v in first.items()}
-    for k, v in first.items():
-        out[k][0] = v
-    del first
-    for layer in range(1, w.shape[0]):
-        for k, v in quant(w[layer]).items():
-            out[k][layer] = v
+    """Quantize a (..., in, out) leaf one (in, out) slice at a time (a
+    layer's, or a layer's expert's) into preallocated outputs."""
+    out: dict = {}
+    _quantize_into(out, tuple(w.shape[:-2]), (), w, quant)
     return out
 
 
@@ -87,21 +107,75 @@ def is_quantized(w: Any) -> bool:
     return isinstance(w, dict) and ("q8" in w or "q4" in w)
 
 
-def quantize_params(cfg: LlamaConfig, params: Params, bits: int = 8) -> Params:
-    """A new tree with the projection weights and the LM head int8- or
-    int4-quantized, on the parameters' device; the embedding in
-    ``cfg.dtype``, everything else as given."""
+def _quantizer(bits: int):
     if bits not in (4, 8):
         raise ValueError(f"bits must be 4 or 8, got {bits}")
-    quant = _quantize_leaf if bits == 8 else _quantize_leaf_int4
+    return _quantize_leaf if bits == 8 else _quantize_leaf_int4
+
+
+def quantize_params(cfg: LlamaConfig, params: Params, bits: int = 8) -> Params:
+    """A new tree with the projection weights, the expert weights and the
+    LM head int8- or int4-quantized, on the parameters' device; the
+    embedding in ``cfg.dtype``, everything else as given. A leaf that is
+    already quantized at ``bits`` (a tree from ``init_quantized_params``)
+    is kept as it is; one at the other width raises."""
+    quant = _quantizer(bits)
+    kind = "q8" if bits == 8 else "q4"
+
+    def leaf(name: str, w):
+        if name not in _QUANTIZED:
+            return w
+        if is_quantized(w):
+            if kind not in w:
+                raise ValueError(f"{name} is already quantized "
+                                 f"({sorted(w)}), not to {bits} bits")
+            return w
+        return _quantize_stacked(w, quant)
+
     out: Params = {"tok_embed": params["tok_embed"].to(cfg.dtype),
                    "final_norm": params["final_norm"]}
-    out["layers"] = {
-        name: (_quantize_stacked(w, quant) if name in _LAYER_WEIGHTS else w)
-        for name, w in params["layers"].items()}
+    out["layers"] = {name: leaf(name, w)
+                     for name, w in params["layers"].items()}
     if "lm_head" in params:
-        out["lm_head"] = _quantize_stacked(params["lm_head"], quant)
+        out["lm_head"] = leaf("lm_head", params["lm_head"])
     return out
+
+
+def init_quantized_params(cfg: LlamaConfig, generator: torch.Generator,
+                          bits: int, device=None) -> Params:
+    """``quantize_params(cfg, init_params(cfg, generator, device), bits)``
+    without the bf16 tree: each leaf is drawn in ``init_params``' order
+    from ``generator`` (on ``device``), and a weight that quantizes is
+    rounded to ``cfg.dtype`` and quantized one layer's row at a time as it
+    is drawn. The peak beyond the result is one f32 row and its
+    ``cfg.dtype`` copy (at Mixtral-8x7B one layer's 8 experts of one
+    projection: 1.9 GB and 0.94 GB)."""
+    cfg.validate_mla()
+    quant = _quantizer(bits)
+    dev = resolve_device(device)
+
+    def make(name: str, shape):
+        if is_norm(name):
+            return torch.ones(shape, dtype=torch.float32, device=dev)
+        if name not in _QUANTIZED:
+            out = torch.empty(shape, device=dev, dtype=torch.float32
+                              if keeps_f32(name) else cfg.dtype)
+            for at, row in draw_rows(shape, generator, dev):
+                out[at] = row
+            return out
+        out: dict = {}
+        for at, row in draw_rows(shape, generator, dev):
+            _quantize_into(out, tuple(shape[:-2]), at, row.to(cfg.dtype),
+                           quant)
+            del row
+        return out
+
+    shapes = param_shapes(cfg)
+    params: Params = {name: make(name, s) for name, s in shapes.items()
+                      if name != "layers"}
+    params["layers"] = {name: make(name, s)
+                        for name, s in shapes["layers"].items()}
+    return params
 
 
 def dequantize(w: dict) -> torch.Tensor:

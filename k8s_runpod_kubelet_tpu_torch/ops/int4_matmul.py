@@ -9,21 +9,26 @@ group's scale; the sum over groups is cast to h's dtype once.
 
 ``int4_matmul`` launches ``csrc/int4_matmul.cu`` on a CUDA tensor (or
 raises) and runs ``_int4_matmul_plain``, the port of ``_fallback_2d``, on a
-CPU tensor. The kernel takes the quantizer's bytes as they are (out a
-multiple of 16, groups of a multiple of 16 in-elements, every tensor
-16-byte aligned). Forward only: training never sees int4 weights.
+CPU tensor. ``int4_expert_matmul`` is the per-expert form of the MoE layers
+(the JAX ``int4_expert_matmul``, there a ``lax.map`` of the 2-D kernel over
+experts): one launch of the same tile for every expert at once, with an
+optional device count of filled rows per expert. The kernel takes the
+quantizer's bytes as they are (out a multiple of 16, groups of a multiple
+of 16 in-elements, every tensor 16-byte aligned). Forward only: training
+never sees int4 weights.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
 from . import _cuda
 
-__all__ = ["int4_matmul"]
+__all__ = ["int4_expert_matmul", "int4_matmul"]
 
 
 def _int4_matmul_plain(h2: torch.Tensor, q4: torch.Tensor,
@@ -43,6 +48,21 @@ def _int4_matmul_plain(h2: torch.Tensor, q4: torch.Tensor,
     return torch.einsum("bgo,go->bo", part, scale[:, 0, :]).to(h2.dtype)
 
 
+def _int4_expert_matmul_plain(h: torch.Tensor, q4: torch.Tensor,
+                              scale: torch.Tensor,
+                              counts: Optional[torch.Tensor] = None
+                              ) -> torch.Tensor:
+    """``_int4_matmul_plain`` over the expert axis: h (X, C, in) -> (X, C,
+    out) in h's dtype, rows at or past ``counts[x]`` zero."""
+    y = torch.stack([_int4_matmul_plain(h[x], q4[x], scale[x])
+                     for x in range(h.shape[0])])
+    if counts is not None:
+        rows = torch.arange(h.shape[1], device=h.device)
+        y = torch.where(rows[None, :, None] < counts[:, None, None].long(),
+                        y, torch.zeros((), dtype=y.dtype, device=y.device))
+    return y
+
+
 @functools.cache
 def _launchers():
     """The C entry and its split choice (``int4_matmul_splits``), which
@@ -52,6 +72,18 @@ def _launchers():
     fn, splits = lib.int4_matmul_bf16, lib.int4_matmul_splits
     fn.argtypes = [p, p, p, p, p, i, i, i, i, p]
     splits.argtypes = [i, i, i]
+    fn.restype = splits.restype = i
+    return fn, splits
+
+
+@functools.cache
+def _expert_launchers():
+    """The expert entry of the same library and its split choice."""
+    lib = _cuda.load("int4_matmul")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn, splits = lib.int4_expert_matmul_bf16, lib.int4_expert_matmul_splits
+    fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
+    splits.argtypes = [i, i, i, i]
     fn.restype = splits.restype = i
     return fn, splits
 
@@ -69,9 +101,9 @@ def _check_cuda_args(h2, q4, scale) -> None:
             raise ValueError(f"{name} must be contiguous")
         if t.data_ptr() % 16:                   # 16-byte cp.async copies
             raise ValueError(f"{name} must be 16-byte aligned")
-    if q4.shape[1] % 16:
-        raise ValueError(f"out {q4.shape[1]} must be a multiple of 16")
-    group = 2 * q4.shape[0] // scale.shape[0]
+    if q4.shape[-1] % 16:
+        raise ValueError(f"out {q4.shape[-1]} must be a multiple of 16")
+    group = 2 * q4.shape[-2] // scale.shape[-3]
     if group % 16:
         raise ValueError(f"a group of {group} in-elements is not a multiple "
                          f"of 16 (the kernel's k16 steps)")
@@ -110,5 +142,59 @@ def int4_matmul(h: torch.Tensor, q4: torch.Tensor,
     return y.reshape(*h.shape[:-1], out)
 
 
-# kernel launches made through the wrapper (the plain path never counts)
+def int4_expert_matmul(h: torch.Tensor, q4: torch.Tensor,
+                       scale: torch.Tensor,
+                       counts: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per-expert int4 matmul: h (X, C, in) @ q4 (X, in/2, out) with scale
+    (X, g, 1, out) -> (X, C, out) in h's dtype. ``counts`` (X,) int32 on
+    h's device, if given, is each expert's filled rows: rows at or past it
+    come back as zeros, and the kernel reads no weights for a row tile past
+    it. A CUDA tensor launches the kernel once for every expert (bf16 h) or
+    raises; a CPU tensor takes the plain version."""
+    if h.dim() != 3 or q4.dim() != 3 or scale.dim() != 4:
+        raise ValueError(f"h {tuple(h.shape)}, q4 {tuple(q4.shape)}, scale "
+                         f"{tuple(scale.shape)}: expected (X, C, in), "
+                         "(X, in/2, out), (X, g, 1, out)")
+    x, rows, kin = h.shape
+    if q4.shape[0] != x or scale.shape[0] != x:
+        raise ValueError(f"h has {x} experts, q4 {q4.shape[0]}, scale "
+                         f"{scale.shape[0]}")
+    kin2, out = q4.shape[1:]
+    if kin != 2 * kin2:
+        raise ValueError(f"h has {kin} in-elements, q4 packs {2 * kin2}")
+    if scale.shape[2] != 1 or scale.shape[3] != out \
+            or kin2 % scale.shape[1]:
+        raise ValueError(f"scale {tuple(scale.shape)} does not group q4 "
+                         f"{tuple(q4.shape)}")
+    if counts is not None and (counts.shape != (x,)
+                               or counts.device != h.device):
+        raise ValueError(f"counts {tuple(counts.shape)} on {counts.device}: "
+                         f"expected ({x},) on {h.device}")
+    if h.device.type == "cpu":
+        return _int4_expert_matmul_plain(h, q4, scale, counts)
+    if h.device.type != "cuda":
+        raise ValueError(f"unsupported device {h.device}")
+    _check_cuda_args(h, q4, scale)
+    if counts is not None and (counts.dtype != torch.int32
+                               or not counts.is_contiguous()):
+        raise TypeError(f"the CUDA kernel takes contiguous int32 counts, "
+                        f"got {counts.dtype}")
+    g = scale.shape[1]
+    launch, splits_of = _expert_launchers()
+    y = torch.empty((x, rows, out), dtype=h.dtype, device=h.device)
+    splits = splits_of(x, rows, out, g)
+    partial = (torch.empty((splits, x, rows, out), dtype=torch.float32,
+                           device=h.device) if splits > 1 else y)
+    stream = torch.cuda.current_stream(h.device).cuda_stream
+    code = launch(h.data_ptr(), q4.data_ptr(), scale.data_ptr(),
+                  counts.data_ptr() if counts is not None else None,
+                  y.data_ptr(), partial.data_ptr(), x, rows, kin, out, g,
+                  stream)
+    _cuda.check(code, "int4_expert_matmul")
+    int4_expert_matmul.launches += 1
+    return y
+
+
+# kernel launches made through the wrappers (the plain path never counts)
 int4_matmul.launches = 0
+int4_expert_matmul.launches = 0

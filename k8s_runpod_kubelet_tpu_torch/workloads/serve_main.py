@@ -751,10 +751,13 @@ def parse_args(argv=None) -> argparse.Namespace:
 def build_engine(args: argparse.Namespace, params=None):
     """(started engine, tokenizer or None) for the CLI's arguments; the
     weights are ``params`` (of the model's config, on the device) when
-    given, else ``--hf-checkpoint``'s, else random from ``--seed``. Raises
-    ValueError for --int8 with --int4."""
+    given, else ``--hf-checkpoint``'s, else random from ``--seed`` (with
+    --int4 or --int8 drawn and quantized a layer at a time, so the bf16
+    tree never exists whole: Mixtral-8x7B's is 93 GB). Raises ValueError
+    for --int8 with --int4."""
     from ..models import MODEL_CONFIGS, init_params
     from ..models.convert import load_hf
+    from ..models.quant import init_quantized_params
 
     if args.int8 and args.int4:
         raise ValueError("--int8 and --int4 are mutually exclusive — pick "
@@ -778,7 +781,10 @@ def build_engine(args: argparse.Namespace, params=None):
         params = load_hf(cfg, args.hf_checkpoint, device=device)
     if params is None:
         gen = torch.Generator(device=device).manual_seed(args.seed)
-        params = init_params(cfg, gen, device)
+        params = (init_quantized_params(cfg, gen, 4 if args.int4 else 8,
+                                        device)
+                  if args.int4 or args.int8 else
+                  init_params(cfg, gen, device))
     # a quantizing engine keeps only its quantized copy of params
     return ServingEngine(
         cfg, params, sc, device=device,

@@ -146,7 +146,8 @@ class ServingEngine:
         # for the shared prefix pool (the JAX engine's auto sizing)
         n_pages = sc.kv_pool_pages or 2 * sc.slots * slot_pages
         if sc.quantize_int8 or sc.quantize_int4:
-            # on the params' device, one layer slice at a time
+            # on the params' device, one layer slice at a time; leaves
+            # already quantized (init_quantized_params) are kept as they are
             params = quantize_params(cfg, params,
                                      bits=4 if sc.quantize_int4 else 8)
         self.params = params
@@ -450,7 +451,7 @@ class ServingEngine:
         toks = torch.tensor([tokens], dtype=torch.int32, device=self.device)
         with self._prefix_lock, torch.no_grad():
             hidden = self.model.forward(self.params, toks,
-                                        return_hidden=True)
+                                        return_hidden=True, train=False)
             # pool in f32: bf16 sums over hundreds of positions lose
             # ~1e-2 relative
             pooled = hidden[0].float().mean(dim=0)

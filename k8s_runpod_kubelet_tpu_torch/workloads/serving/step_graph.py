@@ -36,9 +36,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ...ops import (int4_matmul, paged_attention, paged_attention_mla,
-                    paged_attention_mla_quant, paged_attention_multi,
-                    paged_attention_multi_mla,
+from ...ops import (int4_expert_matmul, int4_matmul, paged_attention,
+                    paged_attention_mla, paged_attention_mla_quant,
+                    paged_attention_multi, paged_attention_multi_mla,
                     paged_attention_multi_mla_quant,
                     paged_attention_multi_quant, paged_attention_quant,
                     rms_norm)
@@ -48,7 +48,8 @@ from ...ops import (int4_matmul, paged_attention, paged_attention_mla,
 COUNTED = (paged_attention_multi, paged_attention_multi_quant,
            paged_attention_multi_mla, paged_attention_multi_mla_quant,
            paged_attention, paged_attention_quant, paged_attention_mla,
-           paged_attention_mla_quant, rms_norm, int4_matmul)
+           paged_attention_mla_quant, rms_norm, int4_matmul,
+           int4_expert_matmul)
 
 # the kernel each multi-token wrapper launches once a call, by the name a
 # profiler reads (split-KV merges and int4 split reductions are other
@@ -61,6 +62,7 @@ KERNEL_NAMES = {
         "paged_attention_multi_mla_quant_kernel",
     "rms_norm": "_rms_kernel",
     "int4_matmul": "int4_matmul_kernel",
+    "int4_expert_matmul": "int4_expert_matmul_kernel",
 }
 
 # eager steps before a capture: the first builds the nvcc libraries and

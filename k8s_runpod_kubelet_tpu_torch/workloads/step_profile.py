@@ -9,6 +9,8 @@ Run on a machine with one NVIDIA card:
         --model llama3-8b [--int4] [--kv-int8]
     python -m k8s_runpod_kubelet_tpu_torch.workloads.step_profile \
         --model mla-8b [--kv-int8]
+    python -m k8s_runpod_kubelet_tpu_torch.workloads.step_profile \
+        --model mixtral-8x7b --int4
 
 With ``--speculate K`` a speculative verify step is profiled too: one
 ``paged_verify_step`` at K + 1 tokens over the same 8 slots and contexts,
@@ -25,9 +27,14 @@ equal the launches the capture recorded for each kernel wrapper.
 With ``--int4`` and ``--kv-int8`` the serving steps run the memory-lean
 deployment (the weights quantized on the card as ``ServingEngine`` does,
 the arena int8 with its scale sections) and the training step, which
-never sees quantized weights, is left out. ``--model mla-8b`` profiles
-the serving steps over the latent arena (int8 latents with
-``--kv-int8``); an MLA model has no training step in this port.
+never sees quantized weights, is left out; ``--int4`` weights are drawn
+and quantized a layer at a time (``init_quantized_params``, the serve
+CLI's way), so a model whose bf16 tree does not fit the card
+(mixtral-8x7b, 93 GB) profiles too. ``--model mla-8b`` profiles the
+serving steps over the latent arena (int8 latents with ``--kv-int8``); an
+MLA model has no training step in this port, nor has an MoE model
+(mixtral-8x7b), whose expert products are their own family, ``int4
+experts`` (the ``int4_expert_matmul`` kernel).
 
 Prints one JSON object (also written to ``--out`` if given): per phase
 the wall time of a step (host clock around work that ends in a
@@ -55,7 +62,7 @@ import torch
 
 from ..device import resolve_device
 from ..models import MODEL_CONFIGS, LlamaModel, init_params
-from ..models.quant import quantize_params
+from ..models.quant import init_quantized_params
 from .serving.step_graph import KERNEL_NAMES, StepGraph
 
 SEED = 0
@@ -74,6 +81,7 @@ FAMILIES = (
     ("MLA split merge", ("mla_merge_kernel",)),
     ("quant attention", ("paged_attention_multi_quant_kernel",)),
     ("paged split merge", ("paged_attention_merge_kernel",)),
+    ("int4 experts", ("int4_expert_matmul",)),
     ("int4 GEMM", ("int4_matmul",)),
     ("paged_attention_multi", ("paged_attention_multi_kernel",)),
     ("flash_fwd", ("flash_fwd_kernel",)),
@@ -239,9 +247,10 @@ def main(argv=None) -> int:
         timeout=60, check=True).stdout.strip().splitlines()[0]
     cfg = MODEL_CONFIGS[args.model]()
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    params = init_params(cfg, gen, dev)
-    if args.int4:
-        params = quantize_params(cfg, params, bits=4)
+    # the same draws either way: init_quantized_params gives
+    # quantize_params(init_params(...)) without the bf16 tree
+    params = (init_quantized_params(cfg, gen, 4, dev) if args.int4
+              else init_params(cfg, gen, dev))
     model = LlamaModel(cfg, dev)
     t, cols = 16, 128                     # 16-token pages, cache_len 2048
     b = len(DECODE_LENGTHS)
@@ -314,7 +323,7 @@ def main(argv=None) -> int:
              n_tokens.cpu().numpy()))
     del params, arena, graphs, g
     torch.cuda.empty_cache()
-    if not (args.int4 or args.kv_int8 or cfg.is_mla):
+    if not (args.int4 or args.kv_int8 or cfg.is_mla or cfg.n_experts):
         out["train"] = _train_profile(cfg, dev)
     text = json.dumps(out)
     if args.out:

@@ -256,6 +256,12 @@ class Trainer:
 
     def __init__(self, cfg: LlamaConfig, tc: TrainConfig, seed: int = 0,
                  initial_params: Optional[Params] = None, device=None):
+        if cfg.n_experts:
+            raise ValueError(
+                f"{cfg.name}: training a sparse-MoE model is not ported (the "
+                "MoE training slice: the router's load-balance and z losses "
+                "in the objective, capacity drops, and the expert "
+                "gradients); MoE configs serve only")
         self.cfg = cfg
         self.tc = tc
         self.device = resolve_device(device)

@@ -20,7 +20,8 @@ import torch
 from k8s_runpod_kubelet_tpu_torch.models.quant import _quantize_leaf_int4
 from k8s_runpod_kubelet_tpu_torch.models.llama import _kv_quant
 from k8s_runpod_kubelet_tpu_torch.ops import (
-    flash_attention, flash_dkv, flash_dq, flash_fwd, int4_matmul,
+    flash_attention, flash_dkv, flash_dq, flash_fwd, int4_expert_matmul,
+    int4_matmul,
     paged_attention, paged_attention_mla, paged_attention_mla_quant,
     paged_attention_multi, paged_attention_multi_mla,
     paged_attention_multi_mla_quant, paged_attention_multi_quant,
@@ -31,7 +32,8 @@ from k8s_runpod_kubelet_tpu_torch.ops.attention import (
     _paged_attention_multi_mla_plain, _paged_attention_multi_mla_quant_plain,
     _paged_attention_multi_plain, _paged_attention_multi_quant_plain,
     _paged_attention_plain, _paged_attention_quant_plain)
-from k8s_runpod_kubelet_tpu_torch.ops.int4_matmul import _int4_matmul_plain
+from k8s_runpod_kubelet_tpu_torch.ops.int4_matmul import (
+    _expert_launchers, _int4_expert_matmul_plain, _int4_matmul_plain)
 from k8s_runpod_kubelet_tpu_torch.ops.int4_matmul import \
     _launchers as int4_matmul_launchers
 from k8s_runpod_kubelet_tpu_torch.ops.rmsnorm import _rms_norm_plain
@@ -570,6 +572,69 @@ def test_int4_matmul_tile_edges_match_plain(cuda, rows, out, kin):
     _close_bf16(y, _int4_plain_rows(h.float(), q4, scale))
 
 
+# (experts, rows an expert, in, out, counts): both regimes, split and
+# unsplit launches (a few small experts leave the card idle, so their groups
+# split), tile edges, an expert with no row, one full, one past a row tile
+INT4_EXPERT_CASES = [
+    (4, 8, 256, 128, [8, 0, 3, 5]),
+    (8, 8, 4096, 1024, [2, 3, 0, 8, 1, 0, 2, 0]),
+    (3, 17, 512, 400, [17, 16, 1]),
+    (2, 40, 1024, 256, [40, 0]),
+    (4, 300, 688, 256, [130, 0, 300, 64]),
+    (8, 256, 1024, 1024, [64, 65, 128, 129, 0, 256, 255, 1]),
+]
+
+
+@pytest.mark.parametrize("experts,rows,kin,out,counts", INT4_EXPERT_CASES)
+def test_int4_expert_matmul_kernel_matches_plain(cuda, experts, rows, kin,
+                                                 out, counts):
+    """One launch for every expert against the plain version on every row
+    (the buffer past a count is zero, as the MoE dispatch leaves it, but
+    the kernel must write zeros there however h reads), with the counts
+    and at full capacity."""
+    gen = torch.Generator(device=cuda).manual_seed(experts + rows + kin)
+    leaves = [_quantize_leaf_int4(0.02 * torch.randn(
+        (kin, out), generator=gen, device=cuda)) for _ in range(experts)]
+    q4 = torch.stack([lf["q4"] for lf in leaves])
+    scale = torch.stack([lf["scale"] for lf in leaves])
+    h = torch.randn((experts, rows, kin), generator=gen,
+                    device=cuda).bfloat16()
+    cnt = torch.tensor(counts, dtype=torch.int32, device=cuda)
+    before = int4_expert_matmul.launches
+    y = int4_expert_matmul(h, q4, scale, cnt)
+    y_full = int4_expert_matmul(h, q4, scale)
+    torch.cuda.synchronize()
+    assert int4_expert_matmul.launches == before + 2
+    assert y.dtype == torch.bfloat16 and y.shape == (experts, rows, out)
+    _close_bf16(y, _int4_expert_matmul_plain(h.float(), q4, scale, cnt))
+    _close_bf16(y_full, _int4_expert_matmul_plain(h.float(), q4, scale))
+    past = torch.arange(rows, device=cuda)[None] >= cnt[:, None]
+    assert torch.equal(y[past], torch.zeros_like(y[past]))
+    assert torch.equal(y[~past], y_full[~past])
+
+
+def test_int4_expert_matmul_is_one_launch_of_its_own(cuda):
+    """The expert entry counts on its own wrapper only, and its splits
+    follow the dense entry's rule over every expert's tiles."""
+    leaf = _quantize_leaf_int4(torch.randn((256, 128), device=cuda))
+    q4 = torch.stack([leaf["q4"]] * 3)
+    scale = torch.stack([leaf["scale"]] * 3)
+    h = torch.zeros((3, 4, 256), dtype=torch.bfloat16, device=cuda)
+    before = (int4_matmul.launches, int4_expert_matmul.launches)
+    int4_expert_matmul(h, q4, scale)
+    assert (int4_matmul.launches, int4_expert_matmul.launches) == \
+        (before[0], before[1] + 1)
+    splits = _expert_launchers()[1]
+    dense = int4_matmul_launchers()[1]
+    assert splits(1, 8, 1024, 32) == dense(8, 1024, 32)
+    assert splits(8, 8, 14336, 32) == 1 and splits(8, 1024, 4096, 112) == 1
+    with pytest.raises(TypeError):
+        int4_expert_matmul(h, q4, scale, torch.zeros(3, dtype=torch.int64,
+                                                      device=cuda))
+    with pytest.raises(ValueError, match="counts"):
+        int4_expert_matmul(h, q4, scale, torch.zeros(3, dtype=torch.int32))
+
+
 # -- MLA latent attention ------------------------------------------------------------
 
 MLA_CASES = {
@@ -933,10 +998,16 @@ def _graph_model(dev, kind):
     """A tiny model of each arena and weight type the engines serve, bf16
     on the card at widths the kernels take: (model, params, arena)."""
     from k8s_runpod_kubelet_tpu_torch.models import (LlamaModel, init_params,
-                                                     tiny_mla)
-    from k8s_runpod_kubelet_tpu_torch.models.quant import quantize_params
+                                                     tiny_mla, tiny_moe)
+    from k8s_runpod_kubelet_tpu_torch.models.quant import (
+        init_quantized_params, quantize_params)
 
-    if kind.startswith("mla"):
+    if kind == "moe_int4":   # int4 experts over a bf16 arena, as Mixtral's
+        cfg = tiny_moe(vocab_size=128, embed_dim=256, n_layers=2, n_heads=4,
+                       n_kv_heads=2, mlp_dim=256, max_seq_len=512)
+        params = init_quantized_params(
+            cfg, torch.Generator(dev).manual_seed(0), 4, dev)
+    elif kind.startswith("mla"):
         cfg = tiny_mla(vocab_size=128, embed_dim=256, n_layers=2, n_heads=4,
                        head_dim=64, mla_latent_dim=512, mla_rope_dim=64,
                        mlp_dim=256, max_seq_len=512)
@@ -962,7 +1033,7 @@ def _graph_model(dev, kind):
 
 
 GRAPH_SLOTS, GRAPH_COLS = 4, 8
-GRAPH_KINDS = ["bf16", "int8", "int4", "mla", "mla_int8"]
+GRAPH_KINDS = ["bf16", "int8", "int4", "mla", "mla_int8", "moe_int4"]
 
 
 def _graph_steps(width, vocab, seed=0):
@@ -1036,13 +1107,17 @@ def test_step_graph_replay_matches_eager(cuda, kind):
     main = {"bf16": "paged_attention_multi", "int8":
             "paged_attention_multi_quant", "int4":
             "paged_attention_multi_quant", "mla": "paged_attention_multi_mla",
-            "mla_int8": "paged_attention_multi_mla_quant"}[kind]
+            "mla_int8": "paged_attention_multi_mla_quant",
+            "moe_int4": "paged_attention_multi"}[kind]
     assert per[main] == n_layers
-    assert per["int4_matmul"] == (7 * n_layers + 1 if kind == "int4" else 0)
+    assert per["int4_matmul"] == {"int4": 7 * n_layers + 1,
+                                  "moe_int4": 4 * n_layers + 1}.get(kind, 0)
+    assert per["int4_expert_matmul"] == \
+        (3 * n_layers if kind == "moe_int4" else 0)
     assert per["rms_norm"] == (3 if kind.startswith("mla") else 2) \
         * n_layers + 1
     assert sum(per.values()) == per[main] + per["int4_matmul"] \
-        + per["rms_norm"]
+        + per["int4_expert_matmul"] + per["rms_norm"]
 
 
 @pytest.mark.parametrize("kind", GRAPH_KINDS)

@@ -14,6 +14,8 @@ through ``params_from_jax``) and the same token ids and page tables:
   past a prefill chunk's true length, write nothing but the sink page.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -214,17 +216,23 @@ def test_prefill_rows_past_true_length_write_nothing(tree):
 
 def test_configs_match_the_jax_package():
     for ours, theirs in ((llama3_8b(), jllama.llama3_8b()),
-                         (llama31_8b(), jllama.llama31_8b())):
+                         (llama31_8b(), jllama.llama31_8b()),
+                         (MODEL_CONFIGS["mixtral-8x7b"](),
+                          jllama.mixtral_8x7b())):
         assert config_from_jax(theirs, torch.bfloat16) == ours
     assert set(MODEL_CONFIGS) == {"llama3-8b", "llama31-8b", "mla-8b",
-                                  "tiny", "tiny-mla"}
+                                  "mixtral-8x7b", "tiny", "tiny-mla",
+                                  "tiny-moe"}
     assert tiny_llama().embed_dim == jllama.tiny_llama().embed_dim
 
 
 # MLA itself is served now (tests/test_torch_mla.py); an MLA model over a
-# MoE body, as every DeepSeek checkpoint has, still is not
+# MoE body, as every DeepSeek checkpoint has, still is not. Mixtral is
+# served (tests/test_torch_moe.py); with DeepSeek-MoE's shared experts it
+# is not
 @pytest.mark.parametrize("jcfg", [
-    jllama.mistral_7b(), jllama.gemma2_9b(), jllama.mixtral_8x7b(),
+    jllama.mistral_7b(), jllama.gemma2_9b(),
+    dataclasses.replace(jllama.mixtral_8x7b(), n_shared_experts=2),
     jllama.tiny_mla(n_experts=4, n_experts_per_tok=2), jllama.qwen2_7b()],
     ids=lambda c: c.name)
 def test_configs_with_branches_the_port_lacks_are_refused(jcfg):
