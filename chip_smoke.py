@@ -7,7 +7,8 @@ KV arena, and behind the OpenAI front on a full pool, serves mla-8b (the
 same, with Multi-head Latent Attention) over a bf16 and then an int8
 latent arena, serves Mixtral-8x7B (full width and depth, int4 weights drawn
 and quantized a layer at a time) through its sparse-MoE layers, then
-trains Llama-3-8B widths at 4 layers.
+trains Llama-3-8B widths at 4 layers, unsharded and then as ring attention
+over 4 sequence shards in one process.
 
 Run from the repository root on a machine with one NVIDIA card:
 
@@ -244,7 +245,15 @@ Step graphs (phases 4, 7s, 7b, 7c, 7d). Each engine captures its decode
    plain version and SDPA forward / autograd backward (no SDPA for a soft
    cap; the backward computes dq, dk and dv together, so it is the library
    time of both backward kernels), and its bound (operations over the
-   bf16 tensor peak, or bytes);
+   bf16 tensor peak, or bytes). Then row 16, the kernels at a ring offset,
+   on one shard of the ring-train phase (B 2, Hq 32, Hkv 8, S 2048, D 128,
+   the q chunk ``q_offset`` positions after the K/V chunk): q_offset 2048
+   and 6144 (every key visible), 2048 with window 512 (a band at the chunk
+   edge, rows past it see nothing), 2048 with soft cap 5; the same checks
+   and controls at the offset, plus the control of launching the same
+   kernels at q_offset 0 on the same inputs, which must miss; SDPA non-
+   causal with ``enable_gqa`` (or the band as a boolean mask), with the
+   backend PyTorch picked; the bound over the visible pairs;
 9. train: ``Trainer`` on llama3-8b widths at 4 layers (f32 master
    params, bf16 compute, remat "full"), batch 8 x seq 2048, 6 steps with
    warmup_steps=1 on one seeded synthetic batch repeated (fresh random
@@ -262,6 +271,23 @@ Step graphs (phases 4, 7s, 7b, 7c, 7d). Each engine captures its decode
    step the launches are checked exactly (flash_fwd 2L, flash_dq L,
    flash_dkv L, rms_norm 4L+1: each layer's forward and its recompute);
    step wall, tokens/s and peak memory;
+9r. ring train: phase 9's configuration at batch 2 x seq 8192 (the same
+   16,384 tokens a step) on an in-process mesh of 4 sequence shards of
+   2048 with ``ring_flash``. Step 1 on the seeded params and batch, held
+   against autograd of a plain f32 forward over the whole sequence (causal
+   attention a block of 2048 query rows at a time, exact softmax, each
+   layer checkpointed; phase 9's leaf and norm limits), and against the
+   unsharded flash forward and step on the same params and batch (logits
+   relative L2 within 0.02, every leaf's gradient within 0.1); the control
+   (every ring offset forced to 0) must exceed both. Then 6 steps on the
+   repeated batch: launches exact per step (flash_fwd 2 x 4 x 4 under
+   remat, flash_dq 4 x 4, flash_dkv 4 x 4, rms_norm 17: one launch of each
+   kernel a ring step and layer, the shards stacked), the loss falls, step
+   1's grad_norm within 1e-3 of the plain forward's; step wall (median of
+   steps 2+), tokens/s and peak memory, beside 3 steps each of the
+   unsharded flash step and the plain ring (``ring_flash=False``, the JAX
+   default path), whose step-1 loss must sit within 2e-3 of the flash
+   ring's;
 10. train_main: the CLI on ``--model tiny`` with a checkpoint directory,
    twice; the second life must log ``resumed from checkpoint step 2``.
 
@@ -275,7 +301,7 @@ for ``paged_attention_multi_quant`` and ``int4_matmul``, the MLA engines'
 bursts for ``paged_attention_multi_mla`` and
 ``paged_attention_multi_mla_quant``, phase 7m's burst as ``serve_moe``
 for ``int4_expert_matmul``, the training run for the flash
-kernels; the single-token forms lie on no model path, in this port as in
+kernels, beside the ring-train run as ``train_ring``; the single-token forms lie on no model path, in this port as in
 the JAX package, and count 0), the last line
 ``{"ok": true, "device": {...}}``. ``--out PATH`` also writes every
 number (engine and training phases included) to PATH as JSON.
@@ -286,6 +312,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import gc
+import importlib
 import itertools
 import json
 import logging
@@ -385,6 +412,24 @@ CARD_BYTES = 80e9
 # 2.6e-5; with dK/dV zeroed, wk and wv read 1.0 and the norm 0.27)
 TRAIN_GRAD_REL_L2_LIMIT = 0.1
 TRAIN_NORM_REL_LIMIT = 1e-3
+# the ring-train phase: llama3-8b widths at 4 layers, batch 2 x 8192 in 4
+# sequence shards of 2048 (phase 9's 16,384 tokens a step)
+RING_SHARDS, RING_BATCH, RING_SEQ = 4, 2, 8192
+# the ring's forward and step 1 against the unsharded flash forward and
+# step on the same params and batch, both bf16 through the kernels. Set
+# before the first run: the two differ only in where attention rounds (the
+# ring rounds each chunk's o to bf16 and merges in f32, the unsharded
+# kernel rounds once), some 2^-9 relative an activation, a few roundings a
+# layer over 4 layers: ~0.006 in the logits; the limit is 3x that. Each
+# path's gradients sit 0.025-0.034 (relative L2 a leaf) off the plain f32
+# forward's (phase 9), so the two paths' at most ~0.07 apart: the limit is
+# phase 9's own leaf limit. A wrong mask moves attention by O(1): the
+# control (every ring offset forced to 0) must exceed both.
+RING_LOGITS_REL_L2_LIMIT = 0.02
+RING_GRAD_REL_L2_LIMIT = TRAIN_GRAD_REL_L2_LIMIT
+# the plain ring's (ring_flash=False, f32 online softmax, the JAX default
+# path) step-1 loss against the flash ring's: relative
+RING_PLAIN_LOSS_REL_LIMIT = 2e-3
 # the speculative phase: 4 drafts a step (a K = 5 verify), 256-token
 # prefill chunks
 SPEC_K, SPEC_CHUNK = 4, 256
@@ -1266,15 +1311,33 @@ FLASH_CASES = [
     ("serving B=1 S=1024", 1, 32, 8, 1024, 128, True, None, None),
     ("serving B=1 S=1000", 1, 32, 8, 1000, 128, True, None, None),
 ]
+# row 16: the ring's chunk steps at the training shape of one shard of the
+# ring-train phase (batch 2, 2048 positions a shard): the q chunk sits
+# q_offset positions after the K/V chunk
+FLASH_OFFSET_CASES = [
+    # name, B, Hq, Hkv, S, D, causal, window, soft cap, q_offset
+    ("ring q_offset 2048", 2, 32, 8, 2048, 128, True, None, None, 2048),
+    ("ring q_offset 6144", 2, 32, 8, 2048, 128, True, None, None, 6144),
+    ("ring q_offset 2048 window 512", 2, 32, 8, 2048, 128, True, 512, None,
+     2048),
+    ("ring q_offset 2048 soft cap 5", 2, 32, 8, 2048, 128, True, None, 5.0,
+     2048),
+]
 
 
-def visible_pairs(s: int, causal: bool, window) -> int:
-    """(query, key) pairs the mask keeps for one head."""
+def visible_pairs(s: int, causal: bool, window, q_offset: int = 0) -> int:
+    """(query, key) pairs the mask keeps for one head of s queries at
+    positions q_offset.. against s keys at 0.."""
     if not causal:
         return s * s
-    if window is None:
+    if window is None and q_offset == 0:
         return s * (s + 1) // 2
-    return sum(min(i + 1, window) for i in range(s))
+    total = 0
+    for i in range(s):
+        pos = q_offset + i
+        lo = 0 if window is None else max(0, pos - window + 1)
+        total += max(0, min(pos, s - 1) - lo + 1)
+    return total
 
 
 def flash_controls(torch, q, k, v, do, args, o_ref, dk_ref, dv_ref,
@@ -1293,13 +1356,16 @@ def flash_controls(torch, q, k, v, do, args, o_ref, dk_ref, dv_ref,
         cap = args["logit_soft_cap"]
         sc = torch.tanh(sc / cap) * cap
     mask = _flash_mask(s, s, args["causal"], args["sliding_window"],
-                       q.device)
+                       q.device, args["q_offset"])
     if mask is not None:
         sc.masked_fill_(~mask, -math.inf)
-    o_bf16_p = bf16_p_output(torch, sc, v[:, :, None]).reshape(b, hq, s, d)
+    # a row that sees no key (a window at a ring offset) gives 0, as the
+    # kernels do, not the NaN of a softmax over nothing
+    o_bf16_p = torch.nan_to_num(bf16_p_output(torch, sc, v[:, :, None]),
+                                nan=0.0).reshape(b, hq, s, d)
     err, share = tolerance_check(o_bf16_p.bfloat16(), o_ref)
     del o_bf16_p
-    p = torch.softmax(sc, dim=-1)
+    p = torch.nan_to_num(torch.softmax(sc, dim=-1), nan=0.0)
     del sc
     acc = torch.zeros((b, hkv, hq // hkv, s, d), dtype=torch.bfloat16,
                       device=q.device)
@@ -1336,7 +1402,7 @@ def bf16_ds_control(torch, q, k, v, do, args, lse, delta, refs) -> dict:
     p, ds, qg, dog = _flash_ds(q.float(), k.float(), v.float(), do.float(),
                                lse, delta, args["causal"], scale,
                                args["sliding_window"],
-                               args["logit_soft_cap"])
+                               args["logit_soft_cap"], args["q_offset"])
     p, ds = p.bfloat16().float(), ds.bfloat16().float()
     kf = k.float()
     dq = torch.einsum("bhgqk,bhkd->bhgqd", ds, kf).reshape(b, hq, s, d)
@@ -1354,8 +1420,43 @@ def bf16_ds_control(torch, q, k, v, do, args, lse, delta, refs) -> dict:
             "by_gradient": shares}
 
 
+def zero_offset_control(torch, q, k, v, do, args, lse, delta, refs) -> dict:
+    """Row 16's control: the same three kernels launched at q_offset 0 on
+    the same inputs (the band of the chunk's own diagonal instead of the
+    one q_offset behind), scored against the plain versions at the true
+    offset by the same check; the least share of o, dq, dk and dv."""
+    from k8s_runpod_kubelet_tpu_torch.ops import flash_dkv, flash_dq, flash_fwd
+    zero = dict(args, q_offset=0)
+    got = (flash_fwd(q, k, v, **zero)[0],
+           flash_dq(q, k, v, do, lse, delta, **zero),
+           *flash_dkv(q, k, v, do, lse, delta, **zero))
+    shares = {}
+    for name, g, ref in zip(("o", "dq", "dk", "dv"), got, refs):
+        err, share = tolerance_check(g, ref)
+        shares[name] = {"max_abs_err": err, "tolerance_share": share}
+    return {"max_abs_err": max(c["max_abs_err"] for c in shares.values()),
+            "tolerance_share": min(c["tolerance_share"]
+                                   for c in shares.values()),
+            "by_output": shares}
+
+
+def sdpa_backend(torch, q, k, v, **sdpa) -> str:
+    """The backend PyTorch's dispatcher picks for these SDPA arguments (a
+    private query, so "not read" where this PyTorch lacks it)."""
+    try:
+        from torch.nn.attention import SDPBackend
+        idx = torch._fused_sdp_choice(q, k, v, sdpa.get("attn_mask"), 0.0,
+                                      sdpa.get("is_causal", False),
+                                      scale=sdpa.get("scale"),
+                                      enable_gqa=sdpa.get("enable_gqa",
+                                                          False))
+        return SDPBackend(idx).name
+    except (AttributeError, TypeError, ValueError, RuntimeError) as e:
+        return f"not read ({type(e).__name__})"
+
+
 def flash_case(torch, F, dev, flush, name, b, hq, hkv, s, d, causal, window,
-               cap) -> dict:
+               cap, q_offset=0) -> dict:
     from k8s_runpod_kubelet_tpu_torch.ops import (flash_attention, flash_dkv,
                                                   flash_dq, flash_fwd)
     from k8s_runpod_kubelet_tpu_torch.ops.attention import (
@@ -1367,7 +1468,7 @@ def flash_case(torch, F, dev, flush, name, b, hq, hkv, s, d, causal, window,
     k, v = (torch.randn((b, hkv, s, d), generator=gen) for _ in range(2))
     q, k, v, do = (t.to(dev, torch.bfloat16) for t in (q, k, v, do))
     args = dict(causal=causal, sm_scale=d ** -0.5, sliding_window=window,
-                logit_soft_cap=cap)
+                logit_soft_cap=cap, q_offset=q_offset)
     kernels = (flash_fwd, flash_dq, flash_dkv)
     before = [f.launches for f in kernels]
     o, lse = flash_fwd(q, k, v, **args)
@@ -1393,6 +1494,10 @@ def flash_case(torch, F, dev, flush, name, b, hq, hkv, s, d, causal, window,
                               dv_ref, lse, delta)
     controls["bf16_ds"] = bf16_ds_control(torch, q, k, v, do, args, lse,
                                           delta, (dq_ref, dk_ref, dv_ref))
+    if q_offset:
+        controls["q_offset_0"] = zero_offset_control(
+            torch, q, k, v, do, args, lse, delta,
+            (o_ref, dq_ref, dk_ref, dv_ref))
     del qf, kf, vf, dof, dq_ref, dk_ref, dv_ref
     for kname, results in checks.items():
         for err, share in results:
@@ -1405,20 +1510,25 @@ def flash_case(torch, F, dev, flush, name, b, hq, hkv, s, d, causal, window,
                                "the check")
 
     # the whole autograd path against autograd through the plain attention
-    tq, tk, tv = (t.clone().requires_grad_() for t in (q, k, v))
-    flash_attention(tq, tk, tv, **args).backward(do)
-    pq, pk, pv = (t.float().requires_grad_() for t in (q, k, v))
-    _attention_plain(pq, pk, pv, **args).backward(do.float())
+    # (flash_attention has no offset: the ring's autograd path is held in
+    # the ring-train phase)
     e2e = {}
-    for gname, got, want in (("dq", tq.grad, pq.grad), ("dk", tk.grad,
-                                                         pk.grad),
-                             ("dv", tv.grad, pv.grad)):
-        err = (got.float() - want).abs().max().item()
-        e2e[gname] = err / (E2E_SCALE_RTOL * want.abs().max().item())
-        if not e2e[gname] <= 1:
-            raise RuntimeError(f"flash {name}: autograd d{gname} differs "
-                               f"from the plain attention's by {err}")
-    del tq, tk, tv, pq, pk, pv
+    if not q_offset:
+        fa = {k_: v_ for k_, v_ in args.items() if k_ != "q_offset"}
+        tq, tk, tv = (t.clone().requires_grad_() for t in (q, k, v))
+        flash_attention(tq, tk, tv, **fa).backward(do)
+        pq, pk, pv = (t.float().requires_grad_() for t in (q, k, v))
+        _attention_plain(pq, pk, pv, **fa).backward(do.float())
+        for gname, got, want in (("dq", tq.grad, pq.grad),
+                                 ("dk", tk.grad, pk.grad),
+                                 ("dv", tv.grad, pv.grad)):
+            err = (got.float() - want).abs().max().item()
+            e2e[gname] = err / (E2E_SCALE_RTOL * want.abs().max().item())
+            if not e2e[gname] <= 1:
+                raise RuntimeError(f"flash {name}: autograd d{gname} "
+                                   "differs from the plain attention's by "
+                                   f"{err}")
+        del tq, tk, tv, pq, pk, pv
 
     # times: kernels, plain versions, SDPA (forward and autograd backward)
     reps = 5 if b * hq * s * s > 2 ** 31 else 10
@@ -1434,15 +1544,25 @@ def flash_case(torch, F, dev, flush, name, b, hq, hkv, s, d, causal, window,
              "flash_dkv": time_ms(torch, lambda: _flash_dkv_plain(
                  q, k, v, do, lse, delta, **args), 3, flush)}
     lib_fwd = lib_bwd = None
+    backend = None
     if cap is None:
-        ks, vs = (t.repeat_interleave(hq // hkv, dim=1) for t in (k, v))
-        mask = None
-        if window is not None:
-            from k8s_runpod_kubelet_tpu_torch.ops.attention import \
-                _flash_mask
-            mask = _flash_mask(s, s, True, window, dev)
-        sdpa = dict(attn_mask=mask, is_causal=causal and mask is None,
-                    scale=args["sm_scale"])
+        from k8s_runpod_kubelet_tpu_torch.ops.attention import _flash_mask
+        if q_offset:
+            # row 16: every key visible (non-causal), or the band as a mask;
+            # GQA by enable_gqa
+            ks, vs = k, v
+            mask = (None if window is None else
+                    _flash_mask(s, s, True, window, dev, q_offset))
+            sdpa = dict(attn_mask=mask, is_causal=False,
+                        scale=args["sm_scale"], enable_gqa=True)
+        else:
+            ks, vs = (t.repeat_interleave(hq // hkv, dim=1) for t in (k, v))
+            mask = None
+            if window is not None:
+                mask = _flash_mask(s, s, True, window, dev)
+            sdpa = dict(attn_mask=mask, is_causal=causal and mask is None,
+                        scale=args["sm_scale"])
+        backend = sdpa_backend(torch, q, ks, vs, **sdpa)
         lib_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
             q, ks, vs, **sdpa), reps, flush)
         lq, lk, lv = (t.clone().requires_grad_() for t in (q, ks, vs))
@@ -1451,7 +1571,7 @@ def flash_case(torch, F, dev, flush, name, b, hq, hkv, s, d, causal, window,
             lo, (lq, lk, lv), do, retain_graph=True), reps, flush)
         del ks, vs, lq, lk, lv, lo
 
-    pairs = b * hq * visible_pairs(s, causal, window)
+    pairs = b * hq * visible_pairs(s, causal, window, q_offset)
     qb, kb = q.numel() * 2, k.numel() * 2
     rows = b * hq * s * 4                      # one f32 per row (lse, delta)
     work = {"flash_fwd": (4 * pairs * d, 2 * qb + 2 * kb + rows, fwd_ms,
@@ -1462,7 +1582,9 @@ def flash_case(torch, F, dev, flush, name, b, hq, hkv, s, d, causal, window,
                           lib_bwd)}
     rec = {"case": name, "B": b, "Hq": hq, "Hkv": hkv, "S": s, "D": d,
            "causal": causal, "window": window, "soft_cap": cap,
-           "controls": controls, "autograd_vs_plain_share": e2e,
+           "q_offset": q_offset, "visible_pairs": pairs,
+           "sdpa_backend": backend, "controls": controls,
+           "autograd_vs_plain_share": e2e or None,
            "tolerance": TOLERANCE, "kernels": {}}
     for kname, (ops, nbytes, ms, lib) in work.items():
         bound_ms, bound_by = bound(nbytes, ops, BF16_TENSOR_FLOPS)
@@ -1473,16 +1595,21 @@ def flash_case(torch, F, dev, flush, name, b, hq, hkv, s, d, causal, window,
             "bound_ms": bound_ms, "bound_by": bound_by, "ops": ops,
             "bytes": nbytes, "tflops": ops / ms / 1e9}
     lib_txt = ("none (soft cap)" if lib_fwd is None else
-               f"fwd {lib_fwd:.3f} ms, autograd bwd {lib_bwd:.3f} ms")
+               f"fwd {lib_fwd:.3f} ms, autograd bwd {lib_bwd:.3f} ms, "
+               f"backend {backend}")
+    e2e_txt = ("autograd vs plain (share of 1% of scale) " + " ".join(
+        f"{g} {x:.2f}" for g, x in e2e.items()) if e2e else
+        "autograd path: the ring-train phase")
+    off_txt = ("" if not q_offset else ", q_offset 0 " + "/".join(
+        f"{c['tolerance_share']:.1f}" for c in
+        controls["q_offset_0"]["by_output"].values()) + " (o/dq/dk/dv)")
     log(f"  flash {name}: SDPA {lib_txt}; controls: bf16 accumulation "
         f"{controls['bf16_accumulation']['tolerance_share']:.2f}, bf16 P "
         f"{controls['bf16_p']['tolerance_share']:.2f}, dropped q "
         f"head {controls['dropped_q_head']['tolerance_share']:.0f}, bf16 dS "
         + "/".join(f"{c['tolerance_share']:.2f}" for c in
                    controls["bf16_ds"]["by_gradient"].values())
-        + " (dq/dk/dv); "
-        f"autograd vs plain (share of 1% of scale) dq {e2e['dq']:.2f} dk "
-        f"{e2e['dk']:.2f} dv {e2e['dv']:.2f}")
+        + f" (dq/dk/dv){off_txt}; {e2e_txt}")
     for kname, r in rec["kernels"].items():
         log(f"    {kname}: max_abs_err {r['max_abs_err']:.3e} "
             f"({r['tolerance_share']:.2f} of {TOLERANCE}) kernel "
@@ -1614,27 +1741,15 @@ def train_phase(torch, dev, card: str) -> dict:
     kernels = (flash_fwd, flash_dq, flash_dkv, rms_norm)
     per_step = {"flash_fwd": 2 * n_layers, "flash_dq": n_layers,
                 "flash_dkv": n_layers, "rms_norm": 2 * (2 * n_layers) + 1}
-    torch.cuda.reset_peak_memory_stats()
     # the main path: counts set to 0 just before the run, read just after
     for k in kernels:
         k.launches = 0
-    losses, norms, walls = [], [], []
-    for step in range(tc.steps):
-        before = {k.__name__: k.launches for k in kernels}
-        out = trainer.run(steps=1, batches=batches)
-        got = {k.__name__: k.launches - before[k.__name__] for k in kernels}
-        if got != per_step:
-            raise RuntimeError(f"train step {step + 1} launched {got}, not "
-                               f"{per_step}")
-        losses.append(out["final_loss"])
-        norms.append(out["grad_norm"])
-        walls.append(out["wall_s"])
-        log(f"  step {trainer.step}: loss {out['final_loss']:.4f}, "
-            f"grad_norm {out['grad_norm']:.4f}, wall {out['wall_s']:.3f} s")
+    run = timed_steps(torch, trainer, batches, tc.steps, kernels, per_step)
     launches = {k.__name__: k.launches for k in kernels}
-    peak = torch.cuda.max_memory_allocated()
-    if not all(math.isfinite(x) for x in losses + norms):
-        raise RuntimeError(f"non-finite loss or grad norm: {losses} {norms}")
+    losses, norms, walls = run["losses"], run["grad_norms"], \
+        run["step_walls_s"]
+    peak, step_s, tok_s = (run["peak_bytes"], run["step_s_median"],
+                           run["tokens_per_s"])
     if not losses[-1] < losses[0]:
         raise RuntimeError(f"loss did not fall: {losses}")
     # step 1 ran on the params and batch of the gradient check
@@ -1646,8 +1761,6 @@ def train_phase(torch, dev, card: str) -> dict:
     if not step1_rel <= TRAIN_NORM_REL_LIMIT:
         raise RuntimeError(f"step 1's grad_norm {norms[0]} is off the plain "
                            f"forward's {grad_check['ref_grad_norm']}")
-    step_s = statistics.median(walls[1:])
-    tok_s = tc.batch_size * tc.seq_len / step_s
     log(f"  [{card}] step wall {step_s:.3f} s (median of steps 2-"
         f"{tc.steps}; first {walls[0]:.3f} s), {tok_s:.0f} tokens/s, peak "
         f"{peak / 2**30:.2f} GiB allocated")
@@ -1662,6 +1775,301 @@ def train_phase(torch, dev, card: str) -> dict:
             "peak_bytes": peak, "launches": launches,
             "launches_per_step": per_step, "init_s": init_s,
             "grad_check": grad_check, "step1_norm_rel_err": step1_rel}
+
+
+def plain_attention_blocked(torch, q, k, v, scale, block):
+    """Causal attention in f32, a block of query rows at a time against
+    the keys up to the block's last position, each with an exact softmax:
+    q (B, Hq, S, D), k/v (B, Hkv, S, D). No kernels, no online softmax, no
+    ring; the blocks only bound the scores' memory."""
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
+    out = []
+    for i0 in range(0, s, block):
+        i1 = min(s, i0 + block)
+        qb = q[:, :, i0:i1].reshape(b, hkv, hq // hkv, i1 - i0, d) * scale
+        sc = torch.einsum("bhgqd,bhkd->bhgqk", qb, k[:, :, :i1])
+        keep = (torch.arange(i0, i1, device=q.device)[:, None]
+                >= torch.arange(i1, device=q.device)[None, :])
+        p = torch.softmax(sc.masked_fill(~keep, -math.inf), dim=-1)
+        out.append(torch.einsum("bhgqk,bhkd->bhgqd", p, v[:, :, :i1])
+                   .reshape(b, hq, i1 - i0, d))
+    return torch.cat(out, dim=2)
+
+
+def plain_logits_long(torch, cfg, params, tokens, block=2048):
+    """``plain_logits`` for long rows: the same plain f32 forward with
+    causal attention by ``plain_attention_blocked``, each layer under
+    ``torch.utils.checkpoint`` (only its input kept for the backward)."""
+    import torch.nn.functional as F
+    import torch.utils.checkpoint
+
+    from k8s_runpod_kubelet_tpu_torch.ops.rmsnorm import _rms_norm_plain
+    from k8s_runpod_kubelet_tpu_torch.ops.rope import (apply_rope,
+                                                       rope_frequencies)
+
+    hd = cfg.head_dim_
+    cos, sin = rope_frequencies(hd, cfg.max_seq_len, cfg.rope_theta,
+                                cfg.rope_scaling,
+                                device=params["tok_embed"].device)
+
+    def layer(x, lp):
+        b, n, _ = x.shape
+        h = _rms_norm_plain(x, lp["attn_norm"], cfg.norm_eps)
+        q = apply_rope((h @ lp["wq"]).view(b, n, cfg.n_heads, hd), cos, sin)
+        k = apply_rope((h @ lp["wk"]).view(b, n, cfg.n_kv_heads, hd), cos,
+                       sin)
+        v = (h @ lp["wv"]).view(b, n, cfg.n_kv_heads, hd)
+        o = plain_attention_blocked(torch, q.transpose(1, 2),
+                                    k.transpose(1, 2), v.transpose(1, 2),
+                                    cfg.sm_scale, block)
+        x = x + o.transpose(1, 2).reshape(b, n, -1) @ lp["wo"]
+        h = _rms_norm_plain(x, lp["mlp_norm"], cfg.norm_eps)
+        return x + plain_mlp(torch, F, cfg, lp, h)
+
+    x = params["tok_embed"][tokens.long()].float()
+    for i in range(cfg.n_layers):
+        lp = {k: layer_f32(w, i) for k, w in params["layers"].items()}
+        x = torch.utils.checkpoint.checkpoint(layer, x, lp,
+                                              use_reentrant=False)
+    x = _rms_norm_plain(x, params["final_norm"], cfg.norm_eps)
+    return x @ layer_f32(params["lm_head"])
+
+
+def rel_l2(torch, got, want, rows: int = 1024) -> float:
+    """||got - want|| / ||want|| over two same-shaped tensors, summed in
+    f32 a slab of rows at a time (the logits of 16,384 tokens are 4 GB in
+    bf16)."""
+    a, b = got.reshape(-1, got.shape[-1]), want.reshape(-1, want.shape[-1])
+    num = den = 0.0
+    for i in range(0, a.shape[0], rows):
+        x, y = a[i:i + rows].float(), b[i:i + rows].float()
+        num += (x - y).square().sum().item()
+        den += y.square().sum().item()
+    return math.sqrt(num / den)
+
+
+def ring_checks(torch, dev, cfg, mesh, batch) -> dict:
+    """Step 1 of the ring (``ring_flash``, the flash kernels at each ring
+    offset) on the seeded f32 master params and batch, held three ways:
+    its gradients against autograd of a plain f32 forward over the whole
+    sequence (``plain_logits_long``, one row at a time; every leaf's
+    relative L2 and the global norm, phase 9's limits); its forward's
+    logits and every leaf's gradient against the unsharded flash forward
+    and step (the ``RING_*`` limits); and the control, every ring offset
+    forced to 0, which must exceed both of those limits."""
+    from k8s_runpod_kubelet_tpu_torch.models import LlamaModel, init_params
+    from k8s_runpod_kubelet_tpu_torch.workloads.train import (
+        _ce_and_zloss, _leaves, global_norm, loss_and_grads)
+
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                         dev, master=True)
+    leaves = [p.requires_grad_() for p in _leaves(params)]
+    names = leaf_names(params)
+    rows = batch.shape[0]
+    t0 = time.perf_counter()
+    ref = [torch.zeros_like(p) for p in leaves]
+    ref_loss = 0.0
+    for r in range(rows):
+        mb = batch[r:r + 1]
+        logits = plain_logits_long(torch, cfg, params, mb[:, :-1])
+        ce, _ = _ce_and_zloss(logits, mb[:, 1:], 0.0)
+        del logits
+        for acc, g in zip(ref, torch.autograd.grad(ce / rows, leaves)):
+            acc.add_(g)
+        ref_loss += ce.item() / rows
+        del ce
+    ref_norm = global_norm(ref).item()
+    ref_s = time.perf_counter() - t0
+    ring = LlamaModel(dataclasses.replace(cfg, ring_flash=True), dev, mesh)
+    flat = LlamaModel(cfg, dev)
+    inputs = batch[:, :-1]
+
+    loss_r, grads_r = loss_and_grads(ring, params, batch)
+    vs_ref = {n: ((g.float() - r).norm() / r.norm()).item()
+              for n, g, r in zip(names, grads_r, ref)}
+    norm_r = global_norm(grads_r).item()
+    del ref
+    _, grads_f = loss_and_grads(flat, params, batch)
+    norm_f = global_norm(grads_f).item()
+
+    def against_flat(model) -> dict:
+        with torch.no_grad():
+            got = model.forward(params, inputs)
+            want = flat.forward(params, inputs)
+            logits = rel_l2(torch, got, want)
+            del got, want
+        loss, grads = loss_and_grads(model, params, batch)
+        errs = {n: ((g.float() - f.float()).norm() / f.float().norm()).item()
+                for n, g, f in zip(names, grads, grads_f)}
+        del grads
+        worst = max(errs, key=errs.get)
+        return {"loss": loss.item(), "logits_rel_l2": logits,
+                "leaf_rel_l2": errs, "worst_leaf": worst,
+                "worst_leaf_rel_l2": errs[worst]}
+
+    port = against_flat(ring)
+    ring_mod = importlib.import_module(
+        "k8s_runpod_kubelet_tpu_torch.ops.ring_attention")
+    kernels = {n: getattr(ring_mod, n) for n in
+               ("flash_fwd", "flash_dq", "flash_dkv")}
+    for n, fn in kernels.items():
+        setattr(ring_mod, n, lambda *a, _fn=fn, **kw: _fn(
+            *a, **dict(kw, q_offset=0)))
+    try:
+        control = against_flat(ring)
+    finally:
+        for n, fn in kernels.items():
+            setattr(ring_mod, n, fn)
+    peak = torch.cuda.max_memory_allocated()
+    del params, leaves, grads_r, grads_f, ring, flat
+    gc.collect()
+    torch.cuda.empty_cache()
+    worst_ref = max(vs_ref, key=vs_ref.get)
+    out = {"rows": rows, "ref_loss": ref_loss, "ref_grad_norm": ref_norm,
+           "ref_s": ref_s, "ring_loss": loss_r.item(),
+           "ring_grad_norm": norm_r, "flat_grad_norm": norm_f,
+           "ring_vs_ref_norm_rel": abs(norm_r - ref_norm) / ref_norm,
+           "ring_vs_ref_leaf_rel_l2": vs_ref, "ring_vs_ref_worst_leaf":
+           worst_ref, "ring_vs_flat": port, "control_q_offset_0": control,
+           "peak_bytes": peak,
+           "limits": {"leaf_rel_l2_vs_ref": TRAIN_GRAD_REL_L2_LIMIT,
+                      "norm_rel_vs_ref": TRAIN_NORM_REL_LIMIT,
+                      "logits_rel_l2_vs_flat": RING_LOGITS_REL_L2_LIMIT,
+                      "leaf_rel_l2_vs_flat": RING_GRAD_REL_L2_LIMIT}}
+    log(f"  ring step 1 vs autograd of the plain f32 forward (batch {rows} "
+        f"x {batch.shape[1] - 1}, {ref_s:.1f} s): loss {loss_r.item():.5f} "
+        f"vs {ref_loss:.5f}; grad_norm {norm_r:.5f} vs {ref_norm:.5f} (rel "
+        f"{out['ring_vs_ref_norm_rel']:.2e}, limit {TRAIN_NORM_REL_LIMIT}); "
+        f"worst leaf {worst_ref} rel L2 {vs_ref[worst_ref]:.2e} (limit "
+        f"{TRAIN_GRAD_REL_L2_LIMIT})")
+    log("    leaf rel L2 vs plain f32: " + ", ".join(
+        f"{n} {e:.2e}" for n, e in vs_ref.items()))
+    log(f"  ring vs the unsharded flash forward and step: logits rel L2 "
+        f"{port['logits_rel_l2']:.2e} (limit {RING_LOGITS_REL_L2_LIMIT}), "
+        f"worst leaf {port['worst_leaf']} {port['worst_leaf_rel_l2']:.2e} "
+        f"(limit {RING_GRAD_REL_L2_LIMIT}); grad_norm {norm_r:.5f} vs "
+        f"{norm_f:.5f}")
+    log("    leaf rel L2 vs unsharded: " + ", ".join(
+        f"{n} {e:.2e}" for n, e in port["leaf_rel_l2"].items()))
+    log(f"    control (ring offsets forced to 0): logits rel L2 "
+        f"{control['logits_rel_l2']:.3f}, worst leaf "
+        f"{control['worst_leaf']} {control['worst_leaf_rel_l2']:.3f}")
+    if not (vs_ref[worst_ref] <= TRAIN_GRAD_REL_L2_LIMIT
+            and out["ring_vs_ref_norm_rel"] <= TRAIN_NORM_REL_LIMIT):
+        raise RuntimeError("the ring's gradients are off the plain f32 "
+                           f"forward's: {vs_ref}, norm {norm_r} vs "
+                           f"{ref_norm}")
+    if not (port["logits_rel_l2"] <= RING_LOGITS_REL_L2_LIMIT
+            and port["worst_leaf_rel_l2"] <= RING_GRAD_REL_L2_LIMIT):
+        raise RuntimeError(f"the ring is off the unsharded step: {port}")
+    if not (control["logits_rel_l2"] > RING_LOGITS_REL_L2_LIMIT
+            and control["worst_leaf_rel_l2"] > RING_GRAD_REL_L2_LIMIT):
+        raise RuntimeError(f"the zero-offset control passed: {control}")
+    return out
+
+
+def timed_steps(torch, trainer, batches, steps: int, counted=(),
+                per_step=None) -> dict:
+    """Run ``steps`` train steps one at a time, each logged: losses, grad
+    norms, walls, peak memory, and (where ``per_step`` is given) each
+    step's launches of the ``counted`` kernel wrappers checked exactly;
+    every loss and grad norm must be finite."""
+    losses, norms, walls = [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    for step in range(steps):
+        before = {k.__name__: k.launches for k in counted}
+        out = trainer.run(steps=1, batches=batches)
+        got = {k.__name__: k.launches - before[k.__name__] for k in counted}
+        if per_step is not None and got != per_step:
+            raise RuntimeError(f"step {step + 1} launched {got}, not "
+                               f"{per_step}")
+        losses.append(out["final_loss"])
+        norms.append(out["grad_norm"])
+        walls.append(out["wall_s"])
+        log(f"  step {trainer.step}: loss {out['final_loss']:.4f}, "
+            f"grad_norm {out['grad_norm']:.4f}, wall {out['wall_s']:.3f} s")
+    if not all(math.isfinite(x) for x in losses + norms):
+        raise RuntimeError(f"non-finite loss or grad norm: {losses} {norms}")
+    step_s = statistics.median(walls[1:])
+    tokens = trainer.tc.batch_size * trainer.tc.seq_len
+    return {"steps": steps, "losses": losses, "grad_norms": norms,
+            "step_walls_s": walls, "step_s_median": step_s,
+            "tokens_per_s": tokens / step_s,
+            "peak_bytes": torch.cuda.max_memory_allocated()}
+
+
+def ring_train_phase(torch, dev, card: str) -> dict:
+    """Sequence-sharded training in one process: the trainer on an
+    in-process mesh of RING_SHARDS sequence shards with ``ring_flash``
+    (the main path, whose launches are counted), beside the unsharded
+    flash step and the plain ring at the same batch."""
+    from k8s_runpod_kubelet_tpu_torch.models import llama3_8b
+    from k8s_runpod_kubelet_tpu_torch.ops import (flash_dkv, flash_dq,
+                                                  flash_fwd, rms_norm)
+    from k8s_runpod_kubelet_tpu_torch.parallel import MeshConfig, make_mesh
+    from k8s_runpod_kubelet_tpu_torch.workloads.train import (
+        TrainConfig, Trainer, synthetic_batches)
+
+    cfg = dataclasses.replace(llama3_8b(), n_layers=4)
+    n, layers = RING_SHARDS, cfg.n_layers
+    mesh = make_mesh(MeshConfig(seq=n))
+    tc = TrainConfig(batch_size=RING_BATCH, seq_len=RING_SEQ, steps=6,
+                     warmup_steps=1)
+    batch = next(synthetic_batches(cfg, tc, seed=SEED, device=dev))
+    checks = ring_checks(torch, dev, cfg, mesh, batch)
+    ring_cfg = dataclasses.replace(cfg, ring_flash=True)
+    kernels = (flash_fwd, flash_dq, flash_dkv, rms_norm)
+    # a ring step of a layer is one launch of each kernel (the shards
+    # stacked), forward twice under remat
+    per_step = {"flash_fwd": 2 * n * layers, "flash_dq": n * layers,
+                "flash_dkv": n * layers, "rms_norm": 2 * (2 * layers) + 1}
+    trainer = Trainer(ring_cfg, tc, seed=SEED, device=dev, mesh=mesh)
+    # the main path: counts set to 0 just before the run, read just after
+    for k in kernels:
+        k.launches = 0
+    ring = timed_steps(torch, trainer, itertools.repeat(batch), tc.steps,
+                       kernels, per_step)
+    launches = {k.__name__: k.launches for k in kernels}
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not ring["losses"][-1] < ring["losses"][0]:
+        raise RuntimeError(f"the ring's loss did not fall: {ring['losses']}")
+    step1_rel = (abs(ring["grad_norms"][0] - checks["ref_grad_norm"])
+                 / checks["ref_grad_norm"])
+    if not step1_rel <= TRAIN_NORM_REL_LIMIT:
+        raise RuntimeError(f"ring step 1's grad_norm {ring['grad_norms'][0]}"
+                           f" is off the plain forward's "
+                           f"{checks['ref_grad_norm']}")
+    runs = {"ring_flash": ring}
+    for name, run_cfg, run_mesh in (("unsharded_flash", cfg, None),
+                                    ("plain_ring", cfg, mesh)):
+        trainer = Trainer(run_cfg, tc, seed=SEED, device=dev, mesh=run_mesh)
+        runs[name] = timed_steps(torch, trainer, itertools.repeat(batch), 3)
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    plain_rel = (abs(runs["plain_ring"]["losses"][0] - ring["losses"][0])
+                 / ring["losses"][0])
+    for name, r in runs.items():
+        log(f"  [{card}] {name}: step wall {r['step_s_median']:.3f} s "
+            f"(median of steps 2-{r['steps']}; first "
+            f"{r['step_walls_s'][0]:.3f} s), {r['tokens_per_s']:.0f} "
+            f"tokens/s, peak {r['peak_bytes'] / 2**30:.2f} GiB; losses "
+            + ", ".join(f"{x:.4f}" for x in r["losses"]))
+    log(f"  ring step 1 grad_norm {ring['grad_norms'][0]:.5f} vs the plain "
+        f"f32 forward's {checks['ref_grad_norm']:.5f}: rel {step1_rel:.2e}; "
+        f"plain ring step 1 loss rel {plain_rel:.2e} of the flash ring's "
+        f"(limit {RING_PLAIN_LOSS_REL_LIMIT})")
+    log(f"  launches over {tc.steps} steps: {launches} ({per_step} per step)")
+    if not plain_rel <= RING_PLAIN_LOSS_REL_LIMIT:
+        raise RuntimeError(f"the plain ring's loss {runs['plain_ring']} is "
+                           f"off the flash ring's {ring['losses']}")
+    return {"layers": layers, "shards": n, "batch": tc.batch_size,
+            "seq_len": tc.seq_len, "runs": runs, "checks": checks,
+            "launches": launches, "launches_per_step": per_step,
+            "step1_norm_rel_err": step1_rel, "plain_ring_loss_rel": plain_rel}
 
 
 class _Capture(logging.Handler):
@@ -3829,6 +4237,8 @@ def main(argv=None) -> int:
 
     log("phase flash kernels (bf16 on the card, compared in f32)")
     flash = [flash_case(torch, F, dev, flush, *case) for case in FLASH_CASES]
+    flash += [flash_case(torch, F, dev, flush, *case)
+              for case in FLASH_OFFSET_CASES]
     del flush
     gc.collect()
     torch.cuda.empty_cache()
@@ -3909,6 +4319,10 @@ def main(argv=None) -> int:
     log("phase train (llama3-8b widths, 4 layers, batch 8 x seq 2048)")
     train = train_phase(torch, dev, card)
 
+    log(f"phase ring train (llama3-8b widths, 4 layers, batch {RING_BATCH} "
+        f"x seq {RING_SEQ} in {RING_SHARDS} sequence shards, ring_flash)")
+    ring_train = ring_train_phase(torch, dev, card)
+
     log("phase train_main (--model tiny, checkpoint and resume)")
     train_cli = train_main_phase(torch)
 
@@ -3957,12 +4371,14 @@ def main(argv=None) -> int:
                 "serve_mla_kv_int8": mla_q_launches["rms_norm"],
                 "serve_openai": openai["launches"]["rms_norm"],
                 "serve_moe": moe_launches["rms_norm"],
-                "train": train["launches"]["rms_norm"]},
+                "train": train["launches"]["rms_norm"],
+                "train_ring": ring_train["launches"]["rms_norm"]},
                "F.rms_norm, bf16 weight"),
     ] + [
         record(kname, "cuda", csrc + "flash_attention.cu",
                replaces, flash_cases(kname), train["launches"][kname],
                {"train": train["launches"][kname],
+                "train_ring": ring_train["launches"][kname],
                 **({"serve_openai": openai["launches"][kname]}
                    if kname in openai["launches"] else {})}, library_call)
         for kname, replaces, library_call in (
@@ -4055,7 +4471,7 @@ def main(argv=None) -> int:
                        "hf_load": hf,
                        "quant_engine": qeng, "mla_engine": mla_eng,
                        "mla_kv_int8_engine": mla_q, "moe_engine": moe,
-                       "train": train,
+                       "train": train, "ring_train": ring_train,
                        "train_main": train_cli,
                        "build_s": {**nvcc_s, "triton": triton_s},
                        "sass": sass},

@@ -8,7 +8,11 @@
 //            row log-sum-exp lse (B, Hq, Sq) f32. GQA group = Hq / Hkv. Scores
 //            are (q * scale) . k; the optional soft cap (cap * tanh(s / cap))
 //            applies before the mask; causal keeps k <= q, and the optional
-//            window keeps q - k < window as well.
+//            window keeps q - k < window as well. Query row i sits at
+//            position q_offset + i, key j at j (q_offset >= 0): ring
+//            attention's step t runs a q chunk against the K/V chunk
+//            t * s_local positions behind it (ring_attention.py:_ring_flash
+//            calls the TPU kernels so; its mask is _causal_mask).
 //   dQ       dq = scale * sum_k dS k, dS = P (dP - delta) [* (1 - tanh^2)],
 //            P = exp(s - lse), dP = dO . v, delta = rowsum(dO o) (computed by
 //            the caller in f32, as the JAX package does in XLA).
@@ -75,34 +79,48 @@ struct Problem {
   int hq, hkv, sq, sk;
   float scale, soft_cap;             // soft_cap <= 0: none
   int causal, window;                // window <= 0: none (needs causal)
+  int q_offset;                      // position of query row 0 (>= 0)
 };
 
-// the k tiles [begin, end) a q tile [q0, q0 + bm) can see
+// the keys query row r sees: lo <= key <= hi (hi < lo: none); rows at or
+// past sq see none. The band moves with q_offset; the row guard does not.
+__device__ __forceinline__ void band(const Problem& p, int r, int* lo,
+                                     int* hi) {
+  const int pos = p.q_offset + r;
+  *lo = p.causal && p.window > 0 ? pos - p.window + 1 : 0;
+  *hi = r >= p.sq ? -1 : p.causal ? min(pos, p.sk - 1) : p.sk - 1;
+}
+
+// the k tiles [begin, end) a q tile [q0, q0 + bm) can see (begin <= end)
 __device__ __forceinline__ void k_range(const Problem& p, int q0, int bm,
                                         int bn, int* begin, int* end) {
   const int n_k = (p.sk + bn - 1) / bn;
   *begin = 0;
   *end = n_k;
   if (!p.causal) return;
-  const int q_last = min(q0 + bm, p.sq) - 1;
-  *end = min(n_k, q_last / bn + 1);
+  const int pos_last = p.q_offset + min(q0 + bm, p.sq) - 1;
+  *end = min(n_k, pos_last / bn + 1);
   if (p.window > 0) {
-    const int k_first = q0 - p.window + 1;
-    if (k_first > 0) *begin = k_first / bn;
+    const int k_first = p.q_offset + q0 - p.window + 1;
+    if (k_first > 0) *begin = min(k_first / bn, *end);
   }
 }
 
 // the q tiles [begin, end) that can see a k tile [k0, k0 + bn)
+// (begin <= end)
 __device__ __forceinline__ void q_range(const Problem& p, int k0, int bn,
                                         int bm, int* begin, int* end) {
   const int n_q = (p.sq + bm - 1) / bm;
   *begin = 0;
   *end = n_q;
   if (!p.causal) return;
-  *begin = min(n_q, k0 / bm);
+  // the first row whose position reaches k0
+  *begin = min(n_q, max(k0 - p.q_offset, 0) / bm);
   if (p.window > 0) {
-    const int q_last = min(k0 + bn, p.sk) - 1 + p.window - 1;
-    *end = min(n_q, q_last / bm + 1);
+    // the last row whose position is within the window of the tile's last key
+    const int r_last = min(k0 + bn, p.sk) - 1 + p.window - 1 - p.q_offset;
+    *end = r_last < 0 ? 0 : min(n_q, r_last / bm + 1);
+    *end = max(*end, *begin);
   }
 }
 
@@ -143,9 +161,7 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   const int wg_row0 = q0 + (threadIdx.x / tile90::kWarpgroup) * tile90::kRows;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int qp = wg_row0 + tile90::Rows<D>::row(i);
-    st.lo[i] = p.causal && p.window > 0 ? qp - p.window + 1 : 0;
-    st.hi[i] = qp >= p.sq ? -1 : p.causal ? min(qp, p.sk - 1) : p.sk - 1;
+    band(p, wg_row0 + tile90::Rows<D>::row(i), &st.lo[i], &st.hi[i]);
   }
   int kt0, kt1;
   k_range(p, q0, BM, BN, &kt0, &kt1);
@@ -247,8 +263,7 @@ flash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int qp = wg_row0 + Rows<D>::row(i);
-    lo[i] = p.causal && p.window > 0 ? qp - p.window + 1 : 0;
-    hi[i] = qp >= sq ? -1 : p.causal ? min(qp, sk - 1) : sk - 1;
+    band(p, qp, &lo[i], &hi[i]);
     lse2[i] = qp < sq ? lse[qh * sq + qp] * kLog2e : 0.f;
     dlt[i] = qp < sq ? delta[qh * sq + qp] : 0.f;
   }
@@ -403,6 +418,7 @@ __device__ __forceinline__ void dkv_pass(
     cp_commit();
     const int st = t & 1;
     const int q0 = (qt0 + t % nq) * BN;
+    const int pos0 = p.q_offset + q0;  // the tile's first query position
 
 #pragma unroll
     for (int i = 0; i < BN / 2; ++i) s[i] = dp[i] = 0.f;
@@ -422,13 +438,13 @@ __device__ __forceinline__ void dkv_pass(
     const float* del_c = lse_c + BN;
     const bool whole =
         q0 + BN - 1 < sq && kp[1] < sk &&
-        (!p.causal || (kp[1] <= q0 &&
-                       (p.window <= 0 || q0 + BN - 1 - kp[0] < p.window)));
+        (!p.causal || (kp[1] <= pos0 &&
+                       (p.window <= 0 || pos0 + BN - 1 - kp[0] < p.window)));
 #pragma unroll
     for (int n8 = 0; n8 < BN / 8; ++n8)
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
-        const int c = Rows<D>::col(n8, j), qp = q0 + c;
+        const int c = Rows<D>::col(n8, j), qp = q0 + c, pos = pos0 + c;
         const float l2 = lse_c[c] * kLog2e;
         const float dc = del_c[c];
 #pragma unroll
@@ -443,8 +459,8 @@ __device__ __forceinline__ void dkv_pass(
           if (!whole) {
             const bool seen =
                 qp < sq && kp[i] < sk &&
-                (!p.causal || (kp[i] <= qp &&
-                               (p.window <= 0 || qp - kp[i] < p.window)));
+                (!p.causal || (kp[i] <= pos &&
+                               (p.window <= 0 || pos - kp[i] < p.window)));
             if (!seen) pr = 0.f;
           }
           s[e] = pr;
@@ -632,13 +648,13 @@ int dkv(const void* q, const void* k, const void* v, const void* d_o,
 }
 
 bool valid(int batch, int hq, int hkv, int sq, int sk, int causal,
-           int window) {
+           int window, int q_offset) {
   return batch > 0 && hkv > 0 && hq % hkv == 0 && sq > 0 && sk > 0 &&
-         (window <= 0 || causal);
+         (window <= 0 || causal) && q_offset >= 0;
 }
 
 Problem problem(int hq, int hkv, int sq, int sk, float scale, float soft_cap,
-                int causal, int window) {
+                int causal, int window, int q_offset) {
   Problem p;
   p.hq = hq;
   p.hkv = hkv;
@@ -648,6 +664,7 @@ Problem problem(int hq, int hkv, int sq, int sk, float scale, float soft_cap,
   p.soft_cap = soft_cap;
   p.causal = causal;
   p.window = window;
+  p.q_offset = q_offset;
   return p;
 }
 
@@ -657,15 +674,16 @@ Problem problem(int hq, int hkv, int sq, int sk, float scale, float soft_cap,
 // a cudaError_t code; cudaErrorInvalidValue for shapes the kernels do not
 // take (the Python wrappers reject those before calling). Layouts: q, o, dO,
 // dq (B, Hq, Sq, D); k, v, dk, dv (B, Hkv, Sk, D); lse, delta (B, Hq, Sq)
-// f32; all contiguous.
+// f32; all contiguous. q_offset: the position of query row 0 (>= 0).
 extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
                               void* o, void* lse, int batch, int hq, int hkv,
                               int sq, int sk, int head_dim, float scale,
                               float soft_cap, int causal, int window,
-                              void* stream) {
-  if (!valid(batch, hq, hkv, sq, sk, causal, window))
+                              int q_offset, void* stream) {
+  if (!valid(batch, hq, hkv, sq, sk, causal, window, q_offset))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Problem p = problem(hq, hkv, sq, sk, scale, soft_cap, causal, window);
+  const Problem p =
+      problem(hq, hkv, sq, sk, scale, soft_cap, causal, window, q_offset);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
     case 64: return fwd<64>(q, k, v, o, lse, batch, p, s);
@@ -680,10 +698,11 @@ extern "C" int flash_dq_bf16(const void* q, const void* k, const void* v,
                              const void* delta, void* dq_out, int batch,
                              int hq, int hkv, int sq, int sk, int head_dim,
                              float scale, float soft_cap, int causal,
-                             int window, void* stream) {
-  if (!valid(batch, hq, hkv, sq, sk, causal, window))
+                             int window, int q_offset, void* stream) {
+  if (!valid(batch, hq, hkv, sq, sk, causal, window, q_offset))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Problem p = problem(hq, hkv, sq, sk, scale, soft_cap, causal, window);
+  const Problem p =
+      problem(hq, hkv, sq, sk, scale, soft_cap, causal, window, q_offset);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
     case 64: return dq<64>(q, k, v, d_o, lse, delta, dq_out, batch, p, s);
@@ -698,10 +717,12 @@ extern "C" int flash_dkv_bf16(const void* q, const void* k, const void* v,
                               const void* delta, void* dk_out, void* dv_out,
                               int batch, int hq, int hkv, int sq, int sk,
                               int head_dim, float scale, float soft_cap,
-                              int causal, int window, void* stream) {
-  if (!valid(batch, hq, hkv, sq, sk, causal, window))
+                              int causal, int window, int q_offset,
+                              void* stream) {
+  if (!valid(batch, hq, hkv, sq, sk, causal, window, q_offset))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Problem p = problem(hq, hkv, sq, sk, scale, soft_cap, causal, window);
+  const Problem p =
+      problem(hq, hkv, sq, sk, scale, soft_cap, causal, window, q_offset);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
     case 64:

@@ -55,7 +55,8 @@ def config_from_jax(jcfg, dtype: torch.dtype) -> LlamaConfig:
     fields = ("name", "vocab_size", "embed_dim", "n_layers", "n_heads",
               "n_kv_heads", "head_dim", "mlp_dim", "max_seq_len",
               "rope_theta", "rope_scaling", "norm_eps", "tie_embeddings",
-              "remat", "remat_policy", "mla_latent_dim", "mla_rope_dim",
+              "remat", "remat_policy", "ring_flash", "mla_latent_dim",
+              "mla_rope_dim",
               "mla_q_lora_rank", "n_experts", "n_experts_per_tok",
               "capacity_factor", "router_norm_topk", "router_aux_coef",
               "router_z_coef")

@@ -52,6 +52,7 @@ from ..ops import (apply_rope, flash_attention, int4_matmul,
                    paged_attention_multi, paged_attention_multi_mla,
                    paged_attention_multi_mla_quant,
                    paged_attention_multi_quant, rms_norm, rope_frequencies)
+from ..ops.ring_attention import ring_attention
 from .moe import moe_mlp
 
 Params = dict[str, Any]
@@ -62,8 +63,8 @@ class LlamaConfig:
     """The fields of the JAX ``LlamaConfig`` this port runs, with the same
     defaults (weight and KV quantization are serving options,
     ``ServingConfig``). DeepSeek-MoE (shared experts, sigmoid routing) and
-    its dense prefix, LoRA, ring attention, meshes, sliding windows, soft
-    caps and remat "dots" are later slices."""
+    its dense prefix, LoRA, meshes other than the sequence axis, sliding
+    windows, soft caps and remat "dots" are later slices."""
     name: str = "tiny"
     vocab_size: int = 32000
     embed_dim: int = 256
@@ -83,6 +84,10 @@ class LlamaConfig:
     # "full": recompute each layer in backward (one more forward of
     # flops, least memory); "none": keep every activation
     remat_policy: str = "full"
+    # under a mesh with seq > 1: ring attention's chunks through the flash
+    # kernels ("ring flash attention") instead of the plain online-softmax
+    # ring, the JAX package's default
+    ring_flash: bool = False
     # Multi-head Latent Attention (DeepSeek-V2): a shared latent c = h @
     # w_dkv of rank mla_latent_dim replaces the K/V projections; the arena
     # caches c (normed) and one rotated rope key of mla_rope_dim per
@@ -336,12 +341,15 @@ def draw_rows(shape, generator: torch.Generator, device):
 class LlamaModel:
     """The contiguous forward (training) and the paged serving steps over a
     per-model arena. ``device`` defaults to ``cuda`` and raises without a
-    card."""
+    card. ``mesh`` (``parallel.Mesh``) with seq > 1 sends the forward's
+    attention through ``ring_attention``, as the JAX model does under a
+    mesh with a ``seq`` axis; the serving steps take no mesh."""
 
-    def __init__(self, cfg: LlamaConfig, device=None):
+    def __init__(self, cfg: LlamaConfig, device=None, mesh=None):
         cfg.validate_mla()
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.mesh = mesh
         # MLA rotates only the decoupled rope part of q and its shared key
         rope_dim = cfg.mla_rope_dim if cfg.is_mla else cfg.head_dim_
         self.cos, self.sin = rope_frequencies(
@@ -361,8 +369,12 @@ class LlamaModel:
         "full" each layer is a ``torch.utils.checkpoint`` (the counterpart
         of ``jax.checkpoint`` over the JAX model's scan body), so backward
         runs its forward once more. ``positions`` (B, S) overrides arange
-        for RoPE. MLA configs raise: their contiguous (direct) form needs
-        the flash kernels at head_dim + rope_dim, a later slice."""
+        for RoPE. Under a mesh with seq > 1 attention is ring attention
+        over the sequence shards (in one process the tokens are the whole
+        sequence; over a process group they are this rank's shard, whose
+        positions start at rank * S). MLA configs raise: their contiguous
+        (direct) form needs the flash kernels at head_dim + rope_dim, a
+        later slice."""
         cfg = self.cfg
         if cfg.is_mla:
             raise ValueError(f"{cfg.name}: the contiguous forward of an MLA "
@@ -371,6 +383,11 @@ class LlamaModel:
         if cfg.remat and cfg.remat_policy not in ("full", "none"):
             raise ValueError(f"remat_policy {cfg.remat_policy!r} is not "
                              "ported (full or none)")
+        mesh = self.mesh
+        if positions is None and mesh is not None and not mesh.in_process:
+            b, s = tokens.shape
+            positions = (mesh.rank * s + torch.arange(
+                s, device=tokens.device)).expand(b, s)
         x = params["tok_embed"][tokens.long()].to(cfg.dtype)
         # one unbind per stacked leaf: its backward stacks the L layer
         # gradients once (a quantized leaf is sliced per layer)
@@ -411,7 +428,13 @@ class LlamaModel:
         q = apply_rope(q, self.cos, self.sin, positions)
         k = apply_rope(k, self.cos, self.sin, positions)
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        o = flash_attention(qt, kt, vt, causal=True, sm_scale=cfg.sm_scale)
+        if self.mesh is not None and self.mesh.seq > 1:
+            o = ring_attention(qt, kt, vt, self.mesh, causal=True,
+                               sm_scale=cfg.sm_scale,
+                               use_flash=cfg.ring_flash)
+        else:
+            o = flash_attention(qt, kt, vt, causal=True,
+                                sm_scale=cfg.sm_scale)
         o = o.transpose(1, 2).reshape(b, s, cfg.n_heads * hd)
         x = self._mlp(x + _mm(o, lp["wo"], dt), lp, train)
         return (x, k, v) if return_kv else x

@@ -26,12 +26,13 @@ multi-token function at K = 1 and launch the same two kernels at K = 1,
 each counted on its own wrapper.
 
 ``flash_attention`` is the port of ``ops/attention.py:flash_attention``,
-contiguous attention with gradients. On a CUDA tensor it is a
-``torch.autograd.Function`` over the three kernels of
-``csrc/flash_attention.cu`` (``flash_fwd``, ``flash_dq``, ``flash_dkv``,
-each a wrapper with its own launch count); on a CPU tensor it runs
-``_attention_plain``, the port of ``_attention_xla``, and autograd
-differentiates that.
+contiguous attention with gradients: a ``torch.autograd.Function`` over the
+three kernels of ``csrc/flash_attention.cu`` (``flash_fwd``, ``flash_dq``,
+``flash_dkv``, each a wrapper with its own launch count), which take their
+plain versions on a CPU tensor. The three wrappers also take ``q_offset``,
+the position of query row 0 against key 0, as the JAX
+``_flash_fwd_pallas``/``_flash_bwd_pallas`` do for ring attention's chunk
+steps (``ops/ring_attention.py``).
 """
 
 from __future__ import annotations
@@ -706,10 +707,16 @@ paged_attention_mla_quant.launches = 0
 
 # -- flash attention (contiguous, with gradients) ---------------------------------
 
+def _check_q_offset(q_offset: int) -> None:
+    if q_offset < 0:
+        raise ValueError(f"q_offset must not be negative, got {q_offset}")
+
+
 def _check_flash_shapes(q, k, v, causal: bool, sliding_window,
-                        logit_soft_cap) -> None:
+                        logit_soft_cap, q_offset: int = 0) -> None:
     """The JAX ``flash_attention``'s argument checks, plus the shapes its
-    layout implies."""
+    layout implies and a ``q_offset`` that is not negative."""
+    _check_q_offset(q_offset)
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v "
                          f"{tuple(v.shape)}: expected q (B, Hq, Sq, D) and "
@@ -732,11 +739,12 @@ def _check_flash_shapes(q, k, v, causal: bool, sliding_window,
 
 
 def _flash_mask(sq: int, sk: int, causal: bool, window: Optional[int],
-                device) -> Optional[torch.Tensor]:
-    """(Sq, Sk) mask of the keys each query sees, or None for all."""
+                device, q_offset: int = 0) -> Optional[torch.Tensor]:
+    """(Sq, Sk) mask of the keys each query sees, or None for all. Query
+    row i sits at position q_offset + i (the JAX ``_causal_mask``)."""
     if not causal:
         return None
-    q_pos = torch.arange(sq, device=device)[:, None]
+    q_pos = q_offset + torch.arange(sq, device=device)[:, None]
     k_pos = torch.arange(sk, device=device)[None, :]
     mask = q_pos >= k_pos
     if window is not None:
@@ -769,7 +777,7 @@ def _attention_plain(q, k, v, *, causal: bool, sm_scale: float,
     return o.reshape(b, hq, sq, d).to(q.dtype)
 
 
-def _flash_probs(q, k, lse, causal, scale, window, soft_cap):
+def _flash_probs(q, k, lse, causal, scale, window, soft_cap, q_offset=0):
     """The kernels' recomputation in f32: scores of q (B, Hkv, G, Sq, D)
     against k, their soft-cap tanh (or None), and P = exp(s - lse) with
     masked entries zeroed (so a row that sees no key has P = 0)."""
@@ -778,7 +786,8 @@ def _flash_probs(q, k, lse, causal, scale, window, soft_cap):
     if soft_cap is not None:
         th = torch.tanh(s / soft_cap)
         s = th * soft_cap
-    mask = _flash_mask(q.shape[3], k.shape[2], causal, window, q.device)
+    mask = _flash_mask(q.shape[3], k.shape[2], causal, window, q.device,
+                       q_offset)
     if lse is None:
         m = s if mask is None else torch.where(mask, s,
                                                torch.full_like(s, NEG_INF))
@@ -801,22 +810,23 @@ def _grouped(t: torch.Tensor, hkv: int) -> torch.Tensor:
 
 
 def _flash_fwd_plain(q, k, v, *, causal, sm_scale, sliding_window=None,
-                     logit_soft_cap=None):
+                     logit_soft_cap=None, q_offset=0):
     """What ``flash_fwd``'s kernel computes, in f32: (o in q's dtype, lse
     (B, Hq, Sq) f32)."""
     b, hq, sq, d = q.shape
     hkv = k.shape[1]
     p, _, lse = _flash_probs(_grouped(q, hkv), k, None, causal, sm_scale,
-                             sliding_window, logit_soft_cap)
+                             sliding_window, logit_soft_cap, q_offset)
     o = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
     return o.reshape(b, hq, sq, d).to(q.dtype), lse.reshape(b, hq, sq)
 
 
-def _flash_ds(q, k, v, do, lse, delta, causal, scale, window, soft_cap):
+def _flash_ds(q, k, v, do, lse, delta, causal, scale, window, soft_cap,
+              q_offset=0):
     hkv = k.shape[1]
     qg, dog = _grouped(q, hkv), _grouped(do, hkv)
     p, th, _ = _flash_probs(qg, k, _grouped(lse[..., None], hkv)[..., 0],
-                            causal, scale, window, soft_cap)
+                            causal, scale, window, soft_cap, q_offset)
     dp = torch.einsum("bhgqd,bhkd->bhgqk", dog.float(), v.float())
     ds = p * (dp - _grouped(delta[..., None], hkv))
     if th is not None:
@@ -825,20 +835,20 @@ def _flash_ds(q, k, v, do, lse, delta, causal, scale, window, soft_cap):
 
 
 def _flash_dq_plain(q, k, v, do, lse, delta, *, causal, sm_scale,
-                    sliding_window=None, logit_soft_cap=None):
+                    sliding_window=None, logit_soft_cap=None, q_offset=0):
     """What ``flash_dq``'s kernel computes, in f32: dq = scale * dS k."""
     _, ds, _, _ = _flash_ds(q, k, v, do, lse, delta, causal, sm_scale,
-                            sliding_window, logit_soft_cap)
+                            sliding_window, logit_soft_cap, q_offset)
     dq = torch.einsum("bhgqk,bhkd->bhgqd", ds, k.float()) * sm_scale
     return dq.reshape(q.shape).to(q.dtype)
 
 
 def _flash_dkv_plain(q, k, v, do, lse, delta, *, causal, sm_scale,
-                     sliding_window=None, logit_soft_cap=None):
+                     sliding_window=None, logit_soft_cap=None, q_offset=0):
     """What ``flash_dkv``'s kernel computes, in f32: dv = P^T dO and
     dk = scale * dS^T q, summed over each GQA group."""
     p, ds, qg, dog = _flash_ds(q, k, v, do, lse, delta, causal, sm_scale,
-                               sliding_window, logit_soft_cap)
+                               sliding_window, logit_soft_cap, q_offset)
     dv = torch.einsum("bhgqk,bhgqd->bhkd", p, dog.float())
     dk = torch.einsum("bhgqk,bhgqd->bhkd", ds, qg.float()) * sm_scale
     return dk.to(k.dtype), dv.to(v.dtype)
@@ -848,9 +858,10 @@ def _flash_dkv_plain(q, k, v, do, lse, delta, *, causal, sm_scale,
 def _flash_launchers():
     lib = _cuda.load("flash_attention")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    dims = [i, i, i, i, i, i, f, f, i, i, p]   # b hq hkv sq sk d scale cap
+    # b hq hkv sq sk d, scale cap, causal window q_offset, stream
+    dims = [i, i, i, i, i, i, f, f, i, i, i, p]
     fwd, dq, dkv = lib.flash_fwd_bf16, lib.flash_dq_bf16, lib.flash_dkv_bf16
-    fwd.argtypes = [p] * 5 + dims              # causal window stream
+    fwd.argtypes = [p] * 5 + dims
     dq.argtypes = [p] * 7 + dims
     dkv.argtypes = [p] * 8 + dims
     for fn in (fwd, dq, dkv):
@@ -880,22 +891,31 @@ def _check_flash_cuda(**tensors) -> None:
 
 
 def _flash_dims(q, k, causal, sm_scale, sliding_window, logit_soft_cap,
-                stream) -> tuple:
+                q_offset, stream) -> tuple:
     b, hq, sq, d = q.shape
     return (b, hq, k.shape[1], sq, k.shape[2], d, float(sm_scale),
             float(logit_soft_cap or 0.0), int(causal),
-            int(sliding_window or 0), stream)
+            int(sliding_window or 0), int(q_offset), stream)
+
+
+def _flash_args(causal, sm_scale, sliding_window, logit_soft_cap,
+                q_offset) -> dict:
+    _check_q_offset(q_offset)
+    return dict(causal=causal, sm_scale=sm_scale,
+                sliding_window=sliding_window, logit_soft_cap=logit_soft_cap,
+                q_offset=q_offset)
 
 
 def flash_fwd(q, k, v, *, causal: bool, sm_scale: float,
               sliding_window: Optional[int] = None,
-              logit_soft_cap: Optional[float] = None
+              logit_soft_cap: Optional[float] = None, q_offset: int = 0
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """The forward kernel: (o (B, Hq, Sq, D) in q's dtype, lse (B, Hq, Sq)
-    f32). A CUDA tensor launches it or raises; a CPU tensor takes the plain
-    version."""
-    args = dict(causal=causal, sm_scale=sm_scale,
-                sliding_window=sliding_window, logit_soft_cap=logit_soft_cap)
+    f32). Query row i sits at position ``q_offset`` + i, key j at j; a row
+    that sees no key gives o = 0 and lse = -1e30. A CUDA tensor launches
+    it or raises; a CPU tensor takes the plain version."""
+    args = _flash_args(causal, sm_scale, sliding_window, logit_soft_cap,
+                       q_offset)
     if q.device.type == "cpu":
         return _flash_fwd_plain(q, k, v, **args)
     if q.device.type != "cuda":
@@ -914,12 +934,14 @@ def flash_fwd(q, k, v, *, causal: bool, sm_scale: float,
 
 def flash_dq(q, k, v, do, lse, delta, *, causal: bool, sm_scale: float,
              sliding_window: Optional[int] = None,
-             logit_soft_cap: Optional[float] = None) -> torch.Tensor:
+             logit_soft_cap: Optional[float] = None,
+             q_offset: int = 0) -> torch.Tensor:
     """The dQ kernel: dq (B, Hq, Sq, D) in q's dtype, from the forward's
-    lse and delta = rowsum(dO o) (B, Hq, Sq) f32. A CUDA tensor launches it
-    or raises; a CPU tensor takes the plain version."""
-    args = dict(causal=causal, sm_scale=sm_scale,
-                sliding_window=sliding_window, logit_soft_cap=logit_soft_cap)
+    lse and delta = rowsum(dO o) (B, Hq, Sq) f32 (under a ring, the global
+    ones), positions as in ``flash_fwd``. A CUDA tensor launches it or
+    raises; a CPU tensor takes the plain version."""
+    args = _flash_args(causal, sm_scale, sliding_window, logit_soft_cap,
+                       q_offset)
     if q.device.type == "cpu":
         return _flash_dq_plain(q, k, v, do, lse, delta, **args)
     if q.device.type != "cuda":
@@ -938,13 +960,13 @@ def flash_dq(q, k, v, do, lse, delta, *, causal: bool, sm_scale: float,
 
 def flash_dkv(q, k, v, do, lse, delta, *, causal: bool, sm_scale: float,
               sliding_window: Optional[int] = None,
-              logit_soft_cap: Optional[float] = None
+              logit_soft_cap: Optional[float] = None, q_offset: int = 0
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """The dK/dV kernel: (dk, dv) (B, Hkv, Sk, D) in k's dtype, summed over
-    each GQA group. A CUDA tensor launches it or raises; a CPU tensor takes
-    the plain version."""
-    args = dict(causal=causal, sm_scale=sm_scale,
-                sliding_window=sliding_window, logit_soft_cap=logit_soft_cap)
+    each GQA group, positions as in ``flash_fwd``. A CUDA tensor launches
+    it or raises; a CPU tensor takes the plain version."""
+    args = _flash_args(causal, sm_scale, sliding_window, logit_soft_cap,
+                       q_offset)
     if q.device.type == "cpu":
         return _flash_dkv_plain(q, k, v, do, lse, delta, **args)
     if q.device.type != "cuda":

@@ -12,6 +12,15 @@ Run on a machine with one NVIDIA card:
     python -m k8s_runpod_kubelet_tpu_torch.workloads.step_profile \
         --model mixtral-8x7b --int4
 
+With ``--seq N`` only training is profiled, at the same 16,384 tokens a
+step in rows of N x 2048 positions (``--seq 4``: batch 2 x 8192): the
+step on an in-process mesh of N sequence shards with ``ring_flash`` (ring
+attention, the flash kernels at each ring offset; ``train_ring``) beside
+the unsharded flash step at the same batch (``train``):
+
+    python -m k8s_runpod_kubelet_tpu_torch.workloads.step_profile \
+        --model llama3-8b --seq 4
+
 With ``--speculate K`` a speculative verify step is profiled too: one
 ``paged_verify_step`` at K + 1 tokens over the same 8 slots and contexts,
 every row written (``n_tokens`` = K + 1), the step a ``--speculate K``
@@ -209,20 +218,25 @@ def _norm_profile(cfg, dev, gen) -> dict:
             "bound_ms": nbytes / 3.35e12 * 1e3, "launches": launches}
 
 
-def _train_profile(cfg, dev) -> dict:
+def _train_profile(cfg, dev, seq: int = 1, ring: bool = False) -> dict:
+    """One training step at 4 layers over TRAIN_BATCH x TRAIN_SEQ tokens,
+    in rows of ``seq`` x TRAIN_SEQ positions; with ``ring`` on an
+    in-process mesh of ``seq`` sequence shards with ``ring_flash``."""
+    from ..parallel import MeshConfig, make_mesh
     from .train import TrainConfig, Trainer, synthetic_batches
 
-    cfg = dataclasses.replace(cfg, n_layers=TRAIN_LAYERS)
-    tc = TrainConfig(batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ,
-                     warmup_steps=1)
-    trainer = Trainer(cfg, tc, seed=SEED, device=dev)
+    cfg = dataclasses.replace(cfg, n_layers=TRAIN_LAYERS, ring_flash=ring)
+    batch, seq_len = TRAIN_BATCH // seq, TRAIN_SEQ * seq
+    mesh = make_mesh(MeshConfig(seq=seq)) if ring else None
+    tc = TrainConfig(batch_size=batch, seq_len=seq_len, warmup_steps=1)
+    trainer = Trainer(cfg, tc, seed=SEED, device=dev, mesh=mesh)
     batches = itertools.repeat(next(synthetic_batches(cfg, tc, seed=SEED,
                                                       device=dev)))
     torch.cuda.reset_peak_memory_stats()
     prof = _profile(lambda: trainer.run(steps=1, batches=batches), 3)
-    return dict(prof, layers=TRAIN_LAYERS, batch=TRAIN_BATCH,
-                seq_len=TRAIN_SEQ,
-                tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / prof["wall_ms"] * 1e3,
+    return dict(prof, layers=TRAIN_LAYERS, batch=batch, seq_len=seq_len,
+                seq_shards=seq if ring else 1,
+                tokens_per_s=batch * seq_len / prof["wall_ms"] * 1e3,
                 peak_bytes=torch.cuda.max_memory_allocated())
 
 
@@ -239,13 +253,27 @@ def main(argv=None) -> int:
     p.add_argument("--speculate", type=int, default=0, metavar="K",
                    help="also profile a verify step of K drafts (K + 1 "
                         "rows a slot)")
+    p.add_argument("--seq", type=int, default=0, metavar="N",
+                   help="profile only training: a ring step over N "
+                        "sequence shards beside the unsharded step, rows "
+                        "of N x 2048 positions")
     args = p.parse_args(argv)
+    if args.seq and (args.seq < 2 or TRAIN_BATCH % args.seq):
+        p.error(f"--seq must be at least 2 and divide {TRAIN_BATCH}")
     dev = resolve_device("cuda")   # raises without a card
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     cfg = MODEL_CONFIGS[args.model]()
+    if args.seq:
+        if args.int4 or args.kv_int8 or cfg.is_mla or cfg.n_experts:
+            p.error("--seq profiles the training step, which this model "
+                    "or these flags do not have")
+        out = {"card": card, "model": cfg.name, "torch": torch.__version__,
+               "train": _train_profile(cfg, dev, args.seq),
+               "train_ring": _train_profile(cfg, dev, args.seq, ring=True)}
+        return _emit(out, args.out)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     # the same draws either way: init_quantized_params gives
     # quantize_params(init_params(...)) without the bf16 tree
@@ -325,10 +353,14 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     if not (args.int4 or args.kv_int8 or cfg.is_mla or cfg.n_experts):
         out["train"] = _train_profile(cfg, dev)
+    return _emit(out, args.out)
+
+
+def _emit(out: dict, path: str) -> int:
     text = json.dumps(out)
-    if args.out:
-        os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
-        with open(args.out, "w") as f:
+    if path:
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        with open(path, "w") as f:
             f.write(text)
     print(text)
     return 0

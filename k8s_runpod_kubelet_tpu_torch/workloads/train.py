@@ -1,16 +1,18 @@
 """Training on one card: loss, optimizer, train step, data, checkpoints.
 
 Port of the JAX package's ``workloads/train.py`` for the dense Llama
-decoder, without a mesh: f32 master parameters, bf16 compute through
-``LlamaModel.forward`` (flash attention kernels, RMSNorm kernel, remat per
-layer), the loss of ``_ce_and_zloss``, and the optimizer written out with
+decoder: f32 master parameters, bf16 compute through ``LlamaModel.forward``
+(flash attention kernels, RMSNorm kernel, remat per layer; under an
+in-process mesh with seq > 1, ring attention over the sequence shards),
+the loss of ``_ce_and_zloss``, and the optimizer written out with
 optax's exact semantics (``clip_by_global_norm`` then ``adamw`` on a
 ``warmup_cosine_decay_schedule``). Checkpoints are ``torch.save`` files and
 log the two markers the kubelet parses: ``checkpoint saved at step N`` and
 ``resumed from checkpoint step N``.
 
 Not ported yet: the fused chunked cross-entropy, LoRA, telemetry, async
-checkpoints and elastic ``resize``.
+checkpoints, elastic ``resize``, and training over a process group (each
+rank its token shard, the gradients all-reduced over the group).
 """
 
 from __future__ import annotations
@@ -252,20 +254,30 @@ _KEEP_CHECKPOINTS = 3   # as the JAX trainer's orbax manager keeps
 class Trainer:
     """Training on one card: init (or given params), the step loop,
     evaluation and blocking ``torch.save`` checkpoints. ``device``
-    defaults to ``cuda`` and raises without a card."""
+    defaults to ``cuda`` and raises without a card. ``mesh``, an
+    in-process ``parallel.Mesh``, goes to the model, as the JAX trainer
+    passes its mesh (with seq > 1 attention runs as ring attention over
+    the sequence shards)."""
 
     def __init__(self, cfg: LlamaConfig, tc: TrainConfig, seed: int = 0,
-                 initial_params: Optional[Params] = None, device=None):
+                 initial_params: Optional[Params] = None, device=None,
+                 mesh=None):
         if cfg.n_experts:
             raise ValueError(
                 f"{cfg.name}: training a sparse-MoE model is not ported (the "
                 "MoE training slice: the router's load-balance and z losses "
                 "in the objective, capacity drops, and the expert "
                 "gradients); MoE configs serve only")
+        if mesh is not None and not mesh.in_process:
+            raise ValueError(
+                "training over a process group is not ported (ROADMAP "
+                "Queue 1 #7.8: each rank its token shard and the gradients "
+                "all-reduced over the group); pass an in-process mesh")
         self.cfg = cfg
         self.tc = tc
+        self.mesh = mesh
         self.device = resolve_device(device)
-        self.model = LlamaModel(cfg, self.device)
+        self.model = LlamaModel(cfg, self.device, mesh)
         if initial_params is not None:
             params = _map(lambda p: p.detach().to(self.device,
                                                   cfg.param_dtype).clone(),

@@ -338,6 +338,99 @@ def test_flash_backward_tile_edges_match_plain(cuda, name):
         assert torch.all(dq[:, :, blind] == 0)
 
 
+# ring attention's chunk steps: q_offset = the chunk's distance behind
+OFFSET_CASES = {
+    # name: (B, Hq, Hkv, Sq, Sk, D, window, soft cap, q_offset)
+    "ragged_all_visible": (2, 8, 2, 133, 133, 128, None, None, 133),
+    "d64_cap_3s": (1, 4, 4, 77, 77, 64, None, 8.0, 231),
+    "window_band": (1, 8, 2, 200, 200, 128, 70, None, 200),
+    "d256_window": (1, 4, 1, 130, 130, 256, 40, None, 130),
+    "window_blind": (1, 4, 2, 100, 100, 128, 16, None, 300),
+    "sq1_window_cap": (1, 2, 1, 1, 64, 128, 30, 5.0, 40),
+}
+
+
+def _within_bf16(out, ref) -> bool:
+    ref = ref.float()
+    return bool(torch.all((out.float() - ref).abs()
+                          <= 1e-4 + 1e-2 * ref.abs()))
+
+
+@pytest.mark.parametrize("name", sorted(OFFSET_CASES))
+def test_flash_kernels_at_an_offset_match_plain(cuda, name):
+    """The three kernels at q_offset > 0 against their plain versions at
+    the same offset (the backward fed the kernel's lse and delta), per
+    element at the chip check's tolerance; the control, the same kernels
+    at offset 0 on the same inputs, must miss it."""
+    b, hq, hkv, sq, sk, d, window, cap, offset = OFFSET_CASES[name]
+    gen = torch.Generator().manual_seed(13)
+    q, do = (torch.randn((b, hq, sq, d), generator=gen)
+             .to(cuda, torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn((b, hkv, sk, d), generator=gen)
+            .to(cuda, torch.bfloat16) for _ in range(2))
+    args = dict(causal=True, sm_scale=d ** -0.5, sliding_window=window,
+                logit_soft_cap=cap, q_offset=offset)
+    o, lse = flash_fwd(q, k, v, **args)
+    delta = (do.float() * o.float()).sum(-1)
+    dq = flash_dq(q, k, v, do, lse, delta, **args)
+    dk, dv = flash_dkv(q, k, v, do, lse, delta, **args)
+    torch.cuda.synchronize()
+    f32 = [t.float() for t in (q, k, v, do)]
+    o_ref, lse_ref = _flash_fwd_plain(*f32[:3], **args)
+    dq_ref = _flash_dq_plain(*f32, lse, delta, **args)
+    dk_ref, dv_ref = _flash_dkv_plain(*f32, lse, delta, **args)
+    _close_bf16(o, o_ref)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=1e-5)
+    for got, ref in ((dq, dq_ref), (dk, dk_ref), (dv, dv_ref)):
+        _close_bf16(got, ref)
+    zero = dict(args, q_offset=0)
+    o0, lse0 = flash_fwd(q, k, v, **zero)
+    assert not _within_bf16(o0, o_ref)
+    assert not _within_bf16(flash_dq(q, k, v, do, lse, delta, **zero),
+                            dq_ref)
+    dk0, dv0 = flash_dkv(q, k, v, do, lse, delta, **zero)
+    assert not (_within_bf16(dk0, dk_ref) and _within_bf16(dv0, dv_ref))
+    if name == "window_blind":     # no query sees a key of this chunk
+        assert not o.any() and not dq.any() and not dk.any()
+        assert torch.all(lse <= -1e29)
+
+
+@pytest.mark.parametrize("window", [None, 100])
+def test_ring_flash_on_the_card_matches_the_plain_ring(cuda, window):
+    """The in-process ring through the kernels (bf16) against the plain
+    online-softmax ring in f32 on the same inputs: the output and the
+    gradients within 1% of each tensor's largest magnitude (each chunk's
+    o is rounded to bf16 before the f32 merge, and a chunk's o may exceed
+    the merged one where chunks cancel; delta comes from the bf16 o); one
+    launch of each kernel a ring step."""
+    from k8s_runpod_kubelet_tpu_torch.ops.ring_attention import (
+        _ring_steps, ring_attention)
+    from k8s_runpod_kubelet_tpu_torch.parallel import MeshConfig, make_mesh
+    n, s = 4, 512
+    mesh = make_mesh(MeshConfig(seq=n))
+    gen = torch.Generator().manual_seed(17)
+    q, do = (torch.randn((2, 8, s, 128), generator=gen)
+             .to(cuda, torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn((2, 2, s, 128), generator=gen)
+            .to(cuda, torch.bfloat16) for _ in range(2))
+    tq, tk, tv = (t.clone().requires_grad_() for t in (q, k, v))
+    steps = _ring_steps(n, s // n, window)
+    before = [f.launches for f in (flash_fwd, flash_dq, flash_dkv)]
+    o = ring_attention(tq, tk, tv, mesh, sliding_window=window,
+                       use_flash=True)
+    o.backward(do)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip((flash_fwd, flash_dq, flash_dkv),
+                                           before)] == [steps] * 3
+    pq, pk, pv = (t.float().requires_grad_() for t in (q, k, v))
+    ref = ring_attention(pq, pk, pv, mesh, sliding_window=window)
+    ref.backward(do.float())
+    for got, want in ((o.detach(), ref.detach()), (tq.grad, pq.grad),
+                      (tk.grad, pk.grad), (tv.grad, pv.grad)):
+        assert float((got.float() - want).abs().max()) <= \
+            1e-2 * float(want.abs().max())
+
+
 TILE_PAGED_CASES = {
     # name: (B, K, Hq, Hkv, D, T, cols, lengths, soft cap, window)
     # decode splits of 15 pages (240 positions): boundaries mid-tile and
