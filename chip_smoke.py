@@ -5,8 +5,10 @@ width and depth, random bf16 weights from a seed) through the paged
 engine and its HTTP front, in bf16 and then with int4 weights and an int8
 KV arena, and behind the OpenAI front on a full pool, serves mla-8b (the
 same, with Multi-head Latent Attention) over a bf16 and then an int8
-latent arena, serves Mixtral-8x7B (full width and depth, int4 weights drawn
-and quantized a layer at a time) through its sparse-MoE layers, then
+latent arena, serves llama3-8b tensor-parallel on an in-process mesh (bf16
+over 4 shards, int4 with an int8 arena over 2), serves Mixtral-8x7B (full
+width and depth, int4 weights drawn and quantized a layer at a time)
+through its sparse-MoE layers, then
 trains Llama-3-8B widths at 4 layers, unsharded and then as ring attention
 over 4 sequence shards in one process.
 
@@ -195,6 +197,33 @@ Step graphs (phases 4, 7s, 7b, 7c, 7d). Each engine captures its decode
    f32 forward of the dequantized weights over unquantized K/V (its own
    limit, the same skipped-layer control), the gap to the bf16 engine's
    logits (information only), HTTP, drain with zero leaked pages;
+7t. tensor-parallel serving (in-process meshes: every shard on the one
+   card, each shard's kernels launched at its own widths). (a), with the
+   kernels of phase 3: ``int4_matmul_sharded`` (row 15) at llama3-8b's
+   projections out-sharded over 2 and 4 shards (a shard's wq/wo 4096 ->
+   2048 / 1024, wk/wv -> 512 / 256, gate/up -> 7168 / 3584, down 14336 ->
+   2048 / 1024, lm_head -> 64128 / 32064) at 8 and 1024 rows: one launch
+   for every shard against the plain version (row 13's tolerance), a
+   control with the shards' column blocks swapped that must miss, row 13
+   on the gathered weight (the same bytes where both split the groups
+   alike, else the split counts printed), times of the kernel, its bound,
+   the plain version, ``_weight_int4pack_mm`` on the gathered weight
+   (library) and once a shard, row 13 on the gathered weight and on one
+   shard's slice (what one rank of a multi-card deployment launches).
+   (c), before 7b, on phase 4's bf16 params: the engine the serve CLI
+   builds from ``--tensor-parallel 4`` (Hkv 8 -> 2 a shard; wo and w_down
+   row-parallel, their shards' partial sums added), its own copy of the
+   tree sharded; (b), after 7b, on 7b's quantized params: ``--int4
+   --kv-int8 --tensor-parallel 2``. Each: weight bytes (and a shard's),
+   arena pages (and a shard's page bytes), peak memory; the burst of phase
+   4, stretches and repeat with exact launches per step (the paged kernel
+   once a shard and layer; with int4 225 ``int4_matmul_sharded``, one a
+   projection, and no ``int4_matmul``); (g1)-(g5); the last-token logits
+   against the one-device engine's on the same weights within
+   ``TP_INT4_REL_L2_LIMIT`` / ``TP_BF16_REL_L2_LIMIT`` (set before the
+   first run), the independent check against the plain f32 forward at the
+   one-device engine's limit with its skipped-layer control; HTTP, drain
+   with zero leaked pages;
 7c. MLA engine: the engine the serve CLI builds from ``--model mla-8b``
    (8 slots, cache_len 2048, 16-token pages) over random bf16 weights from
    the same seed; its arena must be 2048 + 1 latent pages of 589,824 B;
@@ -300,7 +329,9 @@ engine's burst
 for ``paged_attention_multi_quant`` and ``int4_matmul``, the MLA engines'
 bursts for ``paged_attention_multi_mla`` and
 ``paged_attention_multi_mla_quant``, phase 7m's burst as ``serve_moe``
-for ``int4_expert_matmul``, the training run for the flash
+for ``int4_expert_matmul``, phase 7t (b)'s burst as ``serve_tp`` for
+``int4_matmul_sharded`` (beside 7t (c)'s as ``serve_tp4_bf16``), the
+training run for the flash
 kernels, beside the ring-train run as ``train_ring``; the single-token forms lie on no model path, in this port as in
 the JAX package, and count 0), the last line
 ``{"ok": true, "device": {...}}``. ``--out PATH`` also writes every
@@ -344,7 +375,8 @@ TENSOR_CORE_KERNELS = {
     "paged_attention_multi_mla": ("paged_attention_multi_mla_kernel",),
     "paged_attention_multi_mla_quant": (
         "paged_attention_multi_mla_quant_kernel",),
-    "int4_matmul": ("int4_matmul_kernel", "int4_expert_matmul_kernel")}
+    "int4_matmul": ("int4_matmul_kernel", "int4_expert_matmul_kernel",
+                    "int4_matmul_sharded_kernel")}
 INT4_DECODE_ROWS = 16
 # Kernel and plain version both compute in f32 and round once to bf16, so
 # they differ by at most one bf16 ulp of the output, which is <= 2^-7 |y|;
@@ -443,6 +475,21 @@ SPEC_K, SPEC_CHUNK = 4, 256
 SPEC_TIE_MARGIN = 0.35
 # the HF phase: llama3-8b widths at this depth, written and loaded back
 HF_LAYERS = 2
+# phase 7t: the tensor-parallel engines' last-token logits against the
+# one-device engine's on the same weights (relative L2). Set before the
+# first run. --int4 --kv-int8 at tensor 2: every int4 product is the
+# one-device engine's bytes wherever the sharded launch splits its groups
+# as row 13 does (every llama3-8b shape at a 500-token chunk), the
+# embedding is exact, and each shard's int8 paged kernel computes its heads
+# as the one-device launch does unless its split-KV plan differs; so 0, or
+# where a plan differs some bf16 roundings of attention in other places,
+# well under the bf16 engine's own 0.0588 off the f32 forward: 0.05. bf16
+# at tensor 4: the row-parallel products (wo, w_down) add four bf16
+# partials where one GEMM rounded once, and cuBLAS picks other algorithms
+# at a quarter of the widths, so every layer rounds in other places; at
+# most about the bf16 engine's distance to the f32 forward: 0.1
+TP_INT4_REL_L2_LIMIT = 0.05
+TP_BF16_REL_L2_LIMIT = 0.1
 # (g1)-(g3): the slots' contexts of the step graph checks (step_profile's
 # decode contexts; slot 0 is moved to cross a page between the two steps)
 GRAPH_LENGTHS = (402, 475, 468, 252, 411, 789, 881, 571)
@@ -530,10 +577,12 @@ def sass_counts(lib_path: str) -> dict:
 
 def tensor_core_ok(kernel: str, counts: dict) -> bool:
     """Whether a tensor-core kernel's SASS holds what its regime needs:
-    HGMMA, or for an ``int4_matmul_kernel<NR, ...>`` or
-    ``int4_expert_matmul_kernel<NR, ...>`` with NR <= INT4_DECODE_ROWS,
+    HGMMA, or for an ``int4_matmul_kernel<NR, ...>``,
+    ``int4_expert_matmul_kernel<NR, ...>`` or
+    ``int4_matmul_sharded_kernel<NR, ...>`` with NR <= INT4_DECODE_ROWS,
     HGMMA or HMMA."""
-    m = re.match(r"int4_(?:expert_)?matmul_kernel<(\d+),", kernel)
+    m = re.match(r"int4_(?:expert_)?matmul(?:_sharded)?_kernel<(\d+),",
+                 kernel)
     if m and int(m.group(1)) <= INT4_DECODE_ROWS:
         return counts["HGMMA"] + counts["HMMA"] > 0
     return counts["HGMMA"] > 0
@@ -1089,6 +1138,126 @@ def int4_case(torch, dev, flush, rows, kin, out, leaves):
         f"{rel:.2e}, per element {lib_share:.2f} of the tolerance), "
         f"yardstick (matmul by the dequantized bf16 weight) "
         f"{yardstick_ms:.4f} ms")
+    return rec
+
+
+# llama3-8b's projections out-sharded over a tensor mesh, a shard's slice:
+# (in, out a shard, leaves) at each degree
+INT4_SHARDED_SHAPES = {
+    n: [(4096, 4096 // n, "wq, wo"), (4096, 1024 // n, "wk, wv"),
+        (4096, 14336 // n, "w_gate, w_up"), (14336, 4096 // n, "w_down"),
+        (4096, 128256 // n, "lm_head")] for n in (2, 4)}
+
+
+def int4_sharded_case(torch, dev, flush, rows, shards, kin, out, leaves):
+    """``int4_matmul_sharded`` (row 15) at one shard's projection shape on
+    an in-process tensor mesh: a random (in, N * out) weight quantized by
+    the port's quantizer, its N out-slices stacked, bf16 activations; one
+    launch for every shard against the plain version (each shard's
+    ``int4_plain_rows``, gathered), with row 13's tolerance; a broken
+    control (every shard's columns written into its neighbour's block)
+    that must miss; row 13 on the gathered weight, which must give the
+    same bytes where both launches split the groups alike. Times: the
+    kernel; the plain version; the library's int4 GEMM on the gathered
+    weight (one ``_weight_int4pack_mm``, the same function); as yardsticks
+    ``_weight_int4pack_mm`` once a shard, row 13 on the gathered weight,
+    and row 13 on one shard's slice (what one rank of an N-card
+    deployment launches)."""
+    from k8s_runpod_kubelet_tpu_torch.models.quant import _quantize_leaf_int4
+    from k8s_runpod_kubelet_tpu_torch.ops import (int4_matmul,
+                                                  int4_matmul_sharded)
+    from k8s_runpod_kubelet_tpu_torch.ops.int4_matmul import (
+        _launchers, _sharded_launchers)
+    from k8s_runpod_kubelet_tpu_torch.parallel import MeshConfig, make_mesh
+
+    mesh = make_mesh(MeshConfig(tensor=shards))
+    gen = torch.Generator(device=dev).manual_seed(SEED + kin + out + shards)
+    w = torch.randn((kin, shards * out), generator=gen, device=dev) * 0.02
+    leaf = _quantize_leaf_int4(w)
+    del w
+    q4_all, scale_all = leaf["q4"], leaf["scale"]
+    q4 = q4_all.unflatten(1, (shards, out)).movedim(1, 0).contiguous()
+    scale = scale_all.unflatten(2, (shards, out)).movedim(2, 0).contiguous()
+    h = torch.randn((rows, kin), generator=gen, device=dev).bfloat16()
+    name = f"{rows} x ({kin} -> {shards} x {out}) [{leaves}]"
+    before = (int4_matmul.launches, int4_matmul_sharded.launches)
+    y = int4_matmul_sharded(h, q4, scale, mesh)
+    torch.cuda.synchronize()
+    if (int4_matmul.launches, int4_matmul_sharded.launches) != \
+            (before[0], before[1] + 1):
+        raise RuntimeError("int4_matmul_sharded did not launch its kernel "
+                           "once")
+    hf = h.float()
+    ref = torch.cat([int4_plain_rows(torch, hf, q4[s], scale[s])
+                     for s in range(shards)], dim=1)
+    err, share = tolerance_check(y, ref)
+    if share > 1:
+        raise RuntimeError(f"int4_matmul_sharded {name}: max abs err {err}, "
+                           f"{share:.2f}x the tolerance {TOLERANCE}")
+    rolled = y.view(rows, shards, out).roll(1, dims=1).reshape(rows, -1)
+    _, control_share = tolerance_check(rolled, ref)
+    if not control_share > 1:
+        raise RuntimeError(f"int4_matmul_sharded {name}: the control with "
+                           "the shards' blocks swapped passed the check")
+    del rolled, hf
+    g = scale.shape[1]
+    splits = _sharded_launchers()[1](shards, rows, out, g)
+    splits_13 = _launchers()[1](rows, shards * out, g)
+    y13 = int4_matmul(h, q4_all, scale_all)
+    same_bytes = bool(torch.equal(y, y13))
+    if splits == splits_13 and not same_bytes:
+        raise RuntimeError(f"int4_matmul_sharded {name}: split {splits} "
+                           "ways as row 13 on the gathered weight, yet "
+                           "other bytes")
+    why = ("" if splits == splits_13 else
+           f"; row 13 splits the groups {splits_13} ways over "
+           f"{-(-(shards * out) // 128)} column tiles, this launch "
+           f"{splits} ways over {shards} x {-(-out // 128)}: f32 sums in "
+           "another order")
+    del ref, y13
+    big = rows * kin * out * shards > 2**34
+    ms = time_ms(torch, lambda: int4_matmul_sharded(h, q4, scale, mesh),
+                 5 if big else 30, flush)
+    plain_ms = time_ms(torch, lambda: torch.cat(
+        [int4_plain_rows(torch, h, q4[s], scale[s]) for s in range(shards)],
+        dim=1), 2 if big else 5, flush)
+    library_ms = time_ms(torch, int4pack_call(torch, h, q4_all, scale_all),
+                         20, flush)
+    per_shard = [int4pack_call(torch, h, q4[s], scale[s])
+                 for s in range(shards)]
+    per_shard_ms = time_ms(torch, lambda: [c() for c in per_shard], 20,
+                           flush)
+    gathered_ms = time_ms(torch, lambda: int4_matmul(h, q4_all, scale_all),
+                          5 if big else 30, flush)
+    q40, scale0 = q4[0].contiguous(), scale[0].contiguous()
+    rank_ms = time_ms(torch, lambda: int4_matmul(h, q40, scale0),
+                      5 if big else 30, flush)
+    nbytes = q4.numel() + scale.numel() * 4 + h.numel() * 2 \
+        + rows * shards * out * 2
+    ops = 2 * rows * kin * out * shards
+    bound_ms, bound_by = bound(nbytes, ops, BF16_TENSOR_FLOPS)
+    rec = {"case": name, "rows": rows, "shards": shards, "in": kin,
+           "out_per_shard": out, "max_abs_err": err, "tolerance": TOLERANCE,
+           "tolerance_share": share,
+           "controls": {"blocks_swapped": {"tolerance_share": control_share}},
+           "splits": splits, "row13_splits": splits_13,
+           "same_bytes_as_row13": same_bytes, "ms": ms,
+           "plain_ms": plain_ms, "library_ms": library_ms,
+           "int4pack_per_shard_ms": per_shard_ms,
+           "row13_gathered_ms": gathered_ms, "row13_one_shard_ms": rank_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+           "ops": ops, "tflops": ops / ms / 1e9,
+           "gb_per_s": nbytes / ms / 1e6}
+    log(f"  int4_matmul_sharded {name}: max_abs_err {err:.3e} ({share:.2f} "
+        f"of {TOLERANCE}; control, shards' blocks swapped "
+        f"{control_share:.0f}); row 13 on the gathered weight: same bytes "
+        f"{same_bytes}{why}; kernel {ms:.4f} ms ({rec['tflops']:.1f} "
+        f"TFLOP/s, {rec['gb_per_s']:.0f} GB/s), bound {bound_ms:.4f} ms "
+        f"({bound_by}), plain {plain_ms:.3f} ms, library "
+        f"(_weight_int4pack_mm, gathered weight) {library_ms:.4f} ms; "
+        f"yardsticks: _weight_int4pack_mm a shard {per_shard_ms:.4f} ms, "
+        f"row 13 gathered {gathered_ms:.4f} ms, row 13 on one shard's "
+        f"slice {rank_ms:.4f} ms")
     return rec
 
 
@@ -3794,7 +3963,9 @@ def quant_engine_phase(torch, dev, card: str, cfg, params: list,
     against a plain f32 forward of the dequantized weights over
     unquantized K/V, the gap to the bf16 engine's logits (information
     only), HTTP, drain. ``params`` is a one-element list holding the bf16
-    tree, emptied once the engine holds its quantized copy."""
+    tree, emptied once the engine holds its quantized copy. Returns the
+    record, the engine's quantized tree and its one-chunk last-token logits
+    of the checked prompt (phase 7t's one-device side)."""
     from k8s_runpod_kubelet_tpu_torch.ops import (int4_matmul,
                                                   paged_attention,
                                                   paged_attention_multi,
@@ -3883,6 +4054,128 @@ def quant_engine_phase(torch, dev, card: str, cfg, params: list,
                    page_bytes=snap["prefix_cache"]["page_bytes"],
                    quantize_s=quant_s, serve_peak_bytes=serve_peak,
                    allocated_bytes=torch.cuda.memory_allocated())
+        return rec, engine.params, logits
+    finally:
+        engine.stop()
+
+
+def shard_bytes(tree, source, n: int) -> int:
+    """Bytes one shard of an in-process tensor mesh holds of ``tree``: the
+    N-th of a split leaf (one axis more than its ``source`` leaf), a
+    replicated leaf whole."""
+    if isinstance(tree, dict):
+        return sum(shard_bytes(v, source[k], n) for k, v in tree.items())
+    nbytes = tree.numel() * tree.element_size()
+    return nbytes // n if tree.dim() != source.dim() else nbytes
+
+
+def tp_engine_phase(torch, dev, card: str, cfg, params, one_logits,
+                    tensor: int, quant: bool) -> dict:
+    """Phase 7t (b) and (c): the engine the serve CLI builds from
+    ``--tensor-parallel N`` (with ``--int4 --kv-int8`` when ``quant``; 8
+    slots, cache_len 2048) on an in-process tensor mesh, over ``params``,
+    the one-device engine's tree (phase 7b's quantized tree, or phase 4's
+    bf16 tree), which stays whole: the engine shards its own copy of the
+    tree's dicts. The burst of phase 4 with exact launches per step (the
+    paged kernel once a shard and layer; with int4 ``int4_matmul_sharded``
+    once a projection and no ``int4_matmul``), memory (weights a shard,
+    arena, peak), (g1)-(g5), the last-token logits of the checked prompt
+    against ``one_logits`` (the one-device engine's, same weights) within
+    ``TP_INT4_REL_L2_LIMIT`` or ``TP_BF16_REL_L2_LIMIT``, the independent
+    check against the plain f32 forward of the same weights at the
+    one-device engine's limit, HTTP, drain."""
+    from k8s_runpod_kubelet_tpu_torch.ops import (int4_matmul,
+                                                  int4_matmul_sharded,
+                                                  paged_attention,
+                                                  paged_attention_multi,
+                                                  paged_attention_multi_quant,
+                                                  paged_attention_quant,
+                                                  rms_norm)
+    from k8s_runpod_kubelet_tpu_torch.workloads import serve_main
+
+    argv = ["--model", cfg.name, "--device", dev.type, "--slots", "8",
+            "--cache-len", "2048", "--max-new-tokens", "32",
+            "--tensor-parallel", str(tensor)]
+    if quant:
+        argv += ["--int4", "--kv-int8"]
+    what = f"tensor {tensor} {'int4/int8' if quant else 'bf16'} engine"
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    tree = {k: dict(v) if isinstance(v, dict) else v
+            for k, v in params.items()}
+    engine, _ = serve_main.build_engine(serve_main.parse_args(argv), tree)
+    del tree
+    torch.cuda.synchronize()
+    shard_s = time.perf_counter() - t0
+    try:
+        snap = engine.debug_snapshot()
+        if snap["paged_tp_shards"] != tensor \
+                or snap["kv_arena_shards"] != tensor \
+                or engine.sc.quantize_int4 != quant:
+            raise RuntimeError(f"{argv} built {engine.sc}, {snap}")
+        weights = tensor_bytes(engine.params)
+        per_shard = shard_bytes(engine.params, params, tensor)
+        arena = tensor_bytes(engine._kv_store.arena)
+        log(f"  {what} (--tensor-parallel {tensor} in one process): weights "
+            f"{weights / 1e9:.3f} GB, {per_shard / 1e9:.3f} GB a shard; "
+            f"arena {engine._kv_store.pool.n_pages} pages of "
+            f"{snap['prefix_cache']['page_bytes']} bytes "
+            f"({snap['prefix_cache']['page_bytes_per_shard']} a shard), "
+            f"{arena / 1e9:.3f} GB; sharded in {shard_s:.1f} s; [{card}] "
+            f"allocated {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+            f"(the one-device tree kept), peak while sharding "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (from "
+            f"{before / 2**30:.2f} GiB)")
+        torch.cuda.reset_peak_memory_stats()
+        attn = paged_attention_multi_quant if quant else paged_attention_multi
+        other = paged_attention_multi if quant else \
+            paged_attention_multi_quant
+        per_step = {attn.__name__: tensor * cfg.n_layers,
+                    "int4_matmul_sharded": (7 * cfg.n_layers + 1) if quant
+                    else 0,
+                    "int4_matmul": 0, "rms_norm": 2 * cfg.n_layers + 1,
+                    other.__name__: 0, "paged_attention": 0,
+                    "paged_attention_quant": 0}
+        rec = serve_burst(torch, engine, cfg, card,
+                          (attn, int4_matmul_sharded, int4_matmul, rms_norm,
+                           other, paged_attention, paged_attention_quant),
+                          per_step)
+        serve_peak = torch.cuda.max_memory_allocated()
+        log(f"  [{card}] peak allocated while serving "
+            f"{serve_peak / 2**30:.2f} GiB")
+        prompts = rec.pop("prompts")
+        limit = QUANT_ENGINE_REL_L2_LIMIT if quant else ENGINE_REL_L2_LIMIT
+        tp_limit = TP_INT4_REL_L2_LIMIT if quant else TP_BF16_REL_L2_LIMIT
+        with engine._prefix_lock:   # the engine is idle; keep it so
+            rec["graphs"] = graph_checks(torch, engine, card, limit, what)
+            logits = quant_logits(torch, engine.model, engine.params,
+                                  prompts[2], kv_int8=quant)
+            reference = engine_reference_check(torch, cfg, params,
+                                               prompts[2], logits,
+                                               limit=limit, what=what)
+        one = one_logits.to(logits.device)
+        gap = {"rel_l2": ((logits - one).norm() / one.norm()).item(),
+               "max_abs_diff": (logits - one).abs().max().item(),
+               "identical": bool(torch.equal(logits, one)),
+               "argmax_agree": bool(logits.argmax() == one.argmax()),
+               "limit_rel_l2": tp_limit}
+        log(f"  {what} vs the one-device engine on the same weights, "
+            f"last-token logits of a {len(prompts[2])}-token chunk: "
+            f"relative L2 {gap['rel_l2']:.4f} (limit {tp_limit}), max abs "
+            f"{gap['max_abs_diff']:.4f}, identical {gap['identical']}, "
+            f"argmax agree {gap['argmax_agree']}")
+        if not gap["rel_l2"] <= tp_limit:
+            raise RuntimeError(f"{what} off the one-device engine: {gap}")
+        rec.update(http_and_drain(engine, rec.pop("prompt")),
+                   reference=reference, gap_to_one_device=gap,
+                   weight_bytes=weights, weight_bytes_per_shard=per_shard,
+                   arena_bytes=arena,
+                   page_bytes=snap["prefix_cache"]["page_bytes"],
+                   page_bytes_per_shard=snap["prefix_cache"]
+                   ["page_bytes_per_shard"], shard_s=shard_s,
+                   serve_peak_bytes=serve_peak)
         return rec
     finally:
         engine.stop()
@@ -4231,6 +4524,14 @@ def main(argv=None) -> int:
                     for kin, out, leaves in INT4_EXPERT_SHAPES]
     gc.collect()
     torch.cuda.empty_cache()
+    log("phase 7t (a): int4_matmul_sharded (row 15) on in-process tensor "
+        "meshes of 2 and 4 shards")
+    int4_sharded = [int4_sharded_case(torch, dev, flush, rows, n, kin, out,
+                                      leaves)
+                    for n in (2, 4) for rows in (8, 1024)
+                    for kin, out, leaves in INT4_SHARDED_SHAPES[n]]
+    gc.collect()
+    torch.cuda.empty_cache()
     rms = [rms_case(torch, F, dev, flush, (rows, 4096)) for rows in (8, 1024)]
     # the training path's shape: x (8, 2048, 4096) needing gradients
     rms.append(rms_case(torch, F, dev, flush, (8, 2048, 4096), grad=True))
@@ -4281,12 +4582,28 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    log("phase 7t (c): tensor-parallel engine (llama3-8b bf16 "
+        "--tensor-parallel 4 in one process, 8 slots, cache_len 2048)")
+    tp_bf16 = tp_engine_phase(torch, dev, card, cfg, params, bf16_logits,
+                              tensor=4, quant=False)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     log("phase quantized engine (llama3-8b --int4 --kv-int8, 8 slots, "
         "cache_len 2048)")
     box = [params]
     del params
-    qeng = quant_engine_phase(torch, dev, card, cfg, box, eng, bf16_logits)
+    qeng, qparams, qlogits = quant_engine_phase(torch, dev, card, cfg, box,
+                                                eng, bf16_logits)
     del box, bf16_logits
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log("phase 7t (b): tensor-parallel engine (llama3-8b --int4 --kv-int8 "
+        "--tensor-parallel 2 in one process, 8 slots, cache_len 2048)")
+    tp_int4 = tp_engine_phase(torch, dev, card, cfg, qparams, qlogits,
+                              tensor=2, quant=True)
+    del qparams, qlogits
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -4343,6 +4660,7 @@ def main(argv=None) -> int:
         return [{"case": c["case"], **c["kernels"][kname]} for c in flash]
 
     serve_launches, quant_launches = eng["launches"], qeng["launches"]
+    tp_launches, tp4_launches = tp_int4["launches"], tp_bf16["launches"]
     moe_launches = moe["launches"]
     spec_launches = spec["runs"]["speculative"]["counts"]
     mla_launches, mla_q_launches = mla_eng["launches"], mla_q["launches"]
@@ -4359,7 +4677,9 @@ def main(argv=None) -> int:
                 "serve_openai": openai["launches"]["paged_attention_multi"],
                 "serve_int4_kv_int8":
                     quant_launches["paged_attention_multi"],
-                "serve_moe": moe_launches["paged_attention_multi"]}, sdpa),
+                "serve_moe": moe_launches["paged_attention_multi"],
+                "serve_tp4_bf16": tp4_launches["paged_attention_multi"],
+                "serve_tp": tp_launches["paged_attention_multi"]}, sdpa),
         record("rms_norm", "triton",
                "k8s_runpod_kubelet_tpu_torch/ops/rmsnorm.py",
                "k8s_runpod_kubelet_tpu/ops/rmsnorm.py:80", rms,
@@ -4371,6 +4691,8 @@ def main(argv=None) -> int:
                 "serve_mla_kv_int8": mla_q_launches["rms_norm"],
                 "serve_openai": openai["launches"]["rms_norm"],
                 "serve_moe": moe_launches["rms_norm"],
+                "serve_tp": tp_launches["rms_norm"],
+                "serve_tp4_bf16": tp4_launches["rms_norm"],
                 "train": train["launches"]["rms_norm"],
                 "train_ring": ring_train["launches"]["rms_norm"]},
                "F.rms_norm, bf16 weight"),
@@ -4393,17 +4715,28 @@ def main(argv=None) -> int:
                attn["paged_attention_multi_quant"],
                quant_launches["paged_attention_multi_quant"],
                {"serve_int4_kv_int8":
-                    quant_launches["paged_attention_multi_quant"]},
+                    quant_launches["paged_attention_multi_quant"],
+                "serve_tp": tp_launches["paged_attention_multi_quant"]},
                sdpa + " (a yardstick: no single PyTorch call reads int8 "
                "pages)"),
         record("int4_matmul", "cuda", csrc + "int4_matmul.cu",
                "k8s_runpod_kubelet_tpu/ops/int4_matmul.py:64", int4,
                quant_launches["int4_matmul"],
                {"serve_int4_kv_int8": quant_launches["int4_matmul"],
-                "serve_moe": moe_launches["int4_matmul"]},
+                "serve_moe": moe_launches["int4_matmul"],
+                "serve_tp": tp_launches["int4_matmul"]},
                "torch.ops.aten._weight_int4pack_mm on the same nibbles and "
                "bf16 group scales (yardstick_ms: torch.matmul by the "
                "dequantized bf16 weight)"),
+        record("int4_matmul_sharded", "cuda", csrc + "int4_matmul.cu",
+               "k8s_runpod_kubelet_tpu/ops/int4_matmul.py:157", int4_sharded,
+               tp_launches["int4_matmul_sharded"],
+               {"serve_tp": tp_launches["int4_matmul_sharded"],
+                "serve_tp4_bf16": tp4_launches["int4_matmul_sharded"]},
+               "torch.ops.aten._weight_int4pack_mm on the gathered weight "
+               "(the same function; yardsticks: the same call once a "
+               "shard, int4_matmul on the gathered weight and on one "
+               "shard's slice)"),
         record("int4_expert_matmul", "cuda", csrc + "int4_matmul.cu",
                "k8s_runpod_kubelet_tpu/ops/int4_matmul.py:181",
                int4_experts, moe_launches["int4_expert_matmul"],
@@ -4470,6 +4803,8 @@ def main(argv=None) -> int:
                        "spec_engine": spec, "openai": openai,
                        "hf_load": hf,
                        "quant_engine": qeng, "mla_engine": mla_eng,
+                       "int4_sharded": int4_sharded,
+                       "tp_engine_int4": tp_int4, "tp_engine_bf16": tp_bf16,
                        "mla_kv_int8_engine": mla_q, "moe_engine": moe,
                        "train": train, "ring_train": ring_train,
                        "train_main": train_cli,

@@ -62,6 +62,20 @@
 // hold the launch. What bounds it: at decode the bytes of the experts that
 // hold a row (Mixtral: 235 MB an expert and projection); at prefill the
 // filled rows' operations (2048 of 8 x 1024 rows at a 1024-token chunk).
+//
+// int4_matmul_sharded_kernel replaces int4_matmul_sharded (:157), the
+// TPU kernel run per tensor-parallel shard under shard_map on out-sharded
+// weights: q4 (N, in/2, out/N) and scale (N, g, 1, out/N), each shard's
+// slice contiguous, as one rank of an N-way deployment holds it. One
+// launch runs every shard: the shard is blockIdx.y / splits, as the expert
+// is in the expert kernel; every shard reads the same h (the activations
+// replicate going in, as under shard_map), and shard s writes its columns
+// straight into block s of the gathered (rows, N * out/N) output (the
+// tile's row stride ldy is N * out/N), so the all-gather that follows
+// shard_map's out-sharded result costs nothing in one process. Split
+// partials take the same gathered layout, so the reduce is the dense
+// one's. What bounds it: the dense kernel's bytes and operations, split
+// over the shards (their sum is the unsharded weight's).
 
 #include "attention_tile_sm90.cuh"
 
@@ -106,14 +120,14 @@ __device__ __forceinline__ uint32_t nibbles_bf16(uint32_t w) {
 // One block's tile: NR rows from blockIdx.x, kBN columns from blockIdx.z,
 // the groups of slice `split` of `splits`. Rows at or past `live` read zeros
 // in place of h (a tile that starts there reads nothing and writes zeros);
-// every row below `rows` is written. Split partials are `split_stride` f32
-// apart.
+// every row below `rows` is written, at row stride `ldy` in y and in each
+// split's partials, which are `split_stride` f32 apart.
 template <int NR, int STAGES>
 __device__ __forceinline__ void int4_tile(
     const bf16* __restrict__ h, const uint8_t* __restrict__ q4,
     const float* __restrict__ scale, bf16* __restrict__ y,
     float* __restrict__ partial, size_t split_stride, int rows, int live,
-    int kin, int out, int groups, int splits, int split) {
+    int kin, int out, int ldy, int groups, int splits, int split) {
   using namespace tile90;
   extern __shared__ __align__(1024) unsigned char smem[];
   const uint32_t raw = smem_addr(smem);
@@ -251,10 +265,10 @@ __device__ __forceinline__ void int4_tile(
       const float v0 = acc[n8 * 4 + j], v1 = acc[n8 * 4 + 2 + j];
       if (splits > 1)
         *reinterpret_cast<float2*>(partial + split * split_stride +
-                                   (size_t)r * out + col) =
+                                   (size_t)r * ldy + col) =
             make_float2(v0, v1);
       else
-        *reinterpret_cast<__nv_bfloat162*>(y + (size_t)r * out + col) =
+        *reinterpret_cast<__nv_bfloat162*>(y + (size_t)r * ldy + col) =
             __floats2bfloat162_rn(v0, v1);
     }
 }
@@ -266,7 +280,7 @@ int4_matmul_kernel(const bf16* __restrict__ h, const uint8_t* __restrict__ q4,
                    float* __restrict__ partial, int rows, int kin, int out,
                    int groups, int splits) {
   int4_tile<NR, STAGES>(h, q4, scale, y, partial, size_t(rows) * out, rows,
-                        rows, kin, out, groups, splits, blockIdx.y);
+                        rows, kin, out, out, groups, splits, blockIdx.y);
 }
 
 // X experts' products in one launch: h (X, rows, kin), q4 (X, kin/2, out),
@@ -287,7 +301,27 @@ int4_expert_matmul_kernel(const bf16* __restrict__ h,
                         q4 + size_t(ex) * (kin / 2) * out,
                         scale + size_t(ex) * groups * out, y + ex * mat,
                         partial + ex * mat, size_t(experts) * mat, rows, live,
-                        kin, out, groups, splits, blockIdx.y % splits);
+                        kin, out, out, groups, splits, blockIdx.y % splits);
+}
+
+// N tensor-parallel shards' products in one launch: h (rows, kin) shared,
+// q4 (N, kin/2, out), scale (N, groups, 1, out), y (rows, N * out) with
+// shard s's columns at s * out.
+template <int NR, int STAGES>
+__global__ void __launch_bounds__(kThreads, NR <= kDecodeRows ? 2 : 1)
+int4_matmul_sharded_kernel(const bf16* __restrict__ h,
+                           const uint8_t* __restrict__ q4,
+                           const float* __restrict__ scale,
+                           bf16* __restrict__ y, float* __restrict__ partial,
+                           int shards, int rows, int kin, int out, int groups,
+                           int splits) {
+  const int sh = blockIdx.y / splits;
+  const int ldy = shards * out;
+  int4_tile<NR, STAGES>(h, q4 + size_t(sh) * (kin / 2) * out,
+                        scale + size_t(sh) * groups * out, y + size_t(sh) * out,
+                        partial + size_t(sh) * out, size_t(rows) * ldy, rows,
+                        rows, kin, out, ldy, groups, splits,
+                        blockIdx.y % splits);
 }
 
 // y = bf16(sum over splits of the f32 partials), four elements a thread
@@ -314,43 +348,49 @@ __global__ void int4_matmul_reduce_kernel(const float* __restrict__ partial,
   }
 }
 
-// Launches the dense kernel (experts == 0) or the expert kernel over
-// `experts` stacked problems; then, when the groups were split, the reduce.
+// What a launch runs: one product, X stacked experts' products (each its
+// own h and y), or N tensor-parallel shards' products (one h, y gathered).
+enum class Mode { kDense, kExperts, kShards };
+
+// Launches the kernel of `mode` over `stacked` problems (1 when dense);
+// then, when the groups were split, the reduce, which covers the whole y
+// in every mode.
 template <int NR, int STAGES>
-int launch(const void* h, const void* q4, const void* scale,
-           const int* counts, void* y, void* partial, int experts, int rows,
+int launch(Mode mode, const void* h, const void* q4, const void* scale,
+           const int* counts, void* y, void* partial, int stacked, int rows,
            int kin, int out, int groups, int splits, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<NR, STAGES>();
   auto dense = int4_matmul_kernel<NR, STAGES>;
-  auto stacked = int4_expert_matmul_kernel<NR, STAGES>;
-  cudaError_t err =
-      experts == 0
-          ? cudaFuncSetAttribute(dense,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 int(smem))
-          : cudaFuncSetAttribute(stacked,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 int(smem));
+  auto experts = int4_expert_matmul_kernel<NR, STAGES>;
+  auto shards = int4_matmul_sharded_kernel<NR, STAGES>;
+  const void* fn = mode == Mode::kDense     ? (const void*)dense
+                   : mode == Mode::kExperts ? (const void*)experts
+                                            : (const void*)shards;
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   // row tiles fastest: the blocks that share a column tile's weights run
   // together, so the weights come from device memory about once
-  const dim3 grid((rows + NR - 1) / NR, (experts > 0 ? experts : 1) * splits,
+  const dim3 grid((rows + NR - 1) / NR, stacked * splits,
                   (out + kBN - 1) / kBN);
   const bf16* hh = static_cast<const bf16*>(h);
   const uint8_t* qq = static_cast<const uint8_t*>(q4);
   const float* ss = static_cast<const float*>(scale);
   bf16* yy = static_cast<bf16*>(y);
   float* pp = static_cast<float*>(partial);
-  if (experts == 0)
+  if (mode == Mode::kDense)
     dense<<<grid, kThreads, smem, stream>>>(hh, qq, ss, yy, pp, rows, kin,
                                             out, groups, splits);
-  else
-    stacked<<<grid, kThreads, smem, stream>>>(hh, qq, ss, counts, yy, pp,
-                                              experts, rows, kin, out,
+  else if (mode == Mode::kExperts)
+    experts<<<grid, kThreads, smem, stream>>>(hh, qq, ss, counts, yy, pp,
+                                              stacked, rows, kin, out,
                                               groups, splits);
+  else
+    shards<<<grid, kThreads, smem, stream>>>(hh, qq, ss, yy, pp, stacked,
+                                             rows, kin, out, groups, splits);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
-  const size_t n = size_t(experts > 0 ? experts : 1) * rows * out;
+  const size_t n = size_t(stacked) * rows * out;
   const int blocks = static_cast<int>(
       n / 1024 + 1 < 4096 ? n / 1024 + 1 : 4096);
   int4_matmul_reduce_kernel<<<blocks, 256, 0, stream>>>(pp, yy, splits, n);
@@ -382,30 +422,29 @@ int choose_splits(int stacked, int rows, int out, int groups) {
   return (groups + per - 1) / per;
 }
 
-// the shapes both entries take: a group a multiple of 16 in-elements (the
+// the shapes every entry takes: a group a multiple of 16 in-elements (the
 // k16 steps), out a multiple of 16
 bool takes(int kin, int out, int groups) {
   return kin > 0 && groups > 0 && kin % groups == 0 &&
          (kin / groups) % 16 == 0 && out % 16 == 0;
 }
 
-int run(const void* h, const void* q4, const void* scale, const int* counts,
-        void* y, void* partial, int experts, int rows, int kin, int out,
-        int groups, void* stream) {
+int run(Mode mode, const void* h, const void* q4, const void* scale,
+        const int* counts, void* y, void* partial, int stacked, int rows,
+        int kin, int out, int groups, void* stream) {
   if (rows == 0 || out == 0) return 0;
   if (!takes(kin, out, groups))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int splits =
-      choose_splits(experts > 0 ? experts : 1, rows, out, groups);
-  if ((experts > 0 ? experts : 1) * splits > 65535)  // gridDim.y
+  const int splits = choose_splits(stacked, rows, out, groups);
+  if (stacked * splits > 65535)  // gridDim.y
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return rows <= kDecodeRows
-             ? launch<kDecodeRows, 8>(h, q4, scale, counts, y, partial,
-                                      experts, rows, kin, out, groups,
+             ? launch<kDecodeRows, 8>(mode, h, q4, scale, counts, y, partial,
+                                      stacked, rows, kin, out, groups,
                                       splits, s)
-             : launch<128, 4>(h, q4, scale, counts, y, partial, experts,
-                              rows, kin, out, groups, splits, s);
+             : launch<128, 4>(mode, h, q4, scale, counts, y, partial,
+                              stacked, rows, kin, out, groups, splits, s);
 }
 
 }  // namespace
@@ -433,8 +472,8 @@ extern "C" int int4_matmul_bf16(const void* h, const void* q4,
                                 const void* scale, void* y, void* partial,
                                 int rows, int kin, int out, int groups,
                                 void* stream) {
-  return run(h, q4, scale, nullptr, y, partial, 0, rows, kin, out, groups,
-             stream);
+  return run(Mode::kDense, h, q4, scale, nullptr, y, partial, 1, rows, kin,
+             out, groups, stream);
 }
 
 // The expert entry: h (experts, rows, kin) bf16, q4 (experts, kin/2, out)
@@ -449,6 +488,26 @@ extern "C" int int4_expert_matmul_bf16(const void* h, const void* q4,
                                        int rows, int kin, int out, int groups,
                                        void* stream) {
   if (experts <= 0) return experts == 0 ? 0 : int(cudaErrorInvalidValue);
-  return run(h, q4, scale, static_cast<const int*>(counts), y, partial,
-             experts, rows, kin, out, groups, stream);
+  return run(Mode::kExperts, h, q4, scale, static_cast<const int*>(counts),
+             y, partial, experts, rows, kin, out, groups, stream);
+}
+
+extern "C" int int4_matmul_sharded_splits(int shards, int rows, int out,
+                                          int groups) {
+  return choose_splits(shards, rows, out, groups);
+}
+
+// The tensor-parallel entry: h (rows, kin) bf16, q4 (shards, kin/2, out)
+// uint8 and scale (shards, groups, 1, out) f32, each shard's out columns;
+// y (rows, shards * out) bf16, shard s's columns at s * out; partial an f32
+// (splits, rows, shards * out) scratch when int4_matmul_sharded_splits is
+// above 1. Returns 0 or a cudaError_t code.
+extern "C" int int4_matmul_sharded_bf16(const void* h, const void* q4,
+                                        const void* scale, void* y,
+                                        void* partial, int shards, int rows,
+                                        int kin, int out, int groups,
+                                        void* stream) {
+  if (shards <= 0) return int(cudaErrorInvalidValue);
+  return run(Mode::kShards, h, q4, scale, nullptr, y, partial, shards, rows,
+             kin, out, groups, stream);
 }

@@ -19,6 +19,19 @@ Serving may also hold quantized matmul weights (``models/quant.py``):
 ``{"q8", "scale"}`` and ``{"q4", "scale"}`` dict leaves, which ``_mm``
 multiplies by (int4 through the ``int4_matmul`` kernel).
 
+Under a mesh with ``tensor`` = N > 1 (``parallel.Mesh``) the model serves
+tensor-parallel, as the JAX model does under a mesh with a ``tensor`` axis:
+its tree is laid out by ``parallel.shard_params`` (in one process each
+split leaf stacks the N shards' slices, over a process group it is the
+rank's slice). Activations stay whole between the ops: a column-split
+product (wq, wk, wv, w_gate, w_up, the LM head; every int4 leaf, through
+``int4_matmul_sharded``) gathers its shards' outputs, a row-split one (wo
+and w_down in bf16 and int8) adds its shards' partial sums, the psum; the
+embedding adds each shard's gather from its own vocab rows, other rows
+zero, which equals the JAX model's one-hot contraction. The paged arena
+shards its kv-head axis when ``paged_head_shards`` says so (each shard's
+kernels then launch on its own contiguous arena), else it replicates.
+
 A sparse-MoE config (``n_experts`` > 0, Mixtral) holds ``router`` (L, E, X)
 in f32, as the JAX model routes in f32, and ``we_gate``/``we_up`` (L, X, E,
 M) and ``we_down`` (L, X, M, E) in place of the dense MLP's three leaves;
@@ -27,7 +40,12 @@ experts through the ``int4_expert_matmul`` kernel).
 
 The arena is ``{"k", "v"}`` of shape (L, P + 1, T, Hkv, D) and is updated
 IN PLACE (the JAX model donated it instead); an int8 arena adds
-``k_scale``/``v_scale`` (L, P + 1, T, Hkv) f32. An MLA model's arena is
+``k_scale``/``v_scale`` (L, P + 1, T, Hkv) f32. A head-sharded arena holds
+Hkv/N heads: in one process its sections are (N·L, P + 1, T, Hkv/N, ...),
+the (N, L, ...) stack of the shards' arenas with its two leading axes
+merged, so that every (shard, layer) slice is one contiguous arena and the
+page axis stays axis 1 for the pool's copies; over a process group they
+are the rank's (L, P + 1, T, Hkv/N, ...). An MLA model's arena is
 headless: ``{"c", "kr"}`` of shape (L, P + 1, T, r) and (L, P + 1, T, dr),
 the normed latent and the shared rotated rope key of each position, plus
 ``c_scale``/``kr_scale`` (L, P + 1, T) f32 when int8. Page P is a sink no
@@ -49,10 +67,14 @@ import torch.utils.checkpoint
 
 from ..device import resolve_device
 from ..ops import (apply_rope, flash_attention, int4_matmul,
-                   paged_attention_multi, paged_attention_multi_mla,
-                   paged_attention_multi_mla_quant,
+                   int4_matmul_sharded, paged_attention_multi,
+                   paged_attention_multi_mla, paged_attention_multi_mla_quant,
                    paged_attention_multi_quant, rms_norm, rope_frequencies)
+from ..ops.attention import paged_head_shards
 from ..ops.ring_attention import ring_attention
+from ..parallel.sharding import (all_gather, all_reduce,
+                                 check_tensor_parallel, param_logical_axes,
+                                 tensor_axis)
 from .moe import moe_mlp
 
 Params = dict[str, Any]
@@ -272,6 +294,45 @@ def _mm(h: torch.Tensor, w, dtype: torch.dtype) -> torch.Tensor:
     return h @ w if w.dtype == dtype else h @ w.to(dtype)
 
 
+def _mm_tp(h: torch.Tensor, w, kind: str, mesh, dtype: torch.dtype
+           ) -> torch.Tensor:
+    """h (..., in) @ a leaf split over ``mesh``'s tensor axis, whole: for
+    ``kind`` "col" (out split) the shards' outputs gathered in shard order,
+    for "row" (contraction split) their partial sums added, the psum that
+    follows a row-parallel product. An int4 leaf is out-split whatever its
+    base weight (``int4_matmul_sharded``); an int8 leaf's scale multiplies
+    the whole product, its own shard's columns or the summed rows. In one
+    process w stacks the shards on its leading axis; over a process group
+    it is the rank's slice and the collectives run over the group."""
+    if isinstance(w, dict) and "q4" in w:
+        return int4_matmul_sharded(h.to(dtype), w["q4"], w["scale"], mesh)
+    q8 = isinstance(w, dict)
+    wt = (w["q8"] if q8 else w).to(dtype)
+    h2 = h.reshape(-1, h.shape[-1])
+    if kind == "col":
+        if mesh.in_process:
+            y = torch.matmul(h2, wt)                   # (N, M, out/N)
+            if q8:
+                y = y * w["scale"].to(dtype)
+            y = y.transpose(0, 1).reshape(h2.shape[0], -1)
+        else:
+            y = h2 @ wt
+            if q8:
+                y = y * w["scale"].to(dtype)
+            y = all_gather(y, -1, mesh)
+    else:
+        k = h2.shape[1] // mesh.tensor
+        if mesh.in_process:
+            y = torch.matmul(h2.view(-1, mesh.tensor, k).transpose(0, 1),
+                             wt).sum(0)
+        else:
+            y = all_reduce(h2[:, mesh.rank * k:(mesh.rank + 1) * k] @ wt,
+                           mesh)
+        if q8:
+            y = y * w["scale"].to(dtype)
+    return y.reshape(*h.shape[:-1], y.shape[-1])
+
+
 def _at(w, layer: int):
     """Layer ``layer`` of a stacked leaf, raw or quantized."""
     if isinstance(w, dict):
@@ -343,13 +404,24 @@ class LlamaModel:
     per-model arena. ``device`` defaults to ``cuda`` and raises without a
     card. ``mesh`` (``parallel.Mesh``) with seq > 1 sends the forward's
     attention through ``ring_attention``, as the JAX model does under a
-    mesh with a ``seq`` axis; the serving steps take no mesh."""
+    mesh with a ``seq`` axis; with tensor > 1 every step runs
+    tensor-parallel over a tree from ``parallel.shard_params`` (the module
+    docstring). MLA and MoE configs raise under tensor > 1."""
 
     def __init__(self, cfg: LlamaConfig, device=None, mesh=None):
         cfg.validate_mla()
         self.cfg = cfg
         self.device = resolve_device(device)
         self.mesh = mesh
+        self.tp = mesh.tensor if mesh is not None else 1
+        check_tensor_parallel(cfg, self.tp)
+        # "col" (out split) or "row" (contraction split) for each matmul
+        # leaf the tensor axis splits
+        self._split = {"lm_head": "col"}
+        for name, ax in param_logical_axes(cfg)["layers"].items():
+            i = tensor_axis(ax)
+            if i is not None:
+                self._split[name] = "col" if i == len(ax) - 1 else "row"
         # MLA rotates only the decoupled rope part of q and its shared key
         rope_dim = cfg.mla_rope_dim if cfg.is_mla else cfg.head_dim_
         self.cos, self.sin = rope_frequencies(
@@ -388,7 +460,7 @@ class LlamaModel:
             b, s = tokens.shape
             positions = (mesh.rank * s + torch.arange(
                 s, device=tokens.device)).expand(b, s)
-        x = params["tok_embed"][tokens.long()].to(cfg.dtype)
+        x = self._embed(params, tokens)
         # one unbind per stacked leaf: its backward stacks the L layer
         # gradients once (a quantized leaf is sliced per layer)
         layers = {name: ([_at(leaf, i) for i in range(cfg.n_layers)]
@@ -406,9 +478,7 @@ class LlamaModel:
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         if return_hidden:
             return x
-        if cfg.tie_embeddings:
-            return x @ params["tok_embed"].t().to(cfg.dtype)
-        return _mm(x, params["lm_head"], cfg.dtype)
+        return self._lm_head(params, x)
 
     def _layer(self, x: torch.Tensor, lp: Params,
                positions: Optional[torch.Tensor],
@@ -422,9 +492,9 @@ class LlamaModel:
         b, s, _ = x.shape
         hd, dt = cfg.head_dim_, cfg.dtype
         h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-        q = _mm(h, lp["wq"], dt).reshape(b, s, cfg.n_heads, hd)
-        k = _mm(h, lp["wk"], dt).reshape(b, s, cfg.n_kv_heads, hd)
-        v = _mm(h, lp["wv"], dt).reshape(b, s, cfg.n_kv_heads, hd)
+        q = self._proj(h, lp["wq"], "wq").reshape(b, s, cfg.n_heads, hd)
+        k = self._proj(h, lp["wk"], "wk").reshape(b, s, cfg.n_kv_heads, hd)
+        v = self._proj(h, lp["wv"], "wv").reshape(b, s, cfg.n_kv_heads, hd)
         q = apply_rope(q, self.cos, self.sin, positions)
         k = apply_rope(k, self.cos, self.sin, positions)
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
@@ -433,11 +503,72 @@ class LlamaModel:
                                sm_scale=cfg.sm_scale,
                                use_flash=cfg.ring_flash)
         else:
-            o = flash_attention(qt, kt, vt, causal=True,
-                                sm_scale=cfg.sm_scale)
+            o = self._flash(qt, kt, vt)
         o = o.transpose(1, 2).reshape(b, s, cfg.n_heads * hd)
-        x = self._mlp(x + _mm(o, lp["wo"], dt), lp, train)
+        x = self._mlp(x + self._proj(o, lp["wo"], "wo"), lp, train)
         return (x, k, v) if return_kv else x
+
+    def _flash(self, qt, kt, vt) -> torch.Tensor:
+        """Causal flash attention of (B, H, S, D) heads; in one process
+        under a tensor mesh whose degree divides both head counts, one
+        launch per shard on its q-head block and kv-head block, as each
+        shard runs it."""
+        cfg = self.cfg
+        n = (paged_head_shards(self.tp, cfg.n_heads, cfg.n_kv_heads)
+             if self.mesh is not None and self.mesh.in_process else 1)
+        if n == 1:
+            return flash_attention(qt, kt, vt, causal=True,
+                                   sm_scale=cfg.sm_scale)
+        hq, hk = cfg.n_heads // n, cfg.n_kv_heads // n
+        return torch.cat([flash_attention(
+            qt[:, s * hq:(s + 1) * hq].contiguous(),
+            kt[:, s * hk:(s + 1) * hk].contiguous(),
+            vt[:, s * hk:(s + 1) * hk].contiguous(), causal=True,
+            sm_scale=cfg.sm_scale) for s in range(n)], dim=1)
+
+    def _proj(self, h: torch.Tensor, w, name: str) -> torch.Tensor:
+        """h @ leaf ``name`` (raw or quantized, one layer's) in the compute
+        dtype: ``_mm``, or under a tensor mesh ``_mm_tp`` for a leaf the
+        tensor axis splits."""
+        kind = self._split.get(name) if self.tp > 1 else None
+        if kind is None:
+            return _mm(h, w, self.cfg.dtype)
+        return _mm_tp(h, w, kind, self.mesh, self.cfg.dtype)
+
+    def _embed(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
+        """The embedding rows of ``tokens`` in the compute dtype. Under a
+        tensor mesh each shard gathers from its own vocab rows, other rows
+        zero, and the shards' rows add up: the JAX model's one-hot
+        contraction over a vocab-sharded table, exactly."""
+        table, dt = params["tok_embed"], self.cfg.dtype
+        tok = tokens.long()
+        if self.tp == 1:
+            return table[tok].to(dt)
+
+        def part(t: torch.Tensor, shard: int) -> torch.Tensor:
+            local = tok - shard * t.shape[0]
+            ok = (local >= 0) & (local < t.shape[0])
+            rows = t[local.clamp(0, t.shape[0] - 1)].to(dt)
+            return torch.where(ok[..., None], rows,
+                               torch.zeros((), dtype=dt, device=rows.device))
+
+        if not self.mesh.in_process:
+            return all_reduce(part(table, self.mesh.rank), self.mesh)
+        x = part(table[0], 0)
+        for shard in range(1, self.tp):
+            x = x + part(table[shard], shard)
+        return x
+
+    def _lm_head(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        """Logits of final-norm states x in the compute dtype: the LM head,
+        or the embedding's transpose when tied; under a tensor mesh the
+        shards' vocab slices gathered."""
+        if not self.cfg.tie_embeddings:
+            return self._proj(x, params["lm_head"], "lm_head")
+        table = params["tok_embed"].transpose(-1, -2)
+        if self.tp == 1:
+            return _mm(x, table, self.cfg.dtype)
+        return _mm_tp(x, table, "col", self.mesh, self.cfg.dtype)
 
     # -- contiguous serving steps -------------------------------------------
 
@@ -491,7 +622,7 @@ class LlamaModel:
             true_length = torch.full((b,), s, dtype=torch.int32,
                                      device=tokens.device)
         quant = "k_scale" in cache
-        x = params["tok_embed"][tokens.long()].to(cfg.dtype)
+        x = self._embed(params, tokens)
         lp = params["layers"]
         for layer in range(cfg.n_layers):
             x, k, v = self._layer(x, {n: _at(w, layer) for n, w in lp.items()},
@@ -551,14 +682,16 @@ class LlamaModel:
         quant = "k_scale" in cache
         hd, dt, hkv = cfg.head_dim_, cfg.dtype, cfg.n_kv_heads
         group = cfg.n_heads // hkv
-        x = params["tok_embed"][tokens.long()].to(dt)
+        x = self._embed(params, tokens)
         lp = params["layers"]
         for layer in range(cfg.n_layers):
             h = rms_norm(x, lp["attn_norm"][layer], cfg.norm_eps)
-            q = _mm(h, _at(lp["wq"], layer), dt).reshape(b, kk, cfg.n_heads,
-                                                         hd)
-            k = _mm(h, _at(lp["wk"], layer), dt).reshape(b, kk, hkv, hd)
-            v = _mm(h, _at(lp["wv"], layer), dt).reshape(b, kk, hkv, hd)
+            q = self._proj(h, _at(lp["wq"], layer), "wq").reshape(
+                b, kk, cfg.n_heads, hd)
+            k = self._proj(h, _at(lp["wk"], layer), "wk").reshape(
+                b, kk, hkv, hd)
+            v = self._proj(h, _at(lp["wv"], layer), "wv").reshape(
+                b, kk, hkv, hd)
             q = apply_rope(q, self.cos, self.sin, positions)
             k = apply_rope(k, self.cos, self.sin, positions)
             kc, vc = cache["k"][layer], cache["v"][layer]
@@ -578,17 +711,21 @@ class LlamaModel:
             p = torch.softmax(sc, dim=-1)
             o = torch.einsum("bhgqL,bLhd->bqhgd", p, v_read)
             o = o.reshape(b, kk, cfg.n_heads * hd).to(dt)
-            x = x + _mm(o, _at(lp["wo"], layer), dt)
+            x = x + self._proj(o, _at(lp["wo"], layer), "wo")
             x = self._paged_mlp(x, lp, layer)
         return self._head_logits(params, x), cache
 
     def init_paged_arena(self, n_pages: int, page_tokens: int,
-                         quantize: bool = False) -> Params:
+                         quantize: bool = False,
+                         shard_kv: bool = True) -> Params:
         """{"k", "v"} of shape (L, n_pages + 1, T, Hkv, D): page-major
         (page p's T positions are one contiguous tile), plus the sink page
         at index ``n_pages`` that absorbs dropped writes. ``quantize``:
         int8 k/v with per-(position, kv head) f32 scale sections
-        ``k_scale``/``v_scale`` (L, n_pages + 1, T, Hkv).
+        ``k_scale``/``v_scale`` (L, n_pages + 1, T, Hkv). Under a tensor
+        mesh the kv-head axis shards when ``shard_kv`` and
+        ``paged_head_shards`` allow it (the module docstring's layouts),
+        else every shard reads the one replicated arena.
 
         An MLA config gets the headless latent layout: {"c", "kr"} of
         shape (L, n_pages + 1, T, r) and (L, n_pages + 1, T, dr), the
@@ -608,7 +745,10 @@ class LlamaModel:
                     arena[name] = torch.zeros(lead, dtype=torch.float32,
                                               device=self.device)
             return arena
-        shape = (cfg.n_layers, n_pages + 1, page_tokens, cfg.n_kv_heads,
+        n = (paged_head_shards(self.tp, cfg.n_heads, cfg.n_kv_heads)
+             if shard_kv else 1)
+        lead = cfg.n_layers * (n if n > 1 and self.mesh.in_process else 1)
+        shape = (lead, n_pages + 1, page_tokens, cfg.n_kv_heads // n,
                  cfg.head_dim_)
         arena = {"k": torch.zeros(shape, dtype=dt, device=self.device),
                  "v": torch.zeros(shape, dtype=dt, device=self.device)}
@@ -676,11 +816,8 @@ class LlamaModel:
     # -- internals ----------------------------------------------------------
 
     def _head_logits(self, params: Params, x: torch.Tensor) -> torch.Tensor:
-        cfg = self.cfg
-        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-        if cfg.tie_embeddings:
-            return (x @ params["tok_embed"].t()).float()
-        return _mm(x, params["lm_head"], cfg.dtype).float()
+        x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
+        return self._lm_head(params, x).float()
 
     def _paged_layers(self, params, tokens, arena, page_tables, lengths,
                       active, n_tokens) -> torch.Tensor:
@@ -710,49 +847,110 @@ class LlamaModel:
         offs = positions % t
         rope_pos = positions.clamp(max=cfg.max_seq_len - 1)
         att_len = (lengths + kk).to(torch.int32)
-        x = params["tok_embed"][tokens.long()].to(cfg.dtype)      # (B,K,E)
+        x = self._embed(params, tokens)                           # (B,K,E)
         if cfg.is_mla:
             return self._paged_layers_mla(params, x, arena, page_tables,
                                           pages_bk, offs, rope_pos, att_len)
-        hd, dt = cfg.head_dim_, cfg.dtype
+        hd = cfg.head_dim_
         quant = "k_scale" in arena
+        n = self.kv_shards(arena)
         lp = params["layers"]
         for layer in range(cfg.n_layers):
             # each leaf indexed where it is used: this loop is the decode
             # step's host cost
             h = rms_norm(x, lp["attn_norm"][layer], cfg.norm_eps)
-            q = _mm(h, _at(lp["wq"], layer), dt).reshape(b, kk, cfg.n_heads,
-                                                         hd)
-            k = _mm(h, _at(lp["wk"], layer), dt).reshape(b, kk,
-                                                         cfg.n_kv_heads, hd)
-            v = _mm(h, _at(lp["wv"], layer), dt).reshape(b, kk,
-                                                         cfg.n_kv_heads, hd)
+            q = self._proj(h, _at(lp["wq"], layer), "wq").reshape(
+                b, kk, cfg.n_heads, hd)
+            k = self._proj(h, _at(lp["wk"], layer), "wk").reshape(
+                b, kk, cfg.n_kv_heads, hd)
+            v = self._proj(h, _at(lp["wv"], layer), "wv").reshape(
+                b, kk, cfg.n_kv_heads, hd)
             q = apply_rope(q, self.cos, self.sin, rope_pos)
             k = apply_rope(k, self.cos, self.sin, rope_pos)
-            kp, vp = arena["k"][layer], arena["v"][layer]
+            kp, vp = (self._arena_layer(arena[name], layer, n)
+                      for name in ("k", "v"))
+            ks = vs = None
             if quant:
                 # the JAX model's per-row int8 scheme (_kv_quant); rows and
                 # their scales scatter through the same pages, so dropped
                 # rows land on the sink page in every section
-                ks, vs = arena["k_scale"][layer], arena["v_scale"][layer]
-                k_w, k_s = _kv_quant(k)             # (B,K,h,d), (B,K,h)
-                v_w, v_s = _kv_quant(v)
-                kp[pages_bk, offs] = k_w
-                ks[pages_bk, offs] = k_s
-                vp[pages_bk, offs] = v_w
-                vs[pages_bk, offs] = v_s
-                o = paged_attention_multi_quant(
-                    q, kp, vp, ks, vs, page_tables, att_len,
-                    sm_scale=cfg.sm_scale)
-            else:
-                kp[pages_bk, offs] = k
-                vp[pages_bk, offs] = v
-                o = paged_attention_multi(q, kp, vp, page_tables, att_len,
-                                          sm_scale=cfg.sm_scale)
-            x = x + _mm(o.reshape(b, kk, cfg.n_heads * hd),
-                        _at(lp["wo"], layer), dt)
+                ks, vs = (self._arena_layer(arena[name], layer, n)
+                          for name in ("k_scale", "v_scale"))
+                k, k_s = _kv_quant(k)               # (B,K,h,d), (B,K,h)
+                v, v_s = _kv_quant(v)
+                self._kv_write(ks, k_s, pages_bk, offs, n)
+                self._kv_write(vs, v_s, pages_bk, offs, n)
+            self._kv_write(kp, k, pages_bk, offs, n)
+            self._kv_write(vp, v, pages_bk, offs, n)
+            o = self._paged_attend(q, kp, vp, ks, vs, page_tables, att_len,
+                                   n)
+            x = x + self._proj(o.reshape(b, kk, cfg.n_heads * hd),
+                               _at(lp["wo"], layer), "wo")
             x = self._paged_mlp(x, lp, layer)
         return x
+
+    def kv_shards(self, arena: Params) -> int:
+        """The kv-head shards of an arena from ``init_paged_arena``: N when
+        its heads are sharded, 1 when it is whole (or headless, MLA)."""
+        if "k" not in arena:
+            return 1
+        return self.cfg.n_kv_heads // arena["k"].shape[-2]
+
+    def _arena_layer(self, section: torch.Tensor, layer: int,
+                     n: int) -> torch.Tensor:
+        """Layer ``layer`` of an arena section: (P + 1, T, ...), or for a
+        head-sharded arena in one process the (N, P + 1, T, ...) view whose
+        shard slices are each contiguous."""
+        if n > 1 and self.mesh.in_process:
+            return section.view(n, -1, *section.shape[1:])[:, layer]
+        return section[layer]
+
+    def _kv_write(self, dst: torch.Tensor, rows: torch.Tensor, pages_bk,
+                  offs, n: int) -> None:
+        """Scatter rows (B, K, Hkv, ...) of every kv head into one layer of
+        an arena section at (page, offset): into each shard's own heads
+        when the arena is head-sharded."""
+        if n == 1:
+            dst[pages_bk, offs] = rows
+        elif self.mesh.in_process:
+            dst[:, pages_bk, offs] = rows.unflatten(2, (n, -1)).movedim(2, 0)
+        else:
+            h = rows.shape[2] // n
+            dst[pages_bk, offs] = rows[:, :, self.mesh.rank * h:
+                                       (self.mesh.rank + 1) * h]
+
+    def _paged_attend(self, q, kp, vp, ks, vs, page_tables, att_len,
+                      n: int) -> torch.Tensor:
+        """The paged kernel (int8 pages when ``ks`` is given) for q (B, K,
+        Hq, D) over one layer. A head-sharded arena launches it per shard,
+        on the shard's q-head block and its own arena, and gathers the
+        shards' heads; a replicated one serves every head in one launch
+        (in one process the shards' dispatches together, over a process
+        group each rank's redundant whole dispatch)."""
+        scale = self.cfg.sm_scale
+
+        def attend(qs, kps, vps, kss, vss):
+            if kss is None:
+                return paged_attention_multi(qs, kps, vps, page_tables,
+                                             att_len, sm_scale=scale)
+            return paged_attention_multi_quant(qs, kps, vps, kss, vss,
+                                               page_tables, att_len,
+                                               sm_scale=scale)
+
+        if n == 1:
+            return attend(q, kp, vp, ks, vs)
+        hq = q.shape[2] // n
+
+        def block(s):
+            return q[:, :, s * hq:(s + 1) * hq].contiguous()
+
+        if not self.mesh.in_process:
+            return all_gather(attend(block(self.mesh.rank), kp, vp, ks, vs),
+                              2, self.mesh)
+        return torch.cat([attend(block(s), kp[s], vp[s],
+                                 None if ks is None else ks[s],
+                                 None if vs is None else vs[s])
+                          for s in range(n)], dim=2)
 
     def _paged_mlp(self, x, lp, layer: int) -> torch.Tensor:
         """``_mlp`` of layer ``layer`` of the stacked leaves ``lp``, at the
@@ -772,8 +970,9 @@ class LlamaModel:
         cfg, dt = self.cfg, self.cfg.dtype
         h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
         if not cfg.n_experts:
-            act = F.silu(_mm(h, lp["w_gate"], dt)) * _mm(h, lp["w_up"], dt)
-            return x + _mm(act, lp["w_down"], dt)
+            act = (F.silu(self._proj(h, lp["w_gate"], "w_gate"))
+                   * self._proj(h, lp["w_up"], "w_up"))
+            return x + self._proj(act, lp["w_down"], "w_down")
         factor = (cfg.capacity_factor if train
                   else cfg.n_experts / cfg.n_experts_per_tok)
         y, _, _ = moe_mlp(h, lp["router"], lp["we_gate"], lp["we_up"],

@@ -37,7 +37,7 @@ from .llama import (LlamaConfig, Params, draw_rows, is_norm, keeps_f32,
                     param_shapes)
 
 __all__ = ["INT4_GROUP", "dequantize", "init_quantized_params",
-           "is_quantized", "quantize_params"]
+           "is_quantized", "quantize_params", "quantized_logical_axes"]
 
 # stacked-layer projection weights, plus the LM head. MLA: w_dkv and the
 # low-rank q pair quantize as the JAX quantizer's do; w_uk/w_uv stay in
@@ -105,6 +105,40 @@ def _quantize_stacked(w: torch.Tensor, quant) -> dict[str, torch.Tensor]:
 
 def is_quantized(w: Any) -> bool:
     return isinstance(w, dict) and ("q8" in w or "q4" in w)
+
+
+def quantized_logical_axes(cfg: LlamaConfig, bits: int = 8) -> Params:
+    """The logical-axis tree of a quantized tree (the JAX
+    ``quantized_logical_axes``), which ``parallel.shard_params`` places.
+    ``bits=8``: ``q8`` keeps the base weight's axes, ``scale`` (..., 1,
+    out) keeps its out axis. ``bits=4``: every packed weight shards its
+    out axis (``int4_out``) with the packed contraction and the groups
+    replicated, so each shard's product is an out-slice over the full
+    contraction (``int4_matmul_sharded``), with no sum across shards;
+    expert leaves shard their expert axis only."""
+    from ..parallel.sharding import param_logical_axes
+
+    _quantizer(bits)
+    base = param_logical_axes(cfg)
+
+    def q_axes(axes):
+        lead = axes[:-2]
+        if bits == 8:
+            return {"q8": axes, "scale": lead + (None, axes[-1])}
+        if "expert" in lead:
+            return {"q4": lead + (None, None),
+                    "scale": lead + (None, None, None)}
+        return {"q4": lead + (None, "int4_out"),
+                "scale": lead + (None, None, "int4_out")}
+
+    out: Params = {"tok_embed": base["tok_embed"],
+                   "final_norm": base["final_norm"],
+                   "layers": {name: q_axes(axes) if name in _QUANTIZED
+                              else axes
+                              for name, axes in base["layers"].items()}}
+    if "lm_head" in base:
+        out["lm_head"] = q_axes(base["lm_head"])
+    return out
 
 
 def _quantizer(bits: int):

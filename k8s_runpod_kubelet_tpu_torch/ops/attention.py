@@ -376,6 +376,19 @@ def paged_attention_multi_quant(q: torch.Tensor, k_pages: torch.Tensor,
                         paged_attention_multi_quant)
 
 
+def paged_head_shards(tensor: int, hq: int, hkv: int) -> int:
+    """The tensor-parallel layout of one paged dispatch (the JAX
+    ``_paged_head_specs`` rule): the head axes shard over ``tensor`` when
+    both counts divide, so a shard's contiguous q-head block maps exactly
+    onto its contiguous kv-head block and each shard's kernels read only
+    its own arena; otherwise the arena replicates and every shard's q
+    heads attend all of it. Returns the number of head shards (1:
+    replicated)."""
+    if tensor > 1 and hq % tensor == 0 and hkv % tensor == 0:
+        return tensor
+    return 1
+
+
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                     v_pages: torch.Tensor, page_table: torch.Tensor,
                     lengths: torch.Tensor, *,

@@ -28,7 +28,7 @@ import torch
 
 from . import _cuda
 
-__all__ = ["int4_expert_matmul", "int4_matmul"]
+__all__ = ["int4_expert_matmul", "int4_matmul", "int4_matmul_sharded"]
 
 
 def _int4_matmul_plain(h2: torch.Tensor, q4: torch.Tensor,
@@ -63,6 +63,14 @@ def _int4_expert_matmul_plain(h: torch.Tensor, q4: torch.Tensor,
     return y
 
 
+def _int4_matmul_sharded_plain(h2: torch.Tensor, q4: torch.Tensor,
+                               scale: torch.Tensor) -> torch.Tensor:
+    """``_int4_matmul_plain`` per shard, concatenated on out: h2 (B, in),
+    q4 (N, in/2, out/N), scale (N, g, 1, out/N) -> (B, out)."""
+    return torch.cat([_int4_matmul_plain(h2, q4[s], scale[s])
+                      for s in range(q4.shape[0])], dim=-1)
+
+
 @functools.cache
 def _launchers():
     """The C entry and its split choice (``int4_matmul_splits``), which
@@ -83,6 +91,19 @@ def _expert_launchers():
     p, i = ctypes.c_void_p, ctypes.c_int
     fn, splits = lib.int4_expert_matmul_bf16, lib.int4_expert_matmul_splits
     fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
+    splits.argtypes = [i, i, i, i]
+    fn.restype = splits.restype = i
+    return fn, splits
+
+
+@functools.cache
+def _sharded_launchers():
+    """The tensor-parallel entry of the same library and its split
+    choice."""
+    lib = _cuda.load("int4_matmul")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn, splits = lib.int4_matmul_sharded_bf16, lib.int4_matmul_sharded_splits
+    fn.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
     splits.argtypes = [i, i, i, i]
     fn.restype = splits.restype = i
     return fn, splits
@@ -195,6 +216,60 @@ def int4_expert_matmul(h: torch.Tensor, q4: torch.Tensor,
     return y
 
 
+def int4_matmul_sharded(h: torch.Tensor, q4: torch.Tensor,
+                        scale: torch.Tensor, mesh) -> torch.Tensor:
+    """Tensor-parallel int4 matmul on out-sharded weights: h (..., in) ->
+    (..., out), the shards' out-slices gathered in shard order. ``mesh``
+    (``parallel.Mesh``) has ``tensor`` = N shards. In one process ``q4``
+    (N, in/2, out/N) and ``scale`` (N, g, 1, out/N) stack every shard's
+    slice (``parallel.shard_params``): a CUDA tensor launches the kernel
+    once for every shard (bf16 h) or raises, a CPU tensor takes
+    ``_int4_matmul_sharded_plain``. Over a process group they are this
+    rank's (in/2, out/N) and (g, 1, out/N): ``int4_matmul`` runs on the
+    slice (its own launch count) and the ranks' outputs are all-gathered
+    (out/N a rank, in rank order)."""
+    from ..parallel.sharding import all_gather
+
+    kin = h.shape[-1]
+    h2 = h.reshape(-1, kin)
+    if not mesh.in_process:
+        y = all_gather(int4_matmul(h2, q4, scale), -1, mesh)
+        return y.reshape(*h.shape[:-1], y.shape[-1])
+    if q4.dim() != 3 or scale.dim() != 4 or q4.shape[0] != mesh.tensor \
+            or scale.shape[0] != mesh.tensor:
+        raise ValueError(f"q4 {tuple(q4.shape)} and scale "
+                         f"{tuple(scale.shape)} do not stack the "
+                         f"{mesh.tensor} shards of {mesh}: expected "
+                         "(N, in/2, out/N) and (N, g, 1, out/N)")
+    n, kin2, out = q4.shape
+    if kin != 2 * kin2:
+        raise ValueError(f"h has {kin} in-elements, q4 packs {2 * kin2}")
+    if scale.shape[2] != 1 or scale.shape[3] != out \
+            or kin2 % scale.shape[1]:
+        raise ValueError(f"scale {tuple(scale.shape)} does not group q4 "
+                         f"{tuple(q4.shape)}")
+    if h.device.type == "cpu":
+        y = _int4_matmul_sharded_plain(h2, q4, scale)
+        return y.reshape(*h.shape[:-1], n * out)
+    if h.device.type != "cuda":
+        raise ValueError(f"unsupported device {h.device}")
+    _check_cuda_args(h2, q4, scale)
+    rows, g = h2.shape[0], scale.shape[1]
+    launch, splits_of = _sharded_launchers()
+    y = torch.empty((rows, n * out), dtype=h.dtype, device=h.device)
+    splits = splits_of(n, rows, out, g)
+    partial = (torch.empty((splits, rows, n * out), dtype=torch.float32,
+                           device=h.device) if splits > 1 else y)
+    stream = torch.cuda.current_stream(h.device).cuda_stream
+    code = launch(h2.data_ptr(), q4.data_ptr(), scale.data_ptr(),
+                  y.data_ptr(), partial.data_ptr(), n, rows, kin, out, g,
+                  stream)
+    _cuda.check(code, "int4_matmul_sharded")
+    int4_matmul_sharded.launches += 1
+    return y.reshape(*h.shape[:-1], n * out)
+
+
 # kernel launches made through the wrappers (the plain path never counts)
 int4_matmul.launches = 0
 int4_expert_matmul.launches = 0
+int4_matmul_sharded.launches = 0

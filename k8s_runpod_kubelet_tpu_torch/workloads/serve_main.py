@@ -741,6 +741,15 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "(0 = unbounded)")
     p.add_argument("--flight-recorder", default="on", choices=["on", "off"],
                    help="the per-decode-step timeline at GET /debug/steps")
+    p.add_argument("--tensor-parallel", type=int, default=1, metavar="N",
+                   help="serve over N tensor-parallel shards in this "
+                        "process, on --device (weights and KV heads split "
+                        "as the JAX engine's tensor mesh splits them); N "
+                        "must divide the model's head counts")
+    p.add_argument("--kv-arena-sharding", default="auto",
+                   choices=["auto", "replicate"],
+                   help="under --tensor-parallel: shard the KV arena's heads "
+                        "(auto) or keep one arena every shard reads")
     p.add_argument("--hf-checkpoint", default="", metavar="DIR",
                    help="load the weights from a Hugging Face model "
                         "directory (*.safetensors or pytorch_model*.bin) "
@@ -753,15 +762,31 @@ def build_engine(args: argparse.Namespace, params=None):
     weights are ``params`` (of the model's config, on the device) when
     given, else ``--hf-checkpoint``'s, else random from ``--seed`` (with
     --int4 or --int8 drawn and quantized a layer at a time, so the bf16
-    tree never exists whole: Mixtral-8x7B's is 93 GB). Raises ValueError
-    for --int8 with --int4."""
+    tree never exists whole: Mixtral-8x7B's is 93 GB). With
+    ``--tensor-parallel N`` the engine serves over an in-process tensor
+    mesh of N shards (and takes a given bf16 tree over). Raises ValueError
+    for --int8 with --int4, a tensor degree below 1 or one that does not
+    divide the head counts, and an MLA or MoE model under N > 1, all
+    before any weight is drawn or loaded."""
     from ..models import MODEL_CONFIGS, init_params
     from ..models.convert import load_hf
     from ..models.quant import init_quantized_params
+    from ..parallel import MeshConfig, make_mesh
+    from ..parallel.sharding import check_tensor_parallel
 
     if args.int8 and args.int4:
         raise ValueError("--int8 and --int4 are mutually exclusive — pick "
                          "one weight precision")
+    cfg = MODEL_CONFIGS[args.model]()
+    n = args.tensor_parallel
+    if n < 1:
+        raise ValueError(f"--tensor-parallel must be >= 1, got {n}")
+    if cfg.n_heads % n or cfg.n_kv_heads % n:
+        raise ValueError(f"--tensor-parallel {n} must divide the model's "
+                         f"head counts (n_heads={cfg.n_heads}, "
+                         f"n_kv_heads={cfg.n_kv_heads})")
+    check_tensor_parallel(cfg, n)
+    mesh = make_mesh(MeshConfig(data=1, tensor=n)) if n > 1 else None
     # before the weights: a bad tokenizer directory fails fast
     tokenizer = get_tokenizer(args.tokenizer)
     sc = ServingConfig(
@@ -774,9 +799,9 @@ def build_engine(args: argparse.Namespace, params=None):
         serving_chunk_tokens=args.serving_chunk_tokens,
         max_prefixes=args.max_prefixes, kv_pool_pages=args.kv_pool_pages,
         max_queue_depth=args.max_queue_depth,
-        flight_recorder=args.flight_recorder == "on")
+        flight_recorder=args.flight_recorder == "on",
+        kv_arena_sharding=args.kv_arena_sharding)
     device = resolve_device(args.device)
-    cfg = MODEL_CONFIGS[args.model]()
     if params is None and args.hf_checkpoint:
         params = load_hf(cfg, args.hf_checkpoint, device=device)
     if params is None:
@@ -788,8 +813,8 @@ def build_engine(args: argparse.Namespace, params=None):
     # a quantizing engine keeps only its quantized copy of params
     return ServingEngine(
         cfg, params, sc, device=device,
-        decode_fn=tokenizer.decode if tokenizer is not None else None
-    ).start(), tokenizer
+        decode_fn=tokenizer.decode if tokenizer is not None else None,
+        mesh=mesh).start(), tokenizer
 
 
 def main(argv=None) -> int:
@@ -802,9 +827,9 @@ def main(argv=None) -> int:
         return 1
     httpd = serve(engine, args.port, tokenizer=tokenizer)
     snap = engine.debug_snapshot()
-    log.info("serving %s on :%d (%s, weights %s, kv %s)", snap["model"],
-             httpd.server_address[1], snap["device"], snap["weights"],
-             snap["kv"])
+    log.info("serving %s on :%d (%s, weights %s, kv %s, tensor-parallel "
+             "%d)", snap["model"], httpd.server_address[1], snap["device"],
+             snap["weights"], snap["kv"], snap["paged_tp_shards"])
     try:
         threading.Event().wait()
     except KeyboardInterrupt:

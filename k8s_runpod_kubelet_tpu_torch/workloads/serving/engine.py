@@ -40,6 +40,13 @@ paged loop of the JAX package's ``workloads/serving/engine.py``).
 - **Flight recorder**: with ``flight_recorder`` on, every decode step's
   wall splits into schedule/kernel/sample/commit phases in a bounded ring
   (``recorder.FlightRecorder``), read through ``debug_steps()``.
+- **Tensor parallelism**: with ``mesh`` (``parallel.Mesh``, ``tensor`` N
+  > 1, in one process) the engine quantizes its weights first, then lays
+  them out over the N shards (``parallel.shard_params``), and its arena
+  shards the kv-head axis (``kv_arena_sharding`` "auto" where N divides
+  both head counts) or replicates; every step, chunk and dense-route
+  prefill runs tensor-parallel (``LlamaModel`` under the mesh), the JAX
+  engine under a mesh with a ``tensor`` axis.
 - **Step graphs**: the decode and verify steps run through
   ``StepGraph`` (``step_graph.py``), the JAX engine's jitted
   ``paged_step``/``paged_verify``: on a card each is captured as a CUDA
@@ -74,6 +81,7 @@ import torch
 from ...device import resolve_device
 from ...models.llama import LlamaConfig, LlamaModel, Params
 from ...models.quant import quantize_params
+from ...parallel.sharding import shard_params
 from .kv_manager import PagedKVStore, PoolExhausted
 from .recorder import CompileWatchdog, FlightRecorder
 from .sampler import (_apply_penalties, _bias_row, _logit_modded,
@@ -110,9 +118,14 @@ class _PagedRun:
 class ServingEngine:
     def __init__(self, cfg: LlamaConfig, params: Params, sc: ServingConfig,
                  seed: int = 0, device=None,
-                 decode_fn: Optional[Callable[[list], str]] = None):
+                 decode_fn: Optional[Callable[[list], str]] = None,
+                 mesh=None):
         """``decode_fn`` (token ids -> text, a tokenizer's ``decode``)
-        enables ``stop_text``."""
+        enables ``stop_text``. ``mesh`` with ``tensor`` > 1 serves
+        tensor-parallel in one process; the engine then takes ``params``
+        over: unless it quantizes them first (its own copy), the given
+        tree's leaves are replaced by their shards, so that an 8B bf16 tree
+        is never held twice."""
         self.device = resolve_device(device)
         self.cfg = cfg
         self.sc = sc
@@ -120,6 +133,15 @@ class ServingEngine:
         if sc.quantize_int8 and sc.quantize_int4:
             raise ValueError("quantize_int8 and quantize_int4 are mutually "
                              "exclusive — pick one weight precision")
+        if sc.kv_arena_sharding not in ("auto", "replicate"):
+            raise ValueError(f"kv_arena_sharding must be 'auto' or "
+                             f"'replicate', got {sc.kv_arena_sharding!r}")
+        if mesh is not None and (mesh.seq > 1 or not mesh.in_process):
+            raise ValueError(
+                f"{mesh}: the engine serves on an in-process tensor mesh; "
+                "a sequence mesh is a training mesh, and the engine over a "
+                "process group (rank 0 scheduling, each step's inputs "
+                "broadcast) is ROADMAP Queue 1 #6")
         if sc.slots < 1 or sc.max_prefill_len < 1:
             raise ValueError("slots and max_prefill_len must be >= 1")
         if min(sc.speculate_k, sc.serving_chunk_tokens, sc.max_prefixes) < 0:
@@ -150,10 +172,16 @@ class ServingEngine:
             # already quantized (init_quantized_params) are kept as they are
             params = quantize_params(cfg, params,
                                      bits=4 if sc.quantize_int4 else 8)
-        self.params = params
-        self.model = LlamaModel(cfg, self.device)
-        self._kv_store = PagedKVStore(n_pages, t, self.model.init_paged_arena(
-            n_pages, t, quantize=sc.quantize_kv_int8))
+        # quantize first, then shard, as the JAX engine does
+        self.params = shard_params(cfg, params, mesh)
+        self.model = LlamaModel(cfg, self.device, mesh)
+        arena = self.model.init_paged_arena(
+            n_pages, t, quantize=sc.quantize_kv_int8,
+            shard_kv=sc.kv_arena_sharding == "auto")
+        # the arena's kv-head shards (1: one arena every shard reads)
+        self._arena_shards = self.model.kv_shards(arena)
+        self._kv_store = PagedKVStore(n_pages, t, arena,
+                                      shards=self._arena_shards)
         self._slot_pages_max = slot_pages
         # the decode and verify steps as CUDA graphs over static slot
         # buffers, captured at start() on a card (the JAX engine's jitted
@@ -348,6 +376,7 @@ class ServingEngine:
         with self._prefix_lock:
             out = self._kv_store.stats()
             out["page_bytes"] = self._kv_store.page_bytes
+            out["page_bytes_per_shard"] = self._kv_store.page_bytes_per_shard
             out["registered"] = len(self._registered)
         out["page_tokens"] = self.sc.kv_page_tokens
         return out
@@ -492,6 +521,10 @@ class ServingEngine:
                 "ready_queue": self._ready.qsize(),
                 "in_transit": self._transit, "cache_len": self.sc.cache_len,
                 "paged_decode": True, "paged_prefill": True,
+                # the tensor degree the paged loop runs at (the JAX
+                # engine's tpu_serving_paged_tp_shards): 1 on one device
+                "paged_tp_shards": self.model.tp,
+                "kv_arena_shards": self._arena_shards,
                 "speculate_k": sc.speculate_k,
                 "serving_chunk_tokens": self._chunk_tokens,
                 "prefix_cache": self.prefix_cache_stats(),
@@ -875,7 +908,8 @@ class ServingEngine:
             for section in arena.values():
                 section.zero_()
             self._kv_store = PagedKVStore(self._kv_store.pool.n_pages,
-                                          self.sc.kv_page_tokens, arena)
+                                          self.sc.kv_page_tokens, arena,
+                                          shards=self._arena_shards)
 
     def _admit(self) -> bool:
         admitted = False

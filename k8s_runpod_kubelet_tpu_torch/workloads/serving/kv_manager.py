@@ -291,26 +291,56 @@ class PagedKVStore:
     scales when int8) for dense attention, or for MLA the headless latent
     sections c (L, n_pages + 1, T, r) and kr (L, n_pages + 1, T, dr) (with
     (L, n_pages + 1, T) scales when int8). Only axes 1 and 2 are checked,
-    so any layout pages. The arena is updated in place by the model steps
-    (the JAX store's arena was donated through each jitted step instead);
-    every launch that touches it runs under the engine's prefix lock."""
+    so any layout pages. ``shards`` > 1 is a head-sharded arena of a
+    tensor-parallel model in one process, (N·L, n_pages + 1, T, Hkv/N, ...)
+    (``LlamaModel.init_paged_arena``): the copies to and from a dense cache
+    move each shard's heads to and from their place among the cache's Hkv.
+    The arena is updated in place by the model steps (the JAX store's arena
+    was donated through each jitted step instead); every launch that
+    touches it runs under the engine's prefix lock."""
 
-    def __init__(self, n_pages: int, page_tokens: int, arena: dict):
+    def __init__(self, n_pages: int, page_tokens: int, arena: dict,
+                 shards: int = 1):
         for name, a in arena.items():
             if a.shape[1] != n_pages + 1 or a.shape[2] != page_tokens:
                 raise ValueError(f"arena section {name} {tuple(a.shape)} "
                                  f"does not hold {n_pages} pages of "
                                  f"{page_tokens} tokens plus the sink")
         self.page_tokens = page_tokens
+        self.shards = shards
         self.pool = PagePool(n_pages)
         self.trie = PrefixTrie(self.pool, page_tokens)
         self.arena = arena
 
     @property
     def page_bytes(self) -> int:
-        """Device bytes one page pins across all sections and layers."""
+        """Device bytes one page pins across all sections and layers (and
+        all shards of a head-sharded arena)."""
         return sum(a.element_size() * a.numel() // a.shape[1]
                    for a in self.arena.values())
+
+    @property
+    def page_bytes_per_shard(self) -> int:
+        """The bytes of a page that one shard holds: its heads of a
+        head-sharded arena, all of a replicated one."""
+        return self.page_bytes // self.shards
+
+    def _to_dense(self, frag: torch.Tensor, n_tok: int) -> torch.Tensor:
+        """Pages (L', n, T, ...) of a section -> (L, n·T, ...) positions
+        with every kv head in place (a sharded arena's shards side by side
+        on the head axis)."""
+        n = self.shards
+        x = frag.reshape((n, frag.shape[0] // n, n_tok)
+                         + tuple(frag.shape[3:]))
+        return x.movedim(0, 2).flatten(2, 3) if n > 1 else x[0]
+
+    def _from_dense(self, src: torch.Tensor, n_pages: int) -> torch.Tensor:
+        """The inverse of ``_to_dense``: (L, n·T, ...) positions -> pages
+        (L', n, T, ...) of the arena's layout."""
+        n, t = self.shards, self.page_tokens
+        if n > 1:
+            src = src.unflatten(2, (n, -1)).movedim(2, 0).flatten(0, 1)
+        return src.reshape((src.shape[0], n_pages, t) + tuple(src.shape[2:]))
 
     def match(self, adapter_id: int, tokens: list) -> MatchResult:
         return self.trie.match(adapter_id, tokens)
@@ -352,8 +382,7 @@ class PagedKVStore:
                            device=single["index"].device)
         for name, a in self.arena.items():
             frag = a.index_select(1, ids)               # (L, n, T, ...)
-            single[name][:, 0, :n * t] = frag.reshape(
-                (a.shape[0], n * t) + tuple(a.shape[3:]))
+            single[name][:, 0, :n * t] = self._to_dense(frag, n * t)
         single["index"].fill_(n * t)
         return single
 
@@ -371,8 +400,7 @@ class PagedKVStore:
                 pad = src.new_zeros((src.shape[0], n * t - src.shape[1])
                                     + tuple(src.shape[2:]))
                 src = torch.cat([src, pad], dim=1)
-            a.index_copy_(1, ids, src.reshape(
-                (a.shape[0], n, t) + tuple(a.shape[3:])))
+            a.index_copy_(1, ids, self._from_dense(src, n))
 
     def insert(self, adapter_id: int, tokens: list, single: dict,
                pin: bool = False) -> tuple[int, int]:

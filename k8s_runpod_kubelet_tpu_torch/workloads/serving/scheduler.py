@@ -58,6 +58,11 @@ class ServingConfig:
     # how many distinct prefixes register_prefix() pins in the trie (each
     # pins its pages for the engine's life)
     max_prefixes: int = 8
+    # under a tensor mesh: how the paged arena places over the shards.
+    # "auto" shards the kv-head axis when the mesh divides both head counts
+    # (ops.attention.paged_head_shards), else replicates; "replicate" pins
+    # one arena every shard reads whole
+    kv_arena_sharding: str = "auto"
     # per-decode-step timeline (recorder.FlightRecorder), served at GET
     # /debug/steps: at most recorder_steps records and recorder_bytes of
     # serialized payload (oldest evict first). Off: the engine holds no

@@ -36,7 +36,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ...ops import (int4_expert_matmul, int4_matmul, paged_attention,
+from ...ops import (int4_expert_matmul, int4_matmul, int4_matmul_sharded,
+                    paged_attention,
                     paged_attention_mla, paged_attention_mla_quant,
                     paged_attention_multi, paged_attention_multi_mla,
                     paged_attention_multi_mla_quant,
@@ -49,7 +50,7 @@ COUNTED = (paged_attention_multi, paged_attention_multi_quant,
            paged_attention_multi_mla, paged_attention_multi_mla_quant,
            paged_attention, paged_attention_quant, paged_attention_mla,
            paged_attention_mla_quant, rms_norm, int4_matmul,
-           int4_expert_matmul)
+           int4_expert_matmul, int4_matmul_sharded)
 
 # the kernel each multi-token wrapper launches once a call, by the name a
 # profiler reads (split-KV merges and int4 split reductions are other
@@ -63,6 +64,7 @@ KERNEL_NAMES = {
     "rms_norm": "_rms_kernel",
     "int4_matmul": "int4_matmul_kernel",
     "int4_expert_matmul": "int4_expert_matmul_kernel",
+    "int4_matmul_sharded": "int4_matmul_sharded_kernel",
 }
 
 # eager steps before a capture: the first builds the nvcc libraries and

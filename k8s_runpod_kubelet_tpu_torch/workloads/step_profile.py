@@ -33,6 +33,17 @@ eager, graph, graph, eager (``decode_graph`` and ``verify_graph``). One
 more replay is traced alone: the kernels the profiler counts by name must
 equal the launches the capture recorded for each kernel wrapper.
 
+With ``--tensor-parallel N`` the serving steps are profiled twice on the
+one card: on one device (``tp1``) and then on an in-process tensor mesh of
+N shards (``tp``: the weights laid out by ``parallel.shard_params``, the
+arena's kv heads sharded, every int4 product one ``int4_matmul_sharded``
+launch and the paged kernel once a shard), the same weights and inputs
+over an arena drawn from the same seed, so the decode replay's and the
+chunk's device time by family compare within one call:
+
+    python -m k8s_runpod_kubelet_tpu_torch.workloads.step_profile \
+        --model llama3-8b --int4 --kv-int8 --tensor-parallel 2
+
 With ``--int4`` and ``--kv-int8`` the serving steps run the memory-lean
 deployment (the weights quantized on the card as ``ServingEngine`` does,
 the arena int8 with its scale sections) and the training step, which
@@ -72,6 +83,7 @@ import torch
 from ..device import resolve_device
 from ..models import MODEL_CONFIGS, LlamaModel, init_params
 from ..models.quant import init_quantized_params
+from ..parallel import MeshConfig, make_mesh, shard_params
 from .serving.step_graph import KERNEL_NAMES, StepGraph
 
 SEED = 0
@@ -253,6 +265,9 @@ def main(argv=None) -> int:
     p.add_argument("--speculate", type=int, default=0, metavar="K",
                    help="also profile a verify step of K drafts (K + 1 "
                         "rows a slot)")
+    p.add_argument("--tensor-parallel", type=int, default=1, metavar="N",
+                   help="profile the serving steps on one device and on an "
+                        "in-process tensor mesh of N shards")
     p.add_argument("--seq", type=int, default=0, metavar="N",
                    help="profile only training: a ring step over N "
                         "sequence shards beside the unsharded step, rows "
@@ -260,6 +275,9 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
     if args.seq and (args.seq < 2 or TRAIN_BATCH % args.seq):
         p.error(f"--seq must be at least 2 and divide {TRAIN_BATCH}")
+    if args.tensor_parallel < 1 or (args.tensor_parallel > 1 and args.seq):
+        p.error("--tensor-parallel must be at least 1, and profiles the "
+                "serving steps, not --seq's training")
     dev = resolve_device("cuda")   # raises without a card
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -279,7 +297,32 @@ def main(argv=None) -> int:
     # quantize_params(init_params(...)) without the bf16 tree
     params = (init_quantized_params(cfg, gen, 4, dev) if args.int4
               else init_params(cfg, gen, dev))
-    model = LlamaModel(cfg, dev)
+    out = {"card": card, "model": cfg.name, "torch": torch.__version__,
+           "weights": "int4" if args.int4 else "bf16",
+           "kv": "int8" if args.kv_int8 else "bf16"}
+    if args.tensor_parallel > 1:
+        out["tp1"] = _serving(cfg, dev, params, args, None)
+        mesh = make_mesh(MeshConfig(tensor=args.tensor_parallel))
+        # in place: the one-device tree becomes the shards' leaf by leaf
+        out["tp"] = dict(_serving(cfg, dev, shard_params(cfg, params, mesh),
+                                  args, mesh),
+                         tensor=args.tensor_parallel)
+        return _emit(out, args.out)
+    out.update(_serving(cfg, dev, params, args, None))
+    del params
+    torch.cuda.empty_cache()
+    if not (args.int4 or args.kv_int8 or cfg.is_mla or cfg.n_experts):
+        out["train"] = _train_profile(cfg, dev)
+    return _emit(out, args.out)
+
+
+def _serving(cfg, dev, params, args, mesh) -> dict:
+    """The serving steps of ``params`` (a tree laid out for ``mesh``, None
+    on one device): decode eagerly and as a graph replay in turns, a
+    prefill chunk, ``rms_norm`` alone, and with ``--speculate`` the verify
+    step, over an arena of random values from the seed."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    model = LlamaModel(cfg, dev, mesh)
     t, cols = 16, 128                     # 16-token pages, cache_len 2048
     b = len(DECODE_LENGTHS)
     arena = model.init_paged_arena(b * cols + cols, t,
@@ -324,10 +367,7 @@ def main(argv=None) -> int:
         graphs[kk] = StepGraph(model, kk, b, cols)
     for g in graphs.values():
         g.capture(params, arena, pool)
-    out = {"card": card, "model": cfg.name, "torch": torch.__version__,
-           "weights": "int4" if args.int4 else "bf16",
-           "kv": "int8" if args.kv_int8 else "bf16",
-           "decode": dict(_profile(decode, STEPS), slots=b,
+    out = {"decode": dict(_profile(decode, STEPS), slots=b,
                           lengths=lengths.tolist()),
            "decode_graph": _graph_turns(decode, graphs[1], params, arena,
                                         (*host, active)),
@@ -349,11 +389,9 @@ def main(argv=None) -> int:
             verify, graphs[kk], params, arena,
             (drafts.cpu().numpy(), *host[1:], active,
              n_tokens.cpu().numpy()))
-    del params, arena, graphs, g
+    del arena, graphs, g
     torch.cuda.empty_cache()
-    if not (args.int4 or args.kv_int8 or cfg.is_mla or cfg.n_experts):
-        out["train"] = _train_profile(cfg, dev)
-    return _emit(out, args.out)
+    return out
 
 
 def _emit(out: dict, path: str) -> int:

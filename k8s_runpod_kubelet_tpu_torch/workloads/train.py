@@ -273,6 +273,11 @@ class Trainer:
                 "training over a process group is not ported (ROADMAP "
                 "Queue 1 #7.8: each rank its token shard and the gradients "
                 "all-reduced over the group); pass an in-process mesh")
+        if mesh is not None and mesh.tensor > 1:
+            raise ValueError(
+                f"tensor = {mesh.tensor}: tensor-parallel training is not "
+                "ported (ROADMAP Queue 1 #7.8, FSDP/TP over NCCL); the "
+                "port's tensor meshes serve")
         self.cfg = cfg
         self.tc = tc
         self.mesh = mesh

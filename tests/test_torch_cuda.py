@@ -21,7 +21,7 @@ from k8s_runpod_kubelet_tpu_torch.models.quant import _quantize_leaf_int4
 from k8s_runpod_kubelet_tpu_torch.models.llama import _kv_quant
 from k8s_runpod_kubelet_tpu_torch.ops import (
     flash_attention, flash_dkv, flash_dq, flash_fwd, int4_expert_matmul,
-    int4_matmul,
+    int4_matmul, int4_matmul_sharded,
     paged_attention, paged_attention_mla, paged_attention_mla_quant,
     paged_attention_multi, paged_attention_multi_mla,
     paged_attention_multi_mla_quant, paged_attention_multi_quant,
@@ -33,7 +33,8 @@ from k8s_runpod_kubelet_tpu_torch.ops.attention import (
     _paged_attention_multi_plain, _paged_attention_multi_quant_plain,
     _paged_attention_plain, _paged_attention_quant_plain)
 from k8s_runpod_kubelet_tpu_torch.ops.int4_matmul import (
-    _expert_launchers, _int4_expert_matmul_plain, _int4_matmul_plain)
+    _expert_launchers, _int4_expert_matmul_plain, _int4_matmul_plain,
+    _sharded_launchers)
 from k8s_runpod_kubelet_tpu_torch.ops.int4_matmul import \
     _launchers as int4_matmul_launchers
 from k8s_runpod_kubelet_tpu_torch.ops.rmsnorm import _rms_norm_plain
@@ -726,6 +727,161 @@ def test_int4_expert_matmul_is_one_launch_of_its_own(cuda):
                                                       device=cuda))
     with pytest.raises(ValueError, match="counts"):
         int4_expert_matmul(h, q4, scale, torch.zeros(3, dtype=torch.int32))
+
+
+# (shards, rows, in, out a shard): both regimes, split and unsplit launches,
+# a shard's out not a multiple of the block's 128 columns (400, 1008), and
+# llama3-8b's per-shard widths at tensor 2 and 4
+INT4_SHARDED_CASES = [
+    (2, 1, 256, 128), (4, 8, 4096, 256), (2, 8, 4096, 2048),
+    (2, 13, 688, 400), (4, 17, 512, 1008), (4, 300, 1024, 512),
+    (2, 1024, 4096, 7168), (4, 1024, 14336, 1024),
+]
+
+
+def _sharded_leaves(dev, shards, kin, out, seed):
+    """The N shards' (in/2, out) slices of one quantized (in, N * out)
+    weight, stacked: (N, in/2, out) and (N, g, 1, out); and the gathered
+    weight's own q4 and scale."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    leaf = _quantize_leaf_int4(0.02 * torch.randn(
+        (kin, shards * out), generator=gen, device=dev))
+    q4 = leaf["q4"].unflatten(1, (shards, out)).movedim(1, 0).contiguous()
+    scale = leaf["scale"].unflatten(2, (shards, out)).movedim(2, 0) \
+        .contiguous()
+    return q4, scale, leaf["q4"], leaf["scale"]
+
+
+@pytest.mark.parametrize("shards,rows,kin,out", INT4_SHARDED_CASES)
+def test_int4_matmul_sharded_kernel_matches_plain(cuda, shards, rows, kin,
+                                                  out):
+    """One launch for every shard against the plain version, and against
+    row 13 on the gathered weight: the same f32 sums wherever the two
+    launches split the groups alike, so the same bytes."""
+    from k8s_runpod_kubelet_tpu_torch.parallel import MeshConfig, make_mesh
+
+    mesh = make_mesh(MeshConfig(tensor=shards))
+    q4, scale, q4_all, scale_all = _sharded_leaves(cuda, shards, kin, out,
+                                                   shards + rows + kin)
+    h = torch.randn((rows, kin), generator=torch.Generator(
+        device=cuda).manual_seed(rows), device=cuda).bfloat16()
+    before = (int4_matmul.launches, int4_matmul_sharded.launches)
+    y = int4_matmul_sharded(h, q4, scale, mesh)
+    torch.cuda.synchronize()
+    assert (int4_matmul.launches, int4_matmul_sharded.launches) == \
+        (before[0], before[1] + 1)
+    assert y.dtype == torch.bfloat16 and y.shape == (rows, shards * out)
+    _close_bf16(y, torch.cat([_int4_plain_rows(h.float(), q4[s], scale[s])
+                              for s in range(shards)], dim=1))
+    g = scale.shape[1]
+    same_splits = _sharded_launchers()[1](shards, rows, out, g) == \
+        int4_matmul_launchers()[1](rows, shards * out, g)
+    if same_splits:
+        assert torch.equal(y, int4_matmul(h, q4_all, scale_all))
+
+
+def test_int4_matmul_sharded_takes_a_stacked_layout_only(cuda):
+    """The in-process entry wants (N, in/2, out/N) and (N, g, 1, out/N)
+    stacks of the mesh's N shards; its split choice is the expert entry's
+    over the shards' tiles."""
+    from k8s_runpod_kubelet_tpu_torch.parallel import MeshConfig, make_mesh
+
+    q4, scale, q4_all, scale_all = _sharded_leaves(cuda, 2, 256, 128, 0)
+    h = torch.zeros((2, 256), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="stack"):
+        int4_matmul_sharded(h, q4, scale, make_mesh(MeshConfig(tensor=4)))
+    with pytest.raises(ValueError, match="stack"):
+        int4_matmul_sharded(h, q4_all, scale_all,
+                            make_mesh(MeshConfig(tensor=2)))
+    with pytest.raises(TypeError):
+        int4_matmul_sharded(h.float(), q4, scale,
+                            make_mesh(MeshConfig(tensor=2)))
+    splits, experts = _sharded_launchers()[1], _expert_launchers()[1]
+    for args in ((2, 8, 2048, 32), (4, 8, 256, 32), (4, 1024, 1024, 112)):
+        assert splits(*args) == experts(*args)
+
+
+def test_tp2_engine_matches_tp1_on_the_card(cuda):
+    """tiny_llama in bf16 on the card, --int4 --kv-int8 and bf16 weights:
+    the engine on an in-process tensor mesh of 2 against the one-device
+    engine on the same weights. Tokens must be equal up to any first
+    divergence, and there the plain f32 forward's top-2 margin must be
+    under 5% of the logits' RMS (the row-parallel partial sums add in
+    another order, and int4 launches split their groups by other shapes,
+    so a logit moves by well under 1% of that RMS); each step launches
+    int4_matmul_sharded once per projection, an n = 2 group serves
+    through the dense-scratch route, and no page leaks."""
+    from k8s_runpod_kubelet_tpu_torch.models import LlamaModel
+    from k8s_runpod_kubelet_tpu_torch.parallel import MeshConfig, make_mesh
+    from k8s_runpod_kubelet_tpu_torch.workloads.serving import (
+        ServingConfig, ServingEngine)
+
+    from k8s_runpod_kubelet_tpu_torch.models.quant import (dequantize,
+                                                           quantize_params)
+
+    cfg, params = _tiny_bf16(cuda)
+    prompts = [[5, 6, 7, 5, 6, 7, 5, 6, 7, 5, 6], [3, 1, 4, 1, 5, 9, 2, 6],
+               list(range(1, 40))]
+    ref_model = LlamaModel(dataclasses.replace(cfg, dtype=torch.float32),
+                           "cpu")
+
+    def f32(w):
+        w = dequantize(w) if isinstance(w, dict) else w
+        return w.float().cpu()
+
+    for quant in (True, False):
+        # the plain f32 forward of the weights the engines serve
+        served = quantize_params(cfg, params, 4) if quant else params
+        ref_params = {k: ({n: f32(x) for n, x in v.items()}
+                          if k == "layers" else f32(v))
+                      for k, v in served.items()}
+        outs = []
+        for tp in (1, 2):
+            tree = {k: (v.clone() if not isinstance(v, dict) else
+                        {n: x.clone() for n, x in v.items()})
+                    for k, v in params.items()}
+            sc = ServingConfig(slots=4, max_prefill_len=64, cache_len=256,
+                               max_new_tokens=24, kv_page_tokens=16,
+                               quantize_int4=quant, quantize_kv_int8=quant)
+            eng = ServingEngine(cfg, tree, sc, device=cuda,
+                                mesh=make_mesh(MeshConfig(tensor=tp))
+                                if tp > 1 else None).start()
+            try:
+                before = int4_matmul_sharded.launches
+                steps = eng.counters["decode_steps"] \
+                    + eng.counters["prefill_chunks"]
+                outs.append([eng.submit(p).result(timeout=300)["tokens"]
+                             for p in prompts])
+                launched = int4_matmul_sharded.launches - before
+                steps = eng.counters["decode_steps"] \
+                    + eng.counters["prefill_chunks"] - steps
+                assert launched == (7 * cfg.n_layers + 1) * steps \
+                    if quant and tp > 1 else launched == 0
+                assert eng.debug_snapshot()["paged_tp_shards"] == tp
+                # an n = 2 group: the dense-scratch route, its pages copied
+                # into the (sharded) arena, both greedy members alike
+                group = [f.result(timeout=300)["tokens"]
+                         for f in eng.submit_group(prompts[2], 2)]
+                assert group[0] == group[1] and len(group[0]) == 24
+                eng.drain()
+                while not eng.drained:
+                    time.sleep(0.01)
+                stats = eng.prefix_cache_stats()
+                assert stats["pages_free"] + stats["nodes"] \
+                    == stats["pages_total"]
+            finally:
+                eng.stop()
+        for prompt, one, two in zip(prompts, *outs):
+            n = next((i for i, (a, b) in enumerate(zip(one, two)) if a != b),
+                     None)
+            if n is None:
+                assert one == two
+                continue
+            ctx = torch.tensor([prompt + one[:n]])
+            logits = ref_model.forward(ref_params, ctx)[0, -1]
+            top2 = logits.topk(2).values
+            rms = logits.pow(2).mean().sqrt()
+            assert top2[0] - top2[1] < 0.05 * rms, (quant, prompt, n)
 
 
 # -- MLA latent attention ------------------------------------------------------------

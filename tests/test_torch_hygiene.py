@@ -36,9 +36,10 @@ def _modules() -> list[str]:
 def test_importing_every_module_loads_no_jax_and_no_triton():
     mods = _modules()
     assert len(mods) >= 15
-    # the sequence-parallel slice's modules are among them
+    # the sequence- and tensor-parallel slices' modules are among them
     assert {"k8s_runpod_kubelet_tpu_torch.parallel",
             "k8s_runpod_kubelet_tpu_torch.parallel.mesh",
+            "k8s_runpod_kubelet_tpu_torch.parallel.sharding",
             "k8s_runpod_kubelet_tpu_torch.ops.ring_attention"} <= set(mods)
     code = (
         "import importlib, sys\n"
