@@ -23,18 +23,22 @@ print the final ``ok`` line):
 2. build: ``csrc/paged_attention_multi.cu``,
    ``csrc/paged_attention_multi_quant.cu``,
    ``csrc/paged_attention_multi_mla.cu``,
-   ``csrc/paged_attention_multi_mla_quant.cu``, ``csrc/int4_matmul.cu`` and
-   ``csrc/flash_attention.cu`` with nvcc for sm_90a (one nvcc each, started
-   together), and the Triton RMSNorm kernel, with their seconds and ptxas
-   register/spill lines; where the toolkit has ``cuobjdump``, the HGMMA
-   (wgmma) and HMMA counts of every kernel of the six tensor-core sources
-   (an instantiation of either paged kernel, ``paged_attention_multi`` or
-   the int8-page ``paged_attention_multi_quant``, ``flash_fwd``,
-   ``flash_dq``, ``flash_dkv``, either MLA latent kernel or a prefill-regime
-   ``int4_matmul`` or ``int4_expert_matmul`` (the second entry of
-   ``csrc/int4_matmul.cu``) without HGMMA, or a decode-regime one with
-   neither HGMMA nor HMMA, fails the phase, as does a kernel missing from
-   its library);
+   ``csrc/paged_attention_multi_mla_quant.cu``, ``csrc/int4_matmul.cu``,
+   ``csrc/int4_expert_matmul.cu`` and ``csrc/flash_attention.cu`` with nvcc
+   for sm_90a (one nvcc each, started together), and the Triton RMSNorm
+   kernel, with their seconds and ptxas register/spill lines; where the
+   toolkit has ``cuobjdump``, the HGMMA (wgmma) and HMMA counts of every
+   kernel of the seven tensor-core sources (an instantiation of either
+   paged kernel, ``paged_attention_multi`` or the int8-page
+   ``paged_attention_multi_quant``, ``flash_fwd``, ``flash_dq``,
+   ``flash_dkv``, either MLA latent kernel, ``int4_expert_matmul`` or a
+   prefill-regime ``int4_matmul`` or ``int4_matmul_sharded`` without HGMMA,
+   or a decode-regime one of the last two with neither HGMMA nor HMMA,
+   fails the phase, as does a kernel missing from its library), and the
+   instructions ``int4_expert_matmul`` spends to unpack a staged q4 byte
+   (``sass_unpack_mix``); a line of ptxas's that it serialized the wgmmas
+   (C7514 or its kin) in the build log of ``csrc/int4_expert_matmul.cu``
+   fails the phase;
 3. kernels vs plain on the card, at the shapes the 8B main path gives
    them: ``paged_attention_multi`` (decode K=1 B=8 with ragged lengths up
    to 2048, K=4 B=8, K=5 B=8, a 1024-token prefill chunk behind a 100-token
@@ -364,9 +368,10 @@ BF16_TENSOR_FLOPS = 989e12         # dense bf16 tensor-core peak
 F32_FLOPS = 67e12                  # f32 outside the tensor cores
 SEED = 20261016
 # the kernels on the tensor cores, by source: every instantiation named so
-# must hold wgmma instructions (HGMMA), except int4_matmul's decode regime
-# (a tile of at most INT4_DECODE_ROWS rows), which may hold mma.sync (HMMA)
-# instead; each name must be found in its library
+# must hold wgmma instructions (HGMMA), except the decode regime of
+# int4_matmul and int4_matmul_sharded (a tile of at most INT4_DECODE_ROWS
+# rows), which may hold mma.sync (HMMA) instead; each name must be found in
+# its library
 TENSOR_CORE_KERNELS = {
     "paged_attention_multi": ("paged_attention_multi_kernel",),
     "paged_attention_multi_quant": ("paged_attention_multi_quant_kernel",),
@@ -375,8 +380,8 @@ TENSOR_CORE_KERNELS = {
     "paged_attention_multi_mla": ("paged_attention_multi_mla_kernel",),
     "paged_attention_multi_mla_quant": (
         "paged_attention_multi_mla_quant_kernel",),
-    "int4_matmul": ("int4_matmul_kernel", "int4_expert_matmul_kernel",
-                    "int4_matmul_sharded_kernel")}
+    "int4_matmul": ("int4_matmul_kernel", "int4_matmul_sharded_kernel"),
+    "int4_expert_matmul": ("int4_expert_matmul_kernel",)}
 INT4_DECODE_ROWS = 16
 # Kernel and plain version both compute in f32 and round once to bf16, so
 # they differ by at most one bf16 ulp of the output, which is <= 2^-7 |y|;
@@ -577,15 +582,89 @@ def sass_counts(lib_path: str) -> dict:
 
 def tensor_core_ok(kernel: str, counts: dict) -> bool:
     """Whether a tensor-core kernel's SASS holds what its regime needs:
-    HGMMA, or for an ``int4_matmul_kernel<NR, ...>``,
-    ``int4_expert_matmul_kernel<NR, ...>`` or
+    HGMMA, or for an ``int4_matmul_kernel<NR, ...>`` or
     ``int4_matmul_sharded_kernel<NR, ...>`` with NR <= INT4_DECODE_ROWS,
     HGMMA or HMMA."""
-    m = re.match(r"int4_(?:expert_)?matmul(?:_sharded)?_kernel<(\d+),",
-                 kernel)
+    m = re.match(r"int4_matmul(?:_sharded)?_kernel<(\d+),", kernel)
     if m and int(m.group(1)) <= INT4_DECODE_ROWS:
         return counts["HGMMA"] + counts["HMMA"] > 0
     return counts["HGMMA"] > 0
+
+
+# instructions with no register destination: their first register is an
+# address or a source
+NO_DEST = ("ST", "RED", "ATOM", "SYNCS", "BAR", "BRA", "EXIT", "WARP", "UTMA",
+           "HGMMA", "ISETP", "FSETP", "PLOP3", "VOTE", "ELECT", "NOP")
+# the unpack's instructions: the q4 reads, shifts, masks, byte permutes and
+# bf16x2 arithmetic (a traced register that a register reuse leaks into
+# the f32 sums is not unpack work)
+UNPACK_OPS = ("LDS", "SHF", "LOP3", "PRMT", "HADD2", "HFMA2", "HMUL2")
+
+
+def sass_unpack_mix(lib_path: str, prefix: str) -> dict:
+    """How many instructions each kernel named ``prefix<...>`` in a built
+    library spends to turn its staged q4 bytes into wgmma fragments, from
+    ``cuobjdump -sass``: every 16- or 32-bit shared read (LDS.U16, LDS)
+    whose value reaches a byte permute (PRMT) is a q4 read, and every
+    instruction whose operands descend from one (through registers, in
+    program order) is unpack work. Static counts over the whole kernel: the
+    q4 bytes a thread reads, the unpack instructions (``UNPACK_OPS``) by
+    opcode and their ratio (every step of the loop unpacks the same way, so
+    the ratio is the step loop's). {} where the toolkit has no
+    cuobjdump."""
+    from k8s_runpod_kubelet_tpu_torch.ops import _cuda
+
+    tool = os.path.join(os.path.dirname(_cuda._nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return {}
+    text = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    kernels, name = {}, None
+    inst = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
+                      r"([A-Z][A-Z0-9_.]*)([^;]*);")
+    for line in text.splitlines():
+        if "Function :" in line:
+            name = kernel_name(line.split("Function :", 1)[1].strip())
+            if name is not None and name.startswith(prefix + "<"):
+                kernels[name] = []
+            else:
+                name = None
+        elif name is not None:
+            m = inst.search(line)
+            if m:
+                kernels[name].append((m.group(1), m.group(2)))
+    out = {}
+    for kname, code in kernels.items():
+        roots, width, traced = {}, [], []
+        for op, args in code:
+            regs = re.findall(r"\bR(\d+)\b", args)
+            if op in ("LDS", "LDS.U16"):
+                width.append(4 if op == "LDS" else 2)
+                src = frozenset([len(width) - 1])
+                if regs:
+                    roots[regs[0]] = src
+                traced.append((op, src))
+                continue
+            if not regs or op.startswith(NO_DEST):
+                continue
+            src = frozenset().union(*(roots.get(r, frozenset())
+                                      for r in regs[1:]))
+            if src:
+                roots[regs[0]] = src
+                traced.append((op, src))
+            else:
+                roots.pop(regs[0], None)
+        q4 = {r for op, src in traced if op == "PRMT" for r in src}
+        ops: dict = {}
+        for op, src in traced:
+            if src & q4 and op.split(".")[0] in UNPACK_OPS:
+                ops[op] = ops.get(op, 0) + 1
+        nbytes = sum(width[r] for r in q4)
+        n = sum(ops.values())
+        out[kname] = {"q4_bytes": nbytes, "unpack_instructions": n,
+                      "per_byte": n / nbytes if nbytes else None,
+                      "ops": ops}
+    return out
 
 
 def time_ms(torch, fn, reps: int, flush) -> float:
@@ -1285,6 +1364,32 @@ def expert_counts(torch, dev, tokens: int) -> "torch.Tensor":
         torch.int32)
 
 
+def int4_expert_inputs(torch, dev, rows, kin, out):
+    """One projection's inputs for ``int4_expert_matmul`` at a buffer of
+    ``rows`` rows an expert: 8 experts of random weights (normal * 0.02)
+    quantized by the port's quantizer on the card, the counts of a seeded
+    top-2 router over ``rows`` tokens, and the buffer's first count rows of
+    each expert filled with bf16 values, the rest zero (as the MoE dispatch
+    leaves them): (h, q4, scale, counts, filled)."""
+    from k8s_runpod_kubelet_tpu_torch.models.quant import _quantize_leaf_int4
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + kin + out)
+    leaves_q = []
+    for _ in range(MOE_EXPERTS):
+        w = torch.randn((kin, out), generator=gen, device=dev) * 0.02
+        leaves_q.append(_quantize_leaf_int4(w))
+        del w
+    q4 = torch.stack([lq["q4"] for lq in leaves_q])
+    scale = torch.stack([lq["scale"] for lq in leaves_q])
+    del leaves_q
+    counts = expert_counts(torch, dev, rows)
+    filled = (torch.arange(rows, device=dev)[None, :]
+              < counts[:, None].long())                      # (X, C)
+    h = (torch.randn((MOE_EXPERTS, rows, kin), generator=gen, device=dev)
+         * filled[..., None]).bfloat16()
+    return h, q4, scale, counts, filled
+
+
 def int4_expert_case(torch, dev, flush, rows, path, kin, out, leaves):
     """``int4_expert_matmul`` at one expert projection of mixtral-8x7b and
     one path's buffer of ``rows`` rows an expert: 8 experts of random
@@ -1301,24 +1406,11 @@ def int4_expert_case(torch, dev, flush, rows, path, kin, out, leaves):
     a yardstick the port never calls, ``torch.bmm`` by the dequantized
     bf16 experts. The bound counts what these counts need: the weights of
     the experts that hold a row, the filled rows' operations."""
-    from k8s_runpod_kubelet_tpu_torch.models.quant import (
-        _quantize_leaf_int4, dequantize)
+    from k8s_runpod_kubelet_tpu_torch.models.quant import dequantize
     from k8s_runpod_kubelet_tpu_torch.ops import int4_expert_matmul
 
-    gen = torch.Generator(device=dev).manual_seed(SEED + kin + out)
-    leaves_q = []
-    for _ in range(MOE_EXPERTS):
-        w = torch.randn((kin, out), generator=gen, device=dev) * 0.02
-        leaves_q.append(_quantize_leaf_int4(w))
-        del w
-    q4 = torch.stack([lq["q4"] for lq in leaves_q])
-    scale = torch.stack([lq["scale"] for lq in leaves_q])
-    del leaves_q
-    counts = expert_counts(torch, dev, rows)
-    filled = (torch.arange(rows, device=dev)[None, :]
-              < counts[:, None].long())                      # (X, C)
-    h = (torch.randn((MOE_EXPERTS, rows, kin), generator=gen, device=dev)
-         * filled[..., None]).bfloat16()
+    h, q4, scale, counts, filled = int4_expert_inputs(torch, dev, rows, kin,
+                                                      out)
     name = f"{path}: 8 x {rows} x ({kin} -> {out}) [{leaves}]"
     before = int4_expert_matmul.launches
     y = int4_expert_matmul(h, q4, scale, counts)
@@ -4437,7 +4529,7 @@ def main(argv=None) -> int:
     log("phase build")
     sources = ("paged_attention_multi", "paged_attention_multi_quant",
                "paged_attention_multi_mla", "paged_attention_multi_mla_quant",
-               "int4_matmul", "flash_attention")
+               "int4_matmul", "int4_expert_matmul", "flash_attention")
     nvcc_s, errors = {}, []
 
     def build(name):
@@ -4480,6 +4572,23 @@ def main(argv=None) -> int:
         for prefix in TENSOR_CORE_KERNELS[name]:
             if not any(k.startswith(prefix) for k in counts):
                 raise RuntimeError(f"no {prefix} in the SASS of {name}")
+    # the expert kernel overlaps its unpack with wgmmas: ptxas must not have
+    # serialized them (C7514 or any other line of that family)
+    serialized = [line for line in
+                  _cuda.build_logs.get("int4_expert_matmul", "").splitlines()
+                  if "C7514" in line or ("wgmma" in line
+                                         and "serialized" in line)]
+    if serialized:
+        raise RuntimeError("csrc/int4_expert_matmul.cu: ptxas serialized "
+                           "the wgmmas: " + "; ".join(serialized))
+    unpack_mix = sass_unpack_mix(_cuda.load("int4_expert_matmul")._name,
+                                 "int4_expert_matmul_kernel")
+    for kernel, mix in sorted(unpack_mix.items()):
+        per = ("no q4 read found" if mix["per_byte"] is None
+               else f"{mix['per_byte']:.2f} a byte")
+        log(f"  sass unpack {kernel}: {mix['unpack_instructions']} "
+            f"instructions for {mix['q4_bytes']} q4 bytes a thread, {per} "
+            f"({mix['ops']})")
     log("  nvcc (sm_90a, in parallel) " + ", ".join(
         f"csrc/{n}.cu {nvcc_s[n]:.1f} s" for n in sources)
         + f"; Triton rms_norm {triton_s:.1f} s")
@@ -4737,7 +4846,7 @@ def main(argv=None) -> int:
                "(the same function; yardsticks: the same call once a "
                "shard, int4_matmul on the gathered weight and on one "
                "shard's slice)"),
-        record("int4_expert_matmul", "cuda", csrc + "int4_matmul.cu",
+        record("int4_expert_matmul", "cuda", csrc + "int4_expert_matmul.cu",
                "k8s_runpod_kubelet_tpu/ops/int4_matmul.py:181",
                int4_experts, moe_launches["int4_expert_matmul"],
                {"serve_moe": moe_launches["int4_expert_matmul"]},
@@ -4809,7 +4918,7 @@ def main(argv=None) -> int:
                        "train": train, "ring_train": ring_train,
                        "train_main": train_cli,
                        "build_s": {**nvcc_s, "triton": triton_s},
-                       "sass": sass},
+                       "sass": sass, "int4_expert_unpack_mix": unpack_mix},
                       f, indent=1)
     log(f"card: {card}")
     log(json.dumps({"kernels": kernels}))

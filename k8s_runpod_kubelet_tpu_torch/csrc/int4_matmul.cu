@@ -2,8 +2,7 @@
 // cores: bf16 activations in and out, f32 sums.
 //
 // Replaces: k8s_runpod_kubelet_tpu/ops/int4_matmul.py:_kernel (launched by
-// _matmul_2d), and int4_expert_matmul (:181), which runs that kernel once
-// per expert through lax.map. Same function:
+// _matmul_2d). Same function:
 //   y[r, o] = sum_g scale[g, o] * sum_i (h[r, 2i] * (lo - 8)
 //                                        + h[r, 2i + 1] * (hi - 8))
 //   over group g's packed rows i, where q4 (in/2, out) uint8 holds
@@ -52,24 +51,13 @@
 // prefill at out = 1024), the groups are split over more blocks, each
 // writing f32 partial sums that a second small kernel adds and casts.
 //
-// int4_expert_matmul_kernel runs the same tile (int4_tile, below) for a
-// stack of X experts in one launch: the expert is blockIdx.y / splits, and
-// the h, q4, scale, out and partial pointers move to its slice. An optional
-// device array of filled rows per expert (counts) makes a tile that starts
-// at or past its expert's count write zeros without reading the expert's
-// weights, and rows past the count inside a tile read zeros in place of h.
-// The grid stays static (no host read of the counts), so a CUDA graph can
-// hold the launch. What bounds it: at decode the bytes of the experts that
-// hold a row (Mixtral: 235 MB an expert and projection); at prefill the
-// filled rows' operations (2048 of 8 x 1024 rows at a 1024-token chunk).
-//
 // int4_matmul_sharded_kernel replaces int4_matmul_sharded (:157), the
 // TPU kernel run per tensor-parallel shard under shard_map on out-sharded
 // weights: q4 (N, in/2, out/N) and scale (N, g, 1, out/N), each shard's
 // slice contiguous, as one rank of an N-way deployment holds it. One
-// launch runs every shard: the shard is blockIdx.y / splits, as the expert
-// is in the expert kernel; every shard reads the same h (the activations
-// replicate going in, as under shard_map), and shard s writes its columns
+// launch runs every shard: the shard is blockIdx.y / splits; every shard
+// reads the same h (the activations replicate going in, as under
+// shard_map), and shard s writes its columns
 // straight into block s of the gathered (rows, N * out/N) output (the
 // tile's row stride ldy is N * out/N), so the all-gather that follows
 // shard_map's out-sharded result costs nothing in one process. Split
@@ -283,27 +271,6 @@ int4_matmul_kernel(const bf16* __restrict__ h, const uint8_t* __restrict__ q4,
                         rows, kin, out, out, groups, splits, blockIdx.y);
 }
 
-// X experts' products in one launch: h (X, rows, kin), q4 (X, kin/2, out),
-// scale (X, groups, 1, out), y (X, rows, out); counts (X,) or null.
-template <int NR, int STAGES>
-__global__ void __launch_bounds__(kThreads, NR <= kDecodeRows ? 2 : 1)
-int4_expert_matmul_kernel(const bf16* __restrict__ h,
-                          const uint8_t* __restrict__ q4,
-                          const float* __restrict__ scale,
-                          const int* __restrict__ counts,
-                          bf16* __restrict__ y, float* __restrict__ partial,
-                          int experts, int rows, int kin, int out, int groups,
-                          int splits) {
-  const int ex = blockIdx.y / splits;
-  const int live = counts == nullptr ? rows : min(rows, max(counts[ex], 0));
-  const size_t mat = size_t(rows) * out;
-  int4_tile<NR, STAGES>(h + size_t(ex) * rows * kin,
-                        q4 + size_t(ex) * (kin / 2) * out,
-                        scale + size_t(ex) * groups * out, y + ex * mat,
-                        partial + ex * mat, size_t(experts) * mat, rows, live,
-                        kin, out, out, groups, splits, blockIdx.y % splits);
-}
-
 // N tensor-parallel shards' products in one launch: h (rows, kin) shared,
 // q4 (N, kin/2, out), scale (N, groups, 1, out), y (rows, N * out) with
 // shard s's columns at s * out.
@@ -348,24 +315,22 @@ __global__ void int4_matmul_reduce_kernel(const float* __restrict__ partial,
   }
 }
 
-// What a launch runs: one product, X stacked experts' products (each its
-// own h and y), or N tensor-parallel shards' products (one h, y gathered).
-enum class Mode { kDense, kExperts, kShards };
+// What a launch runs: one product, or N tensor-parallel shards' products
+// (one h, y gathered).
+enum class Mode { kDense, kShards };
 
 // Launches the kernel of `mode` over `stacked` problems (1 when dense);
 // then, when the groups were split, the reduce, which covers the whole y
 // in every mode.
 template <int NR, int STAGES>
 int launch(Mode mode, const void* h, const void* q4, const void* scale,
-           const int* counts, void* y, void* partial, int stacked, int rows,
+           void* y, void* partial, int stacked, int rows,
            int kin, int out, int groups, int splits, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<NR, STAGES>();
   auto dense = int4_matmul_kernel<NR, STAGES>;
-  auto experts = int4_expert_matmul_kernel<NR, STAGES>;
   auto shards = int4_matmul_sharded_kernel<NR, STAGES>;
-  const void* fn = mode == Mode::kDense     ? (const void*)dense
-                   : mode == Mode::kExperts ? (const void*)experts
-                                            : (const void*)shards;
+  const void* fn =
+      mode == Mode::kDense ? (const void*)dense : (const void*)shards;
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -381,10 +346,6 @@ int launch(Mode mode, const void* h, const void* q4, const void* scale,
   if (mode == Mode::kDense)
     dense<<<grid, kThreads, smem, stream>>>(hh, qq, ss, yy, pp, rows, kin,
                                             out, groups, splits);
-  else if (mode == Mode::kExperts)
-    experts<<<grid, kThreads, smem, stream>>>(hh, qq, ss, counts, yy, pp,
-                                              stacked, rows, kin, out,
-                                              groups, splits);
   else
     shards<<<grid, kThreads, smem, stream>>>(hh, qq, ss, yy, pp, stacked,
                                              rows, kin, out, groups, splits);
@@ -430,7 +391,7 @@ bool takes(int kin, int out, int groups) {
 }
 
 int run(Mode mode, const void* h, const void* q4, const void* scale,
-        const int* counts, void* y, void* partial, int stacked, int rows,
+        void* y, void* partial, int stacked, int rows,
         int kin, int out, int groups, void* stream) {
   if (rows == 0 || out == 0) return 0;
   if (!takes(kin, out, groups))
@@ -440,10 +401,10 @@ int run(Mode mode, const void* h, const void* q4, const void* scale,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return rows <= kDecodeRows
-             ? launch<kDecodeRows, 8>(mode, h, q4, scale, counts, y, partial,
+             ? launch<kDecodeRows, 8>(mode, h, q4, scale, y, partial,
                                       stacked, rows, kin, out, groups,
                                       splits, s)
-             : launch<128, 4>(mode, h, q4, scale, counts, y, partial,
+             : launch<128, 4>(mode, h, q4, scale, y, partial,
                               stacked, rows, kin, out, groups, splits, s);
 }
 
@@ -453,11 +414,6 @@ int run(Mode mode, const void* h, const void* q4, const void* scale,
 // f32 scratch from this, and the entry splits by it.
 extern "C" int int4_matmul_splits(int rows, int out, int groups) {
   return choose_splits(1, rows, out, groups);
-}
-
-extern "C" int int4_expert_matmul_splits(int experts, int rows, int out,
-                                         int groups) {
-  return choose_splits(experts, rows, out, groups);
 }
 
 // C entry point bound by ops/int4_matmul.py through ctypes. h (rows, kin)
@@ -472,24 +428,8 @@ extern "C" int int4_matmul_bf16(const void* h, const void* q4,
                                 const void* scale, void* y, void* partial,
                                 int rows, int kin, int out, int groups,
                                 void* stream) {
-  return run(Mode::kDense, h, q4, scale, nullptr, y, partial, 1, rows, kin,
+  return run(Mode::kDense, h, q4, scale, y, partial, 1, rows, kin,
              out, groups, stream);
-}
-
-// The expert entry: h (experts, rows, kin) bf16, q4 (experts, kin/2, out)
-// uint8, scale (experts, groups, 1, out) f32, y (experts, rows, out) bf16;
-// counts, a device int32 (experts,) of each expert's filled rows, or null
-// for all rows; partial an f32 (splits, experts, rows, out) scratch when
-// int4_expert_matmul_splits is above 1. Rows at or past an expert's count
-// come back as zeros. Returns 0 or a cudaError_t code.
-extern "C" int int4_expert_matmul_bf16(const void* h, const void* q4,
-                                       const void* scale, const void* counts,
-                                       void* y, void* partial, int experts,
-                                       int rows, int kin, int out, int groups,
-                                       void* stream) {
-  if (experts <= 0) return experts == 0 ? 0 : int(cudaErrorInvalidValue);
-  return run(Mode::kExperts, h, q4, scale, static_cast<const int*>(counts),
-             y, partial, experts, rows, kin, out, groups, stream);
 }
 
 extern "C" int int4_matmul_sharded_splits(int shards, int rows, int out,
@@ -508,6 +448,6 @@ extern "C" int int4_matmul_sharded_bf16(const void* h, const void* q4,
                                         int kin, int out, int groups,
                                         void* stream) {
   if (shards <= 0) return int(cudaErrorInvalidValue);
-  return run(Mode::kShards, h, q4, scale, nullptr, y, partial, shards, rows,
+  return run(Mode::kShards, h, q4, scale, y, partial, shards, rows,
              kin, out, groups, stream);
 }

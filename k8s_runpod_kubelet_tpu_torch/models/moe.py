@@ -26,8 +26,8 @@ import torch.nn.functional as F
 
 from ..ops import int4_expert_matmul
 
-__all__ = ["load_balance_loss", "moe_capacity", "moe_mlp", "route_top_k",
-           "router_z_loss"]
+__all__ = ["dispatch_positions", "load_balance_loss", "moe_capacity",
+           "moe_mlp", "route_top_k", "router_z_loss"]
 
 
 def moe_capacity(n_tokens: int, n_experts: int, k: int,
@@ -62,6 +62,24 @@ def load_balance_loss(probs: torch.Tensor, top_idx: torch.Tensor,
     scores 1), p_x the mean router probability."""
     f = _one_hot(top_idx, n_experts).float().sum(dim=1).mean(dim=0) / k
     return n_experts * torch.sum(f * probs.mean(dim=0))
+
+
+def dispatch_positions(top_idx: torch.Tensor, n_experts: int, cap: int
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(G, k) expert ids -> (each (token, slot) assignment's position in
+    its expert's buffer (G·k,) int32: the running count of earlier
+    assignments to the same expert; each expert's filled rows (X,) int32,
+    at most ``cap``). The JAX ``moe_mlp``'s integers, from an int32 running
+    sum along the assignments of the (X, G·k) one-hot, the contiguous axis
+    (a sum down the (G·k, X) int64 one-hot is a strided scan on the card:
+    11.06 ms of a Mixtral-8x7B 1024-token chunk on an H100, PERF.md §5)."""
+    eid = top_idx.reshape(-1)
+    onehot = (torch.arange(n_experts, device=eid.device)[:, None]
+              == eid[None, :]).to(torch.int32)                  # (X, G·k)
+    running = torch.cumsum(onehot, dim=1, dtype=torch.int32)
+    pos = running.gather(0, eid[None, :])[0] - 1
+    counts = running[:, -1].clamp(max=cap).contiguous()
+    return pos, counts
 
 
 def router_z_loss(router_logits: torch.Tensor) -> torch.Tensor:
@@ -103,10 +121,9 @@ def moe_mlp(h: torch.Tensor, router_w: torch.Tensor, we_gate, we_up,
     router_logits = ht.float() @ router_w.float()
     top_p, top_idx, probs = route_top_k(router_logits, k, norm_topk)
 
-    # each (token, slot) assignment's position in its expert's buffer: the
-    # running count of earlier assignments to the same expert
-    flat = _one_hot(top_idx, x_experts).reshape(g * k, x_experts)
-    pos = ((torch.cumsum(flat, dim=0) - flat) * flat).sum(dim=-1)
+    # each (token, slot) assignment's position in its expert's buffer, and
+    # each expert's filled rows
+    pos, counts = dispatch_positions(top_idx, x_experts, cap)
     keep = pos < cap
     slot = torch.where(keep, top_idx.reshape(g * k) * cap + pos,
                        x_experts * cap)     # dropped: the sink row
@@ -114,8 +131,6 @@ def moe_mlp(h: torch.Tensor, router_w: torch.Tensor, we_gate, we_up,
                       device=h.device)
     buf[slot] = ht[:, None].expand(g, k, e).reshape(g * k, e)
     buf = buf[:-1].view(x_experts, cap, e)
-    # filled rows per expert: its assignments, at most cap
-    counts = flat.sum(dim=0).clamp(max=cap).to(torch.int32)
 
     gate = _expert_matmul(buf, we_gate, dtype, counts)
     up = _expert_matmul(buf, we_up, dtype, counts)

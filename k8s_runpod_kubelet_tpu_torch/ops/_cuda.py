@@ -2,10 +2,11 @@
 
 Each source compiles with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface, loaded through ``ctypes``: no PyTorch headers,
-so a build takes seconds. Libraries land in ``_build/`` beside the
-package (listed in ``.gitignore``), named by a hash of the source and the
-flags (and of the shared ``csrc/*.cuh`` headers), so an edited source
-rebuilds and an unchanged one is reused.
+so a build takes seconds (a source that encodes TMA tensor maps also
+links libcuda, ``LINK_FLAGS``). Libraries land in ``_build/``
+beside the package (listed in ``.gitignore``), named by a hash of the
+source and the flags (and of the shared ``csrc/*.cuh`` headers), so an
+edited source rebuilds and an unchanged one is reused.
 Nothing here runs at import: a kernel's first launch builds its source.
 """
 
@@ -23,6 +24,9 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# libraries a source links beyond the runtime: libcuda for the TMA tensor
+# maps (cuTensorMapEncodeTiled)
+LINK_FLAGS = {"int4_expert_matmul": ["-lcuda"]}
 
 _lock = threading.Lock()                    # guards _locks
 _locks: dict[str, threading.Lock] = {}      # one per source: builds of
@@ -48,7 +52,8 @@ def _target(name: str) -> Path:
     # the source and every shared header it may include
     src = b"".join(p.read_bytes() for p in
                    [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    flags = NVCC_FLAGS + LINK_FLAGS.get(name, [])
+    digest = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
@@ -72,7 +77,8 @@ def _build(name: str, out: Path) -> None:
     succeeded (a concurrent process never loads a half-written file)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f".{os.getpid()}.{out.name}")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu"),
+           *LINK_FLAGS.get(name, [])]
     proc = subprocess.run(cmd, stdout=subprocess.PIPE,
                           stderr=subprocess.STDOUT, text=True)
     build_logs[name] = proc.stdout

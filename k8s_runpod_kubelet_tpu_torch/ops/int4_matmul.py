@@ -11,11 +11,12 @@ group's scale; the sum over groups is cast to h's dtype once.
 raises) and runs ``_int4_matmul_plain``, the port of ``_fallback_2d``, on a
 CPU tensor. ``int4_expert_matmul`` is the per-expert form of the MoE layers
 (the JAX ``int4_expert_matmul``, there a ``lax.map`` of the 2-D kernel over
-experts): one launch of the same tile for every expert at once, with an
-optional device count of filled rows per expert. The kernel takes the
-quantizer's bytes as they are (out a multiple of 16, groups of a multiple
-of 16 in-elements, every tensor 16-byte aligned). Forward only: training
-never sees int4 weights.
+experts): one launch of ``csrc/int4_expert_matmul.cu`` for every expert at
+once, a persistent walk over the row tiles an optional device count of
+filled rows per expert leaves live. The kernels take the quantizer's bytes
+as they are (out a multiple of 16, groups of a multiple of 16 in-elements,
+every tensor 16-byte aligned). Forward only: training never sees int4
+weights.
 """
 
 from __future__ import annotations
@@ -86,14 +87,17 @@ def _launchers():
 
 @functools.cache
 def _expert_launchers():
-    """The expert entry of the same library and its split choice."""
-    lib = _cuda.load("int4_matmul")
+    """The expert entry of ``csrc/int4_expert_matmul.cu`` and the tile
+    height it takes for a buffer of C rows an expert. One launch, no
+    scratch."""
+    lib = _cuda.load("int4_expert_matmul")
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn, splits = lib.int4_expert_matmul_bf16, lib.int4_expert_matmul_splits
-    fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
-    splits.argtypes = [i, i, i, i]
-    fn.restype = splits.restype = i
-    return fn, splits
+    fn, tile_rows = lib.int4_expert_matmul_bf16, \
+        lib.int4_expert_matmul_tile_rows
+    fn.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
+    tile_rows.argtypes = [i]
+    fn.restype = tile_rows.restype = i
+    return fn, tile_rows
 
 
 @functools.cache
@@ -169,7 +173,7 @@ def int4_expert_matmul(h: torch.Tensor, q4: torch.Tensor,
     """Per-expert int4 matmul: h (X, C, in) @ q4 (X, in/2, out) with scale
     (X, g, 1, out) -> (X, C, out) in h's dtype. ``counts`` (X,) int32 on
     h's device, if given, is each expert's filled rows: rows at or past it
-    come back as zeros, and the kernel reads no weights for a row tile past
+    come back as zeros, and the kernel runs no row tile that starts past
     it. A CUDA tensor launches the kernel once for every expert (bf16 h) or
     raises; a CPU tensor takes the plain version."""
     if h.dim() != 3 or q4.dim() != 3 or scale.dim() != 4:
@@ -201,16 +205,12 @@ def int4_expert_matmul(h: torch.Tensor, q4: torch.Tensor,
         raise TypeError(f"the CUDA kernel takes contiguous int32 counts, "
                         f"got {counts.dtype}")
     g = scale.shape[1]
-    launch, splits_of = _expert_launchers()
+    launch = _expert_launchers()[0]
     y = torch.empty((x, rows, out), dtype=h.dtype, device=h.device)
-    splits = splits_of(x, rows, out, g)
-    partial = (torch.empty((splits, x, rows, out), dtype=torch.float32,
-                           device=h.device) if splits > 1 else y)
     stream = torch.cuda.current_stream(h.device).cuda_stream
     code = launch(h.data_ptr(), q4.data_ptr(), scale.data_ptr(),
                   counts.data_ptr() if counts is not None else None,
-                  y.data_ptr(), partial.data_ptr(), x, rows, kin, out, g,
-                  stream)
+                  y.data_ptr(), x, rows, kin, out, g, stream)
     _cuda.check(code, "int4_expert_matmul")
     int4_expert_matmul.launches += 1
     return y

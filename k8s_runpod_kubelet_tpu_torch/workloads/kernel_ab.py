@@ -7,16 +7,21 @@ B=8, K=4 B=8, a 1024-token prefill chunk) and ``paged_attention`` and
 ``paged_attention_quant`` (decode B=8) at phase 3's shapes and inputs (the
 int8 pages that the model's ``_kv_quant`` makes from the bf16 ones);
 ``int4_matmul`` at phase 3's projection shapes (``INT4_SHAPES``) at 8 and
-1024 rows; and the four MLA entries at phase 3b's shapes
-(``paged_attention_multi_mla`` and ``paged_attention_multi_mla_quant`` at
-decode K=1 B=8 and a 1024-token chunk, the single-token forms at decode).
+1024 rows; ``int4_expert_matmul`` at phase 3's six Mixtral cases
+(``INT4_EXPERT_ROWS`` x ``INT4_EXPERT_SHAPES``: the same counts, weights and
+buffers, with the counts), beside the instructions each tree's expert
+kernel spends to unpack a staged q4 byte (``chip_smoke.sass_unpack_mix``);
+and the four
+MLA entries at phase 3b's shapes (``paged_attention_multi_mla`` and
+``paged_attention_multi_mla_quant`` at decode K=1 B=8 and a 1024-token
+chunk, the single-token forms at decode).
 
 Run from the repository root on a machine with one NVIDIA card, with the
 other tree unpacked somewhere (for example ``git archive <commit> | tar -x
 -C .archive/parent``):
 
     python -m k8s_runpod_kubelet_tpu_torch.workloads.kernel_ab \
-        --other .archive/parent [--kernels paged flash int4 mla] \
+        --other .archive/parent [--kernels paged flash int4 int4_expert mla] \
         [--out ab.json]
 
 The other tree's package is imported under another name and builds its
@@ -43,9 +48,12 @@ import torch
 PKG = "k8s_runpod_kubelet_tpu_torch"
 
 
-KINDS = ("paged", "flash", "int4", "mla")
+KINDS = ("paged", "flash", "int4", "int4_expert", "mla")
+# the sources a kind may launch, in either tree (a tree builds those it has:
+# before its own source, int4_expert_matmul lived in int4_matmul.cu)
 SOURCES = {"paged": ("paged_attention_multi", "paged_attention_multi_quant"),
            "flash": ("flash_attention",), "int4": ("int4_matmul",),
+           "int4_expert": ("int4_matmul", "int4_expert_matmul"),
            "mla": ("paged_attention_multi_mla",
                    "paged_attention_multi_mla_quant")}
 
@@ -67,8 +75,8 @@ def _other_ops(root: str):
 
 
 def _build_all(cudas, names) -> None:
-    """Both trees' sources of the kernels compared, one nvcc each, all at
-    once."""
+    """Both trees' sources of the kernels compared (those each tree has),
+    one nvcc each, all at once."""
     errors = []
 
     def build(cuda, name):
@@ -78,7 +86,7 @@ def _build_all(cudas, names) -> None:
             errors.append(e)
 
     threads = [threading.Thread(target=build, args=(c, n)) for c in cudas
-               for n in names]
+               for n in names if (c.CSRC / f"{n}.cu").exists()]
     for t in threads:
         t.start()
     for t in threads:
@@ -183,6 +191,33 @@ def main(argv=None) -> int:
                   lambda m: m.int4_matmul(h, q4, scale),
                   (other_int4, this_int4))
             del leaf, q4, scale, h
+    unpack_mix = {}
+    if "int4_expert" in args.kernels:
+        # each tree's expert kernel: the library that holds it
+        for tree, cuda in (("other", other_cuda), ("this", _cuda)):
+            lib = next(n for n in ("int4_expert_matmul", "int4_matmul")
+                       if (cuda.CSRC / f"{n}.cu").exists()
+                       and "int4_expert_matmul_kernel" in (
+                           cuda.CSRC / f"{n}.cu").read_text())
+            unpack_mix[tree] = cs.sass_unpack_mix(
+                cuda.load(lib)._name, "int4_expert_matmul_kernel")
+            for kernel, mix in sorted(unpack_mix[tree].items()):
+                cs.log(f"  sass unpack ({tree}) {kernel}: "
+                       f"{mix['unpack_instructions']} instructions for "
+                       f"{mix['q4_bytes']} q4 bytes a thread, "
+                       f"{mix['per_byte']} a byte ({mix['ops']})")
+    for n_rows, path in cs.INT4_EXPERT_ROWS if "int4_expert" in args.kernels \
+            else ():
+        for kin, out, leaves in cs.INT4_EXPERT_SHAPES:
+            h, q4, scale, counts, _ = cs.int4_expert_inputs(torch, dev,
+                                                            n_rows, kin, out)
+            reps = 10 if n_rows >= 1024 else 30
+            turns("int4_expert_matmul",
+                  f"{path}: 8 x {n_rows} x ({kin} -> {out}) [{leaves}], "
+                  f"counts {counts.tolist()}",
+                  lambda m: m.int4_expert_matmul(h, q4, scale, counts),
+                  (other_int4, this_int4))
+            del h, q4, scale, counts
     for case, b, kq, lengths in () if "mla" not in args.kernels else (
             ("decode K=1 B=8", 8, 1, cs.MLA_DECODE_LENGTHS),
             ("prefill K=1024 B=1", 1, 1024, [100 + 1024])):
@@ -202,6 +237,8 @@ def main(argv=None) -> int:
                           *q1, *pages, table, lens, sm_scale=scale))
     result = {"card": card, "device": torch.cuda.get_device_name(0),
               "other": args.other, "ab": rows}
+    if unpack_mix:
+        result["int4_expert_unpack_mix"] = unpack_mix
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)

@@ -59,7 +59,8 @@ experts`` (the ``int4_expert_matmul`` kernel).
 Prints one JSON object (also written to ``--out`` if given): per phase
 the wall time of a step (host clock around work that ends in a
 synchronize), the device time by family (the attention kernels, the
-RMSNorm kernel, GEMMs, the arena scatter, everything else), the device's
+RMSNorm kernel, GEMMs, the arena scatter, the running sums, everything
+else), the device's
 busy share of the wall time, ``rms_norm`` alone at the chunk's shape
 (mean device time beside its byte bound), and the card's name and power
 limit.
@@ -111,6 +112,9 @@ FAMILIES = (
     ("rms_norm", ("_rms_kernel",)),
     ("gemm", ("gemm", "gemv", "cutlass", "sm90_xmma", "nvjet", "cublas")),
     ("arena_scatter", ("index_put", "indexing_backward", "scatter")),
+    # running sums (torch.cumsum): the MoE routing's positions, the
+    # sampler's top-p
+    ("scan", ("scan",)),
 )
 
 

@@ -666,9 +666,10 @@ def test_int4_matmul_tile_edges_match_plain(cuda, rows, out, kin):
     _close_bf16(y, _int4_plain_rows(h.float(), q4, scale))
 
 
-# (experts, rows an expert, in, out, counts): both regimes, split and
-# unsplit launches (a few small experts leave the card idle, so their groups
-# split), tile edges, an expert with no row, one full, one past a row tile
+# (experts, rows an expert, in, out, counts): both regimes (16-row tiles up
+# to 64 rows an expert, 64-row tiles above), fewer live units than the
+# persistent grid has blocks and more, tile edges, an expert with no row,
+# one full, one past a row tile, one group of 688 in-elements
 INT4_EXPERT_CASES = [
     (4, 8, 256, 128, [8, 0, 3, 5]),
     (8, 8, 4096, 1024, [2, 3, 0, 8, 1, 0, 2, 0]),
@@ -708,8 +709,10 @@ def test_int4_expert_matmul_kernel_matches_plain(cuda, experts, rows, kin,
 
 
 def test_int4_expert_matmul_is_one_launch_of_its_own(cuda):
-    """The expert entry counts on its own wrapper only, and its splits
-    follow the dense entry's rule over every expert's tiles."""
+    """The expert entry counts on its own wrapper only, and it is one
+    launch with no split partials: its tile height comes from the buffer's
+    rows alone, 16 up to 64 rows an expert (decode C = 8, a K = 5 verify
+    C = 40) and 64 above (a prefill chunk)."""
     leaf = _quantize_leaf_int4(torch.randn((256, 128), device=cuda))
     q4 = torch.stack([leaf["q4"]] * 3)
     scale = torch.stack([leaf["scale"]] * 3)
@@ -718,15 +721,82 @@ def test_int4_expert_matmul_is_one_launch_of_its_own(cuda):
     int4_expert_matmul(h, q4, scale)
     assert (int4_matmul.launches, int4_expert_matmul.launches) == \
         (before[0], before[1] + 1)
-    splits = _expert_launchers()[1]
-    dense = int4_matmul_launchers()[1]
-    assert splits(1, 8, 1024, 32) == dense(8, 1024, 32)
-    assert splits(8, 8, 14336, 32) == 1 and splits(8, 1024, 4096, 112) == 1
+    tile_rows = _expert_launchers()[1]
+    assert [tile_rows(c) for c in (1, 8, 40, 64, 65, 1024)] == \
+        [16, 16, 16, 16, 64, 64]
     with pytest.raises(TypeError):
         int4_expert_matmul(h, q4, scale, torch.zeros(3, dtype=torch.int64,
                                                       device=cuda))
     with pytest.raises(ValueError, match="counts"):
         int4_expert_matmul(h, q4, scale, torch.zeros(3, dtype=torch.int32))
+
+
+# the new tile's edges in both regimes, at narrow widths: (rows an expert,
+# in, out, counts); each list has an expert with no row and one at C, and
+# counts around the tile height (16 up to 64 rows, else 64)
+INT4_EXPERT_EDGE_CASES = [
+    (8, 256, 128, [0, 1, 7, 8]),
+    (40, 512, 256, [0, 1, 15, 16, 17, 31, 33, 40]),
+    (64, 256, 400, [64, 0, 16, 48]),
+    (65, 256, 256, [0, 65, 64, 1]),
+    (300, 384, 272, [0, 1, 63, 64, 65, 127, 129, 300]),
+]
+
+
+@pytest.mark.parametrize("rows,kin,out,counts", INT4_EXPERT_EDGE_CASES)
+def test_int4_expert_matmul_tile_edges_match_plain(cuda, rows, kin, out,
+                                                   counts):
+    """Counts at the edges of the tile that the buffer's rows choose: every
+    filled row against the plain version, the rest exactly zero, and the
+    filled rows the same bytes as the launch at full capacity."""
+    experts = len(counts)
+    gen = torch.Generator(device=cuda).manual_seed(rows + kin + out)
+    leaves = [_quantize_leaf_int4(0.02 * torch.randn(
+        (kin, out), generator=gen, device=cuda)) for _ in range(experts)]
+    q4 = torch.stack([lf["q4"] for lf in leaves])
+    scale = torch.stack([lf["scale"] for lf in leaves])
+    h = torch.randn((experts, rows, kin), generator=gen,
+                    device=cuda).bfloat16()
+    cnt = torch.tensor(counts, dtype=torch.int32, device=cuda)
+    y = int4_expert_matmul(h, q4, scale, cnt)
+    y_full = int4_expert_matmul(h, q4, scale)
+    torch.cuda.synchronize()
+    _close_bf16(y, _int4_expert_matmul_plain(h.float(), q4, scale, cnt))
+    _close_bf16(y_full, _int4_expert_matmul_plain(h.float(), q4, scale))
+    past = torch.arange(rows, device=cuda)[None] >= cnt[:, None]
+    assert torch.equal(y[past], torch.zeros_like(y[past]))
+    assert torch.equal(y[~past], y_full[~past])
+
+
+@pytest.mark.parametrize("rows", [8, 300])
+def test_int4_expert_matmul_graph_replays_rewritten_counts(cuda, rows):
+    """One launch captured in a CUDA graph reads the counts on the card at
+    every replay: rewritten in place between replays, each replay equals an
+    eager launch with the new counts (no host read at capture)."""
+    experts, kin, out = 4, 256, 256
+    gen = torch.Generator(device=cuda).manual_seed(rows)
+    leaves = [_quantize_leaf_int4(0.02 * torch.randn(
+        (kin, out), generator=gen, device=cuda)) for _ in range(experts)]
+    q4 = torch.stack([lf["q4"] for lf in leaves])
+    scale = torch.stack([lf["scale"] for lf in leaves])
+    h = torch.randn((experts, rows, kin), generator=gen,
+                    device=cuda).bfloat16()
+    cnt = torch.tensor([rows, 0, 1, rows // 2], dtype=torch.int32,
+                       device=cuda)
+    int4_expert_matmul(h, q4, scale, cnt)          # built before the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = int4_expert_matmul.launches
+    with torch.cuda.graph(graph):
+        y = int4_expert_matmul(h, q4, scale, cnt)
+    assert int4_expert_matmul.launches == before + 1
+    for counts in ([0, rows, rows // 2, 1], [3, 5, 0, rows]):
+        cnt.copy_(torch.tensor(counts, dtype=torch.int32))
+        graph.replay()
+        ref = int4_expert_matmul(h, q4, scale, cnt)
+        torch.cuda.synchronize()
+        assert torch.equal(y, ref), counts
+        _close_bf16(y, _int4_expert_matmul_plain(h.float(), q4, scale, cnt))
 
 
 # (shards, rows, in, out a shard): both regimes, split and unsplit launches,
@@ -782,8 +852,8 @@ def test_int4_matmul_sharded_kernel_matches_plain(cuda, shards, rows, kin,
 
 def test_int4_matmul_sharded_takes_a_stacked_layout_only(cuda):
     """The in-process entry wants (N, in/2, out/N) and (N, g, 1, out/N)
-    stacks of the mesh's N shards; its split choice is the expert entry's
-    over the shards' tiles."""
+    stacks of the mesh's N shards; its split choice is the dense entry's
+    over the gathered columns (every shard's tiles)."""
     from k8s_runpod_kubelet_tpu_torch.parallel import MeshConfig, make_mesh
 
     q4, scale, q4_all, scale_all = _sharded_leaves(cuda, 2, 256, 128, 0)
@@ -796,9 +866,10 @@ def test_int4_matmul_sharded_takes_a_stacked_layout_only(cuda):
     with pytest.raises(TypeError):
         int4_matmul_sharded(h.float(), q4, scale,
                             make_mesh(MeshConfig(tensor=2)))
-    splits, experts = _sharded_launchers()[1], _expert_launchers()[1]
-    for args in ((2, 8, 2048, 32), (4, 8, 256, 32), (4, 1024, 1024, 112)):
-        assert splits(*args) == experts(*args)
+    splits, dense = _sharded_launchers()[1], int4_matmul_launchers()[1]
+    for n, rows, out, g in ((2, 8, 2048, 32), (4, 8, 256, 32),
+                            (4, 1024, 1024, 112)):
+        assert splits(n, rows, out, g) == dense(rows, n * out, g)
 
 
 def test_tp2_engine_matches_tp1_on_the_card(cuda):
