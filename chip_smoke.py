@@ -9,8 +9,9 @@ latent arena, serves llama3-8b tensor-parallel on an in-process mesh (bf16
 over 4 shards, int4 with an int8 arena over 2), serves Mixtral-8x7B (full
 width and depth, int4 weights drawn and quantized a layer at a time)
 through its sparse-MoE layers, then
-trains Llama-3-8B widths at 4 layers, unsharded and then as ring attention
-over 4 sequence shards in one process.
+trains Llama-3-8B widths at 4 layers, mla-8b widths at 4 layers (flash at
+D = 192), and Llama-3-8B widths as ring attention over 4 sequence shards
+in one process.
 
 Run from the repository root on a machine with one NVIDIA card:
 
@@ -239,11 +240,24 @@ Step graphs (phases 4, 7s, 7b, 7c, 7d). Each engine captures its decode
    against a plain f32 forward in MLA's direct form (per-head K = [c w_uk,
    kr], V = c w_uv, ``_attention_plain`` at head_dim + rope_dim, no
    paging, no absorption, no kernels), limit 0.1, with the skipped-layer
-   control; HTTP, drain with zero leaked pages;
+   control; HTTP, drain with zero leaked pages; (e) then the dense-scratch
+   route, whose prefill runs MLA's direct form through the flash kernels
+   at D = 192, on an engine of 2 slots, cache_len 2048 and kv_pool_pages
+   256 over the same weights: a 1500-token prompt onto a pool that two
+   2040-token runs hold (the route taken once, all three finish, its
+   logits against the plain f32 forward), an n = 2 greedy group (equal
+   members), an ``embed`` of 1000 tokens against the plain f32 pooled
+   state (the phase's limit); launches from counts set to 0 before it:
+   ``flash_fwd`` exactly 32 per dense prefill head and per embed, no
+   ``flash_dq``/``flash_dkv``, 97 ``rms_norm`` per head, embed, dense
+   chunk, step and paged chunk, the latent kernel 32 per step and paged
+   chunk, every other attention kernel 0; (g1)-(g5), HTTP, drain with zero
+   leaked pages;
 7d. the same from ``--model mla-8b --kv-int8`` (int8 latents, pages of
    299,008 B), through ``paged_attention_multi_mla_quant``, the
-   independent check at limit 0.15, and the gap to 7c's logits
-   (information only); then the MLA weights are freed;
+   independent check at limit 0.15, the gap to 7c's logits
+   (information only), and (e) over int8 latents; then the MLA weights are
+   freed;
 7m. MoE engine: the engine the serve CLI builds from ``--model
    mixtral-8x7b --int4`` (8 slots, cache_len 2048, 16-token pages, bf16
    arena), its weights drawn from the seed and quantized a layer at a time
@@ -263,8 +277,11 @@ Step graphs (phases 4, 7s, 7b, 7c, 7d). Each engine captures its decode
    ``flash_dkv`` at the training shape (B 8, Hq 32, Hkv 8, S 2048, D 128,
    causal), a ragged S=1000, D=64, D=256, GQA group 1, a window, a soft
    cap, non-causal, and the serving shape of a dense prefill head or an
-   embed (B 1, Hq 32, Hkv 8, D 128, causal, S 1024 and 1000). Each kernel is held per element against its plain
-   version on the same inputs (the backward kernels take the forward
+   embed (B 1, Hq 32, Hkv 8, D 128, causal, S 1024 and 1000), and MLA's
+   direct form at D = 192 (one kv head a q head, v zero past its first
+   128 columns): the MLA train shape (B 8, Hq 32, S 2048) and a dense
+   prefill head (B 1, S 1024). Each kernel is held per element against
+   its plain version on the same inputs (the backward kernels take the forward
    kernel's lse and delta), with the tolerance of phase 3 (lse: 1e-4 +
    1e-5 |plain|, f32); the whole autograd path against autograd through
    ``_attention_plain`` in f32 (gradients within 1% of each tensor's
@@ -282,7 +299,8 @@ Step graphs (phases 4, 7s, 7b, 7c, 7d). Each engine captures its decode
    on one shard of the ring-train phase (B 2, Hq 32, Hkv 8, S 2048, D 128,
    the q chunk ``q_offset`` positions after the K/V chunk): q_offset 2048
    and 6144 (every key visible), 2048 with window 512 (a band at the chunk
-   edge, rows past it see nothing), 2048 with soft cap 5; the same checks
+   edge, rows past it see nothing), 2048 with soft cap 5, 2048 at D = 192
+   (B 2, Hq 32, Hkv 32, MLA's direct form); the same checks
    and controls at the offset, plus the control of launching the same
    kernels at q_offset 0 on the same inputs, which must miss; SDPA non-
    causal with ``enable_gqa`` (or the band as a boolean mask), with the
@@ -304,6 +322,11 @@ Step graphs (phases 4, 7s, 7b, 7c, 7d). Each engine captures its decode
    step the launches are checked exactly (flash_fwd 2L, flash_dq L,
    flash_dkv L, rms_norm 4L+1: each layer's forward and its recompute);
    step wall, tokens/s and peak memory;
+9m. MLA train: phase 9 on mla-8b widths at 4 layers (MLA's direct form,
+   the flash kernels at D = 192), the same gradient check and control, 6
+   steps with exact launches a step (flash_fwd 2L, flash_dq L, flash_dkv
+   L, rms_norm 6L + 1: the attn, c and mlp norms of each layer's forward
+   and recompute, and the final one);
 9r. ring train: phase 9's configuration at batch 2 x seq 8192 (the same
    16,384 tokens a step) on an in-process mesh of 4 sequence shards of
    2048 with ``ring_flash``. Step 1 on the seeded params and batch, held
@@ -321,6 +344,10 @@ Step graphs (phases 4, 7s, 7b, 7c, 7d). Each engine captures its decode
    unsharded flash step and the plain ring (``ring_flash=False``, the JAX
    default path), whose step-1 loss must sit within 2e-3 of the flash
    ring's;
+9mr. MLA ring train: phase 9r on mla-8b widths at 4 layers (the flash
+   kernels at D = 192 at each ring offset, row 16 at MLA's width), the
+   same checks and controls (the plain f32 forward in MLA's direct form),
+   4 steps with exact launches (rms_norm 6L + 1 a step);
 10. train_main: the CLI on ``--model tiny`` with a checkpoint directory,
    twice; the second life must log ``resumed from checkpoint step 2``.
 
@@ -335,9 +362,12 @@ bursts for ``paged_attention_multi_mla`` and
 ``paged_attention_multi_mla_quant``, phase 7m's burst as ``serve_moe``
 for ``int4_expert_matmul``, phase 7t (b)'s burst as ``serve_tp`` for
 ``int4_matmul_sharded`` (beside 7t (c)'s as ``serve_tp4_bf16``), the
-training run for the flash
-kernels, beside the ring-train run as ``train_ring``; the single-token forms lie on no model path, in this port as in
-the JAX package, and count 0), the last line
+training run for the flash kernels, beside the MLA training run as
+``train_mla``, the ring-train runs as ``train_ring`` and
+``train_ring_mla``, and the MLA dense routes of 7c and 7d (e) as
+``serve_mla_dense`` and ``serve_mla_kv_int8_dense``; the single-token
+forms lie on no model path, in this port as in the JAX package, and count
+0), the last line
 ``{"ok": true, "device": {...}}``. ``--out PATH`` also writes every
 number (engine and training phases included) to PATH as JSON.
 """
@@ -1571,7 +1601,16 @@ FLASH_CASES = [
     # 1024) and an embed of a ragged length, one sequence each
     ("serving B=1 S=1024", 1, 32, 8, 1024, 128, True, None, None),
     ("serving B=1 S=1000", 1, 32, 8, 1000, 128, True, None, None),
+    # MLA's direct form at mla-8b's widths: q/k at head_dim 128 + rope 64,
+    # one kv head a q head, v zero-padded to 192; the train phase's shape
+    # and a dense-route prefill head
+    ("MLA train B=8 S=2048 D=192", 8, 32, 32, 2048, 192, True, None, None),
+    ("MLA serving B=1 S=1024 D=192", 1, 32, 32, 1024, 192, True, None,
+     None),
 ]
+# the width of MLA's direct form (mla-8b: head_dim 128 + rope_dim 64), whose
+# cases zero v past its first MLA_V_DIM columns as the model pads it
+MLA_FLASH_D, MLA_V_DIM = 192, 128
 # row 16: the ring's chunk steps at the training shape of one shard of the
 # ring-train phase (batch 2, 2048 positions a shard): the q chunk sits
 # q_offset positions after the K/V chunk
@@ -1582,6 +1621,9 @@ FLASH_OFFSET_CASES = [
     ("ring q_offset 2048 window 512", 2, 32, 8, 2048, 128, True, 512, None,
      2048),
     ("ring q_offset 2048 soft cap 5", 2, 32, 8, 2048, 128, True, None, 5.0,
+     2048),
+    # MLA's direct form on one shard of a ring step
+    ("MLA ring q_offset 2048 D=192", 2, 32, 32, 2048, 192, True, None, None,
      2048),
 ]
 
@@ -1727,6 +1769,8 @@ def flash_case(torch, F, dev, flush, name, b, hq, hkv, s, d, causal, window,
     gen = torch.Generator().manual_seed(SEED + s + d + hkv)
     q, do = (torch.randn((b, hq, s, d), generator=gen) for _ in range(2))
     k, v = (torch.randn((b, hkv, s, d), generator=gen) for _ in range(2))
+    if d == MLA_FLASH_D:
+        v[..., MLA_V_DIM:] = 0     # MLA's v, zero-padded to the q/k width
     q, k, v, do = (t.to(dev, torch.bfloat16) for t in (q, k, v, do))
     args = dict(causal=causal, sm_scale=d ** -0.5, sliding_window=window,
                 logit_soft_cap=cap, q_offset=q_offset)
@@ -1978,15 +2022,22 @@ def train_grad_check(torch, dev, cfg, batch) -> dict:
     return out
 
 
-def train_phase(torch, dev, card: str) -> dict:
+def train_phase(torch, dev, card: str, cfg=None) -> dict:
+    """Phase 9 (``cfg`` None: llama3-8b widths at 4 layers) or 9m (mla-8b
+    widths at 4 layers): the gradient check, then 6 steps on one repeated
+    seeded batch with exact launches a step (flash at D = 192 for MLA: one
+    forward launch a layer and its remat recompute, one dQ and one dK/dV;
+    the norms of each layer twice, three a layer for MLA's attn, c and mlp
+    norms, and the final one)."""
     from k8s_runpod_kubelet_tpu_torch.models import llama3_8b
     from k8s_runpod_kubelet_tpu_torch.ops import (flash_dkv, flash_dq,
                                                   flash_fwd, rms_norm)
     from k8s_runpod_kubelet_tpu_torch.workloads.train import (
         TrainConfig, Trainer, _leaves, synthetic_batches)
 
-    cfg = dataclasses.replace(llama3_8b(), n_layers=4)
+    cfg = cfg or dataclasses.replace(llama3_8b(), n_layers=4)
     n_layers = cfg.n_layers
+    layer_norms = 2 + (cfg.is_mla + (cfg.mla_q_lora_rank is not None))
     tc = TrainConfig(batch_size=8, seq_len=2048, steps=6, warmup_steps=1)
     batch = next(synthetic_batches(cfg, tc, seed=SEED, device=dev))
     grad_check = train_grad_check(torch, dev, cfg, batch)
@@ -1995,13 +2046,14 @@ def train_phase(torch, dev, card: str) -> dict:
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in _leaves(trainer.params))
-    log(f"  llama3-8b widths, {n_layers} layers: {n_params / 1e9:.3f} B "
+    log(f"  {cfg.name} widths, {n_layers} layers: {n_params / 1e9:.3f} B "
         f"params (f32 master), init {init_s:.1f} s; batch {tc.batch_size} x "
         f"seq {tc.seq_len}, remat {cfg.remat_policy}, lr {tc.learning_rate}")
     batches = itertools.repeat(batch)
     kernels = (flash_fwd, flash_dq, flash_dkv, rms_norm)
     per_step = {"flash_fwd": 2 * n_layers, "flash_dq": n_layers,
-                "flash_dkv": n_layers, "rms_norm": 2 * (2 * n_layers) + 1}
+                "flash_dkv": n_layers,
+                "rms_norm": 2 * (layer_norms * n_layers) + 1}
     # the main path: counts set to 0 just before the run, read just after
     for k in kernels:
         k.launches = 0
@@ -2029,9 +2081,9 @@ def train_phase(torch, dev, card: str) -> dict:
     del trainer, batches
     gc.collect()
     torch.cuda.empty_cache()
-    return {"layers": n_layers, "params": n_params, "batch": tc.batch_size,
-            "seq_len": tc.seq_len, "steps": tc.steps, "losses": losses,
-            "grad_norms": norms, "step_walls_s": walls,
+    return {"model": cfg.name, "layers": n_layers, "params": n_params,
+            "batch": tc.batch_size, "seq_len": tc.seq_len, "steps": tc.steps,
+            "losses": losses, "grad_norms": norms, "step_walls_s": walls,
             "step_s_median": step_s, "tokens_per_s": tok_s,
             "peak_bytes": peak, "launches": launches,
             "launches_per_step": per_step, "init_s": init_s,
@@ -2060,7 +2112,8 @@ def plain_attention_blocked(torch, q, k, v, scale, block):
 
 def plain_logits_long(torch, cfg, params, tokens, block=2048):
     """``plain_logits`` for long rows: the same plain f32 forward with
-    causal attention by ``plain_attention_blocked``, each layer under
+    causal attention by ``plain_attention_blocked`` (an MLA model's in the
+    direct form, ``mla_direct_qkv``), each layer under
     ``torch.utils.checkpoint`` (only its input kept for the backward)."""
     import torch.nn.functional as F
     import torch.utils.checkpoint
@@ -2070,21 +2123,26 @@ def plain_logits_long(torch, cfg, params, tokens, block=2048):
                                                        rope_frequencies)
 
     hd = cfg.head_dim_
-    cos, sin = rope_frequencies(hd, cfg.max_seq_len, cfg.rope_theta,
+    cos, sin = rope_frequencies(cfg.mla_rope_dim if cfg.is_mla else hd,
+                                cfg.max_seq_len, cfg.rope_theta,
                                 cfg.rope_scaling,
                                 device=params["tok_embed"].device)
 
     def layer(x, lp):
         b, n, _ = x.shape
         h = _rms_norm_plain(x, lp["attn_norm"], cfg.norm_eps)
-        q = apply_rope((h @ lp["wq"]).view(b, n, cfg.n_heads, hd), cos, sin)
-        k = apply_rope((h @ lp["wk"]).view(b, n, cfg.n_kv_heads, hd), cos,
-                       sin)
-        v = (h @ lp["wv"]).view(b, n, cfg.n_kv_heads, hd)
+        if cfg.is_mla:
+            q, k, v = mla_direct_qkv(torch, cfg, lp, h, cos, sin)
+        else:
+            q = apply_rope((h @ lp["wq"]).view(b, n, cfg.n_heads, hd), cos,
+                           sin)
+            k = apply_rope((h @ lp["wk"]).view(b, n, cfg.n_kv_heads, hd),
+                           cos, sin)
+            v = (h @ lp["wv"]).view(b, n, cfg.n_kv_heads, hd)
         o = plain_attention_blocked(torch, q.transpose(1, 2),
                                     k.transpose(1, 2), v.transpose(1, 2),
                                     cfg.sm_scale, block)
-        x = x + o.transpose(1, 2).reshape(b, n, -1) @ lp["wo"]
+        x = x + o.transpose(1, 2)[..., :hd].reshape(b, n, -1) @ lp["wo"]
         h = _rms_norm_plain(x, lp["mlp_norm"], cfg.norm_eps)
         return x + plain_mlp(torch, F, cfg, lp, h)
 
@@ -2260,11 +2318,14 @@ def timed_steps(torch, trainer, batches, steps: int, counted=(),
             "peak_bytes": torch.cuda.max_memory_allocated()}
 
 
-def ring_train_phase(torch, dev, card: str) -> dict:
+def ring_train_phase(torch, dev, card: str, cfg=None,
+                     steps: int = 6) -> dict:
     """Sequence-sharded training in one process: the trainer on an
     in-process mesh of RING_SHARDS sequence shards with ``ring_flash``
     (the main path, whose launches are counted), beside the unsharded
-    flash step and the plain ring at the same batch."""
+    flash step and the plain ring at the same batch; ``cfg`` None is
+    llama3-8b widths at 4 layers (phase 9r), an MLA config runs its direct
+    form through the ring (row 16 at D = 192, phase 9mr)."""
     from k8s_runpod_kubelet_tpu_torch.models import llama3_8b
     from k8s_runpod_kubelet_tpu_torch.ops import (flash_dkv, flash_dq,
                                                   flash_fwd, rms_norm)
@@ -2272,10 +2333,11 @@ def ring_train_phase(torch, dev, card: str) -> dict:
     from k8s_runpod_kubelet_tpu_torch.workloads.train import (
         TrainConfig, Trainer, synthetic_batches)
 
-    cfg = dataclasses.replace(llama3_8b(), n_layers=4)
+    cfg = cfg or dataclasses.replace(llama3_8b(), n_layers=4)
     n, layers = RING_SHARDS, cfg.n_layers
+    layer_norms = 2 + (cfg.is_mla + (cfg.mla_q_lora_rank is not None))
     mesh = make_mesh(MeshConfig(seq=n))
-    tc = TrainConfig(batch_size=RING_BATCH, seq_len=RING_SEQ, steps=6,
+    tc = TrainConfig(batch_size=RING_BATCH, seq_len=RING_SEQ, steps=steps,
                      warmup_steps=1)
     batch = next(synthetic_batches(cfg, tc, seed=SEED, device=dev))
     checks = ring_checks(torch, dev, cfg, mesh, batch)
@@ -2284,7 +2346,8 @@ def ring_train_phase(torch, dev, card: str) -> dict:
     # a ring step of a layer is one launch of each kernel (the shards
     # stacked), forward twice under remat
     per_step = {"flash_fwd": 2 * n * layers, "flash_dq": n * layers,
-                "flash_dkv": n * layers, "rms_norm": 2 * (2 * layers) + 1}
+                "flash_dkv": n * layers,
+                "rms_norm": 2 * (layer_norms * layers) + 1}
     trainer = Trainer(ring_cfg, tc, seed=SEED, device=dev, mesh=mesh)
     # the main path: counts set to 0 just before the run, read just after
     for k in kernels:
@@ -2327,8 +2390,9 @@ def ring_train_phase(torch, dev, card: str) -> dict:
     if not plain_rel <= RING_PLAIN_LOSS_REL_LIMIT:
         raise RuntimeError(f"the plain ring's loss {runs['plain_ring']} is "
                            f"off the flash ring's {ring['losses']}")
-    return {"layers": layers, "shards": n, "batch": tc.batch_size,
-            "seq_len": tc.seq_len, "runs": runs, "checks": checks,
+    return {"model": cfg.name, "layers": layers, "shards": n,
+            "batch": tc.batch_size, "seq_len": tc.seq_len, "runs": runs,
+            "checks": checks,
             "launches": launches, "launches_per_step": per_step,
             "step1_norm_rel_err": step1_rel, "plain_ring_loss_rel": plain_rel}
 
@@ -4396,6 +4460,131 @@ def moe_engine_phase(torch, dev, card: str) -> dict:
         torch.cuda.empty_cache()
 
 
+def mla_dense_route_phase(torch, dev, card: str, cfg, params,
+                          kv_int8: bool) -> dict:
+    """7c / 7d (e): mla-8b's dense-scratch route, whose prefill runs MLA's
+    direct form through the flash kernels at D = 192, on an engine of 2
+    slots, cache_len 2048 and the pool at its minimum (2 x 128 pages), over
+    ``params`` (the phase's seeded bf16 tree) and bf16 or int8 latents:
+    (a) a 1500-token prompt onto a pool that two 2040-token runs hold
+    (``dense_route_forced``: the route taken once, all three finish, its
+    logits against the plain f32 direct-form forward); (b) an n = 2 greedy
+    group (one prefill on the dense route, the members' tokens equal); (c)
+    ``embed`` of 1000 tokens against the plain f32 forward's mean-pooled
+    final-norm state. The launch counts are set to 0 just before (a) and
+    read after (c): ``flash_fwd`` exactly 32 per dense prefill head and per
+    embed, no ``flash_dq``/``flash_dkv``, ``rms_norm`` 97 per head, embed,
+    dense chunk, decode step and paged chunk, the latent kernel 32 per step
+    and paged chunk, every other attention kernel 0, replays equal to decode
+    steps; then (g1)-(g5) on its graphs, HTTP and drain with 0 leaked
+    pages."""
+    import numpy as np
+
+    from k8s_runpod_kubelet_tpu_torch.ops import (
+        flash_dkv, flash_dq, flash_fwd, paged_attention, paged_attention_mla,
+        paged_attention_mla_quant, paged_attention_multi,
+        paged_attention_multi_mla, paged_attention_multi_mla_quant,
+        paged_attention_multi_quant, paged_attention_quant, rms_norm)
+    from k8s_runpod_kubelet_tpu_torch.workloads.serving import (
+        ServingConfig, ServingEngine)
+
+    limit = MLA_INT8_ENGINE_REL_L2_LIMIT if kv_int8 \
+        else MLA_ENGINE_REL_L2_LIMIT
+    what = f"{cfg.name}{' --kv-int8' if kv_int8 else ''} dense route"
+    sc = ServingConfig(slots=2, cache_len=2048, max_prefill_len=1024,
+                       kv_page_tokens=16, kv_pool_pages=256,
+                       max_new_tokens=16, quantize_kv_int8=kv_int8)
+    engine = ServingEngine(cfg, params, sc, device=dev).start()
+    rng = np.random.default_rng(SEED + 16 + int(kv_int8))
+
+    def prompt(n: int) -> list[int]:
+        return [int(x) for x in rng.integers(0, cfg.vocab_size, n)]
+
+    main = paged_attention_multi_mla_quant if kv_int8 \
+        else paged_attention_multi_mla
+    held = [k for k in (paged_attention_multi_mla,
+                        paged_attention_multi_mla_quant, paged_attention_mla,
+                        paged_attention_mla_quant, paged_attention_multi,
+                        paged_attention_multi_quant, paged_attention,
+                        paged_attention_quant) if k is not main]
+    kernels = (flash_fwd, flash_dq, flash_dkv, rms_norm, main, *held)
+    keys = ("decode_steps", "prefill_chunks", "dense_prefills",
+            "dense_prefill_heads", "dense_prefill_chunks", "embeds",
+            "admission_rejected")
+
+    def snap() -> dict:
+        with engine._prefix_lock:
+            return {**{k: engine.counters[k] for k in keys},
+                    "replays": sum(g.fn.replays for g in engine._graphs()),
+                    **{k.__name__: k.launches for k in kernels}}
+
+    out = {"kv_int8": kv_int8}
+    try:
+        engine.submit(prompt(64), max_new_tokens=4).result(timeout=900)
+        # the main path: counts set to 0 just before it, read just after
+        with engine._prefix_lock:
+            for k in kernels:
+                k.launches = 0
+        s0 = snap()
+        out["a"] = dense_route_forced(torch, engine, cfg, params, prompt)
+        group = [f.result(timeout=900) for f in engine.submit_group(
+            prompt(300), 2, max_new_tokens=8)]
+        toks = [r["tokens"] for r in group]
+        if toks[0] != toks[1] or len(toks[0]) != 8:
+            raise RuntimeError(f"(b) the n = 2 greedy group gave {toks}")
+        out["b"] = {"tokens": toks[0], "ttft_ms": [r["ttft_s"] * 1e3
+                                                   for r in group]}
+        log(f"  (b) n = 2 group, 300-token prompt: both members "
+            f"{len(toks[0])} equal greedy tokens, TTFT "
+            f"{out['b']['ttft_ms'][0]:.1f} ms")
+        etoks = prompt(1000)
+        t0 = time.perf_counter()
+        vec = torch.tensor(engine.embed(etoks), device=dev)
+        embed_ms = (time.perf_counter() - t0) * 1e3
+        with engine._prefix_lock:
+            ref = plain_logits(torch, cfg, params,
+                               torch.tensor([etoks], device=dev),
+                               hidden=True)[0].mean(dim=0)
+        rel = ((vec - ref).norm() / ref.norm()).item()
+        if not rel <= limit:
+            raise RuntimeError(f"(c) embed: relative L2 {rel} from the plain "
+                               f"f32 forward's pooled state (limit {limit})")
+        out["c"] = {"rel_l2": rel, "limit": limit, "embed_ms": embed_ms}
+        log(f"  (c) embed of 1000 tokens in {embed_ms:.1f} ms: relative L2 "
+            f"{rel:.4f} from the plain f32 forward's pooled state (limit "
+            f"{limit})")
+        s1 = snap()
+        d = {k: s1[k] - s0[k] for k in s0}
+        heads = d["dense_prefill_heads"] + d["embeds"]
+        steps = d["decode_steps"] + d["prefill_chunks"]
+        want = {"flash_fwd": cfg.n_layers * heads, "flash_dq": 0,
+                "flash_dkv": 0,
+                "rms_norm": (3 * cfg.n_layers + 1)
+                * (steps + heads + d["dense_prefill_chunks"]),
+                main.__name__: cfg.n_layers * steps,
+                **{k.__name__: 0 for k in held}}
+        got = {k: d[k] for k in want}
+        if got != want or d["replays"] != d["decode_steps"] \
+                or d["admission_rejected"] or d["dense_prefills"] < 2 \
+                or not d["embeds"]:
+            raise RuntimeError(f"{what}: launches {got} against {want}; "
+                               f"counters {d}")
+        log(f"  (e) launches: flash_fwd {got['flash_fwd']} (D = 192) = "
+            f"{cfg.n_layers} per dense prefill head "
+            f"({d['dense_prefill_heads']}) and embed ({d['embeds']}); "
+            f"rms_norm {got['rms_norm']}, {main.__name__} "
+            f"{got[main.__name__]} over {d['decode_steps']} replays, "
+            f"{d['prefill_chunks']} paged and {d['dense_prefill_chunks']} "
+            "dense chunks; every other kernel 0")
+        out["launches"], out["counts"] = got, d
+        with engine._prefix_lock:   # idle: every request done
+            out["graphs"] = graph_checks(torch, engine, card, limit, what)
+        out["drain"] = http_and_drain(engine, prompt)
+    finally:
+        engine.stop()
+    return out
+
+
 def mla_engine_phase(torch, dev, card: str, cfg, params: list,
                      kv_int8: bool, bf16_logits=None):
     """mla-8b served through the latent arena: the engine the serve CLI
@@ -4405,8 +4594,9 @@ def mla_engine_phase(torch, dev, card: str, cfg, params: list,
     to use them). The arena's shape, the burst with exact launches per step
     (32 latent-kernel launches and 3 norms a layer plus one; no dense paged
     or single-token launch), the independent check against a plain f32
-    direct-form forward, HTTP, drain. Returns its record and the one-chunk
-    last-token logits of the checked prompt (on the host)."""
+    direct-form forward, HTTP, drain; then the dense-scratch route on an
+    engine of its own (``mla_dense_route_phase``). Returns its record and
+    the one-chunk last-token logits of the checked prompt (on the host)."""
     from k8s_runpod_kubelet_tpu_torch.ops import (
         paged_attention, paged_attention_mla, paged_attention_mla_quant,
         paged_attention_multi, paged_attention_multi_mla,
@@ -4498,9 +4688,17 @@ def mla_engine_phase(torch, dev, card: str, cfg, params: list,
                    page_bytes=store.page_bytes, arena_bytes=arena_bytes,
                    serve_peak_bytes=serve_peak,
                    allocated_bytes=torch.cuda.memory_allocated())
-        return rec, logits.cpu()
+        tree = engine.params
     finally:
         engine.stop()
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  {what}: the dense-scratch route (2 slots, cache_len 2048, "
+        "kv_pool_pages 256)")
+    rec["dense_route"] = mla_dense_route_phase(torch, dev, card, cfg, tree,
+                                               kv_int8)
+    return rec, logits.cpu()
 
 
 def main(argv=None) -> int:
@@ -4744,10 +4942,27 @@ def main(argv=None) -> int:
 
     log("phase train (llama3-8b widths, 4 layers, batch 8 x seq 2048)")
     train = train_phase(torch, dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log("phase MLA train (mla-8b widths, 4 layers, batch 8 x seq 2048, "
+        "flash at D = 192)")
+    train_mla = train_phase(torch, dev, card,
+                            dataclasses.replace(mla_8b(), n_layers=4))
+    gc.collect()
+    torch.cuda.empty_cache()
 
     log(f"phase ring train (llama3-8b widths, 4 layers, batch {RING_BATCH} "
         f"x seq {RING_SEQ} in {RING_SHARDS} sequence shards, ring_flash)")
     ring_train = ring_train_phase(torch, dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log(f"phase MLA ring train (mla-8b widths, 4 layers, batch {RING_BATCH} "
+        f"x seq {RING_SEQ} in {RING_SHARDS} sequence shards, ring_flash: "
+        "the flash kernels at D = 192 and q_offset)")
+    ring_train_mla = ring_train_phase(
+        torch, dev, card, dataclasses.replace(mla_8b(), n_layers=4), steps=4)
 
     log("phase train_main (--model tiny, checkpoint and resume)")
     train_cli = train_main_phase(torch)
@@ -4773,6 +4988,7 @@ def main(argv=None) -> int:
     moe_launches = moe["launches"]
     spec_launches = spec["runs"]["speculative"]["counts"]
     mla_launches, mla_q_launches = mla_eng["launches"], mla_q["launches"]
+    mla_dense, mla_q_dense = mla_eng["dense_route"], mla_q["dense_route"]
     csrc = "k8s_runpod_kubelet_tpu_torch/csrc/"
     jax_attn = "k8s_runpod_kubelet_tpu/ops/attention.py:"
     sdpa = "SDPA over the gathered (dequantized) K/V, same mask"
@@ -4802,18 +5018,28 @@ def main(argv=None) -> int:
                 "serve_moe": moe_launches["rms_norm"],
                 "serve_tp": tp_launches["rms_norm"],
                 "serve_tp4_bf16": tp4_launches["rms_norm"],
+                "serve_mla_dense": mla_dense["launches"]["rms_norm"],
+                "serve_mla_kv_int8_dense":
+                    mla_q_dense["launches"]["rms_norm"],
                 "train": train["launches"]["rms_norm"],
-                "train_ring": ring_train["launches"]["rms_norm"]},
+                "train_mla": train_mla["launches"]["rms_norm"],
+                "train_ring": ring_train["launches"]["rms_norm"],
+                "train_ring_mla": ring_train_mla["launches"]["rms_norm"]},
                "F.rms_norm, bf16 weight"),
     ] + [
         record(kname, "cuda", csrc + "flash_attention.cu",
                replaces, flash_cases(kname), train["launches"][kname],
                {"train": train["launches"][kname],
+                "train_mla": train_mla["launches"][kname],
                 "train_ring": ring_train["launches"][kname],
+                "train_ring_mla": ring_train_mla["launches"][kname],
+                "serve_mla_dense": mla_dense["launches"][kname],
+                "serve_mla_kv_int8_dense": mla_q_dense["launches"][kname],
                 **({"serve_openai": openai["launches"][kname]}
                    if kname in openai["launches"] else {})}, library_call)
         for kname, replaces, library_call in (
-            ("flash_fwd", jax_attn + "199", "SDPA forward"),
+            ("flash_fwd", jax_attn + "199", "SDPA forward (at D = 192 a "
+             "yardstick on the same padded q/k/v)"),
             ("flash_dq", jax_attn + "360",
              "SDPA autograd backward: dq, dk and dv together"),
             ("flash_dkv", jax_attn + "397",
@@ -4876,14 +5102,23 @@ def main(argv=None) -> int:
                mla_launches["paged_attention_multi_mla"],
                {"serve_mla": mla_launches["paged_attention_multi_mla"],
                 "serve_mla_kv_int8":
-                    mla_q_launches["paged_attention_multi_mla"]}, mla_sdpa),
+                    mla_q_launches["paged_attention_multi_mla"],
+                "serve_mla_dense":
+                    mla_dense["launches"]["paged_attention_multi_mla"],
+                "serve_mla_kv_int8_dense":
+                    mla_q_dense["launches"]["paged_attention_multi_mla"]},
+               mla_sdpa),
         record("paged_attention_multi_mla_quant", "cuda",
                csrc + "paged_attention_multi_mla_quant.cu", jax_attn + "2105",
                mla["paged_attention_multi_mla_quant"],
                mla_q_launches["paged_attention_multi_mla_quant"],
                {"serve_mla": mla_launches["paged_attention_multi_mla_quant"],
                 "serve_mla_kv_int8":
-                    mla_q_launches["paged_attention_multi_mla_quant"]},
+                    mla_q_launches["paged_attention_multi_mla_quant"],
+                "serve_mla_dense":
+                    mla_dense["launches"]["paged_attention_multi_mla_quant"],
+                "serve_mla_kv_int8_dense": mla_q_dense["launches"][
+                    "paged_attention_multi_mla_quant"]},
                mla_sdpa + " over the dequantized latents (a yardstick: no "
                "single PyTorch call reads int8 latents)"),
     ] + [
@@ -4915,7 +5150,9 @@ def main(argv=None) -> int:
                        "int4_sharded": int4_sharded,
                        "tp_engine_int4": tp_int4, "tp_engine_bf16": tp_bf16,
                        "mla_kv_int8_engine": mla_q, "moe_engine": moe,
-                       "train": train, "ring_train": ring_train,
+                       "train": train, "train_mla": train_mla,
+                       "ring_train": ring_train,
+                       "ring_train_mla": ring_train_mla,
                        "train_main": train_cli,
                        "build_s": {**nvcc_s, "triton": triton_s},
                        "sass": sass, "int4_expert_unpack_mix": unpack_mix},

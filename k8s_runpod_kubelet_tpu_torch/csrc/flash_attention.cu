@@ -59,10 +59,18 @@
 //     keep every f32 operand a register A fragment: S^T = K Q^T and dP^T =
 //     V dO^T (shared x shared), dV += P^T dO and dK += dS^T Q with dO and Q
 //     read MN-major. At D = 256 the two 64 x 256 f32 accumulators would
-//     take 256 registers a thread: the block runs two passes over its band
-//     instead, dV (S^T only) then dK, in one accumulator.
+//     take 256 registers a thread, at D = 192 192 of them beside the S^T
+//     and dP^T fragments: the block runs two passes over its band instead,
+//     dV (S^T only) then dK, in one accumulator.
 // BN is 64, or 32 at D = 256, whose m64n256 accumulator takes 128 registers
-// a thread.
+// a thread. At D = 192 (MLA's direct form: q = [q_nope 128, q_rope 64], k =
+// [k_nope, kr], v zero-padded to 192, one kv head a q head) the forward
+// keeps BN 64 (96 + 32 + 32 registers of fragments, as D = 256's 128 + 16 +
+// 16) and the backward takes BN 32: dQ's fragments then stay at D = 256's
+// count, and the two-pass dK/dV block's shared memory (K, V, two 32-row
+// stages of Q and dO) at 97.5 KB, two blocks an SM. Every product whose N
+// is the head dimension runs as one m64n192k16 wgmma over three swizzle
+// atoms (tile90::MmaRS<192>).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -135,7 +143,8 @@ __device__ __forceinline__ float* smem_ptr(unsigned char* base,
 // On the tensor cores (attention_tile_sm90.cuh): a block of WG warpgroups
 // owns 64 WG query rows of one (b, q head) and walks the key tiles of its
 // causal (and window) band, BN keys a tile (32 at D = 256, whose m64n256
-// output fragment takes 128 registers a thread).
+// output fragment takes 128 registers a thread; 64 at D = 192, whose
+// m64n192 fragment takes 96).
 template <int D>
 struct FwdPick {
   static constexpr int BN = D == 256 ? 32 : 64;
@@ -200,10 +209,11 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
 // --------------------------------------------------------------- backward --
 
 // The backward's tiles: a warpgroup owns 64 rows (query rows in dQ, key rows
-// in dK/dV); the streamed tile (keys in dQ, queries in dK/dV) has BN rows.
+// in dK/dV); the streamed tile (keys in dQ, queries in dK/dV) has BN rows,
+// 32 at D = 192 and 256 (the file's header).
 template <int D>
 struct BwdPick {
-  static constexpr int BN = D == 256 ? 32 : 64;
+  static constexpr int BN = D >= 192 ? 32 : 64;
   static constexpr int DQ_WG = 2;    // dQ: two warpgroups share a K/V tile
   static constexpr int DKV_WG = 1;   // dK/dV: one warpgroup, two blocks an SM
 };
@@ -499,7 +509,8 @@ __device__ __forceinline__ void dkv_pass(
 // head). Blocks are numbered (key tile, (b, kv head)) with the key tile
 // slowest: under a causal mask the first key tiles see the most queries.
 // Two blocks share an SM, except at D = 256, whose tiles take 130 KB of
-// shared memory.
+// shared memory (97.5 KB at D = 192). At D = 192 and 256 the block runs two
+// passes over its band, dV then dK, in one accumulator.
 template <int D, int BN, int WG>
 __global__ void __launch_bounds__(WG * tile90::kWarpgroup, D == 256 ? 1 : 2)
 flash_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -537,7 +548,7 @@ flash_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                              });
   bf16* dk_rows = dk + kh * sk * D;
   bf16* dv_rows = dv + kh * sk * D;
-  if constexpr (D == 256) {
+  if constexpr (D >= 192) {
     float acc[D / 2];
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
@@ -688,6 +699,7 @@ extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
   switch (head_dim) {
     case 64: return fwd<64>(q, k, v, o, lse, batch, p, s);
     case 128: return fwd<128>(q, k, v, o, lse, batch, p, s);
+    case 192: return fwd<192>(q, k, v, o, lse, batch, p, s);
     case 256: return fwd<256>(q, k, v, o, lse, batch, p, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -707,6 +719,7 @@ extern "C" int flash_dq_bf16(const void* q, const void* k, const void* v,
   switch (head_dim) {
     case 64: return dq<64>(q, k, v, d_o, lse, delta, dq_out, batch, p, s);
     case 128: return dq<128>(q, k, v, d_o, lse, delta, dq_out, batch, p, s);
+    case 192: return dq<192>(q, k, v, d_o, lse, delta, dq_out, batch, p, s);
     case 256: return dq<256>(q, k, v, d_o, lse, delta, dq_out, batch, p, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -729,6 +742,8 @@ extern "C" int flash_dkv_bf16(const void* q, const void* k, const void* v,
       return dkv<64>(q, k, v, d_o, lse, delta, dk_out, dv_out, batch, p, s);
     case 128:
       return dkv<128>(q, k, v, d_o, lse, delta, dk_out, dv_out, batch, p, s);
+    case 192:
+      return dkv<192>(q, k, v, d_o, lse, delta, dk_out, dv_out, batch, p, s);
     case 256:
       return dkv<256>(q, k, v, d_o, lse, delta, dk_out, dv_out, batch, p, s);
     default: return static_cast<int>(cudaErrorInvalidValue);

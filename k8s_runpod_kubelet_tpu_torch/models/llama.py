@@ -1,10 +1,12 @@
 """Llama-3-family decoder (port of the JAX package's ``models/llama.py``):
 the contiguous ``forward`` that training and embeddings run, the
 contiguous serving steps over a single-request cache (``prefill``,
-``prefill_chunk_step``, ``verify_step``; dense attention only), and the
-paged serving steps over a KV arena, for dense attention and for
-Multi-head Latent Attention (MLA, DeepSeek-V2), which serves from a
-latent arena.
+``prefill_chunk_step``, ``verify_step``), and the paged serving steps
+over a KV arena, for dense attention and for Multi-head Latent Attention
+(MLA, DeepSeek-V2). MLA's contiguous forward and prefill run its direct
+form (per-head K and V from the latent, the flash kernels at head_dim +
+rope_dim); its cache, contiguous or paged, holds the latent, and its
+serving steps read it in the absorbed form.
 
 Parameters are a plain dict in the JAX package's tree layout, stacked over
 layers: ``tok_embed`` (V, E), ``final_norm`` (E,), ``lm_head`` (E, V) and
@@ -444,14 +446,9 @@ class LlamaModel:
         for RoPE. Under a mesh with seq > 1 attention is ring attention
         over the sequence shards (in one process the tokens are the whole
         sequence; over a process group they are this rank's shard, whose
-        positions start at rank * S). MLA configs raise: their contiguous
-        (direct) form needs the flash kernels at head_dim + rope_dim, a
-        later slice."""
+        positions start at rank * S). An MLA layer runs the direct form
+        (``_mla_attention``)."""
         cfg = self.cfg
-        if cfg.is_mla:
-            raise ValueError(f"{cfg.name}: the contiguous forward of an MLA "
-                             "model is not ported (MLA serves through the "
-                             "paged steps only)")
         if cfg.remat and cfg.remat_policy not in ("full", "none"):
             raise ValueError(f"remat_policy {cfg.remat_policy!r} is not "
                              "ported (full or none)")
@@ -484,11 +481,17 @@ class LlamaModel:
                positions: Optional[torch.Tensor],
                return_kv: bool = False, train: bool = True):
         """One decoder layer of ``forward``: the JAX model's dense
-        ``_attention_block`` then ``_mlp_block``, the matmuls through
-        ``_mm`` (raw weights cast to ``cfg.dtype``, or quantized leaves).
-        ``return_kv`` also returns the layer's rotated k and v (B, S, Hkv,
-        D), the prefill cache content."""
+        ``_attention_block`` (or for MLA ``_mla_attention_block``) then
+        ``_mlp_block``, the matmuls through ``_mm`` (raw weights cast to
+        ``cfg.dtype``, or quantized leaves). ``return_kv`` also returns the
+        layer's cache content: the rotated k and v (B, S, Hkv, D), or for
+        MLA the normed latent c (B, S, r) and rotated rope key kr (B, S,
+        dr)."""
         cfg = self.cfg
+        if cfg.is_mla:
+            x, c, kr = self._mla_attention(x, lp, positions)
+            x = self._mlp(x, lp, train)
+            return (x, c, kr) if return_kv else x
         b, s, _ = x.shape
         hd, dt = cfg.head_dim_, cfg.dtype
         h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
@@ -507,6 +510,39 @@ class LlamaModel:
         o = o.transpose(1, 2).reshape(b, s, cfg.n_heads * hd)
         x = self._mlp(x + self._proj(o, lp["wo"], "wo"), lp, train)
         return (x, k, v) if return_kv else x
+
+    def _mla_attention(self, x: torch.Tensor, lp: Params,
+                       positions: Optional[torch.Tensor]):
+        """Port of the JAX ``_mla_attention_block``, MLA's direct form for
+        the contiguous forward and prefill, on one layer's leaves: per-head
+        k_nope = c w_uk and v = c w_uv from the normed latent, the shared
+        rotated key concatenated onto every head's k and v zero-padded to
+        the q/k width (head_dim + rope_dim), so the two-part score
+        q_nope.k_nope + q_rope.kr is one dot product at that width: the
+        flash kernels (one kv head a q head), or under a mesh with seq > 1
+        ring attention. The output's first head_dim columns go through
+        ``wo``. Returns (x + attention, c (B, S, r), kr (B, S, dr))."""
+        cfg = self.cfg
+        b, s, _ = x.shape
+        hd, dr, hn, dt = (cfg.head_dim_, cfg.mla_rope_dim, cfg.n_heads,
+                          cfg.dtype)
+        h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+        q_nope, q_rope, c, kr = self._mla_project(h, lp, None, positions)
+        k_nope = _mm(c, lp["w_uk"], dt).reshape(b, s, hn, hd)
+        v = _mm(c, lp["w_uv"], dt).reshape(b, s, hn, hd)
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        k = torch.cat([k_nope, kr[:, :, None, :].expand(b, s, hn, dr)],
+                      dim=-1)
+        v = torch.cat([v, v.new_zeros((b, s, hn, dr))], dim=-1)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        if self.mesh is not None and self.mesh.seq > 1:
+            o = ring_attention(qt, kt, vt, self.mesh, causal=True,
+                               sm_scale=cfg.sm_scale,
+                               use_flash=cfg.ring_flash)
+        else:
+            o = self._flash(qt, kt, vt)
+        o = o.transpose(1, 2)[..., :hd].reshape(b, s, hn * hd)
+        return x + self._proj(o, lp["wo"], "wo"), c, kr
 
     def _flash(self, qt, kt, vt) -> torch.Tensor:
         """Causal flash attention of (B, H, S, D) heads; in one process
@@ -572,33 +608,39 @@ class LlamaModel:
 
     # -- contiguous serving steps -------------------------------------------
 
-    def _dense_only(self, what: str) -> None:
-        if self.cfg.is_mla:
-            raise ValueError(
-                f"{self.cfg.name}: the contiguous {what} of an MLA model is "
-                "not ported (ROADMAP Queue 2 (b): its direct form needs the "
-                "flash kernels at head_dim + rope_dim = 192)")
+    def _cache_sections(self) -> tuple[str, str]:
+        """The two per-position sections of a contiguous cache: k and v,
+        or MLA's latent c and rope key kr."""
+        return ("c", "kr") if self.cfg.is_mla else ("k", "v")
 
     def init_cache(self, batch: int, max_len: Optional[int] = None,
                    quantize: bool = False) -> Params:
         """A contiguous KV cache with per-row write indices (the JAX
-        model's ``init_cache``/``_empty_cache`` dense layout): ``k``/``v``
-        (L, B, S, Hkv, D) in the compute dtype, or int8 with ``quantize``
-        plus ``k_scale``/``v_scale`` (L, B, S, Hkv) f32, and ``index`` (B,)
-        int32, the committed length of each row."""
-        self._dense_only("cache")
+        model's ``init_cache``/``_empty_cache``): ``k``/``v`` (L, B, S,
+        Hkv, D) in the compute dtype, or int8 with ``quantize`` plus
+        ``k_scale``/``v_scale`` (L, B, S, Hkv) f32, and ``index`` (B,)
+        int32, the committed length of each row. An MLA config gets the
+        latent layout: ``c`` (L, B, S, r) and ``kr`` (L, B, S, dr), or int8
+        plus ``c_scale``/``kr_scale`` (L, B, S) f32 (MLA's dense-prefix
+        sections come with DeepSeek-MoE, which ``config_from_jax``
+        refuses)."""
         cfg = self.cfg
-        s = max_len or cfg.max_seq_len
-        shape = (cfg.n_layers, batch, s, cfg.n_kv_heads, cfg.head_dim_)
+        lead = (cfg.n_layers, batch, max_len or cfg.max_seq_len)
+        if cfg.is_mla:
+            rows = (lead + (cfg.mla_latent_dim,), lead + (cfg.mla_rope_dim,))
+            scales = lead
+        else:
+            rows = 2 * (lead + (cfg.n_kv_heads, cfg.head_dim_),)
+            scales = lead + (cfg.n_kv_heads,)
         dt = torch.int8 if quantize else cfg.dtype
-        cache = {"k": torch.zeros(shape, dtype=dt, device=self.device),
-                 "v": torch.zeros(shape, dtype=dt, device=self.device),
-                 "index": torch.zeros((batch,), dtype=torch.int32,
-                                      device=self.device)}
+        cache = {name: torch.zeros(shape, dtype=dt, device=self.device)
+                 for name, shape in zip(self._cache_sections(), rows)}
+        cache["index"] = torch.zeros((lead[1],), dtype=torch.int32,
+                                     device=self.device)
         if quantize:
-            for name in ("k_scale", "v_scale"):
-                cache[name] = torch.zeros(shape[:-1], dtype=torch.float32,
-                                          device=self.device)
+            for name in self._cache_sections():
+                cache[name + "_scale"] = torch.zeros(
+                    scales, dtype=torch.float32, device=self.device)
         return cache
 
     def prefill(self, params: Params, tokens: torch.Tensor, cache: Params,
@@ -611,29 +653,31 @@ class LlamaModel:
         (``flash_attention``), as in the JAX model; an int8 cache stores
         each row through ``_kv_quant``, the paged steps' scheme, so pages
         filled from it equal pages the paged chunk step writes. Padding
-        past ``true_length`` writes K/V that nothing attends."""
-        self._dense_only("prefill")
+        past ``true_length`` writes K/V that nothing attends. An MLA model
+        runs its direct form (``_mla_attention``, the flash kernels at
+        head_dim + rope_dim) and caches each layer's latent c and rope key
+        kr."""
         cfg = self.cfg
         b, s = tokens.shape
-        if s > cache["k"].shape[2]:
+        names = self._cache_sections()
+        if s > cache[names[0]].shape[2]:
             raise ValueError(f"prompt length {s} exceeds cache length "
-                             f"{cache['k'].shape[2]}")
+                             f"{cache[names[0]].shape[2]}")
         if true_length is None:
             true_length = torch.full((b,), s, dtype=torch.int32,
                                      device=tokens.device)
-        quant = "k_scale" in cache
+        quant = names[0] + "_scale" in cache
         x = self._embed(params, tokens)
         lp = params["layers"]
         for layer in range(cfg.n_layers):
-            x, k, v = self._layer(x, {n: _at(w, layer) for n, w in lp.items()},
-                                  None, return_kv=True, train=False)
-            if quant:
-                k, k_s = _kv_quant(k)
-                v, v_s = _kv_quant(v)
-                cache["k_scale"][layer, :, :s] = k_s
-                cache["v_scale"][layer, :, :s] = v_s
-            cache["k"][layer, :, :s] = k
-            cache["v"][layer, :, :s] = v
+            x, *rows = self._layer(
+                x, {n: _at(w, layer) for n, w in lp.items()}, None,
+                return_kv=True, train=False)
+            for name, row in zip(names, rows):
+                if quant:
+                    row, row_s = _kv_quant(row)
+                    cache[name + "_scale"][layer, :, :s] = row_s
+                cache[name][layer, :, :s] = row
         cache["index"].copy_(true_length.to(torch.int32))
         last = x[torch.arange(b, device=x.device),
                  true_length.long() - 1][:, None]
@@ -662,14 +706,13 @@ class LlamaModel:
         active row's K/V in place, does not advance ``index``, returns
         (logits (B, K, V) f32, cache). Attention is plain f32 einsum over
         the whole cache, as in the reference. Positions must lie inside
-        the cache."""
-        self._dense_only("verify step")
+        the cache. An MLA model runs ``_verify_step_mla``."""
         cfg = self.cfg
         b, kk = tokens.shape
         dev = tokens.device
         if active is None:
             active = torch.ones((b,), dtype=torch.bool, device=dev)
-        max_len = cache["k"].shape[2]
+        max_len = cache[self._cache_sections()[0]].shape[2]
         positions = (cache["index"].long()[:, None]
                      + torch.arange(kk, device=dev)[None, :])      # (B,K)
         if active.any() and int(positions[active].max()) >= max_len:
@@ -679,6 +722,9 @@ class LlamaModel:
                  <= positions[:, :, None])[:, None, None]     # (B,1,1,K,L)
         rows = torch.arange(b, device=dev)[:, None].expand(b, kk)[active]
         slots = positions[active]
+        if cfg.is_mla:
+            return self._verify_step_mla(params, tokens, cache, positions,
+                                         valid[:, :, 0], active, rows, slots)
         quant = "k_scale" in cache
         hd, dt, hkv = cfg.head_dim_, cfg.dtype, cfg.n_kv_heads
         group = cfg.n_heads // hkv
@@ -712,6 +758,56 @@ class LlamaModel:
             o = torch.einsum("bhgqL,bLhd->bqhgd", p, v_read)
             o = o.reshape(b, kk, cfg.n_heads * hd).to(dt)
             x = x + self._proj(o, _at(lp["wo"], layer), "wo")
+            x = self._paged_mlp(x, lp, layer)
+        return self._head_logits(params, x), cache
+
+    def _verify_step_mla(self, params: Params, tokens: torch.Tensor,
+                         cache: Params, positions: torch.Tensor,
+                         valid: torch.Tensor, active: torch.Tensor,
+                         rows: torch.Tensor, slots: torch.Tensor
+                         ) -> tuple[torch.Tensor, Params]:
+        """``verify_step`` of an MLA model (the JAX ``_verify_step_mla``),
+        in the absorbed form on the contiguous latent cache: each active
+        row's latent and rope key (int8 with their ``_kv_quant`` scales in
+        an int8 cache) written at its (row, slot) pair, the query folded
+        through w_uk and the softmax-weighted latent through w_uv, in plain
+        f32 (the JAX package has no kernel here); ``valid`` (B, 1, K, L)
+        keeps each query to positions <= its own."""
+        cfg = self.cfg
+        b, kk = tokens.shape
+        hd, r, hn, dt = (cfg.head_dim_, cfg.mla_latent_dim, cfg.n_heads,
+                         cfg.dtype)
+        scale = cfg.sm_scale
+        quant = "c_scale" in cache
+        x = self._embed(params, tokens)
+        lp = params["layers"]
+        for layer in range(cfg.n_layers):
+            h = rms_norm(x, lp["attn_norm"][layer], cfg.norm_eps)
+            q_nope, q_rope, c, kr = self._mla_project(h, lp, layer,
+                                                      positions)
+            cc, krc = cache["c"][layer], cache["kr"][layer]
+            if quant:
+                cs, krs = cache["c_scale"][layer], cache["kr_scale"][layer]
+                c, c_s = _kv_quant(c)                       # (B,K,r), (B,K)
+                kr, kr_s = _kv_quant(kr)
+                cs[rows, slots] = c_s[active]
+                krs[rows, slots] = kr_s[active]
+            cc[rows, slots] = c[active]
+            krc[rows, slots] = kr[active]
+            c_read = _kv_dequant(cc, cs) if quant else cc.float()    # (B,L,r)
+            kr_read = _kv_dequant(krc, krs) if quant else krc.float()
+            q_lat = torch.einsum("bkhd,rhd->bkhr", q_nope.float() * scale,
+                                 lp["w_uk"][layer].float().view(r, hn, hd))
+            sc = (torch.einsum("bkhr,blr->bhkl", q_lat, c_read)
+                  + torch.einsum("bkhd,bld->bhkl", q_rope.float() * scale,
+                                 kr_read))
+            sc = torch.where(valid, sc, torch.full_like(sc, -1e30))
+            p = torch.softmax(sc, dim=-1)
+            o_lat = torch.einsum("bhkl,blr->bkhr", p, c_read)
+            o = torch.einsum("bkhr,rhd->bkhd", o_lat,
+                             lp["w_uv"][layer].float().view(r, hn, hd))
+            x = x + _mm(o.reshape(b, kk, hn * hd).to(dt),
+                        _at(lp["wo"], layer), dt)
             x = self._paged_mlp(x, lp, layer)
         return self._head_logits(params, x), cache
 
@@ -982,27 +1078,32 @@ class LlamaModel:
                           norm_topk=cfg.router_norm_topk, with_losses=False)
         return x + y
 
-    def _mla_project(self, h, lp, layer: int, positions):
+    def _mla_project(self, h, lp, layer: Optional[int], positions):
         """Port of the JAX ``_mla_project``: q_nope (B,K,H,hd), q_rope
         (B,K,H,dr) rotated, the latent c (B,K,r) normed by ``c_norm``, and
         the shared rope key kr (B,K,dr) rotated. q is full rank through
         ``wq``, or with ``mla_q_lora_rank`` ``w_qa`` -> ``q_a_norm`` ->
         ``w_qb``. RoPE math runs in f32 and rounds to the compute dtype,
-        as in JAX."""
+        as in JAX. ``lp`` holds the stacked leaves and ``layer`` picks
+        one, or with ``layer`` None ``lp`` is one layer's leaves."""
         cfg = self.cfg
         b, kk, _ = h.shape
         hd, dr, r, dt = (cfg.head_dim_, cfg.mla_rope_dim, cfg.mla_latent_dim,
                          cfg.dtype)
+
+        def leaf(name: str):
+            return lp[name] if layer is None else _at(lp[name], layer)
+
         if cfg.mla_q_lora_rank is not None:
-            qa = rms_norm(_mm(h, _at(lp["w_qa"], layer), dt),
-                          lp["q_a_norm"][layer], cfg.norm_eps)
-            q = _mm(qa, _at(lp["w_qb"], layer), dt)
+            qa = rms_norm(_mm(h, leaf("w_qa"), dt), leaf("q_a_norm"),
+                          cfg.norm_eps)
+            q = _mm(qa, leaf("w_qb"), dt)
         else:
-            q = _mm(h, _at(lp["wq"], layer), dt)
+            q = _mm(h, leaf("wq"), dt)
         q = q.reshape(b, kk, cfg.n_heads, hd + dr)
-        ckr = _mm(h, _at(lp["w_dkv"], layer), dt)
+        ckr = _mm(h, leaf("w_dkv"), dt)
         # the RMSNorm kernel takes unit-stride rows: c is a slice of ckr
-        c = rms_norm(ckr[..., :r].contiguous(), lp["c_norm"][layer],
+        c = rms_norm(ckr[..., :r].contiguous(), leaf("c_norm"),
                      cfg.norm_eps)
         q_rope = apply_rope(q[..., hd:], self.cos, self.sin, positions)
         kr = apply_rope(ckr[..., None, r:], self.cos, self.sin,

@@ -46,7 +46,10 @@ import torch
 from . import _cuda
 
 NEG_INF = -1e30
+# head widths the paged kernels take, and the flash kernels (192: MLA's
+# direct form, head_dim 128 + rope 64)
 _HEAD_DIMS = (64, 128, 256)
+_FLASH_HEAD_DIMS = (64, 128, 192, 256)
 
 
 def _paged_valid_multi(n_tokens: int, lengths: torch.Tensor, kq: int,
@@ -884,7 +887,7 @@ def _flash_launchers():
 
 def _check_flash_cuda(**tensors) -> None:
     """What the kernels take: tensors on one card, contiguous, 16-byte
-    aligned, bf16 (f32 for lse and delta), D in {64, 128, 256}."""
+    aligned, bf16 (f32 for lse and delta), D in {64, 128, 192, 256}."""
     dev = tensors["q"].device
     for name, t in tensors.items():
         want = torch.float32 if name in ("lse", "delta") else torch.bfloat16
@@ -898,9 +901,9 @@ def _check_flash_cuda(**tensors) -> None:
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
     d = tensors["q"].shape[3]
-    if d not in _HEAD_DIMS:
+    if d not in _FLASH_HEAD_DIMS:
         raise ValueError(f"head_dim {d} not supported by the CUDA kernel "
-                         f"(one of {_HEAD_DIMS})")
+                         f"(one of {_FLASH_HEAD_DIMS})")
 
 
 def _flash_dims(q, k, causal, sm_scale, sliding_window, logit_soft_cap,
@@ -1033,7 +1036,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``sliding_window`` keeps each query to the last W positions (needs
     ``causal``); ``logit_soft_cap`` passes scores through cap*tanh(s/cap)
     before the mask. A CUDA tensor runs the kernels for any Sq, Sk >= 1
-    (bf16, D in {64, 128, 256}, contiguous) or raises; a CPU tensor runs
+    (bf16, D in {64, 128, 192, 256}, contiguous) or raises; a CPU tensor runs
     the same autograd Function over the kernels' plain versions."""
     _check_flash_shapes(q, k, v, causal, sliding_window, logit_soft_cap)
     scale = sm_scale if sm_scale is not None else q.shape[3] ** -0.5

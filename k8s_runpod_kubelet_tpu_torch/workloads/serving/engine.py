@@ -16,7 +16,9 @@ paged loop of the JAX package's ``workloads/serving/engine.py``).
   cached prefix pages from the arena; its full pages enter the trie by
   copy. Binding a slot then references the cached full pages and fills
   private tail pages from the cache; only tail pages that cannot be had
-  fail the request (``EngineOverloaded``).
+  fail the request (``EngineOverloaded``). An MLA model's single cache
+  holds its latent sections, which its prefill computes in the direct
+  form (the flash kernels at head_dim + rope_dim).
 - **Engine thread**: binds ready runs to free slots (the run's pages become
   the slot's page-table row) and runs one ``paged_decode_step`` per step
   for every live slot, growing each slot's table by a private page when
@@ -389,8 +391,7 @@ class ServingEngine:
         (ValueError past it: each pins arena pages for the engine's life).
         The prefix's tail past its last full page still prefills per
         request. A pool too full for an up-front run prefills through the
-        dense-scratch route and pins the pages it can cache (an MLA
-        engine, which has no dense route yet, raises EngineOverloaded)."""
+        dense-scratch route and pins the pages it can cache."""
         vocab = self.cfg.vocab_size
         if not tokens:
             raise ValueError("empty prefix")
@@ -704,11 +705,6 @@ class ServingEngine:
                 return out
             # pool too full for an up-front run: the dense route below
             # needs pages only for what it caches, and at binding
-            if self.cfg.is_mla:
-                raise EngineOverloaded(
-                    f"KV pool cannot hold the {len(tokens)}-token prompt "
-                    "and the dense-scratch route of an MLA model is not "
-                    "ported (ROADMAP Queue 1 #9); retry later")
         return self._prefill_paged_dense(tokens)
 
     def _prefill_paged_dense(self, tokens: list[int]

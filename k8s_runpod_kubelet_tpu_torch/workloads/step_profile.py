@@ -51,10 +51,12 @@ never sees quantized weights, is left out; ``--int4`` weights are drawn
 and quantized a layer at a time (``init_quantized_params``, the serve
 CLI's way), so a model whose bf16 tree does not fit the card
 (mixtral-8x7b, 93 GB) profiles too. ``--model mla-8b`` profiles the
-serving steps over the latent arena (int8 latents with ``--kv-int8``); an
-MLA model has no training step in this port, nor has an MoE model
-(mixtral-8x7b), whose expert products are their own family, ``int4
-experts`` (the ``int4_expert_matmul`` kernel).
+serving steps over the latent arena (int8 latents with ``--kv-int8``) and,
+without ``--kv-int8``, the training step in MLA's direct form (the flash
+kernels at head_dim + rope_dim = 192; ``--seq N`` its ring too); an MoE
+model (mixtral-8x7b) has no training step in this port, and its expert
+products are their own family, ``int4 experts`` (the
+``int4_expert_matmul`` kernel).
 
 Prints one JSON object (also written to ``--out`` if given): per phase
 the wall time of a step (host clock around work that ends in a
@@ -289,7 +291,7 @@ def main(argv=None) -> int:
         timeout=60, check=True).stdout.strip().splitlines()[0]
     cfg = MODEL_CONFIGS[args.model]()
     if args.seq:
-        if args.int4 or args.kv_int8 or cfg.is_mla or cfg.n_experts:
+        if args.int4 or args.kv_int8 or cfg.n_experts:
             p.error("--seq profiles the training step, which this model "
                     "or these flags do not have")
         out = {"card": card, "model": cfg.name, "torch": torch.__version__,
@@ -315,7 +317,7 @@ def main(argv=None) -> int:
     out.update(_serving(cfg, dev, params, args, None))
     del params
     torch.cuda.empty_cache()
-    if not (args.int4 or args.kv_int8 or cfg.is_mla or cfg.n_experts):
+    if not (args.int4 or args.kv_int8 or cfg.n_experts):
         out["train"] = _train_profile(cfg, dev)
     return _emit(out, args.out)
 

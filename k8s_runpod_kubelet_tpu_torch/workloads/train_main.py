@@ -1,6 +1,8 @@
 """Pretrain workload on one card (port of the JAX package's
 ``workloads/train_main.py``): the pod command of a training job. Trains
-the dense Llama decoder on the synthetic token stream, checkpoints with
+the dense Llama decoder, or an MLA model (``--model mla-8b``, ``tiny-mla``,
+its direct form through the flash kernels at head_dim + rope_dim), on the
+synthetic token stream, checkpoints with
 ``torch.save`` and resumes from the newest checkpoint, then prints one
 JSON summary line.
 

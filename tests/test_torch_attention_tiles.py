@@ -18,8 +18,11 @@ so this file runs its arithmetic step by step in PyTorch:
   ``csrc/flash_attention.cu``): S and dP as f32 sums of exact bf16
   products, P = exp2(S scale log2 e - lse log2 e) with masked entries 0,
   dS = P (dP - delta), 64-row blocks (128 for dQ) over 64-row tiles (32
-  at D = 256) of the band, and every product with an f32 operand (P, dS)
-  as bf16 hi + lo: dQ += dS K, dV += P^T dO, dK += dS^T Q.
+  at D = 192 and 256) of the band, and every product with an f32 operand
+  (P, dS) as bf16 hi + lo: dQ += dS K, dV += P^T dO, dK += dS^T Q. At
+  D = 192 (MLA's direct form) each product whose N is the head dimension
+  is one m64n192k16 wgmma, whose f32 sums over k16 slices the recipe
+  takes whole; the forward keeps 64-key tiles there.
 
 Each result is held per element to ``chip_smoke.py``'s tolerance, 1e-4 +
 1e-2 |plain| on the bf16 output (lse: 1e-4 + 1e-5 |plain|, f32), against
@@ -215,6 +218,8 @@ FLASH = {
     "non_causal": (1, 4, 2, 130, 130, 64, False, None, None),
     "d256": (1, 2, 1, 100, 100, 256, True, None, None),
     "sq_gt_sk_window": (1, 2, 1, 90, 40, 64, True, 8, None),
+    # MLA's direct form: head_dim 128 + rope 64, one kv head a q head
+    "d192": (1, 2, 2, 150, 150, 192, True, None, None),
 }
 
 
@@ -293,7 +298,7 @@ def _grad_scores(s, dp, l2, dl, keep, sm_scale, cap):
 
 def _bwd_tiles(d):
     """(rows a block owns in dQ, in dK/dV; rows of a streamed tile)."""
-    return 128, 64, (32 if d == 256 else 64)
+    return 128, 64, (32 if d >= 192 else 64)
 
 
 def _dq_recipe(q, k, v, do, lse, delta, *, causal, sm_scale,

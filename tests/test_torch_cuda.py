@@ -175,6 +175,9 @@ FLASH_CASES = {
     # the serving shape: a dense-route prefill head or an embed at 8B
     # widths, one sequence of a ragged length
     "serving_b1_s1000": (1, 32, 8, 1000, 1000, 128, True, None, None),
+    # MLA's direct form: D = 128 + 64, one kv head a q head
+    "d192_mla": (2, 4, 4, 133, 133, 192, True, None, None),
+    "d192_noncausal": (1, 2, 2, 70, 70, 192, False, None, None),
 }
 
 
@@ -266,13 +269,14 @@ TILE_FLASH_CASES = {
     "s191_d256_window": (1, 2, 1, 191, 191, 256, True, 50, None),
     "s200_sk70_window_blind_rows": (1, 4, 2, 200, 70, 128, True, 16, None),
     "s65_sk300_noncausal_cap": (2, 4, 4, 65, 300, 128, False, None, 10.0),
+    "s191_d192_window": (1, 2, 2, 191, 191, 192, True, 50, None),
 }
 
 
 @pytest.mark.parametrize("name", sorted(TILE_FLASH_CASES))
 def test_flash_fwd_tile_edges_match_plain(cuda, name):
-    """S off the 64-row and 64-key tiles, D = 64 and 256, and rows that see
-    no key (o = 0, lse = -1e30), per element at the chip check's
+    """S off the 64-row and 64-key tiles, D = 64, 192 and 256, and rows
+    that see no key (o = 0, lse = -1e30), per element at the chip check's
     tolerance."""
     b, hq, hkv, sq, sk, d, causal, window, cap = TILE_FLASH_CASES[name]
     gen = torch.Generator().manual_seed(7)
@@ -302,13 +306,15 @@ TILE_BWD_CASES = {
     "s65_sk300_noncausal_cap": (2, 4, 4, 65, 300, 128, False, None, 10.0),
     "s100_d256_noncausal_cap": (1, 2, 1, 100, 100, 256, False, None, 5.0),
     "s300_d64_window_cap": (1, 8, 2, 300, 300, 64, True, 70, 8.0),
+    "s37_d192_below_one_tile": (1, 2, 2, 37, 37, 192, True, None, None),
+    "s161_d192_cap": (1, 4, 4, 161, 161, 192, True, None, 5.0),
 }
 
 
 @pytest.mark.parametrize("name", sorted(TILE_BWD_CASES))
 def test_flash_backward_tile_edges_match_plain(cuda, name):
     """flash_dq and flash_dkv at S off the 64-row tiles and below one, D =
-    64 and 256 (dK/dV in two passes), a window, a soft cap, non-causal,
+    64, 192 and 256 (dK/dV in two passes), a window, a soft cap, non-causal,
     Sq != Sk and rows that see no key (no gradient), per element at the
     chip check's tolerance against the plain versions fed the kernel's lse
     and delta."""
@@ -348,6 +354,7 @@ OFFSET_CASES = {
     "d256_window": (1, 4, 1, 130, 130, 256, 40, None, 130),
     "window_blind": (1, 4, 2, 100, 100, 128, 16, None, 300),
     "sq1_window_cap": (1, 2, 1, 1, 64, 128, 30, 5.0, 40),
+    "d192_all_visible": (1, 4, 4, 130, 130, 192, None, None, 130),
 }
 
 

@@ -12,7 +12,12 @@
   route runs); the port, driven by the same traffic with the same
   ``kv_pool_pages``, gives the same greedy tokens, counts the dense route
   and leaks no page; ``register_prefix`` on that full pool registers the
-  prefix, as the reference does, pinning what it can cache.
+  prefix, as the reference does, pinning what it can cache;
+- MLA (``tiny_mla``, f32 latents): ``init_cache``'s latent sections equal
+  the JAX model's in names, shapes and dtypes, and the MLA engine on the
+  same full pool gives the JAX MLA engine's greedy tokens for that
+  traffic and for an n = 2 group after it (the int8-latent engine and the
+  model-level parity are ``tests/test_torch_mla_dense.py``).
 """
 
 import threading
@@ -31,7 +36,7 @@ from k8s_runpod_kubelet_tpu.workloads.serving import \
     ServingConfig as JaxServingConfig
 from k8s_runpod_kubelet_tpu.workloads.serving import \
     ServingEngine as JaxServingEngine
-from k8s_runpod_kubelet_tpu_torch.models import LlamaModel, tiny_mla
+from k8s_runpod_kubelet_tpu_torch.models import LlamaModel
 from k8s_runpod_kubelet_tpu_torch.models.from_jax import (config_from_jax,
                                                           params_from_jax)
 from k8s_runpod_kubelet_tpu_torch.workloads.serving import (ServingConfig,
@@ -147,10 +152,27 @@ def test_verify_step_writes_active_rows_only(pair):
     assert not torch.equal(cache["k"][:, 0], before[:, 0])
 
 
-def test_mla_contiguous_steps_are_refused():
-    model = LlamaModel(tiny_mla(dtype=torch.float32), device="cpu")
-    with pytest.raises(ValueError, match="Queue 2 \\(b\\)"):
-        model.init_cache(1, 32)
+MLA_DIMS = dict(vocab_size=128, embed_dim=64, n_layers=2, mlp_dim=128,
+                max_seq_len=256)
+MLA_JCFG = jllama.tiny_mla(**MLA_DIMS, dtype=jnp.float32,
+                           param_dtype=jnp.float32)
+
+
+@pytest.mark.parametrize("quantize", [False, True], ids=["f32", "int8"])
+def test_mla_contiguous_cache_matches_jax(quantize):
+    """The contiguous cache of an MLA model (refused before its direct
+    form was ported) is the JAX model's latent layout."""
+    model = LlamaModel(config_from_jax(MLA_JCFG, torch.float32),
+                       device="cpu")
+    cache = model.init_cache(2, 32, quantize=quantize)
+    jcache = jllama.LlamaModel(MLA_JCFG).init_cache(2, 32,
+                                                    quantize=quantize)
+    assert set(cache) == set(jcache)
+    for name in cache:
+        assert tuple(cache[name].shape) == jcache[name].shape, name
+        assert str(cache[name].dtype).removeprefix("torch.") == \
+            str(jcache[name].dtype), name
+        assert not cache[name].any(), name
 
 
 def test_filled_int8_pages_equal_the_paged_chunk_steps(pair):
@@ -312,43 +334,60 @@ def test_pool_below_the_slots_residency_is_refused(pair):
         ServingEngine(model.cfg, params, sc, device="cpu")
 
 
-def test_mla_engine_without_a_dense_route():
-    """An MLA engine has no dense-scratch route yet (ROADMAP Queue 1 #9):
-    a prompt no up-front run can hold answers EngineOverloaded, as before
-    the route existed, and an n > 1 group ValueError naming the gap."""
-    from k8s_runpod_kubelet_tpu_torch.models import init_params
-    from k8s_runpod_kubelet_tpu_torch.workloads.serving import \
-        EngineOverloaded
+def _mla_traffic(engine) -> dict:
+    """The traffic an MLA engine refused before its dense route: the
+    full-pool traffic above, then an n = 2 greedy group."""
+    out = _full_pool_traffic(engine)
+    out["group"] = [f.result(timeout=TIMEOUT)["tokens"]
+                    for f in engine.submit_group(PROMPTS[2][:30], 2)]
+    return out
 
-    cfg = tiny_mla(vocab_size=128, embed_dim=64, n_layers=2, mlp_dim=128,
-                   max_seq_len=256, dtype=torch.float32)
-    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    eng = ServingEngine(cfg, params, _sc(ServingConfig),
-                        device="cpu").start()
+
+@pytest.fixture(scope="module")
+def mla_tree():
+    rng = np.random.default_rng(20261019)
+    shapes = jax.tree_util.tree_map(
+        lambda a: a.shape, jax_init_params(MLA_JCFG, jax.random.PRNGKey(0)))
+
+    def leaf(path, shape):
+        if str(path[-1].key).endswith("norm"):
+            return (1.0 + 0.1 * rng.normal(size=shape)).astype(np.float32)
+        return (0.08 * rng.normal(size=shape)).astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(
+        leaf, shapes, is_leaf=lambda s: isinstance(s, tuple))
+
+
+def test_mla_engine_takes_the_dense_route(mla_tree):
+    """An MLA engine on a pool too small for an up-front run (which
+    answered EngineOverloaded, and ValueError for an n > 1 group, before
+    the route existed) serves the prompt, the prefix and the group through
+    the dense-scratch route with the JAX MLA engine's greedy tokens, and
+    leaks no page."""
+    jeng = JaxServingEngine(
+        MLA_JCFG, jax.tree_util.tree_map(jnp.asarray, mla_tree),
+        _sc(JaxServingConfig)).start()
     try:
-        entered, gate = threading.Event(), threading.Event()
-
-        def hold(_tok):
-            if not entered.is_set():
-                entered.set()
-                gate.wait(TIMEOUT)
-
-        f1 = eng.submit(PROMPTS[0], on_token=hold)
-        try:
-            _wait(entered.is_set, "the first request was never admitted")
-            f2 = eng.submit(PROMPTS[1])
-            _wait(lambda: eng._ready.qsize() == 1,
-                  "the second never prefilled")
-            with pytest.raises(EngineOverloaded, match="Queue 1 #9"):
-                eng.submit(PROMPTS[2]).result(timeout=TIMEOUT)
-            with pytest.raises(EngineOverloaded):
-                eng.register_prefix(PREFIX)
-        finally:
-            gate.set()
-        assert len(f1.result(timeout=TIMEOUT)["tokens"]) == 6
-        assert len(f2.result(timeout=TIMEOUT)["tokens"]) == 6
-        with pytest.raises(ValueError, match="Queue 2 \\(b\\)"):
-            eng.submit_group([1, 2, 3], 2)[0].result(timeout=TIMEOUT)
-        assert eng.counters["admission_rejected"] == 1
+        want = _mla_traffic(jeng)
+    finally:
+        jeng.stop()
+    cfg = config_from_jax(MLA_JCFG, torch.float32)
+    eng = ServingEngine(cfg, params_from_jax(mla_tree, cfg, device="cpu"),
+                        _sc(ServingConfig), device="cpu").start()
+    try:
+        got = _mla_traffic(eng)
+        assert eng.counters["dense_prefills"] == 3
+        assert eng.counters["dense_prefill_heads"] >= 2
+        assert eng.counters["admission_rejected"] == 0
+        eng.drain()
+        _wait(lambda: eng.drained, "the engine did not drain")
+        store = eng._kv_store
+        assert sorted(store.arena) == ["c", "kr"]
+        nodes = list(store.trie._nodes.values())
+        assert store.pool.free_count + len(nodes) == store.pool.n_pages
+        assert all(store.pool.refcount(n.page) == 1 for n in nodes)
     finally:
         eng.stop()
+    assert got == want
+    assert got["registered"] == 1
+    assert got["group"][0] == got["group"][1]

@@ -32,8 +32,9 @@
 - ``quantize_params`` on MLA trees bit-identical to the JAX quantizer's
   (``w_dkv``, ``w_qa``, ``w_qb`` quantized; ``w_uk``/``w_uv`` not);
 - configs: ``mla_8b`` and ``tiny_mla`` equal to the JAX package's through
-  ``config_from_jax``; MoE and dense-prefix configs, and ``forward`` on
-  MLA, raise.
+  ``config_from_jax``; MoE and dense-prefix configs raise; ``forward`` on
+  MLA runs its direct form (its parity with JAX is
+  ``tests/test_torch_mla_dense.py``).
 """
 
 import dataclasses
@@ -530,8 +531,16 @@ def test_moe_and_dense_prefix_mla_configs_are_refused(jcfg):
 
 
 def test_forward_and_bad_mla_fields_raise():
-    model = LlamaModel(tiny_mla(**DIMS, dtype=torch.float32), device="cpu")
-    with pytest.raises(ValueError, match="not ported"):
-        model.forward({}, torch.zeros((1, 4), dtype=torch.int32))
+    """``forward`` of an MLA model runs (the direct form, since MLA's
+    contiguous path was ported; it used to raise) and gives finite logits;
+    a q_lora_rank without MLA still raises."""
+    from k8s_runpod_kubelet_tpu_torch.models import init_params
+    cfg = tiny_mla(**DIMS, dtype=torch.float32)
+    model = LlamaModel(cfg, device="cpu")
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu",
+                         master=True)
+    logits = model.forward(params, torch.zeros((1, 4), dtype=torch.int32))
+    assert logits.shape == (1, 4, DIMS["vocab_size"])
+    assert torch.isfinite(logits).all()
     with pytest.raises(ValueError, match="requires MLA"):
         LlamaModel(tiny_llama(mla_q_lora_rank=8), device="cpu")
