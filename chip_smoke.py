@@ -8,7 +8,8 @@ same, with Multi-head Latent Attention) over a bf16 and then an int8
 latent arena, serves llama3-8b tensor-parallel on an in-process mesh (bf16
 over 4 shards, int4 with an int8 arena over 2), serves Mixtral-8x7B (full
 width and depth, int4 weights drawn and quantized a layer at a time)
-through its sparse-MoE layers, then
+through its sparse-MoE layers, serves llama3-8b with per-request LoRA
+adapters (bf16, then int4 weights over an int8 arena), then
 trains Llama-3-8B widths at 4 layers, mla-8b widths at 4 layers (flash at
 D = 192), and Llama-3-8B widths as ring attention over 4 sequence shards
 in one process.
@@ -229,6 +230,37 @@ Step graphs (phases 4, 7s, 7b, 7c, 7d). Each engine captures its decode
    first run), the independent check against the plain f32 forward at the
    one-device engine's limit with its skipped-layer control; HTTP, drain
    with zero leaked pages;
+7l. multi-LoRA engine, after 7t (c), on phase 4's params: the engine the
+   serve CLI builds from ``--lora-rank 16 --lora-targets`` (all seven:
+   wq, wk, wv, wo, w_gate, w_up, w_down) ``--max-adapters 4`` (8 slots,
+   cache_len 2048; stacks allocated once, 0.419 GB). Three adapters from
+   the port's ``apply_lora`` (explicit generators), B redrawn N(0,
+   sigma^2) with sigma doubled from LORA_SIGMA0 until an adapter moves
+   the base's f32 last-token logits by 1.5 x LORA_MIN_MOVE (each must
+   move them by LORA_MIN_MOVE), registered after the graph captures. The
+   burst of phase 4 with adapter ids cycling base, a1, a2, a3 (every
+   decode batch mixes all four; the shared-prefix pair, base and a1, hits
+   nothing and shares no page), its stretches and repeat with exact
+   launches per step (32 ``paged_attention_multi``, 65 ``rms_norm``: the
+   deltas are plain PyTorch and launch no counted kernel), an n = 2 group
+   under a2 through the dense-scratch route (32 ``flash_fwd``). (a) Each
+   of base, a1, a2, a3: the last-token logits of one prompt (the engine's
+   one-chunk prefill with its stacks and that slot) against a plain f32
+   forward over the merged weights (``layer_f32``: base + A @ B * scale
+   in f32, a layer at a time), limit 0.1; (b) control: each adapter's
+   logits against the next adapter's merge, above the limit; (c)
+   (g1)-(g5) with mixed ids (slot i on adapter i mod 5), launches per
+   replay unchanged, then a4 registered and a1 rewritten (B negated) in
+   place: 0 recaptures, a1's trie subtree dropped, the rewritten a1
+   within the limit of its new merge and above it off the old one; (d)
+   the stacks' bytes and the serving peak, then ``step_profile``'s
+   ``lora_profile`` (decode replay and 1024-token chunk, adapters of rank
+   16 over wq,wv and over all seven, mixed ids, against the same steps
+   without, in turns); HTTP, drain with zero leaked pages. (e), after 7t
+   (b): the same (a)-(c) from ``--int4 --kv-int8 --lora-rank 16`` over
+   7b's quantized tree at full depth (32 ``paged_attention_multi_quant``,
+   225 ``int4_matmul``, 65 ``rms_norm`` a step; the reference dequantizes
+   the int4 base; limit 0.15);
 7c. MLA engine: the engine the serve CLI builds from ``--model mla-8b``
    (8 slots, cache_len 2048, 16-token pages) over random bf16 weights from
    the same seed; its arena must be 2048 + 1 latent pages of 589,824 B;
@@ -365,7 +397,10 @@ for ``int4_expert_matmul``, phase 7t (b)'s burst as ``serve_tp`` for
 training run for the flash kernels, beside the MLA training run as
 ``train_mla``, the ring-train runs as ``train_ring`` and
 ``train_ring_mla``, and the MLA dense routes of 7c and 7d (e) as
-``serve_mla_dense`` and ``serve_mla_kv_int8_dense``; the single-token
+``serve_mla_dense`` and ``serve_mla_kv_int8_dense``, and phase 7l's
+bursts as ``serve_lora`` and ``serve_lora_int4_kv_int8`` (their n = 2
+groups' ``flash_fwd`` as ``serve_lora_dense_group`` and
+``serve_lora_int4_kv_int8_dense_group``); the single-token
 forms lie on no model path, in this port as in the JAX package, and count
 0), the last line
 ``{"ok": true, "device": {...}}``. ``--out PATH`` also writes every
@@ -525,6 +560,19 @@ HF_LAYERS = 2
 # most about the bf16 engine's distance to the f32 forward: 0.1
 TP_INT4_REL_L2_LIMIT = 0.05
 TP_BF16_REL_L2_LIMIT = 0.1
+# phase 7l: multi-LoRA on llama3-8b. Three adapters of this rank over every
+# target (the fourth slot takes one registered after the burst); B drawn
+# N(0, sigma^2), sigma from LORA_SIGMA0 doubling (at most to LORA_SIGMA_MAX)
+# until an adapter moves the base's f32 last-token logits by 1.5 x
+# LORA_MIN_MOVE (relative L2): with B zero, or a move within the engine's
+# own rounding, the checks would hold for a broken delta too. (a) holds each
+# adapter's logits to the engine's limit (ENGINE_REL_L2_LIMIT, or under
+# --int4 --kv-int8 QUANT_ENGINE_REL_L2_LIMIT): the deltas run in bf16 like
+# the base products, so they add about one more bf16 rounding a projection.
+LORA_RANK, LORA_MAX_ADAPTERS = 16, 4
+LORA_TARGETS_ALL = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+LORA_MIN_MOVE = 0.2
+LORA_SIGMA0, LORA_SIGMA_MAX = 0.005, 0.32
 # (g1)-(g3): the slots' contexts of the step graph checks (step_profile's
 # decode contexts; slot 0 is moved to cross a page between the two steps)
 GRAPH_LENGTHS = (402, 475, 468, 252, 411, 789, 881, 571)
@@ -2501,9 +2549,16 @@ def prefix_path_check(torch, model, params, prompt: list[int]) -> dict:
 
 def layer_f32(w, layer=None):
     """A weight leaf (of one layer) in f32: a raw weight upcast, a
-    quantized leaf dequantized."""
+    quantized leaf dequantized, a LoRA leaf merged (``merge_lora``'s
+    fold, base + A @ B * scale, all in f32 and one layer at a time)."""
     from k8s_runpod_kubelet_tpu_torch.models.quant import dequantize
 
+    if isinstance(w, dict) and "lora_a" in w:
+        def pick(v):
+            return v if layer is None else v[layer]
+        return layer_f32(w["w"], layer) + (
+            pick(w["lora_a"]).float() @ pick(w["lora_b"]).float()
+        ) * pick(w["scale"]).float()
     if isinstance(w, dict):
         return dequantize({k: (v if layer is None else v[layer])
                            for k, v in w.items()})
@@ -2722,8 +2777,8 @@ def moe_layer_check(torch, model, params, prompt, free_picks) -> dict:
     seen = []
     paged_mlp = model._paged_mlp
 
-    def record(x, lp, layer):
-        out = paged_mlp(x, lp, layer)
+    def record(x, lp, layer, *adapter):
+        out = paged_mlp(x, lp, layer, *adapter)
         seen.append((x.clone(), out.clone()))
         return out
 
@@ -2868,14 +2923,18 @@ def recorder_stats(engine, after: int, what: str, card: str) -> dict:
     return out
 
 
-def serve_burst(torch, engine, cfg, card: str, kernels, per_step) -> dict:
+def serve_burst(torch, engine, cfg, card: str, kernels, per_step,
+                adapters=None) -> dict:
     """The engine's main path, read per path: the 8-request burst (counts
     set to 0 just before it, read just after), its decode-only stretch
     after the last prefill, a prefill-only stretch (a 1500-token prompt in
     two chunks, one new token), and a repeat. ``per_step`` maps each
     kernel to its launches per decode step or prefill chunk (0: must not
-    launch)."""
+    launch). ``adapters`` names each burst request's LoRA adapter ("" the
+    base); the two prompts sharing the 96-token prefix must then hit only
+    if they share an adapter."""
     warm, prompts, prompt = burst_prompts(cfg)
+    names = list(adapters) if adapters else [""] * len(prompts)
     # warm-up: cuBLAS handles and first-call allocations stay out of the
     # measured phase
     engine.submit(warm, max_new_tokens=4).result(timeout=900)
@@ -2910,7 +2969,7 @@ def serve_burst(torch, engine, cfg, card: str, kernels, per_step) -> dict:
     s0 = snap()
     seq0 = last_seq(engine)
     t_start = time.perf_counter()
-    futs = [engine.submit(p) for p in prompts]
+    futs = [engine.submit(p, adapter=a) for p, a in zip(prompts, names)]
     deadline = time.monotonic() + 900
     while engine.counters["prefill_chunks"] - s0["prefill_chunks"] < 8:
         if time.monotonic() > deadline:
@@ -2927,8 +2986,11 @@ def serve_burst(torch, engine, cfg, card: str, kernels, per_step) -> dict:
     if len(results) != 8 or any(len(r["tokens"]) != 32 for r in results):
         raise RuntimeError("not all 8 requests finished with 32 tokens")
     hits = engine.counters["prefix_cache_hits"] - hits0
-    if hits < 1:
+    if names[0] == names[1] and hits < 1:
         raise RuntimeError("the shared 96-token prefix did not hit")
+    if names[0] != names[1] and hits:
+        raise RuntimeError(f"{hits} prefix hits across adapters "
+                           f"{names[0]!r} and {names[1]!r}")
     burst = stretch(s0, s2, "burst")
     decode = stretch(s1, s2, "decode-only stretch")
     if decode["prefill_chunks"] or burst["prefill_chunks"] != 8:
@@ -2963,8 +3025,8 @@ def serve_burst(torch, engine, cfg, card: str, kernels, per_step) -> dict:
 
     # repeat: the same prompt twice more, both through the prefix-hit path,
     # must give the same tokens
-    rep = [engine.submit(prompts[2]).result(timeout=900)["tokens"]
-           for _ in range(2)]
+    rep = [engine.submit(prompts[2], adapter=names[2]).result(
+        timeout=900)["tokens"] for _ in range(2)]
     if rep[0] != rep[1]:
         raise RuntimeError(f"repeat differs: {rep[0]} vs {rep[1]}")
     same_as_first = sum(a == b for a, b in zip(rep[0], results[2]["tokens"]))
@@ -3096,7 +3158,9 @@ def graph_checks(torch, engine, card: str, limit: float, what: str) -> dict:
     graph, graph, eager; (g4) device memory around the capture. The
     logits are expected to agree exactly (the same kernels on the same
     inputs); where they do not, they are held to ``limit``, the engine's
-    own limit against the f32 forward."""
+    own limit against the f32 forward. An engine serving LoRA adapters
+    runs every step with its stacks and the slots' ids mixed: slot i
+    decodes with adapter i mod (max_adapters + 1), the base among them."""
     import numpy as np
 
     from k8s_runpod_kubelet_tpu_torch.workloads.step_profile import \
@@ -3110,6 +3174,13 @@ def graph_checks(torch, engine, card: str, limit: float, what: str) -> dict:
     vocab = engine.cfg.vocab_size
     rng = np.random.default_rng(SEED + 3)
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    ad_host = ad_dev = {}
+    if engine.multi_lora_enabled:
+        ids = (np.arange(b) % (engine.sc.max_adapters + 1)).astype(np.int32)
+        ad_host = {"adapters": engine._adapters, "adapter_ids": ids}
+        ad_dev = {"adapters": engine._adapters,
+                  "adapter_ids": torch.from_numpy(ids).to(dev)}
+        out["adapter_ids"] = ids.tolist()
     for tracked in engine._graphs():
         g, w = tracked.fn, tracked.fn.width
         lengths = np.array(GRAPH_LENGTHS[:b], np.int32)
@@ -3149,19 +3220,22 @@ def graph_checks(torch, engine, card: str, limit: float, what: str) -> dict:
                     torch.from_numpy(np.asarray(x)).to(dev) for x in h)
                 if w == 1:
                     return model.paged_decode_step(
-                        params, toks[:, 0], arena_, tab, lens, act)[0]
+                        params, toks[:, 0], arena_, tab, lens, act,
+                        **ad_dev)[0]
                 return model.paged_verify_step(params, toks, arena_, tab,
-                                               lens, act, n_tok)[0]
+                                               lens, act, n_tok,
+                                               **ad_dev)[0]
 
             copy = {k: v.clone() for k, v in arena.items()}
             rows = []
             for k in (0, 1):
                 h = host(k)
-                got = g.run(params, arena, *h).clone()
+                got = g.run(params, arena, *h, **ad_host).clone()
                 tok_t, lens_t, tab_t, act_t, n_t = (
                     torch.from_numpy(np.asarray(x)).to(dev) for x in h)
                 want = model.paged_verify_step(params, tok_t, copy, tab_t,
-                                               lens_t, act_t, n_t)[0]
+                                               lens_t, act_t, n_t,
+                                               **ad_dev)[0]
                 if w == 1:
                     want = want[:, 0]
                 torch.cuda.synchronize()
@@ -3186,7 +3260,8 @@ def graph_checks(torch, engine, card: str, limit: float, what: str) -> dict:
                                        f"the eager step: {rows[-1]}")
             del copy
             h = host(1)
-            counts = kernel_counts(lambda: g.run(params, arena, *h))
+            counts = kernel_counts(lambda: g.run(params, arena, *h,
+                                                 **ad_host))
             want = {k: g.launches_per_replay[k] for k in counts} \
                 if counts != "not measured" else None
             if counts != want:
@@ -3204,8 +3279,8 @@ def graph_checks(torch, engine, card: str, limit: float, what: str) -> dict:
                 return statistics.median(walls) * 1e3
 
             turns = [timed(lambda: eager(arena, h)),
-                     timed(lambda: g.run(params, arena, *h)),
-                     timed(lambda: g.run(params, arena, *h)),
+                     timed(lambda: g.run(params, arena, *h, **ad_host)),
+                     timed(lambda: g.run(params, arena, *h, **ad_host)),
                      timed(lambda: eager(arena, h))]
         finally:
             store.release(pages)
@@ -3215,8 +3290,10 @@ def graph_checks(torch, engine, card: str, limit: float, what: str) -> dict:
                            "graph_2": turns[2], "eager_2": turns[3]},
             "g4_capture_memory": g.capture_memory}
         mem = g.capture_memory
+        mixed = (f", adapter ids {out['adapter_ids']}"
+                 if "adapter_ids" in out else "")
         log(f"  (g1) {what} {tracked.name} (K={w}) replay vs eager "
-            f"paged_verify_step, two steps: logits max abs "
+            f"paged_verify_step{mixed}, two steps: logits max abs "
             f"{[r['logits_max_abs_diff'] for r in rows]}, arena sections "
             f"equal {[r['exact'] for r in rows]}; (g2) one replay, kernels "
             f"by name {counts}")
@@ -4086,20 +4163,24 @@ def hf_load_phase(torch, dev, cfg, params) -> dict:
             "write_s": write_s, "load_s": load_s, "bit_identical": True}
 
 
-def quant_logits(torch, model, params, prompt,
-                 kv_int8=True) -> "torch.Tensor":
+def quant_logits(torch, model, params, prompt, kv_int8=True,
+                 adapters=None, adapter_id=0) -> "torch.Tensor":
     """Last-token logits of ``prompt`` prefilled in one chunk through the
     quantized engine's model and params, over a fresh int8 (or with
-    ``kv_int8=False`` bf16) arena."""
+    ``kv_int8=False`` bf16) arena; with an engine's LoRA ``adapters``
+    stacks, under its slot ``adapter_id``."""
     dev, t, n = model.device, 16, len(prompt)
     n_pages = -(-n // t)
     arena = model.init_paged_arena(n_pages, t, quantize=kv_int8)
     table = torch.zeros((1, 128), dtype=torch.int32, device=dev)
     table[0, :n_pages] = torch.arange(n_pages, device=dev)
+    ad = ({} if adapters is None else
+          {"adapters": adapters, "adapter_ids": torch.tensor(
+              [adapter_id], dtype=torch.int32, device=dev)})
     logits, _, _ = model.paged_prefill_chunk_step(
         params, torch.tensor([prompt], dtype=torch.int32, device=dev), arena,
         table, torch.zeros(1, dtype=torch.int32, device=dev),
-        torch.tensor([n], dtype=torch.int32, device=dev))
+        torch.tensor([n], dtype=torch.int32, device=dev), **ad)
     return logits[0]
 
 
@@ -4701,6 +4782,313 @@ def mla_engine_phase(torch, dev, card: str, cfg, params: list,
     return rec, logits.cpu()
 
 
+# -- phase 7l: multi-LoRA on the paged loop ------------------------------------------
+
+def lora_tree(params: dict, adapter: dict) -> dict:
+    """``params`` with each adapter target wrapped as a LoRA leaf (the base
+    shared, not copied): what ``layer_f32`` merges a layer at a time."""
+    layers = dict(params["layers"])
+    for t, ad in adapter.items():
+        layers[t] = {"w": layers[t], "lora_a": ad["a"], "lora_b": ad["b"],
+                     "scale": ad["scale"]}
+    return dict(params, layers=layers)
+
+
+def rel_gap(a, b) -> float:
+    return ((a - b).norm() / b.norm()).item()
+
+
+def lora_adapters(torch, cfg, params, dev, prompt) -> dict:
+    """Three adapters of rank LORA_RANK over every target, each from the
+    port's ``apply_lora`` with its own generator, then B redrawn
+    N(0, sigma^2) (with B zero an adapter is the base model): sigma starts
+    at LORA_SIGMA0 and doubles until the first adapter moves the plain f32
+    forward's last-token logits of ``prompt`` by 1.5 x LORA_MIN_MOVE
+    (relative L2 to the base's); every adapter must then move them by
+    LORA_MIN_MOVE. Returns the adapters (bf16), sigma and each move."""
+    from k8s_runpod_kubelet_tpu_torch.models import (LoraConfig, apply_lora,
+                                                     extract_adapter)
+
+    lc = LoraConfig(rank=LORA_RANK, targets=LORA_TARGETS_ALL)
+    base = reference_logits(torch, cfg, params, prompt)
+    draws = []
+    for i in range(3):
+        gen = torch.Generator(device=dev).manual_seed(SEED + 100 + i)
+        ad = extract_adapter(apply_lora(cfg, params, lc, gen, dev))
+        unit = {t: torch.randn(a["b"].shape, generator=gen, device=dev)
+                for t, a in ad.items()}
+        draws.append((ad, unit))
+
+    def with_sigma(i: int, sigma: float) -> dict:
+        ad, unit = draws[i]
+        return {t: dict(a, b=(unit[t] * sigma).to(a["b"].dtype))
+                for t, a in ad.items()}
+
+    def move(adapter) -> float:
+        return rel_gap(reference_logits(torch, cfg, lora_tree(params,
+                                                              adapter),
+                                        prompt), base)
+
+    sigma, tried = LORA_SIGMA0, []
+    while True:
+        tried.append((sigma, move(with_sigma(0, sigma))))
+        if tried[-1][1] >= 1.5 * LORA_MIN_MOVE or sigma >= LORA_SIGMA_MAX:
+            break
+        sigma *= 2
+    adapters = [with_sigma(i, sigma) for i in range(3)]
+    moves = [tried[-1][1]] + [move(a) for a in adapters[1:]]
+    log(f"  adapters: rank {LORA_RANK}, targets {','.join(LORA_TARGETS_ALL)}"
+        f", B ~ N(0, sigma^2): sigma tried "
+        + ", ".join(f"{s:g} -> move {m:.3f}" for s, m in tried)
+        + f"; each adapter moves the base's f32 last-token logits by "
+        f"{[round(m, 4) for m in moves]} (relative L2, at least "
+        f"{LORA_MIN_MOVE})")
+    if min(moves) < LORA_MIN_MOVE:
+        raise RuntimeError(f"an adapter moves the base's logits by only "
+                           f"{min(moves):.4f}: the checks would be vacuous")
+    del draws
+    return {"adapters": adapters, "sigma": sigma, "moves": moves,
+            "sigma_tried": tried}
+
+
+def lora_engine_phase(torch, dev, card: str, cfg, params, adapters: list,
+                      quant: bool = False) -> dict:
+    """Phase 7l (or with ``quant`` 7l (e)): the engine the serve CLI
+    builds from ``--lora-rank 16 --lora-targets`` (all seven)
+    ``--max-adapters 4`` (and ``--int4 --kv-int8``) over ``params`` (phase
+    4's bf16 tree, or 7b's quantized one), adapters registered after the
+    graph captures. The burst of phase 4 with adapter ids cycling base,
+    a1, a2, a3 (every decode batch mixes all four) and exact launches per
+    step; an n = 2 group under a2 through the dense-scratch route; then
+    (a) each adapter's last-token logits against the plain f32 forward
+    over its merged weights, (b) the wrong adapter's merge as a control,
+    (c) (g1)-(g5) with mixed ids, a fourth adapter registered and a1
+    rewritten without a recapture, a1's trie subtree dropped and its new
+    logits checked, the two requests of the shared prefix (base and a1)
+    on disjoint pages; the stacks' bytes and the peak memory; drain."""
+    import numpy as np
+
+    from k8s_runpod_kubelet_tpu_torch.ops import (flash_fwd, int4_matmul,
+                                                  paged_attention,
+                                                  paged_attention_multi,
+                                                  paged_attention_multi_quant,
+                                                  paged_attention_quant,
+                                                  rms_norm)
+    from k8s_runpod_kubelet_tpu_torch.workloads import serve_main
+
+    what = "int4/int8 LoRA engine" if quant else "bf16 LoRA engine"
+    limit = QUANT_ENGINE_REL_L2_LIMIT if quant else ENGINE_REL_L2_LIMIT
+    args = serve_main.parse_args(
+        ["--model", cfg.name, "--device", dev.type, "--slots", "8",
+         "--cache-len", "2048", "--max-new-tokens", "32",
+         "--lora-rank", str(LORA_RANK), "--lora-targets",
+         ",".join(LORA_TARGETS_ALL), "--max-adapters",
+         str(LORA_MAX_ADAPTERS)] + (["--int4", "--kv-int8"] if quant else []))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    engine, _ = serve_main.build_engine(args, params)
+    try:
+        stack_bytes = tensor_bytes(engine._adapters)
+        names = ["a1", "a2", "a3"]
+        for name, ad in zip(names, adapters):
+            engine.register_adapter(name, ad)
+        log(f"  {what}: stacks for {LORA_MAX_ADAPTERS} adapters + the base "
+            f"slot, {stack_bytes / 1e9:.3f} GB; arena "
+            f"{engine._kv_store.pool.n_pages} pages; [{card}] "
+            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated; "
+            f"a1-a3 registered after the captures: graphs "
+            f"{ {k: g['compiles'] for k, g in engine.graphs_snapshot().items()} }")
+        if quant:
+            main = (paged_attention_multi_quant, int4_matmul)
+            per_step = {"paged_attention_multi_quant": cfg.n_layers,
+                        "int4_matmul": 7 * cfg.n_layers + 1,
+                        "paged_attention_multi": 0}
+        else:
+            main = (paged_attention_multi,)
+            per_step = {"paged_attention_multi": cfg.n_layers,
+                        "paged_attention_multi_quant": 0}
+        per_step.update({"rms_norm": 2 * cfg.n_layers + 1,
+                         "paged_attention": 0, "paged_attention_quant": 0})
+        held = tuple(k for k in (paged_attention_multi,
+                                 paged_attention_multi_quant,
+                                 paged_attention, paged_attention_quant)
+                     if k not in main)
+        cycle = ["", *names]
+        rec = serve_burst(torch, engine, cfg, card, (*main, rms_norm, *held),
+                          per_step, adapters=[cycle[i % 4]
+                                              for i in range(8)])
+        prompts = rec.pop("prompts")
+        prompt = rec.pop("prompt")
+        base_pages, a1_pages = (
+            {n.page for n in engine._kv_store.trie._nodes.values()
+             if root_of(engine, n) == r} for r in (0, 1))
+        if not base_pages or not a1_pages or base_pages & a1_pages:
+            raise RuntimeError(f"shared-prefix pair: base pages "
+                               f"{sorted(base_pages)[:4]}.., a1 pages "
+                               f"{sorted(a1_pages)[:4]}..")
+        log(f"  the shared 96-token prefix under base and a1: 0 hits, "
+            f"{len(base_pages)} and {len(a1_pages)} cached pages, none "
+            f"shared")
+        # the dense-scratch route: an n = 2 group under a2 prefills once
+        heads0 = engine.counters["dense_prefill_heads"]
+        f0 = flash_fwd.launches
+        group_prompt = prompt(300)
+        group = [f.result(timeout=900)["tokens"] for f in
+                 engine.submit_group(group_prompt, 2, adapter="a2")]
+        heads = engine.counters["dense_prefill_heads"] - heads0
+        dense_flash = flash_fwd.launches - f0
+        if heads != 1 or dense_flash != cfg.n_layers or group[0] != group[1]:
+            raise RuntimeError(f"n = 2 group under a2: {heads} dense heads, "
+                               f"{dense_flash} flash_fwd launches, tokens "
+                               f"{group}")
+        log(f"  n = 2 group under a2: one dense-route prefill head, "
+            f"{dense_flash} flash_fwd launches, both greedy members equal")
+        serve_peak = torch.cuda.max_memory_allocated()
+        with engine._prefix_lock:   # the engine is idle; keep it so
+            rec["graphs"] = graph_checks(torch, engine, card, limit, what)
+            # the deltas launch no counted kernel: a replay launches what
+            # a step of the engine without adapters does
+            for g in engine._graphs():
+                per = g.fn.launches_per_replay
+                if any(per[k] != n for k, n in per_step.items()):
+                    raise RuntimeError(f"{what}: {g.name} replays launch "
+                                       f"{per}, not {per_step}")
+                log(f"  (c) {g.name}: launches a replay "
+                    + ", ".join(f"{k} {per[k]}" for k in per_step))
+            checked = prompts[2]
+            logits, reference = [], []
+            for slot in range(4):
+                got = quant_logits(torch, engine.model, engine.params,
+                                   checked, kv_int8=quant,
+                                   adapters=engine._adapters,
+                                   adapter_id=slot)
+                tree = (engine.params if slot == 0 else
+                        lora_tree(engine.params, adapters[slot - 1]))
+                reference.append(reference_logits(torch, cfg, tree, checked))
+                logits.append(got)
+            gaps = [rel_gap(g, r) for g, r in zip(logits, reference)]
+            # (b): each adapter's engine logits against the next adapter's
+            # merge (a3 against a1's)
+            controls = [rel_gap(logits[s], reference[s % 3 + 1])
+                        for s in (1, 2, 3)]
+        log(f"  (a) [{card}] {what}, last-token logits of a "
+            f"{len(checked)}-token prompt vs the plain f32 forward over "
+            f"each merge (base, a1, a2, a3): relative L2 "
+            f"{[round(x, 4) for x in gaps]} (limit {limit})")
+        log(f"  (b) control, each adapter's logits vs the next adapter's "
+            f"merge (a1 vs a2, a2 vs a3, a3 vs a1): "
+            f"{[round(x, 4) for x in controls]} (must exceed {limit})")
+        if max(gaps) > limit:
+            raise RuntimeError(f"{what}: logits off the merged forward: "
+                               f"{gaps}")
+        if min(controls) <= limit:
+            raise RuntimeError(f"{what}: the wrong-adapter control passed: "
+                               f"{controls}")
+        # (c): a fourth adapter and a rewrite of a1, in place
+        new_a1 = {t: dict(a, b=-a["b"]) for t, a in adapters[0].items()}
+        a4 = {t: dict(a, b=adapters[1][t]["b"]) for t, a in
+              adapters[2].items()}
+        had_a1 = 1 in engine.prefix_cache_stats()["adapters"]
+        with engine._prefix_lock:
+            before = (engine.counters["decode_steps"],
+                      sum(g.fn.replays for g in engine._graphs()))
+        engine.register_adapter("a4", a4)
+        engine.register_adapter("a1", new_a1)
+        roots = engine.prefix_cache_stats()["adapters"]
+        if not had_a1 or 1 in roots:
+            raise RuntimeError(f"a1's trie subtree: before {had_a1}, roots "
+                               f"after {roots}")
+        for name in ("a1", "a4", ""):
+            engine.submit(prompt(200), adapter=name,
+                          max_new_tokens=8).result(timeout=900)
+        # every graph still captured once, and every decode step since the
+        # registrations one replay ((g1)-(g3) replayed outside any step)
+        with engine._prefix_lock:
+            steps = engine.counters["decode_steps"] - before[0]
+            replays = sum(g.fn.replays for g in engine._graphs()) \
+                - before[1]
+            snap = engine.graphs_snapshot()
+        if any(g["compiles"] != 1 for g in snap.values()) \
+                or replays != steps or not steps:
+            raise RuntimeError(f"{what}: after the registrations {replays} "
+                               f"replays for {steps} decode steps, graphs "
+                               f"{snap}")
+        rec["registration"] = {"graphs": snap, "replays": replays,
+                               "decode_steps": steps}
+        with engine._prefix_lock:
+            got = quant_logits(torch, engine.model, engine.params, checked,
+                               kv_int8=quant, adapters=engine._adapters,
+                               adapter_id=1)
+            want = reference_logits(torch, cfg,
+                                    lora_tree(engine.params, new_a1),
+                                    checked)
+            rewrite = {"rel_l2": rel_gap(got, want),
+                       "old_merge_rel_l2": rel_gap(got, reference[1])}
+        log(f"  (c) a4 registered and a1 rewritten (B negated) after the "
+            f"captures: graphs captured once each, 0 recaptures, "
+            f"{replays} replays = {steps} decode steps since; a1's "
+            f"trie subtree dropped (roots {roots}); rewritten a1 vs its new "
+            f"merge {rewrite['rel_l2']:.4f}, vs the old "
+            f"{rewrite['old_merge_rel_l2']:.4f}")
+        if rewrite["rel_l2"] > limit or rewrite["old_merge_rel_l2"] <= limit:
+            raise RuntimeError(f"{what}: the rewritten a1: {rewrite}")
+        log(f"  (d) [{card}] {what}: stacks {stack_bytes / 1e9:.3f} GB; peak "
+            f"allocated while serving {serve_peak / 2**30:.2f} GiB")
+        rec.update(http_and_drain(engine, prompt),
+                   stack_bytes=stack_bytes, serve_peak_bytes=serve_peak,
+                   reference={"rel_l2": gaps, "limit_rel_l2": limit,
+                              "control_rel_l2": controls,
+                              "prompt_tokens": len(checked)},
+                   rewrite=rewrite, dense_group={
+                       "dense_prefill_heads": heads,
+                       "flash_fwd": dense_flash},
+                   launches_by_path=dict(
+                       rec["launches_by_path"],
+                       dense_group={"flash_fwd": dense_flash}))
+        return rec
+    finally:
+        engine.stop()
+
+
+def root_of(engine, node) -> int:
+    """The adapter id whose trie root ``node`` hangs under."""
+    while node.parent is not None:
+        node = node.parent
+    for aid, root in engine._kv_store.trie._roots.items():
+        if root.get(node.chunk) is node:
+            return aid
+    return -1
+
+
+def lora_profile_phase(torch, dev, card: str, cfg, params) -> dict:
+    """7l (d): ``step_profile``'s LoRA profile of the decode replay and the
+    1024-token chunk with rank-16 adapters (mixed ids) beside the same
+    steps without, for the default targets (wq, wv) and all seven."""
+    from k8s_runpod_kubelet_tpu_torch.workloads.step_profile import \
+        lora_profile
+
+    out = {}
+    for label, targets in (("wq_wv", ("wq", "wv")),
+                           ("all", LORA_TARGETS_ALL)):
+        prof = lora_profile(cfg, dev, params, LORA_RANK, targets)
+        out[label] = prof
+
+        def ms(p):
+            return p["device_ms"] if isinstance(p["device_ms"], str) \
+                else round(p["device_ms"], 4)
+
+        d, c = prof["decode_graph"], prof["prefill"]
+        log(f"  (d) [{card}] rank {LORA_RANK} over {','.join(targets)}, "
+            f"stacks {prof['stack_bytes'] / 1e9:.3f} GB: decode replay "
+            f"device ms base/lora/lora/base {ms(d['base'])} / "
+            f"{ms(d['lora'])} / {ms(d['lora_2'])} / {ms(d['base_2'])}; "
+            f"1024-token chunk {ms(c['base'])} / {ms(c['lora'])} / "
+            f"{ms(c['lora_2'])} / {ms(c['base_2'])}; counted kernels a "
+            f"replay {prof['kernels_in_one_replay']['lora']}")
+    return out
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description="chip smoke of the PyTorch "
                                 "port (see the module docstring)")
@@ -4896,6 +5284,23 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    log("phase 7l: multi-LoRA engine (llama3-8b bf16 --lora-rank "
+        f"{LORA_RANK} over all seven targets, --max-adapters "
+        f"{LORA_MAX_ADAPTERS}, 8 slots, cache_len 2048)")
+    lora_ads = lora_adapters(torch, cfg, params, dev,
+                             burst_prompts(cfg)[1][2])
+    lora = lora_engine_phase(torch, dev, card, cfg, params,
+                             lora_ads["adapters"])
+    lora["adapters"] = {k: lora_ads[k] for k in ("sigma", "moves",
+                                                 "sigma_tried")}
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("phase 7l (d): step_profile's LoRA profile (llama3-8b bf16, rank "
+        f"{LORA_RANK}, wq,wv and all seven targets)")
+    lora["profile"] = lora_profile_phase(torch, dev, card, cfg, params)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     log("phase quantized engine (llama3-8b --int4 --kv-int8, 8 slots, "
         "cache_len 2048)")
     box = [params]
@@ -4910,7 +5315,14 @@ def main(argv=None) -> int:
         "--tensor-parallel 2 in one process, 8 slots, cache_len 2048)")
     tp_int4 = tp_engine_phase(torch, dev, card, cfg, qparams, qlogits,
                               tensor=2, quant=True)
-    del qparams, qlogits
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("phase 7l (e): multi-LoRA engine (llama3-8b --int4 --kv-int8 "
+        f"--lora-rank {LORA_RANK} over all seven targets, 8 slots, "
+        "cache_len 2048, 32 layers)")
+    lora_q = lora_engine_phase(torch, dev, card, cfg, qparams,
+                               lora_ads["adapters"], quant=True)
+    del qparams, qlogits, lora_ads
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -4987,6 +5399,7 @@ def main(argv=None) -> int:
     tp_launches, tp4_launches = tp_int4["launches"], tp_bf16["launches"]
     moe_launches = moe["launches"]
     spec_launches = spec["runs"]["speculative"]["counts"]
+    lora_launches, lora_q_launches = lora["launches"], lora_q["launches"]
     mla_launches, mla_q_launches = mla_eng["launches"], mla_q["launches"]
     mla_dense, mla_q_dense = mla_eng["dense_route"], mla_q["dense_route"]
     csrc = "k8s_runpod_kubelet_tpu_torch/csrc/"
@@ -5004,7 +5417,10 @@ def main(argv=None) -> int:
                     quant_launches["paged_attention_multi"],
                 "serve_moe": moe_launches["paged_attention_multi"],
                 "serve_tp4_bf16": tp4_launches["paged_attention_multi"],
-                "serve_tp": tp_launches["paged_attention_multi"]}, sdpa),
+                "serve_tp": tp_launches["paged_attention_multi"],
+                "serve_lora": lora_launches["paged_attention_multi"],
+                "serve_lora_int4_kv_int8":
+                    lora_q_launches["paged_attention_multi"]}, sdpa),
         record("rms_norm", "triton",
                "k8s_runpod_kubelet_tpu_torch/ops/rmsnorm.py",
                "k8s_runpod_kubelet_tpu/ops/rmsnorm.py:80", rms,
@@ -5018,6 +5434,8 @@ def main(argv=None) -> int:
                 "serve_moe": moe_launches["rms_norm"],
                 "serve_tp": tp_launches["rms_norm"],
                 "serve_tp4_bf16": tp4_launches["rms_norm"],
+                "serve_lora": lora_launches["rms_norm"],
+                "serve_lora_int4_kv_int8": lora_q_launches["rms_norm"],
                 "serve_mla_dense": mla_dense["launches"]["rms_norm"],
                 "serve_mla_kv_int8_dense":
                     mla_q_dense["launches"]["rms_norm"],
@@ -5036,7 +5454,11 @@ def main(argv=None) -> int:
                 "serve_mla_dense": mla_dense["launches"][kname],
                 "serve_mla_kv_int8_dense": mla_q_dense["launches"][kname],
                 **({"serve_openai": openai["launches"][kname]}
-                   if kname in openai["launches"] else {})}, library_call)
+                   if kname in openai["launches"] else {}),
+                **({"serve_lora_dense_group": lora["dense_group"][kname],
+                    "serve_lora_int4_kv_int8_dense_group":
+                        lora_q["dense_group"][kname]}
+                   if kname == "flash_fwd" else {})}, library_call)
         for kname, replaces, library_call in (
             ("flash_fwd", jax_attn + "199", "SDPA forward (at D = 192 a "
              "yardstick on the same padded q/k/v)"),
@@ -5051,7 +5473,9 @@ def main(argv=None) -> int:
                quant_launches["paged_attention_multi_quant"],
                {"serve_int4_kv_int8":
                     quant_launches["paged_attention_multi_quant"],
-                "serve_tp": tp_launches["paged_attention_multi_quant"]},
+                "serve_tp": tp_launches["paged_attention_multi_quant"],
+                "serve_lora_int4_kv_int8":
+                    lora_q_launches["paged_attention_multi_quant"]},
                sdpa + " (a yardstick: no single PyTorch call reads int8 "
                "pages)"),
         record("int4_matmul", "cuda", csrc + "int4_matmul.cu",
@@ -5059,7 +5483,8 @@ def main(argv=None) -> int:
                quant_launches["int4_matmul"],
                {"serve_int4_kv_int8": quant_launches["int4_matmul"],
                 "serve_moe": moe_launches["int4_matmul"],
-                "serve_tp": tp_launches["int4_matmul"]},
+                "serve_tp": tp_launches["int4_matmul"],
+                "serve_lora_int4_kv_int8": lora_q_launches["int4_matmul"]},
                "torch.ops.aten._weight_int4pack_mm on the same nibbles and "
                "bf16 group scales (yardstick_ms: torch.matmul by the "
                "dequantized bf16 weight)"),
@@ -5149,6 +5574,7 @@ def main(argv=None) -> int:
                        "quant_engine": qeng, "mla_engine": mla_eng,
                        "int4_sharded": int4_sharded,
                        "tp_engine_int4": tp_int4, "tp_engine_bf16": tp_bf16,
+                       "lora_engine": lora, "lora_engine_int4_kv_int8": lora_q,
                        "mla_kv_int8_engine": mla_q, "moe_engine": moe,
                        "train": train, "train_mla": train_mla,
                        "ring_train": ring_train,

@@ -11,7 +11,8 @@ every leaf in ``cfg.param_dtype`` (f32), the JAX model's master tree as it
 is. Both packages then compute the same thing, which is what the parity
 tests need. A tree the JAX quantizer made (``{"q4", "scale"}`` or
 ``{"q8", "scale"}`` leaves) carries over as it is: the integers keep
-their type, the scales stay f32. This module imports no jax.
+their type, the scales stay f32. ``adapter_from_jax`` carries a LoRA
+adapter over the same way. This module imports no jax.
 """
 
 from __future__ import annotations
@@ -63,6 +64,41 @@ def config_from_jax(jcfg, dtype: torch.dtype) -> LlamaConfig:
     param_dtype = getattr(torch, np.dtype(jcfg.param_dtype).name)
     return LlamaConfig(**{f: getattr(jcfg, f) for f in fields}, dtype=dtype,
                        param_dtype=param_dtype)
+
+
+def adapter_from_jax(tree: dict, device=None,
+                     dtype: torch.dtype = torch.float32) -> dict:
+    """A JAX LoRA adapter (numpy leaves) -> the port's ``{target: {"a",
+    "b", "scale"}}`` tensors on ``device``: either a LoRA-wrapped params
+    tree (``layers/<target>`` leaves ``{"w", "lora_a", "lora_b",
+    "scale"}``, from the JAX ``apply_lora``) or an ``extract_adapter`` /
+    ``load_adapter`` dict. A and B in ``dtype``, the scale f32 (L,)."""
+    if "layers" in tree:
+        src = {t: {"a": w["lora_a"], "b": w["lora_b"], "scale": w["scale"]}
+               for t, w in tree["layers"].items()
+               if isinstance(w, dict) and "lora_a" in w}
+    else:
+        src = tree
+    if not src:
+        raise ValueError("the tree carries no LoRA adapters")
+    dev = resolve_device(device)
+    out = {}
+    for t, ad in src.items():
+        if set(ad) != {"a", "b", "scale"}:
+            raise ValueError(f"{t}: adapter entries {sorted(ad)}, expected "
+                             "a, b and scale")
+        a, b = np.asarray(ad["a"], np.float32), np.asarray(ad["b"],
+                                                          np.float32)
+        if a.ndim != 3 or b.ndim != 3 or a.shape[0] != b.shape[0] \
+                or a.shape[2] != b.shape[1]:
+            raise ValueError(f"{t}: A {a.shape} and B {b.shape} are not "
+                             "(L, in, r) and (L, r, out)")
+        scale = np.broadcast_to(np.asarray(ad["scale"], np.float32),
+                                (a.shape[0],))
+        out[t] = {"a": torch.from_numpy(a.copy()).to(dev, dtype),
+                  "b": torch.from_numpy(b.copy()).to(dev, dtype),
+                  "scale": torch.from_numpy(scale.copy()).to(dev)}
+    return out
 
 
 def params_from_jax(tree: dict, cfg: LlamaConfig, device=None,

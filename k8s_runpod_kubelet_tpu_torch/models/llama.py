@@ -40,6 +40,17 @@ M) and ``we_down`` (L, X, M, E) in place of the dense MLP's three leaves;
 the MLP of every layer is then ``models/moe.py``'s ``moe_mlp`` (int4
 experts through the ``int4_expert_matmul`` kernel).
 
+Multi-LoRA serving (the JAX model's ``adapters``/``adapter_ids``): every
+serving step takes per-request adapters, ``{target: {"a": (L, N, in, r),
+"b": (L, N, r, out), "scale": (L, N)}}`` stacks over N adapter slots, and
+``adapter_ids`` (B,) choosing one slot a row; slot 0 is all zeros, the base
+model. Each target's delta (``_ml_delta``) is added after its product, on
+the whole input and output even under a tensor mesh (adapters stay whole,
+as in the JAX package). MLA refuses adapters, and an MoE model adapts its
+attention projections only. A training tree may instead hold LoRA-wrapped
+leaves ``{"w", "lora_a", "lora_b", "scale"}`` (``models/lora.py``), which
+``_mm`` multiplies by with the base weight detached.
+
 The arena is ``{"k", "v"}`` of shape (L, P + 1, T, Hkv, D) and is updated
 IN PLACE (the JAX model donated it instead); an int8 arena adds
 ``k_scale``/``v_scale`` (L, P + 1, T, Hkv) f32. A head-sharded arena holds
@@ -85,10 +96,10 @@ Params = dict[str, Any]
 @dataclasses.dataclass(frozen=True)
 class LlamaConfig:
     """The fields of the JAX ``LlamaConfig`` this port runs, with the same
-    defaults (weight and KV quantization are serving options,
-    ``ServingConfig``). DeepSeek-MoE (shared experts, sigmoid routing) and
-    its dense prefix, LoRA, meshes other than the sequence axis, sliding
-    windows, soft caps and remat "dots" are later slices."""
+    defaults (weight and KV quantization and LoRA adapters are serving
+    options, ``ServingConfig``). DeepSeek-MoE (shared experts, sigmoid
+    routing) and its dense prefix, sliding windows, soft caps and remat
+    "dots" are later slices."""
     name: str = "tiny"
     vocab_size: int = 32000
     embed_dim: int = 256
@@ -287,13 +298,40 @@ def keeps_f32(name: str) -> bool:
 
 def _mm(h: torch.Tensor, w, dtype: torch.dtype) -> torch.Tensor:
     """h @ w for a raw weight, an int8 ``{"q8", "scale"}`` leaf (the
-    dequant multiply after the matmul) or an int4 ``{"q4", "scale"}`` leaf
-    (the ``int4_matmul`` kernel)."""
+    dequant multiply after the matmul), an int4 ``{"q4", "scale"}`` leaf
+    (the ``int4_matmul`` kernel) or a LoRA leaf ``{"w", "lora_a",
+    "lora_b", "scale"}``: the base weight detached (the JAX model's
+    ``stop_gradient``), so gradients reach A and B only."""
     if isinstance(w, dict):
+        if "lora_a" in w:
+            base = h @ w["w"].detach().to(dtype)
+            delta = (h @ w["lora_a"].to(dtype)) @ w["lora_b"].to(dtype)
+            return base + delta * w["scale"].to(dtype)
         if "q4" in w:
             return int4_matmul(h.to(dtype), w["q4"], w["scale"])
         return (h @ w["q8"].to(dtype)) * w["scale"].to(dtype)
     return h @ w if w.dtype == dtype else h @ w.to(dtype)
+
+
+def _ml_delta(x: torch.Tensor, ad: dict, ids: torch.Tensor) -> torch.Tensor:
+    """The multi-LoRA delta with an adapter chosen per row (the JAX
+    ``_ml_delta``): x (B, S, in), one layer's ``ad`` {"a": (N, in, r), "b":
+    (N, r, out), "scale": (N,)}, ids (B,) into the adapter axis. Each row's
+    A and B are gathered, the two products run in x's dtype, then the
+    row's scale multiplies. Slot 0 is all zeros, so a base row needs no
+    branch."""
+    a_sel = ad["a"][ids].to(x.dtype)                   # (B, in, r)
+    b_sel = ad["b"][ids].to(x.dtype)                   # (B, r, out)
+    d = torch.bmm(torch.bmm(x, a_sel), b_sel)
+    return d * ad["scale"][ids].to(x.dtype)[:, None, None]
+
+
+def _layer_adapters(adapters: Optional[dict], layer: int) -> Optional[dict]:
+    """Layer ``layer`` of the adapter stacks, or None without adapters."""
+    if not adapters:
+        return None
+    return {t: {k: v[layer] for k, v in ad.items()}
+            for t, ad in adapters.items()}
 
 
 def _mm_tp(h: torch.Tensor, w, kind: str, mesh, dtype: torch.dtype
@@ -479,14 +517,17 @@ class LlamaModel:
 
     def _layer(self, x: torch.Tensor, lp: Params,
                positions: Optional[torch.Tensor],
-               return_kv: bool = False, train: bool = True):
+               return_kv: bool = False, train: bool = True,
+               ad: Optional[dict] = None,
+               ids: Optional[torch.Tensor] = None):
         """One decoder layer of ``forward``: the JAX model's dense
         ``_attention_block`` (or for MLA ``_mla_attention_block``) then
         ``_mlp_block``, the matmuls through ``_mm`` (raw weights cast to
         ``cfg.dtype``, or quantized leaves). ``return_kv`` also returns the
         layer's cache content: the rotated k and v (B, S, Hkv, D), or for
         MLA the normed latent c (B, S, r) and rotated rope key kr (B, S,
-        dr)."""
+        dr). ``ad`` (one layer's adapter stacks) and ``ids`` (B,) add each
+        row's multi-LoRA deltas."""
         cfg = self.cfg
         if cfg.is_mla:
             x, c, kr = self._mla_attention(x, lp, positions)
@@ -495,9 +536,12 @@ class LlamaModel:
         b, s, _ = x.shape
         hd, dt = cfg.head_dim_, cfg.dtype
         h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-        q = self._proj(h, lp["wq"], "wq").reshape(b, s, cfg.n_heads, hd)
-        k = self._proj(h, lp["wk"], "wk").reshape(b, s, cfg.n_kv_heads, hd)
-        v = self._proj(h, lp["wv"], "wv").reshape(b, s, cfg.n_kv_heads, hd)
+        q = self._proj(h, lp["wq"], "wq", ad, ids).reshape(
+            b, s, cfg.n_heads, hd)
+        k = self._proj(h, lp["wk"], "wk", ad, ids).reshape(
+            b, s, cfg.n_kv_heads, hd)
+        v = self._proj(h, lp["wv"], "wv", ad, ids).reshape(
+            b, s, cfg.n_kv_heads, hd)
         q = apply_rope(q, self.cos, self.sin, positions)
         k = apply_rope(k, self.cos, self.sin, positions)
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
@@ -508,7 +552,8 @@ class LlamaModel:
         else:
             o = self._flash(qt, kt, vt)
         o = o.transpose(1, 2).reshape(b, s, cfg.n_heads * hd)
-        x = self._mlp(x + self._proj(o, lp["wo"], "wo"), lp, train)
+        x = self._mlp(x + self._proj(o, lp["wo"], "wo", ad, ids), lp, train,
+                      ad, ids)
         return (x, k, v) if return_kv else x
 
     def _mla_attention(self, x: torch.Tensor, lp: Params,
@@ -562,14 +607,41 @@ class LlamaModel:
             vt[:, s * hk:(s + 1) * hk].contiguous(), causal=True,
             sm_scale=cfg.sm_scale) for s in range(n)], dim=1)
 
-    def _proj(self, h: torch.Tensor, w, name: str) -> torch.Tensor:
+    def _proj(self, h: torch.Tensor, w, name: str, ad: Optional[dict] = None,
+              ids: Optional[torch.Tensor] = None) -> torch.Tensor:
         """h @ leaf ``name`` (raw or quantized, one layer's) in the compute
         dtype: ``_mm``, or under a tensor mesh ``_mm_tp`` for a leaf the
-        tensor axis splits."""
+        tensor axis splits. When ``ad`` (one layer's adapter stacks) holds
+        ``name``, each row's multi-LoRA delta is added to the whole
+        product."""
         kind = self._split.get(name) if self.tp > 1 else None
         if kind is None:
-            return _mm(h, w, self.cfg.dtype)
-        return _mm_tp(h, w, kind, self.mesh, self.cfg.dtype)
+            y = _mm(h, w, self.cfg.dtype)
+        else:
+            y = _mm_tp(h, w, kind, self.mesh, self.cfg.dtype)
+        if ad is not None and name in ad:
+            y = y + _ml_delta(h, ad[name], ids)
+        return y
+
+    def _check_adapters(self, adapters: Optional[dict],
+                        adapter_ids: Optional[torch.Tensor]
+                        ) -> Optional[torch.Tensor]:
+        """The JAX model's refusals of adapters it cannot apply (MLA; the
+        dense MLP's targets on an MoE model), and ``adapter_ids`` as the
+        index the gathers take (None without adapters)."""
+        if not adapters:
+            return None
+        if self.cfg.is_mla:
+            raise ValueError("multi-LoRA adapters do not target MLA "
+                             "projections; serve MLA models without "
+                             "adapters")
+        if self.cfg.n_experts and set(adapters) & {"w_gate", "w_up",
+                                                   "w_down"}:
+            raise ValueError("MoE configs have no dense mlp weights to "
+                             "adapt; use attention targets")
+        if adapter_ids is None:
+            raise ValueError("adapters need adapter_ids, one slot a row")
+        return adapter_ids.long()
 
     def _embed(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
         """The embedding rows of ``tokens`` in the compute dtype. Under a
@@ -644,7 +716,9 @@ class LlamaModel:
         return cache
 
     def prefill(self, params: Params, tokens: torch.Tensor, cache: Params,
-                true_length: Optional[torch.Tensor] = None
+                true_length: Optional[torch.Tensor] = None,
+                adapters: Optional[dict] = None,
+                adapter_ids: Optional[torch.Tensor] = None
                 ) -> tuple[torch.Tensor, Params]:
         """A prompt through the contiguous layers into ``cache``, which it
         fills in place from position 0: tokens (B, S) -> (logits of each
@@ -656,9 +730,11 @@ class LlamaModel:
         past ``true_length`` writes K/V that nothing attends. An MLA model
         runs its direct form (``_mla_attention``, the flash kernels at
         head_dim + rope_dim) and caches each layer's latent c and rope key
-        kr."""
+        kr. ``adapters``/``adapter_ids`` add each row's multi-LoRA
+        deltas."""
         cfg = self.cfg
         b, s = tokens.shape
+        ids = self._check_adapters(adapters, adapter_ids)
         names = self._cache_sections()
         if s > cache[names[0]].shape[2]:
             raise ValueError(f"prompt length {s} exceeds cache length "
@@ -672,7 +748,8 @@ class LlamaModel:
         for layer in range(cfg.n_layers):
             x, *rows = self._layer(
                 x, {n: _at(w, layer) for n, w in lp.items()}, None,
-                return_kv=True, train=False)
+                return_kv=True, train=False,
+                ad=_layer_adapters(adapters, layer), ids=ids)
             for name, row in zip(names, rows):
                 if quant:
                     row, row_s = _kv_quant(row)
@@ -684,21 +761,27 @@ class LlamaModel:
         return self._head_logits(params, last)[:, 0], cache
 
     def prefill_chunk_step(self, params: Params, tokens: torch.Tensor,
-                           cache: Params, true_length: torch.Tensor
+                           cache: Params, true_length: torch.Tensor,
+                           adapters: Optional[dict] = None,
+                           adapter_ids: Optional[torch.Tensor] = None
                            ) -> tuple[torch.Tensor, Params]:
         """One chunk of a prompt appended to a running single-request
         cache through ``verify_step``: returns (the last real token's
         logits (B, V) f32, cache with ``index`` advanced by
         ``true_length``)."""
         b = tokens.shape[0]
-        logits, cache = self.verify_step(params, tokens, cache)
+        logits, cache = self.verify_step(params, tokens, cache,
+                                         adapters=adapters,
+                                         adapter_ids=adapter_ids)
         tl = true_length.to(torch.int32)
         cache["index"] += tl
         return logits[torch.arange(b, device=logits.device),
                       tl.long() - 1], cache
 
     def verify_step(self, params: Params, tokens: torch.Tensor,
-                    cache: Params, active: Optional[torch.Tensor] = None
+                    cache: Params, active: Optional[torch.Tensor] = None,
+                    adapters: Optional[dict] = None,
+                    adapter_ids: Optional[torch.Tensor] = None
                     ) -> tuple[torch.Tensor, Params]:
         """K tokens per row of a contiguous cache in one pass (the JAX
         model's dense ``verify_step``): row b's token j sits at position
@@ -706,10 +789,12 @@ class LlamaModel:
         active row's K/V in place, does not advance ``index``, returns
         (logits (B, K, V) f32, cache). Attention is plain f32 einsum over
         the whole cache, as in the reference. Positions must lie inside
-        the cache. An MLA model runs ``_verify_step_mla``."""
+        the cache. An MLA model runs ``_verify_step_mla``.
+        ``adapters``/``adapter_ids`` add each row's multi-LoRA deltas."""
         cfg = self.cfg
         b, kk = tokens.shape
         dev = tokens.device
+        ids = self._check_adapters(adapters, adapter_ids)
         if active is None:
             active = torch.ones((b,), dtype=torch.bool, device=dev)
         max_len = cache[self._cache_sections()[0]].shape[2]
@@ -731,12 +816,13 @@ class LlamaModel:
         x = self._embed(params, tokens)
         lp = params["layers"]
         for layer in range(cfg.n_layers):
+            ad = _layer_adapters(adapters, layer)
             h = rms_norm(x, lp["attn_norm"][layer], cfg.norm_eps)
-            q = self._proj(h, _at(lp["wq"], layer), "wq").reshape(
+            q = self._proj(h, _at(lp["wq"], layer), "wq", ad, ids).reshape(
                 b, kk, cfg.n_heads, hd)
-            k = self._proj(h, _at(lp["wk"], layer), "wk").reshape(
+            k = self._proj(h, _at(lp["wk"], layer), "wk", ad, ids).reshape(
                 b, kk, hkv, hd)
-            v = self._proj(h, _at(lp["wv"], layer), "wv").reshape(
+            v = self._proj(h, _at(lp["wv"], layer), "wv", ad, ids).reshape(
                 b, kk, hkv, hd)
             q = apply_rope(q, self.cos, self.sin, positions)
             k = apply_rope(k, self.cos, self.sin, positions)
@@ -757,8 +843,8 @@ class LlamaModel:
             p = torch.softmax(sc, dim=-1)
             o = torch.einsum("bhgqL,bLhd->bqhgd", p, v_read)
             o = o.reshape(b, kk, cfg.n_heads * hd).to(dt)
-            x = x + self._proj(o, _at(lp["wo"], layer), "wo")
-            x = self._paged_mlp(x, lp, layer)
+            x = x + self._proj(o, _at(lp["wo"], layer), "wo", ad, ids)
+            x = self._paged_mlp(x, lp, layer, ad, ids)
         return self._head_logits(params, x), cache
 
     def _verify_step_mla(self, params: Params, tokens: torch.Tensor,
@@ -857,7 +943,9 @@ class LlamaModel:
     def paged_decode_step(self, params: Params, token: torch.Tensor,
                           arena: Params, page_tables: torch.Tensor,
                           lengths: torch.Tensor,
-                          active: Optional[torch.Tensor] = None
+                          active: Optional[torch.Tensor] = None,
+                          adapters: Optional[dict] = None,
+                          adapter_ids: Optional[torch.Tensor] = None
                           ) -> tuple[torch.Tensor, Params, torch.Tensor]:
         """One decode token per slot: token (B,) -> (logits (B, V) f32,
         arena, lengths advanced where active). The K=1 case of
@@ -866,14 +954,17 @@ class LlamaModel:
         if active is None:
             active = torch.ones((b,), dtype=torch.bool, device=token.device)
         logits, arena = self.paged_verify_step(
-            params, token[:, None], arena, page_tables, lengths, active)
+            params, token[:, None], arena, page_tables, lengths, active,
+            adapters=adapters, adapter_ids=adapter_ids)
         return logits[:, 0], arena, torch.where(active, lengths + 1, lengths)
 
     def paged_verify_step(self, params: Params, tokens: torch.Tensor,
                           arena: Params, page_tables: torch.Tensor,
                           lengths: torch.Tensor,
                           active: Optional[torch.Tensor] = None,
-                          n_tokens: Optional[torch.Tensor] = None
+                          n_tokens: Optional[torch.Tensor] = None,
+                          adapters: Optional[dict] = None,
+                          adapter_ids: Optional[torch.Tensor] = None
                           ) -> tuple[torch.Tensor, Params]:
         """K tokens per slot in one pass: tokens (B, K) -> (logits
         (B, K, V) f32, arena). Slot b's query j sits at position
@@ -882,15 +973,19 @@ class LlamaModel:
         the causal in-block mask through ``paged_attention_multi``. Rows at
         or beyond ``n_tokens[b]`` (default: K for active slots, 0 for
         inactive ones) scatter nothing and give logits nobody reads.
-        ``lengths`` is not advanced."""
+        ``lengths`` is not advanced. ``adapters`` (the stacks) and
+        ``adapter_ids`` (B,) add each slot's multi-LoRA deltas to q, k, v,
+        wo and the MLP, as the contiguous ``verify_step`` does."""
         x = self._paged_layers(params, tokens, arena, page_tables, lengths,
-                               active, n_tokens)
+                               active, n_tokens, adapters, adapter_ids)
         return self._head_logits(params, x), arena
 
     def paged_prefill_chunk_step(self, params: Params, tokens: torch.Tensor,
                                  arena: Params, page_tables: torch.Tensor,
                                  lengths: torch.Tensor,
-                                 true_length: torch.Tensor
+                                 true_length: torch.Tensor,
+                                 adapters: Optional[dict] = None,
+                                 adapter_ids: Optional[torch.Tensor] = None
                                  ) -> tuple[torch.Tensor, Params,
                                             torch.Tensor]:
         """One chunk of a prompt scattered straight into arena pages:
@@ -903,7 +998,7 @@ class LlamaModel:
         b = tokens.shape[0]
         tl = true_length.to(torch.int32)
         x = self._paged_layers(params, tokens, arena, page_tables, lengths,
-                               None, tl)
+                               None, tl, adapters, adapter_ids)
         rows = torch.arange(b, device=x.device)
         last = x[rows, tl.long() - 1][:, None]
         return (self._head_logits(params, last)[:, 0], arena,
@@ -916,10 +1011,12 @@ class LlamaModel:
         return self._lm_head(params, x).float()
 
     def _paged_layers(self, params, tokens, arena, page_tables, lengths,
-                      active, n_tokens) -> torch.Tensor:
+                      active, n_tokens, adapters=None,
+                      adapter_ids=None) -> torch.Tensor:
         cfg = self.cfg
         b, kk = tokens.shape
         dev = tokens.device
+        ids = self._check_adapters(adapters, adapter_ids)
         if n_tokens is None:
             if active is None:
                 active = torch.ones((b,), dtype=torch.bool, device=dev)
@@ -954,12 +1051,13 @@ class LlamaModel:
         for layer in range(cfg.n_layers):
             # each leaf indexed where it is used: this loop is the decode
             # step's host cost
+            ad = _layer_adapters(adapters, layer)
             h = rms_norm(x, lp["attn_norm"][layer], cfg.norm_eps)
-            q = self._proj(h, _at(lp["wq"], layer), "wq").reshape(
+            q = self._proj(h, _at(lp["wq"], layer), "wq", ad, ids).reshape(
                 b, kk, cfg.n_heads, hd)
-            k = self._proj(h, _at(lp["wk"], layer), "wk").reshape(
+            k = self._proj(h, _at(lp["wk"], layer), "wk", ad, ids).reshape(
                 b, kk, cfg.n_kv_heads, hd)
-            v = self._proj(h, _at(lp["wv"], layer), "wv").reshape(
+            v = self._proj(h, _at(lp["wv"], layer), "wv", ad, ids).reshape(
                 b, kk, cfg.n_kv_heads, hd)
             q = apply_rope(q, self.cos, self.sin, rope_pos)
             k = apply_rope(k, self.cos, self.sin, rope_pos)
@@ -981,8 +1079,8 @@ class LlamaModel:
             o = self._paged_attend(q, kp, vp, ks, vs, page_tables, att_len,
                                    n)
             x = x + self._proj(o.reshape(b, kk, cfg.n_heads * hd),
-                               _at(lp["wo"], layer), "wo")
-            x = self._paged_mlp(x, lp, layer)
+                               _at(lp["wo"], layer), "wo", ad, ids)
+            x = self._paged_mlp(x, lp, layer, ad, ids)
         return x
 
     def kv_shards(self, arena: Params) -> int:
@@ -1048,27 +1146,32 @@ class LlamaModel:
                                  None if vs is None else vs[s])
                           for s in range(n)], dim=2)
 
-    def _paged_mlp(self, x, lp, layer: int) -> torch.Tensor:
+    def _paged_mlp(self, x, lp, layer: int, ad: Optional[dict] = None,
+                   ids: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``_mlp`` of layer ``layer`` of the stacked leaves ``lp``, at the
-        serving capacity."""
+        serving capacity (with one layer's adapter stacks ``ad``)."""
         names = (("mlp_norm", "router", "we_gate", "we_up", "we_down")
                  if self.cfg.n_experts else
                  ("mlp_norm", "w_gate", "w_up", "w_down"))
-        return self._mlp(x, {n: _at(lp[n], layer) for n in names}, False)
+        return self._mlp(x, {n: _at(lp[n], layer) for n in names}, False,
+                         ad, ids)
 
-    def _mlp(self, x: torch.Tensor, lp: Params, train: bool) -> torch.Tensor:
+    def _mlp(self, x: torch.Tensor, lp: Params, train: bool,
+             ad: Optional[dict] = None,
+             ids: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The JAX model's ``_mlp_block`` with its residual, on one layer's
         leaves: the SwiGLU MLP, or for an MoE config ``moe_mlp``. ``train``
         routes at ``cfg.capacity_factor``; serving (``train=False``) at
         n_experts / n_experts_per_tok, so the capacity is every token and
         nothing drops, as in the JAX model. The router's aux losses are not
-        computed (training an MoE model is not ported)."""
+        computed (training an MoE model is not ported). ``ad`` adds each
+        row's multi-LoRA deltas to the dense MLP's three products."""
         cfg, dt = self.cfg, self.cfg.dtype
         h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
         if not cfg.n_experts:
-            act = (F.silu(self._proj(h, lp["w_gate"], "w_gate"))
-                   * self._proj(h, lp["w_up"], "w_up"))
-            return x + self._proj(act, lp["w_down"], "w_down")
+            act = (F.silu(self._proj(h, lp["w_gate"], "w_gate", ad, ids))
+                   * self._proj(h, lp["w_up"], "w_up", ad, ids))
+            return x + self._proj(act, lp["w_down"], "w_down", ad, ids)
         factor = (cfg.capacity_factor if train
                   else cfg.n_experts / cfg.n_experts_per_tok)
         y, _, _ = moe_mlp(h, lp["router"], lp["we_gate"], lp["we_up"],

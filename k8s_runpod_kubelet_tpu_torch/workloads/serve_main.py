@@ -1,6 +1,6 @@
 """HTTP front over the port's ServingEngine (a port of the JAX package's
-``workloads/serve_main.py``, without the KV-handoff routes, ``/adapters``,
-tracing, tenants and ``/metrics``).
+``workloads/serve_main.py``, without the KV-handoff routes, tracing,
+tenants and ``/metrics``).
 
 Endpoints:
   POST /generate      {"tokens": [...]} or {"text": "..."} (with a
@@ -12,23 +12,34 @@ Endpoints:
                       "logprobs", + "text" with a tokenizer);
                       with "stream": true, chunked NDJSON: one {"token": N}
                       line per token, then the result object. "adapter"
-                      (multi-LoRA, not ported) answers 400
+                      names a registered LoRA adapter (400 when unknown)
   POST /v1/completions  OpenAI completions: prompt (string with a
                       tokenizer, or token list), max_tokens, temperature,
                       top_p, stop, logprobs, seed, n (one prefill fanned
                       out to n slots), presence/frequency_penalty,
-                      logit_bias, stream (SSE), usage
+                      logit_bias, stream (SSE), usage; with --lora-rank
+                      the "model" field selects a registered adapter (the
+                      base model's name or none: the base; 404 when
+                      unknown)
   POST /v1/chat/completions  OpenAI chat: messages through the
                       tokenizer's chat template, the same options
   POST /v1/embeddings OpenAI embeddings: the mean-pooled final-norm
                       hidden state of each input (string, token list or
-                      lists of either); 400 past max_prefill_len tokens
+                      lists of either); 400 past max_prefill_len tokens;
+                      base model only (an adapter's name 400, another
+                      404)
   POST /prefix        the /generate body's "tokens" or "text": prefill
                       the prefix once and pin its full KV pages, so later
                       prompts starting with it skip them -> {"registered":
                       n}; 400 on an empty or too-long prefix or a full
                       registry (--max-prefixes)
-  GET  /v1/models     the served model
+  POST /adapters      {"name": ..., "path": adapter.npz}: register a LoRA
+                      adapter (``models.lora.save_adapter``'s file, or the
+                      JAX package's ``train_main --export-adapter``) live
+                      -> {"registered": name}; 403 unless
+                      --dynamic-adapters, 400 on a bad file (the detail
+                      goes to the server log)
+  GET  /v1/models     the served model and its registered adapters
   GET  /healthz       liveness: 200 while the engine thread lives (body
                       "draining" while draining), 503 once it died
   GET  /readyz        routability: 503 while draining or dead
@@ -46,6 +57,8 @@ Run: python -m k8s_runpod_kubelet_tpu_torch.workloads.serve_main \
         [--speculate K] [--serving-chunk-tokens N] [--max-prefixes N]
         [--kv-pool-pages N] [--max-queue-depth N] [--flight-recorder off]
         [--hf-checkpoint DIR]
+        [--lora-rank R [--lora-targets wq,wv] [--max-adapters N]
+         [--dynamic-adapters]]
 (``--model mla-8b`` serves Multi-head Latent Attention from a latent
 arena; ``--kv-int8`` then makes the latents int8.)
 """
@@ -74,9 +87,6 @@ from .tokenizer import get_tokenizer
 
 log = logging.getLogger("serve-main")
 
-# request fields the JAX front accepts that this port does not serve yet
-_UNSUPPORTED = ("adapter",)
-
 # the request-id tail: unique even when the wall clock stands still
 _RID_SEQ = itertools.count()
 
@@ -89,6 +99,7 @@ def _or(value, default):
 class _Handler(BaseHTTPRequestHandler):
     engine: ServingEngine = None  # bound by serve()
     tokenizer = None              # None = token-ids-only API
+    allow_adapters = False        # POST /adapters (--dynamic-adapters)
     request_timeout_s = 120.0
     # wall clock for OpenAI "created" stamps and ids, monotonic deadlines
     clock = staticmethod(time.time)
@@ -134,9 +145,13 @@ class _Handler(BaseHTTPRequestHandler):
             return self._send(200, b"ok" if url.path == "/healthz"
                               else b"ready", "text/plain")
         if url.path == "/v1/models":
-            return self._send(200, {"object": "list", "data": [
-                {"id": eng.cfg.name, "object": "model",
-                 "created": int(self.clock()), "owned_by": "base"}]})
+            # the base model, then every registered adapter
+            now = int(self.clock())
+            data = [{"id": eng.cfg.name, "object": "model", "created": now,
+                     "owned_by": "base"}]
+            data += [{"id": n, "object": "model", "created": now,
+                      "owned_by": "adapter"} for n in eng.adapter_names]
+            return self._send(200, {"object": "list", "data": data})
         if url.path == "/debug/engine":
             return self._send(200, eng.debug_snapshot())
         if url.path == "/debug/steps":
@@ -161,6 +176,8 @@ class _Handler(BaseHTTPRequestHandler):
             return self._openai_completion(chat=True)
         if self.path == "/v1/embeddings":
             return self._openai_embeddings()
+        if self.path == "/adapters":
+            return self._register_adapter()
         if self.path not in ("/generate", "/prefix"):
             return self._send(404, {"error": f"no route {self.path}"})
         try:
@@ -189,7 +206,8 @@ class _Handler(BaseHTTPRequestHandler):
             frequency_penalty=_or(req.get("frequency_penalty"), 0.0),
             logit_bias=req.get("logit_bias"), seed=req.get("seed"),
             stop=stop, stop_text=stop_strs,
-            logprobs=bool(req.get("logprobs")))
+            logprobs=bool(req.get("logprobs")),
+            adapter=req.get("adapter") or "")
         try:
             out = fut.result(timeout=self.request_timeout_s)
         except FutureTimeout:
@@ -209,6 +227,33 @@ class _Handler(BaseHTTPRequestHandler):
                 text, _ = self._cut_at_stop(text, stop_strs)
             body["text"] = text
         self._send(200, body)
+
+    def _register_adapter(self):
+        """POST /adapters: register a LoRA adapter from a ``.npz`` path the
+        server reads. Opt-in (--dynamic-adapters): it lets a client open a
+        path and replace a live tenant's weights. Any failure (a missing
+        or corrupt file, wrong shapes, a full registry) is a 400 whose
+        detail goes to the server log only, so the answer is no probe of
+        the filesystem."""
+        if not self.allow_adapters:
+            self._read_json()   # unread bytes would poison keep-alive
+            return self._send(403, {
+                "error": "dynamic adapter registration is disabled (start "
+                         "with --dynamic-adapters)"})
+        try:
+            req = self._read_json()
+            name, path = req.get("name"), req.get("path")
+            if not (isinstance(name, str) and name
+                    and isinstance(path, str) and path):
+                raise ValueError('need "name" and "path" (adapter .npz)')
+            from ..models.lora import load_adapter
+            self.engine.register_adapter(name, load_adapter(path))
+        except Exception as e:  # noqa: BLE001 — corrupt files raise anything
+            log.warning("adapter registration failed: %s: %s",
+                        type(e).__name__, e)
+            return self._send(400, {"error": "adapter registration failed "
+                                             "(see server log)"})
+        return self._send(200, {"registered": name})
 
     def _parse_stop(self, raw) -> tuple[list, list]:
         """OpenAI ``stop``: a string, a list of strings (needs the
@@ -284,9 +329,6 @@ class _Handler(BaseHTTPRequestHandler):
                 raise ValueError("empty prompt")
             return tokens
         # /generate and /prefix share the tokens/text body
-        bad = [f for f in _UNSUPPORTED if body.get(f)]
-        if bad:
-            raise ValueError(f"fields {bad} are not served by this port")
         if "text" in body and "tokens" not in body:
             if self.tokenizer is None:
                 raise ValueError('server has no tokenizer (start with '
@@ -380,7 +422,10 @@ class _Handler(BaseHTTPRequestHandler):
             name = self.engine.cfg.name
             model_req = req.get("model")
             if model_req and model_req != name:
-                return self._send(404, {"error": {
+                # the embedding forward runs the base weights: an adapter's
+                # name is refused (400), any other name is unknown (404)
+                known = model_req in self.engine.adapter_names
+                return self._send(400 if known else 404, {"error": {
                     "message": f"model {model_req!r} is not served by "
                                f"/v1/embeddings (base model {name!r} only)",
                     "type": "invalid_request_error"}})
@@ -453,6 +498,21 @@ class _Handler(BaseHTTPRequestHandler):
             # carry them)
             want_lp = (bool(req.get("logprobs")) and not chat
                        and not req.get("stream"))
+            # with multi-LoRA the "model" field selects an adapter (the
+            # base model's name, or none, the base); an unknown name is a
+            # 404, never another tenant's weights. Without it the field is
+            # only echoed: clients send placeholders
+            model_req = req.get("model") or ""
+            adapter = ""
+            if (self.engine.multi_lora_enabled and model_req
+                    and model_req != self.engine.cfg.name):
+                if model_req not in self.engine.adapter_names:
+                    return self._send(404, {"error": {
+                        "message": f"model {model_req!r} does not exist "
+                                   "(not the base model or a registered "
+                                   "adapter)",
+                        "type": "invalid_request_error"}})
+                adapter = model_req
             kw = dict(max_new_tokens=req.get("max_tokens"),
                       temperature=_or(req.get("temperature"), 1.0),
                       top_p=_or(req.get("top_p"), 1.0), stop=stop,
@@ -460,7 +520,8 @@ class _Handler(BaseHTTPRequestHandler):
                       presence_penalty=_or(req.get("presence_penalty"), 0.0),
                       frequency_penalty=_or(req.get("frequency_penalty"),
                                             0.0),
-                      logit_bias=req.get("logit_bias"), logprobs=want_lp)
+                      logit_bias=req.get("logit_bias"), logprobs=want_lp,
+                      adapter=adapter)
         except (json.JSONDecodeError, ValueError, TypeError) as e:
             return self._send(400, {"error": {
                 "message": str(e), "type": "invalid_request_error"}})
@@ -653,7 +714,8 @@ class _Handler(BaseHTTPRequestHandler):
                   presence_penalty=_or(req.get("presence_penalty"), 0.0),
                   frequency_penalty=_or(req.get("frequency_penalty"), 0.0),
                   logit_bias=req.get("logit_bias"), seed=req.get("seed"),
-                  logprobs=bool(req.get("logprobs")))
+                  logprobs=bool(req.get("logprobs")),
+                  adapter=req.get("adapter") or "")
 
         def line(payload: dict) -> bytes:
             return (json.dumps(payload) + "\n").encode()
@@ -677,13 +739,16 @@ class _Handler(BaseHTTPRequestHandler):
 
 def serve(engine: ServingEngine, port: int = 8000, tokenizer=None,
           request_timeout_s: float = 120.0, host: str = "0.0.0.0",
-          clock=time.time, mono=time.monotonic) -> ThreadingHTTPServer:
+          clock=time.time, mono=time.monotonic,
+          allow_adapters: bool = False) -> ThreadingHTTPServer:
     """Start the HTTP front on a daemon thread; ``port`` 0 picks a free
     port (read ``httpd.server_address[1]``). Stop with
     ``httpd.shutdown(); httpd.server_close()``. ``clock``/``mono`` are the
-    wall and monotonic clocks (injectable for tests)."""
+    wall and monotonic clocks (injectable for tests); ``allow_adapters``
+    opens POST /adapters."""
     handler = type("BoundHandler", (_Handler,),
                    {"engine": engine, "tokenizer": tokenizer,
+                    "allow_adapters": allow_adapters,
                     "request_timeout_s": request_timeout_s,
                     "clock": staticmethod(clock), "mono": staticmethod(mono)})
     httpd = ThreadingHTTPServer((host, port), handler)
@@ -754,6 +819,22 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="load the weights from a Hugging Face model "
                         "directory (*.safetensors or pytorch_model*.bin) "
                         "instead of random init from --seed")
+    p.add_argument("--lora-rank", type=int, default=0,
+                   help="multi-LoRA serving at this adapter rank: register "
+                        "adapters with POST /adapters and pick one a "
+                        'request with "adapter" (or the OpenAI "model" '
+                        "field); 0 = off")
+    p.add_argument("--lora-targets", default="wq,wv",
+                   help="the projections the adapters cover, of "
+                        "wq,wk,wv,wo,w_gate,w_up,w_down (as they were "
+                        "trained)")
+    p.add_argument("--max-adapters", type=int, default=8,
+                   help="adapters registered at once")
+    p.add_argument("--dynamic-adapters", action="store_true",
+                   help="enable POST /adapters (live registration from a "
+                        ".npz path the server reads); off by default, since "
+                        "it lets clients open paths and replace a live "
+                        "tenant's weights")
     return p.parse_args(argv)
 
 
@@ -767,7 +848,8 @@ def build_engine(args: argparse.Namespace, params=None):
     mesh of N shards (and takes a given bf16 tree over). Raises ValueError
     for --int8 with --int4, a tensor degree below 1 or one that does not
     divide the head counts, and an MLA or MoE model under N > 1, all
-    before any weight is drawn or loaded."""
+    before any weight is drawn or loaded, as is ``--lora-rank`` with an
+    MLA model."""
     from ..models import MODEL_CONFIGS, init_params
     from ..models.convert import load_hf
     from ..models.quant import init_quantized_params
@@ -778,6 +860,10 @@ def build_engine(args: argparse.Namespace, params=None):
         raise ValueError("--int8 and --int4 are mutually exclusive — pick "
                          "one weight precision")
     cfg = MODEL_CONFIGS[args.model]()
+    if args.lora_rank > 0 and cfg.is_mla:
+        raise ValueError(f"--lora-rank does not compose with MLA models "
+                         f"(adapters target the wq/wk/wv layout; {cfg.name} "
+                         "uses w_dkv/w_uk/w_uv)")
     n = args.tensor_parallel
     if n < 1:
         raise ValueError(f"--tensor-parallel must be >= 1, got {n}")
@@ -800,7 +886,11 @@ def build_engine(args: argparse.Namespace, params=None):
         max_prefixes=args.max_prefixes, kv_pool_pages=args.kv_pool_pages,
         max_queue_depth=args.max_queue_depth,
         flight_recorder=args.flight_recorder == "on",
-        kv_arena_sharding=args.kv_arena_sharding)
+        kv_arena_sharding=args.kv_arena_sharding,
+        lora_rank=args.lora_rank,
+        lora_targets=tuple(t for t in args.lora_targets.split(",") if t),
+        max_adapters=args.max_adapters)
+    ServingEngine.lora_dims(cfg, sc)   # before any weight
     device = resolve_device(args.device)
     if params is None and args.hf_checkpoint:
         params = load_hf(cfg, args.hf_checkpoint, device=device)
@@ -825,7 +915,8 @@ def main(argv=None) -> int:
     except ValueError as e:
         log.error("%s", e)
         return 1
-    httpd = serve(engine, args.port, tokenizer=tokenizer)
+    httpd = serve(engine, args.port, tokenizer=tokenizer,
+                  allow_adapters=args.dynamic_adapters)
     snap = engine.debug_snapshot()
     log.info("serving %s on :%d (%s, weights %s, kv %s, tensor-parallel "
              "%d)", snap["model"], httpd.server_address[1], snap["device"],

@@ -57,6 +57,14 @@ paged loop of the JAX package's ``workloads/serving/engine.py``).
   step. ``CompileWatchdog`` (``recorder.py``) counts the captures;
   ``debug_snapshot()["graphs"]`` reads them with the replays. Prefill
   chunks stay eager.
+- **Multi-LoRA**: with ``lora_rank`` > 0 the engine holds zero stacks for
+  ``max_adapters`` adapters over ``lora_targets`` (slot 0 stays zero: the
+  base model), allocated once on its device. ``register_adapter`` writes
+  an adapter into its slot in place, so no step graph recaptures; each
+  request picks one by name (``submit(adapter=)``), every step and chunk
+  applies each slot's own adapter, and the prefix trie keeps one root per
+  adapter. A re-registration waits for in-flight prefills of that adapter
+  to finish, then drops its cached prefix pages. ``embed`` is base-only.
 
 Every launch that touches the arena, and every pool or trie call, runs
 under ``_prefix_lock``: the two threads issue onto PyTorch's one current
@@ -82,6 +90,7 @@ import torch
 
 from ...device import resolve_device
 from ...models.llama import LlamaConfig, LlamaModel, Params
+from ...models.lora import LORA_TARGETS, is_lora
 from ...models.quant import quantize_params
 from ...parallel.sharding import shard_params
 from .kv_manager import PagedKVStore, PoolExhausted
@@ -101,7 +110,8 @@ COUNTERS = ("admitted", "decode_steps", "engine_errors", "prefill_errors",
             "paged_speculative_steps", "paged_speculative_rollback_pages",
             "chunk_interleaved_steps", "prefix_hits", "dense_prefills",
             "dense_prefill_heads", "dense_prefill_chunks", "embeds",
-            "stream_cancelled", "prefix_cache_evictions")
+            "stream_cancelled", "prefix_cache_evictions",
+            "prefix_adapter_fills", "adapters_registered")
 
 
 class _PagedRun:
@@ -169,6 +179,7 @@ class ServingEngine:
         # auto: one decode cache's worth for the slots plus as much again
         # for the shared prefix pool (the JAX engine's auto sizing)
         n_pages = sc.kv_pool_pages or 2 * sc.slots * slot_pages
+        dims = self.lora_dims(cfg, sc)
         if sc.quantize_int8 or sc.quantize_int4:
             # on the params' device, one layer slice at a time; leaves
             # already quantized (init_quantized_params) are kept as they are
@@ -182,6 +193,28 @@ class ServingEngine:
             shard_kv=sc.kv_arena_sharding == "auto")
         # the arena's kv-head shards (1: one arena every shard reads)
         self._arena_shards = self.model.kv_shards(arena)
+        # multi-LoRA: zero stacks over max_adapters + 1 slots, slot 0 the
+        # base model forever, whole on every shard (adapters are small)
+        self._adapters: Optional[dict] = None
+        if dims:
+            n, r, dt = sc.max_adapters + 1, sc.lora_rank, cfg.dtype
+            self._adapters = {t: {
+                "a": torch.zeros((cfg.n_layers, n, dims[t][0], r), dtype=dt,
+                                 device=self.device),
+                "b": torch.zeros((cfg.n_layers, n, r, dims[t][1]), dtype=dt,
+                                 device=self.device),
+                "scale": torch.zeros((cfg.n_layers, n), dtype=torch.float32,
+                                     device=self.device)}
+                for t in sc.lora_targets}
+        self._adapter_names: dict[str, int] = {}
+        self._adapter_lock = threading.Lock()
+        # one registration at a time; it waits until no prefill of its
+        # slot is in flight (readers) and holds new ones off (writing)
+        self._register_lock = threading.Lock()
+        self._adapter_cond = threading.Condition()
+        self._adapter_readers: dict[int, int] = {}
+        self._adapter_writing: set = set()
+        self._slot_adapter = np.zeros((sc.slots,), np.int32)
         self._kv_store = PagedKVStore(n_pages, t, arena,
                                       shards=self._arena_shards)
         self._slot_pages_max = slot_pages
@@ -256,7 +289,8 @@ class ServingEngine:
             # chunk tensors outside the arena lock)
             pool = torch.cuda.graph_pool_handle()
             for g in self._graphs():
-                g.capture(self.params, self._kv_store.arena, pool)
+                g.capture(self.params, self._kv_store.arena, pool,
+                          self._adapters)
         self._thread.start()
         self._prefill_thread.start()
         return self
@@ -273,7 +307,8 @@ class ServingEngine:
                logit_bias: Optional[dict] = None,
                seed: Optional[int] = None, stop: Optional[list] = None,
                stop_text: Optional[list] = None, logprobs: bool = False,
-               on_token: Optional[Callable[[int], Any]] = None) -> Future:
+               on_token: Optional[Callable[[int], Any]] = None,
+               adapter: str = "") -> Future:
         """Enqueue a generation request; resolves to {rid, tokens,
         latency_s, ttft_s} (+ "logprobs", one per token, with
         ``logprobs``). ``stop``: token sequences that end the request when
@@ -282,12 +317,14 @@ class ServingEngine:
         ``on_token(tok)`` sees each token from the engine thread, and a
         raising callback cancels the request. Invalid arguments resolve
         to ValueError; a queue at ``max_queue_depth`` to
-        EngineOverloaded."""
+        EngineOverloaded. ``adapter`` names a registered LoRA adapter
+        ("" = the base model); an unknown name resolves to ValueError."""
         try:
             req = self._build_request(prompt, max_new_tokens, temperature,
                                       top_k, top_p, presence_penalty,
                                       frequency_penalty, logit_bias, seed,
-                                      stop, stop_text, logprobs, on_token)
+                                      stop, stop_text, logprobs, on_token,
+                                      adapter)
         except ValueError as exc:
             return _failed(exc)
         return self._enqueue(req, 1)[0]
@@ -438,6 +475,155 @@ class ServingEngine:
         return any(len(r) <= len(tokens) and tokens[:len(r)] == r
                    for r in self._registered)
 
+    @property
+    def adapter_names(self) -> tuple[str, ...]:
+        with self._adapter_lock:
+            return tuple(self._adapter_names)
+
+    @property
+    def multi_lora_enabled(self) -> bool:
+        return self._adapters is not None
+
+    @staticmethod
+    def lora_dims(cfg: LlamaConfig, sc: ServingConfig) -> Optional[dict]:
+        """The JAX engine's checks of the multi-LoRA settings; returns each
+        target's (in, out) widths, or None with ``lora_rank`` 0."""
+        if sc.lora_rank <= 0:
+            return None
+        if cfg.is_mla:
+            raise ValueError("multi-LoRA serving does not support MLA "
+                             "models (adapters target the wq/wk/wv "
+                             "layout; MLA has w_dkv/w_uk/w_uv)")
+        unknown = set(sc.lora_targets) - set(LORA_TARGETS)
+        if unknown or not sc.lora_targets:
+            raise ValueError(f"unknown lora_targets {sorted(unknown)}"
+                             if unknown else "lora_targets is empty")
+        if cfg.n_experts and set(sc.lora_targets) & {"w_gate", "w_up",
+                                                     "w_down"}:
+            raise ValueError("MoE configs have no dense mlp weights to "
+                             "adapt; use attention targets")
+        if sc.max_adapters < 1:
+            raise ValueError(f"max_adapters must be >= 1 with lora_rank, "
+                             f"got {sc.max_adapters}")
+        e, hd, m = cfg.embed_dim, cfg.head_dim_, cfg.mlp_dim
+        return {"wq": (e, cfg.n_heads * hd), "wk": (e, cfg.n_kv_heads * hd),
+                "wv": (e, cfg.n_kv_heads * hd), "wo": (cfg.n_heads * hd, e),
+                "w_gate": (e, m), "w_up": (e, m), "w_down": (m, e)}
+
+    def register_adapter(self, name: str, source) -> int:
+        """Install a LoRA adapter into a slot of the preallocated stacks and
+        return the slot. ``source``: a LoRA-wrapped params tree
+        (``models.lora.apply_lora``) or {target: {"a": (L, in, r), "b": (L,
+        r, out), "scale": (L,) or a scalar}} of tensors or numpy arrays
+        (``load_adapter``). Targets the source lacks are zero in its slot
+        (the base projection); targets outside ``lora_targets`` are
+        refused. A new name takes the next free slot ("adapter registry
+        full" past ``max_adapters``); a registered name is rewritten in
+        its slot. The write is in place (``copy_``) under the arena lock,
+        after every in-flight prefill of that slot has finished and while
+        new ones wait, so a prompt never mixes two versions of an adapter
+        and no step graph recaptures; decoding requests of the slot read
+        the new weights from the next step. The slot's cached prefix
+        pages are dropped."""
+        if self._adapters is None:
+            raise ValueError("engine built without lora_rank; set "
+                             "ServingConfig.lora_rank to enable adapters")
+        if not name or not isinstance(name, str):
+            raise ValueError("adapter name required")
+        if isinstance(source, dict) and "layers" in source:
+            src = {t: {"a": w["lora_a"], "b": w["lora_b"],
+                       "scale": w["scale"]}
+                   for t, w in source["layers"].items() if is_lora(w)}
+        else:
+            src = source
+        if not src:
+            raise ValueError("source carries no LoRA adapters")
+        extra = set(src) - set(self.sc.lora_targets)
+        if extra:
+            raise ValueError(f"adapter targets {sorted(extra)} not in "
+                             f"lora_targets {self.sc.lora_targets}")
+        rows = {}
+        for t, ad in src.items():
+            stack = self._adapters[t]
+            a = _as_tensor(ad["a"], stack["a"].dtype, self.device)
+            b = _as_tensor(ad["b"], stack["b"].dtype, self.device)
+            want_a = (stack["a"].shape[0],) + tuple(stack["a"].shape[2:])
+            want_b = (stack["b"].shape[0],) + tuple(stack["b"].shape[2:])
+            if tuple(a.shape) != want_a or tuple(b.shape) != want_b:
+                raise ValueError(
+                    f"{t}: adapter shapes {tuple(a.shape)}/{tuple(b.shape)}"
+                    f" don't match rank-{self.sc.lora_rank} stacks for "
+                    "this model")
+            scale = _as_tensor(ad["scale"], torch.float32, self.device)
+            rows[t] = (a, b, scale.expand(stack["scale"].shape[0]))
+        with self._register_lock:
+            with self._adapter_lock:
+                slot = self._adapter_names.get(name)
+                if slot is None:
+                    slot = len(self._adapter_names) + 1
+                    if slot > self.sc.max_adapters:
+                        raise ValueError(f"adapter registry full "
+                                         f"({self.sc.max_adapters})")
+            with self._adapter_cond:
+                self._adapter_writing.add(slot)
+                self._adapter_cond.wait_for(
+                    lambda: not self._adapter_readers.get(slot))
+            try:
+                with self._prefix_lock:
+                    for t, stack in self._adapters.items():
+                        if t in rows:
+                            for key, row in zip(("a", "b", "scale"),
+                                                rows[t]):
+                                stack[key][:, slot].copy_(row)
+                        else:
+                            for v in stack.values():
+                                v[:, slot].zero_()
+                    # KV cached under the old weights is stale
+                    self._kv_store.trie.drop_adapter(slot)
+                with self._adapter_lock:
+                    self._adapter_names[name] = slot
+                self._count("adapters_registered")
+            finally:
+                with self._adapter_cond:
+                    self._adapter_writing.discard(slot)
+                    self._adapter_cond.notify_all()
+        return slot
+
+    def _adapter_kw(self, adapter_id: int) -> dict:
+        """A single-request step's adapter arguments: the stacks and the
+        request's slot, or nothing when the engine serves no adapters."""
+        if self._adapters is None:
+            return {}
+        return {"adapters": self._adapters,
+                "adapter_ids": torch.tensor([adapter_id], dtype=torch.int32,
+                                            device=self.device)}
+
+    def _step_adapter_kw(self) -> dict:
+        """A decode or verify step's adapter arguments: the stacks and
+        every slot's adapter id."""
+        if self._adapters is None:
+            return {}
+        return {"adapters": self._adapters,
+                "adapter_ids": self._slot_adapter}
+
+    def _prefill_reader(self, adapter_id: int):
+        """Hold ``adapter_id`` against re-registration for one prefill
+        (a registration in progress makes it wait). Returns the release
+        callable."""
+        if adapter_id == 0:
+            return lambda: None
+        with self._adapter_cond:
+            self._adapter_cond.wait_for(
+                lambda: adapter_id not in self._adapter_writing)
+            self._adapter_readers[adapter_id] = \
+                self._adapter_readers.get(adapter_id, 0) + 1
+
+        def release():
+            with self._adapter_cond:
+                self._adapter_readers[adapter_id] -= 1
+                self._adapter_cond.notify_all()
+        return release
+
     def _graphs(self) -> list:
         return [g for g in (self._paged_step, self._paged_verify)
                 if g is not None]
@@ -504,7 +690,8 @@ class ServingEngine:
                           "prompt_tokens": len(r.prompt),
                           "generated_tokens": len(s.generated),
                           "remaining_tokens": s.remaining,
-                          "pages": len(s.pages)})
+                          "pages": len(s.pages),
+                          "adapter_id": r.adapter_id})
         with self._count_lock:
             counters = dict(self.counters)
         sc, dtype = self.sc, str(self.cfg.dtype).removeprefix("torch.")
@@ -528,6 +715,9 @@ class ServingEngine:
                 "kv_arena_shards": self._arena_shards,
                 "speculate_k": sc.speculate_k,
                 "serving_chunk_tokens": self._chunk_tokens,
+                "multi_lora": self.multi_lora_enabled,
+                "lora_rank": sc.lora_rank if self._adapters else 0,
+                "adapters": list(self.adapter_names),
                 "prefix_cache": self.prefix_cache_stats(),
                 "counters": counters,
                 "graphs": self.graphs_snapshot(),
@@ -540,7 +730,7 @@ class ServingEngine:
                        top_k=0, top_p=1.0, presence_penalty=0.0,
                        frequency_penalty=0.0, logit_bias=None, seed=None,
                        stop=None, stop_text=None, logprobs=False,
-                       on_token=None) -> Request:
+                       on_token=None, adapter="") -> Request:
         """``submit``'s arguments, validated, as a Request (ValueError
         when one is invalid)."""
         sc, vocab = self.sc, self.cfg.vocab_size
@@ -593,6 +783,12 @@ class ServingEngine:
         if stop_text and self._decode_fn is None:
             raise ValueError("stop_text needs an engine decode_fn "
                              "(tokenizer)")
+        adapter_id = 0
+        if adapter:
+            with self._adapter_lock:
+                adapter_id = self._adapter_names.get(adapter)
+            if adapter_id is None:
+                raise ValueError(f"unknown adapter {adapter!r}")
         if seed is None:
             with self._seed_lock:
                 seed = int(self._seed_rng.integers(0, 2 ** 32))
@@ -610,7 +806,7 @@ class ServingEngine:
                        logit_bias=logit_bias or None,
                        seed=seed & 0xFFFFFFFF, stop=[list(q) for q in stop],
                        stop_texts=list(stop_text), logprobs=bool(logprobs),
-                       on_token=on_token)
+                       on_token=on_token, adapter_id=adapter_id)
 
     def _count(self, name: str, n: int = 1) -> None:
         with self._count_lock:
@@ -653,8 +849,13 @@ class ServingEngine:
         try:
             # a group needs one bindable cache per member, and a page
             # run's partial tail page can belong to one slot only
-            last_logits, single, _ = self._prefill_tokens(
-                req.prompt, single_only=len(live) > 1)
+            release = self._prefill_reader(req.adapter_id)
+            try:
+                last_logits, single, _ = self._prefill_tokens(
+                    req.prompt, single_only=len(live) > 1,
+                    adapter_id=req.adapter_id)
+            finally:
+                release()
             for r in live:
                 row = last_logits
                 if r.logit_bias:
@@ -692,22 +893,31 @@ class ServingEngine:
                 except queue.Full:
                     continue
 
-    def _prefill_tokens(self, tokens: list[int], single_only: bool = False
+    def _prefill_tokens(self, tokens: list[int], single_only: bool = False,
+                        adapter_id: int = 0
                         ) -> tuple[torch.Tensor, Any, int]:
         """A whole prompt -> (last logits (1, V), a _PagedRun or a dense
         single-request cache, tokens served from the prefix cache). The
         native route scatters straight into an up-front page run; when the
         pool cannot hold that run, or with ``single_only`` (fanout
-        groups), the prompt takes the dense-scratch route."""
+        groups), the prompt takes the dense-scratch route. ``adapter_id``
+        picks the adapter and the trie root."""
         if not single_only:
-            out = self._prefill_paged_native(tokens)
+            out = self._prefill_paged_native(tokens, adapter_id)
             if out is not None:
                 return out
             # pool too full for an up-front run: the dense route below
             # needs pages only for what it caches, and at binding
-        return self._prefill_paged_dense(tokens)
+        return self._prefill_paged_dense(tokens, adapter_id)
 
-    def _prefill_paged_dense(self, tokens: list[int]
+    def _count_miss(self, tokens: list[int], adapter_id: int) -> None:
+        """A prefix-cache miss; an adapter's first prompt over a registered
+        prefix fills that adapter's own copy of the prefix's pages."""
+        self._count("prefix_cache_misses")
+        if adapter_id and self._covers_registered(tokens):
+            self._count("prefix_adapter_fills")
+
+    def _prefill_paged_dense(self, tokens: list[int], adapter_id: int = 0
                              ) -> tuple[torch.Tensor, dict, int]:
         """The dense-scratch route: the prompt's cached full pages gather
         from the arena into a fresh single-request cache (at least the
@@ -719,7 +929,7 @@ class ServingEngine:
         single = None
         self._count("dense_prefills")
         with self._prefix_lock:
-            m = store.match(0, tokens)
+            m = store.match(adapter_id, tokens)
             if m.pages:
                 try:
                     single = store.gather(m.pages, self._fresh_cache())
@@ -730,13 +940,13 @@ class ServingEngine:
             if self._covers_registered(tokens):
                 self._count("prefix_hits")
             last_logits, single = self._append_chunks(
-                single, tokens[m.matched_tokens:], None)
+                single, tokens[m.matched_tokens:], None, adapter_id)
         else:
-            self._count("prefix_cache_misses")
-            last_logits, single = self._prefill_raw(tokens)
+            self._count_miss(tokens, adapter_id)
+            last_logits, single = self._prefill_raw(tokens, adapter_id)
         try:
             with self._prefix_lock:
-                _, evicted = store.insert(0, tokens, single)
+                _, evicted = store.insert(adapter_id, tokens, single)
             self._count("prefix_cache_evictions", evicted)
         except Exception:  # noqa: BLE001 — caching is best-effort
             log.exception("prefix-cache insert failed; serving uncached")
@@ -746,7 +956,8 @@ class ServingEngine:
         return self.model.init_cache(1, self.sc.cache_len,
                                      quantize=self.sc.quantize_kv_int8)
 
-    def _prefill_raw(self, tokens: list[int]) -> tuple[torch.Tensor, dict]:
+    def _prefill_raw(self, tokens: list[int], adapter_id: int = 0
+                     ) -> tuple[torch.Tensor, dict]:
         """Prefill into a fresh single-request cache, no prefix cache: the
         head (a chunk's length) through ``prefill``, the flash kernel, the
         rest through ``_append_chunks``."""
@@ -754,15 +965,16 @@ class ServingEngine:
         head = tokens[:self._chunk_tokens or self.sc.max_prefill_len]
         toks = torch.tensor([head], dtype=torch.int32, device=self.device)
         with self._prefix_lock:   # behind the engine thread's replays
-            last_logits, single = self.model.prefill(self.params, toks,
-                                                     single)
+            last_logits, single = self.model.prefill(
+                self.params, toks, single, **self._adapter_kw(adapter_id))
             self._count("dense_prefill_heads")
         if self._chunk_tokens and len(tokens) > len(head):
             self._yield_between_chunks()
-        return self._append_chunks(single, tokens[len(head):], last_logits)
+        return self._append_chunks(single, tokens[len(head):], last_logits,
+                                   adapter_id)
 
-    def _append_chunks(self, single: dict, toks: list[int], last_logits
-                       ) -> tuple[torch.Tensor, dict]:
+    def _append_chunks(self, single: dict, toks: list[int], last_logits,
+                       adapter_id: int = 0) -> tuple[torch.Tensor, dict]:
         """Append ``toks`` to a single-request cache chunk by chunk through
         ``prefill_chunk_step``; chunks are ``serving_chunk_tokens`` long
         when set (one decode step between them while a slot decodes), else
@@ -776,7 +988,8 @@ class ServingEngine:
                                     device=self.device)
             with self._prefix_lock:
                 last_logits, single = self.model.prefill_chunk_step(
-                    self.params, ctoks, single, true_len)
+                    self.params, ctoks, single, true_len,
+                    **self._adapter_kw(adapter_id))
                 self._count("dense_prefill_chunks")
             if self._chunk_tokens and start + step < len(toks):
                 self._yield_between_chunks()
@@ -790,7 +1003,7 @@ class ServingEngine:
             if self.recorder is not None:
                 self.recorder.event("chunk_interleave", steps=ran)
 
-    def _prefill_paged_native(self, tokens: list[int]
+    def _prefill_paged_native(self, tokens: list[int], adapter_id: int = 0
                               ) -> Optional[tuple[torch.Tensor, _PagedRun,
                                                   int]]:
         """Prefill straight into the arena: allocate the prompt's page run
@@ -805,7 +1018,7 @@ class ServingEngine:
         t = self.sc.kv_page_tokens
         n_pages = -(-len(tokens) // t)
         with self._prefix_lock:
-            m = store.match(0, tokens)
+            m = store.match(adapter_id, tokens)
             try:
                 tail = (store.alloc_run(n_pages - len(m.pages))
                         if n_pages > len(m.pages) else [])
@@ -814,9 +1027,13 @@ class ServingEngine:
                 return None
         covered = m.matched_tokens
         pages = list(m.pages) + tail
-        self._count("prefix_cache_hits" if covered else "prefix_cache_misses")
-        if covered and self._covers_registered(tokens):
-            self._count("prefix_hits")
+        if covered:
+            self._count("prefix_cache_hits")
+            if self._covers_registered(tokens):
+                self._count("prefix_hits")
+        else:
+            self._count_miss(tokens, adapter_id)
+        ad_kw = self._adapter_kw(adapter_id)
         row = np.zeros((1, self._slot_pages_max), np.int32)
         row[0, :len(pages)] = pages
         dev = self.device
@@ -835,13 +1052,13 @@ class ServingEngine:
                     last_logits, _, lengths = \
                         self.model.paged_prefill_chunk_step(
                             self.params, ctoks, store.arena, table, lengths,
-                            true_len)
+                            true_len, **ad_kw)
                     self._count("prefill_chunks")
                 self._count("paged_prefill_tokens", len(chunk))
                 if self._chunk_tokens and start + step < len(rest):
                     self._yield_between_chunks()
             with self._prefix_lock:
-                store.insert_ready(0, tokens, pages)
+                store.insert_ready(adapter_id, tokens, pages)
         except Exception:
             with self._prefix_lock:
                 store.release(pages)
@@ -899,6 +1116,7 @@ class ServingEngine:
         with self._fanout_lock:
             self._queued_fanout -= drained_fanout
         self._page_tables_np[:] = 0
+        self._slot_adapter[:] = 0
         with self._prefix_lock:
             arena = self._kv_store.arena
             for section in arena.values():
@@ -952,7 +1170,7 @@ class ServingEngine:
             t = self.sc.kv_page_tokens
             n_prompt = len(req.prompt)
             with self._prefix_lock:
-                m = store.match_full(0, req.prompt)
+                m = store.match_full(req.adapter_id, req.prompt)
                 covered = m.matched_tokens
                 n_tail = -(-(n_prompt - covered) // t)
                 try:
@@ -984,6 +1202,7 @@ class ServingEngine:
         slot.stop_tail_upto = 0
         self._slot_seed[slot_id] = req.seed
         self._slot_draws[slot_id] = 1  # draw 0 was the prefill's token
+        self._slot_adapter[slot_id] = req.adapter_id
         self._set_slot_rows(slot_id, req, first)
         slot.request = req
         slot.generated = [first]
@@ -1032,6 +1251,7 @@ class ServingEngine:
                     slot.pages = []
                     slot.kv_len = 0
                     row[:] = 0
+                    self._slot_adapter[slot_id] = 0
                     req, slot.request = slot.request, None
                     _fail_future(req.future, RuntimeError(
                         f"KV pool exhausted mid-decode for {req.rid}: "
@@ -1063,7 +1283,7 @@ class ServingEngine:
                 self.params, self._kv_store.arena,
                 [s.last_token for s in self._slots],
                 [s.kv_len for s in self._slots], self._page_tables_np,
-                active)
+                active, **self._step_adapter_kw())
             self._count("decode_steps")
         if rec is not None:
             rec.mark("kernel")
@@ -1134,6 +1354,8 @@ class ServingEngine:
         if not any(active):
             return True
         is_greedy = [greedy(s) for s in slots]
+        # slots decoding with an adapter (the step record's count)
+        adapters = int((self._slot_adapter != 0).sum())
         toks_in = np.zeros((len(slots), k + 1), np.int32)
         n_tokens = np.where(active, widths, 0).astype(np.int32)
         for i, slot in enumerate(slots):
@@ -1147,7 +1369,7 @@ class ServingEngine:
             logits = self._paged_verify(
                 self.params, self._kv_store.arena, toks_in,
                 [s.kv_len for s in slots], self._page_tables_np, active,
-                n_tokens)
+                n_tokens, **self._step_adapter_kw())
             self._count("decode_steps")
             self._count("paged_speculative_steps")
         if rec is not None:
@@ -1231,7 +1453,7 @@ class ServingEngine:
         if rec is not None:
             rec.step_end(mode="spec_verify", active=sum(active),
                          draining=self._draining.is_set(), paged=True,
-                         spec_k=k, tokens=committed_total,
+                         spec_k=k, adapters=adapters, tokens=committed_total,
                          arena=self._arena_step_stats(),
                          spec={"proposed": proposed, "accepted": accepted,
                                "rolled_back_pages": rolled_back})
@@ -1259,6 +1481,8 @@ class ServingEngine:
         rec = self.recorder
         if rec is not None:
             rec.mark("sample")
+        # slots that decoded with an adapter (before completions free them)
+        adapters = int((self._slot_adapter != 0).sum())
         n_active = 0
         for slot_id, slot in enumerate(self._slots):
             if slot.request is None:
@@ -1278,7 +1502,8 @@ class ServingEngine:
         if rec is not None:
             rec.step_end(mode="decode", active=n_active,
                          draining=self._draining.is_set(), paged=True,
-                         tokens=n_active, arena=self._arena_step_stats())
+                         adapters=adapters, tokens=n_active,
+                         arena=self._arena_step_stats())
 
     def _arena_step_stats(self) -> dict:
         """O(1) arena occupancy for a step record."""
@@ -1349,6 +1574,7 @@ class ServingEngine:
         slot.pages = []
         slot.kv_len = 0
         self._page_tables_np[slot_id][:] = 0
+        self._slot_adapter[slot_id] = 0
         now = time.perf_counter()
         out = {"rid": req.rid, "tokens": slot.generated,
                "latency_s": now - req.submitted_at,
@@ -1370,6 +1596,14 @@ def _token_logprobs(logits: torch.Tensor, tokens: list[int]) -> list:
     logp = torch.log_softmax(logits.float(), dim=-1)
     idx = torch.tensor(tokens, dtype=torch.long, device=logits.device)
     return logp.gather(1, idx[:, None])[:, 0].tolist()
+
+
+def _as_tensor(x, dtype: torch.dtype, device) -> torch.Tensor:
+    """An adapter leaf (a tensor or a numpy array) on ``device`` in
+    ``dtype``."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.from_numpy(np.array(x, dtype=np.float32))
+    return x.to(device=device, dtype=dtype)
 
 
 def _failed(exc: BaseException) -> Future:

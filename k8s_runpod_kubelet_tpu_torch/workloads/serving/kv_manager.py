@@ -277,6 +277,28 @@ class PrefixTrie:
                 return root
         return {}
 
+    def drop_adapter(self, adapter_id: int) -> int:
+        """Forget an adapter's whole subtree (its weights were replaced, so
+        its cached prefix KV is stale), pinned nodes too. The pool frees a
+        page only once no reader still holds it. Returns the nodes
+        dropped."""
+        root = self._roots.pop(adapter_id, None)
+        if root is None:
+            return 0
+        dropped = 0
+        stack = list(root.values())
+        while stack:
+            node = stack.pop()
+            stack.extend(node.children.values())
+            del self._nodes[id(node)]
+            self.pool.unref(node.page)
+            dropped += 1
+        return dropped
+
+    def adapter_roots(self) -> list[int]:
+        """The adapter ids with a root (0 is the base model)."""
+        return sorted(self._roots)
+
     def shared_pages(self) -> int:
         """Pages serving more than one cached sequence or reader."""
         return sum(1 for n in self._nodes.values()
@@ -424,4 +446,5 @@ class PagedKVStore:
                 "pages_shared": self.trie.shared_pages(),
                 "nodes": len(self.trie),
                 "pinned": sum(1 for n in self.trie._nodes.values()
-                              if n.pinned)}
+                              if n.pinned),
+                "adapters": self.trie.adapter_roots()}

@@ -63,6 +63,13 @@ class ServingConfig:
     # (ops.attention.paged_head_shards), else replicates; "replicate" pins
     # one arena every shard reads whole
     kv_arena_sharding: str = "auto"
+    # multi-LoRA serving: adapters of this rank over lora_targets, up to
+    # max_adapters registered at once (register_adapter), selected per
+    # request; the stacks are allocated once, so registering never
+    # recaptures a step graph. 0 = off
+    lora_rank: int = 0
+    lora_targets: tuple = ("wq", "wv")
+    max_adapters: int = 8
     # per-decode-step timeline (recorder.FlightRecorder), served at GET
     # /debug/steps: at most recorder_steps records and recorder_bytes of
     # serialized payload (oldest evict first). Off: the engine holds no
@@ -116,6 +123,8 @@ class Request:
     # prefill fans out to every member, each sampling its own first token
     fanout: Optional[list] = None
     first_token_at: float = 0.0
+    # multi-LoRA: the adapter slot this request decodes with (0 = base)
+    adapter_id: int = 0
 
 
 @dataclasses.dataclass

@@ -8,21 +8,25 @@ int4 call with its Python shape checks and ctypes launch: the card idles
 for most of the step's wall. A ``StepGraph`` captures the whole step once
 and replays it, fed by static device buffers that live as long as it:
 
-- tokens (B, K), lengths (B,), active (B,), n_tokens (B,) and the page
-  tables (B, cols), all int32 slices of ONE device buffer. ``run`` packs
-  the host's values into a host staging buffer of the same layout (pinned
-  on a card) and makes one host-to-card copy a step;
+- tokens (B, K), lengths (B,), active (B,), n_tokens (B,), the page
+  tables (B, cols) and the slots' multi-LoRA adapter ids (B,), all int32
+  slices of ONE device buffer. ``run`` packs the host's values into a host
+  staging buffer of the same layout (pinned on a card) and makes one
+  host-to-card copy a step;
 - the logits, written by the replay into the graph's pool: (B, V) f32 at
   K = 1 (``paged_decode_step``), (B, K, V) at K > 1
   (``paged_verify_step``). They hold until the next replay of a graph of
   the same pool.
 
-A graph bakes in the pointers of the params, the arena sections, the rope
-tables and the static buffers. ``run`` takes the params and the arena as
-jit takes its arguments: if any of their tensors moved, it captures again
+A graph bakes in the pointers of the params, the arena sections, the
+adapter stacks (when the engine serves adapters), the rope tables and the
+static buffers. ``run`` takes the params, the arena and the adapter stacks
+as jit takes its arguments: if any of their tensors moved, it captures again
 (the engine's ``CompileWatchdog`` counts and logs every capture after the
 first, ``recorder.py``). Split-KV plans and int4 split counts depend on
-shapes only, which is what lets one graph serve every length.
+shapes only, which is what lets one graph serve every length. An adapter
+registered by writing into the stacks in place, like a new slot's adapter
+id, is data the next replay reads: no capture.
 
 On the CPU the same staged buffers feed the eager step: the dispatch is on
 the model's device, as in the kernel wrappers, and not a fallback. On a
@@ -71,7 +75,8 @@ KERNEL_NAMES = {
 # compiles the Triton kernel, the second runs warm
 WARMUP_STEPS = 2
 
-_SECTIONS = ("tokens", "lengths", "active", "n_tokens", "tables")
+_SECTIONS = ("tokens", "lengths", "active", "n_tokens", "tables",
+             "adapter_ids")
 
 
 def _leaves(tree, out: list) -> list:
@@ -102,7 +107,7 @@ class StepGraph:
         self._cuda = dev.type == "cuda"
         shapes = {"tokens": (slots, width), "lengths": (slots,),
                   "active": (slots,), "n_tokens": (slots,),
-                  "tables": (slots, table_cols)}
+                  "tables": (slots, table_cols), "adapter_ids": (slots,)}
         spans, n = {}, 0
         for name in _SECTIONS:
             size = int(np.prod(shapes[name]))
@@ -121,7 +126,7 @@ class StepGraph:
         self._graph: Optional[torch.cuda.CUDAGraph] = None
         self._pool = None
         self._key = None
-        self._params = self._arena = None
+        self._params = self._arena = self._adapters = None
         self.logits: Optional[torch.Tensor] = None
         self.captures = 0
         self.replays = 0
@@ -133,32 +138,35 @@ class StepGraph:
     def baked(self) -> dict:
         """Every tensor the captured graph holds a pointer to."""
         return {"params": self._params, "arena": self._arena,
+                "adapters": self._adapters,
                 "rope": {"cos": self.model.cos, "sin": self.model.sin},
                 "static": self.static}
 
     @staticmethod
-    def _key_of(params, arena) -> tuple:
+    def _key_of(params, arena, adapters=None) -> tuple:
         return tuple((t.data_ptr(), t.dtype, t.shape)
-                     for t in _leaves((params, arena), []))
+                     for t in _leaves((params, arena, adapters), []))
 
     # -- the step -------------------------------------------------------------
 
-    def _step(self, params, arena) -> torch.Tensor:
+    def _step(self, params, arena, adapters) -> torch.Tensor:
         s = self.static
         active = s["active"] != 0
+        ids = s["adapter_ids"] if adapters else None
         if self.width == 1:
             logits, _, _ = self.model.paged_decode_step(
                 params, s["tokens"][:, 0], arena, s["tables"], s["lengths"],
-                active)
+                active, adapters=adapters, adapter_ids=ids)
             return logits
         logits, _ = self.model.paged_verify_step(
             params, s["tokens"], arena, s["tables"], s["lengths"], active,
-            s["n_tokens"])
+            s["n_tokens"], adapters=adapters, adapter_ids=ids)
         return logits
 
-    def capture(self, params, arena, pool=None) -> None:
+    def capture(self, params, arena, pool=None, adapters=None) -> None:
         """Warm up on a side stream, then capture the step (into ``pool``,
-        a ``torch.cuda.graph_pool_handle()`` graphs may share). Every slot
+        a ``torch.cuda.graph_pool_handle()`` graphs may share), with the
+        multi-LoRA ``adapters`` stacks when given. Every slot
         is inactive meanwhile (n_tokens 0), so each K/V row the warm-up
         writes lands on the sink page and no live page is touched. The
         engine's threads must not be running: a capture is not safe
@@ -178,12 +186,12 @@ class StepGraph:
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
             for _ in range(WARMUP_STEPS):
-                self._step(params, arena)
+                self._step(params, arena, adapters)
         torch.cuda.current_stream(dev).wait_stream(side)
         before = [k.launches for k in COUNTED]
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, pool=pool):
-            logits = self._step(params, arena)
+            logits = self._step(params, arena, adapters)
         # the capture ran nothing: its launches count at each replay
         self.launches_per_replay = {k.__name__: k.launches - n
                                     for k, n in zip(COUNTED, before)}
@@ -195,19 +203,21 @@ class StepGraph:
                    reserved_after=torch.cuda.memory_reserved(dev))
         self.capture_memory = mem
         self._graph, self._pool, self.logits = graph, pool, logits
-        self._params, self._arena = params, arena
-        self._key = self._key_of(params, arena)
+        self._params, self._arena, self._adapters = params, arena, adapters
+        self._key = self._key_of(params, arena, adapters)
         self.captures += 1
 
     def run(self, params, arena, tokens, lengths, tables, active,
-            n_tokens=None) -> torch.Tensor:
+            n_tokens=None, adapters=None, adapter_ids=None) -> torch.Tensor:
         """One step over the host's values: tokens (B, K) (or (B,) at
         K = 1), lengths (B,), tables (B, cols), active (B,), n_tokens (B,)
-        (default K for an active slot, 0 otherwise). Returns the logits:
-        on a card the graph's static output, after a replay (and a capture
-        first if params or the arena moved); on the CPU the eager step's."""
-        if self._cuda and self._key_of(params, arena) != self._key:
-            self.capture(params, arena, self._pool)
+        (default K for an active slot, 0 otherwise), and with the
+        ``adapters`` stacks each slot's ``adapter_ids`` (B,) (default 0,
+        the base). Returns the logits: on a card the graph's static
+        output, after a replay (and a capture first if params, the arena
+        or the adapter stacks moved); on the CPU the eager step's."""
+        if self._cuda and self._key_of(params, arena, adapters) != self._key:
+            self.capture(params, arena, self._pool, adapters)
         if self._cuda:
             self._copied.synchronize()   # the last copy read the buffer
         st = self._staged
@@ -218,9 +228,10 @@ class StepGraph:
         st["active"][:] = active
         st["n_tokens"][:] = (active * self.width if n_tokens is None
                              else n_tokens)
+        st["adapter_ids"][:] = 0 if adapter_ids is None else adapter_ids
         self._dev.copy_(self._host, non_blocking=True)
         if not self._cuda:
-            return self._step(params, arena)
+            return self._step(params, arena, adapters)
         self._copied.record()
         self._graph.replay()
         for k in COUNTED:

@@ -33,6 +33,20 @@ eager, graph, graph, eager (``decode_graph`` and ``verify_graph``). One
 more replay is traced alone: the kernels the profiler counts by name must
 equal the launches the capture recorded for each kernel wrapper.
 
+With ``--lora-rank R`` (and ``--lora-targets``, default wq,wv) the
+serving steps are profiled once more beside the same steps without
+adapters (``lora``): the decode step as a graph replay over the 8 slots
+with a mixed batch of adapter ids (the base and LORA_ADAPTERS adapters of
+rank R, random stacks allocated as a multi-LoRA engine allocates them),
+the base replay and the adapter replay in turns (base, lora, lora, base),
+and a 1024-token chunk under adapter 1 beside the same chunk without
+adapters; the stacks' bytes and the kernels counted in one replay of each
+(the deltas are plain PyTorch products, no counted kernel):
+
+    python -m k8s_runpod_kubelet_tpu_torch.workloads.step_profile \
+        --model llama3-8b --lora-rank 16 \
+        [--lora-targets wq,wk,wv,wo,w_gate,w_up,w_down]
+
 With ``--tensor-parallel N`` the serving steps are profiled twice on the
 one card: on one device (``tp1``) and then on an in-process tensor mesh of
 N shards (``tp``: the weights laid out by ``parallel.shard_params``, the
@@ -95,6 +109,10 @@ STEPS = 10                                # profiled decode steps
 # one decode context length per slot (serve_main's default 8 slots): those
 # of the 200-900-token prompts the chip smoke serves
 DECODE_LENGTHS = (402, 475, 468, 252, 411, 789, 881, 571)
+
+# --lora-rank: adapters registered beside the base, and the slots' ids
+LORA_ADAPTERS = 4
+LORA_IDS = (0, 1, 2, 3, 4, 1, 2, 3)
 
 TRAIN_LAYERS = 4                          # the widths at the depth one card holds
 TRAIN_BATCH, TRAIN_SEQ = 8, 2048          # train_main's defaults
@@ -274,6 +292,12 @@ def main(argv=None) -> int:
     p.add_argument("--tensor-parallel", type=int, default=1, metavar="N",
                    help="profile the serving steps on one device and on an "
                         "in-process tensor mesh of N shards")
+    p.add_argument("--lora-rank", type=int, default=0, metavar="R",
+                   help="also profile the decode replay and the chunk with "
+                        "multi-LoRA adapters of rank R (mixed ids) beside "
+                        "the same steps without")
+    p.add_argument("--lora-targets", default="wq,wv",
+                   help="the adapters' projections (with --lora-rank)")
     p.add_argument("--seq", type=int, default=0, metavar="N",
                    help="profile only training: a ring step over N "
                         "sequence shards beside the unsharded step, rows "
@@ -284,6 +308,9 @@ def main(argv=None) -> int:
     if args.tensor_parallel < 1 or (args.tensor_parallel > 1 and args.seq):
         p.error("--tensor-parallel must be at least 1, and profiles the "
                 "serving steps, not --seq's training")
+    if args.lora_rank < 0 or (args.lora_rank and args.seq):
+        p.error("--lora-rank must be at least 0, and profiles the serving "
+                "steps, not --seq's training")
     dev = resolve_device("cuda")   # raises without a card
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -315,6 +342,11 @@ def main(argv=None) -> int:
                          tensor=args.tensor_parallel)
         return _emit(out, args.out)
     out.update(_serving(cfg, dev, params, args, None))
+    if args.lora_rank:
+        out["lora"] = lora_profile(
+            cfg, dev, params, args.lora_rank,
+            tuple(t for t in args.lora_targets.split(",") if t),
+            kv_int8=args.kv_int8)
     del params
     torch.cuda.empty_cache()
     if not (args.int4 or args.kv_int8 or cfg.n_experts):
@@ -322,17 +354,14 @@ def main(argv=None) -> int:
     return _emit(out, args.out)
 
 
-def _serving(cfg, dev, params, args, mesh) -> dict:
-    """The serving steps of ``params`` (a tree laid out for ``mesh``, None
-    on one device): decode eagerly and as a graph replay in turns, a
-    prefill chunk, ``rms_norm`` alone, and with ``--speculate`` the verify
-    step, over an arena of random values from the seed."""
-    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
-    model = LlamaModel(cfg, dev, mesh)
+def _serving_inputs(model, dev, kv_int8: bool, gen) -> dict:
+    """The serving steps' inputs: an arena of random values (8 slots'
+    tables of 128 16-token pages and one more table for the chunk), the
+    slots' contexts and tokens, a 1024-token chunk."""
+    cfg = model.cfg
     t, cols = 16, 128                     # 16-token pages, cache_len 2048
     b = len(DECODE_LENGTHS)
-    arena = model.init_paged_arena(b * cols + cols, t,
-                                   quantize=args.kv_int8)
+    arena = model.init_paged_arena(b * cols + cols, t, quantize=kv_int8)
     for name, a in arena.items():
         if a.dtype == torch.int8:
             a.copy_(torch.randint(-127, 128, a.shape, generator=gen,
@@ -346,21 +375,36 @@ def _serving(cfg, dev, params, args, mesh) -> dict:
     lengths = torch.tensor(DECODE_LENGTHS, dtype=torch.int32, device=dev)
     tokens = torch.randint(0, cfg.vocab_size, (b,), generator=gen,
                            device=dev, dtype=torch.int32)
+    return {"arena": arena, "tables": tables, "lengths": lengths,
+            "tokens": tokens, "cols": cols,
+            "chunk_tokens": torch.randint(0, cfg.vocab_size, (1, CHUNK),
+                                          generator=gen, device=dev,
+                                          dtype=torch.int32),
+            "chunk_table": torch.arange(b * cols, b * cols + cols,
+                                        dtype=torch.int32, device=dev)[None],
+            "zero": torch.zeros(1, dtype=torch.int32, device=dev),
+            "true_len": torch.tensor([CHUNK], dtype=torch.int32, device=dev)}
+
+
+def _serving(cfg, dev, params, args, mesh) -> dict:
+    """The serving steps of ``params`` (a tree laid out for ``mesh``, None
+    on one device): decode eagerly and as a graph replay in turns, a
+    prefill chunk, ``rms_norm`` alone, and with ``--speculate`` the verify
+    step, over an arena of random values from the seed."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    model = LlamaModel(cfg, dev, mesh)
+    inp = _serving_inputs(model, dev, args.kv_int8, gen)
+    arena, tables, lengths, tokens, cols = (
+        inp[k] for k in ("arena", "tables", "lengths", "tokens", "cols"))
+    b = len(DECODE_LENGTHS)
 
     def decode():
         model.paged_decode_step(params, tokens, arena, tables, lengths)
 
-    chunk_tokens = torch.randint(0, cfg.vocab_size, (1, CHUNK),
-                                 generator=gen, device=dev,
-                                 dtype=torch.int32)
-    chunk_table = torch.arange(b * cols, b * cols + cols, dtype=torch.int32,
-                               device=dev)[None]
-    zero = torch.zeros(1, dtype=torch.int32, device=dev)
-    true_len = torch.tensor([CHUNK], dtype=torch.int32, device=dev)
-
     def prefill():
-        model.paged_prefill_chunk_step(params, chunk_tokens, arena,
-                                       chunk_table, zero, true_len)
+        model.paged_prefill_chunk_step(params, inp["chunk_tokens"], arena,
+                                       inp["chunk_table"], inp["zero"],
+                                       inp["true_len"])
 
     # the engine's graphs over the same slots: one pool, captured before
     # any profiled step, as an engine captures at start()
@@ -395,7 +439,96 @@ def _serving(cfg, dev, params, args, mesh) -> dict:
             verify, graphs[kk], params, arena,
             (drafts.cpu().numpy(), *host[1:], active,
              n_tokens.cpu().numpy()))
-    del arena, graphs, g
+    del arena, graphs, g, inp
+    torch.cuda.empty_cache()
+    return out
+
+
+def lora_stacks(cfg, rank: int, targets, gen, dev,
+                n: int = LORA_ADAPTERS) -> dict:
+    """Multi-LoRA stacks as ``ServingEngine`` allocates them for ``n``
+    adapters (slot 0 zero, the base), slots 1..n random: A ~ N(0, 1/in),
+    B ~ N(0, 0.02^2), scale 1."""
+    from .serving import ServingConfig, ServingEngine
+
+    dims = ServingEngine.lora_dims(cfg, ServingConfig(
+        lora_rank=rank, lora_targets=tuple(targets), max_adapters=n))
+    out = {}
+    for t in targets:
+        din, dout = dims[t]
+        a = torch.randn((cfg.n_layers, n + 1, din, rank), generator=gen,
+                        device=dev) / din ** 0.5
+        b = torch.randn((cfg.n_layers, n + 1, rank, dout), generator=gen,
+                        device=dev) * 0.02
+        scale = torch.ones((cfg.n_layers, n + 1), device=dev)
+        for x in (a, b, scale):
+            x[:, 0] = 0
+        out[t] = {"a": a.to(cfg.dtype), "b": b.to(cfg.dtype),
+                  "scale": scale}
+    return out
+
+
+def lora_profile(cfg, dev, params, rank: int, targets, kv_int8=False,
+                 mesh=None) -> dict:
+    """The decode step as a graph replay and a 1024-token chunk, with
+    multi-LoRA adapters of ``rank`` over ``targets`` (the 8 slots' ids
+    LORA_IDS, the chunk under adapter 1) beside the same steps without
+    adapters, in turns (base, lora, lora, base); the stacks' bytes and the
+    kernels counted by name in one replay of each graph (equal: the deltas
+    launch no counted kernel)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    model = LlamaModel(cfg, dev, mesh)
+    inp = _serving_inputs(model, dev, kv_int8, gen)
+    arena = inp["arena"]
+    stacks = lora_stacks(cfg, rank, targets, gen, dev)
+    b = len(DECODE_LENGTHS)
+    ids = torch.tensor(LORA_IDS[:b], dtype=torch.int32, device=dev)
+    pool = torch.cuda.graph_pool_handle()
+    graphs = {"base": StepGraph(model, 1, b, inp["cols"]),
+              "lora": StepGraph(model, 1, b, inp["cols"])}
+    graphs["base"].capture(params, arena, pool)
+    graphs["lora"].capture(params, arena, pool, stacks)
+    host = [x.cpu().numpy() for x in (inp["tokens"], inp["lengths"],
+                                      inp["tables"])]
+    kw = {"base": {}, "lora": {"adapters": stacks,
+                               "adapter_ids": ids.cpu().numpy()}}
+
+    def replay(which):
+        return lambda: graphs[which].run(params, arena, *host, [True] * b,
+                                         **kw[which])
+
+    def chunk(which):
+        ad = ({} if which == "base" else
+              {"adapters": stacks, "adapter_ids": ids[1:2]})
+        return lambda: model.paged_prefill_chunk_step(
+            params, inp["chunk_tokens"], arena, inp["chunk_table"],
+            inp["zero"], inp["true_len"], **ad)
+
+    decode = {label: _profile(replay(which), STEPS) for label, which in
+              (("base", "base"), ("lora", "lora"), ("lora_2", "lora"),
+               ("base_2", "base"))}
+    counts = {w: kernel_counts(replay(w)) for w in graphs}
+    for w, g in graphs.items():
+        want = {k: g.launches_per_replay[k] for k in KERNEL_NAMES}
+        if counts[w] != "not measured" and counts[w] != want:
+            raise RuntimeError(f"one {w} replay launched {counts[w]}, the "
+                               f"capture recorded {want}")
+    if graphs["base"].launches_per_replay \
+            != graphs["lora"].launches_per_replay:
+        raise RuntimeError("the adapters changed the counted launches: "
+                           f"{graphs['lora'].launches_per_replay}")
+    prefill = {label: _profile(chunk(which), STEPS // 3) for label, which in
+               (("base", "base"), ("lora", "lora"), ("lora_2", "lora"),
+                ("base_2", "base"))}
+    out = {"rank": rank, "targets": list(targets),
+           "adapters": LORA_ADAPTERS, "ids": list(LORA_IDS[:b]),
+           "stack_bytes": sum(x.numel() * x.element_size()
+                              for ad in stacks.values()
+                              for x in ad.values()),
+           "decode_graph": decode, "prefill": dict(prefill, chunk=CHUNK),
+           "kernels_in_one_replay": counts,
+           "launches_per_replay": graphs["lora"].launches_per_replay}
+    del arena, graphs, inp, stacks
     torch.cuda.empty_cache()
     return out
 

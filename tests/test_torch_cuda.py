@@ -1466,6 +1466,113 @@ def test_step_graph_counts_match_the_profiler(cuda, kind):
     assert seen == want, (seen, want)
 
 
+@pytest.mark.parametrize("kind", ["bf16", "int4"])
+def test_step_graph_with_adapters_matches_eager(cuda, kind):
+    """Multi-LoRA stacks (all seven targets, 4 adapters, rank 8) with a
+    mixed batch of ids (0 included): the width-1 and width-4 replays
+    against the eager paged_verify_step with the same stacks and ids,
+    logits bit-identical, and the same counted launches as the graph
+    without adapters; the adapters move the logits, the base slot's stay
+    the base step's."""
+    import numpy as np
+
+    from k8s_runpod_kubelet_tpu_torch.workloads.serving.step_graph import \
+        StepGraph
+    from k8s_runpod_kubelet_tpu_torch.workloads.step_profile import \
+        lora_stacks
+
+    model, params, arena = _graph_model(cuda, kind)
+    ref_arena = {k: v.clone() for k, v in arena.items()}
+    stacks = lora_stacks(model.cfg, 8, ("wq", "wk", "wv", "wo", "w_gate",
+                                        "w_up", "w_down"),
+                         torch.Generator(cuda).manual_seed(2), cuda)
+    ids = np.array([1, 0, 3, 4], np.int32)
+    ids_dev = torch.from_numpy(ids).to(cuda)
+    pool = torch.cuda.graph_pool_handle()
+    for w in (1, 4):
+        plain = StepGraph(model, w, GRAPH_SLOTS, GRAPH_COLS)
+        plain.capture(params, {k: v.clone() for k, v in arena.items()},
+                      pool)
+        g = StepGraph(model, w, GRAPH_SLOTS, GRAPH_COLS)
+        g.capture(params, arena, pool, stacks)
+        assert g.launches_per_replay == plain.launches_per_replay
+        for step in _graph_steps(w, model.cfg.vocab_size, seed=w):
+            got = g.run(params, arena, *step, adapters=stacks,
+                        adapter_ids=ids).clone()
+            tokens, lengths, tables, active, n_tokens = (
+                torch.from_numpy(np.asarray(x)).to(cuda) for x in step)
+            before = {k: v.clone() for k, v in ref_arena.items()}
+            ref, _ = model.paged_verify_step(
+                params, tokens, ref_arena, tables, lengths, active,
+                n_tokens, adapters=stacks, adapter_ids=ids_dev)
+            base, _ = model.paged_verify_step(params, tokens, before,
+                                              tables, lengths, active,
+                                              n_tokens)
+            torch.cuda.synchronize()
+            assert torch.equal(got, ref[:, 0] if w == 1 else ref), (kind, w)
+            assert (ref[0] - base[0]).abs().max() > 1e-3
+            assert torch.equal(ref[1], base[1])      # slot 1 is the base
+        assert g.captures == 1 and g.replays == 2
+
+
+def test_adapter_registration_never_recaptures(cuda):
+    """tiny_llama bf16 engine with --lora-rank 8 over all seven targets on
+    the card: adapters registered after the captures (a new one, then a
+    rewrite) serve at once, no graph is captured twice, the rewrite's
+    tokens equal a fresh engine's with that adapter, and an adapter's
+    tokens differ from the base's."""
+    from k8s_runpod_kubelet_tpu_torch.models import LoraConfig, apply_lora
+    from k8s_runpod_kubelet_tpu_torch.workloads.serving import (
+        ServingConfig, ServingEngine)
+
+    cfg, params = _tiny_bf16(cuda)
+    targets = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+
+    def adapter(seed):
+        tree = apply_lora(cfg, params, LoraConfig(rank=8, targets=targets),
+                          torch.Generator(cuda).manual_seed(seed), cuda)
+        for t in targets:
+            b = tree["layers"][t]["lora_b"]
+            b.copy_(torch.randn(b.shape, generator=torch.Generator(cuda)
+                                .manual_seed(seed + 50), device=cuda) * 0.2)
+        return tree
+
+    def engine(**ads):
+        eng = ServingEngine(cfg, params, ServingConfig(
+            slots=4, max_prefill_len=64, cache_len=256, max_new_tokens=12,
+            kv_page_tokens=16, speculate_k=3, lora_rank=8,
+            lora_targets=targets, max_adapters=3), device=cuda)
+        for name, ad in ads.items():
+            eng.register_adapter(name, ad)
+        return eng.start()
+
+    prompts = [[5, 6, 7, 5, 6, 7, 5, 6, 7], [3, 1, 4, 1, 5, 9, 2, 6]]
+    eng = engine(a1=adapter(1))
+    fresh = engine(a1=adapter(3))
+    try:
+        def serve(e, name):
+            # greedy requests take the verify graph, a sampled one alone
+            # the decode graph
+            return [e.submit(p, adapter=name, **kw).result(timeout=300)[
+                "tokens"] for p in prompts
+                for kw in ({}, {"temperature": 0.8, "seed": 1})]
+
+        base, first = serve(eng, ""), serve(eng, "a1")
+        assert eng.register_adapter("a2", adapter(2)) == 2
+        assert eng.register_adapter("a1", adapter(3)) == 1
+        rewritten, second = serve(eng, "a1"), serve(eng, "a2")
+        want = serve(fresh, "a1")
+        graphs = eng.debug_snapshot()["graphs"]
+    finally:
+        eng.stop()
+        fresh.stop()
+    assert first != base and second != base
+    assert rewritten == want != first
+    for name in ("paged_step", "paged_verify"):
+        assert graphs[name]["compiles"] == 1, graphs
+        assert graphs[name]["recompiles"] == 0 and graphs[name]["replays"]
+
+
 def test_engine_recovers_without_recapture(cuda):
     """tiny_llama bf16 on the card: a step that fails fails its request,
     the arena stays in place (zeroed), the engine serves the same greedy

@@ -211,8 +211,17 @@ def test_http_front():
                               "top_k": 5, "seed": 1})
         assert status == 200 and isinstance(json.loads(body)["text"], str)
         assert _http(port, "POST", "/generate", {"tokens": "x"})[0] == 400
-        assert _http(port, "POST", "/generate",
-                     {"tokens": [1], "adapter": "lora-a"})[0] == 400
+        # an engine without lora_rank knows no adapter: the name is
+        # unknown (400), and live registration is off without
+        # --dynamic-adapters (403)
+        status, body = _http(port, "POST", "/generate",
+                             {"tokens": [1], "adapter": "lora-a"})
+        assert status == 400 and b"unknown adapter 'lora-a'" in body
+        assert _http(port, "POST", "/adapters",
+                     {"name": "lora-a", "path": "a.npz"})[0] == 403
+        status, body = _http(port, "GET", "/v1/models")
+        assert status == 200 and [m["id"] for m in json.loads(body)[
+            "data"]] == ["tiny"]
         assert _http(port, "POST", "/generate",
                      {"tokens": [1], "top_p": 2.0})[0] == 400
         assert _http(port, "GET", "/nope")[0] == 404
