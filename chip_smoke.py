@@ -9,7 +9,9 @@ latent arena, serves llama3-8b tensor-parallel on an in-process mesh (bf16
 over 4 shards, int4 with an int8 arena over 2), serves Mixtral-8x7B (full
 width and depth, int4 weights drawn and quantized a layer at a time)
 through its sparse-MoE layers, serves llama3-8b with per-request LoRA
-adapters (bf16, then int4 weights over an int8 arena), then
+adapters (bf16, then int4 weights over an int8 arena), serves Gemma-7B,
+Qwen2-7B, Qwen3-8B and Mistral-7B (past its 4096-token window) at full
+width and depth and llama3-70b with int4 weights over an int8 arena, then
 trains Llama-3-8B widths at 4 layers, mla-8b widths at 4 layers (flash at
 D = 192), and Llama-3-8B widths as ring attention over 4 sequence shards
 in one process.
@@ -305,6 +307,32 @@ Step graphs (phases 4, 7s, 7b, 7c, 7d). Each engine captures its decode
    skipped-layer control and the count of (token, layer) pairs whose
    router's 2nd and 3rd probabilities lie within 1e-3; HTTP, drain with
    zero leaked pages; then the Mixtral weights are freed before training;
+7f. the other dense families, one at a time at full width and depth,
+   the card freed between them: gemma-7b, qwen2-7b, qwen3-8b and
+   mistral-7b, bf16 weights from the seed with their q/k/v biases, q/k
+   norm weights and zero-centered norm weights drawn away from the JAX
+   init's identity (``draw_family_branches``), each through the engine
+   the serve CLI builds (8 slots, cache_len 2048, 16-token pages): phase
+   4's burst, stretches and repeat with exact launches a step or chunk
+   (the paged kernel once a layer, ``rms_norm`` 2L + 1, or 4L + 1 with
+   Qwen3's q/k norm; under int4 ``int4_matmul`` 7L, plus one for an
+   untied head), (g1)-(g5), the serving peak, the decode replay's and a
+   1024-token chunk's time between CUDA events, and the last-token
+   logits against the plain f32 forward of the same weights with every
+   branch (``family_logits``) within 0.1, with one control a branch
+   (bias dropped, q/k norm dropped, no embedding scale, SiLU for GeGLU,
+   w for 1 + w) and the skipped middle layer, each of which must miss;
+   gemma-7b and qwen2-7b again with ``--int4 --kv-int8`` (limit 0.15);
+   mistral-7b past its window (``window_run``: cache_len 8192, a
+   4600-token prompt, 300 greedy tokens: pages recycled, the final
+   step's logits against the windowed f32 forward, the full-causal
+   forward a control, and a ``--speculate 4`` engine taking no
+   speculative step); then llama3-70b ``--int4 --kv-int8``
+   (``llama70b_phase``: drawn and quantized a layer at a time, the burst,
+   (g1)-(g5), the last-token check reported and the layer check gated);
+   phase 3 holds rows 8 and 9 at these models' heads and window, row 12
+   at their widths, row 1 at Gemma's serving shape and row 13 at
+   llama3-70b's widths;
 8. flash kernels vs plain on the card: ``flash_fwd``, ``flash_dq`` and
    ``flash_dkv`` at the training shape (B 8, Hq 32, Hkv 8, S 2048, D 128,
    causal), a ragged S=1000, D=64, D=256, GQA group 1, a window, a soft
@@ -400,7 +428,8 @@ training run for the flash kernels, beside the MLA training run as
 ``serve_mla_dense`` and ``serve_mla_kv_int8_dense``, and phase 7l's
 bursts as ``serve_lora`` and ``serve_lora_int4_kv_int8`` (their n = 2
 groups' ``flash_fwd`` as ``serve_lora_dense_group`` and
-``serve_lora_int4_kv_int8_dense_group``); the single-token
+``serve_lora_int4_kv_int8_dense_group``), and phase 7f's bursts as
+``serve_<model>`` and ``serve_<model>_int4_kv_int8``; the single-token
 forms lie on no model path, in this port as in the JAX package, and count
 0), the last line
 ``{"ok": true, "device": {...}}``. ``--out PATH`` also writes every
@@ -578,6 +607,26 @@ LORA_SIGMA0, LORA_SIGMA_MAX = 0.005, 0.32
 GRAPH_LENGTHS = (402, 475, 468, 252, 411, 789, 881, 571)
 # (g3): steps timed in each of the four turns
 GRAPH_TIMED_STEPS = 10
+# phase 3: the paged kernels at the heads of the other dense families
+# (phase 7f serves them): Gemma-7B's 16 heads of 256 over 16 kv heads (GQA
+# group 1), Qwen2-7B's 28 over 4 (group 7), and Mistral-7B's 4096-token
+# window over contexts of 4200-5000 (table entries wholly behind the
+# oldest query's window name garbage pages)
+GEMMA_HEADS = {"hq": 16, "hkv": 16, "d": 256, "window": None, "cols": 128}
+QWEN2_HEADS = {"hq": 28, "hkv": 4, "d": 128, "window": None, "cols": 128}
+WINDOW_HEADS = {"hq": 32, "hkv": 8, "d": 128, "window": 4096, "cols": 320}
+WINDOW_LENGTHS = [4200, 4311, 4452, 4580, 4699, 4777, 4901, 5000]
+# phase 7f: the families served at full width and depth (bf16), those also
+# served with --int4 --kv-int8, the 1024-token chunk timed on each, and
+# Mistral's run past its window (cache_len 8192)
+FAMILY_MODELS = ("gemma-7b", "qwen2-7b", "qwen3-8b", "mistral-7b")
+FAMILY_INT4 = ("gemma-7b", "qwen2-7b")
+CHUNK_TOKENS = 1024
+WINDOW_PROMPT, WINDOW_DECODE = 4600, 300
+# phase 3: int4_matmul at llama3-70b's widths (E 8192, MLP 28672)
+INT4_70B_SHAPES = [(8192, 28672, "70b w_gate, w_up"),
+                   (28672, 8192, "70b w_down"),
+                   (8192, 128256, "70b lm_head")]
 
 
 def log(msg: str) -> None:
@@ -783,25 +832,48 @@ def tolerance_check(out, ref, atol=BF16_ATOL,
     return err, (share if math.isfinite(err) else math.inf)
 
 
-def attention_inputs(torch, dev, b, kq, lengths, t=16, cols=128):
-    """llama3-8b shapes (32 q heads, 8 kv heads, D=128) at cache_len 2048:
-    pages in random order, and table entries past ceil(len/T) naming
-    pages of large finite garbage."""
-    hq, hkv, d = 32, 8, 128
-    gen = torch.Generator().manual_seed(SEED + kq)
-    live = [-(-n // t) for n in lengths]
+# the heads and widths of a paged case: llama3-8b's (32 q heads over 8 kv
+# heads of 128) at cache_len 2048 unless a case names another model's
+LLAMA_HEADS = {"hq": 32, "hkv": 8, "d": 128, "window": None, "cols": 128}
+
+
+def window_begin(lengths, kq: int, t: int, window) -> list[int]:
+    """Per row, the first table entry the paged kernels read: 0, or under
+    a window the page of the oldest query's first visible position (the
+    entries wholly behind it are never read)."""
+    if window is None:
+        return [0] * len(lengths)
+    return [max(0, n - kq - window + 1) // t for n in lengths]
+
+
+def attention_inputs(torch, dev, b, kq, lengths, t=16, heads=None):
+    """Paged attention inputs at ``heads`` (``LLAMA_HEADS`` by default):
+    pages in random order, and table entries past ceil(len/T), and under
+    a window those wholly behind the oldest query's window, naming pages
+    of large finite garbage. ``live`` counts each row's pages the kernel
+    reads."""
+    heads = heads or LLAMA_HEADS
+    hq, hkv, d, cols = heads["hq"], heads["hkv"], heads["d"], heads["cols"]
+    # llama3-8b's cases keep the seeds they always drew from
+    gen = torch.Generator().manual_seed(
+        SEED + kq + (0 if heads is LLAMA_HEADS else hq + d))
+    ends = [-(-n // t) for n in lengths]
+    begins = window_begin(lengths, kq, t, heads["window"])
+    live = [e - b0 for e, b0 in zip(ends, begins)]
     n_garbage = 64
     n_pages = sum(live) + n_garbage
     perm = torch.randperm(n_pages, generator=gen)
     table = torch.zeros((b, cols), dtype=torch.int32)
     used = 0
     for i in range(b):
-        table[i, :live[i]] = perm[used:used + live[i]]
+        table[i, begins[i]:ends[i]] = perm[used:used + live[i]]
         used += live[i]
     garbage = perm[used:]
     for i in range(b):
-        stale = torch.arange(cols - live[i]) % n_garbage
-        table[i, live[i]:] = garbage[stale]
+        dead = torch.cat([torch.arange(begins[i]),
+                          torch.arange(ends[i], cols)])
+        table[i, dead] = garbage[torch.arange(len(dead)) % n_garbage].to(
+            table.dtype)
     k = torch.randn((n_pages, t, hkv, d), generator=gen)
     v = torch.randn((n_pages, t, hkv, d), generator=gen)
     k[garbage] = 3e4
@@ -812,9 +884,10 @@ def attention_inputs(torch, dev, b, kq, lengths, t=16, cols=128):
     return q, k, v, table.to(dev), lens, live
 
 
-def gathered(torch, q, k, v, table, lens):
+def gathered(torch, q, k, v, table, lens, window=None):
     """q as (B, Hq, K, D), K/V gathered into contiguous (B, Hq, S, D) with
-    the GQA heads repeated, and the causal mask (B, 1, K, S)."""
+    the GQA heads repeated, and the causal mask (B, 1, K, S), under
+    ``window`` the band of the last ``window`` positions."""
     b, kq, hq, d = q.shape
     t, hkv = k.shape[1], k.shape[2]
     s_len = table.shape[1] * t
@@ -826,7 +899,10 @@ def gathered(torch, q, k, v, table, lens):
     qs = q.transpose(1, 2).contiguous()
     qpos = (lens.long()[:, None] - kq
             + torch.arange(kq, device=q.device)[None, :])[:, None, :, None]
-    mask = torch.arange(s_len, device=q.device)[None, None, None, :] <= qpos
+    kpos = torch.arange(s_len, device=q.device)[None, None, None, :]
+    mask = kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
     return qs, kc, vc, mask
 
 
@@ -838,11 +914,13 @@ def bf16_p_output(torch, s, v):
     return (e.bfloat16().float() @ v.float()) / e.sum(-1, keepdim=True)
 
 
-def attention_controls(torch, qs, kc, vc, mask, scale, t, ref) -> dict:
+def attention_controls(torch, qs, kc, vc, mask, scale, t, ref,
+                       lost_page=1) -> dict:
     """The tolerance check applied to three broken variants of the same
     attention: p.v accumulated page by page in bf16, P rounded to bf16
     before P.V (the rounding the kernels' split of P into bf16 hi and lo
-    halves avoids), and the second page lost from every context of 1024
+    halves avoids), and page ``lost_page`` (the second, or under a window
+    one inside every row's window) lost from every context of 1024
     positions or more (rows with shorter contexts are left right, so the
     long rows alone are scored). A share of the tolerance above 1 means
     the check catches the fault."""
@@ -859,7 +937,7 @@ def attention_controls(torch, qs, kc, vc, mask, scale, t, ref) -> dict:
         acc = (acc.float() + part[:, :, :, c]).bfloat16()
     del part
     lost = mask.clone()
-    lost[..., t:2 * t] = False
+    lost[..., lost_page * t:(lost_page + 1) * t] = False
     p_lost = torch.softmax(s.masked_fill(~lost, -math.inf), dim=-1)
     o_lost = (p_lost @ vc.float()).bfloat16().transpose(1, 2)
     long_rows = (mask.sum(-1) >= 1024).transpose(1, 2)[..., None]
@@ -883,9 +961,12 @@ PAGED_KINDS = {
 }
 
 
-def attention_case(torch, F, dev, flush, kind, name, b, kq, lengths):
+def attention_case(torch, F, dev, flush, kind, name, b, kq, lengths,
+                   heads=None):
     """One paged entry point against its plain version at llama3-8b's
-    shapes. The int8 kinds take pages that the model's own ``_kv_quant``
+    shapes, or at ``heads`` (another model's heads, width, table width and
+    sliding window). The int8 kinds take pages that the model's own
+    ``_kv_quant``
     made from the bf16 ones (the garbage pages stay large). Controls: p.v
     accumulated in bf16, P rounded to bf16 and a page lost (both kinds),
     the scales ignored and the neighbouring kv head's scales (int8 pages);
@@ -896,7 +977,10 @@ def attention_case(torch, F, dev, flush, kind, name, b, kq, lengths):
     wrapper = getattr(attention, kind)
     plain_name, single, quant = PAGED_KINDS[kind]
     plain_fn = getattr(attention, plain_name)
-    q, k, v, table, lens, live = attention_inputs(torch, dev, b, kq, lengths)
+    heads = heads or LLAMA_HEADS
+    window = heads["window"]
+    q, k, v, table, lens, live = attention_inputs(torch, dev, b, kq, lengths,
+                                                  heads=heads)
     hq, d = q.shape[2], q.shape[3]
     t, hkv = k.shape[1], k.shape[2]
     scale = d ** -0.5
@@ -910,10 +994,12 @@ def attention_case(torch, F, dev, flush, kind, name, b, kq, lengths):
     qa = q[:, 0].contiguous() if single else q
 
     def kernel():
-        return wrapper(qa, *pages, table, lens, sm_scale=scale)
+        return wrapper(qa, *pages, table, lens, sm_scale=scale,
+                       sliding_window=window)
 
     def plain(*pg):
-        return plain_fn(qa, *(pg or pages), table, lens, sm_scale=scale)
+        return plain_fn(qa, *(pg or pages), table, lens, sm_scale=scale,
+                        sliding_window=window)
 
     before = wrapper.launches
     out = kernel()
@@ -927,8 +1013,11 @@ def attention_case(torch, F, dev, flush, kind, name, b, kq, lengths):
                            f"the tolerance {TOLERANCE}")
     ref4 = ref[:, None] if single else ref
     # the library yardstick: SDPA over contiguous K/V gathered once
-    qs, kc, vc, mask = gathered(torch, q, k, v, table, lens)
-    controls = attention_controls(torch, qs, kc, vc, mask, scale, t, ref4)
+    qs, kc, vc, mask = gathered(torch, q, k, v, table, lens, window)
+    lost_page = (1 if window is None
+                 else (min(lengths) - kq) // t - 1)
+    controls = attention_controls(torch, qs, kc, vc, mask, scale, t, ref4,
+                                  lost_page)
     if quant:
         ones = torch.ones_like(ks)
         err_s, share_s = tolerance_check(plain(kp, vp, ones, ones), ref)
@@ -958,10 +1047,12 @@ def attention_case(torch, F, dev, flush, kind, name, b, kq, lengths):
         + (t * hkv * 4 if quant else 0)
     nbytes = (2 * sum(live) * page_bytes + 2 * q.numel() * 2
               + table.numel() * 4 + lens.numel() * 4)
-    visible = sum(n - kq + j + 1 for n in lengths for j in range(kq))
+    visible = sum(min(n - kq + j + 1, window or n) for n in lengths
+                  for j in range(kq))
     ops = visible * hq * 4 * d          # q.k and p.v, 2 flops a product
     bound_ms, bound_by = bound(nbytes, ops, BF16_TENSOR_FLOPS)
     rec = {"case": name, "B": b, "K": kq, "lengths": lengths,
+           "Hq": hq, "Hkv": hkv, "D": d, "window": window,
            "max_abs_err": err, "tolerance": TOLERANCE,
            "tolerance_share": share, "controls": controls, "ms": ms,
            "plain_ms": plain_ms, "library_ms": library_ms,
@@ -1580,7 +1671,8 @@ def rms_case(torch, F, dev, flush, shape, grad=False):
     x = torch.randn(shape, generator=gen).mul_(3).to(dev, torch.bfloat16)
     w = (1 + 0.1 * torch.randn((e,), generator=gen)).to(dev)
     w_bf16 = w.to(torch.bfloat16)   # the library call takes one dtype
-    name = f"rows={rows}" + (" (train, with gradients)" if grad else "")
+    name = (f"rows={rows}" + (f" E={e}" if e != 4096 else "")
+            + (" (train, with gradients)" if grad else ""))
     x.requires_grad_(grad)
     w.requires_grad_(grad)
 
@@ -1655,6 +1747,9 @@ FLASH_CASES = [
     ("MLA train B=8 S=2048 D=192", 8, 32, 32, 2048, 192, True, None, None),
     ("MLA serving B=1 S=1024 D=192", 1, 32, 32, 1024, 192, True, None,
      None),
+    # Gemma-7B's dense-route prefill head: 16 heads of 256, GQA group 1
+    ("Gemma serving B=1 S=1024 D=256 group 1", 1, 16, 16, 1024, 256, True,
+     None, None),
 ]
 # the width of MLA's direct form (mla-8b: head_dim 128 + rope_dim 64), whose
 # cases zero v past its first MLA_V_DIM columns as the model pads it
@@ -2138,9 +2233,10 @@ def train_phase(torch, dev, card: str, cfg=None) -> dict:
             "grad_check": grad_check, "step1_norm_rel_err": step1_rel}
 
 
-def plain_attention_blocked(torch, q, k, v, scale, block):
-    """Causal attention in f32, a block of query rows at a time against
-    the keys up to the block's last position, each with an exact softmax:
+def plain_attention_blocked(torch, q, k, v, scale, block, window=None):
+    """Causal attention in f32 (under ``window``, each query sees the last
+    ``window`` positions), a block of query rows at a time against the
+    keys up to the block's last position, each with an exact softmax:
     q (B, Hq, S, D), k/v (B, Hkv, S, D). No kernels, no online softmax, no
     ring; the blocks only bound the scores' memory."""
     b, hq, s, d = q.shape
@@ -2150,8 +2246,11 @@ def plain_attention_blocked(torch, q, k, v, scale, block):
         i1 = min(s, i0 + block)
         qb = q[:, :, i0:i1].reshape(b, hkv, hq // hkv, i1 - i0, d) * scale
         sc = torch.einsum("bhgqd,bhkd->bhgqk", qb, k[:, :, :i1])
-        keep = (torch.arange(i0, i1, device=q.device)[:, None]
-                >= torch.arange(i1, device=q.device)[None, :])
+        qpos = torch.arange(i0, i1, device=q.device)[:, None]
+        kpos = torch.arange(i1, device=q.device)[None, :]
+        keep = qpos >= kpos
+        if window is not None:
+            keep &= qpos - kpos < window
         p = torch.softmax(sc.masked_fill(~keep, -math.inf), dim=-1)
         out.append(torch.einsum("bhgqk,bhkd->bhgqd", p, v[:, :, :i1])
                    .reshape(b, hq, i1 - i0, d))
@@ -5089,6 +5188,594 @@ def lora_profile_phase(torch, dev, card: str, cfg, params) -> dict:
     return out
 
 
+# -- phase 7f: the other dense families (Gemma-7B, Mistral-7B, Qwen2-7B,
+# -- Qwen3-8B) and llama3-70b ---------------------------------------------------------
+
+def draw_family_branches(torch, cfg, params, seed: int) -> None:
+    """In place, the leaves the JAX init leaves at identity drawn away from
+    it, so a port that ignored a branch misses by far: q/k/v biases N(0,
+    0.5^2) (v itself is N(0, ~1.2^2) at these widths), q/k norm weights
+    U(0.5, 1.5), zero-centered norm weights N(0, 0.3^2). (A wider q/k
+    norm draw sharpens attention until bf16 roundings dominate: the
+    qwen3-8b engine read 0.056 / 0.053 / 0.056 / 0.129 / 0.404 off the f32
+    forward at identity, U(0.8, 1.25), U(0.5, 1.5), U(0.5, 2.5) and
+    U(1.5, 2.5), llama3-8b 0.060 at identity; PERF.md, section 6.)"""
+    dev = params["tok_embed"].device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    lp = params["layers"]
+    for name in ("wq_b", "wk_b", "wv_b"):
+        if name in lp:
+            lp[name].copy_(torch.randn(lp[name].shape, generator=gen,
+                                       device=dev).mul_(0.5))
+    for name in ("q_norm", "k_norm"):
+        if name in lp:
+            lp[name].uniform_(0.5, 1.5, generator=gen)
+    if cfg.norm_zero_centered:
+        for t in (params["final_norm"], lp["attn_norm"], lp["mlp_norm"]):
+            t.copy_(torch.randn(t.shape, generator=gen,
+                                device=dev).mul_(0.3))
+
+
+def family_logits(torch, cfg, params, tokens: list[int], drop=(),
+                  block: int = 1024) -> "torch.Tensor":
+    """Last-token logits (V,) of ``tokens`` from a plain f32 forward of the
+    same (dequantized) weights with every branch of ``cfg``: the embedding
+    times sqrt(E), zero-centered norms applied as (1 + w), q/k/v biases,
+    the per-head q/k RMSNorm before RoPE, causal attention under the
+    sliding window (``plain_attention_blocked``), SwiGLU or GeGLU, a tied
+    head. No paging, no kernels. ``drop`` names branches to leave out, the
+    controls: "bias", "qk_norm", "embed_scale", "gelu" (SiLU in its place),
+    "zero_centered" (w for 1 + w), "window" (full causal), "layer" (the
+    middle layer skipped)."""
+    import torch.nn.functional as F
+
+    from k8s_runpod_kubelet_tpu_torch.ops.rmsnorm import _rms_norm_plain
+    from k8s_runpod_kubelet_tpu_torch.ops.rope import (apply_rope,
+                                                       rope_frequencies)
+
+    dev = params["tok_embed"].device
+    hd, n = cfg.head_dim_, len(tokens)
+    cos, sin = rope_frequencies(hd, cfg.max_seq_len, cfg.rope_theta,
+                                cfg.rope_scaling, device=dev)
+    window = None if "window" in drop else cfg.sliding_window
+    centred = cfg.norm_zero_centered and "zero_centered" not in drop
+
+    def norm(x, w):
+        w = w.float()
+        return _rms_norm_plain(x, w + 1 if centred else w, cfg.norm_eps)
+
+    x = params["tok_embed"][torch.tensor(tokens, device=dev)].float()[None]
+    if cfg.embed_scale and "embed_scale" not in drop:
+        x = x * cfg.embed_dim ** 0.5
+    for layer in range(cfg.n_layers):
+        if "layer" in drop and layer == cfg.n_layers // 2:
+            continue
+        lp = {k: layer_f32(w, layer) for k, w in params["layers"].items()}
+        h = norm(x, lp["attn_norm"])
+        q, k, v = (h @ lp[w] for w in ("wq", "wk", "wv"))
+        if cfg.qkv_bias and "bias" not in drop:
+            q, k, v = q + lp["wq_b"], k + lp["wk_b"], v + lp["wv_b"]
+        q = q.view(1, n, cfg.n_heads, hd)
+        k = k.view(1, n, cfg.n_kv_heads, hd)
+        v = v.view(1, n, cfg.n_kv_heads, hd)
+        if cfg.qk_norm and "qk_norm" not in drop:
+            q, k = norm(q, lp["q_norm"]), norm(k, lp["k_norm"])
+        q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+        o = plain_attention_blocked(torch, q.transpose(1, 2),
+                                    k.transpose(1, 2), v.transpose(1, 2),
+                                    cfg.sm_scale, block, window)
+        x = x + o.transpose(1, 2).reshape(1, n, -1) @ lp["wo"]
+        h = norm(x, lp["mlp_norm"])
+        gate = h @ lp["w_gate"]
+        gate = (F.gelu(gate, approximate="tanh")
+                if cfg.mlp_activation == "gelu_tanh" and "gelu" not in drop
+                else F.silu(gate))
+        x = x + (gate * (h @ lp["w_up"])) @ lp["w_down"]
+        del lp, h, q, k, v, o, gate
+    x = norm(x[0, -1], params["final_norm"])
+    head = (params["tok_embed"].t() if cfg.tie_embeddings
+            else params["lm_head"])
+    return x @ layer_f32(head)
+
+
+# the controls of each branch, by config field: the reference with the
+# branch left out must miss the limit by far
+FAMILY_CONTROLS = (("qkv_bias", "bias"), ("qk_norm", "qk_norm"),
+                   ("embed_scale", "embed_scale"), ("mlp_activation", "gelu"),
+                   ("norm_zero_centered", "zero_centered"))
+
+
+def family_check(torch, cfg, params, prompt, logits, limit, what,
+                 gate=True) -> dict:
+    """The engine path's last-token logits against ``family_logits``,
+    within ``limit`` (relative L2); each control (a branch of the config
+    left out, and the middle layer skipped) must exceed it (with ``gate``
+    False all are reported only)."""
+    ref = family_logits(torch, cfg, params, prompt)
+
+    def rel(a):
+        return ((a.float() - ref).norm() / ref.norm()).item()
+
+    drops = [d for f, d in FAMILY_CONTROLS
+             if getattr(cfg, f) not in (False, None, "silu")] + ["layer"]
+    controls = {d: rel(family_logits(torch, cfg, params, prompt, (d,)))
+                for d in drops}
+    out = {"prompt_tokens": len(prompt), "rel_l2": rel(logits),
+           "argmax_agree": bool(logits.argmax() == ref.argmax()),
+           "ref_logit_std": ref.std().item(), "limit_rel_l2": limit,
+           "controls_rel_l2": controls}
+    log(f"  independent check: {what} vs the plain f32 forward of its "
+        f"branches, last-token logits of a {len(prompt)}-token prompt: "
+        f"relative L2 {out['rel_l2']:.4f} (limit {limit}), argmax agree "
+        f"{out['argmax_agree']}; controls "
+        + ", ".join(f"{d} dropped {v:.4f}" for d, v in controls.items()))
+    if gate and not out["rel_l2"] <= limit:
+        raise RuntimeError(f"{what} logits off the plain forward: {out}")
+    if gate and not all(v > limit for v in controls.values()):
+        raise RuntimeError(f"{what}: a control passed the check: {out}")
+    return out
+
+
+def dense_layer_check(torch, model, params, prompt, kv_int8) -> dict:
+    """A dense Llama engine path held one layer at a time, as phase 7m
+    holds Mixtral's: the one-chunk prefill of ``prompt`` (over an int8
+    arena with ``kv_int8``) runs with each layer's MLP input and output
+    recorded (the engine's own residual stream) and each sublayer's
+    output before its residual add (the ``wo`` and ``w_down``
+    products: recovering it as a difference of two bf16 residual states
+    would add the residual's own rounding, which grows with depth), and
+    each layer's attention and MLP outputs are held against the plain f32
+    layer (``plain_attention`` over unquantized K/V, ``plain_mlp``) of the
+    (dequantized) weights on that same input, within
+    ``MOE_LAYER_REL_L2_LIMIT``. Controls, which must read above it in
+    every layer: each sublayer with the next layer's weights."""
+    import torch.nn.functional as F
+
+    from k8s_runpod_kubelet_tpu_torch.ops.rmsnorm import _rms_norm_plain
+    from k8s_runpod_kubelet_tpu_torch.ops.rope import rope_frequencies
+
+    cfg = model.cfg
+    seen, sub = [], []
+    paged_mlp, proj = model._paged_mlp, model._proj
+
+    def record(x, lp, layer, *adapter):
+        out = paged_mlp(x, lp, layer, *adapter)
+        seen.append((x.clone(), out.clone()))
+        return out
+
+    def record_proj(h, w, name, *args, **kw):
+        y = proj(h, w, name, *args, **kw)
+        if name in ("wo", "w_down"):
+            sub.append(y.clone())
+        return y
+
+    model._paged_mlp, model._proj = record, record_proj
+    try:
+        quant_logits(torch, model, params, prompt, kv_int8=kv_int8)
+    finally:
+        del model._paged_mlp, model._proj
+    if len(seen) != cfg.n_layers or len(sub) != 2 * cfg.n_layers:
+        raise RuntimeError(f"recorded {len(seen)} MLP calls, {len(sub)} "
+                           "sublayer outputs")
+    dev = params["tok_embed"].device
+    cos, sin = rope_frequencies(cfg.head_dim_, cfg.max_seq_len,
+                                cfg.rope_theta, cfg.rope_scaling, device=dev)
+
+    def rel(a, ref):
+        return ((a - ref).norm() / ref.norm()).item()
+
+    def weights(layer):
+        return {k: layer_f32(w, layer) for k, w in params["layers"].items()}
+
+    rows = []
+    x_in = params["tok_embed"][torch.tensor([prompt], device=dev)].float()
+    lp = weights(0)
+    for layer in range(cfg.n_layers):
+        nxt = weights((layer + 1) % cfg.n_layers)
+        mid, out = (t.float() for t in seen[layer])
+        attn, mlp = (t.float() for t in sub[2 * layer:2 * layer + 2])
+        h = _rms_norm_plain(mid, lp["mlp_norm"], cfg.norm_eps)
+        rows.append({
+            "layer": layer,
+            "attn_rel_l2": rel(attn, plain_attention(
+                torch, cfg, lp, x_in, cos, sin)),
+            "mlp_rel_l2": rel(mlp, plain_mlp(torch, F, cfg, lp, h)),
+            "attn_control_rel_l2": rel(attn, plain_attention(
+                torch, cfg, nxt, x_in, cos, sin)),
+            "mlp_control_rel_l2": rel(mlp, plain_mlp(
+                torch, F, cfg, nxt, h))})
+        x_in, lp = out, nxt
+    worst = {k: max(r[k] for r in rows)
+             for k in ("attn_rel_l2", "mlp_rel_l2")}
+    ctrl = {k: min(r[k] for r in rows)
+            for k in ("attn_control_rel_l2", "mlp_control_rel_l2")}
+    res = {"limit_rel_l2": MOE_LAYER_REL_L2_LIMIT, "worst": worst,
+           "controls_least": ctrl, "layers": rows}
+    log(f"  layer check: each of {cfg.n_layers} layers against the plain f32 "
+        f"layer on the engine's own input ({len(prompt)} tokens): worst "
+        f"attention {worst['attn_rel_l2']:.4f}, worst MLP "
+        f"{worst['mlp_rel_l2']:.4f} relative L2 (limit "
+        f"{MOE_LAYER_REL_L2_LIMIT}); controls (the next layer's weights) at "
+        f"least {ctrl['attn_control_rel_l2']:.3f} and "
+        f"{ctrl['mlp_control_rel_l2']:.3f}")
+    if not max(worst.values()) <= MOE_LAYER_REL_L2_LIMIT:
+        raise RuntimeError(f"a layer is off the plain f32 layer: {res}")
+    if not min(ctrl.values()) > MOE_LAYER_REL_L2_LIMIT:
+        raise RuntimeError(f"a layer check control passed: {res}")
+    return res
+
+
+def event_ms(torch, fn, reps: int = 10) -> float:
+    """Median time between two CUDA events recorded around ``fn`` (after
+    one untimed call): the card's timeline, its idle gaps between
+    launches included (a graph replay has few; an eager chunk many)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def family_step_times(torch, engine) -> dict:
+    """The decode step as the engine runs it (one replay of its graph over
+    8 slots at ``GRAPH_LENGTHS`` contexts, pages from its own pool) and a
+    1024-token prefill chunk behind nothing, each timed by ``event_ms``.
+    The caller holds the arena lock."""
+    import numpy as np
+
+    store, model, params = engine._kv_store, engine.model, engine.params
+    dev, t = engine.device, engine.sc.kv_page_tokens
+    cols, b = engine._slot_pages_max, engine.sc.slots
+    g = engine._paged_step.fn
+    lengths = np.array(GRAPH_LENGTHS[:b], np.int32)
+    need = -(-(lengths + 1) // t)
+    chunk_pages = -(-CHUNK_TOKENS // t)
+    pages = store.alloc_run(int(need.sum()) + chunk_pages)
+    try:
+        table = np.zeros((b, cols), np.int32)
+        at = 0
+        for i in range(b):
+            table[i, :need[i]] = pages[at:at + need[i]]
+            at += need[i]
+        toks = np.arange(b, dtype=np.int32)[:, None]
+        active = np.ones(b, bool)
+        decode_ms = event_ms(torch, lambda: g.run(
+            params, store.arena, toks, lengths, table, active))
+        ctable = torch.zeros((1, cols), dtype=torch.int32, device=dev)
+        ctable[0, :chunk_pages] = torch.tensor(pages[at:], device=dev)
+        ctoks = torch.arange(CHUNK_TOKENS, device=dev,
+                             dtype=torch.int32)[None] % engine.cfg.vocab_size
+        zero = torch.zeros(1, dtype=torch.int32, device=dev)
+        n = torch.tensor([CHUNK_TOKENS], dtype=torch.int32, device=dev)
+        chunk_ms = event_ms(torch, lambda: model.paged_prefill_chunk_step(
+            params, ctoks, store.arena, ctable, zero, n), reps=5)
+    finally:
+        store.release(pages)
+    return {"decode_replay_event_ms": decode_ms,
+            "chunk_event_ms": chunk_ms, "chunk_tokens": CHUNK_TOKENS,
+            "decode_lengths": lengths.tolist()}
+
+
+def family_engine_run(torch, dev, card: str, cfg, params, quant: bool,
+                      what: str) -> dict:
+    """One family through the engine the serve CLI builds (``--model
+    <name>``, 8 slots, cache_len 2048, 16-token pages; with ``quant``
+    ``--int4 --kv-int8``, quantized on the card from ``params``): the burst
+    with exact launches per step and chunk, (g1)-(g5), the serving peak,
+    the decode replay's and a chunk's time (``event_ms``), and the check
+    against ``family_logits`` (limit 0.1, or 0.15 under int4 weights over
+    an int8 arena) with every branch's control outside it."""
+    from k8s_runpod_kubelet_tpu_torch.ops import (int4_matmul,
+                                                  paged_attention,
+                                                  paged_attention_multi,
+                                                  paged_attention_multi_quant,
+                                                  paged_attention_quant,
+                                                  rms_norm)
+    from k8s_runpod_kubelet_tpu_torch.workloads import serve_main
+
+    argv = ["--model", cfg.name, "--device", dev.type, "--slots", "8",
+            "--cache-len", "2048", "--max-new-tokens", "32"]
+    if quant:
+        argv += ["--int4", "--kv-int8"]
+    torch.cuda.reset_peak_memory_stats()
+    engine, _ = serve_main.build_engine(serve_main.parse_args(argv), params)
+    limit = QUANT_ENGINE_REL_L2_LIMIT if quant else ENGINE_REL_L2_LIMIT
+    try:
+        n = cfg.n_layers
+        attn = paged_attention_multi_quant if quant else paged_attention_multi
+        other = paged_attention_multi if quant else paged_attention_multi_quant
+        # the paged kernel once a layer; the norm kernel twice a layer and
+        # once, and with the q/k norm twice a layer more
+        per_step = {attn.__name__: n, other.__name__: 0,
+                    "rms_norm": (4 if cfg.qk_norm else 2) * n + 1,
+                    "paged_attention": 0, "paged_attention_quant": 0}
+        kernels = [attn, other, rms_norm, paged_attention,
+                   paged_attention_quant]
+        if quant:
+            # seven products a layer; a tied head is the bf16 embedding's
+            # transpose (cuBLAS), as in the JAX package
+            per_step["int4_matmul"] = 7 * n + (0 if cfg.tie_embeddings
+                                               else 1)
+            kernels.append(int4_matmul)
+        log(f"  {what}: {n} layers, E={cfg.embed_dim}, heads "
+            f"{cfg.n_heads}/{cfg.n_kv_heads} of {cfg.head_dim_}; arena "
+            f"{engine._kv_store.pool.n_pages} pages of "
+            f"{engine._kv_store.page_bytes} B; [{card}] "
+            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated; "
+            f"per step {per_step}")
+        torch.cuda.reset_peak_memory_stats()
+        rec = serve_burst(torch, engine, cfg, card, tuple(kernels), per_step)
+        serve_peak = torch.cuda.max_memory_allocated()
+        prompts = rec.pop("prompts")
+        rec.pop("prompt")
+        with engine._prefix_lock:   # the engine is idle; keep it so
+            rec["graphs"] = graph_checks(torch, engine, card, limit, what)
+            rec["times"] = family_step_times(torch, engine)
+            logits = quant_logits(torch, engine.model, engine.params,
+                                  prompts[2], kv_int8=quant)
+            rec["reference"] = family_check(torch, cfg, engine.params,
+                                            prompts[2], logits, limit, what)
+        rec["serve_peak_bytes"] = serve_peak
+        rec["weight_bytes"] = tensor_bytes(engine.params)
+        log(f"  [{card}] {what}: peak allocated while serving "
+            f"{serve_peak / 2**30:.2f} GiB (weights "
+            f"{rec['weight_bytes'] / 1e9:.3f} GB); decode replay "
+            f"{rec['times']['decode_replay_event_ms']:.3f} ms, "
+            f"{CHUNK_TOKENS}-token chunk "
+            f"{rec['times']['chunk_event_ms']:.3f} ms (between CUDA events)")
+        return rec
+    finally:
+        engine.stop()
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def window_run(torch, dev, card: str, cfg, params) -> dict:
+    """Mistral's 4096-token window past its edge, through the engine the
+    serve CLI builds at ``--cache-len 8192``: one prompt of
+    ``WINDOW_PROMPT`` tokens (two chunks), greedy for ``WINDOW_DECODE``
+    tokens. The step records' ``ring_recycled`` must be > 0 and equal the
+    table entries past the prompt's run; the slot's distinct pages stay at
+    the prompt's run (its pages are a linear run, recycling starts at
+    decode and allocates nothing). The final step's logits (the decode
+    graph's output when the last token was sampled) must lie within
+    ``ENGINE_REL_L2_LIMIT`` of ``family_logits`` over prompt + generated
+    tokens under the window, and the full-causal forward must miss it.
+    Then a ``--speculate 4`` engine takes no speculative step."""
+    import numpy as np
+
+    from k8s_runpod_kubelet_tpu_torch.workloads import serve_main
+
+    t = 16
+    args = serve_main.parse_args(
+        ["--model", cfg.name, "--device", dev.type, "--slots", "8",
+         "--cache-len", "8192", "--max-new-tokens", str(WINDOW_DECODE)])
+    engine, _ = serve_main.build_engine(args, params)
+    rng = np.random.default_rng(SEED + 7)
+    prompt = [int(x) for x in rng.integers(0, cfg.vocab_size, WINDOW_PROMPT)]
+    seen: dict = {"held": []}
+
+    def on_token(_tok):
+        i, slot = next((i, s) for i, s in enumerate(engine._slots)
+                       if s.request is not None)
+        seen["held"].append((len(set(slot.pages)), len(slot.pages),
+                             slot.table_len))
+        logits = engine._paged_step.fn.logits
+        if len(seen["held"]) > 1 and logits is not None:
+            seen["logits"] = logits[i].clone()
+
+    try:
+        seq0 = last_seq(engine)
+        t0 = time.perf_counter()
+        res = engine.submit(prompt, on_token=on_token).result(timeout=900)
+        wall = time.perf_counter() - t0
+        gen = res["tokens"]
+        recycled = sum(r.get("arena", {}).get("ring_recycled", 0)
+                       for r in engine.recorder.records()
+                       if r["seq"] > seq0)
+        distinct, listed, table_len = seen["held"][-1]
+        run = -(-WINDOW_PROMPT // t)
+        positions = WINDOW_PROMPT + len(gen) - 1
+        if not (recycled > 0 and recycled == table_len - run
+                and distinct == listed == max(run, engine._win_pages)
+                and table_len == -(-positions // t)):
+            raise RuntimeError(
+                f"window ring: recycled {recycled}, slot pages {distinct} "
+                f"distinct of {listed}, table {table_len} entries, prompt "
+                f"run {run}, _win_pages {engine._win_pages}")
+        log(f"  mistral-7b window {cfg.sliding_window}: a "
+            f"{WINDOW_PROMPT}-token prompt + {len(gen)} greedy tokens in "
+            f"{wall:.1f} s; {positions} positions over {table_len} table "
+            f"entries held in {distinct} pages (the prompt's run; "
+            f"_win_pages {engine._win_pages}), ring_recycled {recycled}")
+        ctx = prompt + gen[:-1]
+        with engine._prefix_lock:
+            ref = family_logits(torch, cfg, engine.params, ctx)
+            full = family_logits(torch, cfg, engine.params, ctx, ("window",))
+        got = seen["logits"].float()
+
+        def rel(a, b):
+            return ((a - b).norm() / b.norm()).item()
+
+        check = {"context_tokens": len(ctx), "rel_l2": rel(got, ref),
+                 "full_causal_rel_l2": rel(got, full),
+                 "window_vs_full_rel_l2": rel(full, ref),
+                 "argmax_agree": bool(got.argmax() == ref.argmax()),
+                 "limit_rel_l2": ENGINE_REL_L2_LIMIT}
+        log(f"  final step's logits (context {len(ctx)}) vs the plain f32 "
+            f"windowed forward: relative L2 {check['rel_l2']:.4f} (limit "
+            f"{ENGINE_REL_L2_LIMIT}), argmax agree {check['argmax_agree']}; "
+            f"control: vs the full-causal forward "
+            f"{check['full_causal_rel_l2']:.4f} (the two references "
+            f"{check['window_vs_full_rel_l2']:.4f} apart)")
+        if not check["rel_l2"] <= ENGINE_REL_L2_LIMIT:
+            raise RuntimeError(f"windowed engine off the forward: {check}")
+        if not check["full_causal_rel_l2"] > ENGINE_REL_L2_LIMIT:
+            raise RuntimeError(f"the full-causal control passed: {check}")
+    finally:
+        engine.stop()
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    args = serve_main.parse_args(
+        ["--model", cfg.name, "--device", dev.type, "--slots", "8",
+         "--cache-len", "2048", "--max-new-tokens", "16", "--speculate",
+         "4"])
+    engine, _ = serve_main.build_engine(args, params)
+    try:
+        # a repeated prompt: a speculative engine would draft from it
+        out = engine.submit((prompt[:50] * 4)[:200]).result(timeout=900)
+        spec = {"paged_speculative_steps":
+                engine.counters["paged_speculative_steps"],
+                "decode_steps": engine.counters["decode_steps"],
+                "graphs": sorted(engine.graphs_snapshot()),
+                "tokens": len(out["tokens"])}
+        log(f"  --speculate 4 on the window: {spec}")
+        if spec["paged_speculative_steps"] or spec["graphs"] != [
+                "paged_step"] or not spec["decode_steps"]:
+            raise RuntimeError(f"a windowed engine speculated: {spec}")
+    finally:
+        engine.stop()
+    return {"prompt_tokens": WINDOW_PROMPT, "generated": len(gen),
+            "wall_s": wall, "ring_recycled": recycled,
+            "slot_pages": distinct, "table_entries": table_len,
+            "win_pages": cfg.sliding_window // t + 2,
+            "check": check, "speculate": spec}
+
+
+def families_phase(torch, dev, card: str) -> dict:
+    """Phase 7f: gemma-7b, qwen2-7b, qwen3-8b and mistral-7b, one at a
+    time at full width and depth, bf16 weights from the seed with their
+    branch leaves drawn away from identity (``draw_family_branches``):
+    ``family_engine_run`` each; ``--int4 --kv-int8`` on gemma-7b and
+    qwen2-7b; Mistral's window past its edge (``window_run``)."""
+    from k8s_runpod_kubelet_tpu_torch.models import MODEL_CONFIGS, init_params
+
+    out = {}
+    for i, name in enumerate(FAMILY_MODELS):
+        cfg = MODEL_CONFIGS[name]()
+        t0 = time.perf_counter()
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(
+            SEED + i), dev)
+        draw_family_branches(torch, cfg, params, SEED + 100 + i)
+        torch.cuda.synchronize()
+        log(f"phase 7f: {name} (bf16, branches drawn away from identity; "
+            f"drawn in {time.perf_counter() - t0:.1f} s)")
+        rec = {"bf16": family_engine_run(torch, dev, card, cfg, params,
+                                         False, f"{name} bf16 engine")}
+        if name in FAMILY_INT4:
+            log(f"phase 7f: {name} --int4 --kv-int8")
+            rec["int4_kv_int8"] = family_engine_run(
+                torch, dev, card, cfg, params, True,
+                f"{name} int4/int8 engine")
+        if cfg.sliding_window is not None:
+            log(f"phase 7f: {name} past its window (cache_len 8192)")
+            rec["window"] = window_run(torch, dev, card, cfg, params)
+        out[name] = rec
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def llama70b_phase(torch, dev, card: str) -> dict:
+    """llama3-70b (80 layers, E 8192) on one card through ``--model
+    llama3-70b --int4 --kv-int8``: weights drawn from the seed and
+    quantized a layer at a time (the bf16 tree, 141 GB, never exists);
+    weight, arena and peak bytes; the burst with exact launches per step;
+    (g1)-(g5); the check against the plain f32 forward of the dequantized
+    weights, reported (0.3089 in its first run, above the skipped-layer
+    control's 0.2407: 80 random layers amplify the bf16 and int8 roundings
+    past what one layer left out moves), and gated layer by layer
+    (``dense_layer_check``, as phase 7m gates Mixtral)."""
+    from k8s_runpod_kubelet_tpu_torch.ops import (int4_matmul,
+                                                  paged_attention,
+                                                  paged_attention_multi,
+                                                  paged_attention_multi_quant,
+                                                  paged_attention_quant,
+                                                  rms_norm)
+    from k8s_runpod_kubelet_tpu_torch.workloads import serve_main
+
+    args = serve_main.parse_args(
+        ["--model", "llama3-70b", "--device", dev.type, "--slots", "8",
+         "--cache-len", "2048", "--max-new-tokens", "32", "--int4",
+         "--kv-int8", "--seed", str(SEED)])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine, _ = serve_main.build_engine(args)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build_peak = torch.cuda.max_memory_allocated()
+    try:
+        cfg, p = engine.cfg, engine.params
+        weights = {
+            "q4": sum(w["q4"].numel() for w in p["layers"].values()
+                      if isinstance(w, dict)) + p["lm_head"]["q4"].numel(),
+            "scales": sum(w["scale"].numel() * 4
+                          for w in p["layers"].values()
+                          if isinstance(w, dict))
+            + p["lm_head"]["scale"].numel() * 4,
+            "tok_embed": tensor_bytes(p["tok_embed"]),
+            "norms": tensor_bytes(p["final_norm"]) + sum(
+                tensor_bytes(w) for n, w in p["layers"].items()
+                if n.endswith("norm"))}
+        arena = tensor_bytes(engine._kv_store.arena)
+        log(f"  llama3-70b: {cfg.n_layers} layers, E={cfg.embed_dim}; drawn "
+            f"and quantized on the card in {build_s:.1f} s (graphs "
+            "captured); weight bytes "
+            + ", ".join(f"{k} {v / 1e9:.3f} GB" for k, v in weights.items())
+            + f"; arena {engine._kv_store.pool.n_pages} pages, "
+            f"{arena / 1e9:.3f} GB; [{card}] allocated "
+            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB, peak while "
+            f"building {build_peak / 2**30:.2f} GiB")
+        if not build_peak < CARD_BYTES:
+            raise RuntimeError(f"peak {build_peak} B while building")
+        torch.cuda.reset_peak_memory_stats()
+        n = cfg.n_layers
+        per_step = {"paged_attention_multi_quant": n,
+                    "int4_matmul": 7 * n + 1, "rms_norm": 2 * n + 1,
+                    "paged_attention_multi": 0, "paged_attention": 0,
+                    "paged_attention_quant": 0}
+        rec = serve_burst(torch, engine, cfg, card,
+                          (paged_attention_multi_quant, int4_matmul, rms_norm,
+                           paged_attention_multi, paged_attention,
+                           paged_attention_quant), per_step)
+        serve_peak = torch.cuda.max_memory_allocated()
+        prompts = rec.pop("prompts")
+        rec.pop("prompt")
+        with engine._prefix_lock:
+            rec["graphs"] = graph_checks(torch, engine, card,
+                                         QUANT_ENGINE_REL_L2_LIMIT,
+                                         "llama3-70b int4/int8 engine")
+            rec["times"] = family_step_times(torch, engine)
+            logits = quant_logits(torch, engine.model, p, prompts[2])
+            rec["reference"] = family_check(
+                torch, cfg, p, prompts[2], logits, QUANT_ENGINE_REL_L2_LIMIT,
+                "llama3-70b int4/int8 engine", gate=False)
+            rec["layer_check"] = dense_layer_check(
+                torch, engine.model, p, prompts[2], kv_int8=True)
+        log(f"  [{card}] llama3-70b: peak allocated while serving "
+            f"{serve_peak / 2**30:.2f} GiB; decode replay "
+            f"{rec['times']['decode_replay_event_ms']:.3f} ms, "
+            f"{CHUNK_TOKENS}-token chunk "
+            f"{rec['times']['chunk_event_ms']:.3f} ms (between CUDA events)")
+        rec.update(weight_bytes=weights, arena_bytes=arena,
+                   build_s=build_s, build_peak_bytes=build_peak,
+                   serve_peak_bytes=serve_peak)
+        return rec
+    finally:
+        engine.stop()
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description="chip smoke of the PyTorch "
                                 "port (see the module docstring)")
@@ -5199,6 +5886,25 @@ def main(argv=None) -> int:
         attn[kind].append(attention_case(torch, F, dev, flush, kind,
                                          "prefill K=1024 B=1", 1, 1024,
                                          [100 + 1024]))
+    log("phase 3 (7f): the paged kernels at Gemma-7B's heads (16/16 of "
+        "256), Qwen2-7B's (28/4) and Mistral-7B's window of 4096")
+    for kind in ("paged_attention_multi", "paged_attention_multi_quant"):
+        for tag, heads, cases in (
+                ("gemma-7b", GEMMA_HEADS,
+                 (("decode K=1 B=8", 8, 1, decode_lengths),
+                  ("verify K=5 B=8", 8, 5,
+                   [5, 41, 334, 705, 1029, 1605, 1999, 2048]),
+                  ("prefill K=1024 B=1", 1, 1024, [100 + 1024]))),
+                ("qwen2-7b", QWEN2_HEADS,
+                 (("decode K=1 B=8", 8, 1, decode_lengths),
+                  ("prefill K=1024 B=1", 1, 1024, [100 + 1024]))),
+                ("mistral-7b window 4096", WINDOW_HEADS,
+                 (("decode K=1 B=8", 8, 1, WINDOW_LENGTHS),
+                  ("prefill K=1024 B=1", 1, 1024, [5000])))):
+            for name, b, kq, lengths in cases:
+                attn[kind].append(attention_case(
+                    torch, F, dev, flush, kind, f"{tag} {name}", b, kq,
+                    lengths, heads=heads))
     mla = {kind: [] for kind in MLA_KINDS}
     for kind, (_, single, _) in MLA_KINDS.items():
         mla[kind].append(mla_case(torch, F, dev, flush, kind,
@@ -5211,6 +5917,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     int4 = [int4_case(torch, dev, flush, rows, kin, out, leaves)
             for rows in (8, 1024) for kin, out, leaves in INT4_SHAPES]
+    int4 += [int4_case(torch, dev, flush, rows, kin, out, leaves)
+             for rows in (8, 1024) for kin, out, leaves in INT4_70B_SHAPES]
     gc.collect()
     torch.cuda.empty_cache()
     int4_experts = [int4_expert_case(torch, dev, flush, rows, path, kin, out,
@@ -5228,6 +5936,11 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     rms = [rms_case(torch, F, dev, flush, (rows, 4096)) for rows in (8, 1024)]
+    # the other families' widths: Gemma-7B's 3072 and Qwen2-7B's 3584 (not
+    # powers of two: the masked block), and Qwen3-8B's q/k norm, 8 slots x
+    # 32 heads of 128
+    rms += [rms_case(torch, F, dev, flush, shape)
+            for shape in ((1024, 3072), (1024, 3584), (8, 32, 128))]
     # the training path's shape: x (8, 2048, 4096) needing gradients
     rms.append(rms_case(torch, F, dev, flush, (8, 2048, 4096), grad=True))
 
@@ -5352,6 +6065,13 @@ def main(argv=None) -> int:
     log("phase MoE engine (mixtral-8x7b --int4, 8 slots, cache_len 2048)")
     moe = moe_engine_phase(torch, dev, card)
 
+    log("phase 7f: the other dense families at full width and depth "
+        f"({', '.join(FAMILY_MODELS)}; 8 slots, cache_len 2048)")
+    families = families_phase(torch, dev, card)
+    log("phase 7f (70b): llama3-70b --int4 --kv-int8 on one card (8 slots, "
+        "cache_len 2048)")
+    big = llama70b_phase(torch, dev, card)
+
     log("phase train (llama3-8b widths, 4 layers, batch 8 x seq 2048)")
     train = train_phase(torch, dev, card)
     gc.collect()
@@ -5395,6 +6115,15 @@ def main(argv=None) -> int:
     def flash_cases(kname):
         return [{"case": c["case"], **c["kernels"][kname]} for c in flash]
 
+    def family_paths(kname) -> dict:
+        """Phase 7f's launches of ``kname`` by engine run."""
+        runs = {f"serve_{name}" + ("" if mode == "bf16" else f"_{mode}"):
+                rec[mode]["launches"]
+                for name, rec in families.items()
+                for mode in ("bf16", "int4_kv_int8") if mode in rec}
+        runs["serve_llama3_70b_int4_kv_int8"] = big["launches"]
+        return {path: n[kname] for path, n in runs.items() if kname in n}
+
     serve_launches, quant_launches = eng["launches"], qeng["launches"]
     tp_launches, tp4_launches = tp_int4["launches"], tp_bf16["launches"]
     moe_launches = moe["launches"]
@@ -5420,7 +6149,8 @@ def main(argv=None) -> int:
                 "serve_tp": tp_launches["paged_attention_multi"],
                 "serve_lora": lora_launches["paged_attention_multi"],
                 "serve_lora_int4_kv_int8":
-                    lora_q_launches["paged_attention_multi"]}, sdpa),
+                    lora_q_launches["paged_attention_multi"],
+                **family_paths("paged_attention_multi")}, sdpa),
         record("rms_norm", "triton",
                "k8s_runpod_kubelet_tpu_torch/ops/rmsnorm.py",
                "k8s_runpod_kubelet_tpu/ops/rmsnorm.py:80", rms,
@@ -5442,7 +6172,8 @@ def main(argv=None) -> int:
                 "train": train["launches"]["rms_norm"],
                 "train_mla": train_mla["launches"]["rms_norm"],
                 "train_ring": ring_train["launches"]["rms_norm"],
-                "train_ring_mla": ring_train_mla["launches"]["rms_norm"]},
+                "train_ring_mla": ring_train_mla["launches"]["rms_norm"],
+                **family_paths("rms_norm")},
                "F.rms_norm, bf16 weight"),
     ] + [
         record(kname, "cuda", csrc + "flash_attention.cu",
@@ -5475,7 +6206,8 @@ def main(argv=None) -> int:
                     quant_launches["paged_attention_multi_quant"],
                 "serve_tp": tp_launches["paged_attention_multi_quant"],
                 "serve_lora_int4_kv_int8":
-                    lora_q_launches["paged_attention_multi_quant"]},
+                    lora_q_launches["paged_attention_multi_quant"],
+                **family_paths("paged_attention_multi_quant")},
                sdpa + " (a yardstick: no single PyTorch call reads int8 "
                "pages)"),
         record("int4_matmul", "cuda", csrc + "int4_matmul.cu",
@@ -5484,7 +6216,8 @@ def main(argv=None) -> int:
                {"serve_int4_kv_int8": quant_launches["int4_matmul"],
                 "serve_moe": moe_launches["int4_matmul"],
                 "serve_tp": tp_launches["int4_matmul"],
-                "serve_lora_int4_kv_int8": lora_q_launches["int4_matmul"]},
+                "serve_lora_int4_kv_int8": lora_q_launches["int4_matmul"],
+                **family_paths("int4_matmul")},
                "torch.ops.aten._weight_int4pack_mm on the same nibbles and "
                "bf16 group scales (yardstick_ms: torch.matmul by the "
                "dequantized bf16 weight)"),
@@ -5579,7 +6312,8 @@ def main(argv=None) -> int:
                        "train": train, "train_mla": train_mla,
                        "ring_train": ring_train,
                        "ring_train_mla": ring_train_mla,
-                       "train_main": train_cli,
+                       "train_main": train_cli, "families": families,
+                       "llama3_70b": big,
                        "build_s": {**nvcc_s, "triton": triton_s},
                        "sass": sass, "int4_expert_unpack_mix": unpack_mix},
                       f, indent=1)

@@ -1,17 +1,23 @@
-"""Llama-family models the port serves (dense attention, MLA, and the
-Mixtral sparse-MoE MLP), LoRA adapters on them, and the one registry the
-serve CLI reads."""
+"""Llama-family models the port serves (dense attention, with the Gemma,
+Mistral, Qwen2 and Qwen3 branches, MLA, and the Mixtral sparse-MoE MLP),
+LoRA adapters on them, and the one registry the serve CLI reads."""
 
-from .llama import (LlamaConfig, LlamaModel, init_params, llama3_8b,
-                    llama31_8b, mixtral_8x7b, mla_8b, tiny_llama, tiny_mla,
-                    tiny_moe)
+from .llama import (LlamaConfig, LlamaModel, gemma_7b, init_params,
+                    llama3_8b, llama3_70b, llama31_8b, mistral_7b,
+                    mixtral_8x7b, mla_8b, qwen2_7b, qwen3_8b, tiny_llama,
+                    tiny_mla, tiny_moe)
 from .lora import (LORA_TARGETS, LoraConfig, apply_lora, extract_adapter,
                    is_lora, load_adapter, lora_mask, lora_param_count,
                    merge_lora, save_adapter)
 
 MODEL_CONFIGS = {
     "llama3-8b": llama3_8b,
+    "llama3-70b": llama3_70b,
     "llama31-8b": llama31_8b,
+    "gemma-7b": gemma_7b,
+    "mistral-7b": mistral_7b,
+    "qwen2-7b": qwen2_7b,
+    "qwen3-8b": qwen3_8b,
     "mla-8b": mla_8b,
     "mixtral-8x7b": mixtral_8x7b,
     "tiny": tiny_llama,
@@ -20,7 +26,8 @@ MODEL_CONFIGS = {
 }
 
 __all__ = ["LORA_TARGETS", "LlamaConfig", "LlamaModel", "LoraConfig",
-           "MODEL_CONFIGS", "apply_lora", "extract_adapter", "init_params",
-           "is_lora", "llama3_8b", "llama31_8b", "load_adapter", "lora_mask",
-           "lora_param_count", "merge_lora", "mixtral_8x7b", "mla_8b",
+           "MODEL_CONFIGS", "apply_lora", "extract_adapter", "gemma_7b",
+           "init_params", "is_lora", "llama3_8b", "llama3_70b", "llama31_8b",
+           "load_adapter", "lora_mask", "lora_param_count", "merge_lora",
+           "mistral_7b", "mixtral_8x7b", "mla_8b", "qwen2_7b", "qwen3_8b",
            "save_adapter", "tiny_llama", "tiny_mla", "tiny_moe"]

@@ -1,6 +1,7 @@
 """Hugging Face checkpoint import and export (port of the JAX package's
 ``models/convert.py``, cut to the layouts this port serves: the dense
-Llama family, Mixtral's sparse MoE and MLA with a full-rank q).
+Llama family with Gemma-7B's, Mistral's, Qwen2's and Qwen3's branches,
+Mixtral's sparse MoE and MLA with a full-rank q).
 
 ``load_hf(cfg, src, device)`` takes a HF model directory (``*.safetensors``,
 sharded through ``model.safetensors.index.json`` or not, or
@@ -17,11 +18,16 @@ pairs, so the rope columns of ``q_proj`` and ``kv_a_proj_with_mqa`` are
 permuted to rotate-half (``_rope_deinterleave``), and ``kv_b_proj`` splits
 into ``w_uk`` and ``w_uv``. Mixtral's ``block_sparse_moe.gate`` is the
 router and its ``experts.{e}.w1``/``w3``/``w2`` are ``we_gate``/``we_up``/
-``we_down``, stacked over experts inside each layer.
+``we_down``, stacked over experts inside each layer. Qwen2's
+``self_attn.{q,k,v}_proj.bias`` are ``wq_b``/``wk_b``/``wv_b`` and Qwen3's
+``self_attn.{q,k}_norm.weight`` are ``q_norm``/``k_norm``. Gemma stores its
+norms zero-centered, as the port's tree does, and ties its head (no
+``lm_head.weight``).
 
 Checkpoints this port cannot serve (DeepSeek-MoE's experts, shared experts
-and router, DeepSeek's dense-prefix layers, the low-rank q, biases, extra
-norms) are refused by their key names before any tensor is read.
+and router, DeepSeek's dense-prefix layers, the low-rank q) are refused by
+their key names before any tensor is read, and so is any bias or norm the
+config does not have.
 Safetensors files are read here, without the ``safetensors`` package: the
 8-byte little-endian header length, the JSON header and each tensor's
 ``data_offsets``, the data viewed through ``torch.frombuffer`` on a
@@ -86,6 +92,19 @@ def _mlp_keys(cfg: LlamaConfig) -> list[str]:
                             for _, theirs in _EXPERTS]
 _NORMS = (("attn_norm", "input_layernorm.weight"),
           ("mlp_norm", "post_attention_layernorm.weight"))
+# Qwen3's per-head q/k norms and Qwen2's q/k/v biases, copied as they are
+_QK_NORMS = (("q_norm", "self_attn.q_norm.weight"),
+             ("k_norm", "self_attn.k_norm.weight"))
+_QKV_BIASES = (("wq_b", "self_attn.q_proj.bias"),
+               ("wk_b", "self_attn.k_proj.bias"),
+               ("wv_b", "self_attn.v_proj.bias"))
+
+
+def _plain_leaves(cfg: LlamaConfig) -> tuple:
+    """The per-layer (ours, HF name) pairs copied without a transpose:
+    the norms, and the config's q/k norms and q/k/v biases."""
+    return (_NORMS + (_QK_NORMS if cfg.qk_norm else ())
+            + (_QKV_BIASES if cfg.qkv_bias else ()))
 _MLA_ATTN = ("self_attn.q_proj.weight", "self_attn.kv_a_proj_with_mqa.weight",
              "self_attn.kv_a_layernorm.weight", "self_attn.kv_b_proj.weight",
              "self_attn.o_proj.weight")
@@ -100,7 +119,7 @@ def expected_keys(cfg: LlamaConfig) -> set:
     ``cfg`` holds; ``lm_head.weight`` is optional either way (a tied
     checkpoint may omit it, an untied config then materializes the tie)."""
     _check_cfg(cfg)
-    per_layer = [theirs for _, theirs in _NORMS] + _mlp_keys(cfg)
+    per_layer = [theirs for _, theirs in _plain_leaves(cfg)] + _mlp_keys(cfg)
     per_layer += list(_MLA_ATTN) if cfg.is_mla else \
         [theirs for _, theirs in _DENSE_ATTN]
     keys = {"embed_tokens.weight", "norm.weight"}
@@ -257,7 +276,8 @@ def from_hf_state_dict(cfg: LlamaConfig, sd: Mapping[str, Any], device=None,
         else:
             leaves.update({ours: get(pre + theirs).t()
                            for ours, theirs in _MLP})
-        leaves.update({ours: get(pre + theirs) for ours, theirs in _NORMS})
+        leaves.update({ours: get(pre + theirs)
+                       for ours, theirs in _plain_leaves(cfg)})
         for name, t in leaves.items():
             if tuple(t.shape) != tuple(layers[name].shape[1:]):
                 raise ValueError(f"{pre}{name}: HF tensor maps to "
@@ -290,7 +310,7 @@ def to_hf_state_dict(cfg: LlamaConfig, params: Params
                      cfg.n_heads)
     for i in range(cfg.n_layers):
         pre = f"model.layers.{i}."
-        for ours, theirs in _NORMS:
+        for ours, theirs in _plain_leaves(cfg):
             sd[pre + theirs] = host(lp[ours][i])
         if cfg.n_experts:
             sd[pre + _MOE_ROUTER] = host(lp["router"][i].t())

@@ -3,8 +3,8 @@
 ``params_from_jax`` takes the nested dict that the JAX ``init_params``
 returns, with every leaf already converted to a numpy array (stacked
 ``layers/*`` leaves of shape (L, ...)), and returns the port's parameters
-on ``device``: for serving, matmul weights, embedding and LM head in
-``cfg.dtype`` and norm weights and the MoE router in f32 — the values the
+on ``device``: for serving, matmul weights, q/k/v biases, embedding and
+LM head in ``cfg.dtype`` and norm weights and the MoE router in f32 — the values the
 JAX model computes with once it casts its f32 params at use (it routes in
 f32); for training (``master=True``),
 every leaf in ``cfg.param_dtype`` (f32), the JAX model's master tree as it
@@ -25,13 +25,11 @@ from .llama import LlamaConfig, Params, keeps_f32, param_shapes
 
 # JAX config fields that select code paths this port does not have yet;
 # a config that sets any of them away from the dense default is refused
-# (DeepSeek-MoE's shared experts, sigmoid routing and dense prefix by name)
+# (the windowed interleave of Gemma 2 and 3, both soft caps, and
+# DeepSeek-MoE's shared experts, sigmoid routing and dense prefix, by name)
 _UNSUPPORTED = {
-    "sliding_window": None, "attn_logit_softcap": None,
-    "query_pre_attn_scalar": None, "post_norms": False, "qk_norm": False,
-    "rope_local_theta": None, "mlp_activation": "silu",
-    "embed_scale": False, "logit_softcap": None,
-    "norm_zero_centered": False, "qkv_bias": False,
+    "attn_logit_softcap": None, "query_pre_attn_scalar": None,
+    "post_norms": False, "rope_local_theta": None, "logit_softcap": None,
     "n_shared_experts": 0, "router_sigmoid_bias": False,
     "n_dense_prefix": 0, "sliding_window_pattern": 1,
 }
@@ -55,7 +53,9 @@ def config_from_jax(jcfg, dtype: torch.dtype) -> LlamaConfig:
                          "port does not serve yet")
     fields = ("name", "vocab_size", "embed_dim", "n_layers", "n_heads",
               "n_kv_heads", "head_dim", "mlp_dim", "max_seq_len",
-              "rope_theta", "rope_scaling", "norm_eps", "tie_embeddings",
+              "rope_theta", "rope_scaling", "norm_eps", "sliding_window",
+              "qk_norm", "tie_embeddings", "mlp_activation", "embed_scale",
+              "norm_zero_centered", "qkv_bias",
               "remat", "remat_policy", "ring_flash", "mla_latent_dim",
               "mla_rope_dim",
               "mla_q_lora_rank", "n_experts", "n_experts_per_tok",

@@ -97,9 +97,13 @@ Params = dict[str, Any]
 class LlamaConfig:
     """The fields of the JAX ``LlamaConfig`` this port runs, with the same
     defaults (weight and KV quantization and LoRA adapters are serving
-    options, ``ServingConfig``). DeepSeek-MoE (shared experts, sigmoid
-    routing) and its dense prefix, sliding windows, soft caps and remat
-    "dots" are later slices."""
+    options, ``ServingConfig``): the Llama body and its Gemma-7B,
+    Mistral-7B, Qwen2 and Qwen3 branches (a uniform sliding window, GeGLU,
+    the embedding scale, zero-centered norms, q/k/v biases and the q/k
+    norm). DeepSeek-MoE (shared experts, sigmoid routing) and its dense
+    prefix, the windowed interleave of Gemma 2 and 3 (a window pattern,
+    sandwich norms, a local RoPE base, the query pre-attention scalar),
+    soft caps and remat "dots" are later slices."""
     name: str = "tiny"
     vocab_size: int = 32000
     embed_dim: int = 256
@@ -112,7 +116,18 @@ class LlamaConfig:
     rope_theta: float = 500_000.0
     rope_scaling: Optional[dict] = None
     norm_eps: float = 1e-5
+    # Mistral's sliding window: each position attends the last W positions
+    # (None: full causal), in every layer (the JAX package's pattern 1)
+    sliding_window: Optional[int] = None
+    # Qwen3's (and Gemma 3's) RMSNorm over head_dim on q and k, one weight
+    # a layer shared by the heads, before RoPE
+    qk_norm: bool = False
     tie_embeddings: bool = False
+    mlp_activation: str = "silu"        # "silu" (SwiGLU) | "gelu_tanh" (GeGLU)
+    embed_scale: bool = False           # embeddings times sqrt(embed_dim)
+    # RMSNorm weights stored as w and applied as (1 + w) (Gemma)
+    norm_zero_centered: bool = False
+    qkv_bias: bool = False              # biases on q/k/v (Qwen2)
     dtype: torch.dtype = torch.bfloat16  # activation/compute/weight dtype
     param_dtype: torch.dtype = torch.float32  # training's master weights
     remat: bool = True
@@ -162,13 +177,35 @@ class LlamaConfig:
         return self.head_dim_ ** -0.5
 
     def validate_mla(self) -> None:
-        """The JAX config's MLA check that applies to the fields this port
-        has (the fields MLA excludes, windows, soft caps, qk norms and
-        biases, are not in it): q_lora_rank needs MLA."""
+        """The JAX config's MLA checks that apply to the fields this port
+        has: q_lora_rank needs MLA, and MLA composes with no window, q/k
+        norm or q/k/v bias. Also an unknown ``mlp_activation`` raises."""
+        if self.mlp_activation not in ("silu", "gelu_tanh"):
+            raise ValueError(f"unknown mlp_activation "
+                             f"{self.mlp_activation!r}")
         if self.mla_q_lora_rank is not None and not self.is_mla:
             raise ValueError("mla_q_lora_rank requires MLA (set "
                              "mla_latent_dim); on a plain-attention config "
                              "the field would silently do nothing")
+        if not self.is_mla:
+            return
+        bad = [f for f, on in (("sliding_window",
+                                self.sliding_window is not None),
+                               ("qk_norm", self.qk_norm),
+                               ("qkv_bias", self.qkv_bias)) if on]
+        if bad:
+            raise ValueError(f"MLA does not compose with {bad} (DeepSeek-V2 "
+                             "uses none of them)")
+
+    @property
+    def embed_multiplier(self) -> Optional[float]:
+        """sqrt(embed_dim) rounded to the compute dtype, the factor the
+        JAX model scales embeddings by (``embed_scale``); None without
+        it. In bf16 Gemma's sqrt(3072) = 55.43 is 55.5."""
+        if not self.embed_scale:
+            return None
+        return float(torch.tensor(self.embed_dim ** 0.5,
+                                  dtype=torch.float64).to(self.dtype))
 
 
 def yarn_mscale_sq(cfg: LlamaConfig) -> float:
@@ -192,6 +229,12 @@ def llama3_8b() -> LlamaConfig:
                        max_seq_len=8192, rope_theta=500_000.0)
 
 
+def llama3_70b() -> LlamaConfig:
+    return LlamaConfig(name="llama3-70b", vocab_size=128256, embed_dim=8192,
+                       n_layers=80, n_heads=64, n_kv_heads=8, mlp_dim=28672,
+                       max_seq_len=8192, rope_theta=500_000.0)
+
+
 def llama31_8b() -> LlamaConfig:
     # Llama-3.1-8B: the 3.0 backbone at 128k context via the NTK-aware
     # frequency warp (ops/rope.py scaling branch)
@@ -201,6 +244,45 @@ def llama31_8b() -> LlamaConfig:
                        rope_scaling={"factor": 8.0, "low_freq_factor": 1.0,
                                      "high_freq_factor": 4.0,
                                      "original_max_position": 8192})
+
+
+def gemma_7b() -> LlamaConfig:
+    """Gemma-7B: multi-head attention (16 heads of 256 over 16 kv heads),
+    a GeGLU MLP, embeddings scaled by sqrt(embed_dim), zero-centered
+    RMSNorm weights and an LM head tied to the embedding."""
+    return LlamaConfig(name="gemma-7b", vocab_size=256000, embed_dim=3072,
+                       n_layers=28, n_heads=16, n_kv_heads=16, head_dim=256,
+                       mlp_dim=24576, max_seq_len=8192, rope_theta=10_000.0,
+                       norm_eps=1e-6, tie_embeddings=True,
+                       mlp_activation="gelu_tanh", embed_scale=True,
+                       norm_zero_centered=True)
+
+
+def mistral_7b() -> LlamaConfig:
+    """Mistral-7B-v0.1: a Llama-shaped GQA decoder (32/8 heads) whose every
+    layer attends a 4096-token sliding window."""
+    return LlamaConfig(name="mistral-7b", vocab_size=32000, embed_dim=4096,
+                       n_layers=32, n_heads=32, n_kv_heads=8, mlp_dim=14336,
+                       max_seq_len=32768, rope_theta=10_000.0,
+                       sliding_window=4096)
+
+
+def qwen2_7b() -> LlamaConfig:
+    """Qwen2-7B: a GQA decoder (28/4 heads of 128) with biases on its q,
+    k and v projections."""
+    return LlamaConfig(name="qwen2-7b", vocab_size=152064, embed_dim=3584,
+                       n_layers=28, n_heads=28, n_kv_heads=4, mlp_dim=18944,
+                       max_seq_len=32768, rope_theta=1_000_000.0,
+                       norm_eps=1e-6, qkv_bias=True)
+
+
+def qwen3_8b() -> LlamaConfig:
+    """Qwen3-8B: a GQA decoder (32/8 heads of 128) with a per-head RMSNorm
+    on q and k before RoPE."""
+    return LlamaConfig(name="qwen3-8b", vocab_size=151936, embed_dim=4096,
+                       n_layers=36, n_heads=32, n_kv_heads=8, head_dim=128,
+                       mlp_dim=12288, max_seq_len=32768,
+                       rope_theta=1_000_000.0, norm_eps=1e-6, qk_norm=True)
 
 
 def tiny_llama(**kw) -> LlamaConfig:
@@ -270,6 +352,11 @@ def _layer_shapes(cfg: LlamaConfig) -> dict:
                "we_up": (n, x, e, m), "we_down": (n, x, m, e)}
     else:
         mlp = {"w_gate": (n, e, m), "w_up": (n, e, m), "w_down": (n, m, e)}
+    if cfg.qk_norm:
+        attn.update({"q_norm": (n, hd), "k_norm": (n, hd)})
+    if cfg.qkv_bias:
+        attn.update({"wq_b": (n, hn * hd), "wk_b": (n, cfg.n_kv_heads * hd),
+                     "wv_b": (n, cfg.n_kv_heads * hd)})
     return {"attn_norm": (n, e),
             **attn,
             "wo": (n, hn * hd, e),
@@ -288,6 +375,19 @@ def param_shapes(cfg: LlamaConfig) -> Params:
 
 def is_norm(name: str) -> bool:
     return name.endswith("norm")
+
+
+def is_bias(name: str) -> bool:
+    return name in ("wq_b", "wk_b", "wv_b")
+
+
+def init_fill(cfg: LlamaConfig, name: str) -> Optional[float]:
+    """The constant a leaf starts at, as the JAX ``init_params`` sets it:
+    a norm's identity (1, or 0 when applied as (1 + w)), a bias 0; None
+    for a leaf drawn at random."""
+    if is_norm(name):
+        return 0.0 if cfg.norm_zero_centered else 1.0
+    return 0.0 if is_bias(name) else None
 
 
 def keeps_f32(name: str) -> bool:
@@ -396,9 +496,10 @@ def _kv_dequant(q: torch.Tensor, scale: torch.Tensor,
 
 def init_params(cfg: LlamaConfig, generator: torch.Generator,
                 device=None, master: bool = False) -> Params:
-    """Random init from ``generator`` (normal * 0.02, norms at 1), built
-    directly on ``device`` (default ``cuda``) one layer at a time, so the
-    f32 draw never holds more than one layer's leaf. ``generator`` must
+    """Random init from ``generator`` (normal * 0.02; norms at identity and
+    q/k/v biases at 0, ``init_fill``), built directly on ``device``
+    (default ``cuda``) one layer at a time, so the f32 draw never holds
+    more than one layer's leaf. ``generator`` must
     live on that device. Weights are in ``cfg.dtype`` (serving), or in
     ``cfg.param_dtype`` with ``master=True`` (training); the same generator
     draws the same values, so the serving weights are the master weights
@@ -408,10 +509,11 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
     dtype = cfg.param_dtype if master else cfg.dtype
 
     def make(name: str, shape) -> torch.Tensor:
-        if is_norm(name):
-            return torch.ones(shape, dtype=torch.float32, device=dev)
         out = torch.empty(shape, dtype=torch.float32 if keeps_f32(name)
                           else dtype, device=dev)
+        fill = init_fill(cfg, name)
+        if fill is not None:
+            return out.fill_(fill)
         for at, row in draw_rows(shape, generator, dev):
             out[at] = row
         return out
@@ -474,7 +576,8 @@ class LlamaModel:
                 train: bool = True) -> torch.Tensor:
         """tokens (B, S) -> logits (B, S, V) in ``cfg.dtype``, or with
         ``return_hidden`` the final-norm hidden states (B, S, E). Every
-        layer is causal flash attention and a SwiGLU MLP (or the sparse MoE
+        layer is causal flash attention (under the config's sliding window)
+        and a SwiGLU or GeGLU MLP (or the sparse MoE
         MLP, routed at ``cfg.capacity_factor``, or with ``train=False`` at
         the serving capacity that drops nothing), each behind an RMSNorm;
         weights are cast to ``cfg.dtype`` at each use. Under remat
@@ -510,7 +613,7 @@ class LlamaModel:
                     use_reentrant=False)
             else:
                 x = self._layer(x, lp, positions, train=train)
-        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        x = rms_norm(x, self._norm_w(params["final_norm"]), cfg.norm_eps)
         if return_hidden:
             return x
         return self._lm_head(params, x)
@@ -534,20 +637,14 @@ class LlamaModel:
             x = self._mlp(x, lp, train)
             return (x, c, kr) if return_kv else x
         b, s, _ = x.shape
-        hd, dt = cfg.head_dim_, cfg.dtype
-        h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-        q = self._proj(h, lp["wq"], "wq", ad, ids).reshape(
-            b, s, cfg.n_heads, hd)
-        k = self._proj(h, lp["wk"], "wk", ad, ids).reshape(
-            b, s, cfg.n_kv_heads, hd)
-        v = self._proj(h, lp["wv"], "wv", ad, ids).reshape(
-            b, s, cfg.n_kv_heads, hd)
-        q = apply_rope(q, self.cos, self.sin, positions)
-        k = apply_rope(k, self.cos, self.sin, positions)
+        hd = cfg.head_dim_
+        h = rms_norm(x, self._norm_w(lp["attn_norm"]), cfg.norm_eps)
+        q, k, v = self._qkv(h, lp.__getitem__, ad, ids, positions)
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         if self.mesh is not None and self.mesh.seq > 1:
             o = ring_attention(qt, kt, vt, self.mesh, causal=True,
                                sm_scale=cfg.sm_scale,
+                               sliding_window=cfg.sliding_window,
                                use_flash=cfg.ring_flash)
         else:
             o = self._flash(qt, kt, vt)
@@ -571,7 +668,7 @@ class LlamaModel:
         b, s, _ = x.shape
         hd, dr, hn, dt = (cfg.head_dim_, cfg.mla_rope_dim, cfg.n_heads,
                           cfg.dtype)
-        h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+        h = rms_norm(x, self._norm_w(lp["attn_norm"]), cfg.norm_eps)
         q_nope, q_rope, c, kr = self._mla_project(h, lp, None, positions)
         k_nope = _mm(c, lp["w_uk"], dt).reshape(b, s, hn, hd)
         v = _mm(c, lp["w_uv"], dt).reshape(b, s, hn, hd)
@@ -590,38 +687,80 @@ class LlamaModel:
         return x + self._proj(o, lp["wo"], "wo"), c, kr
 
     def _flash(self, qt, kt, vt) -> torch.Tensor:
-        """Causal flash attention of (B, H, S, D) heads; in one process
+        """Causal flash attention of (B, H, S, D) heads, under the config's
+        sliding window; in one process
         under a tensor mesh whose degree divides both head counts, one
         launch per shard on its q-head block and kv-head block, as each
         shard runs it."""
         cfg = self.cfg
         n = (paged_head_shards(self.tp, cfg.n_heads, cfg.n_kv_heads)
              if self.mesh is not None and self.mesh.in_process else 1)
+        kw = dict(causal=True, sm_scale=cfg.sm_scale,
+                  sliding_window=cfg.sliding_window)
         if n == 1:
-            return flash_attention(qt, kt, vt, causal=True,
-                                   sm_scale=cfg.sm_scale)
+            return flash_attention(qt, kt, vt, **kw)
         hq, hk = cfg.n_heads // n, cfg.n_kv_heads // n
         return torch.cat([flash_attention(
             qt[:, s * hq:(s + 1) * hq].contiguous(),
             kt[:, s * hk:(s + 1) * hk].contiguous(),
-            vt[:, s * hk:(s + 1) * hk].contiguous(), causal=True,
-            sm_scale=cfg.sm_scale) for s in range(n)], dim=1)
+            vt[:, s * hk:(s + 1) * hk].contiguous(), **kw)
+            for s in range(n)], dim=1)
 
     def _proj(self, h: torch.Tensor, w, name: str, ad: Optional[dict] = None,
-              ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+              ids: Optional[torch.Tensor] = None,
+              bias: Optional[torch.Tensor] = None) -> torch.Tensor:
         """h @ leaf ``name`` (raw or quantized, one layer's) in the compute
         dtype: ``_mm``, or under a tensor mesh ``_mm_tp`` for a leaf the
-        tensor axis splits. When ``ad`` (one layer's adapter stacks) holds
-        ``name``, each row's multi-LoRA delta is added to the whole
-        product."""
+        tensor axis splits. Then ``bias`` (one layer's, cast to the compute
+        dtype; under a tensor mesh the whole bias, added after the
+        shards' outputs are gathered), then, when ``ad`` (one layer's
+        adapter stacks) holds ``name``, each row's multi-LoRA delta: the
+        JAX model's order (``_qkv``, then ``_ml_qkv_deltas``)."""
+        dt = self.cfg.dtype
         kind = self._split.get(name) if self.tp > 1 else None
         if kind is None:
-            y = _mm(h, w, self.cfg.dtype)
+            y = _mm(h, w, dt)
         else:
-            y = _mm_tp(h, w, kind, self.mesh, self.cfg.dtype)
+            y = _mm_tp(h, w, kind, self.mesh, dt)
+        if bias is not None:
+            if self.tp > 1:
+                # split like its product's columns: (N, out/N) in one
+                # process, the rank's (out/N,) over a process group
+                bias = (bias.reshape(-1) if self.mesh.in_process
+                        else all_gather(bias, -1, self.mesh))
+            y = y + bias.to(dt)
         if ad is not None and name in ad:
             y = y + _ml_delta(h, ad[name], ids)
         return y
+
+    def _qkv(self, h: torch.Tensor, leaf, ad: Optional[dict],
+             ids: Optional[torch.Tensor], positions):
+        """The JAX model's dense q/k/v path on normed h (B, S, E): the three
+        products and their biases (``_qkv``), each row's multi-LoRA deltas
+        (``_ml_qkv_deltas``), the per-head q/k RMSNorm (``qk_norm``), then
+        RoPE at ``positions``. ``leaf(name)`` is one layer's leaf. Returns
+        q (B, S, H, hd) and k, v (B, S, Hkv, hd)."""
+        cfg = self.cfg
+        b, s, _ = h.shape
+        out = []
+        for name, heads in (("wq", cfg.n_heads), ("wk", cfg.n_kv_heads),
+                            ("wv", cfg.n_kv_heads)):
+            bias = leaf(name + "_b") if cfg.qkv_bias else None
+            out.append(self._proj(h, leaf(name), name, ad, ids, bias)
+                       .reshape(b, s, heads, cfg.head_dim_))
+        q, k, v = out
+        if cfg.qk_norm:
+            q = rms_norm(q, self._norm_w(leaf("q_norm")), cfg.norm_eps)
+            k = rms_norm(k, self._norm_w(leaf("k_norm")), cfg.norm_eps)
+        q = apply_rope(q, self.cos, self.sin, positions)
+        k = apply_rope(k, self.cos, self.sin, positions)
+        return q, k, v
+
+    def _norm_w(self, w: torch.Tensor) -> torch.Tensor:
+        """The weight an RMSNorm applies: w, or (1 + w) in f32 when the
+        config stores its norms zero-centered (Gemma; the JAX
+        ``_norm_w``)."""
+        return w + 1 if self.cfg.norm_zero_centered else w
 
     def _check_adapters(self, adapters: Optional[dict],
                         adapter_ids: Optional[torch.Tensor]
@@ -644,11 +783,19 @@ class LlamaModel:
         return adapter_ids.long()
 
     def _embed(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
-        """The embedding rows of ``tokens`` in the compute dtype. Under a
-        tensor mesh each shard gathers from its own vocab rows, other rows
-        zero, and the shards' rows add up: the JAX model's one-hot
-        contraction over a vocab-sharded table, exactly."""
-        table, dt = params["tok_embed"], self.cfg.dtype
+        """The embedding rows of ``tokens`` in the compute dtype, times
+        ``cfg.embed_multiplier`` with ``embed_scale``. Under a tensor mesh
+        each shard gathers from its own vocab rows, other rows zero, and
+        the shards' rows add up: the JAX model's one-hot contraction over a
+        vocab-sharded table, exactly."""
+        x = self._embed_rows(params["tok_embed"], tokens)
+        mult = self.cfg.embed_multiplier
+        # the JAX model multiplies by sqrt(E) rounded to the compute dtype
+        return x if mult is None else x * mult
+
+    def _embed_rows(self, table: torch.Tensor,
+                    tokens: torch.Tensor) -> torch.Tensor:
+        dt = self.cfg.dtype
         tok = tokens.long()
         if self.tp == 1:
             return table[tok].to(dt)
@@ -803,8 +950,11 @@ class LlamaModel:
         if active.any() and int(positions[active].max()) >= max_len:
             raise ValueError(f"verify positions run past the cache length "
                              f"{max_len}")
-        valid = (torch.arange(max_len, device=dev)[None, None, :]
-                 <= positions[:, :, None])[:, None, None]     # (B,1,1,K,L)
+        pos_l = torch.arange(max_len, device=dev)[None, None, :]
+        valid = pos_l <= positions[:, :, None]
+        if cfg.sliding_window is not None:
+            valid &= positions[:, :, None] - pos_l < cfg.sliding_window
+        valid = valid[:, None, None]                            # (B,1,1,K,L)
         rows = torch.arange(b, device=dev)[:, None].expand(b, kk)[active]
         slots = positions[active]
         if cfg.is_mla:
@@ -817,15 +967,10 @@ class LlamaModel:
         lp = params["layers"]
         for layer in range(cfg.n_layers):
             ad = _layer_adapters(adapters, layer)
-            h = rms_norm(x, lp["attn_norm"][layer], cfg.norm_eps)
-            q = self._proj(h, _at(lp["wq"], layer), "wq", ad, ids).reshape(
-                b, kk, cfg.n_heads, hd)
-            k = self._proj(h, _at(lp["wk"], layer), "wk", ad, ids).reshape(
-                b, kk, hkv, hd)
-            v = self._proj(h, _at(lp["wv"], layer), "wv", ad, ids).reshape(
-                b, kk, hkv, hd)
-            q = apply_rope(q, self.cos, self.sin, positions)
-            k = apply_rope(k, self.cos, self.sin, positions)
+            h = rms_norm(x, self._norm_w(lp["attn_norm"][layer]),
+                         cfg.norm_eps)
+            q, k, v = self._qkv(h, lambda n: _at(lp[n], layer), ad, ids,
+                                positions)
             kc, vc = cache["k"][layer], cache["v"][layer]
             if quant:
                 ks, vs = cache["k_scale"][layer], cache["v_scale"][layer]
@@ -868,7 +1013,8 @@ class LlamaModel:
         x = self._embed(params, tokens)
         lp = params["layers"]
         for layer in range(cfg.n_layers):
-            h = rms_norm(x, lp["attn_norm"][layer], cfg.norm_eps)
+            h = rms_norm(x, self._norm_w(lp["attn_norm"][layer]),
+                         cfg.norm_eps)
             q_nope, q_rope, c, kr = self._mla_project(h, lp, layer,
                                                       positions)
             cc, krc = cache["c"][layer], cache["kr"][layer]
@@ -1007,7 +1153,7 @@ class LlamaModel:
     # -- internals ----------------------------------------------------------
 
     def _head_logits(self, params: Params, x: torch.Tensor) -> torch.Tensor:
-        x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
+        x = rms_norm(x, self._norm_w(params["final_norm"]), self.cfg.norm_eps)
         return self._lm_head(params, x).float()
 
     def _paged_layers(self, params, tokens, arena, page_tables, lengths,
@@ -1052,15 +1198,10 @@ class LlamaModel:
             # each leaf indexed where it is used: this loop is the decode
             # step's host cost
             ad = _layer_adapters(adapters, layer)
-            h = rms_norm(x, lp["attn_norm"][layer], cfg.norm_eps)
-            q = self._proj(h, _at(lp["wq"], layer), "wq", ad, ids).reshape(
-                b, kk, cfg.n_heads, hd)
-            k = self._proj(h, _at(lp["wk"], layer), "wk", ad, ids).reshape(
-                b, kk, cfg.n_kv_heads, hd)
-            v = self._proj(h, _at(lp["wv"], layer), "wv", ad, ids).reshape(
-                b, kk, cfg.n_kv_heads, hd)
-            q = apply_rope(q, self.cos, self.sin, rope_pos)
-            k = apply_rope(k, self.cos, self.sin, rope_pos)
+            h = rms_norm(x, self._norm_w(lp["attn_norm"][layer]),
+                         cfg.norm_eps)
+            q, k, v = self._qkv(h, lambda n: _at(lp[n], layer), ad, ids,
+                                rope_pos)
             kp, vp = (self._arena_layer(arena[name], layer, n)
                       for name in ("k", "v"))
             ks = vs = None
@@ -1121,15 +1262,15 @@ class LlamaModel:
         shards' heads; a replicated one serves every head in one launch
         (in one process the shards' dispatches together, over a process
         group each rank's redundant whole dispatch)."""
-        scale = self.cfg.sm_scale
+        kw = dict(sm_scale=self.cfg.sm_scale,
+                  sliding_window=self.cfg.sliding_window)
 
         def attend(qs, kps, vps, kss, vss):
             if kss is None:
                 return paged_attention_multi(qs, kps, vps, page_tables,
-                                             att_len, sm_scale=scale)
+                                             att_len, **kw)
             return paged_attention_multi_quant(qs, kps, vps, kss, vss,
-                                               page_tables, att_len,
-                                               sm_scale=scale)
+                                               page_tables, att_len, **kw)
 
         if n == 1:
             return attend(q, kp, vp, ks, vs)
@@ -1160,17 +1301,19 @@ class LlamaModel:
              ad: Optional[dict] = None,
              ids: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The JAX model's ``_mlp_block`` with its residual, on one layer's
-        leaves: the SwiGLU MLP, or for an MoE config ``moe_mlp``. ``train``
+        leaves: the SwiGLU (or GeGLU) MLP, or for an MoE config ``moe_mlp``. ``train``
         routes at ``cfg.capacity_factor``; serving (``train=False``) at
         n_experts / n_experts_per_tok, so the capacity is every token and
         nothing drops, as in the JAX model. The router's aux losses are not
         computed (training an MoE model is not ported). ``ad`` adds each
         row's multi-LoRA deltas to the dense MLP's three products."""
         cfg, dt = self.cfg, self.cfg.dtype
-        h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
+        h = rms_norm(x, self._norm_w(lp["mlp_norm"]), cfg.norm_eps)
         if not cfg.n_experts:
-            act = (F.silu(self._proj(h, lp["w_gate"], "w_gate", ad, ids))
-                   * self._proj(h, lp["w_up"], "w_up", ad, ids))
+            gate = self._proj(h, lp["w_gate"], "w_gate", ad, ids)
+            gate = (F.silu(gate) if cfg.mlp_activation == "silu"
+                    else F.gelu(gate, approximate="tanh"))
+            act = gate * self._proj(h, lp["w_up"], "w_up", ad, ids)
             return x + self._proj(act, lp["w_down"], "w_down", ad, ids)
         factor = (cfg.capacity_factor if train
                   else cfg.n_experts / cfg.n_experts_per_tok)
@@ -1198,15 +1341,15 @@ class LlamaModel:
             return lp[name] if layer is None else _at(lp[name], layer)
 
         if cfg.mla_q_lora_rank is not None:
-            qa = rms_norm(_mm(h, leaf("w_qa"), dt), leaf("q_a_norm"),
-                          cfg.norm_eps)
+            qa = rms_norm(_mm(h, leaf("w_qa"), dt),
+                          self._norm_w(leaf("q_a_norm")), cfg.norm_eps)
             q = _mm(qa, leaf("w_qb"), dt)
         else:
             q = _mm(h, leaf("wq"), dt)
         q = q.reshape(b, kk, cfg.n_heads, hd + dr)
         ckr = _mm(h, leaf("w_dkv"), dt)
         # the RMSNorm kernel takes unit-stride rows: c is a slice of ckr
-        c = rms_norm(ckr[..., :r].contiguous(), leaf("c_norm"),
+        c = rms_norm(ckr[..., :r].contiguous(), self._norm_w(leaf("c_norm")),
                      cfg.norm_eps)
         q_rope = apply_rope(q[..., hd:], self.cos, self.sin, positions)
         kr = apply_rope(ckr[..., None, r:], self.cos, self.sin,
@@ -1229,7 +1372,8 @@ class LlamaModel:
         quant = "c_scale" in arena
         lp = params["layers"]
         for layer in range(cfg.n_layers):
-            h = rms_norm(x, lp["attn_norm"][layer], cfg.norm_eps)
+            h = rms_norm(x, self._norm_w(lp["attn_norm"][layer]),
+                         cfg.norm_eps)
             q_nope, q_rope, c, kr = self._mla_project(h, lp, layer, rope_pos)
             cp, krp = arena["c"][layer], arena["kr"][layer]
             if quant:

@@ -7,7 +7,9 @@ f32 (..., 1, out)}`` (per output channel, absmax / 127) or ``{"q4": uint8
 ``INT4_GROUP`` contraction elements, absmax / 7; in-element 2i in the low
 nibble, 2i+1 in the high, each stored offset by 8). ``llama._mm`` takes
 either form. The embedding is stored in the compute dtype, norms and the
-MoE router stay f32, the LM head is quantized. Expert leaves (``we_gate``,
+MoE router stay f32, q/k/v biases stay in the compute dtype, the LM head
+is quantized (a tied head is the embedding's transpose, in the compute
+dtype, as in the JAX package). Expert leaves (``we_gate``,
 ``we_up``, ``we_down``, (L, X, in, out)) quantize at both widths one
 (layer, expert) slice at a time: q8 (L, X, in, out) with scale (L, X, 1,
 out), or q4 (L, X, in/2, out) with scale (L, X, g, 1, out).
@@ -33,7 +35,7 @@ from typing import Any
 import torch
 
 from ..device import resolve_device
-from .llama import (LlamaConfig, Params, draw_rows, is_norm, keeps_f32,
+from .llama import (LlamaConfig, Params, draw_rows, init_fill, keeps_f32,
                     param_shapes)
 
 __all__ = ["INT4_GROUP", "dequantize", "init_quantized_params",
@@ -189,11 +191,12 @@ def init_quantized_params(cfg: LlamaConfig, generator: torch.Generator,
     dev = resolve_device(device)
 
     def make(name: str, shape):
-        if is_norm(name):
-            return torch.ones(shape, dtype=torch.float32, device=dev)
         if name not in _QUANTIZED:
             out = torch.empty(shape, device=dev, dtype=torch.float32
                               if keeps_f32(name) else cfg.dtype)
+            fill = init_fill(cfg, name)
+            if fill is not None:
+                return out.fill_(fill)
             for at, row in draw_rows(shape, generator, dev):
                 out[at] = row
             return out

@@ -60,8 +60,8 @@ LOGICAL_RULES: dict[str, object] = {
 
 def layer_axes(cfg) -> dict:
     """Logical axes of one stacked layer's leaves (the JAX ``_layer_axes``
-    for the fields the port has: dense or MLA attention, dense or sparse
-    MoE MLP)."""
+    for the fields the port has: dense attention with its q/k norms and
+    q/k/v biases, or MLA; a dense or sparse MoE MLP)."""
     if cfg.is_mla:
         if cfg.mla_q_lora_rank is not None:
             q_axes = {"w_qa": ("layer", "embed", "latent"),
@@ -83,6 +83,13 @@ def layer_axes(cfg) -> dict:
                  "wv": ("layer", "embed", "kv_heads"),
                  "wo": ("layer", "heads", "embed"),
                  "mlp_norm": ("layer", "norm")}
+    if cfg.qk_norm:
+        layer.update({"q_norm": ("layer", "norm"),
+                      "k_norm": ("layer", "norm")})
+    if cfg.qkv_bias:
+        layer.update({"wq_b": ("layer", "heads"),
+                      "wk_b": ("layer", "kv_heads"),
+                      "wv_b": ("layer", "kv_heads")})
     if cfg.n_experts:
         layer.update({"router": ("layer", "embed", "expert"),
                       "we_gate": ("layer", "expert", "embed", "mlp"),

@@ -22,12 +22,24 @@ paged loop of the JAX package's ``workloads/serving/engine.py``).
 - **Engine thread**: binds ready runs to free slots (the run's pages become
   the slot's page-table row) and runs one ``paged_decode_step`` per step
   for every live slot, growing each slot's table by a private page when
-  its next write crosses a page boundary. With ``speculate_k`` > 0 and a
+  its next write crosses a page boundary (a uniform sliding window's slot
+  recycles instead, below). With ``speculate_k`` > 0 and a
   greedy slot live, a step is instead one ``paged_verify_step`` over
   [last token, k prompt-lookup drafts]: greedy slots commit the matched
   drafts plus the corrected token, sampled slots ride along at one token,
   and rejected rows roll back by dropping the table's pages past the
   committed length.
+- **Sliding window**: a model whose every layer attends a window of W
+  positions (Mistral) keeps its slots' pages in a ring run: the prompt's
+  pages stay a linear run, and past ``W // T + 2`` table entries a slot's
+  entry j reuses the physical page of entry j - (W // T + 2), whose
+  positions lie wholly behind the window by then (the paged kernels never
+  read such entries). A page only the slot holds is reused in place; one
+  the prefix trie shares is swapped for a private page (allocate on
+  write), and the trie's copy stays cached. So a slot whose prompt fits in
+  the window holds at most W // T + 2 pages however long it decodes; the
+  step records count ``ring_recycled``. Such an engine decodes one token
+  a step: speculative rollback cannot untangle aliased table entries.
 - **Chunk interleave**: with ``serving_chunk_tokens`` set, the prefill
   thread waits for one decode step between a prompt's chunks whenever a
   slot is decoding (``ChunkArbiter``).
@@ -167,6 +179,15 @@ class ServingEngine:
             raise ValueError(f"cache_len {sc.cache_len} exceeds the model's "
                              f"max_seq_len {cfg.max_seq_len}")
         slot_pages = -(-sc.cache_len // t)
+        # a uniform sliding window's ring run (the JAX engine's _window and
+        # _win_pages): table entry j >= _win_pages recycles entry
+        # j - _win_pages; the +2 covers the window's edge inside a page and
+        # the entry being written
+        self._window = cfg.sliding_window
+        self._win_pages = (cfg.sliding_window // t + 2
+                           if cfg.sliding_window is not None else 0)
+        # pages recycled since the last step record (engine thread only)
+        self._ring_recycled = 0
         if sc.kv_pool_pages < 0 or sc.max_queue_depth < 0:
             raise ValueError("kv_pool_pages (0 = auto) and max_queue_depth "
                              "(0 = unbounded) must be >= 0")
@@ -230,10 +251,11 @@ class ServingEngine:
             if sc.flight_recorder else None)
         self._paged_step = self.watchdog.wrap(
             "paged_step", StepGraph(self.model, 1, sc.slots, slot_pages))
+        # a windowed engine decodes one token a step: no verify graph
         self._paged_verify = self.watchdog.wrap(
             "paged_verify", StepGraph(self.model, sc.speculate_k + 1,
                                       sc.slots, slot_pages)
-            if sc.speculate_k > 0 else None)
+            if sc.speculate_k > 0 and self._window is None else None)
         # per-slot page tables, host side; entries past a slot's run stay
         # 0, a valid page id the kernel never reads (it stops at the run)
         self._page_tables_np = np.zeros((sc.slots, slot_pages), np.int32)
@@ -714,6 +736,7 @@ class ServingEngine:
                 "paged_tp_shards": self.model.tp,
                 "kv_arena_shards": self._arena_shards,
                 "speculate_k": sc.speculate_k,
+                "sliding_window": self._window,
                 "serving_chunk_tokens": self._chunk_tokens,
                 "multi_lora": self.multi_lora_enabled,
                 "lora_rank": sc.lora_rank if self._adapters else 0,
@@ -1097,6 +1120,7 @@ class ServingEngine:
                 _fail_future(req.future, exc)
             slot.pages = []
             slot.kv_len = 0
+            slot.table_len = 0
         drained_fanout = 0
         for q in (self._queue, self._ready):
             while True:
@@ -1188,6 +1212,7 @@ class ServingEngine:
         row = self._page_tables_np[slot_id]
         row[:] = 0
         row[:len(slot.pages)] = slot.pages
+        slot.table_len = len(slot.pages)
         return True
 
     def _admit_into_slot(self, slot_id: int, slot: _Slot, req: Request,
@@ -1237,19 +1262,37 @@ class ServingEngine:
 
     def _grow_slot_table(self, slot_id: int, slot: _Slot, need: int) -> bool:
         """Extend the slot's table to cover positions [0, kv_len + need)
-        with PRIVATE pages (shared prefix pages are never written). On pool
+        with PRIVATE pages (shared prefix pages are never written). Under a
+        sliding window, entry j >= _win_pages recycles the page of entry
+        j - _win_pages (the JAX engine's ``_grow_slot_table``): in place
+        when only this slot holds it, else the slot swaps its reference
+        for a fresh private page and the shared copy stays cached. On pool
         exhaustion this request fails and every other slot keeps going."""
         t = self.sc.kv_page_tokens
         row = self._page_tables_np[slot_id]
         store = self._kv_store
-        while len(slot.pages) * t < slot.kv_len + need:
+        while slot.table_len * t < slot.kv_len + need:
+            j = slot.table_len
             with self._prefix_lock:
                 try:
-                    page = store.alloc_run(1)[0]
+                    if self._window is not None and j >= self._win_pages:
+                        old = int(row[j - self._win_pages])
+                        if store.pool.refcount(old) == 1:
+                            page = old
+                        else:
+                            page = store.alloc_run(1)[0]
+                            store.pool.unref(old)
+                            slot.pages.remove(old)
+                            slot.pages.append(page)
+                        self._ring_recycled += 1
+                    else:
+                        page = store.alloc_run(1)[0]
+                        slot.pages.append(page)
                 except PoolExhausted as exc:
                     store.release(slot.pages)
                     slot.pages = []
                     slot.kv_len = 0
+                    slot.table_len = 0
                     row[:] = 0
                     self._slot_adapter[slot_id] = 0
                     req, slot.request = slot.request, None
@@ -1257,15 +1300,17 @@ class ServingEngine:
                         f"KV pool exhausted mid-decode for {req.rid}: "
                         f"{exc}"))
                     return False
-            row[len(slot.pages)] = page
-            slot.pages.append(page)
+            row[j] = page
+            slot.table_len = j + 1
         return True
 
     def _decode_once_paged(self):
         """One decode step: slot-table growth, one replay of the decode
         graph (the recorder's schedule and kernel phases), then
-        ``_commit_decode`` (sample and commit)."""
-        if self.sc.speculate_k > 0 and self._decode_once_speculative_paged():
+        ``_commit_decode`` (sample and commit). A windowed engine never
+        verifies drafts (no verify graph is built)."""
+        if (self._paged_verify is not None
+                and self._decode_once_speculative_paged()):
             return
         rec = self.recorder
         if rec is not None:
@@ -1444,6 +1489,7 @@ class ServingEngine:
                 # all private (shared prefix pages lie below kv_len)
                 dropped = slot.pages[keep:]
                 del slot.pages[keep:]
+                slot.table_len = keep
                 self._page_tables_np[i, keep:] = 0
                 with self._prefix_lock:
                     self._kv_store.release(dropped)
@@ -1506,9 +1552,12 @@ class ServingEngine:
                          arena=self._arena_step_stats())
 
     def _arena_step_stats(self) -> dict:
-        """O(1) arena occupancy for a step record."""
+        """O(1) arena occupancy for a step record, and the window-ring
+        pages recycled since the last record."""
         pool = self._kv_store.pool
-        return {"pages_total": pool.n_pages, "pages_free": pool.free_count}
+        recycled, self._ring_recycled = self._ring_recycled, 0
+        return {"pages_total": pool.n_pages, "pages_free": pool.free_count,
+                "ring_recycled": recycled}
 
     def _maybe_penalize(self, logits: torch.Tensor, reqs) -> torch.Tensor:
         if self._tok_counts is not None and any(_penalized(r) for r in reqs):
@@ -1573,6 +1622,7 @@ class ServingEngine:
             self._kv_store.release(slot.pages)
         slot.pages = []
         slot.kv_len = 0
+        slot.table_len = 0
         self._page_tables_np[slot_id][:] = 0
         self._slot_adapter[slot_id] = 0
         now = time.perf_counter()

@@ -138,6 +138,9 @@ class _Slot:
     # private); kv_len is the committed token count = next write position
     pages: list[int] = dataclasses.field(default_factory=list)
     kv_len: int = 0
+    # entries of the page-table row in use: len(pages), until a windowed
+    # slot recycles (its row then names some of its pages twice)
+    table_len: int = 0
     # prompt-lookup drafting: bigram -> latest start position over
     # prompt + generated, indexed lazily in _propose (amortized O(1) a
     # token where a rescan would be O(context) a step)

@@ -28,6 +28,13 @@ shapes only, which is what lets one graph serve every length. An adapter
 registered by writing into the stacks in place, like a new slot's adapter
 id, is data the next replay reads: no capture.
 
+A replay launches the paged kernel once a layer and ``rms_norm`` 2L + 1
+times (each layer's two norms and the final one), and 4L + 1 with a q/k
+norm: 32 and 65 at llama3-8b and mistral-7b, 28 and 57 at gemma-7b and
+qwen2-7b, 36 and 145 at qwen3-8b. A zero-centered norm's (1 + w), a
+bias's add and a windowed model's band are plain ops or kernel arguments
+inside the same capture.
+
 On the CPU the same staged buffers feed the eager step: the dispatch is on
 the model's device, as in the kernel wrappers, and not a fallback. On a
 card nothing falls back: a failed capture or replay raises.

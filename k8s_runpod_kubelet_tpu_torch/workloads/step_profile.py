@@ -11,6 +11,8 @@ Run on a machine with one NVIDIA card:
         --model mla-8b [--kv-int8]
     python -m k8s_runpod_kubelet_tpu_torch.workloads.step_profile \
         --model mixtral-8x7b --int4
+    python -m k8s_runpod_kubelet_tpu_torch.workloads.step_profile \
+        --model gemma-7b | mistral-7b | qwen2-7b | qwen3-8b [--int4] [--kv-int8]
 
 With ``--seq N`` only training is profiled, at the same 16,384 tokens a
 step in rows of N x 2048 positions (``--seq 4``: batch 2 x 8192): the
@@ -67,10 +69,14 @@ CLI's way), so a model whose bf16 tree does not fit the card
 (mixtral-8x7b, 93 GB) profiles too. ``--model mla-8b`` profiles the
 serving steps over the latent arena (int8 latents with ``--kv-int8``) and,
 without ``--kv-int8``, the training step in MLA's direct form (the flash
-kernels at head_dim + rope_dim = 192; ``--seq N`` its ring too); an MoE
-model (mixtral-8x7b) has no training step in this port, and its expert
-products are their own family, ``int4 experts`` (the
-``int4_expert_matmul`` kernel).
+kernels at head_dim + rope_dim = 192; ``--seq N`` its ring too). Only
+the models in ``TRAINED`` profile a training step: an MoE model
+(mixtral-8x7b) has none in this port, and the other dense families
+(gemma-7b, mistral-7b, qwen2-7b, qwen3-8b, llama3-70b) profile their
+serving steps only (gemma-7b's 256000-entry vocabulary alone makes the
+train batch's f32 logits 16.8 GB). An MoE model's expert products are
+their own family, ``int4 experts`` (the ``int4_expert_matmul``
+kernel).
 
 Prints one JSON object (also written to ``--out`` if given): per phase
 the wall time of a step (host clock around work that ends in a
@@ -116,6 +122,9 @@ LORA_IDS = (0, 1, 2, 3, 4, 1, 2, 3)
 
 TRAIN_LAYERS = 4                          # the widths at the depth one card holds
 TRAIN_BATCH, TRAIN_SEQ = 8, 2048          # train_main's defaults
+# the models whose training the port runs (chip_smoke phases 9 and 9m);
+# the others profile their serving steps only
+TRAINED = ("llama3-8b", "llama31-8b", "mla-8b")
 
 FAMILIES = (
     ("MLA quant attention", ("paged_attention_multi_mla_quant_kernel",)),
@@ -318,7 +327,7 @@ def main(argv=None) -> int:
         timeout=60, check=True).stdout.strip().splitlines()[0]
     cfg = MODEL_CONFIGS[args.model]()
     if args.seq:
-        if args.int4 or args.kv_int8 or cfg.n_experts:
+        if args.int4 or args.kv_int8 or cfg.name not in TRAINED:
             p.error("--seq profiles the training step, which this model "
                     "or these flags do not have")
         out = {"card": card, "model": cfg.name, "torch": torch.__version__,
@@ -349,7 +358,7 @@ def main(argv=None) -> int:
             kv_int8=args.kv_int8)
     del params
     torch.cuda.empty_cache()
-    if not (args.int4 or args.kv_int8 or cfg.n_experts):
+    if not (args.int4 or args.kv_int8) and cfg.name in TRAINED:
         out["train"] = _train_profile(cfg, dev)
     return _emit(out, args.out)
 

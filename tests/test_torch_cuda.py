@@ -49,7 +49,11 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("rows,width", [(8, 4096), (1024, 4096), (3, 100)])
+# Gemma-7B's 3072 and Qwen2-7B's 3584 are not powers of two (the masked
+# block); 256 rows of 128 are Qwen3-8B's q/k norm over 8 slots x 32 heads
+@pytest.mark.parametrize("rows,width", [(8, 4096), (1024, 4096), (3, 100),
+                                        (1024, 3072), (1024, 3584),
+                                        (256, 128)])
 def test_rms_norm_kernel_matches_plain(cuda, rows, width):
     gen = torch.Generator().manual_seed(rows)
     x = (3 * torch.randn((rows, width), generator=gen)).to(cuda,
@@ -110,6 +114,20 @@ CASES = {
     "d64_softcap": (3, 5, 8, 2, 64, 16, 8, [5, 60, 128], 20.0, None),
     "d256_window": (2, 7, 8, 4, 256, 8, 8, [9, 64], None, 13),
     "group1_window_softcap": (2, 16, 4, 4, 128, 16, 6, [16, 90], 8.0, 20),
+    # the other dense families: Gemma-7B (16 heads of 256 over 16, group 1),
+    # Qwen2-7B (28 over 4, group 7), Mistral-7B's 4096-token window over
+    # contexts past it
+    "gemma_decode": (8, 1, 16, 16, 256, 16, 128,
+                     [1, 17, 300, 511, 1024, 1500, 1999, 2048], None, None),
+    "gemma_verify_k5": (8, 5, 16, 16, 256, 16, 128,
+                        [5, 41, 334, 705, 1029, 1605, 1999, 2048], None,
+                        None),
+    "qwen2_group7_decode": (8, 1, 28, 4, 128, 16, 128,
+                            [1, 17, 300, 511, 1024, 1500, 1999, 2048], None,
+                            None),
+    "mistral_window_decode": (8, 1, 32, 8, 128, 16, 320,
+                              [4200, 4311, 4452, 4580, 4699, 4777, 4901,
+                               5000], None, 4096),
 }
 
 
@@ -129,6 +147,38 @@ def test_paged_attention_multi_kernel_matches_plain(cuda, name):
     assert out.dtype == torch.bfloat16 and out.shape == q.shape
     torch.testing.assert_close(out.float(), ref.float(), atol=2e-2,
                                rtol=2e-2)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+def test_paged_kernels_skip_pages_behind_the_window(cuda, quant):
+    """Mistral's window at decode and at K = 5 over contexts past 4096:
+    rewriting every page wholly behind the oldest query's window to 3e4
+    (as a recycled table entry would hold another position's rows) leaves
+    the output bit for bit as it was; rewriting a page inside it does
+    not."""
+    t, window = 16, 4096
+    for kq, lengths in ((1, [4200, 4577, 5000]), (5, [4105, 4400, 4999])):
+        q, k, v, table, lens = _case(cuda, 3, kq, 32, 8, 128, t, 320,
+                                     lengths, seed=kq)
+        pages = [k, v]
+        if quant:
+            kp, ks, vp, vs = _int8_pages(k, v)
+            pages = [kp, vp, ks, vs]
+        fn = paged_attention_multi_quant if quant else paged_attention_multi
+
+        def run(pg):
+            return fn(q, *pg, table, lens, sliding_window=window)
+
+        ref = run(pages)
+        behind = torch.cat([table[i, :(n - kq - window + 1) // t]
+                            for i, n in enumerate(lengths)])
+        inside = table[:, (min(lengths) - kq) // t - 1]
+        for rows, same in ((behind, True), (inside, False)):
+            bad = [p.clone() for p in pages]
+            for p in bad[:2]:
+                p[rows.long()] = 3e4 if p.dtype == torch.bfloat16 else 127
+            out = run(bad)
+            assert torch.equal(out, ref) == same, (kq, same)
 
 
 def test_paged_attention_multi_kernel_rejects_what_it_does_not_take(cuda):
@@ -178,6 +228,9 @@ FLASH_CASES = {
     # MLA's direct form: D = 128 + 64, one kv head a q head
     "d192_mla": (2, 4, 4, 133, 133, 192, True, None, None),
     "d192_noncausal": (1, 2, 2, 70, 70, 192, False, None, None),
+    # Gemma-7B's dense-route prefill head: 16 heads of 256, group 1
+    "gemma_serving_d256_group1": (1, 16, 16, 1024, 1024, 256, True, None,
+                                  None),
 }
 
 
@@ -1678,3 +1731,101 @@ def test_dense_route_first_logits_match_eager_paged_prefill(cuda):
         eng.stop()
     assert graphs["paged_step"]["compiles"] == 1
     assert graphs["paged_step"]["recompiles"] == 0
+
+
+# -- the other dense families on the card ---------------------------------------------
+
+FAMILY_CFGS = {
+    "gemma": dict(n_heads=2, n_kv_heads=2, head_dim=256, tie_embeddings=True,
+                  mlp_activation="gelu_tanh", embed_scale=True,
+                  norm_zero_centered=True),
+    "window": dict(n_heads=4, n_kv_heads=2, head_dim=64, sliding_window=40),
+    "qkv_bias": dict(n_heads=7, n_kv_heads=1, head_dim=64, qkv_bias=True),
+    "qk_norm": dict(n_heads=4, n_kv_heads=2, head_dim=128, qk_norm=True),
+}
+
+
+@pytest.mark.parametrize("name", sorted(FAMILY_CFGS))
+def test_family_steps_on_the_card_match_the_cpu(cuda, name):
+    """A tiny config of each family in bf16, its biases, q/k norms and
+    zero-centered norms drawn away from identity: a 100-token chunk and
+    three decode steps on the card (the paged kernel once a layer, the
+    norm kernel 2L + 1 times a step, 4L + 1 with the q/k norm) against the
+    same steps on the CPU, logits within 3e-2 relative L2; then the
+    decode step as a step graph replayed equals the eager step."""
+    from k8s_runpod_kubelet_tpu_torch.models import LlamaModel
+    from k8s_runpod_kubelet_tpu_torch.models.llama import tiny_llama
+    from k8s_runpod_kubelet_tpu_torch.workloads.serving.step_graph import \
+        StepGraph
+
+    cfg = tiny_llama(vocab_size=512, embed_dim=256, n_layers=2,
+                     mlp_dim=512, max_seq_len=512, **FAMILY_CFGS[name])
+    gen = torch.Generator().manual_seed(1)
+    params = init_params_cpu(cfg, gen)
+    b, t, cols = 2, 16, 16
+    table = torch.arange(b * cols, dtype=torch.int32).reshape(b, cols)
+    chunk = torch.randint(0, cfg.vocab_size, (b, 100), generator=gen,
+                          dtype=torch.int32)
+    norms = (4 if cfg.qk_norm else 2) * cfg.n_layers + 1
+
+    def run(dev, tokens=None):
+        """The chunk, then three decode steps fed ``tokens`` (default: the
+        greedy tokens of this run); returns (logits of each step, tokens
+        fed, model, params on dev, arena, lengths)."""
+        model = LlamaModel(cfg, dev)
+        p = {k: (v.to(dev) if not isinstance(v, dict) else
+                 {n: x.to(dev) for n, x in v.items()})
+             for k, v in params.items()}
+        arena = model.init_paged_arena(b * cols, t)
+        lengths = torch.zeros(b, dtype=torch.int32, device=dev)
+        logits, arena, lengths = model.paged_prefill_chunk_step(
+            p, chunk.to(dev), arena, table.to(dev), lengths,
+            torch.full((b,), 100, dtype=torch.int32, device=dev))
+        steps, fed = [logits.float().cpu()], []
+        for i in range(3):
+            tok = (steps[-1].argmax(-1).to(torch.int32) if tokens is None
+                   else tokens[i])
+            fed.append(tok)
+            logits, arena, lengths = model.paged_decode_step(
+                p, tok.to(dev), arena, table.to(dev), lengths)
+            steps.append(logits.float().cpu())
+        return steps, fed, model, p, arena, lengths
+
+    cpu_steps, fed, _, _, _, _ = run("cpu")
+    n0, r0 = paged_attention_multi.launches, rms_norm.launches
+    steps, _, model, p, arena, lengths = run(cuda, fed)
+    torch.cuda.synchronize()
+    assert paged_attention_multi.launches - n0 == 4 * cfg.n_layers
+    assert rms_norm.launches - r0 == 4 * norms
+    for ref, got in zip(cpu_steps, steps):
+        assert float((got - ref).norm() / ref.norm()) < 3e-2
+    graph = StepGraph(model, 1, b, cols)
+    graph.capture(p, arena)
+    assert graph.launches_per_replay["rms_norm"] == norms
+    host = (steps[-1].argmax(-1).to(torch.int32).numpy(),
+            lengths.cpu().numpy(), table.numpy(), [True] * b)
+    copy = {k: v.clone() for k, v in arena.items()}
+    got = graph.run(p, arena, *host).clone()
+    want, _, _ = model.paged_decode_step(
+        p, torch.from_numpy(host[0]).to(cuda), copy, table.to(cuda), lengths)
+    assert torch.equal(got, want)
+
+
+def init_params_cpu(cfg, gen):
+    """bf16 params of ``cfg`` on the CPU with their branch leaves drawn
+    away from identity: biases N(0, 0.5^2), q/k norms U(0.5, 1.5),
+    zero-centered norms N(0, 0.3^2)."""
+    from k8s_runpod_kubelet_tpu_torch.models import init_params
+
+    params = init_params(cfg, gen, "cpu")
+    lp = params["layers"]
+    for name in ("wq_b", "wk_b", "wv_b"):
+        if name in lp:
+            lp[name].copy_(0.5 * torch.randn(lp[name].shape, generator=gen))
+    for name in ("q_norm", "k_norm"):
+        if name in lp:
+            lp[name].uniform_(0.5, 1.5, generator=gen)
+    if cfg.norm_zero_centered:
+        for v in (params["final_norm"], lp["attn_norm"], lp["mlp_norm"]):
+            v.copy_(0.3 * torch.randn(v.shape, generator=gen))
+    return params

@@ -220,20 +220,24 @@ def test_configs_match_the_jax_package():
                          (MODEL_CONFIGS["mixtral-8x7b"](),
                           jllama.mixtral_8x7b())):
         assert config_from_jax(theirs, torch.bfloat16) == ours
-    assert set(MODEL_CONFIGS) == {"llama3-8b", "llama31-8b", "mla-8b",
-                                  "mixtral-8x7b", "tiny", "tiny-mla",
-                                  "tiny-moe"}
+    assert set(MODEL_CONFIGS) == {"llama3-8b", "llama3-70b", "llama31-8b",
+                                  "gemma-7b", "mistral-7b", "qwen2-7b",
+                                  "qwen3-8b", "mla-8b", "mixtral-8x7b",
+                                  "tiny", "tiny-mla", "tiny-moe"}
     assert tiny_llama().embed_dim == jllama.tiny_llama().embed_dim
 
 
 # MLA itself is served now (tests/test_torch_mla.py); an MLA model over a
 # MoE body, as every DeepSeek checkpoint has, still is not. Mixtral is
 # served (tests/test_torch_moe.py); with DeepSeek-MoE's shared experts it
-# is not
+# is not. Mistral-7B and Qwen2-7B are served (tests/test_torch_families.py);
+# Mistral under Gemma 2's window pattern and Qwen2 with a soft cap are not
 @pytest.mark.parametrize("jcfg", [
-    jllama.mistral_7b(), jllama.gemma2_9b(),
+    dataclasses.replace(jllama.mistral_7b(), sliding_window_pattern=2),
+    jllama.gemma2_9b(),
     dataclasses.replace(jllama.mixtral_8x7b(), n_shared_experts=2),
-    jllama.tiny_mla(n_experts=4, n_experts_per_tok=2), jllama.qwen2_7b()],
+    jllama.tiny_mla(n_experts=4, n_experts_per_tok=2),
+    dataclasses.replace(jllama.qwen2_7b(), attn_logit_softcap=50.0)],
     ids=lambda c: c.name)
 def test_configs_with_branches_the_port_lacks_are_refused(jcfg):
     with pytest.raises(ValueError, match="does not serve"):
