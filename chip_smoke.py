@@ -11,7 +11,9 @@ width and depth, int4 weights drawn and quantized a layer at a time)
 through its sparse-MoE layers, serves llama3-8b with per-request LoRA
 adapters (bf16, then int4 weights over an int8 arena), serves Gemma-7B,
 Qwen2-7B, Qwen3-8B and Mistral-7B (past its 4096-token window) at full
-width and depth and llama3-70b with int4 weights over an int8 arena, then
+width and depth and llama3-70b with int4 weights over an int8 arena,
+serves Gemma-2-9B and Gemma-3-12B (past their windows) and llama3-8b with
+the prefix cache off through the contiguous decode loop, then
 trains Llama-3-8B widths at 4 layers, mla-8b widths at 4 layers (flash at
 D = 192), and Llama-3-8B widths as ring attention over 4 sequence shards
 in one process.
@@ -129,10 +131,10 @@ Step graphs (phases 4, 7s, 7b, 7c, 7d). Each engine captures its decode
    eager ``paged_verify_step`` on a copy of the arena, the second with new
    tokens, lengths + K and a page only its table names: logits max abs
    difference (expected 0: the same kernels on the same inputs; else held
-   to the engine's limit) and every arena section; (g2) one replay traced
-   by torch.profiler, the paged-attention, ``rms_norm`` and
-   ``int4_matmul`` kernels counted by name equal to the launches the
-   capture recorded; (g3) the step wall eager (the five tensors built on
+   to the engine's limit) and every arena section; (g2) the kernel nodes
+   of the captured graph (what each replay launches, from the graph's own
+   description), the paged-attention, ``rms_norm`` and ``int4_matmul``
+   kernels counted by name equal to the launches the capture recorded; (g3) the step wall eager (the five tensors built on
    the host, as the engine did before) against graph, in turns; (g4)
    allocated, max allocated and reserved device memory before and after
    the capture;
@@ -333,6 +335,34 @@ Step graphs (phases 4, 7s, 7b, 7c, 7d). Each engine captures its decode
    phase 3 holds rows 8 and 9 at these models' heads and window, row 12
    at their widths, row 1 at Gemma's serving shape and row 13 at
    llama3-70b's widths;
+7g. the contiguous decode loop (``interleave_engine_run``): llama3-8b
+   with ``--prefix-cache off`` on phase 4's tree (a linear cache), right
+   after phase 4; after 7f, gemma2-9b (cache_len 8192, a mixed cache of
+   5120-slot rings and full-length global sections) and gemma3-12b
+   (cache_len 4096, rings of 2048) in bf16 and ``--int4 --kv-int8``, one
+   at a time at full width and depth, their norms, sandwich norms and
+   q/k norm drawn away from identity (gemma2-9b's final norm drawn 24
+   higher, so that its logits reach the soft cap of 30), each through
+   the engine the serve CLI builds with 1024-token chunks: weight, cache
+   and peak bytes; phase 4's burst behind a registered 96-token prefix
+   (the dense prefix store: both prompts that start with it hit), with
+   exact launches a decode step or prefill call (``rms_norm`` 2L + 1,
+   4L + 1 with sandwich norms, 6L + 1 with the q/k norm too; under int4
+   ``int4_matmul`` 7L; no paged kernel; ``flash_fwd`` L a prefill head);
+   (g1)-(g5) on the decode graph; the decode replay's and a 1024-token
+   chunk's time; the last-token logits of a burst prompt against the
+   plain f32 forward with every branch (``interleave_logits``: per-layer
+   windows, both RoPE tables, both soft caps, sandwich norms) within 0.1
+   (0.15 under int4/int8); and the Gemma engines past their window (a
+   5600-token prompt with 300 greedy tokens, a 3000-token prompt with
+   200) and llama3-8b's linear cache (a 1500-token prompt with 100), the
+   final decode step's logits held likewise; each control must miss:
+   soft caps dropped, sandwich norms dropped, the global window on local
+   layers, the global RoPE table on local layers, the middle layer
+   skipped, and a ring that ignores ``abs_pos``; phase 3 holds row 1 at
+   Gemma 2's and 3's prefill heads (soft cap 50, windows 4096 and 1024),
+   rows 8 and 9 at Gemma 2's heads with the soft cap, row 12 at Gemma 3's
+   width and q/k rows, and row 13 at Gemma 3's widths;
 8. flash kernels vs plain on the card: ``flash_fwd``, ``flash_dq`` and
    ``flash_dkv`` at the training shape (B 8, Hq 32, Hkv 8, S 2048, D 128,
    causal), a ragged S=1000, D=64, D=256, GQA group 1, a window, a soft
@@ -623,6 +653,43 @@ FAMILY_MODELS = ("gemma-7b", "qwen2-7b", "qwen3-8b", "mistral-7b")
 FAMILY_INT4 = ("gemma-7b", "qwen2-7b")
 CHUNK_TOKENS = 1024
 WINDOW_PROMPT, WINDOW_DECODE = 4600, 300
+# phase 3: the paged kernels at Gemma 2's heads (16 over 8 of 256) with its
+# score soft cap of 50, standing for a pattern-1 config that carries a cap
+# (a Gemma 2 or 3 interleave serves from the contiguous loop, whose
+# attention is plain)
+GEMMA2_HEADS = {"hq": 16, "hkv": 8, "d": 256, "window": None, "cols": 128,
+                "soft_cap": 50.0}
+# phase 7g: Gemma 2 and 3 on the contiguous loop, each through the engine
+# the serve CLI builds with 1024-token chunks (rings of window + 1024):
+# gemma2-9b at cache_len 8192 (ring 5120) with a prompt past its window,
+# gemma3-12b at 4096 (ring 2048) in bf16 and --int4 --kv-int8, and
+# llama3-8b with --prefix-cache off on a linear cache
+INTERLEAVE_CHUNK = 1024
+# random weights give logits of std ~1.2 (0.02 sqrt(E) through a unit final
+# norm), where a final soft cap of 30 is the identity to 1e-3 and its
+# control could not fail; gemma2-9b's final norm is drawn 24 higher, which
+# puts the logits' std near the cap. (The score cap of 50 stays near the
+# identity on random weights, scores of std ~1.4: it is held by the CPU
+# parity tests and phase 3's kernel cases, and its control here rides
+# with the final cap's.)
+SOFTCAP_FINAL_NORM = 24.0
+INTERLEAVE_RUNS = (
+    # model, cache_len, quantized, long prompt, its greedy tokens
+    ("gemma2-9b", 8192, False, 5600, 300),
+    ("gemma3-12b", 4096, False, 3000, 200),
+    ("gemma3-12b", 4096, True, 3000, 200))
+# phase 7g (d): llama3-8b --prefix-cache off's long prompt and its greedy
+# tokens, the linear decode step's logits at 1600 positions against the
+# plain forward
+PREFIX_OFF_LONG = (1500, 100)
+# --qk-witness: the low ends of gemma3-12b's applied q/k norm draws
+QK_WITNESS_LOWS = (0.5, 1.0, 1.5)
+# phase 3: int4_matmul at gemma3-12b's widths (E 3840, 16/8 heads of 256,
+# MLP 15360), which phase 7g's --int4 engine runs
+INT4_GEMMA3_SHAPES = [(3840, 4096, "gemma3 wq"), (3840, 2048, "gemma3 wk, wv"),
+                      (4096, 3840, "gemma3 wo"),
+                      (3840, 15360, "gemma3 w_gate, w_up"),
+                      (15360, 3840, "gemma3 w_down")]
 # phase 3: int4_matmul at llama3-70b's widths (E 8192, MLP 28672)
 INT4_70B_SHAPES = [(8192, 28672, "70b w_gate, w_up"),
                    (28672, 8192, "70b w_down"),
@@ -915,7 +982,7 @@ def bf16_p_output(torch, s, v):
 
 
 def attention_controls(torch, qs, kc, vc, mask, scale, t, ref,
-                       lost_page=1) -> dict:
+                       lost_page=1, cap=None) -> dict:
     """The tolerance check applied to three broken variants of the same
     attention: p.v accumulated page by page in bf16, P rounded to bf16
     before P.V (the rounding the kernels' split of P into bf16 hi and lo
@@ -927,6 +994,8 @@ def attention_controls(torch, qs, kc, vc, mask, scale, t, ref,
     b, h, kq, s_len = mask.shape[0], qs.shape[1], qs.shape[2], kc.shape[2]
     cols, d = s_len // t, qs.shape[3]
     s = (qs.float() @ kc.float().transpose(-1, -2)) * scale
+    if cap is not None:
+        s = torch.tanh(s / cap) * cap
     o_bf16_p = bf16_p_output(torch, s.masked_fill(~mask, -math.inf), vc) \
         .bfloat16().transpose(1, 2)
     p = torch.softmax(s.masked_fill(~mask, -math.inf), dim=-1)
@@ -978,7 +1047,7 @@ def attention_case(torch, F, dev, flush, kind, name, b, kq, lengths,
     plain_name, single, quant = PAGED_KINDS[kind]
     plain_fn = getattr(attention, plain_name)
     heads = heads or LLAMA_HEADS
-    window = heads["window"]
+    window, cap = heads["window"], heads.get("soft_cap")
     q, k, v, table, lens, live = attention_inputs(torch, dev, b, kq, lengths,
                                                   heads=heads)
     hq, d = q.shape[2], q.shape[3]
@@ -995,11 +1064,11 @@ def attention_case(torch, F, dev, flush, kind, name, b, kq, lengths,
 
     def kernel():
         return wrapper(qa, *pages, table, lens, sm_scale=scale,
-                       sliding_window=window)
+                       sliding_window=window, logit_soft_cap=cap)
 
     def plain(*pg):
         return plain_fn(qa, *(pg or pages), table, lens, sm_scale=scale,
-                        sliding_window=window)
+                        sliding_window=window, logit_soft_cap=cap)
 
     before = wrapper.launches
     out = kernel()
@@ -1017,7 +1086,7 @@ def attention_case(torch, F, dev, flush, kind, name, b, kq, lengths,
     lost_page = (1 if window is None
                  else (min(lengths) - kq) // t - 1)
     controls = attention_controls(torch, qs, kc, vc, mask, scale, t, ref4,
-                                  lost_page)
+                                  lost_page, cap)
     if quant:
         ones = torch.ones_like(ks)
         err_s, share_s = tolerance_check(plain(kp, vp, ones, ones), ref)
@@ -1042,7 +1111,10 @@ def attention_case(torch, F, dev, flush, kind, name, b, kq, lengths,
 
     ms = time_ms(torch, kernel, 50, flush)
     plain_ms = time_ms(torch, plain, 10, flush)
-    library_ms = time_ms(torch, library, 20, flush)
+    # SDPA has no soft cap: with one it computes another function, timed
+    # as a yardstick only
+    yardstick_ms = time_ms(torch, library, 20, flush)
+    library_ms = None if cap is not None else yardstick_ms
     page_bytes = t * hkv * d * pages[0].element_size() \
         + (t * hkv * 4 if quant else 0)
     nbytes = (2 * sum(live) * page_bytes + 2 * q.numel() * 2
@@ -1052,8 +1124,8 @@ def attention_case(torch, F, dev, flush, kind, name, b, kq, lengths,
     ops = visible * hq * 4 * d          # q.k and p.v, 2 flops a product
     bound_ms, bound_by = bound(nbytes, ops, BF16_TENSOR_FLOPS)
     rec = {"case": name, "B": b, "K": kq, "lengths": lengths,
-           "Hq": hq, "Hkv": hkv, "D": d, "window": window,
-           "max_abs_err": err, "tolerance": TOLERANCE,
+           "Hq": hq, "Hkv": hkv, "D": d, "window": window, "soft_cap": cap,
+           "yardstick_ms": yardstick_ms, "max_abs_err": err, "tolerance": TOLERANCE,
            "tolerance_share": share, "controls": controls, "ms": ms,
            "plain_ms": plain_ms, "library_ms": library_ms,
            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
@@ -1062,8 +1134,10 @@ def attention_case(torch, F, dev, flush, kind, name, b, kq, lengths,
                     for c, v in controls.items())
     log(f"  {kind} {name}: max_abs_err {err:.3e} ({share:.2f} of "
         f"{TOLERANCE}; controls: {ctl}) kernel {ms:.4f} ms, bound "
-        f"{bound_ms:.4f} ms ({bound_by}), plain {plain_ms:.4f} ms, library "
-        f"(SDPA) {library_ms:.4f} ms")
+        f"{bound_ms:.4f} ms ({bound_by}), plain {plain_ms:.4f} ms, "
+        + ("library (SDPA) " if cap is None else
+           "yardstick (SDPA without the soft cap) ")
+        + f"{yardstick_ms:.4f} ms")
     return rec
 
 
@@ -1750,6 +1824,15 @@ FLASH_CASES = [
     # Gemma-7B's dense-route prefill head: 16 heads of 256, GQA group 1
     ("Gemma serving B=1 S=1024 D=256 group 1", 1, 16, 16, 1024, 256, True,
      None, None),
+    # Gemma 2's prefill heads (16 over 8 of 256, soft cap 50): a global
+    # layer's, and a local layer's past its 4096-token window; Gemma 3's
+    # local layer under its 1024-token window (phase 7g)
+    ("Gemma 2 global B=1 S=1024 D=256 soft cap 50", 1, 16, 8, 1024, 256,
+     True, None, 50.0),
+    ("Gemma 2 local B=1 S=6144 D=256 window 4096 soft cap 50", 1, 16, 8,
+     6144, 256, True, 4096, 50.0),
+    ("Gemma 3 local B=1 S=2048 D=256 window 1024", 1, 16, 8, 2048, 256,
+     True, 1024, None),
 ]
 # the width of MLA's direct form (mla-8b: head_dim 128 + rope_dim 64), whose
 # cases zero v past its first MLA_V_DIM columns as the model pads it
@@ -2233,9 +2316,11 @@ def train_phase(torch, dev, card: str, cfg=None) -> dict:
             "grad_check": grad_check, "step1_norm_rel_err": step1_rel}
 
 
-def plain_attention_blocked(torch, q, k, v, scale, block, window=None):
+def plain_attention_blocked(torch, q, k, v, scale, block, window=None,
+                            cap=None):
     """Causal attention in f32 (under ``window``, each query sees the last
-    ``window`` positions), a block of query rows at a time against the
+    ``window`` positions; with ``cap`` the scores pass cap * tanh(s / cap)
+    before the mask), a block of query rows at a time against the
     keys up to the block's last position, each with an exact softmax:
     q (B, Hq, S, D), k/v (B, Hkv, S, D). No kernels, no online softmax, no
     ring; the blocks only bound the scores' memory."""
@@ -2246,6 +2331,8 @@ def plain_attention_blocked(torch, q, k, v, scale, block, window=None):
         i1 = min(s, i0 + block)
         qb = q[:, :, i0:i1].reshape(b, hkv, hq // hkv, i1 - i0, d) * scale
         sc = torch.einsum("bhgqd,bhkd->bhgqk", qb, k[:, :, :i1])
+        if cap is not None:
+            sc = torch.tanh(sc / cap) * cap
         qpos = torch.arange(i0, i1, device=q.device)[:, None]
         kpos = torch.arange(i1, device=q.device)[None, :]
         keep = qpos >= kpos
@@ -3250,9 +3337,9 @@ def graph_checks(torch, engine, card: str, limit: float, what: str) -> dict:
     engine's own pool and filled with seeded random rows: (g1) two replays
     against the eager ``paged_verify_step`` on a copy of the arena (the
     second step with new tokens, lengths + K and a page that only its
-    table names): logits and every arena section; (g2) one more replay
-    traced by torch.profiler, kernels by name against the launches the
-    capture recorded; (g3) the step wall in turns, eager (five tensors
+    table names): logits and every arena section; (g2) the graph's kernel
+    nodes by name (``StepGraph.kernels_in_graph``) against the launches
+    the capture recorded; (g3) the step wall in turns, eager (five tensors
     built from the host's values, as the engine did before its graphs),
     graph, graph, eager; (g4) device memory around the capture. The
     logits are expected to agree exactly (the same kernels on the same
@@ -3261,9 +3348,6 @@ def graph_checks(torch, engine, card: str, limit: float, what: str) -> dict:
     runs every step with its stacks and the slots' ids mixed: slot i
     decodes with adapter i mod (max_adapters + 1), the base among them."""
     import numpy as np
-
-    from k8s_runpod_kubelet_tpu_torch.workloads.step_profile import \
-        kernel_counts
 
     out = {"g5": graphs_used_check(engine, what)}
     store, model, params = engine._kv_store, engine.model, engine.params
@@ -3359,13 +3443,11 @@ def graph_checks(torch, engine, card: str, limit: float, what: str) -> dict:
                                        f"the eager step: {rows[-1]}")
             del copy
             h = host(1)
-            counts = kernel_counts(lambda: g.run(params, arena, *h,
-                                                 **ad_host))
-            want = {k: g.launches_per_replay[k] for k in counts} \
-                if counts != "not measured" else None
+            counts = g.kernels_in_graph()
+            want = {k: g.launches_per_replay[k] for k in counts}
             if counts != want:
-                raise RuntimeError(f"{what}: one replay of {tracked.name} "
-                                   f"ran {counts}, the capture recorded "
+                raise RuntimeError(f"{what}: the graph {tracked.name} "
+                                   f"holds {counts}, the capture recorded "
                                    f"{g.launches_per_replay}")
 
             def timed(fn) -> float:
@@ -3394,8 +3476,8 @@ def graph_checks(torch, engine, card: str, limit: float, what: str) -> dict:
         log(f"  (g1) {what} {tracked.name} (K={w}) replay vs eager "
             f"paged_verify_step{mixed}, two steps: logits max abs "
             f"{[r['logits_max_abs_diff'] for r in rows]}, arena sections "
-            f"equal {[r['exact'] for r in rows]}; (g2) one replay, kernels "
-            f"by name {counts}")
+            f"equal {[r['exact'] for r in rows]}; (g2) kernel nodes a "
+            f"replay launches, by name {counts}")
         log(f"  (g3) [{card}] step wall eager / graph / graph / eager: "
             + " / ".join(f"{x:.2f}" for x in turns) + " ms; (g4) capture: "
             f"allocated {mem['allocated_before'] / 2**30:.3f} -> "
@@ -5191,11 +5273,15 @@ def lora_profile_phase(torch, dev, card: str, cfg, params) -> dict:
 # -- phase 7f: the other dense families (Gemma-7B, Mistral-7B, Qwen2-7B,
 # -- Qwen3-8B) and llama3-70b ---------------------------------------------------------
 
-def draw_family_branches(torch, cfg, params, seed: int) -> None:
+def draw_family_branches(torch, cfg, params, seed: int,
+                         qk_low: float = 0.5) -> None:
     """In place, the leaves the JAX init leaves at identity drawn away from
     it, so a port that ignored a branch misses by far: q/k/v biases N(0,
     0.5^2) (v itself is N(0, ~1.2^2) at these widths), q/k norm weights
-    U(0.5, 1.5), zero-centered norm weights N(0, 0.3^2). (A wider q/k
+    applied at U(qk_low, qk_low + 1), by default U(0.5, 1.5) (drawn at
+    U(-0.5, 0.5) when zero-centered; the same uniform numbers for every
+    ``qk_low``), zero-centered norm weights N(0, 0.3^2), the sandwich norms
+    among them. (A wider q/k
     norm draw sharpens attention until bf16 roundings dominate: the
     qwen3-8b engine read 0.056 / 0.053 / 0.056 / 0.129 / 0.404 off the f32
     forward at identity, U(0.8, 1.25), U(0.5, 1.5), U(0.5, 2.5) and
@@ -5207,11 +5293,16 @@ def draw_family_branches(torch, cfg, params, seed: int) -> None:
         if name in lp:
             lp[name].copy_(torch.randn(lp[name].shape, generator=gen,
                                        device=dev).mul_(0.5))
+    # the applied weight (w, or 1 + w when zero-centered) in U(qk_low,
+    # qk_low + 1)
+    low = qk_low - (1.0 if cfg.norm_zero_centered else 0.0)
     for name in ("q_norm", "k_norm"):
         if name in lp:
-            lp[name].uniform_(0.5, 1.5, generator=gen)
+            lp[name].uniform_(low, low + 1, generator=gen)
     if cfg.norm_zero_centered:
-        for t in (params["final_norm"], lp["attn_norm"], lp["mlp_norm"]):
+        for t in (params["final_norm"], lp["attn_norm"], lp["mlp_norm"],
+                  *(lp[n] for n in ("attn_post_norm", "mlp_post_norm")
+                    if n in lp)):
             t.copy_(torch.randn(t.shape, generator=gen,
                                 device=dev).mul_(0.3))
 
@@ -5776,11 +5867,647 @@ def llama70b_phase(torch, dev, card: str) -> dict:
         torch.cuda.empty_cache()
 
 
+# -- phase 7g: Gemma 2 and 3 on the contiguous decode loop ---------------------------
+
+def interleave_logits(torch, cfg, params, tokens: list[int], drop=(),
+                      block: int = 1024, rounding=None) -> "torch.Tensor":
+    """Last-token logits (V,) of ``tokens`` from a plain f32 forward of the
+    same (dequantized) weights with every branch of a Gemma 2 or 3 config
+    (and a plain Llama's): the embedding times sqrt(E), zero-centered
+    norms, the q/k norm, each layer's window (``layer_windows``) and RoPE
+    table (the local base on windowed layers, unscaled), the score soft
+    cap before the mask, the sandwich norms, GeGLU, a tied head, the
+    logit soft cap. No cache, no kernels. ``drop`` names the controls:
+    "softcap" (both caps left out), "post_norms", "global_window" (the
+    global layers' full causal mask on the local layers too),
+    "global_rope" (the global table on the local layers), "layer" (the
+    middle layer skipped). With ``rounding`` (a dtype) every value a
+    model computing in that dtype stores (each product, norm, RoPE,
+    attention output, residual and the logits) is rounded to it: a plain
+    bf16 forward that shares no code with the model's steps."""
+    import torch.nn.functional as F
+
+    from k8s_runpod_kubelet_tpu_torch.ops.rmsnorm import _rms_norm_plain
+    from k8s_runpod_kubelet_tpu_torch.ops.rope import (apply_rope,
+                                                       rope_frequencies)
+
+    dev = params["tok_embed"].device
+    hd, n = cfg.head_dim_, len(tokens)
+    glob = rope_frequencies(hd, cfg.max_seq_len, cfg.rope_theta,
+                            cfg.rope_scaling, device=dev)
+    loc = (glob if cfg.rope_local_theta is None else
+           rope_frequencies(hd, cfg.max_seq_len, cfg.rope_local_theta, None,
+                            device=dev))
+    windows = cfg.layer_windows()
+    cap = None if "softcap" in drop else cfg.attn_logit_softcap
+    post = cfg.post_norms and "post_norms" not in drop
+
+    def r(t):
+        return t if rounding is None else t.to(rounding).float()
+
+    def norm(x, w):
+        w = w.float()
+        return r(_rms_norm_plain(x, w + 1 if cfg.norm_zero_centered else w,
+                                 cfg.norm_eps))
+
+    x = params["tok_embed"][torch.tensor(tokens, device=dev)].float()[None]
+    if cfg.embed_scale:
+        x = r(x * cfg.embed_dim ** 0.5)
+    for layer in range(cfg.n_layers):
+        if "layer" in drop and layer == cfg.n_layers // 2:
+            continue
+        window = windows[layer % len(windows)]
+        local = window is not None
+        if "global_window" in drop:
+            window = None
+        cos, sin = loc if local and "global_rope" not in drop else glob
+        lp = {k: layer_f32(w, layer) for k, w in params["layers"].items()}
+        h = norm(x, lp["attn_norm"])
+        q = r(h @ lp["wq"]).view(1, n, cfg.n_heads, hd)
+        k = r(h @ lp["wk"]).view(1, n, cfg.n_kv_heads, hd)
+        v = r(h @ lp["wv"]).view(1, n, cfg.n_kv_heads, hd)
+        if cfg.qk_norm:
+            q, k = norm(q, lp["q_norm"]), norm(k, lp["k_norm"])
+        q, k = r(apply_rope(q, cos, sin)), r(apply_rope(k, cos, sin))
+        o = r(plain_attention_blocked(torch, q.transpose(1, 2),
+                                      k.transpose(1, 2), v.transpose(1, 2),
+                                      cfg.sm_scale, block, window, cap))
+        o = r(o.transpose(1, 2).reshape(1, n, -1) @ lp["wo"])
+        x = r(x + (norm(o, lp["attn_post_norm"]) if post else o))
+        h = norm(x, lp["mlp_norm"])
+        gate = r(h @ lp["w_gate"])
+        gate = r(F.gelu(gate, approximate="tanh")
+                 if cfg.mlp_activation == "gelu_tanh" else F.silu(gate))
+        y = r(r(gate * r(h @ lp["w_up"])) @ lp["w_down"])
+        x = r(x + (norm(y, lp["mlp_post_norm"]) if post else y))
+        del lp, h, q, k, v, o, gate, y
+    x = norm(x[0, -1], params["final_norm"])
+    head = (params["tok_embed"].t() if cfg.tie_embeddings
+            else params["lm_head"])
+    logits = r(x @ layer_f32(head))
+    if cfg.logit_softcap and "softcap" not in drop:
+        logits = r(torch.tanh(logits / cfg.logit_softcap)
+                   * cfg.logit_softcap)
+    return logits
+
+
+def interleave_drops(cfg, n_tokens: int) -> list[str]:
+    """The controls of ``interleave_logits`` that change ``cfg``'s
+    forward over ``n_tokens`` tokens (a window bites only past its
+    length)."""
+    drops = []
+    if cfg.attn_logit_softcap or cfg.logit_softcap:
+        drops.append("softcap")
+    if cfg.post_norms:
+        drops.append("post_norms")
+    if (cfg.sliding_window is not None and cfg.sliding_window_pattern > 1
+            and n_tokens > cfg.sliding_window):
+        drops.append("global_window")
+    if cfg.rope_local_theta is not None:
+        drops.append("global_rope")
+    return drops + ["layer"]
+
+
+def interleave_check(torch, cfg, params, tokens, logits, limit, what,
+                     extra=None) -> dict:
+    """Engine logits against ``interleave_logits`` within ``limit``
+    (relative L2); every control of ``interleave_drops`` and each of
+    ``extra`` ({name: logits}, the engine path broken) must miss it."""
+    ref = interleave_logits(torch, cfg, params, tokens)
+
+    def rel(a):
+        return ((a.float() - ref).norm() / ref.norm()).item()
+
+    controls = {d: rel(interleave_logits(torch, cfg, params, tokens, (d,)))
+                for d in interleave_drops(cfg, len(tokens))}
+    controls.update({name: rel(v) for name, v in (extra or {}).items()})
+    out = {"tokens": len(tokens), "rel_l2": rel(logits),
+           "argmax_agree": bool(logits.argmax() == ref.argmax()),
+           "ref_logit_std": ref.std().item(), "limit_rel_l2": limit,
+           "controls_rel_l2": controls}
+    log(f"  independent check: {what} vs the plain f32 forward of its "
+        f"branches, last-token logits over {len(tokens)} tokens: relative "
+        f"L2 {out['rel_l2']:.4f} (limit {limit}), argmax agree "
+        f"{out['argmax_agree']}; controls "
+        + ", ".join(f"{d} {v:.4f}" for d, v in controls.items()))
+    if not out["rel_l2"] <= limit:
+        raise RuntimeError(f"{what} logits off the plain forward: {out}")
+    if not all(v > limit for v in controls.values()):
+        raise RuntimeError(f"{what}: a control passed the check: {out}")
+    return out
+
+
+def contiguous_burst(torch, engine, cfg, card: str, kernels, per_step,
+                     flash_per_head: int) -> dict:
+    """Phase 4's 8-request burst through the contiguous loop, its 96-token
+    shared prefix registered first (the dense store: both prompts that
+    start with it copy its cache), then a repeat. Launch counts are set to
+    0 just before the burst and read just after: each kernel of
+    ``per_step`` launches that many times a decode step or prefill call
+    (a head through ``prefill`` or a chunk through ``prefill_chunk_step``;
+    0: never), ``flash_fwd`` ``flash_per_head`` times a head."""
+    from k8s_runpod_kubelet_tpu_torch.ops import flash_fwd
+
+    warm, prompts, _ = burst_prompts(cfg)
+    engine.submit(warm, max_new_tokens=4).result(timeout=900)
+    engine.register_prefix(prompts[0][:96])
+
+    def snap() -> dict:
+        with engine._prefix_lock:
+            c = engine.counters
+            return {"heads": c["dense_prefill_heads"],
+                    "chunks": c["dense_prefill_chunks"],
+                    "decode_steps": c["decode_steps"],
+                    "prefix_hits": c["prefix_hits"],
+                    "replays": sum(g.fn.replays for g in engine._graphs()),
+                    **{k.__name__: k.launches for k in kernels}}
+
+    with engine._prefix_lock:
+        for k in kernels:
+            k.launches = 0
+    s0 = snap()
+    seq0 = last_seq(engine)
+    t0 = time.perf_counter()
+    futs = [engine.submit(p) for p in prompts]
+    results = [f.result(timeout=900) for f in futs]
+    wall = time.perf_counter() - t0
+    s1 = snap()
+    d = {k: s1[k] - s0[k] for k in s0}
+    launches = {k.__name__: d[k.__name__] for k in kernels}
+    calls = d["heads"] + d["chunks"] + d["decode_steps"]
+    if d["replays"] != d["decode_steps"]:
+        raise RuntimeError(f"{d['replays']} graph replays for "
+                           f"{d['decode_steps']} decode steps")
+    want = {name: n * calls for name, n in per_step.items()}
+    want["flash_fwd"] = flash_per_head * d["heads"]
+    for name, need in want.items():
+        got = d[name]
+        if got != need or (name in per_step and per_step[name] and got < 1):
+            raise RuntimeError(
+                f"burst: {name} launched {got} times in {d['heads']} heads, "
+                f"{d['chunks']} chunks and {d['decode_steps']} decode "
+                f"steps, not {need}")
+    if len(results) != 8 or any(len(r["tokens"]) != 32 for r in results):
+        raise RuntimeError("not all 8 requests finished with 32 tokens")
+    if d["prefix_hits"] != 2:
+        raise RuntimeError(f"{d['prefix_hits']} registered-prefix hits, "
+                           "not the two prompts that start with it")
+    recorder = (recorder_stats(engine, seq0, "burst", card)
+                if engine.recorder is not None else None)
+    ttft = [r["ttft_s"] for r in results]
+    per_stream = [(len(r["tokens"]) - 1) / (r["latency_s"] - r["ttft_s"])
+                  for r in results]
+    out_tok_s = sum(len(r["tokens"]) for r in results) / wall
+    log(f"  8/8 requests ({sum(len(p) for p in prompts)} prompt tokens) in "
+        f"{wall:.2f} s; {d['heads']} prefill heads, {d['chunks']} chunks, "
+        f"{d['decode_steps']} decode steps (= replays); registered-prefix "
+        f"hits {d['prefix_hits']}; launches {launches}")
+    log(f"  [{card}] TTFT median {statistics.median(ttft) * 1e3:.1f} ms, max "
+        f"{max(ttft) * 1e3:.1f} ms; decode "
+        f"{statistics.median(per_stream):.1f} tokens/s per stream (median), "
+        f"{out_tok_s:.1f} output tokens/s over the phase")
+    rep = [engine.submit(prompts[2]).result(timeout=900)["tokens"]
+           for _ in range(2)]
+    if rep[0] != rep[1]:
+        raise RuntimeError(f"repeat differs: {rep[0]} vs {rep[1]}")
+    return {"launches": launches, "counts": d, "launches_per_step": per_step,
+            "flash_per_head": flash_per_head, "recorder": recorder,
+            "ttft_ms": [x * 1e3 for x in ttft],
+            "decode_tok_s_per_stream": per_stream,
+            "output_tok_s": out_tok_s, "wall_s": wall,
+            "prompt_lengths": [len(p) for p in prompts],
+            "repeat_same_as_first": sum(
+                a == b for a, b in zip(rep[0], results[2]["tokens"])),
+            "prompts": prompts}
+
+
+def contiguous_graph_checks(torch, engine, card: str, limit: float,
+                            what: str) -> dict:
+    """(g1)-(g5) of the contiguous loop's decode graph on an idle engine,
+    its lock held by the caller: (g5) first; then the batch cache filled
+    with seeded random rows at the burst's contexts (``GRAPH_LENGTHS``,
+    slot 3 inactive), (g1) two replays against the eager ``decode_step``
+    on a copy of the cache, logits and every section (exact, or held to
+    ``limit``); (g2) the graph's kernel nodes by name against the
+    capture's launches; (g3) the step wall eager / graph / graph / eager;
+    (g4) device memory around the capture."""
+    import numpy as np
+
+    from k8s_runpod_kubelet_tpu_torch.workloads.serving.step_graph import \
+        KERNEL_NAMES
+    from k8s_runpod_kubelet_tpu_torch.workloads.step_profile import (
+        fill_contiguous_cache)
+
+    out = {"g5": graphs_used_check(engine, what)}
+    model, params, cache = engine.model, engine.params, engine._cache
+    g, b, dev = engine._decode.fn, engine.sc.slots, engine.device
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    rng = np.random.default_rng(SEED + 5)
+    fill_contiguous_cache(cache, gen, torch.tensor(GRAPH_LENGTHS[:b],
+                                                   dtype=torch.int32))
+    active = np.ones(b, bool)
+    active[3] = False
+    act_t = torch.from_numpy(active).to(dev)
+    copy = {k: v.clone() for k, v in cache.items()}
+    rows = []
+    for step in (0, 1):
+        toks = rng.integers(0, engine.cfg.vocab_size, b).astype(np.int32)
+        got = g.run(params, cache, toks, active).clone()
+        want, _ = model.decode_step(params, torch.from_numpy(toks).to(dev),
+                                    copy, act_t, check=False)
+        torch.cuda.synchronize()
+        diff = (got - want).abs().max().item()
+        rel = ((got - want).norm() / want.norm()).item()
+        sections = {name: 0.0 if torch.equal(cache[name], copy[name]) else
+                    ((cache[name].float() - copy[name].float()).abs().max()
+                     / copy[name].float().abs().max()).item()
+                    for name in cache}
+        rows.append({"step": step, "logits_max_abs_diff": diff,
+                     "logits_rel_l2": rel, "cache_rel_max_diff": sections,
+                     "exact": diff == 0 and not any(sections.values())})
+        if not rows[-1]["exact"] and not (
+                rel <= limit and max(sections.values()) <= limit):
+            raise RuntimeError(f"{what}: decode graph off the eager step: "
+                               f"{rows[-1]}")
+    del copy
+    toks = rng.integers(0, engine.cfg.vocab_size, b).astype(np.int32)
+    want = {k: g.launches_per_replay[k] for k in KERNEL_NAMES}
+    counts = g.kernels_in_graph()
+    if counts != want:
+        raise RuntimeError(f"{what}: the decode graph holds {counts}, the "
+                           f"capture recorded {g.launches_per_replay}")
+
+    def timed(fn) -> float:
+        walls = []
+        for _ in range(GRAPH_TIMED_STEPS):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        return statistics.median(walls) * 1e3
+
+    tok_t = torch.from_numpy(toks).to(dev)
+
+    def eager():
+        model.decode_step(params, tok_t, cache, act_t, check=False)
+
+    def replay():
+        g.run(params, cache, toks, active)
+
+    turns = [timed(eager), timed(replay), timed(replay), timed(eager)]
+    out["decode"] = {"g1": rows, "g2_kernels_in_one_replay": counts,
+                              "g3_wall_ms": dict(zip(("eager", "graph", "graph_2",
+                                             "eager_2"), turns)),
+                     "g4_capture_memory": g.capture_memory,
+                     "launches_per_replay": dict(g.launches_per_replay)}
+    mem = g.capture_memory
+    log(f"  (g1) {what} decode replay vs eager decode_step, two steps (slot "
+        f"3 inactive): logits max abs {[r['logits_max_abs_diff'] for r in rows]}"
+        f", cache sections equal {[r['exact'] for r in rows]}; (g2) kernel "
+        f"nodes a replay launches, by name {counts}")
+    log(f"  (g3) [{card}] step wall eager / graph / graph / eager: "
+        + " / ".join(f"{x:.2f}" for x in turns) + " ms; (g4) capture: "
+        f"allocated {mem['allocated_before'] / 2**30:.3f} -> "
+        f"{mem['allocated_after'] / 2**30:.3f} GiB, reserved "
+        f"{mem['reserved_before'] / 2**30:.3f} -> "
+        f"{mem['reserved_after'] / 2**30:.3f} GiB")
+    final = engine.graphs_snapshot()
+    if any(x["compiles"] != 1 for x in final.values()):
+        raise RuntimeError(f"{what}: the checks recaptured: {final}")
+    log(f"  (g5) {what}: graphs {sorted(final)} captured once each, 0 "
+        f"recaptures; {out['g5']['replays']} replays = "
+        f"{out['g5']['decode_steps']} decode steps")
+    return out
+
+
+def contiguous_step_times(torch, engine) -> dict:
+    """The decode replay over the batch cache as the graph checks left it
+    (8 slots near ``GRAPH_LENGTHS``) and a ``CHUNK_TOKENS``-token
+    ``prefill_chunk_step`` on a fresh single cache of the engine's layout
+    (its index reset to 0 before each), each by ``event_ms``. The caller
+    holds the engine's lock."""
+    import numpy as np
+
+    model, params, dev = engine.model, engine.params, engine.device
+    g, b = engine._decode.fn, engine.sc.slots
+    toks = np.arange(b, dtype=np.int32)
+    decode_ms = event_ms(torch, lambda: g.run(params, engine._cache, toks,
+                                              np.ones(b, bool)))
+    single = engine._fresh_cache(1)
+    ctoks = torch.arange(CHUNK_TOKENS, device=dev,
+                         dtype=torch.int32)[None] % engine.cfg.vocab_size
+    n = torch.tensor([CHUNK_TOKENS], dtype=torch.int32, device=dev)
+
+    def chunk():
+        single["index"].zero_()
+        model.prefill_chunk_step(params, ctoks, single, n)
+
+    chunk_ms = event_ms(torch, chunk, reps=5)
+    del single
+    return {"decode_replay_event_ms": decode_ms, "chunk_event_ms": chunk_ms,
+            "chunk_tokens": CHUNK_TOKENS}
+
+
+def ring_ignoring_logits(torch, engine, ctx: list[int]):
+    """The final step of ``ctx`` rebuilt on a fresh single cache (head
+    through ``prefill``, the rest through ``prefill_chunk_step``, the
+    last token through ``decode_step``), as the engine computed it, and
+    the same step with the ring's ``abs_pos`` replaced by the slot index
+    (a ring that ignores which position each slot holds, the control).
+    Returns (logits, control logits), the control None on a linear
+    cache."""
+    model, params, dev = engine.model, engine.params, engine.device
+    single = engine._fresh_cache(1)
+    head = ctx[:INTERLEAVE_CHUNK]
+    model.prefill(params, torch.tensor([head], device=dev), single)
+    rest = ctx[len(head):-1]
+    for i in range(0, len(rest), INTERLEAVE_CHUNK):
+        part = rest[i:i + INTERLEAVE_CHUNK]
+        model.prefill_chunk_step(
+            params, torch.tensor([part], device=dev), single,
+            torch.tensor([len(part)], dtype=torch.int32, device=dev))
+    last = torch.tensor([ctx[-1]], device=dev)
+    if "abs_pos" not in single:
+        good, _ = model.decode_step(params, last, single)
+        return good[0], None
+    broken = {k: v.clone() for k, v in single.items()}
+    broken["abs_pos"].copy_(torch.arange(broken["abs_pos"].shape[1],
+                                         device=dev)[None])
+    good, _ = model.decode_step(params, last, single)
+    bad, _ = model.decode_step(params, last, broken)
+    return good[0], bad[0]
+
+
+def long_run(torch, engine, cfg, n_prompt: int, n_decode: int, limit: float,
+             what: str) -> dict:
+    """One prompt of ``n_prompt`` tokens and ``n_decode`` greedy tokens
+    through the engine, past its window and round its ring (or into a
+    linear cache): the final step's logits (the decode graph's output
+    when the last token was sampled) against ``interleave_logits`` over
+    prompt + generated tokens, with every control of ``interleave_drops``
+    and, on a ring, one that ignores ``abs_pos``
+    (``ring_ignoring_logits``) outside the limit."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 11)
+    prompt = [int(x) for x in rng.integers(0, cfg.vocab_size, n_prompt)]
+    seen: dict = {"n": 0}
+
+    def on_token(_tok):
+        i = next(i for i, s in enumerate(engine._slots)
+                 if s.request is not None)
+        seen["n"] += 1
+        logits = engine._decode.fn.logits
+        if seen["n"] > 1 and logits is not None:
+            seen["logits"] = logits[i].clone()
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = engine.submit(prompt, max_new_tokens=n_decode,
+                        on_token=on_token).result(timeout=900)
+    wall = time.perf_counter() - t0
+    serve_peak = torch.cuda.max_memory_allocated()
+    gen = res["tokens"]
+    ctx = prompt + gen[:-1]
+    ring = engine._ring_len
+    where = (f"over a ring of {ring}, window {cfg.sliding_window}" if ring
+             else f"in a linear cache of {engine.sc.cache_len}")
+    log(f"  {what}: a {n_prompt}-token prompt + {len(gen)} greedy tokens in "
+        f"{wall:.1f} s (TTFT {res['ttft_s'] * 1e3:.0f} ms); {len(ctx)} "
+        f"positions {where}")
+    with engine._prefix_lock:
+        rebuilt, ignoring = ring_ignoring_logits(torch, engine, ctx)
+        check = interleave_check(
+            torch, cfg, engine.params, ctx, seen["logits"], limit,
+            what + " final step",
+            None if ignoring is None else {"ring_ignores_abs_pos": ignoring})
+    check["rebuilt_vs_engine_rel_l2"] = (
+        (rebuilt.float() - seen["logits"].float()).norm()
+        / seen["logits"].float().norm()).item()
+    return {"prompt_tokens": n_prompt, "generated": len(gen), "wall_s": wall,
+            "ttft_ms": res["ttft_s"] * 1e3, "ring_len": ring,
+            "serve_peak_bytes": serve_peak,
+            "context_tokens": len(ctx), "check": check}
+
+
+def interleave_engine_run(torch, dev, card: str, name: str, cache_len: int,
+                          quant: bool, n_long: int, n_decode: int, params,
+                          extra=()) -> dict:
+    """One model through the engine the serve CLI builds (``--model
+    <name>``, 8 slots, ``--serving-chunk-tokens 1024``, with ``quant``
+    ``--int4 --kv-int8``, then ``extra``), which must serve from the
+    contiguous loop: weight, cache and peak bytes; the burst with exact
+    launches a step (``rms_norm`` 2, 4 or 6 a layer and once, ``int4_matmul``
+    7 a layer under int4, no paged kernel, ``flash_fwd`` once a layer a
+    prefill head); (g1)-(g5); the decode replay's and a chunk's time; the
+    burst prompt's last-token logits through the engine's own prefill on a
+    fresh cache against ``interleave_check``; and with ``n_long`` the long
+    prompt past the window or into the linear cache (``long_run``)."""
+    from k8s_runpod_kubelet_tpu_torch.models import MODEL_CONFIGS
+    from k8s_runpod_kubelet_tpu_torch.ops import (flash_fwd, int4_matmul,
+                                                  paged_attention,
+                                                  paged_attention_multi,
+                                                  paged_attention_multi_quant,
+                                                  paged_attention_quant,
+                                                  rms_norm)
+    from k8s_runpod_kubelet_tpu_torch.workloads import serve_main
+
+    cfg = MODEL_CONFIGS[name]()
+    argv = ["--model", name, "--device", dev.type, "--slots", "8",
+            "--cache-len", str(cache_len), "--max-new-tokens", "32",
+            "--serving-chunk-tokens", str(INTERLEAVE_CHUNK), *extra]
+    if quant:
+        argv += ["--int4", "--kv-int8"]
+    what = f"{name} {'int4/int8' if quant else 'bf16'} contiguous engine"
+    torch.cuda.reset_peak_memory_stats()
+    engine, _ = serve_main.build_engine(serve_main.parse_args(argv), params)
+    limit = QUANT_ENGINE_REL_L2_LIMIT if quant else ENGINE_REL_L2_LIMIT
+    try:
+        snap = engine.debug_snapshot()
+        interleave = cfg.sliding_window_pattern > 1
+        layout = "mixed" if interleave else "linear"
+        if snap["paged_decode"] or snap["cache_layout"] != layout:
+            raise RuntimeError(f"{what}: paged_decode {snap['paged_decode']}"
+                               f", cache {snap['cache_layout']}")
+        n = cfg.n_layers
+        norms = (2 + 2 * cfg.post_norms + 2 * cfg.qk_norm) * n + 1
+        per_step = {"rms_norm": norms, "paged_attention_multi": 0,
+                    "paged_attention_multi_quant": 0, "paged_attention": 0,
+                    "paged_attention_quant": 0}
+        kernels = [rms_norm, flash_fwd, paged_attention_multi,
+                   paged_attention_multi_quant, paged_attention,
+                   paged_attention_quant]
+        if quant:
+            per_step["int4_matmul"] = 7 * n + (0 if cfg.tie_embeddings
+                                               else 1)
+            kernels.append(int4_matmul)
+        weight_bytes = tensor_bytes(engine.params)
+        cache_bytes = tensor_bytes(engine._cache)
+        log(f"  {what}: {n} layers, E={cfg.embed_dim}, heads {cfg.n_heads}/"
+            f"{cfg.n_kv_heads} of {cfg.head_dim_}, windows "
+            f"{cfg.layer_windows()}; cache {snap['cache_layout']} (ring "
+            f"{snap['ring_len']}, cache_len {cache_len}) "
+            + ", ".join(f"{k} {tuple(v.shape)}"
+                        for k, v in engine._cache.items())
+            + f"; weights {weight_bytes / 1e9:.3f} GB, cache "
+            f"{cache_bytes / 1e9:.3f} GB; [{card}] "
+            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated; per "
+            f"step {per_step}")
+        torch.cuda.reset_peak_memory_stats()
+        rec = contiguous_burst(torch, engine, cfg, card, tuple(kernels),
+                               per_step, n)
+        serve_peak = torch.cuda.max_memory_allocated()
+        prompts = rec.pop("prompts")
+        with engine._prefix_lock:
+            rec["graphs"] = contiguous_graph_checks(torch, engine, card,
+                                                    limit, what)
+            rec["times"] = contiguous_step_times(torch, engine)
+            single = engine._fresh_cache(1)
+            logits, _ = engine.model.prefill(
+                engine.params, torch.tensor([prompts[2]], device=dev),
+                single)
+            del single
+            rec["reference"] = interleave_check(
+                torch, cfg, engine.params, prompts[2], logits[0], limit,
+                what)
+        if n_long:
+            rec["long"] = long_run(torch, engine, cfg, n_long, n_decode,
+                                   limit, what)
+        # serving only: the burst, and the long prompt before its checks
+        # (their plain f32 forwards are not the engine's memory)
+        serve_peak = max(serve_peak, rec.get("long", {}).get(
+            "serve_peak_bytes", 0))
+        rec.update(serve_peak_bytes=serve_peak,
+                   weight_bytes=weight_bytes, cache_bytes=cache_bytes,
+                   cache_layout=snap["cache_layout"],
+                   ring_len=snap["ring_len"], cache_len=cache_len,
+                   cache_shapes={k: list(v.shape)
+                                 for k, v in engine._cache.items()})
+        log(f"  [{card}] {what}: peak allocated while serving "
+            f"{rec['serve_peak_bytes'] / 2**30:.2f} GiB; decode replay "
+            f"{rec['times']['decode_replay_event_ms']:.3f} ms, "
+            f"{CHUNK_TOKENS}-token chunk "
+            f"{rec['times']['chunk_event_ms']:.3f} ms (between CUDA events)")
+        return rec
+    finally:
+        engine.stop()
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def interleave_phase(torch, dev, card: str) -> dict:
+    """Phase 7g: ``INTERLEAVE_RUNS``, one model at a time at full width and
+    depth, bf16 weights from the seed with their norms (the sandwich norms
+    and the q/k norm among them) drawn away from identity
+    (``draw_family_branches``); gemma3-12b's int4 engine quantizes the
+    same tree."""
+    from k8s_runpod_kubelet_tpu_torch.models import MODEL_CONFIGS, init_params
+
+    out: dict = {}
+    params, drawn = None, None
+    for i, (name, cache_len, quant, n_long, n_decode) in enumerate(
+            INTERLEAVE_RUNS):
+        if drawn != name:
+            params = None
+            gc.collect()
+            torch.cuda.empty_cache()
+            cfg = MODEL_CONFIGS[name]()
+            t0 = time.perf_counter()
+            params = init_params(cfg, torch.Generator(
+                device=dev).manual_seed(SEED + 200 + i), dev)
+            draw_family_branches(torch, cfg, params, SEED + 300 + i)
+            if cfg.logit_softcap:
+                # the final norm at (1 + w) ~ 1 + SOFTCAP_FINAL_NORM, so the
+                # tied head's logits reach the cap and the cap bites
+                params["final_norm"].add_(SOFTCAP_FINAL_NORM)
+            torch.cuda.synchronize()
+            drawn = name
+            log(f"phase 7g: {name} (bf16, branches drawn away from identity;"
+                f" drawn in {time.perf_counter() - t0:.1f} s)")
+        key = name.replace("-", "_") + ("_int4_kv_int8" if quant else "")
+        log(f"phase 7g: {key} (cache_len {cache_len}, a {n_long}-token "
+            f"prompt past the window)")
+        out[key] = interleave_engine_run(torch, dev, card, name, cache_len,
+                                         quant, n_long, n_decode, params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def qk_witness_phase(torch, dev, card: str) -> dict:
+    """``--qk-witness``: how far bf16 roundings alone move gemma3-12b as
+    its attention sharpens. The model is drawn as phase 7g draws it, its
+    q/k norm applied at U(lo, lo + 1) for each lo of ``QK_WITNESS_LOWS``
+    (0.5 is phase 7g's draw; the same uniform numbers each time, so only
+    the scale moves). For each, the last-token logits of the burst prompt
+    phase 7g checks, through three bf16 paths, against the plain f32
+    forward (``interleave_logits``): the engine's ``prefill`` (the flash
+    kernel) and ``prefill_chunk_step`` from an empty cache (the plain
+    attention of the contiguous steps) on a mixed cache of phase 7g's
+    shape, and a plain bf16 forward that shares no code with the model's
+    steps (``interleave_logits`` with ``rounding``). Where the plain bf16
+    forward misses by as much as the model's paths, the miss is rounding
+    that sharper attention amplifies, not a fault of the steps."""
+    from k8s_runpod_kubelet_tpu_torch.models import (LlamaModel,
+                                                     MODEL_CONFIGS,
+                                                     init_params)
+
+    name, cache_len, ring = "gemma3-12b", 4096, 2048
+    i = next(j for j, run in enumerate(INTERLEAVE_RUNS) if run[0] == name)
+    cfg = MODEL_CONFIGS[name]()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(
+        SEED + 200 + i), dev)
+    model = LlamaModel(cfg, dev)
+    tokens = burst_prompts(cfg)[1][2]
+    toks = torch.tensor([tokens], device=dev)
+    out = {"model": name, "tokens": len(tokens), "card": card, "lows": {}}
+    for lo in QK_WITNESS_LOWS:
+        draw_family_branches(torch, cfg, params, SEED + 300 + i, qk_low=lo)
+        ref = interleave_logits(torch, cfg, params, tokens)
+
+        def rel(a, b=ref):
+            return ((a.float() - b).norm() / b.norm()).item()
+
+        flash, _ = model.prefill(params, toks,
+                                 model.init_mixed_cache(1, cache_len, ring))
+        chunk, _ = model.prefill_chunk_step(
+            params, toks, model.init_mixed_cache(1, cache_len, ring),
+            torch.tensor([len(tokens)], dtype=torch.int32, device=dev))
+        plain = interleave_logits(torch, cfg, params, tokens,
+                                  rounding=torch.bfloat16)
+        row = {"prefill_flash": rel(flash[0]),
+               "chunk_step_plain_attention": rel(chunk[0]),
+               "plain_bf16_forward": rel(plain),
+               "layer_control": rel(interleave_logits(
+                   torch, cfg, params, tokens, ("layer",))),
+               "prefill_vs_plain_bf16": rel(flash[0], plain.float()),
+               "argmax_agree": [bool(a.argmax() == ref.argmax())
+                                for a in (flash[0], chunk[0], plain)]}
+        out["lows"][lo] = row
+        log(f"  q/k norm applied at U({lo}, {lo + 1}): relative L2 off the "
+            f"f32 forward over {len(tokens)} tokens: prefill (flash) "
+            f"{row['prefill_flash']:.4f}, chunk step (plain attention) "
+            f"{row['chunk_step_plain_attention']:.4f}, plain bf16 forward "
+            f"{row['plain_bf16_forward']:.4f}; the middle layer skipped "
+            f"{row['layer_control']:.4f}; prefill vs the plain bf16 "
+            f"forward {row['prefill_vs_plain_bf16']:.4f}; argmax agree "
+            f"{row['argmax_agree']}")
+        del flash, chunk, plain, ref
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description="chip smoke of the PyTorch "
                                 "port (see the module docstring)")
     p.add_argument("--out", default="",
                    help="also write every number to this JSON file")
+    p.add_argument("--qk-witness", action="store_true",
+                   help="run only the gemma3-12b q/k scale witness "
+                   "(qk_witness_phase), print its JSON and exit")
     args = p.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -5798,6 +6525,9 @@ def main(argv=None) -> int:
     log(f"card: {card}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    if args.qk_witness:
+        print(json.dumps(qk_witness_phase(torch, dev, card)), flush=True)
+        return 0
 
     log("phase build")
     sources = ("paged_attention_multi", "paged_attention_multi_quant",
@@ -5905,6 +6635,15 @@ def main(argv=None) -> int:
                 attn[kind].append(attention_case(
                     torch, F, dev, flush, kind, f"{tag} {name}", b, kq,
                     lengths, heads=heads))
+    log("phase 3 (7g): the paged kernels at Gemma 2's heads (16/8 of 256) "
+        "with its score soft cap of 50")
+    for kind in ("paged_attention_multi", "paged_attention_multi_quant"):
+        for name, b, kq, lengths in (
+                ("decode K=1 B=8", 8, 1, decode_lengths),
+                ("prefill K=1024 B=1", 1, 1024, [100 + 1024])):
+            attn[kind].append(attention_case(
+                torch, F, dev, flush, kind, f"soft cap 50 {name}", b, kq,
+                lengths, heads=GEMMA2_HEADS))
     mla = {kind: [] for kind in MLA_KINDS}
     for kind, (_, single, _) in MLA_KINDS.items():
         mla[kind].append(mla_case(torch, F, dev, flush, kind,
@@ -5919,6 +6658,8 @@ def main(argv=None) -> int:
             for rows in (8, 1024) for kin, out, leaves in INT4_SHAPES]
     int4 += [int4_case(torch, dev, flush, rows, kin, out, leaves)
              for rows in (8, 1024) for kin, out, leaves in INT4_70B_SHAPES]
+    int4 += [int4_case(torch, dev, flush, rows, kin, out, leaves)
+             for rows in (8, 1024) for kin, out, leaves in INT4_GEMMA3_SHAPES]
     gc.collect()
     torch.cuda.empty_cache()
     int4_experts = [int4_expert_case(torch, dev, flush, rows, path, kin, out,
@@ -5941,6 +6682,10 @@ def main(argv=None) -> int:
     # 32 heads of 128
     rms += [rms_case(torch, F, dev, flush, shape)
             for shape in ((1024, 3072), (1024, 3584), (8, 32, 128))]
+    # Gemma 3's width, and its q/k norm over a 1024-token chunk's 16 heads
+    # of 256
+    rms += [rms_case(torch, F, dev, flush, shape)
+            for shape in ((1024, 3840), (1024, 16, 256))]
     # the training path's shape: x (8, 2048, 4096) needing gradients
     rms.append(rms_case(torch, F, dev, flush, (8, 2048, 4096), grad=True))
 
@@ -5966,6 +6711,12 @@ def main(argv=None) -> int:
     eng["init_s"] = init_s
     gc.collect()
     torch.cuda.empty_cache()
+
+    log("phase 7g (d): llama3-8b --prefix-cache off (the contiguous decode "
+        "loop over a linear cache, 8 slots, cache_len 2048; phase 4's tree)")
+    prefix_off = interleave_engine_run(torch, dev, card, "llama3-8b", 2048,
+                                       False, *PREFIX_OFF_LONG, params,
+                                       ("--prefix-cache", "off"))
 
     log("phase recorder overhead (phase 4's burst, flight recorder off, "
         "on, on, off)")
@@ -6071,6 +6822,11 @@ def main(argv=None) -> int:
     log("phase 7f (70b): llama3-70b --int4 --kv-int8 on one card (8 slots, "
         "cache_len 2048)")
     big = llama70b_phase(torch, dev, card)
+    log("phase 7g: Gemma 2 and 3 on the contiguous decode loop (8 slots; "
+        "gemma2-9b at cache_len 8192, gemma3-12b at 4096 in bf16 and "
+        "--int4 --kv-int8)")
+    interleave = interleave_phase(torch, dev, card)
+    interleave["llama3_8b_prefix_cache_off"] = prefix_off
 
     log("phase train (llama3-8b widths, 4 layers, batch 8 x seq 2048)")
     train = train_phase(torch, dev, card)
@@ -6122,6 +6878,8 @@ def main(argv=None) -> int:
                 for name, rec in families.items()
                 for mode in ("bf16", "int4_kv_int8") if mode in rec}
         runs["serve_llama3_70b_int4_kv_int8"] = big["launches"]
+        runs.update({f"serve_contiguous_{key}": rec["launches"]
+                     for key, rec in interleave.items()})
         return {path: n[kname] for path, n in runs.items() if kname in n}
 
     serve_launches, quant_launches = eng["launches"], qeng["launches"]
@@ -6184,6 +6942,8 @@ def main(argv=None) -> int:
                 "train_ring_mla": ring_train_mla["launches"][kname],
                 "serve_mla_dense": mla_dense["launches"][kname],
                 "serve_mla_kv_int8_dense": mla_q_dense["launches"][kname],
+                **({k: v for k, v in family_paths(kname).items()
+                    if k.startswith("serve_contiguous_")}),
                 **({"serve_openai": openai["launches"][kname]}
                    if kname in openai["launches"] else {}),
                 **({"serve_lora_dense_group": lora["dense_group"][kname],
@@ -6313,7 +7073,7 @@ def main(argv=None) -> int:
                        "ring_train": ring_train,
                        "ring_train_mla": ring_train_mla,
                        "train_main": train_cli, "families": families,
-                       "llama3_70b": big,
+                       "llama3_70b": big, "interleave": interleave,
                        "build_s": {**nvcc_s, "triton": triton_s},
                        "sass": sass, "int4_expert_unpack_mix": unpack_mix},
                       f, indent=1)

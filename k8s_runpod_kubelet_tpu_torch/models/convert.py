@@ -100,10 +100,21 @@ _QKV_BIASES = (("wq_b", "self_attn.q_proj.bias"),
                ("wv_b", "self_attn.v_proj.bias"))
 
 
+# Gemma 2 and 3's sandwich norms: HF's post_attention_layernorm is then
+# the attention output's norm, and the MLP's input norm is
+# pre_feedforward_layernorm
+_POST_NORMS = (("attn_norm", "input_layernorm.weight"),
+               ("attn_post_norm", "post_attention_layernorm.weight"),
+               ("mlp_norm", "pre_feedforward_layernorm.weight"),
+               ("mlp_post_norm", "post_feedforward_layernorm.weight"))
+
+
 def _plain_leaves(cfg: LlamaConfig) -> tuple:
     """The per-layer (ours, HF name) pairs copied without a transpose:
-    the norms, and the config's q/k norms and q/k/v biases."""
-    return (_NORMS + (_QK_NORMS if cfg.qk_norm else ())
+    the norms (four with ``post_norms``), and the config's q/k norms and
+    q/k/v biases."""
+    return ((_POST_NORMS if cfg.post_norms else _NORMS)
+            + (_QK_NORMS if cfg.qk_norm else ())
             + (_QKV_BIASES if cfg.qkv_bias else ()))
 _MLA_ATTN = ("self_attn.q_proj.weight", "self_attn.kv_a_proj_with_mqa.weight",
              "self_attn.kv_a_layernorm.weight", "self_attn.kv_b_proj.weight",

@@ -25,13 +25,10 @@ from .llama import LlamaConfig, Params, keeps_f32, param_shapes
 
 # JAX config fields that select code paths this port does not have yet;
 # a config that sets any of them away from the dense default is refused
-# (the windowed interleave of Gemma 2 and 3, both soft caps, and
-# DeepSeek-MoE's shared experts, sigmoid routing and dense prefix, by name)
+# (DeepSeek-MoE's shared experts, sigmoid routing and dense prefix, by name)
 _UNSUPPORTED = {
-    "attn_logit_softcap": None, "query_pre_attn_scalar": None,
-    "post_norms": False, "rope_local_theta": None, "logit_softcap": None,
     "n_shared_experts": 0, "router_sigmoid_bias": False,
-    "n_dense_prefix": 0, "sliding_window_pattern": 1,
+    "n_dense_prefix": 0,
 }
 
 
@@ -54,7 +51,9 @@ def config_from_jax(jcfg, dtype: torch.dtype) -> LlamaConfig:
     fields = ("name", "vocab_size", "embed_dim", "n_layers", "n_heads",
               "n_kv_heads", "head_dim", "mlp_dim", "max_seq_len",
               "rope_theta", "rope_scaling", "norm_eps", "sliding_window",
-              "qk_norm", "tie_embeddings", "mlp_activation", "embed_scale",
+              "sliding_window_pattern", "attn_logit_softcap",
+              "query_pre_attn_scalar", "post_norms", "rope_local_theta",
+              "logit_softcap", "qk_norm", "tie_embeddings", "mlp_activation", "embed_scale",
               "norm_zero_centered", "qkv_bias",
               "remat", "remat_policy", "ring_flash", "mla_latent_dim",
               "mla_rope_dim",

@@ -1,7 +1,9 @@
 """Llama-3-family decoder (port of the JAX package's ``models/llama.py``):
 the contiguous ``forward`` that training and embeddings run, the
-contiguous serving steps over a single-request cache (``prefill``,
-``prefill_chunk_step``, ``verify_step``), and the paged serving steps
+contiguous serving steps over a linear, ring or mixed cache (``prefill``,
+``prefill_chunk_step``, ``verify_step``, ``decode_step``; Gemma 2 and 3's
+local/global window interleave keeps rings for its local layers), and
+the paged serving steps
 over a KV arena, for dense attention and for Multi-head Latent Attention
 (MLA, DeepSeek-V2). MLA's contiguous forward and prefill run its direct
 form (per-head K and V from the latent, the flash kernels at head_dim +
@@ -97,13 +99,13 @@ Params = dict[str, Any]
 class LlamaConfig:
     """The fields of the JAX ``LlamaConfig`` this port runs, with the same
     defaults (weight and KV quantization and LoRA adapters are serving
-    options, ``ServingConfig``): the Llama body and its Gemma-7B,
-    Mistral-7B, Qwen2 and Qwen3 branches (a uniform sliding window, GeGLU,
-    the embedding scale, zero-centered norms, q/k/v biases and the q/k
+    options, ``ServingConfig``): the Llama body and its Gemma, Mistral-7B,
+    Qwen2 and Qwen3 branches (a sliding window, uniform or in a
+    local/global pattern, GeGLU, the embedding scale, zero-centered norms,
+    sandwich norms, soft caps on scores and logits, the query
+    pre-attention scalar, a local RoPE base, q/k/v biases and the q/k
     norm). DeepSeek-MoE (shared experts, sigmoid routing) and its dense
-    prefix, the windowed interleave of Gemma 2 and 3 (a window pattern,
-    sandwich norms, a local RoPE base, the query pre-attention scalar),
-    soft caps and remat "dots" are later slices."""
+    prefix, and remat "dots", are not ported."""
     name: str = "tiny"
     vocab_size: int = 32000
     embed_dim: int = 256
@@ -117,8 +119,24 @@ class LlamaConfig:
     rope_scaling: Optional[dict] = None
     norm_eps: float = 1e-5
     # Mistral's sliding window: each position attends the last W positions
-    # (None: full causal), in every layer (the JAX package's pattern 1)
+    # (None: full causal), in every layer at pattern 1
     sliding_window: Optional[int] = None
+    # Gemma 2 and 3's local/global interleave: layers repeat in groups of
+    # this many, the last of a group global (full causal) and the rest
+    # under ``sliding_window`` (``layer_windows``)
+    sliding_window_pattern: int = 1
+    # Gemma 2: attention scores pass cap * tanh(s / cap) before the mask
+    attn_logit_softcap: Optional[float] = None
+    # Gemma 2 and 3: q scales by this ** -0.5 instead of head_dim ** -0.5
+    query_pre_attn_scalar: Optional[float] = None
+    # Gemma 2 and 3's sandwich norms: an RMSNorm on each sublayer's output
+    # (attn_post_norm, mlp_post_norm) before the residual add
+    post_norms: bool = False
+    # Gemma 3: windowed layers rotate with this base and no scaling, global
+    # ones with rope_theta and rope_scaling (None: one table)
+    rope_local_theta: Optional[float] = None
+    # Gemma 2: the LM head's logits pass cap * tanh(l / cap)
+    logit_softcap: Optional[float] = None
     # Qwen3's (and Gemma 3's) RMSNorm over head_dim on q and k, one weight
     # a layer shared by the heads, before RoPE
     qk_norm: bool = False
@@ -169,20 +187,41 @@ class LlamaConfig:
 
     @property
     def sm_scale(self) -> float:
-        """The softmax scale: head_dim^-0.5, or for MLA (head_dim +
-        rope_dim)^-0.5 times YaRN's mscale^2."""
+        """The softmax scale: query_pre_attn_scalar^-0.5 when set, else
+        head_dim^-0.5, or for MLA (head_dim + rope_dim)^-0.5 times YaRN's
+        mscale^2."""
         if self.is_mla:
             return ((self.head_dim_ + self.mla_rope_dim) ** -0.5
                     * yarn_mscale_sq(self))
-        return self.head_dim_ ** -0.5
+        base = (self.query_pre_attn_scalar
+                if self.query_pre_attn_scalar is not None else self.head_dim_)
+        return base ** -0.5
+
+    def layer_windows(self) -> tuple[Optional[int], ...]:
+        """The window of each sublayer of one group of
+        ``sliding_window_pattern`` layers (the JAX ``layer_windows``):
+        layer i attends under ``layer_windows()[i % pattern]``."""
+        p = self.sliding_window_pattern
+        if self.sliding_window is None:
+            return (None,) * p
+        if p == 1:
+            return (self.sliding_window,)
+        return tuple(self.sliding_window if j != p - 1 else None
+                     for j in range(p))
 
     def validate_mla(self) -> None:
         """The JAX config's MLA checks that apply to the fields this port
         has: q_lora_rank needs MLA, and MLA composes with no window, q/k
-        norm or q/k/v bias. Also an unknown ``mlp_activation`` raises."""
+        norm, q/k/v bias, soft cap or query scalar. Also an unknown
+        ``mlp_activation`` raises, and a window pattern that does not
+        divide the layers (the JAX model's layer groups)."""
         if self.mlp_activation not in ("silu", "gelu_tanh"):
             raise ValueError(f"unknown mlp_activation "
                              f"{self.mlp_activation!r}")
+        p = self.sliding_window_pattern
+        if p < 1 or self.n_layers % p:
+            raise ValueError(f"n_layers {self.n_layers} not divisible by "
+                             f"sliding_window_pattern {p}")
         if self.mla_q_lora_rank is not None and not self.is_mla:
             raise ValueError("mla_q_lora_rank requires MLA (set "
                              "mla_latent_dim); on a plain-attention config "
@@ -192,7 +231,12 @@ class LlamaConfig:
         bad = [f for f, on in (("sliding_window",
                                 self.sliding_window is not None),
                                ("qk_norm", self.qk_norm),
-                               ("qkv_bias", self.qkv_bias)) if on]
+                               ("qkv_bias", self.qkv_bias),
+                               ("attn_logit_softcap",
+                                self.attn_logit_softcap is not None),
+                               ("query_pre_attn_scalar",
+                                self.query_pre_attn_scalar is not None))
+               if on]
         if bad:
             raise ValueError(f"MLA does not compose with {bad} (DeepSeek-V2 "
                              "uses none of them)")
@@ -285,6 +329,38 @@ def qwen3_8b() -> LlamaConfig:
                        rope_theta=1_000_000.0, norm_eps=1e-6, qk_norm=True)
 
 
+def gemma2_9b() -> LlamaConfig:
+    """Gemma-2-9B: local (4096) and global layers alternating (even layers
+    local), soft caps on attention scores (50) and final logits (30),
+    sandwich norms around both sublayers, GQA 16/8 heads of 256."""
+    return LlamaConfig(name="gemma2-9b", vocab_size=256000, embed_dim=3584,
+                       n_layers=42, n_heads=16, n_kv_heads=8, head_dim=256,
+                       mlp_dim=14336, max_seq_len=8192, rope_theta=10_000.0,
+                       norm_eps=1e-6, tie_embeddings=True,
+                       mlp_activation="gelu_tanh", embed_scale=True,
+                       norm_zero_centered=True,
+                       sliding_window=4096, sliding_window_pattern=2,
+                       attn_logit_softcap=50.0, logit_softcap=30.0,
+                       query_pre_attn_scalar=256.0, post_norms=True)
+
+
+def gemma3_12b() -> LlamaConfig:
+    """Gemma-3-12B (text): five local (1024) layers to one global, RoPE
+    base 1e4 on local layers and 1e6 with linear x8 scaling on global
+    ones, the q/k norm, sandwich norms; no soft caps."""
+    return LlamaConfig(name="gemma3-12b", vocab_size=262208, embed_dim=3840,
+                       n_layers=48, n_heads=16, n_kv_heads=8, head_dim=256,
+                       mlp_dim=15360, max_seq_len=32768,
+                       rope_theta=1_000_000.0, rope_local_theta=10_000.0,
+                       rope_scaling={"rope_type": "linear", "factor": 8.0},
+                       norm_eps=1e-6, tie_embeddings=True,
+                       mlp_activation="gelu_tanh", embed_scale=True,
+                       norm_zero_centered=True,
+                       sliding_window=1024, sliding_window_pattern=6,
+                       query_pre_attn_scalar=256.0, post_norms=True,
+                       qk_norm=True)
+
+
 def tiny_llama(**kw) -> LlamaConfig:
     return dataclasses.replace(LlamaConfig(), **kw)
 
@@ -357,11 +433,14 @@ def _layer_shapes(cfg: LlamaConfig) -> dict:
     if cfg.qkv_bias:
         attn.update({"wq_b": (n, hn * hd), "wk_b": (n, cfg.n_kv_heads * hd),
                      "wv_b": (n, cfg.n_kv_heads * hd)})
+    post = ({"attn_post_norm": (n, e), "mlp_post_norm": (n, e)}
+            if cfg.post_norms else {})
     return {"attn_norm": (n, e),
             **attn,
             "wo": (n, hn * hd, e),
             "mlp_norm": (n, e),
-            **mlp}
+            **mlp,
+            **post}
 
 
 def param_shapes(cfg: LlamaConfig) -> Params:
@@ -494,6 +573,15 @@ def _kv_dequant(q: torch.Tensor, scale: torch.Tensor,
     return q.to(dtype) * scale[..., None].to(dtype)
 
 
+def _write_rows(dst: torch.Tensor, rows: torch.Tensor, slots: torch.Tensor,
+                new: torch.Tensor, write: torch.Tensor) -> None:
+    """dst[rows, slots] = new where ``write`` (B, K), else left as it is:
+    a gather and a scatter at fixed shapes, no host sync (the JAX model's
+    ``where(active, new, old)`` writes)."""
+    keep = write.view(*write.shape, *(1,) * (new.dim() - write.dim()))
+    dst[rows, slots] = torch.where(keep, new.to(dst.dtype), dst[rows, slots])
+
+
 def init_params(cfg: LlamaConfig, generator: torch.Generator,
                 device=None, master: bool = False) -> Params:
     """Random init from ``generator`` (normal * 0.02; norms at identity and
@@ -569,6 +657,35 @@ class LlamaModel:
         self.cos, self.sin = rope_frequencies(
             rope_dim, cfg.max_seq_len, cfg.rope_theta, cfg.rope_scaling,
             device=self.device)
+        # the windowed layers' table (the JAX ``_rope_tables``): Gemma 3's
+        # local base with no scaling, else the global table itself
+        self.cos_local, self.sin_local = (
+            (self.cos, self.sin) if cfg.rope_local_theta is None else
+            rope_frequencies(rope_dim, cfg.max_seq_len, cfg.rope_local_theta,
+                             None, device=self.device))
+        self._windows = cfg.layer_windows()
+
+    def window(self, layer: int) -> Optional[int]:
+        """Layer ``layer``'s attention window (None: full causal)."""
+        return self._windows[layer % len(self._windows)]
+
+    def rope(self, layer: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """Layer ``layer``'s RoPE table (the JAX ``_rope_for``): the local
+        one on a windowed layer, the global one otherwise."""
+        return self._rope_for(self.window(layer))
+
+    def _rope_for(self, window: Optional[int]):
+        if window is None:
+            return self.cos, self.sin
+        return self.cos_local, self.sin_local
+
+    def _post_norm(self, y: torch.Tensor, leaf, name: str) -> torch.Tensor:
+        """A sublayer's output through its sandwich norm (``leaf(name)``,
+        ``attn_post_norm`` or ``mlp_post_norm``) with ``post_norms``; y
+        itself otherwise."""
+        if not self.cfg.post_norms:
+            return y
+        return rms_norm(y, self._norm_w(leaf(name)), self.cfg.norm_eps)
 
     def forward(self, params: Params, tokens: torch.Tensor,
                 positions: Optional[torch.Tensor] = None,
@@ -576,8 +693,8 @@ class LlamaModel:
                 train: bool = True) -> torch.Tensor:
         """tokens (B, S) -> logits (B, S, V) in ``cfg.dtype``, or with
         ``return_hidden`` the final-norm hidden states (B, S, E). Every
-        layer is causal flash attention (under the config's sliding window)
-        and a SwiGLU or GeGLU MLP (or the sparse MoE
+        layer is causal flash attention (under the layer's window) and a
+        SwiGLU or GeGLU MLP (or the sparse MoE
         MLP, routed at ``cfg.capacity_factor``, or with ``train=False`` at
         the serving capacity that drops nothing), each behind an RMSNorm;
         weights are cast to ``cfg.dtype`` at each use. Under remat
@@ -609,10 +726,10 @@ class LlamaModel:
             lp = {name: leaves[i] for name, leaves in layers.items()}
             if remat:
                 x = torch.utils.checkpoint.checkpoint(
-                    self._layer, x, lp, positions, train=train,
+                    self._layer, x, lp, positions, train=train, layer=i,
                     use_reentrant=False)
             else:
-                x = self._layer(x, lp, positions, train=train)
+                x = self._layer(x, lp, positions, train=train, layer=i)
         x = rms_norm(x, self._norm_w(params["final_norm"]), cfg.norm_eps)
         if return_hidden:
             return x
@@ -622,11 +739,13 @@ class LlamaModel:
                positions: Optional[torch.Tensor],
                return_kv: bool = False, train: bool = True,
                ad: Optional[dict] = None,
-               ids: Optional[torch.Tensor] = None):
-        """One decoder layer of ``forward``: the JAX model's dense
+               ids: Optional[torch.Tensor] = None, layer: int = 0):
+        """Decoder layer ``layer`` of ``forward``: the JAX model's dense
         ``_attention_block`` (or for MLA ``_mla_attention_block``) then
         ``_mlp_block``, the matmuls through ``_mm`` (raw weights cast to
-        ``cfg.dtype``, or quantized leaves). ``return_kv`` also returns the
+        ``cfg.dtype``, or quantized leaves), under the layer's window and
+        RoPE table, each sublayer's output through its sandwich norm with
+        ``post_norms``. ``return_kv`` also returns the
         layer's cache content: the rotated k and v (B, S, Hkv, D), or for
         MLA the normed latent c (B, S, r) and rotated rope key kr (B, S,
         dr). ``ad`` (one layer's adapter stacks) and ``ids`` (B,) add each
@@ -638,19 +757,23 @@ class LlamaModel:
             return (x, c, kr) if return_kv else x
         b, s, _ = x.shape
         hd = cfg.head_dim_
+        window = self.window(layer)
         h = rms_norm(x, self._norm_w(lp["attn_norm"]), cfg.norm_eps)
-        q, k, v = self._qkv(h, lp.__getitem__, ad, ids, positions)
+        q, k, v = self._qkv(h, lp.__getitem__, ad, ids, positions,
+                            self.rope(layer))
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         if self.mesh is not None and self.mesh.seq > 1:
             o = ring_attention(qt, kt, vt, self.mesh, causal=True,
                                sm_scale=cfg.sm_scale,
-                               sliding_window=cfg.sliding_window,
+                               logit_soft_cap=cfg.attn_logit_softcap,
+                               sliding_window=window,
                                use_flash=cfg.ring_flash)
         else:
-            o = self._flash(qt, kt, vt)
+            o = self._flash(qt, kt, vt, window)
         o = o.transpose(1, 2).reshape(b, s, cfg.n_heads * hd)
-        x = self._mlp(x + self._proj(o, lp["wo"], "wo", ad, ids), lp, train,
-                      ad, ids)
+        o = self._post_norm(self._proj(o, lp["wo"], "wo", ad, ids),
+                            lp.__getitem__, "attn_post_norm")
+        x = self._mlp(x + o, lp, train, ad, ids)
         return (x, k, v) if return_kv else x
 
     def _mla_attention(self, x: torch.Tensor, lp: Params,
@@ -684,19 +807,22 @@ class LlamaModel:
         else:
             o = self._flash(qt, kt, vt)
         o = o.transpose(1, 2)[..., :hd].reshape(b, s, hn * hd)
-        return x + self._proj(o, lp["wo"], "wo"), c, kr
+        o = self._post_norm(self._proj(o, lp["wo"], "wo"), lp.__getitem__,
+                            "attn_post_norm")
+        return x + o, c, kr
 
-    def _flash(self, qt, kt, vt) -> torch.Tensor:
-        """Causal flash attention of (B, H, S, D) heads, under the config's
-        sliding window; in one process
+    def _flash(self, qt, kt, vt, window: Optional[int] = None
+               ) -> torch.Tensor:
+        """Causal flash attention of (B, H, S, D) heads, under ``window``
+        and the config's score soft cap; in one process
         under a tensor mesh whose degree divides both head counts, one
         launch per shard on its q-head block and kv-head block, as each
         shard runs it."""
         cfg = self.cfg
         n = (paged_head_shards(self.tp, cfg.n_heads, cfg.n_kv_heads)
              if self.mesh is not None and self.mesh.in_process else 1)
-        kw = dict(causal=True, sm_scale=cfg.sm_scale,
-                  sliding_window=cfg.sliding_window)
+        kw = dict(causal=True, sm_scale=cfg.sm_scale, sliding_window=window,
+                  logit_soft_cap=cfg.attn_logit_softcap)
         if n == 1:
             return flash_attention(qt, kt, vt, **kw)
         hq, hk = cfg.n_heads // n, cfg.n_kv_heads // n
@@ -734,12 +860,13 @@ class LlamaModel:
         return y
 
     def _qkv(self, h: torch.Tensor, leaf, ad: Optional[dict],
-             ids: Optional[torch.Tensor], positions):
+             ids: Optional[torch.Tensor], positions, rope):
         """The JAX model's dense q/k/v path on normed h (B, S, E): the three
         products and their biases (``_qkv``), each row's multi-LoRA deltas
         (``_ml_qkv_deltas``), the per-head q/k RMSNorm (``qk_norm``), then
-        RoPE at ``positions``. ``leaf(name)`` is one layer's leaf. Returns
-        q (B, S, H, hd) and k, v (B, S, Hkv, hd)."""
+        RoPE at ``positions`` from ``rope`` (cos, sin), the layer's table.
+        ``leaf(name)`` is one layer's leaf. Returns q (B, S, H, hd) and k,
+        v (B, S, Hkv, hd)."""
         cfg = self.cfg
         b, s, _ = h.shape
         out = []
@@ -752,8 +879,9 @@ class LlamaModel:
         if cfg.qk_norm:
             q = rms_norm(q, self._norm_w(leaf("q_norm")), cfg.norm_eps)
             k = rms_norm(k, self._norm_w(leaf("k_norm")), cfg.norm_eps)
-        q = apply_rope(q, self.cos, self.sin, positions)
-        k = apply_rope(k, self.cos, self.sin, positions)
+        cos, sin = rope
+        q = apply_rope(q, cos, sin, positions)
+        k = apply_rope(k, cos, sin, positions)
         return q, k, v
 
     def _norm_w(self, w: torch.Tensor) -> torch.Tensor:
@@ -817,13 +945,20 @@ class LlamaModel:
     def _lm_head(self, params: Params, x: torch.Tensor) -> torch.Tensor:
         """Logits of final-norm states x in the compute dtype: the LM head,
         or the embedding's transpose when tied; under a tensor mesh the
-        shards' vocab slices gathered."""
-        if not self.cfg.tie_embeddings:
-            return self._proj(x, params["lm_head"], "lm_head")
-        table = params["tok_embed"].transpose(-1, -2)
-        if self.tp == 1:
-            return _mm(x, table, self.cfg.dtype)
-        return _mm_tp(x, table, "col", self.mesh, self.cfg.dtype)
+        shards' vocab slices gathered. With ``logit_softcap`` they pass
+        cap * tanh(l / cap) in the compute dtype, as the JAX model's
+        ``_head_logits`` caps them before any f32 cast."""
+        cfg = self.cfg
+        if not cfg.tie_embeddings:
+            logits = self._proj(x, params["lm_head"], "lm_head")
+        else:
+            table = params["tok_embed"].transpose(-1, -2)
+            logits = (_mm(x, table, cfg.dtype) if self.tp == 1
+                      else _mm_tp(x, table, "col", self.mesh, cfg.dtype))
+        if cfg.logit_softcap:
+            cap = cfg.logit_softcap
+            logits = torch.tanh(logits / cap) * cap
+        return logits
 
     # -- contiguous serving steps -------------------------------------------
 
@@ -862,6 +997,87 @@ class LlamaModel:
                     scales, dtype=torch.float32, device=self.device)
         return cache
 
+    def _abs_pos(self, batch: int, ring_len: int) -> torch.Tensor:
+        return torch.full((batch, ring_len), -1, dtype=torch.int32,
+                          device=self.device)
+
+    def _check_ring_len(self, ring_len: int) -> None:
+        if ring_len <= self.cfg.sliding_window:
+            raise ValueError(f"ring_len {ring_len} must exceed the window "
+                             f"{self.cfg.sliding_window} (write slack)")
+
+    def init_ring_cache(self, batch: int, ring_len: int,
+                        quantize: bool = False) -> Params:
+        """A ring cache for a uniformly windowed model (the JAX
+        ``init_ring_cache``): ``init_cache``'s sections at ``ring_len``
+        positions whatever the sequence length, position p in slot p %
+        ring_len, and ``abs_pos`` (B, R) int32, the position each slot
+        holds (-1: empty), which attention masks on. ``ring_len`` must
+        exceed the window by the most tokens one call writes, so no call
+        overwrites a slot some query still sees."""
+        cfg = self.cfg
+        if cfg.sliding_window is None or cfg.sliding_window_pattern != 1:
+            raise ValueError("ring cache requires a uniform sliding_window "
+                             "(pattern 1); global-attention layers need the "
+                             "full history")
+        self._check_ring_len(ring_len)
+        cache = self.init_cache(batch, ring_len, quantize)
+        cache["abs_pos"] = self._abs_pos(batch, ring_len)
+        return cache
+
+    def init_mixed_cache(self, batch: int, max_len: int, ring_len: int,
+                         quantize: bool = False) -> Params:
+        """The split cache of a local/global interleave (Gemma 2 and 3; the
+        JAX ``init_mixed_cache``): ``k_l``/``v_l`` (n_local, B, R, Hkv, D)
+        rings for the windowed layers in layer-group order (group g's local
+        layers are rows g * (p - 1) ...), ``k_g``/``v_g`` (n_global, B,
+        max_len, Hkv, D) for the global ones, one ``abs_pos`` (B, R) every
+        local layer shares, and ``index``. ``quantize`` stores every
+        section int8 with f32 scales ``k_l_scale``, ``v_l_scale``,
+        ``k_g_scale`` and ``v_g_scale``. The ring's write slack is
+        ``init_ring_cache``'s."""
+        cfg = self.cfg
+        p = cfg.sliding_window_pattern
+        if cfg.sliding_window is None or p <= 1:
+            raise ValueError("mixed cache requires a windowed interleave "
+                             "(sliding_window set and pattern > 1); use "
+                             "init_ring_cache/init_cache instead")
+        self._check_ring_len(ring_len)
+        n_groups = cfg.n_layers // p
+        h, d = cfg.n_kv_heads, cfg.head_dim_
+        dt = torch.int8 if quantize else cfg.dtype
+        lead = {"_l": (n_groups * (p - 1), batch, ring_len),
+                "_g": (n_groups, batch, max_len)}
+        cache: Params = {}
+        for suffix, shape in lead.items():
+            for name in ("k", "v"):
+                cache[name + suffix] = torch.zeros(shape + (h, d), dtype=dt,
+                                                   device=self.device)
+                if quantize:
+                    cache[name + suffix + "_scale"] = torch.zeros(
+                        shape + (h,), dtype=torch.float32,
+                        device=self.device)
+        cache["index"] = torch.zeros((batch,), dtype=torch.int32,
+                                     device=self.device)
+        cache["abs_pos"] = self._abs_pos(batch, ring_len)
+        return cache
+
+    def _layer_cache(self, cache: Params, layer: int):
+        """Layer ``layer``'s part of a contiguous cache: (its two sections
+        (B, S, ...), their scales or Nones, whether it ring-addresses).
+        A mixed cache's local layers read its rings in layer-group order,
+        its global layers the full-length sections."""
+        suffix, row, ring = "", layer, "abs_pos" in cache
+        if "k_l" in cache:
+            p = self.cfg.sliding_window_pattern
+            group, j = divmod(layer, p)
+            suffix, row, ring = (("_g", group, False) if j == p - 1 else
+                                 ("_l", group * (p - 1) + j, True))
+        names = [n + suffix for n in self._cache_sections()]
+        scales = [cache[n + "_scale"][row] if n + "_scale" in cache
+                  else None for n in names]
+        return [cache[n][row] for n in names], scales, ring
+
     def prefill(self, params: Params, tokens: torch.Tensor, cache: Params,
                 true_length: Optional[torch.Tensor] = None,
                 adapters: Optional[dict] = None,
@@ -871,10 +1087,13 @@ class LlamaModel:
         fills in place from position 0: tokens (B, S) -> (logits of each
         row's last real token (B, V) f32, cache with ``index`` =
         ``true_length``). Attention is the causal flash kernel
-        (``flash_attention``), as in the JAX model; an int8 cache stores
+        (``flash_attention``) under each layer's window, as in the JAX
+        model; an int8 cache stores
         each row through ``_kv_quant``, the paged steps' scheme, so pages
         filled from it equal pages the paged chunk step writes. Padding
-        past ``true_length`` writes K/V that nothing attends. An MLA model
+        past ``true_length`` writes K/V that nothing attends. A ring or
+        mixed cache takes position p < S in slot p, and ``abs_pos`` names
+        the real positions only. An MLA model
         runs its direct form (``_mla_attention``, the flash kernels at
         head_dim + rope_dim) and caches each layer's latent c and rope key
         kr. ``adapters``/``adapter_ids`` add each row's multi-LoRA
@@ -882,27 +1101,39 @@ class LlamaModel:
         cfg = self.cfg
         b, s = tokens.shape
         ids = self._check_adapters(adapters, adapter_ids)
-        names = self._cache_sections()
-        if s > cache[names[0]].shape[2]:
-            raise ValueError(f"prompt length {s} exceeds cache length "
-                             f"{cache[names[0]].shape[2]}")
+        if "k_l" in cache:
+            ring, max_g = cache["k_l"].shape[2], cache["k_g"].shape[2]
+            if s > ring or s > max_g:
+                raise ValueError(f"prompt chunk {s} exceeds cache sections "
+                                 f"(ring {ring}, global {max_g})")
+        else:
+            length = cache[self._cache_sections()[0]].shape[2]
+            if s > length:
+                raise ValueError(f"prompt length {s} exceeds cache length "
+                                 f"{length}")
         if true_length is None:
             true_length = torch.full((b,), s, dtype=torch.int32,
                                      device=tokens.device)
-        quant = names[0] + "_scale" in cache
         x = self._embed(params, tokens)
         lp = params["layers"]
         for layer in range(cfg.n_layers):
             x, *rows = self._layer(
                 x, {n: _at(w, layer) for n, w in lp.items()}, None,
                 return_kv=True, train=False,
-                ad=_layer_adapters(adapters, layer), ids=ids)
-            for name, row in zip(names, rows):
-                if quant:
+                ad=_layer_adapters(adapters, layer), ids=ids, layer=layer)
+            sections, scales, _ = self._layer_cache(cache, layer)
+            for dst, dst_s, row in zip(sections, scales, rows):
+                if dst_s is not None:
                     row, row_s = _kv_quant(row)
-                    cache[name + "_scale"][layer, :, :s] = row_s
-                cache[name][layer, :, :s] = row
-        cache["index"].copy_(true_length.to(torch.int32))
+                    dst_s[:, :s] = row_s
+                dst[:, :s] = row
+        tl = true_length.to(torch.int32)
+        cache["index"].copy_(tl)
+        if "abs_pos" in cache:
+            slot_ids = torch.arange(cache["abs_pos"].shape[1],
+                                    device=tl.device, dtype=torch.int32)
+            cache["abs_pos"].copy_(torch.where(
+                slot_ids[None, :] < tl[:, None], slot_ids[None, :], -1))
         last = x[torch.arange(b, device=x.device),
                  true_length.long() - 1][:, None]
         return self._head_logits(params, last)[:, 0], cache
@@ -925,85 +1156,173 @@ class LlamaModel:
         return logits[torch.arange(b, device=logits.device),
                       tl.long() - 1], cache
 
+    def decode_step(self, params: Params, token: torch.Tensor,
+                    cache: Params, active: Optional[torch.Tensor] = None,
+                    adapters: Optional[dict] = None,
+                    adapter_ids: Optional[torch.Tensor] = None,
+                    check: bool = True) -> tuple[torch.Tensor, Params]:
+        """One token per row of a contiguous cache (the JAX
+        ``decode_step``): token (B,) -> (logits (B, V) f32, cache), the
+        K = 1 ``verify_step`` and then ``index`` advanced in place where
+        ``active``. Inactive rows keep their cache and index. ``check``
+        False skips the host-side bounds check, so that the step makes no
+        host sync and can be captured (the engine keeps every row inside
+        its budget)."""
+        b = token.shape[0]
+        if active is None:
+            active = torch.ones((b,), dtype=torch.bool, device=token.device)
+        logits, cache = self.verify_step(params, token[:, None], cache,
+                                         active, adapters, adapter_ids,
+                                         check=check)
+        cache["index"] += active.to(torch.int32)
+        return logits[:, 0], cache
+
+    # every per-position section of a contiguous cache, (L, B, ...) each
+    _SLOT_SECTIONS = ("k", "v", "k_l", "v_l", "k_g", "v_g", "k_scale",
+                      "v_scale", "k_l_scale", "v_l_scale", "k_g_scale",
+                      "v_g_scale", "c", "kr", "c_scale", "kr_scale")
+
+    @staticmethod
+    def insert_into_slot(cache: Params, single: Params, slot: int) -> Params:
+        """A prefilled single-request cache (batch 1) copied into row
+        ``slot`` of a batch cache of the same layout, IN PLACE (the JAX
+        ``insert_into_slot`` returns a new cache): every section present,
+        ``index`` and ``abs_pos``. ``single`` is only read."""
+        cache["index"][slot] = single["index"][0]
+        for name in LlamaModel._SLOT_SECTIONS:
+            if name in cache:
+                cache[name][:, slot].copy_(single[name][:, 0])
+        if "abs_pos" in cache:
+            cache["abs_pos"][slot].copy_(single["abs_pos"][0])
+        return cache
+
     def verify_step(self, params: Params, tokens: torch.Tensor,
                     cache: Params, active: Optional[torch.Tensor] = None,
                     adapters: Optional[dict] = None,
-                    adapter_ids: Optional[torch.Tensor] = None
-                    ) -> tuple[torch.Tensor, Params]:
+                    adapter_ids: Optional[torch.Tensor] = None,
+                    check: bool = True) -> tuple[torch.Tensor, Params]:
         """K tokens per row of a contiguous cache in one pass (the JAX
         model's dense ``verify_step``): row b's token j sits at position
-        index[b] + j and attends positions <= index[b] + j. Writes every
-        active row's K/V in place, does not advance ``index``, returns
-        (logits (B, K, V) f32, cache). Attention is plain f32 einsum over
-        the whole cache, as in the reference. Positions must lie inside
-        the cache. An MLA model runs ``_verify_step_mla``.
-        ``adapters``/``adapter_ids`` add each row's multi-LoRA deltas."""
+        index[b] + j and attends positions <= index[b] + j within its
+        layer's window. Writes every active row's K/V in place (a linear
+        section at the position, a ring at slot position % R, after
+        ``abs_pos`` takes this call's positions, once, before any layer),
+        does not advance ``index``, returns (logits (B, K, V) f32, cache).
+        Every write is ``where(active, new, old)`` at fixed shapes, so the
+        step makes no host sync; a linear write past the section is
+        dropped, as the JAX scatter drops it. ``check`` (the eager
+        default) raises when an active position lies past a linear
+        section. Attention is plain f32 einsum over the whole cache, as in
+        the reference: a ring layer masks on ``abs_pos``, a linear one on
+        the position, the score soft cap before the mask. An MLA model
+        runs ``_verify_step_mla``. ``adapters``/``adapter_ids`` add each
+        row's multi-LoRA deltas."""
         cfg = self.cfg
         b, kk = tokens.shape
         dev = tokens.device
         ids = self._check_adapters(adapters, adapter_ids)
         if active is None:
             active = torch.ones((b,), dtype=torch.bool, device=dev)
-        max_len = cache[self._cache_sections()[0]].shape[2]
         positions = (cache["index"].long()[:, None]
                      + torch.arange(kk, device=dev)[None, :])      # (B,K)
-        if active.any() and int(positions[active].max()) >= max_len:
+        linear = cache.get("k_g", cache.get(self._cache_sections()[0]))
+        max_len = (linear.shape[2]
+                   if "k_g" in cache or "abs_pos" not in cache else None)
+        if (check and max_len is not None and active.any()
+                and int(positions[active].max()) >= max_len):
             raise ValueError(f"verify positions run past the cache length "
                              f"{max_len}")
-        pos_l = torch.arange(max_len, device=dev)[None, None, :]
-        valid = pos_l <= positions[:, :, None]
-        if cfg.sliding_window is not None:
-            valid &= positions[:, :, None] - pos_l < cfg.sliding_window
-        valid = valid[:, None, None]                            # (B,1,1,K,L)
-        rows = torch.arange(b, device=dev)[:, None].expand(b, kk)[active]
-        slots = positions[active]
+        rows = torch.arange(b, device=dev)[:, None].expand(b, kk)
+        act = active[:, None].expand(b, kk)
+        # per kind of layer (ring or not): where it writes (slots (B, K)
+        # and a write mask (B, K)) and the position each of its slots
+        # holds, (B or 1, 1, L)
+        writes, held = {}, {}
+        if max_len is not None:
+            # a dropped write (past the section) rewrites its old value K
+            # slots back, below the row's index, where no write of this
+            # call lands
+            inside = positions < max_len
+            writes[False] = (torch.where(
+                inside, positions,
+                (positions - kk).clamp(0, max_len - 1)), act & inside)
+            held[False] = torch.arange(max_len, device=dev)[None, None, :]
+        if "abs_pos" in cache:
+            abs_pos = cache["abs_pos"]
+            slots_r = positions % abs_pos.shape[1]
+            abs_pos[rows, slots_r] = torch.where(
+                act, positions.to(torch.int32), abs_pos[rows, slots_r])
+            writes[True] = (slots_r, act)
+            held[True] = abs_pos[:, None, :].long()
+        masks = {}
+
+        def mask(ring: bool, window: Optional[int]) -> torch.Tensor:
+            """(B, K, L): query j of row b sees the positions <= its own
+            within ``window``."""
+            if (ring, window) not in masks:
+                p, q = held[ring], positions[:, :, None]
+                valid = (p >= 0) & (p <= q)
+                if window is not None:
+                    valid &= q - p < window
+                masks[ring, window] = valid
+            return masks[ring, window]
+
+        # rows past the RoPE table (inactive rows only) look up its end
+        rope_pos = positions.clamp(max=cfg.max_seq_len - 1)
         if cfg.is_mla:
-            return self._verify_step_mla(params, tokens, cache, positions,
-                                         valid[:, :, 0], active, rows, slots)
-        quant = "k_scale" in cache
+            return self._verify_step_mla(params, tokens, cache, rope_pos,
+                                         mask(False, None)[:, None], rows,
+                                         *writes[False])
         hd, dt, hkv = cfg.head_dim_, cfg.dtype, cfg.n_kv_heads
         group = cfg.n_heads // hkv
+        cap = cfg.attn_logit_softcap
         x = self._embed(params, tokens)
         lp = params["layers"]
         for layer in range(cfg.n_layers):
             ad = _layer_adapters(adapters, layer)
-            h = rms_norm(x, self._norm_w(lp["attn_norm"][layer]),
-                         cfg.norm_eps)
-            q, k, v = self._qkv(h, lambda n: _at(lp[n], layer), ad, ids,
-                                positions)
-            kc, vc = cache["k"][layer], cache["v"][layer]
-            if quant:
-                ks, vs = cache["k_scale"][layer], cache["v_scale"][layer]
+
+            def leaf(n):
+                return _at(lp[n], layer)
+
+            h = rms_norm(x, self._norm_w(leaf("attn_norm")), cfg.norm_eps)
+            q, k, v = self._qkv(h, leaf, ad, ids, rope_pos, self.rope(layer))
+            (kc, vc), (ks, vs), ring = self._layer_cache(cache, layer)
+            slots, write = writes[ring]
+            if ks is not None:
                 k, k_s = _kv_quant(k)
                 v, v_s = _kv_quant(v)
-                ks[rows, slots] = k_s[active]
-                vs[rows, slots] = v_s[active]
-            kc[rows, slots] = k[active]
-            vc[rows, slots] = v[active]
-            k_read = _kv_dequant(kc, ks) if quant else kc.float()
-            v_read = _kv_dequant(vc, vs) if quant else vc.float()
+                _write_rows(ks, rows, slots, k_s, write)
+                _write_rows(vs, rows, slots, v_s, write)
+            _write_rows(kc, rows, slots, k, write)
+            _write_rows(vc, rows, slots, v, write)
+            k_read = _kv_dequant(kc, ks) if ks is not None else kc.float()
+            v_read = _kv_dequant(vc, vs) if vs is not None else vc.float()
             qg = (q.float() * cfg.sm_scale).reshape(b, kk, hkv, group, hd)
             sc = torch.einsum("bqhgd,bLhd->bhgqL", qg, k_read)
-            sc = torch.where(valid, sc, torch.full_like(sc, -1e30))
+            if cap is not None:
+                sc = torch.tanh(sc / cap) * cap
+            valid = mask(ring, self.window(layer))[:, None, None]
+            sc = sc.masked_fill(~valid, -1e30)
             p = torch.softmax(sc, dim=-1)
             o = torch.einsum("bhgqL,bLhd->bqhgd", p, v_read)
             o = o.reshape(b, kk, cfg.n_heads * hd).to(dt)
-            x = x + self._proj(o, _at(lp["wo"], layer), "wo", ad, ids)
-            x = self._paged_mlp(x, lp, layer, ad, ids)
+            o = self._post_norm(self._proj(o, leaf("wo"), "wo", ad, ids),
+                                leaf, "attn_post_norm")
+            x = self._paged_mlp(x + o, lp, layer, ad, ids)
         return self._head_logits(params, x), cache
 
     def _verify_step_mla(self, params: Params, tokens: torch.Tensor,
-                         cache: Params, positions: torch.Tensor,
-                         valid: torch.Tensor, active: torch.Tensor,
-                         rows: torch.Tensor, slots: torch.Tensor
+                         cache: Params, rope_pos: torch.Tensor,
+                         valid: torch.Tensor, rows: torch.Tensor,
+                         slots: torch.Tensor, write: torch.Tensor
                          ) -> tuple[torch.Tensor, Params]:
         """``verify_step`` of an MLA model (the JAX ``_verify_step_mla``),
-        in the absorbed form on the contiguous latent cache: each active
-        row's latent and rope key (int8 with their ``_kv_quant`` scales in
-        an int8 cache) written at its (row, slot) pair, the query folded
-        through w_uk and the softmax-weighted latent through w_uv, in plain
-        f32 (the JAX package has no kernel here); ``valid`` (B, 1, K, L)
-        keeps each query to positions <= its own."""
+        in the absorbed form on the contiguous latent cache: each row's
+        latent and rope key (int8 with their ``_kv_quant`` scales in an
+        int8 cache) written at its (row, slot) pair where ``write``, the
+        query folded through w_uk and the softmax-weighted latent through
+        w_uv, in plain f32 (the JAX package has no kernel here); ``valid``
+        (B, 1, K, L) keeps each query to positions <= its own."""
         cfg = self.cfg
         b, kk = tokens.shape
         hd, r, hn, dt = (cfg.head_dim_, cfg.mla_latent_dim, cfg.n_heads,
@@ -1016,16 +1335,17 @@ class LlamaModel:
             h = rms_norm(x, self._norm_w(lp["attn_norm"][layer]),
                          cfg.norm_eps)
             q_nope, q_rope, c, kr = self._mla_project(h, lp, layer,
-                                                      positions)
+                                                      rope_pos)
             cc, krc = cache["c"][layer], cache["kr"][layer]
+            cs = krs = None
             if quant:
                 cs, krs = cache["c_scale"][layer], cache["kr_scale"][layer]
                 c, c_s = _kv_quant(c)                       # (B,K,r), (B,K)
                 kr, kr_s = _kv_quant(kr)
-                cs[rows, slots] = c_s[active]
-                krs[rows, slots] = kr_s[active]
-            cc[rows, slots] = c[active]
-            krc[rows, slots] = kr[active]
+                _write_rows(cs, rows, slots, c_s, write)
+                _write_rows(krs, rows, slots, kr_s, write)
+            _write_rows(cc, rows, slots, c, write)
+            _write_rows(krc, rows, slots, kr, write)
             c_read = _kv_dequant(cc, cs) if quant else cc.float()    # (B,L,r)
             kr_read = _kv_dequant(krc, krs) if quant else krc.float()
             q_lat = torch.einsum("bkhd,rhd->bkhr", q_nope.float() * scale,
@@ -1033,13 +1353,15 @@ class LlamaModel:
             sc = (torch.einsum("bkhr,blr->bhkl", q_lat, c_read)
                   + torch.einsum("bkhd,bld->bhkl", q_rope.float() * scale,
                                  kr_read))
-            sc = torch.where(valid, sc, torch.full_like(sc, -1e30))
+            sc = sc.masked_fill(~valid, -1e30)
             p = torch.softmax(sc, dim=-1)
             o_lat = torch.einsum("bhkl,blr->bkhr", p, c_read)
             o = torch.einsum("bkhr,rhd->bkhd", o_lat,
                              lp["w_uv"][layer].float().view(r, hn, hd))
-            x = x + _mm(o.reshape(b, kk, hn * hd).to(dt),
-                        _at(lp["wo"], layer), dt)
+            o = _mm(o.reshape(b, kk, hn * hd).to(dt), _at(lp["wo"], layer),
+                    dt)
+            x = x + self._post_norm(o, lambda n: lp[n][layer],
+                                    "attn_post_norm")
             x = self._paged_mlp(x, lp, layer)
         return self._head_logits(params, x), cache
 
@@ -1059,7 +1381,11 @@ class LlamaModel:
         shape (L, n_pages + 1, T, r) and (L, n_pages + 1, T, dr), the
         normed latent and the rotated rope key every head reads, in the
         compute dtype, or with ``quantize`` int8 plus per-position f32
-        scale sections ``c_scale``/``kr_scale`` (L, n_pages + 1, T)."""
+        scale sections ``c_scale``/``kr_scale`` (L, n_pages + 1, T).
+
+        A windowed interleave (pattern > 1) gets an arena too, as the
+        prefix pool of a contiguous loop over a linear cache; its paged
+        steps refuse it."""
         cfg = self.cfg
         dt = torch.int8 if quantize else cfg.dtype
         if cfg.is_mla:
@@ -1156,9 +1482,19 @@ class LlamaModel:
         x = rms_norm(x, self._norm_w(params["final_norm"]), self.cfg.norm_eps)
         return self._lm_head(params, x).float()
 
+    def _check_pageable(self) -> None:
+        """The JAX paged steps' refusal: a windowed interleave's split
+        ring/global cache cannot page."""
+        cfg = self.cfg
+        if cfg.sliding_window is not None and cfg.sliding_window_pattern != 1:
+            raise ValueError("paged decode covers uniform sliding windows "
+                             "only (pattern 1); the windowed interleave's "
+                             "split ring/global cache cannot page")
+
     def _paged_layers(self, params, tokens, arena, page_tables, lengths,
                       active, n_tokens, adapters=None,
                       adapter_ids=None) -> torch.Tensor:
+        self._check_pageable()
         cfg = self.cfg
         b, kk = tokens.shape
         dev = tokens.device
@@ -1193,6 +1529,8 @@ class LlamaModel:
         hd = cfg.head_dim_
         quant = "k_scale" in arena
         n = self.kv_shards(arena)
+        # every layer is the window's kind (pattern 1): the local table
+        rope = self._rope_for(cfg.sliding_window)
         lp = params["layers"]
         for layer in range(cfg.n_layers):
             # each leaf indexed where it is used: this loop is the decode
@@ -1201,7 +1539,7 @@ class LlamaModel:
             h = rms_norm(x, self._norm_w(lp["attn_norm"][layer]),
                          cfg.norm_eps)
             q, k, v = self._qkv(h, lambda n: _at(lp[n], layer), ad, ids,
-                                rope_pos)
+                                rope_pos, rope)
             kp, vp = (self._arena_layer(arena[name], layer, n)
                       for name in ("k", "v"))
             ks = vs = None
@@ -1219,8 +1557,10 @@ class LlamaModel:
             self._kv_write(vp, v, pages_bk, offs, n)
             o = self._paged_attend(q, kp, vp, ks, vs, page_tables, att_len,
                                    n)
-            x = x + self._proj(o.reshape(b, kk, cfg.n_heads * hd),
-                               _at(lp["wo"], layer), "wo", ad, ids)
+            o = self._proj(o.reshape(b, kk, cfg.n_heads * hd),
+                           _at(lp["wo"], layer), "wo", ad, ids)
+            x = x + self._post_norm(o, lambda n: lp[n][layer],
+                                    "attn_post_norm")
             x = self._paged_mlp(x, lp, layer, ad, ids)
         return x
 
@@ -1263,6 +1603,7 @@ class LlamaModel:
         (in one process the shards' dispatches together, over a process
         group each rank's redundant whole dispatch)."""
         kw = dict(sm_scale=self.cfg.sm_scale,
+                  logit_soft_cap=self.cfg.attn_logit_softcap,
                   sliding_window=self.cfg.sliding_window)
 
         def attend(qs, kps, vps, kss, vss):
@@ -1294,6 +1635,8 @@ class LlamaModel:
         names = (("mlp_norm", "router", "we_gate", "we_up", "we_down")
                  if self.cfg.n_experts else
                  ("mlp_norm", "w_gate", "w_up", "w_down"))
+        if self.cfg.post_norms:
+            names += ("mlp_post_norm",)
         return self._mlp(x, {n: _at(lp[n], layer) for n in names}, False,
                          ad, ids)
 
@@ -1306,7 +1649,9 @@ class LlamaModel:
         n_experts / n_experts_per_tok, so the capacity is every token and
         nothing drops, as in the JAX model. The router's aux losses are not
         computed (training an MoE model is not ported). ``ad`` adds each
-        row's multi-LoRA deltas to the dense MLP's three products."""
+        row's multi-LoRA deltas to the dense MLP's three products. With
+        ``post_norms`` the output passes ``mlp_post_norm`` before the
+        residual add."""
         cfg, dt = self.cfg, self.cfg.dtype
         h = rms_norm(x, self._norm_w(lp["mlp_norm"]), cfg.norm_eps)
         if not cfg.n_experts:
@@ -1314,15 +1659,17 @@ class LlamaModel:
             gate = (F.silu(gate) if cfg.mlp_activation == "silu"
                     else F.gelu(gate, approximate="tanh"))
             act = gate * self._proj(h, lp["w_up"], "w_up", ad, ids)
-            return x + self._proj(act, lp["w_down"], "w_down", ad, ids)
-        factor = (cfg.capacity_factor if train
-                  else cfg.n_experts / cfg.n_experts_per_tok)
-        y, _, _ = moe_mlp(h, lp["router"], lp["we_gate"], lp["we_up"],
-                          lp["we_down"],
-                          n_experts_per_tok=cfg.n_experts_per_tok,
-                          capacity_factor=factor, dtype=dt,
-                          norm_topk=cfg.router_norm_topk, with_losses=False)
-        return x + y
+            y = self._proj(act, lp["w_down"], "w_down", ad, ids)
+        else:
+            factor = (cfg.capacity_factor if train
+                      else cfg.n_experts / cfg.n_experts_per_tok)
+            y, _, _ = moe_mlp(h, lp["router"], lp["we_gate"], lp["we_up"],
+                              lp["we_down"],
+                              n_experts_per_tok=cfg.n_experts_per_tok,
+                              capacity_factor=factor, dtype=dt,
+                              norm_topk=cfg.router_norm_topk,
+                              with_losses=False)
+        return x + self._post_norm(y, lp.__getitem__, "mlp_post_norm")
 
     def _mla_project(self, h, lp, layer: Optional[int], positions):
         """Port of the JAX ``_mla_project``: q_nope (B,K,H,hd), q_rope
@@ -1396,7 +1743,9 @@ class LlamaModel:
                     sm_scale=cfg.sm_scale)
             o = torch.einsum("bkhr,rhd->bkhd", o_lat,
                              lp["w_uv"][layer].float().view(r, hn, hd))
-            x = x + _mm(o.reshape(b, kk, hn * hd).to(dt),
-                        _at(lp["wo"], layer), dt)
+            o = _mm(o.reshape(b, kk, hn * hd).to(dt), _at(lp["wo"], layer),
+                    dt)
+            x = x + self._post_norm(o, lambda n: lp[n][layer],
+                                    "attn_post_norm")
             x = self._paged_mlp(x, lp, layer)
         return x

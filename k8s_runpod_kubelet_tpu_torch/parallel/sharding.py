@@ -86,6 +86,9 @@ def layer_axes(cfg) -> dict:
     if cfg.qk_norm:
         layer.update({"q_norm": ("layer", "norm"),
                       "k_norm": ("layer", "norm")})
+    if cfg.post_norms:
+        layer.update({"attn_post_norm": ("layer", "norm"),
+                      "mlp_post_norm": ("layer", "norm")})
     if cfg.qkv_bias:
         layer.update({"wq_b": ("layer", "heads"),
                       "wk_b": ("layer", "kv_heads"),

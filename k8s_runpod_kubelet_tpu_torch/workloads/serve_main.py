@@ -804,6 +804,24 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--max-queue-depth", type=int, default=0,
                    help="requests queued past this get 429 + Retry-After "
                         "(0 = unbounded)")
+    p.add_argument("--prefix-cache", default="on", choices=["on", "off"],
+                   help="the cross-request paged prefix cache (off: no KV "
+                        "arena, the contiguous decode loop, and POST /prefix "
+                        "through the dense prefix store)")
+    p.add_argument("--paged-decode", default="auto", choices=["auto", "off"],
+                   help="the decode loop on page tables over the arena "
+                        "(auto: whenever the layout pages; off: the "
+                        "contiguous loop over one batch cache)")
+    p.add_argument("--paged-prefill", default="auto", choices=["auto", "off"],
+                   help="prefill chunks straight into the prompt's arena "
+                        "pages (auto: with the paged loop; off: the "
+                        "dense-scratch route and a page copy at admission)")
+    p.add_argument("--ring-cache", default="auto",
+                   choices=["auto", "on", "off"],
+                   help="ring KV cache for windowed models on the "
+                        "contiguous loop: the windowed layers keep ~window "
+                        "positions while --cache-len stays the budget "
+                        "(auto: when the ring is shorter than --cache-len)")
     p.add_argument("--flight-recorder", default="on", choices=["on", "off"],
                    help="the per-decode-step timeline at GET /debug/steps")
     p.add_argument("--tensor-parallel", type=int, default=1, metavar="N",
@@ -848,8 +866,11 @@ def build_engine(args: argparse.Namespace, params=None):
     mesh of N shards (and takes a given bf16 tree over). Raises ValueError
     for --int8 with --int4, a tensor degree below 1 or one that does not
     divide the head counts, and an MLA or MoE model under N > 1, all
-    before any weight is drawn or loaded, as is ``--lora-rank`` with an
-    MLA model."""
+    before any weight is drawn or loaded, as are ``--lora-rank`` with an
+    MLA model and what the decode loop the flags select refuses
+    (``--paged-decode off``, ``--prefix-cache off`` or a windowed
+    interleave serve from the contiguous loop, which takes no
+    ``--speculate``, ``--lora-rank`` or ``--tensor-parallel``)."""
     from ..models import MODEL_CONFIGS, init_params
     from ..models.convert import load_hf
     from ..models.quant import init_quantized_params
@@ -872,7 +893,6 @@ def build_engine(args: argparse.Namespace, params=None):
                          f"head counts (n_heads={cfg.n_heads}, "
                          f"n_kv_heads={cfg.n_kv_heads})")
     check_tensor_parallel(cfg, n)
-    mesh = make_mesh(MeshConfig(data=1, tensor=n)) if n > 1 else None
     # before the weights: a bad tokenizer directory fails fast
     tokenizer = get_tokenizer(args.tokenizer)
     sc = ServingConfig(
@@ -889,8 +909,15 @@ def build_engine(args: argparse.Namespace, params=None):
         kv_arena_sharding=args.kv_arena_sharding,
         lora_rank=args.lora_rank,
         lora_targets=tuple(t for t in args.lora_targets.split(",") if t),
-        max_adapters=args.max_adapters)
-    ServingEngine.lora_dims(cfg, sc)   # before any weight
+        max_adapters=args.max_adapters,
+        prefix_cache_enabled=args.prefix_cache == "on",
+        paged_decode=None if args.paged_decode == "auto" else False,
+        paged_prefill=None if args.paged_prefill == "auto" else False,
+        ring_cache={"auto": None, "on": True, "off": False}[args.ring_cache])
+    # the engine's checks of these settings, before any weight
+    ServingEngine.lora_dims(cfg, sc)
+    ServingEngine.check_loop(cfg, sc, n)
+    mesh = make_mesh(MeshConfig(data=1, tensor=n)) if n > 1 else None
     device = resolve_device(args.device)
     if params is None and args.hf_checkpoint:
         params = load_hf(cfg, args.hf_checkpoint, device=device)
@@ -918,9 +945,10 @@ def main(argv=None) -> int:
     httpd = serve(engine, args.port, tokenizer=tokenizer,
                   allow_adapters=args.dynamic_adapters)
     snap = engine.debug_snapshot()
-    log.info("serving %s on :%d (%s, weights %s, kv %s, tensor-parallel "
-             "%d)", snap["model"], httpd.server_address[1], snap["device"],
-             snap["weights"], snap["kv"], snap["paged_tp_shards"])
+    log.info("serving %s on :%d (%s, weights %s, kv %s, cache %s, "
+             "tensor-parallel %d)", snap["model"], httpd.server_address[1],
+             snap["device"], snap["weights"], snap["kv"],
+             snap["cache_layout"], max(1, snap["paged_tp_shards"]))
     try:
         threading.Event().wait()
     except KeyboardInterrupt:

@@ -1,5 +1,12 @@
-"""Continuous-batching serving engine over a paged KV arena (port of the
-paged loop of the JAX package's ``workloads/serving/engine.py``).
+"""Continuous-batching serving engine (port of the JAX package's
+``workloads/serving/engine.py``): the paged loop over a KV arena, and the
+contiguous loop over one batch cache.
+
+The paged loop runs whenever the layout pages (not a windowed interleave,
+not ``ring_cache=True``), the prefix cache is on and ``paged_decode`` does
+not turn it off, as in the JAX engine; everything else serves from the
+contiguous loop (the last item below). The items before it describe the
+paged loop.
 
 - **Prefill thread**: pops submitted requests, matches each prompt against
   the prefix trie, allocates the prompt's whole page run up front and
@@ -69,6 +76,19 @@ paged loop of the JAX package's ``workloads/serving/engine.py``).
   step. ``CompileWatchdog`` (``recorder.py``) counts the captures;
   ``debug_snapshot()["graphs"]`` reads them with the replays. Prefill
   chunks stay eager.
+- **Contiguous loop**: one batch cache of ``slots`` rows (linear, a ring
+  of ``_pick_ring_len`` slots for a uniform window, or for Gemma 2 and 3
+  rings for the local layers and full length for the global ones), each
+  step one replay of ``decode_step`` (``step_graph.DecodeGraph``, the
+  watchdog's ``decode``). The prefill thread fills a single-request cache
+  (``prefill`` for the head, ``prefill_chunk_step`` for the rest) and the
+  engine thread copies it into the free row in place
+  (``insert_into_slot``). With the prefix cache on and a linear layout,
+  prompts match the paged prefix pool and gather from it (the
+  dense-scratch route); otherwise registered prefixes live whole in a
+  ``DensePrefixStore`` and a prompt copies the longest one's cache before
+  appending to it. Speculative decoding, multi-LoRA and a tensor mesh are
+  refused here (ROADMAP Queue 1 #3.1-#3.3).
 - **Multi-LoRA**: with ``lora_rank`` > 0 the engine holds zero stacks for
   ``max_adapters`` adapters over ``lora_targets`` (slot 0 stays zero: the
   base model), allocated once on its device. ``register_adapter`` writes
@@ -105,13 +125,13 @@ from ...models.llama import LlamaConfig, LlamaModel, Params
 from ...models.lora import LORA_TARGETS, is_lora
 from ...models.quant import quantize_params
 from ...parallel.sharding import shard_params
-from .kv_manager import PagedKVStore, PoolExhausted
+from .kv_manager import DensePrefixStore, PagedKVStore, PoolExhausted
 from .recorder import CompileWatchdog, FlightRecorder
 from .sampler import (_apply_penalties, _bias_row, _logit_modded,
                       _penalized, _sample)
 from .scheduler import (ChunkArbiter, EngineDraining, EngineOverloaded,
                         Request, ServingConfig, _fail_future, _Slot)
-from .step_graph import StepGraph
+from .step_graph import DecodeGraph, StepGraph
 
 log = logging.getLogger(__name__)
 
@@ -172,34 +192,40 @@ class ServingEngine:
             raise ValueError("speculate_k, serving_chunk_tokens and "
                              "max_prefixes must be >= 0")
         t = sc.kv_page_tokens
-        if not 1 <= t < sc.cache_len:
-            raise ValueError(f"kv_page_tokens must be in [1, cache_len), "
-                             f"got {t}")
+        if t < 1:
+            raise ValueError(f"kv_page_tokens must be >= 1, got {t}")
         if sc.cache_len > cfg.max_seq_len:
             raise ValueError(f"cache_len {sc.cache_len} exceeds the model's "
                              f"max_seq_len {cfg.max_seq_len}")
-        slot_pages = -(-sc.cache_len // t)
-        # a uniform sliding window's ring run (the JAX engine's _window and
-        # _win_pages): table entry j >= _win_pages recycles entry
-        # j - _win_pages; the +2 covers the window's edge inside a page and
-        # the entry being written
-        self._window = cfg.sliding_window
-        self._win_pages = (cfg.sliding_window // t + 2
-                           if cfg.sliding_window is not None else 0)
-        # pages recycled since the last step record (engine thread only)
-        self._ring_recycled = 0
         if sc.kv_pool_pages < 0 or sc.max_queue_depth < 0:
             raise ValueError("kv_pool_pages (0 = auto) and max_queue_depth "
                              "(0 = unbounded) must be >= 0")
-        if 0 < sc.kv_pool_pages < sc.slots * slot_pages:
-            # the decode slots live in the arena
-            raise ValueError(
-                f"kv_pool_pages must be 0 (auto) or >= slots * "
-                f"ceil(cache_len / kv_page_tokens) = {sc.slots * slot_pages}"
-                f", got {sc.kv_pool_pages}")
-        # auto: one decode cache's worth for the slots plus as much again
-        # for the shared prefix pool (the JAX engine's auto sizing)
-        n_pages = sc.kv_pool_pages or 2 * sc.slots * slot_pages
+        slot_pages = -(-sc.cache_len // t)
+        self._paged_loop, self._paged_prefill_on, self._ring_len = \
+            self.check_loop(cfg, sc, mesh.tensor if mesh is not None else 1)
+        uniform_window = (cfg.sliding_window is not None
+                          and cfg.sliding_window_pattern == 1)
+        # a uniform sliding window's ring run on the paged loop (the JAX
+        # engine's _window and _win_pages): table entry j >= _win_pages
+        # recycles entry j - _win_pages; the +2 covers the window's edge
+        # inside a page and the entry being written
+        self._window = (cfg.sliding_window
+                        if self._paged_loop and uniform_window else None)
+        self._win_pages = (self._window // t + 2
+                           if self._window is not None else 0)
+        # pages recycled since the last step record (engine thread only)
+        self._ring_recycled = 0
+        # the paged prefix pool: on the paged loop, and on the contiguous
+        # loop over a linear layout with the prefix cache on; otherwise
+        # registered prefixes live whole in the dense store
+        pageable = (sc.prefix_cache_enabled and self._ring_len is None
+                    and t < sc.cache_len)
+        # auto: on the paged loop one decode cache's worth for the slots
+        # plus as much again for the shared prefix pool, else one decode
+        # cache's worth (the JAX engine's auto sizing)
+        n_pages = sc.kv_pool_pages or max(
+            1, 2 * sc.slots * slot_pages if self._paged_loop
+            else sc.slots * sc.cache_len // t)
         dims = self.lora_dims(cfg, sc)
         if sc.quantize_int8 or sc.quantize_int4:
             # on the params' device, one layer slice at a time; leaves
@@ -209,11 +235,24 @@ class ServingEngine:
         # quantize first, then shard, as the JAX engine does
         self.params = shard_params(cfg, params, mesh)
         self.model = LlamaModel(cfg, self.device, mesh)
-        arena = self.model.init_paged_arena(
-            n_pages, t, quantize=sc.quantize_kv_int8,
-            shard_kv=sc.kv_arena_sharding == "auto")
-        # the arena's kv-head shards (1: one arena every shard reads)
-        self._arena_shards = self.model.kv_shards(arena)
+        self._kv_store: Optional[PagedKVStore] = None
+        self._dense_prefixes: Optional[DensePrefixStore] = None
+        self._arena_shards = 1
+        if pageable:
+            arena = self.model.init_paged_arena(
+                n_pages, t, quantize=sc.quantize_kv_int8,
+                shard_kv=sc.kv_arena_sharding == "auto")
+            # the arena's kv-head shards (1: one arena every shard reads)
+            self._arena_shards = self.model.kv_shards(arena)
+            self._kv_store = PagedKVStore(n_pages, t, arena,
+                                          shards=self._arena_shards)
+        else:
+            self._dense_prefixes = DensePrefixStore(
+                max_adapter_variants=sc.max_prefixes)
+        # the contiguous loop's batch cache; the paged loop's slots live
+        # in the arena
+        self._cache = (None if self._paged_loop
+                       else self._fresh_cache(sc.slots))
         # multi-LoRA: zero stacks over max_adapters + 1 slots, slot 0 the
         # base model forever, whole on every shard (adapters are small)
         self._adapters: Optional[dict] = None
@@ -236,8 +275,6 @@ class ServingEngine:
         self._adapter_readers: dict[int, int] = {}
         self._adapter_writing: set = set()
         self._slot_adapter = np.zeros((sc.slots,), np.int32)
-        self._kv_store = PagedKVStore(n_pages, t, arena,
-                                      shards=self._arena_shards)
         self._slot_pages_max = slot_pages
         # the decode and verify steps as CUDA graphs over static slot
         # buffers, captured at start() on a card (the JAX engine's jitted
@@ -249,13 +286,20 @@ class ServingEngine:
             FlightRecorder(max_steps=sc.recorder_steps,
                            max_bytes=sc.recorder_bytes)
             if sc.flight_recorder else None)
+        paged = self._paged_loop
         self._paged_step = self.watchdog.wrap(
-            "paged_step", StepGraph(self.model, 1, sc.slots, slot_pages))
+            "paged_step", StepGraph(self.model, 1, sc.slots, slot_pages)
+            if paged else None)
         # a windowed engine decodes one token a step: no verify graph
         self._paged_verify = self.watchdog.wrap(
             "paged_verify", StepGraph(self.model, sc.speculate_k + 1,
                                       sc.slots, slot_pages)
-            if sc.speculate_k > 0 and self._window is None else None)
+            if paged and sc.speculate_k > 0 and self._window is None
+            else None)
+        # the contiguous loop's decode step over the batch cache (the JAX
+        # engine's jitted ``decode``)
+        self._decode = self.watchdog.wrap(
+            "decode", None if paged else DecodeGraph(self.model, sc.slots))
         # per-slot page tables, host side; entries past a slot's run stay
         # 0, a valid page id the kernel never reads (it stops at the run)
         self._page_tables_np = np.zeros((sc.slots, slot_pages), np.int32)
@@ -311,11 +355,16 @@ class ServingEngine:
             # chunk tensors outside the arena lock)
             pool = torch.cuda.graph_pool_handle()
             for g in self._graphs():
-                g.capture(self.params, self._kv_store.arena, pool,
+                g.capture(self.params, self._step_state(), pool,
                           self._adapters)
         self._thread.start()
         self._prefill_thread.start()
         return self
+
+    def _step_state(self) -> dict:
+        """What the decode graphs step over: the arena, or the contiguous
+        loop's batch cache."""
+        return self._kv_store.arena if self._paged_loop else self._cache
 
     def stop(self):
         self._stop.set()
@@ -435,9 +484,15 @@ class ServingEngine:
 
     def prefix_cache_stats(self) -> dict:
         with self._prefix_lock:
-            out = self._kv_store.stats()
-            out["page_bytes"] = self._kv_store.page_bytes
-            out["page_bytes_per_shard"] = self._kv_store.page_bytes_per_shard
+            if self._kv_store is not None:
+                out = self._kv_store.stats()
+                out["page_bytes"] = self._kv_store.page_bytes
+                out["page_bytes_per_shard"] = \
+                    self._kv_store.page_bytes_per_shard
+            else:
+                out = {"pages_total": 0, "pages_free": 0, "pages_shared": 0,
+                       "nodes": 0, "pinned": 0, "adapters": [],
+                       "dense_entries": len(self._dense_prefixes)}
             out["registered"] = len(self._registered)
         out["page_tokens"] = self.sc.kv_page_tokens
         return out
@@ -450,7 +505,9 @@ class ServingEngine:
         (ValueError past it: each pins arena pages for the engine's life).
         The prefix's tail past its last full page still prefills per
         request. A pool too full for an up-front run prefills through the
-        dense-scratch route and pins the pages it can cache."""
+        dense-scratch route and pins the pages it can cache. Without a
+        paged pool (a ring or mixed cache, or the prefix cache off) the
+        prefix's whole single-request cache enters the dense store."""
         vocab = self.cfg.vocab_size
         if not tokens:
             raise ValueError("empty prefix")
@@ -464,7 +521,7 @@ class ServingEngine:
             if tokens in self._registered:
                 return
             self._check_registry_room()
-        _, single, _ = self._prefill_tokens(tokens)
+        logits, single, _ = self._prefill_tokens(tokens)
         run = single if isinstance(single, _PagedRun) else None
         with self._prefix_lock:
             try:
@@ -474,7 +531,10 @@ class ServingEngine:
                 # registry while this one prefilled outside the lock
                 self._check_registry_room()
                 self._registered.append(tokens)
-                if run is None:
+                if self._dense_prefixes is not None:
+                    if not self._dense_prefixes.has(tokens):
+                        self._dense_prefixes.add(tokens, (logits, single))
+                elif run is None:
                     _, evicted = self._kv_store.insert(0, tokens, single,
                                                        pin=True)
                     self._count("prefix_cache_evictions", evicted)
@@ -647,8 +707,8 @@ class ServingEngine:
         return release
 
     def _graphs(self) -> list:
-        return [g for g in (self._paged_step, self._paged_verify)
-                if g is not None]
+        return [g for g in (self._paged_step, self._paged_verify,
+                            self._decode) if g is not None]
 
     def graphs_snapshot(self) -> dict:
         """The watchdog's per-graph capture counts, with each graph's
@@ -707,13 +767,15 @@ class ServingEngine:
             if r is None:
                 slots.append({"slot": i, "state": "free"})
                 continue
-            slots.append({"slot": i, "state": "decoding", "rid": r.rid,
-                          "age_s": round(now - r.submitted_at, 4),
-                          "prompt_tokens": len(r.prompt),
-                          "generated_tokens": len(s.generated),
-                          "remaining_tokens": s.remaining,
-                          "pages": len(s.pages),
-                          "adapter_id": r.adapter_id})
+            entry = {"slot": i, "state": "decoding", "rid": r.rid,
+                     "age_s": round(now - r.submitted_at, 4),
+                     "prompt_tokens": len(r.prompt),
+                     "generated_tokens": len(s.generated),
+                     "remaining_tokens": s.remaining,
+                     "adapter_id": r.adapter_id}
+            if self._paged_loop:
+                entry["pages"] = len(s.pages)
+            slots.append(entry)
         with self._count_lock:
             counters = dict(self.counters)
         sc, dtype = self.sc, str(self.cfg.dtype).removeprefix("torch.")
@@ -730,10 +792,16 @@ class ServingEngine:
                 "max_slots": self.sc.slots, "queue_depth": self.queue_depth,
                 "ready_queue": self._ready.qsize(),
                 "in_transit": self._transit, "cache_len": self.sc.cache_len,
-                "paged_decode": True, "paged_prefill": True,
+                "paged_decode": self._paged_loop,
+                "paged_prefill": self._paged_prefill_on,
+                # the contiguous loop's batch cache: linear, a ring (a
+                # uniform window) or mixed (rings and full-length sections)
+                "cache_layout": self._cache_layout(),
+                "ring_len": self._ring_len,
                 # the tensor degree the paged loop runs at (the JAX
-                # engine's tpu_serving_paged_tp_shards): 1 on one device
-                "paged_tp_shards": self.model.tp,
+                # engine's tpu_serving_paged_tp_shards): 1 on one device,
+                # 0 with the loop off
+                "paged_tp_shards": self.model.tp if self._paged_loop else 0,
                 "kv_arena_shards": self._arena_shards,
                 "speculate_k": sc.speculate_k,
                 "sliding_window": self._window,
@@ -746,6 +814,20 @@ class ServingEngine:
                 "graphs": self.graphs_snapshot(),
                 "total_generated": self.total_generated,
                 "last_error": self.last_error}
+
+    def _cache_layout(self) -> str:
+        """The contiguous loop's cache layout ("paged" on the paged
+        loop)."""
+        if self._paged_loop:
+            return "paged"
+        return self.contiguous_layout(self.cfg, self._ring_len)
+
+    @staticmethod
+    def contiguous_layout(cfg: LlamaConfig, ring_len: Optional[int]) -> str:
+        """The layout ``contiguous_cache`` builds for ``ring_len``."""
+        if ring_len is None:
+            return "linear"
+        return "mixed" if cfg.sliding_window_pattern > 1 else "ring"
 
     # -- submission -----------------------------------------------------------
 
@@ -922,10 +1004,14 @@ class ServingEngine:
         """A whole prompt -> (last logits (1, V), a _PagedRun or a dense
         single-request cache, tokens served from the prefix cache). The
         native route scatters straight into an up-front page run; when the
-        pool cannot hold that run, or with ``single_only`` (fanout
-        groups), the prompt takes the dense-scratch route. ``adapter_id``
-        picks the adapter and the trie root."""
-        if not single_only:
+        pool cannot hold that run, with ``single_only`` (fanout groups),
+        with ``paged_prefill`` off and on the contiguous loop over a paged
+        pool, the prompt takes the dense-scratch route. Without a paged
+        pool it goes through the dense prefix store (``_prefill_dense``).
+        ``adapter_id`` picks the adapter and the trie root."""
+        if self._kv_store is None:
+            return self._prefill_dense(tokens, adapter_id)
+        if self._paged_prefill_on and not single_only:
             out = self._prefill_paged_native(tokens, adapter_id)
             if out is not None:
                 return out
@@ -975,15 +1061,159 @@ class ServingEngine:
             log.exception("prefix-cache insert failed; serving uncached")
         return last_logits, single, m.matched_tokens
 
-    def _fresh_cache(self) -> dict:
-        return self.model.init_cache(1, self.sc.cache_len,
-                                     quantize=self.sc.quantize_kv_int8)
+    def _prefill_dense(self, tokens: list[int], adapter_id: int = 0
+                       ) -> tuple[torch.Tensor, dict, int]:
+        """The registered-prefix path of the contiguous loop without a
+        paged pool (the JAX ``_prefill_dense``): the longest registered
+        prefix wins, its cache is copied (the store's stays as
+        registered) and the rest of the prompt appends to the copy. No
+        hit: the whole prompt through ``_prefill_raw``. The loop serves no
+        adapters (ROADMAP Queue 1 #3.2), so every prompt takes the base
+        variant."""
+        with self._prefix_lock:
+            entry = self._dense_prefixes.lookup(tokens)
+            if entry is not None:
+                last_logits, cached = entry.variants[0]
+                single = {k: v.clone() for k, v in cached.items()}
+        if entry is None:
+            last_logits, single = self._prefill_raw(tokens, adapter_id)
+            return last_logits, single, 0
+        self._count("prefix_hits")
+        last_logits, single = self._append_chunks(
+            single, tokens[len(entry.tokens):], last_logits, adapter_id)
+        return last_logits, single, len(entry.tokens)
+
+    def _fresh_cache(self, batch: int = 1) -> dict:
+        """One construction path for every contiguous cache (the batch
+        cache and prefill singles; the JAX ``_fresh_cache``): linear, or
+        with a ring length a ring (uniform window) or a mixed cache
+        (interleave)."""
+        return self.contiguous_cache(self.model, self.sc, self._ring_len,
+                                     batch)
+
+    @staticmethod
+    def contiguous_cache(model: LlamaModel, sc: ServingConfig,
+                         ring_len: Optional[int], batch: int = 1) -> dict:
+        """A contiguous cache of ``batch`` rows for ``sc``: linear without
+        a ring length, else a ring (uniform window) or a mixed cache
+        (interleave) of ``ring_len`` slots a windowed layer."""
+        quant = sc.quantize_kv_int8
+        if ring_len is None:
+            return model.init_cache(batch, sc.cache_len, quantize=quant)
+        if model.cfg.sliding_window_pattern > 1:
+            return model.init_mixed_cache(batch, sc.cache_len, ring_len,
+                                          quantize=quant)
+        return model.init_ring_cache(batch, ring_len, quantize=quant)
+
+    @staticmethod
+    def _pick_ring_len(cfg: LlamaConfig, sc: ServingConfig) -> Optional[int]:
+        """The ring length of the windowed layers on the contiguous loop,
+        or None for a linear cache (the JAX ``_pick_ring_len``, verbatim,
+        so the two engines' caches have one shape): the window plus the
+        most tokens one call writes, a prefill chunk padded to the JAX
+        engine's pow2 bucket (capped at max_prefill_len; the port's chunks
+        are exact, so this is slack to spare) or a verify width, rounded
+        up to 128. Auto stays linear when the ring would not be shorter
+        than cache_len."""
+        windowed = cfg.sliding_window is not None
+        if sc.ring_cache is False or (sc.ring_cache is None and not windowed):
+            return None
+        if not windowed:
+            raise ValueError("ring_cache=True needs a model with a "
+                             "sliding window")
+        if sc.serving_chunk_tokens:
+            b = 16
+            while b < sc.serving_chunk_tokens:
+                b *= 2
+            eff = max(sc.serving_chunk_tokens, min(b, sc.max_prefill_len))
+        else:
+            eff = sc.max_prefill_len
+        slack = max(eff, sc.speculate_k + 1)
+        ring = -(-(cfg.sliding_window + slack) // 128) * 128
+        if sc.ring_cache is None and ring >= sc.cache_len:
+            return None  # no memory win: stay linear
+        return ring
+
+    @staticmethod
+    def check_loop(cfg: LlamaConfig, sc: ServingConfig, tensor: int = 1
+                   ) -> tuple[bool, bool, Optional[int]]:
+        """The decode loop ``sc`` selects for ``cfg`` (the JAX engine's
+        eligibility rule) under a tensor degree of ``tensor``: (the paged
+        loop, paged-native prefill, the contiguous loop's ring length or
+        None). The paged loop runs when the layout pages (a uniform window
+        does, the interleave's split cache does not), the prefix cache is
+        on (the arena holds the slots), pages are smaller than a slot, an
+        explicit pool holds every slot's residency and neither
+        ``paged_decode`` False nor ``ring_cache`` True turns it off.
+        Raises ValueError for a setting that cannot hold, and for what the
+        contiguous loop does not serve yet."""
+        t = sc.kv_page_tokens
+        slot_pages = -(-sc.cache_len // t)
+        ring_len = ServingEngine._pick_ring_len(cfg, sc)
+        layout_pageable = (cfg.sliding_window is None
+                           or cfg.sliding_window_pattern == 1)
+        pageable = (sc.prefix_cache_enabled and t < sc.cache_len
+                    and layout_pageable and sc.ring_cache is not True)
+        if (pageable and sc.paged_decode is not False
+                and 0 < sc.kv_pool_pages < sc.slots * slot_pages):
+            # the port refuses where the JAX engine would quietly leave the
+            # paged loop: the decode slots live in the arena
+            raise ValueError(
+                f"kv_pool_pages must be 0 (auto) or >= slots * "
+                f"ceil(cache_len / kv_page_tokens) = {sc.slots * slot_pages}"
+                f", got {sc.kv_pool_pages} (paged_decode=False serves a "
+                "smaller pool from the contiguous loop)")
+        eligible = pageable and (sc.kv_pool_pages == 0
+                                 or sc.kv_pool_pages >= sc.slots * slot_pages)
+        if sc.paged_decode is True and not eligible:
+            raise ValueError(
+                "paged_decode=True needs a pageable KV layout (plain dense, "
+                "int8-KV, MLA, MLA+int8, or a UNIFORM sliding window — the "
+                "windowed interleave's split ring/global cache cannot page, "
+                "and ring_cache=True pins the contiguous ring), "
+                "prefix_cache_enabled, "
+                "kv_page_tokens < cache_len, and kv_pool_pages 0 (auto) or "
+                f">= slots * ceil(cache_len / kv_page_tokens) = "
+                f"{sc.slots * slot_pages}")
+        paged = eligible and sc.paged_decode is not False
+        if sc.paged_prefill is True and not paged:
+            raise ValueError(
+                "paged_prefill=True needs the paged decode loop (a "
+                "paged_decode-eligible layout with paged_decode not "
+                "disabled) — the prefilled pages ARE the slot storage")
+        if paged:
+            # the window's memory win comes back as page recycling
+            return True, sc.paged_prefill is not False, None
+        ServingEngine._check_contiguous(cfg, sc, tensor)
+        return False, False, ring_len
+
+    @staticmethod
+    def _check_contiguous(cfg: LlamaConfig, sc: ServingConfig,
+                          tensor: int) -> None:
+        """What the contiguous loop does not serve yet, refused by name."""
+        if sc.speculate_k > 0:
+            raise ValueError(
+                f"{cfg.name}: speculative decoding on the contiguous loop "
+                "(a windowed interleave, the prefix cache off or "
+                "paged_decode off) is not ported (ROADMAP Queue 1 #3.1); "
+                "serve with speculate_k 0")
+        if sc.lora_rank > 0:
+            raise ValueError(
+                f"{cfg.name}: multi-LoRA on the contiguous loop is not "
+                "ported (ROADMAP Queue 1 #3.2); adapters ride the paged "
+                "loop")
+        if tensor > 1:
+            raise ValueError(
+                f"{cfg.name}: the contiguous loop under a tensor mesh is not "
+                "ported (ROADMAP Queue 1 #3.3); the paged loop serves "
+                "tensor-parallel")
 
     def _prefill_raw(self, tokens: list[int], adapter_id: int = 0
                      ) -> tuple[torch.Tensor, dict]:
-        """Prefill into a fresh single-request cache, no prefix cache: the
-        head (a chunk's length) through ``prefill``, the flash kernel, the
-        rest through ``_append_chunks``."""
+        """Prefill into a fresh single-request cache (linear, ring or
+        mixed), no prefix cache: the head (a chunk's length) through
+        ``prefill``, the flash kernel, the rest through
+        ``_append_chunks``."""
         single = self._fresh_cache()
         head = tokens[:self._chunk_tokens or self.sc.max_prefill_len]
         toks = torch.tensor([head], dtype=torch.int32, device=self.device)
@@ -1098,7 +1328,7 @@ class ServingEngine:
                     if not admitted:
                         self._stop.wait(0.002)
                     continue
-                self._decode_once_paged()
+                self._decode_once()
                 # wake a chunked prefill waiting for its one-step turn
                 self._arbiter.decode_step_done()
             except Exception as exc:  # noqa: BLE001 — survive a bad step
@@ -1142,12 +1372,17 @@ class ServingEngine:
         self._page_tables_np[:] = 0
         self._slot_adapter[:] = 0
         with self._prefix_lock:
-            arena = self._kv_store.arena
-            for section in arena.values():
-                section.zero_()
-            self._kv_store = PagedKVStore(self._kv_store.pool.n_pages,
-                                          self.sc.kv_page_tokens, arena,
-                                          shards=self._arena_shards)
+            if self._cache is not None:
+                # in place, as the arena: the decode graph holds pointers
+                for name, section in self._cache.items():
+                    section.fill_(-1 if name == "abs_pos" else 0)
+            if self._kv_store is not None:
+                arena = self._kv_store.arena
+                for section in arena.values():
+                    section.zero_()
+                self._kv_store = PagedKVStore(self._kv_store.pool.n_pages,
+                                              self.sc.kv_page_tokens, arena,
+                                              shards=self._arena_shards)
 
     def _admit(self) -> bool:
         admitted = False
@@ -1217,10 +1452,16 @@ class ServingEngine:
 
     def _admit_into_slot(self, slot_id: int, slot: _Slot, req: Request,
                          single, first: int, first_lp: Optional[float]):
-        """Bind the prefill's pages to a free slot and emit the first
-        token."""
-        if not self._bind_paged_slot(slot_id, slot, req, single):
-            return
+        """Bind the prefill's pages to a free slot (the paged loop), or copy
+        its single cache into the slot's row of the batch cache in place
+        (the contiguous loop), and emit the first token."""
+        if self._paged_loop:
+            if not self._bind_paged_slot(slot_id, slot, req, single):
+                return
+        else:
+            with self._prefix_lock:   # ordered with the decode replays
+                LlamaModel.insert_into_slot(self._cache, single, slot_id)
+            slot.kv_len = len(req.prompt)
         slot.bigram_index = {}
         slot.indexed_upto = 0
         slot.stop_tail = []
@@ -1303,6 +1544,27 @@ class ServingEngine:
             row[j] = page
             slot.table_len = j + 1
         return True
+
+    def _decode_once(self):
+        """One decode step of the loop the engine runs: on the contiguous
+        loop one replay of the decode graph over the batch cache and its
+        active mask (the JAX ``_decode_once``), then ``_commit_decode``."""
+        if self._paged_loop:
+            return self._decode_once_paged()
+        rec = self.recorder
+        if rec is not None:
+            rec.step_begin()
+        active = [s.request is not None for s in self._slots]
+        if rec is not None:
+            rec.mark("schedule")
+        with self._prefix_lock:
+            logits = self._decode(self.params, self._cache,
+                                  [s.last_token for s in self._slots],
+                                  active)
+            self._count("decode_steps")
+        if rec is not None:
+            rec.mark("kernel")
+        self._commit_decode(logits)
 
     def _decode_once_paged(self):
         """One decode step: slot-table growth, one replay of the decode
@@ -1546,10 +1808,12 @@ class ServingEngine:
             if self._finished(slot):
                 self._complete(slot_id, slot)
         if rec is not None:
+            arena = ({"arena": self._arena_step_stats()}
+                     if self._paged_loop else {})
             rec.step_end(mode="decode", active=n_active,
-                         draining=self._draining.is_set(), paged=True,
-                         adapters=adapters, tokens=n_active,
-                         arena=self._arena_step_stats())
+                         draining=self._draining.is_set(),
+                         paged=self._paged_loop, adapters=adapters,
+                         tokens=n_active, **arena)
 
     def _arena_step_stats(self) -> dict:
         """O(1) arena occupancy for a step record, and the window-ring
@@ -1617,9 +1881,10 @@ class ServingEngine:
         req = slot.request
         slot.request = None
         # shared prefix pages stay in the trie for the next hit; private
-        # tail pages free now
-        with self._prefix_lock:
-            self._kv_store.release(slot.pages)
+        # tail pages free now (the contiguous loop's slots hold none)
+        if slot.pages:
+            with self._prefix_lock:
+                self._kv_store.release(slot.pages)
         slot.pages = []
         slot.kv_len = 0
         slot.table_len = 0

@@ -2,7 +2,8 @@
 a free-list allocator, and a radix trie of copy-on-write-shared prefix KV.
 The host logic is a copy of the JAX package's
 ``workloads/serving/kv_manager.py`` (PagePool, PrefixTrie, PagedKVStore,
-plain layout), cut to what the paged loop calls.
+plain layout, DensePrefixStore), cut to what the two serving loops
+call.
 
 - **PagePool**: a free list plus per-page refcounts. A page is never
   handed out twice and returns to the free list exactly when its refcount
@@ -13,6 +14,10 @@ plain layout), cut to what the paged loop calls.
   reference held, so eviction can never free a page someone still reads;
   eviction is LRU over unpinned leaves (``register_prefix`` pins its
   path).
+- **DensePrefixStore**: registered prefixes as whole single-request
+  caches, for the contiguous loop (ring and mixed caches cannot page, and
+  with the prefix cache off there is no arena): longest prefix wins,
+  adapter variants fill lazily and are LRU-bounded.
 - **PagedKVStore**: the arena tensors behind both, from
   ``LlamaModel.init_paged_arena``, and the copies between the arena and a
   dense single-request cache (``LlamaModel.init_cache``): ``gather``
@@ -303,6 +308,81 @@ class PrefixTrie:
         """Pages serving more than one cached sequence or reader."""
         return sum(1 for n in self._nodes.values()
                    if n.children or self.pool.refcount(n.page) > 1)
+
+
+class DensePrefixStore:
+    """Registered prefixes for the contiguous loop (the JAX
+    ``DensePrefixStore``): a ring or mixed cache cannot page (position p
+    lives in ring slot p % R and early positions are overwritten by
+    design), so the faithful snapshot of a prefix is the whole
+    single-request cache at its end. Longest registered prefix wins;
+    per-adapter variants fill lazily (adapter deltas reach K/V) and are
+    LRU-bounded by ``max_adapter_variants``, while base variants stay
+    pinned. A variant is whatever the engine stores (its (last logits,
+    cache)); the engine copies a cache before appending to it. Not
+    thread-safe (the engine's lock)."""
+
+    @dataclasses.dataclass
+    class _Entry:
+        tokens: list
+        variants: dict
+        lru: dict = dataclasses.field(default_factory=dict)
+
+    def __init__(self, max_adapter_variants: int):
+        self.max_adapter_variants = max_adapter_variants
+        self._entries: list[DensePrefixStore._Entry] = []
+        self._clock = 0
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def lookup(self, tokens: list):
+        """Longest registered prefix of ``tokens`` (entries are kept
+        longest-first), or None."""
+        return next((e for e in self._entries
+                     if len(e.tokens) <= len(tokens)
+                     and tokens[:len(e.tokens)] == e.tokens), None)
+
+    def has(self, tokens: list) -> bool:
+        return any(e.tokens == tokens for e in self._entries)
+
+    def add(self, tokens: list, base_variant) -> None:
+        self._entries.append(self._Entry(tokens=list(tokens),
+                                         variants={0: base_variant}))
+        self._entries.sort(key=lambda e: -len(e.tokens))  # longest first
+
+    def touch(self, entry, adapter_id: int) -> None:
+        self._clock += 1
+        entry.lru[adapter_id] = self._clock
+
+    def put_variant(self, entry, adapter_id: int, var) -> bool:
+        """Store a lazily built adapter variant (False if a racing fill
+        won); evicts LRU adapter variants past the budget. Base variants
+        were registered explicitly and stay."""
+        if adapter_id in entry.variants:
+            return False
+        entry.variants[adapter_id] = var
+        self.touch(entry, adapter_id)
+        cap = self.max_adapter_variants
+        while True:
+            ad_vars = [(e.lru.get(aid, 0), e, aid)
+                       for e in self._entries
+                       for aid in e.variants if aid != 0]
+            if len(ad_vars) <= cap:
+                return True
+            _, victim, aid = min(ad_vars, key=lambda t: t[0])
+            del victim.variants[aid]
+            victim.lru.pop(aid, None)
+
+    def drop_adapter(self, adapter_id: int) -> None:
+        for e in self._entries:
+            e.variants.pop(adapter_id, None)
+            e.lru.pop(adapter_id, None)
+
+    def snapshot(self) -> list:
+        return [{"tokens": len(e.tokens),
+                 "adapter_variants": len(e.variants)}
+                for e in self._entries]
 
 
 class PagedKVStore:

@@ -1,8 +1,7 @@
 """Serving request/slot state, admission types and the chunk arbiter (port
 of the JAX package's ``workloads/serving/scheduler.py``, restricted to the
-fields the paged loop of this port uses; ``prefix_cache_enabled``, which
-turns the paged loop off in the reference, waits for the contiguous
-decode loop)."""
+fields the port's two decode loops use, the paged loop and the
+contiguous one)."""
 
 from __future__ import annotations
 
@@ -40,6 +39,29 @@ class ServingConfig:
     # int8 KV arena with per-(position, kv head) f32 scales: half the
     # arena's bytes, read through paged_attention_multi_quant
     quantize_kv_int8: bool = False
+    # ring KV cache for windowed models on the contiguous loop: a
+    # uniform window rings every layer, an interleave (Gemma 2 and 3) its
+    # local layers, at ~window + write slack positions while cache_len
+    # stays the logical budget. None = auto: on whenever the model has a
+    # window and the ring is smaller than cache_len; True forces it (an
+    # error without a window, and it keeps the paged loop off); False
+    # disables it
+    ring_cache: Optional[bool] = None
+    # the cross-request paged prefix cache: a trie of shared KV pages in
+    # one arena, which the paged loop's slots live in too. Off: no arena,
+    # the contiguous loop, and register_prefix through the dense store
+    prefix_cache_enabled: bool = True
+    # the decode loop on page tables over the arena. None = auto: on
+    # whenever the layout pages (not a windowed interleave, not
+    # ring_cache=True), the prefix cache is on, kv_page_tokens < cache_len
+    # and an explicit kv_pool_pages holds every slot; True raises if not;
+    # False keeps the contiguous loop
+    paged_decode: Optional[bool] = None
+    # paged-native prefill on the paged loop: chunks scatter straight into
+    # the prompt's pages. None = auto (on with the paged loop); False
+    # sends every prompt down the dense-scratch route; True raises
+    # without the paged loop
+    paged_prefill: Optional[bool] = None
     # speculative decoding by prompt lookup: draft this many tokens a step
     # and verify them in ONE paged_verify_step at K = speculate_k + 1.
     # Greedy slots commit every matched draft plus the corrected token;

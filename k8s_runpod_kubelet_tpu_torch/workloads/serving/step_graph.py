@@ -35,6 +35,14 @@ qwen2-7b, 36 and 145 at qwen3-8b. A zero-centered norm's (1 + w), a
 bias's add and a windowed model's band are plain ops or kernel arguments
 inside the same capture.
 
+``DecodeGraph`` is the contiguous loop's step (the JAX engine's jitted
+``decode_step``): ``decode_step`` over the engine's batch cache, fed by a
+staged (tokens, active) buffer, with no host sync inside (the step's
+``check`` off). Its graph bakes in the cache's sections and both RoPE
+tables. A replay launches ``rms_norm`` 2L + 1 times, 4L + 1 with sandwich
+norms or the q/k norm and 6L + 1 with both (gemma2-9b 169, gemma3-12b
+289, llama3-8b 65); its attention is the plain f32 einsum, no kernel.
+
 On the CPU the same staged buffers feed the eager step: the dispatch is on
 the model's device, as in the kernel wrappers, and not a fallback. On a
 card nothing falls back: a failed capture or replay raises.
@@ -42,6 +50,9 @@ card nothing falls back: a failed capture or replay raises.
 
 from __future__ import annotations
 
+import os
+import tempfile
+import warnings
 from typing import Optional
 
 import numpy as np
@@ -64,8 +75,9 @@ COUNTED = (paged_attention_multi, paged_attention_multi_quant,
            int4_expert_matmul, int4_matmul_sharded)
 
 # the kernel each multi-token wrapper launches once a call, by the name a
-# profiler reads (split-KV merges and int4 split reductions are other
-# kernels; the single-token forms launch the same kernels at K = 1)
+# profiler or a graph's description reads (split-KV merges and int4 split
+# reductions are other kernels; the single-token forms launch the same
+# kernels at K = 1)
 KERNEL_NAMES = {
     "paged_attention_multi": "paged_attention_multi_kernel",
     "paged_attention_multi_quant": "paged_attention_multi_quant_kernel",
@@ -84,6 +96,24 @@ WARMUP_STEPS = 2
 
 _SECTIONS = ("tokens", "lengths", "active", "n_tokens", "tables",
              "adapter_ids")
+
+
+def graph_kernels(graph: torch.cuda.CUDAGraph) -> dict:
+    """The kernel nodes of a captured graph, kept with ``keep_graph=True``,
+    counted by wrapper name (KERNEL_NAMES): what each replay launches,
+    read from the graph's own description (``cudaGraphDebugDotPrint``,
+    where a node's ``| {ID | n | name<<<grid>>>}`` line names its
+    kernel), not from a profiler trace (late in a long process on an
+    H100, every trace of a replay lost the same few records)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "graph.dot")
+        with warnings.catch_warnings():     # the dump's own debug notes
+            warnings.simplefilter("ignore")
+            graph.debug_dump(path)
+        with open(path) as f:
+            nodes = [line for line in f if line.startswith("| {ID |")]
+    return {w: sum(k in line for line in nodes)
+            for w, k in KERNEL_NAMES.items()}
 
 
 def _leaves(tree, out: list) -> list:
@@ -144,9 +174,11 @@ class StepGraph:
 
     def baked(self) -> dict:
         """Every tensor the captured graph holds a pointer to."""
+        m = self.model
         return {"params": self._params, "arena": self._arena,
                 "adapters": self._adapters,
-                "rope": {"cos": self.model.cos, "sin": self.model.sin},
+                "rope": {"cos": m.cos, "sin": m.sin,
+                         "cos_local": m.cos_local, "sin_local": m.sin_local},
                 "static": self.static}
 
     @staticmethod
@@ -196,9 +228,10 @@ class StepGraph:
                 self._step(params, arena, adapters)
         torch.cuda.current_stream(dev).wait_stream(side)
         before = [k.launches for k in COUNTED]
-        graph = torch.cuda.CUDAGraph()
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
         with torch.cuda.graph(graph, pool=pool):
             logits = self._step(params, arena, adapters)
+        graph.instantiate()
         # the capture ran nothing: its launches count at each replay
         self.launches_per_replay = {k.__name__: k.launches - n
                                     for k, n in zip(COUNTED, before)}
@@ -214,6 +247,11 @@ class StepGraph:
         self._key = self._key_of(params, arena, adapters)
         self.captures += 1
 
+    def kernels_in_graph(self) -> dict:
+        """The counted kernels each replay launches, from the captured
+        graph's nodes (``graph_kernels``)."""
+        return graph_kernels(self._graph)
+
     def run(self, params, arena, tokens, lengths, tables, active,
             n_tokens=None, adapters=None, adapter_ids=None) -> torch.Tensor:
         """One step over the host's values: tokens (B, K) (or (B,) at
@@ -223,11 +261,7 @@ class StepGraph:
         the base). Returns the logits: on a card the graph's static
         output, after a replay (and a capture first if params, the arena
         or the adapter stacks moved); on the CPU the eager step's."""
-        if self._cuda and self._key_of(params, arena, adapters) != self._key:
-            self.capture(params, arena, self._pool, adapters)
-        if self._cuda:
-            self._copied.synchronize()   # the last copy read the buffer
-        st = self._staged
+        st = self._stage(params, arena, adapters)
         active = np.asarray(active)
         st["tokens"][:] = np.asarray(tokens).reshape(self.slots, self.width)
         st["lengths"][:] = lengths
@@ -236,6 +270,22 @@ class StepGraph:
         st["n_tokens"][:] = (active * self.width if n_tokens is None
                              else n_tokens)
         st["adapter_ids"][:] = 0 if adapter_ids is None else adapter_ids
+        return self._launch(params, arena, adapters)
+
+    __call__ = run
+
+    def _stage(self, params, arena, adapters) -> dict:
+        """Capture again if a baked tensor moved, wait until the last
+        host-to-card copy has read the staging buffer, and return it."""
+        if self._cuda and self._key_of(params, arena, adapters) != self._key:
+            self.capture(params, arena, self._pool, adapters)
+        if self._cuda:
+            self._copied.synchronize()   # the last copy read the buffer
+        return self._staged
+
+    def _launch(self, params, arena, adapters) -> torch.Tensor:
+        """One host-to-card copy of the staged values, then the replay (or
+        on the CPU the eager step)."""
         self._dev.copy_(self._host, non_blocking=True)
         if not self._cuda:
             return self._step(params, arena, adapters)
@@ -245,5 +295,31 @@ class StepGraph:
             k.launches += self.launches_per_replay[k.__name__]
         self.replays += 1
         return self.logits
+
+
+class DecodeGraph(StepGraph):
+    """``decode_step`` of ``model`` over a contiguous batch cache of
+    ``slots`` rows, captured once and replayed (the module docstring). The
+    capture's warm-up steps run with every row inactive, which writes
+    nothing and advances no index."""
+
+    def __init__(self, model, slots: int):
+        super().__init__(model, 1, slots, 1)
+
+    def _step(self, params, cache, adapters=None) -> torch.Tensor:
+        s = self.static
+        logits, _ = self.model.decode_step(params, s["tokens"][:, 0], cache,
+                                           s["active"] != 0, check=False)
+        return logits
+
+    def run(self, params, cache, tokens, active) -> torch.Tensor:
+        """One step over the host's values, tokens (B,) and active (B,):
+        the cache's active rows take their token's K/V and advance their
+        index. Returns the logits (B, V) f32 (on a card the graph's static
+        output)."""
+        st = self._stage(params, cache, None)
+        st["tokens"][:] = np.asarray(tokens).reshape(self.slots, 1)
+        st["active"][:] = np.asarray(active)
+        return self._launch(params, cache, None)
 
     __call__ = run

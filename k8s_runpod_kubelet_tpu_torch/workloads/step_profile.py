@@ -14,6 +14,19 @@ Run on a machine with one NVIDIA card:
     python -m k8s_runpod_kubelet_tpu_torch.workloads.step_profile \
         --model gemma-7b | mistral-7b | qwen2-7b | qwen3-8b [--int4] [--kv-int8]
 
+A windowed interleave (``--model gemma2-9b`` or ``gemma3-12b``), and any
+model with ``--prefix-cache off``, serves from the contiguous loop: its
+decode step is profiled instead, eagerly and as a ``DecodeGraph`` replay
+in turns, over the batch cache a ``--cache-len 8192`` engine of 8 slots
+with 1024-token chunks builds (linear, ring or mixed, random values, the
+slots at the same contexts), with a 1024-token chunk through
+``prefill_chunk_step`` on a single cache of the same layout:
+
+    python -m k8s_runpod_kubelet_tpu_torch.workloads.step_profile \
+        --model gemma2-9b | gemma3-12b [--int4] [--kv-int8]
+    python -m k8s_runpod_kubelet_tpu_torch.workloads.step_profile \
+        --model llama3-8b --prefix-cache off
+
 With ``--seq N`` only training is profiled, at the same 16,384 tokens a
 step in rows of N x 2048 positions (``--seq 4``: batch 2 x 8192): the
 step on an in-process mesh of N sequence shards with ``ring_flash`` (ring
@@ -107,10 +120,15 @@ from ..device import resolve_device
 from ..models import MODEL_CONFIGS, LlamaModel, init_params
 from ..models.quant import init_quantized_params
 from ..parallel import MeshConfig, make_mesh, shard_params
-from .serving.step_graph import KERNEL_NAMES, StepGraph
+from .serving.engine import ServingEngine
+from .serving.scheduler import ServingConfig
+from .serving.step_graph import KERNEL_NAMES, DecodeGraph, StepGraph
 
 SEED = 0
 CHUNK = 1024                              # the engine's max_prefill_len
+# the contiguous loop's profiled engine: gemma2-9b's 4096 window rings
+# (5120 slots) only past 5120 positions
+CONTIG_CACHE_LEN = 8192
 STEPS = 10                                # profiled decode steps
 # one decode context length per slot (serve_main's default 8 slots): those
 # of the 200-900-token prompts the chip smoke serves
@@ -223,8 +241,8 @@ def _graph_turns(eager, graph: StepGraph, params, arena, host) -> dict:
            (("eager", eager), ("graph", replay), ("graph_2", replay),
             ("eager_2", eager))}
     want = {w: graph.launches_per_replay[w] for w in KERNEL_NAMES}
-    counts = kernel_counts(replay)
-    if counts != "not measured" and counts != want:
+    counts = graph.kernels_in_graph()
+    if counts != want:
         raise RuntimeError(f"one replay launched {counts}, the capture "
                            f"recorded {want}")
     return dict(out, kernels_in_one_replay=counts,
@@ -307,6 +325,9 @@ def main(argv=None) -> int:
                         "the same steps without")
     p.add_argument("--lora-targets", default="wq,wv",
                    help="the adapters' projections (with --lora-rank)")
+    p.add_argument("--prefix-cache", default="on", choices=["on", "off"],
+                   help="off: profile the contiguous loop's decode step "
+                        "(as does a windowed interleave either way)")
     p.add_argument("--seq", type=int, default=0, metavar="N",
                    help="profile only training: a ring step over N "
                         "sequence shards beside the unsharded step, rows "
@@ -342,6 +363,15 @@ def main(argv=None) -> int:
     out = {"card": card, "model": cfg.name, "torch": torch.__version__,
            "weights": "int4" if args.int4 else "bf16",
            "kv": "int8" if args.kv_int8 else "bf16"}
+    contiguous = (args.prefix_cache == "off"
+                  or (cfg.sliding_window is not None
+                      and cfg.sliding_window_pattern > 1))
+    if contiguous:
+        if args.tensor_parallel > 1 or args.lora_rank or args.speculate:
+            p.error("the contiguous loop takes no --tensor-parallel, "
+                    "--lora-rank or --speculate")
+        out.update(_contiguous(cfg, dev, params, args))
+        return _emit(out, args.out)
     if args.tensor_parallel > 1:
         out["tp1"] = _serving(cfg, dev, params, args, None)
         mesh = make_mesh(MeshConfig(tensor=args.tensor_parallel))
@@ -453,6 +483,85 @@ def _serving(cfg, dev, params, args, mesh) -> dict:
     return out
 
 
+def fill_contiguous_cache(cache: dict, gen, lengths) -> None:
+    """Fill a contiguous cache's sections with random values, each row's
+    index at ``lengths`` and a ring's ``abs_pos`` at the last position
+    below it that each slot holds."""
+    for name, a in cache.items():
+        if name in ("index", "abs_pos"):
+            continue
+        if a.dtype == torch.int8:
+            a.copy_(torch.randint(-127, 128, a.shape, generator=gen,
+                                  device=a.device, dtype=torch.int8))
+        elif name.endswith("scale"):
+            a.uniform_(0.005, 0.02, generator=gen)
+        else:
+            a.normal_(generator=gen)
+    idx = cache["index"]
+    idx.copy_(lengths)
+    if "abs_pos" in cache:
+        r = cache["abs_pos"].shape[1]
+        slot = torch.arange(r, device=idx.device)[None, :]
+        last = idx.long()[:, None] - 1
+        held = last - (last - slot) % r
+        cache["abs_pos"].copy_(torch.where(held >= 0, held, -1))
+
+
+def _contiguous(cfg, dev, params, args) -> dict:
+    """The contiguous loop's steps: the batch cache of an engine with 8
+    slots, ``CONTIG_CACHE_LEN`` positions and ``CHUNK``-token chunks (its
+    ``_pick_ring_len``), random values, the slots at ``DECODE_LENGTHS``;
+    the decode step eagerly and as a ``DecodeGraph`` replay in turns, and
+    one ``CHUNK``-token ``prefill_chunk_step`` on a single cache of the
+    same layout. Each decode call advances the slots' indices by one."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    b = len(DECODE_LENGTHS)
+    sc = ServingConfig(slots=b, cache_len=CONTIG_CACHE_LEN,
+                       max_prefill_len=CONTIG_CACHE_LEN // 2,
+                       serving_chunk_tokens=CHUNK, prefix_cache_enabled=False,
+                       quantize_kv_int8=args.kv_int8)
+    ring = ServingEngine._pick_ring_len(cfg, sc)
+    model = LlamaModel(cfg, dev)
+
+    def fresh(batch):
+        return ServingEngine.contiguous_cache(model, sc, ring, batch)
+
+    cache = fresh(b)
+    lengths = torch.tensor(DECODE_LENGTHS, dtype=torch.int32, device=dev)
+    fill_contiguous_cache(cache, gen, lengths)
+    tokens = torch.randint(0, cfg.vocab_size, (b,), generator=gen,
+                           device=dev, dtype=torch.int32)
+    single = fresh(1)
+    fill_contiguous_cache(single, gen,
+                          torch.zeros(1, dtype=torch.int32, device=dev))
+    chunk = torch.randint(0, cfg.vocab_size, (1, CHUNK), generator=gen,
+                          device=dev, dtype=torch.int32)
+    true_len = torch.tensor([CHUNK], dtype=torch.int32, device=dev)
+
+    def decode():
+        model.decode_step(params, tokens, cache, check=False)
+
+    def prefill():
+        single["index"].zero_()
+        model.prefill_chunk_step(params, chunk, single, true_len)
+
+    graph = DecodeGraph(model, b)
+    graph.capture(params, cache, torch.cuda.graph_pool_handle())
+    host = (tokens.cpu().numpy(), [True] * b)
+    out = {"cache_layout": ServingEngine.contiguous_layout(cfg, ring),
+           "ring_len": ring, "cache_len": sc.cache_len,
+           "cache_bytes": sum(a.numel() * a.element_size()
+                              for a in cache.values()),
+           "decode": dict(_profile(decode, STEPS), slots=b,
+                          lengths=list(DECODE_LENGTHS)),
+           "decode_graph": _graph_turns(decode, graph, params, cache, host),
+           "prefill": dict(_profile(prefill, STEPS // 3), chunk=CHUNK),
+           "rms_norm": _norm_profile(cfg, dev, gen)}
+    del cache, single, graph
+    torch.cuda.empty_cache()
+    return out
+
+
 def lora_stacks(cfg, rank: int, targets, gen, dev,
                 n: int = LORA_ADAPTERS) -> dict:
     """Multi-LoRA stacks as ``ServingEngine`` allocates them for ``n``
@@ -516,10 +625,11 @@ def lora_profile(cfg, dev, params, rank: int, targets, kv_int8=False,
     decode = {label: _profile(replay(which), STEPS) for label, which in
               (("base", "base"), ("lora", "lora"), ("lora_2", "lora"),
                ("base_2", "base"))}
-    counts = {w: kernel_counts(replay(w)) for w in graphs}
+    counts = {}
     for w, g in graphs.items():
         want = {k: g.launches_per_replay[k] for k in KERNEL_NAMES}
-        if counts[w] != "not measured" and counts[w] != want:
+        counts[w] = g.kernels_in_graph()
+        if counts[w] != want:
             raise RuntimeError(f"one {w} replay launched {counts[w]}, the "
                                f"capture recorded {want}")
     if graphs["base"].launches_per_replay \

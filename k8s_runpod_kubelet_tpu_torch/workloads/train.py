@@ -268,6 +268,18 @@ class Trainer:
                 "MoE training slice: the router's load-balance and z losses "
                 "in the objective, capacity drops, and the expert "
                 "gradients); MoE configs serve only")
+        interleave = [f for f, on in (
+            ("sliding_window_pattern", cfg.sliding_window_pattern != 1),
+            ("attn_logit_softcap", cfg.attn_logit_softcap is not None),
+            ("logit_softcap", cfg.logit_softcap is not None),
+            ("query_pre_attn_scalar", cfg.query_pre_attn_scalar is not None),
+            ("post_norms", cfg.post_norms),
+            ("rope_local_theta", cfg.rope_local_theta is not None)) if on]
+        if interleave:
+            raise ValueError(
+                f"{cfg.name}: training Gemma 2 and 3 ({interleave}) is not "
+                "ported (ROADMAP Queue 1 #3.4: their flash backward at D "
+                "256 meets dK/dV's spill); these configs serve only")
         if mesh is not None and not mesh.in_process:
             raise ValueError(
                 "training over a process group is not ported (ROADMAP "

@@ -1519,6 +1519,29 @@ def test_step_graph_counts_match_the_profiler(cuda, kind):
     assert seen == want, (seen, want)
 
 
+@pytest.mark.parametrize("kind", GRAPH_KINDS)
+def test_step_graph_kernel_nodes_match_the_capture(cuda, kind):
+    """The captured graph's kernel nodes counted by name
+    (``kernels_in_graph``, from the graph's own description) equal the
+    launches the capture recorded for each wrapper, and what a profiler
+    trace of one replay counts in a fresh process."""
+    from k8s_runpod_kubelet_tpu_torch.workloads.serving.step_graph import (
+        KERNEL_NAMES, StepGraph)
+    from k8s_runpod_kubelet_tpu_torch.workloads.step_profile import \
+        kernel_counts
+
+    model, params, arena = _graph_model(cuda, kind)
+    g = StepGraph(model, 4, GRAPH_SLOTS, GRAPH_COLS)
+    g.capture(params, arena)
+    want = {w: g.launches_per_replay[w] for w in KERNEL_NAMES}
+    assert sum(want.values()) > 0
+    assert g.kernels_in_graph() == want
+    step = _graph_steps(4, model.cfg.vocab_size)[0]
+    g.run(params, arena, *step)
+    assert g.kernels_in_graph() == want        # a replay changes no node
+    assert kernel_counts(lambda: g.run(params, arena, *step)) == want
+
+
 @pytest.mark.parametrize("kind", ["bf16", "int4"])
 def test_step_graph_with_adapters_matches_eager(cuda, kind):
     """Multi-LoRA stacks (all seven targets, 4 adapters, rank 8) with a
@@ -1829,3 +1852,59 @@ def init_params_cpu(cfg, gen):
         for v in (params["final_norm"], lp["attn_norm"], lp["mlp_norm"]):
             v.copy_(0.3 * torch.randn(v.shape, generator=gen))
     return params
+
+
+@pytest.mark.parametrize("layout", ["mixed", "mixed_int8", "linear"])
+def test_decode_graph_replay_matches_eager(cuda, layout):
+    """The contiguous loop's decode graph (a tiny Gemma-2-shaped config on
+    a mixed cache, int8 too, or a tiny Llama on a linear one) against the
+    eager ``decode_step`` on a copy of the cache, over 20 steps that wrap
+    the 16-slot ring, one row inactive: logits and every section
+    bit-identical, the norm kernel counted at each replay, one capture."""
+    import numpy as np
+
+    from k8s_runpod_kubelet_tpu_torch.models.llama import (LlamaModel,
+                                                           tiny_llama)
+    from k8s_runpod_kubelet_tpu_torch.workloads.serving.step_graph import \
+        DecodeGraph
+
+    g2 = dict(sliding_window=8, sliding_window_pattern=2,
+              attn_logit_softcap=50.0, query_pre_attn_scalar=64.0,
+              post_norms=True, logit_softcap=30.0)
+    # head_dim 64: the prefill's flash kernel takes 64, 128, 192 or 256
+    cfg = tiny_llama(vocab_size=128, embed_dim=128, n_layers=4, n_heads=4,
+                     n_kv_heads=2, head_dim=64, mlp_dim=128, max_seq_len=256,
+                     **({} if layout == "linear" else g2))
+    model = LlamaModel(cfg, cuda)
+    params = init_params_cpu(cfg, torch.Generator().manual_seed(7))
+    params = {k: (v.to(cuda) if isinstance(v, torch.Tensor) else
+                  {n: w.to(cuda) for n, w in v.items()})
+              for k, v in params.items()}
+    quant = layout == "mixed_int8"
+    cache = (model.init_cache(4, 64, quant) if layout == "linear"
+             else model.init_mixed_cache(4, 64, 16, quant))
+    prompt = torch.randint(0, 128, (4, 6), device=cuda)
+    model.prefill(params, prompt, cache)
+    ref = {k: v.clone() for k, v in cache.items()}
+    graph = DecodeGraph(model, 4)
+    graph.capture(params, cache, torch.cuda.graph_pool_handle())
+    for name in cache:
+        assert torch.equal(cache[name], ref[name]), name   # warm-up: no write
+    active = np.array([True, True, False, True])
+    rng = np.random.default_rng(3)
+    norms = (4 if cfg.post_norms else 2) * cfg.n_layers + 1
+    assert graph.launches_per_replay["rms_norm"] == norms
+    for _ in range(20):
+        toks = rng.integers(0, 128, 4).astype(np.int32)
+        before = rms_norm.launches
+        got = graph.run(params, cache, toks, active).clone()
+        assert rms_norm.launches - before == norms
+        want, _ = model.decode_step(params, torch.from_numpy(toks).to(cuda),
+                                    ref, torch.from_numpy(active).to(cuda))
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        for name in cache:
+            assert torch.equal(cache[name], ref[name]), name
+    assert graph.captures == 1 and graph.replays == 20
+    counts = graph.kernels_in_graph()
+    assert counts["rms_norm"] == norms and sum(counts.values()) == norms

@@ -203,18 +203,20 @@ def test_config_from_jax_carries_each_field(name):
 
 def test_full_size_configs_match_the_jax_registry():
     for key, jfn in (("gemma-7b", jllama.gemma_7b),
+                     ("gemma2-9b", jllama.gemma2_9b),
+                     ("gemma3-12b", jllama.gemma3_12b),
                      ("mistral-7b", jllama.mistral_7b),
                      ("qwen2-7b", jllama.qwen2_7b),
                      ("qwen3-8b", jllama.qwen3_8b),
                      ("llama3-70b", jllama.llama3_70b)):
         assert config_from_jax(jfn(), torch.bfloat16) == MODEL_CONFIGS[key]()
-    # the branches still to come stay refused, by name
-    for jcfg in (jllama.gemma2_9b(), jllama.gemma3_12b(),
-                 dataclasses.replace(jllama.gemma_7b(), logit_softcap=30.0),
+    # a family carrying a Gemma 2 branch alone is carried too
+    for jcfg in (dataclasses.replace(jllama.gemma_7b(), logit_softcap=30.0),
                  dataclasses.replace(jllama.mistral_7b(),
                                      attn_logit_softcap=50.0)):
-        with pytest.raises(ValueError, match="does not serve"):
-            config_from_jax(jcfg, torch.bfloat16)
+        cfg = config_from_jax(jcfg, torch.bfloat16)
+        assert (cfg.logit_softcap, cfg.attn_logit_softcap) == (
+            jcfg.logit_softcap, jcfg.attn_logit_softcap)
 
 
 def test_embed_multiplier_rounds_to_the_compute_dtype():

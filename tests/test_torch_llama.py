@@ -221,7 +221,8 @@ def test_configs_match_the_jax_package():
                           jllama.mixtral_8x7b())):
         assert config_from_jax(theirs, torch.bfloat16) == ours
     assert set(MODEL_CONFIGS) == {"llama3-8b", "llama3-70b", "llama31-8b",
-                                  "gemma-7b", "mistral-7b", "qwen2-7b",
+                                  "gemma-7b", "gemma2-9b", "gemma3-12b",
+                                  "mistral-7b", "qwen2-7b",
                                   "qwen3-8b", "mla-8b", "mixtral-8x7b",
                                   "tiny", "tiny-mla", "tiny-moe"}
     assert tiny_llama().embed_dim == jllama.tiny_llama().embed_dim
@@ -230,18 +231,35 @@ def test_configs_match_the_jax_package():
 # MLA itself is served now (tests/test_torch_mla.py); an MLA model over a
 # MoE body, as every DeepSeek checkpoint has, still is not. Mixtral is
 # served (tests/test_torch_moe.py); with DeepSeek-MoE's shared experts it
-# is not. Mistral-7B and Qwen2-7B are served (tests/test_torch_families.py);
-# Mistral under Gemma 2's window pattern and Qwen2 with a soft cap are not
+# is not
 @pytest.mark.parametrize("jcfg", [
-    dataclasses.replace(jllama.mistral_7b(), sliding_window_pattern=2),
-    jllama.gemma2_9b(),
     dataclasses.replace(jllama.mixtral_8x7b(), n_shared_experts=2),
-    jllama.tiny_mla(n_experts=4, n_experts_per_tok=2),
-    dataclasses.replace(jllama.qwen2_7b(), attn_logit_softcap=50.0)],
+    jllama.tiny_mla(n_experts=4, n_experts_per_tok=2)],
     ids=lambda c: c.name)
 def test_configs_with_branches_the_port_lacks_are_refused(jcfg):
     with pytest.raises(ValueError, match="does not serve"):
         config_from_jax(jcfg, torch.bfloat16)
+
+
+# Gemma 2's fields are served now (tests/test_torch_interleave.py), also
+# on configs that carry them alone: Mistral under a window pattern, Qwen2
+# with a soft cap
+_GEMMA2_FIELDS = ("sliding_window_pattern", "attn_logit_softcap",
+                  "query_pre_attn_scalar", "post_norms", "rope_local_theta",
+                  "logit_softcap")
+
+
+@pytest.mark.parametrize("jcfg", [
+    dataclasses.replace(jllama.mistral_7b(), sliding_window_pattern=2),
+    jllama.gemma2_9b(),
+    dataclasses.replace(jllama.qwen2_7b(), attn_logit_softcap=50.0)],
+    ids=lambda c: c.name)
+def test_config_from_jax_carries_every_field(jcfg):
+    cfg = config_from_jax(jcfg, torch.bfloat16)
+    for f in _GEMMA2_FIELDS:
+        assert getattr(cfg, f) == getattr(jcfg, f), f
+    assert cfg.sm_scale == jcfg.sm_scale
+    assert cfg.layer_windows() == jcfg.layer_windows()
 
 
 def test_entry_points_default_to_cuda():
