@@ -335,6 +335,27 @@ Step graphs (phases 4, 7s, 7b, 7c, 7d). Each engine captures its decode
    phase 3 holds rows 8 and 9 at these models' heads and window, row 12
    at their widths, row 1 at Gemma's serving shape and row 13 at
    llama3-70b's widths;
+7x. observability (``observability_phase``), right after phase 4 on its
+   tree: the engine behind ``serve_main.serve`` with profile capture on,
+   its spans exported to a JSONL file and a ``ReplicaReporter`` at 0.5 s
+   against a stub router the script starts; phase 4's burst over HTTP,
+   each request with a caller ``traceparent``: (a) every answer carries
+   the caller's trace id, ``/debug/traces`` holds exactly the request's
+   four spans (children contiguous, summing to the root within 1 ms), the
+   roots' ``decode_steps`` sum to at least the burst's replays, and the
+   export file holds the same spans; (b) ``/metrics`` deltas against the
+   engine's own counts (admitted, decode steps = replays, prefill chunks,
+   the shared prefix's hit, the TTFT / latency / queue-wait counts, the
+   inter-token count = the tokens after each first, the step-wall count =
+   the recorder's new records, 0 recaptures) and the launches (32 and 65
+   a step or chunk); (c) ``/debug/profile?seconds=1`` while bursts keep
+   the slots busy: the Chrome trace's kernel events hold
+   ``paged_attention_multi`` and ``rms_norm`` at 32 : 65 a step within
+   one step at each window edge, their device time printed; (d) one
+   register and heartbeats whose stats carry exactly the JAX reporter's
+   keys and whose schema-1 metrics snapshot agrees with ``/metrics``, and
+   a deregister after the drain; (e) the burst's decode tokens/s per
+   stream and (g3)'s replay wall beside phase 4's (reported); (g1)-(g5);
 7g. the contiguous decode loop (``interleave_engine_run``): llama3-8b
    with ``--prefix-cache off`` on phase 4's tree (a linear cache), right
    after phase 4; after 7f, gemma2-9b (cache_len 8192, a mixed cache of
@@ -470,6 +491,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import faulthandler
 import gc
 import importlib
 import itertools
@@ -487,6 +509,8 @@ import time
 import urllib.error
 import urllib.request
 
+# when the script started: each phase header carries the seconds since
+T_START = time.monotonic()
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, data sheet
 BF16_TENSOR_FLOPS = 989e12         # dense bf16 tensor-core peak
 F32_FLOPS = 67e12                  # f32 outside the tensor cores
@@ -697,6 +721,10 @@ INT4_70B_SHAPES = [(8192, 28672, "70b w_gate, w_up"),
 
 
 def log(msg: str) -> None:
+    # a phase's header carries the seconds since the script started, so a
+    # run's log says where its time went
+    if msg.startswith("phase "):
+        msg = f"[{time.monotonic() - T_START:.1f} s] {msg}"
     print(msg, flush=True)
 
 
@@ -3130,14 +3158,15 @@ def serve_burst(torch, engine, cfg, card: str, kernels, per_step,
         # steps and chunks count under the arena lock with their launches,
         # so a snapshot taken holding it is consistent
         with engine._prefix_lock:
-            return {"prefill_chunks": engine.counters["prefill_chunks"],
+            return {"paged_prefill_chunks":
+                    engine.counters["paged_prefill_chunks"],
                     "decode_steps": engine.counters["decode_steps"],
                     "replays": sum(g.fn.replays for g in engine._graphs()),
                     **{k.__name__: k.launches for k in kernels}}
 
     def stretch(a: dict, b: dict, path: str) -> dict:
         d = {k: b[k] - a[k] for k in a}
-        steps = d["prefill_chunks"] + d["decode_steps"]
+        steps = d["paged_prefill_chunks"] + d["decode_steps"]
         if d["replays"] != d["decode_steps"]:
             raise RuntimeError(f"{path}: {d['replays']} graph replays for "
                                f"{d['decode_steps']} decode steps")
@@ -3145,7 +3174,7 @@ def serve_burst(torch, engine, cfg, card: str, kernels, per_step,
             if d[name] != n * steps or (n and d[name] < 1):
                 raise RuntimeError(
                     f"{path}: {name} launched {d[name]} times in "
-                    f"{d['prefill_chunks']} prefill chunks and "
+                    f"{d['paged_prefill_chunks']} prefill chunks and "
                     f"{d['decode_steps']} decode steps, not {n} per step")
         return d
 
@@ -3157,7 +3186,8 @@ def serve_burst(torch, engine, cfg, card: str, kernels, per_step,
     t_start = time.perf_counter()
     futs = [engine.submit(p, adapter=a) for p, a in zip(prompts, names)]
     deadline = time.monotonic() + 900
-    while engine.counters["prefill_chunks"] - s0["prefill_chunks"] < 8:
+    while (engine.counters["paged_prefill_chunks"]
+           - s0["paged_prefill_chunks"]) < 8:
         if time.monotonic() > deadline:
             raise RuntimeError("the burst's 8 prefills did not finish")
         time.sleep(0.001)
@@ -3179,9 +3209,9 @@ def serve_burst(torch, engine, cfg, card: str, kernels, per_step,
                            f"{names[0]!r} and {names[1]!r}")
     burst = stretch(s0, s2, "burst")
     decode = stretch(s1, s2, "decode-only stretch")
-    if decode["prefill_chunks"] or burst["prefill_chunks"] != 8:
-        raise RuntimeError(f"burst counted {burst['prefill_chunks']} "
-                           f"prefill chunks, {decode['prefill_chunks']} "
+    if decode["paged_prefill_chunks"] or burst["paged_prefill_chunks"] != 8:
+        raise RuntimeError(f"burst counted {burst['paged_prefill_chunks']} "
+                           f"prefill chunks, {decode['paged_prefill_chunks']} "
                            f"of them after the eighth")
     ttft = [r["ttft_s"] for r in results]
     per_stream = [(len(r["tokens"]) - 1) / (r["latency_s"] - r["ttft_s"])
@@ -3200,13 +3230,14 @@ def serve_burst(torch, engine, cfg, card: str, kernels, per_step,
     s3 = snap()
     engine.submit(prompt(1500), max_new_tokens=1).result(timeout=900)
     prefill = stretch(s3, snap(), "prefill-only stretch")
-    if prefill["decode_steps"] or prefill["prefill_chunks"] != 2:
+    if prefill["decode_steps"] or prefill["paged_prefill_chunks"] != 2:
         raise RuntimeError(f"prefill-only stretch counted {prefill}")
     by_path = {"burst": burst, "decode_only": decode,
                "prefill_only": prefill}
     for path, d in by_path.items():
         counts = ", ".join(f"{k.__name__} {d[k.__name__]}" for k in kernels)
-        log(f"  launches, {path}: {d['prefill_chunks']} prefill chunks, "
+        log(f"  launches, {path}: {d['paged_prefill_chunks']} prefill "
+            f"chunks, "
             f"{d['decode_steps']} decode steps; {counts}")
 
     # repeat: the same prompt twice more, both through the prefix-hit path,
@@ -3309,6 +3340,484 @@ def engine_phase(torch, dev, card: str, cfg, params) -> dict:
         return rec, one_chunk.cpu()
     finally:
         engine.stop()
+
+
+# -- phase 7x: the replica's observability and fleet membership ---------------------
+
+# the keys of every heartbeat's "stats", the JAX ReplicaReporter's set
+REPORTER_STATS_KEYS = frozenset({
+    "free_slots", "active_slots", "max_slots", "queue_depth",
+    "max_queue_depth", "kv_cache_tokens", "ttft_p95_s", "itl_p95_s",
+    "kv_pages_free", "kv_pages_total", "handoffs_total", "errors_total",
+    "requests_total", "tokens_total", "prefix_hit_rate",
+    "spec_acceptance_rate", "draining"})
+# phase 7x (c): the tokens a request of the bursts that keep the slots
+# busy while the profiler starts and its 1 s window runs
+OBS_TRAFFIC_TOKENS = 64
+# phase 7x (c): seconds a /debug/profile capture may take (they read 7-18
+# s under traffic, NVIDIA H100 80GB HBM3, 700.00 W)
+OBS_PROFILE_WATCHDOG_S = 240
+
+
+def scrape(port: int) -> dict:
+    """GET /metrics parsed: {sample name with its labels: value}, each
+    bucket's exemplar suffix dropped."""
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                timeout=60) as r:
+        ctype = r.headers.get("Content-Type", "")
+        text = r.read().decode()
+    if ctype != "text/plain; version=0.0.4":
+        raise RuntimeError(f"/metrics answered Content-Type {ctype!r}")
+    out = {}
+    for line in text.splitlines():
+        if line and not line.startswith("#"):
+            name, value = line.split(" # ")[0].rsplit(" ", 1)
+            out[name] = float(value)
+    return out
+
+
+def stub_router():
+    """A fleet router that records every POST: (httpd, its URL, the list of
+    (path, body) it received, in order)."""
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    posts, lock = [], threading.Lock()
+
+    class Stub(BaseHTTPRequestHandler):
+        def log_message(self, *a):
+            pass
+
+        def do_POST(self):
+            n = int(self.headers.get("Content-Length") or 0)
+            body = json.loads(self.rfile.read(n)) if n else {}
+            with lock:
+                posts.append((self.path, body, time.monotonic()))
+            reply = json.dumps({"registered": True, "ok": True}).encode()
+            self.send_response(200)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(reply)))
+            self.end_headers()
+            self.wfile.write(reply)
+
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), Stub)
+    httpd.daemon_threads = True
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    return httpd, f"http://127.0.0.1:{httpd.server_address[1]}", posts
+
+
+def http_burst(port: int, prompts: list, max_new: int, traces: list) -> list:
+    """The prompts as concurrent POST /generate, request i carrying the
+    caller traceparent ``traces[i]``: [(status, body, response
+    traceparent)] in prompt order."""
+    out = [None] * len(prompts)
+
+    def one(i):
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/generate",
+            data=json.dumps({"tokens": prompts[i],
+                             "max_new_tokens": max_new}).encode(),
+            method="POST", headers={"Content-Type": "application/json",
+                                    "traceparent": traces[i]})
+        with urllib.request.urlopen(req, timeout=900) as r:
+            out[i] = (r.status, json.loads(r.read()),
+                      r.headers.get("traceparent"))
+
+    threads = [threading.Thread(target=one, args=(i,))
+               for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if any(o is None for o in out):
+        raise RuntimeError("a burst request raised (see the thread's "
+                           "traceback above)")
+    return out
+
+
+def span_tree_check(port: int, trace_id: str, parent: str,
+                    root_id: str) -> dict:
+    """(a) /debug/traces?trace_id= holds exactly the request's four spans:
+    the root under the caller's span, its three children contiguous and
+    summing to the root's duration within 1 ms."""
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/debug/traces"
+                                f"?trace_id={trace_id}", timeout=60) as r:
+        spans = json.loads(r.read())["spans"]
+    by = {s["name"]: s for s in spans}
+    names = ("serving.request", "serving.queue_wait", "serving.prefill",
+             "serving.decode")
+    if len(spans) != 4 or set(by) != set(names):
+        raise RuntimeError(f"(a) trace {trace_id}: spans "
+                           f"{[s['name'] for s in spans]}")
+    root = by["serving.request"]
+    if root["span_id"] != root_id or root["parent_id"] != parent:
+        raise RuntimeError(f"(a) root span {root['span_id']} under "
+                           f"{root['parent_id']}, not {root_id} under "
+                           f"{parent}")
+    kids = [by[n] for n in names[1:]]
+    if any(k["parent_id"] != root_id for k in kids):
+        raise RuntimeError(f"(a) a child span is not under the root: {kids}")
+    edges = [root["start"]] + [k["start"] + k["duration_s"] for k in kids]
+    starts = [k["start"] for k in kids]
+    gaps = [abs(a - b) for a, b in zip(edges[:-1], starts)]
+    gaps.append(abs(edges[-1] - (root["start"] + root["duration_s"])))
+    total = sum(k["duration_s"] for k in kids)
+    if max(gaps) > 1e-3 or abs(total - root["duration_s"]) > 1e-3:
+        raise RuntimeError(f"(a) children not contiguous (gaps {gaps}) or "
+                           f"their sum {total} off the root's "
+                           f"{root['duration_s']}")
+    return {"spans": spans, "root": root,
+            "children_sum_minus_root_s": total - root["duration_s"]}
+
+
+def observability_phase(torch, dev, card: str, cfg, params,
+                        base: dict) -> dict:
+    """Phase 7x: phase 4's engine again, served the way a replica runs:
+    ``serve_main.serve`` with profile capture on, its tracer exporting to
+    a JSONL file, a ``ReplicaReporter`` at 0.5 s against a stub router.
+    (a) phase 4's burst over HTTP with caller traceparents: each answer
+    carries the caller's trace id, /debug/traces holds the four spans of
+    each request (children contiguous, summing to the root), the roots'
+    ``decode_steps`` sum to at least the burst's replays, and the export
+    file holds the same spans; (b) /metrics deltas over the burst against
+    the engine's own counts (admitted, decode steps = replays, prefill
+    chunks, the shared prefix's hit, the histograms' counts, the
+    recorder's step records, 0 recaptures) and the launches (32 and 65 a
+    step or chunk); (c) /debug/profile?seconds=1 while bursts keep the
+    slots busy: the trace's kernel events hold ``paged_attention_multi`` and
+    ``rms_norm`` at 32 : 65 a step, within one step at each window edge;
+    (d) the stub got one register and beats whose stats carry exactly the
+    JAX reporter's keys and whose metrics snapshots (schema 1) agree with
+    /metrics, and a deregister after the drain; (e) the burst's decode
+    tokens/s per stream and (g3)'s replay wall beside phase 4's, reported;
+    then (g1)-(g5) on this engine."""
+    import shutil
+    import socket
+    import uuid
+
+    from k8s_runpod_kubelet_tpu_torch.fleet.registry import ReplicaReporter
+    from k8s_runpod_kubelet_tpu_torch.ops import (paged_attention,
+                                                  paged_attention_multi,
+                                                  paged_attention_quant,
+                                                  rms_norm)
+    from k8s_runpod_kubelet_tpu_torch.tracing import (Tracer,
+                                                      format_traceparent,
+                                                      parse_traceparent)
+    from k8s_runpod_kubelet_tpu_torch.workloads.serve_main import serve
+    from k8s_runpod_kubelet_tpu_torch.workloads.serving import (
+        ServingConfig, ServingEngine)
+    from k8s_runpod_kubelet_tpu_torch.workloads.step_profile import \
+        trace_kernel_events
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-7x-")
+    export = os.path.join(tmp, "spans.jsonl")
+    tracer = Tracer(export_path=export)
+    sc = ServingConfig(slots=8, cache_len=2048, max_prefill_len=1024,
+                       kv_page_tokens=16, max_new_tokens=32)
+    engine = ServingEngine(cfg, params, sc, device=dev, tracer=tracer).start()
+    httpd = serve(engine, port=0, host="127.0.0.1", profile_capture=True)
+    port = httpd.server_address[1]
+    router, router_url, posts = stub_router()
+    reporter = ReplicaReporter(engine, router_url, replica_id="chip-smoke-7x",
+                               advertise_url=f"http://127.0.0.1:{port}",
+                               pod_name=socket.gethostname(),
+                               interval_s=0.5).start()
+    kernels = (paged_attention_multi, rms_norm, paged_attention,
+               paged_attention_quant)
+    per_step = {"paged_attention_multi": cfg.n_layers,
+                "rms_norm": 2 * cfg.n_layers + 1,
+                "paged_attention": 0, "paged_attention_quant": 0}
+    out = {}
+    try:
+        warm, prompts, _ = burst_prompts(cfg)
+        status, _ = http_generate(port, {"tokens": warm,
+                                         "max_new_tokens": 4})
+        if status != 200:
+            raise RuntimeError(f"warm-up answered {status}")
+
+        def snap() -> dict:
+            with engine._prefix_lock:
+                return {"paged_prefill_chunks":
+                        engine.counters["paged_prefill_chunks"],
+                        "decode_steps": engine.counters["decode_steps"],
+                        "replays": sum(g.fn.replays
+                                       for g in engine._graphs()),
+                        **{k.__name__: k.launches for k in kernels}}
+
+        # (a)/(b): the burst over HTTP, counts set to 0 just before
+        callers = [(uuid.uuid4().hex, uuid.uuid4().hex[:16])
+                   for _ in prompts]
+        m0 = scrape(port)
+        with engine._prefix_lock:
+            for k in kernels:
+                k.launches = 0
+        s0 = snap()
+        seq0 = last_seq(engine)
+        t0 = time.perf_counter()
+        res = http_burst(port, prompts, 32,
+                         [format_traceparent(t, s) for t, s in callers])
+        wall = time.perf_counter() - t0
+        s1 = snap()
+        m1 = scrape(port)
+        t_scrape = time.monotonic()
+        launches = {k.__name__: k.launches for k in kernels}
+        d = {k: s1[k] - s0[k] for k in s0}
+        if any(st != 200 or len(b["tokens"]) != 32 for st, b, _ in res):
+            raise RuntimeError(f"(a) burst answers {[r[0] for r in res]}")
+        steps = d["paged_prefill_chunks"] + d["decode_steps"]
+        for name, n in per_step.items():
+            if d[name] != n * steps or (n and d[name] < 1):
+                raise RuntimeError(f"7x: {name} launched {d[name]} times in "
+                                   f"{steps} steps and chunks, not {n} each")
+        roots, trees = [], []
+        for (tid, parent), (_, body, tp) in zip(callers, res):
+            got = parse_traceparent(tp)
+            if got is None or got[0] != tid:
+                raise RuntimeError(f"(a) response traceparent {tp!r} does "
+                                   f"not carry the caller's trace {tid}")
+            tree = span_tree_check(port, tid, parent, got[1])
+            trees.append(tree)
+            roots.append(tree["root"])
+        steps_attr = sum(r["attrs"].get("decode_steps", 0) for r in roots)
+        if steps_attr < d["replays"]:
+            raise RuntimeError(f"(a) the roots' decode_steps sum to "
+                               f"{steps_attr}, under the burst's "
+                               f"{d['replays']} replays")
+        per_stream = [(r["attrs"]["tokens"] - 1)
+                      / (r["attrs"]["latency_s"] - r["attrs"]["ttft_s"])
+                      for r in roots]
+        worst = max(abs(t["children_sum_minus_root_s"]) for t in trees)
+        log(f"  (a) 8/8 answers carry the caller's trace id; each trace: "
+            f"serving.request + queue_wait, prefill, decode, contiguous "
+            f"(children's sum off the root by at most {worst * 1e3:.6f} "
+            f"ms); roots' decode_steps {steps_attr} >= {d['replays']} "
+            f"replays")
+
+        def delta(name: str) -> float:
+            return m1.get(name, 0.0) - m0.get(name, 0.0)
+
+        rec_steps = [r for r in engine.recorder.records()
+                     if "wall_s" in r and r["seq"] > seq0]
+        itl_want = sum(len(b["tokens"]) - 1 for _, b, _ in res)
+        # the paged chunks as the kernel counts them, outside the metrics
+        # store: each chunk and each replay launches row 8 once a layer
+        chunks = (launches["paged_attention_multi"] // cfg.n_layers
+                  - d["replays"])
+        checks = {
+            "tpu_serving_admitted_total": (delta("tpu_serving_admitted_total"),
+                                           len(prompts)),
+            "tpu_serving_decode_steps_total": (
+                delta("tpu_serving_decode_steps_total"), d["replays"]),
+            # the JAX engine's series: 0 with serving_chunk_tokens unset
+            "tpu_serving_prefill_chunks_total": (
+                delta("tpu_serving_prefill_chunks_total"), 0),
+            "tpu_serving_paged_prefill_chunks_total": (
+                delta("tpu_serving_paged_prefill_chunks_total"), chunks),
+            "tpu_serving_ttft_seconds_count": (
+                delta("tpu_serving_ttft_seconds_count"), len(prompts)),
+            "tpu_serving_request_latency_seconds_count": (
+                delta("tpu_serving_request_latency_seconds_count"),
+                len(prompts)),
+            "tpu_serving_queue_wait_seconds_count": (
+                delta("tpu_serving_queue_wait_seconds_count"), len(prompts)),
+            "tpu_serving_inter_token_seconds_count": (
+                delta("tpu_serving_inter_token_seconds_count"), itl_want),
+            "tpu_serving_step_wall_seconds_count": (
+                delta("tpu_serving_step_wall_seconds_count"),
+                len(rec_steps)),
+        }
+        bad = {k: v for k, v in checks.items() if v[0] != v[1]}
+        hits = delta("tpu_serving_prefix_cache_hits_total")
+        recompiles = {k: v for k, v in m1.items()
+                      if k.startswith("tpu_serving_recompiles_total")}
+        if bad or hits < 1 or chunks != len(prompts) \
+                or len(recompiles) != len(engine._graphs()) \
+                or any(recompiles.values()):
+            raise RuntimeError(f"(b) /metrics against the engine: {bad}; "
+                               f"prefix hits {hits}, chunks {d}, "
+                               f"recompiles {recompiles}")
+        log(f"  (b) /metrics deltas over the burst = the engine's counts: "
+            + ", ".join(f"{k.replace('tpu_serving_', '')} {int(v[0])}"
+                        for k, v in checks.items())
+            + f"; prefix_cache_hits {int(hits)}; {recompiles}")
+        log(f"  launches, 7x burst: {d['paged_prefill_chunks']} paged "
+            f"prefill chunks, "
+            f"{d['decode_steps']} decode steps; "
+            + ", ".join(f"{k} {launches[k]}" for k in launches))
+        out.update(launches=launches, counts=d, metrics_deltas={
+            k: v[0] for k, v in checks.items()}, prefix_hits=hits,
+            recompiles=recompiles, decode_steps_attr=steps_attr,
+            burst_wall_s=wall, decode_tok_s_per_stream=per_stream)
+
+        # (d) the beats: one register, beats with the JAX key set, and a
+        # snapshot taken after the burst that agrees with /metrics
+        deadline = time.monotonic() + 10
+        while not any(p == "/fleet/heartbeat" and at > t_scrape + 0.05
+                      for p, _, at in list(posts)):
+            if time.monotonic() > deadline:
+                raise RuntimeError("(d) no heartbeat after the burst")
+            time.sleep(0.05)
+        beats = [b for p, b, _ in list(posts) if p == "/fleet/heartbeat"]
+        late = [b for p, b, at in list(posts)
+                if p == "/fleet/heartbeat" and at > t_scrape + 0.05][0]
+        registers = [b for p, b, _ in list(posts) if p == "/fleet/register"]
+        keys_bad = [sorted(set(b["stats"]) ^ REPORTER_STATS_KEYS)
+                    for b in beats if set(b["stats"]) != REPORTER_STATS_KEYS]
+        schema_bad = [b["metrics"].get("schema_version") for b in beats
+                      if b.get("metrics", {}).get("schema_version") != 1]
+        snap_admitted = sum(v for n, _, v in late["metrics"]["counters"]
+                            if n == "tpu_serving_admitted")
+        if len(registers) != 1 or len(beats) < 2 or keys_bad or schema_bad \
+                or snap_admitted != m1["tpu_serving_admitted_total"] \
+                or late["stats"]["requests_total"] != snap_admitted:
+            raise RuntimeError(
+                f"(d) {len(registers)} registers, {len(beats)} beats, key "
+                f"differences {keys_bad}, schemas {schema_bad}, admitted "
+                f"{snap_admitted} vs /metrics "
+                f"{m1['tpu_serving_admitted_total']}")
+        log(f"  (d) stub router: 1 register ({registers[0]['role']}), "
+            f"{len(beats)} heartbeats so far, each with the JAX reporter's "
+            f"{len(REPORTER_STATS_KEYS)} stats keys and a schema-1 metrics "
+            f"snapshot; the first beat after the burst: admitted "
+            f"{int(snap_admitted)} = /metrics, requests_total "
+            f"{late['stats']['requests_total']}, tokens_total "
+            f"{late['stats']['tokens_total']}")
+
+        # (c) the profile, taken while bursts keep the slots busy: the
+        # window (and the profiler's start before it) lies inside traffic
+        admitted0 = engine.counters["admitted"]
+        stop, bursts = threading.Event(), []
+
+        def traffic():
+            while not stop.is_set():
+                bursts.append(http_burst(
+                    port, prompts, OBS_TRAFFIC_TOKENS,
+                    [format_traceparent(uuid.uuid4().hex,
+                                        uuid.uuid4().hex[:16])
+                     for _ in prompts]))
+
+        runner = threading.Thread(target=traffic)
+        runner.start()
+        try:
+            deadline = time.monotonic() + 300
+            while engine.counters["admitted"] - admitted0 < len(prompts):
+                if time.monotonic() > deadline or not runner.is_alive():
+                    raise RuntimeError("(c) the traffic was not admitted")
+                time.sleep(0.002)
+            steps0 = engine.counters["decode_steps"]
+            t0 = time.perf_counter()
+            # a capture that hangs dumps every thread's stack and ends the
+            # script, instead of holding the card to the call's limit
+            faulthandler.dump_traceback_later(OBS_PROFILE_WATCHDOG_S,
+                                              exit=True)
+            try:
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{port}/debug/profile?seconds=1",
+                        timeout=300) as r:
+                    prof = json.loads(r.read())
+            finally:
+                faulthandler.cancel_dump_traceback_later()
+            prof_wall = time.perf_counter() - t0
+            steps_during = engine.counters["decode_steps"] - steps0
+        finally:
+            stop.set()
+            runner.join()
+        if not bursts or any(st != 200 for b in bursts for st, _, _ in b):
+            raise RuntimeError("(c) a traffic burst failed")
+        fams = trace_kernel_events(os.path.join(prof["profile_dir"],
+                                                "trace.json"))
+        shutil.rmtree(prof["profile_dir"], ignore_errors=True)
+        attn = fams.get("paged_attention_multi", {"count": 0, "ms": 0.0})
+        norm = fams.get("rms_norm", {"count": 0, "ms": 0.0})
+        merge = fams.get("paged split merge", {"count": 0, "ms": 0.0})
+        a_steps = attn["count"] / cfg.n_layers
+        n_steps = norm["count"] / (2 * cfg.n_layers + 1)
+        if attn["count"] < cfg.n_layers or norm["count"] < \
+                2 * cfg.n_layers + 1 or abs(a_steps - n_steps) > 2:
+            raise RuntimeError(f"(c) the profile's kernel events: "
+                               f"paged_attention_multi {attn}, rms_norm "
+                               f"{norm} ({a_steps:.2f} vs {n_steps:.2f} "
+                               f"steps); families {sorted(fams)}; "
+                               f"{prof_wall:.2f} s wall, {steps_during} "
+                               "decode steps meanwhile")
+        log(f"  (c) [{card}] /debug/profile?seconds=1 under bursts of "
+            f"{OBS_TRAFFIC_TOKENS} tokens a request ({prof_wall:.2f} s wall, "
+            f"{steps_during} decode steps meanwhile, {len(bursts)} bursts): "
+            f"paged_attention_multi {attn['count']} events "
+            f"({a_steps:.2f} steps or chunks of {cfg.n_layers}), "
+            f"{attn['ms']:.3f} device ms "
+            f"({attn['ms'] / max(1, attn['count']) * 1e3:.2f} us each); "
+            f"rms_norm {norm['count']} ({n_steps:.2f} of "
+            f"{2 * cfg.n_layers + 1}), {norm['ms']:.3f} device ms "
+            f"({norm['ms'] / max(1, norm['count']) * 1e3:.2f} us each); "
+            f"split-KV merges apart: {merge['count']}, {merge['ms']:.3f} ms")
+        out["profile"] = {"paged_attention_multi": attn, "rms_norm": norm,
+                          "paged_split_merge": merge,
+                          "steps_by_attention": a_steps,
+                          "steps_by_norm": n_steps, "wall_s": prof_wall,
+                          "decode_steps_during": steps_during,
+                          "bursts": len(bursts), "families": fams}
+
+        # (g1)-(g5) on this engine, idle; (e) beside phase 4
+        with engine._prefix_lock:
+            out["graphs"] = graph_checks(torch, engine, card,
+                                         ENGINE_REL_L2_LIMIT,
+                                         "7x engine (observability on)")
+        g3 = out["graphs"]["paged_step"]["g3_wall_ms"]
+        g3_base = base["graphs"]["paged_step"]["g3_wall_ms"]
+        log(f"  (e) [{card}] decode tokens/s per stream (median): 7x over "
+            f"HTTP {statistics.median(per_stream):.1f}, phase 4 "
+            f"{statistics.median(base['decode_tok_s_per_stream']):.1f}; "
+            f"(g3) replay wall 7x {g3['graph']:.2f} / {g3['graph_2']:.2f} "
+            f"ms, phase 4 {g3_base['graph']:.2f} / {g3_base['graph_2']:.2f}"
+            f" ms (reported, not gated)")
+        out["cost"] = {"decode_tok_s_per_stream_median":
+                       statistics.median(per_stream),
+                       "phase4_decode_tok_s_per_stream_median":
+                       statistics.median(base["decode_tok_s_per_stream"]),
+                       "g3_graph_ms": [g3["graph"], g3["graph_2"]],
+                       "phase4_g3_graph_ms": [g3_base["graph"],
+                                              g3_base["graph_2"]]}
+
+        # the drain: the reporter deregisters once the engine has drained
+        engine.drain()
+        deadline = time.monotonic() + 60
+        while not any(p == "/fleet/deregister" for p, _, _ in list(posts)):
+            if time.monotonic() > deadline:
+                raise RuntimeError("(d) no deregister after the drain")
+            time.sleep(0.05)
+        out["reporter"] = {"registers": 1, "beats": sum(
+            1 for p, _, _ in posts if p == "/fleet/heartbeat"),
+            "deregistered": True, "stats_keys": sorted(REPORTER_STATS_KEYS)}
+        log(f"  (d) drained: the reporter deregistered after "
+            f"{out['reporter']['beats']} heartbeats")
+    finally:
+        reporter.stop()
+        httpd.shutdown()
+        httpd.server_close()
+        router.shutdown()
+        router.server_close()
+        engine.stop()
+        tracer.close()
+    try:
+        with open(export) as f:
+            exported = [json.loads(line) for line in f]
+        for tree in trees:
+            want = {(s["span_id"], s["name"]) for s in tree["spans"]}
+            tid = tree["root"]["trace_id"]
+            got = {(s["span_id"], s["name"]) for s in exported
+                   if s["trace_id"] == tid}
+            if got != want:
+                raise RuntimeError(f"(a) the export file holds {got} for "
+                                   f"trace {tid}, /debug/traces {want}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["exported_spans"] = len(exported)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  (a) the export file holds the same 4 spans of each of the 8 "
+        f"traces ({len(exported)} spans in all); phase 7x in "
+        f"{out['phase_s']:.1f} s")
+    return out
 
 
 # -- (g1)-(g5): the engine's step graphs ----------------------------------------------
@@ -3623,8 +4132,8 @@ def spec_run(torch, engine, traffic, kernels, per_step, card: str) -> dict:
     decoding. Launch counts are set to 0 just before and read just after,
     each against the engine's own steps and chunks; the token clock reads
     each stream's largest token gap while the long prompt prefills."""
-    snap_keys = ("decode_steps", "prefill_chunks", "paged_speculative_steps",
-                 "spec_proposed", "spec_accepted",
+    snap_keys = ("decode_steps", "paged_prefill_chunks",
+                 "paged_speculative_steps", "spec_proposed", "spec_accepted",
                  "paged_speculative_rollback_pages",
                  "chunk_interleaved_steps", "paged_prefill_tokens")
 
@@ -3669,15 +4178,15 @@ def spec_run(torch, engine, traffic, kernels, per_step, card: str) -> dict:
     if clock.prefill_done_at is None:
         raise RuntimeError("the token clock missed the long prefill's end")
     d = {k: s1[k] - s0[k] for k in s0}
-    steps = d["decode_steps"] + d["prefill_chunks"]
+    steps = d["decode_steps"] + d["paged_prefill_chunks"]
     if d["replays"] != d["decode_steps"]:
         raise RuntimeError(f"{d['replays']} graph replays for "
                            f"{d['decode_steps']} decode steps")
     for name, n in per_step.items():
         if d[name] != n * steps or (n and d[name] < 1):
             raise RuntimeError(
-                f"{name} launched {d[name]} times in {d['prefill_chunks']} "
-                f"chunks and {d['decode_steps']} decode steps "
+                f"{name} launched {d[name]} times in "
+                f"{d['paged_prefill_chunks']} chunks and {d['decode_steps']} decode steps "
                 f"({d['paged_speculative_steps']} of them verify steps), "
                 f"not {n} per step")
     if any(len(r["tokens"]) != 64 for r in results):
@@ -3842,8 +4351,8 @@ def spec_engine_phase(torch, dev, card: str, cfg, params) -> dict:
         log(f"  [{card}] {name} (speculate_k {k}, serving_chunk_tokens "
             f"{chunk}): {c['decode_steps']} decode steps "
             f"({c['paged_speculative_steps']} verify), "
-            f"{c['prefill_chunks']} chunks, accepted {c['spec_accepted']} "
-            f"of {c['spec_proposed']} drafts, rollback pages "
+            f"{c['paged_prefill_chunks']} chunks, accepted "
+            f"{c['spec_accepted']} of {c['spec_proposed']} drafts, rollback pages "
             f"{c['paged_speculative_rollback_pages']}, interleaved steps "
             f"{c['chunk_interleaved_steps']}; decode "
             f"{statistics.median(rec['decode_tok_s_per_stream']):.1f} "
@@ -4095,7 +4604,7 @@ def openai_phase(torch, dev, card: str, cfg, params) -> dict:
 
     kernels = (flash_fwd, rms_norm, paged_attention_multi, paged_attention,
                paged_attention_quant, paged_attention_multi_quant)
-    keys = ("decode_steps", "prefill_chunks", "dense_prefills",
+    keys = ("decode_steps", "paged_prefill_chunks", "dense_prefills",
             "dense_prefill_heads", "dense_prefill_chunks", "embeds",
             "admission_rejected")
 
@@ -4135,7 +4644,7 @@ def openai_phase(torch, dev, card: str, cfg, params) -> dict:
         s1 = snap()
         d = {k: s1[k] - s0[k] for k in s0}
         heads = d["dense_prefill_heads"] + d["embeds"]
-        steps = d["decode_steps"] + d["prefill_chunks"]
+        steps = d["decode_steps"] + d["paged_prefill_chunks"]
         want = {"flash_fwd": cfg.n_layers * heads,
                 "rms_norm": (2 * cfg.n_layers + 1)
                 * (steps + heads + d["dense_prefill_chunks"]),
@@ -4152,7 +4661,7 @@ def openai_phase(torch, dev, card: str, cfg, params) -> dict:
             f"({d['embeds']}), {2 * cfg.n_layers + 1} rms_norm per each, "
             f"per dense chunk ({d['dense_prefill_chunks']}), decode step "
             f"({d['decode_steps']} replays) and paged chunk "
-            f"({d['prefill_chunks']})")
+            f"({d['paged_prefill_chunks']})")
         out["launches"], out["counts"] = got, d
         with engine._prefix_lock:   # idle: every request done
             out["graphs"] = graph_checks(torch, engine, card,
@@ -4770,7 +5279,7 @@ def mla_dense_route_phase(torch, dev, card: str, cfg, params,
                         paged_attention_multi_quant, paged_attention,
                         paged_attention_quant) if k is not main]
     kernels = (flash_fwd, flash_dq, flash_dkv, rms_norm, main, *held)
-    keys = ("decode_steps", "prefill_chunks", "dense_prefills",
+    keys = ("decode_steps", "paged_prefill_chunks", "dense_prefills",
             "dense_prefill_heads", "dense_prefill_chunks", "embeds",
             "admission_rejected")
 
@@ -4818,7 +5327,7 @@ def mla_dense_route_phase(torch, dev, card: str, cfg, params,
         s1 = snap()
         d = {k: s1[k] - s0[k] for k in s0}
         heads = d["dense_prefill_heads"] + d["embeds"]
-        steps = d["decode_steps"] + d["prefill_chunks"]
+        steps = d["decode_steps"] + d["paged_prefill_chunks"]
         want = {"flash_fwd": cfg.n_layers * heads, "flash_dq": 0,
                 "flash_dkv": 0,
                 "rms_norm": (3 * cfg.n_layers + 1)
@@ -4836,7 +5345,8 @@ def mla_dense_route_phase(torch, dev, card: str, cfg, params,
             f"({d['dense_prefill_heads']}) and embed ({d['embeds']}); "
             f"rms_norm {got['rms_norm']}, {main.__name__} "
             f"{got[main.__name__]} over {d['decode_steps']} replays, "
-            f"{d['prefill_chunks']} paged and {d['dense_prefill_chunks']} "
+            f"{d['paged_prefill_chunks']} paged and "
+            f"{d['dense_prefill_chunks']} "
             "dense chunks; every other kernel 0")
         out["launches"], out["counts"] = got, d
         with engine._prefix_lock:   # idle: every request done
@@ -6712,6 +7222,14 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    log("phase 7x (observability): phase 4's llama3-8b bf16 tree behind "
+        "serve_main (/metrics, request spans with a JSONL export, "
+        "/debug/profile) and a ReplicaReporter at 0.5 s against a stub "
+        "router")
+    obs = observability_phase(torch, dev, card, cfg, params, eng)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     log("phase 7g (d): llama3-8b --prefix-cache off (the contiguous decode "
         "loop over a linear cache, 8 slots, cache_len 2048; phase 4's tree)")
     prefix_off = interleave_engine_run(torch, dev, card, "llama3-8b", 2048,
@@ -6898,6 +7416,8 @@ def main(argv=None) -> int:
                attn["paged_attention_multi"],
                serve_launches["paged_attention_multi"],
                {"serve": serve_launches["paged_attention_multi"],
+                "serve_observability":
+                    obs["launches"]["paged_attention_multi"],
                 "serve_spec": spec_launches["paged_attention_multi"],
                 "serve_openai": openai["launches"]["paged_attention_multi"],
                 "serve_int4_kv_int8":
@@ -6914,6 +7434,7 @@ def main(argv=None) -> int:
                "k8s_runpod_kubelet_tpu/ops/rmsnorm.py:80", rms,
                serve_launches["rms_norm"],
                {"serve": serve_launches["rms_norm"],
+                "serve_observability": obs["launches"]["rms_norm"],
                 "serve_spec": spec_launches["rms_norm"],
                 "serve_int4_kv_int8": quant_launches["rms_norm"],
                 "serve_mla": mla_launches["rms_norm"],
@@ -7062,6 +7583,7 @@ def main(argv=None) -> int:
         with open(args.out, "w") as f:
             json.dump({"card": card, "device": device, "kernels": kernels,
                        "flash": flash, "engine": eng,
+                       "observability": obs,
                        "spec_engine": spec, "openai": openai,
                        "hf_load": hf,
                        "quant_engine": qeng, "mla_engine": mla_eng,

@@ -1,6 +1,5 @@
 """HTTP front over the port's ServingEngine (a port of the JAX package's
-``workloads/serve_main.py``, without the KV-handoff routes, tracing,
-tenants and ``/metrics``).
+``workloads/serve_main.py``, without the KV-handoff routes and tenants).
 
 Endpoints:
   POST /generate      {"tokens": [...]} or {"text": "..."} (with a
@@ -47,9 +46,24 @@ Endpoints:
   GET  /debug/engine  the engine's debug snapshot
   GET  /debug/steps   ?n= the flight recorder's newest n step records and
                       phase medians, and the step graphs' capture counts
+  GET  /metrics       Prometheus text 0.0.4: the engine's counters, gauges
+                      and histograms (``tpu_serving_*``, the JAX engine's
+                      names and HELP texts)
+  GET  /debug/traces  ?trace_id= one trace's spans, else the newest spans
+  GET  /debug/profile ?seconds= (0, 30]: a torch.profiler capture (CPU, and
+                      the card's kernels when the engine is on one) written
+                      as a Chrome trace into a fresh temporary directory ->
+                      {"profile_dir", "seconds"}; 403 unless
+                      --profile-capture on, 409 while another capture runs
 
-A submit past --max-queue-depth answers 429 (the OpenAI error shape on
-/v1/*) with Retry-After; a draining engine 503.
+/generate, /prefix and the OpenAI completion routes take a W3C
+``traceparent`` header: its trace id and span become the request's trace
+and parent span, and every response carries the request's own
+``traceparent`` (feed its trace id to /debug/traces). A submit past
+--max-queue-depth answers 429 (the OpenAI error shape on /v1/*) with
+Retry-After; a draining engine 503. With --fleet-router the replica
+registers with the fleet router and heartbeats its load and its metrics
+snapshot (``fleet.registry.ReplicaReporter``).
 
 Run: python -m k8s_runpod_kubelet_tpu_torch.workloads.serve_main \
         --model llama3-8b --slots 8 --cache-len 2048 --port 8000 \
@@ -58,7 +72,10 @@ Run: python -m k8s_runpod_kubelet_tpu_torch.workloads.serve_main \
         [--kv-pool-pages N] [--max-queue-depth N] [--flight-recorder off]
         [--hf-checkpoint DIR]
         [--lora-rank R [--lora-targets wq,wv] [--max-adapters N]
-         [--dynamic-adapters]]
+         [--dynamic-adapters]] [--trace-export PATH]
+        [--profile-capture on|off] [--fleet-router URL
+         [--fleet-advertise URL] [--fleet-replica-id ID]
+         [--fleet-heartbeat-interval S]]
 (``--model mla-8b`` serves Multi-head Latent Attention from a latent
 arena; ``--kv-int8`` then makes the latents int8.)
 """
@@ -70,8 +87,11 @@ import base64
 import itertools
 import json
 import logging
+import os
 import queue
+import socket
 import struct
+import tempfile
 import threading
 import time
 import urllib.parse
@@ -81,6 +101,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import torch
 
 from ..device import resolve_device
+from ..tracing import Tracer, format_traceparent, parse_traceparent
 from .serving import (EngineDraining, EngineOverloaded, ServingConfig,
                       ServingEngine)
 from .tokenizer import get_tokenizer
@@ -89,6 +110,12 @@ log = logging.getLogger("serve-main")
 
 # the request-id tail: unique even when the wall clock stands still
 _RID_SEQ = itertools.count()
+# one torch.profiler capture at a time (the profiler is process-wide)
+_PROFILE_LOCK = threading.Lock()
+
+
+class ProfileBusy(RuntimeError):
+    """A ``torch.profiler`` capture is already running in this process."""
 
 
 def _or(value, default):
@@ -104,6 +131,11 @@ class _Handler(BaseHTTPRequestHandler):
     # wall clock for OpenAI "created" stamps and ids, monotonic deadlines
     clock = staticmethod(time.time)
     mono = staticmethod(time.monotonic)
+    # GET /debug/profile: a capture slows the engine and writes to the
+    # replica's disk, so it stays 403 unless the operator opted in; the
+    # capture window's sleep is a seam like the clocks
+    profile_capture = False
+    sleep = staticmethod(time.sleep)
     protocol_version = "HTTP/1.1"
 
     def log_message(self, *a):
@@ -133,6 +165,21 @@ class _Handler(BaseHTTPRequestHandler):
         length = int(self.headers.get("Content-Length") or 0)
         return json.loads(self.rfile.read(length)) if length else {}
 
+    def _trace_ctx(self) -> tuple[dict, dict]:
+        """(submit kwargs, response headers) of this request's trace: an
+        inbound W3C ``traceparent`` donates the trace id and the parent
+        span, else a fresh trace id is minted. The request's root span id
+        is minted here, before it runs, so every response (streamed or
+        not) can stamp the ``traceparent`` a caller feeds to
+        /debug/traces."""
+        inbound = parse_traceparent(self.headers.get("traceparent"))
+        trace_id = inbound[0] if inbound else Tracer.new_trace_id()
+        parent = inbound[1] if inbound else ""
+        root = Tracer.new_span_id()
+        return ({"trace_id": trace_id, "parent_span": parent,
+                 "span_id": root},
+                {"traceparent": format_traceparent(trace_id, root)})
+
     def do_GET(self):
         eng = self.engine
         url = urllib.parse.urlparse(self.path)
@@ -161,6 +208,35 @@ class _Handler(BaseHTTPRequestHandler):
             except ValueError:
                 return self._send(400, {"error": "n must be an integer"})
             return self._send(200, eng.debug_steps(n))
+        if url.path == "/metrics":
+            return self._send(200, eng.metrics.render().encode(),
+                              "text/plain; version=0.0.4")
+        if url.path == "/debug/traces":
+            q = urllib.parse.parse_qs(url.query)
+            return self._send(200, eng.tracer.query(
+                (q.get("trace_id") or [""])[0]))
+        if url.path == "/debug/profile":
+            if not self.profile_capture:
+                return self._send(
+                    403, {"error": "profile capture disabled; start with "
+                                   "--profile-capture on to enable"})
+            q = urllib.parse.parse_qs(url.query)
+            try:
+                seconds = float((q.get("seconds") or ["1"])[0])
+            except ValueError:
+                return self._send(400, {"error": "seconds must be a number"})
+            if not 0 < seconds <= 30:
+                return self._send(
+                    400, {"error": "seconds must be in (0, 30]"})
+            try:
+                out_dir = capture_profile(eng, seconds, self.sleep)
+            except ProfileBusy:
+                # a second capture never queues behind the first: a
+                # capture that does not return would hold every later one
+                return self._send(
+                    409, {"error": "a profile capture is already running"})
+            return self._send(200, {"profile_dir": out_dir,
+                                    "seconds": seconds})
         self._send(404, {"error": f"no route {self.path}"})
 
     def do_POST(self):
@@ -186,19 +262,22 @@ class _Handler(BaseHTTPRequestHandler):
         except (json.JSONDecodeError, ValueError, TypeError) as e:
             return self._send(400, {"error": f"bad request: {e}"})
         if self.path == "/prefix":
+            _, trace_hdrs = self._trace_ctx()
             try:
                 self.engine.register_prefix(tokens)
             except ValueError as e:
                 return self._send(400, {"error": str(e)})
             except EngineOverloaded as e:   # an MLA engine's full pool
                 return self._overloaded(e)
-            return self._send(200, {"registered": len(tokens)})
+            return self._send(200, {"registered": len(tokens)},
+                              extra_headers=trace_hdrs)
         if req.get("stream"):
             return self._generate_stream(tokens, req)
         try:
             stop, stop_strs = self._parse_stop(req.get("stop"))
         except ValueError as e:
             return self._send(400, {"error": str(e)})
+        trace_kw, trace_hdrs = self._trace_ctx()
         fut = self.engine.submit(
             tokens, req.get("max_new_tokens"), req.get("temperature"),
             top_k=_or(req.get("top_k"), 0), top_p=_or(req.get("top_p"), 1.0),
@@ -207,7 +286,7 @@ class _Handler(BaseHTTPRequestHandler):
             logit_bias=req.get("logit_bias"), seed=req.get("seed"),
             stop=stop, stop_text=stop_strs,
             logprobs=bool(req.get("logprobs")),
-            adapter=req.get("adapter") or "")
+            adapter=req.get("adapter") or "", **trace_kw)
         try:
             out = fut.result(timeout=self.request_timeout_s)
         except FutureTimeout:
@@ -226,7 +305,7 @@ class _Handler(BaseHTTPRequestHandler):
             if stop_strs:  # a text stop: cut at its first occurrence
                 text, _ = self._cut_at_stop(text, stop_strs)
             body["text"] = text
-        self._send(200, body)
+        self._send(200, body, extra_headers=trace_hdrs)
 
     def _register_adapter(self):
         """POST /adapters: register a LoRA adapter from a ``.npz`` path the
@@ -346,7 +425,8 @@ class _Handler(BaseHTTPRequestHandler):
             raise ValueError("tokens must be a list of ints")
         return tokens
 
-    def _stream_pump(self, tokens: list, kw: dict, ctype: str, fmt: dict):
+    def _stream_pump(self, tokens: list, kw: dict, ctype: str, fmt: dict,
+                     extra_headers: dict | None = None):
         """Streamed generation (NDJSON /generate and SSE /v1/*): the engine
         thread pushes tokens into a queue, this handler thread writes them
         out as HTTP chunks. A broken pipe raises in the engine's next
@@ -354,7 +434,8 @@ class _Handler(BaseHTTPRequestHandler):
         bounds the whole request. ``fmt`` callbacks each return a list of
         body chunks: token(t), timeout(), error(msg), end(result), an
         optional start() sent right after the headers, and badreq(msg) /
-        overloaded(msg) for a submit that fails at once."""
+        overloaded(msg) for a submit that fails at once. ``extra_headers``
+        ride the 200's headers."""
         q: "queue.Queue" = queue.Queue()
         dead = threading.Event()
 
@@ -376,6 +457,8 @@ class _Handler(BaseHTTPRequestHandler):
         self.send_response(200)
         self.send_header("Content-Type", ctype)
         self.send_header("Transfer-Encoding", "chunked")
+        for k, v in (extra_headers or {}).items():
+            self.send_header(k, v)
         self.end_headers()
 
         def chunk(body: bytes):
@@ -525,6 +608,8 @@ class _Handler(BaseHTTPRequestHandler):
         except (json.JSONDecodeError, ValueError, TypeError) as e:
             return self._send(400, {"error": {
                 "message": str(e), "type": "invalid_request_error"}})
+        trace_kw, trace_hdrs = self._trace_ctx()
+        kw.update(trace_kw)
         ns = int(self.clock() * 1e9) + next(_RID_SEQ)
         rid = f"chatcmpl-{ns:x}" if chat else f"cmpl-{ns:x}"
         created = int(self.clock())
@@ -647,7 +732,8 @@ class _Handler(BaseHTTPRequestHandler):
                  "badreq": lambda msg: {"error": {
                      "message": msg, "type": "invalid_request_error"}},
                  "overloaded": lambda msg: {"error": {
-                     "message": msg, "type": "overloaded_error"}}})
+                     "message": msg, "type": "overloaded_error"}}},
+                extra_headers=trace_hdrs)
 
         # n choices share one prefill; with a seed, member i samples with
         # seed + i, so sampled choices differ
@@ -697,7 +783,8 @@ class _Handler(BaseHTTPRequestHandler):
             else "text_completion", "created": created, "model": model_name,
             "choices": choices,
             "usage": {"prompt_tokens": len(tokens), "completion_tokens": gen,
-                      "total_tokens": len(tokens) + gen}})
+                      "total_tokens": len(tokens) + gen}},
+            extra_headers=trace_hdrs)
 
     def _generate_stream(self, tokens: list, req: dict):
         """Chunked NDJSON: one {"token": N} line per token, then the
@@ -706,6 +793,7 @@ class _Handler(BaseHTTPRequestHandler):
             stop, stop_strs = self._parse_stop(req.get("stop"))
         except ValueError as e:
             return self._send(400, {"error": str(e)})
+        trace_kw, trace_hdrs = self._trace_ctx()
         kw = dict(max_new_tokens=req.get("max_new_tokens"),
                   temperature=req.get("temperature"),
                   top_k=_or(req.get("top_k"), 0),
@@ -715,7 +803,7 @@ class _Handler(BaseHTTPRequestHandler):
                   frequency_penalty=_or(req.get("frequency_penalty"), 0.0),
                   logit_bias=req.get("logit_bias"), seed=req.get("seed"),
                   logprobs=bool(req.get("logprobs")),
-                  adapter=req.get("adapter") or "")
+                  adapter=req.get("adapter") or "", **trace_kw)
 
         def line(payload: dict) -> bytes:
             return (json.dumps(payload) + "\n").encode()
@@ -734,21 +822,101 @@ class _Handler(BaseHTTPRequestHandler):
             {"token": lambda t: [line({"token": t})], "end": fmt_end,
              "timeout": lambda: [line({"error": "generation timed out"})],
              "error": lambda msg: [line({"error": msg})],
-             "badreq": lambda msg: {"error": msg}})
+             "badreq": lambda msg: {"error": msg}},
+            extra_headers=trace_hdrs)
+
+
+def capture_profile(engine: ServingEngine, seconds: float,
+                    sleep=time.sleep) -> str:
+    """One ``torch.profiler`` capture of ``seconds`` while the engine
+    serves: CPU activity, and the card's kernels (CUPTI sees every
+    thread's launches, graph replays' nodes included) when the engine is
+    on one. Writes ``trace.json`` (Chrome trace format) into a fresh
+    ``tpu-serving-profile-`` temporary directory and returns it. The
+    engine's step graphs were captured in ``start()``, before the front
+    took a request: a graph that is not captured yet, or a capture inside
+    the window, is a bug here and raises. Raises ``ProfileBusy`` at once
+    while another capture runs.
+
+    The profiler starts and stops holding the engine's ``_prefix_lock``,
+    under which the engine issues every step: a stop beside another
+    thread's ``CUDAGraph.replay`` deadlocked both (the stop inside the
+    profiler's ``__exit__``, the replay inside its launch; 2 captures of
+    17 on an NVIDIA H100 80GB HBM3). The window itself runs unlocked."""
+    from torch.profiler import profile
+
+    def captures() -> int:
+        return sum(g["compiles"] for g in engine.watchdog.snapshot().values())
+
+    activities = _profiler_activities(engine)
+    if not _PROFILE_LOCK.acquire(blocking=False):
+        raise ProfileBusy("a profile capture is already running")
+    try:
+        out_dir = tempfile.mkdtemp(prefix="tpu-serving-profile-")
+        before = captures()
+        prof = profile(activities=activities)
+        with engine._prefix_lock:
+            prof.start()
+        try:
+            sleep(seconds)
+        finally:
+            with engine._prefix_lock:
+                prof.stop()
+        if captures() != before:
+            raise RuntimeError("a step graph was captured under the "
+                               "profiler")
+        prof.export_chrome_trace(os.path.join(out_dir, "trace.json"))
+    finally:
+        _PROFILE_LOCK.release()
+    return out_dir
+
+
+def _profiler_activities(engine: ServingEngine) -> list:
+    """CPU activity, and CUDA's for an engine on a card, whose step graphs
+    must all be captured already (the profiler never wraps a capture)."""
+    from torch.profiler import ProfilerActivity
+
+    if engine.device.type != "cuda":
+        return [ProfilerActivity.CPU]
+    if any(g["compiles"] < 1 for g in engine.watchdog.snapshot().values()):
+        raise RuntimeError("a step graph is not captured yet; the profiler "
+                           "must never wrap a CUDA-graph capture")
+    return [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+
+
+def init_profiler(engine: ServingEngine) -> None:
+    """Start and stop the profiler once on the calling thread. Kineto sets
+    its tracer up at its first start, and only on the thread that
+    registered it (the one that imported torch; a first start on a
+    handler thread logs "External init callback must run in same thread
+    as registerClient"); on a card the first start also brings CUPTI up,
+    seconds of work better paid before any request. Holds the engine's
+    ``_prefix_lock`` as ``capture_profile`` does."""
+    from torch.profiler import profile
+
+    with _PROFILE_LOCK, engine._prefix_lock, \
+            profile(activities=_profiler_activities(engine)):
+        pass
 
 
 def serve(engine: ServingEngine, port: int = 8000, tokenizer=None,
           request_timeout_s: float = 120.0, host: str = "0.0.0.0",
           clock=time.time, mono=time.monotonic,
-          allow_adapters: bool = False) -> ThreadingHTTPServer:
+          allow_adapters: bool = False,
+          profile_capture: bool = False) -> ThreadingHTTPServer:
     """Start the HTTP front on a daemon thread; ``port`` 0 picks a free
     port (read ``httpd.server_address[1]``). Stop with
     ``httpd.shutdown(); httpd.server_close()``. ``clock``/``mono`` are the
     wall and monotonic clocks (injectable for tests); ``allow_adapters``
-    opens POST /adapters."""
+    opens POST /adapters, ``profile_capture`` GET /debug/profile (and
+    then brings the profiler up here, on the caller's thread:
+    ``init_profiler``)."""
+    if profile_capture:
+        init_profiler(engine)
     handler = type("BoundHandler", (_Handler,),
                    {"engine": engine, "tokenizer": tokenizer,
                     "allow_adapters": allow_adapters,
+                    "profile_capture": profile_capture,
                     "request_timeout_s": request_timeout_s,
                     "clock": staticmethod(clock), "mono": staticmethod(mono)})
     httpd = ThreadingHTTPServer((host, port), handler)
@@ -853,6 +1021,25 @@ def parse_args(argv=None) -> argparse.Namespace:
                         ".npz path the server reads); off by default, since "
                         "it lets clients open paths and replace a live "
                         "tenant's weights")
+    p.add_argument("--trace-export", default="", metavar="PATH",
+                   help="append finished request spans to this JSONL file; "
+                        "empty = the in-memory ring only (/debug/traces)")
+    p.add_argument("--profile-capture", default="off", choices=["on", "off"],
+                   help="enable GET /debug/profile?seconds= (a torch.profiler "
+                        "capture written to the replica's disk); off by "
+                        "default, since any client could otherwise slow the "
+                        "card")
+    p.add_argument("--fleet-router", default="", metavar="URL",
+                   help="fleet router URL: register this replica and "
+                        "heartbeat its load stats and metrics so the router "
+                        "balances traffic here; empty = standalone")
+    p.add_argument("--fleet-advertise", default="", metavar="URL",
+                   help="URL the router reaches this replica at (defaults "
+                        "to http://<hostname>:<port>)")
+    p.add_argument("--fleet-replica-id", default="",
+                   help="stable replica identity (defaults to the hostname)")
+    p.add_argument("--fleet-heartbeat-interval", type=float, default=2.0,
+                   help="seconds between heartbeats to the fleet router")
     return p.parse_args(argv)
 
 
@@ -931,7 +1118,8 @@ def build_engine(args: argparse.Namespace, params=None):
     return ServingEngine(
         cfg, params, sc, device=device,
         decode_fn=tokenizer.decode if tokenizer is not None else None,
-        mesh=mesh).start(), tokenizer
+        mesh=mesh, tracer=Tracer(export_path=args.trace_export)
+    ).start(), tokenizer
 
 
 def main(argv=None) -> int:
@@ -943,20 +1131,48 @@ def main(argv=None) -> int:
         log.error("%s", e)
         return 1
     httpd = serve(engine, args.port, tokenizer=tokenizer,
-                  allow_adapters=args.dynamic_adapters)
+                  allow_adapters=args.dynamic_adapters,
+                  profile_capture=args.profile_capture == "on")
     snap = engine.debug_snapshot()
     log.info("serving %s on :%d (%s, weights %s, kv %s, cache %s, "
              "tensor-parallel %d)", snap["model"], httpd.server_address[1],
              snap["device"], snap["weights"], snap["kv"],
              snap["cache_layout"], max(1, snap["paged_tp_shards"]))
+    reporter = start_reporter(engine, args, httpd.server_address[1])
     try:
         threading.Event().wait()
     except KeyboardInterrupt:
         pass
+    if reporter is not None:
+        reporter.stop()
     httpd.shutdown()
     httpd.server_close()
     engine.stop()
+    engine.tracer.close()   # flush the JSONL export queue
     return 0
+
+
+def start_reporter(engine: ServingEngine, args: argparse.Namespace,
+                   port: int):
+    """The fleet reporter of ``--fleet-router`` (None without it), started:
+    registered as the unified role, with the hostname as its pod name (the
+    autoscaler's delete handle) and the generation and pool the pod scaler
+    stamps into ``TPU_SERVING_GENERATION``/``TPU_SERVING_POOL``."""
+    if not args.fleet_router:
+        return None
+    from ..fleet.registry import ReplicaReporter
+
+    host = socket.gethostname()
+    reporter = ReplicaReporter(
+        engine, args.fleet_router,
+        replica_id=args.fleet_replica_id or host,
+        advertise_url=args.fleet_advertise or f"http://{host}:{port}",
+        pod_name=host, interval_s=args.fleet_heartbeat_interval,
+        generation=os.environ.get("TPU_SERVING_GENERATION", ""),
+        pool=os.environ.get("TPU_SERVING_POOL", "")).start()
+    log.info("fleet: reporting to %s as %s", args.fleet_router,
+             reporter.replica_id)
+    return reporter
 
 
 if __name__ == "__main__":

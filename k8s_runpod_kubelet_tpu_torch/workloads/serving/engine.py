@@ -60,7 +60,15 @@ paged loop.
   exact-length ``forward`` (the flash kernel) on the caller's thread.
 - **Flight recorder**: with ``flight_recorder`` on, every decode step's
   wall splits into schedule/kernel/sample/commit phases in a bounded ring
-  (``recorder.FlightRecorder``), read through ``debug_steps()``.
+  (``recorder.FlightRecorder``), read through ``debug_steps()``, and feeds
+  the step histograms and each request's share of its steps.
+- **Metrics and spans**: every counter, gauge and histogram lives in
+  ``self.metrics`` (``metrics.Metrics``) under the JAX engine's
+  ``tpu_serving_`` names and HELP texts, served by ``GET /metrics``; at
+  completion a request records its ``serving.request`` span with
+  contiguous ``queue_wait``, ``prefill`` and ``decode`` children in
+  ``self.tracer`` (``tracing.Tracer``), under the caller's trace id when
+  ``submit`` got one.
 - **Tensor parallelism**: with ``mesh`` (``parallel.Mesh``, ``tensor`` N
   > 1, in one process) the engine quantizes its weights first, then lays
   them out over the N shards (``parallel.shard_params``), and its arena
@@ -101,10 +109,12 @@ paged loop.
 Every launch that touches the arena, and every pool or trie call, runs
 under ``_prefix_lock``: the two threads issue onto PyTorch's one current
 stream in lock order, so each step sees the arena the previous one left.
-Counters are plain integers, read through ``debug_snapshot()``;
-``decode_steps`` and ``prefill_chunks`` count under that lock with their
-step, so a reader holding it sees them agree with the kernels' launch
-counters.
+``counters`` is a read-only view of ``self.metrics``'s counters (one
+store: ``debug_snapshot()["counters"]`` and ``/metrics`` never disagree);
+``decode_steps``, ``paged_prefill_chunks`` and the dense route's heads
+and chunks count under that lock with their step, so a reader holding it
+sees them agree with the kernels' launch counters. ``prefill_chunks`` is
+the JAX engine's series: it counts only with ``serving_chunk_tokens`` set.
 """
 
 from __future__ import annotations
@@ -114,6 +124,7 @@ import queue
 import threading
 import time
 import uuid
+from collections.abc import Mapping
 from concurrent.futures import Future
 from typing import Any, Callable, Optional
 
@@ -121,29 +132,57 @@ import numpy as np
 import torch
 
 from ...device import resolve_device
+from ...metrics import Metrics
 from ...models.llama import LlamaConfig, LlamaModel, Params
 from ...models.lora import LORA_TARGETS, is_lora
 from ...models.quant import quantize_params
 from ...parallel.sharding import shard_params
+from ...tracing import Tracer
 from .kv_manager import DensePrefixStore, PagedKVStore, PoolExhausted
-from .recorder import CompileWatchdog, FlightRecorder
+from .recorder import STEP_BUCKETS, CompileWatchdog, FlightRecorder
 from .sampler import (_apply_penalties, _bias_row, _logit_modded,
                       _penalized, _sample)
-from .scheduler import (ChunkArbiter, EngineDraining, EngineOverloaded,
+from .scheduler import (ITL_BUCKETS, TTFT_BUCKETS, UTIL_BUCKETS,
+                        ChunkArbiter, EngineDraining, EngineOverloaded,
                         Request, ServingConfig, _fail_future, _Slot)
 from .step_graph import DecodeGraph, StepGraph
 
 log = logging.getLogger(__name__)
 
+# the counters ``debug_snapshot()`` reports, each the series
+# ``tpu_serving_<name>`` of the engine's metrics. The last six are the
+# port's own (its launch accounting of paged chunks, its dense route and
+# adapter registry; the JAX engine counts no such series)
 COUNTERS = ("admitted", "decode_steps", "engine_errors", "prefill_errors",
             "prefix_cache_hits", "prefix_cache_misses", "paged_prefill_tokens",
             "prefill_chunks", "admission_rejected", "drain_rejected",
             "cancelled", "spec_proposed", "spec_accepted",
             "paged_speculative_steps", "paged_speculative_rollback_pages",
-            "chunk_interleaved_steps", "prefix_hits", "dense_prefills",
-            "dense_prefill_heads", "dense_prefill_chunks", "embeds",
-            "stream_cancelled", "prefix_cache_evictions",
-            "prefix_adapter_fills", "adapters_registered")
+            "chunk_interleaved_steps", "prefix_hits", "stream_cancelled",
+            "prefix_cache_evictions", "prefix_adapter_fills",
+            "paged_prefill_chunks", "dense_prefills", "dense_prefill_heads",
+            "dense_prefill_chunks", "embeds", "adapters_registered")
+
+
+class _CounterView(Mapping):
+    """``COUNTERS`` read from the engine's metrics: ``view["decode_steps"]``
+    is ``tpu_serving_decode_steps``, as an int."""
+
+    __slots__ = ("_metrics",)
+
+    def __init__(self, metrics: Metrics):
+        self._metrics = metrics
+
+    def __getitem__(self, name: str) -> int:
+        if name not in COUNTERS:
+            raise KeyError(name)
+        return int(self._metrics.get_counter("tpu_serving_" + name))
+
+    def __iter__(self):
+        return iter(COUNTERS)
+
+    def __len__(self) -> int:
+        return len(COUNTERS)
 
 
 class _PagedRun:
@@ -163,17 +202,46 @@ class ServingEngine:
     def __init__(self, cfg: LlamaConfig, params: Params, sc: ServingConfig,
                  seed: int = 0, device=None,
                  decode_fn: Optional[Callable[[list], str]] = None,
-                 mesh=None):
+                 mesh=None, metrics: Optional[Metrics] = None,
+                 tracer: Optional[Tracer] = None, perf=None):
         """``decode_fn`` (token ids -> text, a tokenizer's ``decode``)
         enables ``stop_text``. ``mesh`` with ``tensor`` > 1 serves
         tensor-parallel in one process; the engine then takes ``params``
         over: unless it quantizes them first (its own copy), the given
         tree's leaves are replaced by their shards, so that an 8B bf16 tree
-        is never held twice."""
+        is never held twice. ``metrics`` and ``tracer`` receive the
+        engine's series and spans (fresh ones when None); ``perf`` is the
+        clock of every duration (perf_counter, injectable)."""
         self.device = resolve_device(device)
         self.cfg = cfg
         self.sc = sc
         self._decode_fn = decode_fn
+        self._perf = perf if perf is not None else time.perf_counter
+        # ``is not None``, not ``or``: a caller's still-empty tracer is
+        # falsy (len 0), and ``or`` would orphan its export file
+        self.tracer = tracer if tracer is not None else Tracer()
+        self.metrics = metrics or Metrics()
+        self._describe_metrics(self.metrics)
+        # the HPA scrapes from pod start: the signal exists before traffic
+        self.metrics.set_gauge("tpu_serving_queue_depth", 0)
+        self.metrics.set_gauge("tpu_serving_active_slots", 0)
+        self.metrics.set_gauge("tpu_serving_kv_cache_tokens", 0)
+        self.metrics.set_gauge("tpu_serving_draining", 0)
+        # series dashboards divide, visible from pod start: hit rate,
+        # chunks against interleaved steps, tokens prefilled into pages,
+        # rollback pages against drafts
+        self.metrics.incr("tpu_serving_prefix_cache_hits", 0)
+        self.metrics.incr("tpu_serving_prefix_cache_misses", 0)
+        self.metrics.incr("tpu_serving_prefix_cache_evictions", 0)
+        self.metrics.incr("tpu_serving_prefill_chunks", 0)
+        self.metrics.incr("tpu_serving_chunk_interleaved_steps", 0)
+        self.metrics.incr("tpu_serving_paged_prefill_tokens", 0)
+        self.metrics.incr("tpu_serving_paged_speculative_steps", 0)
+        self.metrics.incr("tpu_serving_paged_speculative_rollback_pages", 0)
+        if sc.speculate_k > 0:
+            self.metrics.incr("tpu_serving_spec_proposed", 0)
+            self.metrics.incr("tpu_serving_spec_accepted", 0)
+        self.counters = _CounterView(self.metrics)
         if sc.quantize_int8 and sc.quantize_int4:
             raise ValueError("quantize_int8 and quantize_int4 are mutually "
                              "exclusive — pick one weight precision")
@@ -279,12 +347,15 @@ class ServingEngine:
         # the decode and verify steps as CUDA graphs over static slot
         # buffers, captured at start() on a card (the JAX engine's jitted
         # paged_step / paged_verify); the watchdog counts every capture
-        self.watchdog = CompileWatchdog()
+        self.watchdog = CompileWatchdog(metrics=self.metrics,
+                                        tracer=self.tracer)
         # the per-step timeline; None when off, so a mark site costs one
         # ``is not None`` test
         self.recorder: Optional[FlightRecorder] = (
             FlightRecorder(max_steps=sc.recorder_steps,
-                           max_bytes=sc.recorder_bytes)
+                           max_bytes=sc.recorder_bytes, perf=self._perf,
+                           metrics=self.metrics,
+                           max_requests=max(64, 4 * sc.slots))
             if sc.flight_recorder else None)
         paged = self._paged_loop
         self._paged_step = self.watchdog.wrap(
@@ -334,8 +405,17 @@ class ServingEngine:
         # in neither place
         self._transit_lock = threading.Lock()
         self._transit = 0
-        self._count_lock = threading.Lock()
-        self.counters = dict.fromkeys(COUNTERS, 0)
+        # the pool's stats at the last arena change, for the page gauges
+        # and the step records (walking refcounts every step costs more
+        # than the step)
+        self._page_stats: Optional[dict] = None
+        self._update_page_gauges()
+        self.metrics.set_gauge("tpu_serving_paged_decode",
+                               1 if self._paged_loop else 0)
+        # the tensor degree the paged loop runs at: 1 on one device, 0
+        # with the loop off
+        self.metrics.set_gauge("tpu_serving_paged_tp_shards",
+                               self.model.tp if self._paged_loop else 0)
         self.total_generated = 0
         self.last_error: Optional[str] = None
         self._seed_rng = np.random.default_rng(seed)
@@ -361,6 +441,161 @@ class ServingEngine:
         self._prefill_thread.start()
         return self
 
+    @staticmethod
+    def _describe_metrics(m: Metrics):
+        """HELP/TYPE of every serving series the port emits, the JAX
+        engine's texts word for word (they are the contract with the HPA,
+        the router and the README catalogue); the KV handoff and pull
+        series wait for their paths (ROADMAP Queue 1 #10)."""
+        m.describe("tpu_serving_queue_depth",
+                   "requests waiting for a decode slot (HPA signal)")
+        m.describe("tpu_serving_active_slots",
+                   "decode slots currently holding a live request")
+        m.describe("tpu_serving_kv_cache_tokens",
+                   "tokens (prompt + generated) held in active KV slots")
+        m.describe("tpu_serving_admitted",
+                   "requests admitted into a decode slot")
+        m.describe("tpu_serving_admission_rejected",
+                   "submits rejected at max_queue_depth (mapped to HTTP 429)")
+        m.describe("tpu_serving_drain_rejected",
+                   "submits rejected while draining (mapped to HTTP 503)")
+        m.describe("tpu_serving_draining",
+                   "1 while the engine is draining (fleet scale-down)")
+        m.describe("tpu_serving_cancelled",
+                   "requests cancelled by their caller (timeout/disconnect)")
+        m.describe("tpu_serving_stream_cancelled",
+                   "streamed requests cancelled by a failing token callback")
+        m.describe("tpu_serving_decode_steps",
+                   "batched decode/verify steps executed by the engine loop")
+        m.describe("tpu_serving_engine_errors",
+                   "engine-loop steps that raised (in-flight requests failed)")
+        m.describe("tpu_serving_prefill_errors",
+                   "prefills that raised (poisoned prompt; request failed)")
+        m.describe("tpu_serving_prefix_hits",
+                   "prompts that skipped a registered prefix's prefill")
+        m.describe("tpu_serving_prefix_adapter_fills",
+                   "lazy per-adapter prefix variants computed on first use")
+        m.describe("tpu_serving_prefix_cache_hits",
+                   "prompts that reused >= 1 shared KV page (prefill skipped "
+                   "for the matched span)")
+        m.describe("tpu_serving_prefix_cache_misses",
+                   "prompts the prefix trie matched nothing for (full "
+                   "prefill)")
+        m.describe("tpu_serving_prefix_cache_evictions",
+                   "KV pages evicted from the prefix trie (LRU leaves) to "
+                   "make room")
+        m.describe("tpu_serving_kv_pages_total",
+                   "KV pages in the preallocated paged-prefix arena")
+        m.describe("tpu_serving_kv_pages_free",
+                   "KV pages on the free list (unreferenced)")
+        m.describe("tpu_serving_kv_pages_shared",
+                   "KV pages serving more than one cached sequence "
+                   "(trie-interior or multiply-referenced: the dedup win)")
+        m.describe("tpu_serving_paged_decode",
+                   "1 when the decode hot loop runs on per-slot page "
+                   "tables over the shared arena (zero-copy prefix/"
+                   "handoff adoption), 0 on the contiguous slot cache")
+        m.describe("tpu_serving_paged_tp_shards",
+                   "tensor-parallel shards the paged decode step runs "
+                   "over (shard_mapped arena; 1 = single device, 0 = "
+                   "paged loop off)")
+        m.describe("tpu_serving_prefill_chunks",
+                   "prompt chunks processed by chunked prefill "
+                   "(serving_chunk_tokens > 0)")
+        m.describe("tpu_serving_chunk_interleaved_steps",
+                   "decode steps the engine ran BETWEEN prefill chunks "
+                   "(the co-resident ITL protection chunking exists for)")
+        m.describe("tpu_serving_spec_proposed",
+                   "speculative draft tokens proposed")
+        m.describe("tpu_serving_spec_accepted",
+                   "speculative draft tokens accepted (committed for free)")
+        m.describe("tpu_serving_paged_prefill_tokens",
+                   "prompt tokens prefilled STRAIGHT INTO arena pages "
+                   "(paged-native chunks — no dense scratch cache, no "
+                   "fill_pages copy on the admission path)")
+        m.describe("tpu_serving_paged_speculative_steps",
+                   "speculative verify steps run on the paged loop "
+                   "(multi-token paged kernels over per-slot page tables)")
+        m.describe("tpu_serving_paged_speculative_rollback_pages",
+                   "tail pages dropped by speculative rejection rollback "
+                   "on the paged loop (uncommitted drafts' pages returned "
+                   "to the pool)")
+        m.describe("tpu_serving_request_latency_seconds",
+                   "submit -> completion, whole request")
+        m.describe("tpu_serving_ttft_seconds",
+                   "submit -> first generated token (time to first token)",
+                   buckets=TTFT_BUCKETS)
+        m.describe("tpu_serving_inter_token_seconds",
+                   "gap between consecutive streamed tokens of one request",
+                   buckets=ITL_BUCKETS)
+        m.describe("tpu_serving_queue_wait_seconds",
+                   "submit -> prefill start (admission queue wait)",
+                   buckets=TTFT_BUCKETS)
+        m.describe("tpu_serving_batch_utilization",
+                   "filled slots / max slots per decode step",
+                   buckets=UTIL_BUCKETS)
+        m.describe("tpu_serving_step_wall_seconds",
+                   "decode-step wall time (flight recorder; the four "
+                   "phase histograms below sum to it per step)",
+                   buckets=STEP_BUCKETS)
+        m.describe("tpu_serving_step_schedule_seconds",
+                   "step phase: host-side batch assembly — slot-table "
+                   "growth, lengths/page-table staging, draft proposals",
+                   buckets=STEP_BUCKETS)
+        m.describe("tpu_serving_step_kernel_seconds",
+                   "step phase: device DISPATCH of the decode/verify jit "
+                   "(async — materialization lands in the sample phase)",
+                   buckets=STEP_BUCKETS)
+        m.describe("tpu_serving_step_sample_seconds",
+                   "step phase: logits materialization + per-slot "
+                   "sampling (temperature/top-k/top-p, penalties, "
+                   "logprobs)",
+                   buckets=STEP_BUCKETS)
+        m.describe("tpu_serving_step_commit_seconds",
+                   "step phase: host-side token commit — stream "
+                   "emission, stop checks, slot bookkeeping, rollback",
+                   buckets=STEP_BUCKETS)
+        m.describe("tpu_serving_step_tokens",
+                   "tokens committed per decode step (speculative steps "
+                   "commit several per slot)",
+                   buckets=(1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0, 128.0))
+        m.describe("tpu_serving_step_ring_records",
+                   "records currently held by the flight-recorder ring")
+        m.describe("tpu_serving_step_ring_bytes",
+                   "serialized bytes held by the flight-recorder ring "
+                   "(hard-bounded by recorder_bytes)")
+        m.describe("tpu_serving_recompiles",
+                   "hot-path jit compiles BEYOND the first, per alarmed "
+                   "function — any rise is a cache-key flap (changed "
+                   "avals, shardings, or donation pattern recompiling "
+                   "the hot loop)")
+        # the port's own counters (its launch accounting of paged chunks,
+        # its dense route, embeddings and adapter registry; the JAX engine
+        # has no such series)
+        m.describe("tpu_serving_paged_prefill_chunks",
+                   "prompt chunks prefilled straight into arena pages, "
+                   "whatever serving_chunk_tokens is (one paged chunk "
+                   "step each)")
+        m.describe("tpu_serving_dense_prefills",
+                   "prompts prefilled through the dense-scratch route (a "
+                   "full pool, an n > 1 group, or paged prefill off)")
+        m.describe("tpu_serving_dense_prefill_heads",
+                   "dense-route prefill heads (the flash forward over a "
+                   "prompt's first chunk)")
+        m.describe("tpu_serving_dense_prefill_chunks",
+                   "dense-route prompt chunks appended after the head")
+        m.describe("tpu_serving_embeds",
+                   "embedding forwards (/v1/embeddings inputs)")
+        m.describe("tpu_serving_adapters_registered",
+                   "LoRA adapter registrations (new or rewritten)")
+        # zero-seed every counter the fleet heartbeat reads cumulative:
+        # the router differences them per beat, and a series that first
+        # appears mid-flight reads as a restart to its guards
+        m.incr("tpu_serving_admitted", 0)
+        m.incr("tpu_serving_decode_steps", 0)
+        m.incr("tpu_serving_engine_errors", 0)
+        m.incr("tpu_serving_prefill_errors", 0)
+
     def _step_state(self) -> dict:
         """What the decode graphs step over: the arena, or the contiguous
         loop's batch cache."""
@@ -379,7 +614,8 @@ class ServingEngine:
                seed: Optional[int] = None, stop: Optional[list] = None,
                stop_text: Optional[list] = None, logprobs: bool = False,
                on_token: Optional[Callable[[int], Any]] = None,
-               adapter: str = "") -> Future:
+               adapter: str = "", trace_id: str = "", parent_span: str = "",
+               span_id: str = "") -> Future:
         """Enqueue a generation request; resolves to {rid, tokens,
         latency_s, ttft_s} (+ "logprobs", one per token, with
         ``logprobs``). ``stop``: token sequences that end the request when
@@ -389,13 +625,17 @@ class ServingEngine:
         raising callback cancels the request. Invalid arguments resolve
         to ValueError; a queue at ``max_queue_depth`` to
         EngineOverloaded. ``adapter`` names a registered LoRA adapter
-        ("" = the base model); an unknown name resolves to ValueError."""
+        ("" = the base model); an unknown name resolves to ValueError.
+        ``trace_id``, ``parent_span`` and ``span_id`` place the request's
+        spans in the caller's trace (the W3C traceparent the HTTP front
+        parsed; ``span_id`` names the request's root span)."""
         try:
             req = self._build_request(prompt, max_new_tokens, temperature,
                                       top_k, top_p, presence_penalty,
                                       frequency_penalty, logit_bias, seed,
                                       stop, stop_text, logprobs, on_token,
-                                      adapter)
+                                      adapter, trace_id, parent_span,
+                                      span_id)
         except ValueError as exc:
             return _failed(exc)
         return self._enqueue(req, 1)[0]
@@ -405,7 +645,9 @@ class ServingEngine:
         """n requests over the identical prompt (OpenAI n > 1): the prompt
         prefills ONCE, through the dense-scratch route, and fans out to n
         slots. Member i samples with ``seed + i`` (when a seed is given),
-        so sampled choices differ; ``kw`` are ``submit``'s."""
+        so sampled choices differ; ``kw`` are ``submit``'s. The caller's
+        ``span_id`` names member 0's root span; the others mint their own
+        in the same trace."""
         if not _is_int(n) or n < 1:
             return [_failed(ValueError(f"n must be a positive int, got "
                                        f"{n!r}"))]
@@ -416,6 +658,7 @@ class ServingEngine:
                 # before any arithmetic)
                 s_i = seed if seed is None or i == 0 else seed + i
                 reqs.append(self._build_request(prompt, seed=s_i, **kw))
+                kw.pop("span_id", None)
         except ValueError as exc:
             return [_failed(exc) for _ in range(n)]
         reqs[0].fanout = reqs[1:]
@@ -427,7 +670,7 @@ class ServingEngine:
         members = [head] + list(head.fanout or [])
         with self._admit_lock:  # atomic check + put against racing submits
             if self._draining.is_set():
-                self._count("drain_rejected")
+                self.metrics.incr("tpu_serving_drain_rejected")
                 exc: Exception = EngineDraining(
                     "engine is draining; submit to another replica")
                 return [_failed(exc) for _ in members]
@@ -436,7 +679,7 @@ class ServingEngine:
                     depth + n > self.sc.max_queue_depth):
                 # the bounded-latency contract: an immediate typed
                 # rejection, not an unbounded wait
-                self._count("admission_rejected")
+                self.metrics.incr("tpu_serving_admission_rejected")
                 exc = EngineOverloaded(
                     f"queue depth {depth} + {n} exceeds max_queue_depth "
                     f"{self.sc.max_queue_depth}; retry later")
@@ -445,6 +688,7 @@ class ServingEngine:
                 self._queued_fanout += n - 1
             self._queue.put(head)
             self._queue_event.set()
+        self.metrics.set_gauge("tpu_serving_queue_depth", self.queue_depth)
         return [r.future for r in members]
 
     def drain(self):
@@ -452,6 +696,7 @@ class ServingEngine:
         everything in flight or queued. Idempotent."""
         with self._admit_lock:
             self._draining.set()
+        self.metrics.set_gauge("tpu_serving_draining", 1)
 
     @property
     def draining(self) -> bool:
@@ -491,7 +736,8 @@ class ServingEngine:
                     self._kv_store.page_bytes_per_shard
             else:
                 out = {"pages_total": 0, "pages_free": 0, "pages_shared": 0,
-                       "nodes": 0, "pinned": 0, "adapters": [],
+                       "pages_evictable": 0, "nodes": 0, "pinned": 0,
+                       "adapters": [],
                        "dense_entries": len(self._dense_prefixes)}
             out["registered"] = len(self._registered)
         out["page_tokens"] = self.sc.kv_page_tokens
@@ -537,7 +783,9 @@ class ServingEngine:
                 elif run is None:
                     _, evicted = self._kv_store.insert(0, tokens, single,
                                                        pin=True)
-                    self._count("prefix_cache_evictions", evicted)
+                    if evicted:
+                        self.metrics.incr(
+                            "tpu_serving_prefix_cache_evictions", evicted)
                 elif run.store is self._kv_store:
                     # the prefill adopted the pages unpinned; this second
                     # walk pins them, then the run's own references drop
@@ -545,6 +793,7 @@ class ServingEngine:
             finally:
                 if run is not None:
                     run.store.release(run.pages)
+        self._update_page_gauges()
 
     def _check_registry_room(self) -> None:
         if len(self._registered) >= self.sc.max_prefixes:
@@ -664,11 +913,12 @@ class ServingEngine:
                     self._kv_store.trie.drop_adapter(slot)
                 with self._adapter_lock:
                     self._adapter_names[name] = slot
-                self._count("adapters_registered")
+                self.metrics.incr("tpu_serving_adapters_registered")
             finally:
                 with self._adapter_cond:
                     self._adapter_writing.discard(slot)
                     self._adapter_cond.notify_all()
+        self._update_page_gauges()
         return slot
 
     def _adapter_kw(self, adapter_id: int) -> dict:
@@ -753,14 +1003,14 @@ class ServingEngine:
             # pool in f32: bf16 sums over hundreds of positions lose
             # ~1e-2 relative
             pooled = hidden[0].float().mean(dim=0)
-            self._count("embeds")
+            self.metrics.incr("tpu_serving_embeds")
         return pooled.tolist()
 
     def debug_snapshot(self) -> dict:
         """/debug/engine: per-slot state, queue depths, pool occupancy and
         the counters. Fields are single reads; a snapshot may straddle a
         step."""
-        now = time.perf_counter()
+        now = self._perf()
         slots = []
         for i, s in enumerate(self._slots):
             r = s.request
@@ -768,6 +1018,7 @@ class ServingEngine:
                 slots.append({"slot": i, "state": "free"})
                 continue
             entry = {"slot": i, "state": "decoding", "rid": r.rid,
+                     "trace_id": r.trace_id or None,
                      "age_s": round(now - r.submitted_at, 4),
                      "prompt_tokens": len(r.prompt),
                      "generated_tokens": len(s.generated),
@@ -776,8 +1027,9 @@ class ServingEngine:
             if self._paged_loop:
                 entry["pages"] = len(s.pages)
             slots.append(entry)
-        with self._count_lock:
-            counters = dict(self.counters)
+        counters = dict(self.counters)
+        kv_tokens = sum(s.get("prompt_tokens", 0) + s.get("generated_tokens", 0)
+                        for s in slots)
         sc, dtype = self.sc, str(self.cfg.dtype).removeprefix("torch.")
         weights = ("int4" if sc.quantize_int4 else
                    "int8" if sc.quantize_int8 else dtype)
@@ -791,7 +1043,8 @@ class ServingEngine:
                 "slots": slots, "active_slots": self.active_slots,
                 "max_slots": self.sc.slots, "queue_depth": self.queue_depth,
                 "ready_queue": self._ready.qsize(),
-                "in_transit": self._transit, "cache_len": self.sc.cache_len,
+                "in_transit": self._transit, "kv_cache_tokens": kv_tokens,
+                "cache_len": self.sc.cache_len,
                 "paged_decode": self._paged_loop,
                 "paged_prefill": self._paged_prefill_on,
                 # the contiguous loop's batch cache: linear, a ring (a
@@ -835,7 +1088,8 @@ class ServingEngine:
                        top_k=0, top_p=1.0, presence_penalty=0.0,
                        frequency_penalty=0.0, logit_bias=None, seed=None,
                        stop=None, stop_text=None, logprobs=False,
-                       on_token=None, adapter="") -> Request:
+                       on_token=None, adapter="", trace_id="",
+                       parent_span="", span_id="") -> Request:
         """``submit``'s arguments, validated, as a Request (ValueError
         when one is invalid)."""
         sc, vocab = self.sc, self.cfg.vocab_size
@@ -903,7 +1157,7 @@ class ServingEngine:
                        max_new_tokens=min(max_new_tokens,
                                           sc.cache_len - len(prompt)),
                        rid=uuid.uuid4().hex[:8], future=Future(),
-                       submitted_at=time.perf_counter(),
+                       submitted_at=self._perf(),
                        temperature=float(temperature), top_k=top_k,
                        top_p=float(top_p),
                        presence_penalty=float(presence_penalty),
@@ -911,11 +1165,10 @@ class ServingEngine:
                        logit_bias=logit_bias or None,
                        seed=seed & 0xFFFFFFFF, stop=[list(q) for q in stop],
                        stop_texts=list(stop_text), logprobs=bool(logprobs),
-                       on_token=on_token, adapter_id=adapter_id)
-
-    def _count(self, name: str, n: int = 1) -> None:
-        with self._count_lock:
-            self.counters[name] += n
+                       on_token=on_token, adapter_id=adapter_id,
+                       trace_id=str(trace_id or ""),
+                       span_id=str(span_id or ""),
+                       parent_span_id=str(parent_span or ""))
 
     # -- prefill thread -------------------------------------------------------
 
@@ -942,13 +1195,19 @@ class ServingEngine:
         """One dequeued request and its fanout members: one prefill, then
         one ready entry per live member, each with its own first token
         sampled from the shared last-position logits."""
+        self.metrics.set_gauge("tpu_serving_queue_depth", self.queue_depth)
         members = [req] + list(req.fanout or [])
         with self._fanout_lock:
             self._queued_fanout -= len(members) - 1
         live = [r for r in members if not r.future.cancelled()]
-        self._count("cancelled", len(members) - len(live))
+        self.metrics.incr("tpu_serving_cancelled", len(members) - len(live))
         if not live:
             return
+        dequeued = self._perf()
+        for r in live:
+            r.dequeued_at = dequeued
+            self.metrics.observe("tpu_serving_queue_wait_seconds",
+                                 dequeued - r.submitted_at)
         single = None
         entries = []
         try:
@@ -956,11 +1215,15 @@ class ServingEngine:
             # run's partial tail page can belong to one slot only
             release = self._prefill_reader(req.adapter_id)
             try:
-                last_logits, single, _ = self._prefill_tokens(
+                last_logits, single, matched = self._prefill_tokens(
                     req.prompt, single_only=len(live) > 1,
                     adapter_id=req.adapter_id)
             finally:
                 release()
+            prefill_done = self._perf()
+            for r in live:
+                r.prefill_done_at = prefill_done
+                r.matched_prefix_tokens = matched
             for r in live:
                 row = last_logits
                 if r.logit_bias:
@@ -977,13 +1240,13 @@ class ServingEngine:
                                                        dim=-1)[first])
                 entries.append((r, single, first, first_lp))
         except EngineOverloaded as exc:   # no route can hold the prompt
-            self._count("admission_rejected", len(live))
+            self.metrics.incr("tpu_serving_admission_rejected", len(live))
             for r in live:
                 _fail_future(r.future, exc)
             return
         except Exception as exc:  # noqa: BLE001 — one poisoned prompt only
             log.exception("prefill of %s failed", req.rid)
-            self._count("prefill_errors")
+            self.metrics.incr("tpu_serving_prefill_errors")
             if isinstance(single, _PagedRun):
                 with self._prefix_lock:
                     single.store.release(single.pages)
@@ -1022,9 +1285,9 @@ class ServingEngine:
     def _count_miss(self, tokens: list[int], adapter_id: int) -> None:
         """A prefix-cache miss; an adapter's first prompt over a registered
         prefix fills that adapter's own copy of the prefix's pages."""
-        self._count("prefix_cache_misses")
+        self.metrics.incr("tpu_serving_prefix_cache_misses")
         if adapter_id and self._covers_registered(tokens):
-            self._count("prefix_adapter_fills")
+            self.metrics.incr("tpu_serving_prefix_adapter_fills")
 
     def _prefill_paged_dense(self, tokens: list[int], adapter_id: int = 0
                              ) -> tuple[torch.Tensor, dict, int]:
@@ -1036,7 +1299,7 @@ class ServingEngine:
         enter the trie by copy (evicting as they go; best effort)."""
         store = self._kv_store
         single = None
-        self._count("dense_prefills")
+        self.metrics.incr("tpu_serving_dense_prefills")
         with self._prefix_lock:
             m = store.match(adapter_id, tokens)
             if m.pages:
@@ -1045,9 +1308,9 @@ class ServingEngine:
                 finally:
                     store.release(m.pages)
         if single is not None:
-            self._count("prefix_cache_hits")
+            self.metrics.incr("tpu_serving_prefix_cache_hits")
             if self._covers_registered(tokens):
-                self._count("prefix_hits")
+                self.metrics.incr("tpu_serving_prefix_hits")
             last_logits, single = self._append_chunks(
                 single, tokens[m.matched_tokens:], None, adapter_id)
         else:
@@ -1056,9 +1319,12 @@ class ServingEngine:
         try:
             with self._prefix_lock:
                 _, evicted = store.insert(adapter_id, tokens, single)
-            self._count("prefix_cache_evictions", evicted)
+            if evicted:
+                self.metrics.incr("tpu_serving_prefix_cache_evictions",
+                                  evicted)
         except Exception:  # noqa: BLE001 — caching is best-effort
             log.exception("prefix-cache insert failed; serving uncached")
+        self._update_page_gauges()
         return last_logits, single, m.matched_tokens
 
     def _prefill_dense(self, tokens: list[int], adapter_id: int = 0
@@ -1078,7 +1344,7 @@ class ServingEngine:
         if entry is None:
             last_logits, single = self._prefill_raw(tokens, adapter_id)
             return last_logits, single, 0
-        self._count("prefix_hits")
+        self.metrics.incr("tpu_serving_prefix_hits")
         last_logits, single = self._append_chunks(
             single, tokens[len(entry.tokens):], last_logits, adapter_id)
         return last_logits, single, len(entry.tokens)
@@ -1220,7 +1486,9 @@ class ServingEngine:
         with self._prefix_lock:   # behind the engine thread's replays
             last_logits, single = self.model.prefill(
                 self.params, toks, single, **self._adapter_kw(adapter_id))
-            self._count("dense_prefill_heads")
+            self.metrics.incr("tpu_serving_dense_prefill_heads")
+            if self._chunk_tokens:   # the head is a chunk, as in JAX
+                self.metrics.incr("tpu_serving_prefill_chunks")
         if self._chunk_tokens and len(tokens) > len(head):
             self._yield_between_chunks()
         return self._append_chunks(single, tokens[len(head):], last_logits,
@@ -1243,7 +1511,9 @@ class ServingEngine:
                 last_logits, single = self.model.prefill_chunk_step(
                     self.params, ctoks, single, true_len,
                     **self._adapter_kw(adapter_id))
-                self._count("dense_prefill_chunks")
+                self.metrics.incr("tpu_serving_dense_prefill_chunks")
+                if self._chunk_tokens:
+                    self.metrics.incr("tpu_serving_prefill_chunks")
             if self._chunk_tokens and start + step < len(toks):
                 self._yield_between_chunks()
         return last_logits, single
@@ -1252,7 +1522,7 @@ class ServingEngine:
         """Wait for one decode step while a slot decodes (ChunkArbiter)."""
         ran = self._arbiter.yield_for_decode(lambda: self.active_slots > 0)
         if ran:
-            self._count("chunk_interleaved_steps", ran)
+            self.metrics.incr("tpu_serving_chunk_interleaved_steps", ran)
             if self.recorder is not None:
                 self.recorder.event("chunk_interleave", steps=ran)
 
@@ -1281,9 +1551,9 @@ class ServingEngine:
         covered = m.matched_tokens
         pages = list(m.pages) + tail
         if covered:
-            self._count("prefix_cache_hits")
+            self.metrics.incr("tpu_serving_prefix_cache_hits")
             if self._covers_registered(tokens):
-                self._count("prefix_hits")
+                self.metrics.incr("tpu_serving_prefix_hits")
         else:
             self._count_miss(tokens, adapter_id)
         ad_kw = self._adapter_kw(adapter_id)
@@ -1306,8 +1576,11 @@ class ServingEngine:
                         self.model.paged_prefill_chunk_step(
                             self.params, ctoks, store.arena, table, lengths,
                             true_len, **ad_kw)
-                    self._count("prefill_chunks")
-                self._count("paged_prefill_tokens", len(chunk))
+                    self.metrics.incr("tpu_serving_paged_prefill_chunks")
+                    if self._chunk_tokens:
+                        self.metrics.incr("tpu_serving_prefill_chunks")
+                self.metrics.incr("tpu_serving_paged_prefill_tokens",
+                                  len(chunk))
                 if self._chunk_tokens and start + step < len(rest):
                     self._yield_between_chunks()
             with self._prefix_lock:
@@ -1316,6 +1589,7 @@ class ServingEngine:
             with self._prefix_lock:
                 store.release(pages)
             raise
+        self._update_page_gauges()
         return last_logits, _PagedRun(pages, len(tokens), store), covered
 
     # -- engine thread --------------------------------------------------------
@@ -1343,7 +1617,7 @@ class ServingEngine:
         the captured step graphs hold its pointers (a new one would make
         them recapture)."""
         self.last_error = f"{type(exc).__name__}: {exc}"
-        self._count("engine_errors")
+        self.metrics.incr("tpu_serving_engine_errors")
         for slot in self._slots:
             req, slot.request = slot.request, None
             if req is not None:
@@ -1369,6 +1643,9 @@ class ServingEngine:
         # group and not queued it yet
         with self._fanout_lock:
             self._queued_fanout -= drained_fanout
+        self.metrics.set_gauge("tpu_serving_queue_depth", self.queue_depth)
+        self.metrics.set_gauge("tpu_serving_active_slots", 0)
+        self.metrics.set_gauge("tpu_serving_kv_cache_tokens", 0)
         self._page_tables_np[:] = 0
         self._slot_adapter[:] = 0
         with self._prefix_lock:
@@ -1383,6 +1660,7 @@ class ServingEngine:
                 self._kv_store = PagedKVStore(self._kv_store.pool.n_pages,
                                               self.sc.kv_page_tokens, arena,
                                               shards=self._arena_shards)
+        self._update_page_gauges()
 
     def _admit(self) -> bool:
         admitted = False
@@ -1404,6 +1682,8 @@ class ServingEngine:
             admitted = True
             if slot.request is not None and self._finished(slot):
                 self._complete(slot_id, slot)
+        self.metrics.set_gauge("tpu_serving_active_slots", self.active_slots)
+        self._update_kv_gauge()
         return admitted
 
     def _bind_paged_slot(self, slot_id: int, slot: _Slot, req: Request,
@@ -1421,7 +1701,7 @@ class ServingEngine:
                 _fail_future(req.future, RuntimeError(
                     f"engine recovered while {req.rid} was in flight; its "
                     "prefilled pages were discarded — retry"))
-                self._count("admission_rejected")
+                self.metrics.incr("tpu_serving_admission_rejected")
                 return False
             slot.pages = list(single.pages)
             slot.kv_len = single.kv_len
@@ -1439,7 +1719,7 @@ class ServingEngine:
                     _fail_future(req.future, EngineOverloaded(
                         f"KV pool exhausted admitting {req.rid}: {exc}; "
                         "retry later or raise kv_pool_pages"))
-                    self._count("admission_rejected")
+                    self.metrics.incr("tpu_serving_admission_rejected")
                     return False
                 store.fill_pages(single, tail, covered)
             slot.pages = list(m.pages) + tail
@@ -1476,9 +1756,15 @@ class ServingEngine:
         slot.remaining = req.max_new_tokens - 1
         slot.last_token = first
         # the first token becomes caller-visible here
-        req.first_token_at = time.perf_counter()
+        now = self._perf()
+        req.first_token_at = now
+        slot.last_emit_at = now
+        # the exemplar links the TTFT bucket to a replayable trace
+        self.metrics.observe("tpu_serving_ttft_seconds",
+                             now - req.submitted_at,
+                             exemplar=req.trace_id or None)
         self._emit(slot, first)
-        self._count("admitted")
+        self.metrics.incr("tpu_serving_admitted")
 
     def _set_slot_rows(self, slot_id: int, req: Request, first: int):
         """Penalty counts start from the first generated token (the prompt
@@ -1561,7 +1847,7 @@ class ServingEngine:
             logits = self._decode(self.params, self._cache,
                                   [s.last_token for s in self._slots],
                                   active)
-            self._count("decode_steps")
+            self.metrics.incr("tpu_serving_decode_steps")
         if rec is not None:
             rec.mark("kernel")
         self._commit_decode(logits)
@@ -1582,6 +1868,7 @@ class ServingEngine:
                 self._grow_slot_table(slot_id, slot, 1)
         active = [s.request is not None for s in self._slots]
         if not any(active):
+            self.metrics.set_gauge("tpu_serving_active_slots", 0)
             return
         if rec is not None:
             rec.mark("schedule")
@@ -1591,7 +1878,7 @@ class ServingEngine:
                 [s.last_token for s in self._slots],
                 [s.kv_len for s in self._slots], self._page_tables_np,
                 active, **self._step_adapter_kw())
-            self._count("decode_steps")
+            self.metrics.incr("tpu_serving_decode_steps")
         if rec is not None:
             rec.mark("kernel")
         self._commit_decode(logits)
@@ -1659,6 +1946,7 @@ class ServingEngine:
                 self._grow_slot_table(i, slot, widths[i])
         active = [s.request is not None for s in slots]   # growth may fail
         if not any(active):
+            self.metrics.set_gauge("tpu_serving_active_slots", 0)
             return True
         is_greedy = [greedy(s) for s in slots]
         # slots decoding with an adapter (the step record's count)
@@ -1677,8 +1965,8 @@ class ServingEngine:
                 self.params, self._kv_store.arena, toks_in,
                 [s.kv_len for s in slots], self._page_tables_np, active,
                 n_tokens, **self._step_adapter_kw())
-            self._count("decode_steps")
-            self._count("paged_speculative_steps")
+            self.metrics.incr("tpu_serving_decode_steps")
+            self.metrics.incr("tpu_serving_paged_speculative_steps")
         if rec is not None:
             rec.mark("kernel")
         # one device -> host copy of every slot's K-wide argmax; logprobs
@@ -1707,9 +1995,10 @@ class ServingEngine:
                         self._tok_counts[i, sampled[i]] += 1
         self._slot_draws = [d + 1 for d in self._slot_draws]
         proposed = k * sum(is_greedy)
-        self._count("spec_proposed", proposed)
+        self.metrics.incr("tpu_serving_spec_proposed", proposed)
         if rec is not None:
             rec.mark("sample")
+        step_now = self._perf()
         accepted = rolled_back = committed_total = 0
         for i, slot in enumerate(slots):
             if not active[i]:
@@ -1740,6 +2029,7 @@ class ServingEngine:
                 self._emit(slot, tok)
                 if self._finished(slot):
                     self._complete(i, slot)
+            self._observe_itl(slot, appended, step_now)
             committed_total += appended
             if is_greedy[i] and appended > 1:
                 accepted += appended - 1   # drafts actually consumed
@@ -1756,12 +2046,18 @@ class ServingEngine:
                 with self._prefix_lock:
                     self._kv_store.release(dropped)
                 rolled_back += len(dropped)
-        self._count("spec_accepted", accepted)
-        self._count("paged_speculative_rollback_pages", rolled_back)
+        if accepted:
+            self.metrics.incr("tpu_serving_spec_accepted", accepted)
+        if rolled_back:
+            self.metrics.incr("tpu_serving_paged_speculative_rollback_pages",
+                              rolled_back)
+        self._observe_step(sum(active))
         if rec is not None:
             rec.step_end(mode="spec_verify", active=sum(active),
                          draining=self._draining.is_set(), paged=True,
                          spec_k=k, adapters=adapters, tokens=committed_total,
+                         rids=[s.request.rid for s in slots
+                               if s.request is not None],
                          arena=self._arena_step_stats(),
                          spec={"proposed": proposed, "accepted": accepted,
                                "rolled_back_pages": rolled_back})
@@ -1791,6 +2087,7 @@ class ServingEngine:
             rec.mark("sample")
         # slots that decoded with an adapter (before completions free them)
         adapters = int((self._slot_adapter != 0).sum())
+        step_now = self._perf()
         n_active = 0
         for slot_id, slot in enumerate(self._slots):
             if slot.request is None:
@@ -1805,22 +2102,70 @@ class ServingEngine:
             slot.remaining -= 1
             self.total_generated += 1
             self._emit(slot, tok)
+            self._observe_itl(slot, 1, step_now)
             if self._finished(slot):
                 self._complete(slot_id, slot)
+        self._observe_step(n_active)
         if rec is not None:
             arena = ({"arena": self._arena_step_stats()}
                      if self._paged_loop else {})
             rec.step_end(mode="decode", active=n_active,
                          draining=self._draining.is_set(),
                          paged=self._paged_loop, adapters=adapters,
-                         tokens=n_active, **arena)
+                         tokens=n_active,
+                         rids=[s.request.rid for s in self._slots
+                               if s.request is not None], **arena)
+
+    def _observe_itl(self, slot: _Slot, appended: int, now: float):
+        """The inter-token gap: the step's gap spread evenly over the
+        tokens it committed, one sample a token (a verify step commits
+        several at once)."""
+        if not appended:
+            return
+        if slot.last_emit_at:
+            per_tok = (now - slot.last_emit_at) / appended
+            for _ in range(appended):
+                self.metrics.observe("tpu_serving_inter_token_seconds",
+                                     per_tok)
+        slot.last_emit_at = now
+
+    def _observe_step(self, n_active: int):
+        """Per decode step: the slots' fill fraction and KV occupancy."""
+        self.metrics.observe("tpu_serving_batch_utilization",
+                             n_active / max(1, self.sc.slots))
+        self._update_kv_gauge()
+
+    def _update_kv_gauge(self):
+        self.metrics.set_gauge("tpu_serving_kv_cache_tokens", sum(
+            len(s.request.prompt) + len(s.generated)
+            for s in self._slots if s.request is not None))
+
+    def _update_page_gauges(self):
+        """The arena's page gauges, after every change of the pool (and
+        the stats the step records read between changes)."""
+        if self._kv_store is None:
+            self.metrics.set_gauge("tpu_serving_kv_pages_total", 0)
+            self.metrics.set_gauge("tpu_serving_kv_pages_free", 0)
+            self.metrics.set_gauge("tpu_serving_kv_pages_shared", 0)
+            return
+        with self._prefix_lock:
+            stats = self._kv_store.stats()
+        self._page_stats = stats
+        self.metrics.set_gauge("tpu_serving_kv_pages_total",
+                               stats["pages_total"])
+        self.metrics.set_gauge("tpu_serving_kv_pages_free",
+                               stats["pages_free"])
+        self.metrics.set_gauge("tpu_serving_kv_pages_shared",
+                               stats["pages_shared"])
 
     def _arena_step_stats(self) -> dict:
         """O(1) arena occupancy for a step record, and the window-ring
         pages recycled since the last record."""
         pool = self._kv_store.pool
         recycled, self._ring_recycled = self._ring_recycled, 0
+        stats = self._page_stats
         return {"pages_total": pool.n_pages, "pages_free": pool.free_count,
+                "pages_shared": stats["pages_shared"] if stats else 0,
                 "ring_recycled": recycled}
 
     def _maybe_penalize(self, logits: torch.Tensor, reqs) -> torch.Tensor:
@@ -1848,7 +2193,7 @@ class ServingEngine:
             log.info("stream callback failed for %s; cancelling", req.rid)
             req.on_token = None
             slot.remaining = 0
-            self._count("stream_cancelled")
+            self.metrics.incr("tpu_serving_stream_cancelled")
 
     def _finished(self, slot: _Slot) -> bool:
         req = slot.request
@@ -1890,9 +2235,15 @@ class ServingEngine:
         slot.table_len = 0
         self._page_tables_np[slot_id][:] = 0
         self._slot_adapter[slot_id] = 0
-        now = time.perf_counter()
+        latency = self._perf() - req.submitted_at
+        self.metrics.observe("tpu_serving_request_latency_seconds", latency,
+                             exemplar=req.trace_id or None)
+        try:
+            self._record_request_spans(req, slot, latency)
+        except Exception:  # noqa: BLE001 — tracing must never fail a request
+            log.exception("span recording for %s failed", req.rid)
         out = {"rid": req.rid, "tokens": slot.generated,
-               "latency_s": now - req.submitted_at,
+               "latency_s": latency,
                "ttft_s": req.first_token_at - req.submitted_at}
         if req.logprobs:
             out["logprobs"] = slot.logprobs
@@ -1901,9 +2252,64 @@ class ServingEngine:
             if req.future.set_running_or_notify_cancel():
                 req.future.set_result(out)
             else:
-                self._count("cancelled")
+                self.metrics.incr("tpu_serving_cancelled")
         except Exception:  # noqa: BLE001 — future already resolved
             pass
+        self.metrics.set_gauge("tpu_serving_active_slots", self.active_slots)
+
+    def _record_request_spans(self, req: Request, slot: _Slot,
+                              latency: float):
+        """The request's span tree, recorded after the fact from the
+        threads' timestamps: ``serving.request`` and its contiguous
+        children ``serving.queue_wait`` (submit -> dequeue),
+        ``serving.prefill`` (dequeue -> prefill done) and
+        ``serving.decode`` (prefill done -> finish, the ready-queue wait
+        included), whose durations sum to the request's latency. The
+        recorder's attribution (steps ridden, their wall and kernel share)
+        rides the root."""
+        tr = self.tracer
+        now_perf = self._perf()
+        now_wall = tr.clock()
+
+        def wall(t_perf: float) -> float:
+            return now_wall - (now_perf - t_perf)
+
+        trace_id = req.trace_id or Tracer.new_trace_id()
+        root = req.span_id or Tracer.new_span_id()
+        end = wall(req.submitted_at + latency)
+        ttft = (req.first_token_at - req.submitted_at
+                if req.first_token_at else None)
+        attrs = {"rid": req.rid, "prompt_tokens": len(req.prompt),
+                 "tokens": len(slot.generated),
+                 "ttft_s": ttft, "latency_s": latency,
+                 "adapter_id": req.adapter_id,
+                 "prefix_hit": req.matched_prefix_tokens > 0,
+                 "matched_prefix_tokens": req.matched_prefix_tokens}
+        if self.recorder is not None:
+            acc = self.recorder.pop_request(req.rid)
+            if acc is not None:
+                attrs["decode_steps"] = acc["steps"]
+                attrs["step_wall_share_s"] = round(acc["step_wall_s"], 6)
+                attrs["step_kernel_share_s"] = round(acc["kernel_s"], 6)
+        tr.record("serving.request", wall(req.submitted_at), end,
+                  trace_id=trace_id, span_id=root,
+                  parent_id=req.parent_span_id, attrs=attrs)
+        if req.dequeued_at:
+            tr.record("serving.queue_wait", wall(req.submitted_at),
+                      wall(req.dequeued_at), trace_id=trace_id,
+                      parent_id=root, attrs={"rid": req.rid})
+        if req.prefill_done_at:
+            tr.record("serving.prefill", wall(req.dequeued_at),
+                      wall(req.prefill_done_at), trace_id=trace_id,
+                      parent_id=root,
+                      attrs={"rid": req.rid,
+                             "prompt_tokens": len(req.prompt),
+                             "matched_prefix_tokens":
+                                 req.matched_prefix_tokens})
+            tr.record("serving.decode", wall(req.prefill_done_at), end,
+                      trace_id=trace_id, parent_id=root,
+                      attrs={"rid": req.rid,
+                             "tokens": len(slot.generated)})
 
 
 def _token_logprobs(logits: torch.Tensor, tokens: list[int]) -> list:

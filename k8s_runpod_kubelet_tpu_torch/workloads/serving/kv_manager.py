@@ -521,9 +521,16 @@ class PagedKVStore:
         return self.trie.insert_ready(adapter_id, tokens, pages, pin=pin)
 
     def stats(self) -> dict:
+        # evictable: unpinned trie pages only the trie references, which
+        # an eviction returns to the free list now (the fleet reporter's
+        # KV headroom: free + evictable)
+        evictable = sum(
+            1 for node in self.trie._nodes.values()
+            if not node.pinned and self.pool.refcount(node.page) == 1)
         return {"pages_total": self.pool.n_pages,
                 "pages_free": self.pool.free_count,
                 "pages_shared": self.trie.shared_pages(),
+                "pages_evictable": evictable,
                 "nodes": len(self.trie),
                 "pinned": sum(1 for n in self.trie._nodes.values()
                               if n.pinned),

@@ -14,15 +14,18 @@ package's ``workloads/serving/recorder.py``). Stdlib only.
   step graph's replay is asynchronous, as a jitted dispatch is, so
   ``kernel`` is the host's launch time and the wait for the card lands in
   ``sample``, at the sampler's first read of the logits on the host.
-  The reference also feeds metrics histograms and per-request span
-  attribution from here; those come with the port's ``metrics.py`` and
-  ``tracing.py``.
+  With ``metrics`` each step also feeds the step histograms
+  (``tpu_serving_step_*``) and the ring's occupancy gauges, and
+  ``step_end(rids=)`` charges each request its even share of the step;
+  the engine folds that into the request's span (``pop_request``).
 - **CompileWatchdog**: the JAX engine jits its hot-path steps and counts
   every compile past the first: a cache-key flap that recompiles the hot
   loop is the bug that hides until production traffic. The port's
   counterpart of a compile is a CUDA-graph capture
   (``step_graph.StepGraph``): the first capture is the contract, every
-  later one a recapture, logged with the diff of what the graph bakes in,
+  later one a recapture, counted in ``tpu_serving_recompiles{fn=}``
+  (zero-seeded for every budgeted graph), recorded as a
+  ``serving.recompile`` span with the diff of what the graph bakes in,
   and one past ``budget`` warns once.
 
 A wrapped graph exposes two seams, read only by the watchdog:
@@ -34,8 +37,9 @@ The counts are read through ``snapshot()`` (the engine's
 ``debug_snapshot()["graphs"]`` and ``debug_steps()["recompiles"]``).
 
 Threading: phase marks (``step_begin``/``mark``/``step_end``) are
-engine-thread-only and lock-free; the ring is guarded by one lock so
-``snapshot()`` (HTTP threads) stays consistent. ``event()`` may be called
+engine-thread-only and lock-free; the ring and the per-request table are
+guarded by one lock so ``snapshot()`` (HTTP threads) and ``pop_request``
+(engine thread) stay consistent. ``event()`` may be called
 from any thread. A disabled recorder is ``None`` on the engine: the hot
 path pays one ``is not None`` test per mark site.
 """
@@ -46,7 +50,7 @@ import json
 import logging
 import threading
 import time
-from collections import deque
+from collections import OrderedDict, deque
 from typing import Any, Callable, Optional
 
 log = logging.getLogger(__name__)
@@ -56,34 +60,44 @@ log = logging.getLogger(__name__)
 PHASES = ("schedule", "kernel", "sample", "commit")
 
 # decode steps live in the single-digit-millisecond to ~100 ms band; the
-# buckets of the reference's step histograms (metrics.py, a later slice)
+# TTFT ladder's 0.5 s first bucket would crush every sample into one bin
 STEP_BUCKETS = (0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
                 0.25, 0.5, 1.0)
 
 
 class FlightRecorder:
-    """Bounded ring of per-decode-step records.
+    """Bounded ring of per-decode-step records and per-request
+    attribution.
 
     ``max_steps`` bounds the record count and ``max_bytes`` the ring's
     serialized size (each record is JSON-sized once at append; the oldest
     evict until both bounds hold). ``perf`` is the clock (perf_counter,
-    injectable), so tests drive the phase math from a fake clock."""
+    injectable), so tests drive the phase math from a fake clock.
+    ``metrics`` (a ``metrics.Metrics``) receives the step histograms and
+    ring gauges; ``max_requests`` bounds the per-request table."""
 
     def __init__(self, max_steps: int = 512, max_bytes: int = 262144,
-                 perf: Callable[[], float] = time.perf_counter):
+                 perf: Callable[[], float] = time.perf_counter,
+                 metrics=None, max_requests: int = 64):
         if max_steps < 1:
             raise ValueError(f"max_steps must be >= 1, got {max_steps}")
         if max_bytes < 1024:
             raise ValueError(f"max_bytes must be >= 1024, got {max_bytes}")
         self.max_steps = max_steps
         self.max_bytes = max_bytes
+        self.max_requests = max_requests
         self._perf = perf
+        self.metrics = metrics
         self._lock = threading.Lock()
         # ring of (record, serialized bytes)
         self._ring: "deque[tuple[dict, int]]" = deque()
         self._bytes = 0
         self._seq = 0
         self.dropped_records = 0
+        # per-request step accumulators, folded into the serving.request
+        # span at completion; bounded, the oldest dropped first (a dropped
+        # entry costs one request its attribution, never memory)
+        self._by_request: "OrderedDict[str, dict]" = OrderedDict()
         # engine-thread step state (no lock: marks never cross threads)
         self._t0: Optional[float] = None
         self._marks: list[tuple[str, float]] = []
@@ -104,9 +118,10 @@ class FlightRecorder:
     def step_end(self, mode: str = "decode", active: int = 0,
                  draining: bool = False, paged: bool = False,
                  spec_k: int = 0, adapters: int = 0, tokens: int = 0,
-                 arena: Optional[dict] = None, spec: Optional[dict] = None,
-                 interleaved: bool = False):
-        """Close the step ("commit" ends now) and append its record."""
+                 rids: Optional[list] = None, arena: Optional[dict] = None,
+                 spec: Optional[dict] = None, interleaved: bool = False):
+        """Close the step ("commit" ends now), append its record, observe
+        the step histograms and charge the step to ``rids``."""
         if self._t0 is None:
             return
         t_end = self._perf()
@@ -136,6 +151,33 @@ class FlightRecorder:
             record["spec"] = spec
         self._seq += 1
         self._append(record)
+        if self.metrics is not None:
+            m = self.metrics
+            m.observe("tpu_serving_step_wall_seconds", wall)
+            # one literal a phase, as the reference writes them
+            m.observe("tpu_serving_step_schedule_seconds",
+                      phases.get("schedule", 0.0))
+            m.observe("tpu_serving_step_kernel_seconds",
+                      phases.get("kernel", 0.0))
+            m.observe("tpu_serving_step_sample_seconds",
+                      phases.get("sample", 0.0))
+            m.observe("tpu_serving_step_commit_seconds",
+                      phases.get("commit", 0.0))
+            m.observe("tpu_serving_step_tokens", float(tokens))
+        if rids:
+            share = wall / len(rids)
+            with self._lock:
+                for rid in rids:
+                    acc = self._by_request.get(rid)
+                    if acc is None:
+                        while len(self._by_request) >= self.max_requests:
+                            self._by_request.popitem(last=False)
+                        acc = self._by_request[rid] = {
+                            "steps": 0, "step_wall_s": 0.0,
+                            "kernel_s": 0.0}
+                    acc["steps"] += 1
+                    acc["step_wall_s"] += share
+                    acc["kernel_s"] += phases.get("kernel", 0.0) / len(rids)
 
     def event(self, kind: str, **attrs):
         """Out-of-band timeline entry (chunk-interleave yields); any
@@ -166,6 +208,20 @@ class FlightRecorder:
                    or self._bytes > self.max_bytes):
                 _, old = self._ring.popleft()
                 self._bytes -= old
+            n_records, n_bytes = len(self._ring), self._bytes
+        # occupancy gauges refresh every 16th append (and the first): the
+        # ring turns over many times between scrapes
+        if self.metrics is not None and (self._seq & 0xF) == 1:
+            self.metrics.set_gauge("tpu_serving_step_ring_records",
+                                   n_records)
+            self.metrics.set_gauge("tpu_serving_step_ring_bytes", n_bytes)
+
+    # -- request attribution ---------------------------------------------------
+
+    def pop_request(self, rid: str) -> Optional[dict]:
+        """Take (and forget) a request's accumulated step attribution."""
+        with self._lock:
+            return self._by_request.pop(rid, None)
 
     # -- reads -----------------------------------------------------------------
 
@@ -324,13 +380,16 @@ class CompileWatchdog:
 
     ``wrap(name, fn, budget)`` returns a call-compatible ``_TrackedGraph``
     (None passes through, so optional graphs wire transparently). Every
-    capture past a graph's FIRST is logged with the fingerprint diff;
-    captures past ``budget`` trip a log-once warning. ``budget=None``
-    tracks without the alarm."""
+    capture past a graph's FIRST increments ``tpu_serving_recompiles{fn=}``
+    (budgeted graphs only) and records a ``serving.recompile`` span
+    carrying the fingerprint diff; captures past ``budget`` trip a
+    log-once warning. ``budget=None`` tracks without the alarm."""
 
     DEFAULT_BUDGET = 2
 
-    def __init__(self):
+    def __init__(self, metrics=None, tracer=None):
+        self.metrics = metrics
+        self.tracer = tracer
         self._tracked: dict[str, _TrackedGraph] = {}
 
     def wrap(self, name: str, fn, budget: Optional[int] = DEFAULT_BUDGET):
@@ -338,14 +397,32 @@ class CompileWatchdog:
             return None
         tracked = _TrackedGraph(self, name, fn, budget)
         self._tracked[name] = tracked
+        if self.metrics is not None and budget is not None:
+            # the per-graph series exists before the first (expected)
+            # capture, so dashboards alert on any rise
+            self.metrics.incr("tpu_serving_recompiles", 0,
+                              labels={"fn": name})
         return tracked
 
     def _compiled(self, tracked: _TrackedGraph, fp: Optional[list[str]]):
         if tracked.compiles <= 1:
             return  # the first capture is the contract, not a finding
+        if self.metrics is not None and tracked.budget is not None:
+            self.metrics.incr("tpu_serving_recompiles",
+                              labels={"fn": tracked.name})
         diff = (_diff(tracked._last_fp, fp)
                 if tracked._last_fp and fp else [])
         tracked.last_diff = diff
+        if self.tracer is not None:
+            try:
+                now = self.tracer.clock()
+                self.tracer.record(
+                    "serving.recompile", now, now,
+                    attrs={"fn": tracked.name,
+                           "compiles": tracked.compiles,
+                           "aval_diff": diff})
+            except Exception:  # noqa: BLE001 — tracing must never fail a step
+                log.exception("recompile span for %s failed", tracked.name)
         log.info("serving: step graph %r recaptured (capture %d); moved: %s",
                  tracked.name, tracked.compiles, diff)
         if (tracked.budget is not None

@@ -10,6 +10,15 @@ import threading
 from concurrent.futures import Future
 from typing import Any, Optional
 
+# SLO histograms live sub-second: the default bucket ladder (0.5 s first
+# bucket, sized for pod provisioning) would crush every TTFT/ITL sample
+# into one bin (the JAX package's buckets, so fleet merges line up)
+TTFT_BUCKETS = (0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0,
+                10.0, 30.0, 60.0)
+ITL_BUCKETS = (0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
+               1.0, 2.5)
+UTIL_BUCKETS = (0.125, 0.25, 0.375, 0.5, 0.625, 0.75, 0.875, 1.0)
+
 
 @dataclasses.dataclass
 class ServingConfig:
@@ -144,7 +153,24 @@ class Request:
     # co-submitted requests over the IDENTICAL prompt (OpenAI n > 1): one
     # prefill fans out to every member, each sampling its own first token
     fanout: Optional[list] = None
+    # distributed-tracing context (W3C traceparent): trace_id groups this
+    # request's spans with the caller's trace; span_id is the request's
+    # root span id (the HTTP layer mints it, so it can stamp the response
+    # header before the request finishes); parent_span_id is the caller's
+    # inbound span. Empty: the engine mints ids at completion
+    trace_id: str = ""
+    span_id: str = ""
+    parent_span_id: str = ""
+    # span boundaries (perf_counter, like submitted_at): queue wait =
+    # submitted -> dequeued, prefill = dequeued -> prefill_done, decode =
+    # prefill_done -> finish (contiguous, so the children sum to the
+    # request's latency)
+    dequeued_at: float = 0.0
+    prefill_done_at: float = 0.0
     first_token_at: float = 0.0
+    # prompt tokens served from the prefix cache (0 = full prefill),
+    # stamped by the prefill thread for the request span
+    matched_prefix_tokens: int = 0
     # multi-LoRA: the adapter slot this request decodes with (0 = base)
     adapter_id: int = 0
 
@@ -172,6 +198,9 @@ class _Slot:
     # stop_texts: a running tail of token ids trimmed by decoded length
     stop_tail: list = dataclasses.field(default_factory=list)
     stop_tail_upto: int = 0
+    # when the slot last emitted a token (perf_counter): the inter-token
+    # gap's left end
+    last_emit_at: float = 0.0
 
 
 class ChunkArbiter:

@@ -173,6 +173,24 @@ def _family(name: str) -> str:
     return "other"
 
 
+def trace_kernel_events(path: str) -> dict:
+    """The kernel events of a Chrome trace ``torch.profiler`` wrote (a
+    ``GET /debug/profile`` capture, whose CUPTI activity names each kernel
+    a graph replay launches), by family (FAMILIES, else "other"): the
+    events' count and their device time in ms."""
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    out: dict[str, dict] = {}
+    for ev in events:
+        if str(ev.get("cat", "")).lower() != "kernel":
+            continue
+        fam = out.setdefault(_family(str(ev.get("name", ""))),
+                             {"count": 0, "ms": 0.0})
+        fam["count"] += 1
+        fam["ms"] += float(ev.get("dur", 0.0)) / 1e3
+    return out
+
+
 def _profile(fn, steps: int) -> dict:
     from torch.profiler import ProfilerActivity, profile
 

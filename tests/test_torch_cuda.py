@@ -980,12 +980,12 @@ def test_tp2_engine_matches_tp1_on_the_card(cuda):
             try:
                 before = int4_matmul_sharded.launches
                 steps = eng.counters["decode_steps"] \
-                    + eng.counters["prefill_chunks"]
+                    + eng.counters["paged_prefill_chunks"]
                 outs.append([eng.submit(p).result(timeout=300)["tokens"]
                              for p in prompts])
                 launched = int4_matmul_sharded.launches - before
                 steps = eng.counters["decode_steps"] \
-                    + eng.counters["prefill_chunks"] - steps
+                    + eng.counters["paged_prefill_chunks"] - steps
                 assert launched == (7 * cfg.n_layers + 1) * steps \
                     if quant and tp > 1 else launched == 0
                 assert eng.debug_snapshot()["paged_tp_shards"] == tp
@@ -1908,3 +1908,68 @@ def test_decode_graph_replay_matches_eager(cuda, layout):
     assert graph.captures == 1 and graph.replays == 20
     counts = graph.kernels_in_graph()
     assert counts["rms_norm"] == norms and sum(counts.values()) == norms
+
+
+# -- the replica's profile route on the card -------------------------------------------
+
+def test_debug_profile_names_the_paged_kernel_and_the_norm(cuda):
+    """tiny_llama bf16 behind ``serve_main.serve`` with profile capture on:
+    ``GET /debug/profile?seconds=1`` while requests keep 4 slots decoding
+    writes a Chrome trace whose kernel events hold ``paged_attention_multi``
+    (row 8) and ``rms_norm`` (row 12) at L : 2L + 1 a step or chunk,
+    within one step at each edge of the window; no graph was captured
+    again."""
+    import json
+    import os
+    import shutil
+    import threading
+    import urllib.request
+
+    from k8s_runpod_kubelet_tpu_torch.workloads.serve_main import serve
+    from k8s_runpod_kubelet_tpu_torch.workloads.serving import (
+        ServingConfig, ServingEngine)
+    from k8s_runpod_kubelet_tpu_torch.workloads.step_profile import \
+        trace_kernel_events
+
+    cfg, params = _tiny_bf16(cuda)
+    eng = ServingEngine(cfg, params, ServingConfig(
+        slots=4, max_prefill_len=64, cache_len=512, max_new_tokens=64,
+        kv_page_tokens=16), device=cuda).start()
+    httpd = serve(eng, 0, host="127.0.0.1", profile_capture=True)
+    port = httpd.server_address[1]
+    stop = threading.Event()
+
+    def traffic():
+        i = 0
+        while not stop.is_set():
+            futs = [eng.submit(list(range(5 + i + j, 40 + i + j)))
+                    for j in range(4)]
+            for f in futs:
+                f.result(timeout=300)
+            i += 1
+
+    runner = threading.Thread(target=traffic)
+    try:
+        eng.submit([1, 2, 3], max_new_tokens=2).result(timeout=300)
+        runner.start()
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/debug/profile"
+                                    "?seconds=1", timeout=120) as r:
+            prof = json.loads(r.read())
+        fams = trace_kernel_events(os.path.join(prof["profile_dir"],
+                                                "trace.json"))
+        shutil.rmtree(prof["profile_dir"], ignore_errors=True)
+        graphs = eng.debug_snapshot()["graphs"]
+    finally:
+        stop.set()
+        if runner.is_alive():
+            runner.join(timeout=300)
+        httpd.shutdown()
+        httpd.server_close()
+        eng.stop()
+    assert prof["seconds"] == 1.0
+    attn = fams["paged_attention_multi"]["count"]
+    norm = fams["rms_norm"]["count"]
+    assert attn >= cfg.n_layers and norm >= 2 * cfg.n_layers + 1, fams
+    assert abs(attn / cfg.n_layers - norm / (2 * cfg.n_layers + 1)) <= 2
+    assert fams["paged_attention_multi"]["ms"] > 0
+    assert graphs["paged_step"]["compiles"] == 1

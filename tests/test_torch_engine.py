@@ -136,7 +136,7 @@ def test_chunked_prefill_and_repeats(port_pair):
     try:
         ref = _serve_all(one, prompts)
         got = _serve_all(many, prompts)
-        assert many.counters["prefill_chunks"] > len(prompts)
+        assert many.counters["paged_prefill_chunks"] > len(prompts)
         assert got == ref
         # repeats: greedy, and sampled with a seed
         assert _serve_all(many, prompts[:2]) == ref[:2]
