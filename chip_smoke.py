@@ -461,6 +461,37 @@ Step graphs (phases 4, 7s, 7b, 7c, 7d). Each engine captures its decode
    4 steps with exact launches (rms_norm 6L + 1 a step);
 10. train_main: the CLI on ``--model tiny`` with a checkpoint directory,
    twice; the second life must log ``resumed from checkpoint step 2``.
+9f. fine-tune and telemetry (after phase 10). (a) phase 9's configuration
+   (llama3-8b widths, 4 layers, its seeded batch of 8 x 2048) from the same
+   seeded params, two steps with the naive loss and two with
+   ``fused_ce_chunks`` 8: step 1's loss and grad norm within
+   TRAIN_NORM_REL_LIMIT, the fused peak below the naive one by at least
+   the bf16 logits' B x S x V x 2 bytes (printed beside x 4); (b) the fused
+   run again under remat "dots": step 1 within the same limit of "full",
+   launches exact and equal a step (flash_fwd 2L, flash_dq L, flash_dkv L,
+   rms_norm 4L + 1), walls and peaks printed; (c) ``train_main.main
+   --model llama3-8b`` (all 32 layers, random init) ``--lora-rank 16
+   --fused-ce-chunks 8 --batch 4 --seq-len 2048 --steps 6 --data``
+   (a seeded 61-token pattern repeated, written by the phase; the native
+   loader must read it) ``--checkpoint-every 3 --telemetry-port
+   --export-adapter``: the loss falls, every frozen leaf bit-identical
+   after the run (checksums on the card), Adam moments only on the LoRA
+   leaves, the logged trainable count, the peak within 80 GB, launches
+   exact each step (64 / 32 / 32 / 129), median step wall and tokens/s;
+   (d) one ``TPU_STEP_HEARTBEAT`` a step within 5% of the phase's own
+   wall of the step, the last ``TPU_TELEMETRY`` line at step 6 with
+   goodput in (0, 1] and the MFU of the h100 row's 989 TFLOP/s, exposure 0
+   after the final durable save (telemetry and state file), a scrape of
+   ``/metrics`` and ``/debug/train`` during the run naming one step, the
+   goodput buckets summing to the wall within 1 ms; (e) the saves at steps
+   3 and 6 staged and durable before the run returned, step 4's wall
+   beside step 2's, a second ``train_main`` resuming at step 6 with every
+   leaf bit-identical, a staged save whose writer raises leaving the
+   previous checkpoint loadable (a tiny model on the card); (f) the
+   exported adapter registered on a paged engine over the same bf16 base:
+   8 greedy tokens against the argmax of a plain f32 forward of
+   ``merge_lora`` (a differing token must be a near tie under
+   SPEC_TIE_MARGIN), row 8 and row 12 launches exact a step or chunk.
 
 The next-to-last line is the kernels JSON record (each kernel's
 ``launches`` counted on its own main path: the bf16 engine's burst for
@@ -491,6 +522,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import errno
 import faulthandler
 import gc
 import importlib
@@ -615,6 +647,28 @@ RING_GRAD_REL_L2_LIMIT = TRAIN_GRAD_REL_L2_LIMIT
 # the plain ring's (ring_flash=False, f32 online softmax, the JAX default
 # path) step-1 loss against the flash ring's: relative
 RING_PLAIN_LOSS_REL_LIMIT = 2e-3
+# phase 9f, the fine-tune workload: (a) and (b) at phase 9's configuration
+# with the LM-head loss over FT_CHUNKS vocab chunks; (c) a LoRA fine-tune of
+# the whole llama3-8b through train_main: rank 16 on wq and wv (the CLI's
+# default targets), batch 4 x 2048, 6 steps from a token file, async
+# checkpoints every 3 steps
+FT_CHUNKS = 8
+FT_RANK, FT_BATCH, FT_SEQ, FT_STEPS, FT_EVERY = 16, 4, 2048, 6, 3
+# the fine-tune's peak learning rate: train_main's warmup of 100 steps
+# scales it by (step - 1) / 100, so its 6 steps run at 0 to 5% of it
+FT_LR = 0.3
+# the token file: a seeded pattern of FT_PATTERN tokens repeated over
+# FT_WINDOWS windows of FT_SEQ tokens (the loss on it must fall)
+FT_PATTERN, FT_WINDOWS = 61, 48
+# (d): each heartbeat's step_time_s against the phase's own wall of that
+# step (the heartbeat's interval also holds the batch's fetch and the
+# telemetry's own work, well under 1% of a ~1 s step)
+FT_HEARTBEAT_REL = 0.05
+# (f): greedy tokens the served adapter generates
+FT_SERVE_TOKENS = 8
+# (d): runs of train_main, each on a newly picked free port, before the
+# phase gives up on binding the telemetry server
+FT_PORT_TRIES = 3
 # the speculative phase: 4 drafts a step (a K = 5 verify), 256-token
 # prefill chunks
 SPEC_K, SPEC_CHUNK = 4, 256
@@ -2702,6 +2756,659 @@ def train_main_phase(torch) -> dict:
         f"{outs[0]['final_loss']:.4f} then {outs[1]['final_loss']:.4f}; "
         f"logged {[x for x in cap.lines if 'checkpoint' in x]}")
     return {"summaries": outs, "log": cap.lines}
+
+
+# -- phase 9f: the fine-tune workload -----------------------------------------------
+
+
+def fused_and_dots_phase(torch, dev, card: str) -> dict:
+    """Phase 9f (a) and (b) on phase 9's configuration (llama3-8b widths, 4
+    layers, batch 8 x 2048, its seeded batch), two steps a run from the
+    same seeded params: the naive loss under remat "full", the fused loss
+    over FT_CHUNKS vocab chunks under "full", and the fused loss under
+    "dots". (a) step 1's loss and grad norm fused against naive within
+    TRAIN_NORM_REL_LIMIT, and the fused peak below the naive one by at
+    least the bf16 logits' B x S x V x 2 bytes; (b) "dots" against "full"
+    within the same limit, the launches a step exact and equal (flash_fwd
+    2L: "dots" recomputes the flash forward as "full" does)."""
+    from k8s_runpod_kubelet_tpu_torch.models import llama3_8b
+    from k8s_runpod_kubelet_tpu_torch.ops import (flash_dkv, flash_dq,
+                                                  flash_fwd, rms_norm)
+    from k8s_runpod_kubelet_tpu_torch.workloads.train import (
+        TrainConfig, Trainer, synthetic_batches)
+
+    cfg = dataclasses.replace(llama3_8b(), n_layers=4)
+    n = cfg.n_layers
+    tc = TrainConfig(batch_size=8, seq_len=2048, steps=2, warmup_steps=1)
+    batch = next(synthetic_batches(cfg, tc, seed=SEED, device=dev))
+    kernels = (flash_fwd, flash_dq, flash_dkv, rms_norm)
+    per_step = {"flash_fwd": 2 * n, "flash_dq": n, "flash_dkv": n,
+                "rms_norm": 4 * n + 1}
+    runs = {}
+    for name, chunks, policy in (("naive", 0, "full"),
+                                 ("fused", FT_CHUNKS, "full"),
+                                 ("fused_dots", FT_CHUNKS, "dots")):
+        gc.collect()
+        torch.cuda.empty_cache()
+        trainer = Trainer(dataclasses.replace(cfg, remat_policy=policy),
+                          dataclasses.replace(tc, fused_ce_chunks=chunks),
+                          seed=SEED, device=dev)
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        # each run is a path of its own: counts set to 0 just before it
+        for k in kernels:
+            k.launches = 0
+        run = timed_steps(torch, trainer, itertools.repeat(batch), tc.steps,
+                          kernels, per_step)
+        run.update(launches={k.__name__: k.launches for k in kernels},
+                   resident_bytes=resident, remat_policy=policy,
+                   fused_ce_chunks=chunks)
+        runs[name] = run
+        log(f"  [{card}] {name} (remat {policy}, fused_ce_chunks {chunks}): "
+            f"step walls {[round(w, 4) for w in run['step_walls_s']]} s, "
+            f"peak {run['peak_bytes'] / 2**30:.2f} GiB allocated (params "
+            f"and Adam state {resident / 2**30:.2f} GiB); launches "
+            f"{run['launches']}")
+        del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def rel(a, b, key):
+        return abs(a[key][0] - b[key][0]) / abs(b[key][0])
+
+    naive, fused, dots = runs["naive"], runs["fused"], runs["fused_dots"]
+    logits_bf16 = tc.batch_size * tc.seq_len * cfg.vocab_size * 2
+    saved = naive["peak_bytes"] - fused["peak_bytes"]
+    out = {"runs": runs, "logits_bf16_bytes": logits_bf16,
+           "logits_f32_bytes": 2 * logits_bf16, "peak_saved_bytes": saved,
+           "fused_vs_naive": {"loss_rel": rel(fused, naive, "losses"),
+                              "grad_norm_rel": rel(fused, naive,
+                                                   "grad_norms")},
+           "dots_vs_full": {"loss_rel": rel(dots, fused, "losses"),
+                            "grad_norm_rel": rel(dots, fused, "grad_norms")},
+           "limit_rel": TRAIN_NORM_REL_LIMIT,
+           "launches_per_step": per_step}
+    log(f"  (a) [{card}] step 1 fused vs naive: loss rel "
+        f"{out['fused_vs_naive']['loss_rel']:.2e}, grad_norm rel "
+        f"{out['fused_vs_naive']['grad_norm_rel']:.2e} (limit "
+        f"{TRAIN_NORM_REL_LIMIT}); peak {naive['peak_bytes'] / 2**30:.2f} -> "
+        f"{fused['peak_bytes'] / 2**30:.2f} GiB: {saved / 1e9:.2f} GB saved "
+        f"(B x S x V x 2 = {logits_bf16 / 1e9:.2f} GB required, x 4 = "
+        f"{2 * logits_bf16 / 1e9:.2f} GB); step 2 wall "
+        f"{naive['step_walls_s'][1]:.4f} -> {fused['step_walls_s'][1]:.4f} s")
+    log(f"  (b) [{card}] step 1 dots vs full (both fused): loss rel "
+        f"{out['dots_vs_full']['loss_rel']:.2e}, grad_norm rel "
+        f"{out['dots_vs_full']['grad_norm_rel']:.2e}; step 2 wall "
+        f"{fused['step_walls_s'][1]:.4f} (full) vs "
+        f"{dots['step_walls_s'][1]:.4f} s (dots); peak "
+        f"{fused['peak_bytes'] / 2**30:.2f} vs "
+        f"{dots['peak_bytes'] / 2**30:.2f} GiB; launches a step {per_step} "
+        f"under both")
+    for what, r in (("fused_vs_naive", out["fused_vs_naive"]),
+                    ("dots_vs_full", out["dots_vs_full"])):
+        if not max(r.values()) <= TRAIN_NORM_REL_LIMIT:
+            raise RuntimeError(f"{what}: step 1 off by {r}")
+    if not saved >= logits_bf16:
+        raise RuntimeError(f"the fused loss saved {saved} bytes of peak, "
+                           f"less than the bf16 logits' {logits_bf16}")
+    if dots["launches"] != fused["launches"]:
+        raise RuntimeError(f"dots launched {dots['launches']}, full "
+                           f"{fused['launches']}")
+    return out
+
+
+class _Tee:
+    """A text stream that writes through to ``real`` and keeps the lines
+    (the training run's protocol lines on stderr)."""
+
+    def __init__(self, real):
+        self.real = real
+        self.lines: list[str] = []
+        self._part = ""
+
+    def write(self, text: str) -> int:
+        self.real.write(text)
+        *done, self._part = (self._part + text).split("\n")
+        self.lines += done
+        return len(text)
+
+    def flush(self):
+        self.real.flush()
+
+
+def leaf_checksums(torch, tree: dict, frozen_only: bool,
+                   prefix: str = "") -> dict:
+    """The trainer's ``bits_sum`` (a position-weighted sum of the raw bits,
+    on the card) of each leaf, or each frozen one, by path."""
+    from k8s_runpod_kubelet_tpu_torch.workloads.train import bits_sum
+
+    out = {}
+    for name in sorted(tree):
+        leaf = tree[name]
+        if isinstance(leaf, dict):
+            out.update(leaf_checksums(torch, leaf, frozen_only,
+                                      f"{prefix}{name}/"))
+        elif not (frozen_only and leaf.requires_grad):
+            out[prefix + name] = bits_sum(leaf)
+    return out
+
+
+def http_json(url: str):
+    with urllib.request.urlopen(url, timeout=10) as r:
+        return r.read().decode()
+
+
+TRAIN_SERIES = ("tpu_training_step_seconds_bucket",
+                "tpu_training_tokens_per_second", "tpu_training_mfu_ratio",
+                "tpu_training_goodput_ratio", "tpu_training_last_step")
+
+
+def scrape_training(port: int, stop: threading.Event, out: list) -> None:
+    """While the run trains: /debug/train, /metrics, /debug/train again,
+    every 0.25 s; a triple whose two snapshots name one step is kept (the
+    last 64). Refused connections before the server is up are retried."""
+    base = f"http://127.0.0.1:{port}"
+    while not stop.wait(0.25):
+        try:
+            s1 = json.loads(http_json(base + "/debug/train"))
+            text = http_json(base + "/metrics")
+            s2 = json.loads(http_json(base + "/debug/train"))
+        except (urllib.error.URLError, ConnectionError):
+            continue
+        if s1["step"] == s2["step"]:
+            m = re.search(r"^tpu_training_last_step (\S+)$", text, re.M)
+            out.append({"step": s1["step"],
+                        "last_step_gauge": float(m.group(1)) if m else None,
+                        "series": [k for k in TRAIN_SERIES if k in text]})
+            del out[:-64]
+
+
+def interrupted_write_check(torch, dev) -> dict:
+    """(e): on the card, a tiny trainer saves step 1, then a staged save of
+    step 2 whose writer raises before its rename (a torn temporary file):
+    the wait raises, no temporary file is left, and a fresh trainer
+    restores step 1 bit for bit."""
+    from k8s_runpod_kubelet_tpu_torch.models import tiny_llama
+    from k8s_runpod_kubelet_tpu_torch.workloads.train import (
+        TrainConfig, Trainer, _leaves, synthetic_batches)
+
+    cfg = tiny_llama(n_layers=2)
+    with tempfile.TemporaryDirectory() as ck:
+        tc = TrainConfig(batch_size=2, seq_len=64, steps=2, warmup_steps=1,
+                         checkpoint_dir=ck)
+        a = Trainer(cfg, tc, seed=SEED, device=dev)
+        batches = synthetic_batches(cfg, tc, seed=SEED, device=dev)
+        a.run(steps=1, batches=batches)
+        a.save()
+        saved = leaf_checksums(torch, a.params, frozen_only=False)
+        a.run(steps=1, batches=batches)
+
+        def torn(tmp):
+            with open(tmp, "r+b") as f:
+                f.truncate(4096)
+            raise OSError("the write was interrupted")
+
+        a.checkpoints.before_rename = torn
+        a.save(block=False)
+        try:
+            a.wait_pending()
+        except RuntimeError as e:
+            error = f"{e} ({e.__cause__!r})"
+        else:
+            raise RuntimeError("the interrupted write did not fail the save")
+        left = sorted(os.listdir(ck))
+        b = Trainer(cfg, tc, seed=SEED + 1, device=dev)
+        if not (b.restore() and b.step == 1):
+            raise RuntimeError(f"no step-1 checkpoint after the torn write: "
+                               f"{left}")
+        same = leaf_checksums(torch, b.params, frozen_only=False) == saved
+        if left != ["step_00000001.pt"] or not same:
+            raise RuntimeError(f"after the torn write: files {left}, "
+                               f"restored bit-identical {same}")
+        n = len(_leaves(b.params))
+    log(f"  (e) a staged save whose writer raised: {error!s:.80}; files "
+        f"left {left}; step 1 restored bit-identical ({n} leaves)")
+    return {"error": error, "files": left, "restored_identical": same}
+
+
+def serve_trained_adapter(torch, dev, card: str, cfg, base: dict,
+                          adapter_path: str, prompt: list) -> dict:
+    """(f): the exported adapter registered on a paged engine over the
+    fine-tune's bf16 base (``serve_main --lora-rank 16``, 2 slots), one
+    greedy request of FT_SERVE_TOKENS tokens under it, with row 8 and row
+    12 launches exact a step or chunk; the tokens against the argmax of a
+    plain f32 forward of ``merge_lora`` of the same base and adapter over
+    the prompt and the engine's tokens (a differing position must be a
+    near tie: its top-2 margin under SPEC_TIE_MARGIN of the logits' RMS).
+    The base's own forward is printed beside it (how far the adapter moves
+    the logits)."""
+    from k8s_runpod_kubelet_tpu_torch.models.lora import (load_adapter,
+                                                          merge_lora)
+    from k8s_runpod_kubelet_tpu_torch.ops import paged_attention_multi, rms_norm
+    from k8s_runpod_kubelet_tpu_torch.workloads import serve_main
+
+    adapter = load_adapter(adapter_path)
+    args = serve_main.parse_args(
+        ["--model", cfg.name, "--device", dev.type, "--slots", "2",
+         "--cache-len", "1024", "--max-new-tokens", str(FT_SERVE_TOKENS),
+         "--lora-rank", str(FT_RANK), "--lora-targets", ",".join(adapter),
+         "--max-adapters", "1"])
+    engine, _ = serve_main.build_engine(args, base)
+    kernels = (paged_attention_multi, rms_norm)
+    try:
+        engine.register_adapter("ft", adapter)
+        c0 = dict(engine.counters)
+        l0 = {k.__name__: k.launches for k in kernels}
+        res = engine.submit(prompt, max_new_tokens=FT_SERVE_TOKENS,
+                            adapter="ft").result(timeout=600)
+        wait_for(lambda: engine.active_slots == 0, "the engine idle", 60)
+        steps = ((engine.counters["decode_steps"] - c0["decode_steps"])
+                 + (engine.counters["paged_prefill_chunks"]
+                    - c0["paged_prefill_chunks"]))
+        launches = {k.__name__: k.launches - l0[k.__name__] for k in kernels}
+    finally:
+        engine.stop()
+    want = {"paged_attention_multi": cfg.n_layers * steps,
+            "rms_norm": (2 * cfg.n_layers + 1) * steps}
+    if launches != want:
+        raise RuntimeError(f"(f) launches {launches}, not {want} for "
+                           f"{steps} steps and chunks")
+    tokens = res["tokens"]
+    wrapped = dict(base)
+    wrapped["layers"] = dict(base["layers"])
+    for t, ad in adapter.items():
+        wrapped["layers"][t] = {
+            "w": base["layers"][t],
+            **{k: torch.from_numpy(ad[src]).to(dev) for k, src in
+               (("lora_a", "a"), ("lora_b", "b"), ("scale", "scale"))}}
+    merged = merge_lora(wrapped)
+    seq = torch.tensor([prompt + tokens[:-1]], device=dev)
+    with torch.no_grad():
+        ref = plain_logits(torch, cfg, merged, seq)[0, len(prompt) - 1:]
+        plain_base = plain_logits(torch, cfg, base, seq)[0, len(prompt) - 1:]
+    del merged, wrapped
+    picks = ref.argmax(-1).tolist()
+    ties = []
+    for i, (got, pick) in enumerate(zip(tokens, picks)):
+        if got == pick:
+            continue
+        top2 = ref[i].topk(2).values
+        margin = (top2[0] - top2[1]).item()
+        rms = ref[i].pow(2).mean().sqrt().item()
+        ties.append({"at": i, "margin_share": margin / rms})
+        if not margin < SPEC_TIE_MARGIN * rms:
+            raise RuntimeError(f"(f) the adapter's token {i} is {got}, the "
+                               f"merged forward's argmax {pick}, top-2 "
+                               f"margin {margin / rms:.3f} of the RMS")
+    moved = ((ref - plain_base).norm() / plain_base.norm()).item()
+    base_picks = plain_base.argmax(-1).tolist()
+    out = {"tokens": tokens, "merged_argmax": picks, "near_ties": ties,
+           "launches": launches, "steps_and_chunks": steps,
+           "adapter_moves_logits_rel_l2": moved,
+           "base_argmax_differs_at": [i for i, (a, b) in enumerate(
+               zip(picks, base_picks)) if a != b],
+           "tie_margin": SPEC_TIE_MARGIN}
+    log(f"  (f) [{card}] adapter 'ft' served on the paged engine: "
+        f"{FT_SERVE_TOKENS} greedy tokens {tokens}; merged f32 forward's "
+        f"argmax {picks} ({len(ties)} near ties {ties}); the adapter moves "
+        f"the f32 logits by {moved:.4f} relative L2 (base argmax differs at "
+        f"{out['base_argmax_differs_at']}); launches {launches} over "
+        f"{steps} steps and chunks")
+    return out
+
+
+def finetune_phase(torch, dev, card: str) -> dict:
+    """Phase 9f (c)-(f): a LoRA fine-tune of the whole llama3-8b (32
+    layers, random init from train_main's seed) through
+    ``train_main.main``, then its resume, a torn write, and the exported
+    adapter served (module docstring, phase 9f)."""
+    import contextlib
+    import io
+    import socket
+
+    import numpy as np
+
+    from k8s_runpod_kubelet_tpu_torch import data as data_pkg
+    from k8s_runpod_kubelet_tpu_torch.models import llama3_8b
+    from k8s_runpod_kubelet_tpu_torch.models.lora import lora_param_count
+    from k8s_runpod_kubelet_tpu_torch.ops import (flash_dkv, flash_dq,
+                                                  flash_fwd, rms_norm)
+    from k8s_runpod_kubelet_tpu_torch.workloads import train as train_mod
+    from k8s_runpod_kubelet_tpu_torch.workloads import train_main
+    from k8s_runpod_kubelet_tpu_torch.workloads.telemetry import (
+        parse_heartbeat, parse_telemetry)
+
+    cfg = llama3_8b()
+    n = cfg.n_layers
+    kernels = (flash_fwd, flash_dq, flash_dkv, rms_norm)
+    per_step = {"flash_fwd": 2 * n, "flash_dq": n, "flash_dkv": n,
+                "rms_norm": 4 * n + 1}
+    made: list = []
+
+    class Watched(train_mod.Trainer):
+        """The trainer train_main builds, watched: the frozen leaves'
+        checksums at init, each step's wall (the step call through its
+        loss on the host), loss and launches, and every leaf's checksum
+        right after a restore."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            # the init draws the f32 master tree whole before the frozen
+            # leaves move to bf16: its peak apart from the steps'
+            self.init_peak = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            self.init_sums = leaf_checksums(torch, self.params, True)
+            self.walls, self.losses, self.launches = [], [], []
+            self.restored_sums = None
+            inner = self.step_fn
+
+            def step_fn(params, opt_state, batch):
+                before = {k.__name__: k.launches for k in kernels}
+                t = time.perf_counter()
+                out = inner(params, opt_state, batch)
+                self.losses.append(float(out["loss"]))
+                self.walls.append(time.perf_counter() - t)
+                self.launches.append({k.__name__: k.launches
+                                      - before[k.__name__] for k in kernels})
+                return out
+
+            self.step_fn = step_fn
+            made.append(self)
+
+        def restore(self):
+            ok = super().restore()
+            self.restored_sums = leaf_checksums(torch, self.params, False)
+            return ok
+
+    loaders: list = []
+    real_make_loader = data_pkg.make_loader
+
+    def make_loader(*a, **kw):
+        loaders.append(real_make_loader(*a, **kw))
+        return loaders[-1]
+
+    cap = _Capture()
+    watched_logs = [logging.getLogger("train-main"),
+                    logging.getLogger("k8s_runpod_kubelet_tpu_torch.workloads")]
+    for lg in watched_logs:
+        lg.addHandler(cap)
+        lg.setLevel(logging.INFO)
+    train_mod.Trainer, real_trainer = Watched, train_mod.Trainer
+    data_pkg.make_loader = make_loader
+    out: dict = {}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            rng = np.random.default_rng(SEED)
+            pattern = rng.integers(0, cfg.vocab_size, FT_PATTERN)
+            data = os.path.join(tmp, "tokens.bin")
+            np.resize(pattern, FT_WINDOWS * FT_SEQ + 1).astype("<i4") \
+                .tofile(data)
+            ck = os.path.join(tmp, "ck")
+            adapter_path = os.path.join(tmp, "ft_adapter.npz")
+            argv = ["--model", cfg.name, "--lora-rank", str(FT_RANK),
+                    "--fused-ce-chunks", str(FT_CHUNKS), "--batch",
+                    str(FT_BATCH), "--seq-len", str(FT_SEQ), "--lr",
+                    str(FT_LR), "--data", data, "--checkpoint-dir", ck,
+                    "--checkpoint-every", str(FT_EVERY)]
+            # -- (c), (d): the fine-tune, its telemetry scraped as it runs.
+            # The port is free when picked; should another process take it
+            # before the server binds (which comes before any training),
+            # main raises EADDRINUSE and the run starts again on another
+            for attempt in range(FT_PORT_TRIES):
+                with socket.socket() as sock:
+                    sock.bind(("127.0.0.1", 0))
+                    port = sock.getsockname()[1]
+                scrapes: list = []
+                stop = threading.Event()
+                scraper = threading.Thread(target=scrape_training,
+                                           args=(port, stop, scrapes),
+                                           daemon=True)
+                stdout, tee = io.StringIO(), _Tee(sys.stderr)
+                gc.collect()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                for k in kernels:
+                    k.launches = 0
+                scraper.start()
+                t0 = time.perf_counter()
+                try:
+                    with contextlib.redirect_stdout(stdout), \
+                            contextlib.redirect_stderr(tee):
+                        rc = train_main.main(argv + [
+                            "--steps", str(FT_STEPS), "--telemetry-port",
+                            str(port), "--telemetry-every", "1",
+                            "--export-adapter", adapter_path])
+                except OSError as e:
+                    if (e.errno != errno.EADDRINUSE or made
+                            or attempt + 1 == FT_PORT_TRIES):
+                        raise
+                    print(f"  9f: port {port} taken before the telemetry "
+                          "server bound it; another port", flush=True)
+                    continue
+                finally:
+                    stop.set()
+                    scraper.join(timeout=30)
+                break
+            main_s = time.perf_counter() - t0
+            launches = {k.__name__: k.launches for k in kernels}
+            peak = torch.cuda.max_memory_allocated()
+            if rc != 0 or len(made) != 1:
+                raise RuntimeError(f"train_main exited {rc}, {len(made)} "
+                                   "trainers")
+            summary = json.loads(stdout.getvalue().strip().splitlines()[-1])
+            tr = made[0]
+            out["finetune"] = finetune_checks(
+                torch, card, cfg, tr, summary, launches, per_step, peak,
+                main_s, cap.lines, loaders, lora_param_count)
+            out["telemetry"] = telemetry_checks(
+                torch, card, cfg, tr, tee.lines, scrapes, ck,
+                parse_heartbeat, parse_telemetry)
+            out["async_checkpoint"] = {
+                "files": sorted(os.listdir(ck)),
+                "step4_wall_s": tr.walls[3], "step2_wall_s": tr.walls[1]}
+            for marker in (f"checkpoint staged at step {FT_EVERY} (write in "
+                           "background)",
+                           f"checkpoint staged at step {FT_STEPS} (write in "
+                           "background)",
+                           f"checkpoint saved at step {FT_EVERY}",
+                           f"checkpoint saved at step {FT_STEPS}"):
+                if marker not in cap.lines:
+                    raise RuntimeError(f"(e) no {marker!r} in {cap.lines}")
+            # durable before the run returned: the last save landed before
+            # the adapter export that follows the run
+            at = cap.lines.index(f"checkpoint saved at step {FT_STEPS}")
+            exported = next(i for i, ln in enumerate(cap.lines)
+                            if ln.startswith("adapter written to"))
+            if not at < exported:
+                raise RuntimeError(f"(e) the step-{FT_STEPS} write landed "
+                                   "after the run returned")
+            log(f"  (e) [{card}] async saves at steps {FT_EVERY} and "
+                f"{FT_STEPS} staged, then durable before the run returned; "
+                f"step 4 (beside the step-{FT_EVERY} write) "
+                f"{tr.walls[3]:.4f} s against step 2 {tr.walls[1]:.4f} s; "
+                f"files {out['async_checkpoint']['files']}")
+            final_sums = leaf_checksums(torch, tr.params, False)
+            del tr
+            made.clear()
+            gc.collect()
+            torch.cuda.empty_cache()
+            # -- (e): a second life resumes at step FT_STEPS
+            cap.lines.clear()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()), \
+                    contextlib.redirect_stderr(_Tee(sys.stderr)):
+                rc = train_main.main(argv + ["--steps", "1"])
+            resume_s = time.perf_counter() - t0
+            tr2 = made[0]
+            marker = f"resumed from checkpoint step {FT_STEPS}"
+            if rc != 0 or marker not in cap.lines:
+                raise RuntimeError(f"(e) the second life: rc {rc}, logged "
+                                   f"{cap.lines}")
+            if tr2.restored_sums != final_sums:
+                bad = [k for k in final_sums
+                       if tr2.restored_sums.get(k) != final_sums[k]]
+                raise RuntimeError(f"(e) restored leaves differ: {bad}")
+            out["async_checkpoint"].update(
+                resumed=True, restored_leaves=len(final_sums),
+                resume_s=resume_s)
+            log(f"  (e) [{card}] a second train_main logged {marker!r}; all "
+                f"{len(final_sums)} leaves bit-identical to the first run's "
+                f"last; it ran one step and saved ({resume_s:.1f} s)")
+            out["async_checkpoint"]["interrupted"] = interrupted_write_check(
+                torch, dev)
+            # -- (f): the exported adapter on the paged engine, over the
+            # frozen bf16 base both lives share
+            base = {k: v.detach() for k, v in tr2.params.items()
+                    if k != "layers"}
+            base["layers"] = {k: (v["w"] if isinstance(v, dict) else v)
+                              .detach()
+                              for k, v in tr2.params["layers"].items()}
+            del tr2
+            made.clear()
+            gc.collect()
+            torch.cuda.empty_cache()
+            prompt = np.resize(pattern, 3 * FT_PATTERN).tolist()
+            out["serve"] = serve_trained_adapter(torch, dev, card, cfg, base,
+                                                 adapter_path, prompt)
+            del base
+    finally:
+        train_mod.Trainer = real_trainer
+        data_pkg.make_loader = real_make_loader
+        for lg in watched_logs:
+            lg.removeHandler(cap)
+        made.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def finetune_checks(torch, card, cfg, tr, summary, launches, per_step, peak,
+                    main_s, lines, loaders, lora_param_count) -> dict:
+    """(c): loss falls; frozen leaves bit-identical; Adam state only on the
+    LoRA leaves; the logged trainable count; peak within the card; launches
+    exact a step; the native loader read the data."""
+    if not tr.losses[-1] < tr.losses[0]:
+        raise RuntimeError(f"(c) the loss did not fall: {tr.losses}")
+    after = leaf_checksums(torch, tr.params, True)
+    if after != tr.init_sums:
+        bad = [k for k in after if after[k] != tr.init_sums.get(k)]
+        raise RuntimeError(f"(c) frozen leaves changed: {bad}")
+    moment_paths = list(leaf_checksums(torch, tr.opt_state["mu"], False))
+    if not moment_paths or not all(p.endswith(("/lora_a", "/lora_b"))
+                                   for p in moment_paths):
+        raise RuntimeError(f"(c) Adam moments on {moment_paths}")
+    from k8s_runpod_kubelet_tpu_torch.workloads.train import _leaves
+    adam_bytes = sum(t.numel() * t.element_size() for t in
+                     _leaves(tr.opt_state["mu"]) + _leaves(tr.opt_state["nu"]))
+    trainable = lora_param_count(tr.params)
+    logged = next((ln for ln in lines if ln.startswith("LoRA r=")), "")
+    m = re.match(r"LoRA r=(\d+): ([0-9.]+)M trainable of ([0-9.]+)B total",
+                 logged)
+    if not m or float(m.group(2)) != round(trainable / 1e6, 2):
+        raise RuntimeError(f"(c) the trainable-count line {logged!r} against "
+                           f"{trainable}")
+    if not max(peak, tr.init_peak) <= CARD_BYTES:
+        raise RuntimeError(f"(c) peak {peak} bytes (init {tr.init_peak}) "
+                           "does not fit the card")
+    for i, got in enumerate(tr.launches):
+        if got != per_step:
+            raise RuntimeError(f"(c) step {i + 1} launched {got}, not "
+                               f"{per_step}")
+    if launches != {k: v * FT_STEPS for k, v in per_step.items()}:
+        raise RuntimeError(f"(c) launches over the run {launches}")
+    kinds = [type(x).__name__ for x in loaders]
+    if kinds != ["NativeTokenLoader"]:
+        raise RuntimeError(f"(c) the data went through {kinds}")
+    step_s = statistics.median(tr.walls[1:])
+    tok_s = FT_BATCH * FT_SEQ / step_s
+    frozen_bytes = sum(t.numel() * t.element_size()
+                       for t in _leaves(tr.params) if not t.requires_grad)
+    out = {"losses": tr.losses, "step_walls_s": tr.walls,
+           "step_s_median": step_s, "tokens_per_s": tok_s,
+           "peak_bytes": peak, "init_peak_bytes": tr.init_peak,
+           "adam_bytes": adam_bytes,
+           "trainable_params": trainable, "logged": logged,
+           "frozen_bytes": frozen_bytes, "launches": launches,
+           "launches_per_step": per_step, "summary": summary,
+           "main_s": main_s, "loader": kinds[0]}
+    log(f"  (c) [{card}] llama3-8b ({cfg.n_layers} layers) LoRA r={FT_RANK} "
+        f"on wq, wv through train_main from a token file "
+        f"({kinds[0]}): losses {[round(x, 4) for x in tr.losses]}; step "
+        f"walls {[round(w, 4) for w in tr.walls]} s, median of steps 2-"
+        f"{FT_STEPS} {step_s:.4f} s, {tok_s:.0f} tokens/s; {logged!r}; Adam "
+        f"state {adam_bytes / 1e6:.1f} MB on {len(moment_paths)} LoRA "
+        f"leaves; frozen leaves {frozen_bytes / 2**30:.2f} GiB, all "
+        f"bit-identical after the run; peak {peak / 2**30:.2f} GiB "
+        f"allocated over the steps, saves and export ({tr.init_peak / 2**30:.2f}"
+        f" GiB in the init's f32 draw); launches a step {per_step}; "
+        f"train_main {main_s:.1f} s")
+    return out
+
+
+def telemetry_checks(torch, card, cfg, tr, lines, scrapes, ck,
+                     parse_heartbeat, parse_telemetry) -> dict:
+    """(d): one heartbeat a step within FT_HEARTBEAT_REL of the phase's own
+    wall; the last TPU_TELEMETRY line at the last step with goodput in (0,
+    1] and the MFU of the h100 peak; exposure 0 once the final save is
+    durable (the telemetry and its state file); a scrape during the run
+    whose /metrics step equals /debug/train's; the final snapshot's
+    buckets summing to its wall within 1 ms."""
+    from k8s_runpod_kubelet_tpu_torch.generations import peak_tflops_per_chip
+
+    beats = [parse_heartbeat(ln) for ln in lines
+             if ln.startswith("TPU_STEP_HEARTBEAT")]
+    if [b[1] for b in beats] != list(range(1, FT_STEPS + 1)):
+        raise RuntimeError(f"(d) heartbeats {beats}")
+    rels = [abs(b[2] - w) / w for b, w in zip(beats, tr.walls)]
+    if not max(rels) <= FT_HEARTBEAT_REL:
+        raise RuntimeError(f"(d) heartbeat step times {[b[2] for b in beats]}"
+                           f" against the walls {tr.walls}")
+    states = [parse_telemetry(ln) for ln in lines
+              if ln.startswith("TPU_TELEMETRY ")]
+    last = states[-1]
+    peak = peak_tflops_per_chip(torch.cuda.get_device_name(0))
+    mfu = 6.0 * cfg.param_count * last["tokens_per_sec"] / (peak * 1e12)
+    if not (last["step"] == FT_STEPS and 0 < last["goodput"] <= 1
+            and last["mfu"] > 0 and abs(last["mfu"] - mfu) <= 2e-6
+            and peak == 989.0):
+        raise RuntimeError(f"(d) the last TPU_TELEMETRY line {last} (MFU at "
+                           f"the {peak} TFLOP/s peak: {mfu})")
+    exposure = tr.telemetry.telemetry_payload()["unsaved_work_s"]
+    with open(os.path.join(ck, "goodput_state.json")) as f:
+        state = json.load(f)
+    if not (exposure <= 1e-3 and state["unsaved_work_s"] == 0.0
+            and state["step"] == FT_STEPS):
+        raise RuntimeError(f"(d) exposure after the final durable save "
+                           f"{exposure}, state file {state}")
+    good = [s for s in scrapes if s["step"] >= 1
+            and s["last_step_gauge"] == float(s["step"])
+            and len(s["series"]) == len(TRAIN_SERIES)]
+    if not good:
+        raise RuntimeError(f"(d) no consistent scrape during the run: "
+                           f"{scrapes[-4:]}")
+    snap = tr.telemetry.snapshot()
+    drift = abs(sum(snap["buckets"].values()) - snap["wall_s"])
+    if not drift <= 1e-3:
+        raise RuntimeError(f"(d) buckets {snap['buckets']} against wall "
+                           f"{snap['wall_s']}")
+    out = {"heartbeats": beats, "heartbeat_rel": rels, "last_line": last,
+           "mfu_expected": mfu, "peak_tflops": peak,
+           "exposure_after_final_save": exposure, "state_file": state,
+           "scrapes": len(scrapes), "consistent_scrapes": len(good),
+           "scraped_steps": sorted({s["step"] for s in good}),
+           "snapshot": snap, "bucket_sum_drift_s": drift,
+           "telemetry_lines": len(states)}
+    log(f"  (d) [{card}] {len(beats)} heartbeats, step_time_s within "
+        f"{max(rels):.2%} of the phase's walls (limit "
+        f"{FT_HEARTBEAT_REL:.0%}); last TPU_TELEMETRY {json.dumps(last)} "
+        f"(MFU at the h100 peak, 989 TFLOP/s published: {mfu:.6f}; its "
+        f"unsaved_work_s is the wait for the step-{FT_STEPS} write, which "
+        f"the loop's end spends as productive, as in the JAX trainer); "
+        f"after the final durable save: exposure {exposure}, state file "
+        f"{state}; {len(good)} of {len(scrapes)} scrapes consistent at "
+        f"steps {out['scraped_steps']}; buckets {snap['buckets']} sum to "
+        f"the wall {snap['wall_s']} within {drift * 1e3:.3f} ms")
+    return out
 
 
 # -- phases 4-7: the engine ------------------------------------------------------------
@@ -7372,6 +8079,23 @@ def main(argv=None) -> int:
 
     log("phase train_main (--model tiny, checkpoint and resume)")
     train_cli = train_main_phase(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log(f"phase 9f (fine-tune and telemetry): (a) the fused loss and (b) "
+        f"remat dots at llama3-8b widths, 4 layers, batch 8 x 2048; (c)-(f) "
+        f"a LoRA r={FT_RANK} fine-tune of llama3-8b at full depth through "
+        f"train_main (batch {FT_BATCH} x {FT_SEQ}, {FT_STEPS} steps from a "
+        f"token file, async checkpoints every {FT_EVERY}, telemetry), its "
+        f"resume, and its adapter served")
+    fused_dots = fused_and_dots_phase(torch, dev, card)
+    finetune = finetune_phase(torch, dev, card)
+    finetune["fused_and_dots"] = fused_dots
+    ft = finetune["finetune"]
+    log(f"  [{card}] per layer and 1k tokens: the LoRA fine-tune "
+        f"{ft['step_s_median'] / 32 / (FT_BATCH * FT_SEQ) * 1e6:.3f} ms "
+        f"(telemetry on, frozen base, fused loss) against phase 9's full "
+        f"step {train['step_s_median'] / train['layers'] / (train['batch'] * train['seq_len']) * 1e6:.3f} ms")
 
     def record(name, route, source, replaces, cases, launches, by_path,
                library_call):
@@ -7388,6 +8112,14 @@ def main(argv=None) -> int:
 
     def flash_cases(kname):
         return [{"case": c["case"], **c["kernels"][kname]} for c in flash]
+
+    def finetune_paths(kname) -> dict:
+        """Phase 9f's launches of ``kname`` by run."""
+        runs = fused_dots["runs"]
+        return {"train_naive_loss": runs["naive"]["launches"][kname],
+                "train_fused_loss": runs["fused"]["launches"][kname],
+                "train_dots": runs["fused_dots"]["launches"][kname],
+                "finetune_lora": finetune["finetune"]["launches"][kname]}
 
     def family_paths(kname) -> dict:
         """Phase 7f's launches of ``kname`` by engine run."""
@@ -7452,6 +8184,7 @@ def main(argv=None) -> int:
                 "train_mla": train_mla["launches"]["rms_norm"],
                 "train_ring": ring_train["launches"]["rms_norm"],
                 "train_ring_mla": ring_train_mla["launches"]["rms_norm"],
+                **finetune_paths("rms_norm"),
                 **family_paths("rms_norm")},
                "F.rms_norm, bf16 weight"),
     ] + [
@@ -7461,6 +8194,7 @@ def main(argv=None) -> int:
                 "train_mla": train_mla["launches"][kname],
                 "train_ring": ring_train["launches"][kname],
                 "train_ring_mla": ring_train_mla["launches"][kname],
+                **finetune_paths(kname),
                 "serve_mla_dense": mla_dense["launches"][kname],
                 "serve_mla_kv_int8_dense": mla_q_dense["launches"][kname],
                 **({k: v for k, v in family_paths(kname).items()
@@ -7594,7 +8328,8 @@ def main(argv=None) -> int:
                        "train": train, "train_mla": train_mla,
                        "ring_train": ring_train,
                        "ring_train_mla": ring_train_mla,
-                       "train_main": train_cli, "families": families,
+                       "train_main": train_cli, "finetune": finetune,
+                       "families": families,
                        "llama3_70b": big, "interleave": interleave,
                        "build_s": {**nvcc_s, "triton": triton_s},
                        "sass": sass, "int4_expert_unpack_mix": unpack_mix},

@@ -39,8 +39,6 @@ def config_from_jax(jcfg, dtype: torch.dtype) -> LlamaConfig:
     branch the port does not have."""
     bad = [f for f, dense in _UNSUPPORTED.items()
            if getattr(jcfg, f, dense) != dense]
-    if getattr(jcfg, "remat_policy", "full") not in ("full", "none"):
-        bad.append("remat_policy")
     if getattr(jcfg, "n_experts", 0) and \
             getattr(jcfg, "mla_latent_dim", None) is not None:
         # every MLA-over-MoE checkpoint is DeepSeek-MoE

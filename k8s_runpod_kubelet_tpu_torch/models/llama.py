@@ -105,7 +105,7 @@ class LlamaConfig:
     sandwich norms, soft caps on scores and logits, the query
     pre-attention scalar, a local RoPE base, q/k/v biases and the q/k
     norm). DeepSeek-MoE (shared experts, sigmoid routing) and its dense
-    prefix, and remat "dots", are not ported."""
+    prefix are not ported."""
     name: str = "tiny"
     vocab_size: int = 32000
     embed_dim: int = 256
@@ -150,7 +150,9 @@ class LlamaConfig:
     param_dtype: torch.dtype = torch.float32  # training's master weights
     remat: bool = True
     # "full": recompute each layer in backward (one more forward of
-    # flops, least memory); "none": keep every activation
+    # flops, least memory); "dots": keep the outputs of the 2-D weight
+    # products and recompute the rest (the flash kernels included);
+    # "none": keep every activation
     remat_policy: str = "full"
     # under a mesh with seq > 1: ring attention's chunks through the flash
     # kernels ("ring flash attention") instead of the plain online-softmax
@@ -176,6 +178,14 @@ class LlamaConfig:
     router_norm_topk: bool = True
     router_aux_coef: float = 0.02       # load-balance loss coefficient
     router_z_coef: float = 1e-3         # router z-loss coefficient
+
+    @property
+    def param_count(self) -> int:
+        """Parameters of the tree ``param_shapes`` describes (the JAX
+        config's ``param_count``, which the training MFU reads)."""
+        shapes = param_shapes(self)
+        return (sum(math.prod(s) for k, s in shapes.items() if k != "layers")
+                + sum(math.prod(s) for s in shapes["layers"].values()))
 
     @property
     def head_dim_(self) -> int:
@@ -475,6 +485,27 @@ def keeps_f32(name: str) -> bool:
     return is_norm(name) or name == "router"
 
 
+# remat "dots": the products whose outputs a layer keeps for backward,
+# the 2-D ones (a (B, S, in) @ (in, out) product reaches the dispatcher as
+# ``mm``); the batched ``bmm`` and everything else is recomputed, as the
+# JAX ``dots_with_no_batch_dims_saveable`` policy keeps only dots without
+# batch dimensions. The flash and norm kernels launch outside the
+# dispatcher, so the recompute runs them again, as under "full"
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+    if op in _SAVED_DOTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
 def _mm(h: torch.Tensor, w, dtype: torch.dtype) -> torch.Tensor:
     """h @ w for a raw weight, an int8 ``{"q8", "scale"}`` leaf (the
     dequant multiply after the matmul), an int4 ``{"q4", "scale"}`` leaf
@@ -700,16 +731,19 @@ class LlamaModel:
         weights are cast to ``cfg.dtype`` at each use. Under remat
         "full" each layer is a ``torch.utils.checkpoint`` (the counterpart
         of ``jax.checkpoint`` over the JAX model's scan body), so backward
-        runs its forward once more. ``positions`` (B, S) overrides arange
+        runs its forward once more; under "dots" the checkpoint is
+        selective (``_dots_context``, the JAX
+        ``dots_with_no_batch_dims_saveable``): the outputs of the 2-D
+        products are kept and everything else, the flash kernels and the
+        norms included, runs again. ``positions`` (B, S) overrides arange
         for RoPE. Under a mesh with seq > 1 attention is ring attention
         over the sequence shards (in one process the tokens are the whole
         sequence; over a process group they are this rank's shard, whose
         positions start at rank * S). An MLA layer runs the direct form
         (``_mla_attention``)."""
         cfg = self.cfg
-        if cfg.remat and cfg.remat_policy not in ("full", "none"):
-            raise ValueError(f"remat_policy {cfg.remat_policy!r} is not "
-                             "ported (full or none)")
+        if cfg.remat and cfg.remat_policy not in ("full", "dots", "none"):
+            raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
         mesh = self.mesh
         if positions is None and mesh is not None and not mesh.in_process:
             b, s = tokens.shape
@@ -721,13 +755,15 @@ class LlamaModel:
         layers = {name: ([_at(leaf, i) for i in range(cfg.n_layers)]
                          if isinstance(leaf, dict) else leaf.unbind(0))
                   for name, leaf in params["layers"].items()}
-        remat = cfg.remat and cfg.remat_policy == "full"
+        remat = cfg.remat and cfg.remat_policy != "none"
+        context = ({"context_fn": _dots_context}
+                   if cfg.remat_policy == "dots" else {})
         for i in range(cfg.n_layers):
             lp = {name: leaves[i] for name, leaves in layers.items()}
             if remat:
                 x = torch.utils.checkpoint.checkpoint(
                     self._layer, x, lp, positions, train=train, layer=i,
-                    use_reentrant=False)
+                    use_reentrant=False, **context)
             else:
                 x = self._layer(x, lp, positions, train=train, layer=i)
         x = rms_norm(x, self._norm_w(params["final_norm"]), cfg.norm_eps)

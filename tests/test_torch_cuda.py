@@ -1973,3 +1973,96 @@ def test_debug_profile_names_the_paged_kernel_and_the_norm(cuda):
     assert abs(attn / cfg.n_layers - norm / (2 * cfg.n_layers + 1)) <= 2
     assert fams["paged_attention_multi"]["ms"] > 0
     assert graphs["paged_step"]["compiles"] == 1
+
+
+# -- the trainer on the card: the fused loss and the async checkpoint --------
+
+
+@pytest.mark.parametrize("tied", [False, True])
+def test_fused_loss_at_an_8b_head_matches_the_plain_loss(cuda, tied):
+    """``ops/fused_ce.py`` at llama3-8b's head (E 4096, V 128256) over
+    2048 bf16 rows of an f32 head, 8 chunks, z-loss on: against the naive
+    loss on the same bf16-rounded operands in f32 (loss and z within 1e-5
+    relative: the same f32 products summed in another order; gradients
+    within 1e-2 relative L2: the fused backward rounds each chunk's
+    d_logits to bf16 before its two products)."""
+    from k8s_runpod_kubelet_tpu_torch.ops.fused_ce import fused_cross_entropy
+    from k8s_runpod_kubelet_tpu_torch.workloads.train import _ce_and_zloss
+
+    gen = torch.Generator(device=cuda).manual_seed(21)
+    n, e, v = 2048, 4096, 128256
+    h = torch.randn((n, e), generator=gen, device=cuda).to(torch.bfloat16)
+    w = 0.02 * torch.randn((v, e) if tied else (e, v), generator=gen,
+                           device=cuda)
+    t = torch.randint(0, v, (n,), generator=gen, device=cuda)
+    h.requires_grad_()
+    w.requires_grad_()
+    ce, z = fused_cross_entropy(h, w, t, tied=tied, z_loss_coef=1e-4,
+                                n_chunks=8)
+    dh, dw = torch.autograd.grad(ce + z, (h, w))
+    hf = h.detach().float().requires_grad_()
+    wf = w.detach().to(torch.bfloat16).float().requires_grad_()
+    logits = hf @ (wf.t() if tied else wf)
+    ce0, z0 = _ce_and_zloss(logits, t, 1e-4)
+    dh0, dw0 = torch.autograd.grad(ce0 + z0, (hf, wf))
+    torch.testing.assert_close(ce, ce0, rtol=1e-5, atol=0)
+    torch.testing.assert_close(z, z0, rtol=1e-5, atol=0)
+    for got, want in ((dh.float(), dh0), (dw, dw0)):
+        assert ((got - want).norm() / want.norm()).item() < 1e-2
+
+
+def _staged_save_round_trip(cuda, tmp_path):
+    """A staged save followed at once by a step that updates every
+    parameter and moment in place: the checkpoint holds the state at the
+    save, bit for bit, and the step after restoring it reproduces the
+    live run's loss. Returns the trainer that saved."""
+    from k8s_runpod_kubelet_tpu_torch.models import tiny_llama
+    from k8s_runpod_kubelet_tpu_torch.workloads.train import (
+        TrainConfig, Trainer, _leaves, synthetic_batches)
+
+    cfg = tiny_llama(embed_dim=1024, n_layers=4, n_heads=8, n_kv_heads=4,
+                     mlp_dim=2816, max_seq_len=512)
+    tc = TrainConfig(batch_size=2, seq_len=256, steps=4, warmup_steps=1,
+                     checkpoint_dir=str(tmp_path / "ck"))
+    a = Trainer(cfg, tc, seed=3, device=cuda)
+    batches = synthetic_batches(cfg, tc, seed=4, device=cuda)
+    a.run(steps=2, batches=batches)
+    want = [t.detach().clone() for t in _leaves(a.params)
+            + _leaves(a.opt_state["mu"]) + _leaves(a.opt_state["nu"])]
+    a.save(block=False)
+    batch = next(batches)
+    live = a.step_fn(a.params, a.opt_state, batch)   # in place, at once
+    a.wait_pending()
+    b = Trainer(cfg, tc, seed=5, device=cuda)
+    assert b.restore() and b.step == 2
+    got = (_leaves(b.params) + _leaves(b.opt_state["mu"])
+           + _leaves(b.opt_state["nu"]))
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+    moved = [t for t, w in zip(_leaves(a.params), want) if not
+             torch.equal(t, w)]
+    assert moved    # the live step did update in place
+    again = b.step_fn(b.params, b.opt_state, batch)
+    assert float(again["loss"]) == float(live["loss"])
+    return a
+
+
+def test_async_save_under_a_running_step(cuda, tmp_path):
+    """The staged save round trip with every leaf in pinned buffers (the
+    update waits for the staging copy)."""
+    a = _staged_save_round_trip(cuda, tmp_path)
+    assert all(h.is_pinned() for h in a.checkpoints._host.values())
+
+
+def test_async_save_past_the_pinned_cap(cuda, tmp_path, monkeypatch):
+    """Under a 1 MiB cap on the kept pinned buffers the round trip is
+    the same bit for bit: the leaves past the cap stage through pageable
+    memory, and only the pinned ones are kept for the next save."""
+    from k8s_runpod_kubelet_tpu_torch.workloads import train
+
+    cap = 1 << 20
+    monkeypatch.setattr(train, "_PINNED_STAGING_BYTES", cap)
+    a = _staged_save_round_trip(cuda, tmp_path)
+    kept = a.checkpoints._host.values()
+    assert 0 < a.checkpoints._pinned_bytes <= cap
+    assert a.checkpoints._pinned_bytes == sum(h.nbytes for h in kept)
+    assert all(h.is_pinned() for h in kept)

@@ -1,10 +1,11 @@
 """The process-group form of the port's ring attention on gloo, against
 its in-process form (``ops/ring_attention.py``), on the CPU in f32.
 
-Each case spawns 2 or 4 processes (``torch.distributed`` over gloo on
-localhost, one sequence shard a rank), joined with a timeout so that a
-hung rank fails the test instead of stalling the run, and every process
-is stopped. Both schedules (the plain online-softmax ring and the flash
+Each case spawns 2 or 4 processes (``torch.distributed`` over gloo,
+one sequence shard a rank, meeting through a file store in the test's
+temporary directory rather than a localhost port another process could
+take), joined with a timeout so that a hung rank fails the test instead
+of stalling the run, and every process is stopped. Both schedules (the plain online-softmax ring and the flash
 ring through the kernels' plain versions), forward and gradients, with a
 window whose truncated ring needs the final ``hops`` (4 ranks: 2 steps of
 4, hops 3); and the model's forward over a process group (each rank its
@@ -18,7 +19,6 @@ processes: GEMMs of other shapes).
 """
 
 import os
-import socket
 import subprocess
 import sys
 import textwrap
@@ -60,9 +60,9 @@ _WORKER = textwrap.dedent('''
     import torch
     import torch.distributed as dist
 
-    rank, n, port, base = (int(sys.argv[1]), int(sys.argv[2]),
-                           int(sys.argv[3]), sys.argv[4])
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+    rank, n, base = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+    # the rendezvous is a file store beside the inputs: no port to claim
+    dist.init_process_group("gloo", init_method=f"file://{base}.store",
                             world_size=n, rank=rank)
     from k8s_runpod_kubelet_tpu_torch.models import LlamaModel, tiny_llama
     from k8s_runpod_kubelet_tpu_torch.models import init_params
@@ -97,12 +97,6 @@ _WORKER = textwrap.dedent('''
 ''')
 
 
-def _free_port() -> int:
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        return sock.getsockname()[1]
-
-
 def _run_ranks(n, tmp_path, inputs, timeout=120):
     """Each rank's results, from n spawned processes on gloo; a rank that
     does not finish in ``timeout`` seconds fails the test, and every
@@ -110,11 +104,9 @@ def _run_ranks(n, tmp_path, inputs, timeout=120):
     base = str(tmp_path / "ring")
     np.savez(base + ".in.npz", **inputs)
     code = f"CASES = {GLOO_CASES!r}\n" + _WORKER
-    port = _free_port()
     env = dict(os.environ, PYTHONPATH=ROOT)
     procs = [subprocess.Popen(
-        [sys.executable, "-c", code, str(r), str(n), str(port),
-         base], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        [sys.executable, "-c", code, str(r), str(n), base], cwd=ROOT, env=env, stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT) for r in range(n)]
     try:
         for r, p in enumerate(procs):

@@ -1,8 +1,10 @@
 """The process-group form of the port's tensor parallelism on gloo, against
 its in-process form, on the CPU in f32.
 
-Each case spawns 2 processes (``torch.distributed`` over gloo on
-localhost, one tensor shard a rank), joined with a timeout so that a hung
+Each case spawns 2 processes (``torch.distributed`` over gloo, one
+tensor shard a rank, meeting through a file store in the test's temporary
+directory: a port picked free and released could be taken by another
+process before rank 0 bound it), joined with a timeout so that a hung
 rank fails the test instead of stalling the run; every process is stopped,
 and a rank that fails fails the test. Each rank holds its own slice of
 the weights (``parallel.shard_params`` over the group) and of the arena's
@@ -21,7 +23,6 @@ kv heads:
 """
 
 import os
-import socket
 import subprocess
 import sys
 import textwrap
@@ -78,9 +79,9 @@ _WORKER = _SETUP + textwrap.dedent('''
     import sys
     import torch.distributed as dist
 
-    rank, n, port, base = (int(sys.argv[1]), int(sys.argv[2]),
-                           int(sys.argv[3]), sys.argv[4])
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+    rank, n, base = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+    # the rendezvous is a file store beside the inputs: no port to claim
+    dist.init_process_group("gloo", init_method=f"file://{base}.store",
                             world_size=n, rank=rank)
     from k8s_runpod_kubelet_tpu_torch.ops import int4_matmul_sharded
     from k8s_runpod_kubelet_tpu_torch.parallel import MeshConfig, make_mesh
@@ -109,12 +110,6 @@ _WORKER = _SETUP + textwrap.dedent('''
 ''')
 
 
-def _free_port() -> int:
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        return sock.getsockname()[1]
-
-
 def _run_ranks(n, tmp_path, inputs, timeout=180):
     """Each rank's results, from n spawned processes on gloo; a rank that
     fails or does not finish in ``timeout`` seconds fails the test, and
@@ -122,10 +117,9 @@ def _run_ranks(n, tmp_path, inputs, timeout=180):
     base = str(tmp_path / "tp")
     np.savez(base + ".in.npz", **inputs)
     code = f"CASES = {STEP_CASES!r}\n" + _WORKER
-    port = _free_port()
     env = dict(os.environ, PYTHONPATH=ROOT)
     procs = [subprocess.Popen(
-        [sys.executable, "-c", code, str(r), str(n), str(port), base],
+        [sys.executable, "-c", code, str(r), str(n), base],
         cwd=ROOT, env=env, stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT) for r in range(n)]
     try:
