@@ -99,6 +99,12 @@ print the final ``ok`` line):
    read above 1x, the
    kernel's, the plain version's and a labelled SDPA yardstick's times
    (q = [q_lat, q_rope], k = [c, kr], v = c, one kv head), and the bound;
+   the multi-token forms again at DeepSeek-V2-Lite's 16 heads (phase 7v's
+   shapes), beside its other kernel cases: ``int4_expert_matmul`` at 64
+   experts of 1408 under top-6 counts (decode and a 1024-token chunk),
+   ``int4_matmul`` at its projections (the prefix's w_down one group of
+   10944 in-elements), ``rms_norm`` at 2048 and 512, flash at D = 192
+   over 16 heads;
 4. engine: ``ServingEngine`` for llama3-8b, 8 slots, cache_len 2048,
    16-token pages; 8 greedy requests of 200-900 prompt tokens (two share
    a 96-token prefix), 32 new tokens each. The launch counters are set to
@@ -309,6 +315,27 @@ Step graphs (phases 4, 7s, 7b, 7c, 7d). Each engine captures its decode
    skipped-layer control and the count of (token, layer) pairs whose
    router's 2nd and 3rd probabilities lie within 1e-3; HTTP, drain with
    zero leaked pages; then the Mixtral weights are freed before training;
+7v. DeepSeek-V2-Lite (``deepseek_phase``) at full width and depth, its
+   norms drawn at U(0.75, 1.25): (a) the engine the serve CLI builds from
+   ``--model deepseek-v2-lite`` over the bf16 tree (8 slots, cache_len
+   2048, 16-token pages; the arena's ``c_pre``/``kr_pre`` sections for the
+   dense first layer, 497,664 bytes a page), weight, arena and peak bytes
+   under 80 GB, phase 4's burst with exact launches a step or chunk (27
+   of row 10, 82 ``rms_norm``, no other attention kernel), (g1)-(g5), the
+   last-token check against the plain f32 forward (reported) and the
+   layer check (``moe_layer_check``, generalized to top-6 without
+   renormalization, the shared experts and the dense layer 0, gated at
+   0.05, its controls failing, with the count of (token, layer) pairs
+   whose 6th and 7th probabilities lie within the tie margin), HTTP and
+   drain; (c) over the same tree the dense-scratch route (2 slots, the
+   pool at its minimum: a 1500-token prompt, row 1 at D = 192 27 times a
+   head) and ``embed`` (within 0.15 of the plain forward's pooled state),
+   and ``--prefix-cache off``, whose greedy tokens must equal the paged
+   loop's or part from them at a near tie (``SPEC_TIE_MARGIN``); (b)
+   ``--int4 --kv-int8`` from a tree drawn and quantized a layer at a
+   time, the same checks with 78 ``int4_expert_matmul``, 163
+   ``int4_matmul`` and 27 of row 11 a step; (d) ``step_profile --model
+   deepseek-v2-lite`` in bf16 and int4;
 7f. the other dense families, one at a time at full width and depth,
    the card freed between them: gemma-7b, qwen2-7b, qwen3-8b and
    mistral-7b, bf16 weights from the seed with their q/k/v biases, q/k
@@ -510,8 +537,10 @@ training run for the flash kernels, beside the MLA training run as
 ``serve_mla_dense`` and ``serve_mla_kv_int8_dense``, and phase 7l's
 bursts as ``serve_lora`` and ``serve_lora_int4_kv_int8`` (their n = 2
 groups' ``flash_fwd`` as ``serve_lora_dense_group`` and
-``serve_lora_int4_kv_int8_dense_group``), and phase 7f's bursts as
-``serve_<model>`` and ``serve_<model>_int4_kv_int8``; the single-token
+``serve_lora_int4_kv_int8_dense_group``), phase 7f's bursts as
+``serve_<model>`` and ``serve_<model>_int4_kv_int8``, and phase 7v's as
+``serve_deepseek``, ``serve_deepseek_int4_kv_int8`` and (its dense route
+and embed) ``serve_deepseek_dense``; the single-token
 forms lie on no model path, in this port as in the JAX package, and count
 0), the last line
 ``{"ok": true, "device": {...}}``. ``--out PATH`` also writes every
@@ -772,6 +801,32 @@ INT4_GEMMA3_SHAPES = [(3840, 4096, "gemma3 wq"), (3840, 2048, "gemma3 wk, wv"),
 INT4_70B_SHAPES = [(8192, 28672, "70b w_gate, w_up"),
                    (28672, 8192, "70b w_down"),
                    (8192, 128256, "70b lm_head")]
+# phase 7v: DeepSeek-V2-Lite at full width and depth (E 2048, 27 layers,
+# layer 0 dense at 10944, 16 heads over latent 512 + rope 64, 64 routed
+# experts top-6 without renormalization and 2 shared, each of 1408, vocab
+# 102400), and phase 3's kernel cases at its shapes: row 10 at its 16
+# heads, row 14 at its 64 experts, row 13 at its projections (the
+# prefix's w_down, 10944 in-elements, is one group: 128 does not divide
+# it), rms_norm at its width and its latent's
+DS_MODEL = "deepseek-v2-lite"
+DS_HEADS = 16
+DS_EXPERTS, DS_TOP_K, DS_WIDTH = 64, 6, 2048
+INT4_DS_SHAPES = [(2048, 3072, "ds wq"), (2048, 576, "ds w_dkv"),
+                  (2048, 2048, "ds wo"), (2048, 2816, "ds ws_gate, ws_up"),
+                  (2816, 2048, "ds ws_down"),
+                  (2048, 10944, "ds prefix w_gate, w_up"),
+                  (10944, 2048, "ds prefix w_down"),
+                  (2048, 102400, "ds lm_head")]
+INT4_DS_EXPERT_SHAPES = [(2048, 1408, "ds we_gate, we_up"),
+                         (1408, 2048, "ds we_down")]
+# a page of 16 positions in each of 27 layers: 512 + 64 bf16 latents, or
+# int8 latents and their two f32 scales
+DS_PAGE_BYTES = {False: 27 * 16 * 576 * 2, True: 27 * 16 * (576 + 8)}
+# the norm weights are drawn at U(DS_NORM_LOW, DS_NORM_LOW + 0.5): a port
+# that ignored one would miss by far (the JAX init leaves them at 1)
+DS_NORM_LOW = 0.75
+# (c): greedy tokens of the contiguous loop against the paged loop
+DS_GREEDY_TOKENS = 16
 
 
 def log(msg: str) -> None:
@@ -1241,11 +1296,12 @@ MLA_KINDS = {
 MLA_DECODE_LENGTHS = [402, 475, 468, 252, 411, 789, 881, 571]
 
 
-def mla_inputs(torch, dev, b, kq, lengths, t=16, cols=128):
-    """mla-8b shapes (32 heads, latent 512, rope 64) at cache_len 2048: f32
-    absorbed queries, bf16 latent pages in random order, and table entries
-    past ceil(len/T) naming pages of large finite garbage."""
-    hq, r, dr = 32, 512, 64
+def mla_inputs(torch, dev, b, kq, lengths, t=16, cols=128, hq=32):
+    """mla-8b shapes (32 heads, or ``hq``: DeepSeek-V2-Lite's 16; latent
+    512, rope 64) at cache_len 2048: f32 absorbed queries, bf16 latent
+    pages in random order, and table entries past ceil(len/T) naming pages
+    of large finite garbage."""
+    r, dr = 512, 64
     gen = torch.Generator().manual_seed(SEED + 7 * kq)
     live = [-(-n // t) for n in lengths]
     n_garbage = 64
@@ -1299,8 +1355,9 @@ def mla_variant(torch, q_lat, q_rope, c, kr, lens, scale, drop_rope=False,
     return torch.einsum("bkhL,bLr->bkhr", p, c)
 
 
-def mla_case(torch, F, dev, flush, kind, name, b, kq, lengths):
-    """One MLA entry point against its plain version at mla-8b's shapes. The
+def mla_case(torch, F, dev, flush, kind, name, b, kq, lengths, hq=32):
+    """One MLA entry point against its plain version at mla-8b's shapes
+    (``hq`` 16: DeepSeek-V2-Lite's heads). The
     int8 kinds take latents that the model's own ``_kv_quant`` made from the
     bf16 ones (the garbage pages stay large). Controls, each scored by the
     same check and each required above 1x: the rope term dropped, a page
@@ -1313,8 +1370,8 @@ def mla_case(torch, F, dev, flush, kind, name, b, kq, lengths):
     plain_name, single, quant = MLA_KINDS[kind]
     plain_fn = getattr(attention, plain_name)
     q_lat, q_rope, c, kr, table, lens, live = mla_inputs(torch, dev, b, kq,
-                                                         lengths)
-    hq, r = q_lat.shape[2], q_lat.shape[3]
+                                                         lengths, hq=hq)
+    r = q_lat.shape[3]
     t, dr = kr.shape[1], kr.shape[2]
     scale = (128 + dr) ** -0.5           # mla-8b: (head_dim + rope)^-0.5
     if quant:
@@ -1438,12 +1495,22 @@ def int4pack_call(torch, h, q4, scale):
     weight: the same nibbles (q - 8 with q stored + 8), repacked to the
     library's (out, in/2) bytes with the even in-element in the high nibble
     and tiled by ``_convert_weight_to_int4pack``, the group scales in bf16
-    beside zero points of 0. Returns the call."""
+    beside zero points of 0. A group the library does not take (one group
+    of 10944, DeepSeek's prefix w_down) is split into the largest group
+    it takes that divides it, each part with the same scale: the same
+    function. Returns the call."""
     kin2, out = q4.shape
     group = 2 * kin2 // scale.shape[0]
+    if group not in (32, 64, 128, 256):
+        part = next(g for g in (256, 128, 64, 32) if group % g == 0)
+        scale = scale.repeat_interleave(group // part, dim=0)
+        group = part
     nib = ((q4 & 0xF) << 4) | (q4 >> 4)
+    # the library tiles the contraction by 16 x inner_k_tiles (8 where it
+    # divides, as at every width but DeepSeek's 10944)
+    inner = next(t for t in (8, 4, 2) if (2 * kin2) % (16 * t) == 0)
     packed = torch.ops.aten._convert_weight_to_int4pack(
-        nib.t().contiguous(), 8)
+        nib.t().contiguous(), inner)
     sz = torch.stack([scale[:, 0, :], torch.zeros_like(scale[:, 0, :])],
                      dim=-1).bfloat16().contiguous()
     return lambda: torch.ops.aten._weight_int4pack_mm(h, packed, group, sz)
@@ -1488,12 +1555,15 @@ def int4_case(torch, dev, flush, rows, kin, out, leaves):
     swapped = (q4 >> 4) | (q4 << 4)
     w_bf16 = dequantize(leaf).bfloat16()
     controls = {}
+    # each group given its neighbour's scales; with one group (DeepSeek's
+    # prefix w_down) each column its neighbour's
+    roll_dim = 0 if scale.shape[0] > 1 else -1
     for control, fn in (
             ("nibbles_swapped",
              lambda: int4_plain_rows(torch, hf, swapped, scale)),
             ("neighbour_group_scale",
              lambda: int4_plain_rows(torch, hf, q4,
-                                     torch.roll(scale, 1, dims=0))),
+                                     torch.roll(scale, 1, dims=roll_dim))),
             # the scale folded into bf16 weights before an f32 product
             ("scale_folded_bf16", lambda: hf @ w_bf16.float())):
         e, sh = tolerance_check(fn(), ref)
@@ -1675,48 +1745,52 @@ MOE_EXPERTS, MOE_TOP_K = 8, 2
 INT4_EXPERT_ROWS = ((8, "decode"), (40, "verify K=5"), (1024, "prefill"))
 
 
-def expert_counts(torch, dev, tokens: int) -> "torch.Tensor":
-    """Filled rows per expert when ``tokens`` tokens each pick their top 2
-    of 8 experts under a seeded router (f32 logits of seeded normal
-    hidden states through a seeded normal router): (8,) int32 on the
-    card."""
+def expert_counts(torch, dev, tokens: int, experts: int = MOE_EXPERTS,
+                  top_k: int = MOE_TOP_K, width: int = 4096
+                  ) -> "torch.Tensor":
+    """Filled rows per expert when ``tokens`` tokens each pick their top
+    ``top_k`` of ``experts`` experts (Mixtral's 2 of 8 by default) under a
+    seeded router (f32 logits of seeded normal hidden states of ``width``
+    through a seeded normal router): (experts,) int32 on the card."""
     gen = torch.Generator(device=dev).manual_seed(SEED + tokens)
-    h = torch.randn((tokens, 4096), generator=gen, device=dev)
-    router = torch.randn((4096, MOE_EXPERTS), generator=gen,
+    h = torch.randn((tokens, width), generator=gen, device=dev)
+    router = torch.randn((width, experts), generator=gen,
                          device=dev) * 0.02
-    top = torch.topk(torch.softmax(h @ router, dim=-1), MOE_TOP_K).indices
-    return torch.bincount(top.flatten(), minlength=MOE_EXPERTS).to(
-        torch.int32)
+    top = torch.topk(torch.softmax(h @ router, dim=-1), top_k).indices
+    return torch.bincount(top.flatten(), minlength=experts).to(torch.int32)
 
 
-def int4_expert_inputs(torch, dev, rows, kin, out):
+def int4_expert_inputs(torch, dev, rows, kin, out, experts=MOE_EXPERTS,
+                       top_k=MOE_TOP_K, width=4096):
     """One projection's inputs for ``int4_expert_matmul`` at a buffer of
-    ``rows`` rows an expert: 8 experts of random weights (normal * 0.02)
-    quantized by the port's quantizer on the card, the counts of a seeded
-    top-2 router over ``rows`` tokens, and the buffer's first count rows of
-    each expert filled with bf16 values, the rest zero (as the MoE dispatch
-    leaves them): (h, q4, scale, counts, filled)."""
+    ``rows`` rows an expert: ``experts`` experts of random weights (normal
+    * 0.02) quantized by the port's quantizer on the card, the counts of a
+    seeded top-``top_k`` router over ``rows`` tokens, and the buffer's
+    first count rows of each expert filled with bf16 values, the rest zero
+    (as the MoE dispatch leaves them): (h, q4, scale, counts, filled)."""
     from k8s_runpod_kubelet_tpu_torch.models.quant import _quantize_leaf_int4
 
     gen = torch.Generator(device=dev).manual_seed(SEED + kin + out)
     leaves_q = []
-    for _ in range(MOE_EXPERTS):
+    for _ in range(experts):
         w = torch.randn((kin, out), generator=gen, device=dev) * 0.02
         leaves_q.append(_quantize_leaf_int4(w))
         del w
     q4 = torch.stack([lq["q4"] for lq in leaves_q])
     scale = torch.stack([lq["scale"] for lq in leaves_q])
     del leaves_q
-    counts = expert_counts(torch, dev, rows)
+    counts = expert_counts(torch, dev, rows, experts, top_k, width)
     filled = (torch.arange(rows, device=dev)[None, :]
               < counts[:, None].long())                      # (X, C)
-    h = (torch.randn((MOE_EXPERTS, rows, kin), generator=gen, device=dev)
+    h = (torch.randn((experts, rows, kin), generator=gen, device=dev)
          * filled[..., None]).bfloat16()
     return h, q4, scale, counts, filled
 
 
-def int4_expert_case(torch, dev, flush, rows, path, kin, out, leaves):
-    """``int4_expert_matmul`` at one expert projection of mixtral-8x7b and
+def int4_expert_case(torch, dev, flush, rows, path, kin, out, leaves,
+                     experts=MOE_EXPERTS, top_k=MOE_TOP_K, width=4096):
+    """``int4_expert_matmul`` at one expert projection of mixtral-8x7b (or
+    of DeepSeek-V2-Lite: ``experts`` 64, ``top_k`` 6, ``width`` 2048) and
     one path's buffer of ``rows`` rows an expert: 8 experts of random
     weights (normal * 0.02) quantized by the port's quantizer on the card,
     the buffer's first count rows of each expert filled with bf16 values
@@ -1734,9 +1808,9 @@ def int4_expert_case(torch, dev, flush, rows, path, kin, out, leaves):
     from k8s_runpod_kubelet_tpu_torch.models.quant import dequantize
     from k8s_runpod_kubelet_tpu_torch.ops import int4_expert_matmul
 
-    h, q4, scale, counts, filled = int4_expert_inputs(torch, dev, rows, kin,
-                                                      out)
-    name = f"{path}: 8 x {rows} x ({kin} -> {out}) [{leaves}]"
+    h, q4, scale, counts, filled = int4_expert_inputs(
+        torch, dev, rows, kin, out, experts, top_k, width)
+    name = f"{path}: {experts} x {rows} x ({kin} -> {out}) [{leaves}]"
     before = int4_expert_matmul.launches
     y = int4_expert_matmul(h, q4, scale, counts)
     y_full = int4_expert_matmul(h, q4, scale)
@@ -1745,7 +1819,7 @@ def int4_expert_case(torch, dev, flush, rows, path, kin, out, leaves):
         raise RuntimeError("int4_expert_matmul did not launch its kernel")
     def plain(q, sc):
         return torch.stack([int4_plain_rows(torch, h[x].float(), q[x], sc[x])
-                            for x in range(MOE_EXPERTS)])
+                            for x in range(experts)])
 
     ref = plain(q4, scale)                       # f32, before its cast
     err, share = tolerance_check(y, ref)
@@ -1786,7 +1860,7 @@ def int4_expert_case(torch, dev, flush, rows, path, kin, out, leaves):
     filled_rows = int(counts.sum())
     per_expert = q4[0].numel() + scale[0].numel() * 4
     nbytes = (used * per_expert + filled_rows * kin * 2
-              + MOE_EXPERTS * rows * out * 2)
+              + experts * rows * out * 2)
     ops = 2 * filled_rows * kin * out
     bound_ms, bound_by = bound(nbytes, ops, BF16_TENSOR_FLOPS)
     rec = {"case": name, "rows": rows, "in": kin, "out": out,
@@ -1903,6 +1977,9 @@ FLASH_CASES = [
     ("MLA train B=8 S=2048 D=192", 8, 32, 32, 2048, 192, True, None, None),
     ("MLA serving B=1 S=1024 D=192", 1, 32, 32, 1024, 192, True, None,
      None),
+    # DeepSeek-V2-Lite's dense-route prefill head: 16 heads at D = 192
+    ("DeepSeek serving B=1 S=1024 D=192 16 heads", 1, 16, 16, 1024, 192,
+     True, None, None),
     # Gemma-7B's dense-route prefill head: 16 heads of 256, GQA group 1
     ("Gemma serving B=1 S=1024 D=256 group 1", 1, 16, 16, 1024, 256, True,
      None, None),
@@ -3487,16 +3564,18 @@ def layer_f32(w, layer=None):
 
 
 def plain_mlp(torch, F, cfg, lp, h, margins=None, chosen=None, picks=None):
-    """The MLP of one layer in f32 from its f32 weights: SwiGLU, or for an
-    MoE config each token's top-k experts by its f32 router (softmax, top
-    k, renormalized), each expert run on the tokens that chose it, with no
-    capacity buffer. ``margins`` (a list) gets the layer's count of tokens
-    whose 2nd and 3rd router probabilities lie within 1e-3, where bf16
-    noise in the engine's hidden state may pick another expert.
-    ``chosen`` (..., k) forces the experts (their weights the f32
-    probabilities there, renormalized); ``picks`` (a list) gets the
-    layer's choices."""
-    if not cfg.n_experts:
+    """The MLP of one layer in f32 from its f32 weights: SwiGLU, or for a
+    layer with a router each token's top-k experts by its f32 router
+    (softmax, top k, renormalized with ``router_norm_topk``, else the raw
+    probabilities: DeepSeek-V2-Lite), each expert run on the tokens that
+    chose it, with no capacity buffer, plus DeepSeek's shared experts (a
+    SwiGLU of the ``ws_*`` weights). ``margins`` (a list) gets the layer's
+    count of tokens whose k-th and (k+1)-th router probabilities lie
+    within 1e-3, where bf16 noise in the engine's hidden state may pick
+    another expert. ``chosen`` (..., k) forces the experts (their weights
+    the f32 probabilities there); ``picks`` (a list) gets the layer's
+    choices."""
+    if "router" not in lp:
         return (F.silu(h @ lp["w_gate"]) * (h @ lp["w_up"])) @ lp["w_down"]
     probs = torch.softmax(h @ lp["router"], dim=-1)
     top = torch.topk(probs, cfg.n_experts_per_tok + 1, dim=-1)
@@ -3509,8 +3588,11 @@ def plain_mlp(torch, F, cfg, lp, h, margins=None, chosen=None, picks=None):
     if picks is not None:
         picks.append(chosen)
     weight = torch.gather(probs, -1, chosen)
-    weight = weight / weight.sum(dim=-1, keepdim=True)
+    if cfg.router_norm_topk:
+        weight = weight / weight.sum(dim=-1, keepdim=True)
     y = torch.zeros_like(h)
+    if "ws_gate" in lp:
+        y += (F.silu(h @ lp["ws_gate"]) * (h @ lp["ws_up"])) @ lp["ws_down"]
     for x in range(cfg.n_experts):
         pick = chosen == x                                  # (..., k)
         rows = pick.any(dim=-1)
@@ -3569,10 +3651,10 @@ def plain_logits(torch, cfg, params, tokens, skip_layer=None,
                                 cfg.max_seq_len, cfg.rope_theta,
                                 cfg.rope_scaling, device=dev)
     x = params["tok_embed"][tokens.long()].float()
-    for layer in range(cfg.n_layers):
+    for layer, (stack, j) in enumerate(layer_stacks(cfg, params)):
         if layer == skip_layer:
             continue
-        lp = {k: layer_f32(w, layer) for k, w in params["layers"].items()}
+        lp = {k: layer_f32(w, j) for k, w in stack.items()}
         x = x + plain_attention(torch, cfg, lp, x, cos, sin)
         h = _rms_norm_plain(x, lp["mlp_norm"], cfg.norm_eps)
         x = x + plain_mlp(torch, F, cfg, lp, h, margins, picks=picks)
@@ -3585,6 +3667,14 @@ def plain_logits(torch, cfg, params, tokens, skip_layer=None,
     if cfg.tie_embeddings:
         return x @ params["tok_embed"].t().float()
     return x @ layer_f32(params["lm_head"])
+
+
+def layer_stacks(cfg, params) -> list:
+    """(stacked leaves, index in them) of every layer in the order the
+    model runs them: DeepSeek's dense prefix (``prefix_layers``) first."""
+    k = cfg.n_dense_prefix
+    return ([(params["prefix_layers"], j) for j in range(k)]
+            + [(params["layers"], j) for j in range(cfg.n_layers - k)])
 
 
 def mla_direct_qkv(torch, cfg, lp, h, cos, sin):
@@ -3633,8 +3723,9 @@ def engine_reference_check(torch, cfg, params, prompt, engine_logits,
     layer skipped must land outside it (with ``gate=False`` both are
     reported, not required). For an MoE model it also counts the (token,
     layer) pairs of the forward whose router's 2nd and 3rd probabilities
-    lie within 1e-3; ``picks`` (a list) gets the forward's choices of
-    experts, one (1, S, k) tensor a layer."""
+    lie within 1e-3 (the k-th and (k+1)-th under top-k); ``picks`` (a
+    list) gets the forward's choices of experts, one (1, S, k) tensor a
+    routed layer."""
     margins: list = []
     ref = reference_logits(torch, cfg, params, prompt, margins=margins,
                            picks=picks)
@@ -3654,9 +3745,12 @@ def engine_reference_check(torch, cfg, params, prompt, engine_logits,
         out["router_near_ties"] = {"pairs": sum(margins),
                                    "of": len(prompt) * cfg.n_layers,
                                    "by_layer": margins}
-        log(f"  router near ties in the f32 forward (2nd - 3rd probability "
-            f"< 1e-3): {sum(margins)} of {len(prompt) * cfg.n_layers} "
-            f"(token, layer) pairs; by layer {margins}")
+        k = cfg.n_experts_per_tok
+        routed = cfg.n_layers - cfg.n_dense_prefix
+        out["router_near_ties"]["of"] = len(prompt) * routed
+        log(f"  router near ties in the f32 forward ({k}th - {k + 1}th "
+            f"probability < 1e-3): {sum(margins)} of {len(prompt) * routed} "
+            f"(token, layer) pairs; by routed layer {margins}")
     log(f"  independent check: {what} vs plain f32 forward, last-token "
         f"logits of a {len(prompt)}-token prompt: relative L2 "
         f"{out['rel_l2']:.4f} (limit {limit}), max abs "
@@ -3670,23 +3764,29 @@ def engine_reference_check(torch, cfg, params, prompt, engine_logits,
     return out
 
 
-def moe_layer_check(torch, model, params, prompt, free_picks) -> dict:
+def moe_layer_check(torch, model, params, prompt, free_picks,
+                    kv_int8=False) -> dict:
     """The MoE engine path held one layer at a time: the last-token
-    check's one-chunk prefill of ``prompt`` runs again with each layer's
-    MLP input and output recorded (the engine's bf16 residual stream), and
-    each layer's attention and MLP outputs are held against the plain f32
-    layer (``plain_attention``, ``plain_mlp``) on that same input, by the
-    relative L2 norm of the output. The MLP reference takes the experts the
-    engine chose (its router on its own input, ``route_top_k``), each
-    weighted by the f32 probabilities there; every token whose choice
-    differs from the f32 router's on the same input must be a near tie
-    (2nd and 3rd probabilities within ``MOE_ROUTER_TIE``). Controls, which
-    must read above the limit in every layer: the MLP reference with each
-    expert given its neighbour's weights; the attention reference with the
-    next layer's weights. Reported beside: in each layer, the tokens whose
-    engine choice differs from the choice of the free-running f32 forward
-    (``free_picks``, one (1, S, k) tensor a layer), which sees its own,
-    diverging, hidden states."""
+    check's one-chunk prefill of ``prompt`` runs again (over an int8 arena
+    with ``kv_int8``) with each layer's MLP input and output recorded (the
+    engine's bf16 residual stream), and each layer's attention and MLP
+    outputs are held against the plain f32 layer (``plain_attention``,
+    ``plain_mlp``) on that same input, by the relative L2 norm of the
+    output. A routed layer's MLP reference takes the experts the engine
+    chose (its router on its own input, ``route_top_k``), each weighted by
+    the f32 probabilities there (renormalized or raw, as the config
+    routes), plus the shared experts of a DeepSeek layer; every token
+    whose choice differs from the f32 router's on the same input must be a
+    near tie (k-th and (k+1)-th probabilities within ``MOE_ROUTER_TIE``),
+    and the pairs within that margin are counted. A dense layer (DeepSeek's
+    prefix) is held as a dense MLP. Controls, which must read above the
+    limit in every layer: a routed MLP with each expert given its
+    neighbour's weights, a dense MLP with its down projection's rows
+    rolled; the attention reference with the next layer's weights.
+    Reported beside: in each routed layer, the tokens whose engine choice
+    differs from the choice of the free-running f32 forward
+    (``free_picks``, one (1, S, k) tensor a routed layer), which sees its
+    own, diverging, hidden states."""
     import torch.nn.functional as F
 
     from k8s_runpod_kubelet_tpu_torch.models.moe import route_top_k
@@ -3705,60 +3805,77 @@ def moe_layer_check(torch, model, params, prompt, free_picks) -> dict:
 
     model._paged_mlp = record
     try:
-        quant_logits(torch, model, params, prompt, kv_int8=False)
+        quant_logits(torch, model, params, prompt, kv_int8=kv_int8)
     finally:
         del model._paged_mlp
     if len(seen) != cfg.n_layers:
         raise RuntimeError(f"recorded {len(seen)} MLP calls")
     dev = params["tok_embed"].device
-    cos, sin = rope_frequencies(cfg.head_dim_, cfg.max_seq_len,
-                                cfg.rope_theta, cfg.rope_scaling, device=dev)
+    cos, sin = rope_frequencies(
+        cfg.mla_rope_dim if cfg.is_mla else cfg.head_dim_, cfg.max_seq_len,
+        cfg.rope_theta, cfg.rope_scaling, device=dev)
     toks = torch.tensor([prompt], device=dev)
+    stacks = layer_stacks(cfg, params)
+    k = cfg.n_experts_per_tok
+    mlp_names = set(model._MLP_LEAVES)
 
     def rel(a, ref):
         return ((a - ref).norm() / ref.norm()).item()
 
     rows = []
+    routed = 0
     x_in = params["tok_embed"][toks.long()].float()
-    for layer in range(cfg.n_layers):
-        lp = {k: layer_f32(w, layer) for k, w in params["layers"].items()}
+    for layer, (stack, j) in enumerate(stacks):
+        lp = {n: layer_f32(w, j) for n, w in stack.items()}
         mid, out = (t.float() for t in seen[layer])
         attn = plain_attention(torch, cfg, lp, x_in, cos, sin)
+        nstack, nj = stacks[(layer + 1) % cfg.n_layers]
         attn_ctrl = plain_attention(
-            torch, cfg, {k: layer_f32(params["layers"][k],
-                                      (layer + 1) % cfg.n_layers)
-                         for k in ("attn_norm", "wq", "wk", "wv", "wo")},
-            x_in, cos, sin)
-        # the engine's choices: its router on its own (bf16-normed) input
-        h_eng = rms_norm(seen[layer][0], params["layers"]["mlp_norm"][layer],
-                         cfg.norm_eps)
-        _, chosen, _ = route_top_k(
-            h_eng.float() @ params["layers"]["router"][layer].float(),
-            cfg.n_experts_per_tok, cfg.router_norm_topk)
+            torch, cfg, {n: layer_f32(w, nj) for n, w in nstack.items()
+                         if n not in mlp_names}, x_in, cos, sin)
         h = _rms_norm_plain(mid, lp["mlp_norm"], cfg.norm_eps)
-        chosen = chosen.view(h.shape[:-1] + (cfg.n_experts_per_tok,))
+        row = {"layer": layer, "attn_rel_l2": rel(mid - x_in, attn),
+               "attn_control_rel_l2": rel(mid - x_in, attn_ctrl)}
+        if "router" not in lp:
+            mlp = plain_mlp(torch, F, cfg, lp, h)
+            mlp_ctrl = plain_mlp(torch, F, cfg, dict(
+                lp, w_down=torch.roll(lp["w_down"], 1, dims=0)), h)
+            row.update(dense=True, mlp_rel_l2=rel(out - mid, mlp),
+                       mlp_control_rel_l2=rel(out - mid, mlp_ctrl),
+                       choices_differing=0, near_ties=0,
+                       differing_margin_max=0.0)
+            rows.append(row)
+            x_in = out
+            del lp
+            continue
+        # the engine's choices: its router on its own (bf16-normed) input
+        h_eng = rms_norm(seen[layer][0], stack["mlp_norm"][j], cfg.norm_eps)
+        _, chosen, _ = route_top_k(
+            h_eng.float() @ stack["router"][j].float(), k,
+            cfg.router_norm_topk)
+        chosen = chosen.view(h.shape[:-1] + (k,))
         mlp = plain_mlp(torch, F, cfg, lp, h, chosen=chosen)
         rolled = dict(lp, **{n: torch.roll(lp[n], 1, dims=0)
                              for n in ("we_gate", "we_up", "we_down")})
         mlp_ctrl = plain_mlp(torch, F, cfg, rolled, h, chosen=chosen)
         probs = torch.softmax(h @ lp["router"], dim=-1)
-        top = torch.topk(probs, cfg.n_experts_per_tok + 1, dim=-1)
-        k = cfg.n_experts_per_tok
+        top = torch.topk(probs, k + 1, dim=-1)
         differs = (torch.sort(top.indices[..., :k], -1).values
                    != torch.sort(chosen, -1).values).any(-1)
         margin = top.values[..., k - 1] - top.values[..., k]
-        spread = (torch.sort(free_picks[layer], -1).values
+        spread = (torch.sort(free_picks[routed], -1).values
                   != torch.sort(chosen, -1).values).any(-1)
-        rows.append({
-            "layer": layer, "attn_rel_l2": rel(mid - x_in, attn),
-            "mlp_rel_l2": rel(out - mid, mlp),
-            "attn_control_rel_l2": rel(mid - x_in, attn_ctrl),
+        routed += 1
+        row.update({
+            "dense": False, "mlp_rel_l2": rel(out - mid, mlp),
             "mlp_control_rel_l2": rel(out - mid, mlp_ctrl),
             "choices_differing": int(differs.sum()),
+            "near_ties": int((margin < MOE_ROUTER_TIE).sum()),
             "differs_from_free_f32": int(spread.sum()),
             "last_token_differs_from_free_f32": bool(spread[0, -1]),
             "differing_margin_max": (margin[differs].max().item()
                                      if differs.any() else 0.0)})
+        rows.append(row)
         x_in = out
         del lp, rolled
     worst = {key: max(r[key] for r in rows)
@@ -3766,25 +3883,30 @@ def moe_layer_check(torch, model, params, prompt, free_picks) -> dict:
     ctrl = {key: min(r[key] for r in rows)
             for key in ("attn_control_rel_l2", "mlp_control_rel_l2")}
     differing = sum(r["choices_differing"] for r in rows)
-    spread = [r["differs_from_free_f32"] for r in rows]
+    ties = sum(r["near_ties"] for r in rows)
+    spread = [r["differs_from_free_f32"] for r in rows if not r["dense"]]
     res = {"limit_rel_l2": MOE_LAYER_REL_L2_LIMIT,
            "tie_margin": MOE_ROUTER_TIE, "worst": worst,
            "controls_least": ctrl, "choices_differing": differing,
-           "of": len(prompt) * cfg.n_layers, "layers": rows}
-    log(f"  layer check: each of {cfg.n_layers} layers against the plain f32 "
-        f"layer on the engine's own input ({len(prompt)} tokens): worst "
-        f"attention {worst['attn_rel_l2']:.4f}, worst MLP (the engine's "
-        f"experts) {worst['mlp_rel_l2']:.4f} relative L2 (limit "
-        f"{MOE_LAYER_REL_L2_LIMIT}); controls at least: next layer's "
-        f"attention {ctrl['attn_control_rel_l2']:.3f}, neighbour expert "
+           "near_tie_pairs": ties, "of": len(prompt) * routed,
+           "kv_int8": kv_int8, "layers": rows}
+    log(f"  layer check: each of {cfg.n_layers} layers ({routed} routed) "
+        f"against the plain f32 layer on the engine's own input "
+        f"({len(prompt)} tokens): worst attention {worst['attn_rel_l2']:.4f}"
+        f", worst MLP (the engine's experts) {worst['mlp_rel_l2']:.4f} "
+        f"relative L2 (limit {MOE_LAYER_REL_L2_LIMIT}); controls at least: "
+        f"next layer's attention {ctrl['attn_control_rel_l2']:.3f}, "
+        f"neighbour expert (dense: rolled down rows) "
         f"{ctrl['mlp_control_rel_l2']:.3f}; {differing} of {res['of']} "
         f"(token, layer) choices differ from the f32 router's, all within "
         f"{worst['differing_margin_max']:.2e} of a tie (bound "
-        f"{MOE_ROUTER_TIE})")
+        f"{MOE_ROUTER_TIE}); {ties} (token, layer) pairs have their "
+        f"{k}th and {k + 1}th probabilities within {MOE_ROUTER_TIE}")
     last = [r["layer"] for r in rows
-            if r["last_token_differs_from_free_f32"]]
+            if r.get("last_token_differs_from_free_f32")]
     log(f"  tokens whose engine choice differs from the free-running f32 "
-        f"forward's, by layer: {spread}; the last token's in layers {last}")
+        f"forward's, by routed layer: {spread}; the last token's in layers "
+        f"{last}")
     if not (worst["attn_rel_l2"] <= MOE_LAYER_REL_L2_LIMIT
             and worst["mlp_rel_l2"] <= MOE_LAYER_REL_L2_LIMIT):
         raise RuntimeError(f"a layer is off the plain f32 layer: {res}")
@@ -5207,13 +5329,15 @@ def biased_divergence(torch, cfg, params, prompt, a, b, bias) -> dict:
     return {"diverge_at": n, "margin_share": margin / rms}
 
 
-def dense_route_forced(torch, engine, cfg, params, prompt) -> dict:
+def dense_route_forced(torch, engine, cfg, params, prompt,
+                       **ref_kw) -> dict:
     """(a) Two 2040-token prompts whose page runs hold the whole pool
     (2 x 128 pages) and decode to their 2048-position budget; the engine
     thread is held at the first one's first token (its on_token waits)
     until the second is prefilled and a 1500-token prompt has found no
     up-front run and prefilled through the dense route; then all three
-    run on, the third bound once a slot frees its pages."""
+    run on, the third bound once a slot frees its pages. ``ref_kw`` go to
+    the route's ``engine_reference_check`` (its limit, whether it gates)."""
     big = [prompt(2040), prompt(2040)]
     third = prompt(1500)
     entered, gate = threading.Event(), threading.Event()
@@ -5252,7 +5376,7 @@ def dense_route_forced(torch, engine, cfg, params, prompt) -> dict:
     with engine._prefix_lock:
         check = engine_reference_check(torch, cfg, params, third,
                                        logits[0].float(),
-                                       what="dense-route prefill")
+                                       what="dense-route prefill", **ref_kw)
     log(f"  (a) pool full ({free} free pages of "
         f"{engine._kv_store.pool.n_pages}): the 1500-token prompt took the "
         f"dense route, prefilled in {prefill_s * 1e3:.1f} ms, bound when a "
@@ -5936,6 +6060,410 @@ def moe_engine_phase(torch, dev, card: str) -> dict:
         del engine
         gc.collect()
         torch.cuda.empty_cache()
+
+
+def draw_deepseek_norms(torch, params, seed: int) -> None:
+    """In place, every norm weight of a DeepSeek tree (both stacks' and the
+    final one) drawn at U(DS_NORM_LOW, DS_NORM_LOW + 0.5), away from the
+    JAX init's identity; the same numbers for the bf16 tree and the int4
+    one (norms stay f32 in both)."""
+    dev = params["tok_embed"].device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    leaves = [params["final_norm"]] + [
+        w for stack in ("prefix_layers", "layers")
+        for n, w in sorted(params[stack].items()) if n.endswith("norm")]
+    for t in leaves:
+        t.uniform_(DS_NORM_LOW, DS_NORM_LOW + 0.5, generator=gen)
+
+
+def deepseek_weight_bytes(params) -> dict:
+    """A DeepSeek tree's bytes by part."""
+    lp, pp = params["layers"], params["prefix_layers"]
+    attn = ("wq", "w_dkv", "w_uk", "w_uv", "wo")
+    return {
+        "routed_experts": sum(tensor_bytes(lp[n])
+                              for n in ("we_gate", "we_up", "we_down")),
+        "shared_experts": sum(tensor_bytes(lp[n])
+                              for n in ("ws_gate", "ws_up", "ws_down")),
+        "prefix_mlp": sum(tensor_bytes(pp[n])
+                          for n in ("w_gate", "w_up", "w_down")),
+        "attention": sum(tensor_bytes(s[n]) for s in (lp, pp)
+                         for n in attn),
+        "router": tensor_bytes(lp["router"]),
+        "tok_embed": tensor_bytes(params["tok_embed"]),
+        "lm_head": tensor_bytes(params["lm_head"]),
+        "norms": tensor_bytes(params["final_norm"]) + sum(
+            tensor_bytes(w) for s in (lp, pp) for n, w in s.items()
+            if n.endswith("norm"))}
+
+
+def deepseek_engine_run(torch, dev, card: str, cfg, params, quant: bool,
+                        greedy_prompt=None) -> dict:
+    """(a) bf16 or (b) ``--int4 --kv-int8``: the engine the serve CLI
+    builds from ``--model deepseek-v2-lite`` (8 slots, cache_len 2048,
+    16-token pages) over ``params`` (a one-element list, emptied once the
+    engine holds the tree). Weight, arena and page bytes and peak memory
+    (under ``CARD_BYTES``); the burst with exact launches per step and
+    chunk (row 10, or 11 under int8, 27 a step; ``rms_norm`` 3 a layer and
+    once; under int4 row 14 3 a routed layer and row 13 6 a layer and the
+    head; every other kernel 0); (g1)-(g5); the last-token check against
+    the plain f32 forward (reported) and the layer check (gated); with
+    ``greedy_prompt`` its greedy tokens for (c); HTTP and drain."""
+    from k8s_runpod_kubelet_tpu_torch.ops import (
+        flash_fwd, int4_expert_matmul, int4_matmul, paged_attention,
+        paged_attention_mla, paged_attention_mla_quant, paged_attention_multi,
+        paged_attention_multi_mla, paged_attention_multi_mla_quant,
+        paged_attention_multi_quant, paged_attention_quant, rms_norm)
+    from k8s_runpod_kubelet_tpu_torch.workloads import serve_main
+
+    argv = ["--model", DS_MODEL, "--device", dev.type, "--slots", "8",
+            "--cache-len", "2048", "--max-new-tokens", "32", "--seed",
+            str(SEED)] + (["--int4", "--kv-int8"] if quant else [])
+    what = f"{DS_MODEL} {'--int4 --kv-int8' if quant else 'bf16'} engine"
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    engine, _ = serve_main.build_engine(serve_main.parse_args(argv),
+                                        params[0])
+    params.clear()   # the engine holds the last reference
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build_peak = torch.cuda.max_memory_allocated()
+    try:
+        sc, store = engine.sc, engine._kv_store
+        snap = engine.debug_snapshot()
+        if not (engine.cfg == cfg and sc.slots == 8
+                and sc.cache_len == 2048 and sc.kv_page_tokens == 16
+                and sc.quantize_int4 == quant
+                and sc.quantize_kv_int8 == quant
+                and snap["kv_layout"] == "latent" and snap["paged_decode"]):
+            raise RuntimeError(f"{what}: the CLI built {sc}, {snap}")
+        sections = {n: tuple(a.shape) for n, a in store.arena.items()}
+        if store.page_bytes != DS_PAGE_BYTES[quant] \
+                or sections["c_pre"][0] != 1 or sections["c"][0] != 26:
+            raise RuntimeError(f"{what}: arena {sections}, page "
+                               f"{store.page_bytes} B, not "
+                               f"{DS_PAGE_BYTES[quant]}")
+        weights = deepseek_weight_bytes(engine.params)
+        arena = tensor_bytes(store.arena)
+        log(f"  {what}: {cfg.n_layers} layers ({cfg.n_dense_prefix} dense at "
+            f"{cfg.dense_prefix_mlp_dim}), E={cfg.embed_dim}, "
+            f"{cfg.n_experts} experts top-{cfg.n_experts_per_tok} and "
+            f"{cfg.n_shared_experts} shared of {cfg.mlp_dim}; weights "
+            f"{snap['weights']}, kv {snap['kv']}, built in {build_s:.1f} s "
+            "(graphs captured); weight bytes "
+            + ", ".join(f"{k} {v / 1e9:.3f} GB" for k, v in weights.items())
+            + f" ({sum(weights.values()) / 1e9:.3f} GB); arena "
+            f"{store.pool.n_pages} + 1 pages of {store.page_bytes} B "
+            f"(sections {sections}), {arena / 1e9:.3f} GB; [{card}] "
+            f"allocated {torch.cuda.memory_allocated() / 2**30:.2f} GiB, "
+            f"peak while building {build_peak / 2**30:.2f} GiB (from "
+            f"{before / 2**30:.2f} GiB)")
+        if not build_peak < CARD_BYTES:
+            raise RuntimeError(f"{what}: peak {build_peak} B while building")
+        torch.cuda.reset_peak_memory_stats()
+        n = cfg.n_layers
+        routed = n - cfg.n_dense_prefix
+        main = paged_attention_multi_mla_quant if quant \
+            else paged_attention_multi_mla
+        held = [k for k in (paged_attention_multi_mla,
+                            paged_attention_multi_mla_quant,
+                            paged_attention_mla, paged_attention_mla_quant,
+                            paged_attention_multi,
+                            paged_attention_multi_quant, paged_attention,
+                            paged_attention_quant, flash_fwd)
+                if k is not main]
+        per_step = {main.__name__: n, "rms_norm": 3 * n + 1,
+                    # wq, w_dkv, wo and the three MLP products (the shared
+                    # experts', or the prefix's dense MLP) a layer, the head
+                    "int4_matmul": 6 * n + 1 if quant else 0,
+                    "int4_expert_matmul": 3 * routed if quant else 0,
+                    **{k.__name__: 0 for k in held}}
+        rec = serve_burst(torch, engine, cfg, card,
+                          (main, rms_norm, int4_matmul, int4_expert_matmul,
+                           *held), per_step)
+        serve_peak = torch.cuda.max_memory_allocated()
+        log(f"  [{card}] peak allocated while serving "
+            f"{serve_peak / 2**30:.2f} GiB")
+        prompts = rec.pop("prompts")
+        limit = MLA_INT8_ENGINE_REL_L2_LIMIT if quant \
+            else MLA_ENGINE_REL_L2_LIMIT
+        with engine._prefix_lock:   # the engine is idle; keep it so
+            rec["graphs"] = graph_checks(torch, engine, card, limit, what)
+            logits = quant_logits(torch, engine.model, engine.params,
+                                  prompts[2], kv_int8=quant)
+            picks: list = []
+            reference = engine_reference_check(
+                torch, cfg, engine.params, prompts[2], logits,
+                limit=MOE_ENGINE_REL_L2_LIMIT, what=what, gate=False,
+                picks=picks)
+            layers = moe_layer_check(torch, engine.model, engine.params,
+                                     prompts[2], picks, kv_int8=quant)
+            del picks
+        check_peak = torch.cuda.max_memory_allocated()
+        if not max(serve_peak, check_peak) < CARD_BYTES:
+            raise RuntimeError(f"{what}: peak {max(serve_peak, check_peak)}")
+        if greedy_prompt is not None:
+            rec["greedy"] = engine.submit(
+                greedy_prompt, max_new_tokens=DS_GREEDY_TOKENS).result(
+                    timeout=900)["tokens"]
+        rec.update(http_and_drain(engine, rec.pop("prompt")),
+                   reference=reference, layer_check=layers,
+                   weight_bytes=weights, arena_bytes=arena,
+                   page_bytes=store.page_bytes, arena_sections=sections,
+                   build_s=build_s, build_peak_bytes=build_peak,
+                   serve_peak_bytes=serve_peak, check_peak_bytes=check_peak,
+                   allocated_bytes=torch.cuda.memory_allocated())
+        rec["tree"] = engine.params
+        return rec
+    finally:
+        engine.stop()
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def deepseek_dense_and_contiguous(torch, dev, card: str, cfg, params,
+                                  greedy_prompt, paged_tokens) -> dict:
+    """(c) over the bf16 tree: (c1) the dense-scratch route on an engine of
+    2 slots with the pool at its minimum (``dense_route_forced``: a
+    1500-token prompt prefilled through MLA's direct form, the flash
+    kernel at D = 192; its logits against the plain f32 forward,
+    reported), then ``embed`` of 1000 tokens against the plain forward's
+    pooled state (gated at ``MOE_ENGINE_REL_L2_LIMIT``); the counts set to
+    0 before and read after: ``flash_fwd`` exactly 27 a dense prefill head
+    and embed, no backward kernel, the latent kernel 27 a paged step, every
+    other attention kernel 0; HTTP and drain. (c2) ``--prefix-cache off``:
+    the engine the CLI builds serves from the contiguous loop, and its
+    greedy tokens on ``greedy_prompt`` equal the paged loop's
+    (``paged_tokens``), or where they first differ the plain f32 forward's
+    top-2 margin is under ``SPEC_TIE_MARGIN`` of its logits' RMS."""
+    import numpy as np
+
+    from k8s_runpod_kubelet_tpu_torch.ops import (
+        flash_dkv, flash_dq, flash_fwd, paged_attention_multi,
+        paged_attention_multi_mla, paged_attention_multi_mla_quant,
+        paged_attention_multi_quant, rms_norm)
+    from k8s_runpod_kubelet_tpu_torch.workloads import serve_main
+    from k8s_runpod_kubelet_tpu_torch.workloads.serving import (
+        ServingConfig, ServingEngine)
+
+    n = cfg.n_layers
+    sc = ServingConfig(slots=2, cache_len=2048, max_prefill_len=1024,
+                       kv_page_tokens=16, kv_pool_pages=256,
+                       max_new_tokens=16)
+    engine = ServingEngine(cfg, params, sc, device=dev).start()
+    rng = np.random.default_rng(SEED + 23)
+
+    def prompt(k: int) -> list[int]:
+        return [int(x) for x in rng.integers(0, cfg.vocab_size, k)]
+
+    held = (flash_dq, flash_dkv, paged_attention_multi_mla_quant,
+            paged_attention_multi, paged_attention_multi_quant)
+    kernels = (flash_fwd, rms_norm, paged_attention_multi_mla, *held)
+    keys = ("decode_steps", "paged_prefill_chunks", "dense_prefills",
+            "dense_prefill_heads", "dense_prefill_chunks", "embeds")
+
+    def snap() -> dict:
+        with engine._prefix_lock:
+            return {**{k: engine.counters[k] for k in keys},
+                    "replays": sum(g.fn.replays for g in engine._graphs()),
+                    **{k.__name__: k.launches for k in kernels}}
+
+    out = {}
+    try:
+        engine.submit(prompt(64), max_new_tokens=4).result(timeout=900)
+        with engine._prefix_lock:
+            for k in kernels:
+                k.launches = 0
+        s0 = snap()
+        out["dense_route"] = dense_route_forced(
+            torch, engine, cfg, params, prompt,
+            limit=MOE_ENGINE_REL_L2_LIMIT, gate=False)
+        etoks = prompt(1000)
+        t0 = time.perf_counter()
+        vec = torch.tensor(engine.embed(etoks), device=dev)
+        embed_ms = (time.perf_counter() - t0) * 1e3
+        s1 = snap()
+        with engine._prefix_lock:
+            ref = plain_logits(torch, cfg, params,
+                               torch.tensor([etoks], device=dev),
+                               hidden=True)[0].mean(dim=0)
+        rel = ((vec - ref).norm() / ref.norm()).item()
+        out["embed"] = {"rel_l2": rel, "limit": MOE_ENGINE_REL_L2_LIMIT,
+                        "embed_ms": embed_ms}
+        log(f"  (c) embed of 1000 tokens in {embed_ms:.1f} ms: relative L2 "
+            f"{rel:.4f} from the plain f32 forward's pooled state (limit "
+            f"{MOE_ENGINE_REL_L2_LIMIT})")
+        if not rel <= MOE_ENGINE_REL_L2_LIMIT:
+            raise RuntimeError(f"(c) embed off the plain forward: {rel}")
+        d = {k: s1[k] - s0[k] for k in s0}
+        heads = d["dense_prefill_heads"] + d["embeds"]
+        steps = d["decode_steps"] + d["paged_prefill_chunks"]
+        want = {"flash_fwd": n * heads,
+                "rms_norm": (3 * n + 1)
+                * (steps + heads + d["dense_prefill_chunks"]),
+                "paged_attention_multi_mla": n * steps,
+                **{k.__name__: 0 for k in held}}
+        got = {k: d[k] for k in want}
+        if got != want or d["replays"] != d["decode_steps"] \
+                or d["dense_prefills"] < 1 or d["embeds"] != 1:
+            raise RuntimeError(f"(c) dense route: launches {got} against "
+                               f"{want}; counters {d}")
+        log(f"  (c) launches: flash_fwd {got['flash_fwd']} (D = 192, 16 "
+            f"heads) = {n} per dense prefill head "
+            f"({d['dense_prefill_heads']}) and embed ({d['embeds']}); "
+            f"rms_norm {got['rms_norm']}, paged_attention_multi_mla "
+            f"{got['paged_attention_multi_mla']} over {d['decode_steps']} "
+            f"replays and {d['paged_prefill_chunks']} paged chunks; flash "
+            "backward and every other attention kernel 0")
+        out["launches"], out["counts"] = got, d
+        out["drain"] = http_and_drain(engine, prompt)
+    finally:
+        engine.stop()
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    argv = ["--model", DS_MODEL, "--device", dev.type, "--slots", "8",
+            "--cache-len", "2048", "--max-new-tokens", "32",
+            "--prefix-cache", "off"]
+    with_counts = (flash_fwd, paged_attention_multi_mla, rms_norm)
+    engine, _ = serve_main.build_engine(serve_main.parse_args(argv), params)
+    try:
+        snap_c = engine.debug_snapshot()
+        if snap_c["paged_decode"] or snap_c["cache_layout"] != "linear" \
+                or not {"c_pre", "kr_pre"} <= set(engine._cache):
+            raise RuntimeError(f"(c) --prefix-cache off built {snap_c}")
+        c0 = {k.__name__: k.launches for k in with_counts}
+        t0 = time.perf_counter()
+        toks = engine.submit(greedy_prompt, max_new_tokens=DS_GREEDY_TOKENS
+                             ).result(timeout=900)["tokens"]
+        wall = time.perf_counter() - t0
+        counts = {k.__name__: k.launches - c0[k.__name__]
+                  for k in with_counts}
+        if counts["paged_attention_multi_mla"] or counts["flash_fwd"] < n:
+            raise RuntimeError(f"(c) the contiguous loop launched {counts}")
+        with engine._prefix_lock:
+            div = divergence_check(torch, cfg, params, [greedy_prompt],
+                                   [toks], [paged_tokens])
+        same = sum(a == b for a, b in zip(toks, paged_tokens))
+        log(f"  (c) --prefix-cache off (contiguous loop, linear cache with "
+            f"c_pre/kr_pre): {len(toks)} greedy tokens of a "
+            f"{len(greedy_prompt)}-token prompt in {wall:.2f} s, {same}/"
+            f"{len(toks)} equal to the paged loop's; divergences "
+            f"{div['divergences']} (tie margin {SPEC_TIE_MARGIN}); launches "
+            f"{counts}")
+        out["contiguous"] = {"tokens": toks, "paged_tokens": paged_tokens,
+                             "same": same, "divergence": div,
+                             "launches": counts, "wall_s": wall}
+    finally:
+        engine.stop()
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def deepseek_profile(torch, card: str) -> dict:
+    """(d) ``step_profile --model deepseek-v2-lite`` in bf16 and with
+    ``--int4``: the decode step eagerly and as a replay, and a 1024-token
+    chunk, device ms by family (the bf16 expert products their own
+    ``experts`` family in the eager steps)."""
+    import tempfile
+
+    from k8s_runpod_kubelet_tpu_torch.workloads import step_profile
+
+    out = {}
+    for label, extra in (("bf16", []), ("int4", ["--int4"])):
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "profile.json")
+            step_profile.main(["--model", DS_MODEL, "--out", path] + extra)
+            with open(path) as f:
+                prof = json.load(f)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        def fams(p):
+            by = p["device_ms_by_family"]
+            return by if isinstance(by, str) else {
+                k: round(v, 3) for k, v in sorted(by.items(),
+                                                  key=lambda kv: -kv[1])}
+
+        def ms(p):
+            v = p["device_ms"]
+            return v if isinstance(v, str) else round(v, 3)
+
+        rec = {"decode_eager": {"device_ms": ms(prof["decode"]),
+                                "by_family": fams(prof["decode"]),
+                                "wall_ms": prof["decode"]["wall_ms"]},
+               "decode_graph": {"device_ms": ms(prof["decode_graph"]["graph"]),
+                                "by_family": fams(
+                                    prof["decode_graph"]["graph"]),
+                                "wall_ms":
+                                    prof["decode_graph"]["graph"]["wall_ms"]},
+               "chunk_1024": {"device_ms": ms(prof["prefill"]),
+                              "by_family": fams(prof["prefill"]),
+                              "wall_ms": prof["prefill"]["wall_ms"]}}
+        out[label] = rec
+        for step, r in rec.items():
+            log(f"  (d) [{card}] {DS_MODEL} {label} {step}: device "
+                f"{r['device_ms']} ms, wall {r['wall_ms']:.3f} ms; by "
+                f"family {r['by_family']}")
+    return out
+
+
+def deepseek_phase(torch, dev, card: str) -> dict:
+    """Phase 7v: DeepSeek-V2-Lite at full width and depth on one card,
+    weights random from the seed with the norms drawn away from identity:
+    (a) bf16 on the paged loop, (c) the dense route, embed and the
+    contiguous loop over the same tree, (b) ``--int4 --kv-int8`` from a
+    tree drawn and quantized a layer at a time, (d) the profile."""
+    import numpy as np
+
+    from k8s_runpod_kubelet_tpu_torch.models import MODEL_CONFIGS, init_params
+    from k8s_runpod_kubelet_tpu_torch.models.quant import \
+        init_quantized_params
+
+    cfg = MODEL_CONFIGS[DS_MODEL]()
+    t0 = time.perf_counter()
+    box = [init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                       dev)]
+    draw_deepseek_norms(torch, box[0], SEED + 41)
+    torch.cuda.synchronize()
+    log(f"  random bf16 init of {cfg.param_count / 1e9:.3f} B parameters in "
+        f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(SEED + 29)
+    greedy_prompt = [int(x) for x in rng.integers(0, cfg.vocab_size, 300)]
+    out = {"param_count": cfg.param_count}
+    out["bf16"] = deepseek_engine_run(torch, dev, card, cfg, box, False,
+                                      greedy_prompt)
+    tree = out["bf16"].pop("tree")
+    log(f"  (c) {DS_MODEL} bf16: the dense-scratch route (2 slots, "
+        "kv_pool_pages 256), embed, --prefix-cache off")
+    out["dense_and_contiguous"] = deepseek_dense_and_contiguous(
+        torch, dev, card, cfg, tree, greedy_prompt, out["bf16"]["greedy"])
+    del tree
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  (b) {DS_MODEL} --int4 --kv-int8 (drawn and quantized a layer at "
+        "a time from the same seed, the same norms)")
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    box = [init_quantized_params(cfg, torch.Generator(device=dev)
+                                 .manual_seed(SEED), 4, dev)]
+    draw_deepseek_norms(torch, box[0], SEED + 41)
+    torch.cuda.synchronize()
+    log(f"  int4 draw in {time.perf_counter() - t0:.1f} s, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    out["int4_kv_int8"] = deepseek_engine_run(torch, dev, card, cfg, box,
+                                              True)
+    out["int4_kv_int8"].pop("tree")
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  (d) step_profile --model {DS_MODEL} (bf16, then --int4)")
+    out["profile"] = deepseek_profile(torch, card)
+    return out
 
 
 def mla_dense_route_phase(torch, dev, card: str, cfg, params,
@@ -7869,6 +8397,15 @@ def main(argv=None) -> int:
             mla[kind].append(mla_case(torch, F, dev, flush, kind,
                                       "prefill K=1024 B=1", 1, 1024,
                                       [100 + 1024]))
+    log("phase 3 (7v): the MLA kernels at DeepSeek-V2-Lite's 16 heads")
+    for kind in ("paged_attention_multi_mla",
+                 "paged_attention_multi_mla_quant"):
+        for name, b, kq, lengths in (
+                ("decode K=1 B=8", 8, 1, MLA_DECODE_LENGTHS),
+                ("prefill K=1024 B=1", 1, 1024, [100 + 1024])):
+            mla[kind].append(mla_case(torch, F, dev, flush, kind,
+                                      f"{DS_MODEL} 16 heads {name}", b, kq,
+                                      lengths, hq=DS_HEADS))
     gc.collect()
     torch.cuda.empty_cache()
     int4 = [int4_case(torch, dev, flush, rows, kin, out, leaves)
@@ -7877,12 +8414,20 @@ def main(argv=None) -> int:
              for rows in (8, 1024) for kin, out, leaves in INT4_70B_SHAPES]
     int4 += [int4_case(torch, dev, flush, rows, kin, out, leaves)
              for rows in (8, 1024) for kin, out, leaves in INT4_GEMMA3_SHAPES]
+    int4 += [int4_case(torch, dev, flush, rows, kin, out, leaves)
+             for rows in (8, 1024) for kin, out, leaves in INT4_DS_SHAPES]
     gc.collect()
     torch.cuda.empty_cache()
     int4_experts = [int4_expert_case(torch, dev, flush, rows, path, kin, out,
                                      leaves)
                     for rows, path in INT4_EXPERT_ROWS
                     for kin, out, leaves in INT4_EXPERT_SHAPES]
+    log("phase 3 (7v): int4_expert_matmul at DeepSeek-V2-Lite's 64 experts "
+        "of 1408, top-6")
+    int4_experts += [int4_expert_case(torch, dev, flush, rows, path, kin, out,
+                                      leaves, DS_EXPERTS, DS_TOP_K, DS_WIDTH)
+                     for rows, path in ((8, "decode"), (1024, "prefill"))
+                     for kin, out, leaves in INT4_DS_EXPERT_SHAPES]
     gc.collect()
     torch.cuda.empty_cache()
     log("phase 7t (a): int4_matmul_sharded (row 15) on in-process tensor "
@@ -7903,6 +8448,9 @@ def main(argv=None) -> int:
     # of 256
     rms += [rms_case(torch, F, dev, flush, shape)
             for shape in ((1024, 3840), (1024, 16, 256))]
+    # DeepSeek-V2-Lite's width and its latent's (c_norm over 512)
+    rms += [rms_case(torch, F, dev, flush, shape)
+            for shape in ((1024, 2048), (1024, 512))]
     # the training path's shape: x (8, 2048, 4096) needing gradients
     rms.append(rms_case(torch, F, dev, flush, (8, 2048, 4096), grad=True))
 
@@ -8040,6 +8588,15 @@ def main(argv=None) -> int:
 
     log("phase MoE engine (mixtral-8x7b --int4, 8 slots, cache_len 2048)")
     moe = moe_engine_phase(torch, dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log(f"phase 7v (DeepSeek-V2-Lite): {DS_MODEL} at full width and depth, "
+        "bf16 and --int4 --kv-int8 on the paged loop (8 slots, cache_len "
+        "2048), the dense route, embed, --prefix-cache off, the profile")
+    deepseek = deepseek_phase(torch, dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
 
     log("phase 7f: the other dense families at full width and depth "
         f"({', '.join(FAMILY_MODELS)}; 8 slots, cache_len 2048)")
@@ -8132,6 +8689,15 @@ def main(argv=None) -> int:
                      for key, rec in interleave.items()})
         return {path: n[kname] for path, n in runs.items() if kname in n}
 
+    def deepseek_paths(kname) -> dict:
+        """Phase 7v's launches of ``kname`` by engine run."""
+        runs = {"serve_deepseek": deepseek["bf16"]["launches"],
+                "serve_deepseek_int4_kv_int8":
+                    deepseek["int4_kv_int8"]["launches"],
+                "serve_deepseek_dense":
+                    deepseek["dense_and_contiguous"]["launches"]}
+        return {path: n[kname] for path, n in runs.items() if kname in n}
+
     serve_launches, quant_launches = eng["launches"], qeng["launches"]
     tp_launches, tp4_launches = tp_int4["launches"], tp_bf16["launches"]
     moe_launches = moe["launches"]
@@ -8180,6 +8746,7 @@ def main(argv=None) -> int:
                 "serve_mla_dense": mla_dense["launches"]["rms_norm"],
                 "serve_mla_kv_int8_dense":
                     mla_q_dense["launches"]["rms_norm"],
+                **deepseek_paths("rms_norm"),
                 "train": train["launches"]["rms_norm"],
                 "train_mla": train_mla["launches"]["rms_norm"],
                 "train_ring": ring_train["launches"]["rms_norm"],
@@ -8197,6 +8764,7 @@ def main(argv=None) -> int:
                 **finetune_paths(kname),
                 "serve_mla_dense": mla_dense["launches"][kname],
                 "serve_mla_kv_int8_dense": mla_q_dense["launches"][kname],
+                **deepseek_paths(kname),
                 **({k: v for k, v in family_paths(kname).items()
                     if k.startswith("serve_contiguous_")}),
                 **({"serve_openai": openai["launches"][kname]}
@@ -8232,6 +8800,7 @@ def main(argv=None) -> int:
                 "serve_moe": moe_launches["int4_matmul"],
                 "serve_tp": tp_launches["int4_matmul"],
                 "serve_lora_int4_kv_int8": lora_q_launches["int4_matmul"],
+                **deepseek_paths("int4_matmul"),
                 **family_paths("int4_matmul")},
                "torch.ops.aten._weight_int4pack_mm on the same nibbles and "
                "bf16 group scales (yardstick_ms: torch.matmul by the "
@@ -8248,7 +8817,8 @@ def main(argv=None) -> int:
         record("int4_expert_matmul", "cuda", csrc + "int4_expert_matmul.cu",
                "k8s_runpod_kubelet_tpu/ops/int4_matmul.py:181",
                int4_experts, moe_launches["int4_expert_matmul"],
-               {"serve_moe": moe_launches["int4_expert_matmul"]},
+               {"serve_moe": moe_launches["int4_expert_matmul"],
+                **deepseek_paths("int4_expert_matmul")},
                "none: no single PyTorch call reads int4 experts "
                "(yardstick_ms: torch.bmm by the dequantized bf16 experts)"),
     ] + [
@@ -8279,7 +8849,8 @@ def main(argv=None) -> int:
                 "serve_mla_dense":
                     mla_dense["launches"]["paged_attention_multi_mla"],
                 "serve_mla_kv_int8_dense":
-                    mla_q_dense["launches"]["paged_attention_multi_mla"]},
+                    mla_q_dense["launches"]["paged_attention_multi_mla"],
+                **deepseek_paths("paged_attention_multi_mla")},
                mla_sdpa),
         record("paged_attention_multi_mla_quant", "cuda",
                csrc + "paged_attention_multi_mla_quant.cu", jax_attn + "2105",
@@ -8291,7 +8862,8 @@ def main(argv=None) -> int:
                 "serve_mla_dense":
                     mla_dense["launches"]["paged_attention_multi_mla_quant"],
                 "serve_mla_kv_int8_dense": mla_q_dense["launches"][
-                    "paged_attention_multi_mla_quant"]},
+                    "paged_attention_multi_mla_quant"],
+                **deepseek_paths("paged_attention_multi_mla_quant")},
                mla_sdpa + " over the dequantized latents (a yardstick: no "
                "single PyTorch call reads int8 latents)"),
     ] + [
@@ -8325,6 +8897,7 @@ def main(argv=None) -> int:
                        "tp_engine_int4": tp_int4, "tp_engine_bf16": tp_bf16,
                        "lora_engine": lora, "lora_engine_int4_kv_int8": lora_q,
                        "mla_kv_int8_engine": mla_q, "moe_engine": moe,
+                       "deepseek": deepseek,
                        "train": train, "train_mla": train_mla,
                        "ring_train": ring_train,
                        "ring_train_mla": ring_train_mla,

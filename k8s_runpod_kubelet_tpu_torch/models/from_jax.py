@@ -4,7 +4,8 @@
 returns, with every leaf already converted to a numpy array (stacked
 ``layers/*`` leaves of shape (L, ...)), and returns the port's parameters
 on ``device``: for serving, matmul weights, q/k/v biases, embedding and
-LM head in ``cfg.dtype`` and norm weights and the MoE router in f32 — the values the
+LM head in ``cfg.dtype`` and norm weights, the MoE router and V3's router
+bias in f32 — the values the
 JAX model computes with once it casts its f32 params at use (it routes in
 f32); for training (``master=True``),
 every leaf in ``cfg.param_dtype`` (f32), the JAX model's master tree as it
@@ -21,31 +22,13 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from .llama import LlamaConfig, Params, keeps_f32, param_shapes
-
-# JAX config fields that select code paths this port does not have yet;
-# a config that sets any of them away from the dense default is refused
-# (DeepSeek-MoE's shared experts, sigmoid routing and dense prefix, by name)
-_UNSUPPORTED = {
-    "n_shared_experts": 0, "router_sigmoid_bias": False,
-    "n_dense_prefix": 0,
-}
+from .llama import STACKS, LlamaConfig, Params, keeps_f32, param_shapes
 
 
 def config_from_jax(jcfg, dtype: torch.dtype) -> LlamaConfig:
     """The port's config for a JAX ``LlamaConfig`` (read by attribute, so
     no jax import), with ``dtype`` as the compute dtype; ``param_dtype``
-    follows the JAX config's by name. Raises on any field that needs a
-    branch the port does not have."""
-    bad = [f for f, dense in _UNSUPPORTED.items()
-           if getattr(jcfg, f, dense) != dense]
-    if getattr(jcfg, "n_experts", 0) and \
-            getattr(jcfg, "mla_latent_dim", None) is not None:
-        # every MLA-over-MoE checkpoint is DeepSeek-MoE
-        bad.append("n_experts with MLA (DeepSeek-MoE)")
-    if bad:
-        raise ValueError(f"config {jcfg.name!r} needs {bad}, which this "
-                         "port does not serve yet")
+    follows the JAX config's by name."""
     fields = ("name", "vocab_size", "embed_dim", "n_layers", "n_heads",
               "n_kv_heads", "head_dim", "mlp_dim", "max_seq_len",
               "rope_theta", "rope_scaling", "norm_eps", "sliding_window",
@@ -57,7 +40,9 @@ def config_from_jax(jcfg, dtype: torch.dtype) -> LlamaConfig:
               "mla_rope_dim",
               "mla_q_lora_rank", "n_experts", "n_experts_per_tok",
               "capacity_factor", "router_norm_topk", "router_aux_coef",
-              "router_z_coef")
+              "router_z_coef", "router_sigmoid_bias", "router_n_group",
+              "router_topk_group", "routed_scaling_factor",
+              "n_shared_experts", "n_dense_prefix", "dense_prefix_mlp_dim")
     param_dtype = getattr(torch, np.dtype(jcfg.param_dtype).name)
     return LlamaConfig(**{f: getattr(jcfg, f) for f in fields}, dtype=dtype,
                        param_dtype=param_dtype)
@@ -105,8 +90,9 @@ def params_from_jax(tree: dict, cfg: LlamaConfig, device=None,
     updates."""
     dev = resolve_device(device)
     shapes = param_shapes(cfg)
-    extra = set(tree) - set(shapes) | (set(tree.get("layers", {}))
-                                       - set(shapes["layers"]))
+    extra = set(tree) - set(shapes)
+    for stack in STACKS:
+        extra |= set(tree.get(stack, {})) - set(shapes.get(stack, {}))
     if extra:
         raise ValueError(f"parameters {sorted(extra)} belong to branches "
                          "this port does not serve")
@@ -146,8 +132,7 @@ def params_from_jax(tree: dict, cfg: LlamaConfig, device=None,
         return {kind: torch.from_numpy(q).to(dev),
                 "scale": torch.from_numpy(scale).to(dev)}
 
-    out: Params = {name: convert(name, tree[name], s)
-                   for name, s in shapes.items() if name != "layers"}
-    out["layers"] = {name: convert(name, tree["layers"][name], s)
-                     for name, s in shapes["layers"].items()}
-    return out
+    return {name: ({leaf: convert(leaf, tree[name][leaf], ls)
+                    for leaf, ls in s.items()} if name in STACKS
+                   else convert(name, tree[name], s))
+            for name, s in shapes.items()}

@@ -40,7 +40,13 @@ A sparse-MoE config (``n_experts`` > 0, Mixtral) holds ``router`` (L, E, X)
 in f32, as the JAX model routes in f32, and ``we_gate``/``we_up`` (L, X, E,
 M) and ``we_down`` (L, X, M, E) in place of the dense MLP's three leaves;
 the MLP of every layer is then ``models/moe.py``'s ``moe_mlp`` (int4
-experts through the ``int4_expert_matmul`` kernel).
+experts through the ``int4_expert_matmul`` kernel). DeepSeek-MoE adds
+``ws_gate``/``ws_up`` (L, E, S·M) and ``ws_down`` (L, S·M, E), its S
+shared experts as one dense SwiGLU, and V3's ``router_bias`` (L, X) f32;
+its first ``n_dense_prefix`` layers are a stack of their own,
+``prefix_layers``, with a dense MLP at ``dense_prefix_mlp_dim``, which run
+before ``layers`` and cache into their own sections (``c_pre``/``kr_pre``,
+the JAX layout).
 
 Multi-LoRA serving (the JAX model's ``adapters``/``adapter_ids``): every
 serving step takes per-request adapters, ``{target: {"a": (L, N, in, r),
@@ -104,8 +110,8 @@ class LlamaConfig:
     local/global pattern, GeGLU, the embedding scale, zero-centered norms,
     sandwich norms, soft caps on scores and logits, the query
     pre-attention scalar, a local RoPE base, q/k/v biases and the q/k
-    norm). DeepSeek-MoE (shared experts, sigmoid routing) and its dense
-    prefix are not ported."""
+    norm), and DeepSeek-MoE's (shared experts, V3's sigmoid routing and
+    the dense-prefix layers)."""
     name: str = "tiny"
     vocab_size: int = 32000
     embed_dim: int = 256
@@ -176,16 +182,59 @@ class LlamaConfig:
     n_experts_per_tok: int = 2
     capacity_factor: float = 1.25
     router_norm_topk: bool = True
+    # DeepSeek-V3 routing: sigmoid scores with an aux-free-balancing
+    # correction bias (the leaf "router_bias", updated outside the
+    # gradient) and group-limited selection over router_n_group groups,
+    # keeping router_topk_group; combine weights scale by
+    # routed_scaling_factor. moe.route_top_k_v3 is the exact math
+    router_sigmoid_bias: bool = False
+    router_n_group: int = 0
+    router_topk_group: int = 0
+    routed_scaling_factor: float = 1.0
     router_aux_coef: float = 0.02       # load-balance loss coefficient
     router_z_coef: float = 1e-3         # router z-loss coefficient
+    # DeepSeek-MoE: this many always-on "shared" experts run as a dense
+    # MLP of width n_shared_experts * mlp_dim beside the routed experts
+    # (their output is added, the router ignores them). 0: plain MoE/dense
+    n_shared_experts: int = 0
+    # DeepSeek's first_k_dense_replace: the first k layers use a dense MLP
+    # (width dense_prefix_mlp_dim, default mlp_dim) instead of the MoE,
+    # stored as a separate "prefix_layers" stack and run before the main
+    # layers. MLA only; V2-Lite: 1 dense layer at width 10944
+    n_dense_prefix: int = 0
+    dense_prefix_mlp_dim: Optional[int] = None
+
+    def prefix_cfg(self) -> "LlamaConfig":
+        """Config view of the dense-prefix layers: the same attention, a
+        dense MLP at dense_prefix_mlp_dim, n_layers the prefix length."""
+        return dataclasses.replace(
+            self, n_layers=self.n_dense_prefix, n_experts=0,
+            n_shared_experts=0,
+            mlp_dim=self.dense_prefix_mlp_dim or self.mlp_dim,
+            n_dense_prefix=0, dense_prefix_mlp_dim=None)
+
+    def main_cfg(self) -> "LlamaConfig":
+        """Config view of the main (post-prefix) layer stack."""
+        if not self.n_dense_prefix:
+            return self
+        return dataclasses.replace(
+            self, n_layers=self.n_layers - self.n_dense_prefix,
+            n_dense_prefix=0, dense_prefix_mlp_dim=None)
 
     @property
     def param_count(self) -> int:
         """Parameters of the tree ``param_shapes`` describes (the JAX
         config's ``param_count``, which the training MFU reads)."""
-        shapes = param_shapes(self)
-        return (sum(math.prod(s) for k, s in shapes.items() if k != "layers")
-                + sum(math.prod(s) for s in shapes["layers"].values()))
+        return sum(math.prod(s) for _, _, s in leaf_shapes(param_shapes(self)))
+
+    @property
+    def deepseek_fields(self) -> list[str]:
+        """The DeepSeek-MoE fields this config sets, for the refusals that
+        name them (training, tensor parallelism)."""
+        return [f for f, on in (
+            ("n_shared_experts", self.n_shared_experts),
+            ("n_dense_prefix", self.n_dense_prefix),
+            ("router_sigmoid_bias", self.router_sigmoid_bias)) if on]
 
     @property
     def head_dim_(self) -> int:
@@ -220,11 +269,13 @@ class LlamaConfig:
                      for j in range(p))
 
     def validate_mla(self) -> None:
-        """The JAX config's MLA checks that apply to the fields this port
-        has: q_lora_rank needs MLA, and MLA composes with no window, q/k
-        norm, q/k/v bias, soft cap or query scalar. Also an unknown
-        ``mlp_activation`` raises, and a window pattern that does not
-        divide the layers (the JAX model's layer groups)."""
+        """The JAX config's MLA checks: a dense prefix needs MLA over an
+        MoE body and must leave MoE layers, q_lora_rank needs MLA, V3
+        routing needs an MoE body and groups that hold its top-k, and MLA
+        composes with no window, q/k norm, q/k/v bias, soft cap or query
+        scalar. Also an unknown ``mlp_activation`` raises, and a window
+        pattern that does not divide the layers (the JAX model's layer
+        groups)."""
         if self.mlp_activation not in ("silu", "gelu_tanh"):
             raise ValueError(f"unknown mlp_activation "
                              f"{self.mlp_activation!r}")
@@ -232,10 +283,34 @@ class LlamaConfig:
         if p < 1 or self.n_layers % p:
             raise ValueError(f"n_layers {self.n_layers} not divisible by "
                              f"sliding_window_pattern {p}")
+        if self.n_dense_prefix:
+            if not self.is_mla or not self.n_experts:
+                raise ValueError("n_dense_prefix models the DeepSeek shape: "
+                                 "MLA attention over a MoE body")
+            if self.n_dense_prefix >= self.n_layers:
+                raise ValueError(f"n_dense_prefix {self.n_dense_prefix} must "
+                                 f"leave MoE layers (n_layers "
+                                 f"{self.n_layers})")
         if self.mla_q_lora_rank is not None and not self.is_mla:
             raise ValueError("mla_q_lora_rank requires MLA (set "
                              "mla_latent_dim); on a plain-attention config "
                              "the field would silently do nothing")
+        if self.router_sigmoid_bias:
+            ng, tg = self.router_n_group, self.router_topk_group
+            if not self.n_experts:
+                raise ValueError("router_sigmoid_bias needs a MoE config "
+                                 "(n_experts > 0); on a dense MLP it would "
+                                 "silently do nothing")
+            if ng <= 0 or tg <= 0 or tg > ng or self.n_experts % ng:
+                raise ValueError(
+                    f"V3 routing needs 0 < router_topk_group "
+                    f"({tg}) <= router_n_group ({ng}) and n_experts "
+                    f"({self.n_experts}) divisible by router_n_group")
+            if self.n_experts_per_tok > (self.n_experts // ng) * tg:
+                raise ValueError(
+                    f"n_experts_per_tok {self.n_experts_per_tok} exceeds "
+                    f"the {(self.n_experts // ng) * tg} experts the "
+                    "group-limited selection keeps eligible")
         if not self.is_mla:
             return
         bad = [f for f, on in (("sliding_window",
@@ -405,6 +480,57 @@ def mla_8b() -> LlamaConfig:
                        rope_theta=500_000.0)
 
 
+def deepseek_v2_lite() -> LlamaConfig:
+    """DeepSeek-V2-Lite: MLA (latent 512 plus a decoupled RoPE key of 64,
+    16 heads of 128, full-rank q, YaRN x40) over a DeepSeek-MoE MLP (64
+    routed experts top-6 without renormalization, 2 shared, each of width
+    1408), its first layer dense at 10944 (first_k_dense_replace 1);
+    15.71 B parameters. max_seq_len is the checkpoint's
+    max_position_embeddings, 163840 = 40 x 4096, the length the YaRN
+    tables are scaled for."""
+    return LlamaConfig(name="deepseek-v2-lite", vocab_size=102400,
+                       embed_dim=2048, n_layers=27, n_heads=16,
+                       n_kv_heads=16, head_dim=128, mlp_dim=1408,
+                       max_seq_len=163840, rope_theta=10_000.0,
+                       rope_scaling={"rope_type": "yarn", "factor": 40.0,
+                                     "beta_fast": 32, "beta_slow": 1,
+                                     "mscale": 0.707,
+                                     "mscale_all_dim": 0.707,
+                                     "original_max_position_embeddings":
+                                         4096},
+                       norm_eps=1e-6,
+                       mla_latent_dim=512, mla_rope_dim=64,
+                       n_experts=64, n_experts_per_tok=6,
+                       n_shared_experts=2, router_norm_topk=False,
+                       n_dense_prefix=1, dense_prefix_mlp_dim=10944)
+
+
+def deepseek_v3() -> LlamaConfig:
+    """DeepSeek-V3/R1: the V2 MLA (latent 512 plus rope 64, 128 heads of
+    128, low-rank q 1536) with V3's sigmoid-scored, bias-corrected,
+    group-limited routing (256 experts top-8, 8 groups keeping 4, scaling
+    2.5, renormalized) and 1 shared expert; its first 3 layers dense at
+    18432. 671 B parameters, more than one replica serves: the config is
+    here so checkpoints convert and tiny-geometry tests hold the math."""
+    return LlamaConfig(name="deepseek-v3", vocab_size=129280,
+                       embed_dim=7168, n_layers=61, n_heads=128,
+                       n_kv_heads=128, head_dim=128, mlp_dim=2048,
+                       max_seq_len=163840, rope_theta=10_000.0,
+                       rope_scaling={"rope_type": "yarn", "factor": 40.0,
+                                     "beta_fast": 32, "beta_slow": 1,
+                                     "mscale": 1.0, "mscale_all_dim": 1.0,
+                                     "original_max_position_embeddings":
+                                         4096},
+                       norm_eps=1e-6,
+                       mla_latent_dim=512, mla_rope_dim=64,
+                       mla_q_lora_rank=1536,
+                       n_experts=256, n_experts_per_tok=8,
+                       n_shared_experts=1, router_norm_topk=True,
+                       router_sigmoid_bias=True, router_n_group=8,
+                       router_topk_group=4, routed_scaling_factor=2.5,
+                       n_dense_prefix=3, dense_prefix_mlp_dim=18432)
+
+
 def tiny_mla(**kw) -> LlamaConfig:
     """Tiny MLA config for tests and CPU runs: a dense MLP under latent
     attention."""
@@ -436,6 +562,12 @@ def _layer_shapes(cfg: LlamaConfig) -> dict:
     if x:
         mlp = {"router": (n, e, x), "we_gate": (n, x, e, m),
                "we_up": (n, x, e, m), "we_down": (n, x, m, e)}
+        if cfg.router_sigmoid_bias:
+            mlp["router_bias"] = (n, x)
+        if cfg.n_shared_experts:
+            sw = cfg.n_shared_experts * m
+            mlp.update({"ws_gate": (n, e, sw), "ws_up": (n, e, sw),
+                        "ws_down": (n, sw, e)})
     else:
         mlp = {"w_gate": (n, e, m), "w_up": (n, e, m), "w_down": (n, m, e)}
     if cfg.qk_norm:
@@ -453,13 +585,35 @@ def _layer_shapes(cfg: LlamaConfig) -> dict:
             **post}
 
 
+# the stacked layer groups a tree may hold, in the order they run:
+# DeepSeek's dense prefix, then the main layers
+STACKS = ("prefix_layers", "layers")
+
+
 def param_shapes(cfg: LlamaConfig) -> Params:
+    """The tree's shapes: ``layers`` the main stack (``main_cfg``), and
+    with a dense prefix ``prefix_layers`` its own stack (``prefix_cfg``),
+    as the JAX ``init_params`` lays them out."""
     shapes: Params = {"tok_embed": (cfg.vocab_size, cfg.embed_dim),
                       "final_norm": (cfg.embed_dim,),
-                      "layers": _layer_shapes(cfg)}
+                      "layers": _layer_shapes(cfg.main_cfg())}
+    if cfg.n_dense_prefix:
+        shapes["prefix_layers"] = _layer_shapes(cfg.prefix_cfg())
     if not cfg.tie_embeddings:
         shapes["lm_head"] = (cfg.embed_dim, cfg.vocab_size)
     return shapes
+
+
+def leaf_shapes(shapes: Params):
+    """(stack or None, leaf name, value) of every leaf of a tree shaped as
+    ``param_shapes``' (a stack's leaves under its name, in the tree's
+    order)."""
+    for name, v in shapes.items():
+        if name in STACKS:
+            for leaf, s in v.items():
+                yield name, leaf, s
+        else:
+            yield None, name, v
 
 
 def is_norm(name: str) -> bool:
@@ -472,17 +626,18 @@ def is_bias(name: str) -> bool:
 
 def init_fill(cfg: LlamaConfig, name: str) -> Optional[float]:
     """The constant a leaf starts at, as the JAX ``init_params`` sets it:
-    a norm's identity (1, or 0 when applied as (1 + w)), a bias 0; None
-    for a leaf drawn at random."""
+    a norm's identity (1, or 0 when applied as (1 + w)), a bias and V3's
+    router correction bias 0; None for a leaf drawn at random."""
     if is_norm(name):
         return 0.0 if cfg.norm_zero_centered else 1.0
-    return 0.0 if is_bias(name) else None
+    return 0.0 if is_bias(name) or name == "router_bias" else None
 
 
 def keeps_f32(name: str) -> bool:
     """Leaves a serving tree keeps in f32: the norms, which RMSNorm applies
-    in f32, and the MoE router, which routes in f32."""
-    return is_norm(name) or name == "router"
+    in f32, and the MoE router and its correction bias, which route in
+    f32."""
+    return is_norm(name) or name in ("router", "router_bias")
 
 
 # remat "dots": the products whose outputs a layer keeps for backward,
@@ -637,11 +792,12 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
             out[at] = row
         return out
 
-    shapes = param_shapes(cfg)
-    params: Params = {name: make(name, s) for name, s in shapes.items()
-                      if name != "layers"}
-    params["layers"] = {name: make(name, s)
-                        for name, s in shapes["layers"].items()}
+    params: Params = {}
+    for stack, name, s in leaf_shapes(param_shapes(cfg)):
+        if stack is None:
+            params[name] = make(name, s)
+        else:
+            params.setdefault(stack, {})[name] = make(name, s)
     return params
 
 
@@ -695,6 +851,26 @@ class LlamaModel:
             rope_frequencies(rope_dim, cfg.max_seq_len, cfg.rope_local_theta,
                              None, device=self.device))
         self._windows = cfg.layer_windows()
+
+    def stack_layout(self) -> list[tuple[str, int, str]]:
+        """(tree key, layer count, cache and arena section suffix) of each
+        layer stack in the order the layers run: DeepSeek's dense prefix
+        (``prefix_layers``, its sections ``c_pre``/``kr_pre``) first, then
+        the main layers."""
+        k = self.cfg.n_dense_prefix
+        return (([("prefix_layers", k, "_pre")] if k else [])
+                + [("layers", self.cfg.n_layers - k, "")])
+
+    def stacks(self, params: Params) -> list[tuple[Params, int, str]]:
+        """``stack_layout`` with each stack's leaves in place of its key."""
+        return [(params[key], n, sfx) for key, n, sfx in self.stack_layout()]
+
+    def _stack_layers(self, params: Params):
+        """(stacked leaves, layer within them, section suffix) of every
+        layer, in the order they run."""
+        for lp, n, sfx in self.stacks(params):
+            for layer in range(n):
+                yield lp, layer, sfx
 
     def window(self, layer: int) -> Optional[int]:
         """Layer ``layer``'s attention window (None: full causal)."""
@@ -750,22 +926,23 @@ class LlamaModel:
             positions = (mesh.rank * s + torch.arange(
                 s, device=tokens.device)).expand(b, s)
         x = self._embed(params, tokens)
-        # one unbind per stacked leaf: its backward stacks the L layer
-        # gradients once (a quantized leaf is sliced per layer)
-        layers = {name: ([_at(leaf, i) for i in range(cfg.n_layers)]
-                         if isinstance(leaf, dict) else leaf.unbind(0))
-                  for name, leaf in params["layers"].items()}
         remat = cfg.remat and cfg.remat_policy != "none"
         context = ({"context_fn": _dots_context}
                    if cfg.remat_policy == "dots" else {})
-        for i in range(cfg.n_layers):
-            lp = {name: leaves[i] for name, leaves in layers.items()}
-            if remat:
-                x = torch.utils.checkpoint.checkpoint(
-                    self._layer, x, lp, positions, train=train, layer=i,
-                    use_reentrant=False, **context)
-            else:
-                x = self._layer(x, lp, positions, train=train, layer=i)
+        for stack, n, _ in self.stacks(params):
+            # one unbind per stacked leaf: its backward stacks the layer
+            # gradients once (a quantized leaf is sliced per layer)
+            layers = {name: ([_at(leaf, i) for i in range(n)]
+                             if isinstance(leaf, dict) else leaf.unbind(0))
+                      for name, leaf in stack.items()}
+            for i in range(n):
+                lp = {name: leaves[i] for name, leaves in layers.items()}
+                if remat:
+                    x = torch.utils.checkpoint.checkpoint(
+                        self._layer, x, lp, positions, train=train, layer=i,
+                        use_reentrant=False, **context)
+                else:
+                    x = self._layer(x, lp, positions, train=train, layer=i)
         x = rms_norm(x, self._norm_w(params["final_norm"]), cfg.norm_eps)
         if return_hidden:
             return x
@@ -1011,26 +1188,31 @@ class LlamaModel:
         ``k_scale``/``v_scale`` (L, B, S, Hkv) f32, and ``index`` (B,)
         int32, the committed length of each row. An MLA config gets the
         latent layout: ``c`` (L, B, S, r) and ``kr`` (L, B, S, dr), or int8
-        plus ``c_scale``/``kr_scale`` (L, B, S) f32 (MLA's dense-prefix
-        sections come with DeepSeek-MoE, which ``config_from_jax``
-        refuses)."""
+        plus ``c_scale``/``kr_scale`` (L, B, S) f32; with a dense prefix
+        of kpre layers the main sections hold L - kpre layers and the
+        prefix has its own ``c_pre``/``kr_pre`` (kpre, B, S, ...) (and
+        ``c_pre_scale``/``kr_pre_scale``), the JAX ``_empty_cache``."""
         cfg = self.cfg
-        lead = (cfg.n_layers, batch, max_len or cfg.max_seq_len)
-        if cfg.is_mla:
-            rows = (lead + (cfg.mla_latent_dim,), lead + (cfg.mla_rope_dim,))
-            scales = lead
-        else:
-            rows = 2 * (lead + (cfg.n_kv_heads, cfg.head_dim_),)
-            scales = lead + (cfg.n_kv_heads,)
+        length = max_len or cfg.max_seq_len
         dt = torch.int8 if quantize else cfg.dtype
-        cache = {name: torch.zeros(shape, dtype=dt, device=self.device)
-                 for name, shape in zip(self._cache_sections(), rows)}
-        cache["index"] = torch.zeros((lead[1],), dtype=torch.int32,
+        cache: Params = {}
+        for _, n, suffix in self.stack_layout():
+            lead = (n, batch, length)
+            if cfg.is_mla:
+                rows = (lead + (cfg.mla_latent_dim,),
+                        lead + (cfg.mla_rope_dim,))
+                scales = lead
+            else:
+                rows = 2 * (lead + (cfg.n_kv_heads, cfg.head_dim_),)
+                scales = lead + (cfg.n_kv_heads,)
+            for name, shape in zip(self._cache_sections(), rows):
+                cache[name + suffix] = torch.zeros(shape, dtype=dt,
+                                                   device=self.device)
+                if quantize:
+                    cache[name + suffix + "_scale"] = torch.zeros(
+                        scales, dtype=torch.float32, device=self.device)
+        cache["index"] = torch.zeros((batch,), dtype=torch.int32,
                                      device=self.device)
-        if quantize:
-            for name in self._cache_sections():
-                cache[name + "_scale"] = torch.zeros(
-                    scales, dtype=torch.float32, device=self.device)
         return cache
 
     def _abs_pos(self, batch: int, ring_len: int) -> torch.Tensor:
@@ -1098,12 +1280,14 @@ class LlamaModel:
         cache["abs_pos"] = self._abs_pos(batch, ring_len)
         return cache
 
-    def _layer_cache(self, cache: Params, layer: int):
+    def _layer_cache(self, cache: Params, layer: int, stack: str = ""):
         """Layer ``layer``'s part of a contiguous cache: (its two sections
         (B, S, ...), their scales or Nones, whether it ring-addresses).
         A mixed cache's local layers read its rings in layer-group order,
-        its global layers the full-length sections."""
-        suffix, row, ring = "", layer, "abs_pos" in cache
+        its global layers the full-length sections; ``stack`` is the
+        suffix of a layer stack's own sections (``_pre``, the dense
+        prefix's)."""
+        suffix, row, ring = stack, layer, "abs_pos" in cache
         if "k_l" in cache:
             p = self.cfg.sliding_window_pattern
             group, j = divmod(layer, p)
@@ -1151,18 +1335,19 @@ class LlamaModel:
             true_length = torch.full((b,), s, dtype=torch.int32,
                                      device=tokens.device)
         x = self._embed(params, tokens)
-        lp = params["layers"]
-        for layer in range(cfg.n_layers):
-            x, *rows = self._layer(
-                x, {n: _at(w, layer) for n, w in lp.items()}, None,
-                return_kv=True, train=False,
-                ad=_layer_adapters(adapters, layer), ids=ids, layer=layer)
-            sections, scales, _ = self._layer_cache(cache, layer)
-            for dst, dst_s, row in zip(sections, scales, rows):
-                if dst_s is not None:
-                    row, row_s = _kv_quant(row)
-                    dst_s[:, :s] = row_s
-                dst[:, :s] = row
+        for lp, n, stack in self.stacks(params):
+            for layer in range(n):
+                x, *rows = self._layer(
+                    x, {k: _at(w, layer) for k, w in lp.items()}, None,
+                    return_kv=True, train=False,
+                    ad=_layer_adapters(adapters, layer), ids=ids,
+                    layer=layer)
+                sections, scales, _ = self._layer_cache(cache, layer, stack)
+                for dst, dst_s, row in zip(sections, scales, rows):
+                    if dst_s is not None:
+                        row, row_s = _kv_quant(row)
+                        dst_s[:, :s] = row_s
+                    dst[:, :s] = row
         tl = true_length.to(torch.int32)
         cache["index"].copy_(tl)
         if "abs_pos" in cache:
@@ -1216,7 +1401,8 @@ class LlamaModel:
     # every per-position section of a contiguous cache, (L, B, ...) each
     _SLOT_SECTIONS = ("k", "v", "k_l", "v_l", "k_g", "v_g", "k_scale",
                       "v_scale", "k_l_scale", "v_l_scale", "k_g_scale",
-                      "v_g_scale", "c", "kr", "c_scale", "kr_scale")
+                      "v_g_scale", "c", "kr", "c_scale", "kr_scale",
+                      "c_pre", "kr_pre", "c_pre_scale", "kr_pre_scale")
 
     @staticmethod
     def insert_into_slot(cache: Params, single: Params, slot: int) -> Params:
@@ -1366,16 +1552,16 @@ class LlamaModel:
         scale = cfg.sm_scale
         quant = "c_scale" in cache
         x = self._embed(params, tokens)
-        lp = params["layers"]
-        for layer in range(cfg.n_layers):
+        for lp, layer, sfx in self._stack_layers(params):
             h = rms_norm(x, self._norm_w(lp["attn_norm"][layer]),
                          cfg.norm_eps)
             q_nope, q_rope, c, kr = self._mla_project(h, lp, layer,
                                                       rope_pos)
-            cc, krc = cache["c"][layer], cache["kr"][layer]
+            cc, krc = cache["c" + sfx][layer], cache["kr" + sfx][layer]
             cs = krs = None
             if quant:
-                cs, krs = cache["c_scale"][layer], cache["kr_scale"][layer]
+                cs = cache["c" + sfx + "_scale"][layer]
+                krs = cache["kr" + sfx + "_scale"][layer]
                 c, c_s = _kv_quant(c)                       # (B,K,r), (B,K)
                 kr, kr_s = _kv_quant(kr)
                 _write_rows(cs, rows, slots, c_s, write)
@@ -1417,7 +1603,11 @@ class LlamaModel:
         shape (L, n_pages + 1, T, r) and (L, n_pages + 1, T, dr), the
         normed latent and the rotated rope key every head reads, in the
         compute dtype, or with ``quantize`` int8 plus per-position f32
-        scale sections ``c_scale``/``kr_scale`` (L, n_pages + 1, T).
+        scale sections ``c_scale``/``kr_scale`` (L, n_pages + 1, T). With
+        a dense prefix of kpre layers (DeepSeek) the main sections hold
+        L - kpre layers and the prefix pages its own ``c_pre``/``kr_pre``
+        (kpre, n_pages + 1, T, ...) (and ``c_pre_scale``/``kr_pre_scale``),
+        the JAX arena's section names and layout.
 
         A windowed interleave (pattern > 1) gets an arena too, as the
         prefix pool of a contiguous loop over a linear cache; its paged
@@ -1425,15 +1615,16 @@ class LlamaModel:
         cfg = self.cfg
         dt = torch.int8 if quantize else cfg.dtype
         if cfg.is_mla:
-            lead = (cfg.n_layers, n_pages + 1, page_tokens)
-            arena = {"c": torch.zeros(lead + (cfg.mla_latent_dim,), dtype=dt,
-                                      device=self.device),
-                     "kr": torch.zeros(lead + (cfg.mla_rope_dim,), dtype=dt,
-                                       device=self.device)}
-            if quantize:
-                for name in ("c_scale", "kr_scale"):
-                    arena[name] = torch.zeros(lead, dtype=torch.float32,
-                                              device=self.device)
+            arena: Params = {}
+            for _, n, sfx in self.stack_layout():
+                lead = (n, n_pages + 1, page_tokens)
+                for name, width in (("c", cfg.mla_latent_dim),
+                                    ("kr", cfg.mla_rope_dim)):
+                    arena[name + sfx] = torch.zeros(
+                        lead + (width,), dtype=dt, device=self.device)
+                    if quantize:
+                        arena[name + sfx + "_scale"] = torch.zeros(
+                            lead, dtype=torch.float32, device=self.device)
             return arena
         n = (paged_head_shards(self.tp, cfg.n_heads, cfg.n_kv_heads)
              if shard_kv else 1)
@@ -1664,33 +1855,38 @@ class LlamaModel:
                                  None if vs is None else vs[s])
                           for s in range(n)], dim=2)
 
+    # the leaves of a layer's MLP block: the dense MLP's, or the sparse
+    # MoE's with DeepSeek's correction bias and shared experts
+    _MLP_LEAVES = ("mlp_norm", "w_gate", "w_up", "w_down", "router",
+                   "router_bias", "we_gate", "we_up", "we_down", "ws_gate",
+                   "ws_up", "ws_down", "mlp_post_norm")
+
     def _paged_mlp(self, x, lp, layer: int, ad: Optional[dict] = None,
                    ids: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``_mlp`` of layer ``layer`` of the stacked leaves ``lp``, at the
         serving capacity (with one layer's adapter stacks ``ad``)."""
-        names = (("mlp_norm", "router", "we_gate", "we_up", "we_down")
-                 if self.cfg.n_experts else
-                 ("mlp_norm", "w_gate", "w_up", "w_down"))
-        if self.cfg.post_norms:
-            names += ("mlp_post_norm",)
-        return self._mlp(x, {n: _at(lp[n], layer) for n in names}, False,
-                         ad, ids)
+        return self._mlp(x, {n: _at(lp[n], layer) for n in self._MLP_LEAVES
+                             if n in lp}, False, ad, ids)
 
     def _mlp(self, x: torch.Tensor, lp: Params, train: bool,
              ad: Optional[dict] = None,
              ids: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The JAX model's ``_mlp_block`` with its residual, on one layer's
-        leaves: the SwiGLU (or GeGLU) MLP, or for an MoE config ``moe_mlp``. ``train``
-        routes at ``cfg.capacity_factor``; serving (``train=False``) at
-        n_experts / n_experts_per_tok, so the capacity is every token and
-        nothing drops, as in the JAX model. The router's aux losses are not
-        computed (training an MoE model is not ported). ``ad`` adds each
-        row's multi-LoRA deltas to the dense MLP's three products. With
-        ``post_norms`` the output passes ``mlp_post_norm`` before the
-        residual add."""
+        leaves: the SwiGLU (or GeGLU) MLP, or for a layer with a router
+        ``moe_mlp`` (a DeepSeek model's dense prefix holds the dense MLP's
+        leaves, its other layers the router's). ``train`` routes at
+        ``cfg.capacity_factor``; serving (``train=False``) at n_experts /
+        n_experts_per_tok, so the capacity is every token and nothing
+        drops, as in the JAX model. V3's ``router_bias`` selects by sigmoid
+        scores (``route_top_k_v3``); DeepSeek's shared experts, a dense
+        SwiGLU of the ``ws_*`` leaves the router never sees, add to the
+        routed output. The router's aux losses are not computed (training
+        an MoE model is not ported). ``ad`` adds each row's multi-LoRA
+        deltas to the dense MLP's three products. With ``post_norms`` the
+        output passes ``mlp_post_norm`` before the residual add."""
         cfg, dt = self.cfg, self.cfg.dtype
         h = rms_norm(x, self._norm_w(lp["mlp_norm"]), cfg.norm_eps)
-        if not cfg.n_experts:
+        if "router" not in lp:
             gate = self._proj(h, lp["w_gate"], "w_gate", ad, ids)
             gate = (F.silu(gate) if cfg.mlp_activation == "silu"
                     else F.gelu(gate, approximate="tanh"))
@@ -1704,7 +1900,15 @@ class LlamaModel:
                               n_experts_per_tok=cfg.n_experts_per_tok,
                               capacity_factor=factor, dtype=dt,
                               norm_topk=cfg.router_norm_topk,
+                              router_bias=lp.get("router_bias"),
+                              router_n_group=cfg.router_n_group,
+                              router_topk_group=cfg.router_topk_group,
+                              routed_scaling=cfg.routed_scaling_factor,
                               with_losses=False)
+            if "ws_gate" in lp:
+                act = F.silu(_mm(h, lp["ws_gate"], dt)) * _mm(h, lp["ws_up"],
+                                                               dt)
+                y = y + _mm(act, lp["ws_down"], dt)
         return x + self._post_norm(y, lp.__getitem__, "mlp_post_norm")
 
     def _mla_project(self, h, lp, layer: Optional[int], positions):
@@ -1747,20 +1951,22 @@ class LlamaModel:
         ``_kv_quant`` scales in an int8 arena; dropped rows to the sink);
         the query is absorbed through ``w_uk`` in f32, the latent kernel
         attends the pages, and its weighted latent is up-projected through
-        ``w_uv`` in f32, then ``wo`` and the MLP."""
+        ``w_uv`` in f32, then ``wo`` and the MLP. A dense prefix's layers
+        run first, over its own sections (the JAX scan over
+        ``prefix_layers`` and ``c_pre``/``kr_pre``)."""
         cfg = self.cfg
         b, kk, _ = x.shape
         hd, r, hn, dt = cfg.head_dim_, cfg.mla_latent_dim, cfg.n_heads, \
             cfg.dtype
         quant = "c_scale" in arena
-        lp = params["layers"]
-        for layer in range(cfg.n_layers):
+        for lp, layer, sfx in self._stack_layers(params):
             h = rms_norm(x, self._norm_w(lp["attn_norm"][layer]),
                          cfg.norm_eps)
             q_nope, q_rope, c, kr = self._mla_project(h, lp, layer, rope_pos)
-            cp, krp = arena["c"][layer], arena["kr"][layer]
+            cp, krp = arena["c" + sfx][layer], arena["kr" + sfx][layer]
             if quant:
-                cs, krs = arena["c_scale"][layer], arena["kr_scale"][layer]
+                cs = arena["c" + sfx + "_scale"][layer]
+                krs = arena["kr" + sfx + "_scale"][layer]
                 c, c_s = _kv_quant(c)                   # (B,K,r), (B,K)
                 kr, kr_s = _kv_quant(kr)
                 cs[pages_bk, offs] = c_s

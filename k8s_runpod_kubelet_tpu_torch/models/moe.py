@@ -12,8 +12,9 @@ the host, so a step that runs this can be captured as a CUDA graph.
 Expert leaves are raw (X, in, out) arrays, int8 ``{"q8", "scale"}`` with
 the scale applied after the product, or int4 ``{"q4", "scale"}``, which go
 through the ``int4_expert_matmul`` kernel with each expert's filled-row
-count, so row tiles past it read no weights. DeepSeek's sigmoid routing,
-shared experts and expert parallelism are not ported.
+count, so row tiles past it read no weights. DeepSeek-V3's sigmoid
+routing (``route_top_k_v3``) selects with a correction bias over groups of
+experts; expert parallelism is not ported (ROADMAP Queue 1 #8).
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ import torch.nn.functional as F
 from ..ops import int4_expert_matmul
 
 __all__ = ["dispatch_positions", "load_balance_loss", "moe_capacity",
-           "moe_mlp", "route_top_k", "router_z_loss"]
+           "moe_mlp", "route_top_k", "route_top_k_v3", "router_z_loss"]
 
 
 def moe_capacity(n_tokens: int, n_experts: int, k: int,
@@ -47,6 +48,34 @@ def route_top_k(router_logits: torch.Tensor, k: int, norm_topk: bool = True
     if norm_topk:
         top_p = top_p / top_p.sum(dim=-1, keepdim=True)
     return top_p, top_idx, probs
+
+
+def route_top_k_v3(router_logits: torch.Tensor, k: int, *,
+                   correction_bias: torch.Tensor, n_group: int,
+                   topk_group: int, norm_topk: bool, routed_scaling: float
+                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """DeepSeek-V3 routing (the JAX ``route_top_k_v3``): sigmoid scores;
+    selection adds the aux-free load-balancing correction bias and is
+    group-limited (a group scores the sum of its top-2 biased scores; only
+    the best ``topk_group`` groups' experts are eligible, the others score
+    0); the combine weights are the raw sigmoid scores at the chosen
+    experts, renormalized over the k (+1e-20) with ``norm_topk``, times
+    ``routed_scaling``. Returns (weights (G, k), ids (G, k), raw scores
+    (G, X))."""
+    g_tokens, x = router_logits.shape
+    scores = torch.sigmoid(router_logits)
+    biased = scores + correction_bias[None, :]
+    per_group = biased.view(g_tokens, n_group, x // n_group)
+    group_scores = torch.topk(per_group, 2, dim=-1).values.sum(dim=-1)
+    group_idx = torch.topk(group_scores, topk_group, dim=-1).indices
+    group_mask = torch.zeros_like(group_scores).scatter_(1, group_idx, 1.0)
+    eligible = group_mask.repeat_interleave(x // n_group, dim=-1)
+    choice = torch.where(eligible > 0, biased, 0.0)
+    top_idx = torch.topk(choice, k, dim=-1).indices
+    top_w = torch.gather(scores, 1, top_idx)
+    if norm_topk:
+        top_w = top_w / (top_w.sum(dim=-1, keepdim=True) + 1e-20)
+    return top_w * routed_scaling, top_idx, scores
 
 
 def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
@@ -104,14 +133,20 @@ def _expert_matmul(x: torch.Tensor, w, dtype: torch.dtype,
 def moe_mlp(h: torch.Tensor, router_w: torch.Tensor, we_gate, we_up,
             we_down, *, n_experts_per_tok: int, capacity_factor: float,
             dtype: torch.dtype, norm_topk: bool = True,
-            with_losses: bool = True
+            router_bias: Optional[torch.Tensor] = None,
+            router_n_group: int = 0, router_topk_group: int = 0,
+            routed_scaling: float = 1.0, with_losses: bool = True
             ) -> tuple[torch.Tensor, Optional[torch.Tensor],
                        Optional[torch.Tensor]]:
     """The SwiGLU expert MLP on normed activations h (..., E): router_w
-    (E, X), we_gate/we_up (X, E, M) and we_down (X, M, E) leaves. Returns
+    (E, X), we_gate/we_up (X, E, M) and we_down (X, M, E) leaves. Routing
+    is ``route_top_k``, or with ``router_bias`` (X,) DeepSeek-V3's
+    ``route_top_k_v3`` over ``router_n_group`` groups keeping
+    ``router_topk_group``, its weights times ``routed_scaling``. Returns
     (y (..., E) in h's dtype, the load-balance aux loss, the router z-loss),
-    both unscaled; with ``with_losses=False`` (serving) they are None and
-    not computed."""
+    both unscaled and both 0 under V3 routing (its balance comes from the
+    bias, adjusted outside the gradient); with ``with_losses=False``
+    (serving) they are None and not computed."""
     e = h.shape[-1]
     x_experts = router_w.shape[-1]
     k = n_experts_per_tok
@@ -119,7 +154,13 @@ def moe_mlp(h: torch.Tensor, router_w: torch.Tensor, we_gate, we_up,
     g = ht.shape[0]
     cap = moe_capacity(g, x_experts, k, capacity_factor)
     router_logits = ht.float() @ router_w.float()
-    top_p, top_idx, probs = route_top_k(router_logits, k, norm_topk)
+    if router_bias is not None:
+        top_p, top_idx, probs = route_top_k_v3(
+            router_logits, k, correction_bias=router_bias.float(),
+            n_group=router_n_group, topk_group=router_topk_group,
+            norm_topk=norm_topk, routed_scaling=routed_scaling)
+    else:
+        top_p, top_idx, probs = route_top_k(router_logits, k, norm_topk)
 
     # each (token, slot) assignment's position in its expert's buffer, and
     # each expert's filled rows
@@ -145,5 +186,8 @@ def moe_mlp(h: torch.Tensor, router_w: torch.Tensor, we_gate, we_up,
     y = y.reshape(h.shape)
     if not with_losses:
         return y, None, None
+    if router_bias is not None:
+        zero = torch.zeros((), device=h.device)
+        return y, zero, zero
     return (y, load_balance_loss(probs, top_idx, x_experts, k),
             router_z_loss(router_logits))

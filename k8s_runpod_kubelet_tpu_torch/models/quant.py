@@ -7,12 +7,14 @@ f32 (..., 1, out)}`` (per output channel, absmax / 127) or ``{"q4": uint8
 ``INT4_GROUP`` contraction elements, absmax / 7; in-element 2i in the low
 nibble, 2i+1 in the high, each stored offset by 8). ``llama._mm`` takes
 either form. The embedding is stored in the compute dtype, norms and the
-MoE router stay f32, q/k/v biases stay in the compute dtype, the LM head
+MoE router and V3's router bias stay f32, q/k/v biases stay in the compute dtype, the LM head
 is quantized (a tied head is the embedding's transpose, in the compute
 dtype, as in the JAX package). Expert leaves (``we_gate``,
 ``we_up``, ``we_down``, (L, X, in, out)) quantize at both widths one
 (layer, expert) slice at a time: q8 (L, X, in, out) with scale (L, X, 1,
-out), or q4 (L, X, in/2, out) with scale (L, X, g, 1, out).
+out), or q4 (L, X, in/2, out) with scale (L, X, g, 1, out). DeepSeek's
+shared experts (``ws_*``) quantize as the dense MLP does, and a dense
+prefix's stack (``prefix_layers``) as the main one.
 
 ``init_quantized_params`` draws a model's random weights and quantizes
 each layer's slice as soon as it is drawn, so a model too large for the
@@ -35,17 +37,18 @@ from typing import Any
 import torch
 
 from ..device import resolve_device
-from .llama import (LlamaConfig, Params, draw_rows, init_fill, keeps_f32,
-                    param_shapes)
+from .llama import (STACKS, LlamaConfig, Params, draw_rows, init_fill,
+                    keeps_f32, leaf_shapes, param_shapes)
 
 __all__ = ["INT4_GROUP", "dequantize", "init_quantized_params",
            "is_quantized", "quantize_params", "quantized_logical_axes"]
 
 # stacked-layer projection weights, plus the LM head. MLA: w_dkv and the
-# low-rank q pair quantize as the JAX quantizer's do; w_uk/w_uv stay in
-# full precision (the absorbed step folds them in f32, not through _mm)
+# low-rank q pair quantize as the JAX quantizer's do, and so do
+# DeepSeek's shared experts; w_uk/w_uv stay in full precision (the
+# absorbed step folds them in f32, not through _mm)
 _LAYER_WEIGHTS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
-                  "w_dkv", "w_qa", "w_qb")
+                  "w_dkv", "ws_gate", "ws_up", "ws_down", "w_qa", "w_qb")
 # sparse-MoE expert weights, (L, X, in, out): the int4 leaves go through
 # int4_expert_matmul, the int8 ones through a batched product
 _EXPERT_WEIGHTS = ("we_gate", "we_up", "we_down")
@@ -134,10 +137,11 @@ def quantized_logical_axes(cfg: LlamaConfig, bits: int = 8) -> Params:
                 "scale": lead + (None, None, "int4_out")}
 
     out: Params = {"tok_embed": base["tok_embed"],
-                   "final_norm": base["final_norm"],
-                   "layers": {name: q_axes(axes) if name in _QUANTIZED
-                              else axes
-                              for name, axes in base["layers"].items()}}
+                   "final_norm": base["final_norm"]}
+    for stack in STACKS:
+        if stack in base:
+            out[stack] = {name: q_axes(axes) if name in _QUANTIZED
+                          else axes for name, axes in base[stack].items()}
     if "lm_head" in base:
         out["lm_head"] = q_axes(base["lm_head"])
     return out
@@ -170,8 +174,10 @@ def quantize_params(cfg: LlamaConfig, params: Params, bits: int = 8) -> Params:
 
     out: Params = {"tok_embed": params["tok_embed"].to(cfg.dtype),
                    "final_norm": params["final_norm"]}
-    out["layers"] = {name: leaf(name, w)
-                     for name, w in params["layers"].items()}
+    for stack in STACKS:
+        if stack in params:
+            out[stack] = {name: leaf(name, w)
+                          for name, w in params[stack].items()}
     if "lm_head" in params:
         out["lm_head"] = leaf("lm_head", params["lm_head"])
     return out
@@ -207,11 +213,12 @@ def init_quantized_params(cfg: LlamaConfig, generator: torch.Generator,
             del row
         return out
 
-    shapes = param_shapes(cfg)
-    params: Params = {name: make(name, s) for name, s in shapes.items()
-                      if name != "layers"}
-    params["layers"] = {name: make(name, s)
-                        for name, s in shapes["layers"].items()}
+    params: Params = {}
+    for stack, name, s in leaf_shapes(param_shapes(cfg)):
+        if stack is None:
+            params[name] = make(name, s)
+        else:
+            params.setdefault(stack, {})[name] = make(name, s)
     return params
 
 

@@ -98,6 +98,12 @@ def layer_axes(cfg) -> dict:
                       "we_gate": ("layer", "expert", "embed", "mlp"),
                       "we_up": ("layer", "expert", "embed", "mlp"),
                       "we_down": ("layer", "expert", "mlp", "embed")})
+        if cfg.router_sigmoid_bias:
+            layer["router_bias"] = ("layer", "expert")
+        if cfg.n_shared_experts:
+            layer.update({"ws_gate": ("layer", "embed", "mlp"),
+                          "ws_up": ("layer", "embed", "mlp"),
+                          "ws_down": ("layer", "mlp", "embed")})
     else:
         layer.update({"w_gate": ("layer", "embed", "mlp"),
                       "w_up": ("layer", "embed", "mlp"),
@@ -110,7 +116,9 @@ def param_logical_axes(cfg) -> Params:
     ``param_logical_axes``)."""
     tree: Params = {"tok_embed": ("vocab", "embed"),
                     "final_norm": ("norm",),
-                    "layers": layer_axes(cfg)}
+                    "layers": layer_axes(cfg.main_cfg())}
+    if cfg.n_dense_prefix:
+        tree["prefix_layers"] = layer_axes(cfg.prefix_cfg())
     if not cfg.tie_embeddings:
         tree["lm_head"] = ("embed", "vocab")
     return tree
@@ -127,10 +135,16 @@ def tensor_axis(axes) -> Optional[int]:
 
 def check_tensor_parallel(cfg, tensor: int) -> None:
     """The configurations the port serves at ``tensor`` > 1: dense
-    attention and a dense MLP. MLA and MoE raise, naming their ROADMAP
-    items."""
+    attention and a dense MLP. DeepSeek-MoE, MLA and MoE raise, naming
+    their fields and ROADMAP items."""
     if tensor <= 1:
         return
+    deepseek = cfg.deepseek_fields
+    if deepseek:
+        raise ValueError(f"{cfg.name}: DeepSeek-MoE ({deepseek}) under "
+                         "tensor parallelism is not ported (ROADMAP Queue 1 "
+                         "#6 and #9 for its latent attention, #8 for expert "
+                         "parallelism)")
     if cfg.is_mla:
         raise ValueError(f"{cfg.name}: MLA under tensor parallelism is not "
                          "ported (ROADMAP Queue 1 #9)")

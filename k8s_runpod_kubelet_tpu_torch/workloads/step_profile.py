@@ -12,6 +12,8 @@ Run on a machine with one NVIDIA card:
     python -m k8s_runpod_kubelet_tpu_torch.workloads.step_profile \
         --model mixtral-8x7b --int4
     python -m k8s_runpod_kubelet_tpu_torch.workloads.step_profile \
+        --model deepseek-v2-lite [--int4] [--kv-int8]
+    python -m k8s_runpod_kubelet_tpu_torch.workloads.step_profile \
         --model gemma-7b | mistral-7b | qwen2-7b | qwen3-8b [--int4] [--kv-int8]
 
 A windowed interleave (``--model gemma2-9b`` or ``gemma3-12b``), and any
@@ -89,7 +91,11 @@ the models in ``TRAINED`` profile a training step: an MoE model
 serving steps only (gemma-7b's 256000-entry vocabulary alone makes the
 train batch's f32 logits 16.8 GB). An MoE model's expert products are
 their own family, ``int4 experts`` (the ``int4_expert_matmul``
-kernel).
+kernel); in bf16 they are ``torch.bmm`` GEMMs, named as any other, so the
+eager steps run each expert product inside a profiler range and its
+kernels' device time moves from ``gemm`` to ``experts`` (a graph replay
+has no ranges: its ``gemm`` keeps them). deepseek-v2-lite profiles its
+serving steps only.
 
 Prints one JSON object (also written to ``--out`` if given): per phase
 the wall time of a step (host clock around work that ends in a
@@ -107,6 +113,7 @@ read "not measured".
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -191,6 +198,30 @@ def trace_kernel_events(path: str) -> dict:
     return out
 
 
+# the profiler range each MoE expert product runs in while profiled
+EXPERTS_RANGE = "moe_expert_matmul"
+
+
+@contextlib.contextmanager
+def _experts_marked():
+    """``models.moe``'s expert products each inside the profiler range
+    ``EXPERTS_RANGE`` while the block runs (this tool's own wrapper; the
+    serving path itself carries no range)."""
+    from ..models import moe
+
+    inner = moe._expert_matmul
+
+    def marked(*args, **kwargs):
+        with torch.profiler.record_function(EXPERTS_RANGE):
+            return inner(*args, **kwargs)
+
+    moe._expert_matmul = marked
+    try:
+        yield
+    finally:
+        moe._expert_matmul = inner
+
+
 def _profile(fn, steps: int) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
@@ -198,8 +229,8 @@ def _profile(fn, steps: int) -> dict:
         fn()
     torch.cuda.synchronize()
     walls = []
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with _experts_marked(), profile(activities=[ProfilerActivity.CPU,
+                                                ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
             t0 = time.perf_counter()
             fn()
@@ -207,7 +238,14 @@ def _profile(fn, steps: int) -> dict:
             walls.append(time.perf_counter() - t0)
     by_family: dict[str, float] = {}
     kernels: dict[str, float] = {}
+    experts_us = 0.0
     for ev in prof.key_averages():
+        if ev.key == EXPERTS_RANGE:
+            # the range's host event sums the device time of the kernels
+            # launched inside it; its device-side annotation is no kernel
+            if ev.device_type == torch.autograd.DeviceType.CPU:
+                experts_us += ev.device_time_total
+            continue
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
         us = ev.self_device_time_total
@@ -216,6 +254,12 @@ def _profile(fn, steps: int) -> dict:
         fam = _family(ev.key)
         by_family[fam] = by_family.get(fam, 0.0) + us / 1e3 / steps
         kernels[ev.key] = kernels.get(ev.key, 0.0) + us / 1e3 / steps
+    if experts_us and "int4 experts" not in by_family \
+            and "gemm" in by_family:
+        # the bf16 expert products' GEMMs: their own family
+        ms = min(experts_us / 1e3 / steps, by_family["gemm"])
+        by_family["gemm"] -= ms
+        by_family["experts"] = ms
     wall_ms = sorted(walls)[len(walls) // 2] * 1e3
     device_ms = sum(by_family.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
@@ -324,7 +368,7 @@ def _train_profile(cfg, dev, seq: int = 1, ring: bool = False) -> dict:
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--model", default="llama3-8b",
-                   choices=list(MODEL_CONFIGS))
+                   choices=[n for n in MODEL_CONFIGS if n != "deepseek-v3"])
     p.add_argument("--out", default="",
                    help="also write the JSON object to this file")
     p.add_argument("--int4", action="store_true",

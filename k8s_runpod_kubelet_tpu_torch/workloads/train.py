@@ -497,11 +497,14 @@ class Trainer:
                  mesh=None, lora: Optional[Any] = None,
                  telemetry: Optional[Any] = None):
         if cfg.n_experts:
+            deepseek = cfg.deepseek_fields
             raise ValueError(
-                f"{cfg.name}: training a sparse-MoE model is not ported (the "
-                "MoE training slice: the router's load-balance and z losses "
-                "in the objective, capacity drops, and the expert "
-                "gradients); MoE configs serve only")
+                f"{cfg.name}: training a sparse-MoE model is not ported "
+                "(ROADMAP Queue 1 #8, the MoE training slice: the router's "
+                "load-balance and z losses in the objective, capacity drops, "
+                "and the expert gradients"
+                + (f"; DeepSeek-MoE's {deepseek} with them" if deepseek
+                   else "") + "); MoE configs serve only")
         interleave = [f for f, on in (
             ("sliding_window_pattern", cfg.sliding_window_pattern != 1),
             ("attn_logit_softcap", cfg.attn_logit_softcap is not None),

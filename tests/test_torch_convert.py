@@ -9,8 +9,11 @@ on the CPU.
   ``params_from_jax`` of the JAX tree (serving and master dtypes);
 - the port's ``to_hf_state_dict``, read back by JAX
   ``from_hf_state_dict``, equals the JAX tree;
-- MoE, low-rank-q and dense-prefix checkpoints, unknown and missing keys,
-  are refused by name before any tensor is read;
+- MoE (Mixtral's or DeepSeek's) keys in a dense-MLP config and a
+  low-rank q in a full-rank one (or the reverse) are refused as config
+  mismatches, and so are unknown keys, missing keys raise, all by name
+  before any tensor is read (DeepSeek's own import is
+  ``tests/test_torch_deepseek.py``);
 - an engine served from HF-loaded weights gives the JAX engine's greedy
   tokens on the same state dict.
 """
@@ -157,16 +160,16 @@ def _names(cfg) -> dict:
     return sd
 
 
-# a Mixtral key loads into an MoE config now; into this dense-MLP config
-# it is refused by name as a config mismatch (ValueError), not as a layout
-# the port lacks
+# Mixtral's and DeepSeek's MoE keys load into their MoE configs; into this
+# dense-MLP, full-rank-q MLA config each is refused by name as a config
+# mismatch (ValueError), as the low-rank q is
 @pytest.mark.parametrize("extra,match,error", [
-    ("model.layers.1.mlp.experts.0.gate_proj.weight", "MoE experts",
-     NotImplementedError),
+    ("model.layers.1.mlp.experts.0.gate_proj.weight", "DeepSeek-MoE",
+     ValueError),
     ("model.layers.0.block_sparse_moe.gate.weight", "Mixtral", ValueError),
-    ("model.layers.1.mlp.gate.weight", "router", NotImplementedError),
-    ("model.layers.0.self_attn.q_a_proj.weight", "low-rank q",
-     NotImplementedError),
+    ("model.layers.1.mlp.gate.weight", "DeepSeek-MoE", ValueError),
+    ("model.layers.0.self_attn.q_a_proj.weight",
+     "low-rank q.*mla_q_lora_rank=None", ValueError),
 ], ids=["moe", "mixtral", "dense_prefix_router", "q_lora"])
 def test_refused_by_key_name(extra, match, error):
     cfg = config_from_jax(_jcfg("mla", "f32"), torch.float32)
@@ -192,11 +195,14 @@ def test_unknown_and_missing_keys_refused(tmp_path):
     # before any tensor is read
     save_file({"model.layers.0.mlp.experts.0.up_proj.weight":
                torch.zeros(2)}, str(tmp_path / "model.safetensors"))
-    with pytest.raises(NotImplementedError, match="MoE"):
+    with pytest.raises(ValueError, match="DeepSeek-MoE"):
         convert.load_hf(cfg, str(tmp_path), device="cpu")
-    with pytest.raises(NotImplementedError, match="low-rank q"):
-        convert.expected_keys(config_from_jax(
-            jllama.tiny_mla(**SMALL, mla_q_lora_rank=32), torch.float32))
+    # a low-rank-q config refuses a full-rank checkpoint by name
+    q_cfg = config_from_jax(jllama.tiny_mla(**SMALL, mla_q_lora_rank=32),
+                            torch.float32)
+    full = _names(config_from_jax(_jcfg("mla", "f32"), torch.float32))
+    with pytest.raises(ValueError, match="full-rank"):
+        convert.load_hf(q_cfg, full, device="cpu")
 
 
 @pytest.mark.parametrize("family", ["dense", "mla"])

@@ -2066,3 +2066,100 @@ def test_async_save_past_the_pinned_cap(cuda, tmp_path, monkeypatch):
     assert 0 < a.checkpoints._pinned_bytes <= cap
     assert a.checkpoints._pinned_bytes == sum(h.nbytes for h in kept)
     assert all(h.is_pinned() for h in kept)
+
+
+# -- DeepSeek-V2-Lite's shapes -------------------------------------------------------
+
+def _not_close(out, ref) -> bool:
+    return not torch.allclose(out.float(), ref.float(), atol=1e-2, rtol=1e-2)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("section", ["prefix", "main"])
+@pytest.mark.parametrize("b,kq,lengths", [
+    (8, 1, [252, 402, 475, 468, 411, 789, 881, 571]),
+    (1, 300, [300 + 37])], ids=["decode", "chunk"])
+def test_mla_kernels_at_deepseek_heads_on_each_section(cuda, quant, section,
+                                                       b, kq, lengths):
+    """Row 10 (and 11 with int8 latents) at DeepSeek-V2-Lite's 16 heads on
+    a layer of its arena's two section stacks, ``c_pre``/``kr_pre`` (the
+    dense prefix, 1 layer) and ``c``/``kr`` (26 layers): each layer is a
+    view at its own base pointer into a stack of 16-token pages. Held
+    against the plain version; the control, the plain version over the
+    other stack's layer, must fail."""
+    t, cols, hq, r, dr = 16, 64, 16, 512, 64
+    q_lat, q_rope, c0, kr0, table, lens = _mla_case(cuda, b, kq, hq, r, dr,
+                                                    t, cols, lengths)
+    gen = torch.Generator(device=cuda).manual_seed(22)
+    stacks = {name: (torch.randn((n,) + c0.shape, generator=gen,
+                                 device=cuda).bfloat16(),
+                     torch.randn((n,) + kr0.shape, generator=gen,
+                                 device=cuda).bfloat16())
+              for name, n in (("prefix", 1), ("main", 26))}
+    layer = {"prefix": 0, "main": 25}
+    other = "main" if section == "prefix" else "prefix"
+
+    def pages(name):
+        c, kr = (s[layer[name]] for s in stacks[name])
+        return (_kv_quant(c) + _kv_quant(kr)) if quant else (c, kr)
+
+    def order(p):   # (c, c_scale, kr, kr_scale) -> the kernel's order
+        return (p[0], p[2], p[1], p[3]) if quant else p
+
+    fn, plain = ((paged_attention_multi_mla_quant,
+                  _paged_attention_multi_mla_quant_plain) if quant else
+                 (paged_attention_multi_mla, _paged_attention_multi_mla_plain))
+    scale = (128 + dr) ** -0.5
+    got = order(pages(section))
+    assert got[0].data_ptr() != order(pages(other))[0].data_ptr()
+    before = fn.launches
+    out = fn(q_lat, q_rope, *got, table, lens, sm_scale=scale)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    _close_f32(out, plain(q_lat, q_rope, *got, table, lens, sm_scale=scale))
+    assert _not_close(out, plain(q_lat, q_rope, *order(pages(other)), table,
+                                 lens, sm_scale=scale))
+
+
+def _topk_counts(dev, tokens: int, experts: int, k: int, seed: int):
+    """Each expert's rows when ``tokens`` tokens each pick ``k`` distinct
+    experts at random (int32 (experts,))."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    picks = torch.rand((tokens, experts), generator=gen,
+                       device=dev).topk(k, dim=-1).indices
+    return torch.bincount(picks.reshape(-1), minlength=experts).int()
+
+
+@pytest.mark.parametrize("kin,out", [(2048, 1408), (1408, 2048)],
+                         ids=["gate_up", "down"])
+@pytest.mark.parametrize("tokens", [8, 128])
+def test_int4_expert_matmul_at_deepseek_widths(cuda, kin, out, tokens):
+    """Row 14 at DeepSeek-V2-Lite's 64 experts of width 1408 (out 1408 is
+    11 column tiles of 128, in 1408 is 11 groups of 128), the buffer at
+    the serving capacity (one row a token) and counts from top-6 picks:
+    at 8 tokens most experts hold no row or one. Filled rows against the
+    plain version, the rest exactly zero; the control, each expert given
+    its neighbour's weights, must fail."""
+    experts = 64
+    gen = torch.Generator(device=cuda).manual_seed(kin + tokens)
+    leaves = [_quantize_leaf_int4(0.02 * torch.randn(
+        (kin, out), generator=gen, device=cuda)) for _ in range(experts)]
+    q4 = torch.stack([lf["q4"] for lf in leaves])
+    scale = torch.stack([lf["scale"] for lf in leaves])
+    assert scale.shape[1] == kin // 128
+    cnt = _topk_counts(cuda, tokens, experts, 6, tokens)
+    if tokens == 8:
+        assert int((cnt == 0).sum()) > 0 and int((cnt == 1).sum()) > 0
+    rows = torch.arange(tokens, device=cuda)[None] < cnt[:, None]
+    h = (torch.randn((experts, tokens, kin), generator=gen, device=cuda)
+         * rows[..., None]).bfloat16()
+    before = int4_expert_matmul.launches
+    y = int4_expert_matmul(h, q4, scale, cnt)
+    torch.cuda.synchronize()
+    assert int4_expert_matmul.launches == before + 1
+    ref = _int4_expert_matmul_plain(h.float(), q4, scale, cnt)
+    _close_bf16(y, ref)
+    assert torch.equal(y[~rows], torch.zeros_like(y[~rows]))
+    rolled = _int4_expert_matmul_plain(h.float(), torch.roll(q4, 1, 0),
+                                       torch.roll(scale, 1, 0), cnt)
+    assert _not_close(y[rows], rolled[rows])

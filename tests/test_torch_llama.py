@@ -218,27 +218,32 @@ def test_configs_match_the_jax_package():
     for ours, theirs in ((llama3_8b(), jllama.llama3_8b()),
                          (llama31_8b(), jllama.llama31_8b()),
                          (MODEL_CONFIGS["mixtral-8x7b"](),
-                          jllama.mixtral_8x7b())):
+                          jllama.mixtral_8x7b()),
+                         (MODEL_CONFIGS["deepseek-v2-lite"](),
+                          jllama.deepseek_v2_lite()),
+                         (MODEL_CONFIGS["deepseek-v3"](),
+                          jllama.deepseek_v3())):
         assert config_from_jax(theirs, torch.bfloat16) == ours
     assert set(MODEL_CONFIGS) == {"llama3-8b", "llama3-70b", "llama31-8b",
                                   "gemma-7b", "gemma2-9b", "gemma3-12b",
                                   "mistral-7b", "qwen2-7b",
                                   "qwen3-8b", "mla-8b", "mixtral-8x7b",
+                                  "deepseek-v2-lite", "deepseek-v3",
                                   "tiny", "tiny-mla", "tiny-moe"}
     assert tiny_llama().embed_dim == jllama.tiny_llama().embed_dim
 
 
-# MLA itself is served now (tests/test_torch_mla.py); an MLA model over a
-# MoE body, as every DeepSeek checkpoint has, still is not. Mixtral is
-# served (tests/test_torch_moe.py); with DeepSeek-MoE's shared experts it
-# is not
+# an MLA model over a MoE body (every DeepSeek checkpoint) and Mixtral
+# with DeepSeek-MoE's shared experts: once refused, both are carried now
+# (tests/test_torch_deepseek.py); the name is kept from then
 @pytest.mark.parametrize("jcfg", [
     dataclasses.replace(jllama.mixtral_8x7b(), n_shared_experts=2),
     jllama.tiny_mla(n_experts=4, n_experts_per_tok=2)],
     ids=lambda c: c.name)
 def test_configs_with_branches_the_port_lacks_are_refused(jcfg):
-    with pytest.raises(ValueError, match="does not serve"):
-        config_from_jax(jcfg, torch.bfloat16)
+    cfg = config_from_jax(jcfg, torch.bfloat16)
+    for f in ("n_experts", "n_shared_experts", "mla_latent_dim", "name"):
+        assert getattr(cfg, f) == getattr(jcfg, f), f
 
 
 # Gemma 2's fields are served now (tests/test_torch_interleave.py), also

@@ -32,7 +32,7 @@
 - ``quantize_params`` on MLA trees bit-identical to the JAX quantizer's
   (``w_dkv``, ``w_qa``, ``w_qb`` quantized; ``w_uk``/``w_uv`` not);
 - configs: ``mla_8b`` and ``tiny_mla`` equal to the JAX package's through
-  ``config_from_jax``; MoE and dense-prefix configs raise; ``forward`` on
+  ``config_from_jax``; MoE and dense-prefix configs carried; ``forward`` on
   MLA runs its direct form (its parity with JAX is
   ``tests/test_torch_mla_dense.py``).
 """
@@ -526,8 +526,14 @@ def test_mla_configs_match_the_jax_package():
     jllama.tiny_mla(name="tiny-mla-prefix", n_experts=4, n_experts_per_tok=2,
                     n_dense_prefix=1)], ids=lambda c: c.name)
 def test_moe_and_dense_prefix_mla_configs_are_refused(jcfg):
-    with pytest.raises(ValueError, match="does not serve"):
-        config_from_jax(jcfg, torch.bfloat16)
+    """MLA over an MoE body, with and without a dense prefix: once
+    refused, now accepted by ``config_from_jax``, each field carried (the
+    name kept from then)."""
+    cfg = config_from_jax(jcfg, torch.bfloat16)
+    for f in ("n_experts", "n_experts_per_tok", "n_shared_experts",
+              "n_dense_prefix", "dense_prefix_mlp_dim", "router_norm_topk",
+              "mla_latent_dim", "rope_scaling", "max_seq_len"):
+        assert getattr(cfg, f) == getattr(jcfg, f), f
 
 
 def test_forward_and_bad_mla_fields_raise():

@@ -19,7 +19,7 @@ Inputs are made from seeds with numpy and handed to both packages:
   at ``tiny-moe`` for 4 and 8 bits, and ``quantize_params`` keeps leaves
   already quantized;
 - ``params_from_jax`` on a JAX ``tiny_moe`` tree, raw and quantized; the
-  DeepSeek-MoE fields refused by name;
+  DeepSeek-MoE fields carried by ``config_from_jax``;
 - Mixtral-8x7B's parameter count from ``param_shapes`` (no allocation)
   equal to the JAX config's, 46.70 B;
 - Mixtral's HF names round-tripped against JAX ``models/convert.py``;
@@ -284,13 +284,21 @@ def test_params_from_jax_carries_moe_trees(bits):
         assert lp["we_down"].shape == (2, 4, 256, 128)
 
 
-@pytest.mark.parametrize("field,value", [("n_shared_experts", 2),
-                                         ("router_sigmoid_bias", True),
-                                         ("n_dense_prefix", 1)])
+@pytest.mark.parametrize("field,value", [
+    ("n_shared_experts", 2),
+    ("router_sigmoid_bias", dict(router_sigmoid_bias=True, router_n_group=2,
+                                 router_topk_group=1)),
+    ("n_dense_prefix", dict(n_dense_prefix=1, mla_latent_dim=32,
+                            dense_prefix_mlp_dim=96))])
 def test_deepseek_moe_fields_are_refused_by_name(field, value):
-    jcfg = dataclasses.replace(JCFG, **{field: value})
-    with pytest.raises(ValueError, match=field):
-        config_from_jax(jcfg, torch.float32)
+    """DeepSeek-MoE's fields on this MoE config: once refused by name, now
+    each carried by ``config_from_jax`` (the name kept from then) (a dense prefix needs MLA, V3 routing
+    its groups, as the JAX config checks)."""
+    kw = value if isinstance(value, dict) else {field: value}
+    jcfg = dataclasses.replace(JCFG, **kw)
+    cfg = config_from_jax(jcfg, torch.float32)
+    for f in kw:
+        assert getattr(cfg, f) == getattr(jcfg, f) == kw[f], f
 
 
 def test_mixtral_parameter_count_from_shapes():
@@ -324,10 +332,11 @@ def test_mixtral_hf_names_round_trip_against_jax():
     for name, leaf in tree["layers"].items():
         np.testing.assert_array_equal(np.asarray(back["layers"][name]),
                                       leaf, err_msg=name)
-    # DeepSeek-MoE's experts stay refused by name
+    # DeepSeek-MoE's experts load into a DeepSeek config; into this
+    # Mixtral one they are refused by name as a config mismatch
     bad = dict(sd)
     bad["model.layers.0.mlp.experts.0.gate_proj.weight"] = np.zeros((1, 1))
-    with pytest.raises(NotImplementedError, match="DeepSeek-MoE"):
+    with pytest.raises(ValueError, match="DeepSeek-MoE"):
         load_hf(cfg, bad, device="cpu")
 
 
