@@ -16,7 +16,9 @@ serves Gemma-2-9B and Gemma-3-12B (past their windows) and llama3-8b with
 the prefix cache off through the contiguous decode loop, then
 trains Llama-3-8B widths at 4 layers, mla-8b widths at 4 layers (flash at
 D = 192), and Llama-3-8B widths as ring attention over 4 sequence shards
-in one process.
+in one process, fine-tunes llama3-8b with LoRA, and trains Mixtral-8x7B
+and DeepSeek-V2-Lite widths at reduced depth and fine-tunes the whole
+DeepSeek-V2-Lite with LoRA (``--moe-train`` runs that phase, 9e, alone).
 
 Run from the repository root on a machine with one NVIDIA card:
 
@@ -335,7 +337,8 @@ Step graphs (phases 4, 7s, 7b, 7c, 7d). Each engine captures its decode
    ``--int4 --kv-int8`` from a tree drawn and quantized a layer at a
    time, the same checks with 78 ``int4_expert_matmul``, 163
    ``int4_matmul`` and 27 of row 11 a step; (d) ``step_profile --model
-   deepseek-v2-lite`` in bf16 and int4;
+   deepseek-v2-lite`` in bf16 (with a training step at 4 layers) and
+   int4;
 7f. the other dense families, one at a time at full width and depth,
    the card freed between them: gemma-7b, qwen2-7b, qwen3-8b and
    mistral-7b, bf16 weights from the seed with their q/k/v biases, q/k
@@ -519,6 +522,31 @@ Step graphs (phases 4, 7s, 7b, 7c, 7d). Each engine captures its decode
    8 greedy tokens against the argmax of a plain f32 forward of
    ``merge_lora`` (a differing token must be a near tie under
    SPEC_TIE_MARGIN), row 8 and row 12 launches exact a step or chunk.
+9e. MoE training (``moe_train_phase``, after 9f). (a) phase 9 on
+   mixtral-8x7b widths at 2 layers and (b) on deepseek-v2-lite widths at
+   4 (its dense prefix layer and 3 routed; ``fused_ce_chunks`` 8), batch
+   8 x 2048, routed at the capacity factor 1.25. The gradient check
+   (``moe_train_grad_check``): the plain f32 forward routes itself, row by
+   row with the capacity counts carried in the port's flat order (pass
+   1), then its gradients of CE + the aux and z losses at those choices
+   (pass 2); the port's step at the plain forward's choices
+   (``route_top_k`` forced) within phase 9's leaf and norm limits; the
+   control, each expert's output gathered from its neighbour's rows, must
+   exceed the leaf limit; the port's unforced step reported beside, each
+   choice that differs from the f32 router's on its own input within
+   MOE_ROUTER_TIE of a tie. Then 6 steps: launches exact (flash_fwd 2L,
+   flash_dq L, flash_dkv L, rms_norm 4L + 1 or 6L + 1), the loss falls,
+   aux_loss finite, each routed layer's dropped share and load-balance
+   loss logged, step 1's grad_norm within 1e-3 of the plain forward's,
+   step wall, tokens/s and peak. (c) ``train_main --model
+   deepseek-v2-lite`` (27 layers) ``--lora-rank 16 --lora-targets wq,wo
+   --fused-ce-chunks 8 --batch 4 --seq-len 2048`` for 6 steps from a token
+   file, checkpoints every 3: the summary line, the loss falling, every
+   frozen leaf (the dense prefix, experts and router among them)
+   bit-identical, moments on the adapters only, the peak (and the init's)
+   within 80 GB, launches exact a step (53 / 26 / 26 / 160: the dense
+   prefix layer, frozen and fed a frozen input, runs no backward), one
+   heartbeat a step; a second life resumes at step 6 bit-identical.
 
 The next-to-last line is the kernels JSON record (each kernel's
 ``launches`` counted on its own main path: the bf16 engine's burst for
@@ -533,7 +561,10 @@ for ``int4_expert_matmul``, phase 7t (b)'s burst as ``serve_tp`` for
 ``int4_matmul_sharded`` (beside 7t (c)'s as ``serve_tp4_bf16``), the
 training run for the flash kernels, beside the MLA training run as
 ``train_mla``, the ring-train runs as ``train_ring`` and
-``train_ring_mla``, and the MLA dense routes of 7c and 7d (e) as
+``train_ring_mla``, phase 9f's runs as ``train_naive_loss``,
+``train_fused_loss``, ``train_dots`` and ``finetune_lora`` and phase 9e's
+as ``train_mixtral``, ``train_deepseek`` and ``finetune_deepseek_lora``,
+and the MLA dense routes of 7c and 7d (e) as
 ``serve_mla_dense`` and ``serve_mla_kv_int8_dense``, and phase 7l's
 bursts as ``serve_lora`` and ``serve_lora_int4_kv_int8`` (their n = 2
 groups' ``flash_fwd`` as ``serve_lora_dense_group`` and
@@ -698,6 +729,22 @@ FT_SERVE_TOKENS = 8
 # (d): runs of train_main, each on a newly picked free port, before the
 # phase gives up on binding the telemetry server
 FT_PORT_TRIES = 3
+# phase 9e, MoE training: (a) mixtral-8x7b and (b) deepseek-v2-lite widths
+# at the depth step_profile trains them (``train_layers``: 2 and 4 layers,
+# the latter a dense prefix layer and 3 routed), batch 8 x 2048, 6 steps,
+# (b) with the LM-head loss over FT_CHUNKS vocab chunks (its 102,400-entry
+# vocabulary's f32 logits would be 6.7 GB); their gradient checks at the
+# routing of the plain f32 forward hold phase 9's leaf and norm limits
+# (see PERF.md for the readings: every leaf 0.015-0.034, the norm 3.7e-5
+# and 8.4e-5; the neighbour-expert control 1.39-1.41), and the unforced
+# step's flips MOE_ROUTER_TIE (they read within 1.3e-3 and 2.1e-4).
+# (c) a LoRA fine-tune of deepseek-v2-lite at full depth (27 layers)
+# through train_main: rank FT_RANK on wq and wo (an MLA layer has no wv),
+# batch FT_BATCH x FT_SEQ, MOE_FT_STEPS steps from a token file, async
+# checkpoints every MOE_FT_EVERY, telemetry on
+MOE_TRAIN_MODELS = ("mixtral-8x7b", "deepseek-v2-lite")
+MOE_FT_MODEL, MOE_FT_TARGETS = "deepseek-v2-lite", "wq,wo"
+MOE_FT_STEPS, MOE_FT_EVERY = 6, 3
 # the speculative phase: 4 drafts a step (a K = 5 verify), 256-token
 # prefill chunks
 SPEC_K, SPEC_CHUNK = 4, 256
@@ -2407,13 +2454,17 @@ def train_grad_check(torch, dev, cfg, batch) -> dict:
     return out
 
 
-def train_phase(torch, dev, card: str, cfg=None) -> dict:
-    """Phase 9 (``cfg`` None: llama3-8b widths at 4 layers) or 9m (mla-8b
-    widths at 4 layers): the gradient check, then 6 steps on one repeated
-    seeded batch with exact launches a step (flash at D = 192 for MLA: one
-    forward launch a layer and its remat recompute, one dQ and one dK/dV;
-    the norms of each layer twice, three a layer for MLA's attn, c and mlp
-    norms, and the final one)."""
+def train_phase(torch, dev, card: str, cfg=None, chunks: int = 0) -> dict:
+    """Phase 9 (``cfg`` None: llama3-8b widths at 4 layers), 9m (mla-8b
+    widths at 4 layers) or 9e (a) and (b) (an MoE config; ``chunks`` > 0
+    the fused loss over that many vocab chunks): the gradient check
+    (``moe_train_grad_check`` for an MoE config), then 6 steps on one
+    repeated seeded batch with exact launches a step (flash at D = 192 for
+    MLA: one forward launch a layer and its remat recompute, one dQ and
+    one dK/dV; the norms of each layer twice, three a layer for MLA's
+    attn, c and mlp norms, and the final one); an MoE run's aux_loss
+    finite each step, with each routed layer's dropped share and
+    load-balance loss logged (``RoutingWatch``)."""
     from k8s_runpod_kubelet_tpu_torch.models import llama3_8b
     from k8s_runpod_kubelet_tpu_torch.ops import (flash_dkv, flash_dq,
                                                   flash_fwd, rms_norm)
@@ -2423,9 +2474,12 @@ def train_phase(torch, dev, card: str, cfg=None) -> dict:
     cfg = cfg or dataclasses.replace(llama3_8b(), n_layers=4)
     n_layers = cfg.n_layers
     layer_norms = 2 + (cfg.is_mla + (cfg.mla_q_lora_rank is not None))
-    tc = TrainConfig(batch_size=8, seq_len=2048, steps=6, warmup_steps=1)
+    tc = TrainConfig(batch_size=8, seq_len=2048, steps=6, warmup_steps=1,
+                     fused_ce_chunks=chunks)
     batch = next(synthetic_batches(cfg, tc, seed=SEED, device=dev))
-    grad_check = train_grad_check(torch, dev, cfg, batch)
+    grad_check = (moe_train_grad_check(torch, dev, cfg, batch, chunks)
+                  if cfg.n_experts else train_grad_check(torch, dev, cfg,
+                                                         batch))
     t0 = time.perf_counter()
     trainer = Trainer(cfg, tc, seed=SEED, device=dev)
     torch.cuda.synchronize()
@@ -2433,17 +2487,35 @@ def train_phase(torch, dev, card: str, cfg=None) -> dict:
     n_params = sum(p.numel() for p in _leaves(trainer.params))
     log(f"  {cfg.name} widths, {n_layers} layers: {n_params / 1e9:.3f} B "
         f"params (f32 master), init {init_s:.1f} s; batch {tc.batch_size} x "
-        f"seq {tc.seq_len}, remat {cfg.remat_policy}, lr {tc.learning_rate}")
+        f"seq {tc.seq_len}, remat {cfg.remat_policy}, lr {tc.learning_rate}"
+        f", fused_ce_chunks {chunks}")
     batches = itertools.repeat(batch)
     kernels = (flash_fwd, flash_dq, flash_dkv, rms_norm)
     per_step = {"flash_fwd": 2 * n_layers, "flash_dq": n_layers,
                 "flash_dkv": n_layers,
                 "rms_norm": 2 * (layer_norms * n_layers) + 1}
+    n_routed = n_layers - cfg.n_dense_prefix if cfg.n_experts else 0
+    watch = RoutingWatch(torch, trainer, n_routed) if n_routed else None
     # the main path: counts set to 0 just before the run, read just after
     for k in kernels:
         k.launches = 0
-    run = timed_steps(torch, trainer, batches, tc.steps, kernels, per_step)
+    try:
+        run = timed_steps(torch, trainer, batches, tc.steps, kernels,
+                          per_step)
+    finally:
+        routing = (watch.close(tc.batch_size * tc.seq_len
+                               * cfg.n_experts_per_tok) if watch else None)
     launches = {k.__name__: k.launches for k in kernels}
+    if routing is not None:
+        log(f"  aux_loss by step {[round(a, 6) for a in routing['aux_loss']]}"
+            f"; by routed layer, step 1 then {tc.steps}: dropped share "
+            f"{[round(d, 4) for d in routing['drop_share'][0]]} -> "
+            f"{[round(d, 4) for d in routing['drop_share'][-1]]}, "
+            f"load-balance loss (uniform 1.0) "
+            f"{[round(b, 4) for b in routing['load_balance'][0]]} -> "
+            f"{[round(b, 4) for b in routing['load_balance'][-1]]}")
+        if not all(math.isfinite(a) and a > 0 for a in routing["aux_loss"]):
+            raise RuntimeError(f"aux_loss {routing['aux_loss']}")
     losses, norms, walls = run["losses"], run["grad_norms"], \
         run["step_walls_s"]
     peak, step_s, tok_s = (run["peak_bytes"], run["step_s_median"],
@@ -2472,6 +2544,7 @@ def train_phase(torch, dev, card: str, cfg=None) -> dict:
             "step_s_median": step_s, "tokens_per_s": tok_s,
             "peak_bytes": peak, "launches": launches,
             "launches_per_step": per_step, "init_s": init_s,
+            "fused_ce_chunks": chunks, "routing": routing,
             "grad_check": grad_check, "step1_norm_rel_err": step1_rel}
 
 
@@ -3134,6 +3207,48 @@ def serve_trained_adapter(torch, dev, card: str, cfg, base: dict,
     return out
 
 
+def watched_trainer(torch, base, kernels, made: list):
+    """The trainer class train_main builds (``base``), watched: the init's
+    peak memory, the frozen leaves' checksums at init, each step's wall
+    (the step call through its loss on the host), loss, router aux and
+    launches of the ``kernels`` wrappers, and every leaf's checksum right
+    after a restore; each instance is appended to ``made``."""
+
+    class Watched(base):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            # the init's peak apart from the steps' (a LoRA run draws its
+            # frozen leaves straight into bf16)
+            self.init_peak = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            self.init_sums = leaf_checksums(torch, self.params, True)
+            self.walls, self.losses, self.launches = [], [], []
+            self.auxes = []
+            self.restored_sums = None
+            inner = self.step_fn
+
+            def step_fn(params, opt_state, batch):
+                before = {k.__name__: k.launches for k in kernels}
+                t = time.perf_counter()
+                out = inner(params, opt_state, batch)
+                self.losses.append(float(out["loss"]))
+                self.walls.append(time.perf_counter() - t)
+                self.auxes.append(float(out["aux_loss"]))
+                self.launches.append({k.__name__: k.launches
+                                      - before[k.__name__] for k in kernels})
+                return out
+
+            self.step_fn = step_fn
+            made.append(self)
+
+        def restore(self):
+            ok = super().restore()
+            self.restored_sums = leaf_checksums(torch, self.params, False)
+            return ok
+
+    return Watched
+
+
 def finetune_phase(torch, dev, card: str) -> dict:
     """Phase 9f (c)-(f): a LoRA fine-tune of the whole llama3-8b (32
     layers, random init from train_main's seed) through
@@ -3161,41 +3276,7 @@ def finetune_phase(torch, dev, card: str) -> dict:
     per_step = {"flash_fwd": 2 * n, "flash_dq": n, "flash_dkv": n,
                 "rms_norm": 4 * n + 1}
     made: list = []
-
-    class Watched(train_mod.Trainer):
-        """The trainer train_main builds, watched: the frozen leaves'
-        checksums at init, each step's wall (the step call through its
-        loss on the host), loss and launches, and every leaf's checksum
-        right after a restore."""
-
-        def __init__(self, *a, **kw):
-            super().__init__(*a, **kw)
-            # the init draws the f32 master tree whole before the frozen
-            # leaves move to bf16: its peak apart from the steps'
-            self.init_peak = torch.cuda.max_memory_allocated()
-            torch.cuda.reset_peak_memory_stats()
-            self.init_sums = leaf_checksums(torch, self.params, True)
-            self.walls, self.losses, self.launches = [], [], []
-            self.restored_sums = None
-            inner = self.step_fn
-
-            def step_fn(params, opt_state, batch):
-                before = {k.__name__: k.launches for k in kernels}
-                t = time.perf_counter()
-                out = inner(params, opt_state, batch)
-                self.losses.append(float(out["loss"]))
-                self.walls.append(time.perf_counter() - t)
-                self.launches.append({k.__name__: k.launches
-                                      - before[k.__name__] for k in kernels})
-                return out
-
-            self.step_fn = step_fn
-            made.append(self)
-
-        def restore(self):
-            ok = super().restore()
-            self.restored_sums = leaf_checksums(torch, self.params, False)
-            return ok
+    Watched = watched_trainer(torch, train_mod.Trainer, kernels, made)
 
     loaders: list = []
     real_make_loader = data_pkg.make_loader
@@ -3417,7 +3498,7 @@ def finetune_checks(torch, card, cfg, tr, summary, launches, per_step, peak,
         f"leaves; frozen leaves {frozen_bytes / 2**30:.2f} GiB, all "
         f"bit-identical after the run; peak {peak / 2**30:.2f} GiB "
         f"allocated over the steps, saves and export ({tr.init_peak / 2**30:.2f}"
-        f" GiB in the init's f32 draw); launches a step {per_step}; "
+        f" GiB in the init); launches a step {per_step}; "
         f"train_main {main_s:.1f} s")
     return out
 
@@ -3485,6 +3566,617 @@ def telemetry_checks(torch, card, cfg, tr, lines, scrapes, ck,
         f"{state}; {len(good)} of {len(scrapes)} scrapes consistent at "
         f"steps {out['scraped_steps']}; buckets {snap['buckets']} sum to "
         f"the wall {snap['wall_s']} within {drift * 1e3:.3f} ms")
+    return out
+
+
+# -- phase 9e: MoE training ---------------------------------------------------------
+
+def moe_train_capacity(cfg, tokens: int) -> int:
+    """Each expert's buffer rows in a training step of ``tokens`` tokens:
+    ceil(k x tokens / X x capacity_factor), at least 4 (the JAX
+    ``moe_capacity``, written out here)."""
+    return max(4, math.ceil(cfg.n_experts_per_tok * tokens / cfg.n_experts
+                            * cfg.capacity_factor))
+
+
+def plain_keep(torch, chosen, before, cap: int, n_experts: int):
+    """Which assignments of ``chosen`` (N, k) fit their expert's buffer:
+    an assignment's place is the count of the earlier ones (token, then
+    slot order) to the same expert, ``before`` (X,) of them from earlier
+    rows; it fits below ``cap``. Returns (keep (N, k), counts after)."""
+    flat = chosen.reshape(-1)
+    onehot = torch.nn.functional.one_hot(flat, n_experts)
+    place = (torch.cumsum(onehot, 0) - onehot + before).gather(
+        1, flat[:, None])[:, 0]
+    return (place < cap).view(chosen.shape), before + onehot.sum(0)
+
+
+def plain_moe_mlp(torch, F, cfg, lp, h, route):
+    """A routed layer's MLP as training runs it, in f32 from the layer's
+    f32 weights on normed tokens h (N, E): the router's softmax (probs),
+    ``route(probs)`` -> (chosen (N, k), keep (N, k)), each expert run on
+    the tokens whose kept assignment names it, weighted by the
+    probabilities at the chosen experts (renormalized over all k with
+    ``router_norm_topk``, dropped ones included), plus DeepSeek's shared
+    experts. No buffer, no scatter. Returns (y, probs, logsumexp of the
+    router logits)."""
+    logits = h @ lp["router"]
+    probs = torch.softmax(logits, dim=-1)
+    chosen, keep = route(probs)
+    weight = torch.gather(probs, -1, chosen)
+    if cfg.router_norm_topk:
+        weight = weight / weight.sum(dim=-1, keepdim=True)
+    weight = weight * keep
+    y = torch.zeros_like(h)
+    if "ws_gate" in lp:
+        y = y + (F.silu(h @ lp["ws_gate"]) * (h @ lp["ws_up"])) @ lp["ws_down"]
+    for x in range(cfg.n_experts):
+        pick = (chosen == x) & keep
+        rows = pick.any(dim=-1).nonzero()[:, 0]
+        if not len(rows):
+            continue
+        hx = h[rows]
+        yx = (F.silu(hx @ lp["we_gate"][x]) * (hx @ lp["we_up"][x])) \
+            @ lp["we_down"][x]
+        y = y.index_add(0, rows, (weight * pick).sum(dim=-1)[rows][:, None]
+                        * yx)
+    return y, probs, torch.logsumexp(logits, dim=-1)
+
+
+def plain_moe_row(torch, F, cfg, params, tokens, route):
+    """``plain_logits`` of one row (1, S) with each routed layer's MLP by
+    ``plain_moe_mlp`` at ``route(j, probs)`` (j the routed layer); returns
+    (logits, each routed layer's (probs, logsumexp))."""
+    stats = []
+
+    def mlp(layer, lp, h):
+        flat = h.reshape(-1, h.shape[-1])
+        j = len(stats)
+        y, probs, lse = plain_moe_mlp(torch, F, cfg, lp, flat,
+                                      lambda pr: route(j, pr))
+        stats.append((probs, lse))
+        return y.view(h.shape)
+
+    return plain_logits(torch, cfg, params, tokens, mlp=mlp), stats
+
+
+def plain_moe_choices(torch, cfg, params, batch) -> dict:
+    """The plain f32 forward's own routing of ``batch`` (B, S + 1), one row
+    at a time in the port's flat (B x S) order, the capacity counts carried
+    from row to row: per routed layer the chosen experts (B x S, k), which
+    fit (``plain_keep`` at ``moe_train_capacity`` of the whole batch), the
+    share of assignments each expert got / k (the aux loss's f), the share
+    dropped, and the tokens whose k-th and (k+1)-th probabilities lie
+    within MOE_ROUTER_TIE."""
+    import torch.nn.functional as F
+
+    k, x = cfg.n_experts_per_tok, cfg.n_experts
+    n = cfg.n_layers - cfg.n_dense_prefix
+    rows, s = batch.shape[0], batch.shape[1] - 1
+    cap = moe_train_capacity(cfg, rows * s)
+    dev = batch.device
+    counts = [torch.zeros(x, dtype=torch.long, device=dev) for _ in range(n)]
+    chosen = [[] for _ in range(n)]
+    keep = [[] for _ in range(n)]
+    ties = [0] * n
+
+    def route(j, probs):
+        top = torch.topk(probs, k + 1, dim=-1)
+        ties[j] += int((top.values[:, k - 1] - top.values[:, k]
+                        < MOE_ROUTER_TIE).sum())
+        idx = top.indices[:, :k]
+        kp, counts[j] = plain_keep(torch, idx, counts[j], cap, x)
+        chosen[j].append(idx)
+        keep[j].append(kp)
+        return idx, kp
+
+    with torch.no_grad():
+        for r in range(rows):
+            plain_moe_row(torch, F, cfg, params, batch[r:r + 1, :-1], route)
+    chosen = [torch.cat(c) for c in chosen]
+    keep = [torch.cat(c) for c in keep]
+    f = [torch.nn.functional.one_hot(c, x).float().sum(1).mean(0) / k
+         for c in chosen]
+    return {"chosen": chosen, "keep": keep, "f": f, "capacity": cap,
+            "drop_share": [1.0 - kp.float().mean().item() for kp in keep],
+            "near_ties": ties}
+
+
+def port_moe_grads(torch, model, params, batch, chunks: int, forced=None,
+                   rolled: bool = False) -> dict:
+    """``loss_aux_and_grads`` of the port's step on ``batch`` (bf16 through the
+    kernels, the trainer's own code) with its routing observed: each
+    routed layer's MLP input (the bf16 residual stream, from the forward,
+    not the remat recompute) and its chosen experts. With ``forced`` (per
+    routed layer (B x S, k)) ``models.moe.route_top_k`` takes those ids in
+    place of its own top-k, weighting them by its softmax probabilities
+    there as it would; with ``rolled`` each expert's down-projection
+    output is rolled by one expert, so every assignment gathers its
+    neighbour's rows (the control). The port's ``moe_mlp`` computes its
+    capacity, dispatch and drops itself either way."""
+    from k8s_runpod_kubelet_tpu_torch.models import moe
+    from k8s_runpod_kubelet_tpu_torch.workloads.train import \
+        loss_aux_and_grads
+
+    routers = params["layers"]["router"]
+    layer_of = {routers[j].data_ptr(): j for j in range(routers.shape[0])}
+    current = [None]
+    seen_x, chosen = {}, {}
+    real_mlp, real_route = model._mlp, moe.route_top_k
+    real_matmul = moe._expert_matmul
+    e = model.cfg.embed_dim
+
+    def mlp(x, lp, *a, **kw):
+        if "router" in lp:
+            current[0] = layer_of[lp["router"].data_ptr()]
+            seen_x.setdefault(current[0], x.detach())
+        return real_mlp(x, lp, *a, **kw)
+
+    def route(logits, k, norm_topk=True):
+        j = current[0]
+        if forced is None:
+            top_p, idx, probs = real_route(logits, k, norm_topk)
+        else:
+            probs = torch.softmax(logits, dim=-1)
+            idx = forced[j]
+            top_p = torch.gather(probs, 1, idx)
+            if norm_topk:
+                top_p = top_p / top_p.sum(dim=-1, keepdim=True)
+        chosen.setdefault(j, idx)
+        return top_p, idx, probs
+
+    def matmul(x, w, dtype, counts=None):
+        y = real_matmul(x, w, dtype, counts)
+        return torch.roll(y, 1, dims=0) if y.shape[-1] == e else y
+
+    model._mlp, moe.route_top_k = mlp, route
+    if rolled:
+        moe._expert_matmul = matmul
+    try:
+        loss, aux, grads = loss_aux_and_grads(model, params, batch,
+                                              fused_ce_chunks=chunks)
+    finally:
+        del model._mlp
+        moe.route_top_k, moe._expert_matmul = real_route, real_matmul
+    return {"loss": loss.item(), "aux": aux.item(), "grads": grads,
+            "x": seen_x, "chosen": chosen}
+
+
+def moe_flips(torch, cfg, params, port, plain) -> dict:
+    """The unforced port step's expert choices, per routed layer, against
+    the f32 router on the port's own MLP input (its bf16 residual stream
+    normed in f32, ``_rms_norm_plain``): each choice that differs must lie
+    within MOE_ROUTER_TIE of a tie there (the k-th and (k+1)-th
+    probabilities), as ``moe_layer_check`` holds the engine's. Counted
+    beside: the choices differing from the free-running plain forward's,
+    which sees its own hidden states."""
+    from k8s_runpod_kubelet_tpu_torch.ops.rmsnorm import _rms_norm_plain
+
+    k, lay = cfg.n_experts_per_tok, params["layers"]
+    rows = []
+    for j in sorted(port["chosen"]):
+        x = port["x"][j].float()
+        with torch.no_grad():
+            h = _rms_norm_plain(x, lay["mlp_norm"][j], cfg.norm_eps)
+            probs = torch.softmax(h.reshape(-1, x.shape[-1])
+                                  @ lay["router"][j].float(), dim=-1)
+        top = torch.topk(probs, k + 1, dim=-1)
+        got = torch.sort(port["chosen"][j], -1).values
+        differs = (torch.sort(top.indices[:, :k], -1).values != got).any(-1)
+        margin = top.values[:, k - 1] - top.values[:, k]
+        free = (torch.sort(plain["chosen"][j], -1).values != got).any(-1)
+        rows.append({"layer": j, "flips": int(differs.sum()),
+                     "flip_margin_max": (margin[differs].max().item()
+                                         if differs.any() else 0.0),
+                     "differs_from_free_f32": int(free.sum())})
+    return {"layers": rows, "flips": sum(r["flips"] for r in rows),
+            "flip_margin_max": max(r["flip_margin_max"] for r in rows),
+            "differs_from_free_f32": [r["differs_from_free_f32"]
+                                      for r in rows]}
+
+
+def moe_train_grad_check(torch, dev, cfg, batch, chunks: int) -> dict:
+    """Step 1's gradients as the training path computes them (bf16
+    through the kernels, remat, the router's aux and z losses, capacity
+    drops) against autograd of a plain f32 forward of the same objective
+    on the same f32 master params and batch. The two may choose different
+    experts near a tie, and a changed choice also moves which later
+    assignments drop, so the compared port step takes the plain forward's
+    choices (``port_moe_grads`` with ``forced``): pass 1 (``plain_moe_choices``)
+    routes the plain forward itself, pass 2 takes its gradients one row at
+    a time at those choices, CE / rows + per routed layer aux_coef x X x
+    sum_x f_x x (the row's probs summed / (B x S)) + z_coef x (the row's
+    logsumexp^2 summed / (B x S)), which over the rows is the objective
+    of the whole batch. Each leaf's relative L2 error and the global
+    norm's within phase 9's limits; the control (each expert's output
+    gathered from its neighbour's rows) must exceed the leaf limit. The
+    unforced step (the trainer's own routing) is reported beside, with
+    its flips (``moe_flips``), each of which must lie at a near tie."""
+    import torch.nn.functional as F
+
+    from k8s_runpod_kubelet_tpu_torch.models import LlamaModel, init_params
+    from k8s_runpod_kubelet_tpu_torch.workloads.train import (_leaves,
+                                                              global_norm)
+
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                         dev, master=True)
+    leaves = [p.requires_grad_() for p in _leaves(params)]
+    names = leaf_names(params)
+    rows, s = batch.shape[0], batch.shape[1] - 1
+    g = rows * s
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    plain = plain_moe_choices(torch, cfg, params, batch)
+    ref = [torch.zeros_like(p) for p in leaves]
+    ref_loss = ref_aux = 0.0
+    for r in range(rows):
+        sl = slice(r * s, (r + 1) * s)
+        logits, stats = plain_moe_row(
+            torch, F, cfg, params, batch[r:r + 1, :-1],
+            lambda j, _: (plain["chosen"][j][sl], plain["keep"][j][sl]))
+        lse = torch.logsumexp(logits, dim=-1)
+        picked = logits.gather(-1, batch[r:r + 1, 1:, None].long())[..., 0]
+        ce = (lse - picked).mean()
+        del logits, lse, picked
+        aux = sum(cfg.router_aux_coef * cfg.n_experts
+                  * (plain["f"][j] * pr.sum(0)).sum() / g
+                  + cfg.router_z_coef * z.square().sum() / g
+                  for j, (pr, z) in enumerate(stats))
+        loss = ce / rows + aux
+        for acc, gr in zip(ref, torch.autograd.grad(loss, leaves)):
+            acc.add_(gr)
+        ref_loss += ce.item() / rows
+        ref_aux += aux.item()
+        del stats, loss, ce, aux
+    ref_norm = global_norm(ref).item()
+    ref_s = time.perf_counter() - t0
+    model = LlamaModel(cfg, dev)
+
+    def against_ref(run) -> dict:
+        grads = run.pop("grads")
+        errs = {n: ((gr.float() - rf).norm() / rf.norm()).item()
+                for n, gr, rf in zip(names, grads, ref)}
+        norm = global_norm(grads).item()
+        del grads
+        worst = max(errs, key=errs.get)
+        return {"loss": run["loss"], "aux": run["aux"], "grad_norm": norm,
+                "norm_rel_err": abs(norm - ref_norm) / ref_norm,
+                "leaf_rel_l2": errs, "worst_leaf": worst,
+                "worst_leaf_rel_l2": errs[worst]}
+
+    free = port_moe_grads(torch, model, params, batch, chunks)
+    flips = moe_flips(torch, cfg, params, free, plain)
+    del free["x"], free["chosen"]
+    unforced = against_ref(free)
+    port = against_ref(port_moe_grads(torch, model, params, batch, chunks,
+                                      forced=plain["chosen"]))
+    control = against_ref(port_moe_grads(
+        torch, model, params, batch, chunks, forced=plain["chosen"],
+        rolled=True))
+    peak = torch.cuda.max_memory_allocated()
+    del params, leaves, ref, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"rows": rows, "ref_loss": ref_loss, "ref_aux": ref_aux,
+           "ref_grad_norm": ref_norm, "ref_s": ref_s, "peak_bytes": peak,
+           "capacity": plain["capacity"],
+           "plain_drop_share": plain["drop_share"],
+           "plain_near_ties": plain["near_ties"], "port": port,
+           "unforced": unforced, "flips": flips,
+           "control_neighbour_expert": control,
+           "limit_leaf_rel_l2": TRAIN_GRAD_REL_L2_LIMIT,
+           "limit_norm_rel": TRAIN_NORM_REL_LIMIT,
+           "tie_margin": MOE_ROUTER_TIE}
+    log(f"  gradients at the plain f32 forward's routing (batch {rows} x "
+        f"{s}, capacity {plain['capacity']} rows an expert, drops by layer "
+        f"{[round(d, 4) for d in plain['drop_share']]}; {ref_s:.1f} s, peak "
+        f"{peak / 2**30:.2f} GiB): loss {port['loss']:.5f} vs "
+        f"{ref_loss:.5f}, aux {port['aux']:.6f} vs {ref_aux:.6f}; grad_norm "
+        f"{port['grad_norm']:.5f} vs {ref_norm:.5f} (rel "
+        f"{port['norm_rel_err']:.2e}, limit {TRAIN_NORM_REL_LIMIT}); worst "
+        f"leaf {port['worst_leaf']} rel L2 {port['worst_leaf_rel_l2']:.2e} "
+        f"(limit {TRAIN_GRAD_REL_L2_LIMIT})")
+    log("    leaf rel L2: " + ", ".join(
+        f"{n} {e:.2e}" for n, e in port["leaf_rel_l2"].items()))
+    log(f"    control (each expert's output from its neighbour's rows): "
+        f"worst leaf {control['worst_leaf']} rel L2 "
+        f"{control['worst_leaf_rel_l2']:.3f}, grad_norm rel "
+        f"{control['norm_rel_err']:.2e}")
+    log(f"    unforced (the port's own routing): {flips['flips']} of "
+        f"{g * cfg.n_experts_per_tok * len(flips['layers'])} (token, layer) "
+        f"choices differ from the f32 router's on the port's own input, "
+        f"all within {flips['flip_margin_max']:.2e} of a tie (bound "
+        f"{MOE_ROUTER_TIE}; near ties in the plain forward by layer "
+        f"{plain['near_ties']}); tokens routed otherwise than the "
+        f"free-running plain forward by layer "
+        f"{flips['differs_from_free_f32']}; grad_norm rel "
+        f"{unforced['norm_rel_err']:.2e}, worst leaf "
+        f"{unforced['worst_leaf']} rel L2 "
+        f"{unforced['worst_leaf_rel_l2']:.2e}, loss {unforced['loss']:.5f}")
+    if not (port["worst_leaf_rel_l2"] <= TRAIN_GRAD_REL_L2_LIMIT
+            and port["norm_rel_err"] <= TRAIN_NORM_REL_LIMIT):
+        raise RuntimeError(f"MoE training gradients off the plain "
+                           f"forward's: {port}")
+    if not control["worst_leaf_rel_l2"] > TRAIN_GRAD_REL_L2_LIMIT:
+        raise RuntimeError(f"the neighbour-expert control passed: {control}")
+    if not flips["flip_margin_max"] < MOE_ROUTER_TIE:
+        raise RuntimeError(f"an expert choice differs away from a tie: "
+                           f"{flips}")
+    return out
+
+
+class RoutingWatch:
+    """Each step's router readings while the trainer runs: per routed layer
+    (its forward, the first of its two calls a step under remat) the
+    assignments that fit their expert's buffer (``dispatch_positions``'s
+    counts) and the unscaled load-balance loss (a uniform router scores
+    1), and the step's ``aux_loss``. The tensors are read once the run is
+    over, so the steps sync no more than they would."""
+
+    def __init__(self, torch, trainer, n_routed: int):
+        from k8s_runpod_kubelet_tpu_torch.models import moe
+
+        self.moe, self.n = moe, n_routed
+        self.real = (moe.dispatch_positions, moe.load_balance_loss)
+        self.kept, self.balance, self.aux = [], [], []
+        self._step: dict = {"kept": [], "balance": []}
+        watch = self
+
+        def dispatch(*a, **kw):
+            pos, counts = watch.real[0](*a, **kw)
+            watch._step["kept"].append(counts.sum())
+            return pos, counts
+
+        def balance(*a, **kw):
+            out = watch.real[1](*a, **kw)
+            watch._step["balance"].append(out.detach())
+            return out
+
+        inner = trainer.step_fn
+
+        def step_fn(*a, **kw):
+            watch._step = {"kept": [], "balance": []}
+            out = inner(*a, **kw)
+            watch.kept.append(watch._step["kept"][:n_routed])
+            watch.balance.append(watch._step["balance"][:n_routed])
+            watch.aux.append(out["aux_loss"])
+            return out
+
+        trainer.step_fn = step_fn
+        moe.dispatch_positions, moe.load_balance_loss = dispatch, balance
+
+    def close(self, assignments: int) -> dict:
+        """Restore the module; the readings as floats: per step and routed
+        layer the share of the ``assignments`` (B x S x k) dropped and the
+        load-balance loss, and each step's aux_loss."""
+        self.moe.dispatch_positions, self.moe.load_balance_loss = self.real
+        return {"drop_share": [[1.0 - float(c) / assignments for c in step]
+                               for step in self.kept],
+                "load_balance": [[float(b) for b in step]
+                                 for step in self.balance],
+                "aux_loss": [float(a) for a in self.aux]}
+
+
+def moe_finetune_phase(torch, dev, card: str) -> dict:
+    """Phase 9e (c): ``train_main.main --model deepseek-v2-lite`` (all 27
+    layers, random init from its seed, the frozen base drawn straight into
+    bf16) ``--lora-rank 16 --lora-targets wq,wo --fused-ce-chunks 8
+    --batch 4 --seq-len 2048`` for MOE_FT_STEPS steps from a token file
+    (phase 9f's seeded pattern), checkpoints every MOE_FT_EVERY steps,
+    a telemetry line every step: the summary line, the loss falling, the
+    aux finite each step, every frozen leaf (the dense prefix, the experts
+    and the router among them) bit-identical after the run, Adam moments
+    only on the adapters, the peak within the card (the init's too),
+    launches exact each step, one heartbeat a step; then a second
+    ``train_main`` resumes at step MOE_FT_STEPS with every leaf
+    bit-identical to the first run's last."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from k8s_runpod_kubelet_tpu_torch.models import MODEL_CONFIGS
+    from k8s_runpod_kubelet_tpu_torch.ops import (flash_dkv, flash_dq,
+                                                  flash_fwd, rms_norm)
+    from k8s_runpod_kubelet_tpu_torch.workloads import train as train_mod
+    from k8s_runpod_kubelet_tpu_torch.workloads import train_main
+    from k8s_runpod_kubelet_tpu_torch.workloads.telemetry import (
+        parse_heartbeat, parse_telemetry)
+
+    cfg = MODEL_CONFIGS[MOE_FT_MODEL]()
+    n = cfg.n_layers
+    # the adapters sit in the main stack: the dense prefix takes a frozen
+    # input and holds no adapter, so autograd runs no backward there, and
+    # its remat recompute, dQ and dK/dV never launch
+    m = n - cfg.n_dense_prefix
+    layer_norms = 2 + (cfg.is_mla + (cfg.mla_q_lora_rank is not None))
+    kernels = (flash_fwd, flash_dq, flash_dkv, rms_norm)
+    per_step = {"flash_fwd": n + m, "flash_dq": m, "flash_dkv": m,
+                "rms_norm": layer_norms * (n + m) + 1}
+    made: list = []
+
+    class Routed(watched_trainer(torch, train_mod.Trainer, kernels, made)):
+        """The watched trainer with its routing read (``RoutingWatch``)."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.routing = RoutingWatch(torch, self, m)
+
+    def routing_of(tr) -> dict:
+        return tr.routing.close(FT_BATCH * FT_SEQ * cfg.n_experts_per_tok)
+    cap = _Capture()
+    watched_logs = [logging.getLogger("train-main"),
+                    logging.getLogger("k8s_runpod_kubelet_tpu_torch.workloads")]
+    for lg in watched_logs:
+        lg.addHandler(cap)
+        lg.setLevel(logging.INFO)
+    train_mod.Trainer, real_trainer = Routed, train_mod.Trainer
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            rng = np.random.default_rng(SEED)
+            pattern = rng.integers(0, cfg.vocab_size, FT_PATTERN)
+            data = os.path.join(tmp, "tokens.bin")
+            np.resize(pattern, FT_WINDOWS * FT_SEQ + 1).astype("<i4") \
+                .tofile(data)
+            ck = os.path.join(tmp, "ck")
+            argv = ["--model", cfg.name, "--lora-rank", str(FT_RANK),
+                    "--lora-targets", MOE_FT_TARGETS, "--fused-ce-chunks",
+                    str(FT_CHUNKS), "--batch", str(FT_BATCH), "--seq-len",
+                    str(FT_SEQ), "--lr", str(FT_LR), "--data", data,
+                    "--checkpoint-dir", ck, "--checkpoint-every",
+                    str(MOE_FT_EVERY), "--telemetry-every", "1"]
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            stdout, tee = io.StringIO(), _Tee(sys.stderr)
+            # the main path: counts set to 0 just before the run, read
+            # just after
+            for k in kernels:
+                k.launches = 0
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(stdout), \
+                    contextlib.redirect_stderr(tee):
+                rc = train_main.main(argv + ["--steps", str(MOE_FT_STEPS)])
+            main_s = time.perf_counter() - t0
+            launches = {k.__name__: k.launches for k in kernels}
+            peak = torch.cuda.max_memory_allocated()
+            if rc != 0 or len(made) != 1:
+                raise RuntimeError(f"(c) train_main exited {rc}, "
+                                   f"{len(made)} trainers")
+            summary = json.loads(stdout.getvalue().strip().splitlines()[-1])
+            tr = made[0]
+            routing = routing_of(tr)
+            after = leaf_checksums(torch, tr.params, True)
+            moments = list(leaf_checksums(torch, tr.opt_state["mu"], False))
+            beats = [parse_heartbeat(ln) for ln in tee.lines
+                     if ln.startswith("TPU_STEP_HEARTBEAT")]
+            last = parse_telemetry("\n".join(tee.lines))
+            frozen_bytes = sum(t.numel() * t.element_size()
+                               for t in train_mod._leaves(tr.params)
+                               if not t.requires_grad)
+            step_s = statistics.median(tr.walls[1:])
+            out = {"model": cfg.name, "layers": n, "summary": summary,
+                   "losses": tr.losses, "aux_losses": tr.auxes,
+                   "step_walls_s": tr.walls, "step_s_median": step_s,
+                   "tokens_per_s": FT_BATCH * FT_SEQ / step_s,
+                   "peak_bytes": peak, "init_peak_bytes": tr.init_peak,
+                   "frozen_bytes": frozen_bytes,
+                   "frozen_leaves": len(after), "launches": launches,
+                   "launches_per_step": per_step, "main_s": main_s,
+                   "heartbeats": beats, "last_telemetry": last,
+                   "routing": routing}
+            log(f"  (c) [{card}] {cfg.name} ({n} layers) LoRA r={FT_RANK} on "
+                f"{MOE_FT_TARGETS} through train_main: losses "
+                f"{[round(x, 4) for x in tr.losses]}, aux "
+                f"{[round(x, 6) for x in tr.auxes]}; step walls "
+                f"{[round(w, 4) for w in tr.walls]} s, median of steps 2-"
+                f"{MOE_FT_STEPS} {step_s:.4f} s, "
+                f"{out['tokens_per_s']:.0f} tokens/s; frozen leaves "
+                f"{frozen_bytes / 2**30:.2f} GiB ({len(after)} of them); "
+                f"peak {peak / 2**30:.2f} GiB allocated over the steps and "
+                f"saves ({tr.init_peak / 2**30:.2f} GiB in the init); "
+                f"launches {launches} ({per_step} a step); {len(beats)} "
+                f"heartbeats; train_main {main_s:.1f} s; summary {summary}")
+            log(f"  (c) dropped share by step, the mean over the {m} routed "
+                f"layers: {[round(sum(d) / m, 4) for d in routing['drop_share']]}"
+                f"; load-balance loss, their mean: "
+                f"{[round(sum(b) / m, 4) for b in routing['load_balance']]}")
+            if not (summary["workload"] == "pretrain"
+                    and summary["model"] == cfg.name
+                    and summary["steps"] == MOE_FT_STEPS
+                    and math.isfinite(summary["final_loss"])):
+                raise RuntimeError(f"(c) the summary line {summary}")
+            if not tr.losses[-1] < tr.losses[0]:
+                raise RuntimeError(f"(c) the loss did not fall: {tr.losses}")
+            if not all(math.isfinite(a) and a > 0 for a in tr.auxes):
+                raise RuntimeError(f"(c) aux_loss {tr.auxes}")
+            if after != tr.init_sums:
+                raise RuntimeError("(c) frozen leaves changed: "
+                                   f"{[k for k in after if after[k] != tr.init_sums.get(k)]}")
+            for want in ("prefix_layers/w_down", "layers/we_gate",
+                         "layers/we_down", "layers/router",
+                         "layers/wq/w", "layers/ws_up"):
+                if want not in after:
+                    raise RuntimeError(f"(c) {want} is not frozen: "
+                                       f"{sorted(after)}")
+            if not moments or not all(m.endswith(("/lora_a", "/lora_b"))
+                                      for m in moments):
+                raise RuntimeError(f"(c) Adam moments on {moments}")
+            if not max(peak, tr.init_peak) <= CARD_BYTES:
+                raise RuntimeError(f"(c) peak {peak} bytes (init "
+                                   f"{tr.init_peak}) does not fit the card")
+            for i, got in enumerate(tr.launches):
+                if got != per_step:
+                    raise RuntimeError(f"(c) step {i + 1} launched {got}, "
+                                       f"not {per_step}")
+            if launches != {k: v * MOE_FT_STEPS for k, v in per_step.items()}:
+                raise RuntimeError(f"(c) launches over the run {launches}")
+            if [b[1] for b in beats] != list(range(1, MOE_FT_STEPS + 1)) \
+                    or last is None or last["step"] != MOE_FT_STEPS:
+                raise RuntimeError(f"(c) heartbeats {beats}, last telemetry "
+                                   f"{last}")
+            final_sums = leaf_checksums(torch, tr.params, False)
+            del tr
+            made.clear()
+            gc.collect()
+            torch.cuda.empty_cache()
+            # a second life resumes at step MOE_FT_STEPS
+            cap.lines.clear()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()), \
+                    contextlib.redirect_stderr(_Tee(sys.stderr)):
+                rc = train_main.main(argv + ["--steps", "1"])
+            resume_s = time.perf_counter() - t0
+            tr2 = made[0]
+            routing_of(tr2)
+            marker = f"resumed from checkpoint step {MOE_FT_STEPS}"
+            if rc != 0 or marker not in cap.lines:
+                raise RuntimeError(f"(c) the second life: rc {rc}, logged "
+                                   f"{cap.lines}")
+            if tr2.restored_sums != final_sums:
+                bad = [k for k in final_sums
+                       if tr2.restored_sums.get(k) != final_sums[k]]
+                raise RuntimeError(f"(c) restored leaves differ: {bad}")
+            out.update(resumed=True, restored_leaves=len(final_sums),
+                       resume_s=resume_s, resume_loss=tr2.losses[-1])
+            log(f"  (c) [{card}] a second train_main logged {marker!r}; all "
+                f"{len(final_sums)} leaves bit-identical to the first run's "
+                f"last; its step's loss {tr2.losses[-1]:.4f} "
+                f"({resume_s:.1f} s)")
+            del tr2
+    finally:
+        train_mod.Trainer = real_trainer
+        for tr in made:
+            routing_of(tr)
+        for lg in watched_logs:
+            lg.removeHandler(cap)
+        made.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def moe_train_phase(torch, dev, card: str) -> dict:
+    """Phase 9e: (a) mixtral-8x7b and (b) deepseek-v2-lite (fused loss)
+    through ``train_phase`` at ``train_layers`` depth, (c) the LoRA
+    fine-tune of deepseek-v2-lite at full depth (module docstring)."""
+    from k8s_runpod_kubelet_tpu_torch.models import MODEL_CONFIGS
+    from k8s_runpod_kubelet_tpu_torch.workloads.step_profile import \
+        train_layers
+
+    out = {}
+    for name, key, chunks in (("mixtral-8x7b", "mixtral", 0),
+                              ("deepseek-v2-lite", "deepseek", FT_CHUNKS)):
+        cfg = dataclasses.replace(MODEL_CONFIGS[name](),
+                                  n_layers=train_layers(name))
+        log(f"  9e ({'ab'[len(out)]}): {name} widths, {cfg.n_layers} layers, "
+            f"batch 8 x 2048, fused_ce_chunks {chunks}")
+        out[key] = train_phase(torch, dev, card, cfg, chunks=chunks)
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"  9e (c): {MOE_FT_MODEL} LoRA r={FT_RANK} on {MOE_FT_TARGETS} at "
+        f"full depth through train_main")
+    out["finetune"] = moe_finetune_phase(torch, dev, card)
     return out
 
 
@@ -3629,7 +4321,8 @@ def plain_attention(torch, cfg, lp, x, cos, sin):
 
 
 def plain_logits(torch, cfg, params, tokens, skip_layer=None,
-                 last_only=False, hidden=False, margins=None, picks=None):
+                 last_only=False, hidden=False, margins=None, picks=None,
+                 mlp=None):
     """Logits (B, S, V) of tokens (B, S), or with ``last_only`` the last
     position's (B, V), from a plain f32 forward of the same weights: no
     paging, no KV quantization and no kernels (``_attention_plain``,
@@ -3639,7 +4332,9 @@ def plain_logits(torch, cfg, params, tokens, skip_layer=None,
     the direct form (``mla_direct_qkv``). ``skip_layer`` leaves one layer
     out (a control); ``hidden`` returns the final-norm hidden states
     instead of logits; ``margins`` and ``picks`` collect ``plain_mlp``'s
-    near ties and choices of an MoE router, one entry a layer."""
+    near ties and choices of an MoE router, one entry a layer; ``mlp``
+    (layer, its f32 leaves, normed h) -> MLP output replaces ``plain_mlp``
+    in the layers with a router (phase 9e's capacity routing)."""
     import torch.nn.functional as F
 
     from k8s_runpod_kubelet_tpu_torch.ops.rmsnorm import _rms_norm_plain
@@ -3657,7 +4352,10 @@ def plain_logits(torch, cfg, params, tokens, skip_layer=None,
         lp = {k: layer_f32(w, j) for k, w in stack.items()}
         x = x + plain_attention(torch, cfg, lp, x, cos, sin)
         h = _rms_norm_plain(x, lp["mlp_norm"], cfg.norm_eps)
-        x = x + plain_mlp(torch, F, cfg, lp, h, margins, picks=picks)
+        if mlp is not None and "router" in lp:
+            x = x + mlp(layer, lp, h)
+        else:
+            x = x + plain_mlp(torch, F, cfg, lp, h, margins, picks=picks)
         del lp
     if last_only:
         x = x[:, -1]
@@ -6369,7 +7067,8 @@ def deepseek_profile(torch, card: str) -> dict:
     """(d) ``step_profile --model deepseek-v2-lite`` in bf16 and with
     ``--int4``: the decode step eagerly and as a replay, and a 1024-token
     chunk, device ms by family (the bf16 expert products their own
-    ``experts`` family in the eager steps)."""
+    ``experts`` family in the eager steps); in bf16 also a training step
+    at 4 layers (the experts' forward and backward their own family)."""
     import tempfile
 
     from k8s_runpod_kubelet_tpu_torch.workloads import step_profile
@@ -6405,6 +7104,10 @@ def deepseek_profile(torch, card: str) -> dict:
                "chunk_1024": {"device_ms": ms(prof["prefill"]),
                               "by_family": fams(prof["prefill"]),
                               "wall_ms": prof["prefill"]["wall_ms"]}}
+        if "train" in prof:
+            rec["train_4_layers"] = {"device_ms": ms(prof["train"]),
+                                     "by_family": fams(prof["train"]),
+                                     "wall_ms": prof["train"]["wall_ms"]}
         out[label] = rec
         for step, r in rec.items():
             log(f"  (d) [{card}] {DS_MODEL} {label} {step}: device "
@@ -8253,6 +8956,10 @@ def main(argv=None) -> int:
     p.add_argument("--qk-witness", action="store_true",
                    help="run only the gemma3-12b q/k scale witness "
                    "(qk_witness_phase), print its JSON and exit")
+    p.add_argument("--moe-train", action="store_true",
+                   help="run only phase 9e (MoE training; the kernels it "
+                   "runs build at their first launch), print its JSON and "
+                   "exit")
     args = p.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -8272,6 +8979,9 @@ def main(argv=None) -> int:
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     if args.qk_witness:
         print(json.dumps(qk_witness_phase(torch, dev, card)), flush=True)
+        return 0
+    if args.moe_train:
+        print(json.dumps(moe_train_phase(torch, dev, card)), flush=True)
         return 0
 
     log("phase build")
@@ -8653,6 +9363,14 @@ def main(argv=None) -> int:
         f"{ft['step_s_median'] / 32 / (FT_BATCH * FT_SEQ) * 1e6:.3f} ms "
         f"(telemetry on, frozen base, fused loss) against phase 9's full "
         f"step {train['step_s_median'] / train['layers'] / (train['batch'] * train['seq_len']) * 1e6:.3f} ms")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log(f"phase 9e (MoE training): (a) mixtral-8x7b and (b) "
+        f"deepseek-v2-lite widths at reduced depth, batch 8 x 2048, the "
+        f"latter with the fused loss; (c) a LoRA r={FT_RANK} fine-tune of "
+        f"{MOE_FT_MODEL} at full depth through train_main")
+    moe_train = moe_train_phase(torch, dev, card)
 
     def record(name, route, source, replaces, cases, launches, by_path,
                library_call):
@@ -8671,12 +9389,16 @@ def main(argv=None) -> int:
         return [{"case": c["case"], **c["kernels"][kname]} for c in flash]
 
     def finetune_paths(kname) -> dict:
-        """Phase 9f's launches of ``kname`` by run."""
+        """Phase 9f's and 9e's launches of ``kname`` by run."""
         runs = fused_dots["runs"]
         return {"train_naive_loss": runs["naive"]["launches"][kname],
                 "train_fused_loss": runs["fused"]["launches"][kname],
                 "train_dots": runs["fused_dots"]["launches"][kname],
-                "finetune_lora": finetune["finetune"]["launches"][kname]}
+                "finetune_lora": finetune["finetune"]["launches"][kname],
+                "train_mixtral": moe_train["mixtral"]["launches"][kname],
+                "train_deepseek": moe_train["deepseek"]["launches"][kname],
+                "finetune_deepseek_lora":
+                    moe_train["finetune"]["launches"][kname]}
 
     def family_paths(kname) -> dict:
         """Phase 7f's launches of ``kname`` by engine run."""
@@ -8902,7 +9624,7 @@ def main(argv=None) -> int:
                        "ring_train": ring_train,
                        "ring_train_mla": ring_train_mla,
                        "train_main": train_cli, "finetune": finetune,
-                       "families": families,
+                       "moe_train": moe_train, "families": families,
                        "llama3_70b": big, "interleave": interleave,
                        "build_s": {**nvcc_s, "triton": triton_s},
                        "sass": sass, "int4_expert_unpack_mix": unpack_mix},

@@ -46,7 +46,9 @@ shared experts as one dense SwiGLU, and V3's ``router_bias`` (L, X) f32;
 its first ``n_dense_prefix`` layers are a stack of their own,
 ``prefix_layers``, with a dense MLP at ``dense_prefix_mlp_dim``, which run
 before ``layers`` and cache into their own sections (``c_pre``/``kr_pre``,
-the JAX layout).
+the JAX layout). Training routes at ``capacity_factor`` and adds the
+router's scaled losses, ``forward(with_aux=True)``'s second output, to
+its objective.
 
 Multi-LoRA serving (the JAX model's ``adapters``/``adapter_ids``): every
 serving step takes per-request adapters, ``{target: {"a": (L, N, in, r),
@@ -897,9 +899,14 @@ class LlamaModel:
     def forward(self, params: Params, tokens: torch.Tensor,
                 positions: Optional[torch.Tensor] = None,
                 return_hidden: bool = False,
-                train: bool = True) -> torch.Tensor:
+                train: bool = True, with_aux: bool = False):
         """tokens (B, S) -> logits (B, S, V) in ``cfg.dtype``, or with
-        ``return_hidden`` the final-norm hidden states (B, S, E). Every
+        ``return_hidden`` the final-norm hidden states (B, S, E); with
+        ``with_aux`` the pair (that, aux), aux the f32 sum over the routed
+        layers of ``router_aux_coef`` x load-balance loss + ``router_z_coef``
+        x z-loss (the JAX ``forward(with_aux=True)``: 0 for a dense layer
+        and under V3's sigmoid routing), the term a trainer adds to its
+        loss. Every
         layer is causal flash attention (under the layer's window) and a
         SwiGLU or GeGLU MLP (or the sparse MoE
         MLP, routed at ``cfg.capacity_factor``, or with ``train=False`` at
@@ -929,6 +936,8 @@ class LlamaModel:
         remat = cfg.remat and cfg.remat_policy != "none"
         context = ({"context_fn": _dots_context}
                    if cfg.remat_policy == "dots" else {})
+        aux = (torch.zeros((), dtype=torch.float32, device=x.device)
+               if with_aux else None)
         for stack, n, _ in self.stacks(params):
             # one unbind per stacked leaf: its backward stacks the layer
             # gradients once (a quantized leaf is sliced per layer)
@@ -937,22 +946,28 @@ class LlamaModel:
                       for name, leaf in stack.items()}
             for i in range(n):
                 lp = {name: leaves[i] for name, leaves in layers.items()}
+                kw = dict(train=train, layer=i, with_aux=with_aux)
                 if remat:
-                    x = torch.utils.checkpoint.checkpoint(
-                        self._layer, x, lp, positions, train=train, layer=i,
-                        use_reentrant=False, **context)
+                    out = torch.utils.checkpoint.checkpoint(
+                        self._layer, x, lp, positions, use_reentrant=False,
+                        **context, **kw)
                 else:
-                    x = self._layer(x, lp, positions, train=train, layer=i)
+                    out = self._layer(x, lp, positions, **kw)
+                if with_aux:
+                    x, layer_aux = out
+                    aux = aux + layer_aux
+                else:
+                    x = out
         x = rms_norm(x, self._norm_w(params["final_norm"]), cfg.norm_eps)
-        if return_hidden:
-            return x
-        return self._lm_head(params, x)
+        out = x if return_hidden else self._lm_head(params, x)
+        return (out, aux) if with_aux else out
 
     def _layer(self, x: torch.Tensor, lp: Params,
                positions: Optional[torch.Tensor],
                return_kv: bool = False, train: bool = True,
                ad: Optional[dict] = None,
-               ids: Optional[torch.Tensor] = None, layer: int = 0):
+               ids: Optional[torch.Tensor] = None, layer: int = 0,
+               with_aux: bool = False):
         """Decoder layer ``layer`` of ``forward``: the JAX model's dense
         ``_attention_block`` (or for MLA ``_mla_attention_block``) then
         ``_mlp_block``, the matmuls through ``_mm`` (raw weights cast to
@@ -962,11 +977,13 @@ class LlamaModel:
         layer's cache content: the rotated k and v (B, S, Hkv, D), or for
         MLA the normed latent c (B, S, r) and rotated rope key kr (B, S,
         dr). ``ad`` (one layer's adapter stacks) and ``ids`` (B,) add each
-        row's multi-LoRA deltas."""
+        row's multi-LoRA deltas. ``with_aux`` returns (x, the layer's
+        scaled router aux, ``_mlp``'s) instead of x (not with
+        ``return_kv``)."""
         cfg = self.cfg
         if cfg.is_mla:
             x, c, kr = self._mla_attention(x, lp, positions)
-            x = self._mlp(x, lp, train)
+            x = self._mlp(x, lp, train, with_aux=with_aux)
             return (x, c, kr) if return_kv else x
         b, s, _ = x.shape
         hd = cfg.head_dim_
@@ -986,7 +1003,7 @@ class LlamaModel:
         o = o.transpose(1, 2).reshape(b, s, cfg.n_heads * hd)
         o = self._post_norm(self._proj(o, lp["wo"], "wo", ad, ids),
                             lp.__getitem__, "attn_post_norm")
-        x = self._mlp(x + o, lp, train, ad, ids)
+        x = self._mlp(x + o, lp, train, ad, ids, with_aux)
         return (x, k, v) if return_kv else x
 
     def _mla_attention(self, x: torch.Tensor, lp: Params,
@@ -1870,7 +1887,7 @@ class LlamaModel:
 
     def _mlp(self, x: torch.Tensor, lp: Params, train: bool,
              ad: Optional[dict] = None,
-             ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+             ids: Optional[torch.Tensor] = None, with_aux: bool = False):
         """The JAX model's ``_mlp_block`` with its residual, on one layer's
         leaves: the SwiGLU (or GeGLU) MLP, or for a layer with a router
         ``moe_mlp`` (a DeepSeek model's dense prefix holds the dense MLP's
@@ -1880,10 +1897,13 @@ class LlamaModel:
         drops, as in the JAX model. V3's ``router_bias`` selects by sigmoid
         scores (``route_top_k_v3``); DeepSeek's shared experts, a dense
         SwiGLU of the ``ws_*`` leaves the router never sees, add to the
-        routed output. The router's aux losses are not computed (training
-        an MoE model is not ported). ``ad`` adds each row's multi-LoRA
-        deltas to the dense MLP's three products. With ``post_norms`` the
-        output passes ``mlp_post_norm`` before the residual add."""
+        routed output. ``with_aux`` returns (x, aux): aux the f32
+        ``router_aux_coef`` x load-balance loss + ``router_z_coef`` x z-loss
+        of a routed layer (the JAX ``_mlp_block``'s), 0 for a dense one;
+        without it the router's losses are not computed (serving). ``ad``
+        adds each row's multi-LoRA deltas to the dense MLP's three
+        products. With ``post_norms`` the output passes ``mlp_post_norm``
+        before the residual add."""
         cfg, dt = self.cfg, self.cfg.dtype
         h = rms_norm(x, self._norm_w(lp["mlp_norm"]), cfg.norm_eps)
         if "router" not in lp:
@@ -1892,24 +1912,29 @@ class LlamaModel:
                     else F.gelu(gate, approximate="tanh"))
             act = gate * self._proj(h, lp["w_up"], "w_up", ad, ids)
             y = self._proj(act, lp["w_down"], "w_down", ad, ids)
+            aux = torch.zeros((), dtype=torch.float32, device=x.device) \
+                if with_aux else None
         else:
             factor = (cfg.capacity_factor if train
                       else cfg.n_experts / cfg.n_experts_per_tok)
-            y, _, _ = moe_mlp(h, lp["router"], lp["we_gate"], lp["we_up"],
-                              lp["we_down"],
-                              n_experts_per_tok=cfg.n_experts_per_tok,
-                              capacity_factor=factor, dtype=dt,
-                              norm_topk=cfg.router_norm_topk,
-                              router_bias=lp.get("router_bias"),
-                              router_n_group=cfg.router_n_group,
-                              router_topk_group=cfg.router_topk_group,
-                              routed_scaling=cfg.routed_scaling_factor,
-                              with_losses=False)
+            y, lb, z = moe_mlp(h, lp["router"], lp["we_gate"], lp["we_up"],
+                               lp["we_down"],
+                               n_experts_per_tok=cfg.n_experts_per_tok,
+                               capacity_factor=factor, dtype=dt,
+                               norm_topk=cfg.router_norm_topk,
+                               router_bias=lp.get("router_bias"),
+                               router_n_group=cfg.router_n_group,
+                               router_topk_group=cfg.router_topk_group,
+                               routed_scaling=cfg.routed_scaling_factor,
+                               with_losses=with_aux)
+            aux = (cfg.router_aux_coef * lb + cfg.router_z_coef * z
+                   if with_aux else None)
             if "ws_gate" in lp:
                 act = F.silu(_mm(h, lp["ws_gate"], dt)) * _mm(h, lp["ws_up"],
                                                                dt)
                 y = y + _mm(act, lp["ws_down"], dt)
-        return x + self._post_norm(y, lp.__getitem__, "mlp_post_norm")
+        x = x + self._post_norm(y, lp.__getitem__, "mlp_post_norm")
+        return (x, aux) if with_aux else x
 
     def _mla_project(self, h, lp, layer: Optional[int], positions):
         """Port of the JAX ``_mla_project``: q_nope (B,K,H,hd), q_rope

@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any
+from typing import Any, Optional
 
 import numpy as np
 import torch
@@ -55,12 +55,15 @@ def is_lora(w: Any) -> bool:
 
 
 def apply_lora(cfg: LlamaConfig, params: Params, lc: LoraConfig,
-               generator: torch.Generator, device=None) -> Params:
+               generator: torch.Generator, device=None,
+               dtype: Optional[torch.dtype] = None) -> Params:
     """Wrap the target projections of ``params`` with fresh adapters drawn
     from ``generator`` on ``device`` (default ``cuda``; the generator must
-    live there): A fan-in-scaled gaussian in the base weight's dtype, B
-    zero, scale (L,) f32 at alpha / rank, so the wrapped model computes
-    exactly the base model. The base leaves are shared, not copied."""
+    live there): A fan-in-scaled gaussian in ``dtype`` (default the base
+    weight's), B zero, scale (L,) f32 at alpha / rank, so the wrapped
+    model computes exactly the base model. Adapters wrap the main stack,
+    ``layers``, alone (a DeepSeek dense prefix stays as it is), as in the
+    JAX package. The base leaves are shared, not copied."""
     if not lc.targets:
         raise ValueError("LoRA with no targets would freeze the whole model "
                          "and train nothing")
@@ -81,10 +84,11 @@ def apply_lora(cfg: LlamaConfig, params: Params, lc: LoraConfig,
                              "weights")
         d_in, d_out = w.shape[-2], w.shape[-1]
         lead = tuple(w.shape[:-2])
+        ad_dtype = dtype or w.dtype
         a = (torch.randn((*lead, d_in, lc.rank), generator=generator,
                          device=dev, dtype=torch.float32)
-             / math.sqrt(d_in)).to(w.dtype)
-        b = torch.zeros((*lead, lc.rank, d_out), dtype=w.dtype, device=dev)
+             / math.sqrt(d_in)).to(ad_dtype)
+        b = torch.zeros((*lead, lc.rank, d_out), dtype=ad_dtype, device=dev)
         # (L,): every leaf keeps the leading layer axis
         scale = torch.full(lead, lc.scale, dtype=torch.float32, device=dev)
         layers[name] = {"w": w, "lora_a": a, "lora_b": b, "scale": scale}

@@ -15,6 +15,14 @@ through the ``int4_expert_matmul`` kernel with each expert's filled-row
 count, so row tiles past it read no weights. DeepSeek-V3's sigmoid
 routing (``route_top_k_v3``) selects with a correction bias over groups of
 experts; expert parallelism is not ported (ROADMAP Queue 1 #8).
+
+Training differentiates ``moe_mlp`` by autograd, as the JAX package takes
+``jax.grad`` of its own: gradients reach the experts through the three
+products, the tokens through the gather and the dispatch's ``index_put``
+(a dropped assignment, written to the sink row, gets none), and the
+router through the combine weights and the two losses. V3's correction
+bias only selects, so no gradient path reaches it (``jax.grad`` gives it
+an exact zero; the trainer fills one in).
 """
 
 from __future__ import annotations

@@ -81,21 +81,29 @@ the arena int8 with its scale sections) and the training step, which
 never sees quantized weights, is left out; ``--int4`` weights are drawn
 and quantized a layer at a time (``init_quantized_params``, the serve
 CLI's way), so a model whose bf16 tree does not fit the card
-(mixtral-8x7b, 93 GB) profiles too. ``--model mla-8b`` profiles the
-serving steps over the latent arena (int8 latents with ``--kv-int8``) and,
-without ``--kv-int8``, the training step in MLA's direct form (the flash
-kernels at head_dim + rope_dim = 192; ``--seq N`` its ring too). Only
-the models in ``TRAINED`` profile a training step: an MoE model
-(mixtral-8x7b) has none in this port, and the other dense families
+(mixtral-8x7b, 93 GB) profiles too. Such a model (``SERVE_INT4_ONLY``)
+profiles its training step alone without ``--int4``:
+
+    python -m k8s_runpod_kubelet_tpu_torch.workloads.step_profile \
+        --model mixtral-8x7b
+
+``--model mla-8b`` profiles the serving steps over the latent arena (int8
+latents with ``--kv-int8``) and, without ``--kv-int8``, the training step
+in MLA's direct form (the flash kernels at head_dim + rope_dim = 192;
+``--seq N`` its ring too). Only the models in ``TRAINED`` profile a
+training step: llama3-8b, llama31-8b and mla-8b at 4 layers, the MoE
+models mixtral-8x7b at 2 and deepseek-v2-lite at 4 (its dense prefix layer
+and 3 routed ones, the flash kernels at D = 192); the other dense families
 (gemma-7b, mistral-7b, qwen2-7b, qwen3-8b, llama3-70b) profile their
 serving steps only (gemma-7b's 256000-entry vocabulary alone makes the
 train batch's f32 logits 16.8 GB). An MoE model's expert products are
-their own family, ``int4 experts`` (the ``int4_expert_matmul``
-kernel); in bf16 they are ``torch.bmm`` GEMMs, named as any other, so the
-eager steps run each expert product inside a profiler range and its
-kernels' device time moves from ``gemm`` to ``experts`` (a graph replay
-has no ranges: its ``gemm`` keeps them). deepseek-v2-lite profiles its
-serving steps only.
+their own family, ``int4 experts`` (the ``int4_expert_matmul`` kernel);
+in bf16 they are ``torch.bmm`` GEMMs, named as any other, so the eager
+steps run each expert product inside a profiler range and its kernels'
+device time moves from ``gemm`` to ``experts``, and in a training step
+so do the kernels of each ``bmm``'s backward (the autograd node
+``BmmBackward0``; the remat recompute runs inside the range again). A
+graph replay has no ranges: its ``gemm`` keeps them.
 
 Prints one JSON object (also written to ``--out`` if given): per phase
 the wall time of a step (host clock around work that ends in a
@@ -146,10 +154,18 @@ LORA_ADAPTERS = 4
 LORA_IDS = (0, 1, 2, 3, 4, 1, 2, 3)
 
 TRAIN_LAYERS = 4                          # the widths at the depth one card holds
+# ... except where the widths hold less: Mixtral-8x7B's 1.41 B expert
+# parameters a layer (f32 master weights, gradients and Adam moments, 16
+# bytes each) fit 2 layers
+TRAIN_DEPTH = {"mixtral-8x7b": 2}
 TRAIN_BATCH, TRAIN_SEQ = 8, 2048          # train_main's defaults
-# the models whose training the port runs (chip_smoke phases 9 and 9m);
-# the others profile their serving steps only
-TRAINED = ("llama3-8b", "llama31-8b", "mla-8b")
+# the models whose training the port runs (chip_smoke phases 9, 9m and
+# 9e); the others profile their serving steps only
+TRAINED = ("llama3-8b", "llama31-8b", "mla-8b", "mixtral-8x7b",
+           "deepseek-v2-lite")
+# the models whose bf16 tree does not fit the card: their serving steps
+# profile with --int4 only, and without it their training step alone
+SERVE_INT4_ONLY = ("mixtral-8x7b",)
 
 FAMILIES = (
     ("MLA quant attention", ("paged_attention_multi_mla_quant_kernel",)),
@@ -200,6 +216,15 @@ def trace_kernel_events(path: str) -> dict:
 
 # the profiler range each MoE expert product runs in while profiled
 EXPERTS_RANGE = "moe_expert_matmul"
+# the autograd node of an expert product's backward (in a training step
+# the only ``bmm``); the profiler records it under either name
+EXPERTS_BACKWARD = ("BmmBackward0",
+                    "autograd::engine::evaluate_function: BmmBackward0")
+
+
+def train_layers(name: str) -> int:
+    """The depth a training step of model ``name`` is profiled at."""
+    return TRAIN_DEPTH.get(name, TRAIN_LAYERS)
 
 
 @contextlib.contextmanager
@@ -239,12 +264,18 @@ def _profile(fn, steps: int) -> dict:
     by_family: dict[str, float] = {}
     kernels: dict[str, float] = {}
     experts_us = 0.0
+    backward_us = dict.fromkeys(EXPERTS_BACKWARD, 0.0)
     for ev in prof.key_averages():
         if ev.key == EXPERTS_RANGE:
             # the range's host event sums the device time of the kernels
             # launched inside it; its device-side annotation is no kernel
             if ev.device_type == torch.autograd.DeviceType.CPU:
                 experts_us += ev.device_time_total
+            continue
+        if ev.key in backward_us:
+            # the same kernels under both names: the larger sum counts
+            if ev.device_type == torch.autograd.DeviceType.CPU:
+                backward_us[ev.key] += ev.device_time_total
             continue
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
@@ -254,6 +285,7 @@ def _profile(fn, steps: int) -> dict:
         fam = _family(ev.key)
         by_family[fam] = by_family.get(fam, 0.0) + us / 1e3 / steps
         kernels[ev.key] = kernels.get(ev.key, 0.0) + us / 1e3 / steps
+    experts_us += max(backward_us.values())
     if experts_us and "int4 experts" not in by_family \
             and "gemm" in by_family:
         # the bf16 expert products' GEMMs: their own family
@@ -344,13 +376,14 @@ def _norm_profile(cfg, dev, gen) -> dict:
 
 
 def _train_profile(cfg, dev, seq: int = 1, ring: bool = False) -> dict:
-    """One training step at 4 layers over TRAIN_BATCH x TRAIN_SEQ tokens,
-    in rows of ``seq`` x TRAIN_SEQ positions; with ``ring`` on an
+    """One training step at ``train_layers`` over TRAIN_BATCH x TRAIN_SEQ
+    tokens, in rows of ``seq`` x TRAIN_SEQ positions; with ``ring`` on an
     in-process mesh of ``seq`` sequence shards with ``ring_flash``."""
     from ..parallel import MeshConfig, make_mesh
     from .train import TrainConfig, Trainer, synthetic_batches
 
-    cfg = dataclasses.replace(cfg, n_layers=TRAIN_LAYERS, ring_flash=ring)
+    layers = train_layers(cfg.name)
+    cfg = dataclasses.replace(cfg, n_layers=layers, ring_flash=ring)
     batch, seq_len = TRAIN_BATCH // seq, TRAIN_SEQ * seq
     mesh = make_mesh(MeshConfig(seq=seq)) if ring else None
     tc = TrainConfig(batch_size=batch, seq_len=seq_len, warmup_steps=1)
@@ -359,7 +392,7 @@ def _train_profile(cfg, dev, seq: int = 1, ring: bool = False) -> dict:
                                                       device=dev)))
     torch.cuda.reset_peak_memory_stats()
     prof = _profile(lambda: trainer.run(steps=1, batches=batches), 3)
-    return dict(prof, layers=TRAIN_LAYERS, batch=batch, seq_len=seq_len,
+    return dict(prof, layers=layers, batch=batch, seq_len=seq_len,
                 seq_shards=seq if ring else 1,
                 tokens_per_s=batch * seq_len / prof["wall_ms"] * 1e3,
                 peak_bytes=torch.cuda.max_memory_allocated())
@@ -416,6 +449,15 @@ def main(argv=None) -> int:
         out = {"card": card, "model": cfg.name, "torch": torch.__version__,
                "train": _train_profile(cfg, dev, args.seq),
                "train_ring": _train_profile(cfg, dev, args.seq, ring=True)}
+        return _emit(out, args.out)
+    if cfg.name in SERVE_INT4_ONLY and not args.int4:
+        if (args.kv_int8 or args.speculate or args.tensor_parallel > 1
+                or args.lora_rank or args.prefix_cache == "off"):
+            p.error(f"{cfg.name}'s serving steps need --int4 (its bf16 "
+                    "tree does not fit the card); without it only its "
+                    "training step is profiled")
+        out = {"card": card, "model": cfg.name, "torch": torch.__version__,
+               "train": _train_profile(cfg, dev)}
         return _emit(out, args.out)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     # the same draws either way: init_quantized_params gives

@@ -1,23 +1,29 @@
 """Training on one card: loss, optimizer, train step, data, checkpoints.
 
-Port of the JAX package's ``workloads/train.py`` for the dense Llama
-decoder: f32 master parameters, bf16 compute through ``LlamaModel.forward``
-(flash attention kernels, RMSNorm kernel, remat per layer, "full" or
-"dots"; under an in-process mesh with seq > 1, ring attention over the
-sequence shards), the loss of ``_ce_and_zloss`` or, with
-``fused_ce_chunks``, ``ops.fused_ce.fused_cross_entropy`` over the final
-hidden states (no (B, S, V) logits), and the optimizer written out with
-optax's exact semantics (``clip_by_global_norm`` then ``adamw`` on a
+Port of the JAX package's ``workloads/train.py`` for the Llama decoder,
+dense, MLA or sparse MoE (Mixtral, DeepSeek-MoE): f32 master parameters,
+bf16 compute through ``LlamaModel.forward`` (flash attention kernels,
+RMSNorm kernel, remat per layer, "full" or "dots"; under an in-process
+mesh with seq > 1, ring attention over the sequence shards), the loss of
+``_ce_and_zloss`` or, with ``fused_ce_chunks``,
+``ops.fused_ce.fused_cross_entropy`` over the final hidden states (no (B,
+S, V) logits), and the optimizer written out with optax's exact semantics
+(``clip_by_global_norm`` then ``adamw`` on a
 ``warmup_cosine_decay_schedule``; with a trainable mask, optax's
-``multi_transform`` with ``set_to_zero`` on the frozen leaves).
+``multi_transform`` with ``set_to_zero`` on the frozen leaves). An MoE
+model routes at its ``capacity_factor`` (assignments past it drop) and
+its objective adds the router's load-balance and z losses, as the JAX
+step's does; the step reports them as ``aux_loss`` beside the NLL.
 
 ``Trainer(lora=)`` wraps the target projections with adapters
 (``models.lora.apply_lora``) and trains A and B alone: the frozen leaves
 carry no ``requires_grad``, so autograd builds no gradient for them, and
 the optimizer holds Adam moments for the trainable leaves only. A frozen
-leaf is held in the compute dtype (norms and adapter scales stay f32):
-every use casts it there anyway, so the numbers are the JAX trainer's,
-in half the memory and checkpoint bytes of an f32 copy.
+leaf is held in the compute dtype (norms, the router and adapter scales
+stay f32): every use casts it there anyway, so the numbers are the JAX
+trainer's, in half the memory and checkpoint bytes of an f32 copy; a
+random init draws the frozen leaves straight into it, so the f32 tree is
+never whole on the card.
 
 ``Trainer(telemetry=)`` syncs every step and feeds a
 ``workloads.telemetry.TrainingTelemetry`` (the goodput ledger, step and
@@ -236,24 +242,55 @@ def make_optimizer(tc: TrainConfig,
 
 def _loss(model: LlamaModel, params: Params, inputs: torch.Tensor,
           targets: torch.Tensor, z_loss_coef: float,
-          fused_ce_chunks: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """(mean NLL, z-loss term) of one batch: through the fused chunked
-    loss over the final hidden states when ``fused_ce_chunks`` is set and
-    the head is a plain tensor, through the logits otherwise (a LoRA or
-    quantized head leaf, as the JAX step decides)."""
+          fused_ce_chunks: int
+          ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(mean NLL, z-loss term, router aux) of one batch: through the fused
+    chunked loss over the final hidden states when ``fused_ce_chunks`` is
+    set and the head is a plain tensor, through the logits otherwise (a
+    LoRA or quantized head leaf, as the JAX step decides). The aux is an
+    MoE model's scaled router losses summed over its layers
+    (``forward(with_aux=True)``), 0 for a dense one."""
     cfg = model.cfg
+    moe = bool(cfg.n_experts)
     head = params.get("tok_embed") if cfg.tie_embeddings \
         else params.get("lm_head")
-    if fused_ce_chunks and not isinstance(head, dict):
+    fused = fused_ce_chunks and not isinstance(head, dict)
+    out = model.forward(params, inputs, return_hidden=bool(fused),
+                        with_aux=moe)
+    out, aux = out if moe else (out, torch.zeros((), device=inputs.device))
+    if fused:
         from ..ops.fused_ce import fused_cross_entropy
-        hidden = model.forward(params, inputs, return_hidden=True)
-        return fused_cross_entropy(hidden, head, targets,
-                                   tied=cfg.tie_embeddings,
-                                   z_loss_coef=z_loss_coef,
-                                   logit_softcap=cfg.logit_softcap,
-                                   n_chunks=fused_ce_chunks)
-    return _ce_and_zloss(model.forward(params, inputs), targets,
-                         z_loss_coef)
+        ce, z = fused_cross_entropy(out, head, targets,
+                                    tied=cfg.tie_embeddings,
+                                    z_loss_coef=z_loss_coef,
+                                    logit_softcap=cfg.logit_softcap,
+                                    n_chunks=fused_ce_chunks)
+    else:
+        ce, z = _ce_and_zloss(out, targets, z_loss_coef)
+    return ce, z, aux
+
+
+def loss_aux_and_grads(model: LlamaModel, params: Params,
+                       batch: torch.Tensor, z_loss_coef: float = 0.0,
+                       trainable_mask: Optional[Params] = None,
+                       fused_ce_chunks: int = 0
+                       ) -> tuple[torch.Tensor, torch.Tensor,
+                                  tuple[torch.Tensor, ...]]:
+    """(mean NLL, router aux, gradients of the trainable leaves in
+    ``_leaves(trainable(params, trainable_mask))`` order) of one batch of
+    tokens (B, S + 1): inputs [:, :-1], targets [:, 1:]; the gradients are
+    of the NLL plus the router aux plus the z-loss term (the JAX step's
+    objective). A leaf the objective does not reach (DeepSeek-V3's
+    ``router_bias``, which only selects experts) gets a zero gradient, as
+    ``jax.grad`` gives it, so the optimizer still decays it and the global
+    norm counts it."""
+    leaves = _leaves(trainable(params, trainable_mask))
+    ce, z, aux = _loss(model, params, batch[:, :-1], batch[:, 1:],
+                       z_loss_coef, fused_ce_chunks)
+    grads = torch.autograd.grad(ce + aux + z, leaves, allow_unused=True)
+    grads = tuple(torch.zeros_like(p) if g is None else g
+                  for p, g in zip(leaves, grads))
+    return ce.detach(), aux.detach(), grads
 
 
 def loss_and_grads(model: LlamaModel, params: Params, batch: torch.Tensor,
@@ -261,15 +298,10 @@ def loss_and_grads(model: LlamaModel, params: Params, batch: torch.Tensor,
                    trainable_mask: Optional[Params] = None,
                    fused_ce_chunks: int = 0
                    ) -> tuple[torch.Tensor, tuple[torch.Tensor, ...]]:
-    """(mean NLL, gradients of the trainable leaves in
-    ``_leaves(trainable(params, trainable_mask))`` order) of one batch of
-    tokens (B, S + 1): inputs [:, :-1], targets [:, 1:]; the gradients are
-    of the NLL plus the z-loss term."""
-    leaves = _leaves(trainable(params, trainable_mask))
-    ce, z = _loss(model, params, batch[:, :-1], batch[:, 1:], z_loss_coef,
-                  fused_ce_chunks)
-    grads = torch.autograd.grad(ce + z, leaves)
-    return ce.detach(), grads
+    """``loss_aux_and_grads`` without the aux: (mean NLL, gradients)."""
+    ce, _, grads = loss_aux_and_grads(model, params, batch, z_loss_coef,
+                                      trainable_mask, fused_ce_chunks)
+    return ce, grads
 
 
 def make_train_step(model: LlamaModel, optimizer: Optimizer,
@@ -283,12 +315,13 @@ def make_train_step(model: LlamaModel, optimizer: Optimizer,
     and averages their gradients before the one update; the accumulators
     exist for the trainable leaves alone. ``before_update`` runs just
     before the parameters are written (the trainer waits there for a
-    checkpoint's staging copy). ``grad_norm`` is the global norm before
-    the clip."""
+    checkpoint's staging copy). ``loss`` is the NLL, ``aux_loss`` the
+    router aux (both averaged over the microbatches) and ``grad_norm``
+    the global norm before the clip."""
 
     def grads_of(params, batch):
-        return loss_and_grads(model, params, batch, z_loss_coef,
-                              trainable_mask, fused_ce_chunks)
+        return loss_aux_and_grads(model, params, batch, z_loss_coef,
+                                  trainable_mask, fused_ce_chunks)
 
     def step(params: Params, opt_state: dict, batch: torch.Tensor,
              before_update: Optional[Callable[[], None]] = None) -> dict:
@@ -299,24 +332,24 @@ def make_train_step(model: LlamaModel, optimizer: Optimizer,
                                  f"grad_accum_steps {grad_accum_steps}")
             grads = [torch.zeros_like(p, dtype=torch.float32) for p in
                      _leaves(trainable(params, trainable_mask))]
-            ce = torch.zeros((), device=batch.device)
+            ce = aux = torch.zeros((), device=batch.device)
             for m in range(grad_accum_steps):
-                ce_m, g_m = grads_of(params, batch[m::grad_accum_steps])
+                ce_m, aux_m, g_m = grads_of(params,
+                                            batch[m::grad_accum_steps])
                 for acc, g in zip(grads, g_m):
                     acc.add_(g)
-                ce = ce + ce_m
+                ce, aux = ce + ce_m, aux + aux_m
                 del g_m
             scale = 1.0 / grad_accum_steps
             for g in grads:
                 g.mul_(scale)
-            ce = ce * scale
+            ce, aux = ce * scale, aux * scale
         else:
-            ce, grads = grads_of(params, batch)
+            ce, aux, grads = grads_of(params, batch)
         if before_update is not None:
             before_update()
         gnorm = optimizer.update(grads, opt_state, params)
-        return {"loss": ce, "aux_loss": torch.zeros_like(ce),
-                "grad_norm": gnorm}
+        return {"loss": ce, "aux_loss": aux, "grad_norm": gnorm}
 
     return step
 
@@ -496,15 +529,6 @@ class Trainer:
                  initial_params: Optional[Params] = None, device=None,
                  mesh=None, lora: Optional[Any] = None,
                  telemetry: Optional[Any] = None):
-        if cfg.n_experts:
-            deepseek = cfg.deepseek_fields
-            raise ValueError(
-                f"{cfg.name}: training a sparse-MoE model is not ported "
-                "(ROADMAP Queue 1 #8, the MoE training slice: the router's "
-                "load-balance and z losses in the objective, capacity drops, "
-                "and the expert gradients"
-                + (f"; DeepSeek-MoE's {deepseek} with them" if deepseek
-                   else "") + "); MoE configs serve only")
         interleave = [f for f, on in (
             ("sliding_window_pattern", cfg.sliding_window_pattern != 1),
             ("attn_logit_softcap", cfg.attn_logit_softcap is not None),
@@ -542,12 +566,18 @@ class Trainer:
                           initial_params)
         else:
             gen = torch.Generator(device=self.device).manual_seed(seed)
-            params = init_params(cfg, gen, self.device, master=True)
+            # under LoRA every drawn leaf is frozen: drawn straight into
+            # the dtype _hold_frozen_in would give it (the same values, as
+            # the f32 draw rounded), never a whole f32 tree (63 GB at
+            # DeepSeek-V2-Lite's 15.7 B)
+            params = init_params(cfg, gen, self.device,
+                                 master=lora is None)
         self.trainable_mask = None
         if lora is not None:
             from ..models.lora import apply_lora, lora_mask
             gen = torch.Generator(device=self.device).manual_seed(seed + 1)
-            params = apply_lora(cfg, params, lora, gen, self.device)
+            params = apply_lora(cfg, params, lora, gen, self.device,
+                                dtype=cfg.param_dtype)
             self.trainable_mask = lora_mask(params)
             _hold_frozen_in(params, self.trainable_mask, cfg.dtype)
         self.params = params
@@ -677,7 +707,8 @@ class Trainer:
         """Mean next-token NLL and perplexity over ``steps`` held-out
         batches of the microbatch size (through the fused loss when the
         training loss is fused, so the eval never builds the logits
-        either)."""
+        either; an MoE model routed at its training capacity, as the JAX
+        eval's forward routes)."""
         if batches is None:
             etc = dataclasses.replace(
                 self.tc, batch_size=max(1, self.tc.batch_size
@@ -687,8 +718,8 @@ class Trainer:
         total = 0.0
         for _ in range(steps):
             batch = next(batches)
-            ce, _ = _loss(self.model, self.params, batch[:, :-1],
-                          batch[:, 1:], 0.0, self.tc.fused_ce_chunks)
+            ce, _, _ = _loss(self.model, self.params, batch[:, :-1],
+                             batch[:, 1:], 0.0, self.tc.fused_ce_chunks)
             total += float(ce)
         nll = total / max(steps, 1)
         return {"eval_loss": nll, "eval_ppl": math.exp(nll),

@@ -1,7 +1,10 @@
 """Pretrain and fine-tune workload on one card (port of the JAX package's
 ``workloads/train_main.py``): the pod command of a training job. Trains
-the dense Llama decoder, or an MLA model (``--model mla-8b``, ``tiny-mla``,
-its direct form through the flash kernels at head_dim + rope_dim), on the
+the dense Llama decoder, an MLA model (``--model mla-8b``, ``tiny-mla``,
+its direct form through the flash kernels at head_dim + rope_dim) or a
+sparse-MoE model (``--model mixtral-8x7b``, ``deepseek-v2-lite``,
+``deepseek-v3``, ``tiny-moe``: the router's load-balance and z losses in
+the objective, capacity drops), on the
 synthetic token stream or a pre-tokenized int32 file (``--data``, read
 through the native loader), fully or as a LoRA fine-tune (``--lora-rank``;
 ``--export-adapter`` writes the trained adapter for the serving engine's

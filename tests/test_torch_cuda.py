@@ -2163,3 +2163,151 @@ def test_int4_expert_matmul_at_deepseek_widths(cuda, kin, out, tokens):
     rolled = _int4_expert_matmul_plain(h.float(), torch.roll(q4, 1, 0),
                                        torch.roll(scale, 1, 0), cnt)
     assert _not_close(y[rows], rolled[rows])
+
+
+# -- MoE training on the card --------------------------------------------------------
+
+def _moe_train_cfg(shape: str):
+    """A tiny MoE config the kernels take (attention at D = 64): Mixtral's
+    softmax top-2 over 4 experts, or DeepSeek-V3's sigmoid routing over 8
+    experts in 4 groups with MLA (48 + 16), the low-rank q, a shared
+    expert and a dense prefix layer. bf16 compute, f32 master weights."""
+    from k8s_runpod_kubelet_tpu_torch.models import tiny_mla, tiny_moe
+
+    if shape == "moe":
+        return tiny_moe(vocab_size=256, embed_dim=256, n_layers=2, n_heads=4,
+                        n_kv_heads=2, mlp_dim=256, max_seq_len=256)
+    return tiny_mla(vocab_size=256, embed_dim=256, n_layers=3, n_heads=4,
+                    head_dim=48, mla_latent_dim=64, mla_rope_dim=16,
+                    mla_q_lora_rank=64, mlp_dim=128, max_seq_len=256,
+                    n_dense_prefix=1, dense_prefix_mlp_dim=256, n_experts=8,
+                    n_experts_per_tok=2, n_shared_experts=1,
+                    router_norm_topk=True, router_sigmoid_bias=True,
+                    router_n_group=4, router_topk_group=2,
+                    routed_scaling_factor=2.5)
+
+
+def _forced_routes(moe, picks: list):
+    """Context: ``moe.route_top_k`` and ``route_top_k_v3`` record the
+    experts they choose into ``picks`` (empty) or, given them, take the
+    recorded ones call by call (a step's calls come in the same order every
+    time: each routed layer's forward, then its remat recompute), weighted
+    as the routing weights them (softmax probabilities, or V3's raw
+    sigmoid scores, renormalized as configured, times the scaling)."""
+    import contextlib
+
+    real = (moe.route_top_k, moe.route_top_k_v3)
+    replay = iter(list(picks))
+    record = not picks
+
+    def forced(logits, k, norm_topk=True, *, sigmoid=False,
+               routed_scaling=1.0):
+        idx = next(replay)
+        scores = (torch.sigmoid(logits) if sigmoid
+                  else torch.softmax(logits, dim=-1))
+        w = torch.gather(scores, 1, idx)
+        if norm_topk:
+            w = w / (w.sum(dim=-1, keepdim=True) + (1e-20 if sigmoid else 0))
+        return w * routed_scaling, idx, scores
+
+    def top_k(logits, k, norm_topk=True):
+        if record:
+            out = real[0](logits, k, norm_topk)
+            picks.append(out[1])
+            return out
+        return forced(logits, k, norm_topk)
+
+    def top_k_v3(logits, k, **kw):
+        if record:
+            out = real[1](logits, k, **kw)
+            picks.append(out[1])
+            return out
+        return forced(logits, k, kw["norm_topk"], sigmoid=True,
+                      routed_scaling=kw["routed_scaling"])
+
+    @contextlib.contextmanager
+    def ctx():
+        moe.route_top_k, moe.route_top_k_v3 = top_k, top_k_v3
+        try:
+            yield
+        finally:
+            moe.route_top_k, moe.route_top_k_v3 = real
+    return ctx()
+
+
+@pytest.mark.parametrize("shape", ["moe", "v3"])
+def test_moe_train_step_on_the_card_matches_its_plain_path(cuda, shape,
+                                                          monkeypatch):
+    """One train step's gradients in bf16 through the flash and rms_norm
+    kernels against the same step with both swapped for their plain
+    versions (``_attention_plain``, ``_rms_norm_plain``, autograd), on the
+    same f32 master params and batch: loss and aux within 1% relative, each
+    leaf's gradient within 0.1 relative L2 (chip_smoke's
+    TRAIN_GRAD_REL_L2_LIMIT, set for bf16 against f32; here both sides
+    are bf16 and differ only in where attention and the norms round). The
+    plain step takes the kernel step's expert choices (``_forced_routes``):
+    rounded elsewhere, the two would part at near ties, and a changed
+    choice moves a whole expert's share of the gradients. Routers are
+    drawn at normal * 0.25 (logits of std ~4 at E = 256: sigmoid scores
+    far from saturation, whose derivative would be rounding noise). V3's
+    ``router_bias`` reaches the loss only through the expert choice: its
+    gradient is exactly zero on the card too. Then the trainer's own step
+    runs the kernels and reports a finite loss and aux (nonzero under
+    softmax routing, zero under V3's)."""
+    from k8s_runpod_kubelet_tpu_torch.models import llama, moe
+    from k8s_runpod_kubelet_tpu_torch.workloads.train import (
+        TrainConfig, Trainer, _leaves, loss_aux_and_grads)
+
+    cfg = _moe_train_cfg(shape)
+    tc = TrainConfig(batch_size=2, seq_len=128, warmup_steps=1)
+    tr = Trainer(cfg, tc, seed=3, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    with torch.no_grad():
+        for name, scale in (("router", 0.25), ("router_bias", 0.3)):
+            leaf = tr.params["layers"].get(name)
+            if leaf is not None:
+                leaf.copy_(scale * torch.randn(leaf.shape, generator=gen,
+                                               device=cuda))
+    batch = torch.randint(0, cfg.vocab_size, (2, 129), generator=gen,
+                          device=cuda)
+    kernels = (flash_fwd, flash_dq, flash_dkv, rms_norm)
+    before = [k.launches for k in kernels]
+    picks: list = []
+    with _forced_routes(moe, picks):
+        ce, aux, grads = loss_aux_and_grads(tr.model, tr.params, batch)
+    assert all(k.launches > n for k, n in zip(kernels, before))
+    assert len(picks) == 2 * (cfg.n_layers - cfg.n_dense_prefix)
+    with monkeypatch.context() as mp, _forced_routes(moe, picks):
+        mp.setattr(llama, "rms_norm", _rms_norm_plain)
+        mp.setattr(llama, "flash_attention",
+                   lambda q, k, v, *, causal, sm_scale, sliding_window,
+                   logit_soft_cap: _attention_plain(
+                       q, k, v, causal=causal, sm_scale=sm_scale,
+                       sliding_window=sliding_window,
+                       logit_soft_cap=logit_soft_cap))
+        mid = [k.launches for k in kernels]
+        ce_p, aux_p, grads_p = loss_aux_and_grads(tr.model, tr.params,
+                                                  batch)
+        assert [k.launches for k in kernels] == mid
+    assert abs(float(ce) - float(ce_p)) <= 1e-2 * abs(float(ce_p))
+    assert abs(float(aux) - float(aux_p)) <= 1e-2 * abs(float(aux_p)) + 1e-6
+    names = []
+
+    def walk(tree, prefix=""):
+        for n in sorted(tree):
+            if isinstance(tree[n], dict):
+                walk(tree[n], f"{prefix}{n}/")
+            else:
+                names.append(prefix + n)
+
+    walk(tr.params)
+    for name, g, gp in zip(names, grads, grads_p):
+        if name.endswith("router_bias"):
+            assert not g.any() and not gp.any(), name
+            continue
+        rel = float((g.float() - gp.float()).norm() / gp.float().norm())
+        assert rel <= 0.1, (name, rel)
+    m = tr.step_fn(tr.params, tr.opt_state, batch)
+    assert torch.isfinite(m["loss"]) and torch.isfinite(m["grad_norm"])
+    assert (float(m["aux_loss"]) > 0) == (shape == "moe")
+    assert len(names) == len(_leaves(tr.params))

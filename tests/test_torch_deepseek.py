@@ -38,8 +38,8 @@ pick differently. Checked:
   never quantized, and ``init_quantized_params`` equal to quantizing
   ``init_params``'s tree;
 - the serve CLI's ``--model deepseek-v2-lite`` parses and ``deepseek-v3``
-  is no choice; ``Trainer`` and ``shard_params`` refuse the DeepSeek
-  fields by name.
+  is no choice; ``Trainer`` builds over V3 and steps (aux 0 under sigmoid
+  routing), and ``shard_params`` refuses the DeepSeek fields by name.
 """
 
 import dataclasses
@@ -522,9 +522,14 @@ def test_trainer_and_shard_params_refuse_the_deepseek_fields():
                                                               Trainer)
 
     cfg = config_from_jax(jax_cfg("v3"), torch.float32)
-    with pytest.raises(ValueError, match="n_shared_experts.*n_dense_prefix"
-                       ".*router_sigmoid_bias"):
-        Trainer(cfg, TrainConfig(), device="cpu")
+    # the trainer no longer refuses them: it builds and steps (the parity
+    # with the JAX trainer is test_torch_moe_train.py's)
+    tr = Trainer(cfg, TrainConfig(batch_size=1, seq_len=8, warmup_steps=1),
+                 device="cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (1, 9),
+                           generator=torch.Generator().manual_seed(0))
+    m = tr.step_fn(tr.params, tr.opt_state, tokens)
+    assert math.isfinite(float(m["loss"])) and float(m["aux_loss"]) == 0.0
     mesh = make_mesh(MeshConfig(data=1, tensor=2))
     with pytest.raises(ValueError, match="DeepSeek-MoE.*n_shared_experts"):
         shard_params(cfg, {"layers": {}}, mesh)

@@ -23,7 +23,7 @@ Inputs are made from seeds with numpy and handed to both packages:
 - Mixtral-8x7B's parameter count from ``param_shapes`` (no allocation)
   equal to the JAX config's, 46.70 B;
 - Mixtral's HF names round-tripped against JAX ``models/convert.py``;
-- ``Trainer`` refuses an MoE config.
+- ``Trainer`` builds over an MoE config and steps.
 """
 
 import dataclasses
@@ -341,6 +341,13 @@ def test_mixtral_hf_names_round_trip_against_jax():
 
 
 def test_trainer_refuses_moe_configs():
+    """No longer a refusal: the trainer builds over an MoE config and its
+    step reports the router's aux loss (the parity with the JAX trainer is
+    ``test_torch_moe_train.py``'s)."""
     cfg = MODEL_CONFIGS["tiny-moe"](vocab_size=64, embed_dim=64, mlp_dim=64)
-    with pytest.raises(ValueError, match="MoE training slice"):
-        Trainer(cfg, TrainConfig(batch_size=1, seq_len=8), device="cpu")
+    tr = Trainer(cfg, TrainConfig(batch_size=1, seq_len=8, warmup_steps=1),
+                 device="cpu")
+    tokens = torch.randint(0, 64, (1, 9),
+                           generator=torch.Generator().manual_seed(0))
+    m = tr.step_fn(tr.params, tr.opt_state, tokens)
+    assert math.isfinite(float(m["loss"])) and float(m["aux_loss"]) > 0
