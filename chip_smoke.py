@@ -386,6 +386,25 @@ Step graphs (phases 4, 7s, 7b, 7c, 7d). Each engine captures its decode
    keys and whose schema-1 metrics snapshot agrees with ``/metrics``, and
    a deregister after the drain; (e) the burst's decode tokens/s per
    stream and (g3)'s replay wall beside phase 4's (reported); (g1)-(g5);
+7k. disaggregated serving (``disagg_phase``, after 7x on phase 4's tree;
+   ``--disagg`` runs it alone): the router's two hops played by hand.
+   (a) the device rung between engines of this process (2 slots,
+   512-page arenas) behind ``serve_main.serve`` fronts: 2 monolithic and
+   2 streamed (256-token chunks, window 8) hops of phase 4's prompts,
+   each run's adopted pages bit-equal to the exporter's, the decode
+   replica's greedy tokens equal to a unified engine's (the same path:
+   cached pages, then the tail) after one tail chunk, 0 downgrades; (b)
+   the wire rung to a decode ``serve_main`` process on the card (a
+   prefill process beside it, both llama3-8b from the seed): monolithic
+   and streamed, ``/metrics`` deltas against the hops, a truncated blob
+   answered 400 with the decode pool unchanged; (c) the shm rung between
+   the two processes, "path": "shm" and 0 downgrades; (d) a pull over
+   ``/kv_fetch`` -> ``/kv_pull`` (the tail alone prefilled), then an
+   evicted run: 404 gone at the owner, a gone fetch, a whole prefill;
+   (e) ``--kv-int8`` over the wire here, and inside 7v DeepSeek-V2-Lite
+   ``--int4 --kv-int8`` (``deepseek_handoff``), ``section_spec`` equal
+   on both sides; (f) export, transfer and adopt ms a page and bytes a
+   second a rung, and a two-hop TTFT beside a unified one, reported;
 7g. the contiguous decode loop (``interleave_engine_run``): llama3-8b
    with ``--prefix-cache off`` on phase 4's tree (a linear cache), right
    after phase 4; after 7f, gemma2-9b (cache_len 8192, a mixed cache of
@@ -571,7 +590,10 @@ groups' ``flash_fwd`` as ``serve_lora_dense_group`` and
 ``serve_lora_int4_kv_int8_dense_group``), phase 7f's bursts as
 ``serve_<model>`` and ``serve_<model>_int4_kv_int8``, and phase 7v's as
 ``serve_deepseek``, ``serve_deepseek_int4_kv_int8`` and (its dense route
-and embed) ``serve_deepseek_dense``; the single-token
+and embed) ``serve_deepseek_dense``, and phase 7k's handoffs and the
+decode replicas' requests as ``serve_disagg_device``,
+``serve_disagg_kv_int8`` and ``serve_disagg_deepseek_int4_kv_int8``; the
+single-token
 forms lie on no model path, in this port as in the JAX package, and count
 0), the last line
 ``{"ok": true, "device": {...}}``. ``--out PATH`` also writes every
@@ -7161,12 +7183,38 @@ def deepseek_phase(torch, dev, card: str) -> dict:
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     out["int4_kv_int8"] = deepseek_engine_run(torch, dev, card, cfg, box,
                                               True)
-    out["int4_kv_int8"].pop("tree")
+    tree = out["int4_kv_int8"].pop("tree")
+    log(f"  (e) of phase 7k: {DS_MODEL} --int4 --kv-int8 through the wire "
+        "rung (prefill, decode and unified engines on this tree)")
+    out["handoff"] = deepseek_handoff(torch, dev, tree, greedy_prompt)
+    del tree
     gc.collect()
     torch.cuda.empty_cache()
     log(f"  (d) step_profile --model {DS_MODEL} (bf16, then --int4)")
     out["profile"] = deepseek_profile(torch, card)
     return out
+
+
+def deepseek_handoff(torch, dev, tree, prompt) -> dict:
+    """Phase 7k (e) for DeepSeek-V2-Lite ``--int4 --kv-int8``: the serve
+    CLI's engines (2 slots) on 7v (b)'s quantized tree, through
+    ``layout_wire_run``: the latent sections and the dense prefix's
+    ``c_pre``/``kr_pre`` with their scales over the wire."""
+    from k8s_runpod_kubelet_tpu_torch.ops import (int4_expert_matmul,
+                                                  int4_matmul,
+                                                  paged_attention_multi_mla_quant,
+                                                  rms_norm)
+    from k8s_runpod_kubelet_tpu_torch.workloads import serve_main
+
+    argv = ["--model", DS_MODEL, "--device", dev.type, "--slots",
+            str(DISAGG_SLOTS), "--cache-len", "2048", "--max-new-tokens",
+            str(DISAGG_NEW), "--seed", str(SEED), "--int4", "--kv-int8"]
+    engines = [serve_main.build_engine(serve_main.parse_args(argv), tree)[0]
+               for _ in range(3)]
+    return layout_wire_run(torch, engines, prompt,
+                           (paged_attention_multi_mla_quant, int4_matmul,
+                            int4_expert_matmul, rms_norm),
+                           f"(7k e) {DS_MODEL} --int4 --kv-int8")
 
 
 def mla_dense_route_phase(torch, dev, card: str, cfg, params,
@@ -8948,6 +8996,569 @@ def qk_witness_phase(torch, dev, card: str) -> dict:
     return out
 
 
+# -- phase 7k: disaggregated serving (the KV handoff between replicas) -------
+
+# the decode replicas' greedy tokens a request
+DISAGG_NEW = 16
+# a prefill replica's chunk and its stream window (serve_main's flags)
+DISAGG_CHUNK = 256
+DISAGG_WINDOW = 8
+# the placement domain every replica of the phase advertises
+DISAGG_DOMAIN = "card:0"
+# arenas: 2 slots of 2048 tokens need 256 pages of 16 tokens; the owner
+# process of (d) holds exactly that, so five 900-token fillers evict a run
+DISAGG_SLOTS = 2
+DISAGG_POOL = 512
+DISAGG_OWNER_POOL = 256
+# (f): the timed runs' prompt length (64 pages)
+DISAGG_TIMED_TOKENS = 1024
+# seconds a serve_main process may take to answer /readyz
+DISAGG_READY_S = 420
+# the serve_main processes' model (phase 4's)
+DISAGG_REPLICA_ARGS = ("--model", "llama3-8b")
+
+
+def disagg_engine(torch, dev, cfg, params, chunk: int = 0, kv_int8=False):
+    """An engine of the phase on the shared ``params`` (a bf16 tree is not
+    copied: the engines read one set of weights)."""
+    from k8s_runpod_kubelet_tpu_torch.workloads.serving import (
+        ServingConfig, ServingEngine)
+    sc = ServingConfig(slots=DISAGG_SLOTS, cache_len=2048,
+                       max_prefill_len=1024, kv_page_tokens=16,
+                       max_new_tokens=DISAGG_NEW, kv_pool_pages=DISAGG_POOL,
+                       serving_chunk_tokens=chunk, quantize_kv_int8=kv_int8)
+    return ServingEngine(cfg, params, sc, device=dev).start()
+
+
+def greedy(engine, prompt, n: int = DISAGG_NEW) -> list:
+    return engine.submit(prompt, max_new_tokens=n).result(
+        timeout=900)["tokens"]
+
+
+def unified_tokens(engine, prompt) -> list:
+    """A unified engine's tokens along a decode replica's path: the prompt
+    once (its full pages cached), then again from the cached pages and the
+    sub-page tail, as the decode replica serves an adopted run."""
+    greedy(engine, prompt, 1)
+    return greedy(engine, prompt)
+
+
+def cached_run(engine, prompt) -> dict:
+    """Fresh copies of every cached full page of ``prompt`` in engine's
+    arena (single-device layout)."""
+    store = engine._kv_store
+    with engine._prefix_lock:
+        m = store.match_full(0, prompt)
+        try:
+            return store.export_pages(m.pages)
+        finally:
+            store.release(m.pages)
+
+
+def same_pages(torch, a, b, prompt, what: str) -> int:
+    """Raise unless ``a``'s cached pages of ``prompt`` equal ``b``'s bit for
+    bit; returns the pages compared."""
+    ra, rb = cached_run(a, prompt), cached_run(b, prompt)
+    n = len(prompt) // 16
+    for name in ra:
+        if ra[name].shape[1] != n or not torch.equal(ra[name], rb[name]):
+            raise RuntimeError(f"{what}: adopted section {name} differs from "
+                               "the exporter's pages")
+    return n
+
+
+def http_get_json(port: int, path: str) -> dict:
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=300) as r:
+        return json.loads(r.read())
+
+
+def decode_hop_checks(counts_before: dict, counts_after: dict, prompt,
+                      got: list, want: list, what: str) -> None:
+    """The decode replica's request after an adoption: its tokens are the
+    unified engine's and it prefilled one chunk, the sub-page tail."""
+    if got != want:
+        raise RuntimeError(f"{what}: decode replica tokens {got} != the "
+                           f"unified engine's {want}")
+    chunks = (counts_after["paged_prefill_chunks"]
+              - counts_before["paged_prefill_chunks"])
+    tail = (counts_after["paged_prefill_tokens"]
+            - counts_before["paged_prefill_tokens"])
+    if chunks != 1 or tail != len(prompt) - (len(prompt) - 1) // 16 * 16:
+        raise RuntimeError(f"{what}: the decode replica prefilled {chunks} "
+                           f"chunks, {tail} tokens; want the tail alone")
+
+
+def start_replica(port: int, role: str, pool: int, log_path: str):
+    """A ``serve_main`` process on the card: llama3-8b bf16 from the
+    phase's seed (phase 4's weights), 2 slots, in the phase's domain."""
+    cmd = [sys.executable, "-m",
+           "k8s_runpod_kubelet_tpu_torch.workloads.serve_main",
+           *DISAGG_REPLICA_ARGS, "--slots", str(DISAGG_SLOTS),
+           "--cache-len", "2048", "--max-new-tokens", str(DISAGG_NEW),
+           "--seed", str(SEED), "--kv-pool-pages", str(pool),
+           "--port", str(port), "--serving-role", role,
+           "--placement-domain", DISAGG_DOMAIN,
+           "--fleet-advertise", f"http://127.0.0.1:{port}"]
+    out = open(log_path, "w")
+    return subprocess.Popen(cmd, stdout=out, stderr=subprocess.STDOUT,
+                            cwd=os.path.dirname(os.path.abspath(__file__)))
+
+
+def wait_ready(proc, port: int, log_path: str) -> None:
+    deadline = time.monotonic() + DISAGG_READY_S
+    while time.monotonic() < deadline:
+        if proc.poll() is not None:
+            with open(log_path) as f:
+                tail = f.read()[-3000:]
+            raise RuntimeError(f"serve_main on :{port} exited "
+                               f"{proc.returncode}:\n{tail}")
+        try:
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}/readyz",
+                                        timeout=5) as r:
+                if r.status == 200:
+                    return
+        except OSError:
+            pass
+        time.sleep(0.5)
+    raise RuntimeError(f"serve_main on :{port} not ready in "
+                       f"{DISAGG_READY_S} s")
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def counters_of(port: int) -> dict:
+    return http_get_json(port, "/debug/engine")["counters"]
+
+
+def pool_of(port: int) -> dict:
+    stats = http_get_json(port, "/debug/engine")["prefix_cache"]
+    return {k: stats[k] for k in ("pages_free", "pages_shared",
+                                  "pages_evictable", "nodes")}
+
+
+def sink_server():
+    """An HTTP server that reads a POST body and answers: the wire rung's
+    transfer, timed without the adoption behind it."""
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    class Sink(BaseHTTPRequestHandler):
+        protocol_version = "HTTP/1.1"
+
+        def log_message(self, *a):
+            pass
+
+        def do_POST(self):
+            n = int(self.headers.get("Content-Length") or 0)
+            self.rfile.read(n)
+            body = b"{}"
+            self.send_response(200)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), Sink)
+    httpd.daemon_threads = True
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    return httpd
+
+
+def rung_times(torch, src, dst, prompts, card: str) -> dict:
+    """(f): export, transfer and adopt ms a page and bytes a second for
+    each rung, on runs of ``DISAGG_TIMED_TOKENS`` the exporter already
+    holds and the adopter does not (one prompt a rung)."""
+    from k8s_runpod_kubelet_tpu_torch.fleet.device_transfer import (
+        open_shm_blob, write_shm_blob)
+    sink = sink_server()
+    out = {}
+    try:
+        for rung, prompt in zip(("device", "shm", "wire"), prompts):
+            greedy(src, prompt, 1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if rung == "device":
+                exp = src.export_pull_device(prompt)
+                nbytes = exp["bytes"]
+            else:
+                exp = src.export_pull(prompt)
+                nbytes = len(exp["blob"])
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            if rung == "shm":
+                path = write_shm_blob(exp["blob"])
+                blob = open_shm_blob(path)
+            elif rung == "wire":
+                req = urllib.request.Request(
+                    f"http://127.0.0.1:{sink.server_address[1]}/",
+                    data=exp["blob"], method="POST")
+                with urllib.request.urlopen(req, timeout=300) as r:
+                    r.read()
+                blob = exp["blob"]
+            t2 = time.perf_counter()
+            if rung == "device":
+                dst.adopt_handoff_device(exp["tokens"], exp["sections"],
+                                         model=src.cfg.name,
+                                         ready=exp["ready"])
+            else:
+                dst.adopt_handoff(blob)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            if rung == "shm":
+                blob.close()
+                os.unlink(path)
+            pages = exp["pages"]
+            out[rung] = {"pages": pages, "bytes": nbytes,
+                         "export_ms_per_page": (t1 - t0) * 1e3 / pages,
+                         "transfer_ms_per_page": (t2 - t1) * 1e3 / pages,
+                         "adopt_ms_per_page": (t3 - t2) * 1e3 / pages,
+                         "bytes_per_s": nbytes / (t3 - t0)}
+            r = out[rung]
+            log(f"  (f) [{card}] {rung}: {pages} pages, {nbytes} B; export "
+                f"{r['export_ms_per_page']:.4f} ms a page, transfer "
+                f"{r['transfer_ms_per_page']:.4f}, adopt "
+                f"{r['adopt_ms_per_page']:.4f}; {r['bytes_per_s'] / 1e9:.3f} "
+                "GB/s end to end")
+    finally:
+        sink.shutdown()
+        sink.server_close()
+    return out
+
+
+def disagg_phase(torch, dev, card: str, cfg, params) -> dict:
+    """Phase 7k: disaggregated serving of llama3-8b bf16 (phase 4's tree),
+    the router's two hops played by hand (``fleet/router.py``'s
+    ``plan_two_hop``: /kv_prefill on the prefill replica naming the decode
+    replica, then the request on the decode replica) and its pull
+    (/kv_fetch on the cold replica naming the owner). Unified engines on
+    the same weights serve every prompt first, twice (the second from its
+    cached pages and the tail: the decode replica's path), for the
+    reference tokens. (a) the device rung between engines of this
+    process behind ``serve_main.serve`` fronts, the decode engine on the
+    device bus: monolithic and streamed (256-token chunks, window 8) hops
+    of phase 4's burst prompts, each with the pages adopted equal to the
+    exporter's bit for bit, the decode replica's tokens equal to the
+    unified engine's after prefilling only the sub-page tail, the device
+    runs counted and 0 downgrades; the kernels' launches over these hops
+    and requests (counts at 0 just before); (b) the wire rung between two
+    ``serve_main`` processes on the card (a prefill and a decode replica,
+    phase 4's seed): /kv_prefill -> /kv_adopt, and a streamed hop from
+    this process's chunked replica -> /kv_adopt_chunk, tokens equal to the
+    unified engine's, /metrics deltas equal to the hops' counts, a
+    truncated blob answered 400 with the decode arena's pool unchanged;
+    (c) the shm rung between the same processes (the router vouching the
+    shared domain): "path": "shm", 0 downgrades; (d) a pull: the decode
+    process fetches a run the prefill process served from its /kv_pull
+    and prefills only the tail; after fillers evicted another run, the
+    owner answers 404 gone, the fetch 200 gone, and the request prefills
+    whole to the unified engine's cold tokens; (e) --kv-int8 through the
+    wire rung in this process, ``section_spec`` equal on both sides; (f)
+    export, transfer and adopt ms a page and bytes a second a rung, and
+    the time to first token of a two-hop request against a unified one,
+    for the record."""
+    from k8s_runpod_kubelet_tpu_torch.fleet.device_transfer import BUS
+    from k8s_runpod_kubelet_tpu_torch.ops import (paged_attention_multi,
+                                                  paged_attention_multi_quant,
+                                                  rms_norm)
+    from k8s_runpod_kubelet_tpu_torch.workloads import serve_main
+
+    kernels = (paged_attention_multi, paged_attention_multi_quant, rms_norm)
+    _, prompts, gen = burst_prompts(cfg)
+    cold_prompt = gen(700)
+    rec = {"domain": DISAGG_DOMAIN}
+    t_phase = time.perf_counter()
+    # the references: the unified engines serve every prompt first
+    refs = {}
+    for chunk, idx in ((0, (0, 1, 4, 6, 7)), (DISAGG_CHUNK, (2, 3, 5))):
+        uni = disagg_engine(torch, dev, cfg, params, chunk)
+        try:
+            if chunk == 0:
+                refs["cold"] = greedy(uni, cold_prompt)
+            for i in idx:
+                refs[i] = unified_tokens(uni, prompts[i])
+        finally:
+            uni.stop()
+        del uni
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    pre = disagg_engine(torch, dev, cfg, params)
+    pre_s = disagg_engine(torch, dev, cfg, params, DISAGG_CHUNK)
+    dec = disagg_engine(torch, dev, cfg, params)
+    fronts = [serve_main.serve(e, 0, host="127.0.0.1",
+                               handoff_stream_window=DISAGG_WINDOW,
+                               device_domain=DISAGG_DOMAIN)
+              for e in (pre, pre_s, dec)]
+    ports = [f.server_address[1] for f in fronts]
+    dec_url = f"http://127.0.0.1:{ports[2]}"
+    BUS.register(dec_url, dec, DISAGG_DOMAIN)
+    procs = []
+    try:
+        log("  (a) the device rung: engines of this process, "
+            f"{DISAGG_SLOTS} slots, {DISAGG_POOL}-page arenas")
+        for k in kernels:
+            k.launches = 0
+        hops = []
+        for i, port, streamed in ((0, ports[0], False), (1, ports[0], False),
+                                  (2, ports[1], True), (3, ports[1], True)):
+            src = pre_s if streamed else pre
+            p = prompts[i]
+            runs0 = dec.metrics.get_counter(
+                "tpu_serving_kv_handoff_device_runs")
+            out = http_ok(port, "/kv_prefill", {
+                "request": {"tokens": p}, "handoff_to": dec_url,
+                "device": True, "device_domain": DISAGG_DOMAIN})
+            if (out["path"], out["streamed"]) != ("device", streamed):
+                raise RuntimeError(f"(a) prompt {i}: hop {out}")
+            pages = same_pages(torch, dec, src, p, f"(a) prompt {i}")
+            c0 = dict(dec.counters)
+            got = greedy(dec, p)
+            decode_hop_checks(c0, dict(dec.counters), p, got, refs[i],
+                              f"(a) prompt {i}")
+            if dec.metrics.get_counter(
+                    "tpu_serving_kv_handoff_device_runs") - runs0 != 1:
+                raise RuntimeError(f"(a) prompt {i}: device runs not 1")
+            hops.append({"prompt": i, "tokens": len(p), "pages": pages,
+                         "streamed": streamed, "chunks": out.get("chunks"),
+                         "bytes": out["bytes"]})
+        downgrades = sum(e.metrics.get_counter(
+            "tpu_serving_kv_handoff_device_downgrades") for e in (pre, pre_s))
+        if downgrades:
+            raise RuntimeError(f"(a) {downgrades} device downgrades")
+        launches = {k.__name__: k.launches for k in kernels}
+        if dev.type == "cuda" and not (launches["paged_attention_multi"]
+                                       and launches["rms_norm"]):
+            raise RuntimeError(f"(a) the handoff path launched {launches}")
+        rec["device"] = {"hops": hops, "launches": launches,
+                         "downgrades": downgrades}
+        log(f"  (a) {len(hops)} hops (2 monolithic, 2 streamed in "
+            f"{DISAGG_CHUNK}-token chunks): pages bit-equal, tokens equal "
+            f"to the unified engine's, the tail alone prefilled, 0 "
+            f"downgrades; launches {launches}")
+
+        log("  (b)-(d) two serve_main processes on the card (prefill, "
+            "decode), llama3-8b bf16 from the seed")
+        tmp = tempfile.mkdtemp(prefix="disagg-")
+        pport, dport = free_port(), free_port()
+        for port, role, pool in ((pport, "prefill", DISAGG_OWNER_POOL),
+                                 (dport, "decode", DISAGG_POOL)):
+            log_path = os.path.join(tmp, f"{role}.log")
+            procs.append((start_replica(port, role, pool, log_path), port,
+                          log_path))
+        for proc, port, log_path in procs:
+            wait_ready(proc, port, log_path)
+        p_url, d_url = f"http://127.0.0.1:{pport}", f"http://127.0.0.1:{dport}"
+        rec["processes_ready_s"] = time.perf_counter() - t_phase
+
+        def process_hop(src_port, i, what, **extra):
+            m0, c0 = scrape(dport), counters_of(dport)
+            out = http_ok(src_port, "/kv_prefill", {
+                "request": {"tokens": prompts[i]}, "handoff_to": d_url,
+                **extra})
+            m1, c1 = scrape(dport), counters_of(dport)
+            got = http_ok(dport, "/generate", {
+                "tokens": prompts[i], "max_new_tokens": DISAGG_NEW})["tokens"]
+            decode_hop_checks(c1, counters_of(dport), prompts[i], got,
+                              refs[i], what)
+            dpages = m1["tpu_serving_kv_handoff_pages_total"] \
+                - m0["tpu_serving_kv_handoff_pages_total"]
+            dbytes = m1["tpu_serving_kv_handoff_bytes_total"] \
+                - m0["tpu_serving_kv_handoff_bytes_total"]
+            if dpages != out["pages"] or (out["path"] == "wire"
+                                          and dbytes != out["bytes"]):
+                raise RuntimeError(f"{what}: /metrics moved {dpages} pages, "
+                                   f"{dbytes} B; the hop said {out}")
+            if c1["prefix_cache_hits"] != c0["prefix_cache_hits"]:
+                raise RuntimeError(f"{what}: an adoption counted a hit")
+            return {"prompt": i, "path": out["path"],
+                    "streamed": bool(out.get("streamed")),
+                    "pages": out["pages"], "bytes": out["bytes"]}
+
+        wire = [process_hop(pport, 4, "(b) wire"),
+                process_hop(ports[1], 5, "(b) wire streamed")]
+        if [(h["path"], h["streamed"]) for h in wire] != \
+                [("wire", False), ("wire", True)]:
+            raise RuntimeError(f"(b) hops took {wire}")
+        blob = pre.export_handoff(prompts[0])["blob"]
+        pool0 = pool_of(dport)
+        fail0 = scrape(dport)["tpu_serving_kv_handoff_failures_total"]
+        status, _ = http_post_bytes(dport, "/kv_adopt", blob[:len(blob) // 2])
+        if status != 400 or pool_of(dport) != pool0 or \
+                scrape(dport)["tpu_serving_kv_handoff_failures_total"] \
+                != fail0 + 1:
+            raise RuntimeError(f"(b) a truncated blob answered {status}; "
+                               f"pool {pool0} -> {pool_of(dport)}")
+        rec["wire"] = {"hops": wire, "truncated_status": status}
+        log(f"  (b) wire: {wire}; a truncated blob -> 400, the decode pool "
+            "unchanged")
+
+        g0 = scrape(pport)["tpu_serving_kv_handoff_device_downgrades_total"]
+        shm = process_hop(pport, 6, "(c) shm", device=True,
+                          device_domain=DISAGG_DOMAIN)
+        g1 = scrape(pport)["tpu_serving_kv_handoff_device_downgrades_total"]
+        if shm["path"] != "shm" or g1 != g0:
+            raise RuntimeError(f"(c) hop {shm}, downgrades {g1 - g0}")
+        rec["shm"] = shm
+        log(f"  (c) shm: {shm}, 0 downgrades")
+
+        # (d) the owner serves prompt 7 itself; the decode replica pulls
+        http_ok(pport, "/generate", {"tokens": prompts[7],
+                                     "max_new_tokens": 1})
+        c0 = counters_of(dport)
+        pulled = http_ok(dport, "/kv_fetch", {
+            "tokens": prompts[7], "owner_url": p_url,
+            "owner_domain": DISAGG_DOMAIN, "model": cfg.name})
+        if not pulled["ok"] or pulled["pages"] != len(prompts[7]) // 16:
+            raise RuntimeError(f"(d) pull answered {pulled}")
+        got = http_ok(dport, "/generate", {
+            "tokens": prompts[7], "max_new_tokens": DISAGG_NEW})["tokens"]
+        decode_hop_checks(c0, counters_of(dport), prompts[7], got, refs[7],
+                          "(d) pull")
+        # the owner serves another run, then newer runs evict it: its
+        # pool holds 256 pages, the fillers 6 x 56 (a probe in between
+        # would match the run and make it the newest)
+        http_ok(pport, "/generate", {"tokens": cold_prompt,
+                                     "max_new_tokens": 1})
+        fillers = 6
+        for _ in range(fillers):
+            http_ok(pport, "/generate", {"tokens": gen(900),
+                                         "max_new_tokens": 1})
+        status, _ = http_post(pport, "/kv_pull", {"tokens": cold_prompt})
+        if status != 404:
+            raise RuntimeError(f"(d) the owner's /kv_pull of the evicted "
+                               f"run answered {status}")
+        gone = http_ok(dport, "/kv_fetch", {
+            "tokens": cold_prompt, "owner_url": p_url,
+            "owner_domain": DISAGG_DOMAIN, "model": cfg.name})
+        c0 = counters_of(dport)
+        got = http_ok(dport, "/generate", {
+            "tokens": cold_prompt, "max_new_tokens": DISAGG_NEW})["tokens"]
+        c1 = counters_of(dport)
+        if gone != {"ok": False, "gone": True, "error": gone.get("error")} \
+                or got != refs["cold"] \
+                or c1["prefix_cache_misses"] - c0["prefix_cache_misses"] != 1:
+            raise RuntimeError(f"(d) evicted run: fetch {gone}, tokens "
+                               f"{got} vs {refs['cold']}")
+        rec["pull"] = {"path": pulled["path"], "pages": pulled["pages"],
+                       "fillers_to_evict": fillers, "gone": True}
+        log(f"  (d) pull over {pulled['path']}: {pulled['pages']} pages, the "
+            f"tail alone prefilled; after {fillers} fillers the owner "
+            "answered 404 gone and the request prefilled whole")
+        stop_replicas(procs)
+        procs = []
+
+        log("  (e) --kv-int8 through the wire rung (engines of this process)")
+        rec["kv_int8"] = layout_wire_run(
+            torch, [disagg_engine(torch, dev, cfg, params, kv_int8=True)
+                    for _ in range(3)], prompts[4],
+            (paged_attention_multi_quant, rms_norm), "(e) --kv-int8")
+
+        log(f"  (f) [{card}] times of each rung and TTFT")
+        timed = [gen(DISAGG_TIMED_TOKENS) for _ in range(5)]
+        rec["times"] = rung_times(torch, pre, dec, timed[:3], card)
+        t0 = time.perf_counter()
+        http_ok(ports[0], "/kv_prefill", {
+            "request": {"tokens": timed[3]}, "handoff_to": dec_url,
+            "device": True})
+        http_ok(ports[2], "/generate", {"tokens": timed[3],
+                                        "max_new_tokens": 1})
+        two_hop = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        http_ok(ports[2], "/generate", {"tokens": timed[4],
+                                        "max_new_tokens": 1})
+        unified = time.perf_counter() - t0
+        rec["ttft_s"] = {"two_hop_device": two_hop, "unified": unified,
+                         "tokens": DISAGG_TIMED_TOKENS}
+        log(f"  (f) [{card}] TTFT of a {DISAGG_TIMED_TOKENS}-token prompt: "
+            f"two hops over the device rung {two_hop * 1e3:.1f} ms, one "
+            f"unified replica {unified * 1e3:.1f} ms (no claim)")
+    finally:
+        stop_replicas(procs)
+        BUS.unregister(dec_url)
+        for f in fronts:
+            f.shutdown()
+            f.server_close()
+        for e in (pre, pre_s, dec):
+            e.stop()
+    rec["phase_s"] = time.perf_counter() - t_phase
+    return rec
+
+
+def http_post_bytes(port: int, path: str, body: bytes) -> tuple[int, bytes]:
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=body, method="POST",
+        headers={"Content-Type": "application/octet-stream"})
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def stop_replicas(procs) -> None:
+    for proc, _, _ in procs:
+        if proc.poll() is None:
+            proc.terminate()
+    for proc, _, _ in procs:
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=60)
+
+
+def layout_wire_run(torch, engines, prompt, kernels, what: str) -> dict:
+    """A prefill, a decode and a unified engine of one layout (started,
+    stopped here): the unified tokens first, then a wire hop between the
+    first two behind ``serve_main.serve`` fronts; the decode engine's
+    tokens equal the unified engine's after prefilling the tail alone,
+    ``section_spec`` is the same on both sides, and the handoff path
+    launched each of ``kernels`` (counts at 0 just before)."""
+    from k8s_runpod_kubelet_tpu_torch.workloads import serve_main
+    pre, dec, uni = engines
+    fronts = []
+    try:
+        want = unified_tokens(uni, prompt)
+        uni.stop()
+        spec = pre._kv_store.section_spec()
+        if spec != dec._kv_store.section_spec():
+            raise RuntimeError(f"{what}: section specs differ")
+        fronts = [serve_main.serve(e, 0, host="127.0.0.1")
+                  for e in (pre, dec)]
+        for k in kernels:
+            k.launches = 0
+        out = http_ok(fronts[0].server_address[1], "/kv_prefill", {
+            "request": {"tokens": prompt},
+            "handoff_to": f"http://127.0.0.1:{fronts[1].server_address[1]}"})
+        if out["path"] != "wire":
+            raise RuntimeError(f"{what}: hop {out}")
+        pages = same_pages(torch, dec, pre, prompt, what)
+        c0 = dict(dec.counters)
+        got = greedy(dec, prompt)
+        decode_hop_checks(c0, dict(dec.counters), prompt, got, want, what)
+        launches = {k.__name__: k.launches for k in kernels}
+        if pre.device.type == "cuda" and not all(launches.values()):
+            raise RuntimeError(f"{what}: the handoff path launched "
+                               f"{launches}")
+        log(f"  {what}: {pages} pages, {out['bytes']} B over the wire, "
+            f"spec {sorted(spec)}, tokens equal to the unified engine's; "
+            f"launches {launches}")
+        return {"pages": pages, "bytes": out["bytes"], "launches": launches,
+                "sections": sorted(spec)}
+    finally:
+        for f in fronts:
+            f.shutdown()
+            f.server_close()
+        for e in engines:
+            e.stop()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description="chip smoke of the PyTorch "
                                 "port (see the module docstring)")
@@ -8960,6 +9571,10 @@ def main(argv=None) -> int:
                    help="run only phase 9e (MoE training; the kernels it "
                    "runs build at their first launch), print its JSON and "
                    "exit")
+    p.add_argument("--disagg", action="store_true",
+                   help="run only phase 7k (disaggregated serving of "
+                   "llama3-8b bf16; the kernels build at their first "
+                   "launch), print its JSON and exit")
     args = p.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -8982,6 +9597,14 @@ def main(argv=None) -> int:
         return 0
     if args.moe_train:
         print(json.dumps(moe_train_phase(torch, dev, card)), flush=True)
+        return 0
+    if args.disagg:
+        from k8s_runpod_kubelet_tpu_torch.models import init_params, llama3_8b
+        cfg = llama3_8b()
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(
+            SEED), dev)
+        print(json.dumps(disagg_phase(torch, dev, card, cfg, params)),
+              flush=True)
         return 0
 
     log("phase build")
@@ -9192,6 +9815,14 @@ def main(argv=None) -> int:
         "/debug/profile) and a ReplicaReporter at 0.5 s against a stub "
         "router")
     obs = observability_phase(torch, dev, card, cfg, params, eng)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log("phase 7k (disaggregated serving): phase 4's llama3-8b bf16 tree as "
+        "prefill, decode and unified replicas: the device rung in this "
+        "process, the wire, shm and pull rungs between two serve_main "
+        "processes, --kv-int8 over the wire, the rungs' times")
+    disagg = disagg_phase(torch, dev, card, cfg, params)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -9417,7 +10048,9 @@ def main(argv=None) -> int:
                 "serve_deepseek_int4_kv_int8":
                     deepseek["int4_kv_int8"]["launches"],
                 "serve_deepseek_dense":
-                    deepseek["dense_and_contiguous"]["launches"]}
+                    deepseek["dense_and_contiguous"]["launches"],
+                "serve_disagg_deepseek_int4_kv_int8":
+                    deepseek["handoff"]["launches"]}
         return {path: n[kname] for path, n in runs.items() if kname in n}
 
     serve_launches, quant_launches = eng["launches"], qeng["launches"]
@@ -9438,6 +10071,8 @@ def main(argv=None) -> int:
                {"serve": serve_launches["paged_attention_multi"],
                 "serve_observability":
                     obs["launches"]["paged_attention_multi"],
+                "serve_disagg_device":
+                    disagg["device"]["launches"]["paged_attention_multi"],
                 "serve_spec": spec_launches["paged_attention_multi"],
                 "serve_openai": openai["launches"]["paged_attention_multi"],
                 "serve_int4_kv_int8":
@@ -9455,6 +10090,8 @@ def main(argv=None) -> int:
                serve_launches["rms_norm"],
                {"serve": serve_launches["rms_norm"],
                 "serve_observability": obs["launches"]["rms_norm"],
+                "serve_disagg_device": disagg["device"]["launches"]["rms_norm"],
+                "serve_disagg_kv_int8": disagg["kv_int8"]["launches"]["rms_norm"],
                 "serve_spec": spec_launches["rms_norm"],
                 "serve_int4_kv_int8": quant_launches["rms_norm"],
                 "serve_mla": mla_launches["rms_norm"],
@@ -9509,6 +10146,8 @@ def main(argv=None) -> int:
                quant_launches["paged_attention_multi_quant"],
                {"serve_int4_kv_int8":
                     quant_launches["paged_attention_multi_quant"],
+                "serve_disagg_kv_int8": disagg["kv_int8"]["launches"][
+                    "paged_attention_multi_quant"],
                 "serve_tp": tp_launches["paged_attention_multi_quant"],
                 "serve_lora_int4_kv_int8":
                     lora_q_launches["paged_attention_multi_quant"],
@@ -9611,7 +10250,7 @@ def main(argv=None) -> int:
         with open(args.out, "w") as f:
             json.dump({"card": card, "device": device, "kernels": kernels,
                        "flash": flash, "engine": eng,
-                       "observability": obs,
+                       "observability": obs, "disagg": disagg,
                        "spec_engine": spec, "openai": openai,
                        "hf_load": hf,
                        "quant_engine": qeng, "mla_engine": mla_eng,

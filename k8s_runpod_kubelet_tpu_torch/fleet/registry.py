@@ -1,18 +1,20 @@
 """The replica side of fleet membership (the port's copy of the JAX
-package's ``fleet/registry.py`` ``ReplicaReporter`` and the role it
+package's ``fleet/registry.py`` ``ReplicaReporter`` and the roles it
 registers). Stdlib only.
 
 A torch replica registers with the fleet router (the JAX package's
-``fleet/router_main.py``, which is framework-free), heartbeats the load
-stats the router routes on and the autoscaler scales on, all computed
-from the engine's ``debug_snapshot()`` and ``metrics``, carries its
-cumulative ``Metrics.snapshot()`` on every beat for the fleet-wide
-merge, and deregisters once a drain completes. The heartbeat payload has
-the JAX reporter's keys, so the router reads a torch replica as it reads
-a JAX one. Only the unified role registers today: the prefill and decode
-roles need the KV handoff (ROADMAP Queue 1 #10); the prefix-directory
-publishes and the cost snapshot stay absent through the ``getattr``
-checks below until the engine grows their hooks (Queue 1 #10 and #11).
+``fleet/router_main.py``, which is framework-free) under its role —
+unified, or prefill or decode for disaggregated serving, where the router
+plans two-hop routes once both pools have a ready member — and its
+placement domain (equal domains hand KV pages without the wire),
+heartbeats the load stats the router routes on and the autoscaler scales
+on, all computed from the engine's ``debug_snapshot()`` and ``metrics``,
+carries its cumulative ``Metrics.snapshot()`` and its pending
+prefix-directory publishes on every beat (a failed beat re-queues the
+publishes), and deregisters once a drain completes. The heartbeat payload
+has the JAX reporter's keys, so the router reads a torch replica as it
+reads a JAX one. The cost snapshot stays absent through the ``getattr``
+check below until the engine grows a cost meter (ROADMAP Queue 1 #11).
 """
 
 from __future__ import annotations
@@ -23,10 +25,14 @@ import urllib.request
 
 log = logging.getLogger(__name__)
 
-# the role a torch replica registers as: it prefills and decodes its own
-# requests. The prefill and decode roles need the KV handoff (/kv_prefill),
-# which the port does not serve yet (ROADMAP Queue 1 #10)
+# the disaggregated-serving pools a replica registers into: unified
+# prefills and decodes its own requests (and is the fallback of a failed
+# two-hop route); prefill computes KV and hands pages off (/kv_prefill);
+# decode adopts them and streams tokens
 UNIFIED = "unified"
+PREFILL = "prefill"
+DECODE = "decode"
+ROLES = (UNIFIED, PREFILL, DECODE)
 
 
 class ReplicaReporter:
@@ -43,12 +49,18 @@ class ReplicaReporter:
     def __init__(self, engine, router_url: str, replica_id: str,
                  advertise_url: str, pod_name: str = "",
                  interval_s: float = 2.0, post_fn=None,
+                 role: str = UNIFIED, placement_domain: str = "",
                  generation: str = "", pool: str = ""):
+        if (role or UNIFIED) not in ROLES:
+            raise ValueError(f"role must be one of {ROLES}, got {role!r}")
         self.engine = engine
         self.router_url = router_url.rstrip("/")
         self.replica_id = replica_id
         self.advertise_url = advertise_url
         self.pod_name = pod_name
+        self.role = role or UNIFIED
+        # the device-transfer co-location claim; "" = wire only
+        self.placement_domain = placement_domain
         # mixed-fleet identity: from TPU_SERVING_GENERATION /
         # TPU_SERVING_POOL stamped by the scheduler-aware pod scaler
         self.generation = generation
@@ -163,9 +175,8 @@ class ReplicaReporter:
                    {"replica_id": self.replica_id,
                     "base_url": self.advertise_url,
                     "pod_name": self.pod_name,
-                    "role": UNIFIED,
-                    # no device-transfer co-location claim: wire-only
-                    "placement_domain": "",
+                    "role": self.role,
+                    "placement_domain": self.placement_domain,
                     "generation": self.generation,
                     "pool": self.pool})
 
@@ -182,8 +193,7 @@ class ReplicaReporter:
         # piggyback pending prefix-directory publishes:
         # pending-until-acked — a failed beat puts them back so the
         # directory eventually hears about every inserted run
-        take = getattr(self.engine, "take_prefix_publishes", None)
-        pubs = take() if take is not None else []
+        pubs = self.engine.take_prefix_publishes()
         body = {"replica_id": self.replica_id, "stats": self.stats()}
         if pubs:
             body["prefixes"] = pubs
@@ -205,9 +215,8 @@ class ReplicaReporter:
         try:
             out = self._post("/fleet/heartbeat", body)
         except Exception:
-            requeue = getattr(self.engine, "requeue_prefix_publishes", None)
-            if pubs and requeue is not None:
-                requeue(pubs)
+            if pubs:
+                self.engine.requeue_prefix_publishes(pubs)
             raise
         if isinstance(out, dict) and out.get("registered") is False:
             self.register()

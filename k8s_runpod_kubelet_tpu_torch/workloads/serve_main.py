@@ -1,5 +1,5 @@
 """HTTP front over the port's ServingEngine (a port of the JAX package's
-``workloads/serve_main.py``, without the KV-handoff routes and tenants).
+``workloads/serve_main.py``, without its tenants).
 
 Endpoints:
   POST /generate      {"tokens": [...]} or {"text": "..."} (with a
@@ -55,6 +55,31 @@ Endpoints:
                       as a Chrome trace into a fresh temporary directory ->
                       {"profile_dir", "seconds"}; 403 unless
                       --profile-capture on, 409 while another capture runs
+  POST /kv_prefill    disaggregated prefill hop (router -> prefill replica):
+                      {"path", "request", "handoff_to": decode URL,
+                      "device", "device_domain"}: prefill the request's
+                      prompt through the prefix cache and hand its full
+                      pages to the decode replica — arena to arena when the
+                      router annotated "device" and the replica is an
+                      engine of this process, through a tmpfs blob for a
+                      vouched domain in another process (shm), else the
+                      wire codec; streamed chunk by chunk with
+                      --serving-chunk-tokens. Every device-rung failure
+                      downgrades (tpu_serving_kv_handoff_device_downgrades);
+                      a prompt under one page answers {"skip": true}
+  POST /kv_adopt      a pushed page run (the wire codec's blob) adopted into
+                      this arena through the prefix trie; 400 on a refused
+                      blob, the arena untouched
+  POST /kv_adopt_chunk  one frame of a streamed run, held in order; the
+                      arena moves when the final frame closes a valid
+                      stream
+  POST /kv_adopt_shm  {"path"}: a tmpfs blob parked by a sender of this host
+  POST /kv_pull       owner side of a directory pull: an already-cached run
+                      as the response body, or {"via": "shm"} a tmpfs path;
+                      404 {"gone": true} when the arena no longer holds it
+  POST /kv_fetch      cold-replica side of a directory pull: fetch the run
+                      from {"owner_url"} over device -> shm -> wire and adopt
+                      it; always 200 (a failed pull just prefills)
 
 /generate, /prefix and the OpenAI completion routes take a W3C
 ``traceparent`` header: its trace id and span become the request's trace
@@ -62,8 +87,10 @@ and parent span, and every response carries the request's own
 ``traceparent`` (feed its trace id to /debug/traces). A submit past
 --max-queue-depth answers 429 (the OpenAI error shape on /v1/*) with
 Retry-After; a draining engine 503. With --fleet-router the replica
-registers with the fleet router and heartbeats its load and its metrics
-snapshot (``fleet.registry.ReplicaReporter``).
+registers with the fleet router as its --serving-role (unified, prefill or
+decode) and --placement-domain, and heartbeats its load, its metrics
+snapshot and its prefix-directory publishes
+(``fleet.registry.ReplicaReporter``).
 
 Run: python -m k8s_runpod_kubelet_tpu_torch.workloads.serve_main \
         --model llama3-8b --slots 8 --cache-len 2048 --port 8000 \
@@ -75,7 +102,10 @@ Run: python -m k8s_runpod_kubelet_tpu_torch.workloads.serve_main \
          [--dynamic-adapters]] [--trace-export PATH]
         [--profile-capture on|off] [--fleet-router URL
          [--fleet-advertise URL] [--fleet-replica-id ID]
-         [--fleet-heartbeat-interval S]]
+         [--fleet-heartbeat-interval S]] [--serving-role ROLE]
+        [--handoff-stream-window N] [--device-transfer on|off]
+        [--placement-domain D] [--placement-domain-mode auto|proc|slice]
+        [--pull-timeout S]
 (``--model mla-8b`` serves Multi-head Latent Attention from a latent
 arena; ``--kv-int8`` then makes the latents int8. ``--model
 deepseek-v2-lite`` serves DeepSeek-V2-Lite: the latent arena, with its
@@ -87,6 +117,7 @@ from __future__ import annotations
 
 import argparse
 import base64
+import http.client
 import itertools
 import json
 import logging
@@ -97,16 +128,25 @@ import struct
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.parse
+import urllib.request
+import uuid
 from concurrent.futures import TimeoutError as FutureTimeout
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import torch
 
 from ..device import resolve_device
+from ..fleet.device_transfer import (BUS, ShmBlobGC, detect_placement_domain,
+                                     device_pull, device_push, open_shm_blob,
+                                     write_shm_blob)
+from ..fleet.handoff import (KVPullMiss, serialize_chunk_frame,
+                             serialize_pages)
 from ..tracing import Tracer, format_traceparent, parse_traceparent
 from .serving import (EngineDraining, EngineOverloaded, ServingConfig,
                       ServingEngine)
+from .serving.engine import host_sections
 from .tokenizer import get_tokenizer
 
 log = logging.getLogger("serve-main")
@@ -117,6 +157,21 @@ _RID_SEQ = itertools.count()
 _PROFILE_LOCK = threading.Lock()
 
 
+# the fleet settings of the JAX package's ``config.py`` (serving_role,
+# handoff_stream_window, fleet_device_transfer_enabled,
+# fleet_placement_domain, fleet_placement_domain_mode,
+# fleet_pull_timeout_s): flag dest -> (its environment variable, its
+# default). A flag beats the variable, the variable the default
+FLEET_SETTINGS = {
+    "serving_role": ("TPU_SERVING_ROLE", "unified"),
+    "handoff_stream_window": ("TPU_HANDOFF_STREAM_WINDOW", 8),
+    "device_transfer": ("TPU_FLEET_DEVICE_TRANSFER_ENABLED", True),
+    "placement_domain": ("TPU_FLEET_PLACEMENT_DOMAIN", ""),
+    "placement_domain_mode": ("TPU_FLEET_PLACEMENT_DOMAIN_MODE", "auto"),
+    "pull_timeout": ("TPU_FLEET_PULL_TIMEOUT_S", 10.0),
+}
+
+
 class ProfileBusy(RuntimeError):
     """A ``torch.profiler`` capture is already running in this process."""
 
@@ -124,6 +179,15 @@ class ProfileBusy(RuntimeError):
 def _or(value, default):
     """JSON null falls back to the default, like an absent key."""
     return default if value is None else value
+
+
+def _close_map(blob) -> None:
+    """Close a mapped tmpfs blob; while a failed adoption's traceback still
+    holds views of it, the mapping closes when the last view dies."""
+    try:
+        blob.close()
+    except BufferError:
+        pass
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -139,6 +203,15 @@ class _Handler(BaseHTTPRequestHandler):
     # capture window's sleep is a seam like the clocks
     profile_capture = False
     sleep = staticmethod(time.sleep)
+    # streamed handoff: chunk fragments queued between the chunked prefill
+    # and the sender thread pushing them (compute waits when it is full)
+    handoff_stream_window = 8
+    # this replica's placement domain ("": every hop rides the wire)
+    device_domain = ""
+    # budget of one directory-pull hop (owner export, transfer, adoption)
+    pull_timeout_s = 10.0
+    # owner-side sweep of pull blobs a dead puller never unlinked
+    shm_gc = None
     protocol_version = "HTTP/1.1"
 
     def log_message(self, *a):
@@ -243,6 +316,13 @@ class _Handler(BaseHTTPRequestHandler):
         self._send(404, {"error": f"no route {self.path}"})
 
     def do_POST(self):
+        hop = {"/kv_prefill": self._kv_prefill, "/kv_adopt": self._kv_adopt,
+               "/kv_adopt_chunk": self._kv_adopt_chunk,
+               "/kv_adopt_shm": self._kv_adopt_shm,
+               "/kv_pull": self._kv_pull,
+               "/kv_fetch": self._kv_fetch}.get(self.path)
+        if hop is not None:
+            return hop()
         if self.path == "/drain":
             self._read_json()  # unread bytes would poison keep-alive
             self.engine.drain()
@@ -309,6 +389,583 @@ class _Handler(BaseHTTPRequestHandler):
                 text, _ = self._cut_at_stop(text, stop_strs)
             body["text"] = text
         self._send(200, body, extra_headers=trace_hdrs)
+
+    # -- disaggregated serving: the KV handoff and pull doors ---------------
+
+    def _hop_trace(self) -> tuple[str, str]:
+        """(trace id, parent span) of an inbound ``traceparent``, or a
+        fresh trace id: a hop's spans join the router's trace."""
+        inbound = parse_traceparent(self.headers.get("traceparent"))
+        if inbound:
+            return inbound[0], inbound[1]
+        return Tracer.new_trace_id(), ""
+
+    def _span_fn(self, name: str, started: float, trace_id: str,
+                 parent: str, span_id: str = "", **fixed):
+        """span(ok, attrs) recording ``name`` from ``started``; tracing
+        never fails a hop."""
+        tr = self.engine.tracer
+
+        def span(ok: bool, attrs: dict):
+            try:
+                tr.record(name, started, tr.clock(), trace_id=trace_id,
+                          span_id=span_id or None, parent_id=parent,
+                          attrs={"ok": ok, **fixed, **attrs})
+            except Exception:  # noqa: BLE001 — tracing never fails the hop
+                log.exception("%s span failed", name)
+        return span
+
+    def _read_body(self) -> bytes:
+        length = int(self.headers.get("Content-Length") or 0)
+        return self.rfile.read(length) if length else b""
+
+    def _kv_prefill(self):
+        """Disaggregated prefill hop (router -> prefill replica): compute
+        the prompt's KV through the engine's prefix-cache prefill and
+        hand the page run to the decode replica named by "handoff_to" —
+        arena to arena when the router annotated ``device`` (the ladder:
+        an engine of this process, else the shm rung for a vouched
+        domain, else the wire), through the wire codec otherwise, streamed
+        chunk by chunk with ``serving_chunk_tokens`` set. A prompt under
+        one page answers a quiet ``skip``. The serving.kv_prefill span
+        parents under the router's fleet.handoff."""
+        trace_id, parent = self._hop_trace()
+        span_id = Tracer.new_span_id()
+        span = self._span_fn("serving.kv_prefill", self.engine.tracer.clock(),
+                             trace_id, parent, span_id)
+        try:
+            req = self._read_json()
+            target = req.get("handoff_to")
+            if not (isinstance(target, str) and target):
+                raise ValueError('need "handoff_to" (decode replica URL)')
+        except (json.JSONDecodeError, ValueError, TypeError,
+                AttributeError) as e:
+            span(False, {"error": str(e)})
+            return self._send(400, {"ok": False, "error": str(e)})
+        try:
+            tokens = self._request_tokens(str(req.get("path") or "/generate"),
+                                          req.get("request") or {})
+            # before any compute: a prompt under one full page has
+            # nothing to hand off, and prefilling it here would only
+            # double the fallback replica's prefill
+            if len(tokens) < self.engine.sc.kv_page_tokens:
+                raise ValueError(
+                    f"prompt of {len(tokens)} tokens is under one "
+                    f"{self.engine.sc.kv_page_tokens}-token page")
+        except (ValueError, TypeError) as e:
+            # an expected decline, not a failure: the router falls back
+            # quietly and no failure counter moves
+            span(False, {"skip": True, "error": str(e)})
+            return self._send(200, {"ok": False, "skip": True,
+                                    "error": str(e)})
+        if req.get("device") and self.device_domain:
+            try:
+                out = device_push(self.engine, target, tokens,
+                                  domain=self.device_domain,
+                                  window=self.handoff_stream_window,
+                                  target_domain=str(
+                                      req.get("device_domain") or ""),
+                                  timeout_s=self.request_timeout_s)
+            except Exception as e:  # noqa: BLE001 — every device failure
+                # downgrades to the wire below (and a wire failure to the
+                # router's unified fallback): an observability event,
+                # never a client error
+                self.engine.metrics.incr(
+                    "tpu_serving_kv_handoff_device_downgrades")
+                log.warning("device handoff to %s downgraded to wire: %s",
+                            target, e)
+            else:
+                span(True, {"path": out.get("path", "device"),
+                            "tokens": len(tokens), "pages": out["pages"],
+                            "bytes": out["bytes"],
+                            "streamed": out["streamed"],
+                            "chunks": out.get("chunks"),
+                            "matched_tokens": out["matched_tokens"]})
+                return self._send(200, {"ok": True, **out})
+        if self.engine.sc.serving_chunk_tokens > 0:
+            return self._kv_prefill_streamed(tokens, target, trace_id,
+                                             span_id, span)
+        try:
+            out = self.engine.export_handoff(tokens)
+        except Exception as e:  # noqa: BLE001 — export counts its failures
+            span(False, {"tokens": len(tokens), "error": str(e)})
+            return self._send(502, {"ok": False, "error": str(e)})
+        blob = out["blob"]
+        try:
+            push = urllib.request.Request(
+                target.rstrip("/") + "/kv_adopt", data=blob,
+                headers={"Content-Type": "application/octet-stream",
+                         "traceparent": format_traceparent(trace_id,
+                                                           span_id)},
+                method="POST")
+            with urllib.request.urlopen(
+                    push, timeout=self.request_timeout_s) as resp:
+                adopted = json.loads(resp.read() or b"{}")
+            if not adopted.get("ok"):
+                raise OSError(f"decode replica refused adoption: {adopted}")
+        except Exception as e:  # noqa: BLE001 — any push failure = failed hop
+            self.engine.metrics.incr("tpu_serving_kv_handoff_failures")
+            span(False, {"tokens": len(tokens), "pages": out["pages"],
+                         "error": str(e)})
+            return self._send(502, {"ok": False, "error": str(e)})
+        span(True, {"path": "wire", "tokens": len(tokens),
+                    "pages": out["pages"], "bytes": len(blob),
+                    "matched_tokens": out["matched_tokens"]})
+        return self._send(200, {
+            "ok": True, "path": "wire", "pages": out["pages"],
+            "bytes": len(blob), "covered_tokens": out["covered_tokens"],
+            "matched_tokens": out["matched_tokens"],
+            "adopted": adopted.get("pages")})
+
+    def _kv_prefill_streamed(self, tokens: list, target: str,
+                             trace_id: str, span_id: str, span):
+        """The chunked prefill hop: ``export_handoff_stream`` computes
+        chunk by chunk and hands each chunk's pages to a SENDER THREAD
+        here, which copies them to the host, frames them and POSTs them to
+        the decode replica's /kv_adopt_chunk over one keep-alive
+        connection while the next chunk computes. The queue between them
+        holds ``handoff_stream_window`` fragments: compute waits when
+        transfer falls that far behind. serving.kv_chunk (compute) and
+        serving.kv_push (copy, frame, POST) spans parent under the hop's
+        serving.kv_prefill. Any frame failure aborts the stream with a
+        502; the decode side's partial stream expires without touching
+        its arena."""
+        eng = self.engine
+        tr = eng.tracer
+        stream_id = uuid.uuid4().hex
+        page_tokens = eng.sc.kv_page_tokens
+        sendq: "queue.Queue" = queue.Queue(
+            maxsize=max(1, int(self.handoff_stream_window)))
+        push_err: list = []
+        stats = {"frames": 0, "bytes": 0, "push_s": 0.0}
+
+        def child_span(name, t0, attrs):
+            try:
+                tr.record(name, t0, tr.clock(), trace_id=trace_id,
+                          parent_id=span_id, attrs=attrs)
+            except Exception:  # noqa: BLE001 — tracing never fails the hop
+                log.exception("%s span failed", name)
+
+        def sender():
+            parsed = urllib.parse.urlsplit(target)
+            path = parsed.path.rstrip("/") + "/kv_adopt_chunk"
+            conn = None
+            try:
+                while True:
+                    frag = sendq.get()
+                    if frag is None:
+                        return
+                    t0w, t0 = tr.clock(), self.mono()
+                    try:
+                        payload = b""
+                        if frag["sections"]:
+                            # the host copy happens here, never on the
+                            # compute thread
+                            sections, words = host_sections(
+                                frag["sections"], frag["ready"], eng.device)
+                            payload = serialize_pages(
+                                frag["tokens"], page_tokens, sections,
+                                model=eng.cfg.name, dtypes=words)
+                        blob = serialize_chunk_frame(
+                            stream_id, frag["seq"], payload,
+                            final=frag["final"],
+                            total_tokens=frag.get("total_tokens"))
+                        if conn is None:
+                            cls = (http.client.HTTPSConnection
+                                   if parsed.scheme == "https"
+                                   else http.client.HTTPConnection)
+                            conn = cls(parsed.hostname, parsed.port or (
+                                443 if parsed.scheme == "https" else 80),
+                                timeout=self.request_timeout_s)
+                            conn.connect()
+                            # headers and body go out as two writes: with
+                            # Nagle on, delayed ACKs cost ~40 ms a frame
+                            conn.sock.setsockopt(socket.IPPROTO_TCP,
+                                                 socket.TCP_NODELAY, 1)
+                        conn.request(
+                            "POST", path, body=blob,
+                            headers={"Content-Type":
+                                     "application/octet-stream",
+                                     "traceparent": format_traceparent(
+                                         trace_id, span_id)})
+                        resp = conn.getresponse()
+                        reply = json.loads(resp.read() or b"{}")
+                        if resp.status != 200 or not reply.get("ok"):
+                            raise OSError(f"decode replica refused frame "
+                                          f"{frag['seq']}: {resp.status} "
+                                          f"{reply}")
+                        stats["frames"] += 1
+                        stats["bytes"] += len(blob)
+                        stats["push_s"] += self.mono() - t0
+                        eng.metrics.incr("tpu_serving_kv_handoff_bytes",
+                                         len(blob))
+                        child_span("serving.kv_push", t0w,
+                                   {"seq": frag["seq"],
+                                    "final": frag["final"],
+                                    "bytes": len(blob),
+                                    "pages": len(frag["tokens"])
+                                    // page_tokens})
+                    except Exception as e:  # noqa: BLE001 — a failed
+                        # frame fails the hop: emit sees push_err
+                        push_err.append(e)
+                        child_span("serving.kv_push", t0w,
+                                   {"seq": frag["seq"], "ok": False,
+                                    "error": str(e)})
+                        return
+            finally:
+                if conn is not None:
+                    conn.close()
+
+        chunk_t0 = [tr.clock()]
+
+        def emit(frag):
+            child_span("serving.kv_chunk", chunk_t0[0],
+                       {"seq": frag["seq"], "final": frag["final"],
+                        "tokens": len(frag["tokens"]),
+                        "pages": len(frag["tokens"]) // page_tokens})
+            chunk_t0[0] = tr.clock()
+            while True:
+                if push_err:
+                    raise OSError(f"stream push failed: {push_err[0]}")
+                try:
+                    sendq.put(frag, timeout=0.1)
+                    return
+                except queue.Full:
+                    continue
+
+        thread = threading.Thread(target=sender, name="kv-handoff-sender",
+                                  daemon=True)
+
+        def finish_sender(abort: bool):
+            """Land the close sentinel whatever happened (a stranded
+            sender leaks a thread a hop): on abort drop the stale frames
+            first; on success wait for room, the sender still pushing."""
+            if not abort:
+                while not push_err:
+                    try:
+                        sendq.put(None, timeout=0.1)
+                        thread.join(timeout=self.request_timeout_s)
+                        return
+                    except queue.Full:
+                        continue
+            while True:
+                try:
+                    sendq.get_nowait()
+                except queue.Empty:
+                    break
+            sendq.put(None)
+            thread.join(timeout=self.request_timeout_s)
+
+        t_start = self.mono()
+        thread.start()
+        try:
+            out = eng.export_handoff_stream(tokens, emit)
+            compute_s = self.mono() - t_start
+        except Exception as e:  # noqa: BLE001 — export counts its failures
+            span(False, {"streamed": True, "tokens": len(tokens),
+                         "error": str(e)})
+            finish_sender(abort=True)
+            return self._send(502, {"ok": False, "error": str(e)})
+        finish_sender(abort=False)
+        wall_s = self.mono() - t_start
+        if thread.is_alive():
+            # the final frame's adoption is unconfirmed: fail the hop
+            push_err.append(OSError(
+                f"transfer outlived request_timeout_s="
+                f"{self.request_timeout_s}; adoption unconfirmed"))
+        if push_err:
+            eng.metrics.incr("tpu_serving_kv_handoff_failures")
+            span(False, {"streamed": True, "tokens": len(tokens),
+                         "chunks": out["chunks"],
+                         "error": str(push_err[0])})
+            return self._send(502, {"ok": False,
+                                    "error": str(push_err[0])})
+        # how much of the smaller leg hid behind the other
+        floor = min(compute_s, stats["push_s"])
+        overlap = max(0.0, compute_s + stats["push_s"] - wall_s)
+        overlap_ratio = (round(min(1.0, overlap / floor), 3)
+                         if floor > 1e-9 else 0.0)
+        span(True, {"path": "wire", "streamed": True, "tokens": len(tokens),
+                    "pages": out["pages"], "chunks": out["chunks"],
+                    "bytes": stats["bytes"],
+                    "matched_tokens": out["matched_tokens"],
+                    "overlap_ratio": overlap_ratio})
+        return self._send(200, {
+            "ok": True, "path": "wire", "streamed": True,
+            "pages": out["pages"], "bytes": stats["bytes"],
+            "chunks": out["chunks"], "covered_tokens": out["covered_tokens"],
+            "matched_tokens": out["matched_tokens"],
+            "overlap_ratio": overlap_ratio, "compute_s": round(compute_s, 6),
+            "push_s": round(stats["push_s"], 6), "wall_s": round(wall_s, 6)})
+
+    def _kv_adopt_chunk(self):
+        """Decode side of a STREAMED handoff: one chunk frame in, held in
+        strict order; the arena moves only when the final frame closes a
+        valid stream. 400 on any refusal (the sender aborts, the router
+        falls back)."""
+        trace_id, parent = self._hop_trace()
+        span = self._span_fn("serving.kv_adopt_chunk",
+                             self.engine.tracer.clock(), trace_id, parent)
+        blob = self._read_body()
+        try:
+            out = self.engine.adopt_handoff_chunk(blob)
+        except Exception as e:  # noqa: BLE001 — the engine counts failures
+            span(False, {"bytes": len(blob), "error": str(e)})
+            return self._send(400, {"ok": False, "error": str(e)})
+        span(True, {"bytes": len(blob), "seq": out.get("seq"),
+                    "final": out["final"],
+                    **({"pages": out["pages"]} if out["final"] else {})})
+        return self._send(200, out)
+
+    def _kv_adopt(self):
+        """Decode side: adopt a pushed page run into this engine's arena
+        (its prefix trie), so the request that follows references it."""
+        trace_id, parent = self._hop_trace()
+        span = self._span_fn("serving.kv_adopt", self.engine.tracer.clock(),
+                             trace_id, parent)
+        blob = self._read_body()
+        try:
+            out = self.engine.adopt_handoff(blob)
+        except Exception as e:  # noqa: BLE001 — adopt counts its failures
+            span(False, {"bytes": len(blob), "error": str(e)})
+            return self._send(400, {"ok": False, "error": str(e)})
+        span(True, out)
+        return self._send(200, {"ok": True, **out})
+
+    def _kv_adopt_shm(self):
+        """Receiver of the cross-process push rung: the sender parked a
+        handoff blob in the shm dir and POSTs only its path; map it and
+        adopt it through the wire door's validation. The sender owns the
+        file (it unlinks it whether or not this lands); 400 on any
+        refusal, and the sender downgrades to the wire."""
+        trace_id, parent = self._hop_trace()
+        span = self._span_fn("serving.kv_adopt", self.engine.tracer.clock(),
+                             trace_id, parent, path="shm")
+        try:
+            req = self._read_json()
+            blob = open_shm_blob(str(req.get("path") or ""))
+        except Exception as e:  # noqa: BLE001 — a vanished, foreign or
+            # torn path is the sender's downgrade signal
+            span(False, {"error": str(e)})
+            return self._send(400, {"ok": False, "error": str(e)})
+        try:
+            out = self.engine.adopt_handoff(blob)
+        except Exception as e:  # noqa: BLE001 — adopt counts its failures
+            span(False, {"bytes": len(blob), "error": str(e)})
+            return self._send(400, {"ok": False, "error": str(e)})
+        finally:
+            _close_map(blob)
+        span(True, out)
+        return self._send(200, {"ok": True, **out})
+
+    def _kv_pull(self):
+        """OWNER side of a directory pull: a cold replica's /kv_fetch asks
+        for an already-computed page run. ``export_pull`` only matches, so
+        a run the arena evicted answers 404 {"gone": true} (every rung
+        reads this one trie: the puller reports gone and the request
+        prefills). ``via: "shm"`` parks the blob in tmpfs and answers its
+        path (the puller maps it and unlinks it; ShmBlobGC sweeps what a
+        dead puller leaves); else the blob is the response body."""
+        trace_id, parent = self._hop_trace()
+        span = self._span_fn("serving.kv_pull", self.engine.tracer.clock(),
+                             trace_id, parent, side="owner")
+        try:
+            req = self._read_json()
+            tokens = req.get("tokens")
+            if not (isinstance(tokens, list)
+                    and all(isinstance(t, int) for t in tokens)):
+                raise ValueError("tokens must be a list of ints")
+            adapter = str(req.get("adapter") or "")
+            via = str(req.get("via") or "wire")
+        except (json.JSONDecodeError, ValueError, TypeError,
+                AttributeError) as e:
+            span(False, {"error": str(e)})
+            return self._send(400, {"ok": False, "error": str(e)})
+        try:
+            out = self.engine.export_pull(tokens, adapter=adapter)
+        except KVPullMiss as e:
+            # not a failure: directory staleness, which the router's
+            # invalidations count
+            span(False, {"gone": True, "error": str(e)})
+            return self._send(404, {"ok": False, "gone": True,
+                                    "error": str(e)})
+        except Exception as e:  # noqa: BLE001 — export counts its failures
+            span(False, {"error": str(e)})
+            return self._send(502, {"ok": False, "error": str(e)})
+        blob = out["blob"]
+        if via == "shm":
+            gc = self.shm_gc
+            if gc is not None:
+                gc.sweep()   # blobs a dead puller never unlinked
+            try:
+                path = write_shm_blob(blob)
+            except OSError as e:
+                self.engine.metrics.incr("tpu_serving_kv_pull_failures")
+                span(False, {"via": "shm", "error": str(e)})
+                return self._send(502, {"ok": False, "error": str(e)})
+            if gc is not None:
+                gc.track(path)
+            span(True, {"via": "shm", "pages": out["pages"],
+                        "bytes": len(blob)})
+            return self._send(200, {
+                "ok": True, "path": path, "pages": out["pages"],
+                "bytes": len(blob), "covered_tokens": out["covered_tokens"]})
+        span(True, {"via": "wire", "pages": out["pages"],
+                    "bytes": len(blob)})
+        return self._send(200, blob, "application/octet-stream",
+                          extra_headers={
+                              "X-KV-Pages": str(out["pages"]),
+                              "X-KV-Covered-Tokens":
+                                  str(out["covered_tokens"])})
+
+    def _owner_pull(self, owner_url: str, payload: dict, trace_id: str,
+                    span_id: str):
+        """One control POST to the owner's /kv_pull: ("gone", message)
+        when the run no longer exists there, ("blob", bytes) for a wire
+        reply, ("json", dict) for a shm path; OSError on a transport
+        failure (the caller walks down a rung)."""
+        req = urllib.request.Request(
+            owner_url.rstrip("/") + "/kv_pull",
+            data=json.dumps(payload).encode(),
+            headers={"Content-Type": "application/json",
+                     "traceparent": format_traceparent(trace_id, span_id)},
+            method="POST")
+        try:
+            with urllib.request.urlopen(
+                    req, timeout=self.pull_timeout_s) as resp:
+                ctype = resp.headers.get("Content-Type") or ""
+                raw = resp.read()
+        except urllib.error.HTTPError as e:
+            body = e.read()
+            try:
+                parsed = json.loads(body or b"{}")
+            except json.JSONDecodeError:
+                parsed = {}
+            if e.code == 404 and parsed.get("gone"):
+                return ("gone", str(parsed.get("error") or "gone"))
+            raise OSError(f"owner /kv_pull answered {e.code}: "
+                          f"{parsed.get('error') or body[:200]!r}") from e
+        if "octet-stream" in ctype:
+            return ("blob", raw)
+        out = json.loads(raw or b"{}")
+        if not isinstance(out, dict):
+            raise OSError(f"owner /kv_pull answered non-object: {out!r}")
+        if out.get("gone"):
+            return ("gone", str(out.get("error") or "gone"))
+        if not out.get("ok"):
+            raise OSError(f"owner /kv_pull refused: {out}")
+        return ("json", out)
+
+    def _kv_fetch(self):
+        """COLD-REPLICA side of a directory pull: the router found the
+        prompt's prefix in the fleet directory under ANOTHER replica and
+        asks this engine to fetch the pages before the request lands.
+        The pull ladder, fastest first: device (the owner is an engine of
+        this process) -> shm (same host, blob through tmpfs) -> wire (blob
+        in the owner's response). A transport failure walks down a rung;
+        a KVPullMiss at any rung answers {"gone": true} at once (every
+        rung reads the owner's one trie). Always HTTP 200: a failed pull
+        is a missed optimization, the request then prefills."""
+        trace_id, parent = self._hop_trace()
+        span_id = Tracer.new_span_id()
+        span = self._span_fn("serving.kv_pull", self.engine.tracer.clock(),
+                             trace_id, parent, span_id, side="puller")
+        try:
+            req = self._read_json()
+            tokens = req.get("tokens")
+            if not (isinstance(tokens, list) and tokens
+                    and all(isinstance(t, int) for t in tokens)):
+                raise ValueError("tokens must be a non-empty list of ints")
+            owner_url = str(req.get("owner_url") or "")
+            if not owner_url:
+                raise ValueError('need "owner_url"')
+            adapter = str(req.get("adapter") or "")
+            owner_domain = str(req.get("owner_domain") or "")
+            model = str(req.get("model") or "")
+        except (json.JSONDecodeError, ValueError, TypeError,
+                AttributeError) as e:
+            span(False, {"error": str(e)})
+            return self._send(400, {"ok": False, "error": str(e)})
+        # this side's half of the adoption contract, before any owner
+        # traffic: neither miss means the OWNER's pages are gone, so a
+        # plain failure (the router does not invalidate)
+        msg = ""
+        if model and model != self.engine.cfg.name:
+            msg = (f"directory entry is for model {model!r}, this replica "
+                   f"serves {self.engine.cfg.name!r}")
+        elif adapter and adapter not in self.engine.adapter_names:
+            msg = f"adapter {adapter!r} is not registered on this replica"
+        if msg:
+            span(False, {"owner": owner_url, "error": msg})
+            return self._send(200, {"ok": False, "error": msg})
+
+        def gone(e):
+            span(False, {"gone": True, "owner": owner_url, "error": str(e)})
+            return self._send(200, {"ok": False, "gone": True,
+                                    "error": str(e)})
+
+        def pulled(pages: int, nbytes: int, covered: int, rung: str):
+            self.engine.metrics.incr("tpu_serving_kv_pull_runs")
+            self.engine.metrics.incr("tpu_serving_kv_pull_bytes", nbytes)
+            span(True, {"path": rung, "owner": owner_url, "pages": pages,
+                        "bytes": nbytes, "covered_tokens": covered})
+            return self._send(200, {"ok": True, "path": rung,
+                                    "pages": pages,
+                                    "covered_tokens": covered})
+
+        errors = []
+        if self.device_domain and owner_domain == self.device_domain:
+            try:   # rung 1: the owner is an engine of this process
+                out = device_pull(self.engine, owner_url, tokens,
+                                  adapter=adapter, domain=self.device_domain)
+                return pulled(out["pages"], out["bytes"],
+                              out["covered_tokens"], "device")
+            except KVPullMiss as e:
+                return gone(e)
+            except Exception as e:  # noqa: BLE001 — a bus miss: the owner
+                # is another process; the shm rung reads the same trie
+                errors.append(f"device: {e}")
+            try:   # rung 2: same host, the blob through tmpfs
+                kind, reply = self._owner_pull(
+                    owner_url, {"tokens": tokens, "adapter": adapter,
+                                "via": "shm"}, trace_id, span_id)
+                if kind == "gone":
+                    return gone(reply)
+                path = str(reply.get("path") or "")
+                blob = open_shm_blob(path)
+                try:
+                    out = self.engine.adopt_handoff(blob, adapter=adapter)
+                finally:
+                    _close_map(blob)
+                    try:
+                        os.unlink(path)
+                    except OSError:
+                        pass   # the owner's GC sweeps it
+                return pulled(out["pages"], out["bytes"], out["tokens"],
+                              "shm")
+            except KVPullMiss as e:
+                return gone(e)
+            except Exception as e:  # noqa: BLE001 — walk to the wire rung
+                errors.append(f"shm: {e}")
+        try:   # rung 3: the blob in the owner's response body
+            kind, reply = self._owner_pull(
+                owner_url, {"tokens": tokens, "adapter": adapter},
+                trace_id, span_id)
+            if kind == "gone":
+                return gone(reply)
+            if kind != "blob":
+                raise OSError(f"owner answered a {kind} reply to a wire "
+                              "pull")
+            out = self.engine.adopt_handoff(reply, adapter=adapter)
+            return pulled(out["pages"], out["bytes"], out["tokens"], "wire")
+        except KVPullMiss as e:
+            return gone(e)
+        except Exception as e:  # noqa: BLE001 — the ladder is exhausted;
+            # the request prefills (the unified fallback)
+            errors.append(f"wire: {e}")
+        self.engine.metrics.incr("tpu_serving_kv_pull_failures")
+        span(False, {"owner": owner_url, "error": "; ".join(errors)})
+        return self._send(200, {"ok": False, "error": "; ".join(errors)})
 
     def _register_adapter(self):
         """POST /adapters: register a LoRA adapter from a ``.npz`` path the
@@ -906,20 +1563,33 @@ def serve(engine: ServingEngine, port: int = 8000, tokenizer=None,
           request_timeout_s: float = 120.0, host: str = "0.0.0.0",
           clock=time.time, mono=time.monotonic,
           allow_adapters: bool = False,
-          profile_capture: bool = False) -> ThreadingHTTPServer:
+          profile_capture: bool = False, handoff_stream_window: int = 8,
+          device_domain: str = "",
+          pull_timeout_s: float = 10.0) -> ThreadingHTTPServer:
     """Start the HTTP front on a daemon thread; ``port`` 0 picks a free
     port (read ``httpd.server_address[1]``). Stop with
     ``httpd.shutdown(); httpd.server_close()``. ``clock``/``mono`` are the
     wall and monotonic clocks (injectable for tests); ``allow_adapters``
     opens POST /adapters, ``profile_capture`` GET /debug/profile (and
     then brings the profiler up here, on the caller's thread:
-    ``init_profiler``)."""
+    ``init_profiler``). ``handoff_stream_window`` bounds a streamed hop's
+    fragments in flight, ``device_domain`` is this replica's placement
+    domain ("" keeps every hop on the wire; in a domain the replica also
+    answers shm pulls, its blobs swept by a ``ShmBlobGC``), and
+    ``pull_timeout_s`` budgets one directory-pull hop. Registering the
+    engine on the device bus (``fleet.device_transfer.BUS``) under its
+    advertise URL is the caller's step, as ``main`` does."""
     if profile_capture:
         init_profiler(engine)
     handler = type("BoundHandler", (_Handler,),
                    {"engine": engine, "tokenizer": tokenizer,
                     "allow_adapters": allow_adapters,
                     "profile_capture": profile_capture,
+                    "handoff_stream_window": handoff_stream_window,
+                    "device_domain": device_domain,
+                    "pull_timeout_s": pull_timeout_s,
+                    "shm_gc": ShmBlobGC(clock=mono) if device_domain
+                    else None,
                     "request_timeout_s": request_timeout_s,
                     "clock": staticmethod(clock), "mono": staticmethod(mono)})
     httpd = ThreadingHTTPServer((host, port), handler)
@@ -1046,7 +1716,66 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="stable replica identity (defaults to the hostname)")
     p.add_argument("--fleet-heartbeat-interval", type=float, default=2.0,
                    help="seconds between heartbeats to the fleet router")
+    p.add_argument("--serving-role", default=None,
+                   choices=["unified", "prefill", "decode"],
+                   help="disaggregated-serving pool this replica registers "
+                        "into: prefill computes KV and hands pages off, "
+                        "decode adopts KV and streams tokens, unified does "
+                        "both (default from TPU_SERVING_ROLE, unified)")
+    p.add_argument("--handoff-stream-window", type=int, default=None,
+                   help="streamed handoff: max chunk frames queued between "
+                        "prefill compute and the push to the decode "
+                        "replica (default from TPU_HANDOFF_STREAM_WINDOW, "
+                        "8)")
+    p.add_argument("--device-transfer", default=None, choices=["on", "off"],
+                   help="device-native KV handoff: replicas of one placement "
+                        "domain hand pages arena to arena (engines of one "
+                        "process) or through a tmpfs blob (processes of one "
+                        "host); any failure downgrades to the wire codec "
+                        "(default from TPU_FLEET_DEVICE_TRANSFER_ENABLED, "
+                        "on)")
+    p.add_argument("--placement-domain", default=None,
+                   help="placement domain this replica advertises; replicas "
+                        "with EQUAL domains skip the wire (default from "
+                        "TPU_FLEET_PLACEMENT_DOMAIN, else proc:<host>:<pid> "
+                        "or the slice's domain, see --placement-domain-mode)")
+    p.add_argument("--placement-domain-mode", default=None,
+                   choices=["auto", "proc", "slice"],
+                   help="how the domain is detected without an explicit one: "
+                        "auto prefers TPU_SLICE_NAME (host-qualified) and "
+                        "falls back to the process; slice warns without it; "
+                        "proc pins one process a domain")
+    p.add_argument("--pull-timeout", type=float, default=None,
+                   help="seconds for one KV directory-pull hop (owner "
+                        "export, transfer, adoption; default from "
+                        "TPU_FLEET_PULL_TIMEOUT_S, 10)")
     return p.parse_args(argv)
+
+
+def fleet_settings(args: argparse.Namespace, env=None) -> dict:
+    """The resolved ``FLEET_SETTINGS`` of ``args`` (flag, else its
+    environment variable, else the JAX config's default), with
+    "placement_domain" detected ("" when --device-transfer is off)."""
+    env = os.environ if env is None else env
+    out = {}
+    for dest, (var, default) in FLEET_SETTINGS.items():
+        flag = getattr(args, dest)
+        if flag is not None:
+            value = flag == "on" if dest == "device_transfer" else flag
+        elif env.get(var, ""):
+            raw = env[var]
+            value = (raw.lower() in ("1", "true", "yes")
+                     if isinstance(default, bool) else type(default)(raw))
+        else:
+            value = default
+        out[dest] = value
+    if out["serving_role"] not in ("unified", "prefill", "decode"):
+        raise ValueError(f"serving role must be unified, prefill or decode, "
+                         f"got {out['serving_role']!r}")
+    out["placement_domain"] = (detect_placement_domain(
+        out["placement_domain"], env=env, mode=out["placement_domain_mode"])
+        if out["device_transfer"] else "")
+    return out
 
 
 def build_engine(args: argparse.Namespace, params=None):
@@ -1132,19 +1861,31 @@ def main(argv=None) -> int:
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO)
     try:
+        fleet = fleet_settings(args)
         engine, tokenizer = build_engine(args)
     except ValueError as e:
         log.error("%s", e)
         return 1
     httpd = serve(engine, args.port, tokenizer=tokenizer,
                   allow_adapters=args.dynamic_adapters,
-                  profile_capture=args.profile_capture == "on")
+                  profile_capture=args.profile_capture == "on",
+                  handoff_stream_window=fleet["handoff_stream_window"],
+                  device_domain=fleet["placement_domain"],
+                  pull_timeout_s=fleet["pull_timeout"])
     snap = engine.debug_snapshot()
     log.info("serving %s on :%d (%s, weights %s, kv %s, cache %s, "
-             "tensor-parallel %d)", snap["model"], httpd.server_address[1],
-             snap["device"], snap["weights"], snap["kv"],
-             snap["cache_layout"], max(1, snap["paged_tp_shards"]))
-    reporter = start_reporter(engine, args, httpd.server_address[1])
+             "tensor-parallel %d, role %s)", snap["model"],
+             httpd.server_address[1], snap["device"], snap["weights"],
+             snap["kv"], snap["cache_layout"],
+             max(1, snap["paged_tp_shards"]), fleet["serving_role"])
+    advertise = advertise_url(args, httpd.server_address[1])
+    if fleet["placement_domain"]:
+        # a prefill replica of this process resolves this engine by the
+        # URL the router hands it for the wire push
+        BUS.register(advertise, engine, fleet["placement_domain"])
+        log.info("device transfer: %s registered in domain %s", advertise,
+                 fleet["placement_domain"])
+    reporter = start_reporter(engine, args, httpd.server_address[1], fleet)
     try:
         threading.Event().wait()
     except KeyboardInterrupt:
@@ -1158,12 +1899,20 @@ def main(argv=None) -> int:
     return 0
 
 
+def advertise_url(args: argparse.Namespace, port: int) -> str:
+    """The URL the router (and a prefill replica's device push) reaches
+    this replica at: --fleet-advertise, else http://<hostname>:<port>."""
+    return args.fleet_advertise or f"http://{socket.gethostname()}:{port}"
+
+
 def start_reporter(engine: ServingEngine, args: argparse.Namespace,
-                   port: int):
+                   port: int, fleet: dict):
     """The fleet reporter of ``--fleet-router`` (None without it), started:
-    registered as the unified role, with the hostname as its pod name (the
-    autoscaler's delete handle) and the generation and pool the pod scaler
-    stamps into ``TPU_SERVING_GENERATION``/``TPU_SERVING_POOL``."""
+    registered as ``fleet["serving_role"]`` in ``fleet["placement_domain"]``
+    with the hostname as its pod name (the autoscaler's delete handle) and
+    the generation and pool the pod scaler stamps into
+    ``TPU_SERVING_GENERATION``/``TPU_SERVING_POOL``; the engine's prefix
+    publishes wake it, so they ride the next beat."""
     if not args.fleet_router:
         return None
     from ..fleet.registry import ReplicaReporter
@@ -1172,12 +1921,15 @@ def start_reporter(engine: ServingEngine, args: argparse.Namespace,
     reporter = ReplicaReporter(
         engine, args.fleet_router,
         replica_id=args.fleet_replica_id or host,
-        advertise_url=args.fleet_advertise or f"http://{host}:{port}",
+        advertise_url=advertise_url(args, port),
         pod_name=host, interval_s=args.fleet_heartbeat_interval,
+        role=fleet["serving_role"],
+        placement_domain=fleet["placement_domain"],
         generation=os.environ.get("TPU_SERVING_GENERATION", ""),
         pool=os.environ.get("TPU_SERVING_POOL", "")).start()
-    log.info("fleet: reporting to %s as %s", args.fleet_router,
-             reporter.replica_id)
+    engine.prefix_publish_hook = reporter.wake
+    log.info("fleet: reporting to %s as %s (role %s)", args.fleet_router,
+             reporter.replica_id, fleet["serving_role"])
     return reporter
 
 

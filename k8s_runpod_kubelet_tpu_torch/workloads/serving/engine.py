@@ -97,6 +97,20 @@ paged loop.
   ``DensePrefixStore`` and a prompt copies the longest one's cache before
   appending to it. Speculative decoding, multi-LoRA and a tensor mesh are
   refused here (ROADMAP Queue 1 #3.1-#3.3).
+- **Disaggregated serving**: a prefill replica's ``export_handoff``
+  (wire codec blob), ``export_handoff_device`` (fresh copies on the card
+  and the event after them) or ``export_handoff_stream`` (each chunk's
+  full pages as the chunk lands, cached pages first) prefills a prompt on
+  the caller's thread and hands its full pages to a decode replica, whose
+  ``adopt_handoff``/``adopt_handoff_device``/``adopt_handoff_chunk``
+  (``_device``) check them against its arena's ``section_spec`` and insert
+  them through the trie, all or nothing; the decode replica's next match
+  references them and prefills only the sub-page tail. ``export_pull``
+  and ``export_pull_device`` serve a directory pull match-only
+  (KVPullMiss when the run is gone). Every run inserted or adopted queues
+  its ``prefix_key`` for the fleet directory (``take_prefix_publishes``).
+  Every export and adoption runs under ``_prefix_lock``, beside the step
+  replays that write the arena in place.
 - **Multi-LoRA**: with ``lora_rank`` > 0 the engine holds zero stacks for
   ``max_adapters`` adapters over ``lora_targets`` (slot 0 stays zero: the
   base model), allocated once on its device. ``register_adapter`` writes
@@ -124,6 +138,7 @@ import queue
 import threading
 import time
 import uuid
+from collections import OrderedDict
 from collections.abc import Mapping
 from concurrent.futures import Future
 from typing import Any, Callable, Optional
@@ -132,6 +147,10 @@ import numpy as np
 import torch
 
 from ...device import resolve_device
+from ...fleet.handoff import (HandoffError, HandoffStreamAssembler,
+                              KVPullMiss, check_device_sections,
+                              deserialize_pages, serialize_pages)
+from ...fleet.prefix_directory import prefix_key
 from ...metrics import Metrics
 from ...models.llama import LlamaConfig, LlamaModel, Params
 from ...models.lora import LORA_TARGETS, is_lora
@@ -238,6 +257,14 @@ class ServingEngine:
         self.metrics.incr("tpu_serving_paged_prefill_tokens", 0)
         self.metrics.incr("tpu_serving_paged_speculative_steps", 0)
         self.metrics.incr("tpu_serving_paged_speculative_rollback_pages", 0)
+        # the handoff and pull series from pod start: dashboards join the
+        # sender and receiver sides and divide device runs by hops
+        for name in ("pages", "bytes", "failures", "stream_frames",
+                     "stream_rejects", "device_runs", "device_bytes",
+                     "device_downgrades"):
+            self.metrics.incr("tpu_serving_kv_handoff_" + name, 0)
+        for name in ("runs", "bytes", "failures"):
+            self.metrics.incr("tpu_serving_kv_pull_" + name, 0)
         if sc.speculate_k > 0:
             self.metrics.incr("tpu_serving_spec_proposed", 0)
             self.metrics.incr("tpu_serving_spec_accepted", 0)
@@ -393,6 +420,25 @@ class ServingEngine:
         self._ready: "queue.Queue[tuple[Request, Any, int, Any]]" = \
             queue.Queue(maxsize=sc.slots)
         self._prefix_lock = threading.Lock()
+        # in-flight /kv_prefill hops (a prefill-role replica's load: they
+        # run on handler threads, never in the queue or a slot) and the
+        # completed ones, which heartbeats carry cumulative
+        self._handoff_lock = threading.Lock()
+        self.handoff_inflight = 0
+        self.handoffs_total = 0
+        # the decode side's chunk-stream assembly, built at the first
+        # streamed frame (it needs the arena's section spec); fed under
+        # _handoff_lock, the arena moves only when a whole stream checks out
+        self._stream_assembler: Optional[HandoffStreamAssembler] = None
+        # the global prefix directory's pending publishes: the longest
+        # page-boundary key of each run this arena inserted or adopted,
+        # until a heartbeat carries them (take_prefix_publishes; a failed
+        # beat re-queues). Keyed by prefix key, oldest dropped past 256
+        self._publish_lock = threading.Lock()
+        self._prefix_publishes: "OrderedDict[str, dict]" = OrderedDict()
+        # serve_main points this at the reporter's wake, so a publish rides
+        # the next beat; called outside the engine's locks, best effort
+        self.prefix_publish_hook: Optional[Callable[[], None]] = None
         self._admit_lock = threading.Lock()
         self._draining = threading.Event()
         self._chunk_tokens = min(sc.serving_chunk_tokens,
@@ -445,8 +491,8 @@ class ServingEngine:
     def _describe_metrics(m: Metrics):
         """HELP/TYPE of every serving series the port emits, the JAX
         engine's texts word for word (they are the contract with the HPA,
-        the router and the README catalogue); the KV handoff and pull
-        series wait for their paths (ROADMAP Queue 1 #10)."""
+        the router and the README catalogue), the KV handoff and pull
+        series among them."""
         m.describe("tpu_serving_queue_depth",
                    "requests waiting for a decode slot (HPA signal)")
         m.describe("tpu_serving_active_slots",
@@ -499,6 +545,46 @@ class ServingEngine:
                    "tensor-parallel shards the paged decode step runs "
                    "over (shard_mapped arena; 1 = single device, 0 = "
                    "paged loop off)")
+        m.describe("tpu_serving_kv_handoff_pages",
+                   "KV pages moved by prefill->decode handoffs (sender "
+                   "counts serialized pages, receiver counts adopted)")
+        m.describe("tpu_serving_kv_handoff_bytes",
+                   "serialized KV bytes moved by prefill->decode handoffs")
+        m.describe("tpu_serving_kv_handoff_failures",
+                   "KV handoffs that failed (serialization, validation, "
+                   "or adoption) — the router falls back to a full "
+                   "prefill on the target")
+        m.describe("tpu_serving_kv_handoff_stream_frames",
+                   "streamed-handoff chunk frames moved (sender counts "
+                   "pushed frames, receiver counts accepted)")
+        m.describe("tpu_serving_kv_handoff_stream_rejects",
+                   "chunk frames rejected on the decode side (torn/"
+                   "duplicate/reordered/stale stream) — the whole stream "
+                   "drops, nothing is adopted")
+        m.describe("tpu_serving_kv_handoff_device_runs",
+                   "KV page runs moved DEVICE-NATIVE (arena-to-arena, "
+                   "zero host copies) between co-located replicas — "
+                   "sender counts exports, receiver counts adoptions")
+        m.describe("tpu_serving_kv_handoff_device_bytes",
+                   "device-array bytes moved by device-native handoffs "
+                   "(payload never touches numpy or HTTP)")
+        m.describe("tpu_serving_kv_handoff_device_downgrades",
+                   "device-path hops that fell back to the wire codec "
+                   "(bus miss, domain mismatch, geometry/adoption "
+                   "failure) — the ladder is device -> wire -> unified")
+        m.describe("tpu_serving_kv_pull_runs",
+                   "KV page runs moved by directory-planned pulls "
+                   "(owner counts exports, cold replica counts "
+                   "adoptions)")
+        m.describe("tpu_serving_kv_pull_bytes",
+                   "bytes moved by directory pulls (serialized blob "
+                   "bytes on the shm/wire rungs, device-array bytes on "
+                   "the device rung)")
+        m.describe("tpu_serving_kv_pull_failures",
+                   "pull hops that failed in transport or validation — "
+                   "a GONE miss (owner evicted the pages since publish) "
+                   "is counted by the directory's invalidations series "
+                   "instead, not here")
         m.describe("tpu_serving_prefill_chunks",
                    "prompt chunks processed by chunked prefill "
                    "(serving_chunk_tokens > 0)")
@@ -793,6 +879,8 @@ class ServingEngine:
             finally:
                 if run is not None:
                     run.store.release(run.pages)
+        if self._kv_store is not None:
+            self._publish_prefix(0, tokens)
         self._update_page_gauges()
 
     def _check_registry_room(self) -> None:
@@ -1028,6 +1116,9 @@ class ServingEngine:
                 entry["pages"] = len(s.pages)
             slots.append(entry)
         counters = dict(self.counters)
+        with self._handoff_lock:
+            handoff_inflight = self.handoff_inflight
+            handoffs_total = self.handoffs_total
         kv_tokens = sum(s.get("prompt_tokens", 0) + s.get("generated_tokens", 0)
                         for s in slots)
         sc, dtype = self.sc, str(self.cfg.dtype).removeprefix("torch.")
@@ -1044,6 +1135,10 @@ class ServingEngine:
                 "max_slots": self.sc.slots, "queue_depth": self.queue_depth,
                 "ready_queue": self._ready.qsize(),
                 "in_transit": self._transit, "kv_cache_tokens": kv_tokens,
+                # the prefill role's load (handler-thread hops) and its
+                # completed hops, for the fleet reporter
+                "handoff_inflight": handoff_inflight,
+                "handoffs_total": handoffs_total,
                 "cache_len": self.sc.cache_len,
                 "paged_decode": self._paged_loop,
                 "paged_prefill": self._paged_prefill_on,
@@ -1322,6 +1417,7 @@ class ServingEngine:
             if evicted:
                 self.metrics.incr("tpu_serving_prefix_cache_evictions",
                                   evicted)
+            self._publish_prefix(adapter_id, tokens)
         except Exception:  # noqa: BLE001 — caching is best-effort
             log.exception("prefix-cache insert failed; serving uncached")
         self._update_page_gauges()
@@ -1474,12 +1570,13 @@ class ServingEngine:
                 "ported (ROADMAP Queue 1 #3.3); the paged loop serves "
                 "tensor-parallel")
 
-    def _prefill_raw(self, tokens: list[int], adapter_id: int = 0
-                     ) -> tuple[torch.Tensor, dict]:
+    def _prefill_raw(self, tokens: list[int], adapter_id: int = 0,
+                     on_chunk=None) -> tuple[torch.Tensor, dict]:
         """Prefill into a fresh single-request cache (linear, ring or
         mixed), no prefix cache: the head (a chunk's length) through
         ``prefill``, the flash kernel, the rest through
-        ``_append_chunks``."""
+        ``_append_chunks``. ``on_chunk(cache, tokens done)`` fires after
+        the head and each chunk (the streamed handoff's hook)."""
         single = self._fresh_cache()
         head = tokens[:self._chunk_tokens or self.sc.max_prefill_len]
         toks = torch.tensor([head], dtype=torch.int32, device=self.device)
@@ -1489,17 +1586,22 @@ class ServingEngine:
             self.metrics.incr("tpu_serving_dense_prefill_heads")
             if self._chunk_tokens:   # the head is a chunk, as in JAX
                 self.metrics.incr("tpu_serving_prefill_chunks")
+        if on_chunk is not None:
+            on_chunk(single, len(head))
         if self._chunk_tokens and len(tokens) > len(head):
             self._yield_between_chunks()
         return self._append_chunks(single, tokens[len(head):], last_logits,
-                                   adapter_id)
+                                   adapter_id, on_chunk, len(head))
 
     def _append_chunks(self, single: dict, toks: list[int], last_logits,
-                       adapter_id: int = 0) -> tuple[torch.Tensor, dict]:
+                       adapter_id: int = 0, on_chunk=None, done: int = 0
+                       ) -> tuple[torch.Tensor, dict]:
         """Append ``toks`` to a single-request cache chunk by chunk through
         ``prefill_chunk_step``; chunks are ``serving_chunk_tokens`` long
         when set (one decode step between them while a slot decodes), else
-        ``max_prefill_len``. Returns (last logits, cache)."""
+        ``max_prefill_len``. ``on_chunk(cache, tokens done)`` fires after
+        each chunk, before the yield, ``done`` counting the tokens already
+        in the cache. Returns (last logits, cache)."""
         step = self._chunk_tokens or self.sc.max_prefill_len
         for start in range(0, len(toks), step):
             chunk = toks[start:start + step]
@@ -1514,6 +1616,9 @@ class ServingEngine:
                 self.metrics.incr("tpu_serving_dense_prefill_chunks")
                 if self._chunk_tokens:
                     self.metrics.incr("tpu_serving_prefill_chunks")
+            done += len(chunk)
+            if on_chunk is not None:
+                on_chunk(single, done)
             if self._chunk_tokens and start + step < len(toks):
                 self._yield_between_chunks()
         return last_logits, single
@@ -1526,7 +1631,8 @@ class ServingEngine:
             if self.recorder is not None:
                 self.recorder.event("chunk_interleave", steps=ran)
 
-    def _prefill_paged_native(self, tokens: list[int], adapter_id: int = 0
+    def _prefill_paged_native(self, tokens: list[int], adapter_id: int = 0,
+                              on_chunk=None
                               ) -> Optional[tuple[torch.Tensor, _PagedRun,
                                                   int]]:
         """Prefill straight into the arena: allocate the prompt's page run
@@ -1534,9 +1640,11 @@ class ServingEngine:
         each chunk's K/V into those pages, then insert the run's full pages
         into the trie by reference. Chunks are ``serving_chunk_tokens``
         long when set, and then the thread yields one decode step between
-        them while a slot decodes; else ``max_prefill_len``. Returns (last
-        logits (1, V), run, tokens matched), or None when the pool cannot
-        hold the run."""
+        them while a slot decodes; else ``max_prefill_len``.
+        ``on_chunk(pages, tokens done)`` fires after each chunk, before the
+        yield (the streamed handoff exports the pages the chunk just
+        wrote). Returns (last logits (1, V), run, tokens matched), or None
+        when the pool cannot hold the run."""
         store = self._kv_store
         t = self.sc.kv_page_tokens
         n_pages = -(-len(tokens) // t)
@@ -1581,16 +1689,611 @@ class ServingEngine:
                         self.metrics.incr("tpu_serving_prefill_chunks")
                 self.metrics.incr("tpu_serving_paged_prefill_tokens",
                                   len(chunk))
+                if on_chunk is not None:
+                    on_chunk(pages, covered + start + len(chunk))
                 if self._chunk_tokens and start + step < len(rest):
                     self._yield_between_chunks()
             with self._prefix_lock:
                 store.insert_ready(adapter_id, tokens, pages)
+            self._publish_prefix(adapter_id, tokens)
         except Exception:
             with self._prefix_lock:
                 store.release(pages)
             raise
         self._update_page_gauges()
         return last_logits, _PagedRun(pages, len(tokens), store), covered
+
+    # -- fleet KV movement: directory publishes, handoffs, pulls -------------
+
+    def _adapter_name_for(self, adapter_id: int) -> Optional[str]:
+        """The registered name behind an adapter slot ("" for the base
+        slot 0); None when no live name holds the slot, and the caller
+        skips the publish rather than key the run under the wrong
+        adapter."""
+        if adapter_id == 0:
+            return ""
+        with self._adapter_lock:
+            for name, slot in self._adapter_names.items():
+                if slot == adapter_id:
+                    return name
+        return None
+
+    def _adapter_root_id(self, adapter: str) -> int:
+        """Adapter NAME -> trie root slot ("" is the base root 0). An
+        unknown name raises KVPullMiss: the directory claimed an adapter
+        this replica does not hold, the same fall back to prefill as
+        evicted pages."""
+        if not adapter:
+            return 0
+        with self._adapter_lock:
+            slot = self._adapter_names.get(adapter)
+        if slot is None:
+            raise KVPullMiss(f"adapter {adapter!r} is not registered on "
+                             "this replica")
+        return slot
+
+    def _publish_prefix(self, adapter_id: int, tokens: list) -> None:
+        """Queue this run's LONGEST page-boundary key for the global prefix
+        directory (the ReplicaReporter drains the queue into heartbeats).
+        One key a run suffices: the router walks a request's chain
+        longest-first, and every extension's chain holds this key. Best
+        effort: a lost publish costs the fleet one pull, never a
+        request."""
+        try:
+            t = self.sc.kv_page_tokens
+            n_pages = len(tokens) // t
+            if n_pages < 1:
+                return
+            adapter = self._adapter_name_for(adapter_id)
+            if adapter is None:
+                return
+            key = prefix_key(tokens[:n_pages * t], t, adapter)
+            with self._publish_lock:
+                self._prefix_publishes[key] = {
+                    "key": key, "pages": n_pages,
+                    "model": self.cfg.name, "adapter": adapter}
+                self._prefix_publishes.move_to_end(key)
+                while len(self._prefix_publishes) > 256:
+                    self._prefix_publishes.popitem(last=False)
+            hook = self.prefix_publish_hook
+            if hook is not None:
+                hook()
+        except Exception:  # noqa: BLE001 — publishing is best-effort
+            log.exception("prefix publish failed; the directory misses "
+                          "this run until its next insert")
+
+    def take_prefix_publishes(self) -> list:
+        """Drain the pending directory publishes for a heartbeat; the
+        reporter re-queues them if the beat fails."""
+        with self._publish_lock:
+            out = list(self._prefix_publishes.values())
+            self._prefix_publishes.clear()
+        return out
+
+    def requeue_prefix_publishes(self, publishes: list) -> None:
+        """Give back the publishes of a FAILED heartbeat; a newer pending
+        entry wins a key collision (it carries the fresher page count)."""
+        with self._publish_lock:
+            for pub in publishes:
+                key = pub.get("key")
+                if key and key not in self._prefix_publishes:
+                    self._prefix_publishes[key] = pub
+                    self._prefix_publishes.move_to_end(key, last=False)
+            while len(self._prefix_publishes) > 256:
+                self._prefix_publishes.popitem(last=False)
+
+    def _need_arena(self, verb: str) -> None:
+        if self._kv_store is None:
+            raise HandoffError("this replica has no paged KV arena "
+                               "(ring/mixed layout or prefix cache "
+                               f"disabled) — it cannot {verb} KV")
+
+    def _export_prompt(self, tokens) -> list:
+        tokens = list(tokens)
+        if not tokens:
+            raise ValueError("empty prompt")
+        if len(tokens) > self.sc.cache_len - 1:
+            raise ValueError(f"prompt length {len(tokens)} > cache budget "
+                             f"{self.sc.cache_len - 1}")
+        return tokens
+
+    def _copy_event(self):
+        """An event after the copies this thread just issued, for the
+        thread or engine that reads them (None on the CPU)."""
+        if self.device.type != "cuda":
+            return None
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(self.device))
+        return event
+
+    def _wait_copies(self, ready) -> None:
+        """Order this thread's stream after an exporter's copies."""
+        if ready is not None:
+            torch.cuda.current_stream(self.device).wait_event(ready)
+
+    def _export_cached(self, root: int, tokens: list, miss) -> tuple:
+        """(match, fresh copies of its pages, their event) for every full
+        page of ``tokens`` cached under ``root``; ``miss()`` builds the
+        error raised when none is. ONE store reference from match through
+        release: crash recovery may rebind ``_kv_store`` in between, and
+        releasing this store's page ids on a rebuilt pool would corrupt
+        its refcounts (a release on the discarded store is harmless). The
+        copies are issued under the lock, before any later step can write
+        those pages in place, so the references drop right after."""
+        with self._prefix_lock:
+            store = self._kv_store
+            m = store.match_full(root, tokens)
+            try:
+                if not m.pages:
+                    raise miss()
+                frags = store.export_pages(m.pages)
+                ready = self._copy_event()
+            finally:
+                store.release(m.pages)
+        return m, frags, ready
+
+    def _prefill_for_export(self, tokens: list) -> int:
+        """Prefill ``tokens`` through the prefix-cache path (cached pages
+        skip compute) so their full pages sit in the trie; drops a page
+        run's own references (the trie holds its own). Returns the tokens
+        the trie already held."""
+        _, out, matched = self._prefill_tokens(tokens)
+        if isinstance(out, _PagedRun):
+            with self._prefix_lock:
+                out.store.release(out.pages)
+        return matched
+
+    def _no_pages(self, tokens: list):
+        return lambda: HandoffError(
+            f"no full pages to hand off for a {len(tokens)}-token prompt "
+            f"at page size {self.sc.kv_page_tokens} (prompt shorter than "
+            "one page, or the pool evicted it)")
+
+    def _gone(self, tokens: list):
+        return lambda: KVPullMiss(
+            f"no cached full pages for a {len(tokens)}-token prompt at "
+            f"page size {self.sc.kv_page_tokens} (evicted since the "
+            "directory publish)")
+
+    def _hop_started(self) -> float:
+        with self._handoff_lock:
+            self.handoff_inflight += 1
+        return self._perf()
+
+    def _hop_ended(self, ok: bool, started: float) -> None:
+        """A prefill hop's load accounting; a completed hop is this
+        replica's TTFT contribution (the prefill pool's TTFT signal)."""
+        with self._handoff_lock:
+            self.handoff_inflight -= 1
+            self.handoffs_total += ok
+        if ok:
+            self.metrics.observe("tpu_serving_ttft_seconds",
+                                 self._perf() - started)
+
+    def export_handoff(self, tokens: list[int]) -> dict:
+        """Prefill-role half of a handoff: run ``tokens`` through the
+        prefix-cache prefill path (cached pages skip compute; the prompt's
+        full pages land in this arena) and serialize the run for a decode
+        replica to adopt. Returns {"blob", "pages", "covered_tokens",
+        "matched_tokens"}, matched_tokens being what this replica's cache
+        held before the prefill. Runs on the caller's (HTTP handler)
+        thread: the hop is this replica's load, never a queue entry or a
+        slot, so ``handoff_inflight`` and a TTFT observation let the
+        prefill pool's signals see it."""
+        return self._export_handoff(tokens, wire=True)
+
+    def export_handoff_device(self, tokens: list[int]) -> dict:
+        """``export_handoff`` without the host: the run's fresh copies on
+        the card, the event after them ("ready") and the tokens they
+        cover, for an engine of this process to adopt
+        (``fleet/device_transfer.device_push``). The same load accounting
+        as the wire export."""
+        return self._export_handoff(tokens, wire=False)
+
+    def _export_handoff(self, tokens: list[int], wire: bool) -> dict:
+        self._need_arena("hand off")
+        tokens = self._export_prompt(tokens)
+        started, ok = self._hop_started(), False
+        try:
+            matched = self._prefill_for_export(tokens)
+            m, frags, ready = self._export_cached(0, tokens,
+                                                  self._no_pages(tokens))
+            out = self._export_out(m, tokens, frags, ready, wire)
+            ok = True
+        except Exception:
+            self.metrics.incr("tpu_serving_kv_handoff_failures")
+            raise
+        finally:
+            self._hop_ended(ok, started)
+        self.metrics.incr("tpu_serving_kv_handoff_pages", out["pages"])
+        if wire:
+            self.metrics.incr("tpu_serving_kv_handoff_bytes", out["bytes"])
+        else:
+            self.metrics.incr("tpu_serving_kv_handoff_device_runs")
+            self.metrics.incr("tpu_serving_kv_handoff_device_bytes",
+                              out["bytes"])
+        out["matched_tokens"] = matched
+        return out
+
+    def _export_out(self, m, tokens: list, frags: dict, ready,
+                    wire: bool) -> dict:
+        """An export's reply: the wire codec's blob of the run, or its
+        copies on the card with their event and the tokens they cover."""
+        out = {"pages": len(m.pages), "covered_tokens": m.matched_tokens}
+        if wire:
+            sections, words = host_sections(frags, ready, self.device)
+            out["blob"] = serialize_pages(tokens[:m.matched_tokens],
+                                          self.sc.kv_page_tokens, sections,
+                                          model=self.cfg.name, dtypes=words)
+            out["bytes"] = len(out["blob"])
+        else:
+            out.update(tokens=tokens[:m.matched_tokens], sections=frags,
+                       ready=ready, model=self.cfg.name,
+                       bytes=sum(int(a.nbytes) for a in frags.values()))
+        return out
+
+    def _adopt(self, root: int, tokens: list, sections: dict) -> tuple:
+        """A checked run into the trie and the arena: the sections reach
+        the device before the arena lock (a wire blob's copy to the card
+        must not hold up the decode steps), the insert under it."""
+        store = self._kv_store
+        sections = {name: store.section_tensor(name, a)
+                    for name, a in sections.items()}
+        with self._prefix_lock:
+            added, evicted = self._kv_store.adopt(root, tokens, sections)
+        if evicted:
+            self.metrics.incr("tpu_serving_prefix_cache_evictions", evicted)
+        self._update_page_gauges()
+        # adopted pages are as pullable as prefilled ones
+        self._publish_prefix(root, tokens)
+        return added, evicted
+
+    def _section_spec(self) -> dict:
+        with self._prefix_lock:
+            return self._kv_store.section_spec()
+
+    def adopt_handoff(self, blob, adapter: str = "") -> dict:
+        """Decode-role half: validate a serialized page run (bytes, or an
+        mmap of a tmpfs blob) against this arena and adopt it through the
+        trie, so the engine's next prompt match references the pages and
+        only the sub-page tail recomputes. The handoff counters move only
+        after the adoption landed. ``adapter`` names the trie root the run
+        belongs under ("" = base; directory pulls adopt adapter runs).
+        Returns {pages, added, tokens, bytes, evicted}."""
+        try:
+            self._need_arena("adopt")
+            root = self._adapter_root_id(adapter)
+            header, sections = deserialize_pages(
+                blob, expect_page_tokens=self.sc.kv_page_tokens,
+                expect_sections=self._section_spec(),
+                expect_model=self.cfg.name)
+            if len(header["tokens"]) > self.sc.cache_len:
+                raise HandoffError(
+                    f"handoff spans {len(header['tokens'])} tokens, over "
+                    f"this replica's cache budget {self.sc.cache_len}")
+            added, evicted = self._adopt(root, header["tokens"], sections)
+        except Exception:
+            self.metrics.incr("tpu_serving_kv_handoff_failures")
+            raise
+        self.metrics.incr("tpu_serving_kv_handoff_pages", header["n_pages"])
+        self.metrics.incr("tpu_serving_kv_handoff_bytes", len(blob))
+        return {"pages": header["n_pages"], "added": added,
+                "tokens": len(header["tokens"]), "bytes": len(blob),
+                "evicted": evicted}
+
+    def adopt_handoff_device(self, tokens: list, sections: dict, *,
+                             model: str = "", adapter: str = "",
+                             ready=None) -> dict:
+        """Decode half of a device-path handoff: check the run's geometry
+        against this arena (``check_device_sections``, the one contract the
+        stream assembler shares), wait on the exporter's event, and adopt
+        the tensors through the trie: the copy into the arena is the only
+        data movement. Counters move only after the adoption landed."""
+        try:
+            self._need_arena("adopt")
+            tokens = [int(tk) for tk in tokens]
+            if len(tokens) > self.sc.cache_len:
+                raise HandoffError(
+                    f"device run spans {len(tokens)} tokens, over this "
+                    f"replica's cache budget {self.sc.cache_len}")
+            root = self._adapter_root_id(adapter)
+            n, trimmed, nbytes = check_device_sections(
+                tokens, sections,
+                expect_page_tokens=self.sc.kv_page_tokens,
+                expect_sections=self._section_spec(),
+                expect_model=self.cfg.name, model=model, allow_padded=True)
+            self._wait_copies(ready)
+            added, evicted = self._adopt(root, tokens, trimmed)
+        except Exception:
+            self.metrics.incr("tpu_serving_kv_handoff_failures")
+            raise
+        self.metrics.incr("tpu_serving_kv_handoff_pages", n)
+        self.metrics.incr("tpu_serving_kv_handoff_device_runs")
+        self.metrics.incr("tpu_serving_kv_handoff_device_bytes", nbytes)
+        return {"pages": n, "added": added, "tokens": len(tokens),
+                "bytes": nbytes, "evicted": evicted}
+
+    def _assembler(self) -> HandoffStreamAssembler:
+        """The decode side's stream assembler, built at the first frame.
+        Caller holds _handoff_lock."""
+        if self._stream_assembler is None:
+            self._stream_assembler = HandoffStreamAssembler(
+                expect_page_tokens=self.sc.kv_page_tokens,
+                expect_sections=self._section_spec(),
+                expect_model=self.cfg.name, clock=self._perf)
+        return self._stream_assembler
+
+    def _adopt_chunk(self, feed) -> dict:
+        """One streamed frame or fragment through the assembler
+        (``feed(assembler)``); the arena moves only when the final one
+        closes a whole, valid stream."""
+        try:
+            self._need_arena("adopt")
+            with self._handoff_lock:
+                try:
+                    done = feed(self._assembler())
+                except HandoffError:
+                    self.metrics.incr(
+                        "tpu_serving_kv_handoff_stream_rejects")
+                    raise
+            self.metrics.incr("tpu_serving_kv_handoff_stream_frames")
+            if not done["final"]:
+                return {"ok": True, "final": False, "seq": done["seq"]}
+            if len(done["tokens"]) > self.sc.cache_len:
+                raise HandoffError(
+                    f"stream spans {len(done['tokens'])} tokens, over "
+                    f"this replica's cache budget {self.sc.cache_len}")
+            frames = done["section_frames"]
+            store = self._kv_store
+            # a stream may mix wire frames (numpy) and device fragments
+            # on one seq lane: each becomes a tensor before the concat
+            merged = {name: torch.cat([store.section_tensor(name, f[name])
+                                       for f in frames], dim=1)
+                      for name in frames[0]}
+            added, evicted = self._adopt(0, done["tokens"], merged)
+        except Exception:
+            self.metrics.incr("tpu_serving_kv_handoff_failures")
+            raise
+        n_pages = len(done["tokens"]) // self.sc.kv_page_tokens
+        self.metrics.incr("tpu_serving_kv_handoff_pages", n_pages)
+        return {"ok": True, "final": True, "seq": done["seq"],
+                "pages": n_pages, "added": added,
+                "tokens": len(done["tokens"]), "bytes": done["bytes"],
+                "frames": done["frames"], "evicted": evicted}
+
+    def adopt_handoff_chunk(self, blob: bytes) -> dict:
+        """Decode-role half of a STREAMED handoff: one sequence-numbered
+        chunk frame in, buffered on the host in strict order
+        (``HandoffStreamAssembler``); the arena, and every counter but the
+        frames', moves only when the final frame closes a stream that
+        checks out whole, so a torn, duplicate, reordered or stale stream
+        drops and the arena stays as it was. Returns {"ok": True,
+        "final": False} mid-stream, the adoption's numbers on the final
+        frame."""
+        out = self._adopt_chunk(lambda asm: asm.feed(blob))
+        if out["final"]:
+            self.metrics.incr("tpu_serving_kv_handoff_bytes", out["bytes"])
+        return out
+
+    def adopt_handoff_chunk_device(self, stream_id: str, seq: int,
+                                   tokens: list, sections: dict, *,
+                                   final: bool = False, total_tokens=None,
+                                   model: str = "", ready=None) -> dict:
+        """Decode half of a STREAMED device handoff: one fragment of
+        tensors through the same assembler state machine as the wire
+        frames (strict order, idle expiry, all-or-nothing close), without
+        serialization; this thread's stream waits on the exporter's event
+        at once, so the final adoption reads every fragment's copies."""
+        self._wait_copies(ready)
+        out = self._adopt_chunk(lambda asm: asm.feed_fragment(
+            stream_id, seq, tokens, sections, final=final,
+            total_tokens=total_tokens, model=model))
+        if out["final"]:
+            self.metrics.incr("tpu_serving_kv_handoff_device_runs")
+            self.metrics.incr("tpu_serving_kv_handoff_device_bytes",
+                              out["bytes"])
+        return out
+
+    def export_pull(self, tokens: list[int], adapter: str = "") -> dict:
+        """Owner half of a directory pull: serialize the pages this trie
+        ALREADY holds for ``tokens``, match-only, never prefilling. An
+        owner that lost them since its publish raises KVPullMiss (the
+        /kv_pull door answers 404 gone, the router invalidates the entry
+        and the cold replica prefills itself). Returns {"blob", "pages",
+        "covered_tokens", "bytes"}."""
+        return self._export_pull(tokens, adapter, wire=True)
+
+    def export_pull_device(self, tokens: list[int],
+                           adapter: str = "") -> dict:
+        """``export_pull`` without serialization: fresh copies of the
+        matched run on the card and their event, adopted in-process by
+        ``device_pull`` on the cold engine, with the owner's model name
+        so the puller's adopt door refuses another model's run."""
+        return self._export_pull(tokens, adapter, wire=False)
+
+    def _export_pull(self, tokens: list[int], adapter: str,
+                     wire: bool) -> dict:
+        if self._kv_store is None:
+            raise KVPullMiss("this replica has no paged KV arena — "
+                             "nothing to pull")
+        tokens = list(tokens)
+        if not tokens:
+            raise ValueError("empty prompt")
+        root = self._adapter_root_id(adapter)
+        with self._handoff_lock:
+            self.handoff_inflight += 1
+        try:
+            m, frags, ready = self._export_cached(root, tokens,
+                                                  self._gone(tokens))
+            out = self._export_out(m, tokens, frags, ready, wire)
+        except KVPullMiss:
+            raise  # a clean GONE: directory staleness, not a failure
+        except Exception:
+            self.metrics.incr("tpu_serving_kv_pull_failures")
+            raise
+        finally:
+            with self._handoff_lock:
+                self.handoff_inflight -= 1
+        self.metrics.incr("tpu_serving_kv_pull_runs")
+        self.metrics.incr("tpu_serving_kv_pull_bytes", out["bytes"])
+        return out
+
+    def export_handoff_stream(self, tokens: list[int], emit) -> dict:
+        """Streamed half of a handoff: run ``tokens`` through the CHUNKED
+        prefill, and after each chunk hand the pages it completed to
+        ``emit`` while the next chunk computes (the caller's sender thread
+        copies and pushes them), so a two-hop TTFT approaches max(compute,
+        transfer) instead of their sum.
+
+        ``emit(fragment)`` fires in strict order with {"seq", "final",
+        "tokens", "sections", "ready"}: sections are fresh copies on the
+        card valid while later steps write the arena, "ready" the event
+        after them that a consumer waits on; the closing fragment carries
+        empty sections and ``total_tokens``. A raising emit aborts the
+        export. Pages the trie already holds stream FIRST, before any
+        compute. Eviction racing the stream closes it short with the
+        contiguous prefix it could export (a partial handoff is valid).
+        Needs ``serving_chunk_tokens`` > 0 (callers use
+        ``export_handoff`` otherwise). Returns {"pages", "chunks",
+        "frames", "covered_tokens", "matched_tokens"}."""
+        self._need_arena("hand off")
+        if not self._chunk_tokens:
+            raise HandoffError("streamed handoff needs chunked prefill "
+                               "(serving_chunk_tokens > 0); use "
+                               "export_handoff")
+        tokens = self._export_prompt(tokens)
+        t = self.sc.kv_page_tokens
+        total_pages = len(tokens) // t
+        if total_pages == 0:
+            raise HandoffError(
+                f"no full pages to hand off for a {len(tokens)}-token "
+                f"prompt at page size {t}")
+        state = {"seq": 0, "sent": 0, "stopped": False}
+
+        def flush(done: int):
+            """Export pages [sent, done // t): the contiguous prefix the
+            trie still holds, one store reference a flush."""
+            want = min(done // t, total_pages)
+            if state["stopped"] or want <= state["sent"]:
+                return
+            with self._prefix_lock:
+                store = self._kv_store
+                m = store.match_full(0, tokens[:done])
+                take = min(want, m.matched_tokens // t)
+                if take > state["sent"]:
+                    frags = store.export_run(m.pages[state["sent"]:take])
+                    ready = self._copy_event()
+                store.release(m.pages)
+            if take <= state["sent"]:
+                state["stopped"] = True   # eviction raced the stream
+                return
+            emit({"seq": state["seq"], "final": False,
+                  "tokens": tokens[state["sent"] * t:take * t],
+                  "sections": frags, "ready": ready})
+            state["seq"] += 1
+            state["sent"] = take
+            if take < want:
+                state["stopped"] = True
+
+        started, ok, run = self._hop_started(), False, None
+        try:
+            if self._paged_prefill_on:
+                with self._prefix_lock:
+                    m0 = self._kv_store.match(0, tokens)
+                    self._kv_store.release(m0.pages)
+                flush(m0.matched_tokens)   # cached pages move first
+
+                def on_chunk_native(pages, done):
+                    # the chunk's full pages join the trie by reference,
+                    # then stream out; a failed insert closes the stream
+                    # short and never fails the prefill
+                    try:
+                        with self._prefix_lock:
+                            self._kv_store.insert_ready(0, tokens[:done],
+                                                        pages)
+                    except Exception:  # noqa: BLE001 — best-effort
+                        log.exception("chunk insert_ready failed; handoff "
+                                      "stream closes short")
+                    flush(done)
+
+                out = self._prefill_paged_native(tokens, 0,
+                                                 on_chunk=on_chunk_native)
+                if out is not None:
+                    _, run, matched = out
+            if run is None:
+                matched = self._stream_dense(tokens, flush)
+            flush(len(tokens))
+            if run is not None:
+                # the export holds no slot: the trie's references keep the
+                # pages cached once the run's own drop
+                with self._prefix_lock:
+                    run.store.release(run.pages)
+                run = None
+            if state["sent"] == 0:
+                raise HandoffError("no pages survived to hand off (the "
+                                   "pool evicted the stream as it was "
+                                   "computed)")
+            data_frames = state["seq"]
+            emit({"seq": state["seq"], "final": True, "tokens": [],
+                  "sections": {}, "ready": None,
+                  "total_tokens": state["sent"] * t})
+            state["seq"] += 1
+            ok = True
+        except Exception:
+            if run is not None:
+                with self._prefix_lock:
+                    run.store.release(run.pages)
+            self.metrics.incr("tpu_serving_kv_handoff_failures")
+            raise
+        finally:
+            self._hop_ended(ok, started)
+        self.metrics.incr("tpu_serving_kv_handoff_pages", state["sent"])
+        self.metrics.incr("tpu_serving_kv_handoff_stream_frames",
+                          state["seq"])
+        self._update_page_gauges()
+        # "chunks" counts DATA frames; "frames" the close frame too
+        return {"pages": state["sent"], "chunks": data_frames,
+                "frames": state["seq"], "covered_tokens": state["sent"] * t,
+                "matched_tokens": matched}
+
+    def _stream_dense(self, tokens: list, flush) -> int:
+        """The streamed export's dense-scratch route (paged prefill off,
+        or a pool that cannot hold the run up front): cached pages gather
+        into a single cache and stream first, then each chunk's full pages
+        enter the trie by copy and stream. Returns the tokens matched."""
+        self.metrics.incr("tpu_serving_dense_prefills")
+        with self._prefix_lock:
+            store = self._kv_store
+            m = store.match(0, tokens)
+            single = None
+            if m.pages:
+                try:
+                    single = store.gather(m.pages, self._fresh_cache())
+                finally:
+                    store.release(m.pages)
+        covered = m.matched_tokens if single is not None else 0
+        self.metrics.incr("tpu_serving_prefix_cache_hits" if single
+                          is not None else "tpu_serving_prefix_cache_misses")
+        flush(covered)
+
+        def on_chunk(sgl, done):
+            try:
+                with self._prefix_lock:
+                    _, evicted = self._kv_store.insert(0, tokens[:done], sgl)
+                if evicted:
+                    self.metrics.incr("tpu_serving_prefix_cache_evictions",
+                                      evicted)
+            except Exception:  # noqa: BLE001 — caching is best-effort
+                log.exception("chunk insert failed; handoff stream closes "
+                              "short")
+            flush(done)
+
+        if single is None:
+            self._prefill_raw(tokens, 0, on_chunk=on_chunk)
+        else:
+            self._append_chunks(single, tokens[covered:], None, 0,
+                                on_chunk=on_chunk, done=covered)
+        return covered
 
     # -- engine thread --------------------------------------------------------
 
@@ -2310,6 +3013,24 @@ class ServingEngine:
                       trace_id=trace_id, parent_id=root,
                       attrs={"rid": req.rid,
                              "tokens": len(slot.generated)})
+
+
+def host_sections(sections: dict, ready, device) -> tuple[dict, dict]:
+    """Host copies of an export's sections for the wire codec, after the
+    exporter's event: ({name: numpy array}, {name: dtype name} for those
+    carried as raw words). bfloat16 leaves as its 2-byte words (numpy has
+    no bfloat16), so the blob holds the arena's bytes."""
+    if ready is not None:
+        torch.cuda.current_stream(device).wait_event(ready)
+    out, words = {}, {}
+    for name, t in sections.items():
+        t = t.cpu()
+        if t.dtype == torch.bfloat16:
+            words[name] = "bfloat16"
+            out[name] = t.view(torch.int16).numpy().view(np.uint16)
+        else:
+            out[name] = t.numpy()
+    return out, words
 
 
 def _token_logprobs(logits: torch.Tensor, tokens: list[int]) -> list:

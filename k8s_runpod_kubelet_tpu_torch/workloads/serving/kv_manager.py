@@ -23,7 +23,10 @@ call.
   dense single-request cache (``LlamaModel.init_cache``): ``gather``
   (matched pages into a cache), ``insert`` (a cache's full pages into the
   trie) and ``fill_pages`` (a slot's private tail). A page copy is an
-  ``index_copy_`` over the page axis.
+  ``index_copy_`` over the page axis. For the KV handoff between
+  replicas, ``section_spec``, ``export_pages`` and ``adopt`` move a page
+  run out of the arena and into another one in the single-device layout
+  (the JAX store's, so runs cross between the packages).
 
 Thread-safety: nothing here locks. The engine serializes every call, and
 every launch that touches the arena, under its ``_prefix_lock``.
@@ -32,9 +35,13 @@ every launch that touches the arena, under its ``_prefix_lock``.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Callable, Optional
 
+import numpy as np
 import torch
+
+from ...fleet.handoff import dtype_name
 
 
 class PoolExhausted(RuntimeError):
@@ -519,6 +526,99 @@ class PagedKVStore:
     def insert_ready(self, adapter_id: int, tokens: list, pages: list,
                      pin: bool = False) -> int:
         return self.trie.insert_ready(adapter_id, tokens, pages, pin=pin)
+
+    # -- KV handoff: a page run out of this arena, or into it ----------------
+
+    def section_spec(self) -> dict:
+        """{name: (dtype name, per-page trailing shape)}: what a handoff
+        run must match to adopt here (``fleet/handoff.py``'s
+        ``expect_sections``). The single-device layout, equal to the JAX
+        store's for the same config: a sharded arena's heads are counted
+        whole, and the sink page never shows."""
+        spec = {}
+        for name, a in self.arena.items():
+            tail = list(a.shape[3:])
+            if self.shards > 1:
+                tail[0] *= self.shards    # the kv-head axis
+            spec[name] = (dtype_name(a.dtype), tuple(int(s) for s in tail))
+        return spec
+
+    def export_pages(self, pages: list) -> dict:
+        """Fresh copies of the run's payload, {name: (L, n, T, ...)} in the
+        single-device layout (a sharded arena's shards side by side on the
+        head axis, as JAX gathers to a replicated layout). They stay valid
+        while later steps write the arena in place, so the caller may copy
+        them to the host outside the engine's prefix lock; the caller holds
+        the pages' references while this runs, under that lock. Every
+        section in one index_select (and one head interleave when
+        sharded): nothing compiles per run length, so unlike the JAX
+        store there is no pow2 padding."""
+        n, t = len(pages), self.page_tokens
+        out = {}
+        for name, a in self.arena.items():
+            ids = torch.tensor(pages, dtype=torch.long, device=a.device)
+            frag = a.index_select(1, ids)
+            if self.shards > 1:
+                frag = self._to_dense(frag, n * t).unflatten(1, (n, t))
+            out[name] = frag
+        return out
+
+    # the streamed export's per-chunk form: export_pages as it is (the JAX
+    # store pads it to a pow2 bucket for its jit)
+    export_run = export_pages
+
+    def section_tensor(self, name: str, a) -> torch.Tensor:
+        """A run's section ``a`` (a tensor, or a numpy array from the wire
+        codec, bfloat16 as its raw words) as a tensor on the arena's device
+        in its dtype: raw words are viewed, never converted, so the bytes
+        adopted are the bytes exported."""
+        like = self.arena[name]
+        if not isinstance(a, torch.Tensor):
+            arr = np.ascontiguousarray(a)
+            if arr.dtype == np.uint16:   # words of a dtype numpy lacks
+                arr = arr.view(np.int16)
+            with warnings.catch_warnings():
+                # a wire blob's arrays are read-only views of its bytes;
+                # the tensor is only read (copied to the device below)
+                warnings.simplefilter("ignore", UserWarning)
+                a = torch.from_numpy(arr)
+        if a.dtype != like.dtype:
+            if a.element_size() != like.element_size():
+                raise ValueError(f"section {name}: {a.dtype} cannot hold "
+                                 f"{like.dtype} words")
+            a = a.view(like.dtype)
+        return a.to(like.device)
+
+    def adopt(self, adapter_id: int, tokens: list, sections: dict
+              ) -> tuple[int, int]:
+        """Insert a handoff run into the trie and the arena.
+        ``sections[name]`` is the (L, n, T, ...) payload of the run's pages
+        in prompt order (tensors, or numpy arrays from the wire codec),
+        ``tokens`` the n·T token ids they hold, both already checked
+        against ``section_spec``. Pages already cached dedup through the
+        trie walk; only the missing suffix allocates, and its payload is
+        written before the nodes become matchable. Every section is on the
+        device before the trie is touched, so a refused run leaves the
+        pool as it was. Returns (pages added, pages evicted)."""
+        n, t = len(tokens) // self.page_tokens, self.page_tokens
+        dense = {}
+        for name, a in sections.items():
+            a = self.section_tensor(name, a)
+            if a.dim() < 3 or a.shape[1] != n or a.shape[2] != t:
+                raise ValueError(f"section {name} {tuple(a.shape)} is not "
+                                 f"(L, {n}, {t}, ...)")
+            dense[name] = a.flatten(1, 2)        # (L, n·T, ...)
+
+        def write(ids: list, start_chunk: int):
+            k = len(ids)
+            for name, arena in self.arena.items():
+                src = dense[name][:, start_chunk * t:(start_chunk + k) * t]
+                arena.index_copy_(
+                    1, torch.tensor(ids, dtype=torch.long,
+                                    device=arena.device),
+                    self._from_dense(src, k))
+
+        return self.trie.insert(adapter_id, list(tokens), write)
 
     def stats(self) -> dict:
         # evictable: unpinned trie pages only the trie references, which

@@ -2311,3 +2311,54 @@ def test_moe_train_step_on_the_card_matches_its_plain_path(cuda, shape,
     assert torch.isfinite(m["loss"]) and torch.isfinite(m["grad_norm"])
     assert (float(m["aux_loss"]) > 0) == (shape == "moe")
     assert len(names) == len(_leaves(tr.params))
+
+
+@pytest.mark.parametrize("rung", ["device", "device_streamed", "wire"])
+def test_kv_handoff_between_engines_on_the_card(cuda, rung):
+    """Two tiny bf16 engines on the card (graph replays on): a prompt's
+    run moves from one to the other over the device rung (monolithic or
+    streamed, the adopter waiting on the exporter's event) or the wire
+    codec (bf16 as its raw words); the adopted pages equal the exporter's
+    bit for bit, and the decode engine's greedy tokens equal the
+    exporter's own from its cached pages (the same path)."""
+    from k8s_runpod_kubelet_tpu_torch.fleet.device_transfer import (
+        DeviceTransferBus, device_push)
+    from k8s_runpod_kubelet_tpu_torch.workloads.serving import (
+        ServingConfig, ServingEngine)
+
+    cfg, params = _tiny_bf16(cuda)
+    chunk = 16 if rung == "device_streamed" else 0
+
+    def engine(chunk_tokens):
+        sc = ServingConfig(slots=2, max_prefill_len=64, cache_len=256,
+                           max_new_tokens=12, kv_page_tokens=16,
+                           serving_chunk_tokens=chunk_tokens)
+        return ServingEngine(cfg, params, sc, device=cuda).start()
+
+    src, dst = engine(chunk), engine(0)
+    try:
+        prompt = [(i * 37) % 120 + 1 for i in range(75)]
+        if rung == "wire":
+            dst.adopt_handoff(src.export_handoff(prompt)["blob"])
+        else:
+            bus = DeviceTransferBus()
+            bus.register("http://dst", dst, "card")
+            out = device_push(src, "http://dst", prompt, domain="card",
+                              bus=bus)
+            assert out["streamed"] == bool(chunk)
+        runs = []
+        for eng in (src, dst):
+            store = eng._kv_store
+            with eng._prefix_lock:
+                m = store.match_full(0, prompt)
+                runs.append(store.export_pages(m.pages))
+                store.release(m.pages)
+        for name in runs[0]:
+            assert runs[0][name].dtype == torch.bfloat16
+            assert runs[0][name].shape[1] == len(prompt) // 16
+            assert torch.equal(runs[0][name], runs[1][name]), name
+        want = src.submit(prompt).result(timeout=300)["tokens"]
+        assert dst.submit(prompt).result(timeout=300)["tokens"] == want
+    finally:
+        src.stop()
+        dst.stop()
