@@ -16,9 +16,12 @@ serves Gemma-2-9B and Gemma-3-12B (past their windows) and llama3-8b with
 the prefix cache off through the contiguous decode loop, then
 trains Llama-3-8B widths at 4 layers, mla-8b widths at 4 layers (flash at
 D = 192), and Llama-3-8B widths as ring attention over 4 sequence shards
-in one process, fine-tunes llama3-8b with LoRA, and trains Mixtral-8x7B
+in one process, fine-tunes llama3-8b with LoRA, trains Mixtral-8x7B
 and DeepSeek-V2-Lite widths at reduced depth and fine-tunes the whole
-DeepSeek-V2-Lite with LoRA (``--moe-train`` runs that phase, 9e, alone).
+DeepSeek-V2-Lite with LoRA (``--moe-train`` runs that phase, 9e, alone),
+then trains Gemma-2-9B and Gemma-3-12B widths at reduced depth, fine-tunes
+the whole Gemma-2-9B with LoRA and serves its adapter on the contiguous
+loop (``--gemma-train`` runs that phase, 9g, alone).
 
 Run from the repository root on a machine with one NVIDIA card:
 
@@ -267,8 +270,9 @@ Step graphs (phases 4, 7s, 7b, 7c, 7d). Each engine captures its decode
    within the limit of its new merge and above it off the old one; (d)
    the stacks' bytes and the serving peak, then ``step_profile``'s
    ``lora_profile`` (decode replay and 1024-token chunk, adapters of rank
-   16 over wq,wv and over all seven, mixed ids, against the same steps
-   without, in turns); HTTP, drain with zero leaked pages. (e), after 7t
+   16 over all seven targets, mixed ids, against the same steps without,
+   in turns; ``step_profile --lora-rank 16`` profiles the default
+   targets); HTTP, drain with zero leaked pages. (e), after 7t
    (b): the same (a)-(c) from ``--int4 --kv-int8 --lora-rank 16`` over
    7b's quantized tree at full depth (32 ``paged_attention_multi_quant``,
    225 ``int4_matmul``, 65 ``rms_norm`` a step; the reference dequantizes
@@ -424,8 +428,9 @@ Step graphs (phases 4, 7s, 7b, 7c, 7d). Each engine captures its decode
    plain f32 forward with every branch (``interleave_logits``: per-layer
    windows, both RoPE tables, both soft caps, sandwich norms) within 0.1
    (0.15 under int4/int8); and the Gemma engines past their window (a
-   5600-token prompt with 300 greedy tokens, a 3000-token prompt with
-   200) and llama3-8b's linear cache (a 1500-token prompt with 100), the
+   5600-token prompt and a 3000-token prompt, both already round their
+   rings, with 100 greedy tokens each) and llama3-8b's linear cache (a
+   1500-token prompt with 100), the
    final decode step's logits held likewise; each control must miss:
    soft caps dropped, sandwich norms dropped, the global window on local
    layers, the global RoPE table on local layers, the middle layer
@@ -446,16 +451,20 @@ Step graphs (phases 4, 7s, 7b, 7c, 7d). Each engine captures its decode
    1e-5 |plain|, f32); the whole autograd path against autograd through
    ``_attention_plain`` in f32 (gradients within 1% of each tensor's
    largest magnitude: delta comes from the bf16 o, as in the JAX
-   package); four broken controls scored with the same check (p.v
-   accumulated in bf16 over 64-key tiles; P rounded to bf16 before P.V;
-   dK/dV with one q head of each group dropped; dS and P rounded to bf16
-   before the products that accumulate dq, dk and dv, each of the three
-   scored and the least share kept; each must read above 1x); times of
-   each kernel, its
-   plain version and SDPA forward / autograd backward (no SDPA for a soft
-   cap; the backward computes dq, dk and dv together, so it is the library
-   time of both backward kernels), and its bound (operations over the
-   bf16 tensor peak, or bytes). Then row 16, the kernels at a ring offset,
+   package); broken controls scored with the same check
+   (``flash_controls``: p.v accumulated in bf16 over 64-key tiles; P
+   rounded to bf16 before P.V; dK/dV with one q head of each group
+   dropped; dS and P rounded to bf16 before the products that accumulate
+   dq, dk and dv, each of the three scored and the least share kept;
+   under a soft cap dQ and dK/dV without it, each of dq, dk, dv scored;
+   under a window the three kernels at the window one short, some output
+   scored; each must read above 1x); times of each kernel, its plain
+   version and the library's forward / autograd backward (SDPA, or under
+   a soft cap, which SDPA does not take, compiled ``flex_attention`` with
+   the cap as its score function and the band as its block mask; the
+   backward computes dq, dk and dv together, so it is the library time of
+   both backward kernels), and its bound (operations over the bf16 tensor
+   peak, or bytes). Then row 16, the kernels at a ring offset,
    on one shard of the ring-train phase (B 2, Hq 32, Hkv 8, S 2048, D 128,
    the q chunk ``q_offset`` positions after the K/V chunk): q_offset 2048
    and 6144 (every key visible), 2048 with window 512 (a band at the chunk
@@ -566,6 +575,41 @@ Step graphs (phases 4, 7s, 7b, 7c, 7d). Each engine captures its decode
    within 80 GB, launches exact a step (53 / 26 / 26 / 160: the dense
    prefix layer, frozen and fed a frozen input, runs no backward), one
    heartbeat a step; a second life resumes at step 6 bit-identical.
+9g. Gemma training (``gemma_train_phase``, after 9e). (a) rows 1-3 at a
+   Gemma train step's heads (B1 Hq16 Hkv8 S8192 D256: Gemma 2's local
+   layer under window 4096 and cap 50, its global layer, Gemma 3's local
+   layer under 1024) and row 16 at one 4096-token shard of the seq = 2
+   step, each against its plain version with phase 8's checks and
+   controls and the library's times (compiled ``flex_attention`` under
+   the cap, SDPA without it); each capped case again at q drawn LARGE_Q
+   (8) times larger, where the scores reach toward the cap
+   (``large_q_check``: each output within LARGE_Q_REL_L2 relative L2 of
+   its plain version, the cap left out of the backward beyond it); row
+   12 with gradients at 8192 x 3584, 8192 x 3840 and 131072 x 256 (its
+   control a dx without the mean square's term). (b) gemma2-9b widths at 4
+   layers and gemma3-12b at 6, batch 1 x 8192, fused loss: step 1's
+   gradients against autograd of ``gemma_plain_nll`` within phase 9's
+   limits (control: dK/dV zeroed), 6 steps with exact launches (flash_fwd
+   2L, flash_dq L, flash_dkv L, rms_norm 8L + 1 or 12L + 1), the loss
+   falling, one profiled step (rows 1-3's device time). (e) the seq = 2
+   gemma2-9b step at 4 layers (ring flash) against the unsharded one
+   (control: ring offsets 0). (c) ``train_main --model gemma2-9b`` (42
+   layers) ``--lora-rank 16`` on all seven targets ``--fused-ce-chunks 8
+   --batch 1 --seq-len 4096`` for 6 steps from a token file
+   ``--export-adapter``: the loss falls, every frozen leaf bit-identical,
+   launches 84 / 42 / 42 / 337 a step, the peak within 80 GB. (d) that
+   adapter through ``serve_main --lora-rank 16 --dynamic-adapters`` on the
+   contiguous loop over the frozen base, registered by ``POST /adapters``
+   after the capture: a burst mixing adapter and base requests, launches
+   exact; then the same flags with ``--prefix-cache off`` and a prefix
+   registered by ``POST /prefix`` (the dense store): the adapter's first
+   prompt over it fills its variant, the next hits it,
+   a base prompt hits the base variant, re-registering the adapter drops
+   its variant and the next prompt fills it again with the same tokens;
+   (g1)-(g5) with mixed ids and 0 recaptures; the adapter's greedy tokens,
+   with and without the prefix, against the same engine's over
+   ``merge_lora``'s weights (equal, or parting at a near tie of the plain
+   f32 forward).
 
 The next-to-last line is the kernels JSON record (each kernel's
 ``launches`` counted on its own main path: the bf16 engine's burst for
@@ -581,8 +625,11 @@ for ``int4_expert_matmul``, phase 7t (b)'s burst as ``serve_tp`` for
 training run for the flash kernels, beside the MLA training run as
 ``train_mla``, the ring-train runs as ``train_ring`` and
 ``train_ring_mla``, phase 9f's runs as ``train_naive_loss``,
-``train_fused_loss``, ``train_dots`` and ``finetune_lora`` and phase 9e's
-as ``train_mixtral``, ``train_deepseek`` and ``finetune_deepseek_lora``,
+``train_fused_loss``, ``train_dots`` and ``finetune_lora``, phase 9e's
+as ``train_mixtral``, ``train_deepseek`` and ``finetune_deepseek_lora``
+and phase 9g's as ``train_gemma2``, ``train_gemma3``,
+``train_gemma2_seq2``, ``finetune_gemma2_lora`` and (``flash_fwd`` and
+``rms_norm``) ``serve_gemma2_lora_contiguous``,
 and the MLA dense routes of 7c and 7d (e) as
 ``serve_mla_dense`` and ``serve_mla_kv_int8_dense``, and phase 7l's
 bursts as ``serve_lora`` and ``serve_lora_int4_kv_int8`` (their n = 2
@@ -603,6 +650,8 @@ number (engine and training phases included) to PATH as JSON.
 from __future__ import annotations
 
 import argparse
+import atexit
+import concurrent.futures
 import dataclasses
 import errno
 import faulthandler
@@ -614,6 +663,7 @@ import logging
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -767,6 +817,20 @@ FT_PORT_TRIES = 3
 MOE_TRAIN_MODELS = ("mixtral-8x7b", "deepseek-v2-lite")
 MOE_FT_MODEL, MOE_FT_TARGETS = "deepseek-v2-lite", "wq,wo"
 MOE_FT_STEPS, MOE_FT_EVERY = 6, 3
+# phase 9g, Gemma 2 and 3 training: (b) full width at GEMMA_TRAIN_DEPTH
+# layers (gemma2-9b two local/global groups, gemma3-12b one group of five
+# local layers and a global one), batch 1 x GEMMA_TRAIN_SEQ (8192 tokens,
+# so Gemma 2's 4096 window masks), the fused loss over FT_CHUNKS chunks,
+# GEMMA_TRAIN_STEPS steps, held to phase 9's gradient limits; (c) a LoRA
+# fine-tune of all 42 gemma2-9b layers, rank FT_RANK on all seven targets,
+# batch 1 x GEMMA_FT_SEQ, GEMMA_FT_STEPS steps from phase 9f's pattern;
+# (d) its adapter serving GEMMA_SERVE_TOKENS greedy tokens a request
+GEMMA_TRAIN_DEPTH = {"gemma2-9b": 4, "gemma3-12b": 6}
+GEMMA_TRAIN_SEQ, GEMMA_TRAIN_STEPS = 8192, 6
+GEMMA_FT_SEQ, GEMMA_FT_STEPS = 4096, 6
+GEMMA_SERVE_TOKENS, GEMMA_SERVE_CACHE_LEN = 32, 2048
+# (d)'s registered prefix: the first tokens of its first adapter prompt
+GEMMA_SERVE_PREFIX = 96
 # the speculative phase: 4 drafts a step (a K = 5 verify), 256-token
 # prefill chunks
 SPEC_K, SPEC_CHUNK = 4, 256
@@ -850,10 +914,12 @@ INTERLEAVE_CHUNK = 1024
 # with the final cap's.)
 SOFTCAP_FINAL_NORM = 24.0
 INTERLEAVE_RUNS = (
-    # model, cache_len, quantized, long prompt, its greedy tokens
-    ("gemma2-9b", 8192, False, 5600, 300),
-    ("gemma3-12b", 4096, False, 3000, 200),
-    ("gemma3-12b", 4096, True, 3000, 200))
+    # model, cache_len, quantized, long prompt, its greedy tokens (each
+    # prompt alone runs past its rings of 5120 and 2048 slots; 300 and 200
+    # tokens cost the whole smoke 48 s more, PERF.md §6)
+    ("gemma2-9b", 8192, False, 5600, 100),
+    ("gemma3-12b", 4096, False, 3000, 100),
+    ("gemma3-12b", 4096, True, 3000, 100))
 # phase 7g (d): llama3-8b --prefix-cache off's long prompt and its greedy
 # tokens, the linear decode step's logits at 1600 positions against the
 # plain forward
@@ -967,16 +1033,14 @@ def sass_counts(lib_path: str) -> dict:
         return {}
     text = subprocess.run([tool, "-sass", lib_path], capture_output=True,
                           text=True, timeout=300, check=True).stdout
-    out, name = {}, None
-    for line in text.splitlines():
-        if "Function :" in line:
-            name = kernel_name(line.split("Function :", 1)[1].strip())
-            if name is not None:
-                out.setdefault(name, {"HGMMA": 0, "HMMA": 0})
-        elif name is not None:
-            for op in ("HGMMA", "HMMA"):
-                if re.search(rf"\b{op}\.", line):
-                    out[name][op] += 1
+    out = {}
+    for part in text.split("Function :")[1:]:
+        head, _, body = part.partition("\n")
+        name = kernel_name(head.strip())
+        if name is not None:
+            counts = out.setdefault(name, {"HGMMA": 0, "HMMA": 0})
+            for op in counts:
+                counts[op] += len(re.findall(rf"\b{op}\.", body))
     return out
 
 
@@ -1956,11 +2020,13 @@ def int4_expert_case(torch, dev, flush, rows, path, kin, out, leaves,
     return rec
 
 
-def rms_case(torch, F, dev, flush, shape, grad=False):
+def rms_case(torch, F, dev, flush, shape, grad=False, control=False):
     """``rms_norm`` on x of ``shape`` (last axis 4096) against its plain
     version. With ``grad`` x and the f32 weight need gradients, as on the
     training path: the call goes through the autograd Function, and y, dx
-    and dw are each held against autograd of the plain version."""
+    and dw are each held against autograd of the plain version; with
+    ``control`` (phase 9g (a)) a broken dx, g w / rms(x) without the term
+    through the mean square, must miss the same check."""
     from k8s_runpod_kubelet_tpu_torch.ops import rms_norm
     from k8s_runpod_kubelet_tpu_torch.ops.rmsnorm import _rms_norm_plain
 
@@ -1991,6 +2057,15 @@ def rms_case(torch, F, dev, flush, shape, grad=False):
             raise RuntimeError(f"rms_norm gradients came as {dx.dtype}, "
                                f"{dw.dtype}")
         checks.update(dx=tolerance_check(dx, pdx), dw=tolerance_check(dw, pdw))
+        ctl = None
+        if control:
+            xf = x.detach().float()
+            rstd = torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
+            ctl = tolerance_check(g.float() * w.detach() * rstd, pdx)
+            del xf, rstd
+            if not ctl[1] > 1:
+                raise RuntimeError(f"rms_norm {name}: the control (dx without "
+                                   f"the mean square's term) passed: {ctl}")
         del g, dx, dw, pdx, pdw
     del px, pw, ref
     for what, (err, share) in checks.items():
@@ -2017,6 +2092,10 @@ def rms_case(torch, F, dev, flush, shape, grad=False):
            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
            "ops": ops}
     shares = ", ".join(f"{k} {v[1]:.2f}" for k, v in checks.items())
+    if grad and control:
+        rec["control_dx_without_mean_square_term"] = {
+            "max_abs_err": ctl[0], "tolerance_share": ctl[1]}
+        shares += f"; control {ctl[1]:.1f}"
     log(f"  rms_norm {name}: max_abs_err {err:.3e} (of {TOLERANCE}: "
         f"{shares}) kernel {ms:.4f} ms, bound {bound_ms:.5f} ms "
         f"({bound_by}), plain {plain_ms:.4f} ms, library (F.rms_norm) "
@@ -2025,6 +2104,17 @@ def rms_case(torch, F, dev, flush, shape, grad=False):
 
 
 # -- phase 8: the flash attention kernels -------------------------------------------
+
+# a capped case's second draw, q at LARGE_Q times the first: the scores'
+# sigma 8, their largest near the cap of 50, where tanh bends them. There
+# each of o, dq, dk and dv is held to LARGE_Q_REL_L2 relative L2 off its
+# plain version (bf16 output rounding reads 1.66e-3 in each; PERF.md
+# §6), and the cap left out of the backward must exceed it in each of dq,
+# dk and dv. The per-element check is read there, not gated: a few dK and
+# dV elements near zero of 16.8 M miss its 1e-4 floor (ROADMAP Queue 3,
+# pinned by tests/test_torch_cuda.py; ``workloads/flash_large_logits.py``
+# reads dK against float64)
+LARGE_Q, LARGE_Q_REL_L2 = 8.0, 4e-3
 
 FLASH_CASES = [
     # name, B, Hq, Hkv, S, D, causal, window, soft cap
@@ -2082,6 +2172,27 @@ FLASH_OFFSET_CASES = [
 ]
 
 
+# phase 9g (a): rows 1-3 at a Gemma train step's heads (16 over 8 of 256,
+# one sequence of 8192: Gemma 2's local layer under its 4096 window and cap
+# 50, its global layer, Gemma 3's local layer under 1024) and row 16 at one
+# shard of the seq = 2 Gemma 2 step (a local layer's band one shard back);
+# the capped cases are also held at q drawn LARGE_Q times larger
+GEMMA_FLASH_CASES = [
+    # name, B, Hq, Hkv, S, D, causal, window, soft cap, q_offset, large q
+    ("Gemma 2 local train B=1 S=8192 D=256 window 4096 soft cap 50", 1,
+     16, 8, 8192, 256, True, 4096, 50.0, 0, LARGE_Q),
+    ("Gemma 2 global train B=1 S=8192 D=256 soft cap 50", 1, 16, 8, 8192,
+     256, True, None, 50.0, 0, LARGE_Q),
+    ("Gemma 3 local train B=1 S=8192 D=256 window 1024", 1, 16, 8, 8192,
+     256, True, 1024, None, 0, 0.0),
+    ("Gemma 2 ring q_offset 4096 S=4096 D=256 window 4096 soft cap 50", 1,
+     16, 8, 4096, 256, True, 4096, 50.0, 4096, LARGE_Q),
+]
+# row 12 with gradients at Gemma 2's and Gemma 3's widths over 8192 tokens,
+# and Gemma 3's q/k norm over their 16 heads of 256
+GEMMA_RMS_SHAPES = ((8192, 3584), (8192, 3840), (8192 * 16, 256))
+
+
 def visible_pairs(s: int, causal: bool, window, q_offset: int = 0) -> int:
     """(query, key) pairs the mask keeps for one head of s queries at
     positions q_offset.. against s keys at 0.."""
@@ -2097,18 +2208,27 @@ def visible_pairs(s: int, causal: bool, window, q_offset: int = 0) -> int:
     return total
 
 
-def flash_controls(torch, q, k, v, do, args, o_ref, dk_ref, dv_ref,
-                   lse, delta) -> dict:
-    """Three broken variants scored by the same check: p.v accumulated in
+def flash_controls(torch, q, k, v, do, args, lse, delta, refs) -> dict:
+    """Broken variants scored by the same check against the plain
+    versions' (o, dq, dk, dv) = ``refs``. Every case: p.v accumulated in
     bf16 over 64-key tiles and P rounded to bf16 before P.V (against o),
-    and dK/dV with the last q head of each GQA group dropped (against dk,
-    dv)."""
+    dK/dV with the last q head of each GQA group dropped, and dS rounded to
+    bf16 (``bf16_ds_control``). Under a soft cap, the dQ and dK/dV kernels
+    launched without it on the same lse and delta (the cap's Jacobian left
+    out of the backward; each of dq, dk, dv must miss). Under a window,
+    the three kernels at the window one short (the band's edge off by one;
+    the forward, then the backward on its own lse and delta; the check must
+    catch it in some output). At a q offset, ``zero_offset_control``. The
+    share a control reports is the one its rule gates on."""
+    from k8s_runpod_kubelet_tpu_torch.ops import flash_dkv, flash_dq, flash_fwd
     from k8s_runpod_kubelet_tpu_torch.ops.attention import (
         _flash_dkv_plain, _flash_mask, _grouped)
     b, hq, s, d = q.shape
     hkv = k.shape[1]
+    o_ref, _, dk_ref, dv_ref = refs
     qg = _grouped(q.float(), hkv) * args["sm_scale"]
     sc = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float())
+    del qg
     if args["logit_soft_cap"] is not None:
         cap = args["logit_soft_cap"]
         sc = torch.tanh(sc / cap) * cap
@@ -2134,6 +2254,7 @@ def flash_controls(torch, q, k, v, do, args, o_ref, dk_ref, dv_ref,
     out = {"bf16_p": {"max_abs_err": err, "tolerance_share": share}}
     err, share = tolerance_check(acc.reshape(b, hq, s, d), o_ref)
     out["bf16_accumulation"] = {"max_abs_err": err, "tolerance_share": share}
+    del acc
     dropped = _grouped(do.float(), hkv).clone()
     dropped[:, :, -1] = 0
     dk_c, dv_c = _flash_dkv_plain(q.float(), k.float(), v.float(),
@@ -2144,6 +2265,38 @@ def flash_controls(torch, q, k, v, do, args, o_ref, dk_ref, dv_ref,
     out["dropped_q_head"] = {"max_abs_err": max(e for e, _ in checks),
                              "tolerance_share": max(s for _, s in checks)}
     del dk_c, dv_c, dropped
+    out["bf16_ds"] = bf16_ds_control(torch, q, k, v, do, args, lse, delta,
+                                     refs[1:])
+
+    def scored(names, got) -> dict:
+        ref_of = dict(zip(("o", "dq", "dk", "dv"), refs))
+        return {n: dict(zip(("max_abs_err", "tolerance_share"),
+                            tolerance_check(g, ref_of[n])))
+                for n, g in zip(names, got)}
+
+    if args["logit_soft_cap"] is not None:
+        nocap = dict(args, logit_soft_cap=None)
+        by = scored(("dq", "dk", "dv"),
+                    (flash_dq(q, k, v, do, lse, delta, **nocap),
+                     *flash_dkv(q, k, v, do, lse, delta, **nocap)))
+        out["cap_left_out_of_backward"] = {
+            "tolerance_share": min(c["tolerance_share"] for c in by.values()),
+            "max_abs_err": max(c["max_abs_err"] for c in by.values()),
+            "by_output": by}
+    if args["causal"] and args["sliding_window"] is not None:
+        short = dict(args, sliding_window=args["sliding_window"] - 1)
+        o_c, lse_c = flash_fwd(q, k, v, **short)
+        delta_c = (do.float() * o_c.float()).sum(-1)
+        by = scored(("o", "dq", "dk", "dv"),
+                    (o_c, flash_dq(q, k, v, do, lse_c, delta_c, **short),
+                     *flash_dkv(q, k, v, do, lse_c, delta_c, **short)))
+        out["window_one_short"] = {
+            "tolerance_share": max(c["tolerance_share"] for c in by.values()),
+            "max_abs_err": max(c["max_abs_err"] for c in by.values()),
+            "by_output": by}
+    if args["q_offset"]:
+        out["q_offset_0"] = zero_offset_control(torch, q, k, v, do, args, lse,
+                                                delta, refs)
     return out
 
 
@@ -2197,6 +2350,207 @@ def zero_offset_control(torch, q, k, v, do, args, lse, delta, refs) -> dict:
             "by_output": shares}
 
 
+def large_q_check(torch, q, k, v, do, args, mult: float) -> dict:
+    """A capped case again at q times ``mult`` (scores toward the cap):
+    each of the three kernels' outputs (o, dq, dk, dv) within
+    LARGE_Q_REL_L2 relative L2 of its plain version, and the control, dQ
+    and dK/dV launched without the cap on the same lse and delta, beyond
+    it in each of dq, dk and dv. The per-element check's largest share and
+    the elements over it are read beside, not gated (see LARGE_Q)."""
+    from k8s_runpod_kubelet_tpu_torch.ops import flash_dkv, flash_dq, flash_fwd
+    from k8s_runpod_kubelet_tpu_torch.ops.attention import (
+        _flash_dkv_plain, _flash_dq_plain, _flash_fwd_plain)
+
+    q = (q.float() * mult).bfloat16()
+    o, lse = flash_fwd(q, k, v, **args)
+    delta = (do.float() * o.float()).sum(-1)
+    got = (o, flash_dq(q, k, v, do, lse, delta, **args),
+           *flash_dkv(q, k, v, do, lse, delta, **args))
+    nocap = dict(args, logit_soft_cap=None)
+    broken = (flash_dq(q, k, v, do, lse, delta, **nocap),
+              *flash_dkv(q, k, v, do, lse, delta, **nocap))
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    refs = (_flash_fwd_plain(qf, kf, vf, **args)[0],
+            _flash_dq_plain(qf, kf, vf, dof, lse, delta, **args),
+            *_flash_dkv_plain(qf, kf, vf, dof, lse, delta, **args))
+    del qf, kf, vf, dof
+
+    def rel(g, r) -> float:
+        return ((g.float() - r).norm() / r.norm()).item()
+
+    by = {}
+    for name, g, r in zip(("o", "dq", "dk", "dv"), got, refs):
+        share = (g.float() - r).abs() / (BF16_ATOL + BF16_RTOL * r.abs())
+        by[name] = {"rel_l2": rel(g, r), "max_share": share.max().item(),
+                    "elements_over": int((share > 1).sum()),
+                    "elements": share.numel()}
+        del share
+    control = {n: rel(g, r) for n, g, r in zip(("dq", "dk", "dv"), broken,
+                                               refs[1:])}
+    worst = max(c["rel_l2"] for c in by.values())
+    if not worst <= LARGE_Q_REL_L2:
+        raise RuntimeError(f"q x {mult:g}: relative L2 {worst:.3e} over "
+                           f"{LARGE_Q_REL_L2} ({by})")
+    if not min(control.values()) > LARGE_Q_REL_L2:
+        raise RuntimeError(f"q x {mult:g}: the cap left out of the backward "
+                           f"passed the relative L2 limit ({control})")
+    return {"q_scale": mult, "limit": LARGE_Q_REL_L2, "by_output": by,
+            "cap_left_out_of_backward_rel_l2": control}
+
+
+# ``flex_call``'s compiled call and the scalars its score and mask
+# functions capture: one torch.compile a process, a new shape compiles
+# anew, a new cap, window or offset does not (they are the graph's inputs)
+_FLEX: dict = {}
+# the process that makes those compiles ahead (``--flex-warm``), the
+# TorchInductor cache directory it shares with this one, and the shapes it
+# has compiled: a compile of one of them here reads it back (8-25 s a
+# shape cold on an H100, PERF.md §6)
+_FLEX_WARM: dict = {}
+
+
+def flex_shapes() -> list:
+    """The (B, Hq, Hkv, S, D) of every capped flash case, in the order the
+    smoke reaches them."""
+    out = []
+    for case in FLASH_CASES + FLASH_OFFSET_CASES + GEMMA_FLASH_CASES:
+        b, hq, hkv, s, d, causal, window, cap = case[1:9]
+        if cap is not None and (b, hq, hkv, s, d) not in out:
+            out.append((b, hq, hkv, s, d))
+    return out
+
+
+def flex_call(torch, q, k, v, args):
+    """``torch.nn.attention.flex_attention``, compiled, on copies of q, k
+    and v that need gradients: the cap as its score function (cap tanh(s
+    / cap)), the causal band at the case's q offset and window as its
+    block mask, GQA by ``enable_gqa``. Returns (the call, the three
+    leaves)."""
+    import torch._functorch.config as functorch_config
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+    if not _FLEX:
+        # its backward is timed again and again on one graph (retain_graph),
+        # which a backward that donates its saved buffers refuses
+        functorch_config.donated_buffer = False
+        dev = q.device
+        cap = torch.ones((), device=dev)
+        win = torch.zeros((), dtype=torch.int64, device=dev)
+        off = torch.zeros((), dtype=torch.int64, device=dev)
+
+        def score_mod(score, b, h, q_idx, kv_idx):
+            return torch.tanh(score / cap) * cap
+
+        def mask_mod(b, h, q_idx, kv_idx):
+            pos = q_idx + off
+            return (kv_idx <= pos) & (pos - kv_idx < win)
+
+        _FLEX.update(call=torch.compile(flex_attention, dynamic=False),
+                     cap=cap, win=win, off=off, score_mod=score_mod,
+                     mask_mod=mask_mod)
+    f = _FLEX
+    s = q.shape[2]
+    f["cap"].fill_(args["logit_soft_cap"])
+    f["win"].fill_(s + args["q_offset"] + 1 if args["sliding_window"] is None
+                   else args["sliding_window"])
+    f["off"].fill_(args["q_offset"])
+    block = (create_block_mask(f["mask_mod"], None, None, s, s,
+                               device=q.device)
+             if args["causal"] else None)
+    leaves = tuple(t.clone().requires_grad_() for t in (q, k, v))
+
+    def call():
+        return f["call"](*leaves, score_mod=f["score_mod"], block_mask=block,
+                         scale=args["sm_scale"], enable_gqa=True)
+
+    return call, leaves
+
+
+def flex_library(torch, q, k, v, do, args, o_ref, reps: int, flush) -> dict:
+    """The library call of a case under a soft cap, which SDPA does not
+    take (``flex_call``): its forward (on inputs that need gradients, so
+    one compile serves both) and its autograd backward (dq, dk and dv
+    together), timed as SDPA's are; the first call's seconds (the compile,
+    read back from the warm process's cache where it made this shape) and
+    its output's largest share of the check against the plain forward's
+    are read, not gated."""
+    wait_flex_warm(tuple(q.shape[:2]) + (k.shape[1],) + tuple(q.shape[2:]))
+    call, leaves = flex_call(torch, q, k, v, args)
+    t0 = time.perf_counter()
+    lo = call()
+    torch.autograd.grad(lo, leaves, do, retain_graph=True)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    _, share = tolerance_check(lo, o_ref)
+    fwd_ms = time_ms(torch, call, reps, flush)
+    bwd_ms = time_ms(torch, lambda: torch.autograd.grad(
+        lo, leaves, do, retain_graph=True), reps, flush)
+    del lo, leaves, call
+    return {"fwd_ms": fwd_ms, "bwd_ms": bwd_ms, "first_call_s": first_s,
+            "o_tolerance_share": share}
+
+
+def flex_warm(torch, dev) -> None:
+    """``--flex-warm``: compile ``flex_call``'s forward and backward at
+    every shape of ``flex_shapes`` on zeros, printing ``compiled [B, Hq,
+    Hkv, S, D]`` as each is done."""
+    for key in flex_shapes():
+        b, hq, hkv, s, d = key
+        q, do = (torch.zeros((b, hq, s, d), dtype=torch.bfloat16, device=dev)
+                 for _ in range(2))
+        k, v = (torch.zeros((b, hkv, s, d), dtype=torch.bfloat16,
+                            device=dev) for _ in range(2))
+        args = dict(causal=True, sm_scale=d ** -0.5, sliding_window=None,
+                    logit_soft_cap=1.0, q_offset=0)
+        call, leaves = flex_call(torch, q, k, v, args)
+        torch.autograd.grad(call(), leaves, do)
+        torch.cuda.synchronize()
+        print("compiled " + json.dumps(list(key)), flush=True)
+
+
+def start_flex_warm() -> None:
+    """Start ``--flex-warm`` in a process of its own at a lower priority,
+    with a TorchInductor cache directory this process uses too."""
+    cache = tempfile.mkdtemp(prefix="chip-smoke-inductor-")
+    os.environ["TORCHINDUCTOR_CACHE_DIR"] = cache
+    err = open(os.path.join(cache, "warm.err"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--flex-warm"],
+        stdout=subprocess.PIPE, stderr=err, text=True,
+        preexec_fn=lambda: os.nice(10))
+    _FLEX_WARM.update(proc=proc, cache=cache, err=err, done=set(),
+                      waited_s=0.0)
+    atexit.register(stop_flex_warm)
+
+
+def wait_flex_warm(key: tuple) -> None:
+    """Wait until the warm process has compiled ``key`` or has ended (a
+    shape it did not make compiles here, cold)."""
+    w = _FLEX_WARM
+    if not w or key in w["done"]:
+        return
+    t0 = time.perf_counter()
+    for line in w["proc"].stdout:
+        if line.startswith("compiled "):
+            w["done"].add(tuple(json.loads(line[len("compiled "):])))
+            if key in w["done"]:
+                break
+    w["waited_s"] += time.perf_counter() - t0
+
+
+def stop_flex_warm() -> None:
+    """End the warm process and remove the cache directory."""
+    w = _FLEX_WARM
+    if not w:
+        return
+    if w["proc"].poll() is None:
+        w["proc"].kill()
+    w["proc"].wait()
+    w["err"].close()
+    shutil.rmtree(w["cache"], ignore_errors=True)
+    _FLEX_WARM.clear()
+
+
 def sdpa_backend(torch, q, k, v, **sdpa) -> str:
     """The backend PyTorch's dispatcher picks for these SDPA arguments (a
     private query, so "not read" where this PyTorch lacks it)."""
@@ -2213,7 +2567,13 @@ def sdpa_backend(torch, q, k, v, **sdpa) -> str:
 
 
 def flash_case(torch, F, dev, flush, name, b, hq, hkv, s, d, causal, window,
-               cap, q_offset=0) -> dict:
+               cap, q_offset=0, large_q=0.0) -> dict:
+    """The three flash kernels on one shape against their plain versions,
+    with broken controls that must miss the check (``flash_controls``), the
+    autograd path, and times beside the bound, the plain versions and the
+    library: SDPA, or under a soft cap compiled ``flex_attention``
+    (``flex_library``). With ``large_q`` the case is held again at q that
+    many times larger (``large_q_check``)."""
     from k8s_runpod_kubelet_tpu_torch.ops import (flash_attention, flash_dkv,
                                                   flash_dq, flash_fwd)
     from k8s_runpod_kubelet_tpu_torch.ops.attention import (
@@ -2249,15 +2609,10 @@ def flash_case(torch, F, dev, flush, name, b, hq, hkv, s, d, causal, window,
               "flash_dq": [tolerance_check(dq, dq_ref)],
               "flash_dkv": [tolerance_check(dk, dk_ref),
                             tolerance_check(dv, dv_ref)]}
-    controls = flash_controls(torch, q, k, v, do, args, o_ref, dk_ref,
-                              dv_ref, lse, delta)
-    controls["bf16_ds"] = bf16_ds_control(torch, q, k, v, do, args, lse,
-                                          delta, (dq_ref, dk_ref, dv_ref))
-    if q_offset:
-        controls["q_offset_0"] = zero_offset_control(
-            torch, q, k, v, do, args, lse, delta,
-            (o_ref, dq_ref, dk_ref, dv_ref))
-    del qf, kf, vf, dof, dq_ref, dk_ref, dv_ref
+    del qf, kf, vf, dof
+    controls = flash_controls(torch, q, k, v, do, args, lse, delta,
+                              (o_ref, dq_ref, dk_ref, dv_ref))
+    del dq_ref, dk_ref, dv_ref
     for kname, results in checks.items():
         for err, share in results:
             if share > 1:
@@ -2267,6 +2622,8 @@ def flash_case(torch, F, dev, flush, name, b, hq, hkv, s, d, causal, window,
         if not c["tolerance_share"] > 1:
             raise RuntimeError(f"flash {name}: the {control} control passed "
                                "the check")
+    large = (large_q_check(torch, q, k, v, do, args, large_q)
+             if large_q else None)
 
     # the whole autograd path against autograd through the plain attention
     # (flash_attention has no offset: the ring's autograd path is held in
@@ -2289,7 +2646,8 @@ def flash_case(torch, F, dev, flush, name, b, hq, hkv, s, d, causal, window,
                                    f"{err}")
         del tq, tk, tv, pq, pk, pv
 
-    # times: kernels, plain versions, SDPA (forward and autograd backward)
+    # times: kernels, plain versions, the library (forward and autograd
+    # backward)
     reps = 5 if b * hq * s * s > 2 ** 31 else 10
     fwd_ms = time_ms(torch, lambda: flash_fwd(q, k, v, **args), reps, flush)
     dq_ms = time_ms(torch, lambda: flash_dq(q, k, v, do, lse, delta, **args),
@@ -2302,9 +2660,12 @@ def flash_case(torch, F, dev, flush, name, b, hq, hkv, s, d, causal, window,
                  q, k, v, do, lse, delta, **args), 3, flush),
              "flash_dkv": time_ms(torch, lambda: _flash_dkv_plain(
                  q, k, v, do, lse, delta, **args), 3, flush)}
-    lib_fwd = lib_bwd = None
-    backend = None
-    if cap is None:
+    flex = None
+    if cap is not None:
+        flex = flex_library(torch, q, k, v, do, args, o_ref, reps, flush)
+        lib_fwd, lib_bwd = flex["fwd_ms"], flex["bwd_ms"]
+        backend = "flex_attention (compiled)"
+    else:
         from k8s_runpod_kubelet_tpu_torch.ops.attention import _flash_mask
         if q_offset:
             # row 16: every key visible (non-causal), or the band as a mask;
@@ -2321,7 +2682,7 @@ def flash_case(torch, F, dev, flush, name, b, hq, hkv, s, d, causal, window,
                 mask = _flash_mask(s, s, True, window, dev)
             sdpa = dict(attn_mask=mask, is_causal=causal and mask is None,
                         scale=args["sm_scale"])
-        backend = sdpa_backend(torch, q, ks, vs, **sdpa)
+        backend = "SDPA " + sdpa_backend(torch, q, ks, vs, **sdpa)
         lib_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
             q, ks, vs, **sdpa), reps, flush)
         lq, lk, lv = (t.clone().requires_grad_() for t in (q, ks, vs))
@@ -2329,6 +2690,7 @@ def flash_case(torch, F, dev, flush, name, b, hq, hkv, s, d, causal, window,
         lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
             lo, (lq, lk, lv), do, retain_graph=True), reps, flush)
         del ks, vs, lq, lk, lv, lo
+    del o_ref
 
     pairs = b * hq * visible_pairs(s, causal, window, q_offset)
     qb, kb = q.numel() * 2, k.numel() * 2
@@ -2342,7 +2704,8 @@ def flash_case(torch, F, dev, flush, name, b, hq, hkv, s, d, causal, window,
     rec = {"case": name, "B": b, "Hq": hq, "Hkv": hkv, "S": s, "D": d,
            "causal": causal, "window": window, "soft_cap": cap,
            "q_offset": q_offset, "visible_pairs": pairs,
-           "sdpa_backend": backend, "controls": controls,
+           "large_q": large, "library": backend, "flex": flex,
+           "controls": controls,
            "autograd_vs_plain_share": e2e or None,
            "tolerance": TOLERANCE, "kernels": {}}
     for kname, (ops, nbytes, ms, lib) in work.items():
@@ -2351,24 +2714,43 @@ def flash_case(torch, F, dev, flush, name, b, hq, hkv, s, d, causal, window,
             "max_abs_err": max(e for e, _ in checks[kname]),
             "tolerance_share": max(sh for _, sh in checks[kname]),
             "ms": ms, "plain_ms": plain[kname], "library_ms": lib,
+            "library": backend,
             "bound_ms": bound_ms, "bound_by": bound_by, "ops": ops,
             "bytes": nbytes, "tflops": ops / ms / 1e9}
-    lib_txt = ("none (soft cap)" if lib_fwd is None else
-               f"fwd {lib_fwd:.3f} ms, autograd bwd {lib_bwd:.3f} ms, "
-               f"backend {backend}")
+    lib_txt = (f"{backend}: fwd {lib_fwd:.3f} ms, autograd bwd "
+               f"{lib_bwd:.3f} ms")
+    if flex:
+        lib_txt += (f" (first call {flex['first_call_s']:.1f} s, o "
+                    f"{flex['o_tolerance_share']:.2f} of the check)")
     e2e_txt = ("autograd vs plain (share of 1% of scale) " + " ".join(
         f"{g} {x:.2f}" for g, x in e2e.items()) if e2e else
         "autograd path: the ring-train phase")
-    off_txt = ("" if not q_offset else ", q_offset 0 " + "/".join(
-        f"{c['tolerance_share']:.1f}" for c in
-        controls["q_offset_0"]["by_output"].values()) + " (o/dq/dk/dv)")
-    log(f"  flash {name}: SDPA {lib_txt}; controls: bf16 accumulation "
-        f"{controls['bf16_accumulation']['tolerance_share']:.2f}, bf16 P "
-        f"{controls['bf16_p']['tolerance_share']:.2f}, dropped q "
-        f"head {controls['dropped_q_head']['tolerance_share']:.0f}, bf16 dS "
+    ctl_txt = (
+        f"bf16 accumulation "
+        f"{controls['bf16_accumulation']['tolerance_share']:.2f}, bf16 "
+        f"P {controls['bf16_p']['tolerance_share']:.2f}, dropped q head "
+        f"{controls['dropped_q_head']['tolerance_share']:.0f}, bf16 dS "
         + "/".join(f"{c['tolerance_share']:.2f}" for c in
                    controls["bf16_ds"]["by_gradient"].values())
-        + f" (dq/dk/dv){off_txt}; {e2e_txt}")
+        + " (dq/dk/dv)" + "".join(
+            f", {c.replace('_', ' ')} " + "/".join(
+                f"{x['tolerance_share']:.1f}" for x in
+                controls[c]["by_output"].values())
+            + " (" + "/".join(controls[c]["by_output"]) + ")"
+            for c in ("cap_left_out_of_backward", "window_one_short",
+                      "q_offset_0") if c in controls))
+    log(f"  flash {name}: library {lib_txt}; controls: {ctl_txt}; "
+        f"{e2e_txt}")
+    if large:
+        log(f"    at q x {large['q_scale']:g}: relative L2 " + ", ".join(
+            f"{n} {r['rel_l2']:.2e}" for n, r in large["by_output"].items())
+            + f" (limit {LARGE_Q_REL_L2}); the cap left out of the backward "
+            + ", ".join(f"{n} {x:.2e}" for n, x in
+                        large["cap_left_out_of_backward_rel_l2"].items())
+            + "; per element (read): " + ", ".join(
+                f"{n} {r['max_share']:.2f} ({r['elements_over']} of "
+                f"{r['elements']} over)"
+                for n, r in large["by_output"].items()))
     for kname, r in rec["kernels"].items():
         log(f"    {kname}: max_abs_err {r['max_abs_err']:.3e} "
             f"({r['tolerance_share']:.2f} of {TOLERANCE}) kernel "
@@ -7740,14 +8122,15 @@ def root_of(engine, node) -> int:
 
 def lora_profile_phase(torch, dev, card: str, cfg, params) -> dict:
     """7l (d): ``step_profile``'s LoRA profile of the decode replay and the
-    1024-token chunk with rank-16 adapters (mixed ids) beside the same
-    steps without, for the default targets (wq, wv) and all seven."""
+    1024-token chunk with rank-16 adapters (mixed ids) over all seven
+    targets beside the same steps without (``step_profile --lora-rank
+    16`` profiles the default targets, wq and wv; here they cost the whole
+    smoke 25 s more, PERF.md §6)."""
     from k8s_runpod_kubelet_tpu_torch.workloads.step_profile import \
         lora_profile
 
     out = {}
-    for label, targets in (("wq_wv", ("wq", "wv")),
-                           ("all", LORA_TARGETS_ALL)):
+    for label, targets in (("all", LORA_TARGETS_ALL),):
         prof = lora_profile(cfg, dev, params, LORA_RANK, targets)
         out[label] = prof
 
@@ -8381,14 +8764,11 @@ def interleave_logits(torch, cfg, params, tokens: list[int], drop=(),
     model computing in that dtype stores (each product, norm, RoPE,
     attention output, residual and the logits) is rounded to it: a plain
     bf16 forward that shares no code with the model's steps."""
-    import torch.nn.functional as F
-
     from k8s_runpod_kubelet_tpu_torch.ops.rmsnorm import _rms_norm_plain
-    from k8s_runpod_kubelet_tpu_torch.ops.rope import (apply_rope,
-                                                       rope_frequencies)
+    from k8s_runpod_kubelet_tpu_torch.ops.rope import rope_frequencies
 
     dev = params["tok_embed"].device
-    hd, n = cfg.head_dim_, len(tokens)
+    hd = cfg.head_dim_
     glob = rope_frequencies(hd, cfg.max_seq_len, cfg.rope_theta,
                             cfg.rope_scaling, device=dev)
     loc = (glob if cfg.rope_local_theta is None else
@@ -8416,27 +8796,11 @@ def interleave_logits(torch, cfg, params, tokens: list[int], drop=(),
         local = window is not None
         if "global_window" in drop:
             window = None
-        cos, sin = loc if local and "global_rope" not in drop else glob
+        rope = loc if local and "global_rope" not in drop else glob
         lp = {k: layer_f32(w, layer) for k, w in params["layers"].items()}
-        h = norm(x, lp["attn_norm"])
-        q = r(h @ lp["wq"]).view(1, n, cfg.n_heads, hd)
-        k = r(h @ lp["wk"]).view(1, n, cfg.n_kv_heads, hd)
-        v = r(h @ lp["wv"]).view(1, n, cfg.n_kv_heads, hd)
-        if cfg.qk_norm:
-            q, k = norm(q, lp["q_norm"]), norm(k, lp["k_norm"])
-        q, k = r(apply_rope(q, cos, sin)), r(apply_rope(k, cos, sin))
-        o = r(plain_attention_blocked(torch, q.transpose(1, 2),
-                                      k.transpose(1, 2), v.transpose(1, 2),
-                                      cfg.sm_scale, block, window, cap))
-        o = r(o.transpose(1, 2).reshape(1, n, -1) @ lp["wo"])
-        x = r(x + (norm(o, lp["attn_post_norm"]) if post else o))
-        h = norm(x, lp["mlp_norm"])
-        gate = r(h @ lp["w_gate"])
-        gate = r(F.gelu(gate, approximate="tanh")
-                 if cfg.mlp_activation == "gelu_tanh" else F.silu(gate))
-        y = r(r(gate * r(h @ lp["w_up"])) @ lp["w_down"])
-        x = r(x + (norm(y, lp["mlp_post_norm"]) if post else y))
-        del lp, h, q, k, v, o, gate, y
+        x = interleave_layer(torch, cfg, lp, x, window, rope, cap, post,
+                             norm, r, block)
+        del lp
     x = norm(x[0, -1], params["final_norm"])
     head = (params["tok_embed"].t() if cfg.tie_embeddings
             else params["lm_head"])
@@ -8445,6 +8809,42 @@ def interleave_logits(torch, cfg, params, tokens: list[int], drop=(),
         logits = r(torch.tanh(logits / cfg.logit_softcap)
                    * cfg.logit_softcap)
     return logits
+
+
+def interleave_layer(torch, cfg, lp, x, window, rope, cap, post, norm, r,
+                     block: int):
+    """One decoder layer of ``interleave_logits``'s plain f32 forward on
+    the residual stream x (B, n, E) from its f32 leaves ``lp``: the normed
+    q/k/v (the q/k norm), RoPE from ``rope`` (cos, sin), attention under
+    ``window`` and the score cap ``cap`` (``plain_attention_blocked``),
+    the sandwich norms with ``post``, GeGLU or SwiGLU. ``norm(x, w)`` is
+    the config's RMSNorm and ``r`` the rounding each stored value takes
+    (the identity in f32)."""
+    import torch.nn.functional as F
+
+    from k8s_runpod_kubelet_tpu_torch.ops.rope import apply_rope
+
+    b, n, _ = x.shape
+    hd = cfg.head_dim_
+    cos, sin = rope
+    h = norm(x, lp["attn_norm"])
+    q = r(h @ lp["wq"]).view(b, n, cfg.n_heads, hd)
+    k = r(h @ lp["wk"]).view(b, n, cfg.n_kv_heads, hd)
+    v = r(h @ lp["wv"]).view(b, n, cfg.n_kv_heads, hd)
+    if cfg.qk_norm:
+        q, k = norm(q, lp["q_norm"]), norm(k, lp["k_norm"])
+    q, k = r(apply_rope(q, cos, sin)), r(apply_rope(k, cos, sin))
+    o = r(plain_attention_blocked(torch, q.transpose(1, 2), k.transpose(1, 2),
+                                  v.transpose(1, 2), cfg.sm_scale, block,
+                                  window, cap))
+    o = r(o.transpose(1, 2).reshape(b, n, -1) @ lp["wo"])
+    x = r(x + (norm(o, lp["attn_post_norm"]) if post else o))
+    h = norm(x, lp["mlp_norm"])
+    gate = r(h @ lp["w_gate"])
+    gate = r(F.gelu(gate, approximate="tanh")
+             if cfg.mlp_activation == "gelu_tanh" else F.silu(gate))
+    y = r(r(gate * r(h @ lp["w_up"])) @ lp["w_down"])
+    return r(x + (norm(y, lp["mlp_post_norm"]) if post else y))
 
 
 def interleave_drops(cfg, n_tokens: int) -> list[str]:
@@ -8578,7 +8978,7 @@ def contiguous_burst(torch, engine, cfg, card: str, kernels, per_step,
 
 
 def contiguous_graph_checks(torch, engine, card: str, limit: float,
-                            what: str) -> dict:
+                            what: str, ids=None) -> dict:
     """(g1)-(g5) of the contiguous loop's decode graph on an idle engine,
     its lock held by the caller: (g5) first; then the batch cache filled
     with seeded random rows at the burst's contexts (``GRAPH_LENGTHS``,
@@ -8586,7 +8986,9 @@ def contiguous_graph_checks(torch, engine, card: str, limit: float,
     on a copy of the cache, logits and every section (exact, or held to
     ``limit``); (g2) the graph's kernel nodes by name against the
     capture's launches; (g3) the step wall eager / graph / graph / eager;
-    (g4) device memory around the capture."""
+    (g4) device memory around the capture. On an engine that serves
+    adapters every step takes its stacks and ``ids``, one adapter slot a
+    row (mixed: 0 is the base)."""
     import numpy as np
 
     from k8s_runpod_kubelet_tpu_torch.workloads.serving.step_graph import \
@@ -8597,6 +8999,12 @@ def contiguous_graph_checks(torch, engine, card: str, limit: float,
     out = {"g5": graphs_used_check(engine, what)}
     model, params, cache = engine.model, engine.params, engine._cache
     g, b, dev = engine._decode.fn, engine.sc.slots, engine.device
+    run_kw, step_kw = {}, {}
+    if engine._adapters is not None:
+        ids = np.asarray(ids if ids is not None else np.zeros(b), np.int32)
+        run_kw = {"adapters": engine._adapters, "adapter_ids": ids}
+        step_kw = {"adapters": engine._adapters,
+                   "adapter_ids": torch.from_numpy(ids).to(dev)}
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
     rng = np.random.default_rng(SEED + 5)
     fill_contiguous_cache(cache, gen, torch.tensor(GRAPH_LENGTHS[:b],
@@ -8608,9 +9016,9 @@ def contiguous_graph_checks(torch, engine, card: str, limit: float,
     rows = []
     for step in (0, 1):
         toks = rng.integers(0, engine.cfg.vocab_size, b).astype(np.int32)
-        got = g.run(params, cache, toks, active).clone()
+        got = g.run(params, cache, toks, active, **run_kw).clone()
         want, _ = model.decode_step(params, torch.from_numpy(toks).to(dev),
-                                    copy, act_t, check=False)
+                                    copy, act_t, check=False, **step_kw)
         torch.cuda.synchronize()
         diff = (got - want).abs().max().item()
         rel = ((got - want).norm() / want.norm()).item()
@@ -8645,10 +9053,11 @@ def contiguous_graph_checks(torch, engine, card: str, limit: float,
     tok_t = torch.from_numpy(toks).to(dev)
 
     def eager():
-        model.decode_step(params, tok_t, cache, act_t, check=False)
+        model.decode_step(params, tok_t, cache, act_t, check=False,
+                          **step_kw)
 
     def replay():
-        g.run(params, cache, toks, active)
+        g.run(params, cache, toks, active, **run_kw)
 
     turns = [timed(eager), timed(replay), timed(replay), timed(eager)]
     out["decode"] = {"g1": rows, "g2_kernels_in_one_replay": counts,
@@ -9559,6 +9968,804 @@ def layout_wire_run(torch, engines, prompt, kernels, what: str) -> dict:
         torch.cuda.empty_cache()
 
 
+# -- phase 9g: Gemma 2 and 3 training ---------------------------------------------
+
+def gemma_kernel_cases(torch, F, dev) -> dict:
+    """Phase 9g (a): rows 1-3 at the Gemma shapes of a train step and row
+    16 at a ``seq`` = 2 shard (``GEMMA_FLASH_CASES`` through
+    ``flash_case``: the controls of ``flash_controls`` and the capped cases
+    again at q LARGE_Q times larger), row 12 forward and backward at
+    Gemma's widths and Gemma 3's q/k norm rows (``GEMMA_RMS_SHAPES``, the
+    control a dx without the mean square's term), each against its plain
+    version with times, bounds and the library's (SDPA, or compiled
+    ``flex_attention`` under the cap)."""
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    try:
+        flash = [flash_case(torch, F, dev, flush, *case)
+                 for case in GEMMA_FLASH_CASES]
+        gc.collect()
+        torch.cuda.empty_cache()
+        rms = [rms_case(torch, F, dev, flush, shape, grad=True, control=True)
+               for shape in GEMMA_RMS_SHAPES]
+    finally:
+        del flush
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {"flash": flash, "rms_norm": rms}
+
+
+def gemma_plain_nll(torch, cfg, params, batch, block: int = 1024,
+                    chunk: int = 2048):
+    """Mean next-token NLL of ``batch`` (B, S + 1) from a plain f32
+    forward of every branch of a Gemma 2 or 3 config over the whole rows
+    (``interleave_logits``'s branches: the embedding multiplier, the
+    zero-centered norms, the q/k norm, each layer's window and RoPE table,
+    the score soft cap, the sandwich norms, GeGLU, the tied head and its
+    final soft cap), no kernels, differentiable in the f32 params; each
+    layer (``interleave_layer``) and each ``chunk`` rows of the head's
+    logits under ``torch.utils.checkpoint``."""
+    import torch.utils.checkpoint
+
+    from k8s_runpod_kubelet_tpu_torch.ops.rmsnorm import _rms_norm_plain
+    from k8s_runpod_kubelet_tpu_torch.ops.rope import rope_frequencies
+
+    dev = params["tok_embed"].device
+    hd = cfg.head_dim_
+    glob = rope_frequencies(hd, cfg.max_seq_len, cfg.rope_theta,
+                            cfg.rope_scaling, device=dev)
+    loc = (glob if cfg.rope_local_theta is None else
+           rope_frequencies(hd, cfg.max_seq_len, cfg.rope_local_theta, None,
+                            device=dev))
+    windows = cfg.layer_windows()
+
+    def norm(x, w):
+        return _rms_norm_plain(x, w + 1 if cfg.norm_zero_centered else w,
+                               cfg.norm_eps)
+
+    tokens, targets = batch[:, :-1], batch[:, 1:].long()
+    x = params["tok_embed"][tokens.long()].float()
+    if cfg.embed_scale:
+        x = x * cfg.embed_multiplier
+    for i in range(cfg.n_layers):
+        window = windows[i % len(windows)]
+        lp = {k: layer_f32(w, i) for k, w in params["layers"].items()}
+        x = torch.utils.checkpoint.checkpoint(
+            interleave_layer, torch, cfg, lp, x, window,
+            loc if window is not None else glob, cfg.attn_logit_softcap,
+            cfg.post_norms, norm, lambda t: t, block, use_reentrant=False)
+    x = norm(x, params["final_norm"].float())
+    head = (params["tok_embed"] if cfg.tie_embeddings
+            else params["lm_head"].t())
+
+    def nll(xc, tc):
+        logits = xc @ head.float().t()
+        if cfg.logit_softcap:
+            logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
+        return (torch.logsumexp(logits, -1)
+                - logits.gather(-1, tc[..., None])[..., 0]).sum()
+
+    s = tokens.shape[1]
+    total = sum(torch.utils.checkpoint.checkpoint(
+        nll, x[:, i:i + chunk], targets[:, i:i + chunk], use_reentrant=False)
+        for i in range(0, s, chunk))
+    return total / (tokens.shape[0] * s)
+
+
+def gemma_grad_check(torch, dev, cfg, params, batch, chunks: int) -> dict:
+    """Step 1's gradients as the Gemma train step computes them
+    (``loss_and_grads`` with the fused loss over ``chunks`` vocab chunks:
+    bf16 through the kernels, remat) against autograd of
+    ``gemma_plain_nll`` on the same f32 master params and batch: each
+    leaf's relative L2 error and the global norm's relative error within
+    phase 9's limits; the same path with the dK/dV kernel's output zeroed
+    (the control) must exceed the leaf limit."""
+    from k8s_runpod_kubelet_tpu_torch.models import LlamaModel
+    from k8s_runpod_kubelet_tpu_torch.ops import attention
+    from k8s_runpod_kubelet_tpu_torch.workloads.train import (
+        _leaves, global_norm, loss_and_grads)
+
+    leaves = [p.requires_grad_() for p in _leaves(params)]
+    names = leaf_names(params)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    nll = gemma_plain_nll(torch, cfg, params, batch)
+    ref = torch.autograd.grad(nll, leaves)
+    ref_loss = nll.item()
+    del nll
+    ref_norm = global_norm(ref).item()
+    ref_s = time.perf_counter() - t0
+    model = LlamaModel(cfg, dev)
+
+    def against_ref() -> dict:
+        loss, grads = loss_and_grads(model, params, batch,
+                                     fused_ce_chunks=chunks)
+        errs = {n: ((g.float() - r).norm() / r.norm()).item()
+                for n, g, r in zip(names, grads, ref)}
+        norm = global_norm(grads).item()
+        del grads
+        worst = max(errs, key=errs.get)
+        return {"loss": loss.item(), "grad_norm": norm,
+                "norm_rel_err": abs(norm - ref_norm) / ref_norm,
+                "leaf_rel_l2": errs, "worst_leaf": worst,
+                "worst_leaf_rel_l2": errs[worst]}
+
+    try:
+        port = against_ref()
+        real_dkv = attention.flash_dkv
+        attention.flash_dkv = lambda q, k, v, *a, **kw: (torch.zeros_like(k),
+                                                         torch.zeros_like(v))
+        try:
+            control = against_ref()
+        finally:
+            attention.flash_dkv = real_dkv
+    finally:
+        for p in leaves:
+            p.requires_grad_(False)
+    peak = torch.cuda.max_memory_allocated()
+    del ref, model, leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"ref_loss": ref_loss, "ref_grad_norm": ref_norm, "ref_s": ref_s,
+           "peak_bytes": peak, "port": port, "control_zero_dkv": control,
+           "limit_leaf_rel_l2": TRAIN_GRAD_REL_L2_LIMIT,
+           "limit_norm_rel": TRAIN_NORM_REL_LIMIT}
+    log(f"  gradients vs autograd of the plain f32 Gemma forward (batch "
+        f"{batch.shape[0]} x {batch.shape[1] - 1}, {ref_s:.1f} s, peak "
+        f"{peak / 2**30:.2f} GiB): loss {port['loss']:.5f} vs "
+        f"{ref_loss:.5f}; grad_norm {port['grad_norm']:.5f} vs "
+        f"{ref_norm:.5f} (rel {port['norm_rel_err']:.2e}, limit "
+        f"{TRAIN_NORM_REL_LIMIT}); worst leaf {port['worst_leaf']} rel L2 "
+        f"{port['worst_leaf_rel_l2']:.2e} (limit {TRAIN_GRAD_REL_L2_LIMIT})")
+    log("    leaf rel L2: " + ", ".join(
+        f"{n} {e:.2e}" for n, e in port["leaf_rel_l2"].items()))
+    log(f"    control (dK/dV zeroed): worst leaf {control['worst_leaf']} rel "
+        f"L2 {control['worst_leaf_rel_l2']:.3f}, grad_norm rel "
+        f"{control['norm_rel_err']:.2e}")
+    if not (port["worst_leaf_rel_l2"] <= TRAIN_GRAD_REL_L2_LIMIT
+            and port["norm_rel_err"] <= TRAIN_NORM_REL_LIMIT):
+        raise RuntimeError(f"Gemma training gradients off the plain "
+                           f"forward's: {port}")
+    if not control["worst_leaf_rel_l2"] > TRAIN_GRAD_REL_L2_LIMIT:
+        raise RuntimeError(f"the zeroed-dK/dV control passed: {control}")
+    return out
+
+
+def step_device_ms(torch, trainer, batch) -> dict:
+    """``step_profile``'s profile of one more train step (after its
+    warm-up steps): the wall and the kernels' device time by family, rows
+    1-3 apart with their share and dK/dV's of the step's device time."""
+    from k8s_runpod_kubelet_tpu_torch.workloads.step_profile import _profile
+
+    batches = itertools.repeat(batch)
+    prof = _profile(lambda: trainer.run(steps=1, batches=batches), 1)
+    fam = prof["device_ms_by_family"]
+    if not isinstance(fam, dict):
+        return prof
+    rows = {k: fam.get(k, 0.0) for k in ("flash_fwd", "flash_dq",
+                                           "flash_dkv")}
+    return dict(prof, flash_ms=rows,
+                flash_share=sum(rows.values()) / prof["device_ms"],
+                flash_dkv_share=rows["flash_dkv"] / prof["device_ms"])
+
+
+def gemma_train_run(torch, dev, card: str, name: str, layers: int) -> dict:
+    """Phase 9g (b): ``name`` at full width and ``layers`` layers, its
+    norms drawn away from identity (``draw_family_branches``), batch 1 x
+    GEMMA_TRAIN_SEQ with the fused loss over FT_CHUNKS chunks: the
+    gradient check, then GEMMA_TRAIN_STEPS steps on the repeated seeded
+    batch with exact launches a step (flash_fwd 2L, flash_dq L, flash_dkv
+    L, rms_norm (2 + 2 sandwich + 2 q/k) x 2L + 1), the loss falling, step
+    1's grad_norm within phase 9's limit of the plain forward's, then one
+    profiled step (``step_device_ms``)."""
+    from k8s_runpod_kubelet_tpu_torch.models import MODEL_CONFIGS, init_params
+    from k8s_runpod_kubelet_tpu_torch.ops import (flash_dkv, flash_dq,
+                                                  flash_fwd, rms_norm)
+    from k8s_runpod_kubelet_tpu_torch.workloads.train import (
+        TrainConfig, Trainer, _leaves, synthetic_batches)
+
+    cfg = dataclasses.replace(MODEL_CONFIGS[name](), n_layers=layers)
+    tc = TrainConfig(batch_size=1, seq_len=GEMMA_TRAIN_SEQ,
+                     steps=GEMMA_TRAIN_STEPS, warmup_steps=1,
+                     fused_ce_chunks=FT_CHUNKS)
+    batch = next(synthetic_batches(cfg, tc, seed=SEED, device=dev))
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                         dev, master=True)
+    draw_family_branches(torch, cfg, params, SEED + 400)
+    check = gemma_grad_check(torch, dev, cfg, params, batch, FT_CHUNKS)
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, tc, device=dev, initial_params=params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in _leaves(trainer.params))
+    kernels = (flash_fwd, flash_dq, flash_dkv, rms_norm)
+    norms = 2 + 2 * cfg.post_norms + 2 * cfg.qk_norm
+    per_step = {"flash_fwd": 2 * layers, "flash_dq": layers,
+                "flash_dkv": layers, "rms_norm": 2 * norms * layers + 1}
+    log(f"  {name} widths, {layers} layers (windows "
+        f"{cfg.layer_windows()}): {n_params / 1e9:.3f} B params (f32 "
+        f"master), trainer init {init_s:.1f} s; batch 1 x "
+        f"{GEMMA_TRAIN_SEQ}, remat {cfg.remat_policy}, fused_ce_chunks "
+        f"{FT_CHUNKS}")
+    # the main path: counts set to 0 just before the run, read just after
+    for k in kernels:
+        k.launches = 0
+    run = timed_steps(torch, trainer, itertools.repeat(batch), tc.steps,
+                      kernels, per_step)
+    launches = {k.__name__: k.launches for k in kernels}
+    losses, norms_ = run["losses"], run["grad_norms"]
+    if not losses[-1] < losses[0]:
+        raise RuntimeError(f"{name}: the loss did not fall: {losses}")
+    step1_rel = abs(norms_[0] - check["ref_grad_norm"]) / check[
+        "ref_grad_norm"]
+    if not step1_rel <= TRAIN_NORM_REL_LIMIT:
+        raise RuntimeError(f"{name}: step 1's grad_norm {norms_[0]} is off "
+                           f"the plain forward's {check['ref_grad_norm']}")
+    prof = step_device_ms(torch, trainer, batch)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  [{card}] {name} at {layers} layers: step wall "
+        f"{run['step_s_median']:.4f} s (median of steps 2-{tc.steps}; "
+        f"first {run['step_walls_s'][0]:.3f} s), {run['tokens_per_s']:.0f} "
+        f"tokens/s, peak {run['peak_bytes'] / 2**30:.2f} GiB allocated; "
+        f"step 1 grad_norm rel {step1_rel:.2e} of the plain forward's; "
+        f"launches over {tc.steps} steps {launches} ({per_step} a step)")
+    if "flash_ms" in prof:
+        log(f"  [{card}] {name} profiled step: wall {prof['wall_ms']:.2f} "
+            f"ms, device {prof['device_ms']:.2f} ms (busy "
+            f"{prof['device_busy_share']:.1%}); rows 1-3 "
+            + " / ".join(f"{v:.2f}" for v in prof["flash_ms"].values())
+            + f" ms (fwd / dQ / dK/dV), {prof['flash_share']:.1%} of the "
+            f"device time, dK/dV {prof['flash_dkv_share']:.1%}; by family "
+            + ", ".join(f"{k} {v:.2f}" for k, v in sorted(
+                prof["device_ms_by_family"].items(), key=lambda kv: -kv[1])))
+    else:
+        log(f"  {name} profiled step: the trace shows no device time")
+    return {"model": name, "layers": layers, "params": n_params,
+            "batch": 1, "seq_len": GEMMA_TRAIN_SEQ, "init_s": init_s,
+            "grad_check": check, "step1_norm_rel_err": step1_rel,
+            "launches": launches, "launches_per_step": per_step,
+            "profile": prof, **run}
+
+
+def gemma_ring_check(torch, dev, card: str) -> dict:
+    """Phase 9g (e): gemma2-9b widths at 4 layers on an in-process ``seq``
+    = 2 mesh with ``ring_flash`` (row 16 at D = 256: the local layers'
+    band over the ring, their steps cut by ``_ring_steps``, the global
+    ones the whole context, both capped at 50), the step's gradients
+    (``loss_and_grads``, the fused loss) and final hidden states against
+    the unsharded step's on the same params and batch (the ``RING_*``
+    limits), launches exact (the path counted); the control, every ring
+    offset forced to 0, must exceed them."""
+    from k8s_runpod_kubelet_tpu_torch.models import (LlamaModel, gemma2_9b,
+                                                     init_params)
+    from k8s_runpod_kubelet_tpu_torch.ops import (flash_dkv, flash_dq,
+                                                  flash_fwd, rms_norm)
+    from k8s_runpod_kubelet_tpu_torch.ops.ring_attention import _ring_steps
+    from k8s_runpod_kubelet_tpu_torch.parallel import MeshConfig, make_mesh
+    from k8s_runpod_kubelet_tpu_torch.workloads.train import (
+        TrainConfig, _leaves, loss_and_grads, synthetic_batches)
+
+    shards, layers = 2, GEMMA_TRAIN_DEPTH["gemma2-9b"]
+    cfg = dataclasses.replace(gemma2_9b(), n_layers=layers)
+    tc = TrainConfig(batch_size=1, seq_len=GEMMA_TRAIN_SEQ)
+    batch = next(synthetic_batches(cfg, tc, seed=SEED + 1, device=dev))
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                         dev, master=True)
+    draw_family_branches(torch, cfg, params, SEED + 400)
+    leaves = [p.requires_grad_() for p in _leaves(params)]
+    names = leaf_names(params)
+    mesh = make_mesh(MeshConfig(seq=shards))
+    flat = LlamaModel(cfg, dev)
+    ring = LlamaModel(dataclasses.replace(cfg, ring_flash=True), dev, mesh)
+    inputs = batch[:, :-1]
+    s_local = GEMMA_TRAIN_SEQ // shards
+    steps = [_ring_steps(shards, s_local, w) for w in
+             (cfg.layer_windows()[i % len(cfg.layer_windows())]
+              for i in range(layers))]
+    kernels = (flash_fwd, flash_dq, flash_dkv, rms_norm)
+    per_call = {"flash_fwd": 2 * sum(steps), "flash_dq": sum(steps),
+                "flash_dkv": sum(steps),
+                "rms_norm": 2 * 4 * layers + 1}
+    try:
+        t0 = time.perf_counter()
+        loss_f, grads_f = loss_and_grads(flat, params, batch,
+                                         fused_ce_chunks=FT_CHUNKS)
+        torch.cuda.synchronize()
+        flat_s = time.perf_counter() - t0
+
+        def against_flat(model, count: bool) -> dict:
+            with torch.no_grad():
+                rel_h = rel_l2(torch, model.forward(params, inputs,
+                                                    return_hidden=True),
+                               flat.forward(params, inputs,
+                                            return_hidden=True))
+            if count:
+                for k in kernels:
+                    k.launches = 0
+            t0 = time.perf_counter()
+            loss, grads = loss_and_grads(model, params, batch,
+                                         fused_ce_chunks=FT_CHUNKS)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = {k.__name__: k.launches for k in kernels} if count else None
+            errs = {n: ((g.float() - f.float()).norm()
+                        / f.float().norm()).item()
+                    for n, g, f in zip(names, grads, grads_f)}
+            del grads
+            worst = max(errs, key=errs.get)
+            return {"loss": loss.item(), "hidden_rel_l2": rel_h,
+                    "leaf_rel_l2": errs, "worst_leaf": worst,
+                    "worst_leaf_rel_l2": errs[worst], "wall_s": wall,
+                    "launches": got}
+
+        port = against_flat(ring, True)
+        ring_mod = importlib.import_module(
+            "k8s_runpod_kubelet_tpu_torch.ops.ring_attention")
+        real = {n: getattr(ring_mod, n) for n in
+                ("flash_fwd", "flash_dq", "flash_dkv")}
+        for n, fn in real.items():
+            setattr(ring_mod, n, lambda *a, _fn=fn, **kw: _fn(
+                *a, **dict(kw, q_offset=0)))
+        try:
+            control = against_flat(ring, False)
+        finally:
+            for n, fn in real.items():
+                setattr(ring_mod, n, fn)
+    finally:
+        for p in leaves:
+            p.requires_grad_(False)
+    loss_rel = abs(port["loss"] - loss_f.item()) / loss_f.item()
+    del params, leaves, grads_f, flat, ring
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"layers": layers, "shards": shards, "seq_len": GEMMA_TRAIN_SEQ,
+           "ring_steps_by_layer": steps, "flat_loss": loss_f.item(),
+           "flat_wall_s": flat_s, "ring_vs_flat": port,
+           "loss_rel": loss_rel, "control_q_offset_0": control,
+           "launches": port["launches"], "launches_expected": per_call,
+           "limits": {"hidden_rel_l2": RING_LOGITS_REL_L2_LIMIT,
+                      "leaf_rel_l2": RING_GRAD_REL_L2_LIMIT}}
+    log(f"  (e) [{card}] gemma2-9b widths, {layers} layers, seq 2 x "
+        f"{s_local} (ring steps by layer {steps}): the ring's step vs the "
+        f"unsharded step: loss {port['loss']:.5f} vs {loss_f.item():.5f} "
+        f"(rel {loss_rel:.2e}), hidden rel L2 {port['hidden_rel_l2']:.2e} "
+        f"(limit {RING_LOGITS_REL_L2_LIMIT}), worst leaf "
+        f"{port['worst_leaf']} {port['worst_leaf_rel_l2']:.2e} (limit "
+        f"{RING_GRAD_REL_L2_LIMIT}); gradients {port['wall_s']:.3f} s "
+        f"against {flat_s:.3f} s unsharded (first calls); launches "
+        f"{port['launches']} ({per_call} expected)")
+    log("    leaf rel L2 vs unsharded: " + ", ".join(
+        f"{n} {e:.2e}" for n, e in port["leaf_rel_l2"].items()))
+    log(f"    control (ring offsets forced to 0): hidden rel L2 "
+        f"{control['hidden_rel_l2']:.3f}, worst leaf "
+        f"{control['worst_leaf']} {control['worst_leaf_rel_l2']:.3f}")
+    if port["launches"] != per_call:
+        raise RuntimeError(f"(e) the ring step launched {port['launches']}"
+                           f", not {per_call}")
+    if not (port["hidden_rel_l2"] <= RING_LOGITS_REL_L2_LIMIT
+            and port["worst_leaf_rel_l2"] <= RING_GRAD_REL_L2_LIMIT):
+        raise RuntimeError(f"(e) the ring is off the unsharded step: {port}")
+    if not (control["hidden_rel_l2"] > RING_LOGITS_REL_L2_LIMIT
+            and control["worst_leaf_rel_l2"] > RING_GRAD_REL_L2_LIMIT):
+        raise RuntimeError(f"(e) the zero-offset control passed: {control}")
+    return out
+
+
+def gemma_near_ties(torch, cfg, params, prompt, got, want) -> list:
+    """Where two greedy runs of ``prompt`` part (``got`` against
+    ``want``): the position and the top-2 margin of the plain f32
+    forward's (``interleave_logits``) last logits there, as a share of
+    their RMS; raises unless it is under SPEC_TIE_MARGIN. Runs that part
+    are compared no further than their first difference."""
+    out = []
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a == b:
+            continue
+        with torch.no_grad():
+            ref = interleave_logits(torch, cfg, params, prompt + want[:i])
+        top2 = ref.topk(2).values
+        share = ((top2[0] - top2[1]) / ref.pow(2).mean().sqrt()).item()
+        out.append({"at": i, "margin_share": share})
+        if not share < SPEC_TIE_MARGIN:
+            raise RuntimeError(f"(d) token {i}: {a} against {b}, top-2 "
+                               f"margin {share:.3f} of the RMS")
+        break
+    return out
+
+
+def gemma_prefix_variants(torch, base: dict, argv: list, adapter_path: str,
+                          prompt: list, rng, n: int) -> dict:
+    """Phase 9g (d)'s registered prefix on the contiguous loop's dense
+    store: ``serve_main`` with ``argv`` (``--prefix-cache off``, so
+    prefixes live whole in ``DensePrefixStore`` and ``_prefill_dense``
+    serves them) over the frozen base, 'ft' registered by ``POST
+    /adapters``; the first GEMMA_SERVE_PREFIX tokens of ``prompt`` through
+    ``POST /prefix``, then ``prompt`` under 'ft' twice (the first fills the
+    adapter's variant, the second copies it: the same tokens), a base
+    prompt over the prefix (a hit on the base variant), 'ft' registered
+    again (its variant dropped, the base one kept) and ``prompt`` under
+    'ft' once more (filled anew: the same tokens). Raises where the fill
+    and hit counters, the variants or the tokens differ from that, or
+    where a decode step was not one replay of the one capture (g5)."""
+    from k8s_runpod_kubelet_tpu_torch.workloads import serve_main
+
+    engine, _ = serve_main.build_engine(serve_main.parse_args(argv), base)
+    httpd = serve_main.serve(engine, port=0, host="127.0.0.1",
+                             allow_adapters=True)
+    port = httpd.server_address[1]
+    try:
+        if engine._dense_prefixes is None:
+            raise RuntimeError("(d) the prefix engine has no dense store")
+        out = prefix_variant_checks(engine, port, prompt, adapter_path, rng,
+                                    n)
+        out["graphs"] = graphs_used_check(engine, "(d) the prefix engine")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        engine.stop()
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def prefix_variant_checks(engine, port: int, prompt: list, adapter_path: str,
+                          rng, n: int) -> dict:
+    """The steps and checks of ``gemma_prefix_variants`` on a running
+    engine behind ``serve_main.serve`` at ``port``."""
+    code, body = http_post(port, "/adapters", {"name": "ft",
+                                               "path": adapter_path})
+    if code != 200:
+        raise RuntimeError(f"(d) POST /adapters answered {code}: {body}")
+    prefix = prompt[:GEMMA_SERVE_PREFIX]
+    code, body = http_post(port, "/prefix", {"tokens": prefix})
+    if code != 200:
+        raise RuntimeError(f"(d) POST /prefix answered {code}: {body}")
+    store = engine._dense_prefixes
+    slot = engine._adapter_names["ft"]
+
+    def state() -> dict:
+        with engine._prefix_lock:
+            entry = store.lookup(prompt)
+            return {"fills": engine.counters["prefix_adapter_fills"],
+                    "hits": engine.counters["prefix_hits"],
+                    "variants": sorted(entry.variants)}
+
+    def run(tokens, adapter) -> list:
+        return engine.submit(tokens, max_new_tokens=n, adapter=adapter
+                             ).result(timeout=600)["tokens"]
+
+    base_prompt = prefix + rng.integers(0, engine.cfg.vocab_size,
+                                        40).tolist()
+    states, toks = [state()], []
+    for tokens, adapter in ((prompt, "ft"), (prompt, "ft"),
+                            (base_prompt, "")):
+        toks.append(run(tokens, adapter))
+        states.append(state())
+    code, body = http_post(port, "/adapters", {"name": "ft",
+                                               "path": adapter_path})
+    if code != 200:
+        raise RuntimeError(f"(d) POST /adapters again answered {code}")
+    states.append(state())
+    toks.append(run(prompt, "ft"))
+    states.append(state())
+    f0, h0 = states[0]["fills"], states[0]["hits"]
+    want = [(f0, h0, [0]), (f0 + 1, h0, [0, slot]),
+            (f0 + 1, h0 + 1, [0, slot]), (f0 + 1, h0 + 2, [0, slot]),
+            (f0 + 1, h0 + 2, [0]), (f0 + 2, h0 + 2, [0, slot])]
+    got = [(st["fills"], st["hits"], st["variants"]) for st in states]
+    if got != want:
+        raise RuntimeError(f"(d) prefix fills, hits and variants {got}, "
+                           f"not {want}")
+    if not toks[0] == toks[1] == toks[3]:
+        raise RuntimeError(f"(d) 'ft' over the prefix: {toks[0]}, copied "
+                           f"{toks[1]}, after re-registration {toks[3]}")
+    log(f"  (d) prefix of {len(prefix)} tokens (POST /prefix): (fills, hits, "
+        f"variants) {got} after registration, 'ft' twice, a base prompt, "
+        f"'ft' registered again and 'ft' once more; 'ft' tokens equal "
+        "each time")
+    return {"prefix_tokens": len(prefix), "states": states, "tokens": toks}
+
+
+def gemma_serve_adapter(torch, dev, card: str, cfg, base: dict,
+                        adapter_path: str, pattern) -> dict:
+    """Phase 9g (d): (c)'s adapter served on the contiguous loop through
+    ``serve_main`` (``--lora-rank 16`` over its targets,
+    ``--dynamic-adapters``, 4 slots, GEMMA_SERVE_CACHE_LEN) over the frozen
+    bf16 base: registered by ``POST /adapters`` after the decode graph's
+    capture, then one burst mixing two adapter and two base requests (a
+    decode step must hold both) and the same adapter request through
+    ``/generate``; rms_norm and flash_fwd launches exact a step and a
+    prefill call; (g1)-(g5) with mixed ids, 0 recaptures. Then the same
+    flags with ``--prefix-cache off`` over a registered prefix
+    (``gemma_prefix_variants``: the dense store's adapter variants). The
+    adapter's greedy tokens, and its first tokens over the prefix,
+    against the same engine's (``serve_main`` without ``--lora-rank``)
+    over ``merge_lora`` of the base and the adapter: equal, or parting at
+    a near tie of the plain f32 forward of the merged weights
+    (``gemma_near_ties``)."""
+    import numpy as np
+
+    from k8s_runpod_kubelet_tpu_torch.models.lora import (load_adapter,
+                                                          merge_lora)
+    from k8s_runpod_kubelet_tpu_torch.ops import flash_fwd, rms_norm
+    from k8s_runpod_kubelet_tpu_torch.workloads import serve_main
+
+    adapter = load_adapter(adapter_path)
+    n = GEMMA_SERVE_TOKENS
+    common = ["--model", cfg.name, "--device", dev.type, "--slots", "4",
+              "--cache-len", str(GEMMA_SERVE_CACHE_LEN), "--max-new-tokens",
+              str(n)]
+    rng = np.random.default_rng(SEED + 9)
+    traffic = [(np.resize(pattern, 150).tolist(), "ft"),
+               (rng.integers(0, cfg.vocab_size, 120).tolist(), ""),
+               (np.resize(np.roll(pattern, 20), 130).tolist(), "ft"),
+               (rng.integers(0, cfg.vocab_size, 90).tolist(), "")]
+    engine, _ = serve_main.build_engine(serve_main.parse_args(
+        common + ["--lora-rank", str(FT_RANK), "--lora-targets",
+                  ",".join(adapter), "--max-adapters", "1",
+                  "--dynamic-adapters"]), base)
+    httpd = serve_main.serve(engine, port=0, host="127.0.0.1",
+                             allow_adapters=True)
+    port = httpd.server_address[1]
+    what = f"{cfg.name} LoRA contiguous engine"
+    kernels = (flash_fwd, rms_norm)
+    try:
+        snap = engine.debug_snapshot()
+        if snap["paged_decode"] or not snap["multi_lora"]:
+            raise RuntimeError(f"(d) {what}: paged_decode "
+                               f"{snap['paged_decode']}, multi_lora "
+                               f"{snap['multi_lora']}")
+        code, body = http_post(port, "/adapters",
+                               {"name": "ft", "path": adapter_path})
+        if code != 200:
+            raise RuntimeError(f"(d) POST /adapters answered {code}: {body}")
+        c0 = dict(engine.counters)
+        l0 = {k.__name__: k.launches for k in kernels}
+        seq0 = last_seq(engine)
+        futs = [engine.submit(p, max_new_tokens=n, adapter=a)
+                for p, a in traffic]
+        got = [f.result(timeout=600)["tokens"] for f in futs]
+        code, body = http_post(port, "/generate", {
+            "tokens": traffic[0][0], "adapter": "ft", "max_new_tokens": n})
+        if code != 200 or json.loads(body)["tokens"] != got[0]:
+            raise RuntimeError(f"(d) /generate with the adapter: {code} "
+                               f"{body[:200]!r} against {got[0]}")
+        wait_for(lambda: engine.active_slots == 0, "the engine idle", 60)
+        c1 = engine.counters
+        launches = {k.__name__: k.launches - l0[k.__name__] for k in kernels}
+        steps = {k: c1[k] - c0[k] for k in ("decode_steps",
+                                            "dense_prefill_heads",
+                                            "dense_prefill_chunks")}
+        records = [r for r in engine.recorder.records()
+                   if r["seq"] > seq0 and r["batch"]["mode"] == "decode"]
+        mixed = sum(1 for r in records
+                    if 0 < r["batch"]["adapters"] < r["batch"]["active"])
+        norms = (2 + 2 * cfg.post_norms + 2 * cfg.qk_norm) * cfg.n_layers + 1
+        want_l = {"flash_fwd": cfg.n_layers * steps["dense_prefill_heads"],
+                  "rms_norm": norms * sum(steps.values())}
+        if launches != want_l:
+            raise RuntimeError(f"(d) launches {launches}, not {want_l} for "
+                               f"{steps}")
+        if not mixed:
+            raise RuntimeError("(d) no decode step mixed base and adapter "
+                               "rows")
+        with engine._prefix_lock:
+            graphs = contiguous_graph_checks(torch, engine, card,
+                                             ENGINE_REL_L2_LIMIT, what,
+                                             ids=[0, 1, 1, 0][:4])
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        engine.stop()
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    prefixed = gemma_prefix_variants(
+        torch, base, common + ["--lora-rank", str(FT_RANK), "--lora-targets",
+                               ",".join(adapter), "--max-adapters", "1",
+                               "--dynamic-adapters", "--prefix-cache", "off"],
+        adapter_path, traffic[0][0], rng, n)
+    wrapped = dict(base)
+    wrapped["layers"] = dict(base["layers"])
+    for t, ad in adapter.items():
+        wrapped["layers"][t] = {
+            "w": base["layers"][t],
+            **{k: torch.from_numpy(ad[src]).to(dev) for k, src in
+               (("lora_a", "a"), ("lora_b", "b"), ("scale", "scale"))}}
+    merged = merge_lora(wrapped)
+    del wrapped
+    m_engine, _ = serve_main.build_engine(serve_main.parse_args(common),
+                                          merged)
+    try:
+        want = [m_engine.submit(p, max_new_tokens=n).result(
+            timeout=600)["tokens"] for p, a in traffic if a]
+    finally:
+        m_engine.stop()
+        del m_engine
+    # the adapter's tokens over the prefix beside them: the first prompt's
+    ft_got = [t for t, (_, a) in zip(got, traffic) if a]
+    ft_got.append(prefixed["tokens"][0])
+    want.append(want[0])
+    ft_prompts = [p for p, a in traffic if a] + [traffic[0][0]]
+    ties = [gemma_near_ties(torch, cfg, merged, p, g, w)
+            for p, g, w in zip(ft_prompts, ft_got, want)]
+    with torch.no_grad():
+        last_m = interleave_logits(torch, cfg, merged, ft_prompts[0])
+        last_b = interleave_logits(torch, cfg, base, ft_prompts[0])
+    moved = ((last_m - last_b).norm() / last_b.norm()).item()
+    del merged, last_m, last_b
+    gc.collect()
+    torch.cuda.empty_cache()
+    equal = [g == w for g, w in zip(ft_got, want)]
+    out = {"tokens": got, "merged_tokens": want, "equal": equal,
+           "near_ties": ties, "launches": launches, "steps": steps,
+           "mixed_decode_steps": mixed, "decode_records": len(records),
+           "prefix": prefixed,
+           "graphs": graphs, "adapter_moves_last_logits_rel_l2": moved,
+           "tie_margin": SPEC_TIE_MARGIN}
+    log(f"  (d) [{card}] {what}: adapter 'ft' registered by POST /adapters "
+        f"after the capture; {len(traffic)} requests (2 'ft', 2 base) of "
+        f"{n} greedy tokens: {got}; the merged weights' engine {want[:-1]}; "
+        f"the first 'ft' prompt over the registered prefix {ft_got[-1]}: "
+        f"equal {equal} (near ties {ties}); {mixed} of {len(records)} decode "
+        f"steps mixed base and adapter rows; launches {launches} over "
+        f"{steps}; the adapter moves the f32 last-token logits by "
+        f"{moved:.4f} relative L2")
+    return out
+
+
+def gemma_finetune(torch, dev, card: str) -> dict:
+    """Phase 9g (c) and (d): ``train_main.main --model gemma2-9b`` (all 42
+    layers, random init from its seed, the frozen base drawn into bf16)
+    ``--lora-rank 16`` on all seven targets ``--fused-ce-chunks 8 --batch
+    1 --seq-len 4096`` for GEMMA_FT_STEPS steps from a token file (phase
+    9f's seeded pattern) ``--export-adapter``: the summary line, the loss
+    falling, every frozen leaf (the tied table among them) bit-identical
+    after the run, launches exact a step (84 / 42 / 42 / 337), the peak
+    (and the init's) within 80 GB, median step wall and tokens/s; then the
+    exported adapter served (``gemma_serve_adapter``)."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from k8s_runpod_kubelet_tpu_torch.models import gemma2_9b
+    from k8s_runpod_kubelet_tpu_torch.ops import (flash_dkv, flash_dq,
+                                                  flash_fwd, rms_norm)
+    from k8s_runpod_kubelet_tpu_torch.workloads import train as train_mod
+    from k8s_runpod_kubelet_tpu_torch.workloads import train_main
+
+    cfg = gemma2_9b()
+    n = cfg.n_layers
+    kernels = (flash_fwd, flash_dq, flash_dkv, rms_norm)
+    per_step = {"flash_fwd": 2 * n, "flash_dq": n, "flash_dkv": n,
+                "rms_norm": 2 * 4 * n + 1}
+    made: list = []
+    Watched = watched_trainer(torch, train_mod.Trainer, kernels, made)
+    train_mod.Trainer, real_trainer = Watched, train_mod.Trainer
+    out: dict = {}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            rng = np.random.default_rng(SEED)
+            pattern = rng.integers(0, cfg.vocab_size, FT_PATTERN)
+            data = os.path.join(tmp, "tokens.bin")
+            np.resize(pattern, FT_WINDOWS * GEMMA_FT_SEQ + 1).astype("<i4") \
+                .tofile(data)
+            adapter_path = os.path.join(tmp, "gemma_adapter.npz")
+            argv = ["--model", cfg.name, "--device", dev.type,
+                    "--lora-rank", str(FT_RANK),
+                    "--lora-targets", ",".join(LORA_TARGETS_ALL),
+                    "--fused-ce-chunks", str(FT_CHUNKS), "--batch", "1",
+                    "--seq-len", str(GEMMA_FT_SEQ), "--lr", str(FT_LR),
+                    "--data", data, "--steps", str(GEMMA_FT_STEPS),
+                    "--export-adapter", adapter_path]
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            # the main path: counts set to 0 just before the run
+            for k in kernels:
+                k.launches = 0
+            stdout = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(stdout):
+                rc = train_main.main(argv)
+            main_s = time.perf_counter() - t0
+            launches = {k.__name__: k.launches for k in kernels}
+            peak = torch.cuda.max_memory_allocated()
+            if rc != 0 or len(made) != 1:
+                raise RuntimeError(f"(c) train_main exited {rc}, "
+                                   f"{len(made)} trainers")
+            summary = json.loads(stdout.getvalue().strip().splitlines()[-1])
+            tr = made[0]
+            if not tr.losses[-1] < tr.losses[0]:
+                raise RuntimeError(f"(c) the loss did not fall: {tr.losses}")
+            after = leaf_checksums(torch, tr.params, True)
+            if after != tr.init_sums or "tok_embed" not in after:
+                bad = [k for k in after if after[k] != tr.init_sums.get(k)]
+                raise RuntimeError(f"(c) frozen leaves changed: {bad}")
+            for i, got in enumerate(tr.launches):
+                if got != per_step:
+                    raise RuntimeError(f"(c) step {i + 1} launched {got}, "
+                                       f"not {per_step}")
+            if launches != {k: v * GEMMA_FT_STEPS
+                            for k, v in per_step.items()}:
+                raise RuntimeError(f"(c) launches over the run {launches}")
+            if not max(peak, tr.init_peak) <= CARD_BYTES:
+                raise RuntimeError(f"(c) peak {peak} bytes (init "
+                                   f"{tr.init_peak}) does not fit the card")
+            step_s = statistics.median(tr.walls[1:])
+            out["finetune"] = {
+                "losses": tr.losses, "step_walls_s": tr.walls,
+                "step_s_median": step_s,
+                "tokens_per_s": GEMMA_FT_SEQ / step_s, "peak_bytes": peak,
+                "init_peak_bytes": tr.init_peak, "frozen_leaves": len(after),
+                "launches": launches, "launches_per_step": per_step,
+                "summary": summary, "main_s": main_s}
+            log(f"  (c) [{card}] gemma2-9b ({n} layers) LoRA r={FT_RANK} on "
+                f"all seven targets through train_main, batch 1 x "
+                f"{GEMMA_FT_SEQ}: losses {[round(x, 4) for x in tr.losses]};"
+                f" step walls {[round(w, 4) for w in tr.walls]} s, median of "
+                f"steps 2-{GEMMA_FT_STEPS} {step_s:.4f} s, "
+                f"{GEMMA_FT_SEQ / step_s:.0f} tokens/s; {len(after)} frozen "
+                f"leaves bit-identical after the run; peak "
+                f"{peak / 2**30:.2f} GiB over the steps and export "
+                f"({tr.init_peak / 2**30:.2f} GiB in the init); launches a "
+                f"step {per_step}; train_main {main_s:.1f} s")
+            base = {k: v.detach() for k, v in tr.params.items()
+                    if k != "layers"}
+            base["layers"] = {k: (v["w"] if isinstance(v, dict) else v)
+                              .detach()
+                              for k, v in tr.params["layers"].items()}
+            del tr
+            made.clear()
+            gc.collect()
+            torch.cuda.empty_cache()
+            out["serve"] = gemma_serve_adapter(torch, dev, card, cfg, base,
+                                               adapter_path, pattern)
+            del base
+    finally:
+        train_mod.Trainer = real_trainer
+        made.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def gemma_train_phase(torch, F, dev, card: str) -> dict:
+    """Phase 9g: (a) the kernels at the Gemma shapes, (b) gemma2-9b and
+    gemma3-12b at full width and reduced depth (GEMMA_TRAIN_DEPTH), (e)
+    the ``seq`` = 2 Gemma 2 step against the unsharded one, (c) the
+    42-layer gemma2-9b LoRA fine-tune through ``train_main`` and (d) its
+    adapter served on the contiguous loop."""
+    t0 = time.perf_counter()
+    out = {}
+    log("  9g (a): rows 1-3 at B1 S8192 D256 16/8 (cap 50 + window 4096, "
+        "cap 50, window 1024), row 16 at a 4096-token shard, row 12 at "
+        "Gemma's widths with gradients")
+    out["kernels"] = gemma_kernel_cases(torch, F, dev)
+    for name, layers in GEMMA_TRAIN_DEPTH.items():
+        log(f"  9g (b): {name} widths at {layers} layers, batch 1 x "
+            f"{GEMMA_TRAIN_SEQ}, fused loss over {FT_CHUNKS} chunks")
+        out[name.replace("-", "_")] = gemma_train_run(torch, dev, card, name,
+                                                      layers)
+    log("  9g (e): gemma2-9b widths at 4 layers on an in-process seq = 2 "
+        "mesh (ring_flash) against the unsharded step")
+    out["seq2"] = gemma_ring_check(torch, dev, card)
+    log(f"  9g (c): gemma2-9b LoRA r={FT_RANK} on all seven targets at "
+        f"full depth through train_main (batch 1 x {GEMMA_FT_SEQ}, "
+        f"{GEMMA_FT_STEPS} steps), then (d) its adapter on the contiguous "
+        "loop")
+    out.update(gemma_finetune(torch, dev, card))
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"  9g: {out['phase_s']:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description="chip smoke of the PyTorch "
                                 "port (see the module docstring)")
@@ -9571,6 +10778,15 @@ def main(argv=None) -> int:
                    help="run only phase 9e (MoE training; the kernels it "
                    "runs build at their first launch), print its JSON and "
                    "exit")
+    p.add_argument("--gemma-train", action="store_true",
+                   help="run only phase 9g (Gemma 2 and 3 training, the "
+                   "LoRA fine-tune and its adapter served; the kernels it "
+                   "runs build at their first launch), print its JSON and "
+                   "exit")
+    p.add_argument("--flex-warm", action="store_true",
+                   help="compile flex_attention at the capped flash cases' "
+                   "shapes into TORCHINDUCTOR_CACHE_DIR and exit (the full "
+                   "run starts this in a second process)")
     p.add_argument("--disagg", action="store_true",
                    help="run only phase 7k (disaggregated serving of "
                    "llama3-8b bf16; the kernels build at their first "
@@ -9588,6 +10804,9 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
+    if args.flex_warm:
+        flex_warm(torch, dev)
+        return 0
     card = card_line()
     log(f"card: {card}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -9597,6 +10816,9 @@ def main(argv=None) -> int:
         return 0
     if args.moe_train:
         print(json.dumps(moe_train_phase(torch, dev, card)), flush=True)
+        return 0
+    if args.gemma_train:
+        print(json.dumps(gemma_train_phase(torch, F, dev, card)), flush=True)
         return 0
     if args.disagg:
         from k8s_runpod_kubelet_tpu_torch.models import init_params, llama3_8b
@@ -9608,6 +10830,7 @@ def main(argv=None) -> int:
         return 0
 
     log("phase build")
+    start_flex_warm()
     sources = ("paged_attention_multi", "paged_attention_multi_quant",
                "paged_attention_multi_mla", "paged_attention_multi_mla_quant",
                "int4_matmul", "int4_expert_matmul", "flash_attention")
@@ -9637,8 +10860,11 @@ def main(argv=None) -> int:
         for line in ptxas_summary(text):
             log(f"  ptxas {name}: {line}")
     # the tensor-core kernels: each must hold wgmma (HGMMA in the SASS)
-    sass = {name: sass_counts(_cuda.load(name)._name)
-            for name in TENSOR_CORE_KERNELS}
+    with concurrent.futures.ThreadPoolExecutor(len(TENSOR_CORE_KERNELS)) \
+            as pool:
+        sass = dict(zip(TENSOR_CORE_KERNELS, pool.map(
+            lambda name: sass_counts(_cuda.load(name)._name),
+            TENSOR_CORE_KERNELS)))
     for name, counts in sass.items():
         if not counts:
             log(f"  sass {name}: no cuobjdump in the toolkit, not counted")
@@ -9874,7 +11100,7 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     log("phase 7l (d): step_profile's LoRA profile (llama3-8b bf16, rank "
-        f"{LORA_RANK}, wq,wv and all seven targets)")
+        f"{LORA_RANK}, all seven targets)")
     lora["profile"] = lora_profile_phase(torch, dev, card, cfg, params)
     gc.collect()
     torch.cuda.empty_cache()
@@ -10002,6 +11228,19 @@ def main(argv=None) -> int:
         f"latter with the fused loss; (c) a LoRA r={FT_RANK} fine-tune of "
         f"{MOE_FT_MODEL} at full depth through train_main")
     moe_train = moe_train_phase(torch, dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log("phase 9g (Gemma training): (a) rows 1-3, 12 and 16 at Gemma's "
+        "shapes, (b) gemma2-9b and gemma3-12b widths at reduced depth, "
+        f"batch 1 x {GEMMA_TRAIN_SEQ}, (e) the seq = 2 Gemma 2 step, (c) a "
+        f"LoRA r={FT_RANK} fine-tune of the whole gemma2-9b through "
+        "train_main and (d) its adapter served on the contiguous loop")
+    gemma = gemma_train_phase(torch, F, dev, card)
+    flex_waited = _FLEX_WARM.get("waited_s", 0.0)
+    stop_flex_warm()
+    log(f"  flex_attention's compiles made ahead by --flex-warm: waited "
+        f"{flex_waited:.1f} s for them")
 
     def record(name, route, source, replaces, cases, launches, by_path,
                library_call):
@@ -10017,7 +11256,8 @@ def main(argv=None) -> int:
                 "cases": cases}
 
     def flash_cases(kname):
-        return [{"case": c["case"], **c["kernels"][kname]} for c in flash]
+        return [{"case": c["case"], **c["kernels"][kname]}
+                for c in flash + gemma["kernels"]["flash"]]
 
     def finetune_paths(kname) -> dict:
         """Phase 9f's and 9e's launches of ``kname`` by run."""
@@ -10029,7 +11269,12 @@ def main(argv=None) -> int:
                 "train_mixtral": moe_train["mixtral"]["launches"][kname],
                 "train_deepseek": moe_train["deepseek"]["launches"][kname],
                 "finetune_deepseek_lora":
-                    moe_train["finetune"]["launches"][kname]}
+                    moe_train["finetune"]["launches"][kname],
+                "train_gemma2": gemma["gemma2_9b"]["launches"][kname],
+                "train_gemma3": gemma["gemma3_12b"]["launches"][kname],
+                "train_gemma2_seq2": gemma["seq2"]["launches"][kname],
+                "finetune_gemma2_lora":
+                    gemma["finetune"]["launches"][kname]}
 
     def family_paths(kname) -> dict:
         """Phase 7f's launches of ``kname`` by engine run."""
@@ -10086,7 +11331,8 @@ def main(argv=None) -> int:
                 **family_paths("paged_attention_multi")}, sdpa),
         record("rms_norm", "triton",
                "k8s_runpod_kubelet_tpu_torch/ops/rmsnorm.py",
-               "k8s_runpod_kubelet_tpu/ops/rmsnorm.py:80", rms,
+               "k8s_runpod_kubelet_tpu/ops/rmsnorm.py:80",
+               rms + gemma["kernels"]["rms_norm"],
                serve_launches["rms_norm"],
                {"serve": serve_launches["rms_norm"],
                 "serve_observability": obs["launches"]["rms_norm"],
@@ -10111,6 +11357,8 @@ def main(argv=None) -> int:
                 "train_ring": ring_train["launches"]["rms_norm"],
                 "train_ring_mla": ring_train_mla["launches"]["rms_norm"],
                 **finetune_paths("rms_norm"),
+                "serve_gemma2_lora_contiguous":
+                    gemma["serve"]["launches"]["rms_norm"],
                 **family_paths("rms_norm")},
                "F.rms_norm, bf16 weight"),
     ] + [
@@ -10130,15 +11378,20 @@ def main(argv=None) -> int:
                    if kname in openai["launches"] else {}),
                 **({"serve_lora_dense_group": lora["dense_group"][kname],
                     "serve_lora_int4_kv_int8_dense_group":
-                        lora_q["dense_group"][kname]}
+                        lora_q["dense_group"][kname],
+                    "serve_gemma2_lora_contiguous":
+                        gemma["serve"]["launches"][kname]}
                    if kname == "flash_fwd" else {})}, library_call)
         for kname, replaces, library_call in (
-            ("flash_fwd", jax_attn + "199", "SDPA forward (at D = 192 a "
-             "yardstick on the same padded q/k/v)"),
+            ("flash_fwd", jax_attn + "199", "SDPA forward, under a soft "
+             "cap compiled flex_attention's (at D = 192 a yardstick on the "
+             "same padded q/k/v)"),
             ("flash_dq", jax_attn + "360",
-             "SDPA autograd backward: dq, dk and dv together"),
+             "SDPA (under a soft cap compiled flex_attention) autograd "
+             "backward: dq, dk and dv together"),
             ("flash_dkv", jax_attn + "397",
-             "SDPA autograd backward: dq, dk and dv together"))
+             "SDPA (under a soft cap compiled flex_attention) autograd "
+             "backward: dq, dk and dv together"))
     ] + [
         record("paged_attention_multi_quant", "cuda",
                csrc + "paged_attention_multi_quant.cu", jax_attn + "1741",
@@ -10263,9 +11516,11 @@ def main(argv=None) -> int:
                        "ring_train": ring_train,
                        "ring_train_mla": ring_train_mla,
                        "train_main": train_cli, "finetune": finetune,
-                       "moe_train": moe_train, "families": families,
+                       "moe_train": moe_train, "gemma_train": gemma,
+                       "families": families,
                        "llama3_70b": big, "interleave": interleave,
                        "build_s": {**nvcc_s, "triton": triton_s},
+                       "flex_warm_waited_s": flex_waited,
                        "sass": sass, "int4_expert_unpack_mix": unpack_mix},
                       f, indent=1)
     log(f"card: {card}")

@@ -110,7 +110,11 @@ Run: python -m k8s_runpod_kubelet_tpu_torch.workloads.serve_main \
 arena; ``--kv-int8`` then makes the latents int8. ``--model
 deepseek-v2-lite`` serves DeepSeek-V2-Lite: the latent arena, with its
 dense first layer's own sections, over 64 routed and 2 shared experts.
-``deepseek-v3`` is in the registry but is no serve target.)
+``deepseek-v3`` is in the registry but is no serve target. ``--model
+gemma2-9b`` and ``gemma3-12b``, and any model with ``--prefix-cache off``
+or ``--paged-decode off``, serve from the contiguous loop, ``--lora-rank``
+and ``POST /adapters`` included: an adapter ``train_main --model
+gemma2-9b --lora-rank R --export-adapter`` wrote registers there.)
 """
 
 from __future__ import annotations

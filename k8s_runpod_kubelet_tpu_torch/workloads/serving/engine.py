@@ -95,8 +95,12 @@ paged loop.
   prompts match the paged prefix pool and gather from it (the
   dense-scratch route); otherwise registered prefixes live whole in a
   ``DensePrefixStore`` and a prompt copies the longest one's cache before
-  appending to it. Speculative decoding, multi-LoRA and a tensor mesh are
-  refused here (ROADMAP Queue 1 #3.1-#3.3).
+  appending to it. Multi-LoRA rides this loop too: each decode replay
+  takes every slot's adapter id and the stacks, a prompt prefills under
+  its adapter, and a registered prefix keeps one variant for each adapter,
+  filled on that adapter's first prompt over it (LRU-bounded, dropped
+  when the adapter is registered again). Speculative decoding and a
+  tensor mesh are refused here (ROADMAP Queue 1 #3.1, #3.3).
 - **Disaggregated serving**: a prefill replica's ``export_handoff``
   (wire codec blob), ``export_handoff_device`` (fresh copies on the card
   and the event after them) or ``export_handoff_stream`` (each chunk's
@@ -997,8 +1001,12 @@ class ServingEngine:
                         else:
                             for v in stack.values():
                                 v[:, slot].zero_()
-                    # KV cached under the old weights is stale
-                    self._kv_store.trie.drop_adapter(slot)
+                    # KV cached under the old weights is stale: the
+                    # trie's subtree, or the dense store's variants
+                    if self._kv_store is not None:
+                        self._kv_store.trie.drop_adapter(slot)
+                    else:
+                        self._dense_prefixes.drop_adapter(slot)
                 with self._adapter_lock:
                     self._adapter_names[name] = slot
                 self.metrics.incr("tpu_serving_adapters_registered")
@@ -1427,20 +1435,34 @@ class ServingEngine:
                        ) -> tuple[torch.Tensor, dict, int]:
         """The registered-prefix path of the contiguous loop without a
         paged pool (the JAX ``_prefill_dense``): the longest registered
-        prefix wins, its cache is copied (the store's stays as
-        registered) and the rest of the prompt appends to the copy. No
-        hit: the whole prompt through ``_prefill_raw``. The loop serves no
-        adapters (ROADMAP Queue 1 #3.2), so every prompt takes the base
-        variant."""
+        prefix wins and the rest of the prompt appends to a copy of its
+        cache under the request's adapter (the store's stays as
+        registered). An adapter's first prompt over the prefix prefills
+        the prefix under that adapter once and stores the variant, LRU
+        bounded (``tpu_serving_prefix_adapter_fills``); later ones copy
+        it. No hit: the whole prompt through ``_prefill_raw``."""
+        dense = self._dense_prefixes
         with self._prefix_lock:
-            entry = self._dense_prefixes.lookup(tokens)
-            if entry is not None:
-                last_logits, cached = entry.variants[0]
+            entry = dense.lookup(tokens)
+            var = entry.variants.get(adapter_id) if entry is not None else None
+            if var is not None:
+                if adapter_id != 0:
+                    dense.touch(entry, adapter_id)
+                last_logits, cached = var
                 single = {k: v.clone() for k, v in cached.items()}
         if entry is None:
             last_logits, single = self._prefill_raw(tokens, adapter_id)
             return last_logits, single, 0
-        self.metrics.incr("tpu_serving_prefix_hits")
+        if var is None:
+            # this adapter's first prompt over the prefix: its variant
+            # (adapter deltas reach the prefix's K/V)
+            last_logits, cached = self._prefill_raw(entry.tokens, adapter_id)
+            with self._prefix_lock:
+                dense.put_variant(entry, adapter_id, (last_logits, cached))
+            self.metrics.incr("tpu_serving_prefix_adapter_fills")
+            single = {k: v.clone() for k, v in cached.items()}
+        else:
+            self.metrics.incr("tpu_serving_prefix_hits")
         last_logits, single = self._append_chunks(
             single, tokens[len(entry.tokens):], last_logits, adapter_id)
         return last_logits, single, len(entry.tokens)
@@ -1559,11 +1581,6 @@ class ServingEngine:
                 "(a windowed interleave, the prefix cache off or "
                 "paged_decode off) is not ported (ROADMAP Queue 1 #3.1); "
                 "serve with speculate_k 0")
-        if sc.lora_rank > 0:
-            raise ValueError(
-                f"{cfg.name}: multi-LoRA on the contiguous loop is not "
-                "ported (ROADMAP Queue 1 #3.2); adapters ride the paged "
-                "loop")
         if tensor > 1:
             raise ValueError(
                 f"{cfg.name}: the contiguous loop under a tensor mesh is not "
@@ -2549,7 +2566,7 @@ class ServingEngine:
         with self._prefix_lock:
             logits = self._decode(self.params, self._cache,
                                   [s.last_token for s in self._slots],
-                                  active)
+                                  active, **self._step_adapter_kw())
             self.metrics.incr("tpu_serving_decode_steps")
         if rec is not None:
             rec.mark("kernel")

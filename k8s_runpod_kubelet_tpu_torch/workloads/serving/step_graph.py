@@ -37,11 +37,14 @@ inside the same capture.
 
 ``DecodeGraph`` is the contiguous loop's step (the JAX engine's jitted
 ``decode_step``): ``decode_step`` over the engine's batch cache, fed by a
-staged (tokens, active) buffer, with no host sync inside (the step's
-``check`` off). Its graph bakes in the cache's sections and both RoPE
-tables. A replay launches ``rms_norm`` 2L + 1 times, 4L + 1 with sandwich
-norms or the q/k norm and 6L + 1 with both (gemma2-9b 169, gemma3-12b
-289, llama3-8b 65); its attention is the plain f32 einsum, no kernel.
+staged (tokens, active, adapter ids) buffer, with no host sync inside (the
+step's ``check`` off). Its graph bakes in the cache's sections, both RoPE
+tables and the adapter stacks; each slot's adapter id is data, as on the
+paged steps, so mixed ids share one replay and an adapter written into
+the stacks in place needs no capture. A replay launches ``rms_norm`` 2L +
+1 times, 4L + 1 with sandwich norms or the q/k norm and 6L + 1 with both
+(gemma2-9b 169, gemma3-12b 289, llama3-8b 65); its attention is the plain
+f32 einsum, no kernel.
 
 On the CPU the same staged buffers feed the eager step: the dispatch is on
 the model's device, as in the kernel wrappers, and not a fallback. On a
@@ -308,18 +311,24 @@ class DecodeGraph(StepGraph):
 
     def _step(self, params, cache, adapters=None) -> torch.Tensor:
         s = self.static
+        ids = s["adapter_ids"] if adapters else None
         logits, _ = self.model.decode_step(params, s["tokens"][:, 0], cache,
-                                           s["active"] != 0, check=False)
+                                           s["active"] != 0,
+                                           adapters=adapters,
+                                           adapter_ids=ids, check=False)
         return logits
 
-    def run(self, params, cache, tokens, active) -> torch.Tensor:
-        """One step over the host's values, tokens (B,) and active (B,):
-        the cache's active rows take their token's K/V and advance their
-        index. Returns the logits (B, V) f32 (on a card the graph's static
-        output)."""
-        st = self._stage(params, cache, None)
+    def run(self, params, cache, tokens, active, adapters=None,
+            adapter_ids=None) -> torch.Tensor:
+        """One step over the host's values, tokens (B,) and active (B,),
+        and with the multi-LoRA ``adapters`` stacks each slot's
+        ``adapter_ids`` (B,) (default 0, the base): the cache's active
+        rows take their token's K/V and advance their index. Returns the
+        logits (B, V) f32 (on a card the graph's static output)."""
+        st = self._stage(params, cache, adapters)
         st["tokens"][:] = np.asarray(tokens).reshape(self.slots, 1)
         st["active"][:] = np.asarray(active)
-        return self._launch(params, cache, None)
+        st["adapter_ids"][:] = 0 if adapter_ids is None else adapter_ids
+        return self._launch(params, cache, adapters)
 
     __call__ = run

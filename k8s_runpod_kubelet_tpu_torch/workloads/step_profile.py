@@ -265,7 +265,10 @@ def _profile(fn, steps: int) -> dict:
     kernels: dict[str, float] = {}
     experts_us = 0.0
     backward_us = dict.fromkeys(EXPERTS_BACKWARD, 0.0)
-    for ev in prof.key_averages():
+    device_us: dict[str, float] = {}
+    # the events themselves, summed by name as key_averages would, without
+    # its totals over every host event (most of a long trace's seconds)
+    for ev in prof.events():
         if ev.key == EXPERTS_RANGE:
             # the range's host event sums the device time of the kernels
             # launched inside it; its device-side annotation is no kernel
@@ -277,14 +280,15 @@ def _profile(fn, steps: int) -> dict:
             if ev.device_type == torch.autograd.DeviceType.CPU:
                 backward_us[ev.key] += ev.device_time_total
             continue
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = ev.self_device_time_total
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            device_us[ev.key] = (device_us.get(ev.key, 0.0)
+                                 + ev.self_device_time_total)
+    for key, us in device_us.items():
         if us <= 0:
             continue
-        fam = _family(ev.key)
+        fam = _family(key)
         by_family[fam] = by_family.get(fam, 0.0) + us / 1e3 / steps
-        kernels[ev.key] = kernels.get(ev.key, 0.0) + us / 1e3 / steps
+        kernels[key] = kernels.get(key, 0.0) + us / 1e3 / steps
     experts_us += max(backward_us.values())
     if experts_us and "int4 experts" not in by_family \
             and "gemm" in by_family:

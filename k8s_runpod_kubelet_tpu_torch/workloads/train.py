@@ -1,19 +1,21 @@
 """Training on one card: loss, optimizer, train step, data, checkpoints.
 
 Port of the JAX package's ``workloads/train.py`` for the Llama decoder,
-dense, MLA or sparse MoE (Mixtral, DeepSeek-MoE): f32 master parameters,
-bf16 compute through ``LlamaModel.forward`` (flash attention kernels,
-RMSNorm kernel, remat per layer, "full" or "dots"; under an in-process
-mesh with seq > 1, ring attention over the sequence shards), the loss of
-``_ce_and_zloss`` or, with ``fused_ce_chunks``,
-``ops.fused_ce.fused_cross_entropy`` over the final hidden states (no (B,
-S, V) logits), and the optimizer written out with optax's exact semantics
-(``clip_by_global_norm`` then ``adamw`` on a
+dense, MLA or sparse MoE (Mixtral, DeepSeek-MoE), Gemma 2 and 3 among the
+dense ones (the local/global window interleave with a RoPE table each,
+both soft caps, the sandwich norms and q/k norm, a tied table scaled by
+√E): f32 master parameters, bf16 compute through ``LlamaModel.forward``
+(flash attention kernels, RMSNorm kernel, remat per layer, "full" or
+"dots"; under an in-process mesh with seq > 1, ring attention over the
+sequence shards), the loss of ``_ce_and_zloss`` or, with
+``fused_ce_chunks``, ``ops.fused_ce.fused_cross_entropy`` over the final
+hidden states (no (B, S, V) logits), and the optimizer written out with
+optax's exact semantics (``clip_by_global_norm`` then ``adamw`` on a
 ``warmup_cosine_decay_schedule``; with a trainable mask, optax's
 ``multi_transform`` with ``set_to_zero`` on the frozen leaves). An MoE
-model routes at its ``capacity_factor`` (assignments past it drop) and
-its objective adds the router's load-balance and z losses, as the JAX
-step's does; the step reports them as ``aux_loss`` beside the NLL.
+model routes at its ``capacity_factor`` (assignments past it drop) and its
+objective adds the router's load-balance and z losses, as the JAX step's
+does; the step reports them as ``aux_loss`` beside the NLL.
 
 ``Trainer(lora=)`` wraps the target projections with adapters
 (``models.lora.apply_lora``) and trains A and B alone: the frozen leaves
@@ -529,18 +531,6 @@ class Trainer:
                  initial_params: Optional[Params] = None, device=None,
                  mesh=None, lora: Optional[Any] = None,
                  telemetry: Optional[Any] = None):
-        interleave = [f for f, on in (
-            ("sliding_window_pattern", cfg.sliding_window_pattern != 1),
-            ("attn_logit_softcap", cfg.attn_logit_softcap is not None),
-            ("logit_softcap", cfg.logit_softcap is not None),
-            ("query_pre_attn_scalar", cfg.query_pre_attn_scalar is not None),
-            ("post_norms", cfg.post_norms),
-            ("rope_local_theta", cfg.rope_local_theta is not None)) if on]
-        if interleave:
-            raise ValueError(
-                f"{cfg.name}: training Gemma 2 and 3 ({interleave}) is not "
-                "ported (ROADMAP Queue 1 #3.4: their flash backward at D "
-                "256 meets dK/dV's spill); these configs serve only")
         if mesh is not None and not mesh.in_process:
             raise ValueError(
                 "training over a process group is not ported (ROADMAP "

@@ -1,10 +1,11 @@
 """Pretrain and fine-tune workload on one card (port of the JAX package's
 ``workloads/train_main.py``): the pod command of a training job. Trains
-the dense Llama decoder, an MLA model (``--model mla-8b``, ``tiny-mla``,
-its direct form through the flash kernels at head_dim + rope_dim) or a
-sparse-MoE model (``--model mixtral-8x7b``, ``deepseek-v2-lite``,
-``deepseek-v3``, ``tiny-moe``: the router's load-balance and z losses in
-the objective, capacity drops), on the
+the dense Llama decoder (Gemma 2 and 3 among its families: ``--model
+gemma2-9b``, ``gemma3-12b``), an MLA model (``--model mla-8b``,
+``tiny-mla``, its direct form through the flash kernels at head_dim +
+rope_dim) or a sparse-MoE model (``--model mixtral-8x7b``,
+``deepseek-v2-lite``, ``deepseek-v3``, ``tiny-moe``: the router's
+load-balance and z losses in the objective, capacity drops), on the
 synthetic token stream or a pre-tokenized int32 file (``--data``, read
 through the native loader), fully or as a LoRA fine-tune (``--lora-rank``;
 ``--export-adapter`` writes the trained adapter for the serving engine's
@@ -32,8 +33,10 @@ directory's weights instead of random init).
 Refused by name: ``--profile-dir`` (a ``torch.profiler`` capture is a
 later item), ``--profiler-port`` (PyTorch has no profiler server; as for
 serving), ``--elastic-batch-mode`` and an elastic-resize relaunch (ROADMAP
-Queue 1 #7.5), ``--fsdp``, ``--tensor``, ``--seq``, ``--stage`` and a
-multi-process gang (#7.8, #8).
+Queue 1 #7.5), ``--fsdp``, ``--tensor``, ``--stage`` and a multi-process
+gang (#7.8, #8). ``--seq N`` shards the sequence over an in-process mesh
+on the one card (ring flash attention, ``ring_flash``), as
+``Trainer(mesh=)`` does.
 """
 
 from __future__ import annotations
@@ -63,8 +66,9 @@ def _refusals(args) -> list[str]:
             os.environ.get("TPU_ELASTIC_RESIZE", "0") or 0):
         out.append("--elastic-batch-mode / TPU_ELASTIC_RESIZE: elastic "
                    "resize is not ported (ROADMAP Queue 1 #7.5)")
-    # --fsdp 0 or -1 is the JAX flag's "auto": one device here
-    for flag in ("fsdp", "tensor", "seq", "stage"):
+    # --fsdp 0 or -1 is the JAX flag's "auto": one device here; --seq
+    # shards the sequence over an in-process mesh (one card)
+    for flag in ("fsdp", "tensor", "stage"):
         if getattr(args, flag) not in (-1, 0, 1):
             out.append(f"--{flag}: training over a mesh of processes is not "
                        "ported (ROADMAP Queue 1 #7.8, #8)")
@@ -90,7 +94,10 @@ def main(argv=None) -> int:
     p.add_argument("--tensor", type=int, default=1,
                    help="refused: tensor-parallel training is not ported")
     p.add_argument("--seq", type=int, default=1,
-                   help="refused: the process-group ring is not ported")
+                   help="sequence-parallel degree: ring flash attention "
+                        "over this many sequence shards of an in-process "
+                        "mesh (one card; the process-group ring is not "
+                        "ported)")
     p.add_argument("--stage", type=int, default=1,
                    help="refused: pipeline parallelism is not ported")
     p.add_argument("--fsdp", type=int, default=0,
@@ -185,6 +192,18 @@ def main(argv=None) -> int:
 
     device = resolve_device(args.device)
     cfg = MODEL_CONFIGS[args.model]()
+    mesh = None
+    if args.seq > 1:
+        import dataclasses
+
+        from ..parallel import MeshConfig, make_mesh
+        if args.seq_len % args.seq:
+            p.error(f"--seq-len {args.seq_len} must divide into --seq "
+                    f"{args.seq} shards")
+        mesh = make_mesh(MeshConfig(seq=args.seq))
+        # each ring step through the flash kernels (their plain versions
+        # on the CPU), not the plain online-softmax ring: the same function
+        cfg = dataclasses.replace(cfg, ring_flash=True)
     accum = max(1, args.grad_accum)
     batch = -(-args.batch // accum) * accum
     if batch != args.batch:
@@ -250,9 +269,9 @@ def main(argv=None) -> int:
     loader = None
     try:
         trainer = Trainer(cfg, tc, initial_params=initial, device=device,
-                          lora=lora, telemetry=tel)
-        log.info("model=%s layers=%d device=%s", cfg.name, cfg.n_layers,
-                 device)
+                          mesh=mesh, lora=lora, telemetry=tel)
+        log.info("model=%s layers=%d device=%s seq=%d", cfg.name,
+                 cfg.n_layers, device, args.seq)
         if lora is not None:
             from ..models.lora import lora_param_count
             log.info("LoRA r=%d: %.2fM trainable of %.2fB total",

@@ -14,10 +14,11 @@ the same f32 weights:
 - ``_pick_ring_len`` equals the JAX engine's over a grid of
   ``ServingConfig``s, ``ServingEngine.contiguous_cache`` builds the
   engine's batch cache, and ``DensePrefixStore`` behaves as the JAX one;
-- the loop selection and the refusals (speculative decoding, multi-LoRA
-  and a tensor mesh on the contiguous loop, ``paged_decode=True`` on an
+- the loop selection and the refusals (speculative decoding and a
+  tensor mesh on the contiguous loop, ``paged_decode=True`` on an
   interleave, ``paged_prefill=True`` without the paged loop,
-  ``ring_cache=True`` without a window);
+  ``ring_cache=True`` without a window), and multi-LoRA, which the loop
+  serves: the engine builds there, the flags parse and serve;
 - ``serve_main``'s ``--prefix-cache``, ``--paged-decode``,
   ``--paged-prefill`` and ``--ring-cache``, checked before any weight.
 """
@@ -245,12 +246,23 @@ def g2_port():
 
 @pytest.mark.parametrize("extra,match", [
     (dict(speculate_k=2), "Queue 1 #3.1"),
-    (dict(lora_rank=4), "Queue 1 #3.2"),
+    (dict(lora_rank=4), None),
     (dict(paged_decode=True), "paged_decode=True needs"),
     (dict(paged_prefill=True), "paged_prefill=True needs")],
     ids=["speculate", "lora", "paged_decode", "paged_prefill"])
 def test_the_contiguous_loop_refuses_by_name(g2_port, extra, match):
+    """What the contiguous loop refuses, by name; ``match`` None is a
+    setting it serves (multi-LoRA on the contiguous loop): the engine
+    builds on that loop with the adapter stacks."""
     cfg, params = g2_port
+    if match is None:
+        engine = ServingEngine(cfg, params, ServingConfig(**SC, **extra),
+                               device="cpu")
+        snap = engine.debug_snapshot()
+        assert (snap["paged_decode"], snap["cache_layout"]) == (False,
+                                                                "mixed")
+        assert snap["multi_lora"] and snap["lora_rank"] == 4
+        return
     with pytest.raises(ValueError, match=match):
         ServingEngine(cfg, params, ServingConfig(**SC, **extra),
                       device="cpu")
@@ -304,19 +316,33 @@ def test_serve_flags_parse_with_the_jax_meanings():
 
 @pytest.mark.parametrize("argv,match", [
     (["--prefix-cache", "off", "--speculate", "2"], "Queue 1 #3.1"),
-    (["--paged-decode", "off", "--lora-rank", "4"], "Queue 1 #3.2"),
+    (["--paged-decode", "off", "--lora-rank", "4"], None),
     (["--prefix-cache", "off", "--tensor-parallel", "2"], "Queue 1 #3.3"),
     (["--ring-cache", "on"], "sliding window")],
     ids=["speculate", "lora", "tensor", "ring"])
 def test_serve_flags_are_checked_before_any_weight(monkeypatch, argv, match):
+    """Flags the contiguous loop refuses fail before any weight is drawn;
+    ``match`` None is a setting it serves (multi-LoRA): the flags parse,
+    the engine builds on the contiguous loop and answers a request."""
     from k8s_runpod_kubelet_tpu_torch import models
+
+    args = serve_main.parse_args(["--device", "cpu", "--model", "tiny"]
+                                 + argv)
+    if match is None:
+        engine, _ = serve_main.build_engine(args)   # started
+        try:
+            assert not engine._paged_loop and engine.multi_lora_enabled
+            out = engine.submit([5, 6, 7], max_new_tokens=3).result(
+                timeout=TIMEOUT)
+            assert len(out["tokens"]) == 3
+        finally:
+            engine.stop()
+        return
 
     def no_weights(*a, **k):
         raise AssertionError("weights drawn before the flags were checked")
 
     monkeypatch.setattr(models, "init_params", no_weights)
-    args = serve_main.parse_args(["--device", "cpu", "--model", "tiny"]
-                                 + argv)
     with pytest.raises(ValueError, match=match):
         serve_main.build_engine(args)
 

@@ -20,8 +20,8 @@ included, drawn away from identity):
   contiguous int8 steps within 1e-3;
 - the refusals: the paged steps of an interleave, the caches' shape
   checks, MLA with a soft cap, a pattern that does not divide the
-  layers, training these configs; and the HF names of the sandwich
-  norms.
+  layers; training these configs builds a trainer, a process-group mesh
+  refused; and the HF names of the sandwich norms.
 """
 
 import dataclasses
@@ -433,11 +433,23 @@ def test_config_checks():
 
 
 def test_training_refuses_gemma2_and_3():
+    """Gemma 2 and 3 configs build a ``Trainer`` (their training is
+    ported, ``tests/test_torch_gemma_train.py``); what the trainer still
+    refuses by name on them is a mesh over a process group."""
+    from types import SimpleNamespace
+
     from k8s_runpod_kubelet_tpu_torch.workloads.train import (TrainConfig,
                                                               Trainer)
-    cfg = config_from_jax(_jax_cfg("g2"), torch.float32)
-    with pytest.raises(ValueError, match="Queue 1 #3.4"):
-        Trainer(cfg, TrainConfig(), device="cpu")
+    tc = TrainConfig(batch_size=2, seq_len=16)
+    for name in ("g2", "g3"):
+        cfg = config_from_jax(_jax_cfg(name), torch.float32)
+        tr = Trainer(cfg, tc, device="cpu")
+        assert tr.params["layers"]["attn_post_norm"].shape[0] == cfg.n_layers
+    # a seq-2 mesh as rank 0 of a process group sees it
+    group = SimpleNamespace(seq=2, tensor=1, rank=0, in_process=False)
+    with pytest.raises(ValueError, match="over a process group is not "
+                       "ported"):
+        Trainer(cfg, tc, device="cpu", mesh=group)
 
 
 def test_post_norms_stay_f32_unquantized_and_replicated(trees):
