@@ -920,6 +920,17 @@ INTERLEAVE_RUNS = (
     ("gemma2-9b", 8192, False, 5600, 100),
     ("gemma3-12b", 4096, False, 3000, 100),
     ("gemma3-12b", 4096, True, 3000, 100))
+# phase 7g (e) and (f): gemma2-9b bf16 (7g's tree) on the contiguous loop
+# with --speculate SPEC7G_K, then at --tensor-parallel TP7G in one process,
+# over one traffic: prompts repeating one token SPEC7G_REPEATS times
+# (drafts accepted), phase 4's first four (drafts rejected), one of
+# SPEC7G_RING_PROMPT tokens past the 5120-slot ring; SPEC7G_NEW greedy
+# tokens a request
+SPEC7G_K = 4
+TP7G = 2
+SPEC7G_REPEATS = (600, 900)
+SPEC7G_RING_PROMPT = 5300
+SPEC7G_NEW = 24
 # phase 7g (d): llama3-8b --prefix-cache off's long prompt and its greedy
 # tokens, the linear decode step's logits at 1600 positions against the
 # plain forward
@@ -6200,17 +6211,21 @@ def verify_logits_check(torch, cfg, model, params) -> dict:
             "lengths": [len(s) for s in seqs]}
 
 
-def divergence_check(torch, cfg, params, prompts, spec, plain) -> dict:
+def divergence_check(torch, cfg, params, prompts, spec, plain,
+                     reference=None) -> dict:
     """(b) each greedy request's tokens, speculative against not: equal up
     to the first divergence, and there the plain f32 forward's top-2
     margin on the common context must be under SPEC_TIE_MARGIN of its
-    logits' RMS (a near-tie the two bf16 paths may break either way)."""
+    logits' RMS (a near-tie the two bf16 paths may break either way).
+    ``reference`` (torch, cfg, params, tokens) -> last-token f32 logits
+    is that forward (``reference_logits`` by default)."""
+    reference = reference or reference_logits
     out = []
     for prompt, a, b in zip(prompts, spec, plain):
         n = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
         if n is None:
             continue
-        ref = reference_logits(torch, cfg, params, prompt + b[:n])
+        ref = reference(torch, cfg, params, prompt + b[:n])
         top2 = ref.topk(2).values
         margin = (top2[0] - top2[1]).item()
         rms = ref.pow(2).mean().sqrt().item()
@@ -8978,11 +8993,13 @@ def contiguous_burst(torch, engine, cfg, card: str, kernels, per_step,
 
 
 def contiguous_graph_checks(torch, engine, card: str, limit: float,
-                            what: str, ids=None) -> dict:
-    """(g1)-(g5) of the contiguous loop's decode graph on an idle engine,
-    its lock held by the caller: (g5) first; then the batch cache filled
-    with seeded random rows at the burst's contexts (``GRAPH_LENGTHS``,
-    slot 3 inactive), (g1) two replays against the eager ``decode_step``
+                            what: str, ids=None, verify: bool = False
+                            ) -> dict:
+    """(g1)-(g5) of the contiguous loop's decode graph (with ``verify`` its
+    K + 1-wide verify graph) on an idle engine, its lock held by the
+    caller: (g5) first; then the batch cache filled with seeded random
+    rows at the burst's contexts (``GRAPH_LENGTHS``, slot 3 inactive),
+    (g1) two replays against the eager ``decode_step`` (``verify_step``)
     on a copy of the cache, logits and every section (exact, or held to
     ``limit``); (g2) the graph's kernel nodes by name against the
     capture's launches; (g3) the step wall eager / graph / graph / eager;
@@ -8998,7 +9015,18 @@ def contiguous_graph_checks(torch, engine, card: str, limit: float,
 
     out = {"g5": graphs_used_check(engine, what)}
     model, params, cache = engine.model, engine.params, engine._cache
-    g, b, dev = engine._decode.fn, engine.sc.slots, engine.device
+    wrapped = engine._verify if verify else engine._decode
+    g, kind = wrapped.fn, wrapped.name
+    b, dev = engine.sc.slots, engine.device
+    shape = (b, g.width) if verify else (b,)
+
+    def step(toks_t, cache, active_t, **kw):
+        if verify:
+            return model.verify_step(params, toks_t, cache, active_t,
+                                     check=False, **kw)
+        return model.decode_step(params, toks_t, cache, active_t,
+                                 check=False, **kw)
+
     run_kw, step_kw = {}, {}
     if engine._adapters is not None:
         ids = np.asarray(ids if ids is not None else np.zeros(b), np.int32)
@@ -9014,11 +9042,11 @@ def contiguous_graph_checks(torch, engine, card: str, limit: float,
     act_t = torch.from_numpy(active).to(dev)
     copy = {k: v.clone() for k, v in cache.items()}
     rows = []
-    for step in (0, 1):
-        toks = rng.integers(0, engine.cfg.vocab_size, b).astype(np.int32)
+    for n_step in (0, 1):
+        toks = rng.integers(0, engine.cfg.vocab_size, shape).astype(np.int32)
         got = g.run(params, cache, toks, active, **run_kw).clone()
-        want, _ = model.decode_step(params, torch.from_numpy(toks).to(dev),
-                                    copy, act_t, check=False, **step_kw)
+        want, _ = step(torch.from_numpy(toks).to(dev), copy, act_t,
+                       **step_kw)
         torch.cuda.synchronize()
         diff = (got - want).abs().max().item()
         rel = ((got - want).norm() / want.norm()).item()
@@ -9026,19 +9054,19 @@ def contiguous_graph_checks(torch, engine, card: str, limit: float,
                     ((cache[name].float() - copy[name].float()).abs().max()
                      / copy[name].float().abs().max()).item()
                     for name in cache}
-        rows.append({"step": step, "logits_max_abs_diff": diff,
+        rows.append({"step": n_step, "logits_max_abs_diff": diff,
                      "logits_rel_l2": rel, "cache_rel_max_diff": sections,
                      "exact": diff == 0 and not any(sections.values())})
         if not rows[-1]["exact"] and not (
                 rel <= limit and max(sections.values()) <= limit):
-            raise RuntimeError(f"{what}: decode graph off the eager step: "
+            raise RuntimeError(f"{what}: {kind} graph off the eager step: "
                                f"{rows[-1]}")
     del copy
-    toks = rng.integers(0, engine.cfg.vocab_size, b).astype(np.int32)
+    toks = rng.integers(0, engine.cfg.vocab_size, shape).astype(np.int32)
     want = {k: g.launches_per_replay[k] for k in KERNEL_NAMES}
     counts = g.kernels_in_graph()
     if counts != want:
-        raise RuntimeError(f"{what}: the decode graph holds {counts}, the "
+        raise RuntimeError(f"{what}: the {kind} graph holds {counts}, the "
                            f"capture recorded {g.launches_per_replay}")
 
     def timed(fn) -> float:
@@ -9053,21 +9081,21 @@ def contiguous_graph_checks(torch, engine, card: str, limit: float,
     tok_t = torch.from_numpy(toks).to(dev)
 
     def eager():
-        model.decode_step(params, tok_t, cache, act_t, check=False,
-                          **step_kw)
+        step(tok_t, cache, act_t, **step_kw)
 
     def replay():
         g.run(params, cache, toks, active, **run_kw)
 
     turns = [timed(eager), timed(replay), timed(replay), timed(eager)]
-    out["decode"] = {"g1": rows, "g2_kernels_in_one_replay": counts,
+    out[kind] = {"g1": rows, "g2_kernels_in_one_replay": counts,
                               "g3_wall_ms": dict(zip(("eager", "graph", "graph_2",
                                              "eager_2"), turns)),
                      "g4_capture_memory": g.capture_memory,
                      "launches_per_replay": dict(g.launches_per_replay)}
     mem = g.capture_memory
-    log(f"  (g1) {what} decode replay vs eager decode_step, two steps (slot "
-        f"3 inactive): logits max abs {[r['logits_max_abs_diff'] for r in rows]}"
+    log(f"  (g1) {what} {kind} replay (width {g.width}) vs the eager step, "
+        f"two steps (slot 3 inactive): logits max abs "
+        f"{[r['logits_max_abs_diff'] for r in rows]}"
         f", cache sections equal {[r['exact'] for r in rows]}; (g2) kernel "
         f"nodes a replay launches, by name {counts}")
     log(f"  (g3) [{card}] step wall eager / graph / graph / eager: "
@@ -9301,14 +9329,362 @@ def interleave_engine_run(torch, dev, card: str, name: str, cache_len: int,
         torch.cuda.empty_cache()
 
 
+# -- phase 7g (e) and (f): speculation and a tensor mesh, contiguous loop --
+
+def self_continued_tokens(torch, engine, first: int = 1024,
+                          chunk: int = 1024) -> list:
+    """Tokens t whose one-token context the engine's model continues with
+    t itself, best margin first: [(t, margin of t over the runner-up)]. A
+    context of t repeated holds the same V row at every position, so
+    attention returns that row whatever the scores (windows and soft caps
+    included), every position's hidden state is the one-token context's,
+    and the greedy next token is t again for every length. The bf16
+    forward over the first ``first`` ids, ``chunk`` at a time (further
+    while fewer than two are found). On 7g's gemma2-9b tree the logits
+    sit at the final soft cap, so the top two tie in bf16 (margin 0) and
+    the streams fall into repeats of other tokens, whose drafts are
+    accepted all the same (PERF.md §6)."""
+    model, params, dev = engine.model, engine.params, engine.device
+    vocab = engine.cfg.vocab_size
+    found, start = [], 0
+    while start < vocab and (start < first or len(found) < 2):
+        ids = torch.arange(start, min(start + chunk, vocab), device=dev)
+        logits = model.forward(params, ids[:, None], train=False)[:, 0]
+        top2 = logits.float().topk(2, dim=-1)
+        for i in (top2.indices[:, 0] == ids).nonzero().flatten().tolist():
+            found.append((int(ids[i]), float(top2.values[i, 0]
+                                             - top2.values[i, 1])))
+        del logits, top2
+        start += chunk
+    return sorted(found, key=lambda tm: -tm[1])
+
+
+def spec7g_traffic(torch, engine, cfg) -> dict:
+    """(e)'s and (f)'s traffic (phase 7s's kind): two prompts repeating a
+    token the model continues with itself (``self_continued_tokens``;
+    their drafts are accepted), phase 4's first four prompts (drafts
+    rejected) and one prompt past the 5120-slot ring."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 40)
+    _, burst, _ = burst_prompts(cfg)
+    t0 = time.perf_counter()
+    with engine._prefix_lock:
+        fixed = self_continued_tokens(torch, engine)
+    sweep_s = time.perf_counter() - t0
+    tokens = [t for t, _ in fixed[:2]]
+    while len(tokens) < 2:
+        tokens.append(int(rng.integers(0, cfg.vocab_size)))
+    rep = [[t] * n for t, n in zip(tokens, SPEC7G_REPEATS)]
+    long_prompt = [int(x) for x in rng.integers(0, cfg.vocab_size,
+                                                SPEC7G_RING_PROMPT)]
+    return {"prompts": rep + burst[:4] + [long_prompt],
+            "repeated_tokens": tokens, "self_continued": fixed[:8],
+            "sweep_s": sweep_s}
+
+
+def spec7g_run(torch, engine, prompts, kernels, per_call,
+               flash_per_head: int, what: str) -> dict:
+    """``prompts`` through one engine at once (7 requests on 8 slots),
+    ``SPEC7G_NEW`` greedy tokens each. Launch counts are set to 0 just
+    before and read just after: each kernel of ``per_call`` launches that
+    many times a decode or verify step or prefill call (a head or a
+    chunk), ``flash_fwd`` ``flash_per_head`` times a head; every step is
+    one graph replay."""
+    from k8s_runpod_kubelet_tpu_torch.ops import flash_fwd
+
+    names = ("dense_prefill_heads", "dense_prefill_chunks", "decode_steps",
+             "spec_proposed", "spec_accepted")
+
+    def snap() -> dict:
+        with engine._prefix_lock:
+            return {**{k: engine.counters[k] for k in names},
+                    "replays": sum(g.fn.replays for g in engine._graphs()),
+                    **{k.__name__: k.launches for k in kernels}}
+
+    with engine._prefix_lock:
+        for k in kernels:
+            k.launches = 0
+    s0 = snap()
+    t0 = time.perf_counter()
+    futs = [engine.submit(p, max_new_tokens=SPEC7G_NEW) for p in prompts]
+    results = [f.result(timeout=900) for f in futs]
+    wall = time.perf_counter() - t0
+    s1 = snap()
+    d = {k: s1[k] - s0[k] for k in s0}
+    calls = (d["dense_prefill_heads"] + d["dense_prefill_chunks"]
+             + d["decode_steps"])
+    if d["replays"] != d["decode_steps"]:
+        raise RuntimeError(f"{what}: {d['replays']} graph replays for "
+                           f"{d['decode_steps']} decode steps")
+    want = {name: n * calls for name, n in per_call.items()}
+    want[flash_fwd.__name__] = flash_per_head * d["dense_prefill_heads"]
+    for name, need in want.items():
+        if d[name] != need or (per_call.get(name) and d[name] < 1):
+            raise RuntimeError(
+                f"{what}: {name} launched {d[name]} times in "
+                f"{d['dense_prefill_heads']} heads, "
+                f"{d['dense_prefill_chunks']} chunks and "
+                f"{d['decode_steps']} steps, not {need}")
+    if any(len(r["tokens"]) != SPEC7G_NEW for r in results):
+        raise RuntimeError(f"{what}: not every request finished with "
+                           f"{SPEC7G_NEW} tokens")
+    log(f"  {what}: {len(prompts)} requests "
+        f"({sum(len(p) for p in prompts)} prompt tokens) in {wall:.2f} s; "
+        f"{d['dense_prefill_heads']} prefill heads, "
+        f"{d['dense_prefill_chunks']} chunks, {d['decode_steps']} steps "
+        f"(= replays); drafts proposed {d['spec_proposed']}, accepted "
+        f"{d['spec_accepted']}; launches "
+        + str({k.__name__: d[k.__name__] for k in kernels}))
+    return {"tokens": [r["tokens"] for r in results], "counts": d,
+            "wall_s": wall, "ttft_ms": [r["ttft_s"] * 1e3 for r in results]}
+
+
+def shard_swap_logits(torch, engine, prompt: list[int]):
+    """The last token of ``prompt`` through a tensor-parallel engine's own
+    steps on a fresh single cache (the rest through ``prefill``), and the
+    same step with shard 1's kv heads overwritten by shard 0's (shard 1's
+    q heads attend shard 0's kv heads, the control). Returns (logits,
+    control logits)."""
+    model, params, dev = engine.model, engine.params, engine.device
+    n = engine.model.cache_head_shards
+    single = engine._fresh_cache(1)
+    model.prefill(params, torch.tensor([prompt[:-1]], device=dev), single)
+    broken = {k: v.clone() for k, v in single.items()}
+    for name, t in broken.items():
+        if name not in ("index", "abs_pos"):
+            shards = t.view(n, -1, *t.shape[1:])
+            shards[1].copy_(shards[0])
+    last = torch.tensor([prompt[-1]], device=dev)
+    good, _ = model.decode_step(params, last, single)
+    bad, _ = model.decode_step(params, last, broken)
+    return good[0], bad[0]
+
+
+def contiguous_spec_tp_phase(torch, dev, card: str, params) -> dict:
+    """Phase 7g (e) and (f) on 7g's gemma2-9b bf16 tree ``params``,
+    through the engines the serve CLI builds (8 slots, cache_len 8192,
+    1024-token chunks) on one traffic (``spec7g_traffic``): 7g's plain
+    engine, then (e) ``--speculate 4`` (greedy tokens equal to the plain
+    engine's up to a first divergence at a near tie, drafts accepted and
+    rejected, launches exact a call, (g1)-(g5) on the verify graph, the
+    verify and decode replays' times), then (f) ``--tensor-parallel 2`` in
+    one process over a shallow copy of the tree (tokens held likewise,
+    ``flash_fwd`` twice a layer a prefill head, the last-token logits
+    within 0.1 of ``interleave_logits`` and a control whose shard 1
+    attends shard 0's kv heads outside it, weight, cache and peak bytes,
+    the decode replay's time)."""
+    import numpy as np
+
+    from k8s_runpod_kubelet_tpu_torch.models import MODEL_CONFIGS
+    from k8s_runpod_kubelet_tpu_torch.ops import (flash_fwd, paged_attention,
+                                                  paged_attention_multi,
+                                                  paged_attention_multi_quant,
+                                                  paged_attention_quant,
+                                                  rms_norm)
+    from k8s_runpod_kubelet_tpu_torch.workloads import serve_main
+
+    cfg = MODEL_CONFIGS["gemma2-9b"]()
+    n_layers = cfg.n_layers
+    argv = ["--model", "gemma2-9b", "--device", dev.type, "--slots", "8",
+            "--cache-len", "8192", "--max-new-tokens", str(SPEC7G_NEW),
+            "--serving-chunk-tokens", str(INTERLEAVE_CHUNK)]
+    norms = (2 + 2 * cfg.post_norms + 2 * cfg.qk_norm) * n_layers + 1
+    per_call = {"rms_norm": norms, "paged_attention_multi": 0,
+                "paged_attention_multi_quant": 0, "paged_attention": 0,
+                "paged_attention_quant": 0}
+    kernels = (rms_norm, flash_fwd, paged_attention_multi,
+               paged_attention_multi_quant, paged_attention,
+               paged_attention_quant)
+    limit = ENGINE_REL_L2_LIMIT
+
+    def build(extra, tree=params):
+        return serve_main.build_engine(serve_main.parse_args(argv + extra),
+                                       tree)[0]
+
+    def freed():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    out: dict = {}
+    log(f"phase 7g (e): gemma2-9b bf16 --speculate {SPEC7G_K} on the "
+        "contiguous loop (the K + 1 verify graph over the mixed cache), "
+        "after the plain engine on the same traffic")
+    engine = build([])
+    try:
+        traffic = spec7g_traffic(torch, engine, cfg)
+        prompts = traffic["prompts"]
+        log(f"  self-continued tokens {traffic['self_continued'][:4]} (a "
+            f"{traffic['sweep_s']:.1f} s sweep); repeated "
+            f"{traffic['repeated_tokens']}; prompts "
+            f"{[len(p) for p in prompts]}")
+        plain = spec7g_run(torch, engine, prompts, kernels, per_call,
+                           n_layers, "gemma2-9b plain contiguous engine")
+    finally:
+        engine.stop()
+        engine = None
+        freed()
+    out["traffic"] = {k: v for k, v in traffic.items() if k != "prompts"}
+    out["traffic"]["prompt_lengths"] = [len(p) for p in prompts]
+    out["plain"] = plain
+    engine = build(["--speculate", str(SPEC7G_K)])
+    what = f"gemma2-9b --speculate {SPEC7G_K} contiguous engine"
+    try:
+        snap = engine.debug_snapshot()
+        if (snap["paged_decode"] or snap["cache_layout"] != "mixed"
+                or sorted(snap["graphs"]) != ["decode", "verify"]):
+            raise RuntimeError(f"{what}: paged_decode "
+                               f"{snap['paged_decode']}, cache "
+                               f"{snap['cache_layout']}, graphs "
+                               f"{sorted(snap['graphs'])}")
+        spec = spec7g_run(torch, engine, prompts, kernels, per_call,
+                          n_layers, what)
+        c = spec["counts"]
+        if not 0 < c["spec_accepted"] < c["spec_proposed"]:
+            raise RuntimeError(f"{what}: drafts accepted {c['spec_accepted']}"
+                               f" of {c['spec_proposed']}: both kinds needed")
+        div = divergence_check(torch, cfg, params, prompts, spec["tokens"],
+                               plain["tokens"], reference=interleave_logits)
+        log(f"  (b) divergences from the plain engine: {div['count']} "
+            + str([(d["at"], round(d["margin_share"], 3))
+                   for d in div["divergences"]])
+            + f" (tie margin {SPEC_TIE_MARGIN})")
+        with engine._prefix_lock:
+            graphs = contiguous_graph_checks(torch, engine, card, limit,
+                                             what, verify=True)
+            if not all(r["exact"] for r in graphs["verify"]["g1"]):
+                raise RuntimeError(f"{what}: the verify replay is not the "
+                                   f"eager step bit for bit: "
+                                   f"{graphs['verify']['g1']}")
+            per_replay = engine._verify.fn.launches_per_replay
+            if {k: per_replay[k] for k in per_call} != per_call:
+                raise RuntimeError(f"{what}: the verify graph launches "
+                                   f"{per_replay}, not {per_call}")
+            g_dec, g_ver = engine._decode.fn, engine._verify.fn
+            b = engine.sc.slots
+            ones = np.ones(b, bool)
+            decode_ms = event_ms(torch, lambda: g_dec.run(
+                engine.params, engine._cache, np.arange(b, dtype=np.int32),
+                ones))
+            verify_ms = event_ms(torch, lambda: g_ver.run(
+                engine.params, engine._cache,
+                np.zeros((b, SPEC7G_K + 1), np.int32), ones))
+        log(f"  [{card}] {what}: verify replay (K + 1 = {SPEC7G_K + 1}) "
+            f"{verify_ms:.3f} ms, decode replay {decode_ms:.3f} ms "
+            f"(between CUDA events, 8 slots near {list(GRAPH_LENGTHS)})")
+        out["spec"] = dict(spec, divergence=div, graphs=graphs,
+                           verify_launches_per_replay=dict(per_replay),
+                           verify_replay_event_ms=verify_ms,
+                           decode_replay_event_ms=decode_ms)
+    finally:
+        engine.stop()
+        engine = None
+        freed()
+
+    log(f"phase 7g (f): gemma2-9b bf16 at --tensor-parallel {TP7G} in one "
+        "process on the contiguous loop (head-sharded mixed cache)")
+    ref_prompt = prompts[4]
+    ref = interleave_logits(torch, cfg, params, ref_prompt)
+    torch.cuda.reset_peak_memory_stats()
+    # a shallow copy: the engine lays its leaves out over the shards in
+    # place, and the divergence references read the one-device tree
+    engine = build(["--tensor-parallel", str(TP7G)],
+                   {k: dict(v) if isinstance(v, dict) else v
+                    for k, v in params.items()})
+    what = f"gemma2-9b --tensor-parallel {TP7G} contiguous engine"
+    try:
+        snap = engine.debug_snapshot()
+        if (snap["paged_decode"] or snap["tensor_parallel"] != TP7G
+                or snap["cache_head_shards"] != TP7G
+                or snap["paged_tp_shards"] != 0):
+            raise RuntimeError(f"{what}: {snap['paged_decode']=}, "
+                               f"{snap['tensor_parallel']=}, "
+                               f"{snap['cache_head_shards']=}, "
+                               f"{snap['paged_tp_shards']=}")
+        weight_bytes = tensor_bytes(engine.params)
+        cache_bytes = tensor_bytes(engine._cache)
+        log(f"  {what}: cache " + ", ".join(
+            f"{k} {tuple(v.shape)}" for k, v in engine._cache.items())
+            + f"; weights {weight_bytes / 1e9:.3f} GB, cache "
+            f"{cache_bytes / 1e9:.3f} GB; [{card}] "
+            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated "
+            "(the one-device tree kept beside the shards)")
+        tp = spec7g_run(torch, engine, prompts, kernels, per_call,
+                        TP7G * n_layers, what)
+        serve_peak = torch.cuda.max_memory_allocated()
+        div = divergence_check(torch, cfg, params, prompts, tp["tokens"],
+                               plain["tokens"], reference=interleave_logits)
+        log(f"  divergences from the tensor-1 engine: {div['count']} "
+            + str([(d["at"], round(d["margin_share"], 3))
+                   for d in div["divergences"]]))
+        with engine._prefix_lock:
+            logits, control = shard_swap_logits(torch, engine, ref_prompt)
+
+            def rel(a):
+                return ((a.float() - ref).norm() / ref.norm()).item()
+
+            check = {"tokens": len(ref_prompt), "rel_l2": rel(logits),
+                     "limit_rel_l2": limit,
+                     "argmax_agree": bool(logits.argmax() == ref.argmax()),
+                     "controls_rel_l2": {"shard1_reads_shard0_kv":
+                                         rel(control)}}
+            g_dec = engine._decode.fn
+            b = engine.sc.slots
+            decode_ms = event_ms(torch, lambda: g_dec.run(
+                engine.params, engine._cache, np.arange(b, dtype=np.int32),
+                np.ones(b, bool)))
+        log(f"  independent check: {what} vs the plain f32 forward, "
+            f"last-token logits over {len(ref_prompt)} tokens: relative L2 "
+            f"{check['rel_l2']:.4f} (limit {limit}), argmax agree "
+            f"{check['argmax_agree']}; control shard 1 reading shard 0's kv "
+            f"heads {check['controls_rel_l2']['shard1_reads_shard0_kv']:.4f}")
+        if not check["rel_l2"] <= limit:
+            raise RuntimeError(f"{what} logits off the plain forward: {check}")
+        if not check["controls_rel_l2"]["shard1_reads_shard0_kv"] > limit:
+            raise RuntimeError(f"{what}: the shard-swap control passed: "
+                               f"{check}")
+        log(f"  [{card}] {what}: peak allocated while serving "
+            f"{serve_peak / 2**30:.2f} GiB; decode replay {decode_ms:.3f} ms "
+            "(between CUDA events)")
+        out["tp"] = dict(tp, divergence=div, check=check,
+                         weight_bytes=weight_bytes, cache_bytes=cache_bytes,
+                         serve_peak_bytes=serve_peak,
+                         cache_shapes={k: list(v.shape) for k, v in
+                                       engine._cache.items()},
+                         decode_replay_event_ms=decode_ms)
+    finally:
+        engine.stop()
+        engine = None
+        freed()
+    return out
+
+
+def draw_interleave_tree(torch, dev, name: str, i: int):
+    """Phase 7g's bf16 tree of ``name`` for its ``INTERLEAVE_RUNS`` entry
+    ``i``: drawn from the seed with its branches away from identity
+    (``draw_family_branches``) and, under a final soft cap, the final norm
+    raised by ``SOFTCAP_FINAL_NORM``."""
+    from k8s_runpod_kubelet_tpu_torch.models import MODEL_CONFIGS, init_params
+
+    cfg = MODEL_CONFIGS[name]()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(
+        SEED + 200 + i), dev)
+    draw_family_branches(torch, cfg, params, SEED + 300 + i)
+    if cfg.logit_softcap:
+        # the final norm at (1 + w) ~ 1 + SOFTCAP_FINAL_NORM, so the tied
+        # head's logits reach the cap and the cap bites
+        params["final_norm"].add_(SOFTCAP_FINAL_NORM)
+    torch.cuda.synchronize()
+    return params
+
+
 def interleave_phase(torch, dev, card: str) -> dict:
     """Phase 7g: ``INTERLEAVE_RUNS``, one model at a time at full width and
     depth, bf16 weights from the seed with their norms (the sandwich norms
     and the q/k norm among them) drawn away from identity
     (``draw_family_branches``); gemma3-12b's int4 engine quantizes the
-    same tree."""
-    from k8s_runpod_kubelet_tpu_torch.models import MODEL_CONFIGS, init_params
-
+    same tree. After gemma2-9b's bf16 run, (e) and (f) on its tree
+    (``contiguous_spec_tp_phase``)."""
     out: dict = {}
     params, drawn = None, None
     for i, (name, cache_len, quant, n_long, n_decode) in enumerate(
@@ -9317,16 +9693,8 @@ def interleave_phase(torch, dev, card: str) -> dict:
             params = None
             gc.collect()
             torch.cuda.empty_cache()
-            cfg = MODEL_CONFIGS[name]()
             t0 = time.perf_counter()
-            params = init_params(cfg, torch.Generator(
-                device=dev).manual_seed(SEED + 200 + i), dev)
-            draw_family_branches(torch, cfg, params, SEED + 300 + i)
-            if cfg.logit_softcap:
-                # the final norm at (1 + w) ~ 1 + SOFTCAP_FINAL_NORM, so the
-                # tied head's logits reach the cap and the cap bites
-                params["final_norm"].add_(SOFTCAP_FINAL_NORM)
-            torch.cuda.synchronize()
+            params = draw_interleave_tree(torch, dev, name, i)
             drawn = name
             log(f"phase 7g: {name} (bf16, branches drawn away from identity;"
                 f" drawn in {time.perf_counter() - t0:.1f} s)")
@@ -9335,6 +9703,9 @@ def interleave_phase(torch, dev, card: str) -> dict:
             f"prompt past the window)")
         out[key] = interleave_engine_run(torch, dev, card, name, cache_len,
                                          quant, n_long, n_decode, params)
+        if name == "gemma2-9b" and not quant:
+            out["gemma2_9b_spec_tp"] = contiguous_spec_tp_phase(
+                torch, dev, card, params)
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -10791,6 +11162,10 @@ def main(argv=None) -> int:
                    help="run only phase 7k (disaggregated serving of "
                    "llama3-8b bf16; the kernels build at their first "
                    "launch), print its JSON and exit")
+    p.add_argument("--contiguous-spec-tp", action="store_true",
+                   help="run only phase 7g (e) and (f) (gemma2-9b bf16 on "
+                   "the contiguous loop with --speculate 4, then at "
+                   "--tensor-parallel 2), print its JSON and exit")
     args = p.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -10819,6 +11194,11 @@ def main(argv=None) -> int:
         return 0
     if args.gemma_train:
         print(json.dumps(gemma_train_phase(torch, F, dev, card)), flush=True)
+        return 0
+    if args.contiguous_spec_tp:
+        params = draw_interleave_tree(torch, dev, "gemma2-9b", 0)
+        print(json.dumps(contiguous_spec_tp_phase(torch, dev, card, params)),
+              flush=True)
         return 0
     if args.disagg:
         from k8s_runpod_kubelet_tpu_torch.models import init_params, llama3_8b
@@ -11284,7 +11664,10 @@ def main(argv=None) -> int:
                 for mode in ("bf16", "int4_kv_int8") if mode in rec}
         runs["serve_llama3_70b_int4_kv_int8"] = big["launches"]
         runs.update({f"serve_contiguous_{key}": rec["launches"]
-                     for key, rec in interleave.items()})
+                     for key, rec in interleave.items() if "launches" in rec})
+        spec_tp = interleave["gemma2_9b_spec_tp"]
+        runs["serve_contiguous_gemma2_9b_spec"] = spec_tp["spec"]["counts"]
+        runs[f"serve_contiguous_gemma2_9b_tp{TP7G}"] = spec_tp["tp"]["counts"]
         return {path: n[kname] for path, n in runs.items() if kname in n}
 
     def deepseek_paths(kname) -> dict:

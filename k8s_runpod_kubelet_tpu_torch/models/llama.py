@@ -770,6 +770,25 @@ def _write_rows(dst: torch.Tensor, rows: torch.Tensor, slots: torch.Tensor,
     dst[rows, slots] = torch.where(keep, new.to(dst.dtype), dst[rows, slots])
 
 
+def _shard_heads(x: torch.Tensor, n: int) -> torch.Tensor:
+    """Rows (B, K, Hkv, ...) of every kv head -> (N, B, K, Hkv/N, ...), each
+    shard's own heads (x itself when ``n`` is 1): the split of a
+    head-sharded contiguous cache, shard s holding heads s·h .. (s+1)·h."""
+    return x if n == 1 else x.unflatten(2, (n, -1)).movedim(2, 0)
+
+
+def _write_shards(dst: torch.Tensor, rows: torch.Tensor, slots: torch.Tensor,
+                  new: torch.Tensor, write: torch.Tensor, n: int) -> None:
+    """``_write_rows`` into one layer of a contiguous cache section: (B, L,
+    ...) whole, or (N, B, L, h, ...) head-sharded with ``new`` from
+    ``_shard_heads``, each shard into its own heads."""
+    if n == 1:
+        _write_rows(dst, rows, slots, new, write)
+        return
+    for shard in range(n):
+        _write_rows(dst[shard], rows, slots, new[shard], write)
+
+
 def init_params(cfg: LlamaConfig, generator: torch.Generator,
                 device=None, master: bool = False) -> Params:
     """Random init from ``generator`` (normal * 0.02; norms at identity and
@@ -853,6 +872,12 @@ class LlamaModel:
             rope_frequencies(rope_dim, cfg.max_seq_len, cfg.rope_local_theta,
                              None, device=self.device))
         self._windows = cfg.layer_windows()
+        # the kv-head shards of the contiguous caches this model lays out
+        # (the arena's rule, ``paged_head_shards``; 1: whole heads)
+        self.cache_head_shards = (
+            paged_head_shards(self.tp, cfg.n_heads, cfg.n_kv_heads)
+            if mesh is not None and mesh.in_process and not cfg.is_mla
+            else 1)
 
     def stack_layout(self) -> list[tuple[str, int, str]]:
         """(tree key, layer count, cache and arena section suffix) of each
@@ -1208,10 +1233,18 @@ class LlamaModel:
         plus ``c_scale``/``kr_scale`` (L, B, S) f32; with a dense prefix
         of kpre layers the main sections hold L - kpre layers and the
         prefix has its own ``c_pre``/``kr_pre`` (kpre, B, S, ...) (and
-        ``c_pre_scale``/``kr_pre_scale``), the JAX ``_empty_cache``."""
+        ``c_pre_scale``/``kr_pre_scale``), the JAX ``_empty_cache``.
+
+        Under an in-process tensor mesh whose degree N divides both head
+        counts (``cache_head_shards``) each K/V section is laid out per
+        shard, as the arena is: (N·L, B, S, Hkv/N, D) and scales (N·L, B,
+        S, Hkv/N), shard s's layers first at s·L holding kv heads s·h ..
+        (s+1)·h (the JAX ``kv_cache_pspec`` split); ``index`` stays
+        whole."""
         cfg = self.cfg
         length = max_len or cfg.max_seq_len
         dt = torch.int8 if quantize else cfg.dtype
+        ns = self.cache_head_shards
         cache: Params = {}
         for _, n, suffix in self.stack_layout():
             lead = (n, batch, length)
@@ -1220,8 +1253,9 @@ class LlamaModel:
                         lead + (cfg.mla_rope_dim,))
                 scales = lead
             else:
-                rows = 2 * (lead + (cfg.n_kv_heads, cfg.head_dim_),)
-                scales = lead + (cfg.n_kv_heads,)
+                lead = (ns * n, batch, length)
+                rows = 2 * (lead + (cfg.n_kv_heads // ns, cfg.head_dim_),)
+                scales = lead + (cfg.n_kv_heads // ns,)
             for name, shape in zip(self._cache_sections(), rows):
                 cache[name + suffix] = torch.zeros(shape, dtype=dt,
                                                    device=self.device)
@@ -1270,7 +1304,9 @@ class LlamaModel:
         local layer shares, and ``index``. ``quantize`` stores every
         section int8 with f32 scales ``k_l_scale``, ``v_l_scale``,
         ``k_g_scale`` and ``v_g_scale``. The ring's write slack is
-        ``init_ring_cache``'s."""
+        ``init_ring_cache``'s. Under a tensor mesh the sections are laid
+        out per shard as ``init_cache``'s, (N·n_local, B, R, Hkv/N, D) and
+        (N·n_global, B, max_len, Hkv/N, D)."""
         cfg = self.cfg
         p = cfg.sliding_window_pattern
         if cfg.sliding_window is None or p <= 1:
@@ -1279,10 +1315,11 @@ class LlamaModel:
                              "init_ring_cache/init_cache instead")
         self._check_ring_len(ring_len)
         n_groups = cfg.n_layers // p
-        h, d = cfg.n_kv_heads, cfg.head_dim_
+        ns = self.cache_head_shards
+        h, d = cfg.n_kv_heads // ns, cfg.head_dim_
         dt = torch.int8 if quantize else cfg.dtype
-        lead = {"_l": (n_groups * (p - 1), batch, ring_len),
-                "_g": (n_groups, batch, max_len)}
+        lead = {"_l": (ns * n_groups * (p - 1), batch, ring_len),
+                "_g": (ns * n_groups, batch, max_len)}
         cache: Params = {}
         for suffix, shape in lead.items():
             for name in ("k", "v"):
@@ -1297,9 +1334,17 @@ class LlamaModel:
         cache["abs_pos"] = self._abs_pos(batch, ring_len)
         return cache
 
+    def cache_shards(self, cache: Params) -> int:
+        """The kv-head shards of a contiguous cache from ``init_cache``,
+        ``init_ring_cache`` or ``init_mixed_cache``: N when laid out per
+        shard, 1 when whole (or headless, MLA)."""
+        first = cache.get("k", cache.get("k_l"))
+        return 1 if first is None else self.cfg.n_kv_heads // first.shape[-2]
+
     def _layer_cache(self, cache: Params, layer: int, stack: str = ""):
         """Layer ``layer``'s part of a contiguous cache: (its two sections
-        (B, S, ...), their scales or Nones, whether it ring-addresses).
+        (B, S, ...), or (N, B, S, ...) shard by shard when the cache is
+        head-sharded, their scales or Nones, whether it ring-addresses).
         A mixed cache's local layers read its rings in layer-group order,
         its global layers the full-length sections; ``stack`` is the
         suffix of a layer stack's own sections (``_pre``, the dense
@@ -1311,9 +1356,23 @@ class LlamaModel:
             suffix, row, ring = (("_g", group, False) if j == p - 1 else
                                  ("_l", group * (p - 1) + j, True))
         names = [n + suffix for n in self._cache_sections()]
-        scales = [cache[n + "_scale"][row] if n + "_scale" in cache
+        ns = self.cache_shards(cache)
+
+        def at(t: torch.Tensor) -> torch.Tensor:
+            return t[row] if ns == 1 else t.view(ns, -1, *t.shape[1:])[:, row]
+
+        scales = [at(cache[n + "_scale"]) if n + "_scale" in cache
                   else None for n in names]
-        return [cache[n][row] for n in names], scales, ring
+        return [at(cache[n]) for n in names], scales, ring
+
+    @staticmethod
+    def _fill_head(dst: torch.Tensor, rows: torch.Tensor, n: int) -> None:
+        """Rows (B, S, ...) into positions 0 .. S of one layer's section
+        (``_layer_cache``'s view), each shard's heads into its own."""
+        if n == 1:
+            dst[:, :rows.shape[1]] = rows
+        else:
+            dst[:, :, :rows.shape[1]] = _shard_heads(rows, n)
 
     def prefill(self, params: Params, tokens: torch.Tensor, cache: Params,
                 true_length: Optional[torch.Tensor] = None,
@@ -1351,6 +1410,7 @@ class LlamaModel:
         if true_length is None:
             true_length = torch.full((b,), s, dtype=torch.int32,
                                      device=tokens.device)
+        ns = self.cache_shards(cache)
         x = self._embed(params, tokens)
         for lp, n, stack in self.stacks(params):
             for layer in range(n):
@@ -1363,8 +1423,8 @@ class LlamaModel:
                 for dst, dst_s, row in zip(sections, scales, rows):
                     if dst_s is not None:
                         row, row_s = _kv_quant(row)
-                        dst_s[:, :s] = row_s
-                    dst[:, :s] = row
+                        self._fill_head(dst_s, row_s, ns)
+                    self._fill_head(dst, row, ns)
         tl = true_length.to(torch.int32)
         cache["index"].copy_(tl)
         if "abs_pos" in cache:
@@ -1453,7 +1513,11 @@ class LlamaModel:
         default) raises when an active position lies past a linear
         section. Attention is plain f32 einsum over the whole cache, as in
         the reference: a ring layer masks on ``abs_pos``, a linear one on
-        the position, the score soft cap before the mask. An MLA model
+        the position, the score soft cap before the mask. Over a
+        head-sharded cache (``cache_shards``) each shard's rows are written
+        into its own heads and its q-head block attends them alone, the
+        shards' heads then side by side, as ``_paged_attend`` runs a
+        sharded arena. An MLA model
         runs ``_verify_step_mla``. ``adapters``/``adapter_ids`` add each
         row's multi-LoRA deltas."""
         cfg = self.cfg
@@ -1515,6 +1579,9 @@ class LlamaModel:
         hd, dt, hkv = cfg.head_dim_, cfg.dtype, cfg.n_kv_heads
         group = cfg.n_heads // hkv
         cap = cfg.attn_logit_softcap
+        # a head-sharded cache: each shard's q-head block attends its own
+        # kv heads (the shard axis n of the einsums; n = 1 whole)
+        ns = self.cache_shards(cache)
         x = self._embed(params, tokens)
         lp = params["layers"]
         for layer in range(cfg.n_layers):
@@ -1530,20 +1597,25 @@ class LlamaModel:
             if ks is not None:
                 k, k_s = _kv_quant(k)
                 v, v_s = _kv_quant(v)
-                _write_rows(ks, rows, slots, k_s, write)
-                _write_rows(vs, rows, slots, v_s, write)
-            _write_rows(kc, rows, slots, k, write)
-            _write_rows(vc, rows, slots, v, write)
+                _write_shards(ks, rows, slots, _shard_heads(k_s, ns), write,
+                              ns)
+                _write_shards(vs, rows, slots, _shard_heads(v_s, ns), write,
+                              ns)
+            _write_shards(kc, rows, slots, _shard_heads(k, ns), write, ns)
+            _write_shards(vc, rows, slots, _shard_heads(v, ns), write, ns)
             k_read = _kv_dequant(kc, ks) if ks is not None else kc.float()
             v_read = _kv_dequant(vc, vs) if vs is not None else vc.float()
-            qg = (q.float() * cfg.sm_scale).reshape(b, kk, hkv, group, hd)
-            sc = torch.einsum("bqhgd,bLhd->bhgqL", qg, k_read)
+            if ns == 1:
+                k_read, v_read = k_read[None], v_read[None]
+            qg = (q.float() * cfg.sm_scale).reshape(b, kk, ns, hkv // ns,
+                                                    group, hd)
+            sc = torch.einsum("bqnhgd,nbLhd->bnhgqL", qg, k_read)
             if cap is not None:
                 sc = torch.tanh(sc / cap) * cap
-            valid = mask(ring, self.window(layer))[:, None, None]
+            valid = mask(ring, self.window(layer))[:, None, None, None]
             sc = sc.masked_fill(~valid, -1e30)
             p = torch.softmax(sc, dim=-1)
-            o = torch.einsum("bhgqL,bLhd->bqhgd", p, v_read)
+            o = torch.einsum("bnhgqL,nbLhd->bqnhgd", p, v_read)
             o = o.reshape(b, kk, cfg.n_heads * hd).to(dt)
             o = self._post_norm(self._proj(o, leaf("wo"), "wo", ad, ids),
                                 leaf, "attn_post_norm")
@@ -1832,7 +1904,7 @@ class LlamaModel:
         if n == 1:
             dst[pages_bk, offs] = rows
         elif self.mesh.in_process:
-            dst[:, pages_bk, offs] = rows.unflatten(2, (n, -1)).movedim(2, 0)
+            dst[:, pages_bk, offs] = _shard_heads(rows, n)
         else:
             h = rows.shape[2] // n
             dst[pages_bk, offs] = rows[:, :, self.mesh.rank * h:

@@ -96,8 +96,9 @@ Run: python -m k8s_runpod_kubelet_tpu_torch.workloads.serve_main \
         --model llama3-8b --slots 8 --cache-len 2048 --port 8000 \
         [--tokenizer bytes|DIR] [--int4 | --int8] [--kv-int8]
         [--speculate K] [--serving-chunk-tokens N] [--max-prefixes N]
-        [--kv-pool-pages N] [--max-queue-depth N] [--flight-recorder off]
-        [--hf-checkpoint DIR]
+        [--config YAML] [--kv-page-tokens N] [--kv-pool-pages N]
+        [--max-queue-depth N] [--max-connections N] [--flight-recorder off]
+        [--hf-checkpoint DIR] [--tensor-parallel N]
         [--lora-rank R [--lora-targets wq,wv] [--max-adapters N]
          [--dynamic-adapters]] [--trace-export PATH]
         [--profile-capture on|off] [--fleet-router URL
@@ -114,7 +115,18 @@ dense first layer's own sections, over 64 routed and 2 shared experts.
 gemma2-9b`` and ``gemma3-12b``, and any model with ``--prefix-cache off``
 or ``--paged-decode off``, serve from the contiguous loop, ``--lora-rank``
 and ``POST /adapters`` included: an adapter ``train_main --model
-gemma2-9b --lora-rank R --export-adapter`` wrote registers there.)
+gemma2-9b --lora-rank R --export-adapter`` wrote registers there, and
+``--speculate K`` and ``--tensor-parallel N`` serve there too.)
+
+Every serving knob resolves as the JAX replica resolves it
+(``resolve_settings``): the flag, else its TPU_* environment variable (the
+JAX autoscaler puts them on every serving pod it creates), else the
+``--config`` YAML, else the ``config.Config`` default. ``--profiler-port``
+and a cost meter asked for (``--cost-meter on``, its variable or its key)
+are refused by name. Past ``--max-connections`` connections in flight a
+connection gets an immediate 503 with ``Retry-After: 1``
+(``tpu_serving_http_rejected``); GET /metrics and /healthz keep a reserve
+of two.
 """
 
 from __future__ import annotations
@@ -137,6 +149,7 @@ import urllib.parse
 import urllib.request
 import uuid
 from concurrent.futures import TimeoutError as FutureTimeout
+from typing import Optional
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import torch
@@ -159,21 +172,6 @@ log = logging.getLogger("serve-main")
 _RID_SEQ = itertools.count()
 # one torch.profiler capture at a time (the profiler is process-wide)
 _PROFILE_LOCK = threading.Lock()
-
-
-# the fleet settings of the JAX package's ``config.py`` (serving_role,
-# handoff_stream_window, fleet_device_transfer_enabled,
-# fleet_placement_domain, fleet_placement_domain_mode,
-# fleet_pull_timeout_s): flag dest -> (its environment variable, its
-# default). A flag beats the variable, the variable the default
-FLEET_SETTINGS = {
-    "serving_role": ("TPU_SERVING_ROLE", "unified"),
-    "handoff_stream_window": ("TPU_HANDOFF_STREAM_WINDOW", 8),
-    "device_transfer": ("TPU_FLEET_DEVICE_TRANSFER_ENABLED", True),
-    "placement_domain": ("TPU_FLEET_PLACEMENT_DOMAIN", ""),
-    "placement_domain_mode": ("TPU_FLEET_PLACEMENT_DOMAIN_MODE", "auto"),
-    "pull_timeout": ("TPU_FLEET_PULL_TIMEOUT_S", 10.0),
-}
 
 
 class ProfileBusy(RuntimeError):
@@ -1563,13 +1561,116 @@ def init_profiler(engine: ServingEngine) -> None:
         pass
 
 
+class BoundedThreadingHTTPServer(ThreadingHTTPServer):
+    """Thread-per-connection with a hard bound on connections in flight
+    (the JAX package's server, copied): past ``max_connections`` a new
+    connection gets an immediate 503 with ``Retry-After: 1`` on the raw
+    socket, no handler thread and no engine work, counted by
+    ``tpu_serving_http_rejected``, so overload degrades crisply instead of
+    by thread or descriptor exhaustion. The engine's queue bound is the
+    model-level backpressure; this bounds the HTTP layer itself (idle
+    keep-alives, slow clients).
+
+    While the main pool is full, GET /metrics and /healthz (recognised by
+    a non-consuming ``MSG_PEEK`` of the request line) ride a reserved pool
+    of ``_OBS_RESERVE``: the scrape that should see the incident is not
+    shed by it."""
+
+    _REJECT = (b"HTTP/1.1 503 Service Unavailable\r\n"
+               b"Retry-After: 1\r\n"
+               b"Content-Type: application/json\r\n"
+               b"Content-Length: 31\r\n"
+               b"Connection: close\r\n\r\n"
+               b'{"error": "server overloaded"}\n')
+    _OBS_RESERVE = 2
+
+    def __init__(self, addr, handler, max_connections: int = 128,
+                 mono=time.monotonic):
+        super().__init__(addr, handler)
+        self._mono = mono   # the overflow drain's deadline clock
+        self.max_connections = max_connections
+        self._conn_sem = threading.BoundedSemaphore(max_connections)
+        self._obs_sem = threading.BoundedSemaphore(self._OBS_RESERVE)
+        self._req_sem: dict[int, threading.BoundedSemaphore] = {}
+
+    def _is_observability(self, request) -> bool:
+        try:
+            request.settimeout(0.3)
+            head = request.recv(64, socket.MSG_PEEK)
+            return head.startswith((b"GET /metrics", b"GET /healthz"))
+        except OSError:
+            return False
+        finally:
+            try:
+                request.settimeout(None)
+            except OSError:
+                pass
+
+    def process_request(self, request, client_address):
+        if self._conn_sem.acquire(blocking=False):
+            self._req_sem[id(request)] = self._conn_sem
+            try:
+                super().process_request(request, client_address)
+            except BaseException:  # thread spawn failed: free the slot
+                self._req_sem.pop(id(request), None)
+                self._conn_sem.release()
+                raise
+            return
+        # overload: triage off the accept thread, since the peek and the
+        # reject's drain wait on the peer, and one slow peer must not stall
+        # the accept loop (that would shed /metrics too)
+        threading.Thread(target=self._triage_overflow,
+                         args=(request, client_address), daemon=True).start()
+
+    def _triage_overflow(self, request, client_address):
+        if (self._is_observability(request)
+                and self._obs_sem.acquire(blocking=False)):
+            self._req_sem[id(request)] = self._obs_sem
+            # already on a thread of its own: run the handler here
+            self.process_request_thread(request, client_address)
+            return
+        try:
+            engine = getattr(self.RequestHandlerClass, "engine", None)
+            if engine is not None:
+                engine.metrics.incr("tpu_serving_http_rejected")
+        except Exception:  # noqa: BLE001 — metrics must never block a 503
+            pass
+        try:
+            request.sendall(self._REJECT)
+            # drain so the close does not reset the buffered 503 away,
+            # bounded by wall time and bytes (a dribbling client must not
+            # pin the thread)
+            deadline = self._mono() + 1.0
+            drained = 0
+            request.settimeout(0.25)
+            try:
+                while self._mono() < deadline and drained < 65536:
+                    data = request.recv(4096)
+                    if not data:
+                        break
+                    drained += len(data)
+            except OSError:
+                pass
+        except OSError:
+            pass
+        self.shutdown_request(request)
+
+    def process_request_thread(self, request, client_address):
+        try:
+            super().process_request_thread(request, client_address)
+        finally:
+            sem = self._req_sem.pop(id(request), None)
+            if sem is not None:
+                sem.release()
+
+
 def serve(engine: ServingEngine, port: int = 8000, tokenizer=None,
           request_timeout_s: float = 120.0, host: str = "0.0.0.0",
           clock=time.time, mono=time.monotonic,
           allow_adapters: bool = False,
           profile_capture: bool = False, handoff_stream_window: int = 8,
-          device_domain: str = "",
-          pull_timeout_s: float = 10.0) -> ThreadingHTTPServer:
+          device_domain: str = "", pull_timeout_s: float = 10.0,
+          max_connections: int = 128) -> BoundedThreadingHTTPServer:
     """Start the HTTP front on a daemon thread; ``port`` 0 picks a free
     port (read ``httpd.server_address[1]``). Stop with
     ``httpd.shutdown(); httpd.server_close()``. ``clock``/``mono`` are the
@@ -1580,9 +1681,17 @@ def serve(engine: ServingEngine, port: int = 8000, tokenizer=None,
     fragments in flight, ``device_domain`` is this replica's placement
     domain ("" keeps every hop on the wire; in a domain the replica also
     answers shm pulls, its blobs swept by a ``ShmBlobGC``), and
-    ``pull_timeout_s`` budgets one directory-pull hop. Registering the
-    engine on the device bus (``fleet.device_transfer.BUS``) under its
+    ``pull_timeout_s`` budgets one directory-pull hop, and
+    ``max_connections`` the connections in flight
+    (``BoundedThreadingHTTPServer``). Registering the engine on the device
+    bus (``fleet.device_transfer.BUS``) under its
     advertise URL is the caller's step, as ``main`` does."""
+    # the HTTP layer's shed counter belongs to this server (the engine
+    # never sees a rejected connection), from startup on
+    engine.metrics.describe(
+        "tpu_serving_http_rejected",
+        "connections 503-shed at the HTTP concurrency bound")
+    engine.metrics.incr("tpu_serving_http_rejected", 0)
     if profile_capture:
         init_profiler(engine)
     handler = type("BoundHandler", (_Handler,),
@@ -1596,7 +1705,9 @@ def serve(engine: ServingEngine, port: int = 8000, tokenizer=None,
                     else None,
                     "request_timeout_s": request_timeout_s,
                     "clock": staticmethod(clock), "mono": staticmethod(mono)})
-    httpd = ThreadingHTTPServer((host, port), handler)
+    httpd = BoundedThreadingHTTPServer((host, port), handler,
+                                       max_connections=max_connections,
+                                       mono=mono)
     httpd.daemon_threads = True
     threading.Thread(target=httpd.serve_forever, name="serve-http",
                      daemon=True).start()
@@ -1639,48 +1750,74 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="prompt-lookup speculative decoding: verify K "
                         "drafts a step in one K+1-wide pass (greedy "
                         "requests; 0 = off)")
-    p.add_argument("--serving-chunk-tokens", type=int, default=0,
+    p.add_argument("--serving-chunk-tokens", type=int, default=None,
                    metavar="N",
                    help="prefill in N-token chunks, one decode step "
                         "between chunks while streams decode (0 = chunks "
-                        "of cache_len / 2, back to back)")
+                        "of cache_len / 2, back to back; default from "
+                        "config/TPU_SERVING_CHUNK_TOKENS, 0)")
     p.add_argument("--max-prefixes", type=int, default=8,
                    help="distinct prefixes POST /prefix may pin")
-    p.add_argument("--kv-pool-pages", type=int, default=0,
+    p.add_argument("--config", default="", metavar="YAML",
+                   help="the provider-config YAML file (the JAX package's "
+                        "and this one's ``config.Config`` fields): every "
+                        "serving knob below that has no flag reads it; "
+                        "its TPU_* environment variable overrides the "
+                        "file, the flag overrides both")
+    p.add_argument("--kv-page-tokens", type=int, default=None,
+                   help="tokens per KV page, the pool's allocation and "
+                        "prefix-match granule (default from config/"
+                        "TPU_KV_PAGE_TOKENS, 16)")
+    p.add_argument("--kv-pool-pages", type=int, default=None,
                    help="pages in the KV arena (0 = auto: twice the slots' "
-                        "residency; at least slots * cache_len / 16)")
+                        "residency; at least slots * cache_len / page "
+                        "tokens; default from config/TPU_KV_POOL_PAGES, 0)")
     p.add_argument("--max-queue-depth", type=int, default=0,
                    help="requests queued past this get 429 + Retry-After "
                         "(0 = unbounded)")
-    p.add_argument("--prefix-cache", default="on", choices=["on", "off"],
+    p.add_argument("--prefix-cache", default=None, choices=["on", "off"],
+                   dest="prefix_cache_enabled",
                    help="the cross-request paged prefix cache (off: no KV "
                         "arena, the contiguous decode loop, and POST /prefix "
-                        "through the dense prefix store)")
-    p.add_argument("--paged-decode", default="auto", choices=["auto", "off"],
+                        "through the dense prefix store; default from "
+                        "config/TPU_PREFIX_CACHE_ENABLED, on)")
+    p.add_argument("--paged-decode", default=None, choices=["auto", "off"],
+                   dest="kv_paged_decode",
                    help="the decode loop on page tables over the arena "
                         "(auto: whenever the layout pages; off: the "
-                        "contiguous loop over one batch cache)")
-    p.add_argument("--paged-prefill", default="auto", choices=["auto", "off"],
+                        "contiguous loop over one batch cache; default from "
+                        "config/TPU_KV_PAGED_DECODE, auto)")
+    p.add_argument("--paged-prefill", default=None, choices=["auto", "off"],
+                   dest="kv_paged_prefill",
                    help="prefill chunks straight into the prompt's arena "
                         "pages (auto: with the paged loop; off: the "
-                        "dense-scratch route and a page copy at admission)")
+                        "dense-scratch route and a page copy at admission; "
+                        "default from config/TPU_KV_PAGED_PREFILL, auto)")
     p.add_argument("--ring-cache", default="auto",
                    choices=["auto", "on", "off"],
                    help="ring KV cache for windowed models on the "
                         "contiguous loop: the windowed layers keep ~window "
                         "positions while --cache-len stays the budget "
                         "(auto: when the ring is shorter than --cache-len)")
-    p.add_argument("--flight-recorder", default="on", choices=["on", "off"],
-                   help="the per-decode-step timeline at GET /debug/steps")
+    p.add_argument("--flight-recorder", default=None, choices=["on", "off"],
+                   dest="serving_flight_recorder",
+                   help="the per-decode-step timeline at GET /debug/steps "
+                        "(default from config/TPU_SERVING_FLIGHT_RECORDER, "
+                        "on)")
     p.add_argument("--tensor-parallel", type=int, default=1, metavar="N",
                    help="serve over N tensor-parallel shards in this "
                         "process, on --device (weights and KV heads split "
                         "as the JAX engine's tensor mesh splits them); N "
                         "must divide the model's head counts")
-    p.add_argument("--kv-arena-sharding", default="auto",
+    p.add_argument("--kv-arena-sharding", default=None,
                    choices=["auto", "replicate"],
                    help="under --tensor-parallel: shard the KV arena's heads "
-                        "(auto) or keep one arena every shard reads")
+                        "(auto) or keep one arena every shard reads "
+                        "(default from config/TPU_KV_ARENA_SHARDING, auto)")
+    p.add_argument("--max-connections", type=int, default=128,
+                   help="HTTP connections in flight at once: past this a "
+                        "connection gets an immediate 503 with Retry-After "
+                        "(GET /metrics and /healthz keep a reserve of 2)")
     p.add_argument("--hf-checkpoint", default="", metavar="DIR",
                    help="load the weights from a Hugging Face model "
                         "directory (*.safetensors or pytorch_model*.bin) "
@@ -1704,11 +1841,21 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--trace-export", default="", metavar="PATH",
                    help="append finished request spans to this JSONL file; "
                         "empty = the in-memory ring only (/debug/traces)")
-    p.add_argument("--profile-capture", default="off", choices=["on", "off"],
+    p.add_argument("--profile-capture", default=None, choices=["on", "off"],
+                   dest="serving_profile_capture",
                    help="enable GET /debug/profile?seconds= (a torch.profiler "
                         "capture written to the replica's disk); off by "
                         "default, since any client could otherwise slow the "
-                        "card")
+                        "card (default from config/"
+                        "TPU_SERVING_PROFILE_CAPTURE)")
+    p.add_argument("--profiler-port", type=int, default=None,
+                   dest="serving_profiler_port",
+                   help="the JAX replica's profiler server: refused here, "
+                        "PyTorch has none (use --profile-capture on)")
+    p.add_argument("--cost-meter", default=None, choices=["on", "off"],
+                   dest="serving_cost_meter",
+                   help="per-request cost attribution: refused when asked "
+                        "for (not ported, ROADMAP Queue 1 #11)")
     p.add_argument("--fleet-router", default="", metavar="URL",
                    help="fleet router URL: register this replica and "
                         "heartbeat its load stats and metrics so the router "
@@ -1725,78 +1872,117 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="disaggregated-serving pool this replica registers "
                         "into: prefill computes KV and hands pages off, "
                         "decode adopts KV and streams tokens, unified does "
-                        "both (default from TPU_SERVING_ROLE, unified)")
+                        "both (default from config/TPU_SERVING_ROLE, "
+                        "unified)")
     p.add_argument("--handoff-stream-window", type=int, default=None,
                    help="streamed handoff: max chunk frames queued between "
                         "prefill compute and the push to the decode "
-                        "replica (default from TPU_HANDOFF_STREAM_WINDOW, "
-                        "8)")
+                        "replica (default from config/"
+                        "TPU_HANDOFF_STREAM_WINDOW, 8)")
     p.add_argument("--device-transfer", default=None, choices=["on", "off"],
+                   dest="fleet_device_transfer_enabled",
                    help="device-native KV handoff: replicas of one placement "
                         "domain hand pages arena to arena (engines of one "
                         "process) or through a tmpfs blob (processes of one "
                         "host); any failure downgrades to the wire codec "
-                        "(default from TPU_FLEET_DEVICE_TRANSFER_ENABLED, "
-                        "on)")
+                        "(default from config/"
+                        "TPU_FLEET_DEVICE_TRANSFER_ENABLED, on)")
     p.add_argument("--placement-domain", default=None,
+                   dest="fleet_placement_domain",
                    help="placement domain this replica advertises; replicas "
                         "with EQUAL domains skip the wire (default from "
-                        "TPU_FLEET_PLACEMENT_DOMAIN, else proc:<host>:<pid> "
-                        "or the slice's domain, see --placement-domain-mode)")
+                        "config/TPU_FLEET_PLACEMENT_DOMAIN, else "
+                        "proc:<host>:<pid> or the slice's domain, see "
+                        "--placement-domain-mode)")
     p.add_argument("--placement-domain-mode", default=None,
+                   dest="fleet_placement_domain_mode",
                    choices=["auto", "proc", "slice"],
                    help="how the domain is detected without an explicit one: "
                         "auto prefers TPU_SLICE_NAME (host-qualified) and "
                         "falls back to the process; slice warns without it; "
                         "proc pins one process a domain")
     p.add_argument("--pull-timeout", type=float, default=None,
+                   dest="fleet_pull_timeout_s",
                    help="seconds for one KV directory-pull hop (owner "
                         "export, transfer, adoption; default from "
-                        "TPU_FLEET_PULL_TIMEOUT_S, 10)")
+                        "config/TPU_FLEET_PULL_TIMEOUT_S, 10)")
     return p.parse_args(argv)
 
 
-def fleet_settings(args: argparse.Namespace, env=None) -> dict:
-    """The resolved ``FLEET_SETTINGS`` of ``args`` (flag, else its
-    environment variable, else the JAX config's default), with
-    "placement_domain" detected ("" when --device-transfer is off)."""
+# the serving knobs with a flag: flag dest (the ``config.Config`` field)
+# -> (the value an on/off or auto/off flag means True by, or None for a
+# flag whose value is the setting). The JAX ``serve_main`` resolves each
+# as flag > TPU_* environment > --config file > default
+KNOBS = {
+    "kv_page_tokens": None, "kv_pool_pages": None,
+    "prefix_cache_enabled": "on", "kv_paged_decode": "auto",
+    "kv_paged_prefill": "auto", "kv_arena_sharding": None,
+    "serving_role": None, "serving_chunk_tokens": None,
+    "handoff_stream_window": None, "fleet_device_transfer_enabled": "on",
+    "fleet_placement_domain": None, "fleet_placement_domain_mode": None,
+    "fleet_pull_timeout_s": None, "serving_flight_recorder": "on",
+    "serving_profile_capture": "on", "serving_profiler_port": None,
+    "serving_cost_meter": "on",
+}
+
+
+def resolve_settings(args: argparse.Namespace, env=None) -> dict:
+    """Every serving knob of ``args`` resolved as the JAX replica resolves
+    it: the flag, else its TPU_* environment variable, else ``--config``'s
+    YAML, else the ``config.Config`` default (``config.load``, which also
+    validates the file and refuses its unknown keys). Returns the
+    ``KNOBS`` fields plus ``fleet_prefix_directory_enabled`` (no flag),
+    with ``fleet_placement_domain`` detected ("" when device transfer is
+    off). Raises ValueError for what the port does not serve, from any
+    source: a profiler port (PyTorch has no profiler server, a deliberate
+    difference) and a cost meter asked for (ROADMAP Queue 1 #11; the
+    JAX default, on, is no request)."""
+    from ..config import load
+
     env = os.environ if env is None else env
-    out = {}
-    for dest, (var, default) in FLEET_SETTINGS.items():
-        flag = getattr(args, dest)
-        if flag is not None:
-            value = flag == "on" if dest == "device_transfer" else flag
-        elif env.get(var, ""):
-            raw = env[var]
-            value = (raw.lower() in ("1", "true", "yes")
-                     if isinstance(default, bool) else type(default)(raw))
-        else:
-            value = default
-        out[dest] = value
-    if out["serving_role"] not in ("unified", "prefill", "decode"):
-        raise ValueError(f"serving role must be unified, prefill or decode, "
-                         f"got {out['serving_role']!r}")
-    out["placement_domain"] = (detect_placement_domain(
-        out["placement_domain"], env=env, mode=out["placement_domain_mode"])
-        if out["device_transfer"] else "")
+    named: set = set()
+    base = load(args.config or None, env=env, named=named)
+    out = {"fleet_prefix_directory_enabled":
+           base.fleet_prefix_directory_enabled}
+    for field, true_by in KNOBS.items():
+        flag = getattr(args, field)
+        out[field] = (getattr(base, field) if flag is None
+                      else flag if true_by is None else flag == true_by)
+    if out["serving_profiler_port"]:
+        raise ValueError("serving_profiler_port (--profiler-port, "
+                         "TPU_SERVING_PROFILER_PORT): PyTorch has no "
+                         "profiler server, a deliberate difference; use "
+                         "--profile-capture on")
+    if out["serving_cost_meter"] and (args.serving_cost_meter == "on"
+                                      or "serving_cost_meter" in named):
+        raise ValueError("serving_cost_meter (--cost-meter, "
+                         "TPU_SERVING_COST_METER): per-request cost "
+                         "attribution is not ported (ROADMAP Queue 1 #11)")
+    out["fleet_placement_domain"] = (detect_placement_domain(
+        out["fleet_placement_domain"], env=env,
+        mode=out["fleet_placement_domain_mode"])
+        if out["fleet_device_transfer_enabled"] else "")
     return out
 
 
-def build_engine(args: argparse.Namespace, params=None):
-    """(started engine, tokenizer or None) for the CLI's arguments; the
-    weights are ``params`` (of the model's config, on the device) when
-    given, else ``--hf-checkpoint``'s, else random from ``--seed`` (with
-    --int4 or --int8 drawn and quantized a layer at a time, so the bf16
-    tree never exists whole: Mixtral-8x7B's is 93 GB). With
+def build_engine(args: argparse.Namespace, params=None,
+                 settings: Optional[dict] = None):
+    """(started engine, tokenizer or None) for the CLI's arguments and
+    their resolved knobs (``settings``, ``resolve_settings(args)`` when
+    None); the weights are ``params`` (of the model's config, on the
+    device) when given, else ``--hf-checkpoint``'s, else random from
+    ``--seed`` (with --int4 or --int8 drawn and quantized a layer at a
+    time, so the bf16 tree never exists whole: Mixtral-8x7B's is 93 GB).
+    With
     ``--tensor-parallel N`` the engine serves over an in-process tensor
     mesh of N shards (and takes a given bf16 tree over). Raises ValueError
     for --int8 with --int4, a tensor degree below 1 or one that does not
     divide the head counts, and an MLA or MoE model under N > 1, all
     before any weight is drawn or loaded, as are ``--lora-rank`` with an
-    MLA model and what the decode loop the flags select refuses
-    (``--paged-decode off``, ``--prefix-cache off`` or a windowed
-    interleave serve from the contiguous loop, which takes no
-    ``--speculate``, ``--lora-rank`` or ``--tensor-parallel``)."""
+    MLA model and what the decode loop the flags select refuses.
+    ``--paged-decode off``, ``--prefix-cache off`` or a windowed
+    interleave serve from the contiguous loop, ``--speculate``,
+    ``--lora-rank`` and ``--tensor-parallel`` included."""
     from ..models import MODEL_CONFIGS, init_params
     from ..models.convert import load_hf
     from ..models.quant import init_quantized_params
@@ -1819,6 +2005,7 @@ def build_engine(args: argparse.Namespace, params=None):
                          f"head counts (n_heads={cfg.n_heads}, "
                          f"n_kv_heads={cfg.n_kv_heads})")
     check_tensor_parallel(cfg, n)
+    knobs = resolve_settings(args) if settings is None else settings
     # before the weights: a bad tokenizer directory fails fast
     tokenizer = get_tokenizer(args.tokenizer)
     sc = ServingConfig(
@@ -1828,21 +2015,24 @@ def build_engine(args: argparse.Namespace, params=None):
         eos_token=tokenizer.eos_id if tokenizer is not None else -1,
         quantize_int8=args.int8, quantize_int4=args.int4,
         quantize_kv_int8=args.kv_int8, speculate_k=args.speculate,
-        serving_chunk_tokens=args.serving_chunk_tokens,
-        max_prefixes=args.max_prefixes, kv_pool_pages=args.kv_pool_pages,
+        serving_chunk_tokens=knobs["serving_chunk_tokens"],
+        max_prefixes=args.max_prefixes,
+        kv_page_tokens=knobs["kv_page_tokens"],
+        kv_pool_pages=knobs["kv_pool_pages"],
         max_queue_depth=args.max_queue_depth,
-        flight_recorder=args.flight_recorder == "on",
-        kv_arena_sharding=args.kv_arena_sharding,
+        flight_recorder=knobs["serving_flight_recorder"],
+        kv_arena_sharding=knobs["kv_arena_sharding"],
         lora_rank=args.lora_rank,
         lora_targets=tuple(t for t in args.lora_targets.split(",") if t),
         max_adapters=args.max_adapters,
-        prefix_cache_enabled=args.prefix_cache == "on",
-        paged_decode=None if args.paged_decode == "auto" else False,
-        paged_prefill=None if args.paged_prefill == "auto" else False,
+        prefix_cache_enabled=knobs["prefix_cache_enabled"],
+        # config True is auto (the engine decides), False pins it off
+        paged_decode=None if knobs["kv_paged_decode"] else False,
+        paged_prefill=None if knobs["kv_paged_prefill"] else False,
         ring_cache={"auto": None, "on": True, "off": False}[args.ring_cache])
     # the engine's checks of these settings, before any weight
     ServingEngine.lora_dims(cfg, sc)
-    ServingEngine.check_loop(cfg, sc, n)
+    ServingEngine.check_loop(cfg, sc)
     mesh = make_mesh(MeshConfig(data=1, tensor=n)) if n > 1 else None
     device = resolve_device(args.device)
     if params is None and args.hf_checkpoint:
@@ -1865,31 +2055,33 @@ def main(argv=None) -> int:
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO)
     try:
-        fleet = fleet_settings(args)
-        engine, tokenizer = build_engine(args)
+        knobs = resolve_settings(args)
+        engine, tokenizer = build_engine(args, settings=knobs)
     except ValueError as e:
         log.error("%s", e)
         return 1
     httpd = serve(engine, args.port, tokenizer=tokenizer,
                   allow_adapters=args.dynamic_adapters,
-                  profile_capture=args.profile_capture == "on",
-                  handoff_stream_window=fleet["handoff_stream_window"],
-                  device_domain=fleet["placement_domain"],
-                  pull_timeout_s=fleet["pull_timeout"])
+                  profile_capture=knobs["serving_profile_capture"],
+                  handoff_stream_window=knobs["handoff_stream_window"],
+                  device_domain=knobs["fleet_placement_domain"],
+                  pull_timeout_s=knobs["fleet_pull_timeout_s"],
+                  max_connections=args.max_connections)
     snap = engine.debug_snapshot()
     log.info("serving %s on :%d (%s, weights %s, kv %s, cache %s, "
              "tensor-parallel %d, role %s)", snap["model"],
              httpd.server_address[1], snap["device"], snap["weights"],
              snap["kv"], snap["cache_layout"],
-             max(1, snap["paged_tp_shards"]), fleet["serving_role"])
+             snap["tensor_parallel"], knobs["serving_role"])
     advertise = advertise_url(args, httpd.server_address[1])
-    if fleet["placement_domain"]:
+    domain = knobs["fleet_placement_domain"]
+    if domain:
         # a prefill replica of this process resolves this engine by the
         # URL the router hands it for the wire push
-        BUS.register(advertise, engine, fleet["placement_domain"])
+        BUS.register(advertise, engine, domain)
         log.info("device transfer: %s registered in domain %s", advertise,
-                 fleet["placement_domain"])
-    reporter = start_reporter(engine, args, httpd.server_address[1], fleet)
+                 domain)
+    reporter = start_reporter(engine, args, httpd.server_address[1], knobs)
     try:
         threading.Event().wait()
     except KeyboardInterrupt:
@@ -1910,13 +2102,15 @@ def advertise_url(args: argparse.Namespace, port: int) -> str:
 
 
 def start_reporter(engine: ServingEngine, args: argparse.Namespace,
-                   port: int, fleet: dict):
+                   port: int, knobs: dict):
     """The fleet reporter of ``--fleet-router`` (None without it), started:
-    registered as ``fleet["serving_role"]`` in ``fleet["placement_domain"]``
-    with the hostname as its pod name (the autoscaler's delete handle) and
-    the generation and pool the pod scaler stamps into
-    ``TPU_SERVING_GENERATION``/``TPU_SERVING_POOL``; the engine's prefix
-    publishes wake it, so they ride the next beat."""
+    registered as ``knobs["serving_role"]`` in
+    ``knobs["fleet_placement_domain"]`` (``resolve_settings``) with the
+    hostname as its pod name (the autoscaler's delete handle) and the
+    generation and pool the pod scaler stamps into
+    ``TPU_SERVING_GENERATION``/``TPU_SERVING_POOL``. With the prefix
+    directory on, the engine's prefix publishes wake it, so they ride the
+    next beat."""
     if not args.fleet_router:
         return None
     from ..fleet.registry import ReplicaReporter
@@ -1927,13 +2121,14 @@ def start_reporter(engine: ServingEngine, args: argparse.Namespace,
         replica_id=args.fleet_replica_id or host,
         advertise_url=advertise_url(args, port),
         pod_name=host, interval_s=args.fleet_heartbeat_interval,
-        role=fleet["serving_role"],
-        placement_domain=fleet["placement_domain"],
+        role=knobs["serving_role"],
+        placement_domain=knobs["fleet_placement_domain"],
         generation=os.environ.get("TPU_SERVING_GENERATION", ""),
         pool=os.environ.get("TPU_SERVING_POOL", "")).start()
-    engine.prefix_publish_hook = reporter.wake
+    if knobs["fleet_prefix_directory_enabled"]:
+        engine.prefix_publish_hook = reporter.wake
     log.info("fleet: reporting to %s as %s (role %s)", args.fleet_router,
-             reporter.replica_id, fleet["serving_role"])
+             reporter.replica_id, knobs["serving_role"])
     return reporter
 
 

@@ -75,7 +75,7 @@ paged loop.
   shards the kv-head axis (``kv_arena_sharding`` "auto" where N divides
   both head counts) or replicates; every step, chunk and dense-route
   prefill runs tensor-parallel (``LlamaModel`` under the mesh), the JAX
-  engine under a mesh with a ``tensor`` axis.
+  engine under a mesh with a ``tensor`` axis, on either loop.
 - **Step graphs**: the decode and verify steps run through
   ``StepGraph`` (``step_graph.py``), the JAX engine's jitted
   ``paged_step``/``paged_verify``: on a card each is captured as a CUDA
@@ -99,8 +99,14 @@ paged loop.
   takes every slot's adapter id and the stacks, a prompt prefills under
   its adapter, and a registered prefix keeps one variant for each adapter,
   filled on that adapter's first prompt over it (LRU-bounded, dropped
-  when the adapter is registered again). Speculative decoding and a
-  tensor mesh are refused here (ROADMAP Queue 1 #3.1, #3.3).
+  when the adapter is registered again). With ``speculate_k`` > 0 and a
+  greedy slot live a step is one replay of the K + 1-wide verify graph
+  (the watchdog's ``verify``): the paged loop's commit (``_spec_commit``),
+  then each row's index advances by what it committed, so a rejected
+  draft's K/V lies past the index until the next write covers it. Under
+  an in-process tensor mesh the batch cache, the prefill singles and the
+  dense store's caches hold each shard's kv heads apart (the arena's
+  layout), and each shard's q heads attend its own.
 - **Disaggregated serving**: a prefill replica's ``export_handoff``
   (wire codec blob), ``export_handoff_device`` (fresh copies on the card
   and the event after them) or ``export_handoff_stream`` (each chunk's
@@ -301,7 +307,7 @@ class ServingEngine:
                              "(0 = unbounded) must be >= 0")
         slot_pages = -(-sc.cache_len // t)
         self._paged_loop, self._paged_prefill_on, self._ring_len = \
-            self.check_loop(cfg, sc, mesh.tensor if mesh is not None else 1)
+            self.check_loop(cfg, sc)
         uniform_window = (cfg.sliding_window is not None
                           and cfg.sliding_window_pattern == 1)
         # a uniform sliding window's ring run on the paged loop (the JAX
@@ -399,9 +405,13 @@ class ServingEngine:
             if paged and sc.speculate_k > 0 and self._window is None
             else None)
         # the contiguous loop's decode step over the batch cache (the JAX
-        # engine's jitted ``decode``)
+        # engine's jitted ``decode``), and with speculate_k its verify step
+        # (the jitted ``verify``)
         self._decode = self.watchdog.wrap(
             "decode", None if paged else DecodeGraph(self.model, sc.slots))
+        self._verify = self.watchdog.wrap(
+            "verify", DecodeGraph(self.model, sc.slots, sc.speculate_k + 1)
+            if not paged and sc.speculate_k > 0 else None)
         # per-slot page tables, host side; entries past a slot's run stay
         # 0, a valid page id the kernel never reads (it stops at the run)
         self._page_tables_np = np.zeros((sc.slots, slot_pages), np.int32)
@@ -1054,7 +1064,7 @@ class ServingEngine:
 
     def _graphs(self) -> list:
         return [g for g in (self._paged_step, self._paged_verify,
-                            self._decode) if g is not None]
+                            self._decode, self._verify) if g is not None]
 
     def graphs_snapshot(self) -> dict:
         """The watchdog's per-graph capture counts, with each graph's
@@ -1158,6 +1168,11 @@ class ServingEngine:
                 # engine's tpu_serving_paged_tp_shards): 1 on one device,
                 # 0 with the loop off
                 "paged_tp_shards": self.model.tp if self._paged_loop else 0,
+                # the tensor degree either loop runs at, and the kv-head
+                # shards of the contiguous loop's batch cache
+                "tensor_parallel": self.model.tp,
+                "cache_head_shards": (None if self._paged_loop else
+                                      self.model.cache_shards(self._cache)),
                 "kv_arena_shards": self._arena_shards,
                 "speculate_k": sc.speculate_k,
                 "sliding_window": self._window,
@@ -1211,7 +1226,7 @@ class ServingEngine:
             raise ValueError(f"max_new_tokens must be a positive int, got "
                              f"{max_new_tokens!r}")
         if temperature is None:
-            temperature = 0.0   # greedy
+            temperature = sc.temperature   # the engine's default
         if not _is_num(temperature) or temperature < 0.0:
             raise ValueError(f"temperature must be a non-negative number, "
                              f"got {temperature!r}")
@@ -1519,18 +1534,19 @@ class ServingEngine:
         return ring
 
     @staticmethod
-    def check_loop(cfg: LlamaConfig, sc: ServingConfig, tensor: int = 1
+    def check_loop(cfg: LlamaConfig, sc: ServingConfig
                    ) -> tuple[bool, bool, Optional[int]]:
         """The decode loop ``sc`` selects for ``cfg`` (the JAX engine's
-        eligibility rule) under a tensor degree of ``tensor``: (the paged
-        loop, paged-native prefill, the contiguous loop's ring length or
-        None). The paged loop runs when the layout pages (a uniform window
-        does, the interleave's split cache does not), the prefix cache is
-        on (the arena holds the slots), pages are smaller than a slot, an
-        explicit pool holds every slot's residency and neither
-        ``paged_decode`` False nor ``ring_cache`` True turns it off.
-        Raises ValueError for a setting that cannot hold, and for what the
-        contiguous loop does not serve yet."""
+        eligibility rule): (the paged loop, paged-native prefill, the
+        contiguous loop's ring length or None). The paged loop runs when
+        the layout pages (a uniform window does, the interleave's split
+        cache does not), the prefix cache is on (the arena holds the
+        slots), pages are smaller than a slot, an explicit pool holds every
+        slot's residency and neither ``paged_decode`` False nor
+        ``ring_cache`` True turns it off.
+        Raises ValueError for a setting that cannot hold. Both loops serve
+        speculation and every tensor degree the mesh serves
+        (``parallel.sharding.check_tensor_parallel``)."""
         t = sc.kv_page_tokens
         slot_pages = -(-sc.cache_len // t)
         ring_len = ServingEngine._pick_ring_len(cfg, sc)
@@ -1568,24 +1584,7 @@ class ServingEngine:
         if paged:
             # the window's memory win comes back as page recycling
             return True, sc.paged_prefill is not False, None
-        ServingEngine._check_contiguous(cfg, sc, tensor)
         return False, False, ring_len
-
-    @staticmethod
-    def _check_contiguous(cfg: LlamaConfig, sc: ServingConfig,
-                          tensor: int) -> None:
-        """What the contiguous loop does not serve yet, refused by name."""
-        if sc.speculate_k > 0:
-            raise ValueError(
-                f"{cfg.name}: speculative decoding on the contiguous loop "
-                "(a windowed interleave, the prefix cache off or "
-                "paged_decode off) is not ported (ROADMAP Queue 1 #3.1); "
-                "serve with speculate_k 0")
-        if tensor > 1:
-            raise ValueError(
-                f"{cfg.name}: the contiguous loop under a tensor mesh is not "
-                "ported (ROADMAP Queue 1 #3.3); the paged loop serves "
-                "tensor-parallel")
 
     def _prefill_raw(self, tokens: list[int], adapter_id: int = 0,
                      on_chunk=None) -> tuple[torch.Tensor, dict]:
@@ -2553,10 +2552,14 @@ class ServingEngine:
 
     def _decode_once(self):
         """One decode step of the loop the engine runs: on the contiguous
-        loop one replay of the decode graph over the batch cache and its
-        active mask (the JAX ``_decode_once``), then ``_commit_decode``."""
+        loop one replay of the verify graph when a greedy slot is live and
+        speculation is on (``_decode_once_speculative``), else of the
+        decode graph over the batch cache and its active mask (the JAX
+        ``_decode_once``), then ``_commit_decode``."""
         if self._paged_loop:
             return self._decode_once_paged()
+        if self._verify is not None and self._decode_once_speculative():
+            return
         rec = self.recorder
         if rec is not None:
             rec.step_begin()
@@ -2571,6 +2574,56 @@ class ServingEngine:
         if rec is not None:
             rec.mark("kernel")
         self._commit_decode(logits)
+
+    def _decode_once_speculative(self) -> bool:
+        """One replay of the contiguous verify graph over [last token, k
+        drafts] per slot (the JAX contiguous ``_decode_once_speculative``):
+        ``_spec_commit`` commits, then each row's ``index`` advances by
+        what it appended. That is the rollback: a rejected draft's K/V
+        stays past the index (a ring's ``abs_pos`` names it until then) and
+        the next write covers it. Returns False, deferring to the plain
+        step, when no live slot is greedy."""
+        k = self.sc.speculate_k
+        slots = self._slots
+        active = [s.request is not None for s in slots]
+        is_greedy = [_spec_greedy(s.request) for s in slots]
+        if not any(is_greedy):
+            return False
+        rec = self.recorder
+        if rec is not None:
+            rec.step_begin()
+        adapters = int((self._slot_adapter != 0).sum())
+        toks_in = np.zeros((len(slots), k + 1), np.int32)
+        for i, slot in enumerate(slots):
+            if active[i]:
+                toks_in[i] = slot.last_token   # drafts of non-greedy: unread
+                if is_greedy[i]:
+                    toks_in[i, 1:] = self._propose(slot, k)
+        widths = [min(k + 1, s.remaining) if g else 1
+                  for s, g in zip(slots, is_greedy)]
+        if rec is not None:
+            rec.mark("schedule")
+        with self._prefix_lock:
+            logits = self._verify(self.params, self._cache, toks_in, active,
+                                  **self._step_adapter_kw())
+            self.metrics.incr("tpu_serving_decode_steps")
+        if rec is not None:
+            rec.mark("kernel")
+        appended, accepted, proposed = self._spec_commit(
+            logits, toks_in, widths, active, is_greedy)
+        with self._prefix_lock:   # ordered with the replays
+            self._cache["index"] += torch.tensor(appended, dtype=torch.int32,
+                                                 device=self.device)
+        self._observe_step(sum(active))
+        if rec is not None:
+            rec.step_end(mode="spec_verify", active=sum(active),
+                         draining=self._draining.is_set(), paged=False,
+                         spec_k=k, adapters=adapters, tokens=sum(appended),
+                         rids=[s.request.rid for s in slots
+                               if s.request is not None],
+                         spec={"proposed": proposed, "accepted": accepted,
+                               "rolled_back_pages": 0})
+        return True
 
     def _decode_once_paged(self):
         """One decode step: slot-table growth, one replay of the decode
@@ -2635,23 +2688,16 @@ class ServingEngine:
 
     def _decode_once_speculative_paged(self) -> bool:
         """One ``paged_verify_step`` over [last token, k drafts] per slot.
-        Greedy slots commit the matched drafts plus the corrected token;
-        sampled, penalized and biased slots ride along at n_tokens = 1,
-        whose KV write and logits[:, 0] are the plain step's, and draw
-        with the plain step's draw index. Rejected rows roll back page-
-        natively: the committed length stops at the first mismatch and the
-        table's pages past ceil(kv_len / T) return to the pool. Returns
-        False, deferring to the plain step, when no live slot is greedy."""
+        ``_spec_commit`` commits: greedy slots the matched drafts plus the
+        corrected token; sampled, penalized and biased slots ride along at
+        n_tokens = 1, whose KV write and logits[:, 0] are the plain
+        step's. Rejected rows roll back page-natively: the table's pages
+        past ceil(kv_len / T) return to the pool. Returns False, deferring
+        to the plain step, when no live slot is greedy."""
         k = self.sc.speculate_k
         slots = self._slots
         t = self.sc.kv_page_tokens
-
-        def greedy(slot: _Slot) -> bool:
-            r = slot.request
-            return (r is not None and r.temperature <= 0.0
-                    and not _logit_modded(r))
-
-        if not any(greedy(s) for s in slots):
+        if not any(_spec_greedy(s.request) for s in slots):
             return False
         rec = self.recorder
         if rec is not None:
@@ -2662,13 +2708,14 @@ class ServingEngine:
         widths = [0] * len(slots)
         for i, slot in enumerate(slots):
             if slot.request is not None:
-                widths[i] = min(k + 1, slot.remaining) if greedy(slot) else 1
+                widths[i] = (min(k + 1, slot.remaining)
+                             if _spec_greedy(slot.request) else 1)
                 self._grow_slot_table(i, slot, widths[i])
         active = [s.request is not None for s in slots]   # growth may fail
         if not any(active):
             self.metrics.set_gauge("tpu_serving_active_slots", 0)
             return True
-        is_greedy = [greedy(s) for s in slots]
+        is_greedy = [_spec_greedy(s.request) for s in slots]
         # slots decoding with an adapter (the step record's count)
         adapters = int((self._slot_adapter != 0).sum())
         toks_in = np.zeros((len(slots), k + 1), np.int32)
@@ -2689,6 +2736,53 @@ class ServingEngine:
             self.metrics.incr("tpu_serving_paged_speculative_steps")
         if rec is not None:
             rec.mark("kernel")
+        appended, accepted, proposed = self._spec_commit(
+            logits, toks_in, n_tokens, active, is_greedy)
+        rolled_back = 0
+        for i, slot in enumerate(slots):
+            if slot.request is None:
+                continue   # idle, or _complete released every page
+            keep = -(-slot.kv_len // t)
+            if len(slot.pages) > keep:
+                # pages past the committed length hold only rejected rows,
+                # all private (shared prefix pages lie below kv_len)
+                dropped = slot.pages[keep:]
+                del slot.pages[keep:]
+                slot.table_len = keep
+                self._page_tables_np[i, keep:] = 0
+                with self._prefix_lock:
+                    self._kv_store.release(dropped)
+                rolled_back += len(dropped)
+        if rolled_back:
+            self.metrics.incr("tpu_serving_paged_speculative_rollback_pages",
+                              rolled_back)
+        self._observe_step(sum(active))
+        if rec is not None:
+            rec.step_end(mode="spec_verify", active=sum(active),
+                         draining=self._draining.is_set(), paged=True,
+                         spec_k=k, adapters=adapters, tokens=sum(appended),
+                         rids=[s.request.rid for s in slots
+                               if s.request is not None],
+                         arena=self._arena_step_stats(),
+                         spec={"proposed": proposed, "accepted": accepted,
+                               "rolled_back_pages": rolled_back})
+        return True
+
+    def _spec_commit(self, logits: torch.Tensor, toks_in: np.ndarray,
+                     widths, active: list, is_greedy: list
+                     ) -> tuple[list, int, int]:
+        """A verify step's sampling and commit, on either loop: logits (B,
+        K + 1, V) of [last token, drafts] per slot. A greedy slot commits
+        the drafts its argmax matches plus the corrected token, at most
+        ``widths[i]``; a sampled, penalized or biased slot draws token 1
+        from logits[:, 0] after ``_maybe_penalize``. Greedy logprobs are
+        max - logsumexp. Counts ``tpu_serving_spec_proposed`` and
+        ``_accepted`` (drafts consumed, so an early finish does not count
+        the rest), observes the inter-token gaps and marks the recorder's
+        sample phase. Returns (tokens appended per slot, drafts accepted,
+        drafts proposed)."""
+        k = self.sc.speculate_k
+        slots = self._slots
         # one device -> host copy of every slot's K-wide argmax; logprobs
         # and sampled draws are read from the logits now, before the next
         # replay overwrites the graph's output
@@ -2716,19 +2810,20 @@ class ServingEngine:
         self._slot_draws = [d + 1 for d in self._slot_draws]
         proposed = k * sum(is_greedy)
         self.metrics.incr("tpu_serving_spec_proposed", proposed)
-        if rec is not None:
-            rec.mark("sample")
+        if self.recorder is not None:
+            self.recorder.mark("sample")
         step_now = self._perf()
-        accepted = rolled_back = committed_total = 0
+        appended_by_slot = [0] * len(slots)
+        accepted = 0
         for i, slot in enumerate(slots):
             if not active[i]:
                 continue
             if is_greedy[i]:
                 committed = []
-                for j in range(n_tokens[i]):
+                for j in range(widths[i]):
                     g = int(greedy_np[i, j])
                     committed.append(g)
-                    if j + 1 >= n_tokens[i] or g != toks_in[i, j + 1]:
+                    if j + 1 >= widths[i] or g != toks_in[i, j + 1]:
                         break   # a mismatch: g is the corrected token
             else:
                 committed = [sampled[i]]
@@ -2750,38 +2845,12 @@ class ServingEngine:
                 if self._finished(slot):
                     self._complete(i, slot)
             self._observe_itl(slot, appended, step_now)
-            committed_total += appended
+            appended_by_slot[i] = appended
             if is_greedy[i] and appended > 1:
                 accepted += appended - 1   # drafts actually consumed
-            if slot.request is None:
-                continue   # _complete released every page
-            keep = -(-slot.kv_len // t)
-            if len(slot.pages) > keep:
-                # pages past the committed length hold only rejected rows,
-                # all private (shared prefix pages lie below kv_len)
-                dropped = slot.pages[keep:]
-                del slot.pages[keep:]
-                slot.table_len = keep
-                self._page_tables_np[i, keep:] = 0
-                with self._prefix_lock:
-                    self._kv_store.release(dropped)
-                rolled_back += len(dropped)
         if accepted:
             self.metrics.incr("tpu_serving_spec_accepted", accepted)
-        if rolled_back:
-            self.metrics.incr("tpu_serving_paged_speculative_rollback_pages",
-                              rolled_back)
-        self._observe_step(sum(active))
-        if rec is not None:
-            rec.step_end(mode="spec_verify", active=sum(active),
-                         draining=self._draining.is_set(), paged=True,
-                         spec_k=k, adapters=adapters, tokens=committed_total,
-                         rids=[s.request.rid for s in slots
-                               if s.request is not None],
-                         arena=self._arena_step_stats(),
-                         spec={"proposed": proposed, "accepted": accepted,
-                               "rolled_back_pages": rolled_back})
-        return True
+        return appended_by_slot, accepted, proposed
 
     def _commit_decode(self, logits: torch.Tensor):
         """Per-slot sampling, logprobs, stream emission, stop checks and
@@ -3069,6 +3138,14 @@ def _failed(exc: BaseException) -> Future:
     f: Future = Future()
     f.set_exception(exc)
     return f
+
+
+def _spec_greedy(req: Optional[Request]) -> bool:
+    """A live request a verify step drafts for: greedy and unmodded (a
+    penalty or logit bias changes the next token's logits with every
+    committed token, so a K-wide greedy run is stale after one)."""
+    return (req is not None and req.temperature <= 0.0
+            and not _logit_modded(req))
 
 
 def _is_int(v) -> bool:

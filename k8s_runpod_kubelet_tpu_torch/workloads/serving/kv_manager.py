@@ -392,6 +392,23 @@ class DensePrefixStore:
                 for e in self._entries]
 
 
+def _split_heads(x: torch.Tensor, n: int) -> torch.Tensor:
+    """(L, S, Hkv, ...) positions of every kv head -> (N·L, S, Hkv/N, ...),
+    shard s's layers first at s·L holding heads s·h .. (s+1)·h (x itself
+    when ``n`` is 1): a head-sharded arena's or contiguous cache's
+    layout."""
+    if n == 1:
+        return x
+    return x.unflatten(2, (n, -1)).movedim(2, 0).flatten(0, 1)
+
+
+def _join_heads(x: torch.Tensor, n: int) -> torch.Tensor:
+    """The inverse of ``_split_heads``."""
+    if n == 1:
+        return x
+    return x.unflatten(0, (n, -1)).movedim(0, 2).flatten(2, 3)
+
+
 class PagedKVStore:
     """The device arena behind PagePool/PrefixTrie. ``arena`` is the dict
     ``LlamaModel.init_paged_arena`` builds, every section paged as
@@ -434,22 +451,23 @@ class PagedKVStore:
         head-sharded arena, all of a replicated one."""
         return self.page_bytes // self.shards
 
-    def _to_dense(self, frag: torch.Tensor, n_tok: int) -> torch.Tensor:
+    def _to_dense(self, frag: torch.Tensor) -> torch.Tensor:
         """Pages (L', n, T, ...) of a section -> (L, n·T, ...) positions
         with every kv head in place (a sharded arena's shards side by side
         on the head axis)."""
-        n = self.shards
-        x = frag.reshape((n, frag.shape[0] // n, n_tok)
-                         + tuple(frag.shape[3:]))
-        return x.movedim(0, 2).flatten(2, 3) if n > 1 else x[0]
+        return _join_heads(frag.flatten(1, 2), self.shards)
 
     def _from_dense(self, src: torch.Tensor, n_pages: int) -> torch.Tensor:
         """The inverse of ``_to_dense``: (L, n·T, ...) positions -> pages
         (L', n, T, ...) of the arena's layout."""
-        n, t = self.shards, self.page_tokens
-        if n > 1:
-            src = src.unflatten(2, (n, -1)).movedim(2, 0).flatten(0, 1)
-        return src.reshape((src.shape[0], n_pages, t) + tuple(src.shape[2:]))
+        return _split_heads(src, self.shards).unflatten(
+            1, (n_pages, self.page_tokens))
+
+    def _cache_shards(self, single: dict, name: str) -> int:
+        """The kv-head shards of a single-request cache's section (the
+        model's ``cache_head_shards`` layout: (N·L, 1, S, Hkv/N, ...))."""
+        layers = self.arena[name].shape[0] // self.shards
+        return single[name].shape[0] // layers
 
     def match(self, adapter_id: int, tokens: list) -> MatchResult:
         return self.trie.match(adapter_id, tokens)
@@ -485,22 +503,24 @@ class PagedKVStore:
         """Matched pages -> the single-request cache ``single`` (a fresh
         ``LlamaModel.init_cache(1, ...)``, filled in place and returned)
         with positions 0 .. len(pages) * T and ``index`` set. The caller
-        still owns the match references."""
+        still owns the match references. A head-sharded cache takes each
+        shard's heads, whatever the arena's layout."""
         n, t = len(pages), self.page_tokens
         ids = torch.tensor(pages, dtype=torch.long,
                            device=single["index"].device)
         for name, a in self.arena.items():
             frag = a.index_select(1, ids)               # (L, n, T, ...)
-            single[name][:, 0, :n * t] = self._to_dense(frag, n * t)
+            single[name][:, 0, :n * t] = _split_heads(
+                self._to_dense(frag), self._cache_shards(single, name))
         single["index"].fill_(n * t)
         return single
 
     def fill_pages(self, single: dict, pages: list, start_tok: int) -> None:
         """Copy positions start_tok .. start_tok + len(pages) * T of a
-        single-request cache into ``pages`` (the caller owns their
-        references); positions past the cache's length copy as zeros
-        (masked by attention, overwritten by decode writes), so the last
-        page never reads a clamped slice."""
+        single-request cache (whole or head-sharded) into ``pages`` (the
+        caller owns their references); positions past the cache's length
+        copy as zeros (masked by attention, overwritten by decode writes),
+        so the last page never reads a clamped slice."""
         n, t = len(pages), self.page_tokens
         for name, a in self.arena.items():
             ids = torch.tensor(pages, dtype=torch.long, device=a.device)
@@ -509,7 +529,8 @@ class PagedKVStore:
                 pad = src.new_zeros((src.shape[0], n * t - src.shape[1])
                                     + tuple(src.shape[2:]))
                 src = torch.cat([src, pad], dim=1)
-            a.index_copy_(1, ids, self._from_dense(src, n))
+            a.index_copy_(1, ids, self._from_dense(
+                _join_heads(src, self._cache_shards(single, name)), n))
 
     def insert(self, adapter_id: int, tokens: list, single: dict,
                pin: bool = False) -> tuple[int, int]:
@@ -559,7 +580,7 @@ class PagedKVStore:
             ids = torch.tensor(pages, dtype=torch.long, device=a.device)
             frag = a.index_select(1, ids)
             if self.shards > 1:
-                frag = self._to_dense(frag, n * t).unflatten(1, (n, t))
+                frag = self._to_dense(frag).unflatten(1, (n, t))
             out[name] = frag
         return out
 

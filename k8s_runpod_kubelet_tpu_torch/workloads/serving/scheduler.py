@@ -28,6 +28,8 @@ class ServingConfig:
     cache_len: int = 1024        # per-slot KV budget (prompt + generation)
     max_new_tokens: int = 128
     eos_token: int = -1          # -1 = never stop on a token
+    # the temperature a request that names none samples at (0 = greedy)
+    temperature: float = 0.0
     # tokens per KV page (the pool's allocation and prefix-match granule)
     kv_page_tokens: int = 16
     # pages in the arena. 0 = auto: twice the slots' residency (slots *
@@ -72,7 +74,8 @@ class ServingConfig:
     # without the paged loop
     paged_prefill: Optional[bool] = None
     # speculative decoding by prompt lookup: draft this many tokens a step
-    # and verify them in ONE paged_verify_step at K = speculate_k + 1.
+    # and verify them in ONE step at K = speculate_k + 1 (paged_verify_step
+    # on the paged loop, verify_step over the contiguous loop's cache).
     # Greedy slots commit every matched draft plus the corrected token;
     # sampled (and penalized or biased) slots commit one token a step.
     # Greedy output equals the non-speculative engine's where no two

@@ -36,15 +36,17 @@ bias's add and a windowed model's band are plain ops or kernel arguments
 inside the same capture.
 
 ``DecodeGraph`` is the contiguous loop's step (the JAX engine's jitted
-``decode_step``): ``decode_step`` over the engine's batch cache, fed by a
-staged (tokens, active, adapter ids) buffer, with no host sync inside (the
-step's ``check`` off). Its graph bakes in the cache's sections, both RoPE
-tables and the adapter stacks; each slot's adapter id is data, as on the
-paged steps, so mixed ids share one replay and an adapter written into
-the stacks in place needs no capture. A replay launches ``rms_norm`` 2L +
+``decode_step``, and at width K + 1 its jitted speculative ``verify_step``):
+the step over the engine's batch cache, fed by a staged (tokens, active,
+adapter ids) buffer, with no host sync inside (the step's ``check``
+off). Its graph bakes in the cache's sections, both RoPE tables and the
+adapter stacks; each slot's adapter id is data, as on the paged steps, so
+mixed ids share one replay and an adapter written into the stacks in
+place needs no capture. A replay launches ``rms_norm`` 2L +
 1 times, 4L + 1 with sandwich norms or the q/k norm and 6L + 1 with both
-(gemma2-9b 169, gemma3-12b 289, llama3-8b 65); its attention is the plain
-f32 einsum, no kernel.
+(gemma2-9b 169, gemma3-12b 289, llama3-8b 65), at any width; its
+attention is the plain f32 einsum, no kernel (over a head-sharded cache
+each shard's q heads attend its own kv heads).
 
 On the CPU the same staged buffers feed the eager step: the dispatch is on
 the model's device, as in the kernel wrappers, and not a fallback. On a
@@ -301,32 +303,41 @@ class StepGraph:
 
 
 class DecodeGraph(StepGraph):
-    """``decode_step`` of ``model`` over a contiguous batch cache of
+    """``decode_step`` (``width`` 1) or ``verify_step`` (``width`` K + 1,
+    the speculative verify) of ``model`` over a contiguous batch cache of
     ``slots`` rows, captured once and replayed (the module docstring). The
+    verify step writes every active row's K + 1 positions and advances no
+    index: the engine moves each row's index by what it committed. The
     capture's warm-up steps run with every row inactive, which writes
     nothing and advances no index."""
 
-    def __init__(self, model, slots: int):
-        super().__init__(model, 1, slots, 1)
+    def __init__(self, model, slots: int, width: int = 1):
+        super().__init__(model, width, slots, 1)
 
     def _step(self, params, cache, adapters=None) -> torch.Tensor:
         s = self.static
         ids = s["adapter_ids"] if adapters else None
-        logits, _ = self.model.decode_step(params, s["tokens"][:, 0], cache,
-                                           s["active"] != 0,
+        active = s["active"] != 0
+        if self.width == 1:
+            logits, _ = self.model.decode_step(
+                params, s["tokens"][:, 0], cache, active, adapters=adapters,
+                adapter_ids=ids, check=False)
+            return logits
+        logits, _ = self.model.verify_step(params, s["tokens"], cache, active,
                                            adapters=adapters,
                                            adapter_ids=ids, check=False)
         return logits
 
     def run(self, params, cache, tokens, active, adapters=None,
             adapter_ids=None) -> torch.Tensor:
-        """One step over the host's values, tokens (B,) and active (B,),
-        and with the multi-LoRA ``adapters`` stacks each slot's
-        ``adapter_ids`` (B,) (default 0, the base): the cache's active
-        rows take their token's K/V and advance their index. Returns the
-        logits (B, V) f32 (on a card the graph's static output)."""
+        """One step over the host's values, tokens (B,) or (B, K + 1) and
+        active (B,), and with the multi-LoRA ``adapters`` stacks each
+        slot's ``adapter_ids`` (B,) (default 0, the base): the cache's
+        active rows take their tokens' K/V (and at width 1 advance their
+        index). Returns the logits, (B, V) or (B, K + 1, V) f32 (on a card
+        the graph's static output)."""
         st = self._stage(params, cache, adapters)
-        st["tokens"][:] = np.asarray(tokens).reshape(self.slots, 1)
+        st["tokens"][:] = np.asarray(tokens).reshape(self.slots, self.width)
         st["active"][:] = np.asarray(active)
         st["adapter_ids"][:] = 0 if adapter_ids is None else adapter_ids
         return self._launch(params, cache, adapters)

@@ -476,8 +476,10 @@ def main(argv=None) -> int:
                       and cfg.sliding_window_pattern > 1))
     if contiguous:
         if args.tensor_parallel > 1 or args.lora_rank or args.speculate:
-            p.error("the contiguous loop takes no --tensor-parallel, "
-                    "--lora-rank or --speculate")
+            p.error("the contiguous loop's profile takes no "
+                    "--tensor-parallel, --lora-rank or --speculate "
+                    "(chip_smoke.py phase 7g (e) and (f) time its verify "
+                    "and tensor-parallel replays)")
         out.update(_contiguous(cfg, dev, params, args))
         return _emit(out, args.out)
     if args.tensor_parallel > 1:

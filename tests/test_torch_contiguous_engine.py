@@ -14,13 +14,15 @@ the same f32 weights:
 - ``_pick_ring_len`` equals the JAX engine's over a grid of
   ``ServingConfig``s, ``ServingEngine.contiguous_cache`` builds the
   engine's batch cache, and ``DensePrefixStore`` behaves as the JAX one;
-- the loop selection and the refusals (speculative decoding and a
-  tensor mesh on the contiguous loop, ``paged_decode=True`` on an
+- the loop selection and the refusals (``paged_decode=True`` on an
   interleave, ``paged_prefill=True`` without the paged loop,
-  ``ring_cache=True`` without a window), and multi-LoRA, which the loop
-  serves: the engine builds there, the flags parse and serve;
+  ``ring_cache=True`` without a window), and speculative decoding,
+  multi-LoRA and a tensor mesh, which the loop serves: the engine builds
+  there, the flags parse and serve;
 - ``serve_main``'s ``--prefix-cache``, ``--paged-decode``,
-  ``--paged-prefill`` and ``--ring-cache``, checked before any weight.
+  ``--paged-prefill``, ``--kv-page-tokens`` and ``--ring-cache`` (None
+  unless given, as the JAX flags, then resolved), checked before any
+  weight.
 """
 
 import itertools
@@ -245,23 +247,34 @@ def g2_port():
 
 
 @pytest.mark.parametrize("extra,match", [
-    (dict(speculate_k=2), "Queue 1 #3.1"),
+    (dict(speculate_k=2), None),
     (dict(lora_rank=4), None),
     (dict(paged_decode=True), "paged_decode=True needs"),
     (dict(paged_prefill=True), "paged_prefill=True needs")],
     ids=["speculate", "lora", "paged_decode", "paged_prefill"])
 def test_the_contiguous_loop_refuses_by_name(g2_port, extra, match):
     """What the contiguous loop refuses, by name; ``match`` None is a
-    setting it serves (multi-LoRA on the contiguous loop): the engine
-    builds on that loop with the adapter stacks."""
+    setting it serves (speculative decoding, multi-LoRA): the engine builds
+    on that loop with its verify graph or its adapter stacks and answers a
+    request."""
     cfg, params = g2_port
     if match is None:
         engine = ServingEngine(cfg, params, ServingConfig(**SC, **extra),
-                               device="cpu")
-        snap = engine.debug_snapshot()
-        assert (snap["paged_decode"], snap["cache_layout"]) == (False,
-                                                                "mixed")
-        assert snap["multi_lora"] and snap["lora_rank"] == 4
+                               device="cpu").start()
+        try:
+            snap = engine.debug_snapshot()
+            assert (snap["paged_decode"], snap["cache_layout"]) == (
+                False, "mixed")
+            if "lora_rank" in extra:
+                assert snap["multi_lora"] and snap["lora_rank"] == 4
+            else:
+                assert snap["speculate_k"] == 2
+                assert set(engine.graphs_snapshot()) == {"decode", "verify"}
+            out = engine.submit([5, 6, 7, 5, 6], max_new_tokens=6).result(
+                timeout=TIMEOUT)
+            assert len(out["tokens"]) == 6
+        finally:
+            engine.stop()
         return
     with pytest.raises(ValueError, match=match):
         ServingEngine(cfg, params, ServingConfig(**SC, **extra),
@@ -269,12 +282,24 @@ def test_the_contiguous_loop_refuses_by_name(g2_port, extra, match):
 
 
 def test_a_tensor_mesh_and_a_ring_without_window_are_refused():
+    """A tensor mesh on the contiguous loop builds and serves, its batch
+    cache head-sharded; a ring without a window is refused."""
     jcfg = jllama.tiny_llama(**SMALL)
     cfg, params = _port(jcfg, jax_init_params(jcfg, jax.random.PRNGKey(3)))
-    with pytest.raises(ValueError, match="Queue 1 #3.3"):
-        ServingEngine(cfg, params,
-                      ServingConfig(**SC, prefix_cache_enabled=False),
-                      device="cpu", mesh=make_mesh(MeshConfig(tensor=2)))
+    engine = ServingEngine(cfg, params,
+                           ServingConfig(**SC, prefix_cache_enabled=False),
+                           device="cpu",
+                           mesh=make_mesh(MeshConfig(tensor=2))).start()
+    try:
+        snap = engine.debug_snapshot()
+        assert (snap["paged_decode"], snap["tensor_parallel"],
+                snap["cache_head_shards"], snap["paged_tp_shards"]) == (
+                    False, 2, 2, 0)
+        out = engine.submit([5, 6, 7], max_new_tokens=4).result(
+            timeout=TIMEOUT)
+        assert len(out["tokens"]) == 4
+    finally:
+        engine.stop()
     with pytest.raises(ValueError, match="needs a model with a sliding"):
         ServingEngine(cfg, params, ServingConfig(**SC, ring_cache=True),
                       device="cpu")
@@ -302,28 +327,42 @@ def test_loop_selection_follows_the_jax_rule():
 # -- serve_main ---------------------------------------------------------------------
 
 def test_serve_flags_parse_with_the_jax_meanings():
+    """The knob flags default to None, as the JAX CLI's, so that the
+    environment and --config can win; with nothing set they resolve to the
+    JAX config's defaults, and a flag to its own value."""
     args = serve_main.parse_args([])
-    assert (args.prefix_cache, args.paged_decode, args.paged_prefill,
-            args.ring_cache) == ("on", "auto", "auto", "auto")
+    assert (args.prefix_cache_enabled, args.kv_paged_decode,
+            args.kv_paged_prefill, args.kv_page_tokens, args.kv_pool_pages,
+            args.config, args.ring_cache) == (None, None, None, None, None,
+                                              "", "auto")
+    got = serve_main.resolve_settings(args, env={})
+    assert (got["prefix_cache_enabled"], got["kv_paged_decode"],
+            got["kv_paged_prefill"], got["kv_page_tokens"],
+            got["kv_pool_pages"]) == (True, True, True, 16, 0)
     args = serve_main.parse_args(["--model", "gemma3-12b", "--prefix-cache",
                                   "off", "--paged-decode", "off",
                                   "--paged-prefill", "off", "--ring-cache",
-                                  "on"])
+                                  "on", "--kv-page-tokens", "32"])
     assert args.model == "gemma3-12b" and args.ring_cache == "on"
+    got = serve_main.resolve_settings(args, env={})
+    assert (got["prefix_cache_enabled"], got["kv_paged_decode"],
+            got["kv_paged_prefill"], got["kv_page_tokens"]) == (
+                False, False, False, 32)
     assert "gemma2-9b" in serve_main.parse_args(
         ["--model", "gemma2-9b"]).model
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--prefix-cache", "off", "--speculate", "2"], "Queue 1 #3.1"),
+    (["--prefix-cache", "off", "--speculate", "2"], None),
     (["--paged-decode", "off", "--lora-rank", "4"], None),
-    (["--prefix-cache", "off", "--tensor-parallel", "2"], "Queue 1 #3.3"),
+    (["--prefix-cache", "off", "--tensor-parallel", "2"], None),
     (["--ring-cache", "on"], "sliding window")],
     ids=["speculate", "lora", "tensor", "ring"])
 def test_serve_flags_are_checked_before_any_weight(monkeypatch, argv, match):
     """Flags the contiguous loop refuses fail before any weight is drawn;
-    ``match`` None is a setting it serves (multi-LoRA): the flags parse,
-    the engine builds on the contiguous loop and answers a request."""
+    ``match`` None is a setting it serves (speculative decoding,
+    multi-LoRA, a tensor mesh): the flags parse, the engine builds on the
+    contiguous loop and answers a request."""
     from k8s_runpod_kubelet_tpu_torch import models
 
     args = serve_main.parse_args(["--device", "cpu", "--model", "tiny"]
@@ -331,7 +370,14 @@ def test_serve_flags_are_checked_before_any_weight(monkeypatch, argv, match):
     if match is None:
         engine, _ = serve_main.build_engine(args)   # started
         try:
-            assert not engine._paged_loop and engine.multi_lora_enabled
+            assert not engine._paged_loop
+            snap = engine.debug_snapshot()
+            if "--lora-rank" in argv:
+                assert engine.multi_lora_enabled
+            elif "--speculate" in argv:
+                assert snap["speculate_k"] == 2 and "verify" in snap["graphs"]
+            else:
+                assert snap["tensor_parallel"] == 2
             out = engine.submit([5, 6, 7], max_new_tokens=3).result(
                 timeout=TIMEOUT)
             assert len(out["tokens"]) == 3

@@ -1910,6 +1910,121 @@ def test_decode_graph_replay_matches_eager(cuda, layout):
     assert counts["rms_norm"] == norms and sum(counts.values()) == norms
 
 
+def _contiguous_setup(cuda, layout, mesh=None):
+    """A tiny Gemma-2-shaped config (mixed cache) or a tiny Llama (linear
+    cache, or with a uniform window of 8 a 16-slot ring), its bf16 params
+    on the card (laid out over ``mesh``'s shards when given) and a 4-row
+    cache prefilled with 6 tokens a row."""
+    import copy
+
+    from k8s_runpod_kubelet_tpu_torch.models.llama import (LlamaModel,
+                                                           tiny_llama)
+    from k8s_runpod_kubelet_tpu_torch.parallel.sharding import shard_params
+
+    g2 = dict(sliding_window=8, sliding_window_pattern=2,
+              attn_logit_softcap=50.0, query_pre_attn_scalar=64.0,
+              post_norms=True, logit_softcap=30.0)
+    extra = {"mixed": g2, "linear": {}, "ring": dict(sliding_window=8)}
+    # head_dim 64: the prefill's flash kernel takes 64, 128, 192 or 256
+    cfg = tiny_llama(vocab_size=128, embed_dim=128, n_layers=4, n_heads=4,
+                     n_kv_heads=2, head_dim=64, mlp_dim=128, max_seq_len=256,
+                     **extra[layout])
+    model = LlamaModel(cfg, cuda, mesh)
+    params = init_params_cpu(cfg, torch.Generator().manual_seed(7))
+    if mesh is not None:
+        params = shard_params(cfg, copy.deepcopy(params), mesh)
+    params = {k: (v.to(cuda) if isinstance(v, torch.Tensor) else
+                  {n: w.to(cuda) for n, w in v.items()})
+              for k, v in params.items()}
+    cache = {"linear": lambda: model.init_cache(4, 64),
+             "mixed": lambda: model.init_mixed_cache(4, 64, 16),
+             "ring": lambda: model.init_ring_cache(4, 16)}[layout]()
+    prompt = torch.randint(0, 128, (4, 6), device=cuda,
+                           generator=torch.Generator(cuda).manual_seed(5))
+    model.prefill(params, prompt, cache)
+    return cfg, model, params, cache
+
+
+@pytest.mark.parametrize("layout", ["mixed", "ring", "linear"])
+def test_verify_graph_replay_matches_eager(cuda, layout):
+    """The contiguous loop's K + 1 = 4-wide verify graph (the speculative
+    step) against the eager ``verify_step`` on a copy of the cache, over
+    12 steps whose index moves by 1 to 4 (what a row commits), wrapping the
+    16-slot ring and writing past the 64-position linear section: logits
+    and every section bit-identical, one capture, the norm kernel counted
+    at each replay and no other counted kernel."""
+    import numpy as np
+
+    from k8s_runpod_kubelet_tpu_torch.workloads.serving.step_graph import \
+        DecodeGraph
+
+    cfg, model, params, cache = _contiguous_setup(cuda, layout)
+    # rows near the end of the 64 positions: their writes run past it
+    cache["index"] += torch.tensor([30, 45, 0, 52], dtype=torch.int32,
+                                   device=cuda)
+    ref = {k: v.clone() for k, v in cache.items()}
+    graph = DecodeGraph(model, 4, width=4)
+    graph.capture(params, cache, torch.cuda.graph_pool_handle())
+    for name in cache:
+        assert torch.equal(cache[name], ref[name]), name   # warm-up: no write
+    norms = (4 if cfg.post_norms else 2) * cfg.n_layers + 1
+    assert graph.launches_per_replay["rms_norm"] == norms
+    assert sum(graph.launches_per_replay.values()) == norms
+    active = np.array([True, True, False, True])
+    rng = np.random.default_rng(4)
+    for _ in range(12):
+        toks = rng.integers(0, 128, (4, 4)).astype(np.int32)
+        before = rms_norm.launches
+        got = graph.run(params, cache, toks, active).clone()
+        assert rms_norm.launches - before == norms
+        want, _ = model.verify_step(params, torch.from_numpy(toks).to(cuda),
+                                    ref, torch.from_numpy(active).to(cuda),
+                                    check=False)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        for name in cache:
+            assert torch.equal(cache[name], ref[name]), name
+        commit = torch.from_numpy(
+            rng.integers(1, 5, 4) * active).to(cuda, torch.int32)
+        cache["index"] += commit
+        ref["index"] += commit
+    assert graph.captures == 1 and graph.replays == 12
+    assert graph.kernels_in_graph()["rms_norm"] == norms
+
+
+@pytest.mark.parametrize("layout", ["mixed", "linear"])
+def test_tp2_contiguous_decode_step_matches_tp1(cuda, layout):
+    """A decode step over a head-sharded contiguous cache (an in-process
+    tensor mesh of 2) against the one-device step on the same bf16
+    weights: logits within the bf16 tolerance (relative L2 3e-2), every
+    shard's cache heads equal to the one-device cache's heads s·h ..
+    (s+1)·h within one bf16 rounding of the written rows; ``flash_fwd``
+    twice a layer in the prefill (once a shard)."""
+    from k8s_runpod_kubelet_tpu_torch.parallel import MeshConfig, make_mesh
+
+    mesh = make_mesh(MeshConfig(tensor=2))
+    _, one, p1, whole = _contiguous_setup(cuda, layout)
+    before = flash_fwd.launches
+    cfg, two, p2, sharded = _contiguous_setup(cuda, layout, mesh)
+    assert flash_fwd.launches - before == 2 * cfg.n_layers
+    assert two.cache_shards(sharded) == 2
+    tok = torch.tensor([3, 9, 27, 81], dtype=torch.int32, device=cuda)
+    for _ in range(3):
+        la, whole = one.decode_step(p1, tok, whole)
+        lb, sharded = two.decode_step(p2, tok, sharded)
+        torch.cuda.synchronize()
+        assert float((lb - la).norm() / la.norm()) < 3e-2
+        tok = la.argmax(-1).to(torch.int32)
+    for name in ("k", "v", "k_l", "v_l", "k_g", "v_g"):
+        if name not in whole:
+            continue
+        h = whole[name].shape[3] // 2
+        shards = sharded[name].view(2, -1, *sharded[name].shape[1:])
+        for s in range(2):
+            a, b = shards[s].float(), whole[name][..., s * h:(s + 1) * h, :]
+            assert float((a - b.float()).norm() / b.float().norm()) < 3e-2
+
+
 # -- the replica's profile route on the card -------------------------------------------
 
 def test_debug_profile_names_the_paged_kernel_and_the_norm(cuda):

@@ -207,21 +207,23 @@ def test_kv_fetch_answers_gone_for_an_evicted_run_and_refuses_other_models(
 FLAGS = {
     "defaults": ([], {}, {"serving_role": "unified",
                           "handoff_stream_window": 8,
-                          "device_transfer": True, "pull_timeout": 10.0}),
+                          "fleet_device_transfer_enabled": True,
+                          "fleet_pull_timeout_s": 10.0}),
     "flags": (["--serving-role", "decode", "--handoff-stream-window", "3",
                "--device-transfer", "off", "--pull-timeout", "2.5"],
               {"TPU_SERVING_ROLE": "prefill"},
               {"serving_role": "decode", "handoff_stream_window": 3,
-               "device_transfer": False, "pull_timeout": 2.5,
-               "placement_domain": ""}),
+               "fleet_device_transfer_enabled": False,
+               "fleet_pull_timeout_s": 2.5, "fleet_placement_domain": ""}),
     "environment": ([], {"TPU_SERVING_ROLE": "prefill",
                          "TPU_HANDOFF_STREAM_WINDOW": "4",
                          "TPU_FLEET_DEVICE_TRANSFER_ENABLED": "false",
                          "TPU_FLEET_PULL_TIMEOUT_S": "3"},
                     {"serving_role": "prefill", "handoff_stream_window": 4,
-                     "device_transfer": False, "pull_timeout": 3.0}),
+                     "fleet_device_transfer_enabled": False,
+                     "fleet_pull_timeout_s": 3.0}),
     "domain": (["--placement-domain", "card:0"], {},
-               {"placement_domain": "card:0"}),
+               {"fleet_placement_domain": "card:0"}),
 }
 
 
@@ -231,8 +233,8 @@ def test_fleet_flags_resolve_as_the_jax_config(case):
     args = serve_main.parse_args(["--device", "cpu", "--model", "tiny"]
                                  + argv)
     assert args.device == "cpu"
-    got = serve_main.fleet_settings(args, env=env)
+    got = serve_main.resolve_settings(args, env=env)
     assert {k: got[k] for k in want} == want
     if case == "defaults":
-        assert got["placement_domain"].startswith("proc:")
+        assert got["fleet_placement_domain"].startswith("proc:")
     assert serve_main.parse_args([]).device == "cuda"
