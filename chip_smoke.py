@@ -319,8 +319,21 @@ Step graphs (phases 4, 7s, 7b, 7c, 7d). Each engine captures its decode
    forward of the dequantized weights (f32 routing, each token's top-2
    experts, no capacity buffer), one layer at a time, limit 0.15, with the
    skipped-layer control and the count of (token, layer) pairs whose
-   router's 2nd and 3rd probabilities lie within 1e-3; HTTP, drain with
-   zero leaked pages; then the Mixtral weights are freed before training;
+   router's 2nd and 3rd probabilities lie within 1e-3; (h) the same int4
+   tree laid out again through the serve CLI at ``--tensor-parallel 2
+   --expert-parallel 2`` in one process (``moe_ep_tp_phase``; no second
+   draw, the experts held once): the burst with exact launches a step
+   (64 of row 8, 129 of row 15, 96 of row 14: one launch over every
+   expert shard's experts, 65 of row 12; listed as ``serve_moe_ep2_tp2``),
+   (g1)-(g5), 7m's layer check on this engine (the one-device tree the
+   references' weights) with the control of wq's two tensor shards
+   swapped in every layer, which must miss (in one process the expert
+   split is the identity, so this holds the tensor split, the layout and
+   the launches); the greedy tokens and the
+   checked prompt's logits against the one-device engine's and the plain
+   f32 forward's, reported as 7m reports its own; the peak; HTTP, drain
+   with zero leaked pages; then the Mixtral weights are freed before
+   training;
 7v. DeepSeek-V2-Lite (``deepseek_phase``) at full width and depth, its
    norms drawn at U(0.75, 1.25): (a) the engine the serve CLI builds from
    ``--model deepseek-v2-lite`` over the bf16 tree (8 slots, cache_len
@@ -340,9 +353,15 @@ Step graphs (phases 4, 7s, 7b, 7c, 7d). Each engine captures its decode
    loop's or part from them at a near tie (``SPEC_TIE_MARGIN``); (b)
    ``--int4 --kv-int8`` from a tree drawn and quantized a layer at a
    time, the same checks with 78 ``int4_expert_matmul``, 163
-   ``int4_matmul`` and 27 of row 11 a step; (d) ``step_profile --model
-   deepseek-v2-lite`` in bf16 (with a training step at 4 layers) and
-   int4;
+   ``int4_matmul`` and 27 of row 11 a step; (f) (b)'s tree again at
+   ``--expert-parallel 2`` (``deepseek_ep_run``; tensor 1, the experts
+   held once) on (b)'s burst with (b)'s launches a step, its greedy
+   tokens against (b)'s, reported: the computation is (b)'s, so this ~4 s
+   run holds DeepSeek's ``--expert-parallel`` path through the serve CLI
+   and the engine's expert mesh and counts its launches; (d)
+   ``step_profile --model deepseek-v2-lite`` in bf16 (with a training
+   step at 4 layers; the int4 profile was cut to pay for this PR's new
+   phases);
 7f. the other dense families, one at a time at full width and depth,
    the card freed between them: gemma-7b, qwen2-7b, qwen3-8b and
    mistral-7b, bf16 weights from the seed with their q/k/v biases, q/k
@@ -388,8 +407,14 @@ Step graphs (phases 4, 7s, 7b, 7c, 7d). Each engine captures its decode
    one step at each window edge, their device time printed; (d) one
    register and heartbeats whose stats carry exactly the JAX reporter's
    keys and whose schema-1 metrics snapshot agrees with ``/metrics``, and
-   a deregister after the drain; (e) the burst's decode tokens/s per
-   stream and (g3)'s replay wall beside phase 4's (reported); (g1)-(g5);
+   a deregister after the drain; (f) the cost meter, on by default
+   (``cost_checks``): requests under two ``X-Tenant`` values and one
+   OpenAI ``user``, then ``/debug/costs``: each tenant's chip-seconds the
+   sum of its requests' walls x 1 card within 1 ms a request, its dollars
+   chip-seconds x the ``h100`` row's price / 3600, the request spans
+   carrying the same, and a heartbeat carrying the ledger; (e) the
+   burst's decode tokens/s per stream and (g3)'s replay wall beside phase
+   4's (reported); (g1)-(g5);
 7k. disaggregated serving (``disagg_phase``, after 7x on phase 4's tree;
    ``--disagg`` runs it alone): the router's two hops played by hand.
    (a) the device rung between engines of this process (2 slots,
@@ -532,10 +557,16 @@ Step graphs (phases 4, 7s, 7b, 7c, 7d). Each engine captures its decode
    --fused-ce-chunks 8 --batch 4 --seq-len 2048 --steps 6 --data``
    (a seeded 61-token pattern repeated, written by the phase; the native
    loader must read it) ``--checkpoint-every 3 --telemetry-port
-   --export-adapter``: the loss falls, every frozen leaf bit-identical
-   after the run (checksums on the card), Adam moments only on the LoRA
-   leaves, the logged trainable count, the peak within 80 GB, launches
-   exact each step (64 / 32 / 32 / 129), median step wall and tokens/s;
+   --export-adapter --profile-dir``: the loss falls, every frozen leaf
+   bit-identical after the run (checksums on the card), Adam moments only
+   on the LoRA leaves, the logged trainable count, the peak within 80 GB,
+   launches exact each step (64 / 32 / 32 / 129); the profile's Chrome
+   trace holding exactly steps 3-5 (three ``train_step`` ranges, and rows
+   1-3 and 12 at three steps' launches, 192 / 96 / 96 / 387, as
+   ``step_profile.trace_kernel_events`` reads them, none over and at most
+   FT_TRACE_LOST records a family lost by CUPTI); the untraced steps
+   after the first (2 and 6) within FT_UNTRACED_REL of the fine-tune's
+   median step without the profiler, their median and tokens/s;
    (d) one ``TPU_STEP_HEARTBEAT`` a step within 5% of the phase's own
    wall of the step, the last ``TPU_TELEMETRY`` line at step 6 with
    goodput in (0, 1] and the MFU of the h100 row's 989 TFLOP/s, exposure 0
@@ -584,7 +615,8 @@ Step graphs (phases 4, 7s, 7b, 7c, 7d). Each engine captures its decode
    the cap, SDPA without it); each capped case again at q drawn LARGE_Q
    (8) times larger, where the scores reach toward the cap
    (``large_q_check``: each output within LARGE_Q_REL_L2 relative L2 of
-   its plain version, the cap left out of the backward beyond it); row
+   its plain version and per element, the cap left out of the backward
+   beyond the L2 limit); row
    12 with gradients at 8192 x 3584, 8192 x 3840 and 131072 x 256 (its
    control a dx without the mean square's term). (b) gemma2-9b widths at 4
    layers and gemma3-12b at 6, batch 1 x 8192, fused loss: step 1's
@@ -736,6 +768,15 @@ MLA_INT8_ENGINE_REL_L2_LIMIT = 0.15
 # kept rather than the bf16 engine's 0.1 (the phase prints how many (token,
 # layer) pairs of the forward are such near ties)
 MOE_ENGINE_REL_L2_LIMIT = 0.15
+# phase 7x (f): a tenant's chip-seconds against the sum of its requests'
+# walls (1 card), a request at a time: the ledger rounds each phase to
+# 1e-6 s, the span's latency is the same perf-clock difference
+COST_WALL_TOL_S = 1e-3
+# phase 7m (h): the Mixtral tree again over an in-process expert x tensor
+# mesh, held layer by layer as 7m is (MOE_LAYER_REL_L2_LIMIT)
+EP7M, TP7M = 2, 2
+# phase 7v (f): deepseek-v2-lite --int4 --kv-int8 at this expert degree
+EP7V = 2
 # ... which the first run missed (PERF.md, PR 12): the engine read 0.4856
 # and its skipped-layer control 0.4797, so on random weights this check
 # cannot tell a right engine from a broken one. A near tie flips one
@@ -796,6 +837,21 @@ FT_PATTERN, FT_WINDOWS = 61, 48
 # step (the heartbeat's interval also holds the batch's fetch and the
 # telemetry's own work, well under 1% of a ~1 s step)
 FT_HEARTBEAT_REL = 0.05
+# (c): train_main --profile-dir traces steps 3-5 (the JAX main's two
+# untraced steps, then three traced); the median of the two untraced
+# steps after the first (2 and 6, so their mean) must stay within
+# FT_UNTRACED_REL of FT_BASE_STEP_S, the fine-tune's median step without
+# the profiler as PR 21's run read it (0.9341 s on an NVIDIA H100 80GB
+# HBM3 at 700 W, PERF.md section 6)
+FT_TRACED = (3, 4, 5)
+FT_BASE_STEP_S, FT_UNTRACED_REL = 0.9341, 0.05
+# kernel records of a family the trace may lack: CUPTI lost 1 to 3 of
+# some 20,000 kernel records in two of five traces of those three steps
+# (flash_fwd and rms_norm, on an NVIDIA H100 80GB HBM3; a graph replay's
+# trace once lost records the same way), where a fourth step would add a
+# whole step's 64 / 32 / 32 / 129; the three host ``train_step`` ranges
+# are exact
+FT_TRACE_LOST = 3
 # (f): greedy tokens the served adapter generates
 FT_SERVE_TOKENS = 8
 # (d): runs of train_main, each on a newly picked free port, before the
@@ -976,9 +1032,9 @@ DS_GREEDY_TOKENS = 16
 
 
 def log(msg: str) -> None:
-    # a phase's header carries the seconds since the script started, so a
-    # run's log says where its time went
-    if msg.startswith("phase "):
+    # a phase's header, and each lettered part's line, carries the seconds
+    # since the script started, so a run's log says where its time went
+    if msg.startswith(("phase ", "  (")):
         msg = f"[{time.monotonic() - T_START:.1f} s] {msg}"
     print(msg, flush=True)
 
@@ -2120,11 +2176,12 @@ def rms_case(torch, F, dev, flush, shape, grad=False, control=False):
 # sigma 8, their largest near the cap of 50, where tanh bends them. There
 # each of o, dq, dk and dv is held to LARGE_Q_REL_L2 relative L2 off its
 # plain version (bf16 output rounding reads 1.66e-3 in each; PERF.md
-# §6), and the cap left out of the backward must exceed it in each of dq,
-# dk and dv. The per-element check is read there, not gated: a few dK and
-# dV elements near zero of 16.8 M miss its 1e-4 floor (ROADMAP Queue 3,
-# pinned by tests/test_torch_cuda.py; ``workloads/flash_large_logits.py``
-# reads dK against float64)
+# §6) and every element within the per-element check, and the cap left
+# out of the backward must exceed the relative L2 limit in each of dq, dk
+# and dv (the dK/dV kernel's per-element misses here, summed straight in
+# the wgmma accumulator, closed by csrc/flash_attention.cu's tile sum
+# (FLASH_DKV_STRAIGHT); ``workloads/flash_large_logits.py`` reads dK against
+# float64)
 LARGE_Q, LARGE_Q_REL_L2 = 8.0, 4e-3
 
 FLASH_CASES = [
@@ -2364,10 +2421,10 @@ def zero_offset_control(torch, q, k, v, do, args, lse, delta, refs) -> dict:
 def large_q_check(torch, q, k, v, do, args, mult: float) -> dict:
     """A capped case again at q times ``mult`` (scores toward the cap):
     each of the three kernels' outputs (o, dq, dk, dv) within
-    LARGE_Q_REL_L2 relative L2 of its plain version, and the control, dQ
-    and dK/dV launched without the cap on the same lse and delta, beyond
-    it in each of dq, dk and dv. The per-element check's largest share and
-    the elements over it are read beside, not gated (see LARGE_Q)."""
+    LARGE_Q_REL_L2 relative L2 of its plain version and within the
+    per-element check (no element over), and the control, dQ and dK/dV
+    launched without the cap on the same lse and delta, beyond the
+    relative L2 limit in each of dq, dk and dv."""
     from k8s_runpod_kubelet_tpu_torch.ops import flash_dkv, flash_dq, flash_fwd
     from k8s_runpod_kubelet_tpu_torch.ops.attention import (
         _flash_dkv_plain, _flash_dq_plain, _flash_fwd_plain)
@@ -2402,6 +2459,10 @@ def large_q_check(torch, q, k, v, do, args, mult: float) -> dict:
     if not worst <= LARGE_Q_REL_L2:
         raise RuntimeError(f"q x {mult:g}: relative L2 {worst:.3e} over "
                            f"{LARGE_Q_REL_L2} ({by})")
+    over = {n: c["elements_over"] for n, c in by.items() if c["elements_over"]}
+    if over:
+        raise RuntimeError(f"q x {mult:g}: elements over the per-element "
+                           f"check {over} ({by})")
     if not min(control.values()) > LARGE_Q_REL_L2:
         raise RuntimeError(f"q x {mult:g}: the cap left out of the backward "
                            f"passed the relative L2 limit ({control})")
@@ -2758,7 +2819,7 @@ def flash_case(torch, F, dev, flush, name, b, hq, hkv, s, d, causal, window,
             + f" (limit {LARGE_Q_REL_L2}); the cap left out of the backward "
             + ", ".join(f"{n} {x:.2e}" for n, x in
                         large["cap_left_out_of_backward_rel_l2"].items())
-            + "; per element (read): " + ", ".join(
+            + "; per element (none may be over): " + ", ".join(
                 f"{n} {r['max_share']:.2f} ({r['elements_over']} of "
                 f"{r['elements']} over)"
                 for n, r in large["by_output"].items()))
@@ -3718,6 +3779,7 @@ def finetune_phase(torch, dev, card: str) -> dict:
                 .tofile(data)
             ck = os.path.join(tmp, "ck")
             adapter_path = os.path.join(tmp, "ft_adapter.npz")
+            profile_dir = os.path.join(tmp, "profile")
             argv = ["--model", cfg.name, "--lora-rank", str(FT_RANK),
                     "--fused-ce-chunks", str(FT_CHUNKS), "--batch",
                     str(FT_BATCH), "--seq-len", str(FT_SEQ), "--lr",
@@ -3750,7 +3812,8 @@ def finetune_phase(torch, dev, card: str) -> dict:
                         rc = train_main.main(argv + [
                             "--steps", str(FT_STEPS), "--telemetry-port",
                             str(port), "--telemetry-every", "1",
-                            "--export-adapter", adapter_path])
+                            "--export-adapter", adapter_path,
+                            "--profile-dir", profile_dir])
                 except OSError as e:
                     if (e.errno != errno.EADDRINUSE or made
                             or attempt + 1 == FT_PORT_TRIES):
@@ -3773,6 +3836,9 @@ def finetune_phase(torch, dev, card: str) -> dict:
             out["finetune"] = finetune_checks(
                 torch, card, cfg, tr, summary, launches, per_step, peak,
                 main_s, cap.lines, loaders, lora_param_count)
+            out["finetune"]["profile"] = profile_dir_checks(
+                card, os.path.join(profile_dir, train_main.PROFILE_TRACE),
+                per_step, tr.walls)
             out["telemetry"] = telemetry_checks(
                 torch, card, cfg, tr, tee.lines, scrapes, ck,
                 parse_heartbeat, parse_telemetry)
@@ -3892,12 +3958,16 @@ def finetune_checks(torch, card, cfg, tr, summary, launches, per_step, peak,
     kinds = [type(x).__name__ for x in loaders]
     if kinds != ["NativeTokenLoader"]:
         raise RuntimeError(f"(c) the data went through {kinds}")
-    step_s = statistics.median(tr.walls[1:])
+    # the untraced steps after the first (--profile-dir traces FT_TRACED)
+    untraced = [w for i, w in enumerate(tr.walls[1:], 2)
+                if i not in FT_TRACED]
+    step_s = statistics.median(untraced)
     tok_s = FT_BATCH * FT_SEQ / step_s
     frozen_bytes = sum(t.numel() * t.element_size()
                        for t in _leaves(tr.params) if not t.requires_grad)
     out = {"losses": tr.losses, "step_walls_s": tr.walls,
-           "step_s_median": step_s, "tokens_per_s": tok_s,
+           "step_s_median": step_s, "untraced_steps_s": untraced,
+           "tokens_per_s": tok_s,
            "peak_bytes": peak, "init_peak_bytes": tr.init_peak,
            "adam_bytes": adam_bytes,
            "trainable_params": trainable, "logged": logged,
@@ -3907,14 +3977,63 @@ def finetune_checks(torch, card, cfg, tr, summary, launches, per_step, peak,
     log(f"  (c) [{card}] llama3-8b ({cfg.n_layers} layers) LoRA r={FT_RANK} "
         f"on wq, wv through train_main from a token file "
         f"({kinds[0]}): losses {[round(x, 4) for x in tr.losses]}; step "
-        f"walls {[round(w, 4) for w in tr.walls]} s, median of steps 2-"
-        f"{FT_STEPS} {step_s:.4f} s, {tok_s:.0f} tokens/s; {logged!r}; Adam "
+        f"walls {[round(w, 4) for w in tr.walls]} s (steps {FT_TRACED} "
+        f"traced), median of the untraced steps after the first "
+        f"{step_s:.4f} s, {tok_s:.0f} tokens/s; {logged!r}; Adam "
         f"state {adam_bytes / 1e6:.1f} MB on {len(moment_paths)} LoRA "
         f"leaves; frozen leaves {frozen_bytes / 2**30:.2f} GiB, all "
         f"bit-identical after the run; peak {peak / 2**30:.2f} GiB "
         f"allocated over the steps, saves and export ({tr.init_peak / 2**30:.2f}"
         f" GiB in the init); launches a step {per_step}; "
         f"train_main {main_s:.1f} s")
+    return out
+
+
+def profile_dir_checks(card, trace: str, per_step: dict, walls) -> dict:
+    """(c)'s ``--profile-dir``: the trace holds exactly the FT_TRACED steps
+    (their ``train_step`` ranges, and the kernels of rows 1-3 and 12 at
+    that many steps' launches, none over and at most FT_TRACE_LOST
+    records of a family lost), and the untraced steps after the first
+    stay within FT_UNTRACED_REL of FT_BASE_STEP_S."""
+    from k8s_runpod_kubelet_tpu_torch.workloads.step_profile import (
+        trace_kernel_events)
+    from k8s_runpod_kubelet_tpu_torch.workloads.train import STEP_RANGE
+
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    # the host's ranges (a CUDA trace repeats each as a
+    # gpu_user_annotation over its kernels)
+    ranges = sum(1 for e in events if e.get("name") == STEP_RANGE
+                 and e.get("cat") == "user_annotation")
+    del events
+    fams = trace_kernel_events(trace)
+    n = len(FT_TRACED)
+    counts = {k: fams.get(k, {}).get("count", 0) for k in per_step}
+    want = {k: v * n for k, v in per_step.items()}
+    untraced = [w for i, w in enumerate(walls[1:], 2) if i not in FT_TRACED]
+    median = statistics.median(untraced)
+    rel = median / FT_BASE_STEP_S - 1
+    lost = {k: want[k] - counts[k] for k in want}
+    out = {"trace_bytes": os.path.getsize(trace), "step_ranges": ranges,
+           "kernel_events": counts, "want": want, "records_lost": lost,
+           "device_ms": {k: fams.get(k, {}).get("ms", 0.0) for k in per_step},
+           "untraced_steps_s": untraced, "untraced_median_s": median,
+           "vs_unprofiled": rel, "limit_rel": FT_UNTRACED_REL}
+    log(f"  (c) --profile-dir [{card}]: a {out['trace_bytes'] / 1e6:.1f} MB "
+        f"trace with {ranges} train_step ranges; kernel events {counts} "
+        f"(want {want}; records lost {lost}), device ms "
+        + ", ".join(f"{k} {v:.2f}" for k, v in out["device_ms"].items())
+        + f"; untraced steps after the first {[round(w, 4) for w in untraced]}"
+        f" s, median {median:.4f} s, {rel:+.2%} against the unprofiled "
+        f"{FT_BASE_STEP_S} s (limit {FT_UNTRACED_REL:.0%})")
+    if ranges != n or not all(0 <= v <= FT_TRACE_LOST
+                                  for v in lost.values()):
+        raise RuntimeError(f"(c) the trace holds {ranges} steps and {counts}"
+                           f", not {n} steps' {want}")
+    if not abs(rel) <= FT_UNTRACED_REL:
+        raise RuntimeError(f"(c) untraced steps {untraced}: median "
+                           f"{median:.4f} s, {rel:+.2%} off the unprofiled "
+                           f"{FT_BASE_STEP_S} s")
     return out
 
 
@@ -4830,7 +4949,7 @@ def reference_logits(torch, cfg, params, prompt: list[int],
 
 def engine_reference_check(torch, cfg, params, prompt, engine_logits,
                            limit=ENGINE_REL_L2_LIMIT, what="engine",
-                           gate=True, picks=None):
+                           gate=True, picks=None, keep=None):
     """The engine path's logits against the plain f32 forward of the same
     (dequantized) weights, within ``limit``; the forward with its middle
     layer skipped must land outside it (with ``gate=False`` both are
@@ -4838,10 +4957,12 @@ def engine_reference_check(torch, cfg, params, prompt, engine_logits,
     layer) pairs of the forward whose router's 2nd and 3rd probabilities
     lie within 1e-3 (the k-th and (k+1)-th under top-k); ``picks`` (a
     list) gets the forward's choices of experts, one (1, S, k) tensor a
-    routed layer."""
+    routed layer; ``keep`` (a list) the forward's logits."""
     margins: list = []
     ref = reference_logits(torch, cfg, params, prompt, margins=margins,
                            picks=picks)
+    if keep is not None:
+        keep.append(ref)
     ctrl = reference_logits(torch, cfg, params, prompt,
                             skip_layer=cfg.n_layers // 2)
 
@@ -4878,7 +4999,7 @@ def engine_reference_check(torch, cfg, params, prompt, engine_logits,
 
 
 def moe_layer_check(torch, model, params, prompt, free_picks,
-                    kv_int8=False) -> dict:
+                    kv_int8=False, ref_params=None, gate=True) -> dict:
     """The MoE engine path held one layer at a time: the last-token
     check's one-chunk prefill of ``prompt`` runs again (over an int8 arena
     with ``kv_int8``) with each layer's MLP input and output recorded (the
@@ -4899,7 +5020,10 @@ def moe_layer_check(torch, model, params, prompt, free_picks,
     Reported beside: in each routed layer, the tokens whose engine choice
     differs from the choice of the free-running f32 forward
     (``free_picks``, one (1, S, k) tensor a routed layer), which sees its
-    own, diverging, hidden states."""
+    own, diverging, hidden states. ``ref_params`` (default ``params``) are
+    the references' weights, unsharded, where ``model`` runs a tree laid
+    out over a mesh; with ``gate=False`` nothing is required (a
+    control's reading)."""
     import torch.nn.functional as F
 
     from k8s_runpod_kubelet_tpu_torch.models.moe import route_top_k
@@ -4923,6 +5047,7 @@ def moe_layer_check(torch, model, params, prompt, free_picks,
         del model._paged_mlp
     if len(seen) != cfg.n_layers:
         raise RuntimeError(f"recorded {len(seen)} MLP calls")
+    params = params if ref_params is None else ref_params
     dev = params["tok_embed"].device
     cos, sin = rope_frequencies(
         cfg.mla_rope_dim if cfg.is_mla else cfg.head_dim_, cfg.max_seq_len,
@@ -5020,6 +5145,8 @@ def moe_layer_check(torch, model, params, prompt, free_picks,
     log(f"  tokens whose engine choice differs from the free-running f32 "
         f"forward's, by routed layer: {spread}; the last token's in layers "
         f"{last}")
+    if not gate:
+        return res
     if not (worst["attn_rel_l2"] <= MOE_LAYER_REL_L2_LIMIT
             and worst["mlp_rel_l2"] <= MOE_LAYER_REL_L2_LIMIT):
         raise RuntimeError(f"a layer is off the plain f32 layer: {res}")
@@ -5347,6 +5474,116 @@ def stub_router():
     return httpd, f"http://127.0.0.1:{httpd.server_address[1]}", posts
 
 
+def http_post_tenant(port: int, path: str, body: dict, headers: dict) -> tuple:
+    """(status, JSON body, response traceparent) of one POST."""
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=json.dumps(body).encode(),
+        method="POST", headers={"Content-Type": "application/json",
+                                **headers})
+    with urllib.request.urlopen(req, timeout=300) as r:
+        return r.status, json.loads(r.read()), r.headers.get("traceparent")
+
+
+def cost_checks(engine, port: int, posts: list, prompts: list,
+                card: str) -> dict:
+    """Phase 7x (f): the cost meter, on by default as in the JAX replica.
+    Requests over HTTP under two ``X-Tenant`` values and one OpenAI
+    ``user`` (``/v1/completions``), in turn; then ``GET /debug/costs``:
+    each tenant's requests, its chip-seconds the sum of its requests'
+    walls (their ``serving.request`` spans' latency) x 1 card within
+    COST_WALL_TOL_S a request, its dollars chip-seconds x the ``h100``
+    row's price / 3600, the spans carrying each request's chip-seconds
+    and dollars, the replica priced as ``h100`` (the card's name); the
+    first heartbeat after them carries the same ledger (the JAX fleet
+    router folds it; held on the CPU, ``tests/test_torch_costmeter.py``,
+    since this script imports nothing of the JAX package)."""
+    import uuid
+
+    from k8s_runpod_kubelet_tpu_torch.generations import cost_per_chip_hr
+    from k8s_runpod_kubelet_tpu_torch.tracing import format_traceparent
+
+    calls = [("/generate", {"tokens": prompts[0][:300], "max_new_tokens": 8},
+              {"X-Tenant": "tenant-a"}, "tenant-a"),
+             ("/generate", {"tokens": prompts[1][:200], "max_new_tokens": 8},
+              {"X-Tenant": "tenant-b"}, "tenant-b"),
+             ("/generate", {"tokens": prompts[3][:250], "max_new_tokens": 4},
+              {"X-Tenant": "tenant-a"}, "tenant-a"),
+             ("/v1/completions", {"prompt": prompts[4][:150],
+                                  "max_tokens": 6, "user": "openai-user"},
+              {}, "openai-user")]
+    before = json.loads(http_json(f"http://127.0.0.1:{port}/debug/costs"))
+    spans, t_sent = {}, time.monotonic()
+    for path, body, headers, tenant in calls:
+        tid = uuid.uuid4().hex
+        st, _, _ = http_post_tenant(port, path, body, {
+            **headers, "traceparent": format_traceparent(
+                tid, uuid.uuid4().hex[:16])})
+        if st != 200:
+            raise RuntimeError(f"(f) {path} answered {st}")
+        trace = json.loads(http_json(
+            f"http://127.0.0.1:{port}/debug/traces?trace_id={tid}"))
+        (root,) = [x for x in trace["spans"]
+                   if x["name"] == "serving.request"]
+        spans.setdefault(tenant, []).append(root["attrs"])
+    after = json.loads(http_json(f"http://127.0.0.1:{port}/debug/costs"))
+    price = cost_per_chip_hr("h100")
+    if not (after["generation"] == "h100" and after["chips"] == 1
+            and after["price_per_chip_hr"] == round(price, 6)):
+        raise RuntimeError(f"(f) the replica priced as {after['generation']}"
+                           f" at {after['price_per_chip_hr']} for "
+                           f"{after['chips']} chips")
+    rows = {}
+    for tenant, attrs in spans.items():
+        b = after["tenants"][tenant]
+        a = before["tenants"].get(tenant, {"requests": 0,
+                                           "chip_seconds": {},
+                                           "cost_dollars": 0.0})
+        chip_s = sum(b["chip_seconds"].values()) - sum(
+            a["chip_seconds"].values())
+        dollars = b["cost_dollars"] - a["cost_dollars"]
+        walls = sum(x["latency_s"] for x in attrs)
+        span_chip = sum(x["chip_seconds_queue"] + x["chip_seconds_prefill"]
+                        + x["chip_seconds_decode"] for x in attrs)
+        span_dollars = sum(x["cost_dollars"] for x in attrs)
+        rows[tenant] = {"requests": b["requests"] - a["requests"],
+                        "chip_seconds": chip_s, "walls_s": walls,
+                        "dollars": dollars, "span_chip_seconds": span_chip,
+                        "span_dollars": span_dollars}
+        if not (rows[tenant]["requests"] == len(attrs)
+                and all(x["tenant"] == tenant for x in attrs)
+                and abs(chip_s - walls) <= COST_WALL_TOL_S * len(attrs)
+                and abs(span_chip - chip_s) <= COST_WALL_TOL_S * len(attrs)
+                and abs(dollars - chip_s * price / 3600) <= 1e-8
+                and abs(span_dollars - dollars) <= 1e-8):
+            raise RuntimeError(f"(f) tenant {tenant}: {rows[tenant]} "
+                               f"(price {price} $/card-hr)")
+    deadline = time.monotonic() + 10
+    while True:
+        beats = [b for p, b, at in list(posts)
+                 if p == "/fleet/heartbeat" and at > t_sent]
+        late = [b for b in beats if all(
+            b.get("costs", {}).get("tenants", {}).get(t, {}).get("requests")
+            == after["tenants"][t]["requests"] for t in spans)]
+        if late:
+            break
+        if time.monotonic() > deadline:
+            raise RuntimeError("(f) no heartbeat carried the ledger")
+        time.sleep(0.05)
+    beat = late[0]["costs"]
+    log(f"  (f) [{card}] cost meter (on by default), priced "
+        f"{after['generation']} at {after['price_per_chip_hr']} $/card-hr "
+        f"(generations.py's list price): "
+        + "; ".join(f"{t} {r['requests']} requests, {r['chip_seconds']:.6f} "
+                    f"chip-s against walls {r['walls_s']:.6f} s, "
+                    f"${r['dollars']:.9f}" for t, r in rows.items())
+        + f"; the spans carry the same; a heartbeat carried the ledger "
+        f"({beat['totals']['requests']} requests in all)")
+    return {"tenants": rows, "price_per_chip_hr": after["price_per_chip_hr"],
+            "generation": after["generation"], "snapshot": after,
+            "heartbeat_requests": beat["totals"]["requests"],
+            "tolerance_s": COST_WALL_TOL_S}
+
+
 def http_burst(port: int, prompts: list, max_new: int, traces: list) -> list:
     """The prompts as concurrent POST /generate, request i carrying the
     caller traceparent ``traces[i]``: [(status, body, response
@@ -5431,7 +5668,8 @@ def observability_phase(torch, dev, card: str, cfg, params,
     JAX reporter's keys and whose metrics snapshots (schema 1) agree with
     /metrics, and a deregister after the drain; (e) the burst's decode
     tokens/s per stream and (g3)'s replay wall beside phase 4's, reported;
-    then (g1)-(g5) on this engine."""
+    (f) the cost meter, on by default (``cost_checks``); then (g1)-(g5) on
+    this engine."""
     import shutil
     import socket
     import uuid
@@ -5624,6 +5862,9 @@ def observability_phase(torch, dev, card: str, cfg, params,
             f"{int(snap_admitted)} = /metrics, requests_total "
             f"{late['stats']['requests_total']}, tokens_total "
             f"{late['stats']['tokens_total']}")
+
+        # (f) the cost meter over HTTP, metered by tenant
+        out["costs"] = cost_checks(engine, port, posts, prompts, card)
 
         # (c) the profile, taken while bursts keep the slots busy: the
         # window (and the profiler's start before it) lies inside traffic
@@ -6234,7 +6475,7 @@ def divergence_check(torch, cfg, params, prompts, spec, plain,
                     "margin_share": margin / rms})
         if not margin < SPEC_TIE_MARGIN * rms:
             raise RuntimeError(
-                f"speculative tokens diverge at {n} of a {len(prompt)}-token "
+                f"greedy tokens diverge at {n} of a {len(prompt)}-token "
                 f"prompt where the f32 top-2 margin is {margin:.4f}, "
                 f"{margin / rms:.3f} of the logits' RMS (tie margin "
                 f"{SPEC_TIE_MARGIN})")
@@ -7154,14 +7395,20 @@ def moe_engine_phase(torch, dev, card: str) -> dict:
             logits = quant_logits(torch, engine.model, engine.params,
                                   prompts[2], kv_int8=False)
             picks: list = []
+            ref: list = []
             reference = engine_reference_check(
                 torch, cfg, engine.params, prompts[2], logits,
                 limit=MOE_ENGINE_REL_L2_LIMIT, what="mixtral int4 engine",
-                gate=False, picks=picks)
+                gate=False, picks=picks, keep=ref)
             layers = moe_layer_check(torch, engine.model, engine.params,
                                      prompts[2], picks)
-            del picks
         check_peak = torch.cuda.max_memory_allocated()
+        log(f"phase 7m (h): the same tree laid out over --tensor-parallel "
+            f"{TP7M} --expert-parallel {EP7M} in one process")
+        rec["ep_tp"] = moe_ep_tp_phase(torch, dev, card, engine,
+                                       rec["tokens"], prompts, logits,
+                                       ref[0], picks)
+        del ref, picks
         if not max(serve_peak, check_peak) < CARD_BYTES:
             raise RuntimeError(f"peak {max(serve_peak, check_peak)} B")
         rec.update(http_and_drain(engine, rec.pop("prompt")),
@@ -7171,6 +7418,153 @@ def moe_engine_phase(torch, dev, card: str) -> dict:
                    build_s=build_s, build_peak_bytes=build_peak,
                    serve_peak_bytes=serve_peak, check_peak_bytes=check_peak,
                    allocated_bytes=torch.cuda.memory_allocated())
+        return rec
+    finally:
+        engine.stop()
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def moe_ep_tp_phase(torch, dev, card: str, one, one_tokens, prompts,
+                    one_logits, ref_logits, free_picks) -> dict:
+    """Phase 7m (h): the one-device Mixtral engine's int4 tree (``one``,
+    idle) laid out again over ``--tensor-parallel TP7M --expert-parallel
+    EP7M`` in one process through the serve CLI: no second draw, the
+    int4 experts held once (replicated over tensor; each expert shard the
+    outer part of the expert axis), the attention and head split. 7m's
+    burst with exact launches a step (row 8 once a shard and layer, row
+    15 4 a layer and the head, row 14 3 a layer: one launch over every
+    expert shard's experts, row 12 twice a layer and once); (g1)-(g5);
+    7m's layer check on this engine (``moe_layer_check`` with the
+    one-device tree as the references' weights and 7m's ``free_picks``):
+    every layer's attention and MLP within MOE_LAYER_REL_L2_LIMIT of the
+    plain f32 layer on the engine's own input, every routing choice that
+    differs from the f32 router's a near tie; the control, wq's two
+    tensor shards swapped in every layer (each shard's q heads then meet
+    the other shard's kv heads and wo rows), must put an attention beyond
+    the limit. In one process the expert split is the identity (the int4
+    experts are neither moved nor split), so this phase holds the tensor
+    split, the layout and the launches, not an exchange between expert
+    shards (``tests/test_torch_expert_parallel.py`` holds the
+    process-group form on gloo).
+    Reported, as 7m reports its whole-model reading: the greedy tokens
+    against the one-device engine's (``one_tokens``; a random Mixtral's
+    routing flips at near ties and the 32 layers amplify them, so the
+    one-device engine itself reads 0.5 off the f32 forward), the checked
+    prompt's last-token logits against the one-device engine's
+    (``one_logits``) and the plain f32 forward's (``ref_logits``); peak
+    memory; HTTP and drain."""
+    from k8s_runpod_kubelet_tpu_torch.ops import (
+        int4_expert_matmul, int4_matmul, int4_matmul_sharded,
+        paged_attention, paged_attention_multi, paged_attention_multi_quant,
+        paged_attention_quant, rms_norm)
+    from k8s_runpod_kubelet_tpu_torch.workloads import serve_main
+
+    argv = ["--model", one.cfg.name, "--device", dev.type, "--slots", "8",
+            "--cache-len", "2048", "--max-new-tokens", "32", "--int4",
+            "--tensor-parallel", str(TP7M), "--expert-parallel", str(EP7M)]
+    what = f"mixtral int4 EP {EP7M} x TP {TP7M} engine"
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    tree = {k: dict(v) if isinstance(v, dict) else v
+            for k, v in one.params.items()}
+    engine, _ = serve_main.build_engine(serve_main.parse_args(argv), tree)
+    del tree
+    torch.cuda.synchronize()
+    shard_s = time.perf_counter() - t0
+    try:
+        cfg, snap = engine.cfg, engine.debug_snapshot()
+        lp, one_lp = engine.params["layers"], one.params["layers"]
+        experts = ("we_gate", "we_up", "we_down")
+        if not (snap["tensor_parallel"] == TP7M
+                and snap["expert_parallel"] == EP7M
+                and snap["kv_arena_shards"] == TP7M
+                and all(lp[n][k] is one_lp[n][k] for n in experts
+                        for k in ("q4", "scale"))):
+            raise RuntimeError(f"{argv} built {snap}, or moved the experts")
+        added = torch.cuda.memory_allocated() - before
+        log(f"  {what}: built in {shard_s:.1f} s over the one-device tree; "
+            f"the experts held once ({tensor_bytes({n: lp[n] for n in experts}) / 1e9:.3f}"
+            f" GB), {added / 1e9:.3f} GB added (split attention and head, "
+            f"the arena, the graphs); [{card}] allocated "
+            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB with both "
+            f"engines")
+        torch.cuda.reset_peak_memory_stats()
+        n = cfg.n_layers
+        per_step = {"int4_expert_matmul": 3 * n,
+                    "int4_matmul_sharded": 4 * n + 1,
+                    "paged_attention_multi": TP7M * n, "rms_norm": 2 * n + 1,
+                    "int4_matmul": 0, "paged_attention_multi_quant": 0,
+                    "paged_attention": 0, "paged_attention_quant": 0}
+        rec = serve_burst(torch, engine, cfg, card,
+                          (int4_expert_matmul, int4_matmul_sharded,
+                           paged_attention_multi, rms_norm, int4_matmul,
+                           paged_attention_multi_quant, paged_attention,
+                           paged_attention_quant), per_step)
+        serve_peak = torch.cuda.max_memory_allocated()
+        log(f"  [{card}] peak allocated while serving "
+            f"{serve_peak / 2**30:.2f} GiB (both engines held)")
+        prompts = rec.pop("prompts")
+
+        same = [a == b for a, b in zip(rec["tokens"], one_tokens)]
+        first = [next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                      None) for a, b in zip(rec["tokens"], one_tokens)]
+        with one._prefix_lock, engine._prefix_lock:   # both idle
+            rec["graphs"] = graph_checks(torch, engine, card,
+                                         MOE_ENGINE_REL_L2_LIMIT, what)
+            logits = quant_logits(torch, engine.model, engine.params,
+                                  prompts[2], kv_int8=False)
+            layers = moe_layer_check(torch, engine.model, engine.params,
+                                     prompts[2], free_picks,
+                                     ref_params=one.params)
+            # the control: wq's tensor shards (axis 1 of its q4 and
+            # scale) rolled by one in every layer, in a copy of wq
+            swapped = dict(engine.params, layers=dict(lp, wq={
+                k: t.roll(1, 1) for k, t in lp["wq"].items()}))
+            control = moe_layer_check(torch, engine.model, swapped,
+                                      prompts[2], free_picks,
+                                      ref_params=one.params, gate=False)
+            del swapped
+            gc.collect()
+            torch.cuda.empty_cache()
+        ref = ref_logits.to(logits.device)
+
+        def rel(a, b) -> float:
+            return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+        gap = {"rel_l2_to_one_device": rel(logits, one_logits),
+               "argmax_agree": bool(logits.argmax() == one_logits.argmax()),
+               "plain_f32_rel_l2": rel(logits, ref),
+               "one_device_plain_f32_rel_l2": rel(one_logits, ref),
+               "requests_equal": sum(same), "first_divergence": first,
+               "control_wq_shards_swapped_worst_attn_rel_l2":
+                   control["worst"]["attn_rel_l2"]}
+        log(f"  {what}: greedy tokens equal to the one-device engine's in "
+            f"{sum(same)}/{len(same)} requests (first divergence at "
+            f"{first}); last-token logits of a {len(prompts[2])}-token "
+            f"chunk {gap['rel_l2_to_one_device']:.4f} off the one-device "
+            f"engine's, {gap['plain_f32_rel_l2']:.4f} off the plain f32 "
+            f"forward (the one-device engine "
+            f"{gap['one_device_plain_f32_rel_l2']:.4f}); reported, not "
+            f"gated. Control, wq's tensor shards swapped: worst attention "
+            f"{gap['control_wq_shards_swapped_worst_attn_rel_l2']:.3f} "
+            f"(limit {MOE_LAYER_REL_L2_LIMIT})")
+        if not gap["control_wq_shards_swapped_worst_attn_rel_l2"] \
+                > MOE_LAYER_REL_L2_LIMIT:
+            raise RuntimeError(f"wq's swapped tensor shards passed: {gap}")
+        check_peak = torch.cuda.max_memory_allocated()
+        log(f"  [{card}] peak allocated over the checks "
+            f"{check_peak / 2**30:.2f} GiB (both engines and the swapped "
+            "copy of wq)")
+        if not max(serve_peak, check_peak) < CARD_BYTES:
+            raise RuntimeError(f"{what}: peak {max(serve_peak, check_peak)}")
+        rec.update(http_and_drain(engine, rec.pop("prompt")),
+                   layer_check=layers, gap_to_one_device=gap, shard_s=shard_s,
+                   added_bytes=added, serve_peak_bytes=serve_peak,
+                   check_peak_bytes=check_peak)
         return rec
     finally:
         engine.stop()
@@ -7483,17 +7877,19 @@ def deepseek_dense_and_contiguous(torch, dev, card: str, cfg, params,
 
 
 def deepseek_profile(torch, card: str) -> dict:
-    """(d) ``step_profile --model deepseek-v2-lite`` in bf16 and with
-    ``--int4``: the decode step eagerly and as a replay, and a 1024-token
-    chunk, device ms by family (the bf16 expert products their own
-    ``experts`` family in the eager steps); in bf16 also a training step
-    at 4 layers (the experts' forward and backward their own family)."""
+    """(d) ``step_profile --model deepseek-v2-lite`` in bf16: the decode
+    step eagerly and as a replay, a 1024-token chunk, and a training step
+    at 4 layers, device ms by family (the bf16 expert products, forward
+    and backward, their own ``experts`` family). The ``--int4`` profile
+    (PERF.md section 5) stays one ``step_profile --model
+    deepseek-v2-lite --int4`` away: its ~95 s went to the phases added
+    with the expert mesh, the cost meter and ``--profile-dir``."""
     import tempfile
 
     from k8s_runpod_kubelet_tpu_torch.workloads import step_profile
 
     out = {}
-    for label, extra in (("bf16", []), ("int4", ["--int4"])):
+    for label, extra in (("bf16", []),):
         with tempfile.TemporaryDirectory() as tmp:
             path = os.path.join(tmp, "profile.json")
             step_profile.main(["--model", DS_MODEL, "--out", path] + extra)
@@ -7581,15 +7977,91 @@ def deepseek_phase(torch, dev, card: str) -> dict:
     out["int4_kv_int8"] = deepseek_engine_run(torch, dev, card, cfg, box,
                                               True)
     tree = out["int4_kv_int8"].pop("tree")
+    log(f"  (f) {DS_MODEL} --int4 --kv-int8 --expert-parallel {EP7V} in one "
+        "process, over (b)'s tree, on (b)'s burst")
+    out["ep"] = deepseek_ep_run(torch, dev, card, cfg, tree,
+                                out["int4_kv_int8"])
     log(f"  (e) of phase 7k: {DS_MODEL} --int4 --kv-int8 through the wire "
         "rung (prefill, decode and unified engines on this tree)")
     out["handoff"] = deepseek_handoff(torch, dev, tree, greedy_prompt)
     del tree
     gc.collect()
     torch.cuda.empty_cache()
-    log(f"  (d) step_profile --model {DS_MODEL} (bf16, then --int4)")
+    log(f"  (d) step_profile --model {DS_MODEL} (bf16)")
     out["profile"] = deepseek_profile(torch, card)
     return out
+
+
+def deepseek_ep_run(torch, dev, card: str, cfg, tree, one: dict) -> dict:
+    """Phase 7v (f): (b)'s quantized tree served again through the serve
+    CLI with ``--expert-parallel EP7V`` (tensor 1: each expert shard the
+    outer part of the expert axis, every expert held once, no weight
+    moved), on (b)'s burst: (b)'s launches a step (row 14 one launch over
+    every shard's experts); its greedy tokens against (b)'s (``one``),
+    each first divergence with this engine's own top-2 margin there as a
+    share of its logits' RMS (reported: the decode batches' composition
+    moves bf16 rounding, which a random MoE's routing can amplify); HTTP
+    and drain with zero leaked pages."""
+    from k8s_runpod_kubelet_tpu_torch.ops import (
+        flash_fwd, int4_expert_matmul, int4_matmul, paged_attention,
+        paged_attention_mla, paged_attention_mla_quant, paged_attention_multi,
+        paged_attention_multi_mla, paged_attention_multi_mla_quant,
+        paged_attention_multi_quant, paged_attention_quant, rms_norm)
+    from k8s_runpod_kubelet_tpu_torch.workloads import serve_main
+
+    argv = ["--model", DS_MODEL, "--device", dev.type, "--slots", "8",
+            "--cache-len", "2048", "--max-new-tokens", "32", "--int4",
+            "--kv-int8", "--expert-parallel", str(EP7V)]
+    what = f"{DS_MODEL} --int4 --kv-int8 --expert-parallel {EP7V} engine"
+    t0 = time.perf_counter()
+    engine, _ = serve_main.build_engine(
+        serve_main.parse_args(argv),
+        {k: dict(v) if isinstance(v, dict) else v for k, v in tree.items()})
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    try:
+        snap = engine.debug_snapshot()
+        lp = engine.params["layers"]
+        if not (snap["expert_parallel"] == EP7V
+                and snap["tensor_parallel"] == 1
+                and all(lp[n][k] is tree["layers"][n][k]
+                        for n in ("we_gate", "we_up", "we_down")
+                        for k in ("q4", "scale"))):
+            raise RuntimeError(f"{what}: built {snap}, or moved the experts")
+        kernels = (paged_attention_multi_mla_quant, rms_norm, int4_matmul,
+                   int4_expert_matmul, paged_attention_multi_mla,
+                   paged_attention_mla, paged_attention_mla_quant,
+                   paged_attention_multi, paged_attention_multi_quant,
+                   paged_attention, paged_attention_quant, flash_fwd)
+        rec = serve_burst(torch, engine, cfg, card, kernels,
+                          one["launches_per_step"])
+        prompts = rec.pop("prompts")
+
+        div = []
+        with engine._prefix_lock:   # idle
+            for prompt, a, b in zip(prompts, rec["tokens"], one["tokens"]):
+                n = next((i for i, (x, y) in enumerate(zip(a, b))
+                          if x != y), None)
+                if n is None:
+                    continue
+                own = quant_logits(torch, engine.model, engine.params,
+                                   prompt + b[:n], kv_int8=True).float()
+                top2 = own.topk(2).values
+                div.append({"at": n, "margin_share": (
+                    (top2[0] - top2[1]) / own.pow(2).mean().sqrt()).item()})
+        log(f"  {what}: built in {build_s:.1f} s over (b)'s tree (experts "
+            f"held once); greedy tokens against (b)'s: "
+            f"{len(prompts) - len(div)}/{len(prompts)} requests equal; "
+            f"divergences (position, this engine's top-2 margin share) "
+            f"{[(d['at'], round(d['margin_share'], 4)) for d in div]}")
+        rec.update(http_and_drain(engine, rec.pop("prompt")),
+                   divergence=div, build_s=build_s)
+        return rec
+    finally:
+        engine.stop()
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 def deepseek_handoff(torch, dev, tree, prompt) -> dict:
@@ -11162,6 +11634,11 @@ def main(argv=None) -> int:
                    help="run only phase 7k (disaggregated serving of "
                    "llama3-8b bf16; the kernels build at their first "
                    "launch), print its JSON and exit")
+    p.add_argument("--finetune", action="store_true",
+                   help="run only phase 9f (c)-(f) (the LoRA fine-tune of "
+                   "llama3-8b through train_main with --profile-dir, its "
+                   "resume and its adapter served), print its JSON and "
+                   "exit")
     p.add_argument("--contiguous-spec-tp", action="store_true",
                    help="run only phase 7g (e) and (f) (gemma2-9b bf16 on "
                    "the contiguous loop with --speculate 4, then at "
@@ -11194,6 +11671,10 @@ def main(argv=None) -> int:
         return 0
     if args.gemma_train:
         print(json.dumps(gemma_train_phase(torch, F, dev, card)), flush=True)
+        return 0
+    if args.finetune:
+        print(json.dumps(finetune_phase(torch, dev, card), default=str),
+              flush=True)
         return 0
     if args.contiguous_spec_tp:
         params = draw_interleave_tree(torch, dev, "gemma2-9b", 0)
@@ -11675,6 +12156,8 @@ def main(argv=None) -> int:
         runs = {"serve_deepseek": deepseek["bf16"]["launches"],
                 "serve_deepseek_int4_kv_int8":
                     deepseek["int4_kv_int8"]["launches"],
+                f"serve_deepseek_ep{EP7V}_int4_kv_int8":
+                    deepseek["ep"]["launches"],
                 "serve_deepseek_dense":
                     deepseek["dense_and_contiguous"]["launches"],
                 "serve_disagg_deepseek_int4_kv_int8":
@@ -11684,6 +12167,7 @@ def main(argv=None) -> int:
     serve_launches, quant_launches = eng["launches"], qeng["launches"]
     tp_launches, tp4_launches = tp_int4["launches"], tp_bf16["launches"]
     moe_launches = moe["launches"]
+    moe_ep_launches = moe["ep_tp"]["launches"]
     spec_launches = spec["runs"]["speculative"]["counts"]
     lora_launches, lora_q_launches = lora["launches"], lora_q["launches"]
     mla_launches, mla_q_launches = mla_eng["launches"], mla_q["launches"]
@@ -11706,6 +12190,7 @@ def main(argv=None) -> int:
                 "serve_int4_kv_int8":
                     quant_launches["paged_attention_multi"],
                 "serve_moe": moe_launches["paged_attention_multi"],
+                "serve_moe_ep2_tp2": moe_ep_launches["paged_attention_multi"],
                 "serve_tp4_bf16": tp4_launches["paged_attention_multi"],
                 "serve_tp": tp_launches["paged_attention_multi"],
                 "serve_lora": lora_launches["paged_attention_multi"],
@@ -11727,6 +12212,7 @@ def main(argv=None) -> int:
                 "serve_mla_kv_int8": mla_q_launches["rms_norm"],
                 "serve_openai": openai["launches"]["rms_norm"],
                 "serve_moe": moe_launches["rms_norm"],
+                "serve_moe_ep2_tp2": moe_ep_launches["rms_norm"],
                 "serve_tp": tp_launches["rms_norm"],
                 "serve_tp4_bf16": tp4_launches["rms_norm"],
                 "serve_lora": lora_launches["rms_norm"],
@@ -11806,7 +12292,8 @@ def main(argv=None) -> int:
                "k8s_runpod_kubelet_tpu/ops/int4_matmul.py:157", int4_sharded,
                tp_launches["int4_matmul_sharded"],
                {"serve_tp": tp_launches["int4_matmul_sharded"],
-                "serve_tp4_bf16": tp4_launches["int4_matmul_sharded"]},
+                "serve_tp4_bf16": tp4_launches["int4_matmul_sharded"],
+                "serve_moe_ep2_tp2": moe_ep_launches["int4_matmul_sharded"]},
                "torch.ops.aten._weight_int4pack_mm on the gathered weight "
                "(the same function; yardsticks: the same call once a "
                "shard, int4_matmul on the gathered weight and on one "
@@ -11815,6 +12302,7 @@ def main(argv=None) -> int:
                "k8s_runpod_kubelet_tpu/ops/int4_matmul.py:181",
                int4_experts, moe_launches["int4_expert_matmul"],
                {"serve_moe": moe_launches["int4_expert_matmul"],
+                "serve_moe_ep2_tp2": moe_ep_launches["int4_expert_matmul"],
                 **deepseek_paths("int4_expert_matmul")},
                "none: no single PyTorch call reads int4 experts "
                "(yardstick_ms: torch.bmm by the dequantized bf16 experts)"),

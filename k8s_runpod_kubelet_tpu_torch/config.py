@@ -558,11 +558,8 @@ _ENV_MAP = {
 
 
 def load(file_path: Optional[str] = None, env: Optional[dict] = None,
-         overrides: Optional[dict] = None,
-         named: Optional[set] = None) -> Config:
-    """Build config with precedence: overrides (flags) > env > file > defaults.
-    ``named``, when given, receives the fields the file or the environment
-    set (a default is no one's request)."""
+         overrides: Optional[dict] = None) -> Config:
+    """Build config with precedence: overrides (flags) > env > file > defaults."""
     values: dict = {}
     if file_path:
         import yaml
@@ -577,8 +574,6 @@ def load(file_path: Optional[str] = None, env: Optional[dict] = None,
     for env_key, field in _ENV_MAP.items():
         if env.get(env_key):
             values[field] = env[env_key]
-    if named is not None:
-        named.update(values)
     if overrides:
         values.update({k: v for k, v in overrides.items() if v is not None})
     # coerce numerics/lists that may arrive as strings from env/flags

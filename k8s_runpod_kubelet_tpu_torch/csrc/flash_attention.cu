@@ -61,7 +61,12 @@
 //     read MN-major. At D = 256 the two 64 x 256 f32 accumulators would
 //     take 256 registers a thread, at D = 192 192 of them beside the S^T
 //     and dP^T fragments: the block runs two passes over its band instead,
-//     dV (S^T only) then dK, in one accumulator.
+//     dV (S^T only) then dK, in one accumulator. There each q tile's product
+//     lands in a zeroed partial that the CUDA cores add to the band's sum,
+//     and dS enters the dK product as three bf16 terms: summed straight in
+//     the wgmma accumulator over a band's hundreds of tiles, with dS in two
+//     terms, dK lost its low bits toward a soft cap (FLASH_DKV_STRAIGHT,
+//     below).
 // BN is 64, or 32 at D = 256, whose m64n256 accumulator takes 128 registers
 // a thread. At D = 192 (MLA's direct form: q = [q_nope 128, q_rope 64], k =
 // [k_nope, kr], v zero-padded to 192, one kv head a q head) the forward
@@ -129,6 +134,103 @@ __device__ __forceinline__ void q_range(const Problem& p, int k0, int bn,
     const int r_last = min(k0 + bn, p.sk) - 1 + p.window - 1 - p.q_offset;
     *end = r_last < 0 ? 0 : min(n_q, r_last / bm + 1);
     *end = max(*end, *begin);
+  }
+}
+
+// FLASH_DKV_STRAIGHT=1 builds the two-pass dK/dV block (D >= 192) as it
+// was before the dK repair: each q tile's dK product summed straight in the
+// wgmma accumulator, dS in two bf16 terms. That lost the low bits where
+// dK's partial sums reach ~40 and the result is near 0 (74 of 16.8 M dK
+// elements over the per-element check at Gemma 2's global head with q x 8;
+// PERF.md section 6 keeps the candidates read by
+// workloads/flash_large_logits.py). It is the card test's control; the
+// default build sums each product apart and feeds dS as three terms.
+#ifndef FLASH_DKV_STRAIGHT
+#define FLASH_DKV_STRAIGHT 0
+#endif
+
+// dS's fragments: split_p's hi and lo, and with TERMS 3 the rest below
+// them in rest (left untouched otherwise)
+template <int BN, int TERMS>
+__device__ __forceinline__ void split_ds(const float (&x)[BN / 2],
+                                         uint32_t (&h)[BN / 16][4],
+                                         uint32_t (&l)[BN / 16][4],
+                                         uint32_t (&rest)[BN / 16][4]) {
+  using namespace tile90;
+  if constexpr (TERMS == 3) {
+#pragma unroll
+    for (int n8 = 0; n8 < BN / 8; ++n8)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float x0 = x[n8 * 4 + i * 2], x1 = x[n8 * 4 + i * 2 + 1];
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(x0, x1);
+        const float2 hf = __bfloat1622float2(hi);
+        const float r0 = x0 - hf.x, r1 = x1 - hf.y;
+        const __nv_bfloat162 mid = __floats2bfloat162_rn(r0, r1);
+        const float2 mf = __bfloat1622float2(mid);
+        const int a = n8 / 2, c = (n8 % 2) * 2 + i;
+        h[a][c] = bf16x2_bits(hi);
+        l[a][c] = bf16x2_bits(mid);
+        rest[a][c] = bf16x2_bits(__floats2bfloat162_rn(r0 - mf.x, r1 - mf.y));
+      }
+  } else {
+    split_p<BN>(x, h, l);
+  }
+}
+
+// acc += dS B: start_rs over hi and lo, then with TERMS 3 the rest's
+// wgmmas; started and not waited for
+template <int N, int BN, int TERMS>
+__device__ __forceinline__ void start_ds(float (&acc)[N / 2],
+                                         const uint32_t (&h)[BN / 16][4],
+                                         const uint32_t (&l)[BN / 16][4],
+                                         const uint32_t (&rest)[BN / 16][4],
+                                         uint32_t b_s) {
+  using namespace tile90;
+  start_rs<N, BN>(acc, h, l, b_s);
+  if constexpr (TERMS == 3) {
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk)
+      MmaRS<N>::run(acc, rest[kk], desc(b_s + kk * 16 * 128, BN * 128, 1024));
+  }
+}
+
+// acc += A B over one staged tile, waited for: A dS's TERMS terms
+// (start_ds) or, with TERMS 0, P's hi and lo (start_rs), straight into acc,
+// or with kTileSum into a zeroed partial that the CUDA cores add to acc
+// (the default two-pass dK/dV block)
+template <int D, int BN, int TERMS, bool kTileSum>
+__device__ __forceinline__ void add_product(float (&acc)[D / 2],
+                                            const uint32_t (&h)[BN / 16][4],
+                                            const uint32_t (&l)[BN / 16][4],
+                                            const uint32_t (&rest)[BN / 16][4],
+                                            uint32_t b_s) {
+  using namespace tile90;
+  const auto start = [&](float (&d)[D / 2]) {
+    if constexpr (TERMS > 0)
+      start_ds<D, BN, TERMS>(d, h, l, rest, b_s);
+    else
+      start_rs<D, BN>(d, h, l, b_s);
+  };
+  if constexpr (kTileSum) {
+    float part[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) part[i] = 0.f;
+    reg_fence(part);
+    wg_fence();
+    start(part);
+    wg_commit();
+    wg_wait<0>();
+    reg_fence(part);
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] += part[i];
+  } else {
+    reg_fence(acc);
+    wg_fence();
+    start(acc);
+    wg_commit();
+    wg_wait<0>();
+    reg_fence(acc);
   }
 }
 
@@ -420,6 +522,11 @@ __device__ __forceinline__ void dkv_pass(
   for (int i = 0; i < 2; ++i) kp[i] = kp0 + Rows<D>::row(i);
   float s[BN / 2], dp[BN / 2];
   uint32_t fh[BN / 16][4], fl[BN / 16][4];  // P^T, then dS^T, hi and lo
+  uint32_t fr[BN / 16][4];  // dS^T's third term
+  // the two-pass block (one accumulator) has the registers for a partial
+  // and a third term
+  constexpr bool kTileSum = !FLASH_DKV_STRAIGHT && D >= 192;
+  constexpr int kTerms = kTileSum ? 3 : 2;
   for (int t = 0; t < n_tiles; ++t) {
     cp_wait_all();
     fence_async_smem();
@@ -486,21 +593,11 @@ __device__ __forceinline__ void dkv_pass(
     // accumulators would pass the 255 registers a thread has at D = 128)
     if constexpr (kDV) {
       split_p<BN>(s, fh, fl);
-      reg_fence(dv);
-      wg_fence();
-      start_rs<D, BN>(dv, fh, fl, dos + st * kTile);
-      wg_commit();
-      wg_wait<0>();
-      reg_fence(dv);
+      add_product<D, BN, 0, kTileSum>(dv, fh, fl, fr, dos + st * kTile);
     }
     if constexpr (kDK) {
-      split_p<BN>(dp, fh, fl);
-      reg_fence(dk);
-      wg_fence();
-      start_rs<D, BN>(dk, fh, fl, qs + st * kTile);
-      wg_commit();
-      wg_wait<0>();
-      reg_fence(dk);
+      split_ds<BN, kTerms>(dp, fh, fl, fr);
+      add_product<D, BN, kTerms, kTileSum>(dk, fh, fl, fr, qs + st * kTile);
     }
   }
 }

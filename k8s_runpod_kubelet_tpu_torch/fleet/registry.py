@@ -13,8 +13,9 @@ carries its cumulative ``Metrics.snapshot()`` and its pending
 prefix-directory publishes on every beat (a failed beat re-queues the
 publishes), and deregisters once a drain completes. The heartbeat payload
 has the JAX reporter's keys, so the router reads a torch replica as it
-reads a JAX one. The cost snapshot stays absent through the ``getattr``
-check below until the engine grows a cost meter (ROADMAP Queue 1 #11).
+reads a JAX one, and its ``costs`` (the engine's ``CostMeter`` ledger,
+absent with the meter off) are folded into the router's fleet-wide
+``/debug/costs`` as a JAX replica's are.
 """
 
 from __future__ import annotations

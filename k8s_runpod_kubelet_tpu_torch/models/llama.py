@@ -96,6 +96,7 @@ from ..ops import (apply_rope, flash_attention, int4_matmul,
 from ..ops.attention import paged_head_shards
 from ..ops.ring_attention import ring_attention
 from ..parallel.sharding import (all_gather, all_reduce,
+                                 check_expert_parallel,
                                  check_tensor_parallel, param_logical_axes,
                                  tensor_axis)
 from .moe import moe_mlp
@@ -844,7 +845,9 @@ class LlamaModel:
     attention through ``ring_attention``, as the JAX model does under a
     mesh with a ``seq`` axis; with tensor > 1 every step runs
     tensor-parallel over a tree from ``parallel.shard_params`` (the module
-    docstring). MLA and MoE configs raise under tensor > 1."""
+    docstring); an ``expert`` axis beside it shards the serving steps'
+    expert FFN (``moe_mlp(mesh=)``; training passes none, as in JAX). MLA
+    and DeepSeek-MoE configs raise under tensor > 1."""
 
     def __init__(self, cfg: LlamaConfig, device=None, mesh=None):
         cfg.validate_mla()
@@ -853,6 +856,7 @@ class LlamaModel:
         self.mesh = mesh
         self.tp = mesh.tensor if mesh is not None else 1
         check_tensor_parallel(cfg, self.tp)
+        check_expert_parallel(cfg, mesh.expert if mesh is not None else 1)
         # "col" (out split) or "row" (contraction split) for each matmul
         # leaf the tensor axis splits
         self._split = {"lm_head": "col"}
@@ -1998,7 +2002,8 @@ class LlamaModel:
                                router_n_group=cfg.router_n_group,
                                router_topk_group=cfg.router_topk_group,
                                routed_scaling=cfg.routed_scaling_factor,
-                               with_losses=with_aux)
+                               with_losses=with_aux,
+                               mesh=None if train else self.mesh)
             aux = (cfg.router_aux_coef * lb + cfg.router_z_coef * z
                    if with_aux else None)
             if "ws_gate" in lp:

@@ -14,7 +14,20 @@ the scale applied after the product, or int4 ``{"q4", "scale"}``, which go
 through the ``int4_expert_matmul`` kernel with each expert's filled-row
 count, so row tiles past it read no weights. DeepSeek-V3's sigmoid
 routing (``route_top_k_v3``) selects with a correction bias over groups of
-experts; expert parallelism is not ported (ROADMAP Queue 1 #8).
+experts.
+
+Serving under an ``expert`` x ``tensor`` mesh (``mesh=``) runs the
+counterpart of the JAX ``_expert_ffn_sharded``: each expert shard runs
+gate, up and down over its slice of the dispatch buffer with its slice of
+the filled-row counts; raw and int8 experts shard their mlp axis over
+``tensor`` and sum the down product's partials; int4 experts are
+replicated over ``tensor``. Over a process group the shards' outputs are
+all-gathered over ``expert`` and the partials all-reduced over
+``tensor``; in one process the expert shard is the outer part of the
+expert axis, so every shard's experts run in one call (one
+``int4_expert_matmul`` launch a product, the shard the outer part of its
+walk) and the partials add over the stacked shard axis. Routing, dispatch
+and combine are the same on every shard.
 
 Training differentiates ``moe_mlp`` by autograd, as the JAX package takes
 ``jax.grad`` of its own: gradients reach the experts through the three
@@ -34,6 +47,8 @@ import torch
 import torch.nn.functional as F
 
 from ..ops import int4_expert_matmul
+from ..parallel.mesh import AXES
+from ..parallel.sharding import all_gather, all_reduce
 
 __all__ = ["dispatch_positions", "load_balance_loss", "moe_capacity",
            "moe_mlp", "route_top_k", "route_top_k_v3", "router_z_loss"]
@@ -138,14 +153,75 @@ def _expert_matmul(x: torch.Tensor, w, dtype: torch.dtype,
     return torch.bmm(x, w if w.dtype == dtype else w.to(dtype))
 
 
+def _is_int4(w) -> bool:
+    return isinstance(w, dict) and "q4" in w
+
+
+def _expert_ffn(buf: torch.Tensor, counts: torch.Tensor, we_gate, we_up,
+                we_down, dtype: torch.dtype) -> torch.Tensor:
+    """The SwiGLU expert FFN over the dispatch buffer (X, C, E) of the
+    experts whose leaves are given, with their filled-row counts."""
+    gate = _expert_matmul(buf, we_gate, dtype, counts)
+    up = _expert_matmul(buf, we_up, dtype, counts)
+    return _expert_matmul(F.silu(gate) * up, we_down, dtype, counts)
+
+
+def _expert_matmul_shards(x: torch.Tensor, w, dtype: torch.dtype,
+                          row: bool) -> torch.Tensor:
+    """An in-process tensor mesh's expert product: x (X, C, in) or
+    (N, X, C, in) @ a raw or int8 leaf whose shards stack on its leading
+    axis, (N, X, in, out/N) split by columns or (N, X, in/N, out) by rows.
+    Columns give (N, X, C, out/N), each shard's slice; rows the sum over
+    the shards' partials, (X, C, out). An int8 leaf's scale multiplies
+    its shard's columns, or the summed rows."""
+    q8 = isinstance(w, dict)
+    y = torch.matmul(x, (w["q8"] if q8 else w).to(dtype))
+    if row:
+        y = y.sum(0)
+    return y * w["scale"].to(dtype) if q8 else y
+
+
+def _expert_ffn_sharded(buf: torch.Tensor, counts: torch.Tensor, we_gate,
+                        we_up, we_down, *, mesh, dtype: torch.dtype
+                        ) -> torch.Tensor:
+    """The expert FFN under an expert x tensor mesh (the JAX
+    ``_expert_ffn_sharded``; see the module docstring): buf (X, C, E) and
+    counts (X,) whole, the leaves as ``parallel.shard_params`` lays them
+    out. Returns (X, C, E), every expert's rows."""
+    x_experts, ep = buf.shape[0], mesh.expert
+    if x_experts % ep:
+        raise ValueError(f"expert mesh axis {ep} must divide n_experts "
+                         f"{x_experts}")
+    split = mesh.tensor > 1 and not _is_int4(we_gate)
+    if mesh.in_process:
+        if split:
+            gate = _expert_matmul_shards(buf, we_gate, dtype, row=False)
+            up = _expert_matmul_shards(buf, we_up, dtype, row=False)
+            return _expert_matmul_shards(F.silu(gate) * up, we_down, dtype,
+                                         row=True)
+        # every shard's experts in one call (int4: replicated over tensor,
+        # held and computed once)
+        return _expert_ffn(buf, counts, we_gate, we_up, we_down, dtype)
+    # a rank: its expert shard's slice of the buffer and of the counts
+    n = x_experts // ep
+    lo = mesh.expert_rank * n
+    out = _expert_ffn(buf[lo:lo + n], counts[lo:lo + n], we_gate, we_up,
+                      we_down, dtype)
+    if split:
+        out = all_reduce(out, mesh)    # the down product's partial sums
+    if ep > 1:
+        out = all_gather(out, 0, mesh, AXES.EXPERT)
+    return out
+
+
 def moe_mlp(h: torch.Tensor, router_w: torch.Tensor, we_gate, we_up,
             we_down, *, n_experts_per_tok: int, capacity_factor: float,
             dtype: torch.dtype, norm_topk: bool = True,
             router_bias: Optional[torch.Tensor] = None,
             router_n_group: int = 0, router_topk_group: int = 0,
-            routed_scaling: float = 1.0, with_losses: bool = True
-            ) -> tuple[torch.Tensor, Optional[torch.Tensor],
-                       Optional[torch.Tensor]]:
+            routed_scaling: float = 1.0, with_losses: bool = True,
+            mesh=None) -> tuple[torch.Tensor, Optional[torch.Tensor],
+                                Optional[torch.Tensor]]:
     """The SwiGLU expert MLP on normed activations h (..., E): router_w
     (E, X), we_gate/we_up (X, E, M) and we_down (X, M, E) leaves. Routing
     is ``route_top_k``, or with ``router_bias`` (X,) DeepSeek-V3's
@@ -154,7 +230,10 @@ def moe_mlp(h: torch.Tensor, router_w: torch.Tensor, we_gate, we_up,
     (y (..., E) in h's dtype, the load-balance aux loss, the router z-loss),
     both unscaled and both 0 under V3 routing (its balance comes from the
     bias, adjusted outside the gradient); with ``with_losses=False``
-    (serving) they are None and not computed."""
+    (serving) they are None and not computed. ``mesh`` (serving) with an
+    ``expert`` or ``tensor`` axis above 1 runs the expert FFN sharded
+    (``_expert_ffn_sharded``) over leaves ``parallel.shard_params`` laid
+    out; training passes none, as in JAX."""
     e = h.shape[-1]
     x_experts = router_w.shape[-1]
     k = n_experts_per_tok
@@ -181,9 +260,11 @@ def moe_mlp(h: torch.Tensor, router_w: torch.Tensor, we_gate, we_up,
     buf[slot] = ht[:, None].expand(g, k, e).reshape(g * k, e)
     buf = buf[:-1].view(x_experts, cap, e)
 
-    gate = _expert_matmul(buf, we_gate, dtype, counts)
-    up = _expert_matmul(buf, we_up, dtype, counts)
-    out = _expert_matmul(F.silu(gate) * up, we_down, dtype, counts)
+    if mesh is not None and (mesh.expert > 1 or mesh.tensor > 1):
+        out = _expert_ffn_sharded(buf, counts, we_gate, we_up, we_down,
+                                  mesh=mesh, dtype=dtype)
+    else:
+        out = _expert_ffn(buf, counts, we_gate, we_up, we_down, dtype)
 
     gathered = out.reshape(x_experts * cap, e)[
         slot.clamp(max=x_experts * cap - 1)]

@@ -48,40 +48,48 @@ def _nvcc() -> str:
     return found
 
 
-def _target(name: str) -> Path:
+def _flags(name: str, defines: tuple) -> list:
+    return NVCC_FLAGS + [f"-D{d}" for d in defines] + LINK_FLAGS.get(name, [])
+
+
+def _target(name: str, defines: tuple = ()) -> Path:
     # the source and every shared header it may include
     src = b"".join(p.read_bytes() for p in
                    [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
-    flags = NVCC_FLAGS + LINK_FLAGS.get(name, [])
-    digest = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()
+    digest = hashlib.sha256(
+        src + " ".join(_flags(name, defines)).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
-def load(name: str) -> ctypes.CDLL:
+def load(name: str, defines: tuple = ()) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, building it first if
-    needed. Sources build concurrently when loaded from several threads."""
+    needed. Sources build concurrently when loaded from several threads.
+    ``defines`` (``"NAME=VALUE"`` strings) build a variant of the source
+    beside the shipped one, for measurement scripts only."""
+    key = name if not defines else f"{name}:{','.join(defines)}"
     with _lock:
-        lock = _locks.setdefault(name, threading.Lock())
+        lock = _locks.setdefault(key, threading.Lock())
     with lock:
-        lib = _libs.get(name)
+        lib = _libs.get(key)
         if lib is None:
-            out = _target(name)
+            out = _target(name, defines)
             if not out.exists():
-                _build(name, out)
-            lib = _libs[name] = ctypes.CDLL(str(out))
+                _build(name, out, defines, key)
+            lib = _libs[key] = ctypes.CDLL(str(out))
         return lib
 
 
-def _build(name: str, out: Path) -> None:
+def _build(name: str, out: Path, defines: tuple = (),
+           key: str = "") -> None:
     """One nvcc build into a temporary name, renamed into place once it
     succeeded (a concurrent process never loads a half-written file)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f".{os.getpid()}.{out.name}")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu"),
-           *LINK_FLAGS.get(name, [])]
+    cmd = [_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o",
+           str(tmp), str(CSRC / f"{name}.cu"), *LINK_FLAGS.get(name, [])]
     proc = subprocess.run(cmd, stdout=subprocess.PIPE,
                           stderr=subprocess.STDOUT, text=True)
-    build_logs[name] = proc.stdout
+    build_logs[key or name] = proc.stdout
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for csrc/{name}.cu "
                            f"(exit {proc.returncode}):\n{proc.stdout}")

@@ -871,8 +871,10 @@ def _flash_dkv_plain(q, k, v, do, lse, delta, *, causal, sm_scale,
 
 
 @functools.cache
-def _flash_launchers():
-    lib = _cuda.load("flash_attention")
+def _flash_launchers(defines: tuple = ()):
+    """The three C launchers; ``defines`` bind a measurement variant of
+    the source (``csrc/flash_attention.cu``'s knobs)."""
+    lib = _cuda.load("flash_attention", defines)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     # b hq hkv sq sk d, scale cap, causal window q_offset, stream
     dims = [i, i, i, i, i, i, f, f, i, i, i, p]

@@ -1,21 +1,29 @@
 """The port's mesh: the JAX package's axis names and ``MeshConfig``
 (``parallel/mesh.py``), and a ``Mesh`` that honours the ``seq`` axis
-(ring attention in training) and the ``tensor`` axis (tensor-parallel
-serving), never both above 1 in one mesh: the JAX serving meshes are
-tensor-only, its sequence-parallel training meshes have no tensor axis.
+(ring attention in training), the ``tensor`` axis (tensor-parallel
+serving) and the ``expert`` axis beside ``tensor`` (expert-parallel
+serving, the JAX serving mesh ``expert`` x ``tensor``). ``seq`` shares a
+mesh with neither: the JAX serving meshes have no sequence axis, its
+sequence-parallel training meshes no tensor or expert axis.
 
 A JAX mesh lays the axes over the devices of one program; the port has two
-counterparts for either axis:
+counterparts for each axis:
 
-- the in-process mesh (``group=None``): the n shards live in one process,
+- the in-process mesh (``group=None``): the shards live in one process,
   on the caller's device, as a JAX mesh over the devices of one process
   does. Ring attention then runs every sequence shard's schedule at once
   (``ops/ring_attention.py``); a tensor mesh stacks every shard's weights
   and KV heads and launches each shard's kernels (``parallel/sharding.py``,
-  ``models/llama.py``), which is what one card can hold;
+  ``models/llama.py``); an expert shard is the outer part of the expert
+  axis, which no weight leaves (``models/moe.py``), which is what one card
+  can hold;
 - the process-group mesh: one shard a process of a ``torch.distributed``
-  group (NCCL across cards, gloo on the CPU), the rank's index on the
-  mesh's axis being its rank in the group.
+  group (NCCL across cards, gloo on the CPU). Rank r of an ``expert`` x
+  ``tensor`` group sits at expert index r // tensor and tensor index
+  r % tensor (the JAX mesh's axis order, tensor innermost); its tensor
+  collectives run over the ranks of its expert index (``group``), its
+  expert collectives over the ranks of its tensor index
+  (``expert_group``).
 
 Every other axis above 1 raises, naming the ROADMAP item that brings it.
 """
@@ -76,29 +84,38 @@ class MeshConfig:
 _LATER = {
     AXES.DATA: "Queue 1 #7.8 (data parallelism over NCCL, with FSDP)",
     AXES.FSDP: "Queue 1 #7.8 (FSDP/TP over NCCL)",
-    AXES.EXPERT: "Queue 1 #8 (expert parallelism)",
     AXES.STAGE: "Queue 1 #8 (pipeline stages)",
 }
 
 
 class Mesh:
-    """A mesh whose only axes above 1 are ``seq`` or ``tensor`` (one of
-    them): ``seq`` is the number of sequence shards, ``tensor`` the number
-    of tensor-parallel shards, ``rank`` this process's index on the axis
-    above 1 (0 in one process), ``group`` the process group (None: the
-    in-process mesh)."""
+    """A mesh whose axes above 1 are ``seq`` alone, or ``expert`` and
+    ``tensor``: ``seq`` is the number of sequence shards, ``tensor`` of
+    tensor-parallel shards, ``expert`` of expert shards; ``rank`` this
+    process's index on the ``seq`` or ``tensor`` axis and ``expert_rank``
+    on the ``expert`` axis (0 in one process); ``group`` the process group
+    of the ``seq`` or ``tensor`` collectives and ``expert_group`` of the
+    ``expert`` ones (None: the in-process mesh)."""
 
     def __init__(self, config: MeshConfig, group: Optional[Any] = None):
         for axis in AXES.ALL:
             size = getattr(config, axis)
-            if axis in (AXES.SEQ, AXES.TENSOR) or size in (1, -1):
+            if (axis in (AXES.SEQ, AXES.TENSOR, AXES.EXPERT)
+                    or size in (1, -1)):
                 continue
             raise ValueError(f"mesh axis {axis!r} = {size} is not ported; "
                              f"it comes with ROADMAP {_LATER[axis]}")
-        for axis in (AXES.SEQ, AXES.TENSOR):
+        for axis in (AXES.SEQ, AXES.TENSOR, AXES.EXPERT):
             if getattr(config, axis) < 1:
                 raise ValueError(f"{axis} must be at least 1, got "
                                  f"{getattr(config, axis)}")
+        if config.seq > 1 and config.expert > 1:
+            raise ValueError(f"mesh axis 'expert' = {config.expert} beside "
+                             f"seq = {config.seq} is not ported (expert "
+                             "parallelism is a serving mesh, expert x "
+                             "tensor; sequence shards are a training "
+                             "mesh); it comes with ROADMAP Queue 1 #8 "
+                             "and #7.8 (MoE training over a mesh)")
         if config.seq > 1 and config.tensor > 1:
             raise ValueError(f"mesh axis 'tensor' = {config.tensor} beside "
                              f"seq = {config.seq} is not ported (a mesh "
@@ -107,9 +124,12 @@ class Mesh:
                              "Queue 1 #6 and #7.8 (tensor-parallel "
                              "training)")
         self.group = group
+        self.expert_group = None
         self.seq = config.seq
         self.tensor = config.tensor
+        self.expert = config.expert
         self.rank = 0
+        self.expert_rank = 0
         if group is not None:
             import torch.distributed as dist
 
@@ -117,12 +137,30 @@ class Mesh:
             if size != self.shards:
                 raise ValueError(f"a process group of {size} ranks cannot "
                                  f"hold {self.shards} shards ({self})")
-            self.rank = dist.get_rank(group)
+            self.expert_rank, self.rank = divmod(dist.get_rank(group),
+                                                 self.tensor * self.seq)
+            if self.expert > 1:
+                self._subgroups(dist, group)
+
+    def _subgroups(self, dist, group) -> None:
+        """The tensor and expert subgroups of an expert x tensor group,
+        made by every rank in one order (``new_group`` is collective)."""
+        ranks = dist.get_process_group_ranks(group)
+        t, e = self.tensor, self.expert
+        for i in range(e):
+            sub = dist.new_group([ranks[i * t + j] for j in range(t)])
+            if i == self.expert_rank:
+                self.group = sub
+        for j in range(t):
+            sub = dist.new_group([ranks[i * t + j] for i in range(e)])
+            if j == self.rank:
+                self.expert_group = sub
 
     @property
     def shards(self) -> int:
-        """The degree of the mesh's one axis above 1 (1 when none is)."""
-        return self.seq * self.tensor
+        """The number of shards over every axis (1 when none is above
+        1)."""
+        return self.seq * self.tensor * self.expert
 
     @property
     def in_process(self) -> bool:
@@ -131,11 +169,17 @@ class Mesh:
     def __repr__(self) -> str:
         where = ("in one process" if self.in_process
                  else f"rank {self.rank} of a process group")
-        return f"Mesh(seq={self.seq}, tensor={self.tensor}, {where})"
+        axes = f"seq={self.seq}, tensor={self.tensor}"
+        if self.expert > 1:
+            axes += f", expert={self.expert}"
+            if not self.in_process:
+                where = (f"tensor rank {self.rank}, expert rank "
+                         f"{self.expert_rank} of a process group")
+        return f"Mesh({axes}, {where})"
 
 
 def make_mesh(config: MeshConfig, group: Optional[Any] = None) -> Mesh:
     """The port's ``make_mesh``: a ``Mesh`` over one process (``group``
-    None) or over a ``torch.distributed`` process group, one sequence or
-    tensor shard a rank."""
+    None) or over a ``torch.distributed`` process group, one sequence
+    shard, or one (expert, tensor) shard, a rank."""
     return Mesh(config, group)

@@ -1,8 +1,8 @@
-"""Tensor-parallel placement of a serving tree: the port's own copy of the
-JAX package's logical-axis rules (``parallel/sharding.py``
+"""Tensor- and expert-parallel placement of a serving tree: the port's own
+copy of the JAX package's logical-axis rules (``parallel/sharding.py``
 ``LOGICAL_RULES``) and of ``models/llama.py``'s ``_layer_axes`` and
 ``param_logical_axes``, and ``shard_params``, which lays a tree out over a
-mesh's ``tensor`` axis as those rules place it.
+mesh's ``tensor`` and ``expert`` axes as those rules place it.
 
 Under JAX a leaf whose logical axis maps to ``tensor`` is one array sharded
 over the mesh's devices. The port holds the shards itself:
@@ -16,7 +16,13 @@ over the mesh's devices. The port holds the shards itself:
 - over a process group, a split leaf becomes the rank's own slice.
 
 Replicated leaves (the norms, an int8 leaf's scales of a row-split
-weight) stay as they are. ``all_gather`` and ``all_reduce`` are the
+weight, int4 expert leaves over ``tensor``) stay as they are: held and
+computed once in one process. The ``expert`` axis of the expert weights
+(``we_*``) is, in one process, left whole: expert shard e is the outer
+part of it, experts e X/ep onwards, so no byte moves; over a process
+group each rank keeps its expert shard's X/ep experts. The router and
+V3's correction bias keep every expert on every shard (the routing reads
+every expert's logit). ``all_gather`` and ``all_reduce`` are the
 collectives the process-group form runs between the shards.
 """
 
@@ -31,10 +37,12 @@ from .mesh import AXES
 Params = dict[str, Any]
 
 # logical axis -> mesh axis (None: replicated): the JAX package's table.
-# Serving meshes are tensor-only, so of the mesh axes only ``tensor`` is
-# honoured here: heads, kv_heads, mlp and vocab shard over it, and every
-# int4-packed weight shards its out axis (``int4_out``) with the packed
-# contraction replicated.
+# Serving meshes are expert x tensor, so of the mesh axes ``tensor`` and
+# ``expert`` are honoured here: heads, kv_heads, mlp and vocab shard over
+# tensor, every int4-packed weight shards its out axis (``int4_out``) with
+# the packed contraction replicated (int4 expert leaves excepted:
+# ``models/quant.quantized_logical_axes`` gives them the expert axis only),
+# and the expert weights' leading axis shards over expert.
 LOGICAL_RULES: dict[str, object] = {
     "batch": (AXES.DATA, AXES.FSDP),
     "seq": AXES.SEQ,
@@ -135,22 +143,44 @@ def tensor_axis(axes) -> Optional[int]:
 
 def check_tensor_parallel(cfg, tensor: int) -> None:
     """The configurations the port serves at ``tensor`` > 1: dense
-    attention and a dense MLP. DeepSeek-MoE, MLA and MoE raise, naming
-    their fields and ROADMAP items."""
+    attention over a dense MLP or a sparse MoE MLP (raw and int8 experts
+    shard their mlp axis, int4 experts are replicated). DeepSeek-MoE and
+    MLA raise, naming their fields and ROADMAP item."""
     if tensor <= 1:
         return
     deepseek = cfg.deepseek_fields
     if deepseek:
         raise ValueError(f"{cfg.name}: DeepSeek-MoE ({deepseek}) under "
                          "tensor parallelism is not ported (ROADMAP Queue 1 "
-                         "#6 and #9 for its latent attention, #8 for expert "
-                         "parallelism)")
+                         "#9, with its latent attention); it serves expert-"
+                         "parallel at tensor 1")
     if cfg.is_mla:
         raise ValueError(f"{cfg.name}: MLA under tensor parallelism is not "
                          "ported (ROADMAP Queue 1 #9)")
-    if cfg.n_experts:
-        raise ValueError(f"{cfg.name}: MoE under tensor parallelism is not "
-                         "ported (ROADMAP Queue 1 #8, expert parallelism)")
+
+
+def check_expert_parallel(cfg, expert: int) -> None:
+    """An ``expert`` degree above 1 needs a sparse-MoE model whose expert
+    count it divides (the JAX ``_expert_ffn_sharded``'s words)."""
+    if expert <= 1:
+        return
+    if not cfg.n_experts or cfg.n_experts % expert:
+        raise ValueError(f"expert mesh axis {expert} must divide n_experts "
+                         f"{cfg.n_experts} ({cfg.name}: an MoE model whose "
+                         "expert count the degree divides)")
+
+
+# expert-axis leaves held whole on every expert shard: the routing needs
+# every expert's logit (under JAX, GSPMD gathers the sharded router)
+_WHOLE_OVER_EXPERT = ("router", "router_bias")
+
+
+def expert_axis(name: str, axes) -> Optional[int]:
+    """The index of a leaf's ``expert`` axis that the expert shards split
+    (the expert weights'), or None."""
+    if name in _WHOLE_OVER_EXPERT or "expert" not in axes:
+        return None
+    return list(axes).index("expert")
 
 
 def _tree_axes(cfg, params: Params) -> Params:
@@ -165,6 +195,13 @@ def _tree_axes(cfg, params: Params) -> Params:
     if "q8" in kinds:
         return quantized_logical_axes(cfg, bits=8)
     return param_logical_axes(cfg)
+
+
+def _expert_shard(t: torch.Tensor, axis: int, mesh) -> torch.Tensor:
+    """Over a process group, this rank's expert shard of ``axis``: experts
+    expert_rank X/ep onwards (in one process the axis stays whole)."""
+    size = t.shape[axis] // mesh.expert
+    return t.narrow(axis, mesh.expert_rank * size, size).contiguous()
 
 
 def _split(t: torch.Tensor, axis: int, lead: int, mesh) -> torch.Tensor:
@@ -183,19 +220,26 @@ def _split(t: torch.Tensor, axis: int, lead: int, mesh) -> torch.Tensor:
 
 
 def shard_params(cfg, params: Params, mesh) -> Params:
-    """``params`` laid out over ``mesh``'s ``tensor`` axis (see the module
-    docstring), IN PLACE: each leaf of the given tree is replaced by its
-    shards as soon as they exist, so the source leaf is freed at once when
-    the caller holds no other reference and the peak stays about one leaf
-    above the weights (8B bf16 weights are 16 GB). Returns the same dict.
-    A mesh with ``tensor`` 1 leaves the tree as it is."""
-    if mesh is None or mesh.tensor == 1:
+    """``params`` laid out over ``mesh``'s ``tensor`` and ``expert`` axes
+    (see the module docstring), IN PLACE: each leaf of the given tree is
+    replaced by its shards as soon as they exist, so the source leaf is
+    freed at once when the caller holds no other reference and the peak
+    stays about one leaf above the weights (8B bf16 weights are 16 GB).
+    Returns the same dict. A mesh with ``tensor`` and ``expert`` 1, or an
+    in-process one with ``tensor`` 1, leaves the tree as it is."""
+    if mesh is None:
         return params
     check_tensor_parallel(cfg, mesh.tensor)
+    check_expert_parallel(cfg, mesh.expert)
+    if mesh.tensor == 1 and (mesh.expert == 1 or mesh.in_process):
+        return params
     axes = _tree_axes(cfg, params)
 
-    def split(t: torch.Tensor, ax) -> torch.Tensor:
-        axis = tensor_axis(ax)
+    def split(t: torch.Tensor, ax, name: str) -> torch.Tensor:
+        e_axis = expert_axis(name, ax)
+        if e_axis is not None and not mesh.in_process and mesh.expert > 1:
+            t = _expert_shard(t, e_axis, mesh)
+        axis = tensor_axis(ax) if mesh.tensor > 1 else None
         if axis is None:
             return t
         return _split(t, axis, 1 if ax[0] == "layer" else 0, mesh)
@@ -204,8 +248,8 @@ def shard_params(cfg, params: Params, mesh) -> Params:
         leaf, ax = tree[name], tree_axes[name]
         # a quantized leaf becomes a new dict: the given one may be shared
         # (quantize_params keeps a leaf already quantized as it is)
-        tree[name] = ({k: split(v, ax[k]) for k, v in leaf.items()}
-                      if isinstance(leaf, dict) else split(leaf, ax))
+        tree[name] = ({k: split(v, ax[k], name) for k, v in leaf.items()}
+                      if isinstance(leaf, dict) else split(leaf, ax, name))
 
     for name in list(params):
         if name == "layers":
@@ -216,18 +260,24 @@ def shard_params(cfg, params: Params, mesh) -> Params:
     return params
 
 
-def all_gather(local: torch.Tensor, dim: int, mesh) -> torch.Tensor:
+def all_gather(local: torch.Tensor, dim: int, mesh,
+               axis: str = AXES.TENSOR) -> torch.Tensor:
     """The ranks' ``local`` tensors concatenated along ``dim`` in rank
-    order (a process-group mesh)."""
+    order over the mesh's ``axis`` (``tensor`` or ``expert``; a
+    process-group mesh)."""
     import torch.distributed as dist
 
-    parts = [torch.empty_like(local) for _ in range(mesh.tensor)]
-    dist.all_gather(parts, local.contiguous(), group=mesh.group)
+    expert = axis == AXES.EXPERT
+    parts = [torch.empty_like(local)
+             for _ in range(mesh.expert if expert else mesh.tensor)]
+    dist.all_gather(parts, local.contiguous(),
+                    group=mesh.expert_group if expert else mesh.group)
     return torch.cat(parts, dim=dim)
 
 
 def all_reduce(partial: torch.Tensor, mesh) -> torch.Tensor:
-    """The sum of the ranks' ``partial`` tensors (a process-group mesh)."""
+    """The sum of the ``tensor`` ranks' ``partial`` tensors (a
+    process-group mesh)."""
     import torch.distributed as dist
 
     partial = partial.contiguous()

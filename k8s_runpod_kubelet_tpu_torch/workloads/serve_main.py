@@ -1,5 +1,5 @@
 """HTTP front over the port's ServingEngine (a port of the JAX package's
-``workloads/serve_main.py``, without its tenants).
+``workloads/serve_main.py``).
 
 Endpoints:
   POST /generate      {"tokens": [...]} or {"text": "..."} (with a
@@ -44,6 +44,9 @@ Endpoints:
   GET  /readyz        routability: 503 while draining or dead
   POST /drain         stop admitting, finish in-flight work
   GET  /debug/engine  the engine's debug snapshot
+  GET  /debug/costs   the cost meter's ledger (chip-seconds a phase, KV
+                      page-seconds and dollars, in total and by tenant);
+                      404 with --cost-meter off
   GET  /debug/steps   ?n= the flight recorder's newest n step records and
                       phase medians, and the step graphs' capture counts
   GET  /metrics       Prometheus text 0.0.4: the engine's counters, gauges
@@ -84,7 +87,9 @@ Endpoints:
 /generate, /prefix and the OpenAI completion routes take a W3C
 ``traceparent`` header: its trace id and span become the request's trace
 and parent span, and every response carries the request's own
-``traceparent`` (feed its trace id to /debug/traces). A submit past
+``traceparent`` (feed its trace id to /debug/traces). /generate and the
+OpenAI completion routes meter each request to a tenant: the ``X-Tenant``
+header, else the OpenAI ``user`` field (64 characters at most). A submit past
 --max-queue-depth answers 429 (the OpenAI error shape on /v1/*) with
 Retry-After; a draining engine 503. With --fleet-router the replica
 registers with the fleet router as its --serving-role (unified, prefill or
@@ -98,10 +103,11 @@ Run: python -m k8s_runpod_kubelet_tpu_torch.workloads.serve_main \
         [--speculate K] [--serving-chunk-tokens N] [--max-prefixes N]
         [--config YAML] [--kv-page-tokens N] [--kv-pool-pages N]
         [--max-queue-depth N] [--max-connections N] [--flight-recorder off]
-        [--hf-checkpoint DIR] [--tensor-parallel N]
+        [--hf-checkpoint DIR] [--tensor-parallel N] [--expert-parallel E]
         [--lora-rank R [--lora-targets wq,wv] [--max-adapters N]
          [--dynamic-adapters]] [--trace-export PATH]
-        [--profile-capture on|off] [--fleet-router URL
+        [--profile-capture on|off] [--cost-meter on|off]
+        [--fleet-router URL
          [--fleet-advertise URL] [--fleet-replica-id ID]
          [--fleet-heartbeat-interval S]] [--serving-role ROLE]
         [--handoff-stream-window N] [--device-transfer on|off]
@@ -116,14 +122,15 @@ gemma2-9b`` and ``gemma3-12b``, and any model with ``--prefix-cache off``
 or ``--paged-decode off``, serve from the contiguous loop, ``--lora-rank``
 and ``POST /adapters`` included: an adapter ``train_main --model
 gemma2-9b --lora-rank R --export-adapter`` wrote registers there, and
-``--speculate K`` and ``--tensor-parallel N`` serve there too.)
+``--speculate K`` and ``--tensor-parallel N`` serve there too. An MoE
+model serves under ``--expert-parallel E``, with ``--tensor-parallel N``
+beside it for Mixtral; DeepSeek's latent attention keeps N at 1.)
 
 Every serving knob resolves as the JAX replica resolves it
 (``resolve_settings``): the flag, else its TPU_* environment variable (the
 JAX autoscaler puts them on every serving pod it creates), else the
 ``--config`` YAML, else the ``config.Config`` default. ``--profiler-port``
-and a cost meter asked for (``--cost-meter on``, its variable or its key)
-are refused by name. Past ``--max-connections`` connections in flight a
+is refused by name. Past ``--max-connections`` connections in flight a
 connection gets an immediate 503 with ``Retry-After: 1``
 (``tpu_serving_http_rejected``); GET /metrics and /healthz keep a reserve
 of two.
@@ -258,6 +265,14 @@ class _Handler(BaseHTTPRequestHandler):
                  "span_id": root},
                 {"traceparent": format_traceparent(trace_id, root)})
 
+    def _tenant_kw(self, body: dict) -> dict:
+        """The cost meter's tenant, as the JAX front takes it: the
+        ``X-Tenant`` header wins (the fleet router forwards it as it is),
+        else the OpenAI ``user`` field; cut to 64 characters (it becomes
+        a ledger key)."""
+        tenant = self.headers.get("X-Tenant") or body.get("user") or ""
+        return {"tenant": str(tenant)[:64]}
+
     def do_GET(self):
         eng = self.engine
         url = urllib.parse.urlparse(self.path)
@@ -279,6 +294,13 @@ class _Handler(BaseHTTPRequestHandler):
             return self._send(200, {"object": "list", "data": data})
         if url.path == "/debug/engine":
             return self._send(200, eng.debug_snapshot())
+        if url.path == "/debug/costs":
+            # the replica's cost ledger; the same snapshot rides the
+            # reporter's heartbeat into the router's fleet-wide one
+            if eng.costmeter is None:
+                return self._send(404, {"error": "cost meter disabled "
+                                                 "(--cost-meter off)"})
+            return self._send(200, eng.costmeter.snapshot())
         if url.path == "/debug/steps":
             q = urllib.parse.parse_qs(url.query)
             try:
@@ -371,7 +393,8 @@ class _Handler(BaseHTTPRequestHandler):
             logit_bias=req.get("logit_bias"), seed=req.get("seed"),
             stop=stop, stop_text=stop_strs,
             logprobs=bool(req.get("logprobs")),
-            adapter=req.get("adapter") or "", **trace_kw)
+            adapter=req.get("adapter") or "", **trace_kw,
+            **self._tenant_kw(req))
         try:
             out = fut.result(timeout=self.request_timeout_s)
         except FutureTimeout:
@@ -1272,6 +1295,7 @@ class _Handler(BaseHTTPRequestHandler):
                 "message": str(e), "type": "invalid_request_error"}})
         trace_kw, trace_hdrs = self._trace_ctx()
         kw.update(trace_kw)
+        kw.update(self._tenant_kw(req))
         ns = int(self.clock() * 1e9) + next(_RID_SEQ)
         rid = f"chatcmpl-{ns:x}" if chat else f"cmpl-{ns:x}"
         created = int(self.clock())
@@ -1465,7 +1489,8 @@ class _Handler(BaseHTTPRequestHandler):
                   frequency_penalty=_or(req.get("frequency_penalty"), 0.0),
                   logit_bias=req.get("logit_bias"), seed=req.get("seed"),
                   logprobs=bool(req.get("logprobs")),
-                  adapter=req.get("adapter") or "", **trace_kw)
+                  adapter=req.get("adapter") or "", **trace_kw,
+                  **self._tenant_kw(req))
 
         def line(payload: dict) -> bytes:
             return (json.dumps(payload) + "\n").encode()
@@ -1809,6 +1834,11 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "process, on --device (weights and KV heads split "
                         "as the JAX engine's tensor mesh splits them); N "
                         "must divide the model's head counts")
+    p.add_argument("--expert-parallel", type=int, default=1, metavar="E",
+                   help="shard an MoE model's experts over E expert shards "
+                        "in this process (the JAX expert x tensor mesh; "
+                        "composes with --tensor-parallel): each shard runs "
+                        "n_experts/E experts; E must divide n_experts")
     p.add_argument("--kv-arena-sharding", default=None,
                    choices=["auto", "replicate"],
                    help="under --tensor-parallel: shard the KV arena's heads "
@@ -1854,8 +1884,11 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "PyTorch has none (use --profile-capture on)")
     p.add_argument("--cost-meter", default=None, choices=["on", "off"],
                    dest="serving_cost_meter",
-                   help="per-request cost attribution: refused when asked "
-                        "for (not ported, ROADMAP Queue 1 #11)")
+                   help="per-request chip-second and dollar attribution "
+                        "by tenant (X-Tenant, else the OpenAI user field), "
+                        "served at GET /debug/costs and carried on the "
+                        "fleet heartbeat (default from config/"
+                        "TPU_SERVING_COST_METER, on)")
     p.add_argument("--fleet-router", default="", metavar="URL",
                    help="fleet router URL: register this replica and "
                         "heartbeat its load stats and metrics so the router "
@@ -1935,13 +1968,11 @@ def resolve_settings(args: argparse.Namespace, env=None) -> dict:
     with ``fleet_placement_domain`` detected ("" when device transfer is
     off). Raises ValueError for what the port does not serve, from any
     source: a profiler port (PyTorch has no profiler server, a deliberate
-    difference) and a cost meter asked for (ROADMAP Queue 1 #11; the
-    JAX default, on, is no request)."""
+    difference)."""
     from ..config import load
 
     env = os.environ if env is None else env
-    named: set = set()
-    base = load(args.config or None, env=env, named=named)
+    base = load(args.config or None, env=env)
     out = {"fleet_prefix_directory_enabled":
            base.fleet_prefix_directory_enabled}
     for field, true_by in KNOBS.items():
@@ -1953,11 +1984,6 @@ def resolve_settings(args: argparse.Namespace, env=None) -> dict:
                          "TPU_SERVING_PROFILER_PORT): PyTorch has no "
                          "profiler server, a deliberate difference; use "
                          "--profile-capture on")
-    if out["serving_cost_meter"] and (args.serving_cost_meter == "on"
-                                      or "serving_cost_meter" in named):
-        raise ValueError("serving_cost_meter (--cost-meter, "
-                         "TPU_SERVING_COST_METER): per-request cost "
-                         "attribution is not ported (ROADMAP Queue 1 #11)")
     out["fleet_placement_domain"] = (detect_placement_domain(
         out["fleet_placement_domain"], env=env,
         mode=out["fleet_placement_domain_mode"])
@@ -1975,11 +2001,17 @@ def build_engine(args: argparse.Namespace, params=None,
     time, so the bf16 tree never exists whole: Mixtral-8x7B's is 93 GB).
     With
     ``--tensor-parallel N`` the engine serves over an in-process tensor
-    mesh of N shards (and takes a given bf16 tree over). Raises ValueError
-    for --int8 with --int4, a tensor degree below 1 or one that does not
-    divide the head counts, and an MLA or MoE model under N > 1, all
-    before any weight is drawn or loaded, as are ``--lora-rank`` with an
-    MLA model and what the decode loop the flags select refuses.
+    mesh of N shards (and takes a given bf16 tree over), with
+    ``--expert-parallel E`` of E x N shards, an MoE model's experts split
+    E ways. Raises ValueError for --int8 with --int4, and with the JAX
+    CLI's checks in its order: a tensor or expert degree below 1, an
+    expert degree without an MoE model whose expert count it divides, a
+    tensor degree that does not divide the head counts; then an MLA or
+    DeepSeek-MoE model under N > 1; all before any weight is drawn or
+    loaded, as are ``--lora-rank`` with an MLA model and what the decode
+    loop the flags select refuses. (The JAX CLI's last check, E x N
+    devices, has no counterpart: the shards of one process share the
+    card.)
     ``--paged-decode off``, ``--prefix-cache off`` or a windowed
     interleave serve from the contiguous loop, ``--speculate``,
     ``--lora-rank`` and ``--tensor-parallel`` included."""
@@ -1997,9 +2029,14 @@ def build_engine(args: argparse.Namespace, params=None,
         raise ValueError(f"--lora-rank does not compose with MLA models "
                          f"(adapters target the wq/wk/wv layout; {cfg.name} "
                          "uses w_dkv/w_uk/w_uv)")
-    n = args.tensor_parallel
-    if n < 1:
-        raise ValueError(f"--tensor-parallel must be >= 1, got {n}")
+    n, ep = args.tensor_parallel, args.expert_parallel
+    if n < 1 or ep < 1:
+        raise ValueError(f"--tensor-parallel and --expert-parallel must be "
+                         f">= 1 (got {n}, {ep})")
+    if ep > 1 and (not cfg.n_experts or cfg.n_experts % ep):
+        raise ValueError(f"--expert-parallel {ep} needs an MoE model whose "
+                         f"n_experts it divides ({cfg.name} has "
+                         f"n_experts={cfg.n_experts})")
     if cfg.n_heads % n or cfg.n_kv_heads % n:
         raise ValueError(f"--tensor-parallel {n} must divide the model's "
                          f"head counts (n_heads={cfg.n_heads}, "
@@ -2021,6 +2058,7 @@ def build_engine(args: argparse.Namespace, params=None,
         kv_pool_pages=knobs["kv_pool_pages"],
         max_queue_depth=args.max_queue_depth,
         flight_recorder=knobs["serving_flight_recorder"],
+        cost_meter=knobs["serving_cost_meter"],
         kv_arena_sharding=knobs["kv_arena_sharding"],
         lora_rank=args.lora_rank,
         lora_targets=tuple(t for t in args.lora_targets.split(",") if t),
@@ -2033,7 +2071,8 @@ def build_engine(args: argparse.Namespace, params=None,
     # the engine's checks of these settings, before any weight
     ServingEngine.lora_dims(cfg, sc)
     ServingEngine.check_loop(cfg, sc)
-    mesh = make_mesh(MeshConfig(data=1, tensor=n)) if n > 1 else None
+    mesh = (make_mesh(MeshConfig(data=1, expert=ep, tensor=n))
+            if n > 1 or ep > 1 else None)
     device = resolve_device(args.device)
     if params is None and args.hf_checkpoint:
         params = load_hf(cfg, args.hf_checkpoint, device=device)
@@ -2069,10 +2108,11 @@ def main(argv=None) -> int:
                   max_connections=args.max_connections)
     snap = engine.debug_snapshot()
     log.info("serving %s on :%d (%s, weights %s, kv %s, cache %s, "
-             "tensor-parallel %d, role %s)", snap["model"],
-             httpd.server_address[1], snap["device"], snap["weights"],
-             snap["kv"], snap["cache_layout"],
-             snap["tensor_parallel"], knobs["serving_role"])
+             "tensor-parallel %d, expert-parallel %d, role %s)",
+             snap["model"], httpd.server_address[1], snap["device"],
+             snap["weights"], snap["kv"], snap["cache_layout"],
+             snap["tensor_parallel"], snap["expert_parallel"],
+             knobs["serving_role"])
     advertise = advertise_url(args, httpd.server_address[1])
     domain = knobs["fleet_placement_domain"]
     if domain:

@@ -75,7 +75,16 @@ paged loop.
   shards the kv-head axis (``kv_arena_sharding`` "auto" where N divides
   both head counts) or replicates; every step, chunk and dense-route
   prefill runs tensor-parallel (``LlamaModel`` under the mesh), the JAX
-  engine under a mesh with a ``tensor`` axis, on either loop.
+  engine under a mesh with a ``tensor`` axis, on either loop. An
+  ``expert`` axis beside it (an MoE model) shards the MoE layers' expert
+  FFN (``models/moe.py``), as the JAX engine's ``expert`` x ``tensor``
+  mesh does.
+- **Cost accounting**: with ``cost_meter`` on (the default) each
+  completed request is metered (``costmeter.CostMeter``: chip-seconds a
+  phase, KV page-seconds, dollars at the ``generations.py`` price of the
+  replica's accelerator, by ``tenant``) onto its ``serving.request`` span,
+  the ``tpu_serving_*cost*`` series and the ledger ``GET /debug/costs``
+  serves.
 - **Step graphs**: the decode and verify steps run through
   ``StepGraph`` (``step_graph.py``), the JAX engine's jitted
   ``paged_step``/``paged_verify``: on a card each is captured as a CUDA
@@ -144,6 +153,7 @@ the JAX engine's series: it counts only with ``serving_chunk_tokens`` set.
 from __future__ import annotations
 
 import logging
+import os
 import queue
 import threading
 import time
@@ -167,6 +177,7 @@ from ...models.lora import LORA_TARGETS, is_lora
 from ...models.quant import quantize_params
 from ...parallel.sharding import shard_params
 from ...tracing import Tracer
+from .costmeter import CostMeter
 from .kv_manager import DensePrefixStore, PagedKVStore, PoolExhausted
 from .recorder import STEP_BUCKETS, CompileWatchdog, FlightRecorder
 from .sampler import (_apply_penalties, _bias_row, _logit_modded,
@@ -287,10 +298,10 @@ class ServingEngine:
                              f"'replicate', got {sc.kv_arena_sharding!r}")
         if mesh is not None and (mesh.seq > 1 or not mesh.in_process):
             raise ValueError(
-                f"{mesh}: the engine serves on an in-process tensor mesh; "
-                "a sequence mesh is a training mesh, and the engine over a "
-                "process group (rank 0 scheduling, each step's inputs "
-                "broadcast) is ROADMAP Queue 1 #6")
+                f"{mesh}: the engine serves on an in-process expert x "
+                "tensor mesh; a sequence mesh is a training mesh, and the "
+                "engine over a process group (rank 0 scheduling, each "
+                "step's inputs broadcast) is ROADMAP Queue 1 #6")
         if sc.slots < 1 or sc.max_prefill_len < 1:
             raise ValueError("slots and max_prefill_len must be >= 1")
         if min(sc.speculate_k, sc.serving_chunk_tokens, sc.max_prefixes) < 0:
@@ -478,6 +489,17 @@ class ServingEngine:
                                self.model.tp if self._paged_loop else 0)
         self.total_generated = 0
         self.last_error: Optional[str] = None
+        # per-request chip-second and dollar attribution (None when off:
+        # a completion pays one `is not None` test). Its chips are the
+        # cards the replica holds: an in-process mesh lives on one
+        self.costmeter: Optional[CostMeter] = None
+        if sc.cost_meter:
+            self.costmeter = CostMeter(
+                self.metrics, model=cfg.name,
+                accelerator=priced_accelerator(self.device),
+                chips=1 if mesh is None or mesh.in_process else mesh.shards,
+                pool=os.environ.get("TPU_SERVING_POOL", ""),
+                clock=self._perf)
         self._seed_rng = np.random.default_rng(seed)
         self._seed_lock = threading.Lock()
         self._stop = threading.Event()
@@ -715,7 +737,7 @@ class ServingEngine:
                stop_text: Optional[list] = None, logprobs: bool = False,
                on_token: Optional[Callable[[int], Any]] = None,
                adapter: str = "", trace_id: str = "", parent_span: str = "",
-               span_id: str = "") -> Future:
+               span_id: str = "", tenant: str = "") -> Future:
         """Enqueue a generation request; resolves to {rid, tokens,
         latency_s, ttft_s} (+ "logprobs", one per token, with
         ``logprobs``). ``stop``: token sequences that end the request when
@@ -728,14 +750,15 @@ class ServingEngine:
         ("" = the base model); an unknown name resolves to ValueError.
         ``trace_id``, ``parent_span`` and ``span_id`` place the request's
         spans in the caller's trace (the W3C traceparent the HTTP front
-        parsed; ``span_id`` names the request's root span)."""
+        parsed; ``span_id`` names the request's root span). ``tenant``
+        is the cost meter's accounting label."""
         try:
             req = self._build_request(prompt, max_new_tokens, temperature,
                                       top_k, top_p, presence_penalty,
                                       frequency_penalty, logit_bias, seed,
                                       stop, stop_text, logprobs, on_token,
                                       adapter, trace_id, parent_span,
-                                      span_id)
+                                      span_id, tenant)
         except ValueError as exc:
             return _failed(exc)
         return self._enqueue(req, 1)[0]
@@ -1171,6 +1194,9 @@ class ServingEngine:
                 # the tensor degree either loop runs at, and the kv-head
                 # shards of the contiguous loop's batch cache
                 "tensor_parallel": self.model.tp,
+                # the expert degree the MoE layers' expert FFN runs at
+                "expert_parallel": (self.model.mesh.expert
+                                    if self.model.mesh is not None else 1),
                 "cache_head_shards": (None if self._paged_loop else
                                       self.model.cache_shards(self._cache)),
                 "kv_arena_shards": self._arena_shards,
@@ -1207,7 +1233,7 @@ class ServingEngine:
                        frequency_penalty=0.0, logit_bias=None, seed=None,
                        stop=None, stop_text=None, logprobs=False,
                        on_token=None, adapter="", trace_id="",
-                       parent_span="", span_id="") -> Request:
+                       parent_span="", span_id="", tenant="") -> Request:
         """``submit``'s arguments, validated, as a Request (ValueError
         when one is invalid)."""
         sc, vocab = self.sc, self.cfg.vocab_size
@@ -1286,7 +1312,8 @@ class ServingEngine:
                        on_token=on_token, adapter_id=adapter_id,
                        trace_id=str(trace_id or ""),
                        span_id=str(span_id or ""),
-                       parent_span_id=str(parent_span or ""))
+                       parent_span_id=str(parent_span or ""),
+                       tenant=str(tenant or ""))
 
     # -- prefill thread -------------------------------------------------------
 
@@ -3014,6 +3041,10 @@ class ServingEngine:
     def _complete(self, slot_id: int, slot: _Slot):
         req = slot.request
         slot.request = None
+        # the meter's page-seconds read the page count at completion,
+        # before the release empties it (0 on the contiguous loop: the
+        # meter then counts the prompt's pages)
+        pages_end = len(slot.pages)
         # shared prefix pages stay in the trie for the next hit; private
         # tail pages free now (the contiguous loop's slots hold none)
         if slot.pages:
@@ -3027,8 +3058,17 @@ class ServingEngine:
         latency = self._perf() - req.submitted_at
         self.metrics.observe("tpu_serving_request_latency_seconds", latency,
                              exemplar=req.trace_id or None)
+        cost = None
+        if self.costmeter is not None:
+            try:
+                cost = self.costmeter.meter_request(
+                    req, end_at=req.submitted_at + latency,
+                    generated_tokens=len(slot.generated),
+                    pages_end=pages_end, page_tokens=self.sc.kv_page_tokens)
+            except Exception:  # noqa: BLE001 — metering must never fail a request
+                log.exception("cost metering for %s failed", req.rid)
         try:
-            self._record_request_spans(req, slot, latency)
+            self._record_request_spans(req, slot, latency, cost)
         except Exception:  # noqa: BLE001 — tracing must never fail a request
             log.exception("span recording for %s failed", req.rid)
         out = {"rid": req.rid, "tokens": slot.generated,
@@ -3047,7 +3087,7 @@ class ServingEngine:
         self.metrics.set_gauge("tpu_serving_active_slots", self.active_slots)
 
     def _record_request_spans(self, req: Request, slot: _Slot,
-                              latency: float):
+                              latency: float, cost: Optional[dict] = None):
         """The request's span tree, recorded after the fact from the
         threads' timestamps: ``serving.request`` and its contiguous
         children ``serving.queue_wait`` (submit -> dequeue),
@@ -3055,7 +3095,8 @@ class ServingEngine:
         ``serving.decode`` (prefill done -> finish, the ready-queue wait
         included), whose durations sum to the request's latency. The
         recorder's attribution (steps ridden, their wall and kernel share)
-        rides the root."""
+        and the cost meter's (``cost``: dollars, chip-seconds a phase, KV
+        page-seconds, tenant) ride the root."""
         tr = self.tracer
         now_perf = self._perf()
         now_wall = tr.clock()
@@ -3080,6 +3121,8 @@ class ServingEngine:
                 attrs["decode_steps"] = acc["steps"]
                 attrs["step_wall_share_s"] = round(acc["step_wall_s"], 6)
                 attrs["step_kernel_share_s"] = round(acc["kernel_s"], 6)
+        if cost is not None:
+            attrs.update(self.costmeter.span_attrs(cost))
         tr.record("serving.request", wall(req.submitted_at), end,
                   trace_id=trace_id, span_id=root,
                   parent_id=req.parent_span_id, attrs=attrs)
@@ -3099,6 +3142,17 @@ class ServingEngine:
                       trace_id=trace_id, parent_id=root,
                       attrs={"rid": req.rid,
                              "tokens": len(slot.generated)})
+
+
+def priced_accelerator(device) -> str:
+    """The accelerator the cost meter prices a replica by, as the JAX
+    replica names it: ``TPU_ACCELERATOR_TYPE`` when the environment sets
+    it, else the card's name (``generations.generation_of`` maps either;
+    empty on the CPU)."""
+    named = os.environ.get("TPU_ACCELERATOR_TYPE", "")
+    if named or device.type != "cuda":
+        return named
+    return torch.cuda.get_device_name(device)
 
 
 def host_sections(sections: dict, ready, device) -> tuple[dict, dict]:

@@ -111,6 +111,11 @@ class ServingConfig:
     flight_recorder: bool = True
     recorder_steps: int = 512
     recorder_bytes: int = 262144
+    # per-request card-second metering (costmeter.py): the phase walls
+    # the engine stamps priced through generations.py, KV page-seconds,
+    # a ledger per tenant at GET /debug/costs and on the reporter's
+    # heartbeat. Off: the engine holds no meter
+    cost_meter: bool = True
 
 
 class EngineOverloaded(RuntimeError):
@@ -176,6 +181,9 @@ class Request:
     matched_prefix_tokens: int = 0
     # multi-LoRA: the adapter slot this request decodes with (0 = base)
     adapter_id: int = 0
+    # the cost meter's tenant (X-Tenant, else the OpenAI user field); an
+    # accounting label only ("" = none)
+    tenant: str = ""
 
 
 @dataclasses.dataclass

@@ -371,6 +371,8 @@ def synthetic_batches(cfg: LlamaConfig, tc: TrainConfig, seed: int = 0,
         yield batch.to(dev)
 
 
+# the profiler range around each optimizer step of ``Trainer.run``
+STEP_RANGE = "train_step"
 _CKPT = re.compile(r"^step_(\d+)\.pt$")
 _KEEP_CHECKPOINTS = 3   # as the JAX trainer's orbax manager keeps
 # pinned staging buffers kept for the next save, at most this many bytes:
@@ -735,8 +737,11 @@ class Trainer:
         first_step_s = None
         t_step = t0
         for _ in range(steps):
-            metrics = self.step_fn(self.params, self.opt_state,
-                                   next(batches))
+            # one profiler range a step (free without a profiler): a
+            # train_main --profile-dir trace counts its steps by it
+            with torch.profiler.record_function(STEP_RANGE):
+                metrics = self.step_fn(self.params, self.opt_state,
+                                       next(batches))
             if first_step_s is None:
                 float(metrics["loss"])      # waits for the device
                 first_step_s = time.perf_counter() - t0

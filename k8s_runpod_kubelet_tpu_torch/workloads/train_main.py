@@ -30,9 +30,15 @@ N``, the marker the kubelet parses (a checkpoint wins over
 ``--hf-checkpoint DIR``, which starts from a Hugging Face model
 directory's weights instead of random init).
 
-Refused by name: ``--profile-dir`` (a ``torch.profiler`` capture is a
-later item), ``--profiler-port`` (PyTorch has no profiler server; as for
-serving), ``--elastic-batch-mode`` and an elastic-resize relaunch (ROADMAP
+``--profile-dir DIR`` traces steps 3-5 as the JAX main does: with
+``--steps`` over 4 it runs two steps, captures three under
+``torch.profiler`` (CPU activity, and CUDA's on a card) into
+``DIR/train_steps.pt.trace.json`` (Chrome trace format, the file
+``step_profile.trace_kernel_events`` reads), then runs the rest; fewer
+steps run untraced.
+
+Refused by name: ``--profiler-port`` (PyTorch has no profiler server; as
+for serving), ``--elastic-batch-mode`` and an elastic-resize relaunch (ROADMAP
 Queue 1 #7.5), ``--fsdp``, ``--tensor``, ``--stage`` and a multi-process
 gang (#7.8, #8). ``--seq N`` shards the sequence over an in-process mesh
 on the one card (ring flash attention, ``ring_flash``), as
@@ -56,9 +62,6 @@ def _refusals(args) -> list[str]:
     """The JAX flags and environment this port does not serve, each with
     the item that brings it."""
     out = []
-    if args.profile_dir:
-        out.append("--profile-dir: a torch.profiler capture of training "
-                   "steps is not ported yet")
     if args.profiler_port:
         out.append("--profiler-port: PyTorch has no profiler server (a "
                    "deliberate difference, as for serving)")
@@ -76,6 +79,41 @@ def _refusals(args) -> list[str]:
         out.append("a multi-process gang: training over a process group is "
                    "not ported (ROADMAP Queue 1 #7.8)")
     return out
+
+
+def mfu_accelerator(device) -> str:
+    """The accelerator whose peak is the MFU denominator: the card's own
+    row on the card, else the accelerator the environment names (a CPU run
+    without one reads the cpu floor)."""
+    import torch
+
+    if device.type == "cuda":
+        return torch.cuda.get_device_name(device)
+    return os.environ.get("TPU_ACCELERATOR_TYPE", "")
+
+
+PROFILE_TRACE = "train_steps.pt.trace.json"
+
+
+def profile_steps(trainer, steps: int, batches, out_dir: str) -> dict:
+    """``trainer.run(steps)`` under ``torch.profiler`` (CPU activity, and
+    CUDA's on a card), its Chrome trace exported to ``out_dir/``
+    ``PROFILE_TRACE``; the run's summary with the trace's path."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = trainer.device.type == "cuda"
+    activities = [ProfilerActivity.CPU]
+    if cuda:
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(out_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        out = trainer.run(steps=steps, batches=batches)
+        if cuda:
+            torch.cuda.synchronize(trainer.device)
+    path = os.path.join(out_dir, PROFILE_TRACE)
+    prof.export_chrome_trace(path)
+    return dict(out, trace=path)
 
 
 def main(argv=None) -> int:
@@ -134,8 +172,9 @@ def main(argv=None) -> int:
                         "read through the native loader")
     p.add_argument("--data-threads", type=int, default=2)
     p.add_argument("--profile-dir", default="",
-                   help="refused: a torch.profiler capture of training steps "
-                        "is not ported yet")
+                   help="trace three post-warmup steps (3-5) with "
+                        "torch.profiler into this directory (Chrome trace "
+                        "format, TensorBoard-readable)")
     p.add_argument("--profiler-port", type=int, default=0,
                    help="refused: PyTorch has no profiler server")
     p.add_argument("--telemetry-port", type=int,
@@ -181,8 +220,6 @@ def main(argv=None) -> int:
     if restart_attempt:
         log.info("restart attempt %d (post-preemption relaunch)",
                  restart_attempt)
-
-    import torch
 
     from ..health import HealthServer
     from ..metrics import Metrics
@@ -237,15 +274,10 @@ def main(argv=None) -> int:
     def emit_line(line: str):
         print(line, file=sys.stderr, flush=True)
 
-    # the MFU peak: the card's own row on the card, else the accelerator
-    # the environment names (a CPU run reads the cpu floor)
-    accelerator = (torch.cuda.get_device_name(device)
-                   if device.type == "cuda"
-                   else os.environ.get("TPU_ACCELERATOR_TYPE", ""))
     tel = TrainingTelemetry(
         tokens_per_step=batch * args.seq_len,
         model_params=cfg.param_count, n_chips=1,
-        accelerator_type=accelerator, num_hosts=1, host_id=0,
+        accelerator_type=mfu_accelerator(device), num_hosts=1, host_id=0,
         metrics=tel_metrics, tracer=tracer,
         straggler_factor=args.straggler_factor,
         stall_timeout_s=args.stall_timeout_s,
@@ -298,7 +330,15 @@ def main(argv=None) -> int:
                                  threads=args.data_threads,
                                  start_batch=trainer.step)
             batches = device_batches(loader, device)
-        out = trainer.run(steps=args.steps, batches=batches)
+        if args.profile_dir and args.steps > 4:
+            # steady-state steps only: the first ones build the kernels
+            trainer.run(steps=2, batches=batches)
+            out = profile_steps(trainer, 3, batches, args.profile_dir)
+            log.info("profiler trace written to %s", out["trace"])
+            if args.steps > 5:  # steps=0 would mean "tc.steps more"
+                out = trainer.run(steps=args.steps - 5, batches=batches)
+        else:
+            out = trainer.run(steps=args.steps, batches=batches)
         if args.checkpoint_dir:
             trainer.save()  # blocks: the final checkpoint is durable
         if args.export_adapter:

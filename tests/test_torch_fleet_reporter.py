@@ -146,4 +146,7 @@ def test_stats_keys_match_the_jax_reporter_on_a_jax_engine():
     beat = posts[0][1]
     assert beat["metrics"]["schema_version"] == 1
     assert beat["stats"]["requests_total"] == 0
-    assert "prefixes" not in beat and "costs" not in beat
+    assert "prefixes" not in beat
+    # the cost ledger rides every beat, in the JAX meter's wire shape
+    assert beat["costs"]["schema_version"] == 1
+    assert set(beat["costs"]) == set(jeng.costmeter.snapshot())

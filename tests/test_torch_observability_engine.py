@@ -3,8 +3,8 @@ same f32 tiny weights and the same prompts, submitted one at a time
 (greedy, so every count the requests fix is fixed): the paged loop, the
 paged loop with ``speculate_k`` 3, and the contiguous loop with the prefix
 cache off, each of the two loops also with chunked prefill
-(``serving_chunk_tokens`` 8). The JAX engine runs without its cost meter
-(the port's comes with ROADMAP Queue 1 #11). Held:
+(``serving_chunk_tokens`` 8). Both engines meter costs (the default).
+Held:
 
 - the HELP and TYPE lines of every series both engines render are
   identical;
@@ -105,7 +105,7 @@ def jtree():
 def test_metrics_and_spans_match_the_jax_engine(jtree, case):
     kw = CASES[case]
     jeng = JaxServingEngine(JCFG, jax.tree_util.tree_map(jnp.asarray, jtree),
-                            JaxServingConfig(**SC, **kw, cost_meter=False))
+                            JaxServingConfig(**SC, **kw))
     cfg = config_from_jax(JCFG, torch.float32)
     eng = ServingEngine(cfg, params_from_jax(jtree, cfg, device="cpu"),
                         ServingConfig(**SC, **kw), device="cpu")

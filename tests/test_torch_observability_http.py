@@ -63,7 +63,7 @@ def servers():
     tree = jax.tree_util.tree_map(
         np.asarray, jax_init_params(JCFG, jax.random.PRNGKey(7)))
     jeng = JaxServingEngine(JCFG, jax.tree_util.tree_map(jnp.asarray, tree),
-                            JaxServingConfig(**SC, cost_meter=False),
+                            JaxServingConfig(**SC),
                             decode_fn=JaxByteTokenizer().decode).start()
     cfg = config_from_jax(JCFG, torch.float32)
     tok = ByteTokenizer()

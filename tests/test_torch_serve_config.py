@@ -8,8 +8,10 @@
   CLI's flag-over-config rule resolve them, and reach the engine's
   ``ServingConfig``; the port's ``config.load`` equals the JAX one on the
   same file and environment, and refuses an unknown YAML key as it does;
-- the knobs the port does not serve (a profiler port, a cost meter asked
-  for) are refused by name from the flag, the environment and the file;
+- the cost meter (``serving_cost_meter``, on by default as in JAX)
+  resolves from every source and reaches ``ServingConfig.cost_meter``;
+- the knob the port does not serve (a profiler port) is refused by name
+  from the flag, the environment and the file;
 - the fleet reporter wakes on prefix publishes only with the prefix
   directory on;
 - ``ServingConfig(temperature=T)``: a request that names no temperature
@@ -81,6 +83,8 @@ KNOBS = {
                                 "flight_recorder", None),
     "serving_profile_capture": ("TPU_SERVING_PROFILE_CAPTURE", "true", False,
                                 ["--profile-capture", "off"], None, None),
+    "serving_cost_meter": ("TPU_SERVING_COST_METER", "false", True,
+                           ["--cost-meter", "on"], "cost_meter", None),
     "fleet_prefix_directory_enabled": (
         "TPU_FLEET_PREFIX_DIRECTORY_ENABLED", "false", True, None, None,
         None),
@@ -159,15 +163,12 @@ def test_an_unknown_yaml_key_is_refused_as_in_jax(tmp_path):
 
 
 @pytest.mark.parametrize("source", ["flag", "env", "yaml"])
-@pytest.mark.parametrize("knob", ["serving_profiler_port",
-                                  "serving_cost_meter"])
+@pytest.mark.parametrize("knob", ["serving_profiler_port"])
 def test_unserved_knobs_are_refused_from_every_source(tmp_path, knob,
                                                       source):
     flag, var, value, yaml_value = {
         "serving_profiler_port": (["--profiler-port", "9999"],
                                   "TPU_SERVING_PROFILER_PORT", "9999", 9999),
-        "serving_cost_meter": (["--cost-meter", "on"],
-                               "TPU_SERVING_COST_METER", "true", True),
     }[knob]
     argv, env = list(BASE), {}
     if source == "flag":
@@ -178,12 +179,9 @@ def test_unserved_knobs_are_refused_from_every_source(tmp_path, knob,
         argv += ["--config", _yaml(tmp_path, {knob: yaml_value})]
     with pytest.raises(ValueError, match=knob):
         serve_main.resolve_settings(serve_main.parse_args(argv), env=env)
-    # the JAX default (a cost meter on, no profiler port) is no request,
-    # and turning either off is served
-    off = (["--cost-meter", "off"] if knob == "serving_cost_meter"
-           else ["--profiler-port", "0"])
-    got = serve_main.resolve_settings(serve_main.parse_args(BASE + off),
-                                      env={})
+    # the JAX default (no profiler port) is no request, and 0 is served
+    got = serve_main.resolve_settings(
+        serve_main.parse_args(BASE + ["--profiler-port", "0"]), env={})
     assert not got[knob]
     serve_main.resolve_settings(serve_main.parse_args(BASE), env={})
 
@@ -283,6 +281,13 @@ def _http(port: int, request: bytes, wait: float = 5.0) -> bytes:
             out += data
 
 
+def _until(cond, what: str, timeout: float = 10.0) -> None:
+    deadline = time.monotonic() + timeout
+    while not cond():
+        assert time.monotonic() < deadline, what
+        time.sleep(0.01)
+
+
 def test_connections_past_the_bound_get_503_and_metrics_still_answer():
     engine, _ = serve_main.build_engine(serve_main.parse_args(BASE))
     httpd = serve_main.serve(engine, 0, host="127.0.0.1", max_connections=1)
@@ -295,9 +300,14 @@ def test_connections_past_the_bound_get_503_and_metrics_still_answer():
         assert b" 200 " in first.split(b"\r\n")[0]
         assert b"\ntpu_serving_http_rejected_total 0.0" in first
         assert b"# HELP tpu_serving_http_rejected_total" in first
-        # one idle connection fills the pool of 1
+        # one idle connection fills the pool of 1: wait until the server
+        # has let the scrape's slot go and holds this one's (under load
+        # either can lag the client's view)
+        _until(lambda: httpd._conn_sem._value == 1,
+               "the scrape's slot released")
         held = socket.create_connection(("127.0.0.1", port), timeout=5)
-        time.sleep(0.2)
+        _until(lambda: httpd._conn_sem._value == 0,
+               "the idle connection's slot taken")
         out = _http(port, b"GET /debug/engine HTTP/1.1\r\nHost: x\r\n\r\n")
         head = out.split(b"\r\n\r\n")[0]
         assert head.startswith(b"HTTP/1.1 503")

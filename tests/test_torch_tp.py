@@ -28,8 +28,9 @@ The JAX side runs on a ``tensor`` mesh of the 8 virtual CPU devices that
   and its pages copied back), speculative, int4 weights over an int8 arena, and a
   replicated arena, with zero leaked pages after drain;
 - ``serve_main`` refuses a tensor degree below 1, one that does not divide
-  the head counts, and MLA and MoE models under it, before any weight is
-  drawn; ``Mesh`` refuses ``tensor`` beside ``seq``.
+  the head counts, and MLA models under it, and an expert degree below 1,
+  without an MoE model or not dividing its expert count, before any
+  weight is drawn; ``Mesh`` refuses ``tensor`` beside ``seq``.
 
 Tolerances: f32 sums in other orders over two layers (1e-5 on logits of
 magnitude ~1; the per-shard products and the psum reorder the sums).
@@ -351,7 +352,12 @@ def test_tp_engine_greedy_tokens_match_the_jax_engine(case):
     (["--tensor-parallel", "0"], ">= 1"),
     (["--tensor-parallel", "3"], "divide the model's head counts"),
     (["--model", "tiny-mla", "--tensor-parallel", "2"], "Queue 1 #9"),
-    (["--model", "tiny-moe", "--tensor-parallel", "2"], "Queue 1 #8"),
+    # MoE serves under a tensor mesh (tests/test_torch_expert_parallel.py);
+    # the expert degree is checked as the JAX CLI checks it
+    (["--model", "tiny-moe", "--expert-parallel", "0"], ">= 1"),
+    (["--expert-parallel", "2"], "needs an MoE model"),
+    (["--model", "tiny-moe", "--expert-parallel", "3"],
+     "n_experts it divides"),
 ])
 def test_serve_main_refuses_before_any_weight(argv, match, monkeypatch):
     import k8s_runpod_kubelet_tpu_torch.models as models
